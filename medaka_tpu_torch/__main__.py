@@ -1,0 +1,7 @@
+"""`python -m medaka_tpu_torch` entry point."""
+import sys
+
+from medaka_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

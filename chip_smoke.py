@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU, the
 CUDA toolkit (``nvcc``) and PyTorch for CUDA:
@@ -9,24 +9,35 @@ CUDA toolkit (``nvcc``) and PyTorch for CUDA:
 Phases, each of which fails the script when it fails:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``medaka_tpu_torch/csrc`` with ``nvcc``,
-   and the host-side pileup library with ``g++``;
-3. hold both kernels against their plain PyTorch versions at full width
-   (H=256, 10 features, 5 classes, T=2000, ragged lengths) in all four
-   numerics combinations: mode "t" at B=256 and mode "rows" at B=64,
-   each with int8 quantisation on and off;
+2. build the CUDA kernels from ``medaka_tpu_torch/csrc`` with ``nvcc``
+   (one process per source, all at once), and the host-side pileup and
+   read-matrix library with ``g++``;
+3. hold the split-path GRU kernels against their plain PyTorch versions
+   at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
+   in all four numerics combinations: mode "t" at B=256 and mode "rows"
+   at B=64, each with int8 quantisation on and off; hold the bi-LSTM
+   kernel against its plain version at H=128 (B=128, T=1000) and H=384
+   (B=32, T=500), ragged lengths, random weights;
 4. write a synthetic 0.5 Mb BAM at depth 20 and its draft;
-5. the main path: ``medaka_tpu_torch inference`` with the bundled
+5. the counts main path: ``medaka_tpu_torch inference`` with the bundled
    ``gru256_lambda_demo_model_pt`` at chunk_len 10000 and the automatic
    batch, then ``sequence``, through the CLI entry point in this process
-   with every kernel launch count set to 0 just before;
-6. check the output: finite probabilities that sum to 1, the consensus
+   with the split kernels' launch counts set to 0 just before;
+6. check its output: finite probabilities that sum to 1, the consensus
    identity to the draft, and the int8 kernels against the float32 scan
    on eight real chunks;
-7. at the main path's shape, hold each kernel against its plain version
-   and time it beside its plain version, the cuDNN ``nn.GRU`` yardstick
-   and its bound; the same for mode "rows" on 64 rows; print one
-   ``kernels`` JSON line.
+7. at its shape, hold each split kernel against its plain version and
+   time it beside its plain version, the cuDNN ``nn.GRU`` yardstick and
+   its bound; the same for mode "rows" on 64 rows;
+8. the read-level main path: ``inference`` with the bundled
+   ``rl_lstm128_lambda_demo`` at chunk_len 1000, overlap 100 and the
+   automatic batch, then ``sequence``, with the bi-LSTM kernel's launch
+   count set to 0 just before; the same output checks;
+9. on one full batch of that path: the model through the kernel against
+   the model through the kernel's plain version, a stage breakdown
+   (CUDA events), and the kernel's time beside its plain version, its
+   serial floor (one column), the cuDNN ``nn.LSTM`` yardstick and its
+   bound; print one ``kernels`` JSON line.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -34,16 +45,21 @@ imports nothing of JAX and nothing of the ``medaka_tpu`` package.
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MODEL = os.path.join(HERE, "medaka_tpu", "data",
                      "gru256_lambda_demo_model_pt.tar.gz")
+RL_MODEL = os.path.join(HERE, "medaka_tpu", "data",
+                        "rl_lstm128_lambda_demo.tar.gz")
 KERNEL_SOURCE = "medaka_tpu_torch/csrc/gru_split.cu"
+BILSTM_SOURCE = "medaka_tpu_torch/csrc/bilstm.cu"
 REPLACES = {
     "gru_l1_split": "medaka_tpu/ops/pallas_gru.py:1371 "
                     "(_bigru_l1_split_t_kernel, mode t); :982 "
@@ -51,12 +67,22 @@ REPLACES = {
     "gru_l2head_split": "medaka_tpu/ops/pallas_gru.py:1452 "
                         "(_bigru_l2head_t_kernel, mode t); :1055 "
                         "(_bigru_l2head_kernel, mode rows)",
+    "bilstm_fused": "medaka_tpu/ops/pallas_gru.py:340 _bilstm_kernel "
+                    "(bilstm_pallas :400)",
 }
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
-# bf16 flop/s
+# bf16 flop/s, f32 flop/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+# bi-LSTM kernel vs its plain version: the same operations, f32 sums of
+# the recurrent product in another order, which can move one bf16
+# rounding of h: one bf16 step for |h| < 1
+TOL_LSTM = 2.0 ** -8
+# f32 operations per hidden unit and step besides the product: 8 gate
+# adds, 3 sigmoids of 4 and 2 tanh of 1, 3 for c, 1 for h
+LSTM_ELEMENTWISE_OPS = 26
 # kernel vs plain version: both do the same operations; only the order of
 # f32 sums differs (cuBLAS vs a sequential loop), which can move one
 # round(127 h) or bf16 cast across a rounding boundary
@@ -244,6 +270,135 @@ def bound(kind, B, H, IN, C, lengths_sum):
     return t_ops, "operations"
 
 
+def check_probabilities(datastore, hdf):
+    """Finite (n, 5) probabilities summing to 1 in every sample of
+    ``hdf``; returns (samples, columns)."""
+    import numpy as np
+    index = datastore.DataIndex(hdf)
+    n_columns = 0
+    with datastore.DataStore(hdf) as ds:
+        for name, _ in index.samples:
+            probs = ds.load_sample(name).label_probs
+            if probs.ndim != 2 or probs.shape[1] != 5 or \
+                    not np.all(np.isfinite(probs)):
+                raise AssertionError("bad probabilities " + name)
+            if np.abs(probs.sum(-1) - 1).max() > 1e-2:
+                raise AssertionError("probabilities do not sum to 1")
+            n_columns += probs.shape[0]
+    return len(index.samples), n_columns
+
+
+def consensus_identity(testing, fasta, draft):
+    """(identity to the draft, edits, consensus length); the edits are the
+    upper bound of ``testing.greedy_edit_count``."""
+    from medaka_tpu_torch.io.fastx import FastaReader
+    with FastaReader(draft) as fr:
+        draft_seq = fr.fetch("synth")
+    with FastaReader(fasta) as fr:
+        consensus = fr.fetch("synth")
+    edits = testing.greedy_edit_count(consensus.encode(), draft_seq.encode())
+    return 1.0 - edits / len(draft_seq), edits, len(consensus)
+
+
+def random_lstm_inputs(rng, H, B, T, dev):
+    """bilstm_fused arguments: bf16 projections, uniform weights and
+    biases as torch initialises them, ragged lengths (the first full)."""
+    import torch
+    k = 1.0 / H ** 0.5
+
+    def uniform(lo, hi, shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype("float32"))
+
+    lengths = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype("int32"))
+    lengths[0] = T
+    return (uniform(-2, 2, (T, B, 4 * H)).to(dev, torch.bfloat16),
+            uniform(-2, 2, (T, B, 4 * H)).to(dev, torch.bfloat16),
+            uniform(-k, k, (2, 4 * H, H)).to(dev),
+            uniform(-k, k, (2, 4 * H)).to(dev), lengths.to(dev))
+
+
+def compare_bilstm(bilstm, args):
+    """bilstm_fused against its plain version on the same inputs, both
+    directions; returns (max, mean) absolute difference."""
+    import torch
+    got = bilstm.bilstm_fused(*args)
+    want = bilstm.bilstm_fused_plain(*args)
+    torch.cuda.synchronize()
+    diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+    err = max(d.max().item() for d in diffs)
+    mean = max(d.mean().item() for d in diffs)
+    if err > TOL_LSTM or mean > TOL_L1_MEAN:
+        raise AssertionError("bilstm_fused disagrees with its plain version:"
+                             " max {} mean {}".format(err, mean))
+    return err, mean
+
+
+def read_level_stages(model, bilstm, x, lengths, plain=False, events=None):
+    """``LatentSpaceLSTM``'s bf16 forward stage by stage, the LSTM stack as
+    ``bilstm_stack_fused`` runs it; returns the logits.
+
+    :param plain: run the kernel's plain version in its place.
+    :param events: a list to which (stage, start, stop) CUDA events are
+        appended.
+    """
+    import torch
+    cd = torch.bfloat16
+    layer_fn = bilstm.bilstm_fused_plain if plain else bilstm.bilstm_fused
+
+    def stage(name, fn, *args):
+        if events is None:
+            return fn(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        stop.record()
+        events.append((name, start, stop))
+        return out
+
+    def projections(out, fwd, bwd):
+        return (bilstm.project(out, fwd["w_ih"], fwd["b_ih"], cd),
+                bilstm.project(out, bwd["w_ih"], bwd["b_ih"], cd))
+
+    feats, non_empty = stage("embed + convs + BN", model.read_features, x,
+                             cd)
+    pooled = stage("mean-pool + pre_pool", model.pool, feats, non_empty, cd)
+    del feats
+    out = pooled.transpose(0, 1)
+    for k, layer in enumerate(model.layer_params(), start=1):
+        fwd, bwd = layer["fwd"], layer["bwd"]
+        xp_f, xp_b = stage("projections, layer {}".format(k), projections,
+                           out, fwd, bwd)
+        w_hh = torch.stack([fwd["w_hh"], bwd["w_hh"]])
+        b_hh = torch.stack([fwd["b_hh"], bwd["b_hh"]])
+        out_f, out_b = stage("bilstm_fused, layer {}".format(k), layer_fn,
+                             xp_f, xp_b, w_hh, b_hh, lengths)
+        out = torch.cat([out_f, out_b], dim=-1)
+    return stage("head", model.head, out.transpose(0, 1))
+
+
+def bilstm_bound(B, H, lengths_sum):
+    """Least time (ms) of one bilstm_fused call, and what bounds it.
+
+    Counted over the valid columns (``lengths_sum``), as for the split
+    kernels. Bytes: both directions' bf16 projections read and bf16
+    outputs written once, the f32 W_hh and b_hh and the lengths read
+    once, over the memory rate. Operations: the recurrent products
+    (2 x 4H x H multiply-adds per direction, column and step) at the bf16
+    tensor-core peak, plus LSTM_ELEMENTWISE_OPS f32 operations per unit,
+    direction and step at the f32 peak.
+    """
+    G = 4 * H
+    nbytes = (2 * lengths_sum * G * 2 + 2 * lengths_sum * H * 2
+              + 2 * G * H * 4 + 2 * G * 4 + B * 4)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (2 * 2 * lengths_sum * G * H / PEAK_BF16
+             + 2 * lengths_sum * H * LSTM_ELEMENTWISE_OPS / PEAK_F32) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes"
+    return t_ops, "operations"
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -259,8 +414,7 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     from medaka_tpu_torch import cli, datastore, features, models, \
         native, prediction, testing
-    from medaka_tpu_torch.io.fastx import FastaReader
-    from medaka_tpu_torch.ops import cuda_build, gru_split
+    from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -270,19 +424,29 @@ def main(argv=None):
     log("card:", card)
 
     with phase("build"):
-        t0 = time.perf_counter()
-        gru_split.build()
-        log("   nvcc build {:.1f} s".format(time.perf_counter() - t0))
-        # the host-side pileup library too, so that its one-time g++
-        # build does not land in the main path's timing
-        t0 = time.perf_counter()
-        if not native.available():
-            raise AssertionError("the native pileup library did not build")
-        log("   g++ build {:.1f} s".format(time.perf_counter() - t0))
-        for text in cuda_build.BUILD_LOGS.values():
+        # one nvcc for each kernel source and the g++ build of the
+        # host-side pileup and read-matrix library, all at once, so that
+        # no one-time build lands in a main path's timing
+        def timed(fn):
+            t0 = time.perf_counter()
+            fn()
+            return time.perf_counter() - t0
+
+        def native_build():
+            if not native.available():
+                raise AssertionError("the native library did not build")
+
+        builds = {"nvcc gru_split.cu": gru_split.build,
+                  "nvcc bilstm.cu": bilstm.build, "g++ native": native_build}
+        with ThreadPoolExecutor(len(builds)) as pool:
+            futures = {name: pool.submit(timed, fn)
+                       for name, fn in builds.items()}
+            for name, future in futures.items():
+                log("   {} build {:.1f} s".format(name, future.result()))
+        for source, text in cuda_build.BUILD_LOGS.items():
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
-                    log("  ", line.strip())
+                    log("  ", source, line.strip())
 
     with phase("kernels vs plain versions, T=2000, four combinations"):
         layers, head = random_net(rng)
@@ -303,6 +467,13 @@ def main(argv=None):
                     "agreement {:.6f}".format(
                         mode, B, quant, l1_err, l2_err, stats["max"],
                         stats["mean"], stats["argmax_agreement"]))
+
+    with phase("bi-LSTM kernel vs plain version, H=128 and H=384"):
+        for H, B, T in ((128, 128, 1000), (384, 32, 500)):
+            err, mean = compare_bilstm(
+                bilstm, random_lstm_inputs(rng, H, B, T, dev))
+            log("   H={} B={} T={}: max {:.3g}, mean {:.3g}".format(
+                H, B, T, err, mean))
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -336,17 +507,7 @@ def main(argv=None):
             raise AssertionError("a kernel of the main path never launched")
 
         with phase("check the output"):
-            index = datastore.DataIndex(hdf)
-            n_columns = 0
-            with datastore.DataStore(hdf) as ds:
-                for name, _ in index.samples:
-                    probs = ds.load_sample(name).label_probs
-                    if probs.ndim != 2 or probs.shape[1] != 5 or \
-                            not np.all(np.isfinite(probs)):
-                        raise AssertionError("bad probabilities " + name)
-                    if np.abs(probs.sum(-1) - 1).max() > 1e-2:
-                        raise AssertionError("probabilities do not sum to 1")
-                    n_columns += probs.shape[0]
+            n_samples, n_columns = check_probabilities(datastore, hdf)
             # the int8 kernels ("t") against the float32 scan, 8 chunks
             region = prediction.plan_work(None, bam)[0]
             samples = features.SampleGenerator(
@@ -373,19 +534,13 @@ def main(argv=None):
                     agree.item() < MIN_SCAN_ARGMAX_AGREEMENT:
                 raise AssertionError("kernels vs scan exceed the int8 bars")
 
-            with FastaReader(draft) as fr:
-                draft_seq = fr.fetch("synth")
-            with FastaReader(fasta) as fr:
-                consensus = fr.fetch("synth")
-            edits = testing.greedy_edit_count(consensus.encode(),
-                                              draft_seq.encode())
-            identity = 1.0 - edits / len(draft_seq)
+            identity, edits, cons_len = consensus_identity(testing, fasta,
+                                                           draft)
             log("   {} samples, {} columns in {:.2f} s of inference: {:.0f} "
                 "columns/s; consensus {} bp, identity to the draft {:.6f} "
                 "({} edits by greedy walk)".format(
-                    len(index.samples), n_columns, t_inference,
-                    n_columns / t_inference, len(consensus), identity,
-                    edits))
+                    n_samples, n_columns, t_inference,
+                    n_columns / t_inference, cons_len, identity, edits))
             if identity < 0.99:
                 raise AssertionError("consensus identity {} < 0.99".format(
                     identity))
@@ -556,6 +711,145 @@ def main(argv=None):
                                    "ms".format(width, H, RB, lib_ms)}
                     log("   {} mode rows: {}".format(
                         row["name"], json.dumps(row["rows_mode"])))
+
+        torch.cuda.empty_cache()
+        rl_bundle = models.load_model(RL_MODEL)
+        max_reads = rl_bundle.feature_encoder.max_reads
+        rl_batch = prediction.auto_batch_size(
+            rl_bundle.model, dev, chunk_len=1000, max_reads=max_reads)
+        log("   read-level automatic batch {}".format(rl_batch))
+        rl_hdf = os.path.join(work, "rl_probs.hdf")
+        rl_fasta = os.path.join(work, "rl_consensus.fasta")
+        with phase("read-level main path: inference + sequence"):
+            bilstm.reset_launches()
+            t0 = time.perf_counter()
+            if cli.main(["inference", bam, rl_hdf, "--model", RL_MODEL,
+                         "--chunk_len", "1000", "--chunk_ovlp", "100"]) != 0:
+                raise AssertionError("read-level inference failed")
+            torch.cuda.synchronize()
+            t_rl = time.perf_counter() - t0
+            rl_launches = bilstm.LAUNCHES["bilstm_fused"]
+            if cli.main(["sequence", rl_hdf, draft, rl_fasta]) != 0:
+                raise AssertionError("read-level sequence failed")
+        log("   launches on the read-level path:", dict(bilstm.LAUNCHES))
+
+        with phase("check the read-level output"):
+            rl_samples, rl_columns = check_probabilities(datastore, rl_hdf)
+            n_batches = math.ceil(rl_samples / rl_batch)
+            if rl_launches != 2 * n_batches:
+                raise AssertionError(
+                    "bilstm_fused launched {} times for {} batches (2 "
+                    "layers each)".format(rl_launches, n_batches))
+            rl_identity, rl_edits, rl_len = consensus_identity(
+                testing, rl_fasta, draft)
+            log("   {} samples, {} columns in {:.2f} s of inference: {:.0f} "
+                "columns/s; consensus {} bp, identity to the draft {:.6f} "
+                "({} edits by greedy walk)".format(
+                    rl_samples, rl_columns, t_rl, rl_columns / t_rl, rl_len,
+                    rl_identity, rl_edits))
+            if rl_identity < 0.99:
+                raise AssertionError("read-level consensus identity {} < "
+                                     "0.99".format(rl_identity))
+
+        with phase("read-level batch: kernel vs plain, stages, timings"):
+            region = prediction.plan_work(None, bam)[0]
+            samples = features.SampleGenerator(
+                bam, region, rl_bundle.feature_encoder, chunk_len=1000,
+                chunk_overlap=100).samples[:rl_batch]
+            rl_main = prediction.Batch.collate(samples, rl_batch, 1000,
+                                               max_reads)
+            x = torch.from_numpy(rl_main.features).to(dev)
+            lens = torch.from_numpy(rl_main.lengths).to(dev)
+            B, T, R = x.shape[0], x.shape[1], x.shape[2]
+            H = rl_bundle.model.lstm_size
+            model = rl_bundle.model.to(dev).eval()
+            valid = (torch.arange(T, device=dev)[None, :]
+                     < lens[:, None].long())
+            with torch.inference_mode():
+                direct = model(x, lengths=lens, normalise=False,
+                               compute_dtype=torch.bfloat16)
+                staged = read_level_stages(model, bilstm, x, lens)
+                plain = read_level_stages(model, bilstm, x, lens, plain=True)
+            if not torch.equal(direct, staged):
+                raise AssertionError("the staged forward differs from the "
+                                     "model's")
+            pk, pp = torch.softmax(staged, -1)[valid], \
+                torch.softmax(plain, -1)[valid]
+            diff = (pk - pp).abs()
+            rl_stats = {"max": diff.max().item(), "mean": diff.mean().item(),
+                        "argmax_agreement": (pk.argmax(-1) == pp.argmax(-1))
+                        .float().mean().item()}
+            log("   B={} T={} R={}: model through the kernel vs through its "
+                "plain version: probs max {:.3g} mean {:.3g}, argmax "
+                "agreement {:.6f}".format(B, T, R, rl_stats["max"],
+                                          rl_stats["mean"],
+                                          rl_stats["argmax_agreement"]))
+            if rl_stats["max"] > TOL_PROB or \
+                    rl_stats["argmax_agreement"] < MIN_ARGMAX_AGREEMENT:
+                raise AssertionError("read-level kernel path disagrees with "
+                                     "the plain path: {}".format(rl_stats))
+
+            # stage breakdown of one batch (after the warm-up above)
+            events = []
+            with torch.inference_mode():
+                read_level_stages(model, bilstm, x, lens, events=events)
+            torch.cuda.synchronize()
+            stages = {}
+            for name, start, stop in events:
+                stages[name] = stages.get(name, 0.0) + start.elapsed_time(stop)
+            log("   stage breakdown (ms): " + json.dumps(stages))
+
+            # the kernel at the main path's shape: layer 1's inputs
+            with torch.inference_mode():
+                feats, non_empty = model.read_features(x, torch.bfloat16)
+                pooled = model.pool(feats, non_empty, torch.bfloat16)
+                del feats
+                layer = model.layer_params()[0]
+                fwd, bwd = layer["fwd"], layer["bwd"]
+                pooled_t = pooled.transpose(0, 1)
+                xp_f = bilstm.project(pooled_t, fwd["w_ih"], fwd["b_ih"])
+                xp_b = bilstm.project(pooled_t, bwd["w_ih"], bwd["b_ih"])
+                largs = (xp_f, xp_b, torch.stack([fwd["w_hh"], bwd["w_hh"]]),
+                         torch.stack([fwd["b_hh"], bwd["b_hh"]]), lens)
+                err, mean = compare_bilstm(bilstm, largs)
+                one = (xp_f[:, :1].contiguous(), xp_b[:, :1].contiguous(),
+                       largs[2], largs[3], lens[:1])
+                lstm_ms = cuda_ms(lambda: bilstm.bilstm_fused(*largs))
+                lstm_plain_ms = cuda_ms(
+                    lambda: bilstm.bilstm_fused_plain(*largs), reps=1,
+                    warmup=0)
+                floor_ms = cuda_ms(lambda: bilstm.bilstm_fused(*one))
+                # yardstick (the port never calls it): cuDNN's bi-LSTM
+                # over the same rows, its input projection included
+                lstm = torch.nn.LSTM(H, H, 1, batch_first=True,
+                                     bidirectional=True).to(dev,
+                                                            torch.bfloat16)
+                lstm.flatten_parameters()
+                lib_ms = cuda_ms(lambda: lstm(pooled))
+                del lstm
+            lstm_sum = int(rl_main.lengths.sum())
+            bound_ms, bound_by = bilstm_bound(B, H, lstm_sum)
+            rows.append({
+                "name": "bilstm_fused", "route": "cuda",
+                "source": BILSTM_SOURCE, "replaces": REPLACES["bilstm_fused"],
+                "launches": rl_launches, "max_abs_err": err,
+                "mean_abs_err": mean, "ms": lstm_ms, "kernel_ms": lstm_ms,
+                "plain_ms": lstm_plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "library": "torch.nn.LSTM({0}, {0}, 1, bidirectional=True) "
+                           "bf16 (cuDNN) over the same {1} rows, its input "
+                           "projection included: {2:.2f} ms".format(
+                               H, B, lib_ms),
+                "serial_floor_ms": floor_ms,
+                "shape": {"B": B, "T": T, "H": H, "reads": R,
+                          "valid_columns": lstm_sum},
+                "model_vs_plain": rl_stats, "stages_ms": stages,
+                "read_level_columns_per_s": rl_columns / t_rl,
+            })
+            log("   bilstm_fused: {:.3f} ms per layer (plain {:.1f} ms, "
+                "bound {:.4f} ms by {}, one column {:.3f} ms; {})".format(
+                    lstm_ms, lstm_plain_ms, bound_ms, bound_by, floor_ms,
+                    rows[-1]["library"]))
     finally:
         import shutil
         shutil.rmtree(work, ignore_errors=True)

@@ -1,8 +1,10 @@
 """Core data structures: genomic regions, pileup samples and their algebra.
 
-Counterpart of ``medaka_tpu/common.py``, trimmed to what the counts
-consensus path uses, plus :func:`resolve_device` for the port's entry
-points.
+Counterpart of ``medaka_tpu/common.py``, trimmed to what the counts and
+read-level consensus paths use, plus :func:`resolve_device` for the
+port's entry points. A ``Sample`` carries 2-D (positions, features)
+counts or 3-D (positions, reads, channels) int8 read-level features;
+slicing, chunking and depth filtering act on the first axis of either.
 """
 from __future__ import annotations
 

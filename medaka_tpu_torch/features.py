@@ -1,15 +1,17 @@
-"""Counts pileup featurisation: BAM alignments -> network input arrays.
+"""Pileup featurisation: BAM alignments -> network input arrays.
 
-Counterpart of ``medaka_tpu/features.py``, trimmed to the counts
-encoder: ``pileup_counts`` with its native helpers,
-``CountsFeatureEncoder`` and ``SampleGenerator``. The run-length and
-read-level encoders are not ported yet; ``from_dict`` refuses them by
-name.
+Counterpart of ``medaka_tpu/features.py``, trimmed to the counts and
+read-level encoders: ``pileup_counts`` with its native helpers,
+``CountsFeatureEncoder``, ``read_alignment_matrix``,
+``ReadAlignmentFeatureEncoder`` and ``SampleGenerator``. The run-length
+encoders are not ported yet; ``from_dict`` refuses them by name.
 
 A single-datatype region goes from BGZF bytes to counts in the native
 library (``native/src/pileup.cpp``). Regions it cannot take (several
 datatypes, no .bai, CG long cigars) expand each CIGAR with numpy into
 flat event arrays (column, channel) reduced with one ``bincount``.
+Read-level matrices are filled by ``native/src/read_matrix.cpp``, and by
+a per-read numpy path only for regions holding a CG long cigar.
 """
 from __future__ import annotations
 
@@ -66,6 +68,58 @@ def filter_read(
         if rec.tags.get("RG") != read_group:
             return False
     return True
+
+
+class ReadEvents:
+    """CIGAR-expansion of one read clipped to a region.
+
+    Attributes are flat numpy arrays describing where each query base and
+    each deletion lands in (reference position, minor index) space.
+    """
+
+    __slots__ = (
+        "aln_rpos", "aln_qpos", "ins_anchor", "ins_minor", "ins_qpos",
+        "del_rpos", "cover_start", "cover_end", "is_rev", "rec")
+
+    def __init__(self, rec: BamRecord, start: int, end: int):
+        self.rec = rec
+        self.is_rev = rec.is_reverse
+        ca = rec.cigar_array
+        ops, lens = ca[:, 0], ca[:, 1]
+        q_excl = np.cumsum(_CONSUMES_Q[ops] * lens) - _CONSUMES_Q[ops] * lens
+        r_excl = rec.pos + (
+            np.cumsum(_CONSUMES_R[ops] * lens) - _CONSUMES_R[ops] * lens)
+
+        def expand(op_mask):
+            """(op_index repeated, within-op offset) for selected ops."""
+            sel = np.flatnonzero(op_mask)
+            ls = lens[sel]
+            idx = np.repeat(sel, ls)
+            off = np.arange(ls.sum()) - np.repeat(np.cumsum(ls) - ls, ls)
+            return idx, off
+
+        # aligned bases
+        idx, off = expand((ops == C_M) | (ops == C_EQ) | (ops == C_X))
+        rp = r_excl[idx] + off
+        keep = (rp >= start) & (rp < end)
+        self.aln_rpos = rp[keep]
+        self.aln_qpos = (q_excl[idx] + off)[keep]
+
+        # deletions
+        idx, off = expand(ops == C_D)
+        rp = r_excl[idx] + off
+        self.del_rpos = rp[(rp >= start) & (rp < end)]
+
+        # insertions: anchored at the last consumed reference base
+        idx, off = expand(ops == C_I)
+        anchor = r_excl[idx] - 1
+        keep = (anchor >= rec.pos) & (anchor >= start) & (anchor < end)
+        self.ins_anchor = anchor[keep]
+        self.ins_minor = off[keep] + 1
+        self.ins_qpos = (q_excl[idx] + off)[keep]
+
+        self.cover_start = max(rec.pos, start)
+        self.cover_end = min(rec.reference_end, end)
 
 
 class BatchedReadEvents:
@@ -163,8 +217,9 @@ class BatchedReadEvents:
             end)
 
 
-def _split_counts_blocks(counts, majors, minors):
-    """Split kernel output into contiguous blocks on major-coord gaps."""
+def _split_blocks(counts, majors, minors):
+    """Split per-column kernel output into contiguous blocks on gaps in
+    the major coordinates."""
     positions = make_positions(majors, minors)
     if len(majors) == 0:
         return [(counts, positions)]
@@ -212,7 +267,7 @@ def _pileup_counts_payload(reader, region, num_qstrat, min_mapq,
     counts, majors, minors = native.pileup_counts_raw(
         payload, rec_off, np.zeros(len(rec_off) - 1, np.int32),
         region.start, region.end, 1, num_qstrat)
-    return _split_counts_blocks(counts, majors, minors)
+    return _split_blocks(counts, majors, minors)
 
 
 def pileup_counts(
@@ -525,6 +580,311 @@ class CountsFeatureEncoder(BaseFeatureEncoder):
         return Sample(
             ref_name=region.ref_name, features=feature_array, labels=None,
             ref_seq=None, positions=positions, label_probs=None, depth=depth)
+
+
+# ---------------------------------------------------------------------------
+# Read-level (3-D) feature matrices
+# ---------------------------------------------------------------------------
+
+# strand-symmetric nt16 -> base code (1..4), 0 = pad, 5 = deletion
+# (reference ``medaka_read_matrix.h:37-46``)
+NT16_TO_SYMM = np.zeros(16, dtype=np.int8)
+for _code, _base in ((1, 1), (2, 2), (4, 3), (8, 4)):
+    NT16_TO_SYMM[_code] = _base
+READ_DEL_VAL = 5
+BASE_FEATLEN = 4  # base, qual, strand, mapq
+READ_ROW_MIN_GAP = 5  # reference ``medaka_read_matrix.c:329``
+
+
+def calculate_dwells(rec: BamRecord) -> Optional[np.ndarray]:
+    """Per-base dwell times (basecaller strides) from the ``mv`` tag.
+
+    Mirrors ``calculate_dwells`` (``medaka_read_matrix.c:169-228``):
+    returns None when the tag is absent or inconsistent with the
+    sequence length (clipped records).
+    """
+    mv = rec.tags.get("mv")
+    if mv is None:
+        return None
+    mv = np.asarray(mv)
+    length = len(rec.seq_nt16)
+    # tag layout: [stride, move, move, ...]; a move of 1 starts a base
+    moves = np.flatnonzero(mv[1:] == 1) + 1  # indices into mv
+    if len(moves) != length:
+        common.get_named_logger("Dwells").debug(
+            "Invalid move array detected for read %s.", rec.query_name)
+        return None
+    out = np.empty(length, dtype=np.int64)
+    if rec.is_reverse:
+        # the first basecalled base is the last stored base
+        bounds = np.concatenate((moves, [len(mv)]))
+        out[:] = np.diff(bounds)[::-1]
+    else:
+        out[:-1] = np.diff(moves)
+        out[-1] = len(mv) - moves[-1]
+    return np.minimum(out, np.iinfo(np.int8).max).astype(np.int8)
+
+
+def _read_matrix_native(reads, start, end, dtype_index, num_dtypes,
+                        include_dwells, include_haplotype, row_per_read,
+                        max_reads):
+    """Native read-level matrix; None when a read has a CG long cigar.
+
+    Tag-derived per-read values (DT, HP, dwells from ``mv``) are parsed
+    here; the C++ kernel (``native/src/read_matrix.cpp``) does the
+    O(reads x bases) fill over raw BAM record bytes. Native faults raise.
+    """
+    from medaka_tpu_torch import native
+    if any(r.has_long_cigar for r in reads):
+        return None  # CG-tag long cigars: the numpy path expands them
+    n = len(reads)
+    read_dtype = np.zeros(n, dtype=np.int32)
+    if num_dtypes > 1:
+        for i, rec in enumerate(reads):
+            dt_tag = rec.tags.get("DT")
+            if dt_tag is None or dt_tag not in dtype_index:
+                raise ValueError(
+                    "Datatype not found for {}.".format(rec.query_name))
+            read_dtype[i] = dtype_index[dt_tag]
+    read_hap = np.zeros(n, dtype=np.int8)
+    if include_haplotype:
+        for i, rec in enumerate(reads):
+            read_hap[i] = int(rec.tags.get("HP", 0))
+    dwell_off = np.full(n, -1, dtype=np.int64)
+    dwell_parts = []
+    if include_dwells:
+        total = 0
+        for i, rec in enumerate(reads):
+            dw = calculate_dwells(rec)
+            if dw is not None:
+                dwell_off[i] = total
+                dwell_parts.append(dw)
+                total += len(dw)
+    dwells = (np.concatenate(dwell_parts) if dwell_parts
+              else np.empty(0, np.int8))
+    raw = [r.raw for r in reads]
+    rec_off = np.zeros(n + 1, dtype=np.int64)
+    rec_off[1:] = np.cumsum([len(b) for b in raw])
+    matrix, majors, minors, _left, _right = native.read_matrix_raw(
+        b"".join(raw), rec_off, read_dtype, read_hap, dwells, dwell_off,
+        start, end, num_dtypes, include_dwells, include_haplotype,
+        row_per_read, max_reads)
+    return _split_blocks(matrix, majors, minors)
+
+
+def read_alignment_matrix(
+        region: Region, bam, dtype_prefixes=None, tag_name=None,
+        tag_value=None, keep_missing=False, read_group=None, min_mapq=1,
+        row_per_read=False, include_dwells=True, include_haplotype=False,
+        max_reads=100):
+    """Build read-level feature tensors for a region.
+
+    Counterpart of ``read_alignment_matrix`` in ``medaka_tpu/features.py``:
+    an int8 tensor (n_cols, n_reads, featlen) with per-read channels [base,
+    qual, strand, mapq(, dwell)(, haplotype)(, dtype)] following
+    ``calculate_read_alignment`` (``src/medaka_read_matrix.c:277-615``):
+    deletion columns get ``del_val=5``/qual -1, columns a read spans but
+    has no insertion for are filled as deletions, read rows are reused
+    once a prior occupant has ended ``min_gap=5`` positions earlier. The
+    whole region is processed in one pass, so row identity is globally
+    consistent.
+
+    :returns: list of (matrix, positions) per contiguous coverage block.
+    """
+    logger = common.get_named_logger("ReadMatrix")
+    if dtype_prefixes is None or isinstance(dtype_prefixes, str):
+        dtypes = [""]
+    else:
+        dtypes = list(dtype_prefixes)
+    num_dtypes = len(dtypes)
+    dtype_index = {d: i for i, d in enumerate(dtypes)}
+    featlen = (BASE_FEATLEN + int(include_dwells) + int(include_haplotype)
+               + int(num_dtypes > 1))
+    start, end = region.start, region.end
+    span = end - start
+
+    reader = bam if isinstance(bam, BamReader) else BamReader(bam)
+    try:
+        reads = [
+            rec for rec in reader.fetch(region.ref_name, start, end)
+            if filter_read(
+                rec, min_mapq, tag_name, tag_value, keep_missing,
+                read_group)]
+    finally:
+        if reader is not bam:
+            reader.close()
+
+    def empty():
+        return [(
+            np.empty((0, 0, featlen), dtype=np.int8),
+            make_positions([], []))]
+
+    if not reads:
+        return empty()
+
+    native_result = _read_matrix_native(
+        reads, start, end, dtype_index, num_dtypes, include_dwells,
+        include_haplotype, row_per_read, max_reads)
+    if native_result is not None:
+        return native_result
+
+    events = [ReadEvents(rec, start, end) for rec in reads]
+    events = [ev for ev in events if ev.cover_end > ev.cover_start]
+    if not events:
+        return empty()
+
+    # column geometry (as for counts)
+    cover = np.zeros(span + 1, dtype=np.int32)
+    max_ins = np.zeros(span, dtype=np.int64)
+    for ev in events:
+        cover[ev.cover_start - start] += 1
+        cover[ev.cover_end - start] -= 1
+        if len(ev.ins_anchor):
+            np.maximum.at(
+                max_ins, ev.ins_anchor - start,
+                ev.ins_minor.astype(np.int64))
+    covered = np.cumsum(cover[:-1]) > 0
+    cov_pos = np.flatnonzero(covered)
+    if len(cov_pos) == 0:
+        return empty()
+    cols_per_pos = 1 + max_ins[cov_pos]
+    col_start = np.concatenate(([0], np.cumsum(cols_per_pos)))
+    n_cols = int(col_start[-1])
+    col_of_pos = np.full(span, -1, dtype=np.int64)
+    col_of_pos[cov_pos] = col_start[:-1]
+    majors = np.repeat(cov_pos + start, cols_per_pos)
+    minors = np.arange(n_cols) - np.repeat(col_start[:-1], cols_per_pos)
+
+    # row assignment in pileup order with slot reuse
+    row_end: List[int] = []    # current occupant's reference end per row
+    rows: List[int] = []       # row of each event (-1 = dropped)
+    for ev in events:
+        p0 = ev.cover_start
+        row = None
+        if not row_per_read:
+            for r, rend in enumerate(row_end):
+                if p0 >= rend + READ_ROW_MIN_GAP:
+                    row = r
+                    break
+        if row is None:
+            row = len(row_end)
+            row_end.append(ev.rec.reference_end)
+        else:
+            row_end[row] = ev.rec.reference_end
+        rows.append(row if row < max_reads else -1)
+    n_reads = min(max_reads, len(row_end))
+
+    matrix = np.zeros((n_cols, n_reads, featlen), dtype=np.int8)
+    dwell_ch = BASE_FEATLEN if include_dwells else None
+    hap_ch = (BASE_FEATLEN + int(include_dwells)
+              if include_haplotype else None)
+    dt_ch = (BASE_FEATLEN + int(include_dwells) + int(include_haplotype)
+             if num_dtypes > 1 else None)
+
+    for ev, row in zip(events, rows):
+        if row < 0:
+            continue
+        rec = ev.rec
+        strand = -1 if ev.is_rev else 1
+        mapq = min(rec.mapq, np.iinfo(np.int8).max)
+        hap = int(rec.tags.get("HP", 0)) if include_haplotype else 0
+        if num_dtypes > 1:
+            dt_tag = rec.tags.get("DT")
+            if dt_tag is None or dt_tag not in dtype_index:
+                raise ValueError(
+                    "Datatype not found for {}.".format(rec.query_name))
+            dtype = dtype_index[dt_tag]
+        else:
+            dtype = 0
+        dwells = calculate_dwells(rec) if include_dwells else None
+
+        # default-fill the read's whole covered column span as deletions
+        lo = col_of_pos[ev.cover_start - start]
+        hi_pos = ev.cover_end - 1 - start
+        hi = col_of_pos[hi_pos] + max_ins[hi_pos] + 1
+        sl = matrix[lo:hi, row]
+        sl[:, 0] = READ_DEL_VAL
+        sl[:, 1] = -1
+        sl[:, 2] = strand
+        sl[:, 3] = mapq
+        if dwell_ch is not None:
+            sl[:, dwell_ch] = -1
+        if hap_ch is not None:
+            sl[:, hap_ch] = hap
+        if dt_ch is not None:
+            sl[:, dt_ch] = dtype
+
+        # overwrite with real base calls (aligned + inserted)
+        qpos = np.concatenate([ev.aln_qpos, ev.ins_qpos])
+        if len(qpos):
+            cols = np.concatenate([
+                col_of_pos[ev.aln_rpos - start],
+                col_of_pos[ev.ins_anchor - start] + ev.ins_minor])
+            matrix[cols, row, 0] = NT16_TO_SYMM[rec.seq_nt16[qpos]]
+            quals = rec.query_qualities
+            matrix[cols, row, 1] = (
+                np.minimum(quals[qpos], np.iinfo(np.int8).max)
+                if quals is not None else 0)
+            if dwell_ch is not None and dwells is not None:
+                matrix[cols, row, dwell_ch] = dwells[qpos]
+
+    logger.debug(
+        "Processed %s: %d cols x %d reads.", region, n_cols, n_reads)
+    return _split_blocks(matrix, majors, minors)
+
+
+class ReadAlignmentFeatureEncoder(CountsFeatureEncoder):
+    """Read-level 3-D feature tensors (reference ``features.py:1100-1205``).
+
+    Counterpart of ``ReadAlignmentFeatureEncoder`` in
+    ``medaka_tpu/features.py``.
+    Features are int8 (positions, reads, channels); channels are [base,
+    qual, strand, mapq(, dwell)(, haplotype)]. Bases are 0-5 for [pad, A,
+    C, G, T, deletion] (strand symmetric); strand is +1/-1; dwell is
+    basecaller strides.
+    """
+
+    feature_dtype = np.int8
+
+    def __init__(
+            self, dtypes=("",), tag_name=None, tag_value=None,
+            tag_keep_missing=False, read_group=None, min_mapq=1,
+            max_reads=100, row_per_read=False, include_dwells=True,
+            include_haplotype=False):
+        """See class docstring; parameters follow the reference."""
+        self.max_reads = max_reads
+        self.row_per_read = row_per_read
+        self.include_dwells = include_dwells
+        self.include_haplotype = include_haplotype
+        super().__init__(
+            normalise=None, dtypes=dtypes, tag_name=tag_name,
+            tag_value=tag_value, tag_keep_missing=tag_keep_missing,
+            read_group=read_group, min_mapq=min_mapq)
+
+    @property
+    def feature_vector_length(self):
+        """Channels per read per position."""
+        return (BASE_FEATLEN + int(self.include_dwells)
+                + int(self.include_haplotype) + int(len(self.dtypes) > 1))
+
+    def _pileup_function(self, region, bam):
+        return read_alignment_matrix(
+            region, bam, dtype_prefixes=self.dtypes,
+            tag_name=self.tag_name, tag_value=self.tag_value,
+            keep_missing=self.tag_keep_missing,
+            read_group=self.read_group, min_mapq=self.min_mapq,
+            row_per_read=self.row_per_read,
+            include_dwells=self.include_dwells,
+            include_haplotype=self.include_haplotype,
+            max_reads=self.max_reads)
+
+    def _post_process_pileup(self, features, positions, region) -> Sample:
+        """The sample with ``depth``: the non-empty read rows per column."""
+        depth = np.count_nonzero(features[..., 0], axis=-1)
+        return Sample(
+            ref_name=region.ref_name, features=features, labels=None,
+            ref_seq=None, positions=positions, label_probs=None,
+            depth=depth)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,7 @@ class ModelBundle:
         self.label_scheme = label_scheme
 
 
-def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix="", sep="/") -> Dict[str, np.ndarray]:
     """'a/0/b' keys of a nested dict/list pytree (the JAX bundle keys)."""
     if isinstance(tree, dict):
         items = tree.items()
@@ -58,16 +58,16 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
         return {prefix: np.asarray(tree)}
     flat = {}
     for key, value in items:
-        flat.update(_flatten(value, "{}/{}".format(prefix, key)
-                             if prefix else str(key)))
+        flat.update(_flatten(value, "{}{}{}".format(prefix, sep, key)
+                             if prefix else str(key), sep))
     return flat
 
 
-def _unflatten(flat: Dict[str, np.ndarray]):
+def _unflatten(flat: Dict[str, np.ndarray], sep="/"):
     """Rebuild the nested params pytree from 'a/b/0/c' style keys."""
     root: Dict = {}
     for key, value in flat.items():
-        parts = key.split("/")
+        parts = key.split(sep)
         node = root
         for part in parts[:-1]:
             node = node.setdefault(part, {})
@@ -87,8 +87,6 @@ def _unflatten(flat: Dict[str, np.ndarray]):
 def save_model(path: str, model, feature_encoder=None,
                label_scheme=None) -> str:
     """Write a model bundle as tar.gz(config.json + weights.npz)."""
-    from medaka_tpu_torch.models.gru import params_to_jax
-
     config = {
         "format_version": 1,
         "model": model.to_dict(),
@@ -97,7 +95,7 @@ def save_model(path: str, model, feature_encoder=None,
         "label_scheme": label_scheme.to_dict() if label_scheme else None,
     }
     buf_npz = io.BytesIO()
-    np.savez(buf_npz, **_flatten(params_to_jax(model.state_dict())))
+    np.savez(buf_npz, **_flatten(model.jax_params()))
     with tarfile.open(path, "w:gz") as tar:
         for name, data in (
                 ("model/config.json", json.dumps(config, indent=2).encode()),
@@ -145,3 +143,5 @@ def open_model(path: str) -> ModelBundle:
 
 # register concrete models on import
 from medaka_tpu_torch.models.gru import GRUModel  # noqa: E402,F401
+from medaka_tpu_torch.models.latent_space_lstm import (  # noqa: E402,F401
+    LatentSpaceLSTM)

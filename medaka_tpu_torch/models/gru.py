@@ -9,9 +9,10 @@ mirror the JAX parameter pytree (``gru.<layer>.<fwd|bwd>.<w_ih|...>``,
 
 Routing mirrors ``GRUModel.apply``: bf16 inference of a 2-layer
 bidirectional stack goes through the split-path kernels on the GPU (by
-default) and through their plain versions on the CPU when
-``fused=True``; everything else runs the masked scan of
-:mod:`medaka_tpu_torch.ops.rnn`.
+default) where JAX takes them (batch >= 32, hidden a multiple of 128;
+:func:`takes_split_path`), and through their plain versions on the CPU
+when ``fused=True``, at any batch, as JAX's ``interpret=True`` does;
+everything else runs the masked scan of :mod:`medaka_tpu_torch.ops.rnn`.
 """
 from __future__ import annotations
 
@@ -85,6 +86,26 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
         "b": state["linear.bias"].detach().cpu().numpy()}}
 
 
+#: smallest batch and hidden-size multiple for which JAX runs the split
+#: kernels (``medaka_tpu/models/gru.py:162-169``)
+SPLIT_MIN_BATCH = 32
+SPLIT_HIDDEN_MULTIPLE = 128
+
+
+def takes_split_path(batch: int, hidden: int, on_cpu: bool) -> bool:
+    """Whether a fused bf16 2-layer bidirectional stack runs the split
+    kernels, as ``GRUModel.apply`` in ``medaka_tpu/models/gru.py`` decides.
+
+    JAX runs them for batches of at least 32 rows and hidden sizes that
+    are multiples of 128, and runs ``bigru_stack_fullfused`` otherwise;
+    under ``interpret=True`` it takes the split path at any shape. The
+    port's CPU route (the kernels' plain versions) is the counterpart of
+    ``interpret=True``.
+    """
+    return on_cpu or (batch >= SPLIT_MIN_BATCH
+                      and hidden % SPLIT_HIDDEN_MULTIPLE == 0)
+
+
 @register_model
 class GRUModel(nn.Module):
     """biGRU consensus network; weights as an ``nn.Module``."""
@@ -131,6 +152,10 @@ class GRUModel(nn.Module):
         self.load_state_dict(params_from_jax(params))
         return self
 
+    def jax_params(self) -> Dict:
+        """The weights as a JAX-layout numpy pytree (for bundles)."""
+        return params_to_jax(self.state_dict())
+
     def layer_params(self) -> List[Dict[str, Dict[str, torch.Tensor]]]:
         """Per-layer {"fwd"/"bwd": {w_ih, ...}} views of the weights."""
         return [{d: m.as_dict() for d, m in layer.items()}
@@ -161,12 +186,15 @@ class GRUModel(nn.Module):
         if fused:
             if not (self.bidirectional and self.n_layers == 2
                     and compute_dtype == torch.bfloat16
-                    and recurrent_quant in (None, "int8", "none")):
+                    and recurrent_quant in (None, "int8", "none")
+                    and takes_split_path(x.shape[0], self.gru_size,
+                                         not x.is_cuda)):
                 raise NotImplementedError(
                     "Only the split-path kernels (2-layer bidirectional, "
-                    "bf16) are ported; the fused kernels for this "
+                    "bf16, batch >= 32 and hidden a multiple of 128 on the "
+                    "GPU) are ported; the fused kernels JAX runs for this "
                     "configuration (pallas_gru.bigru_pallas_fullfused and "
-                    "relatives) are not ported yet.")
+                    "bigru_pallas_fullfused_int8) are not ported yet.")
             logits = bigru_head_fullfused(
                 self.layer_params(), self.head_params(), x,
                 lengths=lengths, quant=recurrent_quant != "none",

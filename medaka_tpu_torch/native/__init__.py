@@ -1,9 +1,10 @@
-"""Native (C++) host-side helpers of the counts path.
+"""Native (C++) host-side helpers of the counts and read-level paths.
 
 Counterpart of ``medaka_tpu/native/__init__.py``, trimmed to the entry
-points the counts consensus path uses: the pileup kernel
-(:func:`pileup_counts_raw`, :func:`counts_norm_total`), the BAM record
-scan (:func:`bam_scan_filter`) and multi-threaded BGZF inflation
+points the consensus paths use: the pileup kernel
+(:func:`pileup_counts_raw`, :func:`counts_norm_total`), the read-level
+matrix (:func:`read_matrix_raw`), the BAM record scan
+(:func:`bam_scan_filter`) and multi-threaded BGZF inflation
 (``bgzf_*``). The shared library is built on first use with g++ from
 ``src/`` into ``_libmtt_<source hash>.so`` beside this file.
 """
@@ -16,7 +17,7 @@ import subprocess
 import threading
 
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "src")
-_SOURCES = ("pileup.cpp", "bgzf.cpp", "bam_scan.cpp")
+_SOURCES = ("pileup.cpp", "bgzf.cpp", "bam_scan.cpp", "read_matrix.cpp")
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -334,13 +335,103 @@ def pileup_counts_raw(records: bytes, rec_off, read_dtype, start, end,
     if n == 0:
         return (np.empty((0, col_feat), np.int32),
                 np.empty(0, np.int64), np.empty(0, np.int64))
+    return (_adopt(lib, counts_p, (n, col_feat)),
+            _adopt(lib, majors_p, (n,)), _adopt(lib, minors_p, (n,)))
 
-    def adopt(ptr, shape):
-        import weakref
-        arr = np.ctypeslib.as_array(ptr, shape=shape)
-        addr = ctypes.cast(ptr, ctypes.c_void_p).value
-        weakref.finalize(arr, lib.mt_free, addr)
-        return arr
 
-    return (adopt(counts_p, (n, col_feat)), adopt(majors_p, (n,)),
-            adopt(minors_p, (n,)))
+def _adopt(lib, ptr, shape):
+    """A numpy view of a malloc'd native array, freed with the view."""
+    import weakref
+
+    import numpy as np
+    arr = np.ctypeslib.as_array(ptr, shape=shape)
+    weakref.finalize(arr, lib.mt_free, ctypes.cast(ptr, ctypes.c_void_p).value)
+    return arr
+
+
+# ---------------------------------------------------------------------------
+# Read-level feature matrix (native medaka_read_matrix.c equivalent)
+# ---------------------------------------------------------------------------
+
+
+def _load_read_matrix_symbols(lib):
+    if getattr(lib, "_read_matrix_ready", False):
+        return
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    lib.mt_read_matrix_raw.restype = ctypes.c_int
+    lib.mt_read_matrix_raw.argtypes = [
+        ctypes.c_int,
+        ctypes.c_char_p,                 # records
+        i64p,                            # rec_off
+        i32p,                            # read_dtype
+        i8p,                             # read_hap
+        i8p,                             # dwells
+        i64p,                            # dwell_off
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(i8p), ctypes.POINTER(i64p), ctypes.POINTER(i64p),
+        i64p, i32p,
+        ctypes.POINTER(i32p), ctypes.POINTER(i32p),
+    ]
+    lib._read_matrix_ready = True
+
+
+def read_matrix_raw(records: bytes, rec_off, read_dtype, read_hap,
+                    dwells, dwell_off, start, end, num_dtypes,
+                    include_dwells, include_hap, row_per_read, max_reads):
+    """Native read-level feature matrix over raw BAM record bytes.
+
+    :param records: concatenated records, each without its leading
+        ``block_size`` field; ``rec_off`` holds the n+1 offsets.
+    :param dwells: concatenated per-base dwells of the reads that have
+        them; ``dwell_off`` is each read's offset into it (-1: none).
+    :returns: (matrix (n_cols, n_rows, featlen) int8, majors, minors,
+        left_rows, right_rows): the boundary arrays give the read index
+        occupying each row at the first/last covered position (-1 none).
+    :raises NativeBuildError: when the library fails to build or the
+        native call fails.
+    """
+    import numpy as np
+
+    lib = _load()
+    _load_read_matrix_symbols(lib)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    matrix_p = i8p()
+    majors_p, minors_p = i64p(), i64p()
+    left_p, right_p = i32p(), i32p()
+    n_cols = ctypes.c_int64()
+    n_rows = ctypes.c_int32()
+    rec_off = np.ascontiguousarray(rec_off, dtype=np.int64)
+    read_dtype = np.ascontiguousarray(read_dtype, dtype=np.int32)
+    read_hap = np.ascontiguousarray(read_hap, dtype=np.int8)
+    dwells = np.ascontiguousarray(dwells, dtype=np.int8)
+    dwell_off = np.ascontiguousarray(dwell_off, dtype=np.int64)
+    rv = lib.mt_read_matrix_raw(
+        len(rec_off) - 1, records,
+        rec_off.ctypes.data_as(i64p),
+        read_dtype.ctypes.data_as(i32p),
+        read_hap.ctypes.data_as(i8p),
+        dwells.ctypes.data_as(i8p),
+        dwell_off.ctypes.data_as(i64p),
+        start, end, num_dtypes, int(include_dwells), int(include_hap),
+        int(row_per_read), max_reads,
+        ctypes.byref(matrix_p), ctypes.byref(majors_p),
+        ctypes.byref(minors_p), ctypes.byref(n_cols),
+        ctypes.byref(n_rows), ctypes.byref(left_p), ctypes.byref(right_p))
+    if rv != 0:
+        raise NativeBuildError("mt_read_matrix_raw failed")
+    featlen = (4 + int(include_dwells) + int(include_hap)
+               + int(num_dtypes > 1))
+    nc, nr = n_cols.value, n_rows.value
+    if nc == 0 or nr == 0:
+        return (np.empty((0, 0, featlen), np.int8),
+                np.empty(0, np.int64), np.empty(0, np.int64),
+                np.empty(0, np.int32), np.empty(0, np.int32))
+    return (_adopt(lib, matrix_p, (nc, nr, featlen)),
+            _adopt(lib, majors_p, (nc,)), _adopt(lib, minors_p, (nc,)),
+            _adopt(lib, left_p, (nr,)), _adopt(lib, right_p, (nr,)))

@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and the launch
+helpers their wrappers share.
 
 Each kernel source under ``medaka_tpu_torch/csrc`` exposes a plain C
 interface. On first use it is compiled with ``nvcc`` for Hopper
@@ -17,6 +18,8 @@ import subprocess
 import threading
 from typing import Dict
 
+import torch
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
@@ -24,7 +27,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: dynamic shared memory one block may use on sm_90
+SMEM_LIMIT = 232448
+
 _LOCK = threading.Lock()
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ``ptxas -v`` report of each library built by this process
 BUILD_LOGS: Dict[str, str] = {}
@@ -46,8 +53,14 @@ def find_nvcc() -> str:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if needed and load it (once a process)."""
+    """Compile ``csrc/<source>`` if needed and load it (once a process).
+
+    Sources build under a lock of their own, so threads can run one
+    ``nvcc`` for each source at the same time.
+    """
     with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
         lib = _LIBS.get(source)
         if lib is not None:
             return lib
@@ -74,3 +87,53 @@ def load_library(source: str) -> ctypes.CDLL:
                 "could not load {}: {}".format(so_path, e)) from e
         _LIBS[source] = lib
         return lib
+
+
+# ---------------------------------------------------------------------------
+# launch helpers of the recurrent kernels
+# ---------------------------------------------------------------------------
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tile_shape(batch: int, n_sm: int):
+    """(columns per thread, column groups) of a block for ``batch``.
+
+    One block owns one direction and ``cpt * nq`` batch columns and keeps
+    its recurrent weights in shared memory, so one block fits an SM. The
+    smallest tile that still fits the grid in one wave keeps the most SMs
+    busy.
+    """
+    for cpt, nq in ((1, 1), (2, 1), (2, 2), (4, 2)):
+        if 2 * -(-batch // (cpt * nq)) <= n_sm:
+            return cpt, nq
+    return 4, 2
+
+
+def interleave_chunks(w: torch.Tensor) -> torch.Tensor:
+    """(2, R, K) -> 16-byte chunks laid out (2, K/chunk, R, chunk)."""
+    per = 16 // w.element_size()
+    d, rows, k = w.shape
+    return w.reshape(d, rows, k // per, per).permute(0, 2, 1, 3).contiguous()
+
+
+def check_inputs(name, hidden, specs):
+    """Raise unless each (tensor, shape, dtype or None) matches, all on one
+    device, and the kernels' tiling takes ``hidden``."""
+    dev = specs[0][0].device
+    for t, shape, dtype in specs:
+        if t.device != dev:
+            raise ValueError("{}: all tensors must be on {}".format(name, dev))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("{}: expected shape {}, got {}".format(
+                name, tuple(shape), tuple(t.shape)))
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError("{}: expected {}, got {}".format(
+                name, dtype, t.dtype))
+    if hidden % 32 or hidden > 512:
+        raise ValueError(
+            "{}: hidden size {} must be a multiple of 32 and at most "
+            "512".format(name, hidden))

@@ -42,7 +42,6 @@ MODE_LAUNCHES: Dict[str, int] = {
 #: batch size from which the "t" numerics are used (the TPU layout
 #: crossover of ``pallas_gru.bigru_head_fullfused``)
 T_MODE_MIN_BATCH = 192
-_SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 
 
 def reset_launches():
@@ -237,54 +236,11 @@ def _check(lib, err: int, name: str):
             name, lib.gru_split_error_string(err).decode(), err))
 
 
-def tile_shape(batch: int, n_sm: int):
-    """(columns per thread, column groups) of a block for ``batch``.
-
-    One block owns one direction and ``cpt * nq`` batch columns and keeps
-    its int8 W_hh in shared memory, so one block fits an SM. The smallest
-    tile that still fits the grid in one wave keeps the most SMs busy.
-    """
-    for cpt, nq in ((1, 1), (2, 1), (2, 2), (4, 2)):
-        if 2 * -(-batch // (cpt * nq)) <= n_sm:
-            return cpt, nq
-    return 4, 2
-
-
-def _interleave(w: torch.Tensor) -> torch.Tensor:
-    """(2, R, K) -> 16-byte chunks laid out (2, K/chunk, R, chunk)."""
-    per = 16 // w.element_size()
-    d, rows, k = w.shape
-    return w.reshape(d, rows, k // per, per).permute(0, 2, 1, 3).contiguous()
-
-
-def _check_inputs(name, hidden, specs):
-    """Raise unless each (tensor, shape, dtype or None) matches, all on one
-    device, and the kernels' tiling takes ``hidden``."""
-    dev = specs[0][0].device
-    for t, shape, dtype in specs:
-        if t.device != dev:
-            raise ValueError("{}: all tensors must be on {}".format(name, dev))
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError("{}: expected shape {}, got {}".format(
-                name, tuple(shape), tuple(t.shape)))
-        if dtype is not None and t.dtype != dtype:
-            raise ValueError("{}: expected {}, got {}".format(
-                name, dtype, t.dtype))
-    if hidden % 32 or hidden > 512:
-        raise ValueError(
-            "{}: hidden size {} must be a multiple of 32 and at most "
-            "512".format(name, hidden))
-
-
-def _n_sm(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant):
     T, B, IN = x.shape
     H = w_hh.shape[-1]
     G3 = 3 * H
-    _check_inputs("gru_l1_split", H, [
+    cuda_build.check_inputs("gru_l1_split", H, [
         (x, (T, B, IN), None), (lengths, (B,), None),
         (w_ih, (2, G3, IN), None), (b_ih, (2, G3), None),
         (w_hh, (2, G3, H), torch.int8 if quant else torch.bfloat16),
@@ -295,20 +251,20 @@ def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant):
     if T == 0 or B == 0:
         return out_f, out_b
     lib = build()
-    cpt, nq = tile_shape(B, _n_sm(x.device))
+    cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(x.device))
     while nq * H > 512:
         nq //= 2
     if cpt * IN > H:
         raise ValueError("gru_l1_split: {} input features exceed the "
                          "tile's loader threads".format(IN))
     smem = lib.gru_l1_split_smem(int(quant), cpt * nq, IN, H)
-    if smem > _SMEM_LIMIT:
+    if smem > cuda_build.SMEM_LIMIT:
         raise ValueError("gru_l1_split: needs {} bytes of shared memory "
-                         "(limit {})".format(smem, _SMEM_LIMIT))
+                         "(limit {})".format(smem, cuda_build.SMEM_LIMIT))
     x = x.to(torch.bfloat16).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     w_ih_t = w_ih.to(torch.bfloat16).transpose(1, 2).contiguous()
-    w_hh_il = _interleave(w_hh.contiguous())
+    w_hh_il = cuda_build.interleave_chunks(w_hh.contiguous())
     args = [t.float().contiguous() for t in (b_ih, hh_scale, b_hh)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.gru_l1_split_launch(
@@ -328,7 +284,7 @@ def _launch_l2(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
     C = w_head.shape[1]
     G3 = 3 * H
     wdt = torch.int8 if quant else torch.bfloat16
-    _check_inputs("gru_l2head_split", H, [
+    cuda_build.check_inputs("gru_l2head_split", H, [
         (prev_f, (T, B, H), wdt), (prev_b, (T, B, H), wdt),
         (lengths, (B,), None), (w_in, (2, G3, 2 * H), wdt),
         (in_scale, (2, 2, G3), None), (b_ih, (2, G3), None),
@@ -342,18 +298,18 @@ def _launch_l2(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
     if T == 0 or B == 0:
         return lg_f, lg_b
     lib = build()
-    cpt, nq = tile_shape(B, _n_sm(prev_f.device))
+    cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(prev_f.device))
     while nq * H > 512:
         nq //= 2
     smem = lib.gru_l2head_split_smem(int(quant), cpt, nq, H)
-    if smem > _SMEM_LIMIT:
+    if smem > cuda_build.SMEM_LIMIT:
         raise ValueError("gru_l2head_split: needs {} bytes of shared memory "
-                         "(limit {})".format(smem, _SMEM_LIMIT))
+                         "(limit {})".format(smem, cuda_build.SMEM_LIMIT))
     prev_f = prev_f.contiguous()
     prev_b = prev_b.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    w_in_il = _interleave(w_in.contiguous())
-    w_hh_il = _interleave(w_hh.contiguous())
+    w_in_il = cuda_build.interleave_chunks(w_in.contiguous())
+    w_hh_il = cuda_build.interleave_chunks(w_hh.contiguous())
     in_scale, b_ih, hh_scale, b_hh = [
         t.float().contiguous() for t in (in_scale, b_ih, hh_scale, b_hh)]
     w_head_f = _bf16(w_head).contiguous()

@@ -2,17 +2,20 @@
 
 Counterpart of ``medaka_tpu/prediction.py`` (``Batch.collate``,
 ``DataLoader``, ``Predictor``, ``auto_batch_size``, ``run_prediction``,
-``plan_work``, ``predict``) for the counts models:
+``plan_work``, ``predict``) for the counts and read-level models:
 
-- One static batch shape: every chunk rides in a (B, chunk_len, F) batch
-  with a per-row ``lengths`` vector; the recurrences freeze h at padded
-  steps, so padding never changes a valid column.
+- One static batch shape: every chunk rides in a (B, chunk_len, F)
+  batch, or (B, chunk_len, R, C) for read-level features with R the
+  batch's read bucket, with a per-row ``lengths`` vector; the
+  recurrences freeze their state at padded steps, so padding never
+  changes a valid column.
 - Threaded host pipeline: ``bam_workers`` featurisation threads feed a
   bounded sample queue; a batcher thread packs fixed arrays; the main
   thread keeps two batches in flight on the device while HDF5 writes run
   on the datastore's writer thread.
-- On the GPU, batches travel as bf16 features and come back as f16
-  log-probabilities (``exp`` on the host); on the CPU, as float32.
+- On the GPU, float batches travel as bf16 and int8 read-level batches
+  as int8 (widened on the device); outputs come back as f16
+  log-probabilities (``exp`` on the host). On the CPU, float32.
 
 Feature worker processes, sharded output files, the direct-decode route
 and multi-device sharding are not ported yet.
@@ -39,8 +42,9 @@ from medaka_tpu_torch.common import Region, Sample, resolve_device
 class Batch:
     """A fixed-shape inference batch.
 
-    ``features`` is (B, T, F) float32; rows beyond ``n_valid`` are zero
-    padding. ``lengths`` holds per-row valid column counts.
+    ``features`` is (B, T, F) float32 or (B, T, R, C) int8; rows beyond
+    ``n_valid`` are zero padding. ``lengths`` holds per-row valid column
+    counts.
     """
 
     features: np.ndarray
@@ -54,10 +58,36 @@ class Batch:
 
     @classmethod
     def collate(cls, samples: Sequence[Sample], batch_size: int,
-                chunk_len: int) -> "Batch":
-        """Pack counts samples into a zero-padded (B, T, F) float32 array."""
-        width = samples[0].features.shape[-1]
+                chunk_len: int, max_reads: Optional[int] = None) -> "Batch":
+        """Pack samples into a zero-padded fixed-shape array.
+
+        2-D counts samples give (B, T, F) float32. 3-D read-level samples
+        give (B, T, R, C) int8 with R the batch's read bucket: the
+        smallest of {max_reads/4, max_reads/2, max_reads} covering its
+        deepest sample (``medaka_tpu/prediction.py:77-96``). The model's
+        masked mean-pool ignores empty read rows, so the bucket does not
+        change the output.
+        """
+        first = samples[0].features
+        width = first.shape[-1]
         lengths = np.zeros((batch_size,), dtype=np.int32)
+        if first.ndim == 3:
+            actual = max(s.features.shape[1] for s in samples)
+            if max_reads:
+                reads = next(
+                    b for b in (max(1, max_reads // 4),
+                                max(1, max_reads // 2), max_reads)
+                    if b >= min(actual, max_reads))
+            else:
+                reads = actual
+            feats = np.zeros((batch_size, chunk_len, reads, width),
+                             dtype=np.int8)
+            for i, s in enumerate(samples):
+                n = min(s.size, chunk_len)
+                r = min(s.features.shape[1], reads)
+                feats[i, :n, :r] = s.features[:n, :r]
+                lengths[i] = n
+            return cls(feats, lengths, list(samples))
         feats = np.empty((batch_size, chunk_len, width), dtype=np.float32)
         for i, s in enumerate(samples):
             n = min(s.size, chunk_len)
@@ -87,6 +117,7 @@ class DataLoader:
         self.logger = common.get_named_logger("DataLoader")
         self.bam = bam
         self.fencoder = feature_encoder
+        self.max_reads = getattr(feature_encoder, "max_reads", None)
         self.batch_size = batch_size
         self.chunk_len = chunk_len
         self.chunk_overlap = chunk_overlap
@@ -171,8 +202,8 @@ class DataLoader:
 
     def _emit(self, samples: List[Sample]):
         self.n_samples += len(samples)
-        self._batch_q.put(
-            Batch.collate(samples, self.batch_size, self.chunk_len))
+        self._batch_q.put(Batch.collate(
+            samples, self.batch_size, self.chunk_len, self.max_reads))
 
     def __iter__(self):
         while True:
@@ -192,7 +223,8 @@ class Predictor:
 
     :param model: a model module holding its weights (e.g. ``GRUModel``).
     :param compute_dtype: torch.bfloat16 (default) or None (float32).
-    :param compact_transfer: send bf16 features and fetch f16
+    :param compact_transfer: send float features as bf16 (integer
+        read-level features go as they are) and fetch f16
         log-probabilities (log space keeps the quality-score precision
         near p=1 that an f16 probability would lose). Default: on for
         bf16 on the GPU, off on the CPU and for full precision.
@@ -216,15 +248,17 @@ class Predictor:
         and write the previous batch while this one runs.
         """
         feats = torch.from_numpy(batch.features)
-        if self.compact_transfer:
+        floating = feats.is_floating_point()
+        if self.compact_transfer and floating:
             feats = feats.to(torch.bfloat16)
         lengths = torch.from_numpy(batch.lengths).to(self.device)
         with torch.inference_mode():
             x = feats.to(self.device)
             if self.compact_transfer:
+                # integer features are widened by the model on the device
                 logits = self.model(
-                    x.float(), lengths=lengths, normalise=False,
-                    compute_dtype=self.compute_dtype)
+                    x.float() if floating else x, lengths=lengths,
+                    normalise=False, compute_dtype=self.compute_dtype)
                 return torch.log_softmax(logits, dim=-1).to(torch.float16)
             return self.model(
                 x, lengths=lengths, normalise=True,
@@ -244,9 +278,19 @@ class Predictor:
 AUTO_BATCH_CAP = 512
 
 
+#: largest automatic batch of read-level models (as in medaka_tpu)
+READS_BATCH_CAP = 128
+#: read-level activations of (chunk_len, max_reads, cnn_size) per batch
+#: row alive at once in ``LatentSpaceLSTM.read_features``: a convolution's
+#: input and output (its bias, ReLU and batch norm run in place, and the
+#: pool multiplies in place), plus one for the convolution's workspace
+READS_LIVE_ACTIVATIONS = 3
+
+
 def auto_batch_size(model, device=None, chunk_len: int = 10000,
                     full_precision: bool = False,
-                    free_bytes: Optional[int] = None) -> int:
+                    free_bytes: Optional[int] = None,
+                    max_reads: int = 100) -> int:
     """Default inference batch size, sized from the port's own buffers.
 
     On the GPU the split path holds, per batch row, the bf16 features, the
@@ -254,18 +298,25 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
     partials; the f32 scan of full-precision runs holds the (T, 3H)
     projections and (T, 2H) outputs of a layer in f32. Half of the free
     device memory (``torch.cuda.mem_get_info``) is budgeted, rounded down
-    to a multiple of 64 and capped at :data:`AUTO_BATCH_CAP`. CPU runs
-    and non-counts models use 128.
+    to a multiple of 64 and capped at :data:`AUTO_BATCH_CAP`.
+
+    Read-level models hold per row chunk_len x ``max_reads`` x cnn_size
+    activations of 2 bytes (4 in full precision), times
+    :data:`READS_LIVE_ACTIVATIONS`; the batch is the budget over that, at
+    least 1 and at most :data:`READS_BATCH_CAP`. CPU runs use 128.
     """
     device = torch.device("cuda" if device is None else device)
-    if device.type != "cuda" or \
-            getattr(model, "input_kind", "counts") != "counts":
+    if device.type != "cuda":
         return 128
+    if free_bytes is None:
+        free_bytes = torch.cuda.mem_get_info(resolve_device(device))[0]
+    if getattr(model, "input_kind", "counts") == "reads":
+        per_row = (chunk_len * max_reads * getattr(model, "cnn_size", 128)
+                   * (4 if full_precision else 2) * READS_LIVE_ACTIVATIONS)
+        return int(max(1, min(READS_BATCH_CAP, free_bytes // 2 // per_row)))
     hidden = getattr(model, "gru_size", 256)
     classes = getattr(model, "num_classes", 5)
     width = getattr(model, "num_features", 10)
-    if free_bytes is None:
-        free_bytes = torch.cuda.mem_get_info(resolve_device(device))[0]
     if full_precision:
         per_row = chunk_len * 4 * (width + 3 * hidden + 4 * hidden)
     else:
@@ -292,7 +343,8 @@ def run_prediction(
     if batch_size is None:
         batch_size = auto_batch_size(
             model, device, chunk_len=chunk_len,
-            full_precision=full_precision)
+            full_precision=full_precision,
+            max_reads=getattr(feature_encoder, "max_reads", 100))
         logger.info("Auto batch size: %d.", batch_size)
     predictor = Predictor(model, compute_dtype=compute_dtype, device=device)
     loader = DataLoader(
@@ -412,6 +464,12 @@ def predict(
         raise ValueError(
             "Provide model_path or an explicit model and feature_encoder.")
     model.check_feature_encoder_compatibility(feature_encoder)
+    if getattr(model, "input_kind", "counts") == "reads" \
+            and chunk_len > 2000:
+        logger.warning(
+            "chunk_len=%d with a read-level model implies very large "
+            "(batch, %d, reads, features) device tensors; consider "
+            "--chunk_len 1000.", chunk_len, chunk_len)
     work = plan_work(regions, bam, bam_chunk, chunk_overlap)
     logger.info("Processing %d region chunk(s) on %s.", len(work), device)
     return run_prediction(

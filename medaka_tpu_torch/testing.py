@@ -1,7 +1,10 @@
 """Deterministic synthetic BAM + draft for tests and on-card runs.
 
-A copy of ``simulate_synth_read``/``create_synth_bam`` from
-``tests/mock_data.py`` that writes through the port's own ``io``.
+A copy of ``simulate_synth_read``, ``simulate_dwell_read`` and
+``create_synth_bam`` from ``tests/mock_data.py`` that writes through the
+port's own ``io``. ``create_synth_bam(move_tables=True)`` writes reads
+with dwell-correlated errors and their ``mv`` move tables, for the
+read-level models that take dwells.
 """
 from __future__ import annotations
 
@@ -55,11 +58,78 @@ def simulate_synth_read(ref_arr, start, length, rng):
     return out.tobytes().decode(), cigar
 
 
-def create_synth_bam(path, ref_mb=2.0, depth=30, seed=42, read_len=20000):
+def _move_table(dwells, stride: int) -> np.ndarray:
+    """``mv`` tag values: [stride, one flag per stride, 1 starting each
+    base]."""
+    mv = np.zeros(1 + int(np.sum(dwells)), np.int8)
+    mv[0] = stride
+    mv[1 + np.cumsum([0] + list(dwells[:-1]))] = 1
+    return mv
+
+
+def simulate_dwell_read(ref_arr, start, length, rng, stride=5):
+    """ONT-like read whose errors are dwell-correlated, plus its mv tag.
+
+    A copy of ``tests/mock_data.simulate_dwell_read`` (the same random
+    draws in the same order) that also returns the read's exact cigar:
+    per-base dwell ~ 1 + Geometric(0.45) capped at 12; substitution
+    probability 10% at dwell 1, 4% at dwell 2, else 0.6%; deletions 4% at
+    dwell 1; insertions 0.4% with dwell 1.
+
+    :returns: (seq str, mv int8 ndarray, =/X/I/D cigar str) in the
+        reference's orientation.
+    """
+    piece = ref_arr[start:start + length]
+    dwell = np.minimum(1 + rng.geometric(0.45, len(piece)), 12)
+    fast = dwell == 1
+    mid = dwell == 2
+    p_sub = np.where(fast, 0.10, np.where(mid, 0.04, 0.006))
+    p_del = np.where(fast, 0.04, 0.0)
+    p_ins = 0.004
+    u = rng.random(len(piece))
+    ev = np.zeros(len(piece), np.int8)          # 0 match
+    ev[u < p_sub + p_del + p_ins] = 2           # 2 ins (after base)
+    ev[u < p_sub + p_del] = 3                   # 3 del
+    ev[u < p_sub] = 1                           # 1 sub
+    out_bases = []
+    out_dwell = []
+    ops = []
+    for i in range(len(piece)):
+        e = ev[i]
+        if e == 3:
+            ops.append("D")
+            continue
+        base = piece[i]
+        if e == 1:
+            base = _SYNTH_BASES[
+                (np.searchsorted(_SYNTH_BASES, base)
+                 + rng.integers(1, 4)) % 4]
+        ops.append("X" if e == 1 else "=")
+        out_bases.append(base)
+        out_dwell.append(dwell[i])
+        if e == 2:
+            out_bases.append(_SYNTH_BASES[rng.integers(0, 4)])
+            out_dwell.append(1)
+            ops.append("I")
+    seq = np.asarray(out_bases, np.uint8).tobytes().decode()
+    cigar, run = [], 0
+    for k, op in enumerate(ops):
+        run += 1
+        if k + 1 == len(ops) or ops[k + 1] != op:
+            cigar.append("{}{}".format(run, op))
+            run = 0
+    return seq, _move_table(out_dwell, stride), "".join(cigar)
+
+
+def create_synth_bam(path, ref_mb=2.0, depth=30, seed=42, read_len=20000,
+                     move_tables=False):
     """Write a deterministic synthetic long-read BAM + draft fasta.
 
     Byte-identical to ``tests/mock_data.create_synth_bam`` for the same
-    arguments. Returns ``(bam_path, ref_fasta_path)``.
+    arguments when ``move_tables`` is False. With ``move_tables`` the
+    reads come from :func:`simulate_dwell_read` and carry ``mv`` tags in
+    basecalled orientation (reversed for reverse-strand reads). Returns
+    ``(bam_path, ref_fasta_path)``.
     """
     rng = np.random.default_rng(seed)
     ref_len = int(ref_mb * 1e6)
@@ -71,11 +141,20 @@ def create_synth_bam(path, ref_mb=2.0, depth=30, seed=42, read_len=20000):
     records = []
     for i in range(n_reads):
         start = int(rng.integers(0, ref_len - read_len))
-        seq, cigar = simulate_synth_read(ref_arr, start, read_len, rng)
+        tags = None
+        if move_tables:
+            seq, mv, cigar = simulate_dwell_read(ref_arr, start, read_len,
+                                                 rng)
+            if i % 2:
+                moves = np.append(np.flatnonzero(mv[1:] == 1), len(mv) - 1)
+                mv = _move_table(np.diff(moves)[::-1], int(mv[0]))
+            tags = {"mv": mv}
+        else:
+            seq, cigar = simulate_synth_read(ref_arr, start, read_len, rng)
         records.append(BamRecord.build(
             query_name="r{}".format(i), ref_id=0, pos=start, seq=seq,
             qual=np.full(len(seq), 20, np.uint8), cigar=cigar,
-            flag=16 if i % 2 else 0, mapq=60))
+            flag=16 if i % 2 else 0, mapq=60, tags=tags))
     write_bam(path, records, [("synth", ref_len)])
     return path, ref_fasta
 

@@ -1,4 +1,4 @@
-"""The split-path CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: skips without a GPU. The test imports no JAX, so it
 runs on a machine that has PyTorch for CUDA but no JAX, past the JAX
@@ -10,9 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from medaka_tpu_torch.ops import cuda_build, gru_split
+import os
+
+from medaka_tpu_torch import features, models, prediction, testing
+from medaka_tpu_torch.common import Region
+from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split
 
 pytestmark = pytest.mark.cuda
+
+RL_MODEL = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "medaka_tpu", "data",
+    "rl_lstm128_lambda_demo.tar.gz")
 
 
 @pytest.fixture(scope="module")
@@ -20,7 +28,9 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gru_split.build()
+    bilstm.build()
     for log in cuda_build.BUILD_LOGS.values():
         print(log)
     return torch.device("cuda")
@@ -105,3 +115,70 @@ def test_wrapper_raises_on_bad_input(device):
             torch.zeros((2, 48, 16), dtype=torch.int8, device=device),
             torch.ones((2, 48), device=device),
             torch.zeros((2, 48), device=device))
+
+
+@pytest.mark.parametrize("H,B,T", [(128, 128, 1000), (384, 32, 500),
+                                   (128, 5, 64)])
+def test_bilstm_matches_plain(device, H, B, T):
+    """bilstm_fused against bilstm_fused_plain on random weights, ragged
+    lengths, both directions. They do the same operations and differ only
+    in the order of the f32 sums of the recurrent product, which can move
+    the bf16 rounding of h by one step: outputs within one bf16 step
+    (2^-8 for |h| < 1), mean difference within 1e-3."""
+    rng = np.random.default_rng(H + B)
+    k = 1.0 / np.sqrt(H)
+    xp_f, xp_b = (torch.from_numpy(rng.uniform(-2, 2, (T, B, 4 * H)).astype(
+        np.float32)).to(device, torch.bfloat16) for _ in range(2))
+    w_hh = torch.from_numpy(rng.uniform(-k, k, (2, 4 * H, H)).astype(
+        np.float32)).to(device)
+    b_hh = torch.from_numpy(rng.uniform(-k, k, (2, 4 * H)).astype(
+        np.float32)).to(device)
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    lengths[0] = T
+    lengths = lengths.to(device)
+    got = bilstm.bilstm_fused(xp_f, xp_b, w_hh, b_hh, lengths)
+    want = bilstm.bilstm_fused_plain(xp_f, xp_b, w_hh, b_hh, lengths)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (T, B, H) and g.dtype == torch.bfloat16
+        diff = (g.float() - w.float()).abs()
+        print("H", H, "B", B, "max", diff.max().item(), "mean",
+              diff.mean().item())
+        assert diff.max().item() <= 2.0 ** -8
+        assert diff.mean().item() <= 1e-3
+    # padded steps of the backward direction hold the zero state
+    t_pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
+    assert (got[1].float().abs().sum(-1)[t_pad] == 0).all()
+
+
+def test_read_level_forward_matches_cpu_plain_route(device, tmp_path):
+    """The read-level model on the card (bf16, bilstm_fused kernel)
+    against the CPU's plain route (fused=True: the kernel's plain
+    version) on 2 chunks: probabilities within 2e-2, as the bf16 CPU
+    routes of the two packages (cuDNN and the CPU round the convolutions
+    differently), argmax agreement >= 0.99."""
+    bam, _ = testing.create_synth_bam(str(tmp_path / "r.bam"), ref_mb=0.01,
+                                      depth=10, read_len=2000)
+    bundle = models.load_model(RL_MODEL)
+    samples = features.SampleGenerator(
+        bam, Region("synth", 0, 10000), bundle.feature_encoder,
+        chunk_len=1000, chunk_overlap=100).samples[:2]
+    batch = prediction.Batch.collate(samples, 2, 1000, 100)
+    x = torch.from_numpy(batch.features)
+    lengths = torch.from_numpy(batch.lengths)
+    model = bundle.model
+    with torch.inference_mode():
+        want = model(x, lengths=lengths, compute_dtype=torch.bfloat16,
+                     fused=True)
+        bilstm.reset_launches()
+        model.to(device)
+        got = model(x.to(device), lengths=lengths.to(device),
+                    compute_dtype=torch.bfloat16).cpu()
+        model.to("cpu")
+    assert bilstm.LAUNCHES["bilstm_fused"] == 2
+    diff = (got - want).abs()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print("read-level card vs CPU: max", diff.max().item(), "mean",
+          diff.mean().item(), "argmax agreement", agree)
+    assert diff.max().item() <= 2e-2
+    assert agree >= 0.99

@@ -10,8 +10,10 @@ import torch
 from medaka_tpu import models as jax_models
 from medaka_tpu.ops import rnn as jax_rnn
 from medaka_tpu_torch import models
+from medaka_tpu_torch.models import latent_space_lstm
 from medaka_tpu_torch.models.gru import GRUModel, params_from_jax, \
-    params_to_jax
+    params_to_jax, takes_split_path
+from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM
 from medaka_tpu_torch.ops import rnn
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
@@ -87,12 +89,41 @@ def test_counts_bundles_load(name):
 @pytest.mark.parametrize("name,missing", [
     ("gru256_diploid_snp_demo", "DiploidLabelScheme"),
     ("gru256_diploid_snp_w10_demo", "DiploidLabelScheme"),
-    ("gru256_rle_demo", "HardRLEFeatureEncoder"),
-    ("rl_lstm128_lambda_demo", "LatentSpaceLSTM"),
-    ("rl_lstm128_dwells_demo", "LatentSpaceLSTM")])
+    ("gru256_rle_demo", "HardRLEFeatureEncoder")])
 def test_unported_bundles_name_the_missing_class(name, missing):
     with pytest.raises(NotImplementedError, match=missing):
         models.load_model(os.path.join(DATA, name + ".tar.gz"))
+
+
+@pytest.mark.parametrize("name", [
+    "rl_lstm128_lambda_demo", "rl_lstm128_dwells_demo"])
+def test_read_level_bundles_load(name):
+    bundle = models.load_model(os.path.join(DATA, name + ".tar.gz"))
+    ref = jax_models.load_model(os.path.join(DATA, name + ".tar.gz"))
+    assert isinstance(bundle.model, LatentSpaceLSTM)
+    assert bundle.model.to_dict() == ref.model.to_dict()
+    assert bundle.feature_encoder.to_dict() == \
+        ref.feature_encoder.to_dict()
+    assert bundle.label_scheme.to_dict() == ref.label_scheme.to_dict()
+    state = latent_space_lstm.params_from_jax(ref.params)
+    assert sorted(state) == sorted(bundle.model.state_dict())
+    for key, value in bundle.model.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), state[key].numpy())
+
+
+def test_saved_read_level_bundle_loads_in_jax_package(tmp_path):
+    path = os.path.join(DATA, "rl_lstm128_dwells_demo.tar.gz")
+    bundle, ref = models.load_model(path), jax_models.load_model(path)
+    saved = str(tmp_path / "port_saved_rl.tar.gz")
+    models.save_model(saved, bundle.model, bundle.feature_encoder,
+                      bundle.label_scheme)
+    back = jax_models.load_model(saved)
+    assert back.model.to_dict() == ref.model.to_dict()
+    assert back.feature_encoder.to_dict() == ref.feature_encoder.to_dict()
+    assert jax.tree.structure(back.params) == jax.tree.structure(ref.params)
+    for got, want in zip(jax.tree.leaves(back.params),
+                         jax.tree.leaves(ref.params)):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 @pytest.fixture(scope="module")
@@ -174,3 +205,28 @@ def test_fused_off_split_configurations_refused():
     with pytest.raises(NotImplementedError, match="not ported"):
         model(torch.zeros((1, 4, 10)), compute_dtype=torch.bfloat16,
               fused=True)
+
+
+@pytest.mark.parametrize("batch,hidden,on_cpu,split", [
+    (16, 256, False, False),     # B < 32: JAX runs the fullfused kernels
+    (64, 96, False, False),      # H % 128 != 0: the same
+    (32, 256, False, True),      # the split path
+    (512, 128, False, True),
+    (16, 256, True, True),       # the CPU route is JAX's interpret=True
+    (64, 96, True, True)])
+def test_split_routing_follows_jax(batch, hidden, on_cpu, split):
+    """The split kernels run where ``GRUModel.apply`` runs them
+    (medaka_tpu/models/gru.py:162-169)."""
+    assert takes_split_path(batch, hidden, on_cpu) is split
+
+
+def test_fused_small_batch_on_card_names_fullfused_kernels(monkeypatch):
+    """Where JAX takes the fullfused branch, the card route refuses and
+    names the kernels it would need; the CPU route runs at any batch."""
+    model = GRUModel(gru_size=32)
+    x = torch.zeros((2, 4, 10))
+    model(x, compute_dtype=torch.bfloat16, fused=True)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    with pytest.raises(NotImplementedError,
+                       match="bigru_pallas_fullfused_int8"):
+        model(x, compute_dtype=torch.bfloat16, fused=True)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from medaka_tpu.ops import pallas_gru
-from medaka_tpu_torch.ops import gru_split
+from medaka_tpu_torch.ops import cuda_build, gru_split
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, IN, H, C = 4, 32, 10, 16, 5
@@ -125,7 +125,7 @@ def test_quantize_helpers_bit_identical(name):
     (4, (1, 1)), (64, (1, 1)), (132, (2, 1)), (256, (2, 2)),
     (512, (4, 2)), (2048, (4, 2))])
 def test_tile_shape_fills_one_wave(batch, expected):
-    assert gru_split.tile_shape(batch, 132) == expected
+    assert cuda_build.tile_shape(batch, 132) == expected
 
 
 @pytest.mark.parametrize("batch,mode", [(191, "rows"), (192, "t")])

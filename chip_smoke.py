@@ -37,7 +37,23 @@ Phases, each of which fails the script when it fails:
    the model through the kernel's plain version, a stage breakdown
    (CUDA events), and the kernel's time beside its plain version, its
    serial floor (one column), the cuDNN ``nn.LSTM`` yardstick and its
-   bound; print one ``kernels`` JSON line.
+   bound;
+10. hold the GRU training kernels (``gru_fwd``, ``gru_bwd``) against
+    their plain versions at full width (H=256, B=128, T=1000, ragged
+    lengths, random weights, both directions), and ``gru_bwd`` against
+    itself run again (bit for bit);
+11. the training path: a truth BAM for the synthetic genome, then
+    ``features --truth`` and ``train`` (counts ``GRUModel`` at full width,
+    batch 128, 2 epochs, bf16) through the CLI entry point, with the
+    training kernels' launch counts set to 0 just before ``train``; check
+    the losses (finite, falling), 4 launches of each kernel a step, a
+    second run from the same seed (the same losses), and that the last
+    checkpoint serves ``inference`` + ``sequence``;
+12. on one full batch of that data: one train step through the kernels
+    against the same step through their plain versions, a stage
+    breakdown of a step (CUDA events), the step's wall time, and each
+    kernel's time beside its plain version, its serial floor, the cuDNN
+    ``nn.GRU`` yardstick and its bound; print one ``kernels`` JSON line.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -60,6 +76,7 @@ RL_MODEL = os.path.join(HERE, "medaka_tpu", "data",
                         "rl_lstm128_lambda_demo.tar.gz")
 KERNEL_SOURCE = "medaka_tpu_torch/csrc/gru_split.cu"
 BILSTM_SOURCE = "medaka_tpu_torch/csrc/bilstm.cu"
+TRAIN_SOURCE = "medaka_tpu_torch/csrc/gru_train.cu"
 REPLACES = {
     "gru_l1_split": "medaka_tpu/ops/pallas_gru.py:1371 "
                     "(_bigru_l1_split_t_kernel, mode t); :982 "
@@ -69,6 +86,10 @@ REPLACES = {
                         "(_bigru_l2head_kernel, mode rows)",
     "bilstm_fused": "medaka_tpu/ops/pallas_gru.py:340 _bilstm_kernel "
                     "(bilstm_pallas :400)",
+    "gru_fwd": "medaka_tpu/ops/pallas_gru.py:56 _gru_kernel (gru_pallas "
+               ":105)",
+    "gru_bwd": "medaka_tpu/ops/pallas_gru.py:1615 _gru_bwd_kernel "
+               "(gru_bwd_pallas :1696)",
 }
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
 # bf16 flop/s, f32 flop/s outside the tensor cores
@@ -98,6 +119,23 @@ MIN_ARGMAX_AGREEMENT = 0.9999
 TOL_SCAN_PROB_MAX = 5e-2
 TOL_SCAN_PROB_MEAN = 1e-3
 MIN_SCAN_ARGMAX_AGREEMENT = 0.999
+# GRU training kernels vs their plain versions: the same operations, f32
+# sums (the recurrent products, dW_hh, db_hh) in another order, which can
+# move a bf16 rounding: forward outputs within one bf16 step, mean 1e-3;
+# backward dxp, dW_hh, db_hh within 1e-3 of each tensor's largest
+# magnitude. One train step through the kernels vs through the plain
+# versions: loss within 1e-5 relative, each gradient within 1e-2 of its
+# largest magnitude.
+TOL_GRU_FWD = 2.0 ** -8
+TOL_GRU_BWD = 1e-3
+TOL_STEP_LOSS = 1e-5
+TOL_STEP_GRAD = 1e-2
+# f32 operations per hidden unit and step besides the products: forward
+# 3 bias adds, 2 gate adds, 2 sigmoids of 4, r hp_n and its add, tanh, 4
+# for h; backward the same gates (16) and 25 for the gradients, db_hh and
+# dh
+GRU_FWD_ELEMENTWISE_OPS = 20
+GRU_BWD_ELEMENTWISE_OPS = 41
 
 
 def log(*args):
@@ -399,11 +437,420 @@ def bilstm_bound(B, H, lengths_sum):
     return t_ops, "operations"
 
 
+def gru_train_bound(name, B, H, lengths_sum):
+    """Least time (ms) of one gru_fwd or gru_bwd call, and what bounds it.
+
+    Counted over the valid columns (``lengths_sum``), as for the other
+    kernels. gru_fwd reads the bf16 projections and writes the bf16
+    outputs; gru_bwd reads the bf16 projections and outputs and the f32
+    upstream gradient and writes the f32 dxp; both read the f32 W_hh,
+    b_hh and the lengths, and gru_bwd writes dW_hh and db_hh, once.
+    Operations: the recurrent products (one for gru_fwd; for gru_bwd the
+    recomputed gates, the dh product and dW_hh), 2 x 3H x H each per
+    column, at the bf16 tensor-core peak, plus the f32 gate arithmetic at
+    the f32 peak.
+    """
+    G = 3 * H
+    weights = G * H * 4 + G * 4 + B * 4
+    if name == "gru_fwd":
+        nbytes = lengths_sum * (G * 2 + H * 2) + weights
+        products, elementwise = 1, GRU_FWD_ELEMENTWISE_OPS
+    else:
+        nbytes = (lengths_sum * (G * 2 + H * 2 + H * 4 + G * 4) + weights
+                  + G * H * 4 + G * 4)
+        products, elementwise = 3, GRU_BWD_ELEMENTWISE_OPS
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (products * 2 * lengths_sum * G * H / PEAK_BF16
+             + lengths_sum * H * elementwise / PEAK_F32) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes
+    return t_ops, "operations", nbytes
+
+
+def random_gru_direction(rng, H, B, T, dev):
+    """gru_fwd arguments at full width and an upstream gradient: bf16
+    projections, uniform weights and biases as torch initialises them,
+    ragged lengths (the first full)."""
+    import torch
+    k = 1.0 / H ** 0.5
+
+    def uniform(lo, hi, shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype("float32"))
+
+    lengths = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype("int32"))
+    lengths[0] = T
+    dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        "float32")).to(dev, torch.bfloat16).float()
+    return (uniform(-2, 2, (T, B, 3 * H)).to(dev, torch.bfloat16),
+            uniform(-k, k, (3 * H, H)).to(dev),
+            uniform(-k, k, (3 * H,)).to(dev), lengths.to(dev), dh_out)
+
+
+def compare_gru_train(gru_train, xp, w_hh, b_hh, lengths, dh_out, reverse):
+    """gru_fwd and gru_bwd against their plain versions (the backward on
+    the kernel's forward outputs), and gru_bwd against itself; returns
+    {"fwd_max", "fwd_mean", "dxp", "dW_hh", "db_hh"} (backward: largest
+    difference over the tensor's largest magnitude)."""
+    import torch
+    out = gru_train.gru_fwd(xp, w_hh, b_hh, lengths, reverse)
+    ref = gru_train.gru_fwd_plain(xp, w_hh, b_hh, lengths, reverse)
+    got = gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh, lengths, reverse)
+    want = gru_train.gru_bwd_plain(xp, out, dh_out, w_hh, b_hh, lengths,
+                                   reverse)
+    again = gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh, lengths, reverse)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    stats = {"fwd_max": diff.max().item(), "fwd_mean": diff.mean().item()}
+    for name, g, w in zip(("dxp", "dW_hh", "db_hh"), got, want):
+        stats[name] = ((g - w).abs().max() / w.abs().max()).item()
+    if stats["fwd_max"] > TOL_GRU_FWD or stats["fwd_mean"] > TOL_L1_MEAN:
+        raise AssertionError("gru_fwd disagrees with its plain version: "
+                             "{}".format(stats))
+    if max(stats["dxp"], stats["dW_hh"], stats["db_hh"]) > TOL_GRU_BWD:
+        raise AssertionError("gru_bwd disagrees with its plain version: "
+                             "{}".format(stats))
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("gru_bwd does not repeat bit for bit")
+    return stats
+
+
+def staged_train_step(model, optimizer, batch, gru_train, parallel,
+                      events=None, plain=False, update=True):
+    """One bf16 train step of ``GRUModel`` stage by stage, as
+    ``parallel.make_train_step`` runs it; returns the loss.
+
+    :param events: a list to which (stage, start, stop) CUDA events are
+        appended.
+    :param plain: the training kernels' plain versions in their place.
+    :param update: apply the optimizer (else leave the gradients).
+    """
+    import torch
+    cd = torch.bfloat16
+
+    def stage(name, fn):
+        if events is None:
+            return fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        events.append((name, start, stop))
+        return out
+
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    lengths = batch["lengths"]
+    out = batch["features"].transpose(0, 1).to(cd)
+    for layer in model.layer_params():
+        dirs = (("fwd", False), ("bwd", True))
+        xps = stage("projections", lambda out=out, layer=layer: [
+            gru_train.project(out, layer[d]["w_ih"], layer[d]["b_ih"], cd)
+            for d, _ in dirs])
+        out = stage("gru_fwd x4", lambda xps=xps, layer=layer: torch.cat([
+            gru_train.GRUDirection.apply(
+                xp, layer[d]["w_hh"], layer[d]["b_hh"], lengths, rev, plain)
+            for xp, (d, rev) in zip(xps, dirs)], dim=-1))
+    feats = out.transpose(0, 1)
+
+    def head_loss():
+        logits = (feats.float() @ model.linear.weight.float().t()
+                  + model.linear.bias.float())
+        return parallel.masked_cross_entropy(logits, batch)
+
+    loss = stage("head + loss", head_loss)
+    stage("backward (gru_bwd x4, projection gradients)", loss.backward)
+    if update:
+        stage("optimizer (clip + adam)",
+              lambda: parallel.apply_updates(params, optimizer))
+    return loss
+
+
+def profile_step(step, step_s):
+    """Device time by CUDA kernel over one call of ``step`` (the profiler's
+    CUPTI trace), and the device's busy share of the step's wall time
+    ``step_s``; a profiler that cannot trace the card is reported, not
+    fatal (the CUDA-event stages stand)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for evt in prof.key_averages():
+            # kernels only: an operator's own row repeats its kernels' time
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            if us > 0:
+                name = evt.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0][:80]
+                by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
+    except Exception as e:   # the measurement tool, not the program
+        log("   torch.profiler could not trace the card: {}".format(e))
+        return None
+    device_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    out = {"device_ms": device_ms,
+           "device_busy_share": device_ms / (step_s * 1e3),
+           "top_kernels_ms": top}
+    log("   profiler: device time {:.2f} ms ({:.1%} of the step's wall "
+        "time); by kernel: {}".format(device_ms, out["device_busy_share"],
+                                     json.dumps(top)))
+    return out
+
+
+def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
+    """The training path and its measurements (phases 11 and 12); returns
+    the ``kernels`` rows of gru_fwd and gru_bwd."""
+    import numpy as np
+    import torch
+    cli, datastore, gru_train, parallel, training = (
+        modules[k] for k in ("cli", "datastore", "gru_train", "parallel",
+                             "training"))
+    from medaka_tpu_torch import testing
+    from medaka_tpu_torch.models.gru import GRUModel
+    truth = os.path.join(work, "truth.bam")
+    train_hdf = os.path.join(work, "train.hdf")
+    with phase("training data: truth BAM + features --truth"):
+        testing.create_truth_bam(truth, draft)
+        if cli.main(["features", bam, train_hdf, "--truth", truth,
+                     "--quiet"]) != 0:
+            raise AssertionError("features failed")
+    train_cmd = ["train", train_hdf, "--batch_size", "128", "--epochs", "2",
+                 "--optimizer", "adam", "--optim_args", "learning_rate=1e-3",
+                 "--seed", str(seed), "--quiet"]
+    run = os.path.join(work, "run")
+    with phase("training path: train, 2 epochs at batch 128"):
+        gru_train.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(train_cmd + ["--train_name", run]) != 0:
+            raise AssertionError("train failed")
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = dict(gru_train.LAUNCHES)
+    with open(os.path.join(run, "training.csv")) as fh:
+        csv_rows = [line.split(",") for line in fh.read().splitlines()]
+    header, csv_rows = csv_rows[0], csv_rows[1:]
+    col = {name: i for i, name in enumerate(header)}
+    losses = [float(r[col["loss"]]) for r in csv_rows]
+    train_losses = [float(r[col["loss"]]) for r in csv_rows
+                    if r[col["split"]] == "train"]
+    steps = len(train_losses)
+    log("   {} train steps in {:.1f} s; launches {}; train losses {}; "
+        "validation losses {}".format(
+            steps, t_train, launches, train_losses,
+            [float(r[col["loss"]]) for r in csv_rows
+             if r[col["split"]] == "validation"]))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("a logged loss is not finite")
+    if not train_losses[-1] < train_losses[0]:
+        raise AssertionError("the training loss did not fall")
+    if launches != {"gru_fwd": 4 * steps, "gru_bwd": 4 * steps}:
+        raise AssertionError("expected 4 launches of each training kernel "
+                             "a step, got {}".format(launches))
+
+    with phase("training path: the same run again"):
+        again = os.path.join(work, "again")
+        if cli.main(train_cmd + ["--train_name", again]) != 0:
+            raise AssertionError("second train failed")
+        with open(os.path.join(again, "training.csv")) as fh:
+            rows2 = [line.split(",") for line in fh.read().splitlines()[1:]]
+        keep = [col[k] for k in ("split", "epoch", "batch", "loss", "acc")]
+        if [[r[i] for i in keep] for r in rows2] != \
+                [[r[i] for i in keep] for r in csv_rows]:
+            raise AssertionError("a second run from the same seed logged "
+                                 "other losses")
+        log("   the same {} losses and accuracies".format(len(rows2)))
+
+    with phase("training path: the last checkpoint serves"):
+        ckpt = os.path.join(run, "model-1.tar.gz")
+        hdf = os.path.join(work, "trained_probs.hdf")
+        fasta = os.path.join(work, "trained.fasta")
+        if cli.main(["inference", bam, hdf, "--model", ckpt]) != 0 or \
+                cli.main(["sequence", hdf, draft, fasta]) != 0:
+            raise AssertionError("the trained checkpoint did not serve")
+        n_samples, n_columns = check_probabilities(datastore, hdf)
+        identity, edits, cons_len = consensus_identity(testing, fasta, draft)
+        log("   {} samples, {} columns of finite probabilities; consensus "
+            "{} bp, identity to the draft {:.6f} after {} steps".format(
+                n_samples, n_columns, cons_len, identity, steps))
+
+    batcher = training.TrainBatcher([train_hdf], batch_size=128, seed=seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(batcher.batches("train", seed=0)).items()}
+    B, T = batch["features"].shape[:2]
+    lengths_sum = int(batch["lengths"].sum())
+    with phase("one train step at B=128 T=1000: kernels vs plain"):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = GRUModel(gru_size=256).to(dev)
+        H = model.gru_size
+        with torch.no_grad():
+            loss_direct, _ = parallel.cross_entropy_loss(
+                model, batch, compute_dtype=torch.bfloat16, training=True)
+        results = {}
+        for plain in (False, True):
+            loss = staged_train_step(model, None, batch, gru_train, parallel,
+                                     plain=plain, update=False)
+            results[plain] = (loss.item(), {
+                n: p.grad.clone() for n, p in model.named_parameters()})
+        if loss_direct.item() != results[False][0]:
+            raise AssertionError("the staged step's loss differs from the "
+                                 "model's")
+        loss_k, grads_k = results[False]
+        loss_p, grads_p = results[True]
+        step_stats = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                      "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+                      "grad_rel_max": max(
+                          ((grads_k[n] - g).abs().max() / g.abs().max())
+                          .item() for n, g in grads_p.items())}
+        log("   " + json.dumps(step_stats))
+        if step_stats["loss_rel"] > TOL_STEP_LOSS or \
+                step_stats["grad_rel_max"] > TOL_STEP_GRAD:
+            raise AssertionError("the step through the kernels disagrees "
+                                 "with the step through the plain versions")
+        del results, grads_k, grads_p
+
+    with phase("train step: stage breakdown, wall time"):
+        opt = training.build_optimizer("adam", None,
+                                       {"learning_rate": 1e-3})
+        step_fn = parallel.make_train_step(model, opt)
+        for _ in range(2):
+            step_fn(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step_fn(batch)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 3
+        events = []
+        staged_train_step(model, opt, batch, gru_train, parallel,
+                          events=events)
+        torch.cuda.synchronize()
+        stages = {}
+        for name, start, stop in events:
+            stages[name] = stages.get(name, 0.0) + start.elapsed_time(stop)
+        log("   stage breakdown (ms): " + json.dumps(stages))
+        log("   step wall time {:.2f} ms: {:.0f} trained columns/s "
+            "({} valid columns)".format(step_s * 1e3, lengths_sum / step_s,
+                                        lengths_sum))
+        profile = profile_step(lambda: step_fn(batch), step_s)
+
+    with phase("training kernels at B=128 T=1000: timings"):
+        layer1, layer2 = model.layer_params()
+        with torch.no_grad():
+            x1 = batch["features"].transpose(0, 1).to(torch.bfloat16)
+            lens = batch["lengths"]
+            h1 = torch.cat([gru_train.gru_fwd(
+                gru_train.project(x1, layer1[d]["w_ih"], layer1[d]["b_ih"]),
+                layer1[d]["w_hh"], layer1[d]["b_hh"], lens, rev)
+                for d, rev in (("fwd", False), ("bwd", True))], dim=-1)
+            p2 = layer2["fwd"]
+            xp = gru_train.project(h1, p2["w_ih"], p2["b_ih"])
+            w_hh, b_hh = p2["w_hh"].detach(), p2["b_hh"].detach()
+            out = gru_train.gru_fwd(xp, w_hh, b_hh, lens)
+            dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+                "float32")).to(dev, torch.bfloat16).float()
+            main_stats = compare_gru_train(gru_train, xp, w_hh, b_hh, lens,
+                                           dh_out, False)
+            one = (xp[:, :1].contiguous(), lens[:1])
+            out1 = gru_train.gru_fwd(one[0], w_hh, b_hh, one[1])
+            calls = {
+                "gru_fwd": (
+                    lambda: gru_train.gru_fwd(xp, w_hh, b_hh, lens),
+                    lambda: gru_train.gru_fwd_plain(xp, w_hh, b_hh, lens),
+                    lambda: gru_train.gru_fwd(one[0], w_hh, b_hh, one[1])),
+                "gru_bwd": (
+                    lambda: gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh,
+                                              lens),
+                    lambda: gru_train.gru_bwd_plain(xp, out, dh_out, w_hh,
+                                                    b_hh, lens),
+                    lambda: gru_train.gru_bwd(one[0], out1, dh_out[:, :1]
+                                              .contiguous(), w_hh, b_hh,
+                                              one[1])),
+            }
+            timed = {name: (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
+                            cuda_ms(o)) for name, (k, pl, o) in calls.items()}
+        # yardstick (the port never calls it): cuDNN's bf16 GRU, one
+        # direction over layer 2's inputs, its input projection included
+        gru = torch.nn.GRU(2 * H, H, 1).to(dev, torch.bfloat16)
+        gru.flatten_parameters()
+        x2 = h1.detach().clone().requires_grad_(True)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: gru(x2))
+        g_out = torch.ones((T, B, H), dtype=torch.bfloat16, device=dev)
+        lib_params = [x2] + list(gru.parameters())
+        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+            gru(x2)[0], lib_params, g_out))
+        del gru, x2
+        log("   torch.nn.GRU({}, {}, 1) bf16 (cuDNN) over the same {} rows, "
+            "its input projection included: forward {:.2f} ms, forward + "
+            "backward {:.2f} ms".format(2 * H, H, B, lib_fwd, lib_fwd_bwd))
+
+    rows = []
+    for name in ("gru_fwd", "gru_bwd"):
+        ms, plain_ms, floor_ms = timed[name]
+        bound_ms, bound_by, nbytes = gru_train_bound(name, B, H, lengths_sum)
+        if name == "gru_fwd":
+            err = max([agreement[d]["fwd_max"] for d in agreement]
+                      + [main_stats["fwd_max"]])
+        else:
+            err = max(agreement[d][k] for d in agreement
+                      for k in ("dxp", "dW_hh", "db_hh"))
+            err = max(err, main_stats["dxp"], main_stats["dW_hh"],
+                      main_stats["db_hh"])
+        rows.append({
+            "name": name, "route": "cuda", "source": TRAIN_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "launches_per_step": launches[name] // steps,
+            "max_abs_err": err,
+            "err_measure": ("max abs difference of bf16 outputs"
+                            if name == "gru_fwd" else
+                            "max abs difference over the tensor's max "
+                            "magnitude, worst of dxp, dW_hh, db_hh"),
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes,
+            "library_ms": lib_fwd if name == "gru_fwd" else None,
+            "library": (
+                "torch.nn.GRU({0}, {1}, 1) bf16 (cuDNN) forward over the "
+                "same {2} rows, its input projection included: {3:.2f} ms"
+                .format(2 * H, H, B, lib_fwd) if name == "gru_fwd" else
+                "no PyTorch call computes a GRU's backward alone; "
+                "torch.nn.GRU({0}, {1}, 1) bf16 (cuDNN) forward + backward "
+                "(autograd.grad for input and weights) over the same {2} "
+                "rows: {3:.2f} ms".format(2 * H, H, B, lib_fwd_bwd)),
+            "library_fwd_bwd_ms": lib_fwd_bwd,
+            "serial_floor_ms": floor_ms,
+            "shape": {"B": B, "T": T, "H": H, "valid_columns": lengths_sum,
+                      "layer": 2, "direction": "forward"},
+            "agreement": {"random_weights": agreement,
+                          "main_shape": main_stats},
+        })
+        log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
+            "column {:.3f} ms; {})".format(name, ms, plain_ms, bound_ms,
+                                           bound_by, floor_ms,
+                                           rows[-1]["library"]))
+    # one train step's numbers, once, on the first of the two rows
+    rows[0]["train_step"] = {
+        "vs_plain": step_stats, "stages_ms": stages, "profile": profile,
+        "wall_ms": step_s * 1e3,
+        "trained_columns_per_s": lengths_sum / step_s,
+        "steps_in_run": steps}
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random inputs and weights")
     args = parser.parse_args(argv)
+    seed = args.seed
 
     import torch
     if not torch.cuda.is_available():
@@ -413,13 +860,14 @@ def main(argv=None):
 
     sys.path.insert(0, HERE)
     from medaka_tpu_torch import cli, datastore, features, models, \
-        native, prediction, testing
-    from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split
+        native, parallel, prediction, testing, training
+    from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split, \
+        gru_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     card = card_line()
     log("card:", card)
 
@@ -437,7 +885,9 @@ def main(argv=None):
                 raise AssertionError("the native library did not build")
 
         builds = {"nvcc gru_split.cu": gru_split.build,
-                  "nvcc bilstm.cu": bilstm.build, "g++ native": native_build}
+                  "nvcc bilstm.cu": bilstm.build,
+                  "nvcc gru_train.cu": gru_train.build,
+                  "g++ native": native_build}
         with ThreadPoolExecutor(len(builds)) as pool:
             futures = {name: pool.submit(timed, fn)
                        for name, fn in builds.items()}
@@ -475,12 +925,25 @@ def main(argv=None):
             log("   H={} B={} T={}: max {:.3g}, mean {:.3g}".format(
                 H, B, T, err, mean))
 
+    train_agreement = {}
+    with phase("training kernels vs plain versions, H=256 B=128 T=1000"):
+        for reverse in (False, True):
+            stats = compare_gru_train(
+                gru_train, *random_gru_direction(rng, 256, 128, 1000, dev),
+                reverse)
+            log("   reverse={}: gru_fwd max {:.3g} mean {:.3g}; gru_bwd "
+                "relative max dxp {:.3g}, dW_hh {:.3g}, db_hh {:.3g}; "
+                "repeat bit-identical".format(
+                    reverse, stats["fwd_max"], stats["fwd_mean"],
+                    stats["dxp"], stats["dW_hh"], stats["db_hh"]))
+            train_agreement["reverse" if reverse else "forward"] = stats
+
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         with phase("synthetic BAM, 0.5 Mb at depth 20"):
             bam, draft = testing.create_synth_bam(
                 os.path.join(work, "reads.bam"), ref_mb=0.5, depth=20,
-                seed=args.seed)
+                seed=seed)
         bundle = models.load_model(MODEL)
         batch = prediction.auto_batch_size(bundle.model, dev)
         log("   automatic batch {} (mode {})".format(
@@ -691,7 +1154,7 @@ def main(argv=None):
                        (gru_split.gru_l2head_split,
                         gru_split.gru_l2head_split_plain, r2_err, 2 * H))
             with torch.inference_mode():
-                for row, args, (fn, plain_fn, err, width) in zip(
+                for row, call_args, (fn, plain_fn, err, width) in zip(
                         rows, r_args, kernels):
                     lib_ms = yardstick_ms(main_batch.features[:RB], width,
                                           1, H, dev)
@@ -701,9 +1164,9 @@ def main(argv=None):
                         "B": RB, "valid_columns": r_sum,
                         "launches": mode_launches[row["name"] + "/rows"],
                         "max_abs_err": err,
-                        "ms": cuda_ms(lambda: fn(*args, mode="rows")),
+                        "ms": cuda_ms(lambda: fn(*call_args, mode="rows")),
                         "plain_ms": cuda_ms(lambda: plain_fn(
-                            *args, mode="rows", quant=True),
+                            *call_args, mode="rows", quant=True),
                             reps=1, warmup=0),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library": "torch.nn.GRU({}, {}, 1, bidirectional="
@@ -850,6 +1313,13 @@ def main(argv=None):
                 "bound {:.4f} ms by {}, one column {:.3f} ms; {})".format(
                     lstm_ms, lstm_plain_ms, bound_ms, bound_by, floor_ms,
                     rows[-1]["library"]))
+
+        del model, x, pooled, pooled_t, xp_f, xp_b, largs, one
+        torch.cuda.empty_cache()
+        rows.extend(training_phases(
+            seed, work, bam, draft, dev, rng, train_agreement, modules={
+                "cli": cli, "datastore": datastore, "gru_train": gru_train,
+                "parallel": parallel, "training": training}))
     finally:
         import shutil
         shutil.rmtree(work, ignore_errors=True)

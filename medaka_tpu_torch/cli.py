@@ -1,8 +1,10 @@
-"""Command line: ``python -m medaka_tpu_torch {inference,sequence}``.
+"""Command line: ``python -m medaka_tpu_torch
+{inference,sequence,features,train}``.
 
-Counterpart of the ``inference`` and ``sequence`` subcommands of
-``medaka_tpu/cli.py``, with the same flags for the parts that are
-ported. ``inference`` runs on the GPU unless ``--cpu`` is given.
+Counterpart of the ``inference``, ``sequence``, ``features`` and
+``train`` subcommands of ``medaka_tpu/cli.py``, with the same flags and
+defaults for the parts that are ported. ``inference`` and ``train`` run
+on the GPU unless ``--cpu`` is given.
 """
 from __future__ import annotations
 
@@ -12,6 +14,33 @@ import os
 import sys
 
 from medaka_tpu_torch import __version__, common
+
+
+class StoreDict(argparse.Action):
+    """Parse KEY=VAL pairs into a dict (as ``medaka_tpu``'s CLI does)."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        out = {}
+        for item in values:
+            if "=" not in item:
+                raise argparse.ArgumentTypeError(
+                    "Expected KEY=VALUE, got {!r}".format(item))
+            key, value = item.split("=", 1)
+            out[key] = self._autocast(value)
+        setattr(namespace, self.dest, out)
+
+    @staticmethod
+    def _autocast(value):
+        for cast in (int, float):
+            try:
+                return cast(value)
+            except ValueError:
+                pass
+        if value.lower() in ("true", "false"):
+            return value.lower() == "true"
+        if value.lower() in ("none", "null"):
+            return None
+        return value
 
 
 def _regions_arg(values):
@@ -122,6 +151,77 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--qualities", action="store_true", help="Write fastq.")
     p.set_defaults(func=_cmd_sequence)
+
+    p = subparsers.add_parser(
+        "features", parents=[log_parent],
+        help="Create training/inference features from BAM(s).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("bam")
+    p.add_argument("output")
+    p.add_argument("--truth", default=None, help="Truth-to-draft BAM.")
+    p.add_argument("--truth_haplotag", default=None)
+    p.add_argument("--regions", nargs="+", default=None)
+    p.add_argument("--feature_encoder", default="CountsFeatureEncoder")
+    p.add_argument(
+        "--feature_encoder_args", nargs="+", action=StoreDict, default={},
+        metavar="KEY=VAL")
+    p.add_argument("--label_scheme", default="HaploidLabelScheme")
+    p.add_argument(
+        "--label_scheme_args", nargs="+", action=StoreDict, default={},
+        metavar="KEY=VAL")
+    p.add_argument("--chunk_len", type=int, default=1000)
+    p.add_argument("--chunk_ovlp", type=int, default=0)
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument("--min_region_size", type=int, default=0)
+    p.set_defaults(func=_cmd_features)
+
+    p = subparsers.add_parser(
+        "train", parents=[log_parent],
+        help="Train a model from feature files.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("features", nargs="+", help="Feature HDF5 file(s).")
+    p.add_argument("--train_name", default="training")
+    p.add_argument("--model", default=None,
+                   help="Initial model bundle (warm start).")
+    p.add_argument("--epochs", type=int, default=5000)
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--validation_split", type=float, default=0.2)
+    p.add_argument("--validation_features", nargs="+", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--optimizer", default="nadam",
+                   choices=["nadam", "adam", "rmsprop", "sgd"])
+    p.add_argument(
+        "--optim_args", nargs="+", action=StoreDict, default={},
+        metavar="KEY=VAL")
+    p.add_argument("--max_samples", type=int, default=None)
+    p.add_argument("--max_valid_samples", type=int, default=None)
+    p.add_argument(
+        "--samples_per_training_epoch", type=int, default=None,
+        help="Truncate each training epoch at this many samples.")
+    p.add_argument(
+        "--use_lr_schedule", action=argparse.BooleanOptionalAction,
+        default=True,
+        help="Warmup+cosine LR schedule (constant LR when disabled).")
+    p.add_argument(
+        "--amp", action=argparse.BooleanOptionalAction, default=None,
+        help="Mixed precision (bf16 compute), already the default; "
+             "--no-amp is equivalent to --full_precision.")
+    p.add_argument(
+        "--full_precision", action="store_true",
+        help="Train in float32 throughout (disables bf16 compute).")
+    p.add_argument(
+        "--model_parallel", type=int, default=1,
+        help="Tensor-parallel mesh axis; values above 1 are not ported "
+             "yet.")
+    p.add_argument(
+        "--validate_only", action="store_true",
+        help="Evaluate --model on the validation split (not ported yet).")
+    p.add_argument(
+        "--resume", action="store_true",
+        help="Continue a killed run (not ported yet).")
+    p.add_argument(
+        "--cpu", action="store_true", help="Train on the CPU.")
+    p.set_defaults(func=_cmd_train)
     return parser
 
 
@@ -176,6 +276,27 @@ def _cmd_sequence(args):
         threads=args.threads, min_depth=args.min_depth,
         fillgaps=args.fillgaps, fill_char=args.fill_char,
         qualities=args.qualities)
+    return 0
+
+
+def _cmd_features(args):
+    from medaka_tpu_torch import features
+    features.create_samples(
+        args.bam, args.output, truth_bam=args.truth,
+        regions=_regions_arg(args.regions) if args.regions else None,
+        feature_encoder_name=args.feature_encoder,
+        feature_encoder_args=args.feature_encoder_args,
+        label_scheme_name=args.label_scheme,
+        label_scheme_args=args.label_scheme_args,
+        truth_haplotag=args.truth_haplotag, chunk_len=args.chunk_len,
+        chunk_ovlp=args.chunk_ovlp, threads=args.threads,
+        min_region_size=args.min_region_size)
+    return 0
+
+
+def _cmd_train(args):
+    from medaka_tpu_torch import training
+    training.train(args)
     return 0
 
 

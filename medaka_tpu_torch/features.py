@@ -3,8 +3,10 @@
 Counterpart of ``medaka_tpu/features.py``, trimmed to the counts and
 read-level encoders: ``pileup_counts`` with its native helpers,
 ``CountsFeatureEncoder``, ``read_alignment_matrix``,
-``ReadAlignmentFeatureEncoder`` and ``SampleGenerator``. The run-length
-encoders are not ported yet; ``from_dict`` refuses them by name.
+``ReadAlignmentFeatureEncoder``, ``SampleGenerator`` (with and without a
+truth BAM) and ``create_samples``, which writes the (labelled) feature
+files that ``train`` reads. The run-length encoders are not ported yet;
+``from_dict`` and ``create_samples`` refuse them by name.
 
 A single-datatype region goes from BGZF bytes to counts in the native
 library (``native/src/pileup.cpp``). Regions it cannot take (several
@@ -15,7 +17,10 @@ a per-read numpy path only for regions holding a CG long cigar.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import inspect
+import itertools
+import os
 from collections import defaultdict
 from typing import List, Optional
 
@@ -481,6 +486,42 @@ class BaseFeatureEncoder(metaclass=_EncoderMeta):
                 self._post_process_pileup(counts, positions, region))
         return samples
 
+    def bams_to_training_samples(
+            self, truth_bam, bam, region: Region, label_scheme,
+            truth_haplotag=None, min_length=1000):
+        """Create labelled training samples for a region.
+
+        Aligns label-scheme encodings of truth alignments with the feature
+        positions, padding feature-only (read-insertion) columns with the
+        scheme's padding vector.
+        """
+        from medaka_tpu_torch import labels as labels_mod
+        alns = labels_mod.TruthAlignment.bam_to_alignments(
+            truth_bam, region, haplotag=truth_haplotag,
+            min_length=min_length)
+        if len(alns) == 0:
+            self.logger.info(
+                "Filtering and grouping removed all alignments of truth to "
+                "ref from {}.".format(region))
+
+        samples = []
+        for aln in alns:
+            truth_pos, truth_labels = label_scheme.encode(aln)
+            aln_samples = self.bam_to_sample(
+                bam, Region(region.ref_name, aln[0].start, aln[0].end))
+            for sample in aln_samples:
+                shape = list(truth_labels.shape)
+                shape[0] = len(sample.positions)
+                padded = np.full(
+                    shape, label_scheme.padding_vector,
+                    dtype=truth_labels.dtype)
+                t_in = np.isin(truth_pos, sample.positions)
+                s_in = np.isin(sample.positions, truth_pos)
+                assert t_in.sum() == s_in.sum()
+                padded[np.where(s_in)] = truth_labels[np.where(t_in)]
+                samples.append(sample.amend(labels=padded))
+        return tuple(samples)
+
 
 class CountsFeatureEncoder(BaseFeatureEncoder):
     """Normalised base-count pileup features (10 channels per dtype)."""
@@ -893,24 +934,39 @@ class ReadAlignmentFeatureEncoder(CountsFeatureEncoder):
 
 
 class SampleGenerator:
-    """Chunked inference sample production for one region."""
+    """Chunked inference/training sample production for one region."""
 
     def __init__(
-            self, bam, region, feature_encoder, chunk_len=1000,
-            chunk_overlap=200, enable_chunking=True):
+            self, bam, region, feature_encoder, truth_bam=None,
+            label_scheme=None, truth_haplotag=None, chunk_len=1000,
+            chunk_overlap=200, enable_chunking=True, min_truth_length=1000):
         """See reference ``features.py:1208-1254`` for the contract."""
         self.logger = common.get_named_logger("Sampler")
         self.bam = bam
         self.region = region
         self.fencoder = feature_encoder
+        self.truth_bam = truth_bam
+        self.label_scheme = label_scheme
+        self.truth_haplotag = truth_haplotag
         self.chunk_len = chunk_len
         self.chunk_overlap = chunk_overlap
         self.enable_chunking = enable_chunking
+        self.min_truth_length = min_truth_length
         self._source = None
         self._quarantined = []
+        if truth_bam is not None and label_scheme is None:
+            raise ValueError(
+                "A `LabelScheme` must be given to create training data.")
 
     def _fill_features(self):
-        if self._source is None:
+        if self._source is not None:
+            return
+        if self.truth_bam is not None:
+            self._source = self.fencoder.bams_to_training_samples(
+                self.truth_bam, self.bam, self.region, self.label_scheme,
+                truth_haplotag=self.truth_haplotag,
+                min_length=self.min_truth_length)
+        else:
             self._source = self.fencoder.bam_to_sample(self.bam, self.region)
 
     @property
@@ -939,3 +995,105 @@ class SampleGenerator:
                 chunk_len=self.chunk_len, overlap=self.chunk_overlap))
         return out
 
+
+# ---------------------------------------------------------------------------
+# Feature-file creation (`medaka_tpu_torch features`)
+# ---------------------------------------------------------------------------
+
+
+def _samples_worker(bam, region, feature_encoder, label_scheme, truth_bam,
+                    truth_haplotag, chunk_len, chunk_ovlp):
+    gen = SampleGenerator(
+        bam, region, feature_encoder, truth_bam=truth_bam,
+        label_scheme=label_scheme, truth_haplotag=truth_haplotag,
+        chunk_len=chunk_len, chunk_overlap=chunk_ovlp)
+    return list(gen.samples), region
+
+
+def create_samples(
+        bam, output, truth_bam=None, regions=None,
+        feature_encoder_name="CountsFeatureEncoder",
+        feature_encoder_args=None, label_scheme_name="HaploidLabelScheme",
+        label_scheme_args=None, truth_haplotag=None, chunk_len=1000,
+        chunk_ovlp=0, threads=1, min_region_size=0):
+    """Create a feature HDF5 (labelled when ``truth_bam`` is given).
+
+    Counterpart of ``create_samples`` in ``medaka_tpu/features.py``,
+    including the num_qstrat/max_run agreement rule between run-length
+    encoders and schemes, and the registry lookups by name (which refuse
+    classes not ported yet).
+
+    :returns: number of samples written.
+    """
+    from medaka_tpu_torch import datastore as datastore_mod
+    from medaka_tpu_torch import labels as labels_mod
+
+    logger = common.get_named_logger("Prepare")
+    if chunk_ovlp >= chunk_len:
+        raise ValueError(
+            "chunk_ovlp {} is not smaller than chunk_len {}".format(
+                chunk_ovlp, chunk_len))
+    regions = common.get_bam_regions(bam, regions)
+    regions = [r for r in regions if r.size >= min_region_size]
+    if truth_bam is None:
+        logger.warning(
+            "Running feature creation without a truth bam; unlabelled "
+            "data will be produced.")
+
+    feature_encoder_args = dict(feature_encoder_args or {})
+    label_scheme_args = dict(label_scheme_args or {})
+    # keep RLE stratification consistent between encoder and scheme
+    num_qstrat = feature_encoder_args.get("num_qstrat")
+    max_run = label_scheme_args.get("max_run")
+    if max_run is None and num_qstrat is not None:
+        label_scheme_args["max_run"] = num_qstrat
+    elif max_run is not None and num_qstrat is None:
+        feature_encoder_args["num_qstrat"] = max_run
+    elif max_run is not None and max_run != num_qstrat:
+        raise ValueError(
+            "num_qstrat in feature_encoder_args must agree with max_run "
+            "in label_scheme_args")
+
+    feature_encoder = from_dict({"type": feature_encoder_name,
+                                 "kwargs": feature_encoder_args})
+    label_scheme = labels_mod.from_dict({"type": label_scheme_name,
+                                         "kwargs": label_scheme_args})
+
+    n_written = 0
+    with datastore_mod.DataStore(output, "w") as ds:
+        ds.set_meta(feature_encoder, "feature_encoder")
+        ds.set_meta(label_scheme, "label_scheme")
+        work = list(itertools.chain.from_iterable(
+            r.split(int(1e6)) for r in regions))
+        with concurrent.futures.ThreadPoolExecutor(threads) as executor:
+            futures = [
+                executor.submit(
+                    _samples_worker, bam, reg, feature_encoder,
+                    label_scheme if truth_bam else None, truth_bam,
+                    truth_haplotag, chunk_len, chunk_ovlp)
+                for reg in work]
+            failures = []
+            for fut in concurrent.futures.as_completed(futures):
+                if fut.exception() is not None:
+                    logger.error("Worker failed: %s", fut.exception())
+                    failures.append(fut.exception())
+                    continue
+                samples, region = fut.result()
+                logger.info(
+                    "Writing %d samples for region %s.",
+                    len(samples), region)
+                for sample in samples:
+                    ds.write_sample(sample)
+                    n_written += 1
+        ds.write_registry()
+        empty = ds.n_samples == 0
+    if failures:
+        # successful regions were written for inspection, but a silently
+        # gapped feature file must not look like success
+        raise RuntimeError(
+            "{} of {} feature regions failed; first error: "
+            "{}".format(len(failures), len(work), failures[0]))
+    if empty:
+        logger.critical("No data written; deleting output.")
+        os.remove(output)
+    return n_written

@@ -21,6 +21,7 @@ CIGAR_OPS = "MIDNSHP=X"
 C_M, C_I, C_D, C_N, C_S, C_H, C_P, C_EQ, C_X = range(9)
 _CONSUMES_REF = np.array(
     [1, 0, 1, 1, 0, 0, 0, 1, 1], dtype=np.int64)  # M D N = X
+_ALN_OPS = (C_M, C_EQ, C_X)
 
 SEQ_NT16_STR = "=ACMGRSVTWYHKDBN"
 _NT16_LUT = np.frombuffer(SEQ_NT16_STR.encode(), dtype=np.uint8)
@@ -149,6 +150,13 @@ class BamRecord:
         return out[:self._l_seq]
 
     @functools.cached_property
+    def query_sequence(self) -> Optional[str]:
+        """Read bases as a string (None for SEQ '*')."""
+        if self._l_seq == 0:
+            return None
+        return _NT16_LUT[self.seq_nt16].tobytes().decode()
+
+    @functools.cached_property
     def query_qualities(self) -> Optional[np.ndarray]:
         """Base qualities (None when absent)."""
         if self._l_seq == 0:
@@ -204,6 +212,10 @@ class BamRecord:
                 raise BamError("Unknown aux type {!r}".format(typ))
         return out
 
+    def get_tag(self, name, default=None):
+        """Return an aux tag value or ``default``."""
+        return self.tags.get(name, default)
+
     # --- flags ---
     @property
     def is_unmapped(self):  # noqa: D102
@@ -212,6 +224,10 @@ class BamRecord:
     @property
     def is_reverse(self):  # noqa: D102
         return bool(self.flag & FREVERSE)
+
+    @property
+    def is_secondary(self):  # noqa: D102
+        return bool(self.flag & FSECONDARY)
 
     # --- derived geometry ---
     @functools.cached_property
@@ -225,9 +241,85 @@ class BamRecord:
         return int(np.sum((enc >> 4) * _CONSUMES_REF[enc & 0xF]))
 
     @property
+    def reference_start(self) -> int:
+        """Leftmost reference coordinate (0-based)."""
+        return self.pos
+
+    @property
     def reference_end(self) -> int:
         """One past the last consumed reference coordinate."""
         return self.pos + self.reference_length
+
+    def get_reference_sequence(self) -> str:
+        """Reconstruct the aligned reference sequence from the MD tag.
+
+        Matches pysam's ``AlignedSegment.get_reference_sequence``.
+        """
+        md = self.tags.get("MD")
+        if md is None:
+            raise ValueError(
+                "MD tag not present for read {}".format(self.query_name))
+        if self.query_sequence is None:
+            raise ValueError(
+                "Read {} stores no sequence (SEQ '*'); cannot "
+                "reconstruct the reference.".format(self.query_name))
+        # query bases consumed at aligned (M/=/X) positions only
+        aligned = []
+        qpos = 0
+        for op, ln in self.cigar_array:
+            if op in _ALN_OPS:
+                aligned.append(self.query_sequence[qpos:qpos + ln])
+                qpos += ln
+            elif op in (C_I, C_S):
+                qpos += ln
+        aligned = "".join(aligned)
+        ref = []
+        apos = 0
+        i = 0
+        n = len(md)
+        while i < n:
+            ch = md[i]
+            if ch.isdigit():
+                j = i
+                while j < n and md[j].isdigit():
+                    j += 1
+                run = int(md[i:j])
+                ref.append(aligned[apos:apos + run])
+                apos += run
+                i = j
+            elif ch == "^":
+                j = i + 1
+                while j < n and md[j].isalpha():
+                    j += 1
+                ref.append(md[i + 1:j])
+                i = j
+            else:
+                ref.append(ch)
+                apos += 1
+                i += 1
+        return "".join(ref)
+
+    def get_aligned_pairs(self):
+        """(query_pos, ref_pos) pairs; None marks gaps.
+
+        Matches pysam's ``AlignedSegment.get_aligned_pairs``.
+        """
+        qpos, rpos = 0, self.pos
+        pairs = []
+        for op, ln in self.cigar_array:
+            if op in _ALN_OPS:
+                pairs.extend((qpos + i, rpos + i) for i in range(ln))
+                qpos += ln
+                rpos += ln
+            elif op == C_I:
+                pairs.extend((qpos + i, None) for i in range(ln))
+                qpos += ln
+            elif op in (C_D, C_N):
+                pairs.extend((None, rpos + i) for i in range(ln))
+                rpos += ln
+            elif op == C_S:
+                qpos += ln
+        return pairs
 
     # --- construction ---
     @classmethod

@@ -1,7 +1,8 @@
 """Model registry, bundle loading and saving.
 
 Counterpart of ``medaka_tpu/models/__init__.py`` (``load_model``,
-``open_model``, ``save_model``, ``ModelBundle``, the registry). Bundles
+``open_model``, ``save_model``, ``ModelBundle``, the registry,
+``DEFAULT_MODEL_DICT``). Bundles
 are ``tar.gz`` archives of ``model/config.json`` (architecture, feature
 encoder and label scheme configs) and ``model/weights.npz`` (the
 parameter pytree flattened to ``a/0/b`` keys), so a bundle written by
@@ -20,6 +21,13 @@ from typing import Dict
 import numpy as np
 
 model_classes = {}
+
+#: the architecture ``train`` builds when it is given none: the counts
+#: GRUModel at full width
+DEFAULT_MODEL_DICT = {
+    "type": "GRUModel",
+    "kwargs": {"num_features": 10, "num_classes": 5, "gru_size": 256},
+}
 
 
 def register_model(cls):
@@ -145,3 +153,5 @@ def open_model(path: str) -> ModelBundle:
 from medaka_tpu_torch.models.gru import GRUModel  # noqa: E402,F401
 from medaka_tpu_torch.models.latent_space_lstm import (  # noqa: E402,F401
     LatentSpaceLSTM)
+from medaka_tpu_torch.models.majority import (  # noqa: E402,F401
+    MajorityVoteModel)

@@ -11,8 +11,11 @@ Routing mirrors ``GRUModel.apply``: bf16 inference of a 2-layer
 bidirectional stack goes through the split-path kernels on the GPU (by
 default) where JAX takes them (batch >= 32, hidden a multiple of 128;
 :func:`takes_split_path`), and through their plain versions on the CPU
-when ``fused=True``, at any batch, as JAX's ``interpret=True`` does;
-everything else runs the masked scan of :mod:`medaka_tpu_torch.ops.rnn`.
+when ``fused=True``, at any batch, as JAX's ``interpret=True`` does.
+Training (``training=True``) with ``fused`` goes through the trainable
+kernel pair of :mod:`medaka_tpu_torch.ops.gru_train` (plain versions on
+the CPU). Everything else runs the masked scan of
+:mod:`medaka_tpu_torch.ops.rnn`, under autograd when training.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from torch import nn
 
 from medaka_tpu_torch.models import register_model
 from medaka_tpu_torch.ops.gru_split import bigru_head_fullfused
+from medaka_tpu_torch.ops.gru_train import bigru_stack_trainable
 from medaka_tpu_torch.ops.rnn import bigru_stack
 
 _GATE_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -167,23 +171,34 @@ class GRUModel(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths=None, normalise: bool = True,
                 compute_dtype=None, fused: Optional[bool] = None,
-                recurrent_quant: Optional[str] = None) -> torch.Tensor:
+                recurrent_quant: Optional[str] = None,
+                training: bool = False) -> torch.Tensor:
         """Forward pass.
 
         :param x: (batch, positions, num_features) counts features.
         :param lengths: optional (batch,) valid lengths.
         :param normalise: apply softmax (False: logits).
         :param compute_dtype: None (float32) or torch.bfloat16.
-        :param fused: use the split-path kernels. Default: on for bf16
-            inference on the GPU, off on the CPU (where ``fused=True``
-            runs the kernels' plain versions).
+        :param fused: use the kernels. Default: on for bf16 on the GPU,
+            off on the CPU (where ``fused=True`` runs the kernels' plain
+            versions).
         :param recurrent_quant: None/"int8" (int8 split path) or "none"
-            (bf16 split path).
+            (bf16 split path); inference only.
+        :param training: differentiable route: with ``fused`` the
+            trainable kernel pair (bf16 even when ``compute_dtype`` is
+            None, as in JAX), else the scan under autograd.
         :returns: (batch, positions, num_classes) float32.
         """
         if fused is None:
             fused = compute_dtype == torch.bfloat16 and x.is_cuda
-        if fused:
+        if fused and training:
+            feats = bigru_stack_trainable(
+                self.layer_params(), x, lengths=lengths,
+                compute_dtype=compute_dtype,
+                bidirectional=self.bidirectional)
+            logits = (feats.float() @ self.linear.weight.float().t()
+                      + self.linear.bias.float())
+        elif fused:
             if not (self.bidirectional and self.n_layers == 2
                     and compute_dtype == torch.bfloat16
                     and recurrent_quant in (None, "int8", "none")

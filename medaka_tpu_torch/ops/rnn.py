@@ -7,7 +7,9 @@ t >= length, so outputs on the valid prefix equal an unpadded run. With
 ``compute_dtype=None`` everything runs in float32; with bfloat16 the
 inputs, weights and biases are cast first and every step runs in bf16, as
 the JAX scans do. These are the CPU routes of ``GRUModel`` and
-``LatentSpaceLSTM`` and their full-precision routes on the GPU.
+``LatentSpaceLSTM`` and their full-precision routes on the GPU;
+:func:`gru_scan` also runs under autograd, the f32 training route of
+``GRUModel`` (the counterpart of JAX autodiff through ``bigru_stack``).
 """
 from __future__ import annotations
 
@@ -38,10 +40,13 @@ def gru_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     x_proj = torch.einsum("bti,hi->bth", x, w_ih) + b_ih
     w_hh_t = w_hh.t()
     h = torch.zeros((batch, hidden), dtype=dtype, device=x.device)
-    out = torch.empty((batch, steps, hidden), dtype=dtype, device=x.device)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=x.device).reshape(batch, 1)
     order = range(steps - 1, -1, -1) if reverse else range(steps)
+    # the steps' outputs are stacked once at the end (not written into a
+    # preallocated tensor), so autograd records one node for them: the
+    # f32 training route differentiates through this scan
+    outs = []
     for t in order:
         hp = h @ w_hh_t + b_hh
         xr, xz, xn = x_proj[:, t].chunk(3, dim=-1)
@@ -51,8 +56,12 @@ def gru_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
         n = torch.tanh(xn + r * hn)
         h_new = (1.0 - z) * n + z * h
         h = h_new if lengths is None else torch.where(t < lengths, h_new, h)
-        out[:, t] = h
-    return out
+        outs.append(h)
+    if reverse:
+        outs.reverse()
+    if not outs:
+        return torch.empty((batch, 0, hidden), dtype=dtype, device=x.device)
+    return torch.stack(outs, dim=1)
 
 
 def bigru_stack(layers: Sequence[Dict], x: torch.Tensor,

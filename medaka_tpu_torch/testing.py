@@ -4,14 +4,18 @@ A copy of ``simulate_synth_read``, ``simulate_dwell_read`` and
 ``create_synth_bam`` from ``tests/mock_data.py`` that writes through the
 port's own ``io``. ``create_synth_bam(move_tables=True)`` writes reads
 with dwell-correlated errors and their ``mv`` move tables, for the
-read-level models that take dwells.
+read-level models that take dwells. :func:`create_truth_bam` writes the
+truth-to-draft BAM of the synthetic genome that labelled ``features``
+need (the counterpart of ``tests/mock_data.create_truth_bam``).
 """
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import numpy as np
 
 from medaka_tpu_torch.io.bam import BamRecord, write_bam
-from medaka_tpu_torch.io.fastx import FastaWriter
+from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
 
 _SYNTH_BASES = np.frombuffer(b"ACGT", np.uint8)
 
@@ -157,6 +161,63 @@ def create_synth_bam(path, ref_mb=2.0, depth=30, seed=42, read_len=20000,
             flag=16 if i % 2 else 0, mapq=60, tags=tags))
     write_bam(path, records, [("synth", ref_len)])
     return path, ref_fasta
+
+
+def md_tag(truth: str, draft: str) -> str:
+    """The MD tag of ``truth`` aligned gaplessly to ``draft`` (same length):
+    match runs, with the draft's base named at each mismatch."""
+    if len(truth) != len(draft):
+        raise ValueError("truth and draft differ in length")
+    t = np.frombuffer(truth.encode(), np.uint8)
+    d = np.frombuffer(draft.encode(), np.uint8)
+    parts, last = [], 0
+    for pos in np.flatnonzero(t != d):
+        parts.append("{}{}".format(pos - last, draft[pos]))
+        last = pos + 1
+    parts.append(str(len(draft) - last))
+    return "".join(parts)
+
+
+def create_truth_bam(path, ref_fasta,
+                     substitutions: Optional[Dict[str, Dict[int, str]]] = None,
+                     draft_fasta: Optional[str] = None):
+    """Write a truth-to-draft BAM for the synthetic genome in ``ref_fasta``.
+
+    One primary record per contig: the genome as SEQ, CIGAR ``<L>M`` at
+    position 0, mapping quality 60 and an MD tag. ``substitutions`` plants
+    draft errors ({contig: {position: draft base}}): the draft then
+    differs from the truth there, the MD tag names the draft's bases, and
+    ``draft_fasta`` (when given) receives the planted draft. Reads
+    simulated from the genome stay aligned to the same coordinates.
+
+    :returns: ``path``.
+    """
+    substitutions = substitutions or {}
+    records, refs, drafts = [], [], []
+    with FastaReader(ref_fasta) as fr:
+        for tid, name in enumerate(fr.references):
+            truth = fr.fetch(name)
+            draft = bytearray(truth.encode())
+            for pos, base in substitutions.get(name, {}).items():
+                if base == truth[pos]:
+                    raise ValueError(
+                        "substitution at {}:{} keeps the base {}".format(
+                            name, pos, base))
+                draft[pos] = ord(base)
+            draft = draft.decode()
+            refs.append((name, len(truth)))
+            drafts.append((name, draft))
+            records.append(BamRecord.build(
+                query_name="truth_{}".format(name), ref_id=tid, pos=0,
+                seq=truth, qual=np.full(len(truth), 60, np.uint8),
+                cigar="{}M".format(len(truth)), mapq=60,
+                tags={"MD": md_tag(truth, draft)}))
+    write_bam(path, records, refs)
+    if draft_fasta is not None:
+        with FastaWriter(draft_fasta) as fw:
+            for name, seq in drafts:
+                fw.write(name, seq)
+    return path
 
 
 def greedy_edit_count(a, b, look: int = 16, reach: int = 8) -> int:

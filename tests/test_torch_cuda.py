@@ -14,7 +14,8 @@ import os
 
 from medaka_tpu_torch import features, models, prediction, testing
 from medaka_tpu_torch.common import Region
-from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split
+from medaka_tpu_torch.models.gru import GRUModel
+from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split, gru_train
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +32,7 @@ def device():
     torch.backends.cudnn.allow_tf32 = False
     gru_split.build()
     bilstm.build()
+    gru_train.build()
     for log in cuda_build.BUILD_LOGS.values():
         print(log)
     return torch.device("cuda")
@@ -182,3 +184,100 @@ def test_read_level_forward_matches_cpu_plain_route(device, tmp_path):
           diff.mean().item(), "argmax agreement", agree)
     assert diff.max().item() <= 2e-2
     assert agree >= 0.99
+
+
+def _train_inputs(rng, H, B, T, device):
+    k = 1.0 / np.sqrt(H)
+    xp = torch.from_numpy(rng.uniform(-2, 2, (T, B, 3 * H)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    w_hh = torch.from_numpy(rng.uniform(-k, k, (3 * H, H)).astype(
+        np.float32)).to(device)
+    b_hh = torch.from_numpy(rng.uniform(-k, k, (3 * H,)).astype(
+        np.float32)).to(device)
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    lengths[0] = T
+    dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(device, torch.bfloat16).float()
+    return xp, w_hh, b_hh, lengths.to(device), dh_out
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H,B,T", [(256, 128, 200), (128, 37, 100),
+                                   (64, 5, 64)])
+def test_gru_train_kernels_match_plain(device, H, B, T, reverse):
+    """gru_fwd and gru_bwd against their plain versions, ragged lengths.
+
+    They do the same operations and differ only in the order of f32 sums
+    (the recurrent products, dW_hh and db_hh), which can move a bf16
+    rounding: forward outputs within one bf16 step (2^-8 for |h| < 1),
+    mean within 1e-3; dxp, dW_hh and db_hh within 1e-3 of each tensor's
+    largest magnitude. W_hh is read from L2 at H=256 and sits in shared
+    memory below. A second backward repeats the first bit for bit.
+    """
+    rng = np.random.default_rng(H + B + int(reverse))
+    xp, w_hh, b_hh, lengths, dh_out = _train_inputs(rng, H, B, T, device)
+    out = gru_train.gru_fwd(xp, w_hh, b_hh, lengths, reverse)
+    ref = gru_train.gru_fwd_plain(xp, w_hh, b_hh, lengths, reverse)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    print("gru_fwd H", H, "B", B, "reverse", reverse, "max",
+          diff.max().item(), "mean", diff.mean().item())
+    assert out.shape == (T, B, H) and out.dtype == torch.bfloat16
+    assert diff.max().item() <= 2.0 ** -8
+    assert diff.mean().item() <= 1e-3
+    got = gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh, lengths, reverse)
+    want = gru_train.gru_bwd_plain(xp, out, dh_out, w_hh, b_hh, lengths,
+                                   reverse)
+    again = gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh, lengths, reverse)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dxp", "dW_hh", "db_hh"), got, want):
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        print("gru_bwd", name, "relative max", rel)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert rel <= 1e-3
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_train_step_kernels_match_cpu_plain_route(device):
+    """One bf16 training step of GRUModel (2 layers, bidirectional,
+    H=64) through the kernels on the card against the same step through
+    their plain versions on the CPU: loss within 1e-5 relative, every
+    gradient within 1e-2 of its largest magnitude."""
+    from medaka_tpu_torch import parallel
+    rng = np.random.default_rng(3)
+    B, T = 8, 120
+    torch.manual_seed(0)
+    model = GRUModel(gru_size=64)
+    lengths = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lengths[0] = T
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    batch = {"features": torch.from_numpy(rng.random((B, T, 10)).astype(
+                 np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 5, (B, T)).astype(
+                 np.int32)),
+             "mask": torch.from_numpy(mask),
+             "lengths": torch.from_numpy(lengths)}
+
+    def step(dev, fused):
+        model.to(dev)
+        model.zero_grad()
+        loss, _ = parallel.cross_entropy_loss(
+            lambda *a, **kw: model(*a, fused=fused, **kw),
+            {k: v.to(dev) for k, v in batch.items()},
+            compute_dtype=torch.bfloat16, training=True)
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu().clone()
+                             for n, p in model.named_parameters()}
+
+    gru_train.reset_launches()
+    loss_k, grads_k = step(device, None)
+    assert gru_train.LAUNCHES == {"gru_fwd": 4, "gru_bwd": 4}
+    loss_p, grads_p = step("cpu", True)
+    model.to("cpu")
+    print("loss kernels", loss_k, "plain", loss_p)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for name, gp in grads_p.items():
+        rel = ((grads_k[name] - gp).abs().max() / gp.abs().max()).item()
+        print(name, "relative max", rel)
+        assert rel <= 1e-2

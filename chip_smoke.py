@@ -53,7 +53,29 @@ Phases, each of which fails the script when it fails:
     against the same step through their plain versions, a stage
     breakdown of a step (CUDA events), the step's wall time, and each
     kernel's time beside its plain version, its serial floor, the cuDNN
-    ``nn.GRU`` yardstick and its bound; print one ``kernels`` JSON line.
+    ``nn.GRU`` yardstick and its bound;
+13. hold the LSTM training kernels (``lstm_fwd``, ``lstm_bwd``) against
+    their plain versions at H=384 (L2 route) and H=128 (the forward's
+    shared-memory route), B=128, T=1000, ragged lengths, random weights,
+    both directions, and ``lstm_bwd`` against itself run again (bit for
+    bit);
+14. the read-level training path: a 0.5 Mb synthetic BAM with move
+    tables (dwells) and its truth BAM, ``features --truth
+    --feature_encoder ReadAlignmentFeatureEncoder`` at the encoder's
+    defaults (max_reads 100, dwells), then ``train`` with no ``--model``
+    (the full-width ``LatentSpaceLSTM``: lstm_size 384, cnn_size 128,
+    kernel sizes 1 and 17), batch 128, 2 epochs, bf16, through the CLI
+    entry point, with the LSTM kernels' launch counts set to 0 just
+    before ``train``; check the losses (finite, falling), 4 launches of
+    each kernel a step, the batch-norm running statistics moved off
+    (0, 1), a second run from the same seed (the same losses), and that
+    the last checkpoint serves ``inference`` + ``sequence``;
+15. on one full batch of that data (B=128, T=1000, 100 reads, H=384):
+    one train step through the kernels against the same step through
+    their plain versions, a stage breakdown (CUDA events), the step's
+    wall time, device-busy share and peak memory, and each LSTM kernel's
+    time beside its plain version, its serial floor, the cuDNN
+    ``nn.LSTM`` yardstick and its bound; print one ``kernels`` JSON line.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -77,6 +99,7 @@ RL_MODEL = os.path.join(HERE, "medaka_tpu", "data",
 KERNEL_SOURCE = "medaka_tpu_torch/csrc/gru_split.cu"
 BILSTM_SOURCE = "medaka_tpu_torch/csrc/bilstm.cu"
 TRAIN_SOURCE = "medaka_tpu_torch/csrc/gru_train.cu"
+LSTM_TRAIN_SOURCE = "medaka_tpu_torch/csrc/lstm_train.cu"
 REPLACES = {
     "gru_l1_split": "medaka_tpu/ops/pallas_gru.py:1371 "
                     "(_bigru_l1_split_t_kernel, mode t); :982 "
@@ -90,6 +113,10 @@ REPLACES = {
                ":105)",
     "gru_bwd": "medaka_tpu/ops/pallas_gru.py:1615 _gru_bwd_kernel "
                "(gru_bwd_pallas :1696)",
+    "lstm_fwd": "medaka_tpu/ops/pallas_gru.py:1852 _lstm_kernel "
+                "(lstm_pallas :1905)",
+    "lstm_bwd": "medaka_tpu/ops/pallas_gru.py:1966 _lstm_bwd_kernel "
+                "(lstm_bwd_pallas :2042)",
 }
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
 # bf16 flop/s, f32 flop/s outside the tensor cores
@@ -136,6 +163,26 @@ TOL_STEP_GRAD = 1e-2
 # dh
 GRU_FWD_ELEMENTWISE_OPS = 20
 GRU_BWD_ELEMENTWISE_OPS = 41
+# LSTM training kernels vs their plain versions: the same operations, f32
+# sums in another order: h within one bf16 step (mean 1e-3), c within
+# 1e-3 of its largest magnitude; dxp, dW_hh, db_hh within 1e-3 of each
+# tensor's largest magnitude (TOL_GRU_BWD). f32 operations per hidden
+# unit and step besides the products: forward as LSTM_ELEMENTWISE_OPS;
+# backward the same gates (21), c and tanh(c) (4), dc_tot and the four
+# gate gradients (21), the valid masks (4), db_hh (4), the carried dh and
+# dc (8) and the upstream add (1)
+TOL_LSTM_C = 1e-3
+LSTM_BWD_ELEMENTWISE_OPS = 63
+# one read-level train step through the kernels vs through the plain
+# versions: loss within TOL_STEP_LOSS, the LSTM stack's and the head's
+# gradients within TOL_STEP_GRAD. Below the stack the gradient flows in
+# bf16 (dxp is cast to the projections' bf16): the kernels' f32 sums in
+# another order move some of those roundings by one step, and the conv,
+# batch-norm and embedding gradients are sums over every read and
+# position that cancel, so a small leaf can differ by a few percent of
+# its largest element (2% on an H100 in the card tests); each of those
+# leaves must point the same way
+MIN_UPSTREAM_COSINE = 0.999
 
 
 def log(*args):
@@ -371,6 +418,21 @@ def compare_bilstm(bilstm, args):
     return err, mean
 
 
+def timed_stage(events, name, fn):
+    """``fn()``; with an ``events`` list, between two CUDA events appended
+    to it as (name, start, stop)."""
+    import torch
+    if events is None:
+        return fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    events.append((name, start, stop))
+    return out
+
+
 def read_level_stages(model, bilstm, x, lengths, plain=False, events=None):
     """``LatentSpaceLSTM``'s bf16 forward stage by stage, the LSTM stack as
     ``bilstm_stack_fused`` runs it; returns the logits.
@@ -384,15 +446,7 @@ def read_level_stages(model, bilstm, x, lengths, plain=False, events=None):
     layer_fn = bilstm.bilstm_fused_plain if plain else bilstm.bilstm_fused
 
     def stage(name, fn, *args):
-        if events is None:
-            return fn(*args)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*args)
-        stop.record()
-        events.append((name, start, stop))
-        return out
+        return timed_stage(events, name, lambda: fn(*args))
 
     def projections(out, fwd, bwd):
         return (bilstm.project(out, fwd["w_ih"], fwd["b_ih"], cd),
@@ -437,28 +491,36 @@ def bilstm_bound(B, H, lengths_sum):
     return t_ops, "operations"
 
 
-def gru_train_bound(name, B, H, lengths_sum):
-    """Least time (ms) of one gru_fwd or gru_bwd call, and what bounds it.
+def train_bound(name, B, H, lengths_sum):
+    """Least time (ms) of one gru_fwd, gru_bwd, lstm_fwd or lstm_bwd call,
+    what bounds it, and the bytes counted.
 
     Counted over the valid columns (``lengths_sum``), as for the other
-    kernels. gru_fwd reads the bf16 projections and writes the bf16
-    outputs; gru_bwd reads the bf16 projections and outputs and the f32
-    upstream gradient and writes the f32 dxp; both read the f32 W_hh,
-    b_hh and the lengths, and gru_bwd writes dW_hh and db_hh, once.
-    Operations: the recurrent products (one for gru_fwd; for gru_bwd the
-    recomputed gates, the dh product and dW_hh), 2 x 3H x H each per
-    column, at the bf16 tensor-core peak, plus the f32 gate arithmetic at
-    the f32 peak.
+    kernels. A forward reads the bf16 projections and writes the bf16
+    outputs (the LSTM also its f32 cell states); a backward reads the bf16
+    projections and outputs (the LSTM also the f32 cell states) and the
+    f32 upstream gradient and writes the f32 dxp; all read the f32 W_hh,
+    b_hh and the lengths, and a backward writes dW_hh and db_hh, once.
+    Operations: the recurrent products (one in a forward; in a backward
+    the recomputed gates, the dh product and dW_hh), 2 x G x H each per
+    column (G = 3H gate rows for the GRU, 4H for the LSTM), at the bf16
+    tensor-core peak, plus the f32 gate arithmetic at the f32 peak.
     """
-    G = 3 * H
+    lstm = name.startswith("lstm")
+    G = (4 if lstm else 3) * H
+    cells = H * 4 if lstm else 0
     weights = G * H * 4 + G * 4 + B * 4
-    if name == "gru_fwd":
-        nbytes = lengths_sum * (G * 2 + H * 2) + weights
-        products, elementwise = 1, GRU_FWD_ELEMENTWISE_OPS
+    if name.endswith("fwd"):
+        nbytes = lengths_sum * (G * 2 + H * 2 + cells) + weights
+        products = 1
+        elementwise = LSTM_ELEMENTWISE_OPS if lstm else \
+            GRU_FWD_ELEMENTWISE_OPS
     else:
-        nbytes = (lengths_sum * (G * 2 + H * 2 + H * 4 + G * 4) + weights
-                  + G * H * 4 + G * 4)
-        products, elementwise = 3, GRU_BWD_ELEMENTWISE_OPS
+        nbytes = (lengths_sum * (G * 2 + H * 2 + cells + H * 4 + G * 4)
+                  + weights + G * H * 4 + G * 4)
+        products = 3
+        elementwise = LSTM_BWD_ELEMENTWISE_OPS if lstm else \
+            GRU_BWD_ELEMENTWISE_OPS
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (products * 2 * lengths_sum * G * H / PEAK_BF16
              + lengths_sum * H * elementwise / PEAK_F32) * 1e3
@@ -467,10 +529,10 @@ def gru_train_bound(name, B, H, lengths_sum):
     return t_ops, "operations", nbytes
 
 
-def random_gru_direction(rng, H, B, T, dev):
-    """gru_fwd arguments at full width and an upstream gradient: bf16
-    projections, uniform weights and biases as torch initialises them,
-    ragged lengths (the first full)."""
+def random_direction(rng, H, B, T, dev, gates=3):
+    """gru_fwd (``gates`` 3) or lstm_fwd (4) arguments and an upstream
+    gradient: bf16 projections, uniform weights and biases as torch
+    initialises them, ragged lengths (the first full)."""
     import torch
     k = 1.0 / H ** 0.5
 
@@ -481,9 +543,9 @@ def random_gru_direction(rng, H, B, T, dev):
     lengths[0] = T
     dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
         "float32")).to(dev, torch.bfloat16).float()
-    return (uniform(-2, 2, (T, B, 3 * H)).to(dev, torch.bfloat16),
-            uniform(-k, k, (3 * H, H)).to(dev),
-            uniform(-k, k, (3 * H,)).to(dev), lengths.to(dev), dh_out)
+    return (uniform(-2, 2, (T, B, gates * H)).to(dev, torch.bfloat16),
+            uniform(-k, k, (gates * H, H)).to(dev),
+            uniform(-k, k, (gates * H,)).to(dev), lengths.to(dev), dh_out)
 
 
 def compare_gru_train(gru_train, xp, w_hh, b_hh, lengths, dh_out, reverse):
@@ -528,15 +590,7 @@ def staged_train_step(model, optimizer, batch, gru_train, parallel,
     cd = torch.bfloat16
 
     def stage(name, fn):
-        if events is None:
-            return fn()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        stop.record()
-        events.append((name, start, stop))
-        return out
+        return timed_stage(events, name, fn)
 
     params = list(model.parameters())
     for p in params:
@@ -795,7 +849,7 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
     rows = []
     for name in ("gru_fwd", "gru_bwd"):
         ms, plain_ms, floor_ms = timed[name]
-        bound_ms, bound_by, nbytes = gru_train_bound(name, B, H, lengths_sum)
+        bound_ms, bound_by, nbytes = train_bound(name, B, H, lengths_sum)
         if name == "gru_fwd":
             err = max([agreement[d]["fwd_max"] for d in agreement]
                       + [main_stats["fwd_max"]])
@@ -845,6 +899,396 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
     return rows
 
 
+def compare_lstm_train(lstm_train, xp, w_hh, b_hh, lengths, dh_out,
+                       reverse):
+    """lstm_fwd and lstm_bwd against their plain versions (the backward on
+    the kernel's forward outputs), and lstm_bwd against itself; returns
+    {"fwd_max", "fwd_mean", "c", "dxp", "dW_hh", "db_hh"} (c and the
+    backward: largest difference over the tensor's largest magnitude)."""
+    import torch
+    out, c_out = lstm_train.lstm_fwd(xp, w_hh, b_hh, lengths, reverse)
+    ref, c_ref = lstm_train.lstm_fwd_plain(xp, w_hh, b_hh, lengths, reverse)
+    args = (xp, out, c_out, dh_out, w_hh, b_hh, lengths, reverse)
+    got = lstm_train.lstm_bwd(*args)
+    want = lstm_train.lstm_bwd_plain(*args)
+    again = lstm_train.lstm_bwd(*args)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    stats = {"fwd_max": diff.max().item(), "fwd_mean": diff.mean().item(),
+             "c": ((c_out - c_ref).abs().max() / c_ref.abs().max()).item()}
+    for name, g, w in zip(("dxp", "dW_hh", "db_hh"), got, want):
+        stats[name] = ((g - w).abs().max() / w.abs().max()).item()
+    if stats["fwd_max"] > TOL_GRU_FWD or stats["fwd_mean"] > TOL_L1_MEAN \
+            or stats["c"] > TOL_LSTM_C:
+        raise AssertionError("lstm_fwd disagrees with its plain version: "
+                             "{}".format(stats))
+    if max(stats["dxp"], stats["dW_hh"], stats["db_hh"]) > TOL_GRU_BWD:
+        raise AssertionError("lstm_bwd disagrees with its plain version: "
+                             "{}".format(stats))
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("lstm_bwd does not repeat bit for bit")
+    return stats
+
+
+def staged_rl_train_step(model, optimizer, batch, lstm_train, parallel,
+                         events=None, plain=False, update=True):
+    """One bf16 train step of the bidirectional ``LatentSpaceLSTM`` stage
+    by stage, as ``parallel.make_train_step`` runs it (the forward of
+    ``forward(training=True)`` with ``lstm_train.bilstm_stack_trainable``
+    written out); returns the loss.
+
+    :param events: a list to which (stage, start, stop) CUDA events are
+        appended.
+    :param plain: the LSTM kernels' plain versions in their place.
+    :param update: apply the optimizer and the running statistics (else
+        leave the gradients).
+    """
+    import torch
+    cd = torch.bfloat16
+
+    def stage(name, fn):
+        return timed_stage(events, name, fn)
+
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    stats = []
+    lengths = batch["lengths"].to(torch.int32)
+    dirs = (("fwd", False), ("bwd", True))
+    with parallel.deterministic_convolutions():
+        feats, non_empty = stage(
+            "embeddings + convs + BN statistics",
+            lambda: model.read_features(batch["features"], cd, True, stats))
+        pooled = stage("pool + pre_pool",
+                       lambda: model.pool(feats, non_empty, cd))
+        del feats
+        out = pooled.transpose(0, 1).to(cd)
+        for layer in model.layer_params():
+            xps = stage("projections", lambda out=out, layer=layer: [
+                lstm_train.project(out, layer[d]["w_ih"], layer[d]["b_ih"],
+                                   cd) for d, _ in dirs])
+            out = stage("lstm_fwd x4", lambda xps=xps, layer=layer: torch.cat(
+                [lstm_train.LSTMDirection.apply(
+                    xp, layer[d]["w_hh"], layer[d]["b_hh"], lengths, rev,
+                    plain) for xp, (d, rev) in zip(xps, dirs)], dim=-1))
+        feats_out = out.transpose(0, 1)
+        loss = stage("head + loss", lambda: parallel.masked_cross_entropy(
+            model.head(feats_out), batch))
+        stage("backward (lstm_bwd x4, conv, BN and projection gradients)",
+              loss.backward)
+    if update:
+        def finish():
+            parallel.apply_updates(params, optimizer)
+            parallel.update_running_stats(model, stats)
+        stage("optimizer (clip + adam) + running statistics", finish)
+    return loss
+
+
+def read_level_training_phases(seed, work, dev, rng, agreement, modules):
+    """The read-level training path and its measurements (phases 14 and
+    15); returns the ``kernels`` rows of lstm_fwd and lstm_bwd."""
+    import torch
+    cli, datastore, lstm_train, models, parallel, training = (
+        modules[k] for k in ("cli", "datastore", "lstm_train", "models",
+                             "parallel", "training"))
+    from medaka_tpu_torch import testing
+    from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM
+    with phase("read-level training data: 0.5 Mb BAM with move tables, "
+               "truth BAM, features --truth"):
+        bam, draft = testing.create_synth_bam(
+            os.path.join(work, "rl_reads.bam"), ref_mb=0.5, depth=20,
+            seed=seed, move_tables=True)
+        truth = testing.create_truth_bam(os.path.join(work, "rl_truth.bam"),
+                                         draft)
+        train_hdf = os.path.join(work, "rl_train.hdf")
+        if cli.main(["features", bam, train_hdf, "--truth", truth,
+                     "--feature_encoder", "ReadAlignmentFeatureEncoder",
+                     "--quiet"]) != 0:
+            raise AssertionError("read-level features failed")
+    train_cmd = ["train", train_hdf, "--batch_size", "128", "--epochs", "2",
+                 "--optimizer", "adam", "--optim_args", "learning_rate=1e-3",
+                 "--seed", str(seed), "--quiet"]
+    run = os.path.join(work, "rl_run")
+    with phase("read-level training path: train, 2 epochs at batch 128"):
+        torch.cuda.empty_cache()
+        lstm_train.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(train_cmd + ["--train_name", run]) != 0:
+            raise AssertionError("read-level train failed")
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = dict(lstm_train.LAUNCHES)
+    with open(os.path.join(run, "training.csv")) as fh:
+        csv_rows = [line.split(",") for line in fh.read().splitlines()]
+    header, csv_rows = csv_rows[0], csv_rows[1:]
+    col = {name: i for i, name in enumerate(header)}
+    losses = [float(r[col["loss"]]) for r in csv_rows]
+    train_losses = [float(r[col["loss"]]) for r in csv_rows
+                    if r[col["split"]] == "train"]
+    steps = len(train_losses)
+    log("   {} train steps in {:.1f} s; launches {}; train losses {}; "
+        "validation losses {}; baseline accuracy {}".format(
+            steps, t_train, launches, train_losses,
+            [float(r[col["loss"]]) for r in csv_rows
+             if r[col["split"]] == "validation"],
+            [r[col["baseline_acc"]] for r in csv_rows]))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("a logged read-level loss is not finite")
+    if not train_losses[-1] < train_losses[0]:
+        raise AssertionError("the read-level training loss did not fall")
+    if launches != {"lstm_fwd": 4 * steps, "lstm_bwd": 4 * steps}:
+        raise AssertionError("expected 4 launches of each LSTM training "
+                             "kernel a step, got {}".format(launches))
+    ckpt = os.path.join(run, "model-1.tar.gz")
+    trained = models.load_model(ckpt).model
+    geometry = trained.to_dict()["kwargs"]
+    log("   trained model: {}".format(json.dumps(geometry)))
+    if (geometry["lstm_size"], geometry["cnn_size"],
+            geometry["kernel_sizes"], geometry["use_dwells"]) != \
+            (384, 128, [1, 17], True):
+        raise AssertionError("train did not build the full-width default")
+    running = []
+    for k, layer in enumerate(trained.convs):
+        bn = layer["bn"]
+        running.append({"layer": k, "mean_abs": bn.mean.abs().mean().item(),
+                        "var_mean": bn.var.mean().item()})
+        if torch.equal(bn.mean, torch.zeros_like(bn.mean)) or \
+                torch.equal(bn.var, torch.ones_like(bn.var)):
+            raise AssertionError("the running statistics of conv layer {} "
+                                 "did not move".format(k))
+    log("   batch-norm running statistics: {}".format(json.dumps(running)))
+    del trained
+
+    with phase("read-level training path: the same run again"):
+        again = os.path.join(work, "rl_again")
+        if cli.main(train_cmd + ["--train_name", again]) != 0:
+            raise AssertionError("second read-level train failed")
+        with open(os.path.join(again, "training.csv")) as fh:
+            rows2 = [line.split(",") for line in fh.read().splitlines()[1:]]
+        keep = [col[k] for k in ("split", "epoch", "batch", "loss", "acc")]
+        if [[r[i] for i in keep] for r in rows2] != \
+                [[r[i] for i in keep] for r in csv_rows]:
+            raise AssertionError(
+                "a second read-level run from the same seed logged other "
+                "losses: {} vs {}".format([r[col["loss"]] for r in rows2],
+                                          [r[col["loss"]] for r in csv_rows]))
+        log("   the same {} losses and accuracies".format(len(rows2)))
+
+    with phase("read-level training path: the last checkpoint serves"):
+        hdf = os.path.join(work, "rl_trained_probs.hdf")
+        fasta = os.path.join(work, "rl_trained.fasta")
+        if cli.main(["inference", bam, hdf, "--model", ckpt, "--chunk_len",
+                     "1000", "--chunk_ovlp", "100"]) != 0 or \
+                cli.main(["sequence", hdf, draft, fasta]) != 0:
+            raise AssertionError("the read-level checkpoint did not serve")
+        n_samples, n_columns = check_probabilities(datastore, hdf)
+        identity, edits, cons_len = consensus_identity(testing, fasta, draft)
+        log("   {} samples, {} columns of finite probabilities; consensus "
+            "{} bp, identity to the draft {:.6f} after {} steps".format(
+                n_samples, n_columns, cons_len, identity, steps))
+
+    batcher = training.TrainBatcher([train_hdf], batch_size=128, seed=seed)
+    host = next(batcher.batches("train", seed=0))
+    host.pop("baseline_pred")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    B, T, R = batch["features"].shape[:3]
+    lengths_sum = int(batch["lengths"].sum())
+    torch.cuda.empty_cache()
+    with phase("one read-level train step at B=128 T=1000 R=100 H=384: "
+               "kernels vs plain"):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = LatentSpaceLSTM(lstm_size=384, use_dwells=True).to(dev)
+        H = model.lstm_size
+        with parallel.deterministic_convolutions():
+            loss_direct = parallel.cross_entropy_loss(
+                model, batch, compute_dtype=torch.bfloat16,
+                training=True)[0].item()
+        results = {}
+        for plain in (False, True):
+            loss = staged_rl_train_step(model, None, batch, lstm_train,
+                                        parallel, plain=plain, update=False)
+            results[plain] = (loss.item(), {
+                n: p.grad.clone() for n, p in model.named_parameters()})
+        # the same operations in the same order: the same loss, within the
+        # f32 rounding of a reduction that a library may split otherwise
+        if abs(loss_direct - results[False][0]) > 1e-6 * abs(loss_direct):
+            raise AssertionError("the staged read-level step's loss {} "
+                                 "differs from the model's {}".format(
+                                     results[False][0], loss_direct))
+        loss_k, grads_k = results[False]
+        loss_p, grads_p = results[True]
+
+        def rel(n):
+            g = grads_p[n]
+            return ((grads_k[n] - g).abs().max() / g.abs().max()).item()
+
+        def cosine(n):
+            a = grads_k[n].double().flatten()
+            b = grads_p[n].double().flatten()
+            return (a @ b / (a.norm() * b.norm()).clamp(min=1e-300)).item()
+
+        stack = [n for n in grads_p if n.startswith(("lstm.", "linear."))]
+        upstream = [n for n in grads_p if n not in stack]
+        step_stats = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                      "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+                      "grad_rel_max": max(rel(n) for n in stack),
+                      "upstream_grad_rel_max": max(rel(n) for n in upstream),
+                      "upstream_grad_cosine_min": min(
+                          cosine(n) for n in upstream)}
+        log("   " + json.dumps(step_stats))
+        if step_stats["loss_rel"] > TOL_STEP_LOSS or \
+                step_stats["grad_rel_max"] > TOL_STEP_GRAD or \
+                step_stats["upstream_grad_cosine_min"] < MIN_UPSTREAM_COSINE:
+            raise AssertionError("the read-level step through the kernels "
+                                 "disagrees with the step through the "
+                                 "plain versions")
+        del results, grads_k, grads_p
+
+    with phase("read-level train step: stage breakdown, wall time, memory"):
+        opt = training.build_optimizer("adam", None,
+                                       {"learning_rate": 1e-3})
+        step_fn = parallel.make_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step_fn(batch)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 3
+        events = []
+        staged_rl_train_step(model, opt, batch, lstm_train, parallel,
+                             events=events)
+        torch.cuda.synchronize()
+        stages = {}
+        for name, start, stop in events:
+            stages[name] = stages.get(name, 0.0) + start.elapsed_time(stop)
+        log("   stage breakdown (ms): " + json.dumps(stages))
+        log("   step wall time {:.2f} ms: {:.0f} trained columns/s ({} "
+            "valid columns); peak memory {:.2f} GB".format(
+                step_s * 1e3, lengths_sum / step_s, lengths_sum,
+                peak_bytes / 1e9))
+        profile = profile_step(lambda: step_fn(batch), step_s)
+
+    with phase("LSTM training kernels at B=128 T=1000 H=384: timings"):
+        dirs = (("fwd", False), ("bwd", True))
+        layer1, layer2 = model.layer_params()
+        with torch.no_grad():
+            with parallel.deterministic_convolutions():
+                feats, non_empty = model.read_features(
+                    batch["features"], torch.bfloat16, True)
+                pooled = model.pool(feats, non_empty, torch.bfloat16)
+            del feats
+            lens = batch["lengths"]
+            x1 = pooled.transpose(0, 1)
+            h1 = torch.cat([lstm_train.lstm_fwd(
+                lstm_train.project(x1, layer1[d]["w_ih"], layer1[d]["b_ih"]),
+                layer1[d]["w_hh"], layer1[d]["b_hh"], lens, rev)[0]
+                for d, rev in dirs], dim=-1)
+            p2 = layer2["fwd"]
+            xp = lstm_train.project(h1, p2["w_ih"], p2["b_ih"])
+            w_hh, b_hh = p2["w_hh"].detach(), p2["b_hh"].detach()
+            out, c_out = lstm_train.lstm_fwd(xp, w_hh, b_hh, lens)
+            dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+                "float32")).to(dev, torch.bfloat16).float()
+            main_stats = compare_lstm_train(lstm_train, xp, w_hh, b_hh, lens,
+                                            dh_out, False)
+            one = (xp[:, :1].contiguous(), lens[:1])
+            out1, c1 = lstm_train.lstm_fwd(one[0], w_hh, b_hh, one[1])
+            bargs = (xp, out, c_out, dh_out, w_hh, b_hh, lens)
+            calls = {
+                "lstm_fwd": (
+                    lambda: lstm_train.lstm_fwd(xp, w_hh, b_hh, lens),
+                    lambda: lstm_train.lstm_fwd_plain(xp, w_hh, b_hh, lens),
+                    lambda: lstm_train.lstm_fwd(one[0], w_hh, b_hh, one[1])),
+                "lstm_bwd": (
+                    lambda: lstm_train.lstm_bwd(*bargs),
+                    lambda: lstm_train.lstm_bwd_plain(*bargs),
+                    lambda: lstm_train.lstm_bwd(
+                        one[0], out1, c1, dh_out[:, :1].contiguous(), w_hh,
+                        b_hh, one[1])),
+            }
+            timed = {name: (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
+                            cuda_ms(o)) for name, (k, pl, o) in calls.items()}
+        # yardstick (the port never calls it): cuDNN's bf16 LSTM, one
+        # direction over layer 2's inputs, its input projection included
+        lstm = torch.nn.LSTM(2 * H, H, 1).to(dev, torch.bfloat16)
+        lstm.flatten_parameters()
+        x2 = h1.detach().clone().requires_grad_(True)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: lstm(x2))
+        g_out = torch.ones((T, B, H), dtype=torch.bfloat16, device=dev)
+        lib_params = [x2] + list(lstm.parameters())
+        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lstm(x2)[0], lib_params, g_out))
+        del lstm, x2
+        log("   torch.nn.LSTM({}, {}, 1) bf16 (cuDNN) over the same {} rows, "
+            "its input projection included: forward {:.2f} ms, forward + "
+            "backward {:.2f} ms".format(2 * H, H, B, lib_fwd, lib_fwd_bwd))
+
+    rows = []
+    for name in ("lstm_fwd", "lstm_bwd"):
+        ms, plain_ms, floor_ms = timed[name]
+        bound_ms, bound_by, nbytes = train_bound(name, B, H, lengths_sum)
+        if name == "lstm_fwd":
+            err = max([agreement[k]["fwd_max"] for k in agreement]
+                      + [main_stats["fwd_max"]])
+            c_err = max([agreement[k]["c"] for k in agreement]
+                        + [main_stats["c"]])
+        else:
+            err = max(agreement[k][t] for k in agreement
+                      for t in ("dxp", "dW_hh", "db_hh"))
+            err = max(err, main_stats["dxp"], main_stats["dW_hh"],
+                      main_stats["db_hh"])
+        rows.append({
+            "name": name, "route": "cuda", "source": LSTM_TRAIN_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "launches_per_step": launches[name] // steps,
+            "max_abs_err": err,
+            "err_measure": ("max abs difference of bf16 outputs (h)"
+                            if name == "lstm_fwd" else
+                            "max abs difference over the tensor's max "
+                            "magnitude, worst of dxp, dW_hh, db_hh"),
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes,
+            "library_ms": lib_fwd if name == "lstm_fwd" else None,
+            "library": (
+                "torch.nn.LSTM({0}, {1}, 1) bf16 (cuDNN) forward over the "
+                "same {2} rows, its input projection included: {3:.2f} ms"
+                .format(2 * H, H, B, lib_fwd) if name == "lstm_fwd" else
+                "no PyTorch call computes an LSTM's backward alone; "
+                "torch.nn.LSTM({0}, {1}, 1) bf16 (cuDNN) forward + backward "
+                "(autograd.grad for input and weights) over the same {2} "
+                "rows: {3:.2f} ms".format(2 * H, H, B, lib_fwd_bwd)),
+            "library_fwd_bwd_ms": lib_fwd_bwd,
+            "serial_floor_ms": floor_ms,
+            "shape": {"B": B, "T": T, "H": H, "reads": R,
+                      "valid_columns": lengths_sum, "layer": 2,
+                      "direction": "forward"},
+            "agreement": {"random_weights": agreement,
+                          "main_shape": main_stats},
+        })
+        if name == "lstm_fwd":
+            rows[-1]["c_rel_err"] = c_err
+        log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
+            "column {:.3f} ms; {})".format(name, ms, plain_ms, bound_ms,
+                                           bound_by, floor_ms,
+                                           rows[-1]["library"]))
+    rows[0]["train_step"] = {
+        "vs_plain": step_stats, "stages_ms": stages, "profile": profile,
+        "wall_ms": step_s * 1e3, "peak_memory_bytes": peak_bytes,
+        "trained_columns_per_s": lengths_sum / step_s,
+        "steps_in_run": steps, "run_s": t_train,
+        "batchnorm_running": running}
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -862,7 +1306,7 @@ def main(argv=None):
     from medaka_tpu_torch import cli, datastore, features, models, \
         native, parallel, prediction, testing, training
     from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split, \
-        gru_train
+        gru_train, lstm_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -887,6 +1331,7 @@ def main(argv=None):
         builds = {"nvcc gru_split.cu": gru_split.build,
                   "nvcc bilstm.cu": bilstm.build,
                   "nvcc gru_train.cu": gru_train.build,
+                  "nvcc lstm_train.cu": lstm_train.build,
                   "g++ native": native_build}
         with ThreadPoolExecutor(len(builds)) as pool:
             futures = {name: pool.submit(timed, fn)
@@ -929,7 +1374,7 @@ def main(argv=None):
     with phase("training kernels vs plain versions, H=256 B=128 T=1000"):
         for reverse in (False, True):
             stats = compare_gru_train(
-                gru_train, *random_gru_direction(rng, 256, 128, 1000, dev),
+                gru_train, *random_direction(rng, 256, 128, 1000, dev),
                 reverse)
             log("   reverse={}: gru_fwd max {:.3g} mean {:.3g}; gru_bwd "
                 "relative max dxp {:.3g}, dW_hh {:.3g}, db_hh {:.3g}; "
@@ -937,6 +1382,24 @@ def main(argv=None):
                     reverse, stats["fwd_max"], stats["fwd_mean"],
                     stats["dxp"], stats["dW_hh"], stats["db_hh"]))
             train_agreement["reverse" if reverse else "forward"] = stats
+
+    lstm_agreement = {}
+    with phase("LSTM training kernels vs plain versions, H=384 and H=128, "
+               "B=128 T=1000"):
+        for H in (384, 128):
+            for reverse in (False, True):
+                stats = compare_lstm_train(
+                    lstm_train, *random_direction(rng, H, 128, 1000, dev,
+                                                  gates=4), reverse)
+                log("   H={} reverse={}: lstm_fwd h max {:.3g} mean {:.3g}, "
+                    "c relative {:.3g}; lstm_bwd relative max dxp {:.3g}, "
+                    "dW_hh {:.3g}, db_hh {:.3g}; repeat bit-identical".format(
+                        H, reverse, stats["fwd_max"], stats["fwd_mean"],
+                        stats["c"], stats["dxp"], stats["dW_hh"],
+                        stats["db_hh"]))
+                lstm_agreement["H{}_{}".format(
+                    H, "reverse" if reverse else "forward")] = stats
+        torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1320,6 +1783,12 @@ def main(argv=None):
             seed, work, bam, draft, dev, rng, train_agreement, modules={
                 "cli": cli, "datastore": datastore, "gru_train": gru_train,
                 "parallel": parallel, "training": training}))
+        torch.cuda.empty_cache()
+        rows.extend(read_level_training_phases(
+            seed, work, dev, rng, lstm_agreement, modules={
+                "cli": cli, "datastore": datastore, "lstm_train": lstm_train,
+                "models": models, "parallel": parallel,
+                "training": training}))
     finally:
         import shutil
         shutil.rmtree(work, ignore_errors=True)

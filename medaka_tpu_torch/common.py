@@ -345,6 +345,50 @@ class Sample:
 
     # -- derived representations ----------------------------------------------
 
+    @property
+    def counts_matrix(self) -> np.ndarray:
+        """2-D counts features; for 3-D read-level features, the normalised
+        per-column histogram of base codes over reads, split by strand
+        (``medaka_tpu/common.py:441-478``)."""
+        if self.features.ndim == 2:
+            return self.features
+        x = self.features
+        out = np.zeros((x.shape[0], FEATLEN), dtype=np.float32)
+        minor_inds = np.where(self.positions["minor"] > 0)
+        major_at_minor = self.positions["major"][minor_inds]
+        major_ind = np.searchsorted(
+            self.positions["major"], major_at_minor, side="left")
+        depth = np.sum(x[:, :, 0] != 0, axis=1)
+        depth[minor_inds] = depth[major_ind]
+        depth = np.maximum(depth, 1)
+        fwd = x[:, :, 2] == 1
+        rev = ~fwd
+        # forward counts land in the LOWERCASE channels, the opposite of
+        # the pileup encoder's convention: the reference's counts_matrix
+        # does the same (its common.py:163-168), and the consumers either
+        # sum the strands (majority_vote_probs) or were trained on it
+        # read-level base codes: 0 pad, 1..4 acgt, 5 deletion
+        for code, base in enumerate("pacgtd"):
+            if base == "p":
+                continue
+            n_f = np.sum(fwd * (x[:, :, 0] == code), axis=1)
+            n_r = np.sum(rev * (x[:, :, 0] == code), axis=1)
+            out[:, base2index[base]] = n_f / depth
+            out[:, base2index[base.upper()]] = n_r / depth
+        return out
+
+    @property
+    def majority_vote_probs(self) -> np.ndarray:
+        """Per-column (del, A, C, G, T) vote fractions from the pileup."""
+        pileup = self.counts_matrix
+        b2i = base2index
+        bases = pileup[:, b2i["a"]:b2i["t"] + 1] + \
+            pileup[:, b2i["A"]:b2i["T"] + 1]
+        dels = pileup[:, b2i["d"]:b2i["d"] + 1] + \
+            pileup[:, b2i["D"]:b2i["D"] + 1]
+        out = np.concatenate([dels, bases], axis=-1)
+        out[:, 0] += 1 - out.sum(axis=-1)
+        return out
 
     # -- filtering -------------------------------------------------------------
 

@@ -6,8 +6,9 @@
 //          gru_pallas).
 // gru_bwd  replaces medaka_tpu/ops/pallas_gru.py _gru_bwd_kernel (called
 //          by gru_bwd_pallas): three kernels launched in order on one
-//          stream, gru_bwd_kernel (the recurrence), gru_dw_kernel (dW_hh)
-//          and gru_bwd_reduce_kernel (the fixed-order sums).
+//          stream, gru_bwd_kernel (the recurrence), then rnn_dw_kernel
+//          (dW_hh) and rnn_bwd_reduce_kernel (the fixed-order sums), which
+//          rnn_train.cuh shares with lstm_train.cu.
 //
 // Forward, per step (gate order r, z, n):
 //   hp = f32(bf16(h) . W_hh_bf16^T) + b_hh
@@ -57,11 +58,11 @@
 // memory or registers can hold across the walk, and it sums over every
 // batch column and step, which run in parallel blocks. So the recurrence
 // writes bf16(dhp) to a scratch (the operand the TPU kernel feeds its
-// product with), and gru_dw_kernel computes bf16(dhp)^T bf16(h_prev) as
+// product with), and rnn_dw_kernel computes bf16(dhp)^T bf16(h_prev) as
 // a tiled reduction over (t, b): each block owns a 32 x 32 tile of dW_hh
 // and one of `splits` contiguous ranges of (t, b), and writes its partial
 // tile. db_hh is summed per thread in registers over its columns and
-// steps and written per (block, q). gru_bwd_reduce_kernel adds the
+// steps and written per (block, q). rnn_bwd_reduce_kernel adds the
 // partials in a fixed order. No atomics: a run repeats bit for bit.
 //
 // Numerics follow the plain PyTorch versions in
@@ -80,39 +81,9 @@
 // re-reading W_hh from L2 every step bound both. Tensor-core mma for the
 // per-step products and W_hh resident in a cluster's shared memory are
 // later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rnn_train.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int DW_TILE = 32;   // dW tile edge (rows of 3H and of H)
-constexpr int DW_KC = 32;     // (t, b) rows per shared-memory stage
-constexpr int DW_THREADS = 64;
-
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-__device__ __forceinline__ float dot8_bf16(uint4 w, uint4 a, float acc) {
-  const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&w);
-  const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const float2 wf = __bfloat1622float2(wp[p]);
-    const float2 af = __bfloat1622float2(ap[p]);
-    // bf16 x bf16 is exact in f32, so the fma rounds only the sum
-    acc = fmaf(wf.x, af.x, acc);
-    acc = fmaf(wf.y, af.y, acc);
-  }
-  return acc;
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t v) {
-  return (v + 15) & ~static_cast<size_t>(15);
-}
 
 // bytes of one direction's bf16 W_hh (3H x H)
 __host__ __device__ __forceinline__ size_t w_bytes(int H) {
@@ -128,11 +99,6 @@ size_t bwd_smem_bytes(bool w_smem, int BT, int H) {
   return (w_smem ? 2 * align16(w_bytes(H)) : 0) +
          align16(2 * static_cast<size_t>(BT) * H * sizeof(bf16)) +
          align16(static_cast<size_t>(BT) * 3 * H * sizeof(bf16));
-}
-
-__device__ __forceinline__ uint4 load_w(const uint4* w, size_t i,
-                                        bool from_smem) {
-  return from_smem ? w[i] : __ldg(&w[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -438,107 +404,6 @@ __global__ void __launch_bounds__(512)
 }
 
 // ---------------------------------------------------------------------------
-// dW_hh partial tiles: grid (3H / 32, H / 32, splits), 64 threads.
-// dw_part[s][r][k] = sum over the (t, b) rows of split s of
-//                    bf16(dhp)[t, b, r] * bf16(h_prev)[t, b, k]
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(DW_THREADS)
-    gru_dw_kernel(const bf16* __restrict__ dhp,
-                  const bf16* __restrict__ h_out,
-                  float* __restrict__ dw_part, int T, int B, int H,
-                  int reverse, long long rows_per_split) {
-  __shared__ __align__(16) float a_s[DW_KC][DW_TILE];  // dhp rows r0..
-  __shared__ __align__(16) float b_s[DW_KC][DW_TILE];  // h_prev rows k0..
-  const int H3 = 3 * H;
-  const int r0 = blockIdx.x * DW_TILE;
-  const int k0 = blockIdx.y * DW_TILE;
-  const long long K = static_cast<long long>(T) * B;
-  const long long kbeg = static_cast<long long>(blockIdx.z) * rows_per_split;
-  const long long kend = min(K, kbeg + rows_per_split);
-  const int tx = threadIdx.x % 8;  // 4 columns k0 + 4 tx ..
-  const int ty = threadIdx.x / 8;  // 4 rows r0 + 4 ty ..
-  float acc[4][4] = {};
-
-  for (long long kb = kbeg; kb < kend; kb += DW_KC) {
-    // DW_KC rows x 32 values of each operand, 8 bf16 (16 bytes) a load
-    for (int e = threadIdx.x; e < DW_KC * 4; e += DW_THREADS) {
-      const int kk = e / 4;
-      const int part = e % 4;
-      const long long row = kb + kk;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vb = make_uint4(0u, 0u, 0u, 0u);
-      if (row < kend) {
-        const int t = static_cast<int>(row / B);
-        const int b = static_cast<int>(row - static_cast<long long>(t) * B);
-        va = *reinterpret_cast<const uint4*>(
-            dhp + static_cast<size_t>(row) * H3 + r0 + part * 8);
-        const int tp = reverse ? t + 1 : t - 1;
-        if (tp >= 0 && tp < T)
-          vb = *reinterpret_cast<const uint4*>(
-              h_out + (static_cast<size_t>(tp) * B + b) * H + k0 + part * 8);
-      }
-      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&va);
-      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&vb);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float2 fa = __bfloat1622float2(pa[u]);
-        const float2 fb = __bfloat1622float2(pb[u]);
-        a_s[kk][part * 8 + 2 * u] = fa.x;
-        a_s[kk][part * 8 + 2 * u + 1] = fa.y;
-        b_s[kk][part * 8 + 2 * u] = fb.x;
-        b_s[kk][part * 8 + 2 * u + 1] = fb.y;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < DW_KC; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 bq = *reinterpret_cast<const float4*>(&b_s[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
-    }
-    __syncthreads();
-  }
-
-  float* outp = dw_part + static_cast<size_t>(blockIdx.z) * H3 * H;
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      outp[static_cast<size_t>(r0 + ty * 4 + u) * H + k0 + tx * 4 + v] =
-          acc[u][v];
-}
-
-// dW_hh = sum over splits, db_hh = sum over (block, q) partials, each in
-// index order
-__global__ void gru_bwd_reduce_kernel(const float* __restrict__ dw_part,
-                                      int splits,
-                                      const float* __restrict__ db_part,
-                                      int parts, float* __restrict__ dw,
-                                      float* __restrict__ db, int H) {
-  const size_t n_w = static_cast<size_t>(3) * H * H;
-  const size_t H3 = static_cast<size_t>(3) * H;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_w + H3; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.0f;
-    if (i < n_w) {
-      for (int z = 0; z < splits; ++z) s = __fadd_rn(s, dw_part[z * n_w + i]);
-      dw[i] = s;
-    } else {
-      const size_t r = i - n_w;
-      for (int pp = 0; pp < parts; ++pp)
-        s = __fadd_rn(s, db_part[pp * H3 + r]);
-      db[r] = s;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -598,10 +463,6 @@ cudaError_t dispatch_bwd(int cpt, Args... args) {
   }
 }
 
-bool bad_shape(int H, int nq) {
-  return H % 32 != 0 || H > 512 || H * nq > 512;
-}
-
 }  // namespace
 
 extern "C" {
@@ -647,22 +508,10 @@ int gru_bwd_launch(const void* xp, const void* h_out, const float* dh_out,
                                    b_hh, lengths, dxp, dhp, db_part, T, B, H,
                                    nq, reverse, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long K = static_cast<long long>(T) * B;
-  long long per = (K + splits - 1) / splits;
-  per = (per + DW_KC - 1) / DW_KC * DW_KC;
-  const dim3 grid(3 * H / DW_TILE, H / DW_TILE, splits);
-  gru_dw_kernel<<<grid, DW_THREADS, 0, s>>>(
-      static_cast<const bf16*>(dhp), static_cast<const bf16*>(h_out),
-      dw_part, T, B, H, reverse, per);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int BT = cpt * nq;
-  const int parts = (B + BT - 1) / BT * nq;
-  const size_t n = static_cast<size_t>(3) * H * H + 3 * H;
-  const int blocks = static_cast<int>((n + 255) / 256);
-  gru_bwd_reduce_kernel<<<blocks, 256, 0, s>>>(dw_part, splits, db_part,
-                                               parts, dw, db, H);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dw_reduce(dhp, h_out, dw_part, db_part, dw,
+                                           db, T, B, H, 3 * H, reverse,
+                                           splits, (B + BT - 1) / BT * nq, s));
 }
 
 const char* gru_train_error_string(int err) {

@@ -4,7 +4,8 @@ helpers their wrappers share.
 Each kernel source under ``medaka_tpu_torch/csrc`` exposes a plain C
 interface. On first use it is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library under ``medaka_tpu_torch/_build``
-(named by the hash of its source, so an edit rebuilds it) and loaded with
+(named by the hash of its source and the ``csrc/*.cuh`` headers, so an
+edit rebuilds it) and loaded with
 :mod:`ctypes`. Nothing is compiled when a module is imported: the CPU
 tests import every module on machines without ``nvcc``.
 """
@@ -64,8 +65,14 @@ def load_library(source: str) -> ctypes.CDLL:
         lib = _LIBS.get(source)
         if lib is not None:
             return lib
-        with open(os.path.join(CSRC_DIR, source), "rb") as fh:
-            digest = hashlib.sha1(fh.read()).hexdigest()[:16]
+        # the source and the headers it may include: an edit to either
+        # rebuilds
+        sha = hashlib.sha1()
+        for name in [source] + sorted(
+                f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+            with open(os.path.join(CSRC_DIR, name), "rb") as fh:
+                sha.update(fh.read())
+        digest = sha.hexdigest()[:16]
         so_path = os.path.join(BUILD_DIR, "lib{}_{}.so".format(
             os.path.splitext(source)[0], digest))
         if not os.path.exists(so_path):

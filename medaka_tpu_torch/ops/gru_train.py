@@ -168,10 +168,10 @@ def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
     return 4, 1
 
 
-def _split_count(batch, steps, hidden, n_sm):
+def _split_count(batch, steps, hidden, n_sm, gates=3):
     """dW_hh partial tiles over (t, b): enough blocks for about 8 of 64
     threads on each SM, and at least 1024 (t, b) rows a split."""
-    tiles = (3 * hidden // 32) * (hidden // 32)
+    tiles = (gates * hidden // 32) * (hidden // 32)
     return max(1, min(-(-8 * n_sm // tiles), -(-steps * batch // 1024)))
 
 
@@ -189,13 +189,13 @@ def _choose(lib, smem_fn, B, H, dev):
 
 
 def _rows_layout(w_hh):
-    """(3H, H) -> bf16 16-byte chunks laid out (H/8, 3H, 8)."""
+    """(G, H) -> bf16 16-byte chunks laid out (H/8, G, 8)."""
     return cuda_build.interleave_chunks(
         w_hh.to(torch.bfloat16).contiguous()[None])[0]
 
 
 def _cols_layout(w_hh):
-    """(3H, H) -> W_hh^T's bf16 16-byte chunks laid out (3H/8, H, 8)."""
+    """(G, H) -> W_hh^T's bf16 16-byte chunks laid out (G/8, H, 8)."""
     return cuda_build.interleave_chunks(
         w_hh.to(torch.bfloat16).t().contiguous()[None])[0]
 

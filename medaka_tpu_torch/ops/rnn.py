@@ -7,9 +7,10 @@ t >= length, so outputs on the valid prefix equal an unpadded run. With
 ``compute_dtype=None`` everything runs in float32; with bfloat16 the
 inputs, weights and biases are cast first and every step runs in bf16, as
 the JAX scans do. These are the CPU routes of ``GRUModel`` and
-``LatentSpaceLSTM`` and their full-precision routes on the GPU;
-:func:`gru_scan` also runs under autograd, the f32 training route of
-``GRUModel`` (the counterpart of JAX autodiff through ``bigru_stack``).
+``LatentSpaceLSTM`` and their full-precision routes on the GPU; both
+scans also run under autograd, the f32 training routes of ``GRUModel``
+and ``LatentSpaceLSTM`` (the counterpart of JAX autodiff through
+``bigru_stack`` and ``bilstm_stack``).
 """
 from __future__ import annotations
 
@@ -109,10 +110,12 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     w_hh_t = w_hh.t()
     h = torch.zeros((batch, hidden), dtype=dtype, device=x.device)
     c = torch.zeros_like(h)
-    out = torch.empty((batch, steps, hidden), dtype=dtype, device=x.device)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=x.device).reshape(batch, 1)
     order = range(steps - 1, -1, -1) if reverse else range(steps)
+    # stacked once at the end, as in gru_scan: the f32 training route of
+    # LatentSpaceLSTM differentiates through this scan
+    outs = []
     for t in order:
         gates = x_proj[:, t] + h @ w_hh_t + b_hh
         i, f, g, o = gates.chunk(4, dim=-1)
@@ -124,8 +127,12 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
             valid = t < lengths
             h = torch.where(valid, h_new, h)
             c = torch.where(valid, c_new, c)
-        out[:, t] = h
-    return out
+        outs.append(h)
+    if reverse:
+        outs.reverse()
+    if not outs:
+        return torch.empty((batch, 0, hidden), dtype=dtype, device=x.device)
+    return torch.stack(outs, dim=1)
 
 
 def bilstm_stack(layers: Sequence[Dict], x: torch.Tensor,

@@ -1,8 +1,9 @@
 """Loss, accuracy and the single-device training step.
 
 Counterpart of ``cross_entropy_loss``, ``majority_baseline_accuracy`` and
-``make_train_step`` in ``medaka_tpu/parallel/__init__.py``, on one
-device: the mesh, sharding and multi-device parts are not ported yet.
+``make_train_step`` (with its running batch-norm statistics) in
+``medaka_tpu/parallel/__init__.py``, on one device: the mesh, sharding
+and multi-device parts are not ported yet.
 """
 from __future__ import annotations
 
@@ -10,10 +11,24 @@ from typing import Dict, Optional
 
 import torch
 
+#: weight of a batch's statistics in the running batch-norm statistics
+#: (torch BatchNorm1d's momentum; ``medaka_tpu`` uses the same)
+BN_MOMENTUM = 0.1
+
+
+def deterministic_convolutions():
+    """cuDNN flags under which a step repeats bit for bit: deterministic
+    convolution algorithms, no autotuning, and float32 convolutions in
+    float32 (not TF32). Forward and backward must both run under them:
+    the backward's convolutions read the flags when they run."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                       deterministic=True, allow_tf32=False)
+
 
 def cross_entropy_loss(model, batch: Dict[str, torch.Tensor],
                        compute_dtype=None, training: bool = True,
-                       class_weights=None):
+                       class_weights=None, bn_stats: Optional[list] = None):
     """Masked cross-entropy over a (features, labels, mask, lengths) batch.
 
     ``labels`` are int class ids; ``mask`` (B, T) excludes padding.
@@ -21,11 +36,14 @@ def cross_entropy_loss(model, batch: Dict[str, torch.Tensor],
     :param class_weights: optional (num_classes,) per-target-class loss
         weights, normalised like torch's weighted CrossEntropyLoss (sum
         of the weights at the targets in the denominator).
+    :param bn_stats: passed to a model with batch norm, which appends its
+        batch statistics to it.
     :returns: (loss, (n_correct, n_total)), 0-d tensors.
     """
+    kwargs = {} if bn_stats is None else {"bn_stats": bn_stats}
     logits = model(batch["features"], lengths=batch.get("lengths"),
                    normalise=False, compute_dtype=compute_dtype,
-                   training=training)
+                   training=training, **kwargs)
     loss = masked_cross_entropy(logits, batch, class_weights)
     pred = torch.argmax(logits, dim=-1)
     n_correct = ((pred == batch["labels"].long()) * batch["mask"]).sum()
@@ -64,25 +82,51 @@ def make_train_step(model, optimizer, compute_dtype=torch.bfloat16,
     """A training step on one device.
 
     The step takes a batch of tensors on the model's device, computes the
-    loss and its gradients with autograd, and has ``optimizer`` update
-    the model's f32 parameters in place (JAX returns new ones).
+    loss and its gradients with autograd (under
+    :func:`deterministic_convolutions`), and has ``optimizer`` update the
+    model's f32 parameters in place (JAX returns new ones). A model with
+    batch norm (``has_batch_stats``) reports its batch statistics, and the
+    step then moves each conv layer's running mean and variance towards
+    them (:func:`update_running_stats`).
 
     :param optimizer: a :class:`medaka_tpu_torch.training.Optimizer`.
     :returns: ``step(batch) -> (loss, n_correct, n_total)``.
     """
     params = list(model.parameters())
+    collect_bn = getattr(model, "has_batch_stats", False)
 
     def step(batch):
         for p in params:
             p.grad = None
-        loss, (n_correct, n_total) = cross_entropy_loss(
-            model, batch, compute_dtype=compute_dtype, training=True,
-            class_weights=class_weights)
-        loss.backward()
+        stats = [] if collect_bn else None
+        with deterministic_convolutions():
+            loss, (n_correct, n_total) = cross_entropy_loss(
+                model, batch, compute_dtype=compute_dtype, training=True,
+                class_weights=class_weights, bn_stats=stats)
+            loss.backward()
         apply_updates(params, optimizer)
+        if stats:
+            update_running_stats(model, stats)
         return loss.detach(), n_correct, n_total
 
     return step
+
+
+@torch.no_grad()
+def update_running_stats(model, stats):
+    """running = (1 - momentum) running + momentum batch (momentum
+    ``BN_MOMENTUM``), for each conv
+    layer's batch-norm mean and variance (``medaka_tpu/parallel``'s train
+    step). They are buffers here, so the optimizer never sees them; in
+    JAX they are parameter leaves whose gradients are zero, which adam,
+    nadam, rmsprop and sgd leave unchanged, so both end the step with the
+    same values."""
+    for layer, (mean, var) in zip(model.convs, stats):
+        bn = layer["bn"]
+        bn.mean.copy_((1 - BN_MOMENTUM) * bn.mean
+                      + BN_MOMENTUM * mean.to(bn.mean.dtype))
+        bn.var.copy_((1 - BN_MOMENTUM) * bn.var
+                     + BN_MOMENTUM * var.to(bn.var.dtype))
 
 
 @torch.no_grad()

@@ -1,26 +1,31 @@
 """Model training from labelled feature HDF5 files.
 
 Counterpart of ``medaka_tpu/training.py`` (``medaka_tpu train``) for
-counts feature files, on one device:
+counts and read-level feature files, on one device:
 
 - :class:`TrainBatcher` indexes feature files, splits train/validation
   and serves fixed-shape ``{features, labels, mask, lengths}`` batches,
-  loaded in a worker thread;
+  loaded in a worker thread; read-level batches are int8 (B, T,
+  max_reads, C) with the encoder's static ``max_reads``, plus a
+  host-side majority-vote ``baseline_pred``;
 - :class:`Optimizer` is the optax chain ``medaka_tpu`` builds
   (:func:`clip_by_running_median`, then adam, nadam, rmsprop or sgd with
   the reference's default learning rates, then the learning rate or the
   :func:`cosine_schedule`), written as plain tensor code that equals
   optax step for step: ``optax.nadam`` is Adam with a Nesterov step, not
   ``torch.optim.NAdam``. It updates the model's f32 parameters in place;
-- :func:`run_training` writes ``model-{epoch}.tar.gz``,
+- :func:`run_training` trains the counts ``GRUModel`` (default: the
+  full-width ``DEFAULT_MODEL_DICT``) or the read-level
+  ``LatentSpaceLSTM`` (default: the reference's ``rl_lstm384``
+  geometry), writes ``model-{epoch}.tar.gz``,
   ``model-best_val_loss.tar.gz`` and ``model-best_val_acc.tar.gz``
   bundles (loadable by both packages) and ``training.csv``, and stops
   early after 20 epochs without a better validation loss.
 
-Not ported yet, and refused by name: ``--resume``, ``--validate_only``,
-``--model_parallel`` above 1, ``.toml`` architecture files and
-read-level feature files (the next slice: ``LatentSpaceLSTM`` training
-with the LSTM kernel pair).
+Not ported yet, and refused by name: ``--resume``, ``--validate_only``
+and ``.toml`` architecture files (the training-options slice, queue 1 of
+ROADMAP.md, after the remaining GRU kernels), and ``--model_parallel``
+above 1 (the scale-out slice).
 """
 from __future__ import annotations
 
@@ -40,8 +45,7 @@ from medaka_tpu_torch import models as models_mod
 
 _LATER = ("{} is not ported to medaka_tpu_torch's train yet; it comes "
           "with a later slice of the port ({}).")
-_READ_LEVEL_SLICE = ("read-level training: LatentSpaceLSTM with the LSTM "
-                     "kernel pair lstm_pallas/lstm_bwd_pallas")
+_OPTIONS_SLICE = "the training-options slice, after the remaining GRU kernels"
 
 
 def qscore(acc: float) -> float:
@@ -300,30 +304,60 @@ class TrainBatcher:
             samples=self.train_samples[:1]))
         self.time_steps = first.features.shape[0]
         self.feat_dim = first.features.shape[-1]
-        if first.features.ndim == 3:
-            raise NotImplementedError(_LATER.format(
-                "Training on read-level feature files", _READ_LEVEL_SLICE))
-        self.is_read_level = False
-        self.logger.info(
-            "%d train / %d valid samples of shape (%d, %d).",
-            len(self.train_samples), len(self.valid_samples),
-            self.time_steps, self.feat_dim)
+        # read-level feature files hold (positions, reads, channels) int8
+        # tensors; batches get a static reads dimension, the encoder's
+        # max_reads cap, as medaka_tpu's do (one shape a run)
+        self.is_read_level = first.features.ndim == 3
+        if self.is_read_level:
+            fenc = self.meta.get("feature_encoder")
+            self.max_reads = int(getattr(fenc, "max_reads", 0)
+                                 or first.features.shape[1])
+            self.logger.info(
+                "%d train / %d valid read-level samples of shape "
+                "(%d, <=%d, %d).", len(self.train_samples),
+                len(self.valid_samples), self.time_steps, self.max_reads,
+                self.feat_dim)
+        else:
+            self.max_reads = None
+            self.logger.info(
+                "%d train / %d valid samples of shape (%d, %d).",
+                len(self.train_samples), len(self.valid_samples),
+                self.time_steps, self.feat_dim)
 
     def _load(self, sample_names) -> Dict[str, np.ndarray]:
-        feats = np.zeros(
-            (self.batch_size, self.time_steps, self.feat_dim), np.float32)
+        if self.is_read_level:
+            feats = np.zeros((self.batch_size, self.time_steps,
+                              self.max_reads, self.feat_dim), np.int8)
+            baseline = np.zeros((self.batch_size, self.time_steps), np.int32)
+        else:
+            feats = np.zeros(
+                (self.batch_size, self.time_steps, self.feat_dim),
+                np.float32)
+            baseline = None
         labels = np.zeros((self.batch_size, self.time_steps), np.int32)
         mask = np.zeros((self.batch_size, self.time_steps), np.float32)
         lengths = np.zeros((self.batch_size,), np.int32)
         for i, sample in enumerate(self._index.yield_from_feature_files(
                 samples=sample_names)):
             n = min(sample.features.shape[0], self.time_steps)
-            feats[i, :n] = sample.features[:n]
+            if self.is_read_level:
+                r = min(sample.features.shape[1], self.max_reads)
+                feats[i, :n, :r] = sample.features[:n, :r]
+                # the majority-vote baseline, here in the loader thread:
+                # counts_matrix needs the (major, minor) positions, which
+                # do not ride into the device batch
+                baseline[i, :n] = np.argmax(
+                    sample.majority_vote_probs[:n], axis=-1)
+            else:
+                feats[i, :n] = sample.features[:n]
             labels[i, :n] = np.asarray(sample.labels[:n]).reshape(n)
             mask[i, :n] = 1.0
             lengths[i] = n
-        return {"features": feats, "labels": labels, "mask": mask,
-                "lengths": lengths}
+        out = {"features": feats, "labels": labels, "mask": mask,
+               "lengths": lengths}
+        if baseline is not None:
+            out["baseline_pred"] = baseline
+        return out
 
     def batches(self, split: str = "train", shuffle: bool = True,
                 seed: int = 0, prefetch: int = 4):
@@ -434,11 +468,15 @@ def run_epoch(step_fn, batcher, split, epoch, logger, csv_logger=None,
     """
     total_loss, total_correct, total_count, n_batches = 0.0, 0.0, 0.0, 0
     base_correct = 0.0
-    is_counts = batcher.feat_dim == 10
+    is_counts = batcher.feat_dim == 10 and not batcher.is_read_level
+    has_baseline = is_counts or batcher.is_read_level
     t0 = now()
     for batch in batcher.batches(split, shuffle=is_training, seed=epoch):
         if max_batches is not None and n_batches >= max_batches:
             break
+        # the read-level majority argmax, computed by the loader thread,
+        # stays on the host
+        host_baseline = batch.pop("baseline_pred", None)
         tbatch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         if is_training:
             loss, n_c, n_t = step_fn(tbatch)
@@ -454,6 +492,11 @@ def run_epoch(step_fn, batcher, split, epoch, logger, csv_logger=None,
             b_c, _b_t = parallel.majority_baseline_accuracy(tbatch)
             base_correct += float(b_c)
             row["baseline_acc"] = float(b_c) / max(1.0, float(n_t))
+        elif host_baseline is not None:
+            b_c = float(np.sum(
+                (host_baseline == batch["labels"]) * batch["mask"]))
+            base_correct += b_c
+            row["baseline_acc"] = b_c / max(1.0, float(n_t))
         total_loss += float(loss)
         total_correct += float(n_c)
         total_count += float(n_t)
@@ -462,7 +505,7 @@ def run_epoch(step_fn, batcher, split, epoch, logger, csv_logger=None,
             csv_logger.append(row)
     acc = total_correct / max(1.0, total_count)
     mean_loss = total_loss / max(1, n_batches)
-    if is_counts:
+    if has_baseline:
         base_acc = base_correct / max(1.0, total_count)
         logger.info(
             "[%s] epoch %d: loss %.4f acc %.4f (Q%.1f; baseline %.4f "
@@ -487,8 +530,11 @@ def run_training(
 
     :param train_name: output directory.
     :param batcher: a :class:`TrainBatcher`.
-    :param model_dict: {type, kwargs} architecture (default:
-        ``DEFAULT_MODEL_DICT`` at the batcher's feature width).
+    :param model_dict: {type, kwargs} architecture (default: for
+        read-level files the reference's ``rl_lstm384`` geometry, a
+        ``LatentSpaceLSTM`` with lstm_size 384 and dwells following the
+        encoder; else ``DEFAULT_MODEL_DICT`` at the batcher's feature
+        width).
     :param compute_dtype: torch.bfloat16 (the kernels on the GPU) or None
         (float32 throughout).
     :param initial_params: warm-start weights as a JAX-layout pytree
@@ -507,17 +553,30 @@ def run_training(
     feature_encoder = batcher.meta.get("feature_encoder")
     label_scheme = batcher.meta.get("label_scheme")
     if model_dict is None:
-        model_dict = dict(models_mod.DEFAULT_MODEL_DICT)
-        model_dict["kwargs"] = dict(model_dict["kwargs"])
-        model_dict["kwargs"]["num_features"] = batcher.feat_dim
-    if getattr(models_mod.model_classes.get(model_dict["type"]),
-               "input_kind", "counts") != "counts":
-        raise NotImplementedError(_LATER.format(
-            "Training {}".format(model_dict["type"]), _READ_LEVEL_SLICE))
+        if batcher.is_read_level:
+            # the reference's rl_lstm384 geometry (its options.py:175-182,
+            # latent_space_lstm.py:47-59), the dwell channel following the
+            # encoder
+            use_dwells = bool(getattr(
+                feature_encoder, "include_dwells", batcher.feat_dim >= 5))
+            model_dict = {
+                "type": "LatentSpaceLSTM",
+                "kwargs": {"lstm_size": 384, "use_dwells": use_dwells}}
+        else:
+            model_dict = dict(models_mod.DEFAULT_MODEL_DICT)
+            model_dict["kwargs"] = dict(model_dict["kwargs"])
+            model_dict["kwargs"]["num_features"] = batcher.feat_dim
     # the random init draws from a generator of its own, seeded
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = models_mod.model_from_dict(model_dict)
+    kind = getattr(model, "input_kind", "counts")
+    if batcher.is_read_level != (kind == "reads"):
+        raise ValueError(
+            "Model {} expects {} features but the feature files hold {} "
+            "ones.".format(type(model).__name__, kind,
+                           "read-level" if batcher.is_read_level
+                           else "counts"))
     if initial_params is not None:
         model.load_jax_params(initial_params)
         logger.info("Warm-starting from provided checkpoint params.")
@@ -540,7 +599,7 @@ def run_training(
         model, opt, compute_dtype=compute_dtype, class_weights=class_weights)
 
     def eval_fn(batch):
-        with torch.inference_mode():
+        with torch.inference_mode(), parallel.deterministic_convolutions():
             loss, (n_c, n_t) = parallel.cross_entropy_loss(
                 model, batch, compute_dtype=compute_dtype, training=False)
         return loss, n_c, n_t
@@ -587,18 +646,17 @@ def train(args):
     if getattr(args, "resume", False):
         raise NotImplementedError(_LATER.format(
             "--resume", "resume snapshots of parameters and optimizer "
-            "state, with read-level training"))
+            "state: " + _OPTIONS_SLICE))
     if getattr(args, "validate_only", False):
         raise NotImplementedError(_LATER.format(
-            "--validate_only", "checkpoint validation, with read-level "
-            "training"))
+            "--validate_only", "checkpoint validation: " + _OPTIONS_SLICE))
     if getattr(args, "model_parallel", 1) > 1:
         raise NotImplementedError(_LATER.format(
             "--model_parallel > 1", "scale-out: the model mesh axis"))
     if getattr(args, "model", None) and args.model.endswith(".toml"):
         raise NotImplementedError(_LATER.format(
-            ".toml architecture files", "architecture files, with "
-            "read-level training"))
+            ".toml architecture files", "architecture files: "
+            + _OPTIONS_SLICE))
     # bf16 mixed precision is the default; --full_precision / --no-amp
     # force float32
     amp = getattr(args, "amp", None)

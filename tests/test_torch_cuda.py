@@ -15,7 +15,8 @@ import os
 from medaka_tpu_torch import features, models, prediction, testing
 from medaka_tpu_torch.common import Region
 from medaka_tpu_torch.models.gru import GRUModel
-from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split, gru_train
+from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split, gru_train, \
+    lstm_train
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +34,7 @@ def device():
     gru_split.build()
     bilstm.build()
     gru_train.build()
+    lstm_train.build()
     for log in cuda_build.BUILD_LOGS.values():
         print(log)
     return torch.device("cuda")
@@ -281,3 +283,152 @@ def test_train_step_kernels_match_cpu_plain_route(device):
         rel = ((grads_k[name] - gp).abs().max() / gp.abs().max()).item()
         print(name, "relative max", rel)
         assert rel <= 1e-2
+
+
+def _lstm_train_inputs(rng, H, B, T, device):
+    k = 1.0 / np.sqrt(H)
+    xp = torch.from_numpy(rng.uniform(-2, 2, (T, B, 4 * H)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    w_hh = torch.from_numpy(rng.uniform(-k, k, (4 * H, H)).astype(
+        np.float32)).to(device)
+    b_hh = torch.from_numpy(rng.uniform(-k, k, (4 * H,)).astype(
+        np.float32)).to(device)
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    lengths[0] = T
+    dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(device, torch.bfloat16).float()
+    return xp, w_hh, b_hh, lengths.to(device), dh_out
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H,B,T", [(384, 128, 100), (128, 128, 200),
+                                   (128, 37, 100), (64, 5, 64)])
+def test_lstm_train_kernels_match_plain(device, H, B, T, reverse):
+    """lstm_fwd and lstm_bwd against their plain versions, ragged lengths.
+
+    They do the same operations and differ only in the order of f32 sums
+    (the recurrent products, dW_hh and db_hh), which can move a bf16
+    rounding: h within one bf16 step (2^-8 for |h| < 1), mean within
+    1e-3, c within 1e-3 of its largest magnitude; dxp, dW_hh and db_hh
+    within 1e-3 of each tensor's largest magnitude. The forward keeps
+    W_hh in shared memory up to H=128 and reads it from L2 at H=384; the
+    backward keeps both its layouts in shared memory at H=64 only. A
+    second backward repeats the first bit for bit.
+    """
+    rng = np.random.default_rng(H + B + int(reverse))
+    xp, w_hh, b_hh, lengths, dh_out = _lstm_train_inputs(rng, H, B, T,
+                                                         device)
+    out, c_out = lstm_train.lstm_fwd(xp, w_hh, b_hh, lengths, reverse)
+    ref, c_ref = lstm_train.lstm_fwd_plain(xp, w_hh, b_hh, lengths, reverse)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    c_rel = ((c_out - c_ref).abs().max() / c_ref.abs().max()).item()
+    print("lstm_fwd H", H, "B", B, "reverse", reverse, "max",
+          diff.max().item(), "mean", diff.mean().item(), "c", c_rel)
+    assert out.shape == (T, B, H) and out.dtype == torch.bfloat16
+    assert c_out.shape == (T, B, H) and c_out.dtype == torch.float32
+    assert diff.max().item() <= 2.0 ** -8
+    assert diff.mean().item() <= 1e-3
+    assert c_rel <= 1e-3
+    got = lstm_train.lstm_bwd(xp, out, c_out, dh_out, w_hh, b_hh, lengths,
+                              reverse)
+    want = lstm_train.lstm_bwd_plain(xp, out, c_out, dh_out, w_hh, b_hh,
+                                     lengths, reverse)
+    again = lstm_train.lstm_bwd(xp, out, c_out, dh_out, w_hh, b_hh,
+                                lengths, reverse)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dxp", "dW_hh", "db_hh"), got, want):
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        print("lstm_bwd", name, "relative max", rel)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert rel <= 1e-3
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def _rl_train_batch(rng, B, T, R):
+    x = np.zeros((B, T, R, 5), np.int8)
+    x[..., 0] = rng.integers(0, 6, (B, T, R))
+    x[..., 1] = rng.integers(-1, 40, (B, T, R))
+    x[..., 2] = rng.choice([-1, 1], (B, T, R))
+    x[..., 4] = rng.integers(0, 12, (B, T, R))
+    x[0, :, R // 2:] = 0                          # empty read rows
+    lengths = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lengths[0] = T
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    return {"features": torch.from_numpy(x),
+            "labels": torch.from_numpy(rng.integers(0, 5, (B, T)).astype(
+                np.int32)),
+            "mask": torch.from_numpy(mask),
+            "lengths": torch.from_numpy(lengths)}
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm()).clamp(min=1e-300)).item()
+
+
+def test_read_level_train_step_kernels_match_plain(device):
+    """One bf16 training step of LatentSpaceLSTM (lstm_size 128, dwells,
+    2 bidirectional layers) through the kernels on the card: 4 launches of
+    each LSTM kernel. Against the same step through their plain versions
+    on the card: loss within 1e-5 relative, the LSTM stack's and the
+    head's gradients within 1e-2 of each leaf's largest magnitude. Below
+    the stack the gradient flows in bf16 (dxp is cast to the projections'
+    bf16): the kernels' f32 sums in another order move some of those
+    roundings by one step, and the sums over every read and position that
+    make the conv, batch-norm and embedding gradients cancel, so a small
+    leaf can differ by a few percent of its largest element (2% measured
+    on an H100): each of those leaves must point the same way (cosine
+    >= 0.999). Against the CPU's plain route (fused=True), whose
+    convolutions round in bf16 at other points: loss within 1e-3
+    relative, the stack's and the head's gradients within 5e-2."""
+    from medaka_tpu_torch import parallel
+    from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM
+    rng = np.random.default_rng(5)
+    torch.manual_seed(0)
+    model = LatentSpaceLSTM(lstm_size=128, use_dwells=True)
+    batch = _rl_train_batch(rng, 8, 200, 12)
+
+    def step(dev, **kw):
+        model.to(dev)
+        model.zero_grad()
+        stats = []
+        with parallel.deterministic_convolutions():
+            loss, _ = parallel.cross_entropy_loss(
+                lambda *a, **k: model(*a, **kw, **k),
+                {k: v.to(dev) for k, v in batch.items()},
+                compute_dtype=torch.bfloat16, training=True, bn_stats=stats)
+            loss.backward()
+        assert len(stats) == 2
+        return loss.item(), {n: p.grad.cpu().clone()
+                             for n, p in model.named_parameters()}
+
+    lstm_train.reset_launches()
+    loss_k, grads_k = step(device)
+    assert lstm_train.LAUNCHES == {"lstm_fwd": 4, "lstm_bwd": 4}
+    lstm_train.reset_launches()
+    from unittest import mock
+    with mock.patch.object(lstm_train, "lstm_fwd", lstm_train.lstm_fwd_plain), \
+            mock.patch.object(lstm_train, "lstm_bwd",
+                              lstm_train.lstm_bwd_plain):
+        loss_p, grads_p = step(device)
+    assert lstm_train.LAUNCHES == {"lstm_fwd": 0, "lstm_bwd": 0}
+    loss_c, grads_c = step("cpu", fused=True)
+    model.to("cpu")
+    print("loss kernels", loss_k, "plain", loss_p, "cpu", loss_c)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert abs(loss_k - loss_c) <= 1e-3 * abs(loss_c)
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        rel = ((gk - gp).abs().max() / gp.abs().max()).item()
+        cos = _cosine(gk, gp)
+        print(name, "vs plain on the card: relative max", rel, "cosine", cos)
+        if name.startswith(("lstm.", "linear.")):
+            assert rel <= 1e-2
+            gc = grads_c[name]
+            rel_c = ((gk - gc).abs().max() / gc.abs().max()).item()
+            print(name, "relative max vs the CPU", rel_c)
+            assert rel_c <= 5e-2
+        else:
+            assert cos >= 0.999

@@ -280,11 +280,6 @@ def test_dwells_bundle_forward_matches_jax(bams):
     assert np.abs(got - want).max() <= 1e-4
 
 
-def test_training_mode_refused(lambda_bundles, chunks):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lambda_bundles[0].model(torch.from_numpy(chunks[0]), training=True)
-
-
 def test_unidirectional_stack_matches_jax():
     """The 4-layer reverse/forward interleave (no kernel) in f32."""
     model = LatentSpaceLSTM(lstm_size=16, cnn_size=8, kernel_sizes=(1, 3),

@@ -668,18 +668,6 @@ def test_cli_train_refuses_later_options(labelled, tmp_path, extra, match):
                   str(tmp_path / "x"), "--cpu", "--quiet"] + extra)
 
 
-def test_train_refuses_read_level_features(labelled, tmp_path):
-    """A read-level feature file is refused, naming the later slice."""
-    hdf = str(tmp_path / "rl.hdf")
-    features.create_samples(
-        labelled["bam"], hdf, truth_bam=labelled["truth"],
-        regions=[Region("synth", 0, 3000)],
-        feature_encoder_name="ReadAlignmentFeatureEncoder",
-        feature_encoder_args={"include_dwells": False}, chunk_len=100)
-    with pytest.raises(NotImplementedError, match="read-level"):
-        training.TrainBatcher([hdf], batch_size=4)
-
-
 def test_cpu_flag_is_required_without_a_gpu(labelled, tmp_path):
     """train without --cpu asks for the GPU and raises where there is
     none (nothing falls back to the CPU)."""

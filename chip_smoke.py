@@ -27,8 +27,9 @@ Phases, each of which fails the script when it fails:
    identity to the draft, and the int8 kernels against the float32 scan
    on eight real chunks;
 7. at its shape, hold each split kernel against its plain version and
-   time it beside its plain version, the cuDNN ``nn.GRU`` yardstick and
-   its bound; the same for mode "rows" on 64 rows;
+   time it beside its plain version, its serial floor (one column), the
+   cuDNN ``nn.GRU`` yardstick and its bound; the same for mode "rows" on
+   64 rows;
 8. the read-level main path: ``inference`` with the bundled
    ``rl_lstm128_lambda_demo`` at chunk_len 1000, overlap 100 and the
    automatic batch, then ``sequence``, with the bi-LSTM kernel's launch
@@ -75,7 +76,29 @@ Phases, each of which fails the script when it fails:
     their plain versions, a stage breakdown (CUDA events), the step's
     wall time, device-busy share and peak memory, and each LSTM kernel's
     time beside its plain version, its serial floor, the cuDNN
-    ``nn.LSTM`` yardstick and its bound; print one ``kernels`` JSON line.
+    ``nn.LSTM`` yardstick and its bound;
+16. (run before phase 4) hold the fullfused bi-GRU kernels
+    (``bigru_fullfused`` in its f32-gates and bf16-gates modes,
+    ``bigru_fullfused_int8`` and ``bigru_fused``) against their plain
+    versions at H=256, B=16, T=2000 for layer 1 (10 inputs) and layer 2
+    (512 inputs), and through a 3-layer H=96 stack at B=31, T=500, ragged
+    lengths with a padded row, each bit for bit on a second launch;
+17. (after phase 9) the small-batch path: ``inference --batch_size 16``
+    with the counts bundle, which runs off the split path, then
+    ``sequence --qualities``, with the launch counts set to 0 just before:
+    two launches of the f32-gates fullfused kernel a batch and none of the
+    split kernels, identity >= 0.99; one batch of 16 through the model
+    against the kernels' plain versions, and the entry points of the other
+    modes (``recurrent_quant`` "bf16_gates" and "int8",
+    ``bigru_stack_fused``) over it;
+18. the direct route: ``prediction.predict_direct`` at batch 16 (the same
+    launches) and at the automatic batch (the split kernels), each
+    byte-identical to the FASTQ of phase 17 or the FASTA of phase 5, gaps
+    beds included;
+19. each fullfused kernel on layer 2 of the bundle at B=16, T=10000,
+    H=256: against its plain version, its time beside the plain
+    version's, its serial floor, the cuDNN ``nn.GRU`` yardstick and its
+    bound; then print one ``kernels`` JSON line (eleven rows).
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -117,7 +140,26 @@ REPLACES = {
                 "(lstm_pallas :1905)",
     "lstm_bwd": "medaka_tpu/ops/pallas_gru.py:1966 _lstm_bwd_kernel "
                 "(lstm_bwd_pallas :2042)",
+    "bigru_fullfused/f32_gates": "medaka_tpu/ops/pallas_gru.py:494 "
+                                 "_bigru_fullfused_kernel (bigru_pallas_"
+                                 "fullfused :675); :588 the staggered "
+                                 "schedule, the same numerics",
+    "bigru_fullfused/bf16_gates": "medaka_tpu/ops/pallas_gru.py:494 "
+                                  "_bigru_fullfused_kernel, gates_bf16 "
+                                  ":539-558 (bigru_pallas_fullfused :675)",
+    "bigru_fullfused_int8": "medaka_tpu/ops/pallas_gru.py:760 "
+                            "_bigru_fullfused_int8_kernel (bigru_pallas_"
+                            "fullfused_int8 :844)",
+    "bigru_fused": "medaka_tpu/ops/pallas_gru.py:165 _bigru_kernel "
+                   "(bigru_pallas :229)",
 }
+FULLFUSED_SOURCE = "medaka_tpu_torch/csrc/gru_fullfused.cu"
+#: kernel mode of each fullfused row; "fused" is bigru_pallas (#6)
+FULLFUSED_MODES = {"bigru_fullfused/f32_gates": "f32_gates",
+                   "bigru_fullfused/bf16_gates": "bf16_gates",
+                   "bigru_fullfused_int8": "int8", "bigru_fused": "fused"}
+#: the batch of the small-batch path: below 32, so off the split path
+SMALL_BATCH = 16
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
 # bf16 flop/s, f32 flop/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -183,6 +225,13 @@ LSTM_BWD_ELEMENTWISE_OPS = 63
 # its largest element (2% on an H100 in the card tests); each of those
 # leaves must point the same way
 MIN_UPSTREAM_COSINE = 0.999
+# the counts model through the fullfused f32-gates kernels vs through their
+# plain versions on one batch of T=10000: the f32 sums of the recurrent
+# product run in another order, which moves a bf16 rounding of a layer-1
+# output now and then, and layer 2 carries it on over the steps; the mean
+# and the argmax agreement carry the check, the max is the worst near-tie
+# column
+TOL_FULLFUSED_PROB_MAX = 1e-2
 
 
 def log(*args):
@@ -1289,6 +1338,376 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
     return rows
 
 
+def stacked_layer(layer):
+    """(w_ih, b_ih, w_hh, b_hh), each the (fwd, bwd) pair stacked."""
+    import torch
+    return tuple(torch.stack([layer["fwd"][k], layer["bwd"][k]])
+                 for k in ("w_ih", "b_ih", "w_hh", "b_hh"))
+
+
+def random_bigru_layer(rng, H, IN, dev):
+    """Stacked bi-GRU weights as torch initialises them."""
+    import torch
+    k = 1.0 / H ** 0.5
+    return tuple(torch.from_numpy(rng.uniform(-k, k, shape).astype(
+        "float32")).to(dev) for shape in ((2, 3 * H, IN), (2, 3 * H),
+                                          (2, 3 * H, H), (2, 3 * H)))
+
+
+def fullfused_calls(gru_fullfused, mode, x, w, lengths):
+    """(kernel, plain version) of one bi-GRU layer in a fullfused mode,
+    or of ``bigru_pallas`` (mode "fused") over ``bigru_stack_fused``'s
+    projections of x."""
+    w_ih, b_ih, w_hh, b_hh = w
+    if mode == "fused":
+        xp_f, xp_b = (gru_fullfused.project_fused(x, w_ih[d], b_ih[d])
+                      for d in (0, 1))
+        return (lambda: gru_fullfused.fused_layer(xp_f, xp_b, w_hh, b_hh,
+                                                  lengths),
+                lambda: gru_fullfused.recurrence_plain(xp_f, xp_b, w_hh, b_hh,
+                                                       lengths))
+    return (lambda: gru_fullfused.fullfused_layer(x, *w, lengths, mode),
+            lambda: gru_fullfused.bigru_fullfused_plain(x, *w, lengths, mode))
+
+
+def compare_fullfused(gru_fullfused, mode, x, w, lengths):
+    """One layer through the kernel (twice) against its plain version.
+
+    Returns (kernel output, {"max", "mean", "bar"}, the plain version's
+    ms); fails past the bar (TOL_GRU_FWD, one bf16 step of the largest
+    output in mode "bf16_gates"; mean TOL_L1_MEAN) or if the second launch
+    differs.
+    """
+    import torch
+    kernel, plain = fullfused_calls(gru_fullfused, mode, x, w, lengths)
+    got, again = kernel(), kernel()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    stop.record()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("{} does not repeat bit for bit".format(mode))
+    diff = (got.float() - want.float()).abs()
+    bar = TOL_GRU_FWD
+    if mode == "bf16_gates":
+        bar = 2.0 ** (math.floor(math.log2(want.float().abs().max().item()))
+                      - 7)
+    stats = {"max": diff.max().item(), "mean": diff.mean().item(),
+             "bar": bar}
+    if stats["max"] > bar or stats["mean"] > TOL_L1_MEAN:
+        raise AssertionError("{} disagrees with its plain version: {}".format(
+            mode, stats))
+    return got, stats, start.elapsed_time(stop)
+
+
+def fullfused_bound(name, B, H, IN, lengths_sum):
+    """Least time (ms) of one bi-GRU layer call, what bounds it, the bytes.
+
+    Counted over the valid columns (``lengths_sum``), as for the other
+    kernels. Bytes: the layer input (bf16 x, or both directions' bf16
+    projections for ``bigru_fused``) and the bf16 outputs of both
+    directions once, the f32 weights and biases as the wrapper is given
+    them, and the lengths. Operations: the projection (fullfused only)
+    and the recurrent product, 2 x 3H x IN and 2 x 3H x H per column and
+    direction, at the bf16 peak (the recurrence of ``bigru_fullfused_int8``
+    at the int8 peak), plus the gate arithmetic at the f32 peak.
+    """
+    G = 3 * H
+    nbytes = 2 * lengths_sum * H * 2 + 2 * (G * H + 2 * G) * 4 + B * 4
+    if name == "bigru_fused":
+        nbytes += 2 * lengths_sum * G * 2
+        proj_macs = 0
+    else:
+        nbytes += lengths_sum * IN * 2 + 2 * G * IN * 4
+        proj_macs = 2 * lengths_sum * G * IN
+    rec_peak = PEAK_INT8 if name == "bigru_fullfused_int8" else PEAK_BF16
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (2 * proj_macs / PEAK_BF16
+             + 2 * 2 * lengths_sum * G * H / rec_peak
+             + 2 * lengths_sum * H * GRU_FWD_ELEMENTWISE_OPS / PEAK_F32) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes
+    return t_ops, "operations", nbytes
+
+
+def fullfused_agreement(gru_fullfused, rng, dev):
+    """Each fullfused mode and ``bigru_fused`` against its plain version:
+    H=256, B=16, T=2000 for layer 1 (IN=10) and layer 2 (IN=512), and a
+    3-layer H=96 stack at B=31, T=500, each layer on the kernel's output
+    of the layer below; ragged lengths with a padded row (length 0).
+    Returns {shape: {mode: stats}}."""
+    import torch
+    out = {}
+
+    def inputs(B, T, IN):
+        lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
+        lengths[0], lengths[1] = T, 0
+        x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
+            "float32")).to(dev, torch.bfloat16)
+        return x, lengths.to(dev)
+
+    H, B, T = 256, SMALL_BATCH, 2000
+    for IN in (10, 2 * H):
+        x, lengths = inputs(B, T, IN)
+        w = random_bigru_layer(rng, H, IN, dev)
+        key = "H{}_B{}_T{}_IN{}".format(H, B, T, IN)
+        out[key] = {mode: compare_fullfused(gru_fullfused, mode, x, w,
+                                            lengths)[1]
+                    for mode in FULLFUSED_MODES.values()}
+        log("   {}: {}".format(key, json.dumps(out[key])))
+    H, B, T = 96, 31, 500
+    x0, lengths = inputs(B, T, 10)
+    weights = [random_bigru_layer(rng, H, 10 if k == 0 else 2 * H, dev)
+               for k in range(3)]
+    key = "H{}_B{}_T{}_3layers".format(H, B, T)
+    out[key] = {}
+    for mode in FULLFUSED_MODES.values():
+        x, worst = x0, {"max": 0.0, "mean": 0.0}
+        for w in weights:
+            x, stats, _ = compare_fullfused(gru_fullfused, mode, x, w,
+                                            lengths)
+            worst = {k: max(worst[k], stats[k]) for k in ("max", "mean")}
+        out[key][mode] = worst
+    log("   {}: {}".format(key, json.dumps(out[key])))
+    return out
+
+
+def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
+                       modules):
+    """Counts inference off the split path at batch 16, the direct route,
+    and the fullfused kernels' timings (phases 8-11); returns the
+    ``kernels`` rows of bigru_fullfused (both gate modes),
+    bigru_fullfused_int8 and bigru_fused."""
+    import numpy as np
+    import torch
+    cli, datastore, features, gru_fullfused, gru_split, models, \
+        prediction = (modules[k] for k in (
+            "cli", "datastore", "features", "gru_fullfused", "gru_split",
+            "models", "prediction"))
+    from medaka_tpu_torch import testing
+    B = SMALL_BATCH
+    hdf = os.path.join(work, "probs16.hdf")
+    fastq = os.path.join(work, "consensus16.fastq")
+    with phase("small-batch path: inference --batch_size 16 + sequence "
+               "--qualities"):
+        gru_fullfused.reset_launches()
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["inference", bam, hdf, "--model", MODEL,
+                     "--batch_size", str(B)]) != 0:
+            raise AssertionError("inference --batch_size 16 failed")
+        torch.cuda.synchronize()
+        t_inference = time.perf_counter() - t0
+        mode_launches = dict(gru_fullfused.MODE_LAUNCHES)
+        split_launches = dict(gru_split.LAUNCHES)
+        if cli.main(["sequence", hdf, draft, fastq, "--qualities"]) != 0:
+            raise AssertionError("sequence --qualities failed")
+    with phase("check the small-batch output"):
+        n_samples, n_columns = check_probabilities(datastore, hdf)
+        n_batches = math.ceil(n_samples / B)
+        log("   launches: {}; split kernels {}".format(mode_launches,
+                                                       split_launches))
+        expected = {k: 0 for k in mode_launches}
+        expected["bigru_fullfused/f32_gates"] = 2 * n_batches
+        if mode_launches != expected or sum(split_launches.values()) != 0:
+            raise AssertionError(
+                "expected {} launches of the f32-gates fullfused kernel (2 "
+                "layers x {} batches) and no other".format(
+                    2 * n_batches, n_batches))
+        identity, edits, cons_len = consensus_identity(testing, fastq, draft)
+        log("   {} samples, {} columns in {:.2f} s of inference: {:.0f} "
+            "columns/s; consensus {} bp, identity to the draft {:.6f} ({} "
+            "edits by greedy walk)".format(
+                n_samples, n_columns, t_inference, n_columns / t_inference,
+                cons_len, identity, edits))
+        if identity < 0.99:
+            raise AssertionError("small-batch consensus identity {} < "
+                                 "0.99".format(identity))
+
+    bundle = models.load_model(MODEL)
+    model = bundle.model.to(dev)
+    region = prediction.plan_work(None, bam)[0]
+    samples = features.SampleGenerator(
+        bam, region, bundle.feature_encoder, chunk_len=10000,
+        chunk_overlap=1000).samples[:B]
+    small = prediction.Batch.collate(samples, B, 10000)
+    x = torch.from_numpy(small.features).to(dev)
+    lens = torch.from_numpy(small.lengths).to(dev)
+    T = x.shape[1]
+    layers = [stacked_layer(layer) for layer in model.layer_params()]
+    with phase("one batch of 16: the model through the kernels vs through "
+               "their plain versions; the other modes' entry points"):
+        with torch.inference_mode():
+            got = model(x, lengths=lens, compute_dtype=torch.bfloat16)
+            h = x.transpose(0, 1).to(torch.bfloat16).contiguous()
+            for w in layers:
+                h = gru_fullfused.bigru_fullfused_plain(h, *w, lens)
+            want = torch.softmax(
+                h.transpose(0, 1).float() @ model.linear.weight.float().t()
+                + model.linear.bias.float(), -1)
+            valid = (torch.arange(T, device=dev)[None, :]
+                     < lens[:, None].long())
+            diff = (got - want).abs()[valid]
+            batch_stats = {
+                "max": diff.max().item(), "mean": diff.mean().item(),
+                "argmax_agreement": (got.argmax(-1) == want.argmax(-1))[
+                    valid].float().mean().item()}
+            log("   B={} T={}: probs max {:.3g} mean {:.3g}, argmax "
+                "agreement {:.6f}".format(B, T, batch_stats["max"],
+                                          batch_stats["mean"],
+                                          batch_stats["argmax_agreement"]))
+            if batch_stats["max"] > TOL_FULLFUSED_PROB_MAX or \
+                    batch_stats["mean"] > TOL_SCAN_PROB_MEAN or \
+                    batch_stats["argmax_agreement"] < MIN_ARGMAX_AGREEMENT:
+                raise AssertionError("the fullfused route disagrees with "
+                                     "its plain version: {}".format(
+                                         batch_stats))
+            # the entry points of the other modes over the same batch:
+            # GRUModel.forward(recurrent_quant=...) and bigru_stack_fused
+            entry_launches = {}
+            for name, run in (
+                    ("bigru_fullfused/bf16_gates", lambda: model(
+                        x, lengths=lens, compute_dtype=torch.bfloat16,
+                        recurrent_quant="bf16_gates")),
+                    ("bigru_fullfused_int8", lambda: model(
+                        x, lengths=lens, compute_dtype=torch.bfloat16,
+                        recurrent_quant="int8")),
+                    ("bigru_fused", lambda: gru_fullfused.bigru_stack_fused(
+                        model.layer_params(), x, lengths=lens, device=dev))):
+                gru_fullfused.reset_launches()
+                probs = run()
+                torch.cuda.synchronize()
+                entry_launches[name] = dict(gru_fullfused.MODE_LAUNCHES)
+                if not bool(torch.isfinite(probs.float()).all()):
+                    raise AssertionError(name + " gave non-finite values")
+        log("   launches of the other entry points: {}".format(
+            json.dumps(entry_launches)))
+
+    direct16 = os.path.join(work, "direct16.fastq")
+    with phase("direct route: predict_direct at batch 16"):
+        gru_fullfused.reset_launches()
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        _, direct_columns = prediction.predict_direct(
+            bam, direct16, draft, model_path=MODEL, batch_size=B,
+            qualities=True)
+        t_direct = time.perf_counter() - t0
+        direct_launches = dict(gru_fullfused.MODE_LAUNCHES)
+        if direct_launches != expected or \
+                sum(gru_split.LAUNCHES.values()) != 0:
+            raise AssertionError("the direct route launched {}".format(
+                direct_launches))
+        log("   {} columns in {:.2f} s: {:.0f} columns/s".format(
+            direct_columns, t_direct, direct_columns / t_direct))
+    direct_auto = os.path.join(work, "direct.fasta")
+    with phase("direct route: predict_direct at the automatic batch"):
+        gru_fullfused.reset_launches()
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        _, auto_columns = prediction.predict_direct(bam, direct_auto, draft,
+                                                    model_path=MODEL)
+        t_auto = time.perf_counter() - t0
+        if min(gru_split.LAUNCHES.values()) < 1 or \
+                sum(gru_fullfused.LAUNCHES.values()) != 0:
+            raise AssertionError("the direct route at the automatic batch "
+                                 "must run the split kernels")
+        log("   {} columns in {:.2f} s: {:.0f} columns/s; launches {}".format(
+            auto_columns, t_auto, auto_columns / t_auto,
+            dict(gru_split.LAUNCHES)))
+    bed = ".gaps_in_draft_coords.bed"
+    for got_path, want_path in ((direct16, fastq), (direct_auto, main_fasta)):
+        for suffix in ("", bed):
+            with open(got_path + suffix, "rb") as a, \
+                    open(want_path + suffix, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError("{} differs from {}".format(
+                        os.path.basename(got_path + suffix),
+                        os.path.basename(want_path + suffix)))
+    log("   the direct FASTQ (batch 16) and FASTA (automatic batch) and "
+        "their gaps beds equal the HDF5 route's byte for byte")
+
+    with phase("fullfused kernels at B=16 T=10000 H=256, layer 2: "
+               "timings"):
+        H = model.gru_size
+        lengths_sum = int(small.lengths.sum())
+        with torch.inference_mode():
+            h1 = gru_fullfused.fullfused_layer(
+                x.transpose(0, 1).to(torch.bfloat16).contiguous(),
+                *layers[0], lens)
+            IN = h1.shape[-1]
+            one = (h1[:, :1].contiguous(), lens[:1])
+            timed, main_stats = {}, {}
+            for name, mode in FULLFUSED_MODES.items():
+                _, main_stats[name], plain_ms = compare_fullfused(
+                    gru_fullfused, mode, h1, layers[1], lens)
+                kernel, _ = fullfused_calls(gru_fullfused, mode, h1,
+                                            layers[1], lens)
+                floor, _ = fullfused_calls(gru_fullfused, mode, one[0],
+                                           layers[1], one[1])
+                timed[name] = (cuda_ms(kernel), plain_ms, cuda_ms(floor))
+            # yardstick (the port never calls it): cuDNN's bf16 bi-GRU
+            # over the same rows, its input projection included
+            gru = torch.nn.GRU(IN, H, 1, bidirectional=True).to(
+                dev, torch.bfloat16)
+            gru.flatten_parameters()
+            lib_ms = cuda_ms(lambda: gru(h1))
+            del gru
+        library = ("torch.nn.GRU({}, {}, 1, bidirectional=True) bf16 (cuDNN) "
+                   "over the same {} rows, its input projection included: "
+                   "{:.2f} ms".format(IN, H, B, lib_ms))
+        log("   " + library)
+
+    path = {"bigru_fullfused/f32_gates": "inference --batch_size 16",
+            "bigru_fullfused/bf16_gates":
+                "GRUModel.forward(recurrent_quant='bf16_gates') on one "
+                "batch of 16",
+            "bigru_fullfused_int8":
+                "GRUModel.forward(recurrent_quant='int8') on one batch of "
+                "16",
+            "bigru_fused": "bigru_stack_fused on one batch of 16"}
+    rows = []
+    for name, mode in FULLFUSED_MODES.items():
+        ms, plain_ms, floor_ms = timed[name]
+        bound_ms, bound_by, nbytes = fullfused_bound(name, B, H, IN,
+                                                     lengths_sum)
+        key = name.split("/")[0] + "/" + (
+            "f32_gates" if mode == "fused" else mode)
+        launches = (mode_launches[key] if name == "bigru_fullfused/f32_gates"
+                    else entry_launches[name][key])
+        err = max([agreement[s][mode]["max"] for s in agreement]
+                  + [main_stats[name]["max"]])
+        rows.append({
+            "name": name, "route": "cuda", "source": FULLFUSED_SOURCE,
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_on": path[name], "max_abs_err": err,
+            "err_measure": "max abs difference of bf16 outputs",
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes, "library_ms": lib_ms,
+            "library": library, "serial_floor_ms": floor_ms,
+            "shape": {"B": B, "T": T, "H": H, "IN": IN,
+                      "valid_columns": lengths_sum, "layer": 2},
+            "agreement": {"random_weights": {
+                s: agreement[s][mode] for s in agreement},
+                "main_shape": main_stats[name]},
+        })
+        log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
+            "column {:.3f} ms; {} launches on {})".format(
+                name, ms, plain_ms, bound_ms, bound_by, floor_ms, launches,
+                path[name]))
+    rows[0]["small_batch"] = {
+        "inference_columns_per_s": n_columns / t_inference,
+        "identity": identity, "batches": n_batches,
+        "model_vs_plain": batch_stats,
+        "direct_columns_per_s": direct_columns / t_direct,
+        "direct_auto_columns_per_s": auto_columns / t_auto}
+    del model, x, h1
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1305,8 +1724,8 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     from medaka_tpu_torch import cli, datastore, features, models, \
         native, parallel, prediction, testing, training
-    from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split, \
-        gru_train, lstm_train
+    from medaka_tpu_torch.ops import bilstm, cuda_build, gru_fullfused, \
+        gru_split, gru_train, lstm_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1332,6 +1751,7 @@ def main(argv=None):
                   "nvcc bilstm.cu": bilstm.build,
                   "nvcc gru_train.cu": gru_train.build,
                   "nvcc lstm_train.cu": lstm_train.build,
+                  "nvcc gru_fullfused.cu": gru_fullfused.build,
                   "g++ native": native_build}
         with ThreadPoolExecutor(len(builds)) as pool:
             futures = {name: pool.submit(timed, fn)
@@ -1399,6 +1819,11 @@ def main(argv=None):
                         stats["db_hh"]))
                 lstm_agreement["H{}_{}".format(
                     H, "reverse" if reverse else "forward")] = stats
+        torch.cuda.empty_cache()
+
+    with phase("fullfused kernels vs plain versions, H=256 B=16 T=2000 "
+               "(layers 1 and 2), H=96 B=31 T=500 (3 layers)"):
+        ff_agreement = fullfused_agreement(gru_fullfused, rng, dev)
         torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1616,9 +2041,14 @@ def main(argv=None):
                         r1_err, IN),
                        (gru_split.gru_l2head_split,
                         gru_split.gru_l2head_split_plain, r2_err, 2 * H))
+            # the serial floor of mode "rows": one batch column
+            rf1, rb1 = gru_split.gru_l1_split(one_x, one_len, *r_args[0][2:],
+                                              mode="rows")
+            r_one = ((one_x, one_len) + r_args[0][2:],
+                     (rf1, rb1, one_len) + r_args[1][3:])
             with torch.inference_mode():
-                for row, call_args, (fn, plain_fn, err, width) in zip(
-                        rows, r_args, kernels):
+                for row, call_args, one_args, (fn, plain_fn, err, width) in \
+                        zip(rows, r_args, r_one, kernels):
                     lib_ms = yardstick_ms(main_batch.features[:RB], width,
                                           1, H, dev)
                     bound_ms, bound_by = bound(row["name"], RB, H, IN, C,
@@ -1632,6 +2062,8 @@ def main(argv=None):
                             *call_args, mode="rows", quant=True),
                             reps=1, warmup=0),
                         "bound_ms": bound_ms, "bound_by": bound_by,
+                        "serial_floor_ms": cuda_ms(
+                            lambda: fn(*one_args, mode="rows")),
                         "library": "torch.nn.GRU({}, {}, 1, bidirectional="
                                    "True) bf16 (cuDNN) over {} rows: {:.2f} "
                                    "ms".format(width, H, RB, lib_ms)}
@@ -1779,6 +2211,11 @@ def main(argv=None):
 
         del model, x, pooled, pooled_t, xp_f, xp_b, largs, one
         torch.cuda.empty_cache()
+        rows.extend(small_batch_phases(
+            work, bam, draft, fasta, dev, ff_agreement, modules={
+                "cli": cli, "datastore": datastore, "features": features,
+                "gru_fullfused": gru_fullfused, "gru_split": gru_split,
+                "models": models, "prediction": prediction}))
         rows.extend(training_phases(
             seed, work, bam, draft, dev, rng, train_agreement, modules={
                 "cli": cli, "datastore": datastore, "gru_train": gru_train,

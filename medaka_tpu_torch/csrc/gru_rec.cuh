@@ -1,0 +1,341 @@
+// The GRU forward recurrence over pre-projected inputs, shared by
+// gru_train.cu (gru_fwd: one direction a launch, f32 gates) and
+// gru_fullfused.cu (bigru_fullfused, bigru_fused: both directions in one
+// launch, three numerics modes).
+//
+// Design. The TPU kernels walk time blocks on a sequential grid with the
+// carry in VMEM. Here one block owns one direction (blockIdx.y) and a tile
+// of BT = CPT * NQ batch columns and loops over all T steps itself; blocks
+// never exchange state. Thread (j, q) owns hidden unit j (gate rows j,
+// H+j, 2H+j) for columns q*CPT .. q*CPT+CPT-1, so a unit's three gates
+// meet in one thread, h stays in registers, and a step needs one
+// __syncthreads (the next step's matmul operand, bf16(h) or round(127 h),
+// is double-buffered in shared memory). W_hh is read in 16-byte chunks (8
+// bf16 or 16 int8) laid out so that a warp of 32 consecutive units reads
+// 512 contiguous bytes: chunk kc of row r at kc * 3H + r. It sits in
+// dynamic shared memory where it fits (bf16 up to H = 192, int8 up to
+// H = 256: 196,608 B) and is read through the read-only cache from L2 on
+// every step otherwise (bf16 at H = 256, the counts model's width). The
+// forward direction freezes h at t >= length; the reverse one walks time
+// back to front and keeps h = 0 until t < length, so padded columns stay 0.
+// Outputs stay in natural time order.
+//
+// Numerics (NUM), per step with gate order r, z, n:
+// - NUM_F32: hp = f32(bf16(h) . W_hh_bf16^T) + b_hh; r = sigmoid(x_r +
+//   hp_r), z = sigmoid(x_z + hp_z), n = tanh(x_n + r hp_n),
+//   h' = (1 - z) n + z h, carried in f32 (gru_pallas, the fullfused
+//   kernel's default).
+// - NUM_BF16G: bf16(hp), every gate op rounded to bf16, the exp(-|v|) /
+//   exp(-2|v|) forms of sigmoid and tanh, the blend on bf16 h
+//   (pallas_gru.py:539-558). The recurrent product is summed in f64 and
+//   rounded once to f32: with h carried in bf16, a one-step difference of
+//   bf16(hp) from another f32 summation order feeds back and grows over
+//   the steps, so this mode's product is made independent of the order.
+// - NUM_INT8: an int8 W_hh with per-column scales, h quantised as
+//   round(127 h) (half to even); int32 dot products by __dp4a,
+//   hp = f32(dot) * scale + b_hh, then the f32 gates.
+// They follow the plain PyTorch versions operation by operation: bf16 x
+// bf16 products are exact in f32 and fmaf rounds only the sums; int8 dot
+// products are exact; __fadd_rn/__fmul_rn/__fsub_rn/__fdiv_rn keep nvcc
+// from contracting into FMAs the plain versions do not do. What is left is
+// the order of the f32 sums of NUM_F32's recurrent product, which can move
+// a bf16 rounding of an output (the carry stays f32).
+#pragma once
+
+#include "rnn_train.cuh"
+
+namespace {
+
+constexpr int NUM_F32 = 0;    // bf16 W_hh, f32 gates
+constexpr int NUM_BF16G = 1;  // bf16 W_hh, bf16 gates
+constexpr int NUM_INT8 = 2;   // int8 W_hh (per-column scales), f32 gates
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// pallas_gru.py:545-549: e = exp(-|v|) <= 1, reconstructed by sign; every
+// op rounded to bf16
+__device__ __forceinline__ float sigmoid_bf16(float v) {
+  const float e = bf16r(expf(-fabsf(v)));
+  const float pos = bf16r(__fdiv_rn(1.0f, bf16r(__fadd_rn(1.0f, e))));
+  return v >= 0.0f ? pos : bf16r(__fsub_rn(1.0f, pos));
+}
+
+// pallas_gru.py:551-556: e = exp(-2|v|) <= 1, sign-symmetric
+__device__ __forceinline__ float tanh_bf16(float v) {
+  const float e = bf16r(expf(bf16r(-2.0f * fabsf(v))));
+  const float mag =
+      bf16r(__fdiv_rn(bf16r(__fsub_rn(1.0f, e)), bf16r(__fadd_rn(1.0f, e))));
+  return v >= 0.0f ? mag : -mag;
+}
+
+// dot8_bf16 with an f64 sum: the bf16 products are exact in f64 and a
+// sum of H <= 512 of them is exact but in the rarest cases, so its one
+// rounding to f32 does not depend on the order of the sum
+__device__ __forceinline__ double dot8_bf16_f64(uint4 w, uint4 a,
+                                                double acc) {
+  const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&w);
+  const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float2 wf = __bfloat1622float2(wp[p]);
+    const float2 af = __bfloat1622float2(ap[p]);
+    acc = fma(static_cast<double>(wf.x), static_cast<double>(af.x), acc);
+    acc = fma(static_cast<double>(wf.y), static_cast<double>(af.y), acc);
+  }
+  return acc;
+}
+
+// One GRU update of one unit of one column; x* are the bf16 projections
+// widened, h* the recurrent pre-activations with b_hh (bf16-rounded in
+// NUM_BF16G).
+template <int NUM>
+__device__ __forceinline__ float gru_cell(float h, float xr, float xz,
+                                          float xn, float hr, float hz,
+                                          float hn) {
+  if (NUM == NUM_BF16G) {
+    const float r = sigmoid_bf16(bf16r(__fadd_rn(xr, hr)));
+    const float z = sigmoid_bf16(bf16r(__fadd_rn(xz, hz)));
+    const float n = tanh_bf16(bf16r(__fadd_rn(xn, bf16r(__fmul_rn(r, hn)))));
+    const float hb = bf16r(h);
+    return bf16r(__fadd_rn(bf16r(__fmul_rn(bf16r(__fsub_rn(1.0f, z)), n)),
+                           bf16r(__fmul_rn(z, hb))));
+  }
+  const float r = sigmoid_f(__fadd_rn(xr, hr));
+  const float z = sigmoid_f(__fadd_rn(xz, hz));
+  const float n = tanhf(__fadd_rn(xn, __fmul_rn(r, hn)));
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h));
+}
+
+// bytes of one direction's W_hh (3H x H) in mode num
+__host__ __device__ __forceinline__ size_t rec_w_bytes(int num, int H) {
+  return static_cast<size_t>(3) * H * H * (num == NUM_INT8 ? 1 : 2);
+}
+
+size_t rec_smem_bytes(int num, bool w_smem, int BT, int H) {
+  return (w_smem ? align16(rec_w_bytes(num, H)) : 0) +
+         align16(2 * static_cast<size_t>(BT) * H * (num == NUM_INT8 ? 1 : 2));
+}
+
+// per direction d (blockIdx.y < dirs): projections xp[d] (T, B, 3H) bf16,
+// W_hh chunks w_hh[d], scales hh_scale[d] (3H, NUM_INT8 only), b_hh[d]
+// (3H) f32, h of row (t, b) written at out[d] + (t * B + b) * ld_out
+struct RecArgs {
+  const bf16* xp[2];
+  const uint4* w_hh[2];
+  const float* hh_scale[2];
+  const float* b_hh[2];
+  bf16* out[2];
+  int reverse[2];
+  const int* lengths;  // (B,)
+  int ld_out, T, B, H, NQ, dirs;
+};
+
+// v[d] with d in {0, 1} without indexing the kernel's parameter array at
+// run time (which would copy it to local memory)
+template <typename V>
+__device__ __forceinline__ V pick(const V (&v)[2], int d) {
+  return d ? v[1] : v[0];
+}
+
+// grid (ceil(B / BT), dirs), block H * NQ threads
+template <int CPT, bool W_SMEM, int NUM>
+__global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool QUANT = NUM == NUM_INT8;
+  constexpr int ESZ = QUANT ? 1 : 2;  // bytes of one matmul operand of h
+  const int d = blockIdx.y;
+  const bool reverse = pick(a.reverse, d) != 0;
+  const int T = a.T, B = a.B, H = a.H;
+  const int BT = CPT * a.NQ;
+  const int b0 = blockIdx.x * BT;
+  const int tid = threadIdx.x;
+  const int j = tid % H;
+  const int c0 = (tid / H) * CPT;
+  const int H3 = 3 * H;
+  const int kchunks = H * ESZ / 16;
+  const size_t wchunks = static_cast<size_t>(kchunks) * H3;
+
+  unsigned char* p = smem;
+  uint4* w_s = reinterpret_cast<uint4*>(p);
+  if (W_SMEM) p += align16(wchunks * 16);
+  unsigned char* act_s = p;  // [2][BT][H] bf16(h) or int8 round(127 h)
+
+  const uint4* w_dir = pick(a.w_hh, d);
+  if (W_SMEM) {
+    for (size_t i = tid; i < wchunks; i += blockDim.x) w_s[i] = w_dir[i];
+  }
+  const uint4* wmat = W_SMEM ? w_s : w_dir;
+  for (int i = tid; i < 2 * BT * H * ESZ; i += blockDim.x) act_s[i] = 0;
+
+  float bh[3], sc[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    bh[g] = pick(a.b_hh, d)[g * H + j];
+    sc[g] = QUANT ? pick(a.hh_scale, d)[g * H + j] : 1.0f;
+  }
+  int len[CPT];
+  float h[CPT];
+#pragma unroll
+  for (int cc = 0; cc < CPT; ++cc) {
+    const int b = b0 + c0 + cc;
+    len[cc] = b < B ? a.lengths[b] : 0;
+    h[cc] = 0.0f;
+  }
+  const bf16* xp = pick(a.xp, d);
+  bf16* out = pick(a.out, d);
+
+  // this thread's projections of step tt: xp[tt, b, g*H + j]
+  auto load_x = [&](int tt, bf16 (&dst)[3][CPT]) {
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) {
+      const int b = b0 + c0 + cc;
+      const size_t row = (static_cast<size_t>(tt) * B + b) * H3 + j;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        dst[g][cc] = b < B ? xp[row + g * H] : __float2bfloat16_rn(0.0f);
+    }
+  };
+  bf16 x_cur[3][CPT], x_next[3][CPT];
+  load_x(reverse ? T - 1 : 0, x_cur);
+  __syncthreads();
+
+  for (int i = 0; i < T; ++i) {
+    const int cur = i & 1;
+    const int t = reverse ? T - 1 - i : i;
+    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1, x_next);
+
+    // recurrent pre-activations hp = W_hh h (+ scale) + b_hh
+    float hp[3][CPT];
+    const uint4* av =
+        reinterpret_cast<const uint4*>(act_s + cur * BT * H * ESZ);
+    if (QUANT) {
+      int acc[3][CPT] = {};
+      for (int kc = 0; kc < kchunks; ++kc) {
+        uint4 w[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+          const uint4 q = av[(c0 + cc) * kchunks + kc];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            acc[g][cc] = __dp4a(static_cast<int>(w[g].x), static_cast<int>(q.x), acc[g][cc]);
+            acc[g][cc] = __dp4a(static_cast<int>(w[g].y), static_cast<int>(q.y), acc[g][cc]);
+            acc[g][cc] = __dp4a(static_cast<int>(w[g].z), static_cast<int>(q.z), acc[g][cc]);
+            acc[g][cc] = __dp4a(static_cast<int>(w[g].w), static_cast<int>(q.w), acc[g][cc]);
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc)
+          hp[g][cc] = __fadd_rn(
+              __fmul_rn(static_cast<float>(acc[g][cc]), sc[g]), bh[g]);
+    } else if (NUM == NUM_BF16G) {
+      double acc[3][CPT] = {};
+      for (int kc = 0; kc < kchunks; ++kc) {
+        uint4 w[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+          const uint4 hv = av[(c0 + cc) * kchunks + kc];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) acc[g][cc] = dot8_bf16_f64(w[g], hv, acc[g][cc]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc)
+          hp[g][cc] = bf16r(__fadd_rn(__double2float_rn(acc[g][cc]), bh[g]));
+    } else {
+      float acc[3][CPT] = {};
+      for (int kc = 0; kc < kchunks; ++kc) {
+        uint4 w[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+          const uint4 hv = av[(c0 + cc) * kchunks + kc];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) acc[g][cc] = dot8_bf16(w[g], hv, acc[g][cc]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) hp[g][cc] = __fadd_rn(acc[g][cc], bh[g]);
+    }
+
+    unsigned char* act_n = act_s + (cur ^ 1) * BT * H * ESZ;
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) {
+      const float h_new = gru_cell<NUM>(
+          h[cc], __bfloat162float(x_cur[0][cc]),
+          __bfloat162float(x_cur[1][cc]), __bfloat162float(x_cur[2][cc]),
+          hp[0][cc], hp[1][cc], hp[2][cc]);
+      if (t < len[cc]) h[cc] = h_new;
+      const bf16 hb = __float2bfloat16_rn(h[cc]);
+      const int c = c0 + cc;
+      if (QUANT) {
+        int q = __float2int_rn(__fmul_rn(h[cc], 127.0f));
+        q = max(-128, min(127, q));
+        act_n[c * H + j] = static_cast<unsigned char>(static_cast<int8_t>(q));
+      } else {
+        reinterpret_cast<bf16*>(act_n)[c * H + j] = hb;
+      }
+      const int b = b0 + c;
+      if (b < B) out[(static_cast<size_t>(t) * B + b) * a.ld_out + j] = hb;
+    }
+    if (i + 1 < T) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) x_cur[g][cc] = x_next[g][cc];
+    }
+    __syncthreads();
+  }
+}
+
+template <int CPT, bool W_SMEM, int NUM>
+cudaError_t launch_rec(const RecArgs& a, cudaStream_t stream) {
+  const int BT = CPT * a.NQ;
+  const size_t smem = rec_smem_bytes(NUM, W_SMEM, BT, a.H);
+  auto kern = gru_rec_kernel<CPT, W_SMEM, NUM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.B + BT - 1) / BT, a.dirs);
+  kern<<<grid, a.H * a.NQ, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool W_SMEM, int NUM>
+cudaError_t dispatch_rec_cpt(int cpt, const RecArgs& a, cudaStream_t s) {
+  switch (cpt) {
+    case 1: return launch_rec<1, W_SMEM, NUM>(a, s);
+    case 2: return launch_rec<2, W_SMEM, NUM>(a, s);
+    case 4: return launch_rec<4, W_SMEM, NUM>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the recurrence in mode NUM over a tile of cpt * a.NQ columns, W_hh in
+// shared memory (w_smem) or read from L2
+template <int NUM>
+cudaError_t dispatch_rec(int cpt, int w_smem, const RecArgs& a,
+                         cudaStream_t s) {
+  if (a.T < 1 || a.B < 1 || a.dirs < 1 || a.dirs > 2 || bad_shape(a.H, a.NQ))
+    return cudaErrorInvalidValue;
+  return w_smem ? dispatch_rec_cpt<true, NUM>(cpt, a, s)
+                : dispatch_rec_cpt<false, NUM>(cpt, a, s);
+}
+
+}  // namespace

@@ -3,7 +3,8 @@
 // through a plain C interface.
 //
 // gru_fwd  replaces medaka_tpu/ops/pallas_gru.py _gru_kernel (called by
-//          gru_pallas).
+//          gru_pallas): gru_rec.cuh's recurrence (shared with
+//          gru_fullfused.cu), one direction a launch, f32 gates.
 // gru_bwd  replaces medaka_tpu/ops/pallas_gru.py _gru_bwd_kernel (called
 //          by gru_bwd_pallas): three kernels launched in order on one
 //          stream, gru_bwd_kernel (the recurrence), then rnn_dw_kernel
@@ -81,132 +82,14 @@
 // re-reading W_hh from L2 every step bound both. Tensor-core mma for the
 // per-step products and W_hh resident in a cluster's shared memory are
 // later work.
-#include "rnn_train.cuh"
+#include "gru_rec.cuh"
 
 namespace {
 
-// bytes of one direction's bf16 W_hh (3H x H)
-__host__ __device__ __forceinline__ size_t w_bytes(int H) {
-  return static_cast<size_t>(6) * H * H;
-}
-
-size_t fwd_smem_bytes(bool w_smem, int BT, int H) {
-  return (w_smem ? align16(w_bytes(H)) : 0) +
-         align16(2 * static_cast<size_t>(BT) * H * sizeof(bf16));
-}
-
 size_t bwd_smem_bytes(bool w_smem, int BT, int H) {
-  return (w_smem ? 2 * align16(w_bytes(H)) : 0) +
+  return (w_smem ? 2 * align16(rec_w_bytes(NUM_F32, H)) : 0) +
          align16(2 * static_cast<size_t>(BT) * H * sizeof(bf16)) +
          align16(static_cast<size_t>(BT) * 3 * H * sizeof(bf16));
-}
-
-// ---------------------------------------------------------------------------
-// forward: grid (ceil(B / BT)), block H * NQ threads
-// ---------------------------------------------------------------------------
-
-template <int CPT, bool W_SMEM>
-__global__ void __launch_bounds__(512)
-    gru_fwd_kernel(const bf16* __restrict__ xp,
-                   const uint4* __restrict__ w_rows,
-                   const float* __restrict__ b_hh,
-                   const int* __restrict__ lengths, bf16* __restrict__ out,
-                   int T, int B, int H, int NQ, int reverse) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int BT = CPT * NQ;
-  const int b0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int j = tid % H;
-  const int c0 = (tid / H) * CPT;
-  const int H3 = 3 * H;
-  const int kchunks = H / 8;  // 16-byte chunks of 8 bf16 per row
-
-  unsigned char* p = smem;
-  uint4* w_s = reinterpret_cast<uint4*>(p);
-  if (W_SMEM) p += align16(w_bytes(H));
-  bf16* act_s = reinterpret_cast<bf16*>(p);  // [2][BT][H]
-
-  if (W_SMEM) {
-    for (int i = tid; i < kchunks * H3; i += blockDim.x) w_s[i] = w_rows[i];
-  }
-  const uint4* wmat = W_SMEM ? w_s : w_rows;
-  for (int i = tid; i < 2 * BT * H; i += blockDim.x)
-    act_s[i] = __float2bfloat16_rn(0.0f);
-
-  float bh[3];
-#pragma unroll
-  for (int g = 0; g < 3; ++g) bh[g] = b_hh[g * H + j];
-  int len[CPT];
-  float h[CPT];
-#pragma unroll
-  for (int cc = 0; cc < CPT; ++cc) {
-    const int b = b0 + c0 + cc;
-    len[cc] = b < B ? lengths[b] : 0;
-    h[cc] = 0.0f;
-  }
-
-  // this thread's projections of step tt: x_proj[tt, b, g*H + j]
-  auto load_x = [&](int tt, bf16 (&dst)[3][CPT]) {
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int b = b0 + c0 + cc;
-      const size_t row = (static_cast<size_t>(tt) * B + b) * H3 + j;
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-        dst[g][cc] = b < B ? xp[row + g * H] : __float2bfloat16_rn(0.0f);
-    }
-  };
-  bf16 x_cur[3][CPT], x_next[3][CPT];
-  load_x(reverse ? T - 1 : 0, x_cur);
-  __syncthreads();
-
-  for (int i = 0; i < T; ++i) {
-    const int cur = i & 1;
-    const int t = reverse ? T - 1 - i : i;
-    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1, x_next);
-
-    // recurrent product bf16(h) . W_hh^T, f32 accumulation
-    float acc[3][CPT] = {};
-    const uint4* act = reinterpret_cast<const uint4*>(act_s + cur * BT * H);
-    for (int kc = 0; kc < kchunks; ++kc) {
-      uint4 w[3];
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-        w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const uint4 a = act[(c0 + cc) * kchunks + kc];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) acc[g][cc] = dot8_bf16(w[g], a, acc[g][cc]);
-      }
-    }
-
-    bf16* act_n = act_s + (cur ^ 1) * BT * H;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const float hr = __fadd_rn(acc[0][cc], bh[0]);
-      const float hz = __fadd_rn(acc[1][cc], bh[1]);
-      const float hn = __fadd_rn(acc[2][cc], bh[2]);
-      const float r = sigmoid_f(__fadd_rn(__bfloat162float(x_cur[0][cc]), hr));
-      const float z = sigmoid_f(__fadd_rn(__bfloat162float(x_cur[1][cc]), hz));
-      const float n = tanhf(
-          __fadd_rn(__bfloat162float(x_cur[2][cc]), __fmul_rn(r, hn)));
-      const float h_new = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n),
-                                    __fmul_rn(z, h[cc]));
-      if (t < len[cc]) h[cc] = h_new;
-      const bf16 hb = __float2bfloat16_rn(h[cc]);
-      act_n[(c0 + cc) * H + j] = hb;
-      const int b = b0 + c0 + cc;
-      if (b < B) out[(static_cast<size_t>(t) * B + b) * H + j] = hb;
-    }
-    if (i + 1 < T) {
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) x_cur[g][cc] = x_next[g][cc];
-    }
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -237,9 +120,9 @@ __global__ void __launch_bounds__(512)
 
   unsigned char* p = smem;
   uint4* wr_s = reinterpret_cast<uint4*>(p);
-  if (W_SMEM) p += align16(w_bytes(H));
+  if (W_SMEM) p += align16(rec_w_bytes(NUM_F32, H));
   uint4* wc_s = reinterpret_cast<uint4*>(p);
-  if (W_SMEM) p += align16(w_bytes(H));
+  if (W_SMEM) p += align16(rec_w_bytes(NUM_F32, H));
   bf16* hbuf = reinterpret_cast<bf16*>(p);  // [2][BT][H] bf16 h_prev
   p += align16(2 * static_cast<size_t>(BT) * H * sizeof(bf16));
   bf16* dhp_s = reinterpret_cast<bf16*>(p);  // [BT][3H] bf16(dhp)
@@ -408,22 +291,6 @@ __global__ void __launch_bounds__(512)
 // ---------------------------------------------------------------------------
 
 template <int CPT, bool W_SMEM>
-cudaError_t launch_fwd(const void* xp, const void* w_rows, const float* b_hh,
-                       const int* lengths, void* out, int T, int B, int H,
-                       int NQ, int reverse, cudaStream_t stream) {
-  const int BT = CPT * NQ;
-  const size_t smem = fwd_smem_bytes(W_SMEM, BT, H);
-  auto kern = gru_fwd_kernel<CPT, W_SMEM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kern<<<(B + BT - 1) / BT, H * NQ, smem, stream>>>(
-      static_cast<const bf16*>(xp), static_cast<const uint4*>(w_rows), b_hh,
-      lengths, static_cast<bf16*>(out), T, B, H, NQ, reverse);
-  return cudaGetLastError();
-}
-
-template <int CPT, bool W_SMEM>
 cudaError_t launch_bwd(const void* xp, const void* h_out, const float* dh_out,
                        const void* w_rows, const void* w_cols,
                        const float* b_hh, const int* lengths, float* dxp,
@@ -444,16 +311,6 @@ cudaError_t launch_bwd(const void* xp, const void* h_out, const float* dh_out,
 }
 
 template <bool W_SMEM, typename... Args>
-cudaError_t dispatch_fwd(int cpt, Args... args) {
-  switch (cpt) {
-    case 1: return launch_fwd<1, W_SMEM>(args...);
-    case 2: return launch_fwd<2, W_SMEM>(args...);
-    case 4: return launch_fwd<4, W_SMEM>(args...);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <bool W_SMEM, typename... Args>
 cudaError_t dispatch_bwd(int cpt, Args... args) {
   switch (cpt) {
     case 1: return launch_bwd<1, W_SMEM>(args...);
@@ -468,7 +325,7 @@ cudaError_t dispatch_bwd(int cpt, Args... args) {
 extern "C" {
 
 size_t gru_fwd_smem(int w_smem, int bt, int hidden) {
-  return fwd_smem_bytes(w_smem != 0, bt, hidden);
+  return rec_smem_bytes(NUM_F32, w_smem != 0, bt, hidden);
 }
 
 size_t gru_bwd_smem(int w_smem, int bt, int hidden) {
@@ -478,14 +335,21 @@ size_t gru_bwd_smem(int w_smem, int bt, int hidden) {
 int gru_fwd_launch(const void* xp, const void* w_rows, const float* b_hh,
                    const int* lengths, void* out, int T, int B, int H,
                    int cpt, int nq, int w_smem, int reverse, void* stream) {
-  if (bad_shape(H, nq)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      w_smem ? dispatch_fwd<true>(cpt, xp, w_rows, b_hh, lengths, out, T, B,
-                                  H, nq, reverse, s)
-             : dispatch_fwd<false>(cpt, xp, w_rows, b_hh, lengths, out, T, B,
-                                   H, nq, reverse, s);
-  return static_cast<int>(e);
+  RecArgs a{};
+  a.xp[0] = static_cast<const bf16*>(xp);
+  a.w_hh[0] = static_cast<const uint4*>(w_rows);
+  a.b_hh[0] = b_hh;
+  a.out[0] = static_cast<bf16*>(out);
+  a.reverse[0] = reverse;
+  a.lengths = lengths;
+  a.ld_out = H;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.NQ = nq;
+  a.dirs = 1;
+  return static_cast<int>(dispatch_rec<NUM_F32>(
+      cpt, w_smem, a, static_cast<cudaStream_t>(stream)));
 }
 
 // the recurrence, the dW partial tiles and the fixed-order sums, in order

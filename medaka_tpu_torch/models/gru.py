@@ -7,14 +7,18 @@ mirror the JAX parameter pytree (``gru.<layer>.<fwd|bwd>.<w_ih|...>``,
 ``linear.weight``/``linear.bias``); :func:`params_from_jax` and
 :func:`params_to_jax` carry them across.
 
-Routing mirrors ``GRUModel.apply``: bf16 inference of a 2-layer
-bidirectional stack goes through the split-path kernels on the GPU (by
-default) where JAX takes them (batch >= 32, hidden a multiple of 128;
-:func:`takes_split_path`), and through their plain versions on the CPU
-when ``fused=True``, at any batch, as JAX's ``interpret=True`` does.
-Training (``training=True``) with ``fused`` goes through the trainable
-kernel pair of :mod:`medaka_tpu_torch.ops.gru_train` (plain versions on
-the CPU). Everything else runs the masked scan of
+Routing mirrors ``GRUModel.apply`` branch by branch (:func:`fused_route`):
+fused bf16 inference of a 2-layer bidirectional stack goes through the
+split-path kernels on the GPU (by default) where JAX takes them (batch >=
+32, hidden a multiple of 128; :func:`takes_split_path`), and through their
+plain versions on the CPU at any batch, as JAX's ``interpret=True`` does.
+Every other fused bidirectional inference runs the fullfused kernels
+(:func:`medaka_tpu_torch.ops.gru_fullfused.bigru_stack_fullfused`, in the
+mode ``recurrent_quant`` selects), and a fused unidirectional stack runs
+``bigru_stack_fused`` (``gru_fwd``); both end in the f32 head. Training
+(``training=True``) with ``fused`` goes through the trainable kernel pair
+of :mod:`medaka_tpu_torch.ops.gru_train`. The CPU runs every kernel's
+plain version. Everything else runs the masked scan of
 :mod:`medaka_tpu_torch.ops.rnn`, under autograd when training.
 """
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 from torch import nn
 
 from medaka_tpu_torch.models import register_model
+from medaka_tpu_torch.ops.gru_fullfused import QUANT_MODES, \
+    bigru_stack_fullfused, bigru_stack_fused
 from medaka_tpu_torch.ops.gru_split import bigru_head_fullfused
 from medaka_tpu_torch.ops.gru_train import bigru_stack_trainable
 from medaka_tpu_torch.ops.rnn import bigru_stack
@@ -110,6 +116,29 @@ def takes_split_path(batch: int, hidden: int, on_cpu: bool) -> bool:
                       and hidden % SPLIT_HIDDEN_MULTIPLE == 0)
 
 
+def fused_route(batch: int, hidden: int, n_layers: int, bidirectional: bool,
+                recurrent_quant: Optional[str], device,
+                compute_dtype=torch.bfloat16) -> str:
+    """Which kernels fused inference runs, as ``GRUModel.apply`` decides
+    (``medaka_tpu/models/gru.py:162-196``).
+
+    :returns: "split" (``bigru_head_fullfused``: a 2-layer bidirectional
+        bf16 stack with ``recurrent_quant`` None, "int8" or "none" that
+        :func:`takes_split_path`), "fullfused" (any other bidirectional
+        stack: ``bigru_stack_fullfused``) or "fused" (a unidirectional
+        stack: ``bigru_stack_fused``). The last two end in the f32 head.
+    """
+    if recurrent_quant not in QUANT_MODES:
+        raise ValueError("unknown recurrent_quant {!r}".format(
+            recurrent_quant))
+    on_cpu = torch.device(device).type != "cuda"
+    if (bidirectional and n_layers == 2 and compute_dtype == torch.bfloat16
+            and recurrent_quant in (None, "int8", "none")
+            and takes_split_path(batch, hidden, on_cpu)):
+        return "split"
+    return "fullfused" if bidirectional else "fused"
+
+
 @register_model
 class GRUModel(nn.Module):
     """biGRU consensus network; weights as an ``nn.Module``."""
@@ -182,8 +211,11 @@ class GRUModel(nn.Module):
         :param fused: use the kernels. Default: on for bf16 on the GPU,
             off on the CPU (where ``fused=True`` runs the kernels' plain
             versions).
-        :param recurrent_quant: None/"int8" (int8 split path) or "none"
-            (bf16 split path); inference only.
+        :param recurrent_quant: inference only. None/"int8" (int8 split
+            path) or "none" (bf16 split path); off the split path None and
+            "none" run the f32-gates fullfused kernel, "int8" the int8
+            one, "bf16_gates" and "staggered" their fullfused modes (see
+            :func:`fused_route`).
         :param training: differentiable route: with ``fused`` the
             trainable kernel pair (bf16 even when ``compute_dtype`` is
             None, as in JAX), else the scan under autograd.
@@ -191,33 +223,35 @@ class GRUModel(nn.Module):
         """
         if fused is None:
             fused = compute_dtype == torch.bfloat16 and x.is_cuda
-        if fused and training:
-            feats = bigru_stack_trainable(
-                self.layer_params(), x, lengths=lengths,
-                compute_dtype=compute_dtype,
-                bidirectional=self.bidirectional)
-            logits = (feats.float() @ self.linear.weight.float().t()
-                      + self.linear.bias.float())
-        elif fused:
-            if not (self.bidirectional and self.n_layers == 2
-                    and compute_dtype == torch.bfloat16
-                    and recurrent_quant in (None, "int8", "none")
-                    and takes_split_path(x.shape[0], self.gru_size,
-                                         not x.is_cuda)):
-                raise NotImplementedError(
-                    "Only the split-path kernels (2-layer bidirectional, "
-                    "bf16, batch >= 32 and hidden a multiple of 128 on the "
-                    "GPU) are ported; the fused kernels JAX runs for this "
-                    "configuration (pallas_gru.bigru_pallas_fullfused and "
-                    "bigru_pallas_fullfused_int8) are not ported yet.")
+        route = None
+        if fused and not training:
+            route = fused_route(x.shape[0], self.gru_size, self.n_layers,
+                                self.bidirectional, recurrent_quant,
+                                "cuda" if x.is_cuda else "cpu",
+                                compute_dtype)
+        if route == "split":
             logits = bigru_head_fullfused(
                 self.layer_params(), self.head_params(), x,
                 lengths=lengths, quant=recurrent_quant != "none",
                 device=x.device)
         else:
-            feats = bigru_stack(
-                self.layer_params(), x, bidirectional=self.bidirectional,
-                compute_dtype=compute_dtype, lengths=lengths)
+            if fused and training:
+                feats = bigru_stack_trainable(
+                    self.layer_params(), x, lengths=lengths,
+                    compute_dtype=compute_dtype,
+                    bidirectional=self.bidirectional)
+            elif route == "fullfused":
+                feats = bigru_stack_fullfused(
+                    self.layer_params(), x, lengths=lengths,
+                    recurrent_quant=recurrent_quant, device=x.device)
+            elif route == "fused":
+                feats = bigru_stack_fused(
+                    self.layer_params(), x, bidirectional=False,
+                    lengths=lengths, device=x.device)
+            else:
+                feats = bigru_stack(
+                    self.layer_params(), x, bidirectional=self.bidirectional,
+                    compute_dtype=compute_dtype, lengths=lengths)
             logits = (feats.float() @ self.linear.weight.float().t()
                       + self.linear.bias.float())
         if normalise:

@@ -1,8 +1,10 @@
-"""Inference engine: BAM -> features -> device batches -> probability HDF5.
+"""Inference engine: BAM -> features -> device batches -> probability HDF5,
+or straight to a consensus FASTA/FASTQ (the direct route).
 
 Counterpart of ``medaka_tpu/prediction.py`` (``Batch.collate``,
 ``DataLoader``, ``Predictor``, ``auto_batch_size``, ``run_prediction``,
-``plan_work``, ``predict``) for the counts and read-level models:
+``run_prediction_direct``, ``plan_work``, ``predict``,
+``predict_direct``) for the counts and read-level models:
 
 - One static batch shape: every chunk rides in a (B, chunk_len, F)
   batch, or (B, chunk_len, R, C) for read-level features with R the
@@ -16,9 +18,12 @@ Counterpart of ``medaka_tpu/prediction.py`` (``Batch.collate``,
 - On the GPU, float batches travel as bf16 and int8 read-level batches
   as int8 (widened on the device); outputs come back as f16
   log-probabilities (``exp`` on the host). On the CPU, float32.
+- The direct route decodes on the device (argmax class and best value,
+  after the f16 rounding, so the decode equals the HDF5 route's) and
+  streams the decoded samples into ``stitch.DirectStitcher``.
 
-Feature worker processes, sharded output files, the direct-decode route
-and multi-device sharding are not ported yet.
+Feature worker processes, sharded output files and multi-device sharding
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from medaka_tpu_torch import common
 from medaka_tpu_torch import datastore as datastore_mod
 from medaka_tpu_torch import features as features_mod
 from medaka_tpu_torch.common import Region, Sample, resolve_device
+from medaka_tpu_torch.models.gru import SPLIT_HIDDEN_MULTIPLE
 
 
 @dataclasses.dataclass
@@ -112,8 +118,15 @@ class DataLoader:
     def __init__(self, bam, regions: Iterable[Region], feature_encoder,
                  batch_size: int = 128, chunk_len: int = 10000,
                  chunk_overlap: int = 1000, bam_workers: int = 2,
-                 sample_cache_size: int = 8, batch_cache_size: int = 8):
-        """Start the worker and batcher threads."""
+                 sample_cache_size: int = 8, batch_cache_size: int = 8,
+                 emit_region_events: bool = False):
+        """Start the worker and batcher threads.
+
+        ``emit_region_events=True`` makes iteration also yield
+        ``("rdone", region_index)`` markers behind the last batch that can
+        hold a region's samples (``medaka_tpu/prediction.py:162-175``); the
+        direct route flushes stitch windows on them.
+        """
         self.logger = common.get_named_logger("DataLoader")
         self.bam = bam
         self.fencoder = feature_encoder
@@ -121,12 +134,13 @@ class DataLoader:
         self.batch_size = batch_size
         self.chunk_len = chunk_len
         self.chunk_overlap = chunk_overlap
+        self.emit_region_events = emit_region_events
         self._sample_q: "queue.Queue" = queue.Queue(
             maxsize=sample_cache_size * batch_size)
         self._batch_q: "queue.Queue" = queue.Queue(maxsize=batch_cache_size)
         self._region_q: "queue.Queue" = queue.Queue()
-        for region in regions:
-            self._region_q.put(region)
+        for rid, region in enumerate(regions):
+            self._region_q.put((rid, region))
         self._errors: List[BaseException] = []
         self.n_samples = 0
         self.remainder_regions: List[Region] = []
@@ -145,7 +159,7 @@ class DataLoader:
         try:
             while True:
                 try:
-                    region = self._region_q.get_nowait()
+                    rid, region = self._region_q.get_nowait()
                 except queue.Empty:
                     break
                 gen = features_mod.SampleGenerator(
@@ -153,7 +167,7 @@ class DataLoader:
                     chunk_len=self.chunk_len,
                     chunk_overlap=self.chunk_overlap)
                 for sample in gen.samples:
-                    self._sample_q.put(sample)
+                    self._sample_q.put((rid, sample))
                 # short regions were quarantined: featurize unchunked
                 for qregion, _size in gen._quarantined:
                     self.remainder_regions.append(qregion)
@@ -161,7 +175,8 @@ class DataLoader:
                         self.bam, qregion, self.fencoder,
                         enable_chunking=False)
                     for sample in sub.samples:
-                        self._sample_q.put(sample)
+                        self._sample_q.put((rid, sample))
+                self._sample_q.put(("rdone", rid))
         except BaseException as e:  # pragma: no cover - surfaced on join
             self.logger.exception("Featurization worker failed.")
             self._errors.append(e)
@@ -171,29 +186,50 @@ class DataLoader:
     def _batch_worker(self):
         done_workers = 0
         pending: List[Sample] = []
+        pending_rids: List[int] = []
+        held_events: List[int] = []
 
-        def add(sample):
-            nonlocal pending
+        def add(rid, sample):
+            nonlocal pending, pending_rids
             pending.append(sample)
+            pending_rids.append(rid)
             if len(pending) == self.batch_size:
                 self._emit(pending)
-                pending = []
+                pending, pending_rids = [], []
+                flush_events()
+
+        def flush_events():
+            if self.emit_region_events:
+                for done_rid in held_events:
+                    self._batch_q.put(("rdone", done_rid))
+            held_events.clear()
 
         try:
             while done_workers < len(self._workers):
-                sample = self._sample_q.get()
-                if sample is None:
+                item = self._sample_q.get()
+                if item is None:
                     done_workers += 1
-                elif sample.size > self.chunk_len:
+                    continue
+                rid, payload = item
+                if rid == "rdone":
+                    # forwarded once no pending sample belongs to the
+                    # finished region, else held until the batch holding
+                    # those samples is emitted
+                    if payload in pending_rids:
+                        held_events.append(payload)
+                    elif self.emit_region_events:
+                        self._batch_q.put(("rdone", payload))
+                elif payload.size > self.chunk_len:
                     # unchunked sample wider than the static shape: split
-                    for piece in sample.chunks(
+                    for piece in payload.chunks(
                             chunk_len=self.chunk_len,
                             overlap=self.chunk_overlap):
-                        add(piece)
+                        add(rid, piece)
                 else:
-                    add(sample)
+                    add(rid, payload)
             if pending:
                 self._emit(pending)
+            flush_events()
         except BaseException as e:  # pragma: no cover
             self.logger.exception("Batcher failed.")
             self._errors.append(e)
@@ -241,12 +277,24 @@ class Predictor:
                                 and self.device.type == "cuda")
         self.compact_transfer = compact_transfer
 
-    def dispatch(self, batch: Batch) -> torch.Tensor:
+    def dispatch(self, batch: Batch, decode: bool = False):
         """Launch a batch; returns the device tensor of its outputs.
 
         Launches are asynchronous on the GPU, so the caller can featurise
-        and write the previous batch while this one runs.
+        and write the previous batch while this one runs. ``decode=True``
+        also reduces the outputs on the device to (argmax class uint8,
+        best value) per column, after the f16 rounding of compact
+        transfer, so the decode equals the one of the fetched
+        probabilities (``medaka_tpu/prediction.py:395-404``); fetch that
+        handle with :meth:`fetch_decoded`.
         """
+        out = self._forward(batch)
+        if decode:
+            with torch.inference_mode():
+                return out.argmax(-1).to(torch.uint8), out.amax(-1)
+        return out
+
+    def _forward(self, batch: Batch) -> torch.Tensor:
         feats = torch.from_numpy(batch.features)
         floating = feats.is_floating_point()
         if self.compact_transfer and floating:
@@ -271,6 +319,23 @@ class Predictor:
             out = np.exp(out)
         return out
 
+    def fetch_decoded(self, handle, n_valid: int, phred_fn):
+        """Block on a ``dispatch(decode=True)`` handle.
+
+        :param phred_fn: error probability -> phred (the label scheme's
+            ``_phred``), run on the host in the numpy arithmetic of the
+            HDF5 route's ``decode_consensus``, so the quality characters
+            are the same bytes.
+        :returns: (classes uint8 (n_valid, T), quality chars uint8).
+        """
+        classes, best = handle
+        classes = classes[:n_valid].cpu().numpy()
+        best = best[:n_valid].cpu().numpy().astype(np.float32)
+        if self.compact_transfer:
+            best = np.exp(best)
+        return classes, phred_fn(1.0 - best).astype("u1") + 33
+
+
 #: largest automatic batch on the GPU: the split kernels' grid at B=512
 #: is 128 blocks (8 columns x 2 directions each), one per SM of an H100
 #: (132 SMs); a larger batch widens every block's tile, so each of the
@@ -278,6 +343,8 @@ class Predictor:
 AUTO_BATCH_CAP = 512
 
 
+#: smallest automatic batch off the split path (as in medaka_tpu)
+OFF_SPLIT_MIN_BATCH = 32
 #: largest automatic batch of read-level models (as in medaka_tpu)
 READS_BATCH_CAP = 128
 #: read-level activations of (chunk_len, max_reads, cnn_size) per batch
@@ -300,6 +367,13 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
     device memory (``torch.cuda.mem_get_info``) is budgeted, rounded down
     to a multiple of 64 and capped at :data:`AUTO_BATCH_CAP`.
 
+    Models off the split path (not 2 layers, unidirectional, or H not a
+    multiple of 128; ``medaka_tpu/prediction.py:526-534``) run the
+    fullfused (or fused) stack, which holds per row the bf16 features,
+    two live (T, n_dirs H) bf16 inter-layer buffers, the (n_dirs, T, 3H)
+    bf16 projection scratch and the (T, C) f32 logits; the same budget,
+    never below :data:`OFF_SPLIT_MIN_BATCH`.
+
     Read-level models hold per row chunk_len x ``max_reads`` x cnn_size
     activations of 2 bytes (4 in full precision), times
     :data:`READS_LIVE_ACTIVATIONS`; the batch is the budget over that, at
@@ -317,12 +391,99 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
     hidden = getattr(model, "gru_size", 256)
     classes = getattr(model, "num_classes", 5)
     width = getattr(model, "num_features", 10)
+    bidirectional = getattr(model, "bidirectional", True)
+    split = (bidirectional and getattr(model, "n_layers", 2) == 2
+             and hidden % SPLIT_HIDDEN_MULTIPLE == 0)
+    smallest = 64
     if full_precision:
         per_row = chunk_len * 4 * (width + 3 * hidden + 4 * hidden)
-    else:
+    elif split:
         per_row = chunk_len * (2 * width + 2 * hidden + 2 * classes * 4)
+    else:
+        dirs = 2 if bidirectional else 1
+        per_row = chunk_len * (2 * width + 2 * dirs * hidden * 2
+                               + dirs * 3 * hidden * 2 + classes * 4)
+        smallest = OFF_SPLIT_MIN_BATCH
     batch = (free_bytes // 2 // per_row) // 64 * 64
-    return int(max(64, min(AUTO_BATCH_CAP, batch)))
+    return int(max(smallest, min(AUTO_BATCH_CAP, batch)))
+
+
+def _stream_batches(
+        bam, regions: Sequence[Region], model, feature_encoder, write_batch,
+        region_done=None, batch_size: Optional[int] = None,
+        chunk_len: int = 10000, chunk_overlap: int = 1000,
+        bam_workers: int = 2, full_precision: bool = False, device=None):
+    """Run every batch of ``regions`` through ``model``, two in flight.
+
+    Each batch goes, in order, to ``write_batch(predictor, batch,
+    handle)``. With ``region_done`` the batches are dispatched with
+    ``decode=True`` and each work region's index goes to
+    ``region_done(rid)`` once every batch holding its samples is written.
+
+    :returns: (n_samples, n_columns) processed.
+    """
+    logger = common.get_named_logger("PWorker")
+    device = resolve_device(device)
+    compute_dtype = None if full_precision else torch.bfloat16
+    if batch_size is None:
+        batch_size = auto_batch_size(
+            model, device, chunk_len=chunk_len,
+            full_precision=full_precision,
+            max_reads=getattr(feature_encoder, "max_reads", 100))
+        logger.info("Auto batch size: %d.", batch_size)
+    predictor = Predictor(model, compute_dtype=compute_dtype, device=device)
+    decode = region_done is not None
+    loader = DataLoader(
+        bam, regions, feature_encoder, batch_size=batch_size,
+        chunk_len=chunk_len, chunk_overlap=chunk_overlap,
+        bam_workers=bam_workers, emit_region_events=decode)
+
+    total_region_mbases = sum(r.size for r in regions) / 1e6
+    t0 = now()
+    tlast = t0
+    n_columns = 0
+
+    def drain(item):
+        nonlocal n_columns, tlast
+        if not isinstance(item[0], Batch):  # ("rdone", rid)
+            region_done(item[1])
+            return
+        write_batch(predictor, *item)
+        n_columns += sum(sample.size for sample in item[0].samples)
+        t1 = now()
+        if t1 - tlast > 10:
+            tlast = t1
+            logger.info(
+                "%.1f%% Done (~%.2f Mbases) in %.1fs",
+                100 * min(1.0, n_columns / 1e6 / max(
+                    1e-9, total_region_mbases)),
+                n_columns / 1e6, t1 - t0)
+
+    # two batches in flight: device work overlaps featurisation and
+    # output writes without holding more than two batches of outputs;
+    # region events wait in order behind the batches before them
+    max_in_flight = 2
+    pending = collections.deque()
+    in_flight = 0
+    for item in loader:
+        if not isinstance(item, Batch):
+            pending.append(item)
+            continue
+        pending.append((item, predictor.dispatch(item, decode=decode)))
+        in_flight += 1
+        while in_flight > max_in_flight:
+            head = pending.popleft()
+            in_flight -= isinstance(head[0], Batch)
+            drain(head)
+    while pending:
+        drain(pending.popleft())
+
+    t1 = now()
+    logger.info(
+        "Processed %d samples (%d columns) in %.2fs (%.0f columns/s).",
+        loader.n_samples, n_columns, t1 - t0,
+        n_columns / max(1e-9, t1 - t0))
+    return loader.n_samples, n_columns
 
 
 def run_prediction(
@@ -337,25 +498,6 @@ def run_prediction(
     :param batch_size: rows per device batch (None: :func:`auto_batch_size`).
     :returns: (n_samples, n_columns) processed.
     """
-    logger = common.get_named_logger("PWorker")
-    device = resolve_device(device)
-    compute_dtype = None if full_precision else torch.bfloat16
-    if batch_size is None:
-        batch_size = auto_batch_size(
-            model, device, chunk_len=chunk_len,
-            full_precision=full_precision,
-            max_reads=getattr(feature_encoder, "max_reads", 100))
-        logger.info("Auto batch size: %d.", batch_size)
-    predictor = Predictor(model, compute_dtype=compute_dtype, device=device)
-    loader = DataLoader(
-        bam, regions, feature_encoder, batch_size=batch_size,
-        chunk_len=chunk_len, chunk_overlap=chunk_overlap,
-        bam_workers=bam_workers)
-
-    total_region_mbases = sum(r.size for r in regions) / 1e6
-    t0 = now()
-    tlast = t0
-    n_columns = 0
     with datastore_mod.DataStore(output, "a") as ds:
         if feature_encoder is not None:
             ds.set_meta(feature_encoder, "feature_encoder")
@@ -363,42 +505,88 @@ def run_prediction(
             ds.set_meta(label_scheme, "label_scheme")
         ds.set_meta(model.to_dict(), "model_function")
 
-        def drain(pending_batch, handle):
-            nonlocal n_columns, tlast
-            probs = predictor.fetch(handle, pending_batch.n_valid)
-            for i, sample in enumerate(pending_batch.samples):
-                n = sample.size
-                n_columns += n
+        def write_batch(predictor, batch, handle):
+            probs = predictor.fetch(handle, batch.n_valid)
+            for i, sample in enumerate(batch.samples):
                 ds.write_sample(sample.amend(
                     features=sample.features if save_features else None,
-                    label_probs=probs[i, :n]))
-            t1 = now()
-            if t1 - tlast > 10:
-                tlast = t1
-                logger.info(
-                    "%.1f%% Done (~%.2f Mbases) in %.1fs",
-                    100 * min(1.0, n_columns / 1e6 / max(
-                        1e-9, total_region_mbases)),
-                    n_columns / 1e6, t1 - t0)
+                    label_probs=probs[i, :sample.size]))
 
-        # two batches in flight: device work overlaps featurisation and
-        # HDF5 writes without holding more than two batches of outputs
-        max_in_flight = 2
-        pending = collections.deque()
-        for batch in loader:
-            pending.append((batch, predictor.dispatch(batch)))
-            if len(pending) > max_in_flight:
-                drain(*pending.popleft())
-        while pending:
-            drain(*pending.popleft())
+        counts = _stream_batches(
+            bam, regions, model, feature_encoder, write_batch,
+            batch_size=batch_size, chunk_len=chunk_len,
+            chunk_overlap=chunk_overlap, bam_workers=bam_workers,
+            full_precision=full_precision, device=device)
         ds.write_registry()
+    return counts
 
-    t1 = now()
-    logger.info(
-        "Processed %d samples (%d columns) in %.2fs (%.0f columns/s).",
-        loader.n_samples, n_columns, t1 - t0,
-        n_columns / max(1e-9, t1 - t0))
-    return loader.n_samples, n_columns
+
+def _check_direct_scheme(label_scheme):
+    """Refuse label schemes whose decode is not a plain argmax (commit
+    8687591 of medaka_tpu, ``prediction.py:663-677``)."""
+    from medaka_tpu_torch.labels import HaploidLabelScheme
+    if label_scheme is None:
+        raise ValueError(
+            "The direct consensus route needs the model bundle's label "
+            "scheme (argmax classes are decoded to its symbols).")
+    if getattr(type(label_scheme), "decode_consensus", None) is not \
+            HaploidLabelScheme.decode_consensus:
+        # RLE expands (base, run) classes and diploid has 15 classes:
+        # neither is a plain symbols[argmax] decode, so one class byte and
+        # one quality byte a column cannot represent them
+        raise ValueError(
+            "The direct route supports plain haploid consensus decoding "
+            "only; {} overrides decode_consensus. Use the HDF5 route "
+            "(inference + sequence) for this model.".format(
+                type(label_scheme).__name__))
+
+
+def run_prediction_direct(
+        output_fastx: str, bam, regions: Sequence[Region], model,
+        feature_encoder, label_scheme, draft_path: str,
+        batch_size: Optional[int] = None, chunk_len: int = 10000,
+        chunk_overlap: int = 1000, bam_workers: int = 2,
+        full_precision: bool = False, min_depth: int = 0,
+        fillgaps: bool = True, fill_char: Optional[str] = None,
+        qualities: bool = False, device=None):
+    """Consensus without a probability file: argmax + quality on the device.
+
+    Counterpart of ``medaka_tpu/prediction.py:run_prediction_direct``. The
+    device reduces each column to its argmax class and best value, the
+    host fetches those and streams decoded samples into
+    :class:`stitch.DirectStitcher`; no probability file is written or
+    read. The output is byte-identical to :func:`run_prediction` +
+    ``stitch.stitch_to_fasta``.
+
+    :returns: (n_samples, n_columns).
+    """
+    from medaka_tpu_torch import stitch as stitch_mod
+
+    _check_direct_scheme(label_scheme)
+    stitcher = stitch_mod.DirectStitcher(
+        draft_path, regions, label_scheme, output_fastx,
+        min_depth=min_depth, fillgaps=fillgaps, fill_char=fill_char,
+        qualities=qualities)
+
+    def write_batch(predictor, batch, handle):
+        classes, quals = predictor.fetch_decoded(
+            handle, batch.n_valid, label_scheme._phred)
+        for i, sample in enumerate(batch.samples):
+            n = sample.size
+            decoded = np.empty((n, 2), dtype=np.uint8)
+            decoded[:, 0] = classes[i, :n]
+            decoded[:, 1] = quals[i, :n]
+            stitcher.add_sample(sample.amend(
+                features=None, labels=None, label_probs=decoded))
+
+    counts = _stream_batches(
+        bam, regions, model, feature_encoder, write_batch,
+        region_done=stitcher.region_done, batch_size=batch_size,
+        chunk_len=chunk_len, chunk_overlap=chunk_overlap,
+        bam_workers=bam_workers, full_precision=full_precision,
+        device=device)
+    stitcher.finish()
+    return counts
 
 
 def plan_work(regions, bam, bam_chunk: int = 1_000_000,
@@ -424,6 +612,22 @@ def plan_work(regions, bam, bam_chunk: int = 1_000_000,
     return work
 
 
+def _resolve_model(model_path, model, feature_encoder, label_scheme):
+    """(model, feature encoder, label scheme) of the bundle at
+    ``model_path`` (an explicit encoder or scheme wins), or as given."""
+    if model_path is not None:
+        from medaka_tpu_torch import models as models_mod
+        bundle = models_mod.open_model(model_path)
+        model = bundle.model
+        feature_encoder = feature_encoder or bundle.feature_encoder
+        label_scheme = label_scheme or bundle.label_scheme
+    if model is None or feature_encoder is None:
+        raise ValueError(
+            "Provide model_path or an explicit model and feature_encoder.")
+    model.check_feature_encoder_compatibility(feature_encoder)
+    return model, feature_encoder, label_scheme
+
+
 def predict(
         bam, output: str, model_path: Optional[str] = None,
         model=None, feature_encoder=None, label_scheme=None,
@@ -446,24 +650,15 @@ def predict(
     """
     logger = common.get_named_logger("Predict")
     device = resolve_device(device)
-    if model_path is not None:
-        from medaka_tpu_torch import models as models_mod
-        bundle = models_mod.open_model(model_path)
-        model = bundle.model
-        feature_encoder = feature_encoder or bundle.feature_encoder
-        label_scheme = label_scheme or bundle.label_scheme
-    if encoder_overrides and feature_encoder is not None:
-        for key, value in encoder_overrides.items():
-            if not hasattr(feature_encoder, key):
-                raise ValueError(
-                    "Feature encoder {} has no filter attribute "
-                    "{!r}.".format(type(feature_encoder).__name__, key))
-            setattr(feature_encoder, key, value)
-            logger.info("Encoder override: %s=%r", key, value)
-    if model is None or feature_encoder is None:
-        raise ValueError(
-            "Provide model_path or an explicit model and feature_encoder.")
-    model.check_feature_encoder_compatibility(feature_encoder)
+    model, feature_encoder, label_scheme = _resolve_model(
+        model_path, model, feature_encoder, label_scheme)
+    for key, value in (encoder_overrides or {}).items():
+        if not hasattr(feature_encoder, key):
+            raise ValueError(
+                "Feature encoder {} has no filter attribute "
+                "{!r}.".format(type(feature_encoder).__name__, key))
+        setattr(feature_encoder, key, value)
+        logger.info("Encoder override: %s=%r", key, value)
     if getattr(model, "input_kind", "counts") == "reads" \
             and chunk_len > 2000:
         logger.warning(
@@ -478,3 +673,36 @@ def predict(
         chunk_len=chunk_len, chunk_overlap=chunk_overlap,
         bam_workers=bam_workers, full_precision=full_precision,
         save_features=save_features, device=device)
+
+
+def predict_direct(
+        bam, output_fastx: str, draft_path: str,
+        model_path: Optional[str] = None, model=None, feature_encoder=None,
+        label_scheme=None, regions: Optional[Sequence[Region]] = None,
+        batch_size: Optional[int] = None, chunk_len: int = 10000,
+        chunk_overlap: int = 1000, bam_workers: int = 2,
+        bam_chunk: int = 1_000_000, full_precision: bool = False,
+        min_depth: int = 0, fillgaps: bool = True,
+        fill_char: Optional[str] = None, qualities: bool = False,
+        device=None):
+    """BAM -> polished FASTA/FASTQ with the decode on the device, no HDF5
+    (counterpart of ``medaka_tpu.prediction.predict_direct``).
+
+    Arguments as :func:`predict` and ``stitch.stitch_to_fasta``.
+
+    :returns: (n_samples, n_columns).
+    """
+    logger = common.get_named_logger("Predict")
+    device = resolve_device(device)
+    model, feature_encoder, label_scheme = _resolve_model(
+        model_path, model, feature_encoder, label_scheme)
+    work = plan_work(regions, bam, bam_chunk, chunk_overlap)
+    logger.info("Processing %d region chunk(s) on %s (direct decode).",
+                len(work), device)
+    return run_prediction_direct(
+        output_fastx, bam, work, model, feature_encoder, label_scheme,
+        draft_path, batch_size=batch_size, chunk_len=chunk_len,
+        chunk_overlap=chunk_overlap, bam_workers=bam_workers,
+        full_precision=full_precision, min_depth=min_depth,
+        fillgaps=fillgaps, fill_char=fill_char, qualities=qualities,
+        device=device)

@@ -1,12 +1,13 @@
 """Stitch chunked network outputs into contiguous consensus sequences.
 
-Counterpart of ``medaka_tpu/stitch.py`` (the ``sequence`` subcommand)
-without the direct-decode stitcher: overlapping chunk probabilities are
-trimmed against each other in (major, minor) coordinate space, argmax
-decoded per chunk, neighbouring pieces concatenated, and coverage gaps
-either broken into separate output contigs or filled from the draft.
-Region parallelism uses spawned worker processes (h5py serialises all
-reads behind a global lock, so threads only add contention here).
+Counterpart of ``medaka_tpu/stitch.py`` (the ``sequence`` subcommand
+and the direct route's ``DirectStitcher``): overlapping chunk
+probabilities are trimmed against each other in (major, minor)
+coordinate space, argmax decoded per chunk, neighbouring pieces
+concatenated, and coverage gaps either broken into separate output
+contigs or filled from the draft. Region parallelism uses spawned worker
+processes (h5py serialises all reads behind a global lock, so threads
+only add contention here).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import concurrent.futures
 import functools
 import itertools
 from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
 
 from medaka_tpu_torch import common
 from medaka_tpu_torch import datastore
@@ -26,8 +29,8 @@ Piece = Tuple[Tuple[str, int, int], List[str], List[str]]
 MAX_REGION_SIZE = int(1e6)
 
 
-def stitch_samples(samples, label_scheme, region,
-                   min_depth=0) -> List[Piece]:
+def stitch_samples(samples, label_scheme, region, min_depth=0,
+                   decode_fn=None) -> List[Piece]:
     """Decode a stream of samples for one region into contig pieces.
 
     Overlaps between successive samples are reconciled by
@@ -40,10 +43,17 @@ def stitch_samples(samples, label_scheme, region,
     :param region: `Region` bounding the decode.
     :param min_depth: if non-zero, positions below this depth are dropped,
         breaking contiguity.
+    :param decode_fn: sample -> (seq, qual string) in place of the
+        scheme's ``decode_consensus`` (the direct route decodes device
+        (class, quality) byte pairs).
 
     :returns: list of pieces ((ref, first_major, last_major), seqs, quals).
     """
     logger = common.get_named_logger("Stitch")
+    if decode_fn is None:
+        def decode_fn(sample):
+            return label_scheme.decode_consensus(
+                sample, with_qualities=True)
     stream = common.Sample.trim_samples_to_region(
         samples, start=region.start, end=region.end)
     if min_depth:
@@ -58,8 +68,7 @@ def stitch_samples(samples, label_scheme, region,
         heuristic_count += heuristic
         if start is None:
             start = int(sample.positions["major"][0])
-        seq, qual = label_scheme.decode_consensus(
-            sample, with_qualities=True)
+        seq, qual = decode_fn(sample)
         seqs.append(seq)
         quals.append(qual)
         last_sample = sample
@@ -254,6 +263,9 @@ def write_consensus_output(
         fill_char: Optional[str] = None, qualities: bool = False):
     """Write stitched pieces as fasta/fastq (+ gaps bed when filling).
 
+    Shared tail of the HDF5 (:func:`stitch_to_fasta`) and direct
+    (:class:`DirectStitcher`) routes, so their outputs cannot diverge.
+
     :param present_refs: contigs that had probability data.
     :param all_refs: every requested contig (missing ones are copied
         verbatim from the draft).
@@ -302,3 +314,144 @@ def write_consensus_output(
         write_gaps_bed(gap_record, output + ".gaps_in_draft_coords.bed")
     if close_draft:
         draft.close()
+
+
+class DirectStitcher:
+    """Streaming consensus from device-decoded samples (no HDF5).
+
+    Counterpart of ``medaka_tpu.stitch.DirectStitcher``: the device emits
+    per-column (argmax class, phred quality char) byte pairs, carried in a
+    sample's ``label_probs`` slot as a (T, 2) uint8 array, and this class
+    stitches them to FASTA/FASTQ. Byte parity with
+    :func:`stitch_to_fasta` holds by construction: the same
+    ``MAX_REGION_SIZE`` windows, the same sample order and overlap
+    predicate as :class:`datastore.DataIndex`, the same
+    :func:`stitch_samples` trimming and the same output tail
+    (:func:`write_consensus_output`). Memory stays bounded: a window is
+    flushed once every work region that can feed it is done, and flushed
+    samples are dropped.
+    """
+
+    def __init__(self, draft_path: str, work_regions, label_scheme,
+                 output: str, min_depth: int = 0, fillgaps: bool = True,
+                 fill_char: Optional[str] = None, qualities: bool = False):
+        """:param work_regions: the prediction work plan (rid = index)."""
+        self.logger = common.get_named_logger("DirectStitch")
+        self.draft = FastaReader(draft_path)
+        self.label_scheme = label_scheme
+        self.output = output
+        self.min_depth = min_depth
+        self.fillgaps = fillgaps
+        self.fill_char = fill_char
+        self.qualities = qualities
+        self._gap_class = label_scheme.symbols.index("*")
+        self._alphabet = np.frombuffer(
+            "".join(label_scheme.symbols).encode(), dtype=np.uint8)
+        self._work = list(work_regions)
+        self._undone: Dict[str, set] = {}
+        for rid, region in enumerate(self._work):
+            self._undone.setdefault(region.ref_name, set()).add(rid)
+        self._windows: Dict[str, List[common.Region]] = {}
+        self._next_window: Dict[str, int] = {}
+        for ref in self.draft.references:
+            length = self.draft.get_reference_length(ref)
+            self._windows[ref] = list(common.Region(ref, 0, length).split(
+                MAX_REGION_SIZE, overlap=0, fixed_size=False))
+            self._next_window[ref] = 0
+        # per-contig sample buffers: (sort_key, start, end, sample)
+        self._buffers: Dict[str, List] = {}
+        self._names: Dict[str, set] = {}
+        self._present: set = set()
+        self._pieces: Dict[str, List[Piece]] = {}
+        self._finished = False
+
+    def _decode(self, sample) -> Tuple[str, str]:
+        arr = sample.label_probs
+        keep = arr[:, 0] != self._gap_class
+        seq = self._alphabet[arr[keep, 0]].tobytes().decode()
+        qual = arr[keep, 1].tobytes().decode()
+        return seq, qual
+
+    def add_sample(self, sample):
+        """Buffer one device-decoded sample."""
+        ref = sample.ref_name
+        if ref not in self._windows:
+            self.logger.warning(
+                "Sample contig %r is not in the draft; skipping.", ref)
+            return
+        name = sample.name
+        names = self._names.setdefault(ref, set())
+        if name in names:  # the DataStore registry keeps one of each name
+            return
+        names.add(name)
+        self._present.add(ref)
+        d = common.Sample.decode_sample_name(name)
+        key = (float(d["start"]), -float(d["end"]))
+        start = int(float(d["start"]))
+        end = int(np.ceil(float(d["end"])))
+        self._buffers.setdefault(ref, []).append((key, start, end, sample))
+
+    def region_done(self, rid: int):
+        """Mark a work region complete; flush any now-closed windows."""
+        region = self._work[rid]
+        undone = self._undone.get(region.ref_name)
+        if undone is not None:
+            undone.discard(rid)
+        self._flush(region.ref_name)
+
+    def _frontier(self, ref) -> float:
+        undone = self._undone.get(ref)
+        if not undone:
+            return float("inf")
+        return min(self._work[rid].start or 0 for rid in undone)
+
+    def _flush(self, ref):
+        windows = self._windows.get(ref)
+        if windows is None:
+            return
+        frontier = self._frontier(ref)
+        i = self._next_window[ref]
+        while i < len(windows) and windows[i].end <= frontier:
+            window = windows[i]
+            buf = self._buffers.get(ref, [])
+            if buf:
+                buf.sort(key=lambda item: item[0])
+                selected = [
+                    s for _k, s_start, s_end, s in buf
+                    if s_start < window.end and s_end > window.start]
+                if selected:
+                    self._pieces.setdefault(ref, []).extend(
+                        stitch_samples(
+                            iter(selected), self.label_scheme, window,
+                            self.min_depth, decode_fn=self._decode))
+                # keep only samples that can reach later windows
+                self._buffers[ref] = [
+                    item for item in buf if item[2] > window.end]
+            i += 1
+        self._next_window[ref] = i
+
+    def finish(self):
+        """Flush everything and write the consensus output."""
+        if self._finished:
+            return
+        self._finished = True
+        for ref in list(self._undone):
+            if self._undone[ref]:
+                self.logger.warning(
+                    "Finishing with %d work region(s) of %s unreported; "
+                    "flushing anyway.", len(self._undone[ref]), ref)
+                self._undone[ref] = set()
+        for ref in self._windows:
+            self._flush(ref)
+
+        def pieces_in_draft_order():
+            for ref in self.draft.references:
+                yield from self._pieces.get(ref, [])
+
+        write_consensus_output(
+            pieces_in_draft_order(), self.draft, self.output,
+            present_refs=self._present,
+            all_refs=set(self.draft.references),
+            fillgaps=self.fillgaps, fill_char=self.fill_char,
+            qualities=self.qualities)
+        self.draft.close()

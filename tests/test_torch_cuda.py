@@ -15,14 +15,16 @@ import os
 from medaka_tpu_torch import features, models, prediction, testing
 from medaka_tpu_torch.common import Region
 from medaka_tpu_torch.models.gru import GRUModel
-from medaka_tpu_torch.ops import bilstm, cuda_build, gru_split, gru_train, \
-    lstm_train
+from medaka_tpu_torch.ops import bilstm, cuda_build, gru_fullfused, \
+    gru_split, gru_train, lstm_train
 
 pytestmark = pytest.mark.cuda
 
 RL_MODEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data",
     "rl_lstm128_lambda_demo.tar.gz")
+MODEL = os.path.join(os.path.dirname(RL_MODEL),
+                     "gru256_lambda_demo_model_pt.tar.gz")
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +37,7 @@ def device():
     bilstm.build()
     gru_train.build()
     lstm_train.build()
+    gru_fullfused.build()
     for log in cuda_build.BUILD_LOGS.values():
         print(log)
     return torch.device("cuda")
@@ -432,3 +435,219 @@ def test_read_level_train_step_kernels_match_plain(device):
             assert rel_c <= 5e-2
         else:
             assert cos >= 0.999
+
+
+def _fullfused_inputs(rng, H, B, T, IN, device):
+    """Layer input, stacked weights as torch initialises them and ragged
+    lengths (the first full, one 0: a padded row)."""
+    k = 1.0 / np.sqrt(H)
+
+    def uniform(lo, hi, shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(device)
+
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    lengths[0] = T
+    if B > 2:
+        lengths[1] = 0
+    return (uniform(-1, 1, (T, B, IN)).to(torch.bfloat16),
+            uniform(-k, k, (2, 3 * H, IN)), uniform(-k, k, (2, 3 * H)),
+            uniform(-k, k, (2, 3 * H, H)), uniform(-k, k, (2, 3 * H)),
+            lengths.to(device))
+
+
+def _bf16_ulp(v):
+    """One bf16 step at the magnitude of v's largest element."""
+    return 2.0 ** (np.floor(np.log2(v.abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("layer_in", ["features", "layer"])
+@pytest.mark.parametrize("mode", ["f32_gates", "bf16_gates", "int8", "fused"])
+@pytest.mark.parametrize("H,B,T", [(256, 16, 300), (96, 31, 200),
+                                   (256, 1, 100)])
+def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
+    """Each fullfused mode and ``bigru_fused`` against its plain version,
+    ragged lengths, layer 1 (10 features) and layer 2 (2H) inputs.
+
+    The projection stage sums in the plain version's order, so it agrees
+    bit for bit; the recurrent product's f32 sums run in another order
+    (cuBLAS), which can move one bf16 rounding of h or one round(127 h):
+    f32-gates and int8 outputs within 2^-8 (mean 1e-3), bf16 gates within
+    one bf16 step of the output's largest magnitude. A second launch
+    repeats the first bit for bit. H=256 streams the bf16 W_hh from L2 and
+    keeps the int8 one in shared memory; H=96 keeps both there.
+    """
+    rng = np.random.default_rng(H + B + T)
+    IN = 10 if layer_in == "features" else 2 * H
+    x, w_ih, b_ih, w_hh, b_hh, lengths = _fullfused_inputs(
+        rng, H, B, T, IN, device)
+    gru_fullfused.reset_launches()
+    if mode == "fused":
+        xp = gru_fullfused.project_plain(x, w_ih, b_ih)
+
+        def kernel():
+            return torch.cat(gru_fullfused.bigru_pallas(
+                xp[0], xp[1], w_hh, b_hh, lengths), -1)
+        want = gru_fullfused.recurrence_plain(xp[0], xp[1], w_hh, b_hh,
+                                              lengths)
+        key = "bigru_fused"
+    else:
+        def kernel():
+            return gru_fullfused.fullfused_layer(x, w_ih, b_ih, w_hh, b_hh,
+                                                 lengths, mode)
+        want = gru_fullfused.bigru_fullfused_plain(x, w_ih, b_ih, w_hh, b_hh,
+                                                   lengths, mode)
+        key = "bigru_fullfused_int8" if mode == "int8" else "bigru_fullfused"
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert gru_fullfused.LAUNCHES[key] == 2
+    assert got.shape == (T, B, 2 * H) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    diff = (got.float() - want.float()).abs()
+    print(mode, layer_in, "H", H, "B", B, "max", diff.max().item(), "mean",
+          diff.mean().item())
+    bar = _bf16_ulp(want.float()) if mode == "bf16_gates" else 2.0 ** -8
+    assert diff.max().item() <= bar
+    assert diff.mean().item() <= 1e-3
+    # padded steps of the backward direction and padded rows hold 0
+    t_pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
+    assert (got[..., H:].float().abs().sum(-1)[t_pad] == 0).all()
+
+
+def test_fullfused_projection_stage_matches_plain(device):
+    """The projection stage alone (through bigru_fullfused's scratch is
+    not exposed, so through a one-step layer with zero recurrent weights:
+    h = (1 - z) n with n, z from the projections only) is bit for bit the
+    plain version's."""
+    rng = np.random.default_rng(2)
+    x, w_ih, b_ih, _, _, lengths = _fullfused_inputs(rng, 64, 8, 1, 512,
+                                                     device)
+    zeros = torch.zeros((2, 192, 64), device=device)
+    got = gru_fullfused.fullfused_layer(x, w_ih, b_ih, zeros, zeros[..., 0],
+                                        lengths, "f32_gates")
+    want = gru_fullfused.bigru_fullfused_plain(
+        x, w_ih, b_ih, zeros, zeros[..., 0], lengths, "f32_gates")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fullfused_wrapper_raises_on_bad_input(device):
+    rng = np.random.default_rng(1)
+    x, w_ih, b_ih, w_hh, b_hh, lengths = _fullfused_inputs(rng, 32, 4, 8, 10,
+                                                           device)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        gru_fullfused.fullfused_layer(x.float(), w_ih, b_ih, w_hh, b_hh,
+                                      lengths)
+    with pytest.raises(ValueError, match="expected shape"):
+        gru_fullfused.fullfused_layer(x, w_ih[:, :, :5], b_ih, w_hh, b_hh,
+                                      lengths)
+    H = 544
+    with pytest.raises(ValueError, match="outside 1..512"):
+        gru_fullfused.fullfused_layer(
+            x, torch.zeros((2, 3 * H, 10), device=device),
+            torch.zeros((2, 3 * H), device=device),
+            torch.zeros((2, 3 * H, H), device=device),
+            torch.zeros((2, 3 * H), device=device), lengths)
+    with pytest.raises(ValueError, match="outside 1..512"):
+        gru_fullfused.bigru_pallas(
+            torch.zeros((8, 4, 3 * H), dtype=torch.bfloat16, device=device),
+            torch.zeros((8, 4, 3 * H), dtype=torch.bfloat16, device=device),
+            torch.zeros((2, 3 * H, H), device=device),
+            torch.zeros((2, 3 * H), device=device), lengths)
+
+
+def test_fullfused_odd_hidden_matches_plain(device):
+    """H=100 (not a multiple of 32): the kernels run on zero-padded units
+    and agree with the unpadded plain version as at H=96."""
+    rng = np.random.default_rng(3)
+    args = _fullfused_inputs(rng, 100, 5, 60, 10, device)
+    for mode in ("f32_gates", "int8"):
+        got = gru_fullfused.fullfused_layer(*args, mode)
+        want = gru_fullfused.bigru_fullfused_plain(*args, mode)
+        torch.cuda.synchronize()
+        assert got.shape == (60, 5, 200)
+        assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("n_layers,hidden,bidirectional,quant,key", [
+    (2, 256, True, None, "bigru_fullfused"),
+    (3, 96, True, "int8", "bigru_fullfused_int8"),
+    (1, 128, True, "bf16_gates", "bigru_fullfused"),
+    (2, 64, False, None, None)])
+def test_gru_model_off_split_on_card_matches_cpu_plain(
+        device, n_layers, hidden, bidirectional, quant, key):
+    """GRUModel.forward on the card at B=16 (off the split path) against
+    the same kernels' plain route on the CPU (``bigru_stack_fullfused`` /
+    ``bigru_stack_fused`` with device="cpu" and the f32 head):
+    probabilities within 1e-2 (the card's and the CPU's sums of the
+    recurrent product run in other orders), argmax agreement >= 0.99; the
+    card launches the fullfused kernel once a layer (``gru_fwd`` for the
+    unidirectional stack) and no split kernel."""
+    rng = np.random.default_rng(n_layers + hidden)
+    torch.manual_seed(n_layers)
+    model = GRUModel(gru_size=hidden, n_layers=n_layers,
+                     bidirectional=bidirectional)
+    B, T = 16, 200
+    x = torch.from_numpy(rng.random((B, T, 10)).astype(np.float32))
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    with torch.inference_mode():
+        if bidirectional:
+            feats = gru_fullfused.bigru_stack_fullfused(
+                model.layer_params(), x, lengths, recurrent_quant=quant,
+                device="cpu")
+        else:
+            feats = gru_fullfused.bigru_stack_fused(
+                model.layer_params(), x, bidirectional=False,
+                lengths=lengths, device="cpu")
+        want = torch.softmax(feats.float() @ model.linear.weight.t()
+                             + model.linear.bias, -1)
+        gru_fullfused.reset_launches()
+        gru_split.reset_launches()
+        gru_train.reset_launches()
+        model.to(device)
+        got = model(x.to(device), lengths=lengths.to(device),
+                    compute_dtype=torch.bfloat16,
+                    recurrent_quant=quant).cpu()
+        model.to("cpu")
+    if key is None:
+        assert gru_train.LAUNCHES["gru_fwd"] == n_layers
+        assert sum(gru_fullfused.LAUNCHES.values()) == 0
+    else:
+        assert gru_fullfused.LAUNCHES[key] == n_layers
+    assert sum(gru_split.LAUNCHES.values()) == 0
+    valid = torch.arange(T)[None, :] < lengths[:, None]
+    diff = (got - want).abs()[valid]
+    agree = (got.argmax(-1) == want.argmax(-1))[valid].float().mean().item()
+    print(n_layers, hidden, quant, "max", diff.max().item(), "agreement",
+          agree)
+    assert diff.max().item() <= 1e-2
+    assert agree >= 0.99
+
+
+def test_predict_direct_on_card_matches_hdf5_route(device, tmp_path):
+    """predict_direct on the card at batch 16 (the fullfused kernels, off
+    the split path) writes the same FASTQ and gaps bed as inference +
+    sequence on the card at batch 16, and both launch the fullfused
+    kernel twice a batch and no split kernel."""
+    from medaka_tpu_torch import cli, stitch
+    bam, draft = testing.create_synth_bam(str(tmp_path / "r.bam"),
+                                          ref_mb=0.05, depth=10,
+                                          read_len=5000)
+    hdf = str(tmp_path / "p.hdf")
+    want = str(tmp_path / "hdf5.fastq")
+    gru_fullfused.reset_launches()
+    gru_split.reset_launches()
+    assert cli.main(["inference", bam, hdf, "--model", MODEL, "--batch_size",
+                     "16", "--chunk_len", "2000", "--chunk_ovlp", "200"]) == 0
+    launches = gru_fullfused.LAUNCHES["bigru_fullfused"]
+    assert launches >= 2 and launches % 2 == 0
+    stitch.stitch_to_fasta(hdf, draft, want, qualities=True)
+    got = str(tmp_path / "direct.fastq")
+    prediction.predict_direct(bam, got, draft, model_path=MODEL,
+                              batch_size=16, chunk_len=2000,
+                              chunk_overlap=200, qualities=True)
+    assert gru_fullfused.LAUNCHES["bigru_fullfused"] == 2 * launches
+    assert sum(gru_split.LAUNCHES.values()) == 0
+    for suffix in ("", ".gaps_in_draft_coords.bed"):
+        with open(want + suffix, "rb") as a, open(got + suffix, "rb") as b:
+            assert a.read() == b.read()

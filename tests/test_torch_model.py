@@ -11,8 +11,9 @@ from medaka_tpu import models as jax_models
 from medaka_tpu.ops import rnn as jax_rnn
 from medaka_tpu_torch import models
 from medaka_tpu_torch.models import latent_space_lstm
-from medaka_tpu_torch.models.gru import GRUModel, params_from_jax, \
-    params_to_jax, takes_split_path
+from medaka_tpu.ops import pallas_gru
+from medaka_tpu_torch.models.gru import GRUModel, fused_route, \
+    params_from_jax, params_to_jax, takes_split_path
 from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM
 from medaka_tpu_torch.ops import rnn
 
@@ -200,11 +201,48 @@ def test_params_from_jax_round_trips(lambda_bundles):
         np.testing.assert_array_equal(got, np.asarray(want))
 
 
-def test_fused_off_split_configurations_refused():
-    model = GRUModel(gru_size=32, n_layers=3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model(torch.zeros((1, 4, 10)), compute_dtype=torch.bfloat16,
-              fused=True)
+#: (n_layers, hidden, bidirectional, recurrent_quant, bar): configurations
+#: off the split path; bars as tests/test_torch_fullfused.py
+OFF_SPLIT = [(1, 32, True, None, 5e-3), (3, 32, True, "int8", 2e-2),
+             (2, 96, True, "bf16_gates", 2e-2),
+             (2, 32, True, "staggered", 5e-3), (2, 32, False, None, 5e-3)]
+
+
+@pytest.mark.parametrize("n_layers,hidden,bidirectional,quant,atol",
+                         OFF_SPLIT)
+def test_fused_off_split_configurations_refused(n_layers, hidden,
+                                                bidirectional, quant, atol):
+    """Fused configurations off the split path, which the port refused
+    until the fullfused kernels were ported, now run: on the CPU
+    ``GRUModel.forward(fused=True)`` takes the fullfused (bidirectional) or
+    fused (unidirectional) kernels' plain versions and the f32 head, held
+    against JAX's ``bigru_stack_fullfused`` / ``bigru_stack_fused``
+    (interpret=True) + the f32 einsum head + softmax on the same weights.
+    Measured max |diff| of the probabilities: 4.2e-5 (int8), at most
+    4.5e-8 for the others."""
+    torch.manual_seed(n_layers + hidden)
+    model = GRUModel(gru_size=hidden, n_layers=n_layers,
+                     bidirectional=bidirectional)
+    rng = np.random.default_rng(hidden)
+    x, lengths = _inputs(rng, batch=3)
+    params = jax.tree.map(jnp.asarray, params_to_jax(model.state_dict()))
+    if bidirectional:
+        feats = pallas_gru.bigru_stack_fullfused(
+            params["gru"], jnp.asarray(x), lengths=jnp.asarray(lengths),
+            interpret=True, recurrent_quant=quant)
+    else:
+        feats = pallas_gru.bigru_stack_fused(
+            params["gru"], jnp.asarray(x), bidirectional=False,
+            lengths=jnp.asarray(lengths), interpret=True)
+    logits = jnp.einsum("bth,ch->btc", feats.astype(jnp.float32),
+                        params["linear"]["w"]) + params["linear"]["b"]
+    want = np.asarray(jax.nn.softmax(logits, -1))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x), lengths=torch.from_numpy(lengths),
+                    compute_dtype=torch.bfloat16, fused=True,
+                    recurrent_quant=quant).numpy()
+    valid = np.arange(x.shape[1])[None, :] < lengths[:, None]
+    assert np.abs(got - want)[valid].max() <= atol
 
 
 @pytest.mark.parametrize("batch,hidden,on_cpu,split", [
@@ -220,13 +258,78 @@ def test_split_routing_follows_jax(batch, hidden, on_cpu, split):
     assert takes_split_path(batch, hidden, on_cpu) is split
 
 
-def test_fused_small_batch_on_card_names_fullfused_kernels(monkeypatch):
-    """Where JAX takes the fullfused branch, the card route refuses and
-    names the kernels it would need; the CPU route runs at any batch."""
+@pytest.mark.parametrize("batch,hidden,n_layers,bidirectional,quant,device,"
+                         "route", [
+                             (512, 256, 2, True, None, "cuda", "split"),
+                             (32, 128, 2, True, "none", "cuda", "split"),
+                             (16, 256, 2, True, None, "cuda", "fullfused"),
+                             (31, 256, 2, True, "int8", "cuda", "fullfused"),
+                             (64, 96, 2, True, None, "cuda", "fullfused"),
+                             (512, 256, 3, True, None, "cuda", "fullfused"),
+                             (512, 256, 1, True, "int8", "cuda", "fullfused"),
+                             (512, 256, 2, True, "bf16_gates", "cuda",
+                              "fullfused"),
+                             (512, 256, 2, True, "staggered", "cpu",
+                              "fullfused"),
+                             (16, 256, 2, True, None, "cpu", "split"),
+                             (16, 96, 2, True, "int8", "cpu", "split"),
+                             (16, 96, 3, True, None, "cpu", "fullfused"),
+                             (512, 256, 2, False, None, "cuda", "fused"),
+                             (8, 64, 1, False, "int8", "cpu", "fused")])
+def test_fused_route_follows_jax(batch, hidden, n_layers, bidirectional,
+                                 quant, device, route):
+    """Fused inference takes the kernels ``GRUModel.apply`` takes
+    (medaka_tpu/models/gru.py:162-196): the split path for 2-layer
+    bidirectional bf16 stacks with recurrent_quant None/"int8"/"none"
+    (batch >= 32 and H % 128 == 0 on the card, any batch on the CPU), the
+    fullfused stack for every other bidirectional stack, the fused stack
+    for unidirectional ones."""
+    assert fused_route(batch, hidden, n_layers, bidirectional, quant,
+                       device) == route
+
+
+def test_fused_route_refuses_unknown_quant():
+    with pytest.raises(ValueError, match="recurrent_quant"):
+        fused_route(16, 256, 2, True, "fp8", "cuda")
+
+
+@pytest.mark.parametrize("quant,kernel,mode", [
+    (None, "bigru_fullfused", "f32_gates"),
+    ("none", "bigru_fullfused", "f32_gates"),
+    ("int8", "bigru_fullfused_int8", "int8"),
+    ("bf16_gates", "bigru_fullfused", "bf16_gates"),
+    ("staggered", "bigru_fullfused", "f32_gates")])
+def test_fused_small_batch_on_card_names_fullfused_kernels(
+        monkeypatch, quant, kernel, mode):
+    """Where JAX takes the fullfused branch (here B=2 < 32), the card
+    route launches the fullfused kernel of the mode ``recurrent_quant``
+    selects, once a layer, and no split kernel; the CPU route runs the
+    split kernels' plain versions at any batch. The card is stood in for
+    by CUDA-looking CPU tensors and a launch that records its call and
+    runs the plain version."""
+    from medaka_tpu_torch.ops import gru_fullfused, gru_split
     model = GRUModel(gru_size=32)
-    x = torch.zeros((2, 4, 10))
-    model(x, compute_dtype=torch.bfloat16, fused=True)
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (2, 6, 10)).astype(np.float32))
+    with torch.inference_mode():
+        cpu_probs = model(x, compute_dtype=torch.bfloat16, fused=True,
+                          recurrent_quant=quant)
+    calls = []
+
+    def launch(x, w_ih, b_ih, w_hh, b_hh, lengths, mode):
+        calls.append(mode)
+        return gru_fullfused.bigru_fullfused_plain(x, w_ih, b_ih, w_hh,
+                                                   b_hh, lengths, mode)
+
+    def no_split(*args, **kwargs):
+        raise AssertionError("the split kernels must not run")
+
+    monkeypatch.setattr(gru_fullfused, "_launch_fullfused", launch)
+    monkeypatch.setattr(gru_split, "_launch_l1", no_split)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    with pytest.raises(NotImplementedError,
-                       match="bigru_pallas_fullfused_int8"):
-        model(x, compute_dtype=torch.bfloat16, fused=True)
+    with torch.inference_mode():
+        probs = model(x, compute_dtype=torch.bfloat16, fused=True,
+                      recurrent_quant=quant)
+    assert calls == [mode, mode]
+    assert probs.shape == cpu_probs.shape == (2, 6, 5)
+    assert kernel in gru_fullfused.LAUNCHES

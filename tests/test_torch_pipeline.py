@@ -151,7 +151,10 @@ def test_predict_on_cuda_without_gpu_raises(synth, tmp_path):
 def test_auto_batch_size_memory_model():
     """Per row at T=10000: bf16 features, two int8 (T, 256) layer-1
     outputs and two f32 (T, 5) logit partials = 5.72 MB; half the free
-    memory is budgeted, in multiples of 64, capped at 512."""
+    memory is budgeted, in multiples of 64, capped at 512. Off the split
+    path (here H=96) the fullfused stack's buffers a row: bf16 features,
+    two (T, 192) bf16 inter-layer buffers, the (2, T, 288) bf16
+    projection scratch and f32 logits = 19.6 MB, never below 32."""
     from medaka_tpu_torch.models.gru import GRUModel
     model = GRUModel(gru_size=256)
     gib = 1 << 30
@@ -164,6 +167,32 @@ def test_auto_batch_size_memory_model():
         model, "cuda", free_bytes=80 * gib, full_precision=True) == 512
     assert prediction.auto_batch_size(
         model, "cuda", free_bytes=8 * gib, full_precision=True) == 64
+    off_split = GRUModel(gru_size=96)
+    assert prediction.auto_batch_size(off_split, "cuda",
+                                      free_bytes=8 * gib) == 192
+    assert prediction.auto_batch_size(off_split, "cuda",
+                                      free_bytes=gib) == 32
+    assert prediction.auto_batch_size(off_split, "cpu") == 128
+
+
+@pytest.mark.parametrize("kwargs,per_row", [
+    ({"gru_size": 96}, 10000 * (20 + 2 * 2 * 192 + 2 * 288 * 2 + 20)),
+    ({"gru_size": 256, "n_layers": 3},
+     10000 * (20 + 2 * 2 * 512 + 2 * 768 * 2 + 20)),
+    # unidirectional: one direction's buffers and scratch
+    ({"gru_size": 256, "bidirectional": False},
+     10000 * (20 + 2 * 256 * 2 + 768 * 2 + 20))])
+def test_auto_batch_size_memory_model_off_split(kwargs, per_row):
+    """Off the split path (medaka_tpu/prediction.py:526-534) the batch is
+    half the free memory over the fullfused (or fused) stack's buffers a
+    row, in multiples of 64, at least 32 and at most 512."""
+    from medaka_tpu_torch.models.gru import GRUModel
+    model = GRUModel(**kwargs)
+    gib = 1 << 30
+    for free in (80 * gib, 8 * gib, gib // 4):
+        want = max(32, min(512, (free // 2 // per_row) // 64 * 64))
+        assert prediction.auto_batch_size(
+            model, "cuda", free_bytes=free) == want
 
 
 @pytest.mark.parametrize("edits", [0, 1, 40])

@@ -11,7 +11,9 @@ Phases, each of which fails the script when it fails:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``medaka_tpu_torch/csrc`` with ``nvcc``
    (one process per source, all at once), and the host-side pileup and
-   read-matrix library with ``g++``;
+   read-matrix library with ``g++``; print ptxas's registers, shared
+   memory and spills of every kernel, of ``lstm_fwd_kernel``,
+   ``lstm_bwd_kernel`` and ``rnn_dw_kernel`` by name;
 3. hold the split-path GRU kernels against their plain PyTorch versions
    at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
@@ -54,12 +56,12 @@ Phases, each of which fails the script when it fails:
     against the same step through their plain versions, a stage
     breakdown of a step (CUDA events), the step's wall time, and each
     kernel's time beside its plain version, its serial floor, the cuDNN
-    ``nn.GRU`` yardstick and its bound;
-13. hold the LSTM training kernels (``lstm_fwd``, ``lstm_bwd``) against
-    their plain versions at H=384 (L2 route) and H=128 (the forward's
-    shared-memory route), B=128, T=1000, ragged lengths, random weights,
-    both directions, and ``lstm_bwd`` against itself run again (bit for
-    bit);
+    ``nn.GRU`` yardsticks (forward; backward alone) and its bound;
+13. hold the LSTM training kernels (``lstm_fwd``, ``lstm_bwd``: clusters
+    of C blocks with W_hh in their shared memory, mma.sync) against their
+    plain versions at H=384 (clusters of 8) and H=128 (clusters of 2),
+    B=128, T=1000, ragged lengths, random weights, both directions, and
+    ``lstm_bwd`` against itself run again (bit for bit);
 14. the read-level training path: a 0.5 Mb synthetic BAM with move
     tables (dwells) and its truth BAM, ``features --truth
     --feature_encoder ReadAlignmentFeatureEncoder`` at the encoder's
@@ -75,8 +77,11 @@ Phases, each of which fails the script when it fails:
     one train step through the kernels against the same step through
     their plain versions, a stage breakdown (CUDA events), the step's
     wall time, device-busy share and peak memory, and each LSTM kernel's
-    time beside its plain version, its serial floor, the cuDNN
-    ``nn.LSTM`` yardstick and its bound;
+    time beside its plain version, its serial floor (one column), the
+    microseconds a step, its launch geometry (cluster size, columns a
+    cluster, resident clusters), the cuDNN ``nn.LSTM`` yardsticks
+    (forward; backward alone), its bound and, for the backward, the
+    profiler's split into recurrence, ``rnn_dw_kernel`` and the sums;
 16. (run before phase 4) hold the fullfused bi-GRU kernels
     (``bigru_fullfused`` in its f32-gates and bf16-gates modes,
     ``bigru_fullfused_int8`` and ``bigru_fused``) against their plain
@@ -108,6 +113,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -268,6 +274,50 @@ def cuda_ms(fn, reps=3, warmup=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def ptxas_report(text, kernels):
+    """{kernel: [{"entry", "registers", "smem_bytes", "stack_bytes",
+    "spill_stores", "spill_loads"}, ...]} of the entry functions whose
+    (mangled) name holds a kernel's name, from ``ptxas -v`` output."""
+    out = {k: [] for k in kernels}
+    rec = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            rec = {"entry": m.group(1)}
+            continue
+        if rec is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rec.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rec.update(registers=int(m.group(1)),
+                       smem_bytes=int(smem.group(1)) if smem else 0)
+            for k in kernels:
+                if k in rec["entry"]:
+                    out[k].append(rec)
+            rec = None
+    return out
+
+
+def backward_alone_ms(module, x, g_out):
+    """Time of cuDNN's backward alone: the forward once with its graph
+    kept, then ``autograd.grad`` for the input and the weights over it."""
+    import torch
+    params = [x] + list(module.parameters())
+    y = module(x)[0]
+    try:
+        return cuda_ms(lambda: torch.autograd.grad(y, params, g_out,
+                                                   retain_graph=True))
+    finally:
+        del y
 
 
 def yardstick_ms(features, width, depth, hidden, dev):
@@ -700,7 +750,9 @@ def profile_step(step, step_s):
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     out = {"device_ms": device_ms,
            "device_busy_share": device_ms / (step_s * 1e3),
-           "top_kernels_ms": top}
+           "top_kernels_ms": top,
+           # every kernel, for the caller (not reported whole)
+           "kernels_ms": by_kernel}
     log("   profiler: device time {:.2f} ms ({:.1%} of the step's wall "
         "time); by kernel: {}".format(device_ms, out["device_busy_share"],
                                      json.dumps(top)))
@@ -843,6 +895,8 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
             "({} valid columns)".format(step_s * 1e3, lengths_sum / step_s,
                                         lengths_sum))
         profile = profile_step(lambda: step_fn(batch), step_s)
+        if profile:
+            profile.pop("kernels_ms")
 
     with phase("training kernels at B=128 T=1000: timings"):
         layer1, layer2 = model.layer_params()
@@ -890,10 +944,12 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
         lib_params = [x2] + list(gru.parameters())
         lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
             gru(x2)[0], lib_params, g_out))
+        lib_bwd = backward_alone_ms(gru, x2, g_out)
         del gru, x2
         log("   torch.nn.GRU({}, {}, 1) bf16 (cuDNN) over the same {} rows, "
-            "its input projection included: forward {:.2f} ms, forward + "
-            "backward {:.2f} ms".format(2 * H, H, B, lib_fwd, lib_fwd_bwd))
+            "its input projection included: forward {:.2f} ms, backward "
+            "alone {:.2f} ms, forward + backward {:.2f} ms".format(
+                2 * H, H, B, lib_fwd, lib_bwd, lib_fwd_bwd))
 
     rows = []
     for name in ("gru_fwd", "gru_bwd"):
@@ -919,15 +975,15 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_bytes": nbytes,
-            "library_ms": lib_fwd if name == "gru_fwd" else None,
+            "library_ms": lib_fwd if name == "gru_fwd" else lib_bwd,
             "library": (
                 "torch.nn.GRU({0}, {1}, 1) bf16 (cuDNN) forward over the "
                 "same {2} rows, its input projection included: {3:.2f} ms"
                 .format(2 * H, H, B, lib_fwd) if name == "gru_fwd" else
-                "no PyTorch call computes a GRU's backward alone; "
-                "torch.nn.GRU({0}, {1}, 1) bf16 (cuDNN) forward + backward "
-                "(autograd.grad for input and weights) over the same {2} "
-                "rows: {3:.2f} ms".format(2 * H, H, B, lib_fwd_bwd)),
+                "torch.nn.GRU({0}, {1}, 1) bf16 (cuDNN) backward alone "
+                "(autograd.grad for input and weights over a kept graph) "
+                "over the same {2} rows: {3:.2f} ms".format(2 * H, H, B,
+                                                           lib_bwd)),
             "library_fwd_bwd_ms": lib_fwd_bwd,
             "serial_floor_ms": floor_ms,
             "shape": {"B": B, "T": T, "H": H, "valid_columns": lengths_sum,
@@ -1262,10 +1318,24 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
                         one[0], out1, c1, dh_out[:, :1].contiguous(), w_hh,
                         b_hh, one[1])),
             }
-            timed = {name: (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
-                            cuda_ms(o)) for name, (k, pl, o) in calls.items()}
-        # yardstick (the port never calls it): cuDNN's bf16 LSTM, one
-        # direction over layer 2's inputs, its input projection included
+            timed, geometry = {}, {}
+            for name, (k, pl, o) in calls.items():
+                timed[name] = (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
+                               cuda_ms(o))
+                kind = name[len("lstm_"):]
+                geometry[name] = {
+                    key: dict(zip(("cluster", "columns", "smem_bytes",
+                                   "resident_clusters"),
+                                  lstm_train.geometry(kind, H, cols, dev)))
+                    for key, cols in (("main", B), ("one_column", 1))}
+                ms, _, floor_ms = timed[name]
+                log("   {}: geometry {}; {:.3f} us a step, one column "
+                    "{:.3f} us a step".format(name, json.dumps(geometry[name]),
+                                             ms / T * 1e3, floor_ms / T * 1e3))
+        # yardsticks (the port never calls them): cuDNN's bf16 LSTM, one
+        # direction over layer 2's inputs, its input projection included:
+        # the forward, the backward alone (autograd.grad over a kept
+        # graph) and the two together
         lstm = torch.nn.LSTM(2 * H, H, 1).to(dev, torch.bfloat16)
         lstm.flatten_parameters()
         x2 = h1.detach().clone().requires_grad_(True)
@@ -1275,10 +1345,12 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
         lib_params = [x2] + list(lstm.parameters())
         lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
             lstm(x2)[0], lib_params, g_out))
+        lib_bwd = backward_alone_ms(lstm, x2, g_out)
         del lstm, x2
         log("   torch.nn.LSTM({}, {}, 1) bf16 (cuDNN) over the same {} rows, "
-            "its input projection included: forward {:.2f} ms, forward + "
-            "backward {:.2f} ms".format(2 * H, H, B, lib_fwd, lib_fwd_bwd))
+            "its input projection included: forward {:.2f} ms, backward "
+            "alone {:.2f} ms, forward + backward {:.2f} ms".format(
+                2 * H, H, B, lib_fwd, lib_bwd, lib_fwd_bwd))
 
     rows = []
     for name in ("lstm_fwd", "lstm_bwd"):
@@ -1306,17 +1378,20 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_bytes": nbytes,
-            "library_ms": lib_fwd if name == "lstm_fwd" else None,
+            "library_ms": lib_fwd if name == "lstm_fwd" else lib_bwd,
             "library": (
                 "torch.nn.LSTM({0}, {1}, 1) bf16 (cuDNN) forward over the "
                 "same {2} rows, its input projection included: {3:.2f} ms"
                 .format(2 * H, H, B, lib_fwd) if name == "lstm_fwd" else
-                "no PyTorch call computes an LSTM's backward alone; "
-                "torch.nn.LSTM({0}, {1}, 1) bf16 (cuDNN) forward + backward "
-                "(autograd.grad for input and weights) over the same {2} "
-                "rows: {3:.2f} ms".format(2 * H, H, B, lib_fwd_bwd)),
+                "torch.nn.LSTM({0}, {1}, 1) bf16 (cuDNN) backward alone "
+                "(autograd.grad for input and weights over a kept graph) "
+                "over the same {2} rows: {3:.2f} ms".format(2 * H, H, B,
+                                                           lib_bwd)),
             "library_fwd_bwd_ms": lib_fwd_bwd,
             "serial_floor_ms": floor_ms,
+            "step_us": ms / T * 1e3,
+            "serial_floor_step_us": floor_ms / T * 1e3,
+            "geometry": geometry[name],
             "shape": {"B": B, "T": T, "H": H, "reads": R,
                       "valid_columns": lengths_sum, "layer": 2,
                       "direction": "forward"},
@@ -1325,6 +1400,16 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
         })
         if name == "lstm_fwd":
             rows[-1]["c_rel_err"] = c_err
+        else:
+            # the backward's three kernels, a launch each, from the
+            # profile of the timed step (4 launches of each)
+            per_launch = {k: v / 4 for k, v in (
+                profile.pop("kernels_ms") if profile else {}).items()
+                if k.startswith(("void lstm_bwd_kernel", "rnn_dw_kernel",
+                                 "rnn_bwd_reduce_kernel"))}
+            rows[-1]["kernels_ms_per_launch"] = per_launch
+            log("   lstm_bwd a launch, from the step's profile (ms): "
+                "{}".format(json.dumps(per_launch)))
         log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
             "column {:.3f} ms; {})".format(name, ms, plain_ms, bound_ms,
                                            bound_by, floor_ms,
@@ -1762,6 +1847,19 @@ def main(argv=None):
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     log("  ", source, line.strip())
+        lstm_ptxas = ptxas_report(
+            cuda_build.BUILD_LOGS.get("lstm_train.cu", ""),
+            ("lstm_fwd_kernel", "lstm_bwd_kernel", "rnn_dw_kernel"))
+        for kernel, recs in lstm_ptxas.items():
+            for rec in recs:
+                log("   ptxas lstm_train.cu {} ({}): {} registers, {} bytes "
+                    "static shared memory, {} bytes stack, spill stores {} "
+                    "loads {}".format(
+                        kernel, rec["entry"], rec.get("registers"),
+                        rec.get("smem_bytes"), rec.get("stack_bytes"),
+                        rec.get("spill_stores"), rec.get("spill_loads")))
+            if not recs:
+                raise AssertionError("no ptxas report for " + kernel)
 
     with phase("kernels vs plain versions, T=2000, four combinations"):
         layers, head = random_net(rng)
@@ -1813,10 +1911,14 @@ def main(argv=None):
                                                   gates=4), reverse)
                 log("   H={} reverse={}: lstm_fwd h max {:.3g} mean {:.3g}, "
                     "c relative {:.3g}; lstm_bwd relative max dxp {:.3g}, "
-                    "dW_hh {:.3g}, db_hh {:.3g}; repeat bit-identical".format(
+                    "dW_hh {:.3g}, db_hh {:.3g}; repeat bit-identical; "
+                    "(cluster, columns, shared memory, resident clusters) "
+                    "fwd {} bwd {}".format(
                         H, reverse, stats["fwd_max"], stats["fwd_mean"],
                         stats["c"], stats["dxp"], stats["dW_hh"],
-                        stats["db_hh"]))
+                        stats["db_hh"],
+                        *(lstm_train.geometry(kind, H, 128, dev)
+                          for kind in ("fwd", "bwd"))))
                 lstm_agreement["H{}_{}".format(
                     H, "reverse" if reverse else "forward")] = stats
         torch.cuda.empty_cache()
@@ -2230,6 +2332,12 @@ def main(argv=None):
         import shutil
         shutil.rmtree(work, ignore_errors=True)
 
+    for row in rows:
+        if row["name"] == "lstm_fwd":
+            row["ptxas"] = {"lstm_fwd_kernel": lstm_ptxas["lstm_fwd_kernel"]}
+        elif row["name"] == "lstm_bwd":
+            row["ptxas"] = {k: lstm_ptxas[k] for k in ("lstm_bwd_kernel",
+                                                        "rnn_dw_kernel")}
     log("card:", card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

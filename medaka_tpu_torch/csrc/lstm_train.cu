@@ -1,14 +1,15 @@
 // One LSTM direction over pre-projected inputs, forward and backward, for
-// training; written for Hopper (sm_90a) and bound to Python with ctypes
-// through a plain C interface.
+// training; written for Hopper (sm_90a: thread-block clusters, distributed
+// shared memory, mma.sync on the tensor cores) and bound to Python with
+// ctypes through a plain C interface.
 //
 // lstm_fwd  replaces medaka_tpu/ops/pallas_gru.py _lstm_kernel (called by
 //           lstm_pallas).
 // lstm_bwd  replaces medaka_tpu/ops/pallas_gru.py _lstm_bwd_kernel (called
 //           by lstm_bwd_pallas): three kernels launched in order on one
 //           stream, lstm_bwd_kernel (the recurrence), then rnn_dw_kernel
-//           (dW_hh) and rnn_bwd_reduce_kernel (the fixed-order sums) of
-//           rnn_train.cuh, which gru_train.cu shares.
+//           (dW_hh on the tensor cores) and rnn_bwd_reduce_kernel (the
+//           fixed-order sums) of rnn_train.cuh, which gru_train.cu shares.
 //
 // Forward, per step (gate order i, f, g, o):
 //   gates = f32(bf16(h) . W_hh_bf16^T) + b_hh + f32(x_proj[t])
@@ -31,347 +32,494 @@
 //   dh = bf16(dgates) . W_hh_bf16 + dh (1 - v)
 //   dc = dc_tot f v + dc (1 - v)
 //
-// Design. As gru_train.cu: the TPU kernels walk time blocks on a
-// sequential grid with the carry in VMEM scratch and dW_hh/db_hh in
-// resident output blocks; here one block owns a tile of BT = CPT * NQ
-// batch columns of one direction and loops over all T steps itself,
-// blocks never exchange state. Thread (j, q) owns hidden unit j (gate rows
-// j, H+j, 2H+j, 3H+j) for columns q*CPT .. q*CPT+CPT-1, so a unit's four
-// gates meet in one thread and its c (forward) or dh and dc (backward)
-// never leave its registers. The forward needs one __syncthreads a step
-// (double-buffered bf16 h in shared memory). The backward's product
-// bf16(dgates) . W_hh needs a column's whole 4H-long dgates, which goes
-// through shared memory: two __syncthreads a step; its h_prev (shared
-// memory) and c_prev (registers) are inputs, so the next step's are
-// loaded while the current step computes.
+// What bounds them on an H100, at B=128, T=1000, H=384 (chip_smoke.py's
+// train_bound, over the valid columns): the forward moves about 0.69 GB
+// (bf16 x_proj in, bf16 h and f32 c out), 0.21 ms at 3.35 TB/s, against
+// 151 GFLOP of products (0.15 ms on the tensor cores); the backward moves
+// about 1.7 GB (0.50 ms) against 453 GFLOP (0.46 ms). Both are a serial
+// chain of T dependent steps, so what bounds them in practice is the time
+// of one step, and before this design that was W_hh: one direction's bf16
+// W_hh is 8 H^2 bytes (1,179,648 B at H=384), five times an SM's shared
+// memory, and every block streamed all of it from L2 through its SM's port
+// on every step (twice a step in the backward), 26 us a step.
 //
-// W_hh is read in 16-byte chunks of 8 bf16 laid out so that a warp of 32
-// consecutive units reads 512 contiguous bytes: the forward product reads
-// W_hh's rows (chunk kc of row r at kc * 4H + r), the backward's dh
-// product W_hh's columns (chunk kc of column j at kc * H + j). One
-// direction's bf16 W_hh is 8 H^2 bytes. At H=128 (131,072 B) the forward
-// keeps it in dynamic shared memory; the backward's two layouts fit only
-// up to H=96. At H=384, the read-level training default, it is
-// 1,179,648 B, and the kernels read it through the read-only cache from L2
-// on every step (W_SMEM = false).
+// Design. A thread-block cluster of C blocks owns one tile of BT batch
+// columns of one direction and walks all T steps. Block r of the cluster
+// owns U = Hp / C hidden units (H padded to Hp with zero units) and keeps
+// their 4U gate rows of W_hh, bf16, in its shared memory for the whole
+// walk: no block reads W_hh from L2 after the prologue. At H=384 (C=8,
+// U=48) that is 192 x 392 x 2 = 150,528 B a block. C and BT are chosen on
+// the host (ops/lstm_train.py choose_geometry) from H, B and
+// cudaOccupancyMaxActiveClusters: the smallest C whose slice fits with at
+// most 64 units a block, the smallest BT in {8, 16, 32} whose clusters
+// run in one wave.
 //
-// dW_hh (4H x H f32, 2.4 MB at H=384) sums over every batch column and
-// step: the recurrence writes bf16(dgates) (the operand the TPU kernel
-// feeds its product with) to a scratch, rnn_dw_kernel sums 32 x 32 tiles
-// of bf16(dgates)^T bf16(h_prev) over split (t, b) ranges, and
-// rnn_bwd_reduce_kernel adds the split tiles and the per-(block, q) db_hh
-// sums in index order. No atomics: a run repeats bit for bit.
+// Rows of a slice: warp unit group q (8 units) holds rows q*32 + g*8 + u
+// (gate g, unit u), so in the m16n8k16 accumulator fragments of its two
+// 16-row tiles a thread holds gates i, f, g and o of one unit for two
+// batch columns: the gate nonlinearity and c stay in registers.
+//
+// Forward step: the product bf16(h) (BT x Hp) . W_slice^T on the tensor
+// cores (mma.sync m16n8k16 bf16, f32 accumulation chained over the
+// k-chunks; W_slice is the A operand and bf16(h) the B operand, both read
+// with ldmatrix from padded shared-memory rows), then
+// the gates, c and h of the block's units; the block's bf16 h slice
+// (BT x U) goes through a staging buffer into every cluster block's next
+// h buffer (distributed shared memory, 16-byte stores) and, with c, to
+// out and c_out in 16-byte stores; one cluster barrier a step, split into
+// arrive.release / wait.acquire so that the next step's x_proj loads
+// overlap it; h is double-buffered.
+//
+// Backward step: the gates recomputed from h_prev (BT x Hp, cp.async
+// from out, prefetched a step ahead) with the same slice and mma; then
+// dgates of the block's units; then its partial dh_prev = bf16(dgates)
+// [:, its rows] . W[its rows, :] (BT x Hp, f32) on the tensor cores
+// (W_slice^T read with ldmatrix.trans), whose fragments go straight to
+// the owning block's receive buffer (slot r) through distributed shared
+// memory. The next step sums the C slots of its own units in rank order
+// (deterministic) after the cluster barrier, which the next step's gate
+// product overlaps. db_hh is summed per thread, then per cluster in a
+// fixed order; dW_hh is rnn_dw_kernel's.
 //
 // Numerics follow the plain PyTorch versions in
 // medaka_tpu_torch/ops/lstm_train.py operation by operation: bf16 x bf16
-// products are exact in f32 and fmaf rounds only the sums; sigmoid is
-// 1 / (1 + expf(-v)) and tanh is tanhf in both; __fadd_rn/__fmul_rn/
-// __fsub_rn keep nvcc from contracting sums and products into FMAs the
-// plain versions do not do. What is left is the order of f32 sums (the
-// recurrent products, dW_hh and db_hh), which can move a bf16 rounding.
-// No value is rounded to an integer here.
-//
-// What bounds them on an H100, at B=128, T=1000, H=384: the forward moves
-// about 0.69 GB (bf16 x_proj in, bf16 h and f32 c out), 0.21 ms at
-// 3.35 TB/s, against 151 GFLOP of products (0.15 ms on the tensor cores);
-// the backward moves about 1.7 GB (0.50 ms) against 453 GFLOP (0.46 ms).
-// In practice the serial chain of T dependent steps, the CUDA-core dot
-// products and re-reading 1.18 MB of W_hh from L2 every step (twice in
-// the backward) bound both. The design keeps each block on 4 columns (32
-// blocks at B=128) so that W_hh crosses each SM's L2 port once a step for
-// 4 columns rather than once for each. Tensor-core mma for the per-step
-// products and W_hh split over a cluster's shared memory are later work.
+// products are exact in f32 and the tensor cores' f32 accumulation rounds
+// only the sums; sigmoid is 1 / (1 + expf(-v)) and tanh is tanhf in
+// both; __fadd_rn/__fmul_rn/__fsub_rn keep nvcc from contracting sums and
+// products into FMAs the plain versions do not do. What is left is the
+// order of f32 sums (the recurrent products, dW_hh and db_hh), which can
+// move a bf16 rounding. No atomics: a run repeats bit for bit.
+#include <cooperative_groups.h>
+
 #include "rnn_train.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-// bytes of one direction's bf16 W_hh (4H x H)
-__host__ __device__ __forceinline__ size_t w_bytes(int H) {
-  return static_cast<size_t>(8) * H * H;
+constexpr int UG = 8;         // units of a warp's unit group
+constexpr int MAX_U = 64;     // units of a block at most
+constexpr int MAX_THREADS = 512;
+
+__host__ __device__ __forceinline__ int units_per_block(int H, int C) {
+  return (H + C * UG - 1) / (C * UG) * UG;
 }
 
-size_t fwd_smem_bytes(bool w_smem, int BT, int H) {
-  return (w_smem ? align16(w_bytes(H)) : 0) +
-         align16(2 * static_cast<size_t>(BT) * H * sizeof(bf16));
+// the launch geometry of (H, C, BT), the same on the host and the card
+struct Geo {
+  int C, U, Hp, BT, NT, NG, NP;
+  int ldw;  // padded row (bf16) of the W slice and the h buffers: Hp + 8
+  int ldg;  // padded row (bf16) of the dgates tile: 4U + 8
+  __host__ __device__ Geo(int H, int c, int bt)
+      : C(c), U(units_per_block(H, c)), Hp(c * units_per_block(H, c)),
+        BT(bt), NT(bt >= 16 ? 2 : 1), NG(units_per_block(H, c) / UG),
+        NP(bt / (8 * (bt >= 16 ? 2 : 1))),
+        ldw(c * units_per_block(H, c) + 8),
+        ldg(4 * units_per_block(H, c) + 8) {}
+  __host__ __device__ int threads() const { return 32 * NG * NP; }
+  __host__ __device__ size_t w_bytes() const {
+    return align16(static_cast<size_t>(4) * U * ldw * sizeof(bf16));
+  }
+  __host__ __device__ size_t h_bytes() const {
+    return align16(static_cast<size_t>(2) * BT * ldw * sizeof(bf16));
+  }
+  // forward: W slice, h[2], staging of bf16 h [BT][U] and f32 c [BT][U]
+  __host__ __device__ size_t st_bytes() const {
+    return align16(static_cast<size_t>(BT) * U * sizeof(bf16));
+  }
+  __host__ __device__ size_t fwd_smem() const {
+    return w_bytes() + h_bytes() + st_bytes() +
+           align16(static_cast<size_t>(BT) * U * sizeof(float));
+  }
+  // backward: W slice, h_prev[2], bf16 dgates, dh partials [2][C][U][BT]
+  __host__ __device__ size_t dg_bytes() const {
+    return align16(static_cast<size_t>(BT) * ldg * sizeof(bf16));
+  }
+  __host__ __device__ size_t bwd_smem() const {
+    return w_bytes() + h_bytes() + dg_bytes() +
+           align16(static_cast<size_t>(2) * C * U * BT * sizeof(float));
+  }
+};
+
+bool bad_geometry(int H, int C, int BT) {
+  if (H % 32 != 0 || H <= 0 || H > 512) return true;
+  if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return true;
+  if (BT != 8 && BT != 16 && BT != 32) return true;
+  const Geo g(H, C, BT);
+  return g.U > MAX_U || g.threads() > MAX_THREADS;
 }
 
-size_t bwd_smem_bytes(bool w_smem, int BT, int H) {
-  return (w_smem ? 2 * align16(w_bytes(H)) : 0) +
-         align16(2 * static_cast<size_t>(BT) * H * sizeof(bf16)) +
-         align16(static_cast<size_t>(BT) * 4 * H * sizeof(bf16));
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// block r's slice (4U rows of Hp bf16, rows in the kernel's order) into
+// the padded rows of w_s
+__device__ __forceinline__ void load_slice(bf16* w_s, const bf16* w_sl,
+                                           const Geo& g, int r) {
+  const int cpr = g.Hp / 8;  // 16-byte chunks a row
+  const uint4* src = reinterpret_cast<const uint4*>(
+      w_sl + static_cast<size_t>(r) * 4 * g.U * g.Hp);
+  for (int e = threadIdx.x; e < 4 * g.U * cpr; e += blockDim.x) {
+    const int row = e / cpr;
+    const int c = e - row * cpr;
+    *reinterpret_cast<uint4*>(w_s + static_cast<size_t>(row) * g.ldw +
+                              c * 8) = src[e];
+  }
+}
+
+// acc[mt][nt] = W_s rows (q*32 + mt*16 ..) . h^T columns ((p*NT + nt)*8
+// ..): the gates of warp (q, p), f32 accumulation chained over the Hp/16
+// k-chunks in order
+template <int NT>
+__device__ __forceinline__ void gate_product(float (&acc)[2][NT][4],
+                                             const bf16* w_s,
+                                             const bf16* h_s, const Geo& g,
+                                             int q, int p, int lane) {
+  const int mat = lane >> 3;
+  const int lrow = lane & 7;
+  const uint32_t a0_addr = smem_addr(
+      w_s + (q * 32 + (mat & 1) * 8 + lrow) * g.ldw + (mat >> 1) * 8);
+  const uint32_t a1_addr = a0_addr + 16 * g.ldw * sizeof(bf16);
+  const int n = p * NT * 8 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
+  const uint32_t b_addr = smem_addr(h_s + n * g.ldw + (mat & 1) * 8);
+  for (int ks = 0; ks < g.Hp / 16; ++ks) {
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, a0_addr + ks * 32);
+    ldsm_x4(a1, a1_addr + ks * 32);
+    if constexpr (NT == 2) {
+      uint32_t b[4];
+      ldsm_x4(b, b_addr + ks * 32);
+      mma_bf16(acc[0][0], a0, b[0], b[1]);
+      mma_bf16(acc[0][1], a0, b[2], b[3]);
+      mma_bf16(acc[1][0], a1, b[0], b[1]);
+      mma_bf16(acc[1][1], a1, b[2], b[3]);
+    } else {
+      uint32_t b[2];
+      ldsm_x2(b, b_addr + ks * 32);
+      mma_bf16(acc[0][0], a0, b[0], b[1]);
+      mma_bf16(acc[1][0], a1, b[0], b[1]);
+    }
+  }
+}
+
+// gate g of the cell (nt, e) of a thread: rows u (i), u + 8 (f) of tile 0
+// and u (g), u + 8 (o) of tile 1
+template <int NT>
+__device__ __forceinline__ float gate_acc(const float (&acc)[2][NT][4],
+                                          int gate, int nt, int e) {
+  return acc[gate >> 1][nt][(gate & 1) * 2 + e];
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(B / BT)), block H * NQ threads
+// forward: grid (clusters * C), cluster (C), block 32 * NG * NP threads
 // ---------------------------------------------------------------------------
 
-template <int CPT, bool W_SMEM>
-__global__ void __launch_bounds__(512)
+template <int NT>
+__global__ void __launch_bounds__(MAX_THREADS)
     lstm_fwd_kernel(const bf16* __restrict__ xp,
-                    const uint4* __restrict__ w_rows,
+                    const bf16* __restrict__ w_sl,
                     const float* __restrict__ b_hh,
                     const int* __restrict__ lengths, bf16* __restrict__ out,
-                    float* __restrict__ c_out, int T, int B, int H, int NQ,
-                    int reverse) {
+                    float* __restrict__ c_out, int T, int B, int H, int C,
+                    int BT, int reverse) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int BT = CPT * NQ;
-  const int b0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int j = tid % H;
-  const int c0 = (tid / H) * CPT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Geo g(H, C, BT);
+  const int r = static_cast<int>(cluster.block_rank());
+  const int b0 = static_cast<int>(blockIdx.x) / C * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = warp % g.NG;
+  const int p = warp / g.NG;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int U = g.U;
   const int H4 = 4 * H;
-  const int kchunks = H / 8;  // 16-byte chunks of 8 bf16 per row
+  constexpr int CELLS = 2 * NT;
 
-  unsigned char* p = smem;
-  uint4* w_s = reinterpret_cast<uint4*>(p);
-  if (W_SMEM) p += align16(w_bytes(H));
-  bf16* act_s = reinterpret_cast<bf16*>(p);  // [2][BT][H]
+  bf16* w_s = reinterpret_cast<bf16*>(smem);  // [4U][ldw]
+  bf16* h_s = reinterpret_cast<bf16*>(smem + g.w_bytes());  // [2][BT][ldw]
+  // the block's h and c slices of a step, staged [BT][U]
+  bf16* st_h = reinterpret_cast<bf16*>(smem + g.w_bytes() + g.h_bytes());
+  float* st_c = reinterpret_cast<float*>(smem + g.w_bytes() + g.h_bytes() +
+                                         g.st_bytes());
 
-  if (W_SMEM) {
-    for (int i = tid; i < kchunks * H4; i += blockDim.x) w_s[i] = w_rows[i];
-  }
-  const uint4* wmat = W_SMEM ? w_s : w_rows;
-  for (int i = tid; i < 2 * BT * H; i += blockDim.x)
-    act_s[i] = __float2bfloat16_rn(0.0f);
+  load_slice(w_s, w_sl, g, r);
+  for (int e = threadIdx.x; e < 2 * BT * g.ldw; e += blockDim.x)
+    h_s[e] = __float2bfloat16_rn(0.0f);
 
+  // this thread's cells: unit ul (block-local) for columns n[0..CELLS)
+  const int ul = q * UG + gid;
+  const int j = r * U + ul;
+  const bool unit_in = j < H;
   float bh[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bh[g] = b_hh[g * H + j];
-  int len[CPT];
-  float h[CPT], c[CPT];
+  for (int gt = 0; gt < 4; ++gt) bh[gt] = unit_in ? b_hh[gt * H + j] : 0.0f;
+  int ncol[CELLS], len[CELLS];
+  float h[CELLS], c[CELLS];
 #pragma unroll
-  for (int cc = 0; cc < CPT; ++cc) {
-    const int b = b0 + c0 + cc;
-    len[cc] = b < B ? lengths[b] : 0;
-    h[cc] = 0.0f;
-    c[cc] = 0.0f;
+  for (int ci = 0; ci < CELLS; ++ci) {
+    ncol[ci] = (p * NT + ci / 2) * 8 + tig * 2 + ci % 2;
+    const int b = b0 + ncol[ci];
+    len[ci] = b < B ? lengths[b] : 0;
+    h[ci] = 0.0f;
+    c[ci] = 0.0f;
   }
-
-  // this thread's projections of step tt: x_proj[tt, b, g*H + j]
-  auto load_x = [&](int tt, bf16 (&dst)[4][CPT]) {
+  bf16 xr[CELLS][4];
+  auto load_x = [&](int tt) {
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int b = b0 + c0 + cc;
+    for (int ci = 0; ci < CELLS; ++ci) {
+      const int b = b0 + ncol[ci];
+      const bool in = unit_in && b < B;
       const size_t row = (static_cast<size_t>(tt) * B + b) * H4 + j;
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        dst[g][cc] = b < B ? xp[row + g * H] : __float2bfloat16_rn(0.0f);
+      for (int gt = 0; gt < 4; ++gt)
+        xr[ci][gt] = in ? xp[row + gt * H] : __float2bfloat16_rn(0.0f);
     }
   };
-  bf16 x_cur[4][CPT], x_next[4][CPT];
-  load_x(reverse ? T - 1 : 0, x_cur);
-  __syncthreads();
+  load_x(reverse ? T - 1 : 0);
+  cluster.sync();  // every block running, its h buffers zero
 
+  const int u8 = U / 8;
   for (int i = 0; i < T; ++i) {
     const int cur = i & 1;
     const int t = reverse ? T - 1 - i : i;
-    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1, x_next);
+    if (i > 0) cluster_wait();  // h[cur] complete in this block
 
-    // recurrent product bf16(h) . W_hh^T, f32 accumulation
-    float acc[4][CPT] = {};
-    const uint4* act = reinterpret_cast<const uint4*>(act_s + cur * BT * H);
-    for (int kc = 0; kc < kchunks; ++kc) {
-      uint4 w[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        w[g] = load_w(wmat, static_cast<size_t>(kc) * H4 + g * H + j, W_SMEM);
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const uint4 a = act[(c0 + cc) * kchunks + kc];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[g][cc] = dot8_bf16(w[g], a, acc[g][cc]);
-      }
-    }
+    float acc[2][NT][4] = {};
+    gate_product<NT>(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
 
-    bf16* act_n = act_s + (cur ^ 1) * BT * H;
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
+    for (int ci = 0; ci < CELLS; ++ci) {
       float gate[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        gate[g] = __fadd_rn(__fadd_rn(acc[g][cc], bh[g]),
-                            __bfloat162float(x_cur[g][cc]));
+      for (int gt = 0; gt < 4; ++gt)
+        gate[gt] = __fadd_rn(
+            __fadd_rn(gate_acc<NT>(acc, gt, ci / 2, ci % 2), bh[gt]),
+            __bfloat162float(xr[ci][gt]));
       const float gi = sigmoid_f(gate[0]);
       const float gf = sigmoid_f(gate[1]);
       const float gg = tanhf(gate[2]);
       const float go = sigmoid_f(gate[3]);
-      const float cn = __fadd_rn(__fmul_rn(gf, c[cc]), __fmul_rn(gi, gg));
+      const float cn = __fadd_rn(__fmul_rn(gf, c[ci]), __fmul_rn(gi, gg));
       const float hn = __fmul_rn(go, tanhf(cn));
-      if (t < len[cc]) {
-        h[cc] = hn;
-        c[cc] = cn;
+      if (t < len[ci]) {
+        h[ci] = hn;
+        c[ci] = cn;
       }
-      const bf16 hb = __float2bfloat16_rn(h[cc]);
-      act_n[(c0 + cc) * H + j] = hb;
-      const int b = b0 + c0 + cc;
-      if (b < B) {
-        const size_t o = (static_cast<size_t>(t) * B + b) * H + j;
-        out[o] = hb;
-        c_out[o] = c[cc];
-      }
+      st_h[ncol[ci] * U + ul] = __float2bfloat16_rn(h[ci]);
+      st_c[ncol[ci] * U + ul] = c[ci];
     }
+    __syncthreads();  // the block's h and c slices staged
+
+    // bf16 h slice into every cluster block's next h buffer (not after
+    // the last step), h and c to the outputs, 16 bytes a store
     if (i + 1 < T) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) x_cur[g][cc] = x_next[g][cc];
+      bf16* nxt = h_s + (cur ^ 1) * BT * g.ldw + r * U;
+      for (int e = threadIdx.x; e < C * BT * u8; e += blockDim.x) {
+        const int d = e / (BT * u8);
+        const int rem = e - d * BT * u8;
+        const int n = rem / u8;
+        const int k8 = rem - n * u8;
+        bf16* dst = cluster.map_shared_rank(nxt, d) + n * g.ldw + k8 * 8;
+        *reinterpret_cast<uint4*>(dst) =
+            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
+      }
     }
-    __syncthreads();
+    for (int e = threadIdx.x; e < BT * u8; e += blockDim.x) {
+      const int n = e / u8;
+      const int k8 = e - n * u8;
+      const int b = b0 + n;
+      const int j0 = r * U + k8 * 8;
+      if (b < B && j0 < H)
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(t) * B + b) * H +
+                                  j0) =
+            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
+    }
+    for (int e = threadIdx.x; e < BT * 2 * u8; e += blockDim.x) {
+      const int n = e / (2 * u8);
+      const int k4 = e - n * 2 * u8;
+      const int b = b0 + n;
+      const int j0 = r * U + k4 * 4;
+      if (b < B && j0 < H)
+        *reinterpret_cast<float4*>(c_out +
+                                   (static_cast<size_t>(t) * B + b) * H + j0) =
+            *reinterpret_cast<const float4*>(st_c + n * U + k4 * 4);
+    }
+    cluster_arrive();
+    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1);
   }
+  cluster_wait();  // no block leaves while another may still write to it
 }
 
 // ---------------------------------------------------------------------------
-// backward recurrence: grid (ceil(B / BT)), block H * NQ threads
+// backward recurrence: grid (clusters * C), cluster (C), block 32 * NG * NP
 // ---------------------------------------------------------------------------
 
-template <int CPT, bool W_SMEM>
-__global__ void __launch_bounds__(512)
+template <int NT>
+__global__ void __launch_bounds__(MAX_THREADS)
     lstm_bwd_kernel(const bf16* __restrict__ xp,
                     const bf16* __restrict__ h_out,
                     const float* __restrict__ c_out,
                     const float* __restrict__ dh_out,
-                    const uint4* __restrict__ w_rows,
-                    const uint4* __restrict__ w_cols,
+                    const bf16* __restrict__ w_sl,
                     const float* __restrict__ b_hh,
                     const int* __restrict__ lengths, float* __restrict__ dxp,
                     bf16* __restrict__ dg_out, float* __restrict__ db_part,
-                    int T, int B, int H, int NQ, int reverse) {
+                    int T, int B, int H, int C, int BT, int reverse) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int BT = CPT * NQ;
-  const int b0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int j = tid % H;
-  const int q = tid / H;
-  const int c0 = q * CPT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Geo g(H, C, BT);
+  const int r = static_cast<int>(cluster.block_rank());
+  const int cid = static_cast<int>(blockIdx.x) / C;
+  const int b0 = cid * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = warp % g.NG;
+  const int p = warp / g.NG;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int mat = lane >> 3;
+  const int lrow = lane & 7;
+  const int U = g.U;
   const int H4 = 4 * H;
-  const int kch_h = H / 8;   // chunks of a row of W_hh / of h
-  const int kch_g = H4 / 8;  // chunks of a row of W_hh^T / of dgates
+  constexpr int CELLS = 2 * NT;
 
-  unsigned char* p = smem;
-  uint4* wr_s = reinterpret_cast<uint4*>(p);
-  if (W_SMEM) p += align16(w_bytes(H));
-  uint4* wc_s = reinterpret_cast<uint4*>(p);
-  if (W_SMEM) p += align16(w_bytes(H));
-  bf16* hbuf = reinterpret_cast<bf16*>(p);  // [2][BT][H] bf16 h_prev
-  p += align16(2 * static_cast<size_t>(BT) * H * sizeof(bf16));
-  bf16* dg_s = reinterpret_cast<bf16*>(p);  // [BT][4H] bf16(dgates)
+  bf16* w_s = reinterpret_cast<bf16*>(smem);  // [4U][ldw]
+  bf16* h_s = reinterpret_cast<bf16*>(smem + g.w_bytes());  // [2][BT][ldw]
+  bf16* dg_s = reinterpret_cast<bf16*>(smem + g.w_bytes() +
+                                       g.h_bytes());  // [BT][ldg]
+  // dh partials [2][C][U][BT]: slot s holds block s's partial for this
+  // block's units
+  float* recv = reinterpret_cast<float*>(smem + g.w_bytes() + g.h_bytes() +
+                                         g.dg_bytes());
+  const int slot = C * U * BT;
 
-  if (W_SMEM) {
-    for (int i = tid; i < kch_h * H4; i += blockDim.x) {
-      wr_s[i] = w_rows[i];
-      wc_s[i] = w_cols[i];  // same count: 4H x H either way
-    }
-  }
-  const uint4* wrow = W_SMEM ? wr_s : w_rows;
-  const uint4* wcol = W_SMEM ? wc_s : w_cols;
-
-  float bh[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bh[g] = b_hh[g * H + j];
-  int len[CPT];
-  float dh[CPT], dc[CPT];
-#pragma unroll
-  for (int cc = 0; cc < CPT; ++cc) {
-    const int b = b0 + c0 + cc;
-    len[cc] = b < B ? lengths[b] : 0;
-    dh[cc] = 0.0f;
-    dc[cc] = 0.0f;
-  }
-  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  load_slice(w_s, w_sl, g, r);
+  for (int e = threadIdx.x; e < 2 * BT * g.ldw; e += blockDim.x)
+    h_s[e] = __float2bfloat16_rn(0.0f);
 
   // walk opposite to the forward: t = T-1 .. 0 for a forward-direction
   // LSTM, t = 0 .. T-1 for a reverse one
   auto t_of = [&](int i) { return reverse ? i : T - 1 - i; };
-  // the step before tt in the forward's order: tt - 1 (forward) or
-  // tt + 1 (reverse); out of range at the recurrence start
+  // the step before tt in the forward's order; out of range at the start
   auto prev_of = [&](int tt) { return reverse ? tt + 1 : tt - 1; };
-  // h_prev of step tt into dst[BT][H], zero at the recurrence start
-  auto load_hprev = [&](int tt, bf16* dst) {
-    const int tp = prev_of(tt);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int e = tid; e < BT * kch_h; e += blockDim.x) {
-      const int c = e / kch_h;
-      const int kc = e - c * kch_h;
-      const int b = b0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (tp >= 0 && tp < T && b < B)
-        v = *reinterpret_cast<const uint4*>(
-            h_out + (static_cast<size_t>(tp) * B + b) * H + kc * 8);
-      d[e] = v;
+  // h_prev of step i (all H units of the tile's columns) into h buffer buf
+  const int h8 = H / 8;
+  auto load_h = [&](int i, int buf) {
+    const int tp = prev_of(t_of(i));
+    const bool t_in = tp >= 0 && tp < T;
+    bf16* dst = h_s + buf * BT * g.ldw;
+    for (int e = threadIdx.x; e < BT * h8; e += blockDim.x) {
+      const int n = e / h8;
+      const int k8 = e - n * h8;
+      const int b = b0 + n;
+      const bool in = t_in && b < B;
+      cp_async16(dst + n * g.ldw + k8 * 8,
+                 in ? h_out + (static_cast<size_t>(tp) * B + b) * H + k8 * 8
+                    : h_out,
+                 in);
     }
-  };
-  // this thread's projections, upstream gradient and c_prev of step tt
-  auto load_x = [&](int tt, bf16 (&xd)[4][CPT], float (&gd)[CPT],
-                    float (&cd)[CPT]) {
-    const int tp = prev_of(tt);
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int b = b0 + c0 + cc;
-      const size_t col = static_cast<size_t>(tt) * B + b;
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        xd[g][cc] = b < B ? xp[col * H4 + g * H + j]
-                          : __float2bfloat16_rn(0.0f);
-      gd[cc] = b < B ? dh_out[col * H + j] : 0.0f;
-      cd[cc] = (b < B && tp >= 0 && tp < T)
-                   ? c_out[(static_cast<size_t>(tp) * B + b) * H + j]
-                   : 0.0f;
-    }
+    cp_async_commit();
   };
 
-  bf16 x_cur[4][CPT], x_next[4][CPT];
-  float g_cur[CPT], g_next[CPT], cp_cur[CPT], cp_next[CPT];
-  load_hprev(t_of(0), hbuf);
-  load_x(t_of(0), x_cur, g_cur, cp_cur);
-  __syncthreads();
+  const int ul = q * UG + gid;
+  const int j = r * U + ul;
+  const bool unit_in = j < H;
+  float bh[4];
+#pragma unroll
+  for (int gt = 0; gt < 4; ++gt) bh[gt] = unit_in ? b_hh[gt * H + j] : 0.0f;
+  int ncol[CELLS], len[CELLS];
+  float dh_pass[CELLS], dc[CELLS];
+#pragma unroll
+  for (int ci = 0; ci < CELLS; ++ci) {
+    ncol[ci] = (p * NT + ci / 2) * 8 + tig * 2 + ci % 2;
+    const int b = b0 + ncol[ci];
+    len[ci] = b < B ? lengths[b] : 0;
+    dh_pass[ci] = 0.0f;
+    dc[ci] = 0.0f;
+  }
+  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // this thread's projections, upstream gradient and c_prev of step i
+  bf16 xr[CELLS][4];
+  float gup[CELLS], cprev[CELLS];
+  auto load_x = [&](int i) {
+    const int tt = t_of(i);
+    const int tp = prev_of(tt);
+    const bool p_in = tp >= 0 && tp < T;
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) {
+      const int b = b0 + ncol[ci];
+      const bool in = unit_in && b < B;
+      const size_t col = static_cast<size_t>(tt) * B + b;
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt)
+        xr[ci][gt] = in ? xp[col * H4 + gt * H + j]
+                        : __float2bfloat16_rn(0.0f);
+      gup[ci] = in ? dh_out[col * H + j] : 0.0f;
+      cprev[ci] = (in && p_in)
+                      ? c_out[(static_cast<size_t>(tp) * B + b) * H + j]
+                      : 0.0f;
+    }
+  };
+  load_x(0);
+  cluster.sync();  // every block running, its h buffers zero
+  load_h(0, 0);
+
+  // the dh product's operands: W_slice^T (A, ldmatrix.trans) and the
+  // block's bf16 dgates (B)
+  const int nb = p * NT * 8 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
+  const uint32_t dg_addr = smem_addr(dg_s + nb * g.ldg + (mat & 1) * 8);
+  const uint32_t wt_addr =
+      smem_addr(w_s + ((mat >> 1) * 8 + lrow) * g.ldw + (mat & 1) * 8);
 
   for (int i = 0; i < T; ++i) {
     const int cur = i & 1;
     const int t = t_of(i);
-    const bf16* hb = hbuf + cur * BT * H;
-    if (i + 1 < T) {
-      load_hprev(t_of(i + 1), hbuf + (cur ^ 1) * BT * H);
-      load_x(t_of(i + 1), x_next, g_next, cp_next);
-    }
+    cp_async_wait_all();
+    __syncthreads();  // h_prev of step i in h[cur]; dg_s free
+    if (i + 1 < T) load_h(i + 1, cur ^ 1);
 
-    // recompute bf16(h_prev) . W_hh^T (f32 accumulation)
-    float acc[4][CPT] = {};
-    const uint4* act = reinterpret_cast<const uint4*>(hb);
-    for (int kc = 0; kc < kch_h; ++kc) {
-      uint4 w[4];
+    float acc[2][NT][4] = {};
+    gate_product<NT>(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
+    if (i > 0) cluster_wait();  // step i-1's dh partials received
+    const float* rv = recv + ((i - 1) & 1) * slot;
+
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        w[g] = load_w(wrow, static_cast<size_t>(kc) * H4 + g * H + j, W_SMEM);
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const uint4 a = act[(c0 + cc) * kch_h + kc];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[g][cc] = dot8_bf16(w[g], a, acc[g][cc]);
+    for (int ci = 0; ci < CELLS; ++ci) {
+      const int n = ncol[ci];
+      // dh = (sum of the C partials, in rank order) + dh (1 - valid)
+      float dh = 0.0f;
+      if (i > 0) {
+        dh = rv[ul * BT + n];
+        for (int s = 1; s < C; ++s)
+          dh = __fadd_rn(dh, rv[(s * U + ul) * BT + n]);
       }
-    }
-
-    float dh_pass[CPT], dc_next[CPT];
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int b = b0 + c0 + cc;
-      const float c_prev = cp_cur[cc];
-      const float dhv = __fadd_rn(dh[cc], g_cur[cc]);
+      dh = __fadd_rn(dh, dh_pass[ci]);
+      const float c_prev = cprev[ci];
+      const float dhv = __fadd_rn(dh, gup[ci]);
       float gate[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        gate[g] = __fadd_rn(__fadd_rn(acc[g][cc], bh[g]),
-                            __bfloat162float(x_cur[g][cc]));
+      for (int gt = 0; gt < 4; ++gt)
+        gate[gt] = __fadd_rn(
+            __fadd_rn(gate_acc<NT>(acc, gt, ci / 2, ci % 2), bh[gt]),
+            __bfloat162float(xr[ci][gt]));
       const float gi = sigmoid_f(gate[0]);
       const float gf = sigmoid_f(gate[1]);
       const float gg = tanhf(gate[2]);
       const float go = sigmoid_f(gate[3]);
       const float c_t = __fadd_rn(__fmul_rn(gf, c_prev), __fmul_rn(gi, gg));
       const float th = tanhf(c_t);
-      const float valid = t < len[cc] ? 1.0f : 0.0f;
+      const float valid = t < len[ci] ? 1.0f : 0.0f;
       const float do_pre = __fmul_rn(__fmul_rn(__fmul_rn(dhv, th), go),
                                      __fsub_rn(1.0f, go));
       const float dc_tot = __fadd_rn(
-          dc[cc], __fmul_rn(__fmul_rn(dhv, go),
+          dc[ci], __fmul_rn(__fmul_rn(dhv, go),
                             __fsub_rn(1.0f, __fmul_rn(th, th))));
       const float di_pre = __fmul_rn(__fmul_rn(__fmul_rn(dc_tot, gg), gi),
                                      __fsub_rn(1.0f, gi));
@@ -381,168 +529,206 @@ __global__ void __launch_bounds__(512)
                                      __fsub_rn(1.0f, __fmul_rn(gg, gg)));
       const float d[4] = {__fmul_rn(di_pre, valid), __fmul_rn(df_pre, valid),
                           __fmul_rn(dg_pre, valid), __fmul_rn(do_pre, valid)};
-      bf16* drow = dg_s + (c0 + cc) * H4;
+      const int b = b0 + n;
       const size_t row = (static_cast<size_t>(t) * B + b) * H4 + j;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const bf16 db16 = __float2bfloat16_rn(d[g]);
-        if (b < B) {
-          dxp[row + g * H] = d[g];
-          dg_out[row + g * H] = db16;
+      for (int gt = 0; gt < 4; ++gt) {
+        const bf16 d16 = __float2bfloat16_rn(d[gt]);
+        if (unit_in && b < B) {
+          dxp[row + gt * H] = d[gt];
+          dg_out[row + gt * H] = d16;
         }
-        db_acc[g] = __fadd_rn(db_acc[g], d[g]);
-        drow[g * H + j] = db16;
+        db_acc[gt] = __fadd_rn(db_acc[gt], d[gt]);
+        dg_s[n * g.ldg + q * 32 + gt * 8 + gid] = d16;
       }
-      dh_pass[cc] = __fmul_rn(dhv, __fsub_rn(1.0f, valid));
-      dc_next[cc] = __fadd_rn(__fmul_rn(__fmul_rn(dc_tot, gf), valid),
-                              __fmul_rn(dc[cc], __fsub_rn(1.0f, valid)));
+      dh_pass[ci] = __fmul_rn(dhv, __fsub_rn(1.0f, valid));
+      dc[ci] = __fadd_rn(__fmul_rn(__fmul_rn(dc_tot, gf), valid),
+                         __fmul_rn(dc[ci], __fsub_rn(1.0f, valid)));
     }
-    __syncthreads();  // dg_s complete (and the next h_prev loaded)
+    __syncthreads();  // dg_s complete
 
-    // dh_prev = bf16(dgates) . W_hh + dh (1 - valid)
-    float acc2[CPT] = {};
-    const uint4* dact = reinterpret_cast<const uint4*>(dg_s);
-    for (int kc = 0; kc < kch_g; ++kc) {
-      const uint4 w = load_w(wcol, static_cast<size_t>(kc) * H + j, W_SMEM);
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc)
-        acc2[cc] = dot8_bf16(w, dact[(c0 + cc) * kch_g + kc], acc2[cc]);
-    }
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      dh[cc] = __fadd_rn(acc2[cc], dh_pass[cc]);
-      dc[cc] = dc_next[cc];
-    }
+    // partial dh_prev = bf16(dgates)[:, rows] . W[rows, :] for every unit
+    // (not after the last step); 16-unit tile mt goes to the blocks that
+    // own its units, slot r of their receive buffer
     if (i + 1 < T) {
+      float* dst_base = recv + cur * slot + r * U * BT;
+      for (int mt = q; mt < g.Hp / 16; mt += g.NG) {
+        float acc2[NT][4] = {};
+        for (int ks = 0; ks < U / 4; ++ks) {
+          uint32_t a[4];
+          ldsm_x4_t(a, wt_addr + (ks * 16 * g.ldw + mt * 16) * sizeof(bf16));
+          if constexpr (NT == 2) {
+            uint32_t bq[4];
+            ldsm_x4(bq, dg_addr + ks * 32);
+            mma_bf16(acc2[0], a, bq[0], bq[1]);
+            mma_bf16(acc2[1], a, bq[2], bq[3]);
+          } else {
+            uint32_t bq[2];
+            ldsm_x2(bq, dg_addr + ks * 32);
+            mma_bf16(acc2[0], a, bq[0], bq[1]);
+          }
+        }
 #pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        g_cur[cc] = g_next[cc];
-        cp_cur[cc] = cp_next[cc];
+        for (int hh = 0; hh < 2; ++hh) {
+          const int m = mt * 16 + gid + hh * 8;
+          const int dest = m / U;
+          float* dst = cluster.map_shared_rank(dst_base, dest) + (m % U) * BT;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) x_cur[g][cc] = x_next[g][cc];
+          for (int nt = 0; nt < NT; ++nt)
+            *reinterpret_cast<float2*>(dst + (p * NT + nt) * 8 + tig * 2) =
+                make_float2(acc2[nt][2 * hh], acc2[nt][2 * hh + 1]);
+        }
       }
     }
-    __syncthreads();  // dg_s and this step's h_prev are free again
+    cluster_arrive();
+    if (i + 1 < T) load_x(i + 1);
   }
+  cluster_wait();  // every partial delivered; recv free for the db sums
 
-  float* dbp = db_part + (static_cast<size_t>(blockIdx.x) * NQ + q) * H4;
+  // db_hh of the cluster: each thread's sums over its columns and steps,
+  // then over (p, tig) in a fixed order
+  float* dbs = recv;  // [NP * 4][4U]
 #pragma unroll
-  for (int g = 0; g < 4; ++g) dbp[g * H + j] = db_acc[g];
+  for (int gt = 0; gt < 4; ++gt)
+    dbs[(p * 4 + tig) * 4 * U + q * 32 + gt * 8 + gid] = db_acc[gt];
+  __syncthreads();
+  for (int row = threadIdx.x; row < 4 * U; row += blockDim.x) {
+    float s = dbs[row];
+    for (int k = 1; k < g.NP * 4; ++k) s = __fadd_rn(s, dbs[k * 4 * U + row]);
+    const int jj = r * U + (row / 32) * UG + row % 8;
+    const int gt = (row % 32) / 8;
+    if (jj < H) db_part[static_cast<size_t>(cid) * H4 + gt * H + jj] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int CPT, bool W_SMEM>
-cudaError_t launch_fwd(const void* xp, const void* w_rows, const float* b_hh,
-                       const int* lengths, void* out, float* c_out, int T,
-                       int B, int H, int NQ, int reverse,
-                       cudaStream_t stream) {
-  const int BT = CPT * NQ;
-  const size_t smem = fwd_smem_bytes(W_SMEM, BT, H);
-  auto kern = lstm_fwd_kernel<CPT, W_SMEM>;
+// dynamic shared memory and, above the portable 8, the cluster size
+template <typename Kern>
+cudaError_t set_attributes(Kern kern, int C, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+struct ClusterConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterConfig(int C, int blocks, int threads, size_t smem,
+                cudaStream_t stream) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename Kern, typename... Args>
+cudaError_t launch_cluster(Kern kern, const Geo& g, int B, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaError_t err = set_attributes(kern, g.C, smem);
   if (err != cudaSuccess) return err;
-  kern<<<(B + BT - 1) / BT, H * NQ, smem, stream>>>(
-      static_cast<const bf16*>(xp), static_cast<const uint4*>(w_rows), b_hh,
-      lengths, static_cast<bf16*>(out), c_out, T, B, H, NQ, reverse);
+  const int clusters = (B + g.BT - 1) / g.BT;
+  ClusterConfig cc(g.C, clusters * g.C, g.threads(), smem, stream);
+  err = cudaLaunchKernelEx(&cc.cfg, kern, args...);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int CPT, bool W_SMEM>
-cudaError_t launch_bwd(const void* xp, const void* h_out, const float* c_out,
-                       const float* dh_out, const void* w_rows,
-                       const void* w_cols, const float* b_hh,
-                       const int* lengths, float* dxp, void* dg, float* db_part,
-                       int T, int B, int H, int NQ, int reverse,
-                       cudaStream_t stream) {
-  const int BT = CPT * NQ;
-  const size_t smem = bwd_smem_bytes(W_SMEM, BT, H);
-  auto kern = lstm_bwd_kernel<CPT, W_SMEM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kern<<<(B + BT - 1) / BT, H * NQ, smem, stream>>>(
-      static_cast<const bf16*>(xp), static_cast<const bf16*>(h_out), c_out,
-      dh_out, static_cast<const uint4*>(w_rows),
-      static_cast<const uint4*>(w_cols), b_hh, lengths, dxp,
-      static_cast<bf16*>(dg), db_part, T, B, H, NQ, reverse);
-  return cudaGetLastError();
-}
-
-template <bool W_SMEM, typename... Args>
-cudaError_t dispatch_fwd(int cpt, Args... args) {
-  switch (cpt) {
-    case 1: return launch_fwd<1, W_SMEM>(args...);
-    case 2: return launch_fwd<2, W_SMEM>(args...);
-    case 4: return launch_fwd<4, W_SMEM>(args...);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <bool W_SMEM, typename... Args>
-cudaError_t dispatch_bwd(int cpt, Args... args) {
-  switch (cpt) {
-    case 1: return launch_bwd<1, W_SMEM>(args...);
-    case 2: return launch_bwd<2, W_SMEM>(args...);
-    case 4: return launch_bwd<4, W_SMEM>(args...);
-    default: return cudaErrorInvalidValue;
-  }
+template <typename Kern>
+int max_clusters(Kern kern, const Geo& g, size_t smem) {
+  cudaError_t err = set_attributes(kern, g.C, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  ClusterConfig cc(g.C, g.C, g.threads(), smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &cc.cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return n;
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t lstm_fwd_smem(int w_smem, int bt, int hidden) {
-  return fwd_smem_bytes(w_smem != 0, bt, hidden);
+size_t lstm_fwd_smem(int C, int BT, int H) { return Geo(H, C, BT).fwd_smem(); }
+
+size_t lstm_bwd_smem(int C, int BT, int H) { return Geo(H, C, BT).bwd_smem(); }
+
+// clusters of C blocks that can be resident at once for the forward
+// (bwd = 0) or backward (bwd = 1) kernel at (C, BT, H); a negative value
+// is minus a cudaError_t
+int lstm_max_clusters(int bwd, int C, int BT, int H) {
+  if (bad_geometry(H, C, BT))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const Geo g(H, C, BT);
+  if (bwd)
+    return g.NT == 2 ? max_clusters(lstm_bwd_kernel<2>, g, g.bwd_smem())
+                     : max_clusters(lstm_bwd_kernel<1>, g, g.bwd_smem());
+  return g.NT == 2 ? max_clusters(lstm_fwd_kernel<2>, g, g.fwd_smem())
+                   : max_clusters(lstm_fwd_kernel<1>, g, g.fwd_smem());
 }
 
-size_t lstm_bwd_smem(int w_smem, int bt, int hidden) {
-  return bwd_smem_bytes(w_smem != 0, bt, hidden);
-}
-
-// out (T, B, H) bf16 and c_out (T, B, H) f32
-int lstm_fwd_launch(const void* xp, const void* w_rows, const float* b_hh,
+// out (T, B, H) bf16 and c_out (T, B, H) f32; w_sl (C, 4U, Hp) bf16 from
+// ops/lstm_train.py w_slices
+int lstm_fwd_launch(const void* xp, const void* w_sl, const float* b_hh,
                     const int* lengths, void* out, float* c_out, int T, int B,
-                    int H, int cpt, int nq, int w_smem, int reverse,
-                    void* stream) {
-  if (bad_shape(H, nq)) return static_cast<int>(cudaErrorInvalidValue);
+                    int H, int C, int BT, int reverse, void* stream) {
+  if (bad_geometry(H, C, BT) || T < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geo g(H, C, BT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      w_smem ? dispatch_fwd<true>(cpt, xp, w_rows, b_hh, lengths, out, c_out,
-                                  T, B, H, nq, reverse, s)
-             : dispatch_fwd<false>(cpt, xp, w_rows, b_hh, lengths, out, c_out,
-                                   T, B, H, nq, reverse, s);
+  const bf16* x = static_cast<const bf16*>(xp);
+  const bf16* w = static_cast<const bf16*>(w_sl);
+  bf16* o = static_cast<bf16*>(out);
+  const cudaError_t e =
+      g.NT == 2
+          ? launch_cluster(lstm_fwd_kernel<2>, g, B, g.fwd_smem(), s, x, w,
+                           b_hh, lengths, o, c_out, T, B, H, C, BT, reverse)
+          : launch_cluster(lstm_fwd_kernel<1>, g, B, g.fwd_smem(), s, x, w,
+                           b_hh, lengths, o, c_out, T, B, H, C, BT, reverse);
   return static_cast<int>(e);
 }
 
 // the recurrence, the dW partial tiles and the fixed-order sums, in order
-// on `stream`; dg (T, B, 4H) bf16, db_part (ceil(B / BT) * nq, 4H) f32 and
+// on `stream`; dg (T, B, 4H) bf16, db_part (ceil(B / BT), 4H) f32 and
 // dw_part (splits, 4H, H) f32 are scratch
 int lstm_bwd_launch(const void* xp, const void* h_out, const float* c_out,
-                    const float* dh_out, const void* w_rows,
-                    const void* w_cols, const float* b_hh, const int* lengths,
-                    float* dxp, void* dg, float* db_part, float* dw_part,
-                    float* dw, float* db, int T, int B, int H, int cpt, int nq,
-                    int w_smem, int reverse, int splits, void* stream) {
-  if (bad_shape(H, nq) || splits < 1)
+                    const float* dh_out, const void* w_sl, const float* b_hh,
+                    const int* lengths, float* dxp, void* dg, float* db_part,
+                    float* dw_part, float* dw, float* db, int T, int B, int H,
+                    int C, int BT, int reverse, int splits, void* stream) {
+  if (bad_geometry(H, C, BT) || T < 1 || B < 1 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Geo g(H, C, BT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      w_smem ? dispatch_bwd<true>(cpt, xp, h_out, c_out, dh_out, w_rows,
-                                  w_cols, b_hh, lengths, dxp, dg, db_part, T,
-                                  B, H, nq, reverse, s)
-             : dispatch_bwd<false>(cpt, xp, h_out, c_out, dh_out, w_rows,
-                                   w_cols, b_hh, lengths, dxp, dg, db_part, T,
-                                   B, H, nq, reverse, s);
+  const bf16* x = static_cast<const bf16*>(xp);
+  const bf16* h = static_cast<const bf16*>(h_out);
+  const bf16* w = static_cast<const bf16*>(w_sl);
+  bf16* d = static_cast<bf16*>(dg);
+  const cudaError_t e =
+      g.NT == 2
+          ? launch_cluster(lstm_bwd_kernel<2>, g, B, g.bwd_smem(), s, x, h,
+                           c_out, dh_out, w, b_hh, lengths, dxp, d, db_part, T,
+                           B, H, C, BT, reverse)
+          : launch_cluster(lstm_bwd_kernel<1>, g, B, g.bwd_smem(), s, x, h,
+                           c_out, dh_out, w, b_hh, lengths, dxp, d, db_part, T,
+                           B, H, C, BT, reverse);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int BT = cpt * nq;
   return static_cast<int>(launch_dw_reduce(dg, h_out, dw_part, db_part, dw,
                                            db, T, B, H, 4 * H, reverse,
-                                           splits, (B + BT - 1) / BT * nq, s));
+                                           splits, (B + BT - 1) / BT, s));
 }
 
 const char* lstm_train_error_string(int err) {

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 from collections import defaultdict
 from typing import Dict, Iterable, List, Optional
 
@@ -252,6 +253,32 @@ class _IndexEntry(tuple):
     filename = property(lambda self: self[1])
 
 
+def expand_shards(filenames) -> List[str]:
+    """Expand shard manifests in a file list
+    (``medaka_tpu.datastore.expand_shards``).
+
+    A file written by ``medaka_tpu.datastore.ShardedDataStore`` carries a
+    ``shard_files`` attribute (JSON list) naming its sibling shard files;
+    it is replaced by base + shards, the shards that exist, in order.
+    """
+    if isinstance(filenames, str):
+        filenames = [filenames]
+    out: List[str] = []
+    for fname in filenames:
+        out.append(fname)
+        try:
+            with hdf5.File(fname, "r") as fh:
+                names = json.loads(fh.attrs.get("shard_files", "[]"))
+        except (OSError, ValueError):
+            names = []
+        base_dir = os.path.dirname(fname)
+        for name in names:
+            path = os.path.join(base_dir, name)
+            if os.path.exists(path):
+                out.append(path)
+    return out
+
+
 class DataIndex:
     """Index over samples distributed across many HDF5 files.
 
@@ -259,10 +286,12 @@ class DataIndex:
     """
 
     def __init__(self, filenames, threads: int = 4):
-        """Build an index over ``filenames`` (list or single path)."""
-        if isinstance(filenames, str):
-            filenames = [filenames]
-        self.filenames = list(filenames)
+        """Build an index over ``filenames`` (list or single path).
+
+        Shard-manifest files expand to their shard set
+        (:func:`expand_shards`).
+        """
+        self.filenames = expand_shards(filenames)
         self.logger = common.get_named_logger("DataIndex")
         self._meta: Optional[Dict] = None
         self._index: Optional[Dict[str, List[_IndexEntry]]] = None

@@ -4,9 +4,10 @@ Written from the HDF5 file format specification (version 0 superblock,
 version 1 object headers, symbol-table groups), covering what the
 probability and feature files of the datastore hold: groups, and
 contiguous or compact datasets of integers, floats, fixed-length and
-variable-length strings and compound types. Files it writes open in
-h5py; it reads files h5py writes with its default settings. Chunked or
-compressed datasets are refused.
+variable-length strings and compound types, and the attributes of the
+root group (read only: ``File.attrs``). Files it writes open in h5py; it
+reads files h5py writes with its default settings. Chunked or compressed
+datasets are refused.
 
 The writer appends each dataset's raw bytes as it is created and writes
 the groups' metadata (object headers, local heaps, symbol-table nodes and
@@ -31,7 +32,8 @@ _LOCAL_HEAP_FREE_NULL = 1   # free-list terminator of a local heap
 
 # message types
 _NIL, _DATASPACE, _DATATYPE, _FILL = 0x0, 0x1, 0x3, 0x5
-_LAYOUT, _FILTERS, _CONTINUATION, _SYMBOL_TABLE = 0x8, 0xB, 0x10, 0x11
+_LAYOUT, _FILTERS, _ATTRIBUTE = 0x8, 0xB, 0xC
+_CONTINUATION, _SYMBOL_TABLE = 0x10, 0x11
 
 
 class HDF5Error(ValueError):
@@ -155,15 +157,42 @@ class Dataset:
             raw = b"\0" * (count * itemsize)
         else:
             raw = self._file._read(where, count * itemsize)
-        if self.dtype is _VLEN_STR:
-            values = [self._file._vlen_string(raw[i * 16:(i + 1) * 16])
-                      for i in range(count)]
-            if not self.shape:
-                return values[0]
-            return np.array(values, dtype=object).reshape(self.shape)
-        arr = np.frombuffer(raw, dtype=self.dtype, count=count).reshape(
-            self.shape)
-        return arr[()] if not self.shape else arr.copy()
+        return _decode_values(self._file, raw, self.dtype, self.shape)
+
+
+def _decode_values(f: "File", raw: bytes, dtype, shape):
+    """The values of a dataset or attribute from its raw bytes: a scalar
+    for shape (), else an array (of bytes objects for vlen strings)."""
+    count = int(np.prod(shape, dtype=np.int64))
+    if dtype is _VLEN_STR:
+        values = [f._vlen_string(raw[i * 16:(i + 1) * 16])
+                  for i in range(count)]
+        if not shape:
+            return values[0]
+        return np.array(values, dtype=object).reshape(shape)
+    arr = np.frombuffer(raw, dtype=dtype, count=count).reshape(shape)
+    return arr[()] if not shape else arr.copy()
+
+
+def _decode_attribute(f: "File", buf: bytes):
+    """(name, value) of an attribute message (versions 1-3)."""
+    version = buf[0]
+    if version not in (1, 2, 3):
+        raise HDF5Error("attribute message version {}".format(version))
+    name_size, dt_size, ds_size = struct.unpack_from("<HHH", buf, 2)
+    # version 1 pads each part to 8 bytes; version 3 adds an encoding byte
+    pad = _pad8 if version == 1 else (lambda n: n)
+    p = 9 if version == 3 else 8
+    name = bytes(buf[p:p + name_size]).split(b"\0")[0].decode()
+    p += pad(name_size)
+    dtype, _ = _decode_datatype(buf, p)
+    p += pad(dt_size)
+    shape = _decode_dataspace(buf[p:p + ds_size])
+    p += pad(ds_size)
+    value = _decode_values(f, bytes(buf[p:]), dtype, shape)
+    if dtype is _VLEN_STR and not shape:
+        value = value.decode()
+    return name, value
 
 
 def _decode_dataspace(buf: bytes):
@@ -309,9 +338,28 @@ class File(Group):
             raise HDF5Error("only 8-byte offsets and lengths are supported")
         p = 24 + (4 if head[8] == 1 else 0) + 32
         entry = self._read(p, 40)
-        return self._group_links(struct.unpack_from("<Q", entry, 8)[0])
+        self._root = struct.unpack_from("<Q", entry, 8)[0]
+        return self._group_links(self._root)
+
+    @property
+    def attrs(self) -> Dict[str, object]:
+        """The root group's attributes (files opened for reading only);
+        a scalar variable-length string reads as ``str``, as in h5py."""
+        if self._tree is not None:
+            raise HDF5Error("attributes are read only")
+        return dict(_decode_attribute(self, data) for mtype, data in
+                    self._message_list(self._root) if mtype == _ATTRIBUTE)
 
     def _messages(self, address: int) -> Dict[int, bytes]:
+        """The first message of each type in an object header."""
+        out: Dict[int, bytes] = {}
+        for mtype, data in self._message_list(address):
+            out.setdefault(mtype, data)
+        return out
+
+    def _message_list(self, address: int):
+        """(type, body) of every message of an object header, in order,
+        continuations followed and NIL messages left out."""
         head = self._read(address, 16)
         if head[:4] == b"OHDR":
             raise HDF5Error("version 2 object headers are not supported")
@@ -319,7 +367,7 @@ class File(Group):
             raise HDF5Error("object header version {}".format(head[0]))
         n_messages, _, size = struct.unpack_from("<HII", head, 2)
         blocks = [(address + 16, size)]
-        out: Dict[int, bytes] = {}
+        out = []
         seen = 0
         while blocks and seen < n_messages:
             start, length = blocks.pop(0)
@@ -332,7 +380,7 @@ class File(Group):
                 if mtype == _CONTINUATION:
                     blocks.append(struct.unpack_from("<QQ", data))
                 elif mtype != _NIL:
-                    out.setdefault(mtype, data)
+                    out.append((mtype, data))
                 p += 8 + msize
         return out
 

@@ -34,7 +34,7 @@ SMEM_LIMIT = 232448
 _LOCK = threading.Lock()
 _SOURCE_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: ``ptxas -v`` report of each library built by this process
+#: ``ptxas -v`` report of each library loaded by this process
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -73,11 +73,14 @@ def load_library(source: str) -> ctypes.CDLL:
             with open(os.path.join(CSRC_DIR, name), "rb") as fh:
                 sha.update(fh.read())
         digest = sha.hexdigest()[:16]
-        so_path = os.path.join(BUILD_DIR, "lib{}_{}.so".format(
+        stem = os.path.join(BUILD_DIR, "lib{}_{}".format(
             os.path.splitext(source)[0], digest))
-        if not os.path.exists(so_path):
+        so_path, log_path = stem + ".so", stem + ".log"
+        # the build's ptxas report is kept beside the library, so a
+        # library built by an earlier process still reports it
+        if not (os.path.exists(so_path) and os.path.exists(log_path)):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = "{}.{}.tmp".format(so_path, os.getpid())
+            tmp = "{}.{}.tmp".format(stem, os.getpid())
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
                    os.path.join(CSRC_DIR, source)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -85,8 +88,12 @@ def load_library(source: str) -> ctypes.CDLL:
                 raise KernelBuildError(
                     "nvcc failed for {} (exit {}):\n{}{}".format(
                         source, proc.returncode, proc.stdout, proc.stderr))
-            BUILD_LOGS[source] = proc.stdout + proc.stderr
+            with open(tmp + ".log", "w") as fh:
+                fh.write(proc.stdout + proc.stderr)
             os.replace(tmp, so_path)
+            os.replace(tmp + ".log", log_path)
+        with open(log_path) as fh:
+            BUILD_LOGS[source] = fh.read()
         try:
             lib = ctypes.CDLL(so_path)
         except OSError as e:

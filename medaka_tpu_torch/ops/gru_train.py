@@ -169,10 +169,11 @@ def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
 
 
 def _split_count(batch, steps, hidden, n_sm, gates=3):
-    """dW_hh partial tiles over (t, b): enough blocks for about 8 of 64
-    threads on each SM, and at least 1024 (t, b) rows a split."""
-    tiles = (gates * hidden // 32) * (hidden // 32)
-    return max(1, min(-(-8 * n_sm // tiles), -(-steps * batch // 1024)))
+    """dW_hh partial tiles over (t, b) (``rnn_dw_kernel``, 128 x 128
+    tiles of 8 warps): enough blocks for about 2 on each SM, and at least
+    1024 (t, b) rows a split."""
+    tiles = -(-gates * hidden // 128) * -(-hidden // 128)
+    return max(1, min(-(-2 * n_sm // tiles), -(-steps * batch // 1024)))
 
 
 def _choose(lib, smem_fn, B, H, dev):

@@ -19,25 +19,37 @@ Counterpart of the "Trainable LSTM" section of
   (input projections in PyTorch: f32 accumulation plus the f32 ``b_ih``,
   cast once to the compute dtype, as the JAX function computes them).
 
-The step loop, the tiling and the weight layouts are those of
-:mod:`medaka_tpu_torch.ops.gru_train`, whose helpers this module shares.
-Each wrapper runs its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+Both kernels run one tile of batch columns of one direction on a
+thread-block cluster of C blocks (sm_90a), each block keeping the gate
+rows of its share of the hidden units in shared memory for the whole walk
+(``csrc/lstm_train.cu``). The host side is here: :func:`choose_geometry`
+(cluster size, columns a cluster and shared memory, from H, B and the
+card's resident clusters) and :func:`w_slices` (W_hh cut into the
+clusters' per-block slices in the kernels' row order), both pure and
+tested on the CPU. Each wrapper runs its plain version only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
 from medaka_tpu_torch.ops import cuda_build
 from medaka_tpu_torch.ops.gru_train import (
-    _choose, _cols_layout, _h_prev, _order, _rows_layout, _sigmoid,
-    _split_count, project)
+    _h_prev, _order, _sigmoid, _split_count, project)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"lstm_fwd": 0, "lstm_bwd": 0}
+
+#: cluster sizes, in the order tried (above 8 needs the non-portable size)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: batch columns a cluster, in the order tried
+TILE_COLUMNS = (8, 16, 32)
+#: hidden units of a warp's unit group and of a block at most
+UNIT_GROUP = 8
+MAX_UNITS = 64
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -125,18 +137,103 @@ def lstm_bwd_plain(x_proj, h_out, c_out, dh_out, w_hh, b_hh, lengths,
     return dxp, dw, db
 
 
+def units_per_block(hidden: int, cluster: int) -> int:
+    """Hidden units of one block: H over the cluster, rounded up to a
+    multiple of the unit group (the padded units are zero rows)."""
+    per = cluster * UNIT_GROUP
+    return -(-hidden // per) * UNIT_GROUP
+
+
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def smem_bytes(kind: str, cluster: int, columns: int, hidden: int) -> int:
+    """Dynamic shared memory of one block of ``lstm_fwd`` (kind "fwd") or
+    the backward recurrence ("bwd"), as the kernel carves it (``Geo`` in
+    ``csrc/lstm_train.cu``)."""
+    U = units_per_block(hidden, cluster)
+    ldw = cluster * U + 8        # padded bf16 row of W and of h
+    nbytes = (_align16(4 * U * ldw * 2)             # W_hh slice
+              + _align16(2 * columns * ldw * 2))    # h (h_prev) x 2
+    if kind == "fwd":
+        # staged bf16 h and f32 c of the block's units
+        return nbytes + _align16(columns * U * 2) + _align16(columns * U * 4)
+    # bf16 dgates [BT][4U + 8] and the dh partials [2][C][U][BT] f32
+    return (nbytes + _align16(columns * (4 * U + 8) * 2)
+            + _align16(2 * cluster * U * columns * 4))
+
+
+def choose_geometry(kind: str, hidden: int, batch: int, smem_limit: int,
+                    max_clusters: Callable[[int, int, int], int]):
+    """(C, BT, shared memory bytes) of a launch.
+
+    C is the smallest cluster size whose block holds at most
+    :data:`MAX_UNITS` units and fits ``smem_limit`` at the smallest tile;
+    BT the smallest tile of :data:`TILE_COLUMNS` whose ceil(B / BT)
+    clusters are all resident at once (one wave), else the largest that
+    fits. ``max_clusters(C, BT, smem)`` is how many clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; about the SM count
+    over C); a value below 1 raises.
+    """
+    if hidden % 32 or not 0 < hidden <= 512:
+        raise ValueError("hidden size {} must be a multiple of 32 and at "
+                         "most 512".format(hidden))
+    for cluster in CLUSTER_SIZES:
+        if units_per_block(hidden, cluster) <= MAX_UNITS and smem_bytes(
+                kind, cluster, TILE_COLUMNS[0], hidden) <= smem_limit:
+            break
+    else:
+        raise ValueError("no cluster size fits H={} in {} bytes of shared "
+                         "memory".format(hidden, smem_limit))
+    best = None
+    for columns in TILE_COLUMNS:
+        smem = smem_bytes(kind, cluster, columns, hidden)
+        if smem > smem_limit:
+            break
+        resident = max_clusters(cluster, columns, smem)
+        if resident < 1:
+            raise RuntimeError(
+                "no cluster of {} blocks with {} bytes of shared memory can "
+                "be resident (cudaOccupancyMaxActiveClusters gave {})".format(
+                    cluster, smem, resident))
+        best = (cluster, columns, smem)
+        if -(-batch // columns) <= resident:
+            break
+    return best
+
+
+def w_slices(w_hh: torch.Tensor, cluster: int) -> torch.Tensor:
+    """(4H, H) W_hh -> (C, 4U, Hp) bf16: block r's gate rows, in the
+    kernels' order.
+
+    Unit j = r U + q 8 + u (Hp = C U units, those at H and above zero)
+    has its gate g at row q 32 + g 8 + u of slice r; columns k >= H are
+    zero.
+    """
+    H = w_hh.shape[1]
+    U = units_per_block(H, cluster)
+    Hp = cluster * U
+    w = torch.zeros((4, Hp, Hp), dtype=torch.bfloat16, device=w_hh.device)
+    w[:, :H, :H] = w_hh.to(torch.bfloat16).reshape(4, H, H)
+    w = w.reshape(4, cluster, U // UNIT_GROUP, UNIT_GROUP, Hp)
+    return w.permute(1, 2, 0, 3, 4).reshape(cluster, 4 * U, Hp).contiguous()
+
+
 def build():
     """Compile (if needed) and load the kernel library; returns it."""
     lib = cuda_build.load_library("lstm_train.cu")
     if not getattr(lib, "_medaka_typed", False):
-        lib.lstm_fwd_launch.argtypes = [_VOIDP] * 6 + [_INT] * 7 + [_VOIDP]
+        lib.lstm_fwd_launch.argtypes = [_VOIDP] * 6 + [_INT] * 6 + [_VOIDP]
         lib.lstm_fwd_launch.restype = _INT
-        lib.lstm_bwd_launch.argtypes = [_VOIDP] * 14 + [_INT] * 8 + [_VOIDP]
+        lib.lstm_bwd_launch.argtypes = [_VOIDP] * 13 + [_INT] * 7 + [_VOIDP]
         lib.lstm_bwd_launch.restype = _INT
         for name in ("lstm_fwd_smem", "lstm_bwd_smem"):
             fn = getattr(lib, name)
             fn.argtypes = [_INT] * 3
             fn.restype = ctypes.c_size_t
+        lib.lstm_max_clusters.argtypes = [_INT] * 4
+        lib.lstm_max_clusters.restype = _INT
         lib.lstm_train_error_string.argtypes = [_INT]
         lib.lstm_train_error_string.restype = ctypes.c_char_p
         lib._medaka_typed = True
@@ -146,6 +243,32 @@ def build():
 def _raise(lib, name, err):
     raise RuntimeError("{} launch failed: {} (cudaError {})".format(
         name, lib.lstm_train_error_string(err).decode(), err))
+
+
+_RESIDENT: Dict[Tuple, int] = {}
+
+
+def geometry(kind: str, H: int, B: int, dev) -> Tuple[int, int, int, int]:
+    """(C, BT, shared memory bytes, resident clusters) with which
+    ``lstm_fwd`` (kind "fwd") or ``lstm_bwd`` ("bwd") launches at hidden
+    size H and batch B on CUDA device ``dev``: :func:`choose_geometry` on
+    the card, its resident-cluster queries cached."""
+    lib = build()
+    dev = torch.device(dev)
+
+    def resident(cluster, columns, smem):
+        key = (kind, cluster, columns, H, dev.index)
+        if key not in _RESIDENT:
+            n = lib.lstm_max_clusters(int(kind == "bwd"), cluster, columns, H)
+            if n < 0:
+                _raise(lib, "lstm_" + kind, -n)
+            _RESIDENT[key] = n
+        return _RESIDENT[key]
+
+    with torch.cuda.device(dev):
+        cluster, columns, smem = choose_geometry(
+            kind, H, B, cuda_build.SMEM_LIMIT, resident)
+        return cluster, columns, smem, resident(cluster, columns, smem)
 
 
 def _launch_fwd(x_proj, w_hh, b_hh, lengths, reverse):
@@ -160,19 +283,16 @@ def _launch_fwd(x_proj, w_hh, b_hh, lengths, reverse):
     if T == 0 or B == 0:
         return out, c_out
     lib = build()
-    try:
-        cpt, nq, w_smem, _ = _choose(lib, lib.lstm_fwd_smem, B, H, dev)
-    except ValueError as e:
-        raise ValueError("lstm_fwd: {}".format(e)) from None
+    cluster, columns = geometry("fwd", H, B, dev)[:2]
     x_proj = x_proj.contiguous()
-    w_rows = _rows_layout(w_hh)
+    w_sl = w_slices(w_hh, cluster)
     b_hh = b_hh.float().contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lstm_fwd_launch(
-        x_proj.data_ptr(), w_rows.data_ptr(), b_hh.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), c_out.data_ptr(), T, B, H, cpt,
-        nq, int(w_smem), int(reverse), stream)
+        x_proj.data_ptr(), w_sl.data_ptr(), b_hh.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), c_out.data_ptr(), T, B, H,
+        cluster, columns, int(reverse), stream)
     if err != 0:
         _raise(lib, "lstm_fwd", err)
     LAUNCHES["lstm_fwd"] += 1
@@ -210,32 +330,28 @@ def _launch_bwd(x_proj, h_out, c_out, dh_out, w_hh, b_hh, lengths, reverse):
     if T == 0 or B == 0:
         return dxp, dw, db
     lib = build()
-    try:
-        cpt, nq, w_smem, n_sm = _choose(lib, lib.lstm_bwd_smem, B, H, dev)
-    except ValueError as e:
-        raise ValueError("lstm_bwd: {}".format(e)) from None
-    splits = _split_count(B, T, H, n_sm, gates=4)
-    parts = -(-B // (cpt * nq)) * nq
-    # scratch: bf16(dgates) for the dW tiles, per-(block, q) db_hh sums
-    # and per-split dW_hh tiles, all summed in a fixed order by the kernels
+    cluster, columns = geometry("bwd", H, B, dev)[:2]
+    splits = _split_count(B, T, H, cuda_build.sm_count(dev), gates=4)
+    # scratch: bf16(dgates) for the dW tiles, per-cluster db_hh sums and
+    # per-split dW_hh tiles, all summed in a fixed order by the kernels
     dg = torch.empty((T, B, G), dtype=torch.bfloat16, device=dev)
-    db_part = torch.empty((parts, G), dtype=torch.float32, device=dev)
+    db_part = torch.empty((-(-B // columns), G), dtype=torch.float32,
+                          device=dev)
     dw_part = torch.empty((splits, G, H), dtype=torch.float32, device=dev)
     x_proj = x_proj.contiguous()
     h_out = h_out.contiguous()
     c_out = c_out.contiguous()
     dh_out = dh_out.contiguous()
-    w_rows = _rows_layout(w_hh)
-    w_cols = _cols_layout(w_hh)
+    w_sl = w_slices(w_hh, cluster)
     b_hh = b_hh.float().contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lstm_bwd_launch(
         x_proj.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        dh_out.data_ptr(), w_rows.data_ptr(), w_cols.data_ptr(),
-        b_hh.data_ptr(), lengths.data_ptr(), dxp.data_ptr(), dg.data_ptr(),
+        dh_out.data_ptr(), w_sl.data_ptr(), b_hh.data_ptr(),
+        lengths.data_ptr(), dxp.data_ptr(), dg.data_ptr(),
         db_part.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        T, B, H, cpt, nq, int(w_smem), int(reverse), splits, stream)
+        T, B, H, cluster, columns, int(reverse), splits, stream)
     if err != 0:
         _raise(lib, "lstm_bwd", err)
     LAUNCHES["lstm_bwd"] += 1

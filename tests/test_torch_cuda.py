@@ -304,35 +304,46 @@ def _lstm_train_inputs(rng, H, B, T, device):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("H,B,T", [(384, 128, 100), (128, 128, 200),
-                                   (128, 37, 100), (64, 5, 64)])
+@pytest.mark.parametrize("H,B,T", [
+    (384, 128, 100), (128, 128, 200), (128, 37, 100), (64, 5, 64),
+    (64, 1, 50), (256, 37, 60), (384, 5, 50), (416, 37, 40),
+    (512, 128, 40), (512, 1, 30)])
 def test_lstm_train_kernels_match_plain(device, H, B, T, reverse):
-    """lstm_fwd and lstm_bwd against their plain versions, ragged lengths.
+    """lstm_fwd and lstm_bwd against their plain versions, ragged lengths
+    with a length-0 column.
 
     They do the same operations and differ only in the order of f32 sums
-    (the recurrent products, dW_hh and db_hh), which can move a bf16
-    rounding: h within one bf16 step (2^-8 for |h| < 1), mean within
-    1e-3, c within 1e-3 of its largest magnitude; dxp, dW_hh and db_hh
-    within 1e-3 of each tensor's largest magnitude. The forward keeps
-    W_hh in shared memory up to H=128 and reads it from L2 at H=384; the
-    backward keeps both its layouts in shared memory at H=64 only. A
-    second backward repeats the first bit for bit.
+    (the recurrent products on the tensor cores, dW_hh and db_hh), which
+    can move a bf16 rounding: h within one bf16 step (2^-8 for |h| < 1),
+    mean within 1e-3, c within 1e-3 of its largest magnitude; dxp, dW_hh
+    and db_hh within 1e-3 of each tensor's largest magnitude. The shapes
+    take every cluster size the geometry chooser picks (H=64: 1, 128: 2,
+    256: 4, 384: 8, 512: 16; the backward at H=416: 16) and 1, 2 or 4
+    column tiles. A second forward and backward repeat the first bit for
+    bit.
     """
     rng = np.random.default_rng(H + B + int(reverse))
     xp, w_hh, b_hh, lengths, dh_out = _lstm_train_inputs(rng, H, B, T,
                                                          device)
+    if B > 1:
+        lengths[-1] = 0
     out, c_out = lstm_train.lstm_fwd(xp, w_hh, b_hh, lengths, reverse)
+    geometry = {kind: lstm_train.geometry(kind, H, B, device)
+                for kind in ("fwd", "bwd")}
     ref, c_ref = lstm_train.lstm_fwd_plain(xp, w_hh, b_hh, lengths, reverse)
+    out2, c_out2 = lstm_train.lstm_fwd(xp, w_hh, b_hh, lengths, reverse)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     c_rel = ((c_out - c_ref).abs().max() / c_ref.abs().max()).item()
-    print("lstm_fwd H", H, "B", B, "reverse", reverse, "max",
-          diff.max().item(), "mean", diff.mean().item(), "c", c_rel)
+    print("lstm_fwd H", H, "B", B, "reverse", reverse, "geometry",
+          geometry, "max", diff.max().item(), "mean", diff.mean().item(),
+          "c", c_rel)
     assert out.shape == (T, B, H) and out.dtype == torch.bfloat16
     assert c_out.shape == (T, B, H) and c_out.dtype == torch.float32
     assert diff.max().item() <= 2.0 ** -8
     assert diff.mean().item() <= 1e-3
     assert c_rel <= 1e-3
+    assert torch.equal(out, out2) and torch.equal(c_out, c_out2)
     got = lstm_train.lstm_bwd(xp, out, c_out, dh_out, w_hh, b_hh, lengths,
                               reverse)
     want = lstm_train.lstm_bwd_plain(xp, out, c_out, dh_out, w_hh, b_hh,
@@ -347,6 +358,22 @@ def test_lstm_train_kernels_match_plain(device, H, B, T, reverse):
         assert rel <= 1e-3
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_lstm_geometry_matches_the_kernels(device, kind):
+    """The host's byte count equals the kernel's for every H and tile the
+    chooser can pick, and every cluster size it picks is resident."""
+    smem_fn = getattr(lstm_train.build(), "lstm_{}_smem".format(kind))
+    clusters = set()
+    for H in range(32, 513, 32):
+        for B in (1, 5, 128, 512):
+            C, BT, smem, resident = lstm_train.geometry(kind, H, B, device)
+            assert smem_fn(C, BT, H) == smem
+            assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
+            clusters.add(C)
+    print(kind, "cluster sizes", sorted(clusters))
+    assert clusters == {1, 2, 4, 8, 16}
 
 
 def _rl_train_batch(rng, B, T, R):

@@ -12,8 +12,10 @@ Phases, each of which fails the script when it fails:
 2. build the CUDA kernels from ``medaka_tpu_torch/csrc`` with ``nvcc``
    (one process per source, all at once), and the host-side pileup and
    read-matrix library with ``g++``; print ptxas's registers, shared
-   memory and spills of every kernel, of ``lstm_fwd_kernel``,
-   ``lstm_bwd_kernel`` and ``rnn_dw_kernel`` by name;
+   memory and spills of every kernel, by name for the cluster
+   recurrences (``lstm_fwd_kernel``, ``lstm_bwd_kernel``,
+   ``gru_cluster_bwd_kernel``, ``gru_cluster_fwd_kernel``),
+   ``rnn_dw_kernel`` and ``bigru_proj_kernel``;
 3. hold the split-path GRU kernels against their plain PyTorch versions
    at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
@@ -41,10 +43,11 @@ Phases, each of which fails the script when it fails:
    (CUDA events), and the kernel's time beside its plain version, its
    serial floor (one column), the cuDNN ``nn.LSTM`` yardstick and its
    bound;
-10. hold the GRU training kernels (``gru_fwd``, ``gru_bwd``) against
-    their plain versions at full width (H=256, B=128, T=1000, ragged
-    lengths, random weights, both directions), and ``gru_bwd`` against
-    itself run again (bit for bit);
+10. hold the GRU training kernels (``gru_fwd``, ``gru_bwd``: the backward
+    on clusters of C blocks with W_hh in their shared memory, mma.sync)
+    against their plain versions at full width (H=256, B=128, T=1000,
+    ragged lengths, random weights, both directions), and ``gru_bwd``
+    against itself run again (bit for bit);
 11. the training path: a truth BAM for the synthetic genome, then
     ``features --truth`` and ``train`` (counts ``GRUModel`` at full width,
     batch 128, 2 epochs, bf16) through the CLI entry point, with the
@@ -56,7 +59,10 @@ Phases, each of which fails the script when it fails:
     against the same step through their plain versions, a stage
     breakdown of a step (CUDA events), the step's wall time, and each
     kernel's time beside its plain version, its serial floor, the cuDNN
-    ``nn.GRU`` yardsticks (forward; backward alone) and its bound;
+    ``nn.GRU`` yardsticks (forward; backward alone) and its bound; for
+    ``gru_bwd`` also the microseconds a step, its launch geometry (cluster
+    size, columns a cluster, resident clusters) and the profiler's split
+    into recurrence, ``rnn_dw_kernel`` and the sums;
 13. hold the LSTM training kernels (``lstm_fwd``, ``lstm_bwd``: clusters
     of C blocks with W_hh in their shared memory, mma.sync) against their
     plain versions at H=384 (clusters of 8) and H=128 (clusters of 2),
@@ -103,7 +109,10 @@ Phases, each of which fails the script when it fails:
 19. each fullfused kernel on layer 2 of the bundle at B=16, T=10000,
     H=256: against its plain version, its time beside the plain
     version's, its serial floor, the cuDNN ``nn.GRU`` yardstick and its
-    bound; then print one ``kernels`` JSON line (eleven rows).
+    bound; for the f32-gates mode (the cluster recurrence) also the
+    microseconds a step, its launch geometry and the profiler's split into
+    the projection stage and the recurrence; then print one ``kernels``
+    JSON line (eleven rows).
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -720,17 +729,16 @@ def staged_train_step(model, optimizer, batch, gru_train, parallel,
     return loss
 
 
-def profile_step(step, step_s):
-    """Device time by CUDA kernel over one call of ``step`` (the profiler's
-    CUPTI trace), and the device's busy share of the step's wall time
-    ``step_s``; a profiler that cannot trace the card is reported, not
-    fatal (the CUDA-event stages stand)."""
+def kernels_ms(fn):
+    """Device time (ms) by CUDA kernel over one call of ``fn`` (the
+    profiler's CUPTI trace); None, reported, where the profiler cannot
+    trace the card (the measurement tool, not the program)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            step()
+            fn()
             torch.cuda.synchronize()
         by_kernel = {}
         for evt in prof.key_averages():
@@ -743,8 +751,26 @@ def profile_step(step, step_s):
                 name = evt.key.replace("(anonymous namespace)::", "")
                 name = name.split("(")[0][:80]
                 by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
-    except Exception as e:   # the measurement tool, not the program
+    except Exception as e:
         log("   torch.profiler could not trace the card: {}".format(e))
+        return None
+    return by_kernel
+
+
+def split_ms(by_kernel, prefixes, launches=1):
+    """{prefix: ms a launch} of the kernels whose profiler names start with
+    each prefix, over ``launches`` launches of each."""
+    return {p: sum(v for k, v in (by_kernel or {}).items()
+                   if k.startswith(p)) / launches for p in prefixes}
+
+
+def profile_step(step, step_s):
+    """Device time by CUDA kernel over one call of ``step``, and the
+    device's busy share of the step's wall time ``step_s``; a profiler that
+    cannot trace the card is reported, not fatal (the CUDA-event stages
+    stand)."""
+    by_kernel = kernels_ms(step)
+    if by_kernel is None:
         return None
     device_ms = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
@@ -895,8 +921,12 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
             "({} valid columns)".format(step_s * 1e3, lengths_sum / step_s,
                                         lengths_sum))
         profile = profile_step(lambda: step_fn(batch), step_s)
-        if profile:
-            profile.pop("kernels_ms")
+        # gru_bwd's three kernels, a launch each (4 launches of each a step)
+        bwd_split = split_ms(profile and profile.pop("kernels_ms"), (
+            "void gru_cluster_bwd_kernel", "rnn_dw_kernel",
+            "rnn_bwd_reduce_kernel"), launches=4)
+        log("   gru_bwd a launch, from the step's profile (ms): "
+            "{}".format(json.dumps(bwd_split)))
 
     with phase("training kernels at B=128 T=1000: timings"):
         layer1, layer2 = model.layer_params()
@@ -933,6 +963,15 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
             }
             timed = {name: (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
                             cuda_ms(o)) for name, (k, pl, o) in calls.items()}
+            bwd_geometry = {
+                key: dict(zip(("cluster", "columns", "smem_bytes",
+                               "resident_clusters"),
+                              gru_train.bwd_geometry(H, cols, dev)))
+                for key, cols in (("main", B), ("one_column", 1))}
+            log("   gru_bwd: geometry {}; {:.3f} us a step, one column {:.3f} "
+                "us a step".format(json.dumps(bwd_geometry),
+                                   timed["gru_bwd"][0] / T * 1e3,
+                                   timed["gru_bwd"][2] / T * 1e3))
         # yardstick (the port never calls it): cuDNN's bf16 GRU, one
         # direction over layer 2's inputs, its input projection included
         gru = torch.nn.GRU(2 * H, H, 1).to(dev, torch.bfloat16)
@@ -991,6 +1030,11 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
             "agreement": {"random_weights": agreement,
                           "main_shape": main_stats},
         })
+        if name == "gru_bwd":
+            rows[-1].update(
+                step_us=ms / T * 1e3, serial_floor_step_us=floor_ms / T * 1e3,
+                geometry=bwd_geometry, kernels_ms_per_launch=bwd_split,
+                faster_than_library=ms < lib_bwd)
         log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
             "column {:.3f} ms; {})".format(name, ms, plain_ms, bound_ms,
                                            bound_by, floor_ms,
@@ -1403,10 +1447,9 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
         else:
             # the backward's three kernels, a launch each, from the
             # profile of the timed step (4 launches of each)
-            per_launch = {k: v / 4 for k, v in (
-                profile.pop("kernels_ms") if profile else {}).items()
-                if k.startswith(("void lstm_bwd_kernel", "rnn_dw_kernel",
-                                 "rnn_bwd_reduce_kernel"))}
+            per_launch = split_ms(profile and profile.pop("kernels_ms"), (
+                "void lstm_bwd_kernel", "rnn_dw_kernel",
+                "rnn_bwd_reduce_kernel"), launches=4)
             rows[-1]["kernels_ms_per_launch"] = per_launch
             log("   lstm_bwd a launch, from the step's profile (ms): "
                 "{}".format(json.dumps(per_launch)))
@@ -1732,6 +1775,41 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 floor, _ = fullfused_calls(gru_fullfused, mode, one[0],
                                            layers[1], one[1])
                 timed[name] = (cuda_ms(kernel), plain_ms, cuda_ms(floor))
+                if mode == "f32_gates":
+                    # the projection stage apart from the recurrence, at
+                    # the main shape and over one column (profiler)
+                    cluster_rows = {"geometry": {
+                        key: dict(zip(("cluster", "columns", "smem_bytes",
+                                       "resident_clusters"),
+                                      gru_fullfused.cluster_geometry(
+                                          H, cols, dev)))
+                        for key, cols in (("main", B), ("one_column", 1))}}
+                    for key, fn in (("main", kernel), ("one_column", floor)):
+                        by_kernel = kernels_ms(fn)
+                        # the f32-gates launch never runs the per-block
+                        # recurrence
+                        if by_kernel is not None and (
+                                any(k.startswith("void gru_rec_kernel")
+                                    for k in by_kernel)
+                                or not any(k.startswith(
+                                    "void gru_cluster_fwd_kernel")
+                                    for k in by_kernel)):
+                            raise AssertionError(
+                                "the f32-gates launch ran {}".format(
+                                    sorted(by_kernel)))
+                        cluster_rows[key + "_ms"] = split_ms(
+                            by_kernel, ("bigru_proj_kernel",
+                                        "void gru_cluster_fwd_kernel"))
+                    rec = cluster_rows["main_ms"][
+                        "void gru_cluster_fwd_kernel"]
+                    rec1 = cluster_rows["one_column_ms"][
+                        "void gru_cluster_fwd_kernel"]
+                    cluster_rows.update(
+                        step_us=timed[name][0] / T * 1e3,
+                        serial_floor_step_us=timed[name][2] / T * 1e3,
+                        recurrence_step_us=rec / T * 1e3,
+                        recurrence_floor_step_us=rec1 / T * 1e3)
+                    log("   {}: {}".format(name, json.dumps(cluster_rows)))
             # yardstick (the port never calls it): cuDNN's bf16 bi-GRU
             # over the same rows, its input projection included
             gru = torch.nn.GRU(IN, H, 1, bidirectional=True).to(
@@ -1778,6 +1856,8 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 s: agreement[s][mode] for s in agreement},
                 "main_shape": main_stats[name]},
         })
+        if mode == "f32_gates":
+            rows[-1]["cluster_recurrence"] = cluster_rows
         log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
             "column {:.3f} ms; {} launches on {})".format(
                 name, ms, plain_ms, bound_ms, bound_by, floor_ms, launches,
@@ -1847,19 +1927,28 @@ def main(argv=None):
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     log("  ", source, line.strip())
-        lstm_ptxas = ptxas_report(
-            cuda_build.BUILD_LOGS.get("lstm_train.cu", ""),
-            ("lstm_fwd_kernel", "lstm_bwd_kernel", "rnn_dw_kernel"))
-        for kernel, recs in lstm_ptxas.items():
-            for rec in recs:
-                log("   ptxas lstm_train.cu {} ({}): {} registers, {} bytes "
-                    "static shared memory, {} bytes stack, spill stores {} "
-                    "loads {}".format(
-                        kernel, rec["entry"], rec.get("registers"),
-                        rec.get("smem_bytes"), rec.get("stack_bytes"),
-                        rec.get("spill_stores"), rec.get("spill_loads")))
-            if not recs:
-                raise AssertionError("no ptxas report for " + kernel)
+        ptxas = {source: ptxas_report(cuda_build.BUILD_LOGS.get(source, ""),
+                                      kernels)
+                 for source, kernels in (
+                     ("lstm_train.cu", ("lstm_fwd_kernel", "lstm_bwd_kernel",
+                                        "rnn_dw_kernel")),
+                     ("gru_train.cu", ("gru_cluster_bwd_kernel",
+                                       "rnn_dw_kernel")),
+                     ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",
+                                           "bigru_proj_kernel")))}
+        for source, report in ptxas.items():
+            for kernel, recs in report.items():
+                for rec in recs:
+                    log("   ptxas {} {} ({}): {} registers, {} bytes static "
+                        "shared memory, {} bytes stack, spill stores {} "
+                        "loads {}".format(
+                            source, kernel, rec["entry"],
+                            rec.get("registers"), rec.get("smem_bytes"),
+                            rec.get("stack_bytes"), rec.get("spill_stores"),
+                            rec.get("spill_loads")))
+                if not recs:
+                    raise AssertionError("no ptxas report for {} in {}".format(
+                        kernel, source))
 
     with phase("kernels vs plain versions, T=2000, four combinations"):
         layers, head = random_net(rng)
@@ -1896,9 +1985,11 @@ def main(argv=None):
                 reverse)
             log("   reverse={}: gru_fwd max {:.3g} mean {:.3g}; gru_bwd "
                 "relative max dxp {:.3g}, dW_hh {:.3g}, db_hh {:.3g}; "
-                "repeat bit-identical".format(
+                "repeat bit-identical; gru_bwd (cluster, columns, shared "
+                "memory, resident clusters) {}".format(
                     reverse, stats["fwd_max"], stats["fwd_mean"],
-                    stats["dxp"], stats["dW_hh"], stats["db_hh"]))
+                    stats["dxp"], stats["dW_hh"], stats["db_hh"],
+                    gru_train.bwd_geometry(256, 128, dev)))
             train_agreement["reverse" if reverse else "forward"] = stats
 
     lstm_agreement = {}
@@ -2332,12 +2423,17 @@ def main(argv=None):
         import shutil
         shutil.rmtree(work, ignore_errors=True)
 
+    row_ptxas = {
+        "lstm_fwd": ("lstm_train.cu", ("lstm_fwd_kernel",)),
+        "lstm_bwd": ("lstm_train.cu", ("lstm_bwd_kernel", "rnn_dw_kernel")),
+        "gru_bwd": ("gru_train.cu", ("gru_cluster_bwd_kernel",
+                                     "rnn_dw_kernel")),
+        "bigru_fullfused/f32_gates": ("gru_fullfused.cu", (
+            "gru_cluster_fwd_kernel", "bigru_proj_kernel"))}
     for row in rows:
-        if row["name"] == "lstm_fwd":
-            row["ptxas"] = {"lstm_fwd_kernel": lstm_ptxas["lstm_fwd_kernel"]}
-        elif row["name"] == "lstm_bwd":
-            row["ptxas"] = {k: lstm_ptxas[k] for k in ("lstm_bwd_kernel",
-                                                        "rnn_dw_kernel")}
+        if row["name"] in row_ptxas:
+            source, kernels = row_ptxas[row["name"]]
+            row["ptxas"] = {k: ptxas[source][k] for k in kernels}
     log("card:", card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

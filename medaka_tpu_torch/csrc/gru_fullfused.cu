@@ -21,15 +21,22 @@
 //   added in f32 before the rounding, as the TPU kernel does), into a
 //   (2, T, B, 3H) bf16 scratch; bigru_fused_launch skips it and reads the
 //   caller's projections;
-// - the recurrence numerics: f32 gates over a bf16 W_hh, bf16 gates, or an
-//   int8 W_hh with per-column scales (gru_rec.cuh, NUM_*);
-// - the direction: both in one launch, blockIdx.y = 0 forward, 1 backward.
+// - the recurrence numerics: f32 gates over a bf16 W_hh (the cluster
+//   recurrence), bf16 gates, or an int8 W_hh with per-column scales
+//   (gru_rec.cuh, NUM_*);
+// - the direction: both in one launch (blockIdx.y in the per-block
+//   recurrence, the cluster index in the cluster recurrence), 0 forward,
+//   1 backward.
 //
 // Design. The TPU kernels walk time blocks on a sequential grid and
 // compute a block's projections as one MXU product at the block's start.
 // Here the projections do not depend on h, so they run ahead of the serial
-// chain as a separate, fully parallel stage; the recurrence is gru_fwd's
-// (gru_rec.cuh), with both directions in one grid. The projection stage
+// chain as a separate, fully parallel stage; the recurrence is
+// gru_rec.cuh's, with both directions in one grid: the cluster recurrence
+// (gru_cluster_fwd_kernel: W_hh split over a thread-block cluster's shared
+// memory, the step's product on the tensor cores) in the f32-gates mode,
+// the per-block recurrence (gru_rec_kernel, shared with gru_fwd) in the
+// bf16-gates and int8 modes and for bigru_fused. The projection stage
 // sums over the inputs in the plain version's order, and bf16 x bf16
 // products are exact in f32, so it agrees with the plain version bit for
 // bit.
@@ -38,9 +45,10 @@
 // few hundred MB (x in, bf16 h out) and does about 2 x 1.26e11
 // multiply-adds (layer 2: the projection and the recurrence), a few tenths
 // of a ms at the card's rates. The serial chain of T dependent steps binds
-// it instead: a step is a W_hh stream from L2 (or shared memory) into
-// CUDA-core dot products, whatever the batch. Tensor-core mma and keeping
-// W_hh resident over a cluster are later work.
+// it instead, whatever the batch: in the per-block recurrence a step is a
+// W_hh stream from L2 (or shared memory) into CUDA-core dot products; in
+// the cluster recurrence an mma chain over shared memory, one h exchange
+// through distributed shared memory and one cluster barrier.
 #include "gru_rec.cuh"
 
 namespace {
@@ -147,6 +155,32 @@ RecArgs both_directions(const bf16* xp_f, const bf16* xp_b, const void* w_hh,
   return a;
 }
 
+// the cluster recurrence over a.dirs directions
+inline cudaError_t launch_gru_cluster_fwd(const ClusterArgs& a,
+                                          cudaStream_t s) {
+  if (a.T < 1 || a.B < 1 || a.dirs < 1 || a.dirs > 2 ||
+      GruGeo::bad(a.H, a.C, a.BT))
+    return cudaErrorInvalidValue;
+  const GruGeo g(a.H, a.C, a.BT);
+  const int clusters = a.dirs * ((a.B + a.BT - 1) / a.BT);
+  const size_t smem = gru_cluster_fwd_smem(g);
+  return g.NT == 2 ? launch_cluster(gru_cluster_fwd_kernel<2>, a.C, clusters,
+                                    g.threads(), smem, s, a)
+                   : launch_cluster(gru_cluster_fwd_kernel<1>, a.C, clusters,
+                                    g.threads(), smem, s, a);
+}
+
+// clusters of the cluster recurrence that can be resident at once at
+// (C, BT, H); a negative value is minus a cudaError_t
+inline int gru_cluster_fwd_max_clusters(int C, int BT, int H) {
+  if (GruGeo::bad(H, C, BT)) return -static_cast<int>(cudaErrorInvalidValue);
+  const GruGeo g(H, C, BT);
+  const size_t smem = gru_cluster_fwd_smem(g);
+  return g.NT == 2
+             ? max_clusters(gru_cluster_fwd_kernel<2>, C, g.threads(), smem)
+             : max_clusters(gru_cluster_fwd_kernel<1>, C, g.threads(), smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -155,18 +189,32 @@ size_t bigru_rec_smem(int num, int w_smem, int bt, int hidden) {
   return rec_smem_bytes(num, w_smem != 0, bt, hidden);
 }
 
+size_t bigru_cluster_smem(int C, int BT, int H) {
+  return gru_cluster_fwd_smem(GruGeo(H, C, BT));
+}
+
+// clusters of C blocks of the cluster recurrence that can be resident at
+// once at (C, BT, H); a negative value is minus a cudaError_t
+int bigru_max_clusters(int C, int BT, int H) {
+  return gru_cluster_fwd_max_clusters(C, BT, H);
+}
+
 // The projection stage into xp (2, T, B, 3H) bf16 scratch, then the
 // recurrence, in order on `stream`. x is (T, B, IN) bf16, w_ih (2, 3H, IN)
-// bf16, b_ih and b_hh (2, 3H) f32, w_hh (2, kchunks, 3H) 16-byte chunks,
-// hh_scale (2, 3H) f32 (read by num = NUM_INT8 only).
+// bf16, b_ih and b_hh (2, 3H) f32, hh_scale (2, 3H) f32 (read by
+// num = NUM_INT8 only). num = NUM_F32 runs the cluster recurrence on
+// clusters of C blocks and tiles of BT columns, with w_hh the (2, C, 3U,
+// Hp) bf16 slices of ops/rnn_cluster.py w_slices; the other modes run the
+// per-block recurrence on tiles of cpt * nq columns, with w_hh (2,
+// kchunks, 3H) 16-byte chunks, in shared memory if w_smem.
 int bigru_fullfused_launch(const void* x, const void* w_ih, const float* b_ih,
                            const void* w_hh, const float* hh_scale,
                            const float* b_hh, const int* lengths, void* xp,
                            void* out_f, void* out_b, int ld_out, int T, int B,
-                           int IN, int H, int cpt, int nq, int w_smem, int num,
-                           void* stream) {
+                           int IN, int H, int C, int BT, int cpt, int nq,
+                           int w_smem, int num, void* stream) {
   if (T < 1 || B < 1 || IN < 1 || num < NUM_F32 || num > NUM_INT8 ||
-      bad_shape(H, nq))
+      (num == NUM_F32 ? GruGeo::bad(H, C, BT) : bad_shape(H, nq)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = static_cast<long long>(T) * B;
@@ -179,14 +227,35 @@ int bigru_fullfused_launch(const void* x, const void* w_ih, const float* b_ih,
       M, IN, G);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (num == NUM_F32) {
+    const GruGeo g(H, C, BT);
+    const bf16* w = static_cast<const bf16*>(w_hh);
+    ClusterArgs a{};
+    a.xp[0] = xpb;
+    a.xp[1] = xpb + M * G;
+    a.w_sl[0] = w;
+    a.w_sl[1] = w + static_cast<size_t>(C) * g.rows() * g.Hp;
+    a.b_hh[0] = b_hh;
+    a.b_hh[1] = b_hh + G;
+    a.out[0] = static_cast<bf16*>(out_f);
+    a.out[1] = static_cast<bf16*>(out_b);
+    a.reverse[0] = 0;
+    a.reverse[1] = 1;
+    a.lengths = lengths;
+    a.ld_out = ld_out;
+    a.T = T;
+    a.B = B;
+    a.H = H;
+    a.C = C;
+    a.BT = BT;
+    a.dirs = 2;
+    return static_cast<int>(launch_gru_cluster_fwd(a, s));
+  }
   const RecArgs a = both_directions(xpb, xpb + M * G, w_hh, hh_scale, b_hh,
                                     lengths, out_f, out_b, ld_out, T, B, H,
                                     nq, num);
-  switch (num) {
-    case NUM_F32: e = dispatch_rec<NUM_F32>(cpt, w_smem, a, s); break;
-    case NUM_BF16G: e = dispatch_rec<NUM_BF16G>(cpt, w_smem, a, s); break;
-    default: e = dispatch_rec<NUM_INT8>(cpt, w_smem, a, s); break;
-  }
+  e = num == NUM_BF16G ? dispatch_rec<NUM_BF16G>(cpt, w_smem, a, s)
+                       : dispatch_rec<NUM_INT8>(cpt, w_smem, a, s);
   return static_cast<int>(e);
 }
 

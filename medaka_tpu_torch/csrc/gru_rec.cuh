@@ -1,30 +1,53 @@
-// The GRU forward recurrence over pre-projected inputs, shared by
+// The GRU forward recurrences over pre-projected inputs, shared by
 // gru_train.cu (gru_fwd: one direction a launch, f32 gates) and
 // gru_fullfused.cu (bigru_fullfused, bigru_fused: both directions in one
-// launch, three numerics modes).
+// launch, three numerics modes). Two designs:
 //
-// Design. The TPU kernels walk time blocks on a sequential grid with the
-// carry in VMEM. Here one block owns one direction (blockIdx.y) and a tile
-// of BT = CPT * NQ batch columns and loops over all T steps itself; blocks
-// never exchange state. Thread (j, q) owns hidden unit j (gate rows j,
-// H+j, 2H+j) for columns q*CPT .. q*CPT+CPT-1, so a unit's three gates
-// meet in one thread, h stays in registers, and a step needs one
-// __syncthreads (the next step's matmul operand, bf16(h) or round(127 h),
-// is double-buffered in shared memory). W_hh is read in 16-byte chunks (8
-// bf16 or 16 int8) laid out so that a warp of 32 consecutive units reads
-// 512 contiguous bytes: chunk kc of row r at kc * 3H + r. It sits in
-// dynamic shared memory where it fits (bf16 up to H = 192, int8 up to
-// H = 256: 196,608 B) and is read through the read-only cache from L2 on
-// every step otherwise (bf16 at H = 256, the counts model's width). The
-// forward direction freezes h at t >= length; the reverse one walks time
-// back to front and keeps h = 0 until t < length, so padded columns stay 0.
-// Outputs stay in natural time order.
+// gru_cluster_fwd_kernel, the cluster recurrence (bigru_fullfused's f32
+// gates). A thread-block cluster of C blocks owns one direction and one
+// tile of BT batch columns; both directions run in one grid (the cluster
+// index gives the direction and the tile). Block r owns U = Hp / C hidden
+// units and keeps their 3U gate rows of W_hh, bf16, in its shared memory
+// for the whole walk (ClusterGeo of rnn_train.cuh; 192 x 264 x 2 =
+// 101,376 B at H=256, C=4), where the per-block design below streams all
+// 393,216 B of it from L2 on every step. Rows of a slice: unit group q
+// (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n, unit u), three
+// m16 tiles, so in the m16n8k16 accumulator fragments a thread holds r, z
+// and n of units u and u + 8 for two batch columns of each n8 tile: the
+// gates and the f32 carry stay in registers. A step: bf16(h) (BT x Hp) .
+// W_slice^T on the tensor cores (mma.sync, f32 accumulation chained over
+// the Hp / 16 k-chunks in order), the f32 gates of the block's units, the
+// block's bf16 h slice through a staging buffer into every cluster block's
+// next h buffer (distributed shared memory, 16-byte stores) and to the
+// outputs; one cluster barrier a step, split into arrive.release /
+// wait.acquire so that the next step's projection loads overlap it.
+// ops/rnn_cluster.py chooses C and BT on the host.
+//
+// gru_rec_kernel, the per-block recurrence (gru_fwd, bigru_fused and the
+// fullfused kernels' bf16-gates and int8 modes): the TPU kernels walk time
+// blocks on a sequential grid with the carry in VMEM; here one block owns
+// one direction (blockIdx.y) and a tile of BT = CPT * NQ batch columns and
+// loops over all T steps itself; blocks never exchange state. Thread
+// (j, q) owns hidden unit j (gate rows j, H+j, 2H+j) for columns
+// q*CPT .. q*CPT+CPT-1, so a unit's three gates meet in one thread, h
+// stays in registers, and a step needs one __syncthreads (the next step's
+// matmul operand, bf16(h) or round(127 h), is double-buffered in shared
+// memory). W_hh is read in 16-byte chunks (8 bf16 or 16 int8) laid out so
+// that a warp of 32 consecutive units reads 512 contiguous bytes: chunk kc
+// of row r at kc * 3H + r. It sits in dynamic shared memory where it fits
+// (bf16 up to H = 192, int8 up to H = 256: 196,608 B) and is read through
+// the read-only cache from L2 on every step otherwise (bf16 at H = 256, the
+// counts model's width).
+//
+// Both designs: the forward direction freezes h at t >= length; the
+// reverse one walks time back to front and keeps h = 0 until t < length,
+// so padded columns stay 0. Outputs stay in natural time order.
 //
 // Numerics (NUM), per step with gate order r, z, n:
 // - NUM_F32: hp = f32(bf16(h) . W_hh_bf16^T) + b_hh; r = sigmoid(x_r +
 //   hp_r), z = sigmoid(x_z + hp_z), n = tanh(x_n + r hp_n),
 //   h' = (1 - z) n + z h, carried in f32 (gru_pallas, the fullfused
-//   kernel's default).
+//   kernel's default; the cluster recurrence computes the same).
 // - NUM_BF16G: bf16(hp), every gate op rounded to bf16, the exp(-|v|) /
 //   exp(-2|v|) forms of sigmoid and tanh, the blend on bf16 h
 //   (pallas_gru.py:539-558). The recurrent product is summed in f64 and
@@ -35,11 +58,13 @@
 //   round(127 h) (half to even); int32 dot products by __dp4a,
 //   hp = f32(dot) * scale + b_hh, then the f32 gates.
 // They follow the plain PyTorch versions operation by operation: bf16 x
-// bf16 products are exact in f32 and fmaf rounds only the sums; int8 dot
-// products are exact; __fadd_rn/__fmul_rn/__fsub_rn/__fdiv_rn keep nvcc
-// from contracting into FMAs the plain versions do not do. What is left is
-// the order of the f32 sums of NUM_F32's recurrent product, which can move
-// a bf16 rounding of an output (the carry stays f32).
+// bf16 products are exact in f32 and fmaf (or the tensor cores' f32
+// accumulation) rounds only the sums; int8 dot products are exact;
+// __fadd_rn/__fmul_rn/__fsub_rn/__fdiv_rn keep nvcc from contracting into
+// FMAs the plain versions do not do. What is left is the order of the f32
+// sums of NUM_F32's recurrent product, which can move a bf16 rounding of
+// an output (the carry stays f32). Neither design uses atomics: a run
+// repeats bit for bit.
 #pragma once
 
 #include "rnn_train.cuh"
@@ -336,6 +361,174 @@ cudaError_t dispatch_rec(int cpt, int w_smem, const RecArgs& a,
     return cudaErrorInvalidValue;
   return w_smem ? dispatch_rec_cpt<true, NUM>(cpt, a, s)
                 : dispatch_rec_cpt<false, NUM>(cpt, a, s);
+}
+
+// ---------------------------------------------------------------------------
+// the cluster recurrence (f32 gates): grid (dirs * ceil(B / BT) * C),
+// cluster (C), block 32 * NG * NP threads
+// ---------------------------------------------------------------------------
+
+// rows of a slice: unit group q (GRU_UG units) holds rows q*48 + g*16 + u
+constexpr int GRU_UG = 16;
+typedef ClusterGeo<3, GRU_UG> GruGeo;
+// threads of a block at most: a warp for each of at most 4 unit groups
+// and 8 or 16 columns, twice for 32 columns (255 registers a thread)
+constexpr int GRU_MAX_THREADS = 32 * (CLUSTER_MAX_U / GRU_UG) * 2;
+
+// forward: W slice, h[2], staging of the block's bf16 h [BT][U]
+__host__ __device__ inline size_t gru_cluster_fwd_smem(const GruGeo& g) {
+  return g.w_bytes() + g.h_bytes() + g.st_bytes();
+}
+
+// per direction d < dirs: projections xp[d] (T, B, 3H) bf16, W_hh slices
+// w_sl[d] (C, 3U, Hp) bf16 (ops/rnn_cluster.py w_slices), b_hh[d] (3H)
+// f32, h of row (t, b) written at out[d] + (t * B + b) * ld_out
+struct ClusterArgs {
+  const bf16* xp[2];
+  const bf16* w_sl[2];
+  const float* b_hh[2];
+  bf16* out[2];
+  int reverse[2];
+  const int* lengths;  // (B,)
+  int ld_out, T, B, H, C, BT, dirs;
+};
+
+// gate gt of cell (hh, c) of a thread: unit gid + 8 hh, column c of its
+// 2 NT (n8 tile c / 2, element c % 2)
+template <int NT>
+__device__ __forceinline__ float gru_gate_acc(const float (&acc)[3][NT][4],
+                                              int gt, int hh, int c) {
+  return acc[gt][c / 2][hh * 2 + c % 2];
+}
+
+template <int NT>
+__global__ void __launch_bounds__(GRU_MAX_THREADS)
+    gru_cluster_fwd_kernel(ClusterArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = a.T, B = a.B, H = a.H, C = a.C, BT = a.BT;
+  const GruGeo g(H, C, BT);
+  const int r = static_cast<int>(cluster.block_rank());
+  const int tiles = (B + BT - 1) / BT;
+  const int cid = static_cast<int>(blockIdx.x) / C;
+  const int d = cid / tiles;
+  const int b0 = (cid - d * tiles) * BT;
+  const bool reverse = pick(a.reverse, d) != 0;
+  const bf16* xp = pick(a.xp, d);
+  const float* b_hh = pick(a.b_hh, d);
+  bf16* out = pick(a.out, d);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = warp % g.NG;
+  const int p = warp / g.NG;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int U = g.U;
+  const int H3 = 3 * H;
+  constexpr int NC = 2 * NT;  // batch columns of a thread
+
+  bf16* w_s = reinterpret_cast<bf16*>(smem);  // [3U][ldw]
+  bf16* h_s = reinterpret_cast<bf16*>(smem + g.w_bytes());  // [2][BT][ldw]
+  // the block's h slice of a step, staged [BT][U]
+  bf16* st_h = reinterpret_cast<bf16*>(smem + g.w_bytes() + g.h_bytes());
+
+  load_slice(w_s, pick(a.w_sl, d), g, r);
+  for (int e = threadIdx.x; e < 2 * BT * g.ldw; e += blockDim.x)
+    h_s[e] = __float2bfloat16_rn(0.0f);
+
+  // this thread's cells: units ul[hh] (block-local) for columns ncol[c]
+  int ul[2], j[2];
+  bool unit_in[2];
+  float bh[2][3];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    ul[hh] = q * GRU_UG + gid + 8 * hh;
+    j[hh] = r * U + ul[hh];
+    unit_in[hh] = j[hh] < H;
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt)
+      bh[hh][gt] = unit_in[hh] ? b_hh[gt * H + j[hh]] : 0.0f;
+  }
+  int ncol[NC], len[NC];
+  float h[2][NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    ncol[c] = (p * NT + c / 2) * 8 + tig * 2 + c % 2;
+    const int b = b0 + ncol[c];
+    len[c] = b < B ? a.lengths[b] : 0;
+    h[0][c] = 0.0f;
+    h[1][c] = 0.0f;
+  }
+  bf16 xr[2][NC][3];
+  auto load_x = [&](int tt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int b = b0 + ncol[c];
+        const bool in = unit_in[hh] && b < B;
+        const size_t row = (static_cast<size_t>(tt) * B + b) * H3 + j[hh];
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt)
+          xr[hh][c][gt] = in ? xp[row + gt * H] : __float2bfloat16_rn(0.0f);
+      }
+  };
+  load_x(reverse ? T - 1 : 0);
+  cluster.sync();  // every block running, its h buffers zero
+
+  const int u8 = U / 8;
+  for (int i = 0; i < T; ++i) {
+    const int cur = i & 1;
+    const int t = reverse ? T - 1 - i : i;
+    if (i > 0) cluster_wait();  // h[cur] complete in this block
+
+    float acc[3][NT][4] = {};
+    gate_product(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float h_new = gru_cell<NUM_F32>(
+            h[hh][c], __bfloat162float(xr[hh][c][0]),
+            __bfloat162float(xr[hh][c][1]), __bfloat162float(xr[hh][c][2]),
+            __fadd_rn(gru_gate_acc<NT>(acc, 0, hh, c), bh[hh][0]),
+            __fadd_rn(gru_gate_acc<NT>(acc, 1, hh, c), bh[hh][1]),
+            __fadd_rn(gru_gate_acc<NT>(acc, 2, hh, c), bh[hh][2]));
+        if (t < len[c]) h[hh][c] = h_new;
+        st_h[ncol[c] * U + ul[hh]] = __float2bfloat16_rn(h[hh][c]);
+      }
+    __syncthreads();  // the block's h slice staged
+
+    // bf16 h slice into every cluster block's next h buffer (not after
+    // the last step) and to the outputs, 16 bytes a store
+    if (i + 1 < T) {
+      bf16* nxt = h_s + (cur ^ 1) * BT * g.ldw + r * U;
+      for (int e = threadIdx.x; e < C * BT * u8; e += blockDim.x) {
+        const int dst_rank = e / (BT * u8);
+        const int rem = e - dst_rank * BT * u8;
+        const int n = rem / u8;
+        const int k8 = rem - n * u8;
+        bf16* dst =
+            cluster.map_shared_rank(nxt, dst_rank) + n * g.ldw + k8 * 8;
+        *reinterpret_cast<uint4*>(dst) =
+            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
+      }
+    }
+    for (int e = threadIdx.x; e < BT * u8; e += blockDim.x) {
+      const int n = e / u8;
+      const int k8 = e - n * u8;
+      const int b = b0 + n;
+      const int j0 = r * U + k8 * 8;
+      if (b < B && j0 < H)
+        *reinterpret_cast<uint4*>(
+            out + (static_cast<size_t>(t) * B + b) * a.ld_out + j0) =
+            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
+    }
+    cluster_arrive();
+    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1);
+  }
+  cluster_wait();  // no block leaves while another may still write to it
 }
 
 }  // namespace

@@ -49,7 +49,7 @@
 // their 4U gate rows of W_hh, bf16, in its shared memory for the whole
 // walk: no block reads W_hh from L2 after the prologue. At H=384 (C=8,
 // U=48) that is 192 x 392 x 2 = 150,528 B a block. C and BT are chosen on
-// the host (ops/lstm_train.py choose_geometry) from H, B and
+// the host (ops/rnn_cluster.py choose_geometry) from H, B and
 // cudaOccupancyMaxActiveClusters: the smallest C whose slice fits with at
 // most 64 units a block, the smallest BT in {8, 16, 32} whose clusters
 // run in one wave.
@@ -89,122 +89,18 @@
 // products into FMAs the plain versions do not do. What is left is the
 // order of f32 sums (the recurrent products, dW_hh and db_hh), which can
 // move a bf16 rounding. No atomics: a run repeats bit for bit.
-#include <cooperative_groups.h>
-
 #include "rnn_train.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int UG = 8;         // units of a warp's unit group
-constexpr int MAX_U = 64;     // units of a block at most
-constexpr int MAX_THREADS = 512;
+// rows of a slice: unit group q (UG units) holds rows q*32 + g*8 + u
+constexpr int UG = 8;
+typedef ClusterGeo<4, UG> Geo;
 
-__host__ __device__ __forceinline__ int units_per_block(int H, int C) {
-  return (H + C * UG - 1) / (C * UG) * UG;
-}
-
-// the launch geometry of (H, C, BT), the same on the host and the card
-struct Geo {
-  int C, U, Hp, BT, NT, NG, NP;
-  int ldw;  // padded row (bf16) of the W slice and the h buffers: Hp + 8
-  int ldg;  // padded row (bf16) of the dgates tile: 4U + 8
-  __host__ __device__ Geo(int H, int c, int bt)
-      : C(c), U(units_per_block(H, c)), Hp(c * units_per_block(H, c)),
-        BT(bt), NT(bt >= 16 ? 2 : 1), NG(units_per_block(H, c) / UG),
-        NP(bt / (8 * (bt >= 16 ? 2 : 1))),
-        ldw(c * units_per_block(H, c) + 8),
-        ldg(4 * units_per_block(H, c) + 8) {}
-  __host__ __device__ int threads() const { return 32 * NG * NP; }
-  __host__ __device__ size_t w_bytes() const {
-    return align16(static_cast<size_t>(4) * U * ldw * sizeof(bf16));
-  }
-  __host__ __device__ size_t h_bytes() const {
-    return align16(static_cast<size_t>(2) * BT * ldw * sizeof(bf16));
-  }
-  // forward: W slice, h[2], staging of bf16 h [BT][U] and f32 c [BT][U]
-  __host__ __device__ size_t st_bytes() const {
-    return align16(static_cast<size_t>(BT) * U * sizeof(bf16));
-  }
-  __host__ __device__ size_t fwd_smem() const {
-    return w_bytes() + h_bytes() + st_bytes() +
-           align16(static_cast<size_t>(BT) * U * sizeof(float));
-  }
-  // backward: W slice, h_prev[2], bf16 dgates, dh partials [2][C][U][BT]
-  __host__ __device__ size_t dg_bytes() const {
-    return align16(static_cast<size_t>(BT) * ldg * sizeof(bf16));
-  }
-  __host__ __device__ size_t bwd_smem() const {
-    return w_bytes() + h_bytes() + dg_bytes() +
-           align16(static_cast<size_t>(2) * C * U * BT * sizeof(float));
-  }
-};
-
-bool bad_geometry(int H, int C, int BT) {
-  if (H % 32 != 0 || H <= 0 || H > 512) return true;
-  if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return true;
-  if (BT != 8 && BT != 16 && BT != 32) return true;
-  const Geo g(H, C, BT);
-  return g.U > MAX_U || g.threads() > MAX_THREADS;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// block r's slice (4U rows of Hp bf16, rows in the kernel's order) into
-// the padded rows of w_s
-__device__ __forceinline__ void load_slice(bf16* w_s, const bf16* w_sl,
-                                           const Geo& g, int r) {
-  const int cpr = g.Hp / 8;  // 16-byte chunks a row
-  const uint4* src = reinterpret_cast<const uint4*>(
-      w_sl + static_cast<size_t>(r) * 4 * g.U * g.Hp);
-  for (int e = threadIdx.x; e < 4 * g.U * cpr; e += blockDim.x) {
-    const int row = e / cpr;
-    const int c = e - row * cpr;
-    *reinterpret_cast<uint4*>(w_s + static_cast<size_t>(row) * g.ldw +
-                              c * 8) = src[e];
-  }
-}
-
-// acc[mt][nt] = W_s rows (q*32 + mt*16 ..) . h^T columns ((p*NT + nt)*8
-// ..): the gates of warp (q, p), f32 accumulation chained over the Hp/16
-// k-chunks in order
-template <int NT>
-__device__ __forceinline__ void gate_product(float (&acc)[2][NT][4],
-                                             const bf16* w_s,
-                                             const bf16* h_s, const Geo& g,
-                                             int q, int p, int lane) {
-  const int mat = lane >> 3;
-  const int lrow = lane & 7;
-  const uint32_t a0_addr = smem_addr(
-      w_s + (q * 32 + (mat & 1) * 8 + lrow) * g.ldw + (mat >> 1) * 8);
-  const uint32_t a1_addr = a0_addr + 16 * g.ldw * sizeof(bf16);
-  const int n = p * NT * 8 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
-  const uint32_t b_addr = smem_addr(h_s + n * g.ldw + (mat & 1) * 8);
-  for (int ks = 0; ks < g.Hp / 16; ++ks) {
-    uint32_t a0[4], a1[4];
-    ldsm_x4(a0, a0_addr + ks * 32);
-    ldsm_x4(a1, a1_addr + ks * 32);
-    if constexpr (NT == 2) {
-      uint32_t b[4];
-      ldsm_x4(b, b_addr + ks * 32);
-      mma_bf16(acc[0][0], a0, b[0], b[1]);
-      mma_bf16(acc[0][1], a0, b[2], b[3]);
-      mma_bf16(acc[1][0], a1, b[0], b[1]);
-      mma_bf16(acc[1][1], a1, b[2], b[3]);
-    } else {
-      uint32_t b[2];
-      ldsm_x2(b, b_addr + ks * 32);
-      mma_bf16(acc[0][0], a0, b[0], b[1]);
-      mma_bf16(acc[1][0], a1, b[0], b[1]);
-    }
-  }
+// forward: W slice, h[2], staging of bf16 h [BT][U] and f32 c [BT][U]
+__host__ __device__ size_t fwd_smem(const Geo& g) {
+  return g.w_bytes() + g.h_bytes() + g.st_bytes() +
+         align16(static_cast<size_t>(g.BT) * g.U * sizeof(float));
 }
 
 // gate g of the cell (nt, e) of a thread: rows u (i), u + 8 (f) of tile 0
@@ -220,7 +116,7 @@ __device__ __forceinline__ float gate_acc(const float (&acc)[2][NT][4],
 // ---------------------------------------------------------------------------
 
 template <int NT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(CLUSTER_MAX_THREADS)
     lstm_fwd_kernel(const bf16* __restrict__ xp,
                     const bf16* __restrict__ w_sl,
                     const float* __restrict__ b_hh,
@@ -292,7 +188,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (i > 0) cluster_wait();  // h[cur] complete in this block
 
     float acc[2][NT][4] = {};
-    gate_product<NT>(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
+    gate_product(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
 
 #pragma unroll
     for (int ci = 0; ci < CELLS; ++ci) {
@@ -362,7 +258,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 // ---------------------------------------------------------------------------
 
 template <int NT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(CLUSTER_MAX_THREADS)
     lstm_bwd_kernel(const bf16* __restrict__ xp,
                     const bf16* __restrict__ h_out,
                     const float* __restrict__ c_out,
@@ -384,8 +280,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int p = warp / g.NG;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int mat = lane >> 3;
-  const int lrow = lane & 7;
   const int U = g.U;
   const int H4 = 4 * H;
   constexpr int CELLS = 2 * NT;
@@ -471,13 +365,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   cluster.sync();  // every block running, its h buffers zero
   load_h(0, 0);
 
-  // the dh product's operands: W_slice^T (A, ldmatrix.trans) and the
-  // block's bf16 dgates (B)
-  const int nb = p * NT * 8 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
-  const uint32_t dg_addr = smem_addr(dg_s + nb * g.ldg + (mat & 1) * 8);
-  const uint32_t wt_addr =
-      smem_addr(w_s + ((mat >> 1) * 8 + lrow) * g.ldw + (mat & 1) * 8);
-
   for (int i = 0; i < T; ++i) {
     const int cur = i & 1;
     const int t = t_of(i);
@@ -486,7 +373,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (i + 1 < T) load_h(i + 1, cur ^ 1);
 
     float acc[2][NT][4] = {};
-    gate_product<NT>(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
+    gate_product(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
     if (i > 0) cluster_wait();  // step i-1's dh partials received
     const float* rv = recv + ((i - 1) & 1) * slot;
 
@@ -548,38 +435,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
     __syncthreads();  // dg_s complete
 
     // partial dh_prev = bf16(dgates)[:, rows] . W[rows, :] for every unit
-    // (not after the last step); 16-unit tile mt goes to the blocks that
-    // own its units, slot r of their receive buffer
-    if (i + 1 < T) {
-      float* dst_base = recv + cur * slot + r * U * BT;
-      for (int mt = q; mt < g.Hp / 16; mt += g.NG) {
-        float acc2[NT][4] = {};
-        for (int ks = 0; ks < U / 4; ++ks) {
-          uint32_t a[4];
-          ldsm_x4_t(a, wt_addr + (ks * 16 * g.ldw + mt * 16) * sizeof(bf16));
-          if constexpr (NT == 2) {
-            uint32_t bq[4];
-            ldsm_x4(bq, dg_addr + ks * 32);
-            mma_bf16(acc2[0], a, bq[0], bq[1]);
-            mma_bf16(acc2[1], a, bq[2], bq[3]);
-          } else {
-            uint32_t bq[2];
-            ldsm_x2(bq, dg_addr + ks * 32);
-            mma_bf16(acc2[0], a, bq[0], bq[1]);
-          }
-        }
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int m = mt * 16 + gid + hh * 8;
-          const int dest = m / U;
-          float* dst = cluster.map_shared_rank(dst_base, dest) + (m % U) * BT;
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            *reinterpret_cast<float2*>(dst + (p * NT + nt) * 8 + tig * 2) =
-                make_float2(acc2[nt][2 * hh], acc2[nt][2 * hh + 1]);
-        }
-      }
-    }
+    // into the owners' receive buffers (not after the last step)
+    if (i + 1 < T)
+      dh_partials<NT>(cluster, recv + cur * slot, w_s, dg_s, g, r, q, p, lane);
     cluster_arrive();
     if (i + 1 < T) load_x(i + 1);
   }
@@ -605,64 +463,18 @@ __global__ void __launch_bounds__(MAX_THREADS)
 // launchers
 // ---------------------------------------------------------------------------
 
-// dynamic shared memory and, above the portable 8, the cluster size
-template <typename Kern>
-cudaError_t set_attributes(Kern kern, int C, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
-}
-
-struct ClusterConfig {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  ClusterConfig(int C, int blocks, int threads, size_t smem,
-                cudaStream_t stream) {
-    cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-};
-
 template <typename Kern, typename... Args>
-cudaError_t launch_cluster(Kern kern, const Geo& g, int B, size_t smem,
-                           cudaStream_t stream, Args... args) {
-  cudaError_t err = set_attributes(kern, g.C, smem);
-  if (err != cudaSuccess) return err;
-  const int clusters = (B + g.BT - 1) / g.BT;
-  ClusterConfig cc(g.C, clusters * g.C, g.threads(), smem, stream);
-  err = cudaLaunchKernelEx(&cc.cfg, kern, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-template <typename Kern>
-int max_clusters(Kern kern, const Geo& g, size_t smem) {
-  cudaError_t err = set_attributes(kern, g.C, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  ClusterConfig cc(g.C, g.C, g.threads(), smem, nullptr);
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kern, &cc.cfg);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return n;
+cudaError_t launch(Kern kern, const Geo& g, int B, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  return launch_cluster(kern, g.C, (B + g.BT - 1) / g.BT, g.threads(), smem,
+                        stream, args...);
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t lstm_fwd_smem(int C, int BT, int H) { return Geo(H, C, BT).fwd_smem(); }
+size_t lstm_fwd_smem(int C, int BT, int H) { return fwd_smem(Geo(H, C, BT)); }
 
 size_t lstm_bwd_smem(int C, int BT, int H) { return Geo(H, C, BT).bwd_smem(); }
 
@@ -670,14 +482,15 @@ size_t lstm_bwd_smem(int C, int BT, int H) { return Geo(H, C, BT).bwd_smem(); }
 // (bwd = 0) or backward (bwd = 1) kernel at (C, BT, H); a negative value
 // is minus a cudaError_t
 int lstm_max_clusters(int bwd, int C, int BT, int H) {
-  if (bad_geometry(H, C, BT))
-    return -static_cast<int>(cudaErrorInvalidValue);
+  if (Geo::bad(H, C, BT)) return -static_cast<int>(cudaErrorInvalidValue);
   const Geo g(H, C, BT);
   if (bwd)
-    return g.NT == 2 ? max_clusters(lstm_bwd_kernel<2>, g, g.bwd_smem())
-                     : max_clusters(lstm_bwd_kernel<1>, g, g.bwd_smem());
-  return g.NT == 2 ? max_clusters(lstm_fwd_kernel<2>, g, g.fwd_smem())
-                   : max_clusters(lstm_fwd_kernel<1>, g, g.fwd_smem());
+    return g.NT == 2
+               ? max_clusters(lstm_bwd_kernel<2>, C, g.threads(), g.bwd_smem())
+               : max_clusters(lstm_bwd_kernel<1>, C, g.threads(), g.bwd_smem());
+  return g.NT == 2
+             ? max_clusters(lstm_fwd_kernel<2>, C, g.threads(), fwd_smem(g))
+             : max_clusters(lstm_fwd_kernel<1>, C, g.threads(), fwd_smem(g));
 }
 
 // out (T, B, H) bf16 and c_out (T, B, H) f32; w_sl (C, 4U, Hp) bf16 from
@@ -685,7 +498,7 @@ int lstm_max_clusters(int bwd, int C, int BT, int H) {
 int lstm_fwd_launch(const void* xp, const void* w_sl, const float* b_hh,
                     const int* lengths, void* out, float* c_out, int T, int B,
                     int H, int C, int BT, int reverse, void* stream) {
-  if (bad_geometry(H, C, BT) || T < 1 || B < 1)
+  if (Geo::bad(H, C, BT) || T < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geo g(H, C, BT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -694,10 +507,10 @@ int lstm_fwd_launch(const void* xp, const void* w_sl, const float* b_hh,
   bf16* o = static_cast<bf16*>(out);
   const cudaError_t e =
       g.NT == 2
-          ? launch_cluster(lstm_fwd_kernel<2>, g, B, g.fwd_smem(), s, x, w,
-                           b_hh, lengths, o, c_out, T, B, H, C, BT, reverse)
-          : launch_cluster(lstm_fwd_kernel<1>, g, B, g.fwd_smem(), s, x, w,
-                           b_hh, lengths, o, c_out, T, B, H, C, BT, reverse);
+          ? launch(lstm_fwd_kernel<2>, g, B, fwd_smem(g), s, x, w, b_hh,
+                   lengths, o, c_out, T, B, H, C, BT, reverse)
+          : launch(lstm_fwd_kernel<1>, g, B, fwd_smem(g), s, x, w, b_hh,
+                   lengths, o, c_out, T, B, H, C, BT, reverse);
   return static_cast<int>(e);
 }
 
@@ -709,7 +522,7 @@ int lstm_bwd_launch(const void* xp, const void* h_out, const float* c_out,
                     const int* lengths, float* dxp, void* dg, float* db_part,
                     float* dw_part, float* dw, float* db, int T, int B, int H,
                     int C, int BT, int reverse, int splits, void* stream) {
-  if (bad_geometry(H, C, BT) || T < 1 || B < 1 || splits < 1)
+  if (Geo::bad(H, C, BT) || T < 1 || B < 1 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geo g(H, C, BT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -719,12 +532,12 @@ int lstm_bwd_launch(const void* xp, const void* h_out, const float* c_out,
   bf16* d = static_cast<bf16*>(dg);
   const cudaError_t e =
       g.NT == 2
-          ? launch_cluster(lstm_bwd_kernel<2>, g, B, g.bwd_smem(), s, x, h,
-                           c_out, dh_out, w, b_hh, lengths, dxp, d, db_part, T,
-                           B, H, C, BT, reverse)
-          : launch_cluster(lstm_bwd_kernel<1>, g, B, g.bwd_smem(), s, x, h,
-                           c_out, dh_out, w, b_hh, lengths, dxp, d, db_part, T,
-                           B, H, C, BT, reverse);
+          ? launch(lstm_bwd_kernel<2>, g, B, g.bwd_smem(), s, x, h, c_out,
+                   dh_out, w, b_hh, lengths, dxp, d, db_part, T, B, H, C, BT,
+                   reverse)
+          : launch(lstm_bwd_kernel<1>, g, B, g.bwd_smem(), s, x, h, c_out,
+                   dh_out, w, b_hh, lengths, dxp, d, db_part, T, B, H, C, BT,
+                   reverse);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_dw_reduce(dg, h_out, dw_part, db_part, dw,
                                            db, T, B, H, 4 * H, reverse,

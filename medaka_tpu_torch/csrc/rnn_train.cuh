@@ -1,7 +1,10 @@
-// Pieces shared by the trainable recurrences' CUDA sources (gru_train.cu
-// and lstm_train.cu): the bf16 dot product and gate helpers of the
-// recurrence kernels, the tensor-core and copy primitives (ldmatrix,
-// mma.sync m16n8k16 bf16, cp.async), and the two kernels that finish a
+// Pieces shared by the recurrences' CUDA sources (gru_train.cu,
+// gru_fullfused.cu through gru_rec.cuh, and lstm_train.cu): the bf16 dot
+// product and gate helpers of the recurrence kernels, the tensor-core and
+// copy primitives (ldmatrix, mma.sync m16n8k16 bf16, cp.async), the
+// machinery of the cluster recurrences (their geometry, the W_hh slice
+// loader, the step's two products on the tensor cores, the split cluster
+// barrier and the cluster launch), and the two kernels that finish a
 // backward after its recurrence, rnn_dw_kernel (dW_hh as tiled partial
 // sums) and rnn_bwd_reduce_kernel (the fixed-order sums of those partials
 // and of the per-block db_hh partials), with their launcher.
@@ -22,11 +25,14 @@
 // ceil(H / 128) times in all (from L2): the larger the tile, the fewer.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 typedef __nv_bfloat16 bf16;
 
@@ -281,6 +287,232 @@ cudaError_t launch_dw_reduce(const void* dgates, const void* h_out,
 // of 32
 bool bad_shape(int H, int nq) {
   return H % 32 != 0 || H > 512 || H * nq > 512;
+}
+
+// ---------------------------------------------------------------------------
+// cluster recurrences (sm_90: thread-block clusters, distributed shared
+// memory). A cluster of C blocks owns one tile of BT batch columns of one
+// direction and walks all T steps. Block r owns U = Hp / C hidden units (H
+// padded to Hp with zero units) and keeps their GATES * U gate rows of
+// W_hh, bf16, in its shared memory for the whole walk. A warp (q, p) owns
+// unit group q (UG units: rows q * GATES * UG + g * UG + u of the slice,
+// gate g, unit u, so MT = GATES * UG / 16 m16 tiles) and NT n8 tiles of
+// batch columns from (p * NT) * 8. ops/rnn_cluster.py mirrors the geometry
+// and the byte counts on the host.
+// ---------------------------------------------------------------------------
+
+constexpr int CLUSTER_MAX_U = 64;  // units of a block at most
+constexpr int CLUSTER_MAX_THREADS = 512;
+
+template <int GATES, int UG>
+struct ClusterGeo {
+  int C, U, Hp, BT, NT, NG, NP;
+  int ldw;  // padded row (bf16) of the W slice and the h buffers: Hp + 8
+  int ldg;  // padded row (bf16) of the dgates tile: GATES U + 8
+  __host__ __device__ static int units(int H, int c) {
+    return (H + c * UG - 1) / (c * UG) * UG;
+  }
+  __host__ __device__ ClusterGeo(int H, int c, int bt)
+      : C(c), U(units(H, c)), Hp(c * U), BT(bt), NT(bt >= 16 ? 2 : 1),
+        NG(U / UG), NP(bt / (8 * NT)), ldw(Hp + 8), ldg(GATES * U + 8) {}
+  __host__ __device__ int rows() const { return GATES * U; }
+  __host__ __device__ int threads() const { return 32 * NG * NP; }
+  __host__ __device__ size_t w_bytes() const {
+    return align16(static_cast<size_t>(GATES) * U * ldw * sizeof(bf16));
+  }
+  // h (forward) or h_prev (backward), double-buffered: [2][BT][ldw]
+  __host__ __device__ size_t h_bytes() const {
+    return align16(static_cast<size_t>(2) * BT * ldw * sizeof(bf16));
+  }
+  // the forward's staged bf16 h slice [BT][U]
+  __host__ __device__ size_t st_bytes() const {
+    return align16(static_cast<size_t>(BT) * U * sizeof(bf16));
+  }
+  // the backward's bf16 dgates [BT][ldg]
+  __host__ __device__ size_t dg_bytes() const {
+    return align16(static_cast<size_t>(BT) * ldg * sizeof(bf16));
+  }
+  // backward: W slice, h_prev[2], bf16 dgates, dh partials [2][C][U][BT]
+  // f32
+  __host__ __device__ size_t bwd_smem() const {
+    return w_bytes() + h_bytes() + dg_bytes() +
+           align16(static_cast<size_t>(2) * C * U * BT * sizeof(float));
+  }
+  // a geometry the kernels cannot run
+  __host__ __device__ static bool bad(int H, int c, int bt) {
+    if (H % 32 != 0 || H <= 0 || H > 512) return true;
+    if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return true;
+    if (bt != 8 && bt != 16 && bt != 32) return true;
+    const ClusterGeo g(H, c, bt);
+    return g.U > CLUSTER_MAX_U || g.threads() > CLUSTER_MAX_THREADS;
+  }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// block r's slice (GATES U rows of Hp bf16, rows in the kernels' order)
+// into the padded rows of w_s
+template <typename Geo>
+__device__ __forceinline__ void load_slice(bf16* w_s, const bf16* w_sl,
+                                           const Geo& g, int r) {
+  const int cpr = g.Hp / 8;  // 16-byte chunks a row
+  const uint4* src = reinterpret_cast<const uint4*>(
+      w_sl + static_cast<size_t>(r) * g.rows() * g.Hp);
+  for (int e = threadIdx.x; e < g.rows() * cpr; e += blockDim.x) {
+    const int row = e / cpr;
+    const int c = e - row * cpr;
+    *reinterpret_cast<uint4*>(w_s + static_cast<size_t>(row) * g.ldw +
+                              c * 8) = src[e];
+  }
+}
+
+// acc[mt][nt] = W_s rows (q * MT * 16 + mt * 16 ..) . h^T columns
+// ((p * NT + nt) * 8 ..): the gates of warp (q, p), f32 accumulation
+// chained over the Hp / 16 k-chunks in order; W_slice is the A operand and
+// bf16(h) the B operand, both read with ldmatrix from padded rows
+template <int MT, int NT, typename Geo>
+__device__ __forceinline__ void gate_product(float (&acc)[MT][NT][4],
+                                             const bf16* w_s,
+                                             const bf16* h_s, const Geo& g,
+                                             int q, int p, int lane) {
+  const int mat = lane >> 3;
+  const int lrow = lane & 7;
+  const uint32_t a_addr = smem_addr(
+      w_s + (q * MT * 16 + (mat & 1) * 8 + lrow) * g.ldw + (mat >> 1) * 8);
+  const uint32_t a_tile = 16 * g.ldw * sizeof(bf16);
+  const int n = p * NT * 8 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
+  const uint32_t b_addr = smem_addr(h_s + n * g.ldw + (mat & 1) * 8);
+  for (int ks = 0; ks < g.Hp / 16; ++ks) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_addr + mt * a_tile + ks * 32);
+    if constexpr (NT == 2) {
+      uint32_t b[4];
+      ldsm_x4(b, b_addr + ks * 32);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][1], a[mt], b[2], b[3]);
+      }
+    } else {
+      uint32_t b[2];
+      ldsm_x2(b, b_addr + ks * 32);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
+    }
+  }
+}
+
+// The backward's partial dh_prev = bf16(dgates)[:, its rows] . W[its rows,
+// :] for every unit (BT x Hp, f32) on the tensor cores: W_slice^T (A,
+// ldmatrix.trans) times the block's bf16 dgates (B, dg_s [BT][ldg]),
+// f32 accumulation chained over the GATES U / 16 row chunks in order.
+// 16-unit tile mt goes to the blocks that own its units: slot r of their
+// receive buffer recv_slot ([C][U][BT] f32; this block's address, mapped
+// to the owner's through distributed shared memory).
+template <int NT, typename Geo>
+__device__ __forceinline__ void dh_partials(cg::cluster_group& cluster,
+                                            float* recv_slot,
+                                            const bf16* w_s, const bf16* dg_s,
+                                            const Geo& g, int r, int q, int p,
+                                            int lane) {
+  const int mat = lane >> 3;
+  const int lrow = lane & 7;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int nb = p * NT * 8 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
+  const uint32_t dg_addr = smem_addr(dg_s + nb * g.ldg + (mat & 1) * 8);
+  const uint32_t wt_addr =
+      smem_addr(w_s + ((mat >> 1) * 8 + lrow) * g.ldw + (mat & 1) * 8);
+  float* dst_base = recv_slot + r * g.U * g.BT;
+  for (int mt = q; mt < g.Hp / 16; mt += g.NG) {
+    float acc2[NT][4] = {};
+    for (int ks = 0; ks < g.rows() / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4_t(a, wt_addr + (ks * 16 * g.ldw + mt * 16) * sizeof(bf16));
+      if constexpr (NT == 2) {
+        uint32_t bq[4];
+        ldsm_x4(bq, dg_addr + ks * 32);
+        mma_bf16(acc2[0], a, bq[0], bq[1]);
+        mma_bf16(acc2[1], a, bq[2], bq[3]);
+      } else {
+        uint32_t bq[2];
+        ldsm_x2(bq, dg_addr + ks * 32);
+        mma_bf16(acc2[0], a, bq[0], bq[1]);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = mt * 16 + gid + hh * 8;
+      const int dest = m / g.U;
+      float* dst = cluster.map_shared_rank(dst_base, dest) + (m % g.U) * g.BT;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(dst + (p * NT + nt) * 8 + tig * 2) =
+            make_float2(acc2[nt][2 * hh], acc2[nt][2 * hh + 1]);
+    }
+  }
+}
+
+// dynamic shared memory and, above the portable 8, the cluster size
+template <typename Kern>
+cudaError_t set_cluster_attributes(Kern kern, int C, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+struct ClusterConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterConfig(int C, int blocks, int threads, size_t smem,
+                cudaStream_t stream) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// `clusters` clusters of C blocks of `threads` threads each
+template <typename Kern, typename... Args>
+cudaError_t launch_cluster(Kern kern, int C, int clusters, int threads,
+                           size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = set_cluster_attributes(kern, C, smem);
+  if (err != cudaSuccess) return err;
+  ClusterConfig cc(C, clusters * C, threads, smem, stream);
+  err = cudaLaunchKernelEx(&cc.cfg, kern, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// clusters of C blocks that can be resident at once
+// (cudaOccupancyMaxActiveClusters); a negative value is minus a cudaError_t
+template <typename Kern>
+int max_clusters(Kern kern, int C, int threads, size_t smem) {
+  cudaError_t err = set_cluster_attributes(kern, C, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  ClusterConfig cc(C, C, threads, smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &cc.cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return n;
 }
 
 }  // namespace

@@ -28,9 +28,15 @@ TPU kernels:
 any depth; the unidirectional branch of :func:`bigru_stack_fused` runs
 ``ops.gru_train.gru_fwd`` (TPU kernel ``gru_pallas``).
 
-Every kernel mode has a plain PyTorch version here that repeats its
-arithmetic step by step. A wrapper runs the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+The f32-gates mode runs the cluster recurrence (``csrc/gru_rec.cuh``
+``gru_cluster_fwd_kernel``: W_hh split over a thread-block cluster's
+shared memory, the step's product on the tensor cores), whose geometry
+:func:`cluster_geometry` chooses with ``ops/rnn_cluster.py``; the other
+modes and :func:`bigru_pallas` run the per-block recurrence
+(``gru_rec_kernel``). Every kernel mode has a plain PyTorch version here
+that repeats its arithmetic step by step. A wrapper runs the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises.
 The kernels take any hidden size up to 512: one that is not a multiple of
 32 is padded with zero units, which stay exactly 0 and add exact zeros.
 """
@@ -42,7 +48,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from medaka_tpu_torch.common import resolve_device
-from medaka_tpu_torch.ops import cuda_build
+from medaka_tpu_torch.ops import cuda_build, rnn_cluster
 from medaka_tpu_torch.ops.gru_train import _sigmoid, gru_fwd
 
 #: recurrence numerics of each kernel mode (csrc/gru_rec.cuh NUM_*)
@@ -208,12 +214,16 @@ def build():
     lib = cuda_build.load_library("gru_fullfused.cu")
     if not getattr(lib, "_medaka_typed", False):
         lib.bigru_fullfused_launch.argtypes = (
-            [_VOIDP] * 10 + [_INT] * 9 + [_VOIDP])
+            [_VOIDP] * 10 + [_INT] * 11 + [_VOIDP])
         lib.bigru_fullfused_launch.restype = _INT
         lib.bigru_fused_launch.argtypes = [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP]
         lib.bigru_fused_launch.restype = _INT
         lib.bigru_rec_smem.argtypes = [_INT] * 4
         lib.bigru_rec_smem.restype = ctypes.c_size_t
+        lib.bigru_cluster_smem.argtypes = [_INT] * 3
+        lib.bigru_cluster_smem.restype = ctypes.c_size_t
+        lib.bigru_max_clusters.argtypes = [_INT] * 3
+        lib.bigru_max_clusters.restype = _INT
         lib.gru_fullfused_error_string.argtypes = [_INT]
         lib.gru_fullfused_error_string.restype = ctypes.c_char_p
         lib._medaka_typed = True
@@ -221,7 +231,9 @@ def build():
 
 
 def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
-    """(columns per thread, column groups) of a block of one direction.
+    """(columns per thread, column groups) of a block of one direction of
+    the per-block recurrence (the bf16-gates and int8 modes,
+    ``bigru_fused``).
 
     Both directions run in one grid. With W_hh in shared memory a block
     reads it once, so the smallest tile that fits both directions' blocks
@@ -241,7 +253,7 @@ def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
 
 
 def _choose(lib, num: int, batch: int, hidden: int, device):
-    """(cpt, nq, W_hh in shared memory) for a launch."""
+    """(cpt, nq, W_hh in shared memory) of a per-block recurrence launch."""
     n_sm = cuda_build.sm_count(device)
     for w_smem in (True, False):
         cpt, nq = tile_shape(batch, hidden, n_sm, w_smem)
@@ -250,6 +262,25 @@ def _choose(lib, num: int, batch: int, hidden: int, device):
             return cpt, nq, w_smem
     raise ValueError("needs more than {} bytes of shared memory".format(
         cuda_build.SMEM_LIMIT))
+
+
+def cluster_geometry(hidden: int, batch: int, device):
+    """(C, BT, shared memory bytes, resident clusters) with which the
+    f32-gates mode launches its cluster recurrence at (padded) hidden size
+    ``hidden`` and batch ``batch`` on CUDA device ``device``: both
+    directions' clusters in one grid (:func:`rnn_cluster.choose_geometry`
+    with the GRU's row order)."""
+    lib = build()
+
+    def query(cluster, columns):
+        n = lib.bigru_max_clusters(cluster, columns, hidden)
+        if n < 0:
+            _raise(lib, "bigru_fullfused", -n)
+        return n
+
+    return rnn_cluster.geometry(rnn_cluster.GRU, "fwd", hidden, batch,
+                                device, query, cuda_build.SMEM_LIMIT,
+                                "bigru_fullfused", directions=2)
 
 
 def _padded(hidden: int) -> int:
@@ -322,14 +353,22 @@ def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode):
         return _unpad(out, T, B, H, Hp)
     lib = build()
     num = NUMERICS[mode]
-    try:
-        cpt, nq, w_smem = _choose(lib, num, B, Hp, dev)
-    except ValueError as e:
-        raise ValueError("{}: {}".format(kernel, e)) from None
     w_ih = _pad_gates(w_ih.to(torch.bfloat16), H, Hp, 1).contiguous()
     b_ih = _pad_gates(b_ih.float(), H, Hp, 1).contiguous()
     w_hh, b_hh = _pad_recurrent(w_hh.float(), b_hh.float(), H, Hp)
-    w_op, scale = _hh_operand(w_hh, mode)
+    if mode == "f32_gates":
+        cluster, columns = cluster_geometry(Hp, B, dev)[:2]
+        cpt = nq = w_smem = 0
+        w_op = torch.stack([rnn_cluster.w_slices(rnn_cluster.GRU, w, cluster)
+                            for w in w_hh])
+        scale = None       # int8 scales: not read in this mode
+    else:
+        try:
+            cpt, nq, w_smem = _choose(lib, num, B, Hp, dev)
+        except ValueError as e:
+            raise ValueError("{}: {}".format(kernel, e)) from None
+        cluster = columns = 0
+        w_op, scale = _hh_operand(w_hh, mode)
     b_hh = b_hh.contiguous()
     x = x.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
@@ -337,9 +376,10 @@ def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.bigru_fullfused_launch(
         x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(), w_op.data_ptr(),
-        scale.data_ptr(), b_hh.data_ptr(), lengths.data_ptr(), xp.data_ptr(),
-        out.data_ptr(), out[..., Hp:].data_ptr(), 2 * Hp, T, B, IN, Hp, cpt,
-        nq, int(w_smem), num, stream)
+        None if scale is None else scale.data_ptr(), b_hh.data_ptr(),
+        lengths.data_ptr(), xp.data_ptr(), out.data_ptr(),
+        out[..., Hp:].data_ptr(), 2 * Hp, T, B, IN, Hp, cluster, columns,
+        cpt, nq, int(w_smem), num, stream)
     if err != 0:
         _raise(lib, kernel, err)
     LAUNCHES[kernel] += 1

@@ -17,17 +17,20 @@ Counterpart of the "Backward kernel + custom VJP" section of
   (input projections in PyTorch, f32 accumulation plus the f32 ``b_ih``,
   cast once to the compute dtype, as the JAX function computes them).
 
-Each wrapper runs its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+The backward runs one tile of batch columns on a thread-block cluster
+whose blocks keep W_hh's gate rows of their hidden units in shared memory
+(``csrc/gru_train.cu``); :func:`bwd_geometry` chooses the cluster with
+``ops/rnn_cluster.py``. Each wrapper runs its plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-from medaka_tpu_torch.ops import cuda_build
+from medaka_tpu_torch.ops import cuda_build, rnn_cluster
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"gru_fwd": 0, "gru_bwd": 0}
@@ -135,12 +138,14 @@ def build():
     if not getattr(lib, "_medaka_typed", False):
         lib.gru_fwd_launch.argtypes = [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP]
         lib.gru_fwd_launch.restype = _INT
-        lib.gru_bwd_launch.argtypes = [_VOIDP] * 13 + [_INT] * 8 + [_VOIDP]
+        lib.gru_bwd_launch.argtypes = [_VOIDP] * 12 + [_INT] * 7 + [_VOIDP]
         lib.gru_bwd_launch.restype = _INT
         for name in ("gru_fwd_smem", "gru_bwd_smem"):
             fn = getattr(lib, name)
             fn.argtypes = [_INT] * 3
             fn.restype = ctypes.c_size_t
+        lib.gru_bwd_max_clusters.argtypes = [_INT] * 3
+        lib.gru_bwd_max_clusters.restype = _INT
         lib.gru_train_error_string.argtypes = [_INT]
         lib.gru_train_error_string.restype = ctypes.c_char_p
         lib._medaka_typed = True
@@ -148,7 +153,7 @@ def build():
 
 
 def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
-    """(columns per thread, column groups) of a block of one direction.
+    """(columns per thread, column groups) of a block of ``gru_fwd``.
 
     With W_hh in shared memory a block reads it once, so the smallest
     tile that fits the grid in one wave keeps the most SMs busy. Where
@@ -176,29 +181,41 @@ def _split_count(batch, steps, hidden, n_sm, gates=3):
     return max(1, min(-(-2 * n_sm // tiles), -(-steps * batch // 1024)))
 
 
-def _choose(lib, smem_fn, B, H, dev):
+def _choose(lib, B, H, dev):
+    """(cpt, nq, W_hh in shared memory) of a ``gru_fwd`` launch."""
     n_sm = cuda_build.sm_count(dev)
     cpt, nq = tile_shape(B, H, n_sm, True)
-    w_smem = smem_fn(1, cpt * nq, H) <= cuda_build.SMEM_LIMIT
+    w_smem = lib.gru_fwd_smem(1, cpt * nq, H) <= cuda_build.SMEM_LIMIT
     if not w_smem:
         cpt, nq = tile_shape(B, H, n_sm, False)
-    smem = smem_fn(int(w_smem), cpt * nq, H)
+    smem = lib.gru_fwd_smem(int(w_smem), cpt * nq, H)
     if smem > cuda_build.SMEM_LIMIT:
         raise ValueError("needs {} bytes of shared memory (limit {})".format(
             smem, cuda_build.SMEM_LIMIT))
-    return cpt, nq, w_smem, n_sm
+    return cpt, nq, w_smem
+
+
+def bwd_geometry(H: int, B: int, dev) -> Tuple[int, int, int, int]:
+    """(C, BT, shared memory bytes, resident clusters) with which
+    ``gru_bwd`` launches its cluster recurrence at hidden size H and batch
+    B on CUDA device ``dev`` (:func:`rnn_cluster.choose_geometry` with the
+    GRU's row order)."""
+    lib = build()
+
+    def query(cluster, columns):
+        n = lib.gru_bwd_max_clusters(cluster, columns, H)
+        if n < 0:
+            _raise(lib, "gru_bwd", -n)
+        return n
+
+    return rnn_cluster.geometry(rnn_cluster.GRU, "bwd", H, B, dev, query,
+                                cuda_build.SMEM_LIMIT, "gru_bwd")
 
 
 def _rows_layout(w_hh):
     """(G, H) -> bf16 16-byte chunks laid out (H/8, G, 8)."""
     return cuda_build.interleave_chunks(
         w_hh.to(torch.bfloat16).contiguous()[None])[0]
-
-
-def _cols_layout(w_hh):
-    """(G, H) -> W_hh^T's bf16 16-byte chunks laid out (G/8, H, 8)."""
-    return cuda_build.interleave_chunks(
-        w_hh.to(torch.bfloat16).t().contiguous()[None])[0]
 
 
 def _raise(lib, name, err):
@@ -217,8 +234,7 @@ def _launch_fwd(x_proj, w_hh, b_hh, lengths, reverse):
         return out
     lib = build()
     try:
-        cpt, nq, w_smem, _ = _choose(lib, lib.gru_fwd_smem, B, H,
-                                     x_proj.device)
+        cpt, nq, w_smem = _choose(lib, B, H, x_proj.device)
     except ValueError as e:
         raise ValueError("gru_fwd: {}".format(e)) from None
     x_proj = x_proj.contiguous()
@@ -266,31 +282,27 @@ def _launch_bwd(x_proj, h_out, dh_out, w_hh, b_hh, lengths, reverse):
     if T == 0 or B == 0:
         return dxp, dw, db
     lib = build()
-    try:
-        cpt, nq, w_smem, n_sm = _choose(lib, lib.gru_bwd_smem, B, H, dev)
-    except ValueError as e:
-        raise ValueError("gru_bwd: {}".format(e)) from None
-    splits = _split_count(B, T, H, n_sm)
-    parts = -(-B // (cpt * nq)) * nq
-    # scratch: bf16(dhp) for the dW tiles, per-(block, q) db_hh sums and
+    cluster, columns = bwd_geometry(H, B, dev)[:2]
+    splits = _split_count(B, T, H, cuda_build.sm_count(dev))
+    # scratch: bf16(dhp) for the dW tiles, per-cluster db_hh sums and
     # per-split dW_hh tiles, all summed in a fixed order by the kernels
     dhp = torch.empty((T, B, G), dtype=torch.bfloat16, device=dev)
-    db_part = torch.empty((parts, G), dtype=torch.float32, device=dev)
+    db_part = torch.empty((-(-B // columns), G), dtype=torch.float32,
+                          device=dev)
     dw_part = torch.empty((splits, G, H), dtype=torch.float32, device=dev)
     x_proj = x_proj.contiguous()
     h_out = h_out.contiguous()
     dh_out = dh_out.contiguous()
-    w_rows = _rows_layout(w_hh)
-    w_cols = _cols_layout(w_hh)
+    w_sl = rnn_cluster.w_slices(rnn_cluster.GRU, w_hh, cluster)
     b_hh = b_hh.float().contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.gru_bwd_launch(
         x_proj.data_ptr(), h_out.data_ptr(), dh_out.data_ptr(),
-        w_rows.data_ptr(), w_cols.data_ptr(), b_hh.data_ptr(),
-        lengths.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
-        db_part.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        T, B, H, cpt, nq, int(w_smem), int(reverse), splits, stream)
+        w_sl.data_ptr(), b_hh.data_ptr(), lengths.data_ptr(), dxp.data_ptr(),
+        dhp.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), T, B, H, cluster, columns, int(reverse), splits,
+        stream)
     if err != 0:
         _raise(lib, "gru_bwd", err)
     LAUNCHES["gru_bwd"] += 1

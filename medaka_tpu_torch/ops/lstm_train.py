@@ -22,12 +22,13 @@ Counterpart of the "Trainable LSTM" section of
 Both kernels run one tile of batch columns of one direction on a
 thread-block cluster of C blocks (sm_90a), each block keeping the gate
 rows of its share of the hidden units in shared memory for the whole walk
-(``csrc/lstm_train.cu``). The host side is here: :func:`choose_geometry`
-(cluster size, columns a cluster and shared memory, from H, B and the
-card's resident clusters) and :func:`w_slices` (W_hh cut into the
-clusters' per-block slices in the kernels' row order), both pure and
-tested on the CPU. Each wrapper runs its plain version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+(``csrc/lstm_train.cu``). The host side is ``ops/rnn_cluster.py``'s with
+the LSTM's row order: :func:`choose_geometry` (cluster size, columns a
+cluster and shared memory, from H, B and the card's resident clusters)
+and :func:`w_slices` (W_hh cut into the clusters' per-block slices in the
+kernels' row order), both pure and tested on the CPU. Each wrapper runs
+its plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -36,20 +37,17 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
-from medaka_tpu_torch.ops import cuda_build
+from medaka_tpu_torch.ops import cuda_build, rnn_cluster
 from medaka_tpu_torch.ops.gru_train import (
     _h_prev, _order, _sigmoid, _split_count, project)
+from medaka_tpu_torch.ops.rnn_cluster import (  # noqa: F401 (re-exported)
+    CLUSTER_SIZES, MAX_UNITS, TILE_COLUMNS)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"lstm_fwd": 0, "lstm_bwd": 0}
 
-#: cluster sizes, in the order tried (above 8 needs the non-portable size)
-CLUSTER_SIZES = (1, 2, 4, 8, 16)
-#: batch columns a cluster, in the order tried
-TILE_COLUMNS = (8, 16, 32)
-#: hidden units of a warp's unit group and of a block at most
-UNIT_GROUP = 8
-MAX_UNITS = 64
+#: hidden units of a warp's unit group
+UNIT_GROUP = rnn_cluster.LSTM.group
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -138,69 +136,23 @@ def lstm_bwd_plain(x_proj, h_out, c_out, dh_out, w_hh, b_hh, lengths,
 
 
 def units_per_block(hidden: int, cluster: int) -> int:
-    """Hidden units of one block: H over the cluster, rounded up to a
-    multiple of the unit group (the padded units are zero rows)."""
-    per = cluster * UNIT_GROUP
-    return -(-hidden // per) * UNIT_GROUP
-
-
-def _align16(v: int) -> int:
-    return (v + 15) & ~15
+    """Hidden units of one block (:func:`rnn_cluster.units_per_block`)."""
+    return rnn_cluster.units_per_block(rnn_cluster.LSTM, hidden, cluster)
 
 
 def smem_bytes(kind: str, cluster: int, columns: int, hidden: int) -> int:
     """Dynamic shared memory of one block of ``lstm_fwd`` (kind "fwd") or
-    the backward recurrence ("bwd"), as the kernel carves it (``Geo`` in
-    ``csrc/lstm_train.cu``)."""
-    U = units_per_block(hidden, cluster)
-    ldw = cluster * U + 8        # padded bf16 row of W and of h
-    nbytes = (_align16(4 * U * ldw * 2)             # W_hh slice
-              + _align16(2 * columns * ldw * 2))    # h (h_prev) x 2
-    if kind == "fwd":
-        # staged bf16 h and f32 c of the block's units
-        return nbytes + _align16(columns * U * 2) + _align16(columns * U * 4)
-    # bf16 dgates [BT][4U + 8] and the dh partials [2][C][U][BT] f32
-    return (nbytes + _align16(columns * (4 * U + 8) * 2)
-            + _align16(2 * cluster * U * columns * 4))
+    the backward recurrence ("bwd") (:func:`rnn_cluster.smem_bytes`)."""
+    return rnn_cluster.smem_bytes(rnn_cluster.LSTM, kind, cluster, columns,
+                                  hidden)
 
 
 def choose_geometry(kind: str, hidden: int, batch: int, smem_limit: int,
                     max_clusters: Callable[[int, int, int], int]):
-    """(C, BT, shared memory bytes) of a launch.
-
-    C is the smallest cluster size whose block holds at most
-    :data:`MAX_UNITS` units and fits ``smem_limit`` at the smallest tile;
-    BT the smallest tile of :data:`TILE_COLUMNS` whose ceil(B / BT)
-    clusters are all resident at once (one wave), else the largest that
-    fits. ``max_clusters(C, BT, smem)`` is how many clusters the card
-    holds at once (``cudaOccupancyMaxActiveClusters``; about the SM count
-    over C); a value below 1 raises.
-    """
-    if hidden % 32 or not 0 < hidden <= 512:
-        raise ValueError("hidden size {} must be a multiple of 32 and at "
-                         "most 512".format(hidden))
-    for cluster in CLUSTER_SIZES:
-        if units_per_block(hidden, cluster) <= MAX_UNITS and smem_bytes(
-                kind, cluster, TILE_COLUMNS[0], hidden) <= smem_limit:
-            break
-    else:
-        raise ValueError("no cluster size fits H={} in {} bytes of shared "
-                         "memory".format(hidden, smem_limit))
-    best = None
-    for columns in TILE_COLUMNS:
-        smem = smem_bytes(kind, cluster, columns, hidden)
-        if smem > smem_limit:
-            break
-        resident = max_clusters(cluster, columns, smem)
-        if resident < 1:
-            raise RuntimeError(
-                "no cluster of {} blocks with {} bytes of shared memory can "
-                "be resident (cudaOccupancyMaxActiveClusters gave {})".format(
-                    cluster, smem, resident))
-        best = (cluster, columns, smem)
-        if -(-batch // columns) <= resident:
-            break
-    return best
+    """(C, BT, shared memory bytes) of a launch
+    (:func:`rnn_cluster.choose_geometry`)."""
+    return rnn_cluster.choose_geometry(rnn_cluster.LSTM, kind, hidden, batch,
+                                       smem_limit, max_clusters)
 
 
 def w_slices(w_hh: torch.Tensor, cluster: int) -> torch.Tensor:
@@ -209,15 +161,9 @@ def w_slices(w_hh: torch.Tensor, cluster: int) -> torch.Tensor:
 
     Unit j = r U + q 8 + u (Hp = C U units, those at H and above zero)
     has its gate g at row q 32 + g 8 + u of slice r; columns k >= H are
-    zero.
+    zero (:func:`rnn_cluster.w_slices`).
     """
-    H = w_hh.shape[1]
-    U = units_per_block(H, cluster)
-    Hp = cluster * U
-    w = torch.zeros((4, Hp, Hp), dtype=torch.bfloat16, device=w_hh.device)
-    w[:, :H, :H] = w_hh.to(torch.bfloat16).reshape(4, H, H)
-    w = w.reshape(4, cluster, U // UNIT_GROUP, UNIT_GROUP, Hp)
-    return w.permute(1, 2, 0, 3, 4).reshape(cluster, 4 * U, Hp).contiguous()
+    return rnn_cluster.w_slices(rnn_cluster.LSTM, w_hh, cluster)
 
 
 def build():
@@ -245,30 +191,21 @@ def _raise(lib, name, err):
         name, lib.lstm_train_error_string(err).decode(), err))
 
 
-_RESIDENT: Dict[Tuple, int] = {}
-
-
 def geometry(kind: str, H: int, B: int, dev) -> Tuple[int, int, int, int]:
     """(C, BT, shared memory bytes, resident clusters) with which
     ``lstm_fwd`` (kind "fwd") or ``lstm_bwd`` ("bwd") launches at hidden
     size H and batch B on CUDA device ``dev``: :func:`choose_geometry` on
     the card, its resident-cluster queries cached."""
     lib = build()
-    dev = torch.device(dev)
 
-    def resident(cluster, columns, smem):
-        key = (kind, cluster, columns, H, dev.index)
-        if key not in _RESIDENT:
-            n = lib.lstm_max_clusters(int(kind == "bwd"), cluster, columns, H)
-            if n < 0:
-                _raise(lib, "lstm_" + kind, -n)
-            _RESIDENT[key] = n
-        return _RESIDENT[key]
+    def query(cluster, columns):
+        n = lib.lstm_max_clusters(int(kind == "bwd"), cluster, columns, H)
+        if n < 0:
+            _raise(lib, "lstm_" + kind, -n)
+        return n
 
-    with torch.cuda.device(dev):
-        cluster, columns, smem = choose_geometry(
-            kind, H, B, cuda_build.SMEM_LIMIT, resident)
-        return cluster, columns, smem, resident(cluster, columns, smem)
+    return rnn_cluster.geometry(rnn_cluster.LSTM, kind, H, B, dev, query,
+                                cuda_build.SMEM_LIMIT, "lstm_" + kind)
 
 
 def _launch_fwd(x_proj, w_hh, b_hh, lengths, reverse):

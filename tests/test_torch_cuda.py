@@ -207,20 +207,27 @@ def _train_inputs(rng, H, B, T, device):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("H,B,T", [(256, 128, 200), (128, 37, 100),
-                                   (64, 5, 64)])
+@pytest.mark.parametrize("H,B,T", [
+    (256, 128, 200), (128, 37, 100), (64, 5, 64), (64, 1, 50),
+    (96, 16, 60), (256, 16, 80), (256, 37, 60), (384, 37, 40),
+    (384, 128, 30), (512, 128, 40), (512, 1, 30)])
 def test_gru_train_kernels_match_plain(device, H, B, T, reverse):
-    """gru_fwd and gru_bwd against their plain versions, ragged lengths.
+    """gru_fwd and gru_bwd against their plain versions, ragged lengths
+    with a length-0 column.
 
     They do the same operations and differ only in the order of f32 sums
     (the recurrent products, dW_hh and db_hh), which can move a bf16
     rounding: forward outputs within one bf16 step (2^-8 for |h| < 1),
     mean within 1e-3; dxp, dW_hh and db_hh within 1e-3 of each tensor's
-    largest magnitude. W_hh is read from L2 at H=256 and sits in shared
-    memory below. A second backward repeats the first bit for bit.
+    largest magnitude. The shapes take every cluster size the backward's
+    geometry chooser picks (H=64: 1, 96: 2, 256: 4, 384: 8, 512: 16) and
+    1, 2 or 4 column tiles. A second backward repeats the first bit for
+    bit.
     """
     rng = np.random.default_rng(H + B + int(reverse))
     xp, w_hh, b_hh, lengths, dh_out = _train_inputs(rng, H, B, T, device)
+    if B > 1:
+        lengths[-1] = 0
     out = gru_train.gru_fwd(xp, w_hh, b_hh, lengths, reverse)
     ref = gru_train.gru_fwd_plain(xp, w_hh, b_hh, lengths, reverse)
     torch.cuda.synchronize()
@@ -235,6 +242,7 @@ def test_gru_train_kernels_match_plain(device, H, B, T, reverse):
                                    reverse)
     again = gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh, lengths, reverse)
     torch.cuda.synchronize()
+    print("gru_bwd geometry", gru_train.bwd_geometry(H, B, device))
     for name, g, w in zip(("dxp", "dW_hh", "db_hh"), got, want):
         rel = ((g - w).abs().max() / w.abs().max()).item()
         print("gru_bwd", name, "relative max", rel)
@@ -376,6 +384,31 @@ def test_lstm_geometry_matches_the_kernels(device, kind):
     assert clusters == {1, 2, 4, 8, 16}
 
 
+@pytest.mark.parametrize("kernel", ["gru_bwd", "bigru_fullfused"])
+def test_gru_geometry_matches_the_kernels(device, kernel):
+    """The host's byte count equals the kernel's for every H and tile the
+    GRU cluster chooser can pick (the backward at every H it takes, the
+    fullfused f32-gates recurrence at every H up to 512, padded to a
+    multiple of 32), and every cluster size it picks is resident."""
+    if kernel == "gru_bwd":
+        smem_fn = gru_train.build().gru_bwd_smem
+        geometry = gru_train.bwd_geometry
+        want = {1, 2, 4, 8, 16}
+    else:
+        smem_fn = gru_fullfused.build().bigru_cluster_smem
+        geometry = gru_fullfused.cluster_geometry
+        want = {1, 2, 4, 8}
+    clusters = set()
+    for H in range(32, 513, 32):
+        for B in (1, 5, 16, 31, 128, 512):
+            C, BT, smem, resident = geometry(H, B, device)
+            assert smem_fn(C, BT, H) == smem
+            assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
+            clusters.add(C)
+    print(kernel, "cluster sizes", sorted(clusters))
+    assert clusters == want
+
+
 def _rl_train_batch(rng, B, T, R):
     x = np.zeros((B, T, R, 5), np.int8)
     x[..., 0] = rng.integers(0, 6, (B, T, R))
@@ -491,7 +524,9 @@ def _bf16_ulp(v):
 @pytest.mark.parametrize("layer_in", ["features", "layer"])
 @pytest.mark.parametrize("mode", ["f32_gates", "bf16_gates", "int8", "fused"])
 @pytest.mark.parametrize("H,B,T", [(256, 16, 300), (96, 31, 200),
-                                   (256, 1, 100)])
+                                   (256, 1, 100), (64, 37, 60),
+                                   (384, 16, 40), (512, 1, 30),
+                                   (512, 128, 20)])
 def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
     """Each fullfused mode and ``bigru_fused`` against its plain version,
     ragged lengths, layer 1 (10 features) and layer 2 (2H) inputs.
@@ -501,8 +536,11 @@ def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
     (cuBLAS), which can move one bf16 rounding of h or one round(127 h):
     f32-gates and int8 outputs within 2^-8 (mean 1e-3), bf16 gates within
     one bf16 step of the output's largest magnitude. A second launch
-    repeats the first bit for bit. H=256 streams the bf16 W_hh from L2 and
-    keeps the int8 one in shared memory; H=96 keeps both there.
+    repeats the first bit for bit. The f32-gates mode runs the cluster
+    recurrence, whose chooser takes clusters of 1 (H=64), 2 (96), 4 (256)
+    and 8 (384, 512) blocks; the other modes the per-block recurrence,
+    which streams the bf16 W_hh from L2 at H >= 256 and keeps it in shared
+    memory below, the int8 one up to H=256.
     """
     rng = np.random.default_rng(H + B + T)
     IN = 10 if layer_in == "features" else 2 * H

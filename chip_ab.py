@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""Hold the port's CUDA kernels of two source trees against each other on
+one GPU: their outputs on the same inputs, and the times of the GRU
+forward recurrences.
+
+    python3 chip_ab.py run --tree DIR --out FILE.pt [--seed N]
+    python3 chip_ab.py compare A.pt B.pt [C.pt ...]
+
+``run`` builds the kernels of the checkout at DIR (its
+``medaka_tpu_torch/csrc``, one ``nvcc`` a source, all at once), runs
+every kernel wrapper once on inputs made from the seed and saves the
+outputs, one bf16 train step of the counts ``GRUModel`` (H=256, B=128,
+T=1000, random features and labels) through the kernels against the same
+step through their plain versions (the loss's relative difference and
+the largest gradient difference over the gradient's largest magnitude),
+and the times (CUDA events, 5 launches after one warm-up) of
+``gru_fwd`` at B=128, T=1000, H=256 (the counts training step's shape),
+over one column and at H=96, B=31, T=500, and of ``bigru_fused`` at B=16,
+T=10000, H=256 (the batch-16 path's layer 2), over one column and at
+H=96, B=31, T=500. ``compare`` prints, for each output, whether every
+file holds the same bits as the first, the largest difference where not,
+and the train steps' agreement and the times side by side. Give the trees their turns in one call, on
+one card (A, B, B, A), since cards and calls differ.
+
+Needs a CUDA GPU and ``nvcc``; imports nothing of JAX or ``medaka_tpu``.
+"""
+import argparse
+import json
+import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def run(tree, out_path, seed):
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA GPU is available", file=sys.stderr)
+        return 1
+    import chip_smoke as cs          # this checkout's inputs and timers
+    sys.path.insert(0, os.path.abspath(tree))
+    import medaka_tpu_torch
+    from medaka_tpu_torch.ops import bilstm, gru_fullfused, gru_split, \
+        gru_train, lstm_train
+    print("chip_ab: the port from {}".format(
+        os.path.dirname(medaka_tpu_torch.__file__)), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    mods = (gru_split, bilstm, gru_train, lstm_train, gru_fullfused)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.build(), mods))
+    rng = np.random.default_rng(seed)
+    outputs, times, step = {}, {}, {}
+
+    def keep(key, value):
+        if isinstance(value, (tuple, list)):
+            for i, v in enumerate(value):
+                keep("{}[{}]".format(key, i), v)
+        else:
+            outputs[key] = value.detach().cpu()
+
+    # the split kernels, both modes, int8 on and off
+    layers, head = cs.random_net(rng)
+    T, B = 300, 48
+    x = torch.from_numpy(rng.random((B, T, 10)).astype("float32"))
+    xt = x.transpose(0, 1).to(torch.bfloat16).contiguous().to(dev)
+    lens = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype("int32"))
+    lens[0] = T
+    lens = lens.to(dev)
+    for mode in ("t", "rows"):
+        for quant in (True, False):
+            w = gru_split.prepare_split_weights(layers, head, mode, quant, dev)
+            (kf, kb), logits = cs.run_layers(gru_split, w, xt, lens, mode,
+                                             quant, plain=False)
+            keep("gru_split/{}/{}/l1".format(mode, quant), (kf, kb))
+            keep("gru_split/{}/{}/l2head".format(mode, quant), logits)
+    # the bi-LSTM inference kernel
+    keep("bilstm_fused", bilstm.bilstm_fused(
+        *cs.random_lstm_inputs(rng, 128, 64, 300, dev)))
+    # the LSTM training pair, both directions
+    for H in (384, 128):
+        for reverse in (False, True):
+            xp, w_hh, b_hh, ln, dh = cs.random_direction(rng, H, 64, 200, dev,
+                                                         gates=4)
+            h, c = lstm_train.lstm_fwd(xp, w_hh, b_hh, ln, reverse)
+            keep("lstm_fwd/H{}/{}".format(H, reverse), (h, c))
+            keep("lstm_bwd/H{}/{}".format(H, reverse), lstm_train.lstm_bwd(
+                xp, h, c, dh, w_hh, b_hh, ln, reverse))
+    # the GRU training pair; gru_bwd on the plain forward's outputs, so
+    # that it sees the same inputs whatever gru_fwd gives
+    for H, B, T in ((256, 128, 200), (96, 31, 100)):
+        for reverse in (False, True):
+            xp, w_hh, b_hh, ln, dh = cs.random_direction(rng, H, B, T, dev)
+            keep("gru_fwd/H{}/{}".format(H, reverse),
+                 gru_train.gru_fwd(xp, w_hh, b_hh, ln, reverse))
+            h = gru_train.gru_fwd_plain(xp, w_hh, b_hh, ln, reverse)
+            keep("gru_bwd/H{}/{}".format(H, reverse), gru_train.gru_bwd(
+                xp, h, dh, w_hh, b_hh, ln, reverse))
+    # the fullfused modes and bigru_fused, layer 1 and layer 2 inputs
+    for H, B, T in ((256, 16, 500), (96, 31, 200)):
+        ln = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
+        ln[0], ln[1] = T, 0
+        ln = ln.to(dev)
+        for IN in (10, 2 * H):
+            x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
+                "float32")).to(dev, torch.bfloat16)
+            w = cs.random_bigru_layer(rng, H, IN, dev)
+            for mode in ("f32_gates", "bf16_gates", "int8", "fused"):
+                kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
+                keep("{}/H{}/IN{}".format(
+                    "bigru_fused" if mode == "fused"
+                    else "bigru_fullfused/" + mode, H, IN), kernel())
+
+    # one train step through the kernels vs through their plain versions
+    from medaka_tpu_torch import parallel
+    from medaka_tpu_torch.models.gru import GRUModel
+    B, T = 128, 1000
+    ln = rng.integers(T // 2, T + 1, B).astype("int32")
+    ln[0] = T
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("features", rng.random((B, T, 10)).astype("float32")),
+        ("labels", rng.integers(0, 5, (B, T)).astype("int32")),
+        ("mask", (np.arange(T)[None, :] < ln[:, None]).astype("float32")),
+        ("lengths", ln))}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = GRUModel(gru_size=256).to(dev)
+    losses, grads = {}, {}
+    for plain in (False, True):
+        losses[plain] = cs.staged_train_step(
+            model, None, batch, gru_train, parallel, plain=plain,
+            update=False).item()
+        grads[plain] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    step["loss_rel"] = abs(losses[False] - losses[True]) / abs(losses[True])
+    step["grad_rel_max"] = max(
+        ((grads[False][n] - g).abs().max() / g.abs().max()).item()
+        for n, g in grads[True].items())
+    print("   train step, kernels vs plain: {}".format(json.dumps(step)),
+          flush=True)
+    del model, grads, batch
+
+    # times of the two recurrences this comparison is about
+    def timed(name, fn):
+        times[name] = cs.cuda_ms(fn, reps=5)
+        print("   {}: {:.3f} ms".format(name, times[name]), flush=True)
+
+    for H, B, T in ((256, 128, 1000), (256, 1, 1000), (96, 31, 500)):
+        xp, w_hh, b_hh, ln, _ = cs.random_direction(rng, H, B, T, dev)
+        timed("gru_fwd/H{}_B{}_T{}".format(H, B, T),
+              lambda: gru_train.gru_fwd(xp, w_hh, b_hh, ln))
+    for H, B, T in ((256, 16, 10000), (256, 1, 10000), (96, 31, 500)):
+        xp, w_hh, b_hh, ln, _ = cs.random_direction(rng, H, B, T, dev)
+        w2, b2 = torch.stack([w_hh, w_hh.flip(0)]), torch.stack([b_hh] * 2)
+        xp_b = xp.flip(-1).contiguous()
+        timed("bigru_fused/H{}_B{}_T{}".format(H, B, T),
+              lambda: gru_fullfused.fused_layer(xp, xp_b, w2, b2, ln))
+        del xp, xp_b
+    torch.cuda.synchronize()
+    torch.save({"tree": os.path.abspath(tree), "card": cs.card_line(),
+                "outputs": outputs, "times": times, "train_step": step},
+               out_path)
+    print("chip_ab: {} outputs, {} times of {} -> {}".format(
+        len(outputs), len(times), tree, out_path))
+    return 0
+
+
+def compare(paths):
+    import torch
+    runs = [torch.load(p) for p in paths]
+    first = runs[0]["outputs"]
+    report = {"runs": [{"file": p, "tree": r["tree"], "card": r["card"]}
+                       for p, r in zip(paths, runs)],
+              "outputs": {}, "times_ms": {},
+              "train_step_vs_plain": [r["train_step"] for r in runs]}
+    for key, ref in first.items():
+        row = []
+        for r in runs[1:]:
+            got = r["outputs"][key]
+            if torch.equal(got, ref):
+                row.append("identical")
+            else:
+                row.append((got.float() - ref.float()).abs().max().item())
+        report["outputs"][key] = row
+    for key in runs[0]["times"]:
+        report["times_ms"][key] = [r["times"][key] for r in runs]
+    differ = sorted(k for k, row in report["outputs"].items()
+                    if any(v != "identical" for v in row))
+    print(json.dumps(report, indent=1))
+    print("outputs that differ from the first file's: {}".format(
+        json.dumps(differ)))
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("run", help="run one tree's kernels, save outputs")
+    r.add_argument("--tree", default=HERE, help="checkout to load the "
+                   "port from (default: this one)")
+    r.add_argument("--out", required=True, help="file of the outputs")
+    r.add_argument("--seed", type=int, default=0)
+    c = sub.add_parser("compare", help="compare saved runs")
+    c.add_argument("files", nargs="+")
+    args = parser.parse_args(argv)
+    if args.cmd == "run":
+        return run(args.tree, args.out, args.seed)
+    return compare(args.files)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

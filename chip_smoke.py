@@ -14,8 +14,9 @@ Phases, each of which fails the script when it fails:
    read-matrix library with ``g++``; print ptxas's registers, shared
    memory and spills of every kernel, by name for the cluster
    recurrences (``lstm_fwd_kernel``, ``lstm_bwd_kernel``,
-   ``gru_cluster_bwd_kernel``, ``gru_cluster_fwd_kernel``),
-   ``rnn_dw_kernel`` and ``bigru_proj_kernel``;
+   ``gru_cluster_bwd_kernel``, and ``gru_cluster_fwd_kernel`` in both
+   ``gru_train.cu`` and ``gru_fullfused.cu``), ``rnn_dw_kernel`` and
+   ``bigru_proj_kernel``;
 3. hold the split-path GRU kernels against their plain PyTorch versions
    at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
@@ -43,8 +44,8 @@ Phases, each of which fails the script when it fails:
    (CUDA events), and the kernel's time beside its plain version, its
    serial floor (one column), the cuDNN ``nn.LSTM`` yardstick and its
    bound;
-10. hold the GRU training kernels (``gru_fwd``, ``gru_bwd``: the backward
-    on clusters of C blocks with W_hh in their shared memory, mma.sync)
+10. hold the GRU training kernels (``gru_fwd``, ``gru_bwd``: both on
+    clusters of C blocks with W_hh in their shared memory, mma.sync)
     against their plain versions at full width (H=256, B=128, T=1000,
     ragged lengths, random weights, both directions), and ``gru_bwd``
     against itself run again (bit for bit);
@@ -57,12 +58,15 @@ Phases, each of which fails the script when it fails:
     checkpoint serves ``inference`` + ``sequence``;
 12. on one full batch of that data: one train step through the kernels
     against the same step through their plain versions, a stage
-    breakdown of a step (CUDA events), the step's wall time, and each
-    kernel's time beside its plain version, its serial floor, the cuDNN
-    ``nn.GRU`` yardsticks (forward; backward alone) and its bound; for
-    ``gru_bwd`` also the microseconds a step, its launch geometry (cluster
-    size, columns a cluster, resident clusters) and the profiler's split
-    into recurrence, ``rnn_dw_kernel`` and the sums;
+    breakdown of a step (CUDA events) with ``gru_fwd``'s share, the
+    step's wall time, and each kernel's time beside its plain version, its
+    serial floor, the cuDNN ``nn.GRU`` yardsticks (forward; backward
+    alone), its bound, the microseconds a step and its launch geometry
+    (cluster size, columns a cluster, shared memory, resident clusters) at
+    the main shape and over one column; from the step's profile, each
+    kernel's time a launch (``gru_bwd`` split into recurrence,
+    ``rnn_dw_kernel`` and the sums), where the step's ``gru_fwd`` launches
+    must show ``gru_cluster_fwd_kernel`` and no ``gru_rec_kernel``;
 13. hold the LSTM training kernels (``lstm_fwd``, ``lstm_bwd``: clusters
     of C blocks with W_hh in their shared memory, mma.sync) against their
     plain versions at H=384 (clusters of 8) and H=128 (clusters of 2),
@@ -93,7 +97,9 @@ Phases, each of which fails the script when it fails:
     ``bigru_fullfused_int8`` and ``bigru_fused``) against their plain
     versions at H=256, B=16, T=2000 for layer 1 (10 inputs) and layer 2
     (512 inputs), and through a 3-layer H=96 stack at B=31, T=500, ragged
-    lengths with a padded row, each bit for bit on a second launch;
+    lengths with a padded row, each bit for bit on a second launch; then
+    ``gru_fwd`` and ``bigru_fused`` timed at that small width (H=96,
+    B=31, T=500), each held against its plain version;
 17. (after phase 9) the small-batch path: ``inference --batch_size 16``
     with the counts bundle, which runs off the split path, then
     ``sequence --qualities``, with the launch counts set to 0 just before:
@@ -109,10 +115,12 @@ Phases, each of which fails the script when it fails:
 19. each fullfused kernel on layer 2 of the bundle at B=16, T=10000,
     H=256: against its plain version, its time beside the plain
     version's, its serial floor, the cuDNN ``nn.GRU`` yardstick and its
-    bound; for the f32-gates mode (the cluster recurrence) also the
-    microseconds a step, its launch geometry and the profiler's split into
-    the projection stage and the recurrence; then print one ``kernels``
-    JSON line (eleven rows).
+    bound; for the f32-gates mode and ``bigru_fused`` (the cluster
+    recurrence) also the microseconds a step, the launch geometry and the
+    profiler's split into the projection stage and the recurrence (a
+    profiled launch must run ``gru_cluster_fwd_kernel`` and no
+    ``gru_rec_kernel``); then print one ``kernels`` JSON line (eleven
+    rows).
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -764,6 +772,37 @@ def split_ms(by_kernel, prefixes, launches=1):
                    if k.startswith(p)) / launches for p in prefixes}
 
 
+def check_cluster_forward(name, by_kernel):
+    """Fail unless a profile (``kernels_ms``) of f32-gates GRU forward
+    launches (``gru_fwd``, ``bigru_fused``, ``bigru_fullfused``'s default
+    mode) shows ``gru_cluster_fwd_kernel`` and no ``gru_rec_kernel`` (the
+    per-block recurrence, which only the bf16-gates and int8 modes run),
+    or if there is no profile to check."""
+    if not by_kernel:
+        raise AssertionError("no profile of {}: its kernels cannot be "
+                             "checked".format(name))
+    if any(k.startswith("void gru_rec_kernel") for k in by_kernel) or \
+            not any(k.startswith("void gru_cluster_fwd_kernel")
+                    for k in by_kernel):
+        raise AssertionError("{} ran {}".format(name, sorted(by_kernel)))
+
+
+def cluster_launch_ms(name, fn, prefixes):
+    """{prefix: ms} of the kernels of one call of ``fn`` (the profiler),
+    a launch of an f32-gates GRU forward, checked by
+    :func:`check_cluster_forward`; a trace that records no kernel at all
+    (the measurement tool now and then returns one) is taken again, up
+    to three times."""
+    for attempt in range(3):
+        by_kernel = kernels_ms(fn)
+        if by_kernel:
+            break
+        log("   the profiler recorded no kernel of {} (trace {})".format(
+            name, attempt + 1))
+    check_cluster_forward(name, by_kernel)
+    return split_ms(by_kernel, prefixes)
+
+
 def profile_step(step, step_s):
     """Device time by CUDA kernel over one call of ``step``, and the
     device's busy share of the step's wall time ``step_s``; a profiler that
@@ -917,16 +956,25 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
         for name, start, stop in events:
             stages[name] = stages.get(name, 0.0) + start.elapsed_time(stop)
         log("   stage breakdown (ms): " + json.dumps(stages))
+        fwd_share = stages["gru_fwd x4"] / sum(stages.values())
         log("   step wall time {:.2f} ms: {:.0f} trained columns/s "
-            "({} valid columns)".format(step_s * 1e3, lengths_sum / step_s,
-                                        lengths_sum))
+            "({} valid columns); gru_fwd x4 {:.2f} ms, {:.1%} of the staged "
+            "step".format(step_s * 1e3, lengths_sum / step_s, lengths_sum,
+                          stages["gru_fwd x4"], fwd_share))
         profile = profile_step(lambda: step_fn(batch), step_s)
-        # gru_bwd's three kernels, a launch each (4 launches of each a step)
-        bwd_split = split_ms(profile and profile.pop("kernels_ms"), (
+        step_kernels = profile and profile.pop("kernels_ms")
+        # every forward launch of the step is a gru_fwd launch
+        check_cluster_forward("gru_fwd (the step's 4 launches)",
+                              step_kernels)
+        # a launch of each kernel, from the step's 4 launches of each
+        fwd_split = split_ms(step_kernels, ("void gru_cluster_fwd_kernel",),
+                             launches=4)
+        bwd_split = split_ms(step_kernels, (
             "void gru_cluster_bwd_kernel", "rnn_dw_kernel",
             "rnn_bwd_reduce_kernel"), launches=4)
-        log("   gru_bwd a launch, from the step's profile (ms): "
-            "{}".format(json.dumps(bwd_split)))
+        log("   gru_fwd and gru_bwd a launch, from the step's profile "
+            "(ms): {} {}".format(json.dumps(fwd_split),
+                                 json.dumps(bwd_split)))
 
     with phase("training kernels at B=128 T=1000: timings"):
         layer1, layer2 = model.layer_params()
@@ -963,15 +1011,17 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
             }
             timed = {name: (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
                             cuda_ms(o)) for name, (k, pl, o) in calls.items()}
-            bwd_geometry = {
+            geometry = {name: {
                 key: dict(zip(("cluster", "columns", "smem_bytes",
-                               "resident_clusters"),
-                              gru_train.bwd_geometry(H, cols, dev)))
+                               "resident_clusters"), fn(H, cols, dev)))
                 for key, cols in (("main", B), ("one_column", 1))}
-            log("   gru_bwd: geometry {}; {:.3f} us a step, one column {:.3f} "
-                "us a step".format(json.dumps(bwd_geometry),
-                                   timed["gru_bwd"][0] / T * 1e3,
-                                   timed["gru_bwd"][2] / T * 1e3))
+                for name, fn in (("gru_fwd", gru_train.fwd_geometry),
+                                 ("gru_bwd", gru_train.bwd_geometry))}
+            for name in ("gru_fwd", "gru_bwd"):
+                log("   {}: geometry {}; {:.3f} us a step, one column {:.3f} "
+                    "us a step".format(name, json.dumps(geometry[name]),
+                                       timed[name][0] / T * 1e3,
+                                       timed[name][2] / T * 1e3))
         # yardstick (the port never calls it): cuDNN's bf16 GRU, one
         # direction over layer 2's inputs, its input projection included
         gru = torch.nn.GRU(2 * H, H, 1).to(dev, torch.bfloat16)
@@ -1030,11 +1080,12 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
             "agreement": {"random_weights": agreement,
                           "main_shape": main_stats},
         })
-        if name == "gru_bwd":
-            rows[-1].update(
-                step_us=ms / T * 1e3, serial_floor_step_us=floor_ms / T * 1e3,
-                geometry=bwd_geometry, kernels_ms_per_launch=bwd_split,
-                faster_than_library=ms < lib_bwd)
+        rows[-1].update(
+            step_us=ms / T * 1e3, serial_floor_step_us=floor_ms / T * 1e3,
+            geometry=geometry[name],
+            kernels_ms_per_launch=(fwd_split if name == "gru_fwd"
+                                   else bwd_split),
+            faster_than_library=ms < rows[-1]["library_ms"])
         log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
             "column {:.3f} ms; {})".format(name, ms, plain_ms, bound_ms,
                                            bound_by, floor_ms,
@@ -1042,7 +1093,7 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
     # one train step's numbers, once, on the first of the two rows
     rows[0]["train_step"] = {
         "vs_plain": step_stats, "stages_ms": stages, "profile": profile,
-        "wall_ms": step_s * 1e3,
+        "wall_ms": step_s * 1e3, "gru_fwd_share_of_staged_step": fwd_share,
         "trained_columns_per_s": lengths_sum / step_s,
         "steps_in_run": steps}
     return rows
@@ -1602,6 +1653,43 @@ def fullfused_agreement(gru_fullfused, rng, dev):
     return out
 
 
+def small_width_timings(gru_fullfused, gru_train, rng, dev):
+    """``gru_fwd`` (one direction) and ``bigru_fused`` (both) at a small
+    width, H=96, B=31, T=500 (the 3-layer stack's shape, where all of
+    W_hh, 55,296 B, would fit one block's shared memory): ms a launch, us
+    a step and the launch geometry, each held against its plain
+    version."""
+    import torch
+    H, B, T = 96, 31, 500
+    xp, w_hh, b_hh, lengths, _ = random_direction(rng, H, B, T, dev)
+    w2, b2 = torch.stack([w_hh, w_hh.flip(0)]), torch.stack([b_hh] * 2)
+    xp_b = xp.flip(-1).contiguous()
+    calls = {
+        "gru_fwd": (lambda: gru_train.gru_fwd(xp, w_hh, b_hh, lengths),
+                    lambda: gru_train.gru_fwd_plain(xp, w_hh, b_hh, lengths),
+                    lambda: gru_train.fwd_geometry(H, B, dev)),
+        "bigru_fused": (
+            lambda: gru_fullfused.fused_layer(xp, xp_b, w2, b2, lengths),
+            lambda: gru_fullfused.recurrence_plain(xp, xp_b, w2, b2,
+                                                   lengths),
+            lambda: gru_fullfused.cluster_geometry(H, B, dev,
+                                                   "bigru_fused"))}
+    out = {}
+    for name, (kernel, plain, geometry) in calls.items():
+        err = (kernel().float() - plain().float()).abs().max().item()
+        if err > TOL_GRU_FWD:
+            raise AssertionError("{} at H={} B={} disagrees with its plain "
+                                 "version: {}".format(name, H, B, err))
+        ms = cuda_ms(kernel)
+        out[name] = {"H": H, "B": B, "T": T, "ms": ms,
+                     "step_us": ms / T * 1e3, "max_abs_err": err,
+                     "geometry": dict(zip(("cluster", "columns", "smem_bytes",
+                                           "resident_clusters"),
+                                          geometry()))}
+        log("   {}: {}".format(name, json.dumps(out[name])))
+    return out
+
+
 def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                        modules):
     """Counts inference off the split path at batch 16, the direct route,
@@ -1766,7 +1854,7 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 *layers[0], lens)
             IN = h1.shape[-1]
             one = (h1[:, :1].contiguous(), lens[:1])
-            timed, main_stats = {}, {}
+            timed, main_stats, cluster_rows = {}, {}, {}
             for name, mode in FULLFUSED_MODES.items():
                 _, main_stats[name], plain_ms = compare_fullfused(
                     gru_fullfused, mode, h1, layers[1], lens)
@@ -1775,41 +1863,30 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 floor, _ = fullfused_calls(gru_fullfused, mode, one[0],
                                            layers[1], one[1])
                 timed[name] = (cuda_ms(kernel), plain_ms, cuda_ms(floor))
-                if mode == "f32_gates":
-                    # the projection stage apart from the recurrence, at
-                    # the main shape and over one column (profiler)
-                    cluster_rows = {"geometry": {
+                if mode in ("f32_gates", "fused"):
+                    # the cluster recurrence (and the projection stage
+                    # apart from it), at the main shape and over one
+                    # column (profiler)
+                    kernel_name = name.split("/")[0]
+                    row = {"geometry": {
                         key: dict(zip(("cluster", "columns", "smem_bytes",
                                        "resident_clusters"),
                                       gru_fullfused.cluster_geometry(
-                                          H, cols, dev)))
+                                          H, cols, dev, kernel_name)))
                         for key, cols in (("main", B), ("one_column", 1))}}
                     for key, fn in (("main", kernel), ("one_column", floor)):
-                        by_kernel = kernels_ms(fn)
-                        # the f32-gates launch never runs the per-block
-                        # recurrence
-                        if by_kernel is not None and (
-                                any(k.startswith("void gru_rec_kernel")
-                                    for k in by_kernel)
-                                or not any(k.startswith(
-                                    "void gru_cluster_fwd_kernel")
-                                    for k in by_kernel)):
-                            raise AssertionError(
-                                "the f32-gates launch ran {}".format(
-                                    sorted(by_kernel)))
-                        cluster_rows[key + "_ms"] = split_ms(
-                            by_kernel, ("bigru_proj_kernel",
-                                        "void gru_cluster_fwd_kernel"))
-                    rec = cluster_rows["main_ms"][
-                        "void gru_cluster_fwd_kernel"]
-                    rec1 = cluster_rows["one_column_ms"][
-                        "void gru_cluster_fwd_kernel"]
-                    cluster_rows.update(
+                        row[key + "_ms"] = cluster_launch_ms(
+                            name, fn, ("bigru_proj_kernel",
+                                       "void gru_cluster_fwd_kernel"))
+                    rec = row["main_ms"]["void gru_cluster_fwd_kernel"]
+                    rec1 = row["one_column_ms"]["void gru_cluster_fwd_kernel"]
+                    row.update(
                         step_us=timed[name][0] / T * 1e3,
                         serial_floor_step_us=timed[name][2] / T * 1e3,
                         recurrence_step_us=rec / T * 1e3,
                         recurrence_floor_step_us=rec1 / T * 1e3)
-                    log("   {}: {}".format(name, json.dumps(cluster_rows)))
+                    cluster_rows[name] = row
+                    log("   {}: {}".format(name, json.dumps(row)))
             # yardstick (the port never calls it): cuDNN's bf16 bi-GRU
             # over the same rows, its input projection included
             gru = torch.nn.GRU(IN, H, 1, bidirectional=True).to(
@@ -1856,8 +1933,8 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 s: agreement[s][mode] for s in agreement},
                 "main_shape": main_stats[name]},
         })
-        if mode == "f32_gates":
-            rows[-1]["cluster_recurrence"] = cluster_rows
+        if name in cluster_rows:
+            rows[-1]["cluster_recurrence"] = cluster_rows[name]
         log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
             "column {:.3f} ms; {} launches on {})".format(
                 name, ms, plain_ms, bound_ms, bound_by, floor_ms, launches,
@@ -1932,7 +2009,8 @@ def main(argv=None):
                  for source, kernels in (
                      ("lstm_train.cu", ("lstm_fwd_kernel", "lstm_bwd_kernel",
                                         "rnn_dw_kernel")),
-                     ("gru_train.cu", ("gru_cluster_bwd_kernel",
+                     ("gru_train.cu", ("gru_cluster_fwd_kernel",
+                                       "gru_cluster_bwd_kernel",
                                        "rnn_dw_kernel")),
                      ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",
                                            "bigru_proj_kernel")))}
@@ -2018,6 +2096,10 @@ def main(argv=None):
                "(layers 1 and 2), H=96 B=31 T=500 (3 layers)"):
         ff_agreement = fullfused_agreement(gru_fullfused, rng, dev)
         torch.cuda.empty_cache()
+
+    with phase("gru_fwd and bigru_fused at a small width, H=96 B=31 "
+               "T=500: timings"):
+        small_width = small_width_timings(gru_fullfused, gru_train, rng, dev)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -2426,14 +2508,18 @@ def main(argv=None):
     row_ptxas = {
         "lstm_fwd": ("lstm_train.cu", ("lstm_fwd_kernel",)),
         "lstm_bwd": ("lstm_train.cu", ("lstm_bwd_kernel", "rnn_dw_kernel")),
+        "gru_fwd": ("gru_train.cu", ("gru_cluster_fwd_kernel",)),
         "gru_bwd": ("gru_train.cu", ("gru_cluster_bwd_kernel",
                                      "rnn_dw_kernel")),
         "bigru_fullfused/f32_gates": ("gru_fullfused.cu", (
-            "gru_cluster_fwd_kernel", "bigru_proj_kernel"))}
+            "gru_cluster_fwd_kernel", "bigru_proj_kernel")),
+        "bigru_fused": ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",))}
     for row in rows:
         if row["name"] in row_ptxas:
             source, kernels = row_ptxas[row["name"]]
             row["ptxas"] = {k: ptxas[source][k] for k in kernels}
+        if row["name"] in small_width:
+            row["small_width"] = small_width[row["name"]]
     log("card:", card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@
 //                         tests/test_pallas_gru.py, so it runs the f32-gates
 //                         mode here) and _bigru_fullfused_int8_kernel
 //                         (bigru_pallas_fullfused_int8).
-// bigru_fused_launch      replaces _bigru_kernel (bigru_pallas): the same
-//                         recurrence over projections computed outside.
+// bigru_fused_launch      replaces _bigru_kernel (bigru_pallas): the
+//                         f32-gates recurrence alone, over projections
+//                         computed outside.
 //
 // One source covers the three TPU kernels, templated on
 // - the projection stage, on or off: bigru_fullfused_launch first runs
@@ -22,33 +23,34 @@
 //   (2, T, B, 3H) bf16 scratch; bigru_fused_launch skips it and reads the
 //   caller's projections;
 // - the recurrence numerics: f32 gates over a bf16 W_hh (the cluster
-//   recurrence), bf16 gates, or an int8 W_hh with per-column scales
-//   (gru_rec.cuh, NUM_*);
-// - the direction: both in one launch (blockIdx.y in the per-block
-//   recurrence, the cluster index in the cluster recurrence), 0 forward,
-//   1 backward.
+//   recurrence, bigru_fused and the fullfused default), bf16 gates, or an
+//   int8 W_hh with per-column scales (the per-block recurrence;
+//   gru_rec.cuh, NUM_*);
+// - the direction: both in one launch (the cluster index in the cluster
+//   recurrence, blockIdx.y in the per-block one), 0 forward, 1 backward.
 //
 // Design. The TPU kernels walk time blocks on a sequential grid and
 // compute a block's projections as one MXU product at the block's start.
 // Here the projections do not depend on h, so they run ahead of the serial
 // chain as a separate, fully parallel stage; the recurrence is
-// gru_rec.cuh's, with both directions in one grid: the cluster recurrence
-// (gru_cluster_fwd_kernel: W_hh split over a thread-block cluster's shared
-// memory, the step's product on the tensor cores) in the f32-gates mode,
-// the per-block recurrence (gru_rec_kernel, shared with gru_fwd) in the
-// bf16-gates and int8 modes and for bigru_fused. The projection stage
-// sums over the inputs in the plain version's order, and bf16 x bf16
-// products are exact in f32, so it agrees with the plain version bit for
-// bit.
+// gru_rec.cuh's, with both directions in one grid: every f32-gates launch
+// (bigru_fused, and bigru_fullfused by default) runs the cluster
+// recurrence through launch_gru_f32, shared with gru_train.cu's gru_fwd
+// (gru_cluster_fwd_kernel: W_hh split over a thread-block cluster's
+// shared memory, the step's product on the tensor cores); the bf16-gates
+// and int8 modes run the per-block recurrence (gru_rec_kernel), whose
+// order-free sums the tensor cores do not give. The projection stage sums
+// over the inputs in the plain version's order, and bf16 x bf16 products
+// are exact in f32, so it agrees with the plain version bit for bit.
 //
 // What bounds it on an H100: at B = 16, T = 10000, H = 256 a layer moves a
 // few hundred MB (x in, bf16 h out) and does about 2 x 1.26e11
 // multiply-adds (layer 2: the projection and the recurrence), a few tenths
 // of a ms at the card's rates. The serial chain of T dependent steps binds
-// it instead, whatever the batch: in the per-block recurrence a step is a
-// W_hh stream from L2 (or shared memory) into CUDA-core dot products; in
-// the cluster recurrence an mma chain over shared memory, one h exchange
-// through distributed shared memory and one cluster barrier.
+// it instead, whatever the batch: in the cluster recurrence a step is an
+// mma chain over shared memory, one h exchange through distributed shared
+// memory and one cluster barrier; in the per-block recurrence a W_hh
+// stream from L2 (or shared memory) into CUDA-core dot products.
 #include "gru_rec.cuh"
 
 namespace {
@@ -155,32 +157,6 @@ RecArgs both_directions(const bf16* xp_f, const bf16* xp_b, const void* w_hh,
   return a;
 }
 
-// the cluster recurrence over a.dirs directions
-inline cudaError_t launch_gru_cluster_fwd(const ClusterArgs& a,
-                                          cudaStream_t s) {
-  if (a.T < 1 || a.B < 1 || a.dirs < 1 || a.dirs > 2 ||
-      GruGeo::bad(a.H, a.C, a.BT))
-    return cudaErrorInvalidValue;
-  const GruGeo g(a.H, a.C, a.BT);
-  const int clusters = a.dirs * ((a.B + a.BT - 1) / a.BT);
-  const size_t smem = gru_cluster_fwd_smem(g);
-  return g.NT == 2 ? launch_cluster(gru_cluster_fwd_kernel<2>, a.C, clusters,
-                                    g.threads(), smem, s, a)
-                   : launch_cluster(gru_cluster_fwd_kernel<1>, a.C, clusters,
-                                    g.threads(), smem, s, a);
-}
-
-// clusters of the cluster recurrence that can be resident at once at
-// (C, BT, H); a negative value is minus a cudaError_t
-inline int gru_cluster_fwd_max_clusters(int C, int BT, int H) {
-  if (GruGeo::bad(H, C, BT)) return -static_cast<int>(cudaErrorInvalidValue);
-  const GruGeo g(H, C, BT);
-  const size_t smem = gru_cluster_fwd_smem(g);
-  return g.NT == 2
-             ? max_clusters(gru_cluster_fwd_kernel<2>, C, g.threads(), smem)
-             : max_clusters(gru_cluster_fwd_kernel<1>, C, g.threads(), smem);
-}
-
 }  // namespace
 
 extern "C" {
@@ -227,30 +203,10 @@ int bigru_fullfused_launch(const void* x, const void* w_ih, const float* b_ih,
       M, IN, G);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (num == NUM_F32) {
-    const GruGeo g(H, C, BT);
-    const bf16* w = static_cast<const bf16*>(w_hh);
-    ClusterArgs a{};
-    a.xp[0] = xpb;
-    a.xp[1] = xpb + M * G;
-    a.w_sl[0] = w;
-    a.w_sl[1] = w + static_cast<size_t>(C) * g.rows() * g.Hp;
-    a.b_hh[0] = b_hh;
-    a.b_hh[1] = b_hh + G;
-    a.out[0] = static_cast<bf16*>(out_f);
-    a.out[1] = static_cast<bf16*>(out_b);
-    a.reverse[0] = 0;
-    a.reverse[1] = 1;
-    a.lengths = lengths;
-    a.ld_out = ld_out;
-    a.T = T;
-    a.B = B;
-    a.H = H;
-    a.C = C;
-    a.BT = BT;
-    a.dirs = 2;
-    return static_cast<int>(launch_gru_cluster_fwd(a, s));
-  }
+  if (num == NUM_F32)
+    return static_cast<int>(launch_gru_f32(xpb, xpb + M * G, w_hh, b_hh,
+                                           lengths, out_f, out_b, ld_out, T,
+                                           B, H, C, BT, 2, 0, s));
   const RecArgs a = both_directions(xpb, xpb + M * G, w_hh, hh_scale, b_hh,
                                     lengths, out_f, out_b, ld_out, T, B, H,
                                     nq, num);
@@ -260,16 +216,17 @@ int bigru_fullfused_launch(const void* x, const void* w_ih, const float* b_ih,
 }
 
 // The recurrence alone (f32 gates, bf16 W_hh) over the caller's
-// projections xp_f, xp_b (T, B, 3H) bf16.
-int bigru_fused_launch(const void* xp_f, const void* xp_b, const void* w_hh,
+// projections xp_f, xp_b (T, B, 3H) bf16: the cluster recurrence on
+// clusters of C blocks and tiles of BT columns, with w_sl the (2, C, 3U,
+// Hp) bf16 slices of ops/rnn_cluster.py w_slices.
+int bigru_fused_launch(const void* xp_f, const void* xp_b, const void* w_sl,
                        const float* b_hh, const int* lengths, void* out_f,
-                       void* out_b, int ld_out, int T, int B, int H, int cpt,
-                       int nq, int w_smem, void* stream) {
-  const RecArgs a = both_directions(
-      static_cast<const bf16*>(xp_f), static_cast<const bf16*>(xp_b), w_hh,
-      nullptr, b_hh, lengths, out_f, out_b, ld_out, T, B, H, nq, NUM_F32);
-  return static_cast<int>(dispatch_rec<NUM_F32>(
-      cpt, w_smem, a, static_cast<cudaStream_t>(stream)));
+                       void* out_b, int ld_out, int T, int B, int H, int C,
+                       int BT, void* stream) {
+  return static_cast<int>(launch_gru_f32(
+      static_cast<const bf16*>(xp_f), static_cast<const bf16*>(xp_b), w_sl,
+      b_hh, lengths, out_f, out_b, ld_out, T, B, H, C, BT, 2, 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* gru_fullfused_error_string(int err) {

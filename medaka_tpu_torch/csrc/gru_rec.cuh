@@ -1,53 +1,55 @@
 // The GRU forward recurrences over pre-projected inputs, shared by
-// gru_train.cu (gru_fwd: one direction a launch, f32 gates) and
-// gru_fullfused.cu (bigru_fullfused, bigru_fused: both directions in one
-// launch, three numerics modes). Two designs:
+// gru_train.cu (gru_fwd: one direction a launch) and gru_fullfused.cu
+// (bigru_fullfused, bigru_fused: both directions in one launch). Two
+// designs, one for each kind of numerics:
 //
-// gru_cluster_fwd_kernel, the cluster recurrence (bigru_fullfused's f32
-// gates). A thread-block cluster of C blocks owns one direction and one
-// tile of BT batch columns; both directions run in one grid (the cluster
-// index gives the direction and the tile). Block r owns U = Hp / C hidden
-// units and keeps their 3U gate rows of W_hh, bf16, in its shared memory
-// for the whole walk (ClusterGeo of rnn_train.cuh; 192 x 264 x 2 =
-// 101,376 B at H=256, C=4), where the per-block design below streams all
-// 393,216 B of it from L2 on every step. Rows of a slice: unit group q
-// (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n, unit u), three
-// m16 tiles, so in the m16n8k16 accumulator fragments a thread holds r, z
-// and n of units u and u + 8 for two batch columns of each n8 tile: the
-// gates and the f32 carry stay in registers. A step: bf16(h) (BT x Hp) .
-// W_slice^T on the tensor cores (mma.sync, f32 accumulation chained over
-// the Hp / 16 k-chunks in order), the f32 gates of the block's units, the
-// block's bf16 h slice through a staging buffer into every cluster block's
-// next h buffer (distributed shared memory, 16-byte stores) and to the
-// outputs; one cluster barrier a step, split into arrive.release /
-// wait.acquire so that the next step's projection loads overlap it.
-// ops/rnn_cluster.py chooses C and BT on the host.
+// gru_cluster_fwd_kernel, the cluster recurrence: every f32-gates launch
+// (gru_fwd, bigru_fused, bigru_fullfused's default mode), one or two
+// directions (ClusterArgs.dirs) over the caller's projections, started by
+// launch_gru_f32 below. A thread-block cluster of C blocks owns one
+// direction and one tile of BT batch columns; every direction's clusters
+// run in one grid (the cluster index gives the direction and the tile).
+// Block r owns U = Hp / C hidden units and keeps their 3U gate rows of
+// W_hh, bf16, in its shared memory for the whole walk (ClusterGeo of
+// rnn_train.cuh; 192 x 264 x 2 = 101,376 B at H=256, C=4): all of W_hh is
+// 393,216 B at H=256, more than one SM's shared memory. Rows of a slice:
+// unit group q (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n,
+// unit u), three m16 tiles, so in the m16n8k16 accumulator fragments a
+// thread holds r, z and n of units u and u + 8 for two batch columns of
+// each n8 tile: the gates and the f32 carry stay in registers. A step:
+// bf16(h) (BT x Hp) . W_slice^T on the tensor cores (mma.sync, f32
+// accumulation chained over the Hp / 16 k-chunks in order), the f32 gates
+// of the block's units, the block's bf16 h slice through a staging buffer
+// into every cluster block's next h buffer (distributed shared memory,
+// 16-byte stores) and to the outputs; one cluster barrier a step, split
+// into arrive.release / wait.acquire so that the next step's projection
+// loads overlap it. ops/rnn_cluster.py chooses C and BT on the host.
 //
-// gru_rec_kernel, the per-block recurrence (gru_fwd, bigru_fused and the
-// fullfused kernels' bf16-gates and int8 modes): the TPU kernels walk time
-// blocks on a sequential grid with the carry in VMEM; here one block owns
-// one direction (blockIdx.y) and a tile of BT = CPT * NQ batch columns and
-// loops over all T steps itself; blocks never exchange state. Thread
-// (j, q) owns hidden unit j (gate rows j, H+j, 2H+j) for columns
-// q*CPT .. q*CPT+CPT-1, so a unit's three gates meet in one thread, h
-// stays in registers, and a step needs one __syncthreads (the next step's
-// matmul operand, bf16(h) or round(127 h), is double-buffered in shared
-// memory). W_hh is read in 16-byte chunks (8 bf16 or 16 int8) laid out so
-// that a warp of 32 consecutive units reads 512 contiguous bytes: chunk kc
-// of row r at kc * 3H + r. It sits in dynamic shared memory where it fits
-// (bf16 up to H = 192, int8 up to H = 256: 196,608 B) and is read through
-// the read-only cache from L2 on every step otherwise (bf16 at H = 256, the
-// counts model's width).
+// gru_rec_kernel, the per-block recurrence (bigru_fullfused's bf16-gates
+// and int8 modes only): the TPU kernels walk time blocks on a sequential
+// grid with the carry in VMEM; here one block owns one direction
+// (blockIdx.y) and a tile of BT = CPT * NQ batch columns and loops over
+// all T steps itself; blocks never exchange state. Thread (j, q) owns
+// hidden unit j (gate rows j, H+j, 2H+j) for columns q*CPT ..
+// q*CPT+CPT-1, so a unit's three gates meet in one thread, h stays in
+// registers, and a step needs one __syncthreads (the next step's matmul
+// operand, bf16(h) or round(127 h), is double-buffered in shared memory).
+// W_hh is read in 16-byte chunks (8 bf16 or 16 int8) laid out so that a
+// warp of 32 consecutive units reads 512 contiguous bytes: chunk kc of row
+// r at kc * 3H + r. It sits in dynamic shared memory where it fits (bf16
+// up to H = 192, int8 up to H = 256: 196,608 B) and is read through the
+// read-only cache from L2 on every step otherwise. Its sums are exact (f64
+// for bf16 gates, int32 for int8), which the tensor cores do not give.
 //
 // Both designs: the forward direction freezes h at t >= length; the
 // reverse one walks time back to front and keeps h = 0 until t < length,
 // so padded columns stay 0. Outputs stay in natural time order.
 //
 // Numerics (NUM), per step with gate order r, z, n:
-// - NUM_F32: hp = f32(bf16(h) . W_hh_bf16^T) + b_hh; r = sigmoid(x_r +
-//   hp_r), z = sigmoid(x_z + hp_z), n = tanh(x_n + r hp_n),
-//   h' = (1 - z) n + z h, carried in f32 (gru_pallas, the fullfused
-//   kernel's default; the cluster recurrence computes the same).
+// - NUM_F32 (the cluster recurrence): hp = f32(bf16(h) . W_hh_bf16^T) +
+//   b_hh; r = sigmoid(x_r + hp_r), z = sigmoid(x_z + hp_z),
+//   n = tanh(x_n + r hp_n), h' = (1 - z) n + z h, carried in f32
+//   (gru_pallas, bigru_pallas, the fullfused kernel's default).
 // - NUM_BF16G: bf16(hp), every gate op rounded to bf16, the exp(-|v|) /
 //   exp(-2|v|) forms of sigmoid and tanh, the blend on bf16 h
 //   (pallas_gru.py:539-558). The recurrent product is summed in f64 and
@@ -58,8 +60,8 @@
 //   round(127 h) (half to even); int32 dot products by __dp4a,
 //   hp = f32(dot) * scale + b_hh, then the f32 gates.
 // They follow the plain PyTorch versions operation by operation: bf16 x
-// bf16 products are exact in f32 and fmaf (or the tensor cores' f32
-// accumulation) rounds only the sums; int8 dot products are exact;
+// bf16 products are exact in f32 and the tensor cores' f32 accumulation
+// rounds only the sums; int8 dot products are exact;
 // __fadd_rn/__fmul_rn/__fsub_rn/__fdiv_rn keep nvcc from contracting into
 // FMAs the plain versions do not do. What is left is the order of the f32
 // sums of NUM_F32's recurrent product, which can move a bf16 rounding of
@@ -95,9 +97,10 @@ __device__ __forceinline__ float tanh_bf16(float v) {
   return v >= 0.0f ? mag : -mag;
 }
 
-// dot8_bf16 with an f64 sum: the bf16 products are exact in f64 and a
-// sum of H <= 512 of them is exact but in the rarest cases, so its one
-// rounding to f32 does not depend on the order of the sum
+// the 8 bf16 products of a pair of 16-byte chunks, summed in f64: the
+// products are exact in f64 and a sum of H <= 512 of them is exact but in
+// the rarest cases, so its one rounding to f32 does not depend on the
+// order of the sum
 __device__ __forceinline__ double dot8_bf16_f64(uint4 w, uint4 a,
                                                 double acc) {
   const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&w);
@@ -138,7 +141,7 @@ __host__ __device__ __forceinline__ size_t rec_w_bytes(int num, int H) {
   return static_cast<size_t>(3) * H * H * (num == NUM_INT8 ? 1 : 2);
 }
 
-size_t rec_smem_bytes(int num, bool w_smem, int BT, int H) {
+inline size_t rec_smem_bytes(int num, bool w_smem, int BT, int H) {
   return (w_smem ? align16(rec_w_bytes(num, H)) : 0) +
          align16(2 * static_cast<size_t>(BT) * H * (num == NUM_INT8 ? 1 : 2));
 }
@@ -164,9 +167,11 @@ __device__ __forceinline__ V pick(const V (&v)[2], int d) {
   return d ? v[1] : v[0];
 }
 
-// grid (ceil(B / BT), dirs), block H * NQ threads
+// grid (ceil(B / BT), dirs), block H * NQ threads; NUM_BF16G or NUM_INT8
 template <int CPT, bool W_SMEM, int NUM>
 __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
+  static_assert(NUM == NUM_BF16G || NUM == NUM_INT8,
+                "f32 gates run the cluster recurrence");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool QUANT = NUM == NUM_INT8;
   constexpr int ESZ = QUANT ? 1 : 2;  // bytes of one matmul operand of h
@@ -260,7 +265,7 @@ __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
         for (int cc = 0; cc < CPT; ++cc)
           hp[g][cc] = __fadd_rn(
               __fmul_rn(static_cast<float>(acc[g][cc]), sc[g]), bh[g]);
-    } else if (NUM == NUM_BF16G) {
+    } else {
       double acc[3][CPT] = {};
       for (int kc = 0; kc < kchunks; ++kc) {
         uint4 w[3];
@@ -279,24 +284,6 @@ __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
 #pragma unroll
         for (int cc = 0; cc < CPT; ++cc)
           hp[g][cc] = bf16r(__fadd_rn(__double2float_rn(acc[g][cc]), bh[g]));
-    } else {
-      float acc[3][CPT] = {};
-      for (int kc = 0; kc < kchunks; ++kc) {
-        uint4 w[3];
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-          w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          const uint4 hv = av[(c0 + cc) * kchunks + kc];
-#pragma unroll
-          for (int g = 0; g < 3; ++g) acc[g][cc] = dot8_bf16(w[g], hv, acc[g][cc]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) hp[g][cc] = __fadd_rn(acc[g][cc], bh[g]);
     }
 
     unsigned char* act_n = act_s + (cur ^ 1) * BT * H * ESZ;
@@ -352,8 +339,9 @@ cudaError_t dispatch_rec_cpt(int cpt, const RecArgs& a, cudaStream_t s) {
   }
 }
 
-// the recurrence in mode NUM over a tile of cpt * a.NQ columns, W_hh in
-// shared memory (w_smem) or read from L2
+// the per-block recurrence in mode NUM (NUM_BF16G or NUM_INT8) over a
+// tile of cpt * a.NQ columns, W_hh in shared memory (w_smem) or read from
+// L2
 template <int NUM>
 cudaError_t dispatch_rec(int cpt, int w_smem, const RecArgs& a,
                          cudaStream_t s) {
@@ -529,6 +517,71 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
     if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1);
   }
   cluster_wait();  // no block leaves while another may still write to it
+}
+
+// the cluster recurrence over a.dirs directions
+inline cudaError_t launch_gru_cluster_fwd(const ClusterArgs& a,
+                                          cudaStream_t s) {
+  if (a.T < 1 || a.B < 1 || a.dirs < 1 || a.dirs > 2 ||
+      GruGeo::bad(a.H, a.C, a.BT))
+    return cudaErrorInvalidValue;
+  const GruGeo g(a.H, a.C, a.BT);
+  const int clusters = a.dirs * ((a.B + a.BT - 1) / a.BT);
+  const size_t smem = gru_cluster_fwd_smem(g);
+  return g.NT == 2 ? launch_cluster(gru_cluster_fwd_kernel<2>, a.C, clusters,
+                                    g.threads(), smem, s, a)
+                   : launch_cluster(gru_cluster_fwd_kernel<1>, a.C, clusters,
+                                    g.threads(), smem, s, a);
+}
+
+// clusters of the cluster recurrence that can be resident at once at
+// (C, BT, H); a negative value is minus a cudaError_t
+inline int gru_cluster_fwd_max_clusters(int C, int BT, int H) {
+  if (GruGeo::bad(H, C, BT)) return -static_cast<int>(cudaErrorInvalidValue);
+  const GruGeo g(H, C, BT);
+  const size_t smem = gru_cluster_fwd_smem(g);
+  return g.NT == 2
+             ? max_clusters(gru_cluster_fwd_kernel<2>, C, g.threads(), smem)
+             : max_clusters(gru_cluster_fwd_kernel<1>, C, g.threads(), smem);
+}
+
+// Every f32-gates launch: `dirs` directions of the cluster recurrence on
+// clusters of C blocks and tiles of BT columns. Direction d < dirs reads
+// the projections xp[d] (T, B, 3H) bf16, the W_hh slices w_sl + d C 3U Hp
+// ((dirs, C, 3U, Hp) bf16, ops/rnn_cluster.py w_slices) and b_hh + d 3H
+// ((dirs, 3H) f32) and writes h of row (t, b) at out[d] + (t B + b)
+// ld_out. One direction walks time back to front if `reverse`; two are
+// the forward and the backward direction (reverse must be 0).
+inline cudaError_t launch_gru_f32(const bf16* xp_f, const bf16* xp_b,
+                                  const void* w_sl, const float* b_hh,
+                                  const int* lengths, void* out_f,
+                                  void* out_b, int ld_out, int T, int B,
+                                  int H, int C, int BT, int dirs, int reverse,
+                                  cudaStream_t s) {
+  if (GruGeo::bad(H, C, BT) || (dirs == 2 && reverse != 0))
+    return cudaErrorInvalidValue;
+  const GruGeo g(H, C, BT);
+  const bf16* w = static_cast<const bf16*>(w_sl);
+  ClusterArgs a{};
+  a.xp[0] = xp_f;
+  a.xp[1] = xp_b;
+  a.w_sl[0] = w;
+  a.w_sl[1] = w + static_cast<size_t>(C) * g.rows() * g.Hp;
+  a.b_hh[0] = b_hh;
+  a.b_hh[1] = b_hh + 3 * H;
+  a.out[0] = static_cast<bf16*>(out_f);
+  a.out[1] = static_cast<bf16*>(out_b);
+  a.reverse[0] = reverse != 0;
+  a.reverse[1] = 1;
+  a.lengths = lengths;
+  a.ld_out = ld_out;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.C = C;
+  a.BT = BT;
+  a.dirs = dirs;
+  return launch_gru_cluster_fwd(a, s);
 }
 
 }  // namespace

@@ -4,7 +4,8 @@
 // ctypes through a plain C interface.
 //
 // gru_fwd  replaces medaka_tpu/ops/pallas_gru.py _gru_kernel (called by
-//          gru_pallas): gru_rec.cuh's per-block recurrence (shared with
+//          gru_pallas): gru_rec.cuh's cluster recurrence
+//          (gru_cluster_fwd_kernel through launch_gru_f32, shared with
 //          gru_fullfused.cu), one direction a launch, f32 gates.
 // gru_bwd  replaces medaka_tpu/ops/pallas_gru.py _gru_bwd_kernel (called
 //          by gru_bwd_pallas): three kernels launched in order on one
@@ -32,6 +33,14 @@
 //   dxp[t] = [dr_pre, dz_pre, dn_pre] (f32); dhp = [dr_pre, dz_pre, dn_pre r]
 //   dW_hh += bf16(dhp)^T bf16(h_prev); db_hh += dhp (f32)
 //   dh = dh_eff z + bf16(dhp) . W_hh_bf16 + dh (1 - v)
+//
+// What bounds the forward on an H100, at B=128, T=1000, H=256: it moves
+// 262 MB (0.078 ms at 3.35 TB/s) for 50 GFLOP (0.051 ms on the tensor
+// cores), but each step needs the last one's h, so the time of one step
+// bounds it. Each block of a cluster keeps the gate rows of its units in
+// shared memory and runs the step's product on mma.sync, as the backward
+// below does; a cluster owns one tile of columns, so at B=128 sixteen
+// clusters of 4 blocks take 64 of the 132 SMs (one direction a launch).
 //
 // What bounds the backward on an H100, at B=128, T=1000, H=256: it moves
 // 786 MB (0.235 ms at 3.35 TB/s) for 151 GFLOP (0.153 ms on the tensor
@@ -73,10 +82,12 @@
 //
 // Numerics follow the plain PyTorch versions in
 // medaka_tpu_torch/ops/gru_train.py operation by operation: bf16 x bf16
-// products are exact in f32 and the tensor cores' f32 accumulation (or
-// fmaf in the forward) rounds only the sums; sigmoid is 1 / (1 + expf(-v))
-// and tanh is tanhf in both; __fadd_rn/__fmul_rn/__fsub_rn keep nvcc from
-// contracting sums and products into FMAs the plain versions do not do.
+// products are exact in f32 and the tensor cores' f32 accumulation rounds
+// only the sums (the forward's h comes from the same mma.sync product
+// order with which the backward recomputes the gates); sigmoid is
+// 1 / (1 + expf(-v)) and tanh is tanhf in both; __fadd_rn/__fmul_rn/
+// __fsub_rn keep nvcc from contracting sums and products into FMAs the
+// plain versions do not do.
 // What is left is the order of f32 sums (the recurrent products, dW_hh and
 // db_hh), which can move a bf16 rounding.
 #include "gru_rec.cuh"
@@ -310,8 +321,14 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
 
 extern "C" {
 
-size_t gru_fwd_smem(int w_smem, int bt, int hidden) {
-  return rec_smem_bytes(NUM_F32, w_smem != 0, bt, hidden);
+size_t gru_fwd_cluster_smem(int C, int BT, int H) {
+  return gru_cluster_fwd_smem(GruGeo(H, C, BT));
+}
+
+// clusters of C blocks of the forward recurrence that can be resident at
+// once at (C, BT, H); a negative value is minus a cudaError_t
+int gru_fwd_max_clusters(int C, int BT, int H) {
+  return gru_cluster_fwd_max_clusters(C, BT, H);
 }
 
 size_t gru_bwd_smem(int C, int BT, int H) { return GruGeo(H, C, BT).bwd_smem(); }
@@ -327,24 +344,16 @@ int gru_bwd_max_clusters(int C, int BT, int H) {
                                   g.bwd_smem());
 }
 
-int gru_fwd_launch(const void* xp, const void* w_rows, const float* b_hh,
-                   const int* lengths, void* out, int T, int B, int H,
-                   int cpt, int nq, int w_smem, int reverse, void* stream) {
-  RecArgs a{};
-  a.xp[0] = static_cast<const bf16*>(xp);
-  a.w_hh[0] = static_cast<const uint4*>(w_rows);
-  a.b_hh[0] = b_hh;
-  a.out[0] = static_cast<bf16*>(out);
-  a.reverse[0] = reverse;
-  a.lengths = lengths;
-  a.ld_out = H;
-  a.T = T;
-  a.B = B;
-  a.H = H;
-  a.NQ = nq;
-  a.dirs = 1;
-  return static_cast<int>(dispatch_rec<NUM_F32>(
-      cpt, w_smem, a, static_cast<cudaStream_t>(stream)));
+// one direction of the cluster recurrence on clusters of C blocks and
+// tiles of BT columns; w_sl (C, 3U, Hp) bf16 from ops/rnn_cluster.py
+// w_slices
+int gru_fwd_launch(const void* xp, const void* w_sl, const float* b_hh,
+                   const int* lengths, void* out, int T, int B, int H, int C,
+                   int BT, int reverse, void* stream) {
+  return static_cast<int>(launch_gru_f32(
+      static_cast<const bf16*>(xp), nullptr, w_sl, b_hh, lengths, out,
+      nullptr, H, T, B, H, C, BT, 1, reverse,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // the recurrence, the dW partial tiles and the fixed-order sums, in order

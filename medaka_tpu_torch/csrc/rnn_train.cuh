@@ -1,6 +1,6 @@
 // Pieces shared by the recurrences' CUDA sources (gru_train.cu,
-// gru_fullfused.cu through gru_rec.cuh, and lstm_train.cu): the bf16 dot
-// product and gate helpers of the recurrence kernels, the tensor-core and
+// gru_fullfused.cu through gru_rec.cuh, and lstm_train.cu): the gate and
+// weight-load helpers of the recurrence kernels, the tensor-core and
 // copy primitives (ldmatrix, mma.sync m16n8k16 bf16, cp.async), the
 // machinery of the cluster recurrences (their geometry, the W_hh slice
 // loader, the step's two products on the tensor cores, the split cluster
@@ -43,20 +43,6 @@ constexpr int DW_LD = DW_TILE + 8;  // padded row: ldmatrix conflict-free
 
 __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
-}
-
-__device__ __forceinline__ float dot8_bf16(uint4 w, uint4 a, float acc) {
-  const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&w);
-  const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const float2 wf = __bfloat1622float2(wp[p]);
-    const float2 af = __bfloat1622float2(ap[p]);
-    // bf16 x bf16 is exact in f32, so the fma rounds only the sum
-    acc = fmaf(wf.x, af.x, acc);
-    acc = fmaf(wf.y, af.y, acc);
-  }
-  return acc;
 }
 
 __host__ __device__ __forceinline__ size_t align16(size_t v) {

@@ -20,20 +20,23 @@ TPU kernels:
 - :func:`bigru_pallas_fullfused_int8` (``bigru_pallas_fullfused_int8``):
   the same with an int8 W_hh, per-column scales (``_quantize_cols``) and h
   quantised as round(127 h).
-- :func:`bigru_pallas` (``bigru_pallas``): the f32-gates recurrence over
-  projections computed outside (in :func:`bigru_stack_fused` they are
-  rounded to bf16 before the bf16 ``b_ih`` is added, as JAX does).
+- :func:`bigru_pallas` (``bigru_pallas``, ``bigru_fused`` here): the
+  f32-gates recurrence over projections computed outside (in
+  :func:`bigru_stack_fused` they are rounded to bf16 before the bf16
+  ``b_ih`` is added, as JAX does).
 
 :func:`bigru_stack_fullfused` and :func:`bigru_stack_fused` run stacks of
 any depth; the unidirectional branch of :func:`bigru_stack_fused` runs
 ``ops.gru_train.gru_fwd`` (TPU kernel ``gru_pallas``).
 
-The f32-gates mode runs the cluster recurrence (``csrc/gru_rec.cuh``
-``gru_cluster_fwd_kernel``: W_hh split over a thread-block cluster's
-shared memory, the step's product on the tensor cores), whose geometry
-:func:`cluster_geometry` chooses with ``ops/rnn_cluster.py``; the other
-modes and :func:`bigru_pallas` run the per-block recurrence
-(``gru_rec_kernel``). Every kernel mode has a plain PyTorch version here
+Every f32-gates launch (the fullfused default and :func:`bigru_pallas`)
+runs the cluster recurrence (``csrc/gru_rec.cuh``
+``gru_cluster_fwd_kernel``, as ``gru_fwd`` does: W_hh split over a
+thread-block cluster's shared memory, the step's product on the tensor
+cores), whose geometry :func:`cluster_geometry` chooses with
+``ops/rnn_cluster.py``; the bf16-gates and int8 modes run the per-block
+recurrence (``gru_rec_kernel``), whose sums do not depend on their
+order. Every kernel mode has a plain PyTorch version here
 that repeats its arithmetic step by step. A wrapper runs the plain
 version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.
@@ -60,7 +63,8 @@ LAUNCHES: Dict[str, int] = {
 MODE_LAUNCHES: Dict[str, int] = {
     "bigru_fullfused/f32_gates": 0, "bigru_fullfused/bf16_gates": 0,
     "bigru_fullfused_int8/int8": 0, "bigru_fused/f32_gates": 0}
-#: largest hidden size the kernels take (one thread per unit, 512 a block)
+#: largest hidden size the kernels take (the per-block recurrence: one
+#: thread a unit, 512 a block; the cluster recurrence: 8 blocks of 64 units)
 MAX_HIDDEN = 512
 #: ``recurrent_quant`` of :func:`bigru_stack_fullfused` -> kernel mode
 #: (``pallas_gru.py:933-944``; None and "none" run the default kernel)
@@ -216,7 +220,7 @@ def build():
         lib.bigru_fullfused_launch.argtypes = (
             [_VOIDP] * 10 + [_INT] * 11 + [_VOIDP])
         lib.bigru_fullfused_launch.restype = _INT
-        lib.bigru_fused_launch.argtypes = [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP]
+        lib.bigru_fused_launch.argtypes = [_VOIDP] * 7 + [_INT] * 6 + [_VOIDP]
         lib.bigru_fused_launch.restype = _INT
         lib.bigru_rec_smem.argtypes = [_INT] * 4
         lib.bigru_rec_smem.restype = ctypes.c_size_t
@@ -232,14 +236,13 @@ def build():
 
 def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
     """(columns per thread, column groups) of a block of one direction of
-    the per-block recurrence (the bf16-gates and int8 modes,
-    ``bigru_fused``).
+    the per-block recurrence (the bf16-gates and int8 modes).
 
     Both directions run in one grid. With W_hh in shared memory a block
     reads it once, so the smallest tile that fits both directions' blocks
     in one wave keeps the most SMs busy. Where W_hh streams from L2 on
     every step, a block of up to 4 columns (nq = 1) reads it once per step
-    for all of them, at up to half the SMs, as ``gru_train.tile_shape``.
+    for all of them, at up to half the SMs.
     """
     if w_smem:
         for cpt, nq in ((1, 1), (2, 1), (2, 2), (4, 2)):
@@ -264,23 +267,32 @@ def _choose(lib, num: int, batch: int, hidden: int, device):
         cuda_build.SMEM_LIMIT))
 
 
-def cluster_geometry(hidden: int, batch: int, device):
-    """(C, BT, shared memory bytes, resident clusters) with which the
-    f32-gates mode launches its cluster recurrence at (padded) hidden size
-    ``hidden`` and batch ``batch`` on CUDA device ``device``: both
-    directions' clusters in one grid (:func:`rnn_cluster.choose_geometry`
-    with the GRU's row order)."""
+def cluster_geometry(hidden: int, batch: int, device,
+                     kernel: str = "bigru_fullfused"):
+    """(C, BT, shared memory bytes, resident clusters) with which an
+    f32-gates launch (``kernel``: "bigru_fullfused" or "bigru_fused") runs
+    the cluster recurrence at (padded) hidden size ``hidden`` and batch
+    ``batch`` on CUDA device ``device``: both directions' clusters in one
+    grid (:func:`rnn_cluster.choose_geometry` with the GRU's row order);
+    raises, naming the kernel and the geometry, when no cluster can be
+    resident."""
     lib = build()
 
     def query(cluster, columns):
         n = lib.bigru_max_clusters(cluster, columns, hidden)
         if n < 0:
-            _raise(lib, "bigru_fullfused", -n)
+            _raise(lib, kernel, -n)
         return n
 
     return rnn_cluster.geometry(rnn_cluster.GRU, "fwd", hidden, batch,
-                                device, query, cuda_build.SMEM_LIMIT,
-                                "bigru_fullfused", directions=2)
+                                device, query, cuda_build.SMEM_LIMIT, kernel,
+                                directions=2)
+
+
+def _cluster_operand(w_hh, cluster):
+    """(2, 3H, H) W_hh -> (2, C, 3U, Hp) bf16 slices of both directions."""
+    return torch.stack([rnn_cluster.w_slices(rnn_cluster.GRU, w, cluster)
+                        for w in w_hh])
 
 
 def _padded(hidden: int) -> int:
@@ -306,7 +318,8 @@ def _pad_recurrent(w_hh, b_hh, hidden, padded):
 
 
 def _hh_operand(w_hh, mode):
-    """W_hh in the kernel's 16-byte-chunk row layout, and its scales."""
+    """W_hh in the per-block recurrence's 16-byte-chunk row layout (bf16
+    gates, int8), and its scales."""
     G = w_hh.shape[1]
     if mode == "int8":
         w_q, sc = _quantize_cols(w_hh.float().transpose(1, 2))
@@ -325,8 +338,8 @@ def _raise(lib, name, err):
 def _check_hidden(name, hidden):
     if hidden > MAX_HIDDEN or hidden < 1:
         raise ValueError(
-            "{}: hidden size {} is outside 1..{} (one thread per unit, at "
-            "most 512 a block)".format(name, hidden, MAX_HIDDEN))
+            "{}: hidden size {} is outside 1..{}".format(name, hidden,
+                                                          MAX_HIDDEN))
 
 
 def _unpad(out, T, B, hidden, padded):
@@ -359,8 +372,7 @@ def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode):
     if mode == "f32_gates":
         cluster, columns = cluster_geometry(Hp, B, dev)[:2]
         cpt = nq = w_smem = 0
-        w_op = torch.stack([rnn_cluster.w_slices(rnn_cluster.GRU, w, cluster)
-                            for w in w_hh])
+        w_op = _cluster_operand(w_hh, cluster)
         scale = None       # int8 scales: not read in this mode
     else:
         try:
@@ -401,21 +413,18 @@ def _launch_fused(x_proj_f, x_proj_b, w_hh, b_hh, lengths):
     if T == 0 or B == 0:
         return _unpad(out, T, B, H, Hp)
     lib = build()
-    try:
-        cpt, nq, w_smem = _choose(lib, NUMERICS["f32_gates"], B, Hp, dev)
-    except ValueError as e:
-        raise ValueError("bigru_fused: {}".format(e)) from None
+    cluster, columns = cluster_geometry(Hp, B, dev, "bigru_fused")[:2]
     xp_f = _pad_gates(x_proj_f, H, Hp, 2).contiguous()
     xp_b = _pad_gates(x_proj_b, H, Hp, 2).contiguous()
     w_hh, b_hh = _pad_recurrent(w_hh.float(), b_hh.float(), H, Hp)
-    w_op, _ = _hh_operand(w_hh, "f32_gates")
+    w_op = _cluster_operand(w_hh, cluster)
     b_hh = b_hh.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.bigru_fused_launch(
         xp_f.data_ptr(), xp_b.data_ptr(), w_op.data_ptr(), b_hh.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), out[..., Hp:].data_ptr(), 2 * Hp,
-        T, B, Hp, cpt, nq, int(w_smem), stream)
+        T, B, Hp, cluster, columns, stream)
     if err != 0:
         _raise(lib, "bigru_fused", err)
     LAUNCHES["bigru_fused"] += 1

@@ -17,9 +17,12 @@ Counterpart of the "Backward kernel + custom VJP" section of
   (input projections in PyTorch, f32 accumulation plus the f32 ``b_ih``,
   cast once to the compute dtype, as the JAX function computes them).
 
-The backward runs one tile of batch columns on a thread-block cluster
+Both kernels run one tile of batch columns on a thread-block cluster
 whose blocks keep W_hh's gate rows of their hidden units in shared memory
-(``csrc/gru_train.cu``); :func:`bwd_geometry` chooses the cluster with
+and run the step's products on the tensor cores (the forward is
+``csrc/gru_rec.cuh``'s cluster recurrence, shared with
+``ops/gru_fullfused.py``; the backward ``csrc/gru_train.cu``'s);
+:func:`fwd_geometry` and :func:`bwd_geometry` choose the clusters with
 ``ops/rnn_cluster.py``. Each wrapper runs its plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 """
@@ -136,41 +139,22 @@ def build():
     """Compile (if needed) and load the kernel library; returns it."""
     lib = cuda_build.load_library("gru_train.cu")
     if not getattr(lib, "_medaka_typed", False):
-        lib.gru_fwd_launch.argtypes = [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP]
+        lib.gru_fwd_launch.argtypes = [_VOIDP] * 5 + [_INT] * 6 + [_VOIDP]
         lib.gru_fwd_launch.restype = _INT
         lib.gru_bwd_launch.argtypes = [_VOIDP] * 12 + [_INT] * 7 + [_VOIDP]
         lib.gru_bwd_launch.restype = _INT
-        for name in ("gru_fwd_smem", "gru_bwd_smem"):
+        for name in ("gru_fwd_cluster_smem", "gru_bwd_smem"):
             fn = getattr(lib, name)
             fn.argtypes = [_INT] * 3
             fn.restype = ctypes.c_size_t
-        lib.gru_bwd_max_clusters.argtypes = [_INT] * 3
-        lib.gru_bwd_max_clusters.restype = _INT
+        for name in ("gru_fwd_max_clusters", "gru_bwd_max_clusters"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_INT] * 3
+            fn.restype = _INT
         lib.gru_train_error_string.argtypes = [_INT]
         lib.gru_train_error_string.restype = ctypes.c_char_p
         lib._medaka_typed = True
     return lib
-
-
-def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
-    """(columns per thread, column groups) of a block of ``gru_fwd``.
-
-    With W_hh in shared memory a block reads it once, so the smallest
-    tile that fits the grid in one wave keeps the most SMs busy. Where
-    W_hh is read from L2 on every step (H=256), each block streams all of
-    it a step: up to 4 columns a block (nq = 1, so W_hh is read once per
-    block and step) trade the per-SM L2 stream against the SM's own dot
-    products, at about a quarter of the SMs.
-    """
-    if w_smem:
-        for cpt, nq in ((1, 1), (2, 1), (2, 2), (4, 2)):
-            if nq * hidden <= 512 and -(-batch // (cpt * nq)) <= n_sm:
-                return cpt, nq
-        return (4, 2) if 2 * hidden <= 512 else (4, 1)
-    for cpt in (1, 2):
-        if -(-batch // cpt) <= max(1, n_sm // 4):
-            return cpt, 1
-    return 4, 1
 
 
 def _split_count(batch, steps, hidden, n_sm, gates=3):
@@ -181,18 +165,28 @@ def _split_count(batch, steps, hidden, n_sm, gates=3):
     return max(1, min(-(-2 * n_sm // tiles), -(-steps * batch // 1024)))
 
 
-def _choose(lib, B, H, dev):
-    """(cpt, nq, W_hh in shared memory) of a ``gru_fwd`` launch."""
-    n_sm = cuda_build.sm_count(dev)
-    cpt, nq = tile_shape(B, H, n_sm, True)
-    w_smem = lib.gru_fwd_smem(1, cpt * nq, H) <= cuda_build.SMEM_LIMIT
-    if not w_smem:
-        cpt, nq = tile_shape(B, H, n_sm, False)
-    smem = lib.gru_fwd_smem(int(w_smem), cpt * nq, H)
-    if smem > cuda_build.SMEM_LIMIT:
-        raise ValueError("needs {} bytes of shared memory (limit {})".format(
-            smem, cuda_build.SMEM_LIMIT))
-    return cpt, nq, w_smem
+def _geometry(kind: str, H: int, B: int, dev):
+    lib = build()
+    name = "gru_" + kind
+    max_clusters = getattr(lib, name + "_max_clusters")
+
+    def query(cluster, columns):
+        n = max_clusters(cluster, columns, H)
+        if n < 0:
+            _raise(lib, name, -n)
+        return n
+
+    return rnn_cluster.geometry(rnn_cluster.GRU, kind, H, B, dev, query,
+                                cuda_build.SMEM_LIMIT, name)
+
+
+def fwd_geometry(H: int, B: int, dev) -> Tuple[int, int, int, int]:
+    """(C, BT, shared memory bytes, resident clusters) with which
+    ``gru_fwd`` launches the cluster recurrence, one direction, at hidden
+    size H and batch B on CUDA device ``dev``
+    (:func:`rnn_cluster.choose_geometry` with the GRU's row order); raises
+    when no cluster can be resident."""
+    return _geometry("fwd", H, B, dev)
 
 
 def bwd_geometry(H: int, B: int, dev) -> Tuple[int, int, int, int]:
@@ -200,22 +194,7 @@ def bwd_geometry(H: int, B: int, dev) -> Tuple[int, int, int, int]:
     ``gru_bwd`` launches its cluster recurrence at hidden size H and batch
     B on CUDA device ``dev`` (:func:`rnn_cluster.choose_geometry` with the
     GRU's row order)."""
-    lib = build()
-
-    def query(cluster, columns):
-        n = lib.gru_bwd_max_clusters(cluster, columns, H)
-        if n < 0:
-            _raise(lib, "gru_bwd", -n)
-        return n
-
-    return rnn_cluster.geometry(rnn_cluster.GRU, "bwd", H, B, dev, query,
-                                cuda_build.SMEM_LIMIT, "gru_bwd")
-
-
-def _rows_layout(w_hh):
-    """(G, H) -> bf16 16-byte chunks laid out (H/8, G, 8)."""
-    return cuda_build.interleave_chunks(
-        w_hh.to(torch.bfloat16).contiguous()[None])[0]
+    return _geometry("bwd", H, B, dev)
 
 
 def _raise(lib, name, err):
@@ -233,18 +212,15 @@ def _launch_fwd(x_proj, w_hh, b_hh, lengths, reverse):
     if T == 0 or B == 0:
         return out
     lib = build()
-    try:
-        cpt, nq, w_smem = _choose(lib, B, H, x_proj.device)
-    except ValueError as e:
-        raise ValueError("gru_fwd: {}".format(e)) from None
+    cluster, columns = fwd_geometry(H, B, x_proj.device)[:2]
     x_proj = x_proj.contiguous()
-    w_rows = _rows_layout(w_hh)
+    w_sl = rnn_cluster.w_slices(rnn_cluster.GRU, w_hh, cluster)
     b_hh = b_hh.float().contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(x_proj.device).cuda_stream
     err = lib.gru_fwd_launch(
-        x_proj.data_ptr(), w_rows.data_ptr(), b_hh.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), T, B, H, cpt, nq, int(w_smem),
+        x_proj.data_ptr(), w_sl.data_ptr(), b_hh.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), T, B, H, cluster, columns,
         int(reverse), stream)
     if err != 0:
         _raise(lib, "gru_fwd", err)

@@ -2,7 +2,8 @@
 
 The cluster recurrences (``csrc/rnn_train.cuh`` ``ClusterGeo``:
 ``lstm_fwd``/``lstm_bwd`` in ``csrc/lstm_train.cu``, the GRU backward in
-``csrc/gru_train.cu``, the f32-gates fullfused forward in
+``csrc/gru_train.cu``, the GRU forward of every f32-gates launch,
+``gru_fwd``, ``bigru_fused`` and ``bigru_fullfused``, in
 ``csrc/gru_rec.cuh``) run one tile of BT batch columns of one direction on
 a thread-block cluster of C blocks. Block r keeps the gate rows of its U
 hidden units of W_hh in shared memory for the whole walk. A
@@ -83,7 +84,7 @@ def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
 def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
                     smem_limit: int,
                     max_clusters: Callable[[int, int, int], int],
-                    directions: int = 1):
+                    directions: int = 1, name: str = "the launch"):
     """(C, BT, shared memory bytes) of a launch.
 
     C is the smallest cluster size whose block holds at most
@@ -92,7 +93,8 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
     ceil(B / BT) clusters are all resident at once (one wave), else the
     largest that fits. ``max_clusters(C, BT, smem)`` is how many clusters
     the card holds at once (``cudaOccupancyMaxActiveClusters``; about the
-    SM count over C); a value below 1 raises.
+    SM count over C); a value below 1 raises, naming ``name`` (the kernel)
+    and the geometry.
     """
     if hidden % 32 or not 0 < hidden <= 512:
         raise ValueError("hidden size {} must be a multiple of 32 and at "
@@ -113,9 +115,9 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
         resident = max_clusters(cluster, columns, smem)
         if resident < 1:
             raise RuntimeError(
-                "no cluster of {} blocks with {} bytes of shared memory can "
-                "be resident (cudaOccupancyMaxActiveClusters gave {})".format(
-                    cluster, smem, resident))
+                "{}: no cluster of {} blocks of {} columns with {} bytes of "
+                "shared memory can be resident (cudaOccupancyMaxActiveClusters"
+                " gave {})".format(name, cluster, columns, smem, resident))
         best = (cluster, columns, smem)
         if directions * -(-batch // columns) <= resident:
             break
@@ -162,5 +164,5 @@ def geometry(layout: Layout, kind: str, H: int, B: int, dev,
 
     with torch.cuda.device(dev):
         cluster, columns, smem = choose_geometry(
-            layout, kind, H, B, smem_limit, resident, directions)
+            layout, kind, H, B, smem_limit, resident, directions, key)
         return cluster, columns, smem, resident(cluster, columns, smem)

@@ -219,10 +219,11 @@ def test_gru_train_kernels_match_plain(device, H, B, T, reverse):
     (the recurrent products, dW_hh and db_hh), which can move a bf16
     rounding: forward outputs within one bf16 step (2^-8 for |h| < 1),
     mean within 1e-3; dxp, dW_hh and db_hh within 1e-3 of each tensor's
-    largest magnitude. The shapes take every cluster size the backward's
-    geometry chooser picks (H=64: 1, 96: 2, 256: 4, 384: 8, 512: 16) and
-    1, 2 or 4 column tiles. A second backward repeats the first bit for
-    bit.
+    largest magnitude. Both run the cluster recurrence; the shapes take
+    every cluster size the geometry chooser picks, the backward's (H=64:
+    1, 96: 2, 256: 4, 384: 8, 512: 16) and the forward's (H=64: 1, 96 and
+    128: 2, 256: 4, 384 and 512: 8), and 1, 2 or 4 column tiles. A second
+    forward and backward repeat the first bit for bit.
     """
     rng = np.random.default_rng(H + B + int(reverse))
     xp, w_hh, b_hh, lengths, dh_out = _train_inputs(rng, H, B, T, device)
@@ -230,11 +231,14 @@ def test_gru_train_kernels_match_plain(device, H, B, T, reverse):
         lengths[-1] = 0
     out = gru_train.gru_fwd(xp, w_hh, b_hh, lengths, reverse)
     ref = gru_train.gru_fwd_plain(xp, w_hh, b_hh, lengths, reverse)
+    out_again = gru_train.gru_fwd(xp, w_hh, b_hh, lengths, reverse)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
-    print("gru_fwd H", H, "B", B, "reverse", reverse, "max",
-          diff.max().item(), "mean", diff.mean().item())
+    print("gru_fwd H", H, "B", B, "reverse", reverse, "geometry",
+          gru_train.fwd_geometry(H, B, device), "max", diff.max().item(),
+          "mean", diff.mean().item())
     assert out.shape == (T, B, H) and out.dtype == torch.bfloat16
+    assert torch.equal(out, out_again)
     assert diff.max().item() <= 2.0 ** -8
     assert diff.mean().item() <= 1e-3
     got = gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh, lengths, reverse)
@@ -384,20 +388,50 @@ def test_lstm_geometry_matches_the_kernels(device, kind):
     assert clusters == {1, 2, 4, 8, 16}
 
 
-@pytest.mark.parametrize("kernel", ["gru_bwd", "bigru_fullfused"])
+def _launch_at(kernel, H, B, device):
+    """Two steps of ``gru_fwd`` (one direction) or ``bigru_fused`` (both)
+    at (H, B) against the plain version, within one bf16 step."""
+    rng = np.random.default_rng(H * 1000 + B)
+    T = 2
+    xp, w_hh, b_hh, lengths, _ = _train_inputs(rng, H, B, T, device)
+    if kernel == "gru_fwd":
+        got = gru_train.gru_fwd(xp, w_hh, b_hh, lengths)
+        want = gru_train.gru_fwd_plain(xp, w_hh, b_hh, lengths)
+    else:
+        w2, b2 = torch.stack([w_hh, w_hh.flip(0)]), torch.stack([b_hh] * 2)
+        got = gru_fullfused.fused_layer(xp, xp.flip(-1), w2, b2, lengths)
+        want = gru_fullfused.recurrence_plain(xp, xp.flip(-1), w2, b2,
+                                              lengths)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("kernel", ["gru_bwd", "bigru_fullfused", "gru_fwd",
+                                    "bigru_fused"])
 def test_gru_geometry_matches_the_kernels(device, kernel):
     """The host's byte count equals the kernel's for every H and tile the
-    GRU cluster chooser can pick (the backward at every H it takes, the
-    fullfused f32-gates recurrence at every H up to 512, padded to a
-    multiple of 32), and every cluster size it picks is resident."""
+    GRU cluster chooser can pick (the backward and ``gru_fwd`` at every H
+    they take, the f32-gates bi-GRU recurrence of ``bigru_fullfused`` and
+    ``bigru_fused`` at every H up to 512, padded to a multiple of 32), and
+    every cluster size it picks is resident; ``gru_fwd`` and
+    ``bigru_fused`` launch at each geometry and agree with their plain
+    versions."""
     if kernel == "gru_bwd":
         smem_fn = gru_train.build().gru_bwd_smem
         geometry = gru_train.bwd_geometry
         want = {1, 2, 4, 8, 16}
+    elif kernel == "gru_fwd":
+        smem_fn = gru_train.build().gru_fwd_cluster_smem
+        geometry = gru_train.fwd_geometry
+        want = {1, 2, 4, 8}
     else:
         smem_fn = gru_fullfused.build().bigru_cluster_smem
-        geometry = gru_fullfused.cluster_geometry
+
+        def geometry(H, B, dev):
+            return gru_fullfused.cluster_geometry(H, B, dev, kernel)
         want = {1, 2, 4, 8}
+    gru_train.reset_launches()
+    gru_fullfused.reset_launches()
     clusters = set()
     for H in range(32, 513, 32):
         for B in (1, 5, 16, 31, 128, 512):
@@ -405,8 +439,14 @@ def test_gru_geometry_matches_the_kernels(device, kernel):
             assert smem_fn(C, BT, H) == smem
             assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
             clusters.add(C)
+            if kernel in ("gru_fwd", "bigru_fused"):
+                _launch_at(kernel, H, B, device)
     print(kernel, "cluster sizes", sorted(clusters))
     assert clusters == want
+    if kernel == "gru_fwd":
+        assert gru_train.LAUNCHES["gru_fwd"] == 16 * 6
+    elif kernel == "bigru_fused":
+        assert gru_fullfused.LAUNCHES["bigru_fused"] == 16 * 6
 
 
 def _rl_train_batch(rng, B, T, R):
@@ -526,7 +566,7 @@ def _bf16_ulp(v):
 @pytest.mark.parametrize("H,B,T", [(256, 16, 300), (96, 31, 200),
                                    (256, 1, 100), (64, 37, 60),
                                    (384, 16, 40), (512, 1, 30),
-                                   (512, 128, 20)])
+                                   (512, 128, 20), (160, 5, 50)])
 def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
     """Each fullfused mode and ``bigru_fused`` against its plain version,
     ragged lengths, layer 1 (10 features) and layer 2 (2H) inputs.
@@ -536,11 +576,12 @@ def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
     (cuBLAS), which can move one bf16 rounding of h or one round(127 h):
     f32-gates and int8 outputs within 2^-8 (mean 1e-3), bf16 gates within
     one bf16 step of the output's largest magnitude. A second launch
-    repeats the first bit for bit. The f32-gates mode runs the cluster
-    recurrence, whose chooser takes clusters of 1 (H=64), 2 (96), 4 (256)
-    and 8 (384, 512) blocks; the other modes the per-block recurrence,
-    which streams the bf16 W_hh from L2 at H >= 256 and keeps it in shared
-    memory below, the int8 one up to H=256.
+    repeats the first bit for bit. The f32-gates mode and ``bigru_fused``
+    run the cluster recurrence, whose chooser takes clusters of 1 (H=64),
+    2 (96), 4 (160 with 32 zero units, 256) and 8 (384, 512) blocks, with
+    B=1-128 on 8-, 16- and 32-column tiles; the bf16-gates and int8 modes
+    the per-block recurrence, which streams the bf16 W_hh from L2 at H >=
+    256 and keeps it in shared memory below, the int8 one up to H=256.
     """
     rng = np.random.default_rng(H + B + T)
     IN = 10 if layer_in == "features" else 2 * H
@@ -638,7 +679,7 @@ def test_fullfused_odd_hidden_matches_plain(device):
     (2, 256, True, None, "bigru_fullfused"),
     (3, 96, True, "int8", "bigru_fullfused_int8"),
     (1, 128, True, "bf16_gates", "bigru_fullfused"),
-    (2, 64, False, None, None)])
+    (2, 64, False, None, None), (3, 256, False, None, None)])
 def test_gru_model_off_split_on_card_matches_cpu_plain(
         device, n_layers, hidden, bidirectional, quant, key):
     """GRUModel.forward on the card at B=16 (off the split path) against

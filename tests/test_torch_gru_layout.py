@@ -1,11 +1,15 @@
 """The GRU cluster kernels' host side on the CPU: the launch geometry and
 the per-block W_hh slices of ``medaka_tpu_torch.ops.rnn_cluster`` with the
-GRU's row order, as ``gru_train.gru_bwd`` and the f32-gates mode of
-``gru_fullfused`` use them.
+GRU's row order, as ``gru_train.gru_fwd``/``gru_bwd`` and the f32-gates
+launches of ``gru_fullfused`` (``bigru_fullfused``, ``bigru_fused``) use
+them.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py);
 what they are given is decided here, in pure Python.
 """
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -62,6 +66,15 @@ def test_bwd_geometry_fits_every_hidden_size(B):
 
 
 @pytest.mark.parametrize("B", BATCHES)
+def test_fwd_geometry_fits_every_hidden_size(B):
+    """gru_fwd, one direction a launch, takes every H in 32..512 (step
+    32): clusters of 1 to 8 blocks, the bytes within the limit, one wave
+    where a tile allows it."""
+    clusters = {_check_fit("fwd", H, B, 1)[0] for H in range(32, 513, 32)}
+    assert clusters == {1, 2, 4, 8}
+
+
+@pytest.mark.parametrize("B", BATCHES)
 def test_fullfused_geometry_fits_every_hidden_size(B):
     """The f32-gates fullfused recurrence takes every H in 1..512, padded
     to a multiple of 32 (``_padded``), both directions' clusters in one
@@ -81,13 +94,20 @@ def test_fullfused_geometry_fits_every_hidden_size(B):
     ("fwd", 256, 1, 2, 32, (4, 8, 110848)),
     ("bwd", 512, 128, 1, 8, (16, 16, 201984)),
     ("fwd", 512, 16, 2, 15, (8, 8, 217344)),
-    ("bwd", 96, 5, 1, 66, (2, 8, 41856))])
+    ("bwd", 96, 5, 1, 66, (2, 8, 41856)),
+    ("fwd", 256, 128, 1, 62, (4, 8, 110848)),
+    ("fwd", 256, 128, 1, 8, (4, 16, 120320)),
+    ("fwd", 256, 16, 2, 62, (4, 8, 110848)),
+    ("fwd", 96, 31, 1, 66, (2, 8, 34048)),
+    ("fwd", 512, 128, 1, 15, (8, 8, 217344))])
 def test_geometry_at_the_main_shapes(kind, H, B, directions, resident, want):
     """The counts model's width, H=256, takes clusters of 4 (64 units a
-    block, a W slice of 192 x 264 x 2 = 101,376 B) for both kernels: 8
-    columns a cluster where the clusters run in one wave, else the largest
-    tile that fits; H=512 takes 16 blocks in the backward, whose receive
-    buffers do not fit beside a 64-unit slice, and 8 in the forward."""
+    block, a W slice of 192 x 264 x 2 = 101,376 B) for the backward and
+    the forward, one direction (``gru_fwd``: 16 clusters at B=128) or two
+    (``bigru_fused``, ``bigru_fullfused``): 8 columns a cluster where the
+    clusters run in one wave, else the largest tile that fits; H=512
+    takes 16 blocks in the backward, whose receive buffers do not fit
+    beside a 64-unit slice, and 8 in the forward."""
     assert rnn_cluster.choose_geometry(
         GRU, kind, H, B, cuda_build.SMEM_LIMIT,
         lambda C, BT, smem: resident, directions) == want
@@ -98,6 +118,12 @@ def test_geometry_raises_without_resident_clusters():
         rnn_cluster.choose_geometry(GRU, "bwd", 256, 128,
                                     cuda_build.SMEM_LIMIT,
                                     lambda C, BT, smem: 0)
+    with pytest.raises(RuntimeError, match=(
+            "gru_fwd: no cluster of 4 blocks of 8 columns with 110848 bytes "
+            "of shared memory can be resident")):
+        rnn_cluster.choose_geometry(GRU, "fwd", 256, 128,
+                                    cuda_build.SMEM_LIMIT,
+                                    lambda C, BT, smem: 0, 1, "gru_fwd")
     with pytest.raises(ValueError, match="multiple of 32"):
         rnn_cluster.choose_geometry(GRU, "fwd", 100, 16,
                                     cuda_build.SMEM_LIMIT, _resident, 2)
@@ -193,5 +219,101 @@ def test_wrappers_run_plain_versions_on_the_cpu():
     got = gru_fullfused.fullfused_layer(x, *layer, lens, "f32_gates")
     want = gru_fullfused.bigru_fullfused_plain(x, *layer, lens, "f32_gates")
     assert torch.equal(got, want)
+    assert gru_train.LAUNCHES == {"gru_fwd": 0, "gru_bwd": 0}
+    assert sum(gru_fullfused.LAUNCHES.values()) == 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' geometry queries against a stand-in kernel library
+    whose ``*_max_clusters`` gives ``resident["n"]``: no card, no build."""
+    resident = {"n": 62}
+
+    def max_clusters(C, BT, H):
+        return resident["n"]
+
+    lib = types.SimpleNamespace(
+        gru_fwd_max_clusters=max_clusters, bigru_max_clusters=max_clusters,
+        gru_train_error_string=lambda err: b"invalid argument",
+        gru_fullfused_error_string=lambda err: b"invalid argument")
+    monkeypatch.setattr(gru_train, "build", lambda: lib)
+    monkeypatch.setattr(gru_fullfused, "build", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(rnn_cluster, "_RESIDENT", {})
+    return resident
+
+
+def test_fwd_geometry_through_the_wrappers(fake_card):
+    """``gru_train.fwd_geometry`` chooses one direction's clusters and
+    ``gru_fullfused.cluster_geometry`` both directions', from the card's
+    resident clusters: at H=256 clusters of 4 and 8 columns, 16 clusters
+    at B=128 (64 of 132 SMs), 4 at B=16 for both directions."""
+    dev = torch.device("cuda", 0)
+    assert gru_train.fwd_geometry(256, 128, dev) == (4, 8, 110848, 62)
+    assert gru_train.fwd_geometry(256, 1, dev) == (4, 8, 110848, 62)
+    assert gru_fullfused.cluster_geometry(256, 16, dev, "bigru_fused") == (
+        4, 8, 110848, 62)
+    assert gru_train.fwd_geometry(96, 31, dev) == (2, 8, 34048, 62)
+
+
+@pytest.mark.parametrize("kernel", ["gru_fwd", "bigru_fused"])
+def test_fwd_geometry_raises_without_resident_clusters(fake_card, kernel):
+    """No resident cluster raises, naming the kernel and the geometry; a
+    CUDA error of the query raises as a failed launch of the kernel."""
+    dev = torch.device("cuda", 1)
+    if kernel == "gru_fwd":
+        def geometry():
+            return gru_train.fwd_geometry(256, 128, dev)
+    else:
+        def geometry():
+            return gru_fullfused.cluster_geometry(256, 16, dev, kernel)
+    fake_card["n"] = 0
+    with pytest.raises(RuntimeError, match=(
+            kernel + ": no cluster of 4 blocks of 8 columns with 110848 "
+            "bytes of shared memory can be resident")):
+        geometry()
+    rnn_cluster._RESIDENT.clear()
+    fake_card["n"] = -1
+    with pytest.raises(RuntimeError, match=kernel + " launch failed"):
+        geometry()
+
+
+def test_forward_wrappers_run_plain_versions_on_the_cpu():
+    """``gru_fwd``, ``bigru_pallas`` and ``bigru_stack_fused``
+    (bidirectional=False) take their plain versions on CPU tensors (no
+    library is built, nothing launches)."""
+    rng = np.random.default_rng(1)
+    H, B, T = 32, 3, 6
+    xp = torch.from_numpy(rng.uniform(-2, 2, (T, B, 3 * H)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.uniform(-0.2, 0.2, (3 * H, H)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.uniform(-0.2, 0.2, 3 * H).astype(np.float32))
+    lens = torch.tensor([6, 0, 4], dtype=torch.int32)
+    gru_train.reset_launches()
+    gru_fullfused.reset_launches()
+    for reverse in (False, True):
+        assert torch.equal(gru_train.gru_fwd(xp, w, b, lens, reverse),
+                           gru_train.gru_fwd_plain(xp, w, b, lens, reverse))
+    w2, b2 = torch.stack([w, w.flip(0)]), torch.stack([b, b.flip(0)])
+    got_f, got_b = gru_fullfused.bigru_pallas(xp, xp.flip(-1), w2, b2, lens)
+    want = gru_fullfused.recurrence_plain(xp, xp.flip(-1), w2, b2, lens)
+    assert torch.equal(torch.cat([got_f, got_b], -1), want)
+    layers = [{"fwd": {"w_ih": w[:, :10], "w_hh": w, "b_ih": b,
+                       "b_hh": b}},
+              {"fwd": {"w_ih": w, "w_hh": w.flip(1), "b_ih": b.flip(0),
+                       "b_hh": b}}]
+    x = torch.from_numpy(rng.random((B, T, 10)).astype(np.float32))
+    got = gru_fullfused.bigru_stack_fused(layers, x, bidirectional=False,
+                                          lengths=lens, device="cpu")
+    h = x.transpose(0, 1).to(torch.bfloat16)
+    for layer in layers:
+        p = layer["fwd"]
+        h = gru_train.gru_fwd_plain(
+            gru_fullfused.project_fused(h, p["w_ih"], p["b_ih"]), p["w_hh"],
+            p["b_hh"], lens)
+    assert got.shape == (B, T, H)
+    assert torch.equal(got, h.transpose(0, 1))
     assert gru_train.LAUNCHES == {"gru_fwd": 0, "gru_bwd": 0}
     assert sum(gru_fullfused.LAUNCHES.values()) == 0

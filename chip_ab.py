@@ -17,10 +17,16 @@ and the times (CUDA events, 5 launches after one warm-up) of
 ``gru_fwd`` at B=128, T=1000, H=256 (the counts training step's shape),
 over one column and at H=96, B=31, T=500, and of ``bigru_fused`` at B=16,
 T=10000, H=256 (the batch-16 path's layer 2), over one column and at
-H=96, B=31, T=500. ``compare`` prints, for each output, whether every
-file holds the same bits as the first, the largest difference where not,
-and the train steps' agreement and the times side by side. Give the trees their turns in one call, on
-one card (A, B, B, A), since cards and calls differ.
+H=96, B=31, T=500, and of the split kernels ``gru_l1_split`` and
+``gru_l2head_split`` (int8, H=256, T=10000): mode "t" at B=512 and at
+B=480 (the automatic batch where both run in one wave), mode "rows" at
+B=64, and over one column in both modes; where the tree has the cluster
+geometry of the int8 split kernels, also layer 1 on clusters of 4 blocks
+(64 units a block) at the same shapes, and each launch's geometry.
+``compare`` prints, for each output, whether every file holds the same
+bits as the first, the largest difference where not, and the train
+steps' agreement and the times side by side. Give the trees their turns
+in one call, on one card (A, B, B, A), since cards and calls differ.
 
 Needs a CUDA GPU and ``nvcc``; imports nothing of JAX or ``medaka_tpu``.
 """
@@ -158,10 +164,44 @@ def run(tree, out_path, seed):
         timed("bigru_fused/H{}_B{}_T{}".format(H, B, T),
               lambda: gru_fullfused.fused_layer(xp, xp_b, w2, b2, ln))
         del xp, xp_b
+    # the split kernels at the inference path's shapes (random net, full
+    # lengths); layer 2 on layer 1's outputs
+    layers, head = cs.random_net(rng)
+    geometries = {}
+    T = 10000
+    for B, mode in ((512, "t"), (480, "t"), (64, "rows"), (1, "t"),
+                    (1, "rows")):
+        xt = torch.from_numpy(rng.random((T, B, 10)).astype(
+            "float32")).to(dev, torch.bfloat16)
+        ln = torch.full((B,), T, dtype=torch.int32, device=dev)
+        w = gru_split.prepare_split_weights(layers, head, mode, True, dev)
+        a1 = (xt, ln, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+              w["b_hh1"])
+        f, b = gru_split.gru_l1_split(*a1, mode=mode)
+        a2 = (f, b, ln, w["w_in2"], w["in_scale2"], w["b_ih2"], w["w_hh2"],
+              w["sc2"], w["b_hh2"], w["w_head"])
+        shape = "B{}_T{}_{}".format(B, T, mode)
+        timed("gru_l1_split/" + shape,
+              lambda: gru_split.gru_l1_split(*a1, mode=mode))
+        timed("gru_l2head_split/" + shape,
+              lambda: gru_split.gru_l2head_split(*a2, mode=mode))
+        if hasattr(gru_split, "geometry"):
+            for kind, name in (("l1", "gru_l1_split"),
+                               ("l2", "gru_l2head_split")):
+                geometries[name + "/" + shape] = gru_split.geometry(
+                    kind, 256, B, dev, mode, 10 if kind == "l1" else 0)
+            # layer 1 with 64 units a block (clusters of 4, 8 columns)
+            timed("gru_l1_split_C4/" + shape,
+                  lambda: gru_split._launch_l1(*a1, mode=mode, quant=True,
+                                               cluster=(4, 8)))
+        del xt, f, b, a1, a2
+    if geometries:
+        print("   split geometries (C, BT, shared memory, resident "
+              "clusters): {}".format(json.dumps(geometries)), flush=True)
     torch.cuda.synchronize()
     torch.save({"tree": os.path.abspath(tree), "card": cs.card_line(),
-                "outputs": outputs, "times": times, "train_step": step},
-               out_path)
+                "outputs": outputs, "times": times, "train_step": step,
+                "split_geometry": geometries}, out_path)
     print("chip_ab: {} outputs, {} times of {} -> {}".format(
         len(outputs), len(times), tree, out_path))
     return 0
@@ -184,13 +224,21 @@ def compare(paths):
             else:
                 row.append((got.float() - ref.float()).abs().max().item())
         report["outputs"][key] = row
-    for key in runs[0]["times"]:
-        report["times_ms"][key] = [r["times"][key] for r in runs]
+    keys = sorted({k for r in runs for k in r["times"]})
+    for key in keys:
+        report["times_ms"][key] = [r["times"].get(key) for r in runs]
+    report["split_geometry"] = [r.get("split_geometry", {}) for r in runs]
     differ = sorted(k for k, row in report["outputs"].items()
                     if any(v != "identical" for v in row))
     print(json.dumps(report, indent=1))
     print("outputs that differ from the first file's: {}".format(
         json.dumps(differ)))
+    # the int8 layer 2's logits may differ by the order of the head's sum;
+    # every other output must repeat the first file's bits
+    others = [k for k in differ
+              if not (k.startswith("gru_split/") and "/True/l2head" in k)]
+    print("outputs other than the int8 logits that differ: {}".format(
+        json.dumps(others)))
     return 0
 
 

@@ -15,12 +15,16 @@ Phases, each of which fails the script when it fails:
    memory and spills of every kernel, by name for the cluster
    recurrences (``lstm_fwd_kernel``, ``lstm_bwd_kernel``,
    ``gru_cluster_bwd_kernel``, and ``gru_cluster_fwd_kernel`` in both
-   ``gru_train.cu`` and ``gru_fullfused.cu``), ``rnn_dw_kernel`` and
-   ``bigru_proj_kernel``;
+   ``gru_train.cu`` and ``gru_fullfused.cu``), ``rnn_dw_kernel``,
+   ``bigru_proj_kernel`` and the split kernels (``gru_l1_split_s8_kernel``
+   and ``gru_l2head_split_s8_kernel``, the int8 cluster kernels, and the
+   bf16 ``gru_l1_split_kernel`` and ``gru_l2head_split_kernel``);
 3. hold the split-path GRU kernels against their plain PyTorch versions
    at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
-   at B=64, each with int8 quantisation on and off; hold the bi-LSTM
+   at B=64, each with int8 quantisation on and off, and against
+   themselves run again (bit for bit); in int8, layer 1 bit-identical to
+   its plain version; hold the bi-LSTM
    kernel against its plain version at H=128 (B=128, T=1000) and H=384
    (B=32, T=500), ragged lengths, random weights;
 4. write a synthetic 0.5 Mb BAM at depth 20 and its draft;
@@ -31,10 +35,16 @@ Phases, each of which fails the script when it fails:
 6. check its output: finite probabilities that sum to 1, the consensus
    identity to the draft, and the int8 kernels against the float32 scan
    on eight real chunks;
-7. at its shape, hold each split kernel against its plain version and
+7. at its shape (the automatic batch, the most rows at which both
+   split kernels run in one wave), hold each split kernel against its
+   plain version (int8 layer 1 bit for bit) and itself run again, and
    time it beside its plain version, its serial floor (one column), the
-   cuDNN ``nn.GRU`` yardstick and its bound; the same for mode "rows" on
-   64 rows;
+   cuDNN ``nn.GRU`` yardstick and its bound, at B=512 too, with each
+   launch's geometry (cluster size, columns a cluster, shared memory,
+   resident clusters) and the microseconds a step; a profile of each
+   int8 launch must show the cluster kernel (``gru_l1_split_s8_kernel``,
+   ``gru_l2head_split_s8_kernel``) and neither bf16 per-block kernel; the
+   same for mode "rows" on 64 rows;
 8. the read-level main path: ``inference`` with the bundled
    ``rl_lstm128_lambda_demo`` at chunk_len 1000, overlap 100 and the
    automatic batch, then ``sequence``, with the bi-LSTM kernel's launch
@@ -177,6 +187,10 @@ REPLACES = {
                    "(bigru_pallas :229)",
 }
 FULLFUSED_SOURCE = "medaka_tpu_torch/csrc/gru_fullfused.cu"
+#: the int8 split kernels (csrc/gru_split.cu), by the row they serve
+SPLIT_KERNELS = ("gru_l1_split_s8_kernel", "gru_l2head_split_s8_kernel")
+SPLIT_KERNEL_OF = dict(zip(("gru_l1_split", "gru_l2head_split"),
+                           SPLIT_KERNELS))
 #: kernel mode of each fullfused row; "fused" is bigru_pallas (#6)
 FULLFUSED_MODES = {"bigru_fullfused/f32_gates": "f32_gates",
                    "bigru_fullfused/bf16_gates": "bf16_gates",
@@ -395,7 +409,9 @@ def run_layers(gru_split, w, xt, lengths, mode, quant, plain):
 def compare_kernels(gru_split, w, xt, lengths, mode, quant):
     """Each kernel against its plain version on the same inputs.
 
-    Returns (l1 max err, l2 max logit err, network stats, kernel outputs).
+    Both kernels run twice and must repeat bit for bit; in int8, layer 1
+    must equal its plain version bit for bit. Returns (l1 max err, l2 max
+    logit err, network stats, kernel outputs).
     """
     import torch
     T, B, _ = xt.shape
@@ -418,6 +434,18 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant):
                   for a, b in ((kf, pf), (kb, pb)))
     l2_err = max((a - b).abs()[valid].max().item()
                  for a, b in ((kl_f, ql_f), (kl_b, ql_b)))
+    # a second launch gives the same bits (no atomics, fixed-order sums)
+    (rf, rb), (rl_f, rl_b) = run_layers(gru_split, w, xt, lengths, mode,
+                                        quant, plain=False)
+    if not all(torch.equal(a, b) for a, b in (
+            (kf, rf), (kb, rb), (kl_f, rl_f), (kl_b, rl_b))):
+        raise AssertionError("the split kernels do not repeat bit for bit "
+                             "(mode {}, quant {})".format(mode, quant))
+    del rf, rb, rl_f, rl_b
+    # int8 layer 1: every sum is exact or in the plain version's order
+    if quant and l1_err != 0:
+        raise AssertionError("int8 gru_l1_split differs from its plain "
+                             "version: max {}".format(l1_err))
     if l1_err > TOL_L1[quant] or l1_mean > TOL_L1_MEAN:
         raise AssertionError("gru_l1_split disagrees with its plain version:"
                              " max {} mean {}".format(l1_err, l1_mean))
@@ -801,6 +829,27 @@ def cluster_launch_ms(name, fn, prefixes):
             name, attempt + 1))
     check_cluster_forward(name, by_kernel)
     return split_ms(by_kernel, prefixes)
+
+
+def split_launch_ms(name, fn):
+    """{kernel: ms} of one int8 launch of split kernel ``name`` (the
+    profiler): it must run its cluster kernel (:data:`SPLIT_KERNEL_OF`)
+    and neither bf16 per-block split kernel; an empty trace is taken
+    again, up to three times."""
+    for attempt in range(3):
+        by_kernel = kernels_ms(fn)
+        if by_kernel:
+            break
+        log("   the profiler recorded no kernel of {} (trace {})".format(
+            name, attempt + 1))
+    if not by_kernel:
+        raise AssertionError("no profile of {}: its kernels cannot be "
+                             "checked".format(name))
+    old = ("void gru_l1_split_kernel", "void gru_l2head_split_kernel")
+    if any(k.startswith(old) for k in by_kernel) or not any(
+            k.startswith("void " + SPLIT_KERNEL_OF[name]) for k in by_kernel):
+        raise AssertionError("{} ran {}".format(name, sorted(by_kernel)))
+    return {k: v for k, v in by_kernel.items() if "split" in k}
 
 
 def profile_step(step, step_s):
@@ -2013,7 +2062,9 @@ def main(argv=None):
                                        "gru_cluster_bwd_kernel",
                                        "rnn_dw_kernel")),
                      ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",
-                                           "bigru_proj_kernel")))}
+                                           "bigru_proj_kernel")),
+                     ("gru_split.cu", SPLIT_KERNELS + ("gru_l1_split_kernel",
+                                                       "gru_l2head_split_kernel")))}
         for source, report in ptxas.items():
             for kernel, recs in report.items():
                 for rec in recs:
@@ -2293,6 +2344,49 @@ def main(argv=None):
                     rows[0]["network_library"], library_ms["network"], B,
                     rows[0]["ms"] + rows[1]["ms"]))
 
+            # each int8 launch's geometry (cluster size, columns a cluster,
+            # shared memory, resident clusters) and microseconds a step,
+            # the same batch padded to 512 rows (where layer 2's clusters
+            # need two waves on an H100), and a profile of one launch: the
+            # cluster kernel and no per-block split kernel
+            big = prediction.Batch.collate(samples[:512], 512, 10000)
+            xt512 = torch.from_numpy(big.features).to(torch.bfloat16) \
+                .transpose(0, 1).contiguous().to(dev)
+            lens512 = torch.from_numpy(big.lengths).to(dev)
+            with torch.inference_mode():
+                f512, b512 = gru_split.gru_l1_split(xt512, lens512,
+                                                    *l1_args[2:], mode="t")
+                at512 = {
+                    "gru_l1_split": lambda: gru_split.gru_l1_split(
+                        xt512, lens512, *l1_args[2:], mode="t"),
+                    "gru_l2head_split": lambda: gru_split.gru_l2head_split(
+                        f512, b512, lens512, *l2_args[3:], mode="t")}
+                for row in rows:
+                    name = row["name"]
+                    kind = "l1" if name == "gru_l1_split" else "l2"
+                    row["geometry"] = {
+                        key: dict(zip(
+                            ("cluster", "columns", "smem_bytes",
+                             "resident_clusters"),
+                            gru_split.geometry(kind, H, cols, dev, m,
+                                               IN if kind == "l1" else 0)))
+                        for key, cols, m in (
+                            ("main", B, "t"), ("B512", 512, "t"),
+                            ("rows_B64", 64, "rows"), ("one_column", 1, "t"))}
+                    row["step_us"] = row["ms"] / T * 1e3
+                    row["serial_floor_step_us"] = \
+                        row["serial_floor_ms"] / T * 1e3
+                    row["b512_ms"] = cuda_ms(at512[name])
+                    row["launch_profile_ms"] = split_launch_ms(
+                        name, calls[name][0])
+                    log("   {}: {:.3f} us a step (one column {:.3f}), {:.2f} "
+                        "ms at B=512; geometry {}; profile of a launch {}"
+                        .format(name, row["step_us"],
+                                row["serial_floor_step_us"], row["b512_ms"],
+                                json.dumps(row["geometry"]),
+                                json.dumps(row["launch_profile_ms"])))
+            del xt512, lens512, f512, b512, at512, big
+
             # mode "rows" (TPU kernels #3 and #4) is what batches below 192
             # run; the main path does not reach it, so it is held against
             # its plain version and timed on the batch's first 64 rows
@@ -2342,6 +2436,8 @@ def main(argv=None):
                         "library": "torch.nn.GRU({}, {}, 1, bidirectional="
                                    "True) bf16 (cuDNN) over {} rows: {:.2f} "
                                    "ms".format(width, H, RB, lib_ms)}
+                    row["rows_mode"]["step_us"] = \
+                        row["rows_mode"]["ms"] / T * 1e3
                     log("   {} mode rows: {}".format(
                         row["name"], json.dumps(row["rows_mode"])))
 
@@ -2513,7 +2609,10 @@ def main(argv=None):
                                      "rnn_dw_kernel")),
         "bigru_fullfused/f32_gates": ("gru_fullfused.cu", (
             "gru_cluster_fwd_kernel", "bigru_proj_kernel")),
-        "bigru_fused": ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",))}
+        "bigru_fused": ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",)),
+        "gru_l1_split": ("gru_split.cu", (SPLIT_KERNEL_OF["gru_l1_split"],)),
+        "gru_l2head_split": ("gru_split.cu", (
+            SPLIT_KERNEL_OF["gru_l2head_split"],))}
     for row in rows:
         if row["name"] in row_ptxas:
             source, kernels = row_ptxas[row["name"]]

@@ -1,5 +1,7 @@
 // Split-path 2-layer bidirectional GRU + linear head, written for Hopper
-// (sm_90a) and bound to Python with ctypes through a plain C interface.
+// (sm_90a: thread-block clusters, distributed shared memory, mma.sync on
+// the tensor cores) and bound to Python with ctypes through a plain C
+// interface.
 //
 // gru_l1_split      replaces medaka_tpu/ops/pallas_gru.py
 //                   _bigru_l1_split_t_kernel (mode "t") and
@@ -8,45 +10,78 @@
 //                   _bigru_l2head_t_kernel (mode "t") and
 //                   _bigru_l2head_kernel (mode "rows").
 //
-// Design. The TPU kernels walk time on a sequential grid and carry h in
-// VMEM scratch. Here one block owns one direction and a tile of BT batch
-// columns and loops over all T steps itself; blocks never exchange state.
-// Thread (j, q) owns hidden unit j (gate rows j, H+j, 2H+j) for the CPT
-// columns q*CPT .. q*CPT+CPT-1 of the tile, so the three gate
-// pre-activations of a unit meet in one thread and a step needs a single
-// __syncthreads (h is double-buffered in shared memory).
+// Two designs, one for each kind of numerics.
+//
+// int8 (quant, the default): gru_l1_split_s8_kernel and
+// gru_l2head_split_s8_kernel, the cluster recurrence. A thread-block
+// cluster of C blocks owns one direction and one tile of BT batch columns
+// and walks all T steps; both directions' clusters run in one grid. Block
+// r owns U = Hp / C hidden units (H padded to Hp with zero units) and keeps
+// their 3U gate rows of every weight in its shared memory for the whole
+// walk, int8 in rows padded to an odd multiple of 16 bytes: W_hh (3U x Hp)
+// and, in layer 2, W_ih (3U x 2H); layer 1's W_ih (3U x IN) is bf16. No
+// weight is read from L2 inside the step loop. Rows of a slice: unit group
+// q (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n; unit u), so
+// in the mma.sync m16n8k32 s8 accumulator fragments a thread holds r, z
+// and n of units u and u + 8 for two batch columns of each n8 tile
+// (rnn_train.cuh S8Product; ops/rnn_cluster.py SPLIT chooses C and BT on
+// the host: C is the smallest cluster whose slices fit, 1 at H <= 256 in
+// layer 1, so one __syncthreads a step and no cluster barrier there). A
+// step: round(127 h) (BT x Hp int8) . W_hh_slice^T on the tensor cores,
+// the gates of the block's units in registers, round(127 h') into every
+// cluster block's next h buffer (distributed shared memory, 16-byte
+// stores; at C = 1 straight into the block's own), one split cluster
+// barrier a step; a warp sends its units' h as soon as its gates are done.
+// The input operand (layer 1: x; layer 2: [prev_f; prev_b]
+// int8) comes by cp.async two steps ahead. Layer 1's input projection (the
+// f32 fmaf chain on the CUDA cores) runs between the k-chunks of the
+// step's recurrent product, so that it overlaps the product's ldmatrix
+// traffic; layer 2's (W_ih_slice . [prev_f; prev_b] on the tensor cores,
+// one int32 sum for each half) runs for the next step between the
+// barrier's arrive and its wait. Layer 2's head: W_head^T . bf16(h) over a
+// block's units on the tensor cores (mma.sync m16n8k16, f32 sums), then
+// over the cluster's blocks in rank order, each block for its share of
+// the columns: a run repeats bit for bit.
+//
+// bf16 (quant=False): gru_l1_split_kernel and gru_l2head_split_kernel, the
+// per-block recurrence on the CUDA cores. One block owns one direction and
+// a tile of BT = CPT * NQ columns and loops over all T steps itself;
+// blocks never exchange state. Thread (j, q) owns hidden unit j (gate rows
+// j, H+j, 2H+j) for columns q*CPT .. q*CPT+CPT-1, so a unit's three gate
+// pre-activations meet in one thread and a step needs a single
+// __syncthreads (h is double-buffered in shared memory); the bf16 W_hh and
+// the layer-2 W_ih stream from L2, chunk-interleaved (chunk kc of row r at
+// kc * 3H + r, 512 contiguous bytes for a warp).
 //
 // Numerics follow the TPU kernels operation by operation: int8 x int8 ->
-// int32 (__dp4a) recurrences and layer-2 projections with the same
-// per-row scales, round-half-even (__float2int_rn) for round(127 h),
-// bf16 roundings (__float2bfloat16_rn) where the TPU kernels cast, and
-// __fmul_rn/__fadd_rn where a fused multiply-add would round differently
-// from the plain PyTorch version in medaka_tpu_torch/ops/gru_split.py.
+// int32 products with per-row scales (exact in any order, so the tensor
+// cores give the integers the CUDA cores' __dp4a gave), round-half-even
+// (__float2int_rn) for round(127 h), bf16 roundings (__float2bfloat16_rn)
+// where the TPU kernels cast, and __fmul_rn/__fadd_rn where a fused
+// multiply-add would round differently from the plain PyTorch version in
+// medaka_tpu_torch/ops/gru_split.py. Layer 1's f32 input projection keeps
+// one fmaf chain over the features in order, so layer 1's outputs and
+// layer 2's h do not depend on the design; only the order of the head's
+// f32 sum over units does.
 //
-// What bounds it on an H100: a step is a (3H x K) x (K x BT) product per
-// block with K = H (layer 1) or 3H (layer 2), so the kernels are bound by
-// the int8 dot-product rate of the CUDA cores and by the serial chain of
-// T dependent steps, not by device memory (each byte of input and output
-// crosses HBM once). The int8 W_hh (3H*H = 196,608 bytes at H = 256) lives
-// in dynamic shared memory; the bf16 W_hh of quant=False and the layer-2
-// W_ih stream from L2. Tensor-core mma/wgmma and batching steps are later
-// work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it on an H100: a step is a (3H x K) x (K x BT) product with K
+// = H (layer 1) or 3H (layer 2) and the serial chain of T dependent steps,
+// not device memory (each byte of input and output crosses HBM once). In
+// int8 the step's product reads the block's weight slices from shared
+// memory through ldmatrix once (196,608 B at H = 256 in layer 1), which
+// bounds layer 1's step at about 1 us; layer 2 adds the cluster barrier
+// and the exchange.
+#include "rnn_train.cuh"
 
 namespace {
 
 constexpr int MODE_T = 0;
 constexpr int MODE_ROWS = 1;
-constexpr int CMAX = 8;  // largest head width the l2 kernel holds in registers
+constexpr int CMAX = 8;  // largest head width of the l2 kernels
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
 }
 
 // One GRU update of one hidden unit of one column (gate order r, z, n).
@@ -70,38 +105,515 @@ __device__ __forceinline__ float gru_update(float h, float xr, float xz,
   return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h));
 }
 
-// acc[g][cc] += W[g*H + j, k-range] . act[c0 + cc, k-range] for 16-byte
-// chunks. W is chunk-interleaved: chunk kc of row r at w[kc * H3 + r], so a
-// warp (32 consecutive j) reads 512 contiguous bytes. act rows are
-// act_stride chunks apart; every lane of a warp reads the same act chunk.
-template <int CPT>
-__device__ __forceinline__ void dot_int8(const int4* __restrict__ w, int H3,
-                                         int H, int j,
-                                         const int4* __restrict__ act,
-                                         int act_stride, int c0, int nchunks,
-                                         int (&acc)[3][CPT]) {
-  for (int kc = 0; kc < nchunks; ++kc) {
-    const int4 w0 = w[kc * H3 + j];
-    const int4 w1 = w[kc * H3 + H + j];
-    const int4 w2 = w[kc * H3 + 2 * H + j];
+// ---------------------------------------------------------------------------
+// int8: the cluster recurrence (grid dirs * ceil(B / BT) * C, cluster C)
+// ---------------------------------------------------------------------------
+
+constexpr int SPLIT_UG = 16;      // units of a group: rows q*48 + g*16 + u
+constexpr int SPLIT_MAX_U = 256;  // units of a block at most
+constexpr int L1_THREADS = 512;   // threads of a block at most, layer 1
+constexpr int L2_THREADS = 256;   // and layer 2 (its registers)
+constexpr int L1_ROWC = 3;  // per-row constants: hh_scale, b_hh, b_ih
+constexpr int L2_ROWC = 5;  // and the input scales of the two halves
+
+typedef ClusterGeo<3, SPLIT_UG> SplitBase;
+
+// The launch geometry of layer 1 (l2 false, IN features) or layer 2 and
+// the carve-up of a block's shared memory, in this order: W_hh slice
+// [3U][ldh] int8, h [2][BT][ldh] int8, the block's staged h [BT][U] int8
+// (C > 1), W_ih (layer 1: [3U][INe] bf16; layer 2: [3U][ldi] int8), the
+// input operand (layer 1: x [2][BT][INp] bf16; layer 2: [prev_f; prev_b]
+// [2][BT][ldi] int8), and in layer 2 the head's operands, bf16(h) of the
+// block's units [2][BT][U + 8] and the block's rows of W_head^T
+// [16][U + 8] bf16, and (C > 1) the blocks' partial logits of the block's
+// CR = ceil(BT / C) columns [2][C][CR][CMAX] f32. ops/rnn_cluster.py
+// smem_bytes mirrors it.
+struct SplitGeo : SplitBase {
+  bool l2;
+  int IN;   // layer 1's features
+  int INe;  // the same rounded up to even (W_ih rows of 32-bit pairs)
+  int INp;  // the same padded to 8 (16 bytes of bf16)
+  int ldh;  // padded row (bytes) of the W_hh slice and of h: Hp + 16
+  int ldi;  // padded row (bytes) of the W_ih slice and the input: 2H + 16
+  __host__ __device__ SplitGeo(bool l2_, int H, int c, int bt, int in)
+      : SplitBase(H, c, bt), l2(l2_), IN(in), INe((in + 1) / 2 * 2),
+        INp((in + 7) / 8 * 8), ldh(Hp + 16), ldi(2 * H + 16) {}
+  __host__ __device__ size_t whh_bytes() const {
+    return align16(static_cast<size_t>(rows()) * ldh);
+  }
+  __host__ __device__ size_t hq_bytes() const {
+    return align16(static_cast<size_t>(2) * BT * ldh);
+  }
+  __host__ __device__ size_t st8_bytes() const {
+    return C > 1 ? align16(static_cast<size_t>(BT) * U) : 0;
+  }
+  __host__ __device__ size_t wih_bytes() const {
+    return l2 ? align16(static_cast<size_t>(rows()) * ldi)
+              : align16(static_cast<size_t>(rows()) * INe * sizeof(bf16));
+  }
+  __host__ __device__ size_t in_bytes() const {
+    return l2 ? align16(static_cast<size_t>(2) * BT * ldi)
+              : align16(static_cast<size_t>(2) * BT * INp * sizeof(bf16));
+  }
+  // layer 2: bf16(h) [2][BT][U + 8] and W_head^T [16][U + 8]
+  __host__ __device__ size_t head_bytes() const {
+    return l2 ? align16(static_cast<size_t>(2 * BT + 16) * (U + 8) *
+                        sizeof(bf16))
+              : 0;
+  }
+  // columns of the logits a block of a cluster sums (C > 1)
+  __host__ __device__ int CR() const { return (BT + C - 1) / C; }
+  __host__ __device__ size_t slot_bytes() const {
+    return l2 && C > 1 ? align16(static_cast<size_t>(2) * C * CR() * CMAX *
+                                 sizeof(float))
+                       : 0;
+  }
+  __host__ __device__ size_t smem() const {
+    return whh_bytes() + hq_bytes() + st8_bytes() + wih_bytes() +
+           in_bytes() + head_bytes() + slot_bytes();
+  }
+  __host__ __device__ int max_threads() const {
+    return l2 ? L2_THREADS : L1_THREADS;
+  }
+  // a geometry the kernels cannot run
+  __host__ __device__ static bool bad(bool l2, int H, int c, int bt, int in) {
+    if (H % 32 != 0 || H <= 0 || H > 512) return true;
+    if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return true;
+    if (bt != 8 && bt != 16 && bt != 32 && bt != 64) return true;
+    if (!l2 && in < 1) return true;
+    const SplitGeo g(l2, H, c, bt, in);
+    return g.U > SPLIT_MAX_U || g.threads() > g.max_threads() ||
+           g.smem() > SMEM_LIMIT;
+  }
+};
+
+// Both directions stacked along the first axis of every weight (fwd, bwd).
+struct SplitArgs {
+  const int8_t* w_hh;  // (2, C, 3U, Hp) int8 slices (rnn_cluster w_slices)
+  const float* rowc;   // (2, C, L*_ROWC, 3U) f32 per-row constants, same rows
+  const int* lengths;  // (B,)
+  const bf16* x;       // layer 1: (T, B, INp) bf16, features zero-padded
+  const bf16* w_ih;    // layer 1: (2, C, 3U, INe) bf16, same rows
+  int8_t* out_f;       // layer 1: (T, B, H) int8 round(127 h)
+  int8_t* out_b;
+  const int8_t* prev_f;  // layer 2: (T, B, H) int8, layer 1's outputs
+  const int8_t* prev_b;
+  const int8_t* w_in;    // layer 2: (2, C, 3U, 2H) int8 slices
+  const bf16* w_head;    // layer 2: (2, C, 16, U) bf16 W_head^T rows
+  float* lg_f;           // layer 2: (B, T, ncls) f32 logit partials
+  float* lg_b;
+  int T, B, H, IN, C, BT, ncls;
+};
+
+template <int NT, int MODE, bool L2>
+__device__ __forceinline__ void split_s8(const SplitArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = a.T, B = a.B, H = a.H, C = a.C, BT = a.BT;
+  const SplitGeo g(L2, H, C, BT, a.IN);
+  const int r = static_cast<int>(cluster.block_rank());
+  const int tiles = (B + BT - 1) / BT;
+  const int cid = static_cast<int>(blockIdx.x) / C;
+  const int d = cid / tiles;
+  const int b0 = (cid - d * tiles) * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = warp % g.NG;
+  const int p = warp / g.NG;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int U = g.U, R = g.rows(), ldh = g.ldh, ldi = g.ldi, INp = g.INp;
+  const int nthr = blockDim.x;
+  constexpr int NC = 2 * NT;  // batch columns of a thread
+  constexpr int NROWC = L2 ? L2_ROWC : L1_ROWC;
+
+  unsigned char* sp = smem;
+  int8_t* whh_s = reinterpret_cast<int8_t*>(sp);
+  sp += g.whh_bytes();
+  int8_t* h_s = reinterpret_cast<int8_t*>(sp);
+  sp += g.hq_bytes();
+  int8_t* st_s = reinterpret_cast<int8_t*>(sp);
+  sp += g.st8_bytes();
+  unsigned char* wih_s = sp;
+  sp += g.wih_bytes();
+  unsigned char* in_s = sp;
+  sp += g.in_bytes();
+  bf16* hb_s = reinterpret_cast<bf16*>(sp);  // [2][BT][U + 8]
+  bf16* whd_s = hb_s + 2 * BT * (U + 8);      // [16][U + 8]
+  sp += g.head_bytes();
+  float* slot_s = reinterpret_cast<float*>(sp);
+
+  const size_t blk = static_cast<size_t>(d) * C + r;  // this block's slices
+  load_rows(whh_s, ldh, a.w_hh + blk * R * g.Hp, g.Hp, R);
+  if constexpr (L2) {
+    load_rows(wih_s, ldi, a.w_in + blk * R * 2 * H, 2 * H, R);
+    load_rows(whd_s, (U + 8) * static_cast<int>(sizeof(bf16)),
+              a.w_head + blk * 16 * U, U * static_cast<int>(sizeof(bf16)),
+              16);
+  }
+  else
+    load_rows(wih_s, 0, a.w_ih + blk * R * g.INe,
+              R * g.INe * static_cast<int>(sizeof(bf16)), 1);
+  for (int e = threadIdx.x; e < static_cast<int>(g.hq_bytes() / 16);
+       e += nthr)
+    reinterpret_cast<uint4*>(h_s)[e] = make_uint4(0, 0, 0, 0);
+
+  // this thread's cells: units ul[hh] (block-local) for columns ncol[c]
+  int ul[2], row[2][3];
+  bool unit_in[2];
+  float sc[2][3], bh[2][3], bi[2][3], sa[2][3], sb[2][3];
+  const float* rc = a.rowc + blk * NROWC * R;
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int4 a = act[(c0 + cc) * act_stride + kc];
-      acc[0][cc] = __dp4a(w0.x, a.x, acc[0][cc]);
-      acc[0][cc] = __dp4a(w0.y, a.y, acc[0][cc]);
-      acc[0][cc] = __dp4a(w0.z, a.z, acc[0][cc]);
-      acc[0][cc] = __dp4a(w0.w, a.w, acc[0][cc]);
-      acc[1][cc] = __dp4a(w1.x, a.x, acc[1][cc]);
-      acc[1][cc] = __dp4a(w1.y, a.y, acc[1][cc]);
-      acc[1][cc] = __dp4a(w1.z, a.z, acc[1][cc]);
-      acc[1][cc] = __dp4a(w1.w, a.w, acc[1][cc]);
-      acc[2][cc] = __dp4a(w2.x, a.x, acc[2][cc]);
-      acc[2][cc] = __dp4a(w2.y, a.y, acc[2][cc]);
-      acc[2][cc] = __dp4a(w2.z, a.z, acc[2][cc]);
-      acc[2][cc] = __dp4a(w2.w, a.w, acc[2][cc]);
+  for (int hh = 0; hh < 2; ++hh) {
+    ul[hh] = q * SPLIT_UG + gid + 8 * hh;
+    unit_in[hh] = r * U + ul[hh] < H;
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      row[hh][gt] = q * 3 * SPLIT_UG + gt * SPLIT_UG + gid + 8 * hh;
+      sc[hh][gt] = rc[row[hh][gt]];
+      bh[hh][gt] = rc[R + row[hh][gt]];
+      bi[hh][gt] = rc[2 * R + row[hh][gt]];
+      sa[hh][gt] = L2 ? rc[3 * R + row[hh][gt]] : 0.0f;
+      sb[hh][gt] = L2 ? rc[4 * R + row[hh][gt]] : 0.0f;
     }
   }
+  int ncol[NC], len[NC];
+  float h[2][NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    ncol[c] = (p * NT + c / 2) * 8 + tig * 2 + c % 2;
+    const int b = b0 + ncol[c];
+    len[c] = b < B ? a.lengths[b] : 0;
+    h[0][c] = 0.0f;
+    h[1][c] = 0.0f;
+  }
+
+  // this thread's share of each per-step loop: (column, 16-byte chunk) of
+  // the input copy and of the outputs, (column, class) of the logits
+  const int in_cpc = L2 ? H / 8 : INp / 8;  // 16-byte chunks of a column
+  const int u16 = U / 16;  // 16-byte chunks of a column of the block's h
+  const FlatWalk in_walk(threadIdx.x, nthr, in_cpc);
+  const FlatWalk h_walk(threadIdx.x, nthr, u16);
+  const FlatWalk head_walk(threadIdx.x, nthr, L2 ? a.ncls : 1);
+  const int nwarps = nthr >> 5;
+
+  // cp.async of step `step`'s input operand into buffer `buf`, zero for
+  // columns past B
+  auto issue = [&](int step, int buf) {
+    const int tt = d == 0 ? step : T - 1 - step;
+    FlatWalk w = in_walk;
+    if constexpr (L2) {
+      const int half = H / 16;
+      int8_t* dst = reinterpret_cast<int8_t*>(in_s) + buf * BT * ldi;
+      const size_t t_off = static_cast<size_t>(tt) * B;
+      for (; w.n < BT; w.next()) {
+        const int b = b0 + w.n;
+        const int8_t* src = w.j < half ? a.prev_f : a.prev_b;
+        cp_async16(dst + w.n * ldi + w.j * 16,
+                   b < B ? src + (t_off + b) * H +
+                               (w.j < half ? w.j : w.j - half) * 16
+                         : a.prev_f,
+                   b < B);
+      }
+    } else {
+      bf16* dst = reinterpret_cast<bf16*>(in_s) + buf * BT * INp;
+      const size_t t_off = static_cast<size_t>(tt) * B;
+      for (; w.n < BT; w.next()) {
+        const int b = b0 + w.n;
+        cp_async16(dst + w.n * INp + w.j * 8,
+                   b < B ? a.x + (t_off + b) * INp + w.j * 8 : a.x, b < B);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the input pre-activations xp of a step
+  float xp[2][NC][3];
+  // layer 2: xp of the step whose operand is in buffer `buf`, W_ih
+  // [prev_f; prev_b] on the tensor cores, one exact int32 sum for each
+  // half (k from 0 and from H)
+  auto project = [&](int buf) {
+    int acc_a[3][NT][4] = {};
+    int acc_b[3][NT][4] = {};
+    const int8_t* w = reinterpret_cast<const int8_t*>(wih_s);
+    const int8_t* ib = reinterpret_cast<const int8_t*>(in_s) + buf * BT * ldi;
+    const S8Product<3, NT> prod_a(w, ldi, q * 3 * SPLIT_UG, ib, ldi,
+                                  p * NT * 8, 0, lane);
+    const S8Product<3, NT> prod_b(w, ldi, q * 3 * SPLIT_UG, ib, ldi,
+                                  p * NT * 8, H, lane);
+#pragma unroll 2
+    for (int ks = 0; ks < H / 32; ++ks) {
+      prod_a.step(acc_a, ks);
+      prod_b.step(acc_b, ks);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          const int va = acc_a[gt][c / 2][hh * 2 + c % 2];
+          const int vb = acc_b[gt][c / 2][hh * 2 + c % 2];
+          if (MODE == MODE_T) {
+            // merged (3H, 2H) projection with one per-row scale
+            xp[hh][c][gt] = __fadd_rn(
+                __fmul_rn(static_cast<float>(va + vb), sa[hh][gt]),
+                bi[hh][gt]);
+          } else {
+            const float pa = __fmul_rn(static_cast<float>(va), sa[hh][gt]);
+            const float pb = __fmul_rn(static_cast<float>(vb), sb[hh][gt]);
+            xp[hh][c][gt] = bf16r(__fadd_rn(__fadd_rn(pa, pb), bi[hh][gt]));
+          }
+        }
+  };
+
+  // layer 2 (C > 1): the logits of step `step` of this block's CR
+  // columns from r CR on, the blocks' partials [buf][rank] summed in rank
+  // order
+  const int CR = g.CR();
+  auto flush = [&](int step, int buf) {
+    float* lg = d ? a.lg_b : a.lg_f;
+    const int tt = d == 0 ? step : T - 1 - step;
+    for (FlatWalk w = head_walk; w.n < CR; w.next()) {
+      const int n = r * CR + w.n;
+      float s = 0.0f;
+      for (int rr = 0; rr < C; ++rr)
+        s += slot_s[((buf * C + rr) * CR + w.n) * CMAX + w.j];
+      if (n < BT && b0 + n < B)
+        lg[(static_cast<size_t>(b0 + n) * T + tt) * a.ncls + w.j] = s;
+    }
+  };
+
+  __syncthreads();  // h zeroed; no cp.async lands on a zeroing store
+  issue(0, 0);
+  if (T > 1) issue(1, 1);
+  cp_async_wait_all();
+  if (C > 1)
+    cluster.sync();  // every block running, its h buffers zero
+  else
+    __syncthreads();
+  if constexpr (L2) project(0);
+
+  for (int i = 0; i < T; ++i) {
+    const int cur = i & 1;
+    const int nxt = cur ^ 1;
+    const int t = d == 0 ? i : T - 1 - i;
+    if (C > 1 && i > 0) cluster_wait();  // h[cur] complete in this block
+
+    int acc[3][NT][4] = {};
+    const S8Product<3, NT> rec(whh_s, ldh, q * 3 * SPLIT_UG,
+                               h_s + cur * BT * ldh, ldh, p * NT * 8, 0,
+                               lane);
+    if constexpr (L2) {
+#pragma unroll 2
+      for (int ks = 0; ks < g.Hp / 32; ++ks) rec.step(acc, ks);
+    } else {
+      // layer 1: the input projection W_ih x + b_ih of this step, one f32
+      // fmaf chain over the features in order, a pair of features between
+      // each two k-chunks of the recurrent product (the CUDA cores' work
+      // beside the tensor cores' shared-memory loads)
+      const bf16* xb = reinterpret_cast<const bf16*>(in_s) + cur * BT * INp;
+      const bf16* w = reinterpret_cast<const bf16*>(wih_s);
+      float pacc[2][NC][3] = {};
+      const int nk = g.Hp / 32;
+      const int npair = (a.IN + 1) / 2;
+      for (int ks = 0; ks < nk || ks < npair; ++ks) {
+        if (ks < nk) rec.step(acc, ks);
+        if (ks < npair) {
+          const int k = 2 * ks;
+          uint32_t wp[2][3], xq[NC];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int gt = 0; gt < 3; ++gt)
+              wp[hh][gt] = *reinterpret_cast<const uint32_t*>(
+                  w + row[hh][gt] * g.INe + k);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            xq[c] = *reinterpret_cast<const uint32_t*>(xb + ncol[c] * INp + k);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+#pragma unroll
+              for (int gt = 0; gt < 3; ++gt)
+                pacc[hh][c][gt] = fmaf(__uint_as_float(wp[hh][gt] << 16),
+                                       __uint_as_float(xq[c] << 16),
+                                       pacc[hh][c][gt]);
+          if (k + 1 < a.IN) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int c = 0; c < NC; ++c)
+#pragma unroll
+                for (int gt = 0; gt < 3; ++gt)
+                  pacc[hh][c][gt] =
+                      fmaf(__uint_as_float(wp[hh][gt] & 0xffff0000u),
+                           __uint_as_float(xq[c] & 0xffff0000u),
+                           pacc[hh][c][gt]);
+          }
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+            const float v = __fadd_rn(pacc[hh][c][gt], bi[hh][gt]);
+            xp[hh][c][gt] = MODE == MODE_ROWS ? bf16r(v) : v;
+          }
+    }
+
+    // round(127 h') of the block's units: staged (C > 1) or, at C = 1,
+    // straight into the next h buffer; layer 2 also stages bf16(h') for
+    // the head
+    int8_t* hq = C > 1 ? st_s : h_s + nxt * BT * ldh;
+    const int ldq = C > 1 ? U : ldh;
+    auto gate = [&](int hh, int c) {
+      float hp[3];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+        hp[gt] = __fadd_rn(
+            __fmul_rn(static_cast<float>(acc[gt][c / 2][hh * 2 + c % 2]),
+                      sc[hh][gt]),
+            bh[hh][gt]);
+      const float h_new = gru_update<true, MODE>(
+          h[hh][c], xp[hh][c][0], xp[hh][c][1], xp[hh][c][2], hp[0], hp[1],
+          hp[2]);
+      if (unit_in[hh] && t < len[c]) h[hh][c] = h_new;
+      int v = __float2int_rn(__fmul_rn(h[hh][c], 127.0f));
+      v = max(-128, min(127, v));
+      hq[ncol[c] * ldq + ul[hh]] = static_cast<int8_t>(v);
+      if (L2)
+        hb_s[(cur * BT + ncol[c]) * (U + 8) + ul[hh]] =
+            __float2bfloat16_rn(h[hh][c]);
+    };
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) gate(hh, c);
+    if (C > 1 && i + 1 < T) {
+      // the warp's 16 units of its NT * 8 columns (a 16-byte chunk of
+      // each staged column) into every cluster block's next h buffer
+      __syncwarp();
+      int8_t* nb = h_s + nxt * BT * ldh + r * U + q * SPLIT_UG;
+      for (int e = lane; e < C * NT * 8; e += 32) {
+        const int dst_rank = e / (NT * 8);
+        const int n = p * NT * 8 + e - dst_rank * NT * 8;
+        *reinterpret_cast<uint4*>(cluster.map_shared_rank(nb, dst_rank) +
+                                  n * ldh) =
+            *reinterpret_cast<const uint4*>(st_s + n * U + q * SPLIT_UG);
+      }
+    }
+    cp_async_wait_all();  // the operand of step i + 1 has landed
+    __syncthreads();      // the block's h staged, the operand visible
+
+    if constexpr (!L2) {
+      // round(127 h) of the block's units to the outputs, 16 bytes a store
+      int8_t* out = d ? a.out_b : a.out_f;
+      for (FlatWalk w = h_walk; w.n < BT; w.next()) {
+        const int j0 = r * U + w.j * 16;
+        if (b0 + w.n < B && j0 < H)
+          *reinterpret_cast<uint4*>(
+              out + (static_cast<size_t>(t) * B + b0 + w.n) * H + j0) =
+              *reinterpret_cast<const uint4*>(hq + w.n * ldq + w.j * 16);
+      }
+    }
+    if constexpr (L2) {
+      // the block's head partial W_head^T (16 x U) . bf16(h)^T (U x BT) on
+      // the tensor cores, f32 sums over the block's units in a fixed
+      // order, a warp for each n8 tile of columns: to the logits (C = 1)
+      // or to this block's slot at the rank that sums the column
+      float* lg = d ? a.lg_b : a.lg_f;
+      for (int nt = warp; nt < BT / 8; nt += nwarps) {
+        float hacc[4] = {};
+        const int mat = lane >> 3;
+        const int lrow = lane & 7;
+        const uint32_t a_addr = smem_addr(
+            whd_s + ((mat & 1) * 8 + lrow) * (U + 8) + (mat >> 1) * 8);
+        const uint32_t b_addr = smem_addr(
+            hb_s + (cur * BT + nt * 8 + lrow) * (U + 8) + (mat & 1) * 8);
+        for (int ks = 0; ks < U / 16; ++ks) {
+          uint32_t am[4], bm[2];
+          ldsm_x4(am, a_addr + ks * 32);
+          ldsm_x2(bm, b_addr + ks * 32);
+          mma_bf16(hacc, am, bm[0], bm[1]);
+        }
+        // class gid of columns nt * 8 + tig * 2 (+ 1)
+        if (gid < a.ncls) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = nt * 8 + tig * 2 + e;
+            if (C > 1)
+              cluster.map_shared_rank(slot_s, n / CR)[
+                  ((cur * C + r) * CR + n % CR) * CMAX + gid] = hacc[e];
+            else if (b0 + n < B)
+              lg[(static_cast<size_t>(b0 + n) * T + t) * a.ncls + gid] =
+                  hacc[e];
+          }
+        }
+      }
+      if (C > 1 && i > 0) flush(i - 1, nxt);
+    }
+    if (C > 1) cluster_arrive();
+    // the next steps' operands: cp.async two steps ahead, and (layer 2)
+    // the next step's input product while the cluster barrier completes
+    if (i + 2 < T) issue(i + 2, cur);
+    if (L2 && i + 1 < T) project(nxt);
+  }
+  if (C > 1) {
+    cluster_wait();  // no block leaves while another may still write to it
+    if (L2) flush(T - 1, (T - 1) & 1);
+  }
 }
+
+template <int NT, int MODE>
+__global__ void __launch_bounds__(L1_THREADS)
+    gru_l1_split_s8_kernel(SplitArgs a) {
+  split_s8<NT, MODE, false>(a);
+}
+
+template <int NT, int MODE>
+__global__ void __launch_bounds__(L2_THREADS)
+    gru_l2head_split_s8_kernel(SplitArgs a) {
+  split_s8<NT, MODE, true>(a);
+}
+
+template <bool L2, int MODE, int NT>
+auto s8_kernel() {
+  if constexpr (L2)
+    return gru_l2head_split_s8_kernel<NT, MODE>;
+  else
+    return gru_l1_split_s8_kernel<NT, MODE>;
+}
+
+template <bool L2, int MODE>
+cudaError_t launch_s8(const SplitArgs& a, cudaStream_t s) {
+  if (a.T < 1 || a.B < 1 || SplitGeo::bad(L2, a.H, a.C, a.BT, a.IN) ||
+      (L2 && (a.ncls < 1 || a.ncls > CMAX)))
+    return cudaErrorInvalidValue;
+  const SplitGeo g(L2, a.H, a.C, a.BT, a.IN);
+  const int clusters = 2 * ((a.B + a.BT - 1) / a.BT);
+  return g.NT == 2 ? launch_cluster(s8_kernel<L2, MODE, 2>(), a.C, clusters,
+                                    g.threads(), g.smem(), s, a)
+                   : launch_cluster(s8_kernel<L2, MODE, 1>(), a.C, clusters,
+                                    g.threads(), g.smem(), s, a);
+}
+
+template <bool L2, int MODE>
+int s8_max_clusters(int C, int BT, int H, int IN) {
+  if (SplitGeo::bad(L2, H, C, BT, IN))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const SplitGeo g(L2, H, C, BT, IN);
+  return g.NT == 2
+             ? max_clusters(s8_kernel<L2, MODE, 2>(), C, g.threads(), g.smem())
+             : max_clusters(s8_kernel<L2, MODE, 1>(), C, g.threads(), g.smem());
+}
+
+// ---------------------------------------------------------------------------
+// bf16 (quant=False): the per-block recurrence on the CUDA cores
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float dot8_bf16(uint4 w, uint4 a, float acc) {
   const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&w);
@@ -117,7 +629,11 @@ __device__ __forceinline__ float dot8_bf16(uint4 w, uint4 a, float acc) {
   return acc;
 }
 
-// bf16 counterpart of dot_int8 (8 values a chunk, f32 accumulation).
+// acc[g][cc] += W[g*H + j, k-range] . act[c0 + cc, k-range] for 16-byte
+// chunks (8 values). W is chunk-interleaved: chunk kc of row r at
+// w[kc * H3 + r], so a warp (32 consecutive j) reads 512 contiguous bytes.
+// act rows are act_stride chunks apart; every lane of a warp reads the
+// same act chunk.
 template <int CPT>
 __device__ __forceinline__ void dot_bf16(const uint4* __restrict__ w, int H3,
                                          int H, int j,
@@ -138,88 +654,46 @@ __device__ __forceinline__ void dot_bf16(const uint4* __restrict__ w, int H3,
   }
 }
 
-// Recurrent pre-activations hp = W_hh h * scale + b_hh for one step.
-template <int CPT, bool QUANT>
-__device__ __forceinline__ void recurrent(const void* wmat, int H, int j,
+// Recurrent pre-activations hp = W_hh h + b_hh for one step.
+template <int CPT>
+__device__ __forceinline__ void recurrent(const uint4* wmat, int H, int j,
                                           const unsigned char* act, int c0,
-                                          const float (&sc)[3],
                                           const float (&bh)[3],
                                           float (&hp)[3][CPT]) {
-  const int H3 = 3 * H;
-  if (QUANT) {
-    int acc[3][CPT] = {};
-    dot_int8<CPT>(static_cast<const int4*>(wmat), H3, H, j,
-                  reinterpret_cast<const int4*>(act), H / 16, c0, H / 16,
-                  acc);
+  float acc[3][CPT] = {};
+  dot_bf16<CPT>(wmat, 3 * H, H, j, reinterpret_cast<const uint4*>(act), H / 8,
+                c0, H / 8, acc);
 #pragma unroll
-    for (int g = 0; g < 3; ++g)
+  for (int g = 0; g < 3; ++g)
 #pragma unroll
-      for (int cc = 0; cc < CPT; ++cc)
-        hp[g][cc] = __fadd_rn(__fmul_rn(static_cast<float>(acc[g][cc]), sc[g]),
-                              bh[g]);
-  } else {
-    float acc[3][CPT] = {};
-    dot_bf16<CPT>(static_cast<const uint4*>(wmat), H3, H, j,
-                  reinterpret_cast<const uint4*>(act), H / 8, c0, H / 8, acc);
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) hp[g][cc] = __fadd_rn(acc[g][cc], bh[g]);
-  }
+    for (int cc = 0; cc < CPT; ++cc) hp[g][cc] = __fadd_rn(acc[g][cc], bh[g]);
 }
 
-// Store h (f32) as the next step's matmul operand and as the emitted value.
-template <bool QUANT>
-__device__ __forceinline__ void emit_h(float h, unsigned char* act_n, int idx,
-                                       unsigned char* out, size_t out_idx,
-                                       bool write_out) {
-  if (QUANT) {
-    int q = __float2int_rn(__fmul_rn(h, 127.0f));
-    q = max(-128, min(127, q));
-    act_n[idx] = static_cast<unsigned char>(static_cast<int8_t>(q));
-    if (write_out) out[out_idx] = static_cast<unsigned char>(static_cast<int8_t>(q));
-  } else {
-    const __nv_bfloat16 hb = __float2bfloat16_rn(h);
-    reinterpret_cast<__nv_bfloat16*>(act_n)[idx] = hb;
-    if (write_out) reinterpret_cast<__nv_bfloat16*>(out)[out_idx] = hb;
-  }
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t v) {
-  return (v + 15) & ~static_cast<size_t>(15);
-}
-
-size_t l1_smem_bytes(bool quant, int BT, int IN, int H) {
-  const size_t esz = quant ? 1 : 2;
-  return (quant ? align16(static_cast<size_t>(3) * H * H) : 0) +
-         align16(2 * static_cast<size_t>(BT) * H * esz) +
+size_t l1_smem_bytes(int BT, int IN, int H) {
+  return align16(2 * static_cast<size_t>(BT) * H * 2) +
          align16(2 * static_cast<size_t>(BT) * IN * sizeof(float)) +
          align16(static_cast<size_t>(IN) * 3 * H * sizeof(__nv_bfloat16));
 }
 
-size_t l2_smem_bytes(bool quant, int BT, int H, int nthreads, int CPT) {
-  const size_t esz = quant ? 1 : 2;
-  return (quant ? align16(static_cast<size_t>(3) * H * H) : 0) +
-         align16(2 * static_cast<size_t>(BT) * 2 * H * esz) +
-         align16(2 * static_cast<size_t>(BT) * H * esz) +
+size_t l2_smem_bytes(int BT, int H, int nthreads, int CPT) {
+  return align16(2 * static_cast<size_t>(BT) * 2 * H * 2) +
+         align16(2 * static_cast<size_t>(BT) * H * 2) +
          align16(2 * static_cast<size_t>(nthreads / 32) * CPT * CMAX *
                  sizeof(float));
 }
 
-// Layer 1: x (T, B, IN) bf16 -> out_f, out_b (T, B, H) int8 (quant) or bf16.
+// Layer 1: x (T, B, IN) bf16 -> out_f, out_b (T, B, H) bf16.
 // grid (ceil(B / BT), 2 directions), block H * NQ threads, BT = CPT * NQ.
-template <int CPT, bool QUANT, int MODE>
+template <int CPT, int MODE>
 __global__ void __launch_bounds__(512)
     gru_l1_split_kernel(const __nv_bfloat16* __restrict__ x,
                         const int* __restrict__ lengths,
                         const __nv_bfloat16* __restrict__ w_ih_t,
                         const float* __restrict__ b_ih,
                         const void* __restrict__ w_hh,
-                        const float* __restrict__ hh_scale,
                         const float* __restrict__ b_hh, void* out_f,
                         void* out_b, int T, int B, int IN, int H, int NQ) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ESZ = QUANT ? 1 : 2;
   const int d = blockIdx.y;
   const int BT = CPT * NQ;
   const int b0 = blockIdx.x * BT;
@@ -227,34 +701,25 @@ __global__ void __launch_bounds__(512)
   const int j = tid % H;
   const int c0 = (tid / H) * CPT;
   const int H3 = 3 * H;
-  const int kchunks = H * ESZ / 16;
+  const int kchunks = H / 8;
 
   unsigned char* p = smem;
-  unsigned char* w_s = p;
-  if (QUANT) p += align16(static_cast<size_t>(H3) * H);
   unsigned char* act_s = p;
-  p += align16(2 * static_cast<size_t>(BT) * H * ESZ);
+  p += align16(2 * static_cast<size_t>(BT) * H * 2);
   float* x_s = reinterpret_cast<float*>(p);
   p += align16(2 * static_cast<size_t>(BT) * IN * sizeof(float));
   __nv_bfloat16* wih_s = reinterpret_cast<__nv_bfloat16*>(p);
 
-  const uint4* w_dir = static_cast<const uint4*>(w_hh) +
-                       static_cast<size_t>(d) * kchunks * H3;
-  if (QUANT) {
-    for (int i = tid; i < kchunks * H3; i += blockDim.x)
-      reinterpret_cast<uint4*>(w_s)[i] = w_dir[i];
-  }
-  const void* wmat = QUANT ? static_cast<const void*>(w_s)
-                           : static_cast<const void*>(w_dir);
+  const uint4* wmat = static_cast<const uint4*>(w_hh) +
+                      static_cast<size_t>(d) * kchunks * H3;
   for (int i = tid; i < IN * H3; i += blockDim.x)
     wih_s[i] = w_ih_t[static_cast<size_t>(d) * IN * H3 + i];
-  for (int i = tid; i < 2 * BT * H * ESZ; i += blockDim.x) act_s[i] = 0;
+  for (int i = tid; i < 2 * BT * H * 2; i += blockDim.x) act_s[i] = 0;
 
-  float sc[3], bh[3], bi[3];
+  float bh[3], bi[3];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
     const int row = d * H3 + g * H + j;
-    sc[g] = hh_scale[row];
     bh[g] = b_hh[row];
     bi[g] = b_ih[row];
   }
@@ -266,7 +731,7 @@ __global__ void __launch_bounds__(512)
     len[cc] = b < B ? lengths[b] : 0;
     h[cc] = 0.0f;
   }
-  unsigned char* out = static_cast<unsigned char*>(d == 0 ? out_f : out_b);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(d == 0 ? out_f : out_b);
 
   // thread tid < BT * IN stages one input value of the next step
   const bool xl = tid < BT * IN;
@@ -315,44 +780,42 @@ __global__ void __launch_bounds__(512)
       }
 
     float hp[3][CPT];
-    recurrent<CPT, QUANT>(wmat, H, j, act_s + cur * BT * H * ESZ, c0, sc, bh,
-                          hp);
+    recurrent<CPT>(wmat, H, j, act_s + cur * BT * H * 2, c0, bh, hp);
 
-    unsigned char* act_n = act_s + nxt * BT * H * ESZ;
+    __nv_bfloat16* act_n =
+        reinterpret_cast<__nv_bfloat16*>(act_s + nxt * BT * H * 2);
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) {
-      const float hn = gru_update<QUANT, MODE>(h[cc], xp[0][cc], xp[1][cc],
+      const float hn = gru_update<false, MODE>(h[cc], xp[0][cc], xp[1][cc],
                                                xp[2][cc], hp[0][cc], hp[1][cc],
                                                hp[2][cc]);
       if (t < len[cc]) h[cc] = hn;
       const int c = c0 + cc;
       const int b = b0 + c;
-      emit_h<QUANT>(h[cc], act_n, c * H + j, out,
-                    (static_cast<size_t>(t) * B + b) * H + j, b < B);
+      const __nv_bfloat16 hb = __float2bfloat16_rn(h[cc]);
+      act_n[c * H + j] = hb;
+      if (b < B) out[(static_cast<size_t>(t) * B + b) * H + j] = hb;
     }
     if (xl) x_s[nxt * BT * IN + xc * IN + xk] = x_next;
     __syncthreads();
   }
 }
 
-// Layer 2 + head: prev_f, prev_b (T, B, H) -> lg_f, lg_b (B, T, C) f32
-// logit partials. The layer-2 input projection runs here, per step, from
-// the chunk-interleaved (2H/chunk, 3H) W_ih read through L2.
-template <int CPT, bool QUANT, int MODE>
+// Layer 2 + head: prev_f, prev_b (T, B, H) bf16 -> lg_f, lg_b (B, T, C)
+// f32 logit partials. The layer-2 input projection runs here, per step,
+// from the chunk-interleaved (2H/chunk, 3H) W_ih read through L2.
+template <int CPT, int MODE>
 __global__ void __launch_bounds__(512)
     gru_l2head_split_kernel(const void* __restrict__ prev_f,
                             const void* __restrict__ prev_b,
                             const int* __restrict__ lengths,
                             const void* __restrict__ w_in,
-                            const float* __restrict__ in_scale,
                             const float* __restrict__ b_ih,
                             const void* __restrict__ w_hh,
-                            const float* __restrict__ hh_scale,
                             const float* __restrict__ b_hh,
                             const float* __restrict__ w_head, float* lg_f,
                             float* lg_b, int T, int B, int H, int C, int NQ) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ESZ = QUANT ? 1 : 2;
   const int d = blockIdx.y;
   const int BT = CPT * NQ;
   const int b0 = blockIdx.x * BT;
@@ -364,38 +827,27 @@ __global__ void __launch_bounds__(512)
   const int j = tid % H;
   const int c0 = (tid / H) * CPT;
   const int H3 = 3 * H;
-  const int kchunks = H * ESZ / 16;  // 16-byte chunks per H values
+  const int kchunks = H / 8;  // 16-byte chunks per H values
 
   unsigned char* p = smem;
-  unsigned char* w_s = p;
-  if (QUANT) p += align16(static_cast<size_t>(H3) * H);
   unsigned char* in_s = p;  // [2][BT][2H] = [prev_f | prev_b] per column
-  p += align16(2 * static_cast<size_t>(BT) * 2 * H * ESZ);
+  p += align16(2 * static_cast<size_t>(BT) * 2 * H * 2);
   unsigned char* act_s = p;  // [2][BT][H]
-  p += align16(2 * static_cast<size_t>(BT) * H * ESZ);
+  p += align16(2 * static_cast<size_t>(BT) * H * 2);
   float* red_s = reinterpret_cast<float*>(p);  // [2][nwarps][CPT][CMAX]
 
-  const uint4* whh_dir = static_cast<const uint4*>(w_hh) +
-                         static_cast<size_t>(d) * kchunks * H3;
-  if (QUANT) {
-    for (int i = tid; i < kchunks * H3; i += blockDim.x)
-      reinterpret_cast<uint4*>(w_s)[i] = whh_dir[i];
-  }
-  const void* wmat = QUANT ? static_cast<const void*>(w_s)
-                           : static_cast<const void*>(whh_dir);
+  const uint4* wmat = static_cast<const uint4*>(w_hh) +
+                      static_cast<size_t>(d) * kchunks * H3;
   const uint4* win_dir = static_cast<const uint4*>(w_in) +
                          static_cast<size_t>(d) * 2 * kchunks * H3;
-  for (int i = tid; i < 2 * BT * H * ESZ; i += blockDim.x) act_s[i] = 0;
+  for (int i = tid; i < 2 * BT * H * 2; i += blockDim.x) act_s[i] = 0;
 
-  float sc[3], bh[3], bi[3], sa[3], sb[3];
+  float bh[3], bi[3];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
     const int row = d * H3 + g * H + j;
-    sc[g] = hh_scale[row];
     bh[g] = b_hh[row];
     bi[g] = b_ih[row];
-    sa[g] = in_scale[(2 * d) * H3 + g * H + j];
-    sb[g] = in_scale[(2 * d + 1) * H3 + g * H + j];
   }
   float wh[CMAX];
 #pragma unroll
@@ -454,59 +906,33 @@ __global__ void __launch_bounds__(512)
 
     // input projection over [prev_f; prev_b], one accumulator per half
     float xp[3][CPT];
-    const unsigned char* ins = in_s + cur * BT * 2 * H * ESZ;
-    if (QUANT) {
-      int acc_a[3][CPT] = {};
-      int acc_b[3][CPT] = {};
-      const int4* wv = reinterpret_cast<const int4*>(win_dir);
-      const int4* av = reinterpret_cast<const int4*>(ins);
-      dot_int8<CPT>(wv, H3, H, j, av, col_chunks, c0, kchunks, acc_a);
-      dot_int8<CPT>(wv + kchunks * H3, H3, H, j, av + kchunks, col_chunks, c0,
-                    kchunks, acc_b);
+    const unsigned char* ins = in_s + cur * BT * 2 * H * 2;
+    float acc_a[3][CPT] = {};
+    float acc_b[3][CPT] = {};
+    const uint4* av = reinterpret_cast<const uint4*>(ins);
+    dot_bf16<CPT>(win_dir, H3, H, j, av, col_chunks, c0, kchunks, acc_a);
+    dot_bf16<CPT>(win_dir + kchunks * H3, H3, H, j, av + kchunks, col_chunks,
+                  c0, kchunks, acc_b);
 #pragma unroll
-      for (int g = 0; g < 3; ++g)
+    for (int g = 0; g < 3; ++g)
 #pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          if (MODE == MODE_T) {
-            // merged (3H, 2H) projection with one per-row scale
-            xp[g][cc] = __fadd_rn(
-                __fmul_rn(static_cast<float>(acc_a[g][cc] + acc_b[g][cc]),
-                          sa[g]),
-                bi[g]);
-          } else {
-            const float pa = __fmul_rn(static_cast<float>(acc_a[g][cc]), sa[g]);
-            const float pb = __fmul_rn(static_cast<float>(acc_b[g][cc]), sb[g]);
-            xp[g][cc] = bf16r(__fadd_rn(__fadd_rn(pa, pb), bi[g]));
-          }
-        }
-    } else {
-      float acc_a[3][CPT] = {};
-      float acc_b[3][CPT] = {};
-      const uint4* av = reinterpret_cast<const uint4*>(ins);
-      dot_bf16<CPT>(win_dir, H3, H, j, av, col_chunks, c0, kchunks, acc_a);
-      dot_bf16<CPT>(win_dir + kchunks * H3, H3, H, j, av + kchunks,
-                    col_chunks, c0, kchunks, acc_b);
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          xp[g][cc] = __fadd_rn(__fadd_rn(acc_a[g][cc], acc_b[g][cc]), bi[g]);
-          if (MODE == MODE_ROWS) xp[g][cc] = bf16r(xp[g][cc]);
-        }
-    }
+      for (int cc = 0; cc < CPT; ++cc) {
+        xp[g][cc] = __fadd_rn(__fadd_rn(acc_a[g][cc], acc_b[g][cc]), bi[g]);
+        if (MODE == MODE_ROWS) xp[g][cc] = bf16r(xp[g][cc]);
+      }
 
     float hp[3][CPT];
-    recurrent<CPT, QUANT>(wmat, H, j, act_s + cur * BT * H * ESZ, c0, sc, bh,
-                          hp);
+    recurrent<CPT>(wmat, H, j, act_s + cur * BT * H * 2, c0, bh, hp);
 
-    unsigned char* act_n = act_s + nxt * BT * H * ESZ;
+    __nv_bfloat16* act_n =
+        reinterpret_cast<__nv_bfloat16*>(act_s + nxt * BT * H * 2);
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) {
-      const float hn = gru_update<QUANT, MODE>(h[cc], xp[0][cc], xp[1][cc],
+      const float hn = gru_update<false, MODE>(h[cc], xp[0][cc], xp[1][cc],
                                                xp[2][cc], hp[0][cc], hp[1][cc],
                                                hp[2][cc]);
       if (t < len[cc]) h[cc] = hn;
-      emit_h<QUANT>(h[cc], act_n, (c0 + cc) * H + j, nullptr, 0, false);
+      act_n[(c0 + cc) * H + j] = __float2bfloat16_rn(h[cc]);
       // head partial: bf16(h) . W_head[:, j], reduced over the warp
       const float hb = bf16r(h[cc]);
 #pragma unroll
@@ -526,63 +952,60 @@ __global__ void __launch_bounds__(512)
   if (fl) flush(T - 1);
 }
 
-template <int CPT, bool QUANT, int MODE>
+template <int CPT, int MODE>
 cudaError_t launch_l1(const void* x, const int* lengths, const void* w_ih_t,
-                      const float* b_ih, const void* w_hh,
-                      const float* hh_scale, const float* b_hh, void* out_f,
-                      void* out_b, int T, int B, int IN, int H, int NQ,
-                      cudaStream_t stream) {
+                      const float* b_ih, const void* w_hh, const float* b_hh,
+                      void* out_f, void* out_b, int T, int B, int IN, int H,
+                      int NQ, cudaStream_t stream) {
   const int BT = CPT * NQ;
-  const size_t smem = l1_smem_bytes(QUANT, BT, IN, H);
-  auto kern = gru_l1_split_kernel<CPT, QUANT, MODE>;
+  const size_t smem = l1_smem_bytes(BT, IN, H);
+  auto kern = gru_l1_split_kernel<CPT, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((B + BT - 1) / BT, 2);
   kern<<<grid, H * NQ, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), lengths,
-      static_cast<const __nv_bfloat16*>(w_ih_t), b_ih, w_hh, hh_scale, b_hh,
-      out_f, out_b, T, B, IN, H, NQ);
+      static_cast<const __nv_bfloat16*>(w_ih_t), b_ih, w_hh, b_hh, out_f,
+      out_b, T, B, IN, H, NQ);
   return cudaGetLastError();
 }
 
-template <int CPT, bool QUANT, int MODE>
+template <int CPT, int MODE>
 cudaError_t launch_l2(const void* prev_f, const void* prev_b,
-                      const int* lengths, const void* w_in,
-                      const float* in_scale, const float* b_ih,
-                      const void* w_hh, const float* hh_scale,
-                      const float* b_hh, const float* w_head, float* lg_f,
-                      float* lg_b, int T, int B, int H, int C, int NQ,
-                      cudaStream_t stream) {
+                      const int* lengths, const void* w_in, const float* b_ih,
+                      const void* w_hh, const float* b_hh,
+                      const float* w_head, float* lg_f, float* lg_b, int T,
+                      int B, int H, int C, int NQ, cudaStream_t stream) {
   const int BT = CPT * NQ;
-  const size_t smem = l2_smem_bytes(QUANT, BT, H, H * NQ, CPT);
-  auto kern = gru_l2head_split_kernel<CPT, QUANT, MODE>;
+  const size_t smem = l2_smem_bytes(BT, H, H * NQ, CPT);
+  auto kern = gru_l2head_split_kernel<CPT, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((B + BT - 1) / BT, 2);
-  kern<<<grid, H * NQ, smem, stream>>>(prev_f, prev_b, lengths, w_in, in_scale,
-                                       b_ih, w_hh, hh_scale, b_hh, w_head,
-                                       lg_f, lg_b, T, B, H, C, NQ);
+  kern<<<grid, H * NQ, smem, stream>>>(prev_f, prev_b, lengths, w_in, b_ih,
+                                       w_hh, b_hh, w_head, lg_f, lg_b, T, B,
+                                       H, C, NQ);
   return cudaGetLastError();
 }
 
-template <bool QUANT, int MODE, typename... Args>
+template <int MODE, typename... Args>
 cudaError_t dispatch_l1(int cpt, Args... args) {
   switch (cpt) {
-    case 1: return launch_l1<1, QUANT, MODE>(args...);
-    case 2: return launch_l1<2, QUANT, MODE>(args...);
-    case 4: return launch_l1<4, QUANT, MODE>(args...);
+    case 1: return launch_l1<1, MODE>(args...);
+    case 2: return launch_l1<2, MODE>(args...);
+    case 4: return launch_l1<4, MODE>(args...);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool QUANT, int MODE, typename... Args>
+template <int MODE, typename... Args>
 cudaError_t dispatch_l2(int cpt, Args... args) {
   switch (cpt) {
-    case 1: return launch_l2<1, QUANT, MODE>(args...);
-    case 2: return launch_l2<2, QUANT, MODE>(args...);
-    case 4: return launch_l2<4, QUANT, MODE>(args...);
+    case 1: return launch_l2<1, MODE>(args...);
+    case 2: return launch_l2<2, MODE>(args...);
+    case 4: return launch_l2<4, MODE>(args...);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -591,67 +1014,127 @@ cudaError_t dispatch_l2(int cpt, Args... args) {
 
 extern "C" {
 
-size_t gru_l1_split_smem(int quant, int bt, int in_features, int hidden) {
-  return l1_smem_bytes(quant != 0, bt, in_features, hidden);
+// --- int8: the cluster recurrence ------------------------------------------
+
+// dynamic shared memory of one block of layer 1 (layer2 = 0, IN features)
+// or layer 2 at (C, BT, H)
+size_t gru_split_s8_smem(int layer2, int C, int BT, int H, int IN) {
+  return SplitGeo(layer2 != 0, H, C, BT, IN).smem();
 }
 
-size_t gru_l2head_split_smem(int quant, int cpt, int nq, int hidden) {
-  return l2_smem_bytes(quant != 0, cpt * nq, hidden, hidden * nq, cpt);
+// clusters of C blocks that can be resident at once; a negative value is
+// minus a cudaError_t (cudaErrorInvalidValue for a geometry the kernels
+// cannot run)
+int gru_split_s8_max_clusters(int layer2, int mode, int C, int BT, int H,
+                              int IN) {
+  if (layer2)
+    return mode == MODE_T ? s8_max_clusters<true, MODE_T>(C, BT, H, IN)
+                          : s8_max_clusters<true, MODE_ROWS>(C, BT, H, IN);
+  return mode == MODE_T ? s8_max_clusters<false, MODE_T>(C, BT, H, IN)
+                        : s8_max_clusters<false, MODE_ROWS>(C, BT, H, IN);
+}
+
+// Layer 1: x (T, B, INp) bf16 (features zero-padded to a multiple of 8),
+// w_ih (2, C, 3U, INe) bf16 (IN rounded up to even, zero-padded), rowc
+// (2, C, 3, 3U) f32 (hh_scale, b_hh, b_ih),
+// w_hh (2, C, 3U, Hp) int8, in the slices' row order; out_f, out_b (T, B,
+// H) int8.
+int gru_l1_split_s8_launch(const void* x, const int* lengths,
+                           const void* w_ih, const float* rowc,
+                           const void* w_hh, void* out_f, void* out_b, int T,
+                           int B, int IN, int H, int C, int BT, int mode,
+                           void* stream) {
+  SplitArgs a{};
+  a.w_hh = static_cast<const int8_t*>(w_hh);
+  a.rowc = rowc;
+  a.lengths = lengths;
+  a.x = static_cast<const bf16*>(x);
+  a.w_ih = static_cast<const bf16*>(w_ih);
+  a.out_f = static_cast<int8_t*>(out_f);
+  a.out_b = static_cast<int8_t*>(out_b);
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.IN = IN;
+  a.C = C;
+  a.BT = BT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(mode == MODE_T ? launch_s8<false, MODE_T>(a, s)
+                                         : launch_s8<false, MODE_ROWS>(a, s));
+}
+
+// Layer 2 + head: prev_f, prev_b (T, B, H) int8, w_in (2, C, 3U, 2H) int8,
+// rowc (2, C, 5, 3U) f32 (hh_scale, b_hh, b_ih, the two halves' input
+// scales), w_hh (2, C, 3U, Hp) int8, w_head (2, C, 16, U) bf16 (W_head^T
+// of the block's units, classes past ncls zero); lg_f, lg_b
+// (B, T, ncls) f32.
+int gru_l2head_split_s8_launch(const void* prev_f, const void* prev_b,
+                               const int* lengths, const void* w_in,
+                               const float* rowc, const void* w_hh,
+                               const void* w_head, float* lg_f, float* lg_b,
+                               int T, int B, int H, int ncls, int C, int BT,
+                               int mode, void* stream) {
+  SplitArgs a{};
+  a.w_hh = static_cast<const int8_t*>(w_hh);
+  a.rowc = rowc;
+  a.lengths = lengths;
+  a.prev_f = static_cast<const int8_t*>(prev_f);
+  a.prev_b = static_cast<const int8_t*>(prev_b);
+  a.w_in = static_cast<const int8_t*>(w_in);
+  a.w_head = static_cast<const bf16*>(w_head);
+  a.lg_f = lg_f;
+  a.lg_b = lg_b;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.C = C;
+  a.BT = BT;
+  a.ncls = ncls;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(mode == MODE_T ? launch_s8<true, MODE_T>(a, s)
+                                         : launch_s8<true, MODE_ROWS>(a, s));
+}
+
+// --- bf16: the per-block recurrence ----------------------------------------
+
+size_t gru_l1_split_smem(int bt, int in_features, int hidden) {
+  return l1_smem_bytes(bt, in_features, hidden);
+}
+
+size_t gru_l2head_split_smem(int cpt, int nq, int hidden) {
+  return l2_smem_bytes(cpt * nq, hidden, hidden * nq, cpt);
 }
 
 int gru_l1_split_launch(const void* x, const int* lengths, const void* w_ih_t,
-                        const float* b_ih, const void* w_hh,
-                        const float* hh_scale, const float* b_hh, void* out_f,
-                        void* out_b, int T, int B, int IN, int H, int cpt,
-                        int nq, int quant, int mode, void* stream) {
+                        const float* b_ih, const void* w_hh, const float* b_hh,
+                        void* out_f, void* out_b, int T, int B, int IN, int H,
+                        int cpt, int nq, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (quant && mode == MODE_T)
-    e = dispatch_l1<true, MODE_T>(cpt, x, lengths, w_ih_t, b_ih, w_hh,
-                                  hh_scale, b_hh, out_f, out_b, T, B, IN, H,
-                                  nq, s);
-  else if (quant)
-    e = dispatch_l1<true, MODE_ROWS>(cpt, x, lengths, w_ih_t, b_ih, w_hh,
-                                     hh_scale, b_hh, out_f, out_b, T, B, IN,
-                                     H, nq, s);
-  else if (mode == MODE_T)
-    e = dispatch_l1<false, MODE_T>(cpt, x, lengths, w_ih_t, b_ih, w_hh,
-                                   hh_scale, b_hh, out_f, out_b, T, B, IN, H,
-                                   nq, s);
-  else
-    e = dispatch_l1<false, MODE_ROWS>(cpt, x, lengths, w_ih_t, b_ih, w_hh,
-                                      hh_scale, b_hh, out_f, out_b, T, B, IN,
-                                      H, nq, s);
+  cudaError_t e =
+      mode == MODE_T
+          ? dispatch_l1<MODE_T>(cpt, x, lengths, w_ih_t, b_ih, w_hh, b_hh,
+                                out_f, out_b, T, B, IN, H, nq, s)
+          : dispatch_l1<MODE_ROWS>(cpt, x, lengths, w_ih_t, b_ih, w_hh, b_hh,
+                                   out_f, out_b, T, B, IN, H, nq, s);
   return static_cast<int>(e);
 }
 
 int gru_l2head_split_launch(const void* prev_f, const void* prev_b,
                             const int* lengths, const void* w_in,
-                            const float* in_scale, const float* b_ih,
-                            const void* w_hh, const float* hh_scale,
+                            const float* b_ih, const void* w_hh,
                             const float* b_hh, const float* w_head,
                             float* lg_f, float* lg_b, int T, int B, int H,
-                            int C, int cpt, int nq, int quant, int mode,
-                            void* stream) {
+                            int C, int cpt, int nq, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C > CMAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e;
-  if (quant && mode == MODE_T)
-    e = dispatch_l2<true, MODE_T>(cpt, prev_f, prev_b, lengths, w_in,
-                                  in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
-                                  lg_f, lg_b, T, B, H, C, nq, s);
-  else if (quant)
-    e = dispatch_l2<true, MODE_ROWS>(cpt, prev_f, prev_b, lengths, w_in,
-                                     in_scale, b_ih, w_hh, hh_scale, b_hh,
-                                     w_head, lg_f, lg_b, T, B, H, C, nq, s);
-  else if (mode == MODE_T)
-    e = dispatch_l2<false, MODE_T>(cpt, prev_f, prev_b, lengths, w_in,
-                                   in_scale, b_ih, w_hh, hh_scale, b_hh,
-                                   w_head, lg_f, lg_b, T, B, H, C, nq, s);
-  else
-    e = dispatch_l2<false, MODE_ROWS>(cpt, prev_f, prev_b, lengths, w_in,
-                                      in_scale, b_ih, w_hh, hh_scale, b_hh,
-                                      w_head, lg_f, lg_b, T, B, H, C, nq, s);
+  cudaError_t e =
+      mode == MODE_T
+          ? dispatch_l2<MODE_T>(cpt, prev_f, prev_b, lengths, w_in, b_ih,
+                                w_hh, b_hh, w_head, lg_f, lg_b, T, B, H, C,
+                                nq, s)
+          : dispatch_l2<MODE_ROWS>(cpt, prev_f, prev_b, lengths, w_in, b_ih,
+                                   w_hh, b_hh, w_head, lg_f, lg_b, T, B, H, C,
+                                   nq, s);
   return static_cast<int>(e);
 }
 

@@ -1,10 +1,11 @@
 // Pieces shared by the recurrences' CUDA sources (gru_train.cu,
 // gru_fullfused.cu through gru_rec.cuh, and lstm_train.cu): the gate and
 // weight-load helpers of the recurrence kernels, the tensor-core and
-// copy primitives (ldmatrix, mma.sync m16n8k16 bf16, cp.async), the
-// machinery of the cluster recurrences (their geometry, the W_hh slice
-// loader, the step's two products on the tensor cores, the split cluster
-// barrier and the cluster launch), and the two kernels that finish a
+// copy primitives (ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8,
+// cp.async), the machinery of the cluster recurrences (their geometry,
+// the W_hh slice loader, the step's two products on the tensor cores, the
+// int8 product of the split kernels, the split cluster barrier and the
+// cluster launch), and the two kernels that finish a
 // backward after its recurrence, rnn_dw_kernel (dW_hh as tiled partial
 // sums) and rnn_bwd_reduce_kernel (the fixed-order sums of those partials
 // and of the per-block db_hh partials), with their launcher.
@@ -92,6 +93,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8 s32) += a (16 x 32 s8, row) . b (32 x 8 s8, col): exact integer
+// sums. In bytes the fragments are those of m16n8k16 bf16, so ldmatrix
+// loads them from rows of int8 as from rows of bf16.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -394,6 +407,82 @@ __device__ __forceinline__ void gate_product(float (&acc)[MT][NT][4],
     }
   }
 }
+
+// `rows` rows of `row_bytes` bytes (a multiple of 16), contiguous at src,
+// into rows `ld` bytes apart at dst, 16 bytes a copy
+__device__ __forceinline__ void load_rows(void* dst, int ld, const void* src,
+                                          int row_bytes, int rows) {
+  const int cpr = row_bytes / 16;
+  const uint4* s = static_cast<const uint4*>(src);
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  for (int e = threadIdx.x; e < rows * cpr; e += blockDim.x) {
+    const int row = e / cpr;
+    *reinterpret_cast<uint4*>(d + static_cast<size_t>(row) * ld +
+                              (e - row * cpr) * 16) = s[e];
+  }
+}
+
+// The int8 counterpart of gate_product: step(acc, ks) adds, for 32-byte
+// k-chunk ks from byte k0, A rows (row0 + mt * 16 ..) . B^T columns (n0 +
+// nt * 8 ..) to acc[mt][nt] on the tensor cores (mma.sync m16n8k32 s8,
+// exact int32 sums); A and B are int8 rows lda and ldb bytes apart in
+// shared memory (an odd multiple of 16 bytes: ldmatrix without bank
+// conflicts), both read with ldmatrix. A chunk at a time, so that a caller
+// can put other work between the chunks.
+template <int MT, int NT>
+struct S8Product {
+  uint32_t a_addr, a_tile, b_addr;
+  __device__ __forceinline__ S8Product(const int8_t* a_s, int lda, int row0,
+                                       const int8_t* b_s, int ldb, int n0,
+                                       int k0, int lane) {
+    const int mat = lane >> 3;
+    const int lrow = lane & 7;
+    a_addr = smem_addr(a_s + (row0 + (mat & 1) * 8 + lrow) * lda + k0 +
+                       (mat >> 1) * 16);
+    a_tile = 16 * lda;
+    const int n = n0 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
+    b_addr = smem_addr(b_s + n * ldb + k0 + (mat & 1) * 16);
+  }
+  __device__ __forceinline__ void step(int (&acc)[MT][NT][4], int ks) const {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_addr + mt * a_tile + ks * 32);
+    if constexpr (NT == 2) {
+      uint32_t b[4];
+      ldsm_x4(b, b_addr + ks * 32);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_s8(acc[mt][0], a[mt], b[0], b[1]);
+        mma_s8(acc[mt][1], a[mt], b[2], b[3]);
+      }
+    } else {
+      uint32_t b[2];
+      ldsm_x2(b, b_addr + ks * 32);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][0], a[mt], b[0], b[1]);
+    }
+  }
+};
+
+// (n, j) of a flat index e = n * m + j that a thread steps by s (its
+// block's threads) in a loop: no division inside the loop
+struct FlatWalk {
+  int n, j, dn, dj, m;
+  __device__ __forceinline__ FlatWalk(int e0, int s, int m_) : m(m_) {
+    n = e0 / m;
+    j = e0 - n * m;
+    dn = s / m;
+    dj = s - dn * m;
+  }
+  __device__ __forceinline__ void next() {
+    n += dn;
+    j += dj;
+    if (j >= m) {
+      j -= m;
+      ++n;
+    }
+  }
+};
 
 // The backward's partial dh_prev = bf16(dgates)[:, its rows] . W[its rows,
 // :] for every unit (BT x Hp, f32) on the tensor cores: W_slice^T (A,

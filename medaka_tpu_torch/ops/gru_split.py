@@ -11,6 +11,14 @@ numerics mode:
   reproduces ``bigru_l2head_t`` and ``"rows"`` reproduces
   ``bigru_l2head``.
 
+With int8 quantisation (the default) both kernels run thread-block
+clusters whose blocks keep their units' rows of every weight in shared
+memory and run the step's products on the tensor cores (``mma.sync``
+int8); :func:`geometry` chooses the cluster size and the columns a
+cluster (``rnn_cluster.SPLIT``), and :func:`l1_operands` /
+:func:`l2_operands` cut the weights into the kernels' slices.
+``quant=False`` runs the bf16 per-block kernels on the CUDA cores.
+
 The modes differ in arithmetic, not layout. ``"t"`` keeps the layer
 input projections in f32, runs the quantised gates in bf16 tanh form and
 uses one merged per-row scale for the layer-2 projection. ``"rows"``
@@ -26,12 +34,12 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from medaka_tpu_torch.common import resolve_device
-from medaka_tpu_torch.ops import cuda_build
+from medaka_tpu_torch.ops import cuda_build, rnn_cluster
 
 MODES = {"t": 0, "rows": 1}
 #: kernel launches since the last :func:`reset_launches`
@@ -209,20 +217,32 @@ def gru_l2head_split_plain(prev_f, prev_b, lengths, w_in, in_scale, b_ih,
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+#: kernel of each kind of the int8 cluster geometry
+_KERNELS = {"l1": "gru_l1_split", "l2": "gru_l2head_split"}
 
 
 def build():
     """Compile (if needed) and load the kernel library; returns it."""
     lib = cuda_build.load_library("gru_split.cu")
     if not getattr(lib, "_medaka_typed", False):
-        lib.gru_l1_split_launch.argtypes = [_VOIDP] * 9 + [_INT] * 8 + [_VOIDP]
+        lib.gru_l1_split_s8_launch.argtypes = (
+            [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP])
+        lib.gru_l1_split_s8_launch.restype = _INT
+        lib.gru_l2head_split_s8_launch.argtypes = (
+            [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP])
+        lib.gru_l2head_split_s8_launch.restype = _INT
+        lib.gru_split_s8_smem.argtypes = [_INT] * 5
+        lib.gru_split_s8_smem.restype = ctypes.c_size_t
+        lib.gru_split_s8_max_clusters.argtypes = [_INT] * 6
+        lib.gru_split_s8_max_clusters.restype = _INT
+        lib.gru_l1_split_launch.argtypes = [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP]
         lib.gru_l1_split_launch.restype = _INT
         lib.gru_l2head_split_launch.argtypes = (
-            [_VOIDP] * 12 + [_INT] * 8 + [_VOIDP])
+            [_VOIDP] * 10 + [_INT] * 7 + [_VOIDP])
         lib.gru_l2head_split_launch.restype = _INT
-        lib.gru_l1_split_smem.argtypes = [_INT] * 4
+        lib.gru_l1_split_smem.argtypes = [_INT] * 3
         lib.gru_l1_split_smem.restype = ctypes.c_size_t
-        lib.gru_l2head_split_smem.argtypes = [_INT] * 4
+        lib.gru_l2head_split_smem.argtypes = [_INT] * 3
         lib.gru_l2head_split_smem.restype = ctypes.c_size_t
         lib.gru_split_error_string.argtypes = [_INT]
         lib.gru_split_error_string.restype = ctypes.c_char_p
@@ -236,7 +256,101 @@ def _check(lib, err: int, name: str):
             name, lib.gru_split_error_string(err).decode(), err))
 
 
-def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant):
+def geometry(kind: str, H: int, B: int, dev, mode: str = "t",
+             inputs: int = 0) -> Tuple[int, int, int, int]:
+    """(C, BT, shared memory bytes, resident clusters) with which the int8
+    mode of ``gru_l1_split`` (kind "l1", ``inputs`` features) or
+    ``gru_l2head_split`` ("l2") launches at hidden size H and batch B on
+    CUDA device ``dev``: both directions' clusters in one grid
+    (:func:`rnn_cluster.choose_geometry` with the ``SPLIT`` layout); raises,
+    naming the kernel and the geometry, when no cluster can be resident."""
+    lib = build()
+    name = _KERNELS[kind]
+
+    def query(cluster, columns):
+        n = lib.gru_split_s8_max_clusters(int(kind == "l2"), MODES[mode],
+                                          cluster, columns, H, inputs)
+        if n < 0:
+            _check(lib, -n, name)
+        return n
+
+    return rnn_cluster.geometry(
+        rnn_cluster.SPLIT, kind, H, B, dev, query, cuda_build.SMEM_LIMIT,
+        "{}/{}".format(name, mode), directions=2, inputs=inputs)
+
+
+def wave_batch(H: int, inputs: int, dev, limit: int, step: int = 32) -> int:
+    """The largest batch, a multiple of ``step`` up to ``limit``, at which
+    the int8 ``gru_l1_split`` (``inputs`` features) and ``gru_l2head_split``
+    each run all their clusters at once (one wave) on CUDA device ``dev``,
+    in the numerics mode that batch takes; ``step`` where none does."""
+    for batch in range(limit // step * step, step - 1, -step):
+        mode = split_mode(batch)
+        if all(2 * -(-batch // geo[1]) <= geo[3] for geo in (
+                geometry("l1", H, batch, dev, mode, inputs),
+                geometry("l2", H, batch, dev, mode))):
+            return batch
+    return step
+
+
+def _row_constants(cluster, *rows):
+    """(2, 3H) per-row constants -> (2, C, len(rows), 3U) f32 in the int8
+    slices' row order."""
+    return torch.stack([torch.stack([
+        rnn_cluster.row_slices(rnn_cluster.SPLIT, v[d].float(), cluster)
+        for v in rows], dim=1) for d in range(2)]).contiguous()
+
+
+def _slices(w, cluster, fn):
+    return torch.stack([fn(rnn_cluster.SPLIT, v, cluster) for v in w])
+
+
+def l1_operands(x, w_ih, b_ih, w_hh, hh_scale, b_hh, cluster):
+    """Layer 1's operands as the int8 kernel reads them on clusters of
+    ``cluster`` blocks (every weight in the slices' row order):
+    x (T, B, IN padded to 8) bf16, w_ih (2, C, 3U, IN rounded up to even)
+    bf16, w_hh (2, C, 3U, Hp) int8, rowc (2, C, 3, 3U) f32 (hh_scale, b_hh,
+    b_ih); the padding is zeros."""
+    IN = x.shape[-1]
+    pad = torch.nn.functional.pad
+    return {
+        # features zero-padded to 16 bytes a column, for cp.async
+        "x": pad(x.to(torch.bfloat16), (0, -IN % 8)).contiguous(),
+        # rows of 32-bit feature pairs
+        "w_ih": pad(_slices(w_ih.to(torch.bfloat16), cluster,
+                            rnn_cluster.row_slices), (0, IN % 2)).contiguous(),
+        "w_hh": _slices(w_hh, cluster, rnn_cluster.w_slices),
+        "rowc": _row_constants(cluster, hh_scale, b_hh, b_ih)}
+
+
+def l2_operands(w_in, in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
+                cluster):
+    """Layer 2's operands as the int8 kernel reads them on clusters of
+    ``cluster`` blocks: w_in (2, C, 3U, 2H) int8, w_hh (2, C, 3U, Hp)
+    int8, rowc (2, C, 5, 3U) f32 (hh_scale, b_hh, b_ih, the halves' input
+    scales), w_head (2, C, 16, U) bf16 (W_head^T: row k is class k of
+    unit j = r U + u of block r; classes past C and padded units zero)."""
+    H = w_hh.shape[-1]
+    U = rnn_cluster.units_per_block(rnn_cluster.SPLIT, H, cluster)
+    wh = torch.zeros((2, 16, cluster * U), dtype=torch.bfloat16,
+                     device=w_head.device)
+    wh[:, :w_head.shape[1], :H] = w_head.to(torch.bfloat16)
+    return {
+        "w_in": _slices(w_in, cluster, rnn_cluster.row_slices),
+        "w_hh": _slices(w_hh, cluster, rnn_cluster.w_slices),
+        "rowc": _row_constants(cluster, hh_scale, b_hh, b_ih,
+                               in_scale[:, 0], in_scale[:, 1]),
+        "w_head": wh.reshape(2, 16, cluster, U).transpose(1, 2).contiguous()}
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant,
+               cluster=None):
+    """Launch layer 1; ``cluster`` = (C, BT) replaces the int8 geometry
+    :func:`geometry` chooses (``chip_ab.py`` times another one)."""
     T, B, IN = x.shape
     H = w_hh.shape[-1]
     G3 = 3 * H
@@ -251,27 +365,34 @@ def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant):
     if T == 0 or B == 0:
         return out_f, out_b
     lib = build()
-    cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(x.device))
-    while nq * H > 512:
-        nq //= 2
-    if cpt * IN > H:
-        raise ValueError("gru_l1_split: {} input features exceed the "
-                         "tile's loader threads".format(IN))
-    smem = lib.gru_l1_split_smem(int(quant), cpt * nq, IN, H)
-    if smem > cuda_build.SMEM_LIMIT:
-        raise ValueError("gru_l1_split: needs {} bytes of shared memory "
-                         "(limit {})".format(smem, cuda_build.SMEM_LIMIT))
-    x = x.to(torch.bfloat16).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    w_ih_t = w_ih.to(torch.bfloat16).transpose(1, 2).contiguous()
-    w_hh_il = cuda_build.interleave_chunks(w_hh.contiguous())
-    args = [t.float().contiguous() for t in (b_ih, hh_scale, b_hh)]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gru_l1_split_launch(
-        x.data_ptr(), lengths.data_ptr(), w_ih_t.data_ptr(),
-        args[0].data_ptr(), w_hh_il.data_ptr(), args[1].data_ptr(),
-        args[2].data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
-        T, B, IN, H, cpt, nq, int(quant), MODES[mode], stream)
+    if quant:
+        C, BT = cluster or geometry("l1", H, B, x.device, mode, IN)[:2]
+        op = l1_operands(x, w_ih, b_ih, w_hh, hh_scale, b_hh, C)
+        err = lib.gru_l1_split_s8_launch(
+            op["x"].data_ptr(), lengths.data_ptr(), op["w_ih"].data_ptr(),
+            op["rowc"].data_ptr(), op["w_hh"].data_ptr(), out_f.data_ptr(),
+            out_b.data_ptr(), T, B, IN, H, C, BT, MODES[mode], _stream(x))
+    else:
+        cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(x.device))
+        while nq * H > 512:
+            nq //= 2
+        if cpt * IN > H:
+            raise ValueError("gru_l1_split: {} input features exceed the "
+                             "tile's loader threads".format(IN))
+        smem = lib.gru_l1_split_smem(cpt * nq, IN, H)
+        if smem > cuda_build.SMEM_LIMIT:
+            raise ValueError("gru_l1_split: needs {} bytes of shared memory "
+                             "(limit {})".format(smem, cuda_build.SMEM_LIMIT))
+        x = x.to(torch.bfloat16).contiguous()
+        w_ih_t = w_ih.to(torch.bfloat16).transpose(1, 2).contiguous()
+        w_hh_il = cuda_build.interleave_chunks(w_hh.contiguous())
+        b_ih, b_hh = [t.float().contiguous() for t in (b_ih, b_hh)]
+        err = lib.gru_l1_split_launch(
+            x.data_ptr(), lengths.data_ptr(), w_ih_t.data_ptr(),
+            b_ih.data_ptr(), w_hh_il.data_ptr(), b_hh.data_ptr(),
+            out_f.data_ptr(), out_b.data_ptr(), T, B, IN, H, cpt, nq,
+            MODES[mode], _stream(x))
     _check(lib, err, "gru_l1_split")
     LAUNCHES["gru_l1_split"] += 1
     MODE_LAUNCHES["gru_l1_split/" + mode] += 1
@@ -290,36 +411,46 @@ def _launch_l2(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
         (in_scale, (2, 2, G3), None), (b_ih, (2, G3), None),
         (w_hh, (2, G3, H), wdt), (hh_scale, (2, G3), None),
         (b_hh, (2, G3), None), (w_head, (2, C, H), None)])
-    if C > 8:
-        raise ValueError("gru_l2head_split: at most 8 classes, got {}".format(
-            C))
+    if C > rnn_cluster.HEAD_CLASSES:
+        raise ValueError("gru_l2head_split: at most {} classes, got "
+                         "{}".format(rnn_cluster.HEAD_CLASSES, C))
     lg_f = torch.empty((B, T, C), dtype=torch.float32, device=prev_f.device)
     lg_b = torch.empty((B, T, C), dtype=torch.float32, device=prev_f.device)
     if T == 0 or B == 0:
         return lg_f, lg_b
     lib = build()
-    cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(prev_f.device))
-    while nq * H > 512:
-        nq //= 2
-    smem = lib.gru_l2head_split_smem(int(quant), cpt, nq, H)
-    if smem > cuda_build.SMEM_LIMIT:
-        raise ValueError("gru_l2head_split: needs {} bytes of shared memory "
-                         "(limit {})".format(smem, cuda_build.SMEM_LIMIT))
     prev_f = prev_f.contiguous()
     prev_b = prev_b.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    w_in_il = cuda_build.interleave_chunks(w_in.contiguous())
-    w_hh_il = cuda_build.interleave_chunks(w_hh.contiguous())
-    in_scale, b_ih, hh_scale, b_hh = [
-        t.float().contiguous() for t in (in_scale, b_ih, hh_scale, b_hh)]
-    w_head_f = _bf16(w_head).contiguous()
-    stream = torch.cuda.current_stream(prev_f.device).cuda_stream
-    err = lib.gru_l2head_split_launch(
-        prev_f.data_ptr(), prev_b.data_ptr(), lengths.data_ptr(),
-        w_in_il.data_ptr(), in_scale.data_ptr(), b_ih.data_ptr(),
-        w_hh_il.data_ptr(), hh_scale.data_ptr(), b_hh.data_ptr(),
-        w_head_f.data_ptr(), lg_f.data_ptr(), lg_b.data_ptr(),
-        T, B, H, C, cpt, nq, int(quant), MODES[mode], stream)
+    if quant:
+        cl, BT = geometry("l2", H, B, prev_f.device, mode)[:2]
+        op = l2_operands(w_in, in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
+                         cl)
+        err = lib.gru_l2head_split_s8_launch(
+            prev_f.data_ptr(), prev_b.data_ptr(), lengths.data_ptr(),
+            op["w_in"].data_ptr(), op["rowc"].data_ptr(),
+            op["w_hh"].data_ptr(), op["w_head"].data_ptr(), lg_f.data_ptr(),
+            lg_b.data_ptr(), T, B, H, C, cl, BT, MODES[mode],
+            _stream(prev_f))
+    else:
+        cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(prev_f.device))
+        while nq * H > 512:
+            nq //= 2
+        smem = lib.gru_l2head_split_smem(cpt, nq, H)
+        if smem > cuda_build.SMEM_LIMIT:
+            raise ValueError("gru_l2head_split: needs {} bytes of shared "
+                             "memory (limit {})".format(
+                                 smem, cuda_build.SMEM_LIMIT))
+        w_in_il = cuda_build.interleave_chunks(w_in.contiguous())
+        w_hh_il = cuda_build.interleave_chunks(w_hh.contiguous())
+        b_ih, b_hh = [t.float().contiguous() for t in (b_ih, b_hh)]
+        w_head_f = _bf16(w_head).contiguous()
+        err = lib.gru_l2head_split_launch(
+            prev_f.data_ptr(), prev_b.data_ptr(), lengths.data_ptr(),
+            w_in_il.data_ptr(), b_ih.data_ptr(), w_hh_il.data_ptr(),
+            b_hh.data_ptr(), w_head_f.data_ptr(), lg_f.data_ptr(),
+            lg_b.data_ptr(), T, B, H, C, cpt, nq, MODES[mode],
+            _stream(prev_f))
     _check(lib, err, "gru_l2head_split")
     LAUNCHES["gru_l2head_split"] += 1
     MODE_LAUNCHES["gru_l2head_split/" + mode] += 1

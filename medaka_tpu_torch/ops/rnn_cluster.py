@@ -10,6 +10,11 @@ hidden units of W_hh in shared memory for the whole walk. A
 :class:`Layout` says how many gate rows a unit has and how many units a
 warp's unit group holds; everything here is pure Python, mirrors the
 kernels' byte counts, and is tested on the CPU.
+
+The split kernels' int8 mode (``csrc/gru_split.cu``: ``gru_l1_split``
+kind "l1", ``gru_l2head_split`` kind "l2") runs the same cluster design
+with int8 weights, blocks of up to 256 units and larger clusters where
+they buy one wave (:data:`SPLIT`).
 """
 from __future__ import annotations
 
@@ -25,10 +30,15 @@ TILE_COLUMNS = (8, 16, 32)
 MAX_UNITS = 64
 #: threads of a block at most
 MAX_THREADS = 512
+#: threads of a block at most by kind, where the kernel asks for fewer
+#: (``gru_l2head_split`` keeps more of each step in registers)
+KIND_MAX_THREADS = {"l2": 256}
+#: head classes the layer-2 split kernel holds (``CMAX``)
+HEAD_CLASSES = 8
 
 
 class Layout(NamedTuple):
-    """The row order of a kernel's W_hh slices.
+    """The row order of a kernel's weight slices and its limits.
 
     Unit group q of a block (``group`` units) holds rows
     ``q * gates * group + g * group + u`` (gate g, unit u).
@@ -37,12 +47,26 @@ class Layout(NamedTuple):
     group: int
     #: the forward stages an f32 cell state beside h (the LSTM)
     cell: bool
+    #: bytes of a weight in the slices: 2 (bf16) or 1 (int8)
+    wbytes: int = 2
+    #: hidden units of a block at most
+    max_units: int = MAX_UNITS
+    #: batch columns a cluster, in the order tried
+    tiles: Tuple[int, ...] = TILE_COLUMNS
+    #: where no tile runs in one wave at the smallest cluster, try larger
+    #: clusters (fewer units a block, more columns a cluster) first
+    widen: bool = False
 
 
 #: gates i, f, g, o; 8-unit groups: rows q*32 + g*8 + u
 LSTM = Layout(gates=4, group=8, cell=True)
 #: gates r, z, n; 16-unit groups: rows q*48 + g*16 + u (three m16 tiles)
 GRU = Layout(gates=3, group=16, cell=False)
+#: the split kernels' int8 mode: the GRU's rows, int8 slices of W_hh (K =
+#: Hp) and, in layer 2, of W_ih (K = 2H), up to 256 units a block (C = 1
+#: at H <= 256 in layer 1) and 64 columns a cluster
+SPLIT = Layout(gates=3, group=16, cell=False, wbytes=1, max_units=256,
+               tiles=(8, 16, 32, 64), widen=True)
 
 
 def units_per_block(layout: Layout, hidden: int, cluster: int) -> int:
@@ -63,12 +87,22 @@ def threads(layout: Layout, hidden: int, cluster: int, columns: int) -> int:
     return 32 * warps * (columns // min(columns, 16))
 
 
+def max_threads(kind: str) -> int:
+    """Threads of a block at most for a kernel of ``kind``."""
+    return KIND_MAX_THREADS.get(kind, MAX_THREADS)
+
+
 def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
-               hidden: int) -> int:
+               hidden: int, inputs: int = 0) -> int:
     """Dynamic shared memory of one block of a forward (kind "fwd") or
     backward ("bwd") cluster recurrence, as the kernel carves it
-    (``ClusterGeo`` in ``csrc/rnn_train.cuh``)."""
+    (``ClusterGeo`` in ``csrc/rnn_train.cuh``), or of the split kernels'
+    layer 1 (kind "l1", ``inputs`` features) or layer 2 + head ("l2")
+    (``SplitGeo`` in ``csrc/gru_split.cu``)."""
     U = units_per_block(layout, hidden, cluster)
+    if kind in ("l1", "l2"):
+        return _split_smem_bytes(layout, kind, cluster, columns, hidden,
+                                 inputs, U)
     ldw = cluster * U + 8        # padded bf16 row of W and of h
     nbytes = (_align16(layout.gates * U * ldw * 2)   # W_hh slice
               + _align16(2 * columns * ldw * 2))     # h (h_prev) x 2
@@ -81,66 +115,116 @@ def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
             + _align16(2 * cluster * U * columns * 4))
 
 
+def _split_smem_bytes(layout, kind, cluster, columns, hidden, inputs, U):
+    rows = layout.gates * U
+    ldh = cluster * U + 16       # padded int8 row of W_hh and of h
+    ldi = 2 * hidden + 16        # padded int8 row of W_ih and the input
+    nbytes = (_align16(rows * ldh) + _align16(2 * columns * ldh)
+              + (_align16(columns * U) if cluster > 1 else 0))
+    if kind == "l1":
+        # bf16 W_ih [3U][IN rounded up to even] and x [2][BT][IN padded
+        # to 8]
+        even = -(-inputs // 2) * 2
+        padded = -(-inputs // 8) * 8
+        return (nbytes + _align16(rows * even * 2)
+                + _align16(2 * columns * padded * 2))
+    # int8 W_ih slice, [prev_f; prev_b] x 2, the head's bf16 operands
+    # (bf16(h) x 2 and W_head^T, 16 rows, of U + 8) and the blocks' f32
+    # partial logits of the block's ceil(BT / C) columns
+    share = -(-columns // cluster)
+    return (nbytes + _align16(rows * ldi) + _align16(2 * columns * ldi)
+            + _align16((2 * columns + 16) * (U + 8) * 2)
+            + (_align16(2 * cluster * share * HEAD_CLASSES * 4)
+               if cluster > 1 else 0))
+
+
 def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
                     smem_limit: int,
                     max_clusters: Callable[[int, int, int], int],
-                    directions: int = 1, name: str = "the launch"):
+                    directions: int = 1, name: str = "the launch",
+                    inputs: int = 0):
     """(C, BT, shared memory bytes) of a launch.
 
     C is the smallest cluster size whose block holds at most
-    :data:`MAX_UNITS` units and fits ``smem_limit`` at the smallest tile;
-    BT the smallest tile of :data:`TILE_COLUMNS` whose ``directions`` x
-    ceil(B / BT) clusters are all resident at once (one wave), else the
-    largest that fits. ``max_clusters(C, BT, smem)`` is how many clusters
-    the card holds at once (``cudaOccupancyMaxActiveClusters``; about the
-    SM count over C); a value below 1 raises, naming ``name`` (the kernel)
-    and the geometry.
+    ``layout.max_units`` units and fits ``smem_limit`` and the kind's
+    threads at the smallest tile; BT the smallest tile of
+    ``layout.tiles`` whose ``directions`` x ceil(B / BT) clusters are all
+    resident at once (one wave), else the largest that fits. Where the
+    layout ``widen``s and no tile runs in one wave, the next larger
+    cluster sizes are tried the same way, in order, before that fallback.
+    ``max_clusters(C, BT, smem)`` is how many clusters the card holds at
+    once (``cudaOccupancyMaxActiveClusters``; about the SM count over C); a
+    value below 1 raises, naming ``name`` (the kernel) and the geometry.
+    ``inputs`` is layer 1's feature count (kind "l1").
     """
     if hidden % 32 or not 0 < hidden <= 512:
         raise ValueError("hidden size {} must be a multiple of 32 and at "
                          "most 512".format(hidden))
-    for cluster in CLUSTER_SIZES:
-        if units_per_block(layout, hidden, cluster) <= MAX_UNITS and \
-                smem_bytes(layout, kind, cluster, TILE_COLUMNS[0],
-                           hidden) <= smem_limit:
-            break
-    else:
+
+    def fits(cluster, columns):
+        return (units_per_block(layout, hidden, cluster) <= layout.max_units
+                and threads(layout, hidden, cluster, columns)
+                <= max_threads(kind)
+                and smem_bytes(layout, kind, cluster, columns, hidden,
+                               inputs) <= smem_limit)
+
+    clusters = [c for c in CLUSTER_SIZES if fits(c, layout.tiles[0])]
+    if not clusters:
         raise ValueError("no cluster size fits H={} in {} bytes of shared "
                          "memory".format(hidden, smem_limit))
-    best = None
-    for columns in TILE_COLUMNS:
-        smem = smem_bytes(layout, kind, cluster, columns, hidden)
-        if smem > smem_limit:
-            break
-        resident = max_clusters(cluster, columns, smem)
-        if resident < 1:
-            raise RuntimeError(
-                "{}: no cluster of {} blocks of {} columns with {} bytes of "
-                "shared memory can be resident (cudaOccupancyMaxActiveClusters"
-                " gave {})".format(name, cluster, columns, smem, resident))
-        best = (cluster, columns, smem)
-        if directions * -(-batch // columns) <= resident:
-            break
-    return best
+    fallback = None
+    for cluster in clusters if layout.widen else clusters[:1]:
+        best = None
+        for columns in layout.tiles:
+            if not fits(cluster, columns):
+                break
+            smem = smem_bytes(layout, kind, cluster, columns, hidden, inputs)
+            resident = max_clusters(cluster, columns, smem)
+            if resident < 1:
+                raise RuntimeError(
+                    "{}: no cluster of {} blocks of {} columns with {} bytes "
+                    "of shared memory can be resident (cudaOccupancyMax"
+                    "ActiveClusters gave {})".format(
+                        name, cluster, columns, smem, resident))
+            best = (cluster, columns, smem)
+            if directions * -(-batch // columns) <= resident:
+                return best
+        fallback = fallback or best
+    return fallback
+
+
+def row_slices(layout: Layout, v: torch.Tensor,
+               cluster: int) -> torch.Tensor:
+    """(gates H, ...) rows -> (C, gates U, ...): block r's gate rows, in the
+    kernels' order, zero for the padded units.
+
+    Unit j = r U + q group + u (Hp = C U units, those at H and above zero)
+    has its gate g at row q gates group + g group + u of slice r.
+    """
+    G = layout.gates
+    H = v.shape[0] // G
+    U = units_per_block(layout, H, cluster)
+    rest = tuple(v.shape[1:])
+    out = v.new_zeros((G, cluster * U) + rest)
+    out[:, :H] = v.reshape((G, H) + rest)
+    out = out.reshape((G, cluster, U // layout.group, layout.group) + rest)
+    order = (1, 2, 0, 3) + tuple(range(4, out.dim()))
+    return out.permute(order).reshape((cluster, G * U) + rest).contiguous()
 
 
 def w_slices(layout: Layout, w_hh: torch.Tensor,
              cluster: int) -> torch.Tensor:
-    """(gates H, H) W_hh -> (C, gates U, Hp) bf16: block r's gate rows, in
-    the kernels' order.
-
-    Unit j = r U + q group + u (Hp = C U units, those at H and above zero)
-    has its gate g at row q gates group + g group + u of slice r; columns
+    """(gates H, H) W_hh -> (C, gates U, Hp): block r's gate rows, in the
+    kernels' order (:func:`row_slices`), bf16 or, where the layout's
+    weights are int8 (``wbytes`` 1), the int8 values as given; columns
     k >= H are zero.
     """
     H = w_hh.shape[1]
-    G = layout.gates
-    U = units_per_block(layout, H, cluster)
-    Hp = cluster * U
-    w = torch.zeros((G, Hp, Hp), dtype=torch.bfloat16, device=w_hh.device)
-    w[:, :H, :H] = w_hh.to(torch.bfloat16).reshape(G, H, H)
-    w = w.reshape(G, cluster, U // layout.group, layout.group, Hp)
-    return w.permute(1, 2, 0, 3, 4).reshape(cluster, G * U, Hp).contiguous()
+    Hp = cluster * units_per_block(layout, H, cluster)
+    dtype = torch.int8 if layout.wbytes == 1 else torch.bfloat16
+    w = torch.zeros((w_hh.shape[0], Hp), dtype=dtype, device=w_hh.device)
+    w[:, :H] = w_hh.to(dtype)
+    return row_slices(layout, w, cluster)
 
 
 _RESIDENT: Dict[Tuple, int] = {}
@@ -148,21 +232,24 @@ _RESIDENT: Dict[Tuple, int] = {}
 
 def geometry(layout: Layout, kind: str, H: int, B: int, dev,
              query: Callable[[int, int], int], smem_limit: int,
-             key: str, directions: int = 1) -> Tuple[int, int, int, int]:
+             key: str, directions: int = 1,
+             inputs: int = 0) -> Tuple[int, int, int, int]:
     """(C, BT, shared memory bytes, resident clusters) of a launch on CUDA
     device ``dev``: :func:`choose_geometry` with the card's resident
     clusters ``query(C, BT)`` (the library's
     ``cudaOccupancyMaxActiveClusters``; it raises on a CUDA error), cached
-    under ``key`` (the kernel's name)."""
+    under ``key`` (the kernel's name, and its mode where the kernel has
+    modes) and ``inputs``."""
     dev = torch.device(dev)
 
     def resident(cluster, columns, smem):
-        k = (key, cluster, columns, H, dev.index)
+        k = (key, cluster, columns, H, inputs, dev.index)
         if k not in _RESIDENT:
             _RESIDENT[k] = query(cluster, columns)
         return _RESIDENT[k]
 
     with torch.cuda.device(dev):
         cluster, columns, smem = choose_geometry(
-            layout, kind, H, B, smem_limit, resident, directions, key)
+            layout, kind, H, B, smem_limit, resident, directions, key,
+            inputs)
         return cluster, columns, smem, resident(cluster, columns, smem)

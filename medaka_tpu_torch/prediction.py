@@ -336,10 +336,12 @@ class Predictor:
         return classes, phred_fn(1.0 - best).astype("u1") + 33
 
 
-#: largest automatic batch on the GPU: the split kernels' grid at B=512
-#: is 128 blocks (8 columns x 2 directions each), one per SM of an H100
-#: (132 SMs); a larger batch widens every block's tile, so each of the
-#: chunk_len serial steps gets longer while all SMs are already busy
+#: largest automatic batch on the GPU: the split kernels' layer 1 at
+#: B=512 is 128 blocks (8 columns x 2 directions each), one per SM of an
+#: H100 (132 SMs); a larger batch widens every block's tile, so each of
+#: the chunk_len serial steps gets longer while all SMs are already busy.
+#: On the card, the batch is also held to what both split kernels run in
+#: one wave (``gru_split.wave_batch``).
 AUTO_BATCH_CAP = 512
 
 
@@ -365,7 +367,11 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
     partials; the f32 scan of full-precision runs holds the (T, 3H)
     projections and (T, 2H) outputs of a layer in f32. Half of the free
     device memory (``torch.cuda.mem_get_info``) is budgeted, rounded down
-    to a multiple of 64 and capped at :data:`AUTO_BATCH_CAP`.
+    to a multiple of 64 and capped at :data:`AUTO_BATCH_CAP`. On the card
+    itself (``free_bytes`` not given), the split path's batch is also held
+    to the most rows (a multiple of 32) at which both int8 split kernels
+    run all their clusters at once (``gru_split.wave_batch``): 480 on an
+    H100, whose 132 SMs hold 30 of layer 2's clusters of 4.
 
     Models off the split path (not 2 layers, unidirectional, or H not a
     multiple of 128; ``medaka_tpu/prediction.py:526-534``) run the
@@ -382,7 +388,8 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
     device = torch.device("cuda" if device is None else device)
     if device.type != "cuda":
         return 128
-    if free_bytes is None:
+    on_card = free_bytes is None
+    if on_card:
         free_bytes = torch.cuda.mem_get_info(resolve_device(device))[0]
     if getattr(model, "input_kind", "counts") == "reads":
         per_row = (chunk_len * max_reads * getattr(model, "cnn_size", 128)
@@ -405,7 +412,12 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
                                + dirs * 3 * hidden * 2 + classes * 4)
         smallest = OFF_SPLIT_MIN_BATCH
     batch = (free_bytes // 2 // per_row) // 64 * 64
-    return int(max(smallest, min(AUTO_BATCH_CAP, batch)))
+    batch = int(max(smallest, min(AUTO_BATCH_CAP, batch)))
+    if split and not full_precision and on_card:
+        from medaka_tpu_torch.ops import gru_split
+        batch = gru_split.wave_batch(hidden, width, resolve_device(device),
+                                     batch)
+    return batch
 
 
 def _stream_batches(

@@ -61,39 +61,35 @@ def _net(rng, H, IN=10, C=5):
     return layers, head
 
 
-@pytest.mark.parametrize("quant", [True, False])
-@pytest.mark.parametrize("mode,batch", [("t", 512), ("t", 200),
-                                        ("rows", 37)])
-def test_kernels_match_plain(device, mode, batch, quant):
-    """Both kernels against their plain versions at H=256, ragged lengths.
-
-    Layer 1 is compared on its own inputs, layer 2 on layer 1's kernel
-    outputs, so each kernel is held to the same inputs as its plain
-    version. They do the same operations and differ only in the order of
-    f32 sums, which could move round(127 h) or a bf16 cast across a
-    rounding boundary: layer 1 within one int8 step or one bf16 ulp,
-    logits within 1e-3. Measured on an H100: layer 1 identical, logits
-    within 4e-8. The batch sizes cover the three tile shapes.
-    """
-    rng = np.random.default_rng(7)
-    H, T = 256, 300
+def _split_inputs(rng, H, T, batch, mode, quant, device):
     layers, head = _net(rng, H)
     x = torch.from_numpy(rng.random((batch, T, 10)).astype(np.float32))
     lengths = torch.from_numpy(
         rng.integers(1, T + 1, batch).astype(np.int32))
     lengths[0] = T
+    lengths[-1] = 0        # a column of length 0
     w = gru_split.prepare_split_weights(layers, head, mode, quant, device)
     xt = x.transpose(0, 1).to(torch.bfloat16).contiguous().to(device)
-    lens = lengths.to(device)
+    return w, xt, lengths.to(device)
+
+
+def _check_split_kernels(device, H, T, batch, mode, quant, seed):
+    """Layer 1 against its plain version on its own inputs, layer 2 on
+    layer 1's kernel outputs, and both kernels against themselves run
+    again (bit for bit)."""
+    w, xt, lens = _split_inputs(np.random.default_rng(seed), H, T, batch,
+                                mode, quant, device)
     args1 = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
              w["b_hh1"])
     out_f, out_b = gru_split.gru_l1_split(*args1, mode=mode, quant=quant)
     ref_f, ref_b = gru_split.gru_l1_split_plain(*args1, mode=mode,
                                                 quant=quant)
+    again = gru_split.gru_l1_split(*args1, mode=mode, quant=quant)
     torch.cuda.synchronize()
+    assert torch.equal(again[0], out_f) and torch.equal(again[1], out_b)
     for got, ref in ((out_f, ref_f), (out_b, ref_b)):
         diff = (got.float() - ref.float()).abs()
-        print("layer 1", mode, quant, "max", diff.max().item(),
+        print("layer 1", H, batch, mode, quant, "max", diff.max().item(),
               "mean", diff.mean().item())
         assert diff.max().item() <= (1 if quant else 2.0 ** -7)
         assert diff.mean().item() <= 1e-3
@@ -101,15 +97,68 @@ def test_kernels_match_plain(device, mode, batch, quant):
              w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
     lg_f, lg_b = gru_split.gru_l2head_split(*args2, mode=mode, quant=quant)
     pf, pb = gru_split.gru_l2head_split_plain(*args2, mode=mode, quant=quant)
+    again = gru_split.gru_l2head_split(*args2, mode=mode, quant=quant)
     torch.cuda.synchronize()
+    assert torch.equal(again[0], lg_f) and torch.equal(again[1], lg_b)
     valid = (torch.arange(T, device=device)[None, :]
              < lens[:, None].long())
     for got, ref in ((lg_f, pf), (lg_b, pb)):
         assert got.shape == (batch, T, 5)
         diff = (got - ref).abs()[valid]
-        print("layer 2", mode, quant, "max", diff.max().item(),
+        print("layer 2", H, batch, mode, quant, "max", diff.max().item(),
               "mean", diff.mean().item())
         assert diff.max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("mode,batch", [("t", 512), ("t", 200),
+                                        ("rows", 37)])
+def test_kernels_match_plain(device, mode, batch, quant):
+    """Both kernels against their plain versions at H=256, ragged lengths
+    with a column of length 0, and against themselves run again.
+
+    Layer 1 is compared on its own inputs, layer 2 on layer 1's kernel
+    outputs, so each kernel is held to the same inputs as its plain
+    version. They do the same operations and differ only in the order of
+    f32 sums, which could move round(127 h) or a bf16 cast across a
+    rounding boundary: layer 1 within one int8 step or one bf16 ulp,
+    logits within 1e-3. Measured on an H100: layer 1 identical, logits
+    within 4e-8. The batch sizes cover the tile shapes; a second launch
+    gives the same bits (no atomics, fixed-order sums).
+    """
+    _check_split_kernels(device, 256, 300, batch, mode, quant, 7)
+
+
+@pytest.mark.parametrize("mode", ["t", "rows"])
+@pytest.mark.parametrize("batch", [32, 200])
+@pytest.mark.parametrize("H", [384, 512])
+def test_wide_split_kernels_match_plain(device, H, batch, mode):
+    """The int8 split kernels at H=384 and 512, where the whole int8 W_hh
+    is more than one block's shared memory (468,800 and 821,568 B with
+    the old per-block kernel's buffers): clusters hold it in slices. The
+    same bars as at H=256, and bit for bit on repeat."""
+    _check_split_kernels(device, H, 64, batch, mode, True, H + batch)
+
+
+@pytest.mark.parametrize("kind", ["l1", "l2"])
+def test_split_geometry_matches_the_kernels(device, kind):
+    """The host's byte count equals the kernel's for every H and batch of
+    the split path, every geometry it picks is resident and runs, and the
+    int8 layer 1 at H=256 keeps all of W_hh in one block (C=1)."""
+    lib = gru_split.build()
+    inputs = 10 if kind == "l1" else 0
+    for H in (128, 256, 384, 512):
+        for B in (32, 64, 191, 192, 512):
+            for mode in ("t", "rows"):
+                C, BT, smem, resident = gru_split.geometry(
+                    kind, H, B, device, mode, inputs)
+                assert lib.gru_split_s8_smem(int(kind == "l2"), C, BT, H,
+                                             inputs) == smem
+                assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
+                print(kind, H, B, mode, (C, BT, smem, resident))
+    if kind == "l1":
+        assert gru_split.geometry("l1", 256, 512, device, "t", 10)[:2] == (
+            1, 8)
 
 
 def test_wrapper_raises_on_bad_input(device):
@@ -726,6 +775,49 @@ def test_gru_model_off_split_on_card_matches_cpu_plain(
     agree = (got.argmax(-1) == want.argmax(-1))[valid].float().mean().item()
     print(n_layers, hidden, quant, "max", diff.max().item(), "agreement",
           agree)
+    assert diff.max().item() <= 1e-2
+    assert agree >= 0.99
+
+
+@pytest.mark.parametrize("mode", ["rows", "t"])
+def test_gru_model_split_on_card_matches_cpu_plain(device, mode):
+    """GRUModel.forward at H=384 on the split path (B=64, int8; mode
+    "rows" as the batch picks it, and "t" through ``bigru_head_fullfused``
+    with layout "t") on the card against the same kernels' plain route on
+    the CPU: probabilities within 1e-2, argmax agreement >= 0.99; the card
+    launches each split kernel once and no fullfused kernel. The parent
+    of this design refused H=384 on the card (W_hh larger than a block's
+    shared memory)."""
+    rng = np.random.default_rng(384)
+    torch.manual_seed(384)
+    model = GRUModel(gru_size=384)
+    B, T = 64, 200
+    x = torch.from_numpy(rng.random((B, T, 10)).astype(np.float32))
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    layout = None if mode == "rows" else "t"
+    with torch.inference_mode():
+        want = torch.softmax(gru_split.bigru_head_fullfused(
+            model.layer_params(), model.head_params(), x, lengths,
+            layout=layout, device="cpu"), -1)
+        gru_fullfused.reset_launches()
+        gru_split.reset_launches()
+        model.to(device)
+        if layout is None:
+            got = model(x.to(device), lengths=lengths.to(device),
+                        compute_dtype=torch.bfloat16).cpu()
+        else:
+            got = torch.softmax(gru_split.bigru_head_fullfused(
+                model.layer_params(), model.head_params(), x.to(device),
+                lengths.to(device), layout=layout, device=device), -1).cpu()
+        model.to("cpu")
+    assert gru_split.MODE_LAUNCHES == {
+        "{}/{}".format(k, m): int(m == mode)
+        for k in gru_split.LAUNCHES for m in gru_split.MODES}
+    assert sum(gru_fullfused.LAUNCHES.values()) == 0
+    valid = torch.arange(T)[None, :] < lengths[:, None]
+    diff = (got - want).abs()[valid]
+    agree = (got.argmax(-1) == want.argmax(-1))[valid].float().mean().item()
+    print("H=384", mode, "max", diff.max().item(), "agreement", agree)
     assert diff.max().item() <= 1e-2
     assert agree >= 0.99
 

@@ -22,7 +22,15 @@ H=96, B=31, T=500, and of the split kernels ``gru_l1_split`` and
 B=480 (the automatic batch where both run in one wave), mode "rows" at
 B=64, and over one column in both modes; where the tree has the cluster
 geometry of the int8 split kernels, also layer 1 on clusters of 4 blocks
-(64 units a block) at the same shapes, and each launch's geometry.
+(64 units a block) at the same shapes, and each launch's geometry; the
+int8 and f32-gates fullfused launches at B=16, T=10000, H=256, IN=512
+and over one column, with the profiler's split into projection stage and
+recurrence, and where the tree has the int8 cluster recurrence, that
+recurrence alone on clusters of 2, 4, 8 and 16 blocks; ``bilstm_fused`` at
+B=128, T=1000, H=128 and over one column (on clusters of 1, 2 and 4
+blocks where the tree has the LSTM cluster forward). The fullfused
+layers are also run over inputs whose projections are exact in f32, so
+that the trees' recurrences see the same projections.
 ``compare`` prints, for each output, whether every file holds the same
 bits as the first, the largest difference where not, and the train
 steps' agreement and the times side by side. Give the trees their turns
@@ -105,6 +113,31 @@ def run(tree, out_path, seed):
             h = gru_train.gru_fwd_plain(xp, w_hh, b_hh, ln, reverse)
             keep("gru_bwd/H{}/{}".format(H, reverse), gru_train.gru_bwd(
                 xp, h, dh, w_hh, b_hh, ln, reverse))
+    # the fullfused modes over inputs whose projections are exact in f32
+    # (x in quarters, W_ih in 64ths, b_ih in 256ths: every partial sum is
+    # a multiple of 1/256 below 2^14 in magnitude), so that every tree's
+    # projection stage gives the same bf16 projections whatever the order
+    # of its sums: the recurrences are compared over the same inputs
+    for H, B, T in ((256, 16, 300), (96, 31, 200)):
+        ln = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
+        ln[0], ln[1] = T, 0
+        ln = ln.to(dev)
+        k = 1.0 / H ** 0.5
+        for IN in (10, 2 * H):
+            x = torch.from_numpy(rng.integers(-4, 5, (T, B, IN)).astype(
+                "float32") / 4).to(dev, torch.bfloat16)
+            w = (torch.from_numpy(rng.integers(-8, 9, (2, 3 * H, IN)).astype(
+                    "float32") / 64).to(dev),
+                 torch.from_numpy(rng.integers(-16, 17, (2, 3 * H)).astype(
+                     "float32") / 256).to(dev),
+                 torch.from_numpy(rng.uniform(-k, k, (2, 3 * H, H)).astype(
+                     "float32")).to(dev),
+                 torch.from_numpy(rng.uniform(-k, k, (2, 3 * H)).astype(
+                     "float32")).to(dev))
+            for mode in ("f32_gates", "bf16_gates", "int8"):
+                kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
+                keep("exact_projections/{}/H{}/IN{}".format(mode, H, IN),
+                     kernel())
     # the fullfused modes and bigru_fused, layer 1 and layer 2 inputs
     for H, B, T in ((256, 16, 500), (96, 31, 200)):
         ln = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
@@ -164,6 +197,58 @@ def run(tree, out_path, seed):
         timed("bigru_fused/H{}_B{}_T{}".format(H, B, T),
               lambda: gru_fullfused.fused_layer(xp, xp_b, w2, b2, ln))
         del xp, xp_b
+    # the fullfused launches at the batch-16 path's layer 2 (B=16,
+    # T=10000, H=256, IN=512) and over one column: the whole launch (CUDA
+    # events) and the profiler's split into the projection stage and the
+    # recurrence; on a tree with the int8 cluster recurrence, that
+    # recurrence alone on clusters of 2-16 blocks
+    T, H, IN = 10000, 256, 512
+    k = 1.0 / H ** 0.5
+    w = tuple(torch.from_numpy(rng.uniform(-k, k, shape).astype(
+        "float32")).to(dev) for shape in ((2, 3 * H, IN), (2, 3 * H),
+                                          (2, 3 * H, H), (2, 3 * H)))
+    profiles = {}
+    for B in (16, 1):
+        x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
+            "float32")).to(dev, torch.bfloat16)
+        ln = torch.full((B,), T, dtype=torch.int32, device=dev)
+        for mode in ("int8", "f32_gates"):
+            key = "bigru_fullfused/{}/B{}_T{}".format(mode, B, T)
+            kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
+            timed(key, kernel)
+            by_kernel = cs.kernels_ms(kernel) or cs.kernels_ms(kernel) or {}
+            split = {"projection": sum(v for n, v in by_kernel.items()
+                                       if "proj" in n),
+                     "recurrence": sum(v for n, v in by_kernel.items()
+                                       if "gru_rec_kernel" in n or
+                                       "gru_cluster_fwd_kernel" in n),
+                     "kernels": sorted(n for n in by_kernel
+                                       if "proj" in n or "gru_" in n)}
+            profiles[key] = split
+            print("   {} profile: {}".format(key, json.dumps(split)),
+                  flush=True)
+        if hasattr(gru_fullfused, "_launch_int8_recurrence"):
+            xp = gru_fullfused.project(x, w[0], w[1])
+            for C in (2, 4, 8, 16):
+                timed("int8_recurrence_C{}/B{}_T{}".format(C, B, T),
+                      lambda: gru_fullfused._launch_int8_recurrence(
+                          xp[0], xp[1], w[2], w[3], ln, cluster=(C, 8)))
+            del xp
+        del x
+    # bilstm_fused at the read-level path's shape (B=128, T=1000, H=128)
+    # and over one column; on a tree with the LSTM cluster forward, on
+    # clusters of 1, 2 and 4 blocks too
+    T = 1000
+    for B in (128, 1):
+        args = cs.random_lstm_inputs(rng, 128, B, T, dev)
+        args = args[:4] + (torch.full((B,), T, dtype=torch.int32,
+                                      device=dev),)
+        timed("bilstm_fused/B{}_T{}".format(B, T),
+              lambda: bilstm.bilstm_fused(*args))
+        if hasattr(bilstm, "geometry"):
+            for C in (1, 2, 4):
+                timed("bilstm_fused_C{}/B{}_T{}".format(C, B, T),
+                      lambda: bilstm._launch(*args, cluster=(C, 8)))
     # the split kernels at the inference path's shapes (random net, full
     # lengths); layer 2 on layer 1's outputs
     layers, head = cs.random_net(rng)
@@ -201,7 +286,8 @@ def run(tree, out_path, seed):
     torch.cuda.synchronize()
     torch.save({"tree": os.path.abspath(tree), "card": cs.card_line(),
                 "outputs": outputs, "times": times, "train_step": step,
-                "split_geometry": geometries}, out_path)
+                "split_geometry": geometries, "profiles": profiles},
+               out_path)
     print("chip_ab: {} outputs, {} times of {} -> {}".format(
         len(outputs), len(times), tree, out_path))
     return 0
@@ -228,17 +314,27 @@ def compare(paths):
     for key in keys:
         report["times_ms"][key] = [r["times"].get(key) for r in runs]
     report["split_geometry"] = [r.get("split_geometry", {}) for r in runs]
+    report["profiles_ms"] = [r.get("profiles", {}) for r in runs]
     differ = sorted(k for k, row in report["outputs"].items()
                     if any(v != "identical" for v in row))
     print(json.dumps(report, indent=1))
     print("outputs that differ from the first file's: {}".format(
         json.dumps(differ)))
-    # the int8 layer 2's logits may differ by the order of the head's sum;
-    # every other output must repeat the first file's bits
+    # the int8 layer 2's logits may differ by the order of the head's sum,
+    # the f32-gates and int8 fullfused layers over random inputs by the
+    # order of the projection stage's sums (one bf16 step of a
+    # projection), and bilstm_fused (the LSTM cluster forward since PR 10)
+    # by the order of its recurrent product's f32 sums; every other
+    # output, the fullfused layers over exact projections included, must
+    # repeat the first file's bits
     others = [k for k in differ
-              if not (k.startswith("gru_split/") and "/True/l2head" in k)]
-    print("outputs other than the int8 logits that differ: {}".format(
-        json.dumps(others)))
+              if not (k.startswith("gru_split/") and "/True/l2head" in k)
+              and not k.startswith(("bigru_fullfused/f32_gates/",
+                                    "bigru_fullfused/int8/",
+                                    "bilstm_fused"))]
+    print("outputs other than the int8 logits, the fullfused layers over "
+          "random projections and bilstm_fused that differ: {}".format(
+              json.dumps(others)))
     return 0
 
 

@@ -14,9 +14,11 @@ Phases, each of which fails the script when it fails:
    read-matrix library with ``g++``; print ptxas's registers, shared
    memory and spills of every kernel, by name for the cluster
    recurrences (``lstm_fwd_kernel``, ``lstm_bwd_kernel``,
-   ``gru_cluster_bwd_kernel``, and ``gru_cluster_fwd_kernel`` in both
-   ``gru_train.cu`` and ``gru_fullfused.cu``), ``rnn_dw_kernel``,
-   ``bigru_proj_kernel`` and the split kernels (``gru_l1_split_s8_kernel``
+   ``gru_cluster_bwd_kernel``, ``gru_cluster_fwd_kernel`` in both
+   ``gru_train.cu`` and ``gru_fullfused.cu``, and ``lstm_fwd_kernel`` in
+   ``bilstm.cu`` too), ``rnn_dw_kernel``, the projection stages
+   ``bigru_proj_mma_kernel`` and ``bigru_proj_kernel``, the bf16-gates
+   ``gru_rec_kernel`` and the split kernels (``gru_l1_split_s8_kernel``
    and ``gru_l2head_split_s8_kernel``, the int8 cluster kernels, and the
    bf16 ``gru_l1_split_kernel`` and ``gru_l2head_split_kernel``);
 3. hold the split-path GRU kernels against their plain PyTorch versions
@@ -24,9 +26,10 @@ Phases, each of which fails the script when it fails:
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
    at B=64, each with int8 quantisation on and off, and against
    themselves run again (bit for bit); in int8, layer 1 bit-identical to
-   its plain version; hold the bi-LSTM
-   kernel against its plain version at H=128 (B=128, T=1000) and H=384
-   (B=32, T=500), ragged lengths, random weights;
+   its plain version; hold the bi-LSTM kernel (the LSTM cluster forward,
+   both directions in one grid) against its plain version at H=128
+   (B=128, T=1000) and H=384 (B=32, T=500), ragged lengths, random
+   weights;
 4. write a synthetic 0.5 Mb BAM at depth 20 and its draft;
 5. the counts main path: ``medaka_tpu_torch inference`` with the bundled
    ``gru256_lambda_demo_model_pt`` at chunk_len 10000 and the automatic
@@ -53,7 +56,8 @@ Phases, each of which fails the script when it fails:
    the model through the kernel's plain version, a stage breakdown
    (CUDA events), and the kernel's time beside its plain version, its
    serial floor (one column), the cuDNN ``nn.LSTM`` yardstick and its
-   bound;
+   bound, its launch geometry and microseconds a step; a profile of one
+   launch must show ``lstm_fwd_kernel`` and no ``bilstm_kernel``;
 10. hold the GRU training kernels (``gru_fwd``, ``gru_bwd``: both on
     clusters of C blocks with W_hh in their shared memory, mma.sync)
     against their plain versions at full width (H=256, B=128, T=1000,
@@ -107,7 +111,10 @@ Phases, each of which fails the script when it fails:
     ``bigru_fullfused_int8`` and ``bigru_fused``) against their plain
     versions at H=256, B=16, T=2000 for layer 1 (10 inputs) and layer 2
     (512 inputs), and through a 3-layer H=96 stack at B=31, T=500, ragged
-    lengths with a padded row, each bit for bit on a second launch; then
+    lengths with a padded row, each bit for bit on a second launch (the
+    f32-gates and int8 modes: the tensor-core projection stage within one
+    bf16 step of ``project_plain``, the recurrence against its plain
+    version over the stage's projections); then
     ``gru_fwd`` and ``bigru_fused`` timed at that small width (H=96,
     B=31, T=500), each held against its plain version;
 17. (after phase 9) the small-batch path: ``inference --batch_size 16``
@@ -115,8 +122,9 @@ Phases, each of which fails the script when it fails:
     ``sequence --qualities``, with the launch counts set to 0 just before:
     two launches of the f32-gates fullfused kernel a batch and none of the
     split kernels, identity >= 0.99; one batch of 16 through the model
-    against the kernels' plain versions, and the entry points of the other
-    modes (``recurrent_quant`` "bf16_gates" and "int8",
+    against the kernels' plain versions, in the f32-gates and the int8
+    mode (each launch with its projection stage), and the entry points of
+    the other modes (``recurrent_quant`` "bf16_gates" and "int8",
     ``bigru_stack_fused``) over it;
 18. the direct route: ``prediction.predict_direct`` at batch 16 (the same
     launches) and at the automatic batch (the split kernels), each
@@ -125,12 +133,15 @@ Phases, each of which fails the script when it fails:
 19. each fullfused kernel on layer 2 of the bundle at B=16, T=10000,
     H=256: against its plain version, its time beside the plain
     version's, its serial floor, the cuDNN ``nn.GRU`` yardstick and its
-    bound; for the f32-gates mode and ``bigru_fused`` (the cluster
-    recurrence) also the microseconds a step, the launch geometry and the
-    profiler's split into the projection stage and the recurrence (a
-    profiled launch must run ``gru_cluster_fwd_kernel`` and no
-    ``gru_rec_kernel``); then print one ``kernels`` JSON line (eleven
-    rows).
+    bound, the microseconds a step and the profiler's split into the
+    projection stage and the recurrence, and for the cluster modes the
+    launch geometry: a profiled f32-gates or int8 launch must run
+    ``bigru_proj_mma_kernel`` and ``gru_cluster_fwd_kernel`` and neither
+    ``bigru_proj_kernel`` nor ``gru_rec_kernel``, a bf16-gates launch those
+    two and neither of the others, ``bigru_fused`` the cluster recurrence
+    alone; the projection stage alone against ``project_plain``, timed
+    beside its plain version, its bound and ``torch.addmm``; then print one
+    ``kernels`` JSON line (twelve rows).
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -185,12 +196,33 @@ REPLACES = {
                             "fullfused_int8 :844)",
     "bigru_fused": "medaka_tpu/ops/pallas_gru.py:165 _bigru_kernel "
                    "(bigru_pallas :229)",
+    "bigru_project": "medaka_tpu/ops/pallas_gru.py:527-534, the projection "
+                     "stage of _bigru_fullfused_kernel (bigru_pallas_"
+                     "fullfused :675) and of _bigru_fullfused_int8_kernel "
+                     "(bigru_pallas_fullfused_int8 :844)",
 }
 FULLFUSED_SOURCE = "medaka_tpu_torch/csrc/gru_fullfused.cu"
 #: the int8 split kernels (csrc/gru_split.cu), by the row they serve
 SPLIT_KERNELS = ("gru_l1_split_s8_kernel", "gru_l2head_split_s8_kernel")
 SPLIT_KERNEL_OF = dict(zip(("gru_l1_split", "gru_l2head_split"),
                            SPLIT_KERNELS))
+#: the kernels a profile of one launch must show, and must not show, by
+#: row: the cluster recurrence (f32 gates, int8) after the tensor-core
+#: projection stage; the per-block recurrence (bf16 gates) after the CUDA
+#: cores' stage; the LSTM cluster forward for bilstm_fused
+PROFILE_KERNELS = {
+    "bigru_fullfused/f32_gates": (
+        ("gru_cluster_fwd_kernel<0,", "bigru_proj_mma_kernel"),
+        ("gru_rec_kernel", "bigru_proj_kernel")),
+    "bigru_fullfused_int8": (
+        ("gru_cluster_fwd_kernel<2,", "bigru_proj_mma_kernel"),
+        ("gru_rec_kernel", "bigru_proj_kernel")),
+    "bigru_fullfused/bf16_gates": (
+        ("gru_rec_kernel", "bigru_proj_kernel"),
+        ("gru_cluster_fwd_kernel", "bigru_proj_mma_kernel")),
+    "bigru_fused": (("gru_cluster_fwd_kernel<0,",), ("gru_rec_kernel",)),
+    "bilstm_fused": (("lstm_fwd_kernel",), ("bilstm_kernel",)),
+}
 #: kernel mode of each fullfused row; "fused" is bigru_pallas (#6)
 FULLFUSED_MODES = {"bigru_fullfused/f32_gates": "f32_gates",
                    "bigru_fullfused/bf16_gates": "bf16_gates",
@@ -793,42 +825,110 @@ def kernels_ms(fn):
     return by_kernel
 
 
+def bare(name):
+    """A profiler's kernel name without the "void " it gives a template
+    kernel and not a plain one."""
+    return name[5:] if name.startswith("void ") else name
+
+
 def split_ms(by_kernel, prefixes, launches=1):
     """{prefix: ms a launch} of the kernels whose profiler names start with
-    each prefix, over ``launches`` launches of each."""
+    each prefix (with or without "void "), over ``launches`` launches of
+    each."""
     return {p: sum(v for k, v in (by_kernel or {}).items()
-                   if k.startswith(p)) / launches for p in prefixes}
+                   if bare(k).startswith(bare(p))) / launches
+            for p in prefixes}
 
 
-def check_cluster_forward(name, by_kernel):
-    """Fail unless a profile (``kernels_ms``) of f32-gates GRU forward
-    launches (``gru_fwd``, ``bigru_fused``, ``bigru_fullfused``'s default
-    mode) shows ``gru_cluster_fwd_kernel`` and no ``gru_rec_kernel`` (the
-    per-block recurrence, which only the bf16-gates and int8 modes run),
-    or if there is no profile to check."""
+def check_cluster_forward(name, by_kernel,
+                          kernels=PROFILE_KERNELS["bigru_fused"]):
+    """Fail unless a profile (``kernels_ms``) of ``name``'s launches shows
+    a kernel starting with each prefix of ``kernels[0]`` and none starting
+    with a prefix of ``kernels[1]`` (:data:`PROFILE_KERNELS`; by default an
+    f32-gates GRU forward: ``gru_fwd``, ``bigru_fused``, ``bigru_fullfused``'s
+    default mode, which must run ``gru_cluster_fwd_kernel`` and no
+    ``gru_rec_kernel``), or if there is no profile to check."""
     if not by_kernel:
         raise AssertionError("no profile of {}: its kernels cannot be "
                              "checked".format(name))
-    if any(k.startswith("void gru_rec_kernel") for k in by_kernel) or \
-            not any(k.startswith("void gru_cluster_fwd_kernel")
-                    for k in by_kernel):
+    want, refuse = kernels
+    names = [bare(k) for k in by_kernel]
+    if any(k.startswith(tuple(bare(r) for r in refuse)) for k in names) or \
+            not all(any(k.startswith(bare(w)) for k in names)
+                    for w in want):
         raise AssertionError("{} ran {}".format(name, sorted(by_kernel)))
 
 
-def cluster_launch_ms(name, fn, prefixes):
+#: one fullfused launch of random inputs profiled in a fresh process:
+#: argv = checkout, mode, T, B, IN, H; prints {kernel: ms} as JSON
+PROFILE_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from medaka_tpu_torch.ops import gru_fullfused
+mode = sys.argv[2]
+T, B, IN, H = (int(v) for v in sys.argv[3:7])
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+def u(*shape):
+    return (torch.rand(*shape, device=dev, generator=g) * 2 - 1) / H ** 0.5
+x = (u(T, B, IN) * H ** 0.5).to(torch.bfloat16)
+w = (u(2, 3 * H, IN), u(2, 3 * H), u(2, 3 * H, H), u(2, 3 * H))
+lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+def launch():
+    return gru_fullfused.fullfused_layer(x, *w, lengths, mode)
+launch()
+torch.cuda.synchronize()
+by_kernel = {}
+for _ in range(3):
+    by_kernel = cs.kernels_ms(launch) or {}
+    if by_kernel:
+        break
+print(json.dumps(by_kernel))
+"""
+
+
+def child_profile(mode, T, B, IN, H):
+    """{kernel: ms} of one fullfused launch in mode ``mode`` at (T, B, IN,
+    H) on random inputs, profiled in a fresh process (:data:`PROFILE_CHILD`;
+    the kernels are already built); {} where that trace is empty too."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PROFILE_CHILD, HERE, mode, str(T), str(B),
+         str(IN), str(H)], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("the profile process failed: {}".format(
+            proc.stderr[-2000:]))
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def cluster_launch_ms(name, fn, prefixes,
+                      kernels=PROFILE_KERNELS["bigru_fused"], child=None):
     """{prefix: ms} of the kernels of one call of ``fn`` (the profiler),
-    a launch of an f32-gates GRU forward, checked by
-    :func:`check_cluster_forward`; a trace that records no kernel at all
-    (the measurement tool now and then returns one) is taken again, up
-    to three times."""
-    for attempt in range(3):
+    a launch of ``name``, checked by :func:`check_cluster_forward` against
+    ``kernels``; a trace that records no kernel at all (the measurement
+    tool now and then returns one, and in one process it returned only
+    such traces of the bf16-gates launch after the other modes' profiles)
+    is taken again, up to five times, and then, where ``child`` is given,
+    ``child()`` profiles the same launch on random inputs of the same
+    shape in a fresh process (the result then says "profiled": "child")."""
+    import torch
+    by_kernel, how = None, "this process"
+    for attempt in range(5):
+        torch.cuda.synchronize()
         by_kernel = kernels_ms(fn)
         if by_kernel:
             break
         log("   the profiler recorded no kernel of {} (trace {})".format(
             name, attempt + 1))
-    check_cluster_forward(name, by_kernel)
-    return split_ms(by_kernel, prefixes)
+        time.sleep(0.5)
+    if not by_kernel and child is not None:
+        by_kernel, how = child(), "child"
+    check_cluster_forward(name, by_kernel, kernels)
+    out = split_ms(by_kernel, prefixes)
+    if how == "child":
+        out["profiled"] = "child"
+    return out
 
 
 def split_launch_ms(name, fn):
@@ -845,9 +945,10 @@ def split_launch_ms(name, fn):
     if not by_kernel:
         raise AssertionError("no profile of {}: its kernels cannot be "
                              "checked".format(name))
-    old = ("void gru_l1_split_kernel", "void gru_l2head_split_kernel")
-    if any(k.startswith(old) for k in by_kernel) or not any(
-            k.startswith("void " + SPLIT_KERNEL_OF[name]) for k in by_kernel):
+    old = ("gru_l1_split_kernel", "gru_l2head_split_kernel")
+    names = [bare(k) for k in by_kernel]
+    if any(k.startswith(old) for k in names) or not any(
+            k.startswith(SPLIT_KERNEL_OF[name]) for k in names):
         raise AssertionError("{} ran {}".format(name, sorted(by_kernel)))
     return {k: v for k, v in by_kernel.items() if "split" in k}
 
@@ -1598,13 +1699,42 @@ def fullfused_calls(gru_fullfused, mode, x, w, lengths):
             lambda: gru_fullfused.bigru_fullfused_plain(x, *w, lengths, mode))
 
 
+def bf16_step(v):
+    """One bf16 step at the magnitude of v's largest element."""
+    return 2.0 ** (math.floor(math.log2(v.float().abs().max().item())) - 7)
+
+
+def compare_projection(gru_fullfused, x, w_ih, b_ih):
+    """The tensor-core projection stage (``gru_fullfused.project``, the
+    stage of the f32-gates and int8 modes) against ``project_plain``: its
+    f32 sums run in the tensor cores' order, so an element may round to the
+    neighbouring bf16 value. Fails past one bf16 step of the largest
+    projection or where 1% of the elements or more differ. Returns
+    ({"max", "bar", "share_differing"}, the kernel's projections)."""
+    import torch
+    got = gru_fullfused.project(x, w_ih, b_ih)
+    want = gru_fullfused.project_plain(x, w_ih, b_ih)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    stats = {"max": diff.max().item(), "bar": bf16_step(want),
+             "share_differing": (diff > 0).float().mean().item()}
+    if stats["max"] > stats["bar"] or stats["share_differing"] >= 1e-2:
+        raise AssertionError("the projection stage disagrees with "
+                             "project_plain: {}".format(stats))
+    return stats, got
+
+
 def compare_fullfused(gru_fullfused, mode, x, w, lengths):
     """One layer through the kernel (twice) against its plain version.
 
-    Returns (kernel output, {"max", "mean", "bar"}, the plain version's
-    ms); fails past the bar (TOL_GRU_FWD, one bf16 step of the largest
-    output in mode "bf16_gates"; mean TOL_L1_MEAN) or if the second launch
-    differs.
+    The bf16-gates mode and ``bigru_fused`` are held against their plain
+    versions whole; the f32-gates and int8 modes' recurrence against
+    ``recurrence_plain`` over the tensor-core stage's projections, and the
+    stage against ``project_plain`` (:func:`compare_projection`). Returns
+    (kernel output, {"max", "mean", "bar"[, "projection",
+    "vs_whole_plain_max"]}, the whole plain version's ms); fails past the
+    bar (TOL_GRU_FWD, one bf16 step of the largest output in mode
+    "bf16_gates"; mean TOL_L1_MEAN) or if the second launch differs.
     """
     import torch
     kernel, plain = fullfused_calls(gru_fullfused, mode, x, w, lengths)
@@ -1612,18 +1742,23 @@ def compare_fullfused(gru_fullfused, mode, x, w, lengths):
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    want = plain()
+    whole = plain()
     stop.record()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError("{} does not repeat bit for bit".format(mode))
+    want, extra = whole, {}
+    if mode in ("f32_gates", "int8"):
+        extra["projection"], xp = compare_projection(gru_fullfused, x, w[0],
+                                                     w[1])
+        want = gru_fullfused.recurrence_plain(xp[0], xp[1], w[2], w[3],
+                                              lengths, mode)
+        extra["vs_whole_plain_max"] = (
+            got.float() - whole.float()).abs().max().item()
     diff = (got.float() - want.float()).abs()
-    bar = TOL_GRU_FWD
-    if mode == "bf16_gates":
-        bar = 2.0 ** (math.floor(math.log2(want.float().abs().max().item()))
-                      - 7)
+    bar = bf16_step(want) if mode == "bf16_gates" else TOL_GRU_FWD
     stats = {"max": diff.max().item(), "mean": diff.mean().item(),
-             "bar": bar}
+             "bar": bar, **extra}
     if stats["max"] > bar or stats["mean"] > TOL_L1_MEAN:
         raise AssertionError("{} disagrees with its plain version: {}".format(
             mode, stats))
@@ -1631,7 +1766,8 @@ def compare_fullfused(gru_fullfused, mode, x, w, lengths):
 
 
 def fullfused_bound(name, B, H, IN, lengths_sum):
-    """Least time (ms) of one bi-GRU layer call, what bounds it, the bytes.
+    """Least time (ms) of one bi-GRU layer call (or of its projection
+    stage alone, ``name`` "bigru_project"), what bounds it, the bytes.
 
     Counted over the valid columns (``lengths_sum``), as for the other
     kernels. Bytes: the layer input (bf16 x, or both directions' bf16
@@ -1650,6 +1786,15 @@ def fullfused_bound(name, B, H, IN, lengths_sum):
     else:
         nbytes += lengths_sum * IN * 2 + 2 * G * IN * 4
         proj_macs = 2 * lengths_sum * G * IN
+    if name == "bigru_project":
+        # x in, both directions' bf16 projections out, f32 W_ih and b_ih in
+        nbytes = (lengths_sum * IN * 2 + 2 * lengths_sum * G * 2
+                  + 2 * (G * IN + G) * 4)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 2 * 2 * lengths_sum * G * IN / PEAK_BF16 * 1e3
+        if t_bytes >= t_ops:
+            return t_bytes, "bytes", nbytes
+        return t_ops, "operations", nbytes
     rec_peak = PEAK_INT8 if name == "bigru_fullfused_int8" else PEAK_BF16
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (2 * proj_macs / PEAK_BF16
@@ -1766,6 +1911,7 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
         torch.cuda.synchronize()
         t_inference = time.perf_counter() - t0
         mode_launches = dict(gru_fullfused.MODE_LAUNCHES)
+        project_launches = gru_fullfused.LAUNCHES["bigru_project"]
         split_launches = dict(gru_split.LAUNCHES)
         if cli.main(["sequence", hdf, draft, fastq, "--qualities"]) != 0:
             raise AssertionError("sequence --qualities failed")
@@ -1776,11 +1922,13 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                                                        split_launches))
         expected = {k: 0 for k in mode_launches}
         expected["bigru_fullfused/f32_gates"] = 2 * n_batches
-        if mode_launches != expected or sum(split_launches.values()) != 0:
+        if mode_launches != expected or sum(split_launches.values()) != 0 \
+                or project_launches != 2 * n_batches:
             raise AssertionError(
                 "expected {} launches of the f32-gates fullfused kernel (2 "
-                "layers x {} batches) and no other".format(
-                    2 * n_batches, n_batches))
+                "layers x {} batches), each with its projection stage ({}), "
+                "and no other".format(2 * n_batches, n_batches,
+                                      project_launches))
         identity, edits, cons_len = consensus_identity(testing, fastq, draft)
         log("   {} samples, {} columns in {:.2f} s of inference: {:.0f} "
             "columns/s; consensus {} bp, identity to the draft {:.6f} ({} "
@@ -1829,6 +1977,32 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 raise AssertionError("the fullfused route disagrees with "
                                      "its plain version: {}".format(
                                          batch_stats))
+            # the int8 route (the int8 cluster recurrence after the
+            # tensor-core projection) against its plain version, as above
+            got8 = model(x, lengths=lens, compute_dtype=torch.bfloat16,
+                         recurrent_quant="int8")
+            h = x.transpose(0, 1).to(torch.bfloat16).contiguous()
+            for w in layers:
+                h = gru_fullfused.bigru_fullfused_plain(h, *w, lens, "int8")
+            want8 = torch.softmax(
+                h.transpose(0, 1).float() @ model.linear.weight.float().t()
+                + model.linear.bias.float(), -1)
+            diff8 = (got8 - want8).abs()[valid]
+            int8_stats = {
+                "max": diff8.max().item(), "mean": diff8.mean().item(),
+                "argmax_agreement": (got8.argmax(-1) == want8.argmax(-1))[
+                    valid].float().mean().item()}
+            log("   int8 route, B={} T={}: probs max {:.3g} mean {:.3g}, "
+                "argmax agreement {:.6f}".format(
+                    B, T, int8_stats["max"], int8_stats["mean"],
+                    int8_stats["argmax_agreement"]))
+            if int8_stats["max"] > TOL_FULLFUSED_PROB_MAX or \
+                    int8_stats["mean"] > TOL_SCAN_PROB_MEAN or \
+                    int8_stats["argmax_agreement"] < MIN_ARGMAX_AGREEMENT:
+                raise AssertionError("the int8 fullfused route disagrees "
+                                     "with its plain version: {}".format(
+                                         int8_stats))
+            del got8, want8, h
             # the entry points of the other modes over the same batch:
             # GRUModel.forward(recurrent_quant=...) and bigru_stack_fused
             entry_launches = {}
@@ -1912,30 +2086,75 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 floor, _ = fullfused_calls(gru_fullfused, mode, one[0],
                                            layers[1], one[1])
                 timed[name] = (cuda_ms(kernel), plain_ms, cuda_ms(floor))
-                if mode in ("f32_gates", "fused"):
-                    # the cluster recurrence (and the projection stage
-                    # apart from it), at the main shape and over one
-                    # column (profiler)
-                    kernel_name = name.split("/")[0]
-                    row = {"geometry": {
+                # the launch geometry (cluster recurrence), the profiler's
+                # split of a launch into the projection stage and the
+                # recurrence, at the main shape and over one column; each
+                # profile must show the mode's kernels and no other
+                # design's (PROFILE_KERNELS)
+                kernel_name = name.split("/")[0]
+                prefixes = PROFILE_KERNELS[name][0]
+                row = {"kernels": list(prefixes)}
+                if mode != "bf16_gates":
+                    row["geometry"] = {
                         key: dict(zip(("cluster", "columns", "smem_bytes",
                                        "resident_clusters"),
                                       gru_fullfused.cluster_geometry(
                                           H, cols, dev, kernel_name)))
-                        for key, cols in (("main", B), ("one_column", 1))}}
-                    for key, fn in (("main", kernel), ("one_column", floor)):
-                        row[key + "_ms"] = cluster_launch_ms(
-                            name, fn, ("bigru_proj_kernel",
-                                       "void gru_cluster_fwd_kernel"))
-                    rec = row["main_ms"]["void gru_cluster_fwd_kernel"]
-                    rec1 = row["one_column_ms"]["void gru_cluster_fwd_kernel"]
-                    row.update(
-                        step_us=timed[name][0] / T * 1e3,
-                        serial_floor_step_us=timed[name][2] / T * 1e3,
-                        recurrence_step_us=rec / T * 1e3,
-                        recurrence_floor_step_us=rec1 / T * 1e3)
-                    cluster_rows[name] = row
-                    log("   {}: {}".format(name, json.dumps(row)))
+                        for key, cols in (("main", B), ("one_column", 1))}
+                for key, fn, cols in (("main", kernel, B),
+                                      ("one_column", floor, 1)):
+                    child = None
+                    if mode != "fused":
+                        def child(cols=cols):
+                            return child_profile(mode, T, cols, IN, H)
+                    row[key + "_ms"] = cluster_launch_ms(
+                        name, fn, prefixes, PROFILE_KERNELS[name], child)
+                rec_kernel = [p for p in prefixes if "proj" not in p][0]
+                rec = row["main_ms"][rec_kernel]
+                rec1 = row["one_column_ms"][rec_kernel]
+                row.update(
+                    step_us=timed[name][0] / T * 1e3,
+                    serial_floor_step_us=timed[name][2] / T * 1e3,
+                    recurrence_step_us=rec / T * 1e3,
+                    recurrence_floor_step_us=rec1 / T * 1e3)
+                cluster_rows[name] = row
+                log("   {}: {}".format(name, json.dumps(row)))
+            # the tensor-core projection stage alone (the f32-gates and
+            # int8 modes' first kernel) on layer 2's input: against
+            # project_plain, its time, and the one PyTorch call that
+            # computes it as its yardstick (the port never calls it):
+            # torch.addmm of the bf16 operands with f32 output where this
+            # PyTorch has it, then bf16
+            w_ih2, b_ih2 = layers[1][0], layers[1][1]
+            proj_stats, _ = compare_projection(gru_fullfused, h1, w_ih2,
+                                               b_ih2)
+            xf = h1.reshape(-1, IN)
+            wt = [w_ih2[d].to(torch.bfloat16).t() for d in (0, 1)]
+            try:
+                torch.addmm(b_ih2[0], xf[:8], wt[0], out_dtype=torch.float32)
+
+                def addmm():
+                    return [torch.addmm(b_ih2[d], xf, wt[d],
+                                        out_dtype=torch.float32).to(
+                                            torch.bfloat16) for d in (0, 1)]
+                proj_library = ("torch.addmm(b_ih f32, x bf16, W_ih^T bf16, "
+                                "out_dtype=f32).to(bf16), both directions")
+            except (TypeError, RuntimeError):
+                def addmm():
+                    return [torch.addmm(b_ih2[d].to(torch.bfloat16), xf,
+                                        wt[d]) for d in (0, 1)]
+                proj_library = ("torch.addmm(b_ih bf16, x bf16, W_ih^T "
+                                "bf16), both directions (this PyTorch has no "
+                                "out_dtype)")
+            projection = {
+                "ms": cuda_ms(lambda: gru_fullfused.project(h1, w_ih2,
+                                                            b_ih2)),
+                "plain_ms": cuda_ms(lambda: gru_fullfused.project_plain(
+                    h1, w_ih2, b_ih2), reps=1, warmup=0),
+                "library_ms": cuda_ms(addmm), "library": proj_library,
+                "agreement": proj_stats}
+            log("   projection stage alone: {}".format(json.dumps(
+                projection)))
             # yardstick (the port never calls it): cuDNN's bf16 bi-GRU
             # over the same rows, its input projection included
             gru = torch.nn.GRU(IN, H, 1, bidirectional=True).to(
@@ -1983,15 +2202,41 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 "main_shape": main_stats[name]},
         })
         if name in cluster_rows:
-            rows[-1]["cluster_recurrence"] = cluster_rows[name]
+            rows[-1]["cluster_recurrence" if mode != "bf16_gates" else
+                     "per_block_recurrence"] = cluster_rows[name]
         log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
             "column {:.3f} ms; {} launches on {})".format(
                 name, ms, plain_ms, bound_ms, bound_by, floor_ms, launches,
                 path[name]))
+    bound_ms, bound_by, nbytes = fullfused_bound("bigru_project", B, H, IN,
+                                                 lengths_sum)
+    rows.append({
+        "name": "bigru_project", "route": "cuda", "source": FULLFUSED_SOURCE,
+        "replaces": REPLACES["bigru_project"], "launches": project_launches,
+        "launches_on": "inference --batch_size 16 (the projection stage of "
+                       "every bigru_fullfused and bigru_fullfused_int8 "
+                       "launch)",
+        "max_abs_err": projection["agreement"]["max"],
+        "err_measure": "max abs difference of the bf16 projections from "
+                       "project_plain; bar one bf16 step of the largest",
+        "ms": projection["ms"], "kernel_ms": projection["ms"],
+        "plain_ms": projection["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "bound_bytes": nbytes,
+        "library_ms": projection["library_ms"],
+        "library": projection["library"],
+        "shape": {"B": B, "T": T, "H": H, "IN": IN,
+                  "valid_columns": lengths_sum, "layer": 2},
+        "agreement": projection["agreement"],
+        "kernel": "bigru_proj_mma_kernel"})
+    log("   bigru_project: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by "
+        "{}, {} {:.3f} ms; {} launches)".format(
+            projection["ms"], projection["plain_ms"], bound_ms, bound_by,
+            projection["library"], projection["library_ms"],
+            project_launches))
     rows[0]["small_batch"] = {
         "inference_columns_per_s": n_columns / t_inference,
         "identity": identity, "batches": n_batches,
-        "model_vs_plain": batch_stats,
+        "model_vs_plain": batch_stats, "int8_model_vs_plain": int8_stats,
         "direct_columns_per_s": direct_columns / t_direct,
         "direct_auto_columns_per_s": auto_columns / t_auto}
     del model, x, h1
@@ -2062,7 +2307,10 @@ def main(argv=None):
                                        "gru_cluster_bwd_kernel",
                                        "rnn_dw_kernel")),
                      ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",
+                                           "bigru_proj_mma_kernel",
+                                           "gru_rec_kernel",
                                            "bigru_proj_kernel")),
+                     ("bilstm.cu", ("lstm_fwd_kernel",)),
                      ("gru_split.cu", SPLIT_KERNELS + ("gru_l1_split_kernel",
                                                        "gru_l2head_split_kernel")))}
         for source, report in ptxas.items():
@@ -2556,6 +2804,17 @@ def main(argv=None):
                 lstm.flatten_parameters()
                 lib_ms = cuda_ms(lambda: lstm(pooled))
                 del lstm
+                # the launch geometry, and a profile of one launch: the
+                # LSTM cluster forward and no per-block bilstm_kernel
+                lstm_geometry = {
+                    key: dict(zip(("cluster", "columns", "smem_bytes",
+                                   "resident_clusters"),
+                                  bilstm.geometry(H, cols, dev)))
+                    for key, cols in (("main", B), ("one_column", 1))}
+                lstm_profile = cluster_launch_ms(
+                    "bilstm_fused", lambda: bilstm.bilstm_fused(*largs),
+                    PROFILE_KERNELS["bilstm_fused"][0],
+                    PROFILE_KERNELS["bilstm_fused"])
             lstm_sum = int(rl_main.lengths.sum())
             bound_ms, bound_by = bilstm_bound(B, H, lstm_sum)
             rows.append({
@@ -2574,6 +2833,9 @@ def main(argv=None):
                           "valid_columns": lstm_sum},
                 "model_vs_plain": rl_stats, "stages_ms": stages,
                 "read_level_columns_per_s": rl_columns / t_rl,
+                "geometry": lstm_geometry, "launch_profile_ms": lstm_profile,
+                "step_us": lstm_ms / T * 1e3,
+                "serial_floor_step_us": floor_ms / T * 1e3,
             })
             log("   bilstm_fused: {:.3f} ms per layer (plain {:.1f} ms, "
                 "bound {:.4f} ms by {}, one column {:.3f} ms; {})".format(
@@ -2608,8 +2870,14 @@ def main(argv=None):
         "gru_bwd": ("gru_train.cu", ("gru_cluster_bwd_kernel",
                                      "rnn_dw_kernel")),
         "bigru_fullfused/f32_gates": ("gru_fullfused.cu", (
-            "gru_cluster_fwd_kernel", "bigru_proj_kernel")),
+            "gru_cluster_fwd_kernel", "bigru_proj_mma_kernel")),
+        "bigru_fullfused_int8": ("gru_fullfused.cu", (
+            "gru_cluster_fwd_kernel", "bigru_proj_mma_kernel")),
+        "bigru_fullfused/bf16_gates": ("gru_fullfused.cu", (
+            "gru_rec_kernel", "bigru_proj_kernel")),
+        "bigru_project": ("gru_fullfused.cu", ("bigru_proj_mma_kernel",)),
         "bigru_fused": ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",)),
+        "bilstm_fused": ("bilstm.cu", ("lstm_fwd_kernel",)),
         "gru_l1_split": ("gru_split.cu", (SPLIT_KERNEL_OF["gru_l1_split"],)),
         "gru_l2head_split": ("gru_split.cu", (
             SPLIT_KERNEL_OF["gru_l2head_split"],))}

@@ -1,55 +1,60 @@
 // The GRU forward recurrences over pre-projected inputs, shared by
 // gru_train.cu (gru_fwd: one direction a launch) and gru_fullfused.cu
 // (bigru_fullfused, bigru_fused: both directions in one launch). Two
-// designs, one for each kind of numerics:
+// designs:
 //
-// gru_cluster_fwd_kernel, the cluster recurrence: every f32-gates launch
-// (gru_fwd, bigru_fused, bigru_fullfused's default mode), one or two
-// directions (ClusterArgs.dirs) over the caller's projections, started by
-// launch_gru_f32 below. A thread-block cluster of C blocks owns one
-// direction and one tile of BT batch columns; every direction's clusters
-// run in one grid (the cluster index gives the direction and the tile).
-// Block r owns U = Hp / C hidden units and keeps their 3U gate rows of
-// W_hh, bf16, in its shared memory for the whole walk (ClusterGeo of
-// rnn_train.cuh; 192 x 264 x 2 = 101,376 B at H=256, C=4): all of W_hh is
-// 393,216 B at H=256, more than one SM's shared memory. Rows of a slice:
-// unit group q (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n,
-// unit u), three m16 tiles, so in the m16n8k16 accumulator fragments a
-// thread holds r, z and n of units u and u + 8 for two batch columns of
-// each n8 tile: the gates and the f32 carry stay in registers. A step:
-// bf16(h) (BT x Hp) . W_slice^T on the tensor cores (mma.sync, f32
-// accumulation chained over the Hp / 16 k-chunks in order), the f32 gates
-// of the block's units, the block's bf16 h slice through a staging buffer
-// into every cluster block's next h buffer (distributed shared memory,
-// 16-byte stores) and to the outputs; one cluster barrier a step, split
-// into arrive.release / wait.acquire so that the next step's projection
-// loads overlap it. ops/rnn_cluster.py chooses C and BT on the host.
+// gru_cluster_fwd_kernel, the cluster recurrence: every f32-gates and
+// int8 launch (gru_fwd, bigru_fused, bigru_fullfused's default and int8
+// modes), one or two directions (ClusterArgs.dirs) over the caller's
+// projections, started by launch_gru_cluster below. A thread-block
+// cluster of C blocks owns one direction and one tile of BT batch
+// columns; every direction's clusters run in one grid (the cluster index
+// gives the direction and the tile). Block r owns U = Hp / C hidden units
+// and keeps their 3U gate rows of W_hh in its shared memory for the whole
+// walk (ClusterGeo of rnn_train.cuh): bf16 rows of Hp + 8 values, or int8
+// rows of Hp + 16 bytes with per-row scales. Rows of a slice: unit group
+// q (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n, unit u),
+// three m16 tiles, so in the mma accumulator fragments a thread holds r,
+// z and n of units u and u + 8 for two batch columns of each n8 tile: the
+// gates and the f32 carry stay in registers. A step:
+// - h (BT x Hp: bf16(h), or round(127 h) in int8) . W_slice^T on the
+//   tensor cores (mma.sync m16n8k16 bf16 with f32 accumulation chained
+//   over the Hp / 16 k-chunks in order, or m16n8k32 s8 with exact int32
+//   sums in two chains); each warp keeps the A fragments of its first
+//   GRU_KREG k-chunks in registers for the whole walk, so a step loads
+//   only h (and, in bf16 past Hp = 128, the rest of its W rows);
+// - the gates: S warps (gru_gate_split: 4, 2 or 1) share a (unit group,
+//   column tile), each running the tile's product and the gates of 1 / S
+//   of its cells, so that a thread's serial gate arithmetic is short;
+// - each warp's h (bf16, or int8 round(127 h)) through a staging buffer
+//   into every cluster block's next h buffer by st.async, completing its
+//   bytes on that block's mbarrier (rnn_train.cuh StepExchange), and its
+//   bf16 h to the outputs; a block waits on its own mbarrier for the next
+//   step: no cluster barrier in the step loop.
+// ops/rnn_cluster.py chooses C and BT on the host (GRU, GRU_INT8).
 //
 // gru_rec_kernel, the per-block recurrence (bigru_fullfused's bf16-gates
-// and int8 modes only): the TPU kernels walk time blocks on a sequential
-// grid with the carry in VMEM; here one block owns one direction
-// (blockIdx.y) and a tile of BT = CPT * NQ batch columns and loops over
-// all T steps itself; blocks never exchange state. Thread (j, q) owns
-// hidden unit j (gate rows j, H+j, 2H+j) for columns q*CPT ..
-// q*CPT+CPT-1, so a unit's three gates meet in one thread, h stays in
-// registers, and a step needs one __syncthreads (the next step's matmul
-// operand, bf16(h) or round(127 h), is double-buffered in shared memory).
-// W_hh is read in 16-byte chunks (8 bf16 or 16 int8) laid out so that a
-// warp of 32 consecutive units reads 512 contiguous bytes: chunk kc of row
-// r at kc * 3H + r. It sits in dynamic shared memory where it fits (bf16
-// up to H = 192, int8 up to H = 256: 196,608 B) and is read through the
-// read-only cache from L2 on every step otherwise. Its sums are exact (f64
-// for bf16 gates, int32 for int8), which the tensor cores do not give.
+// mode only): one block owns one direction (blockIdx.y) and a tile of BT =
+// CPT * NQ batch columns and loops over all T steps itself; blocks never
+// exchange state. Thread (j, q) owns hidden unit j (gate rows j, H+j,
+// 2H+j) for columns q*CPT .. q*CPT+CPT-1, so a unit's three gates meet in
+// one thread, h stays in registers, and a step needs one __syncthreads
+// (the next step's bf16(h) is double-buffered in shared memory). W_hh is
+// read in 16-byte chunks laid out so that a warp of 32 consecutive units
+// reads 512 contiguous bytes: chunk kc of row r at kc * 3H + r. It sits in
+// dynamic shared memory where it fits (up to H = 192) and is read through
+// the read-only cache from L2 on every step otherwise. Its f64 sums are
+// exact but in the rarest cases, which the tensor cores do not give.
 //
 // Both designs: the forward direction freezes h at t >= length; the
 // reverse one walks time back to front and keeps h = 0 until t < length,
 // so padded columns stay 0. Outputs stay in natural time order.
 //
 // Numerics (NUM), per step with gate order r, z, n:
-// - NUM_F32 (the cluster recurrence): hp = f32(bf16(h) . W_hh_bf16^T) +
-//   b_hh; r = sigmoid(x_r + hp_r), z = sigmoid(x_z + hp_z),
-//   n = tanh(x_n + r hp_n), h' = (1 - z) n + z h, carried in f32
-//   (gru_pallas, bigru_pallas, the fullfused kernel's default).
+// - NUM_F32: hp = f32(bf16(h) . W_hh_bf16^T) + b_hh; r = sigmoid(x_r +
+//   hp_r), z = sigmoid(x_z + hp_z), n = tanh(x_n + r hp_n), h' = (1 - z) n
+//   + z h, carried in f32 (gru_pallas, bigru_pallas, the fullfused
+//   kernel's default).
 // - NUM_BF16G: bf16(hp), every gate op rounded to bf16, the exp(-|v|) /
 //   exp(-2|v|) forms of sigmoid and tanh, the blend on bf16 h
 //   (pallas_gru.py:539-558). The recurrent product is summed in f64 and
@@ -57,7 +62,7 @@
 //   bf16(hp) from another f32 summation order feeds back and grows over
 //   the steps, so this mode's product is made independent of the order.
 // - NUM_INT8: an int8 W_hh with per-column scales, h quantised as
-//   round(127 h) (half to even); int32 dot products by __dp4a,
+//   round(127 h) (half to even); int32 dot products (exact in any order),
 //   hp = f32(dot) * scale + b_hh, then the f32 gates.
 // They follow the plain PyTorch versions operation by operation: bf16 x
 // bf16 products are exact in f32 and the tensor cores' f32 accumulation
@@ -136,23 +141,22 @@ __device__ __forceinline__ float gru_cell(float h, float xr, float xz,
   return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h));
 }
 
-// bytes of one direction's W_hh (3H x H) in mode num
-__host__ __device__ __forceinline__ size_t rec_w_bytes(int num, int H) {
-  return static_cast<size_t>(3) * H * H * (num == NUM_INT8 ? 1 : 2);
+// bytes of one direction's bf16 W_hh (3H x H)
+__host__ __device__ __forceinline__ size_t rec_w_bytes(int H) {
+  return static_cast<size_t>(3) * H * H * 2;
 }
 
-inline size_t rec_smem_bytes(int num, bool w_smem, int BT, int H) {
-  return (w_smem ? align16(rec_w_bytes(num, H)) : 0) +
-         align16(2 * static_cast<size_t>(BT) * H * (num == NUM_INT8 ? 1 : 2));
+inline size_t rec_smem_bytes(bool w_smem, int BT, int H) {
+  return (w_smem ? align16(rec_w_bytes(H)) : 0) +
+         align16(2 * static_cast<size_t>(BT) * H * 2);
 }
 
 // per direction d (blockIdx.y < dirs): projections xp[d] (T, B, 3H) bf16,
-// W_hh chunks w_hh[d], scales hh_scale[d] (3H, NUM_INT8 only), b_hh[d]
-// (3H) f32, h of row (t, b) written at out[d] + (t * B + b) * ld_out
+// W_hh chunks w_hh[d], b_hh[d] (3H) f32, h of row (t, b) written at
+// out[d] + (t * B + b) * ld_out
 struct RecArgs {
   const bf16* xp[2];
   const uint4* w_hh[2];
-  const float* hh_scale[2];
   const float* b_hh[2];
   bf16* out[2];
   int reverse[2];
@@ -160,21 +164,12 @@ struct RecArgs {
   int ld_out, T, B, H, NQ, dirs;
 };
 
-// v[d] with d in {0, 1} without indexing the kernel's parameter array at
-// run time (which would copy it to local memory)
-template <typename V>
-__device__ __forceinline__ V pick(const V (&v)[2], int d) {
-  return d ? v[1] : v[0];
-}
-
-// grid (ceil(B / BT), dirs), block H * NQ threads; NUM_BF16G or NUM_INT8
+// grid (ceil(B / BT), dirs), block H * NQ threads; NUM_BF16G only
 template <int CPT, bool W_SMEM, int NUM>
 __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
-  static_assert(NUM == NUM_BF16G || NUM == NUM_INT8,
-                "f32 gates run the cluster recurrence");
+  static_assert(NUM == NUM_BF16G,
+                "f32 gates and int8 run the cluster recurrence");
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool QUANT = NUM == NUM_INT8;
-  constexpr int ESZ = QUANT ? 1 : 2;  // bytes of one matmul operand of h
   const int d = blockIdx.y;
   const bool reverse = pick(a.reverse, d) != 0;
   const int T = a.T, B = a.B, H = a.H;
@@ -184,27 +179,25 @@ __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
   const int j = tid % H;
   const int c0 = (tid / H) * CPT;
   const int H3 = 3 * H;
-  const int kchunks = H * ESZ / 16;
+  const int kchunks = H / 8;  // 16-byte chunks of 8 bf16 a row
   const size_t wchunks = static_cast<size_t>(kchunks) * H3;
 
   unsigned char* p = smem;
   uint4* w_s = reinterpret_cast<uint4*>(p);
   if (W_SMEM) p += align16(wchunks * 16);
-  unsigned char* act_s = p;  // [2][BT][H] bf16(h) or int8 round(127 h)
+  bf16* act_s = reinterpret_cast<bf16*>(p);  // [2][BT][H] bf16(h)
 
   const uint4* w_dir = pick(a.w_hh, d);
   if (W_SMEM) {
     for (size_t i = tid; i < wchunks; i += blockDim.x) w_s[i] = w_dir[i];
   }
   const uint4* wmat = W_SMEM ? w_s : w_dir;
-  for (int i = tid; i < 2 * BT * H * ESZ; i += blockDim.x) act_s[i] = 0;
+  for (int i = tid; i < 2 * BT * H; i += blockDim.x)
+    act_s[i] = __float2bfloat16_rn(0.0f);
 
-  float bh[3], sc[3];
+  float bh[3];
 #pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    bh[g] = pick(a.b_hh, d)[g * H + j];
-    sc[g] = QUANT ? pick(a.hh_scale, d)[g * H + j] : 1.0f;
-  }
+  for (int g = 0; g < 3; ++g) bh[g] = pick(a.b_hh, d)[g * H + j];
   int len[CPT];
   float h[CPT];
 #pragma unroll
@@ -236,57 +229,29 @@ __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
     const int t = reverse ? T - 1 - i : i;
     if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1, x_next);
 
-    // recurrent pre-activations hp = W_hh h (+ scale) + b_hh
+    // recurrent pre-activations hp = bf16(f32(W_hh bf16(h)) + b_hh)
     float hp[3][CPT];
-    const uint4* av =
-        reinterpret_cast<const uint4*>(act_s + cur * BT * H * ESZ);
-    if (QUANT) {
-      int acc[3][CPT] = {};
-      for (int kc = 0; kc < kchunks; ++kc) {
-        uint4 w[3];
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-          w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          const uint4 q = av[(c0 + cc) * kchunks + kc];
-#pragma unroll
-          for (int g = 0; g < 3; ++g) {
-            acc[g][cc] = __dp4a(static_cast<int>(w[g].x), static_cast<int>(q.x), acc[g][cc]);
-            acc[g][cc] = __dp4a(static_cast<int>(w[g].y), static_cast<int>(q.y), acc[g][cc]);
-            acc[g][cc] = __dp4a(static_cast<int>(w[g].z), static_cast<int>(q.z), acc[g][cc]);
-            acc[g][cc] = __dp4a(static_cast<int>(w[g].w), static_cast<int>(q.w), acc[g][cc]);
-          }
-        }
-      }
+    const uint4* av = reinterpret_cast<const uint4*>(act_s + cur * BT * H);
+    double acc[3][CPT] = {};
+    for (int kc = 0; kc < kchunks; ++kc) {
+      uint4 w[3];
 #pragma unroll
       for (int g = 0; g < 3; ++g)
+        w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
 #pragma unroll
-        for (int cc = 0; cc < CPT; ++cc)
-          hp[g][cc] = __fadd_rn(
-              __fmul_rn(static_cast<float>(acc[g][cc]), sc[g]), bh[g]);
-    } else {
-      double acc[3][CPT] = {};
-      for (int kc = 0; kc < kchunks; ++kc) {
-        uint4 w[3];
+      for (int cc = 0; cc < CPT; ++cc) {
+        const uint4 hv = av[(c0 + cc) * kchunks + kc];
 #pragma unroll
-        for (int g = 0; g < 3; ++g)
-          w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          const uint4 hv = av[(c0 + cc) * kchunks + kc];
-#pragma unroll
-          for (int g = 0; g < 3; ++g) acc[g][cc] = dot8_bf16_f64(w[g], hv, acc[g][cc]);
-        }
+        for (int g = 0; g < 3; ++g) acc[g][cc] = dot8_bf16_f64(w[g], hv, acc[g][cc]);
       }
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc)
-          hp[g][cc] = bf16r(__fadd_rn(__double2float_rn(acc[g][cc]), bh[g]));
     }
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc)
+        hp[g][cc] = bf16r(__fadd_rn(__double2float_rn(acc[g][cc]), bh[g]));
 
-    unsigned char* act_n = act_s + (cur ^ 1) * BT * H * ESZ;
+    bf16* act_n = act_s + (cur ^ 1) * BT * H;
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) {
       const float h_new = gru_cell<NUM>(
@@ -296,13 +261,7 @@ __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
       if (t < len[cc]) h[cc] = h_new;
       const bf16 hb = __float2bfloat16_rn(h[cc]);
       const int c = c0 + cc;
-      if (QUANT) {
-        int q = __float2int_rn(__fmul_rn(h[cc], 127.0f));
-        q = max(-128, min(127, q));
-        act_n[c * H + j] = static_cast<unsigned char>(static_cast<int8_t>(q));
-      } else {
-        reinterpret_cast<bf16*>(act_n)[c * H + j] = hb;
-      }
+      act_n[c * H + j] = hb;
       const int b = b0 + c;
       if (b < B) out[(static_cast<size_t>(t) * B + b) * a.ld_out + j] = hb;
     }
@@ -316,11 +275,11 @@ __global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
   }
 }
 
-template <int CPT, bool W_SMEM, int NUM>
+template <int CPT, bool W_SMEM>
 cudaError_t launch_rec(const RecArgs& a, cudaStream_t stream) {
   const int BT = CPT * a.NQ;
-  const size_t smem = rec_smem_bytes(NUM, W_SMEM, BT, a.H);
-  auto kern = gru_rec_kernel<CPT, W_SMEM, NUM>;
+  const size_t smem = rec_smem_bytes(W_SMEM, BT, a.H);
+  auto kern = gru_rec_kernel<CPT, W_SMEM, NUM_BF16G>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -329,51 +288,93 @@ cudaError_t launch_rec(const RecArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool W_SMEM, int NUM>
+template <bool W_SMEM>
 cudaError_t dispatch_rec_cpt(int cpt, const RecArgs& a, cudaStream_t s) {
   switch (cpt) {
-    case 1: return launch_rec<1, W_SMEM, NUM>(a, s);
-    case 2: return launch_rec<2, W_SMEM, NUM>(a, s);
-    case 4: return launch_rec<4, W_SMEM, NUM>(a, s);
+    case 1: return launch_rec<1, W_SMEM>(a, s);
+    case 2: return launch_rec<2, W_SMEM>(a, s);
+    case 4: return launch_rec<4, W_SMEM>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// the per-block recurrence in mode NUM (NUM_BF16G or NUM_INT8) over a
-// tile of cpt * a.NQ columns, W_hh in shared memory (w_smem) or read from
-// L2
-template <int NUM>
-cudaError_t dispatch_rec(int cpt, int w_smem, const RecArgs& a,
-                         cudaStream_t s) {
+// the per-block recurrence (bf16 gates) over a tile of cpt * a.NQ
+// columns, W_hh in shared memory (w_smem) or read from L2
+inline cudaError_t dispatch_rec(int cpt, int w_smem, const RecArgs& a,
+                                cudaStream_t s) {
   if (a.T < 1 || a.B < 1 || a.dirs < 1 || a.dirs > 2 || bad_shape(a.H, a.NQ))
     return cudaErrorInvalidValue;
-  return w_smem ? dispatch_rec_cpt<true, NUM>(cpt, a, s)
-                : dispatch_rec_cpt<false, NUM>(cpt, a, s);
+  return w_smem ? dispatch_rec_cpt<true>(cpt, a, s)
+                : dispatch_rec_cpt<false>(cpt, a, s);
 }
 
 // ---------------------------------------------------------------------------
-// the cluster recurrence (f32 gates): grid (dirs * ceil(B / BT) * C),
-// cluster (C), block 32 * NG * NP threads
+// the cluster recurrence (f32 gates and int8): grid (dirs * ceil(B / BT) *
+// C), cluster (C), block 32 * NG * NP threads
 // ---------------------------------------------------------------------------
 
 // rows of a slice: unit group q (GRU_UG units) holds rows q*48 + g*16 + u
 constexpr int GRU_UG = 16;
 typedef ClusterGeo<3, GRU_UG> GruGeo;
-// threads of a block at most: a warp for each of at most 4 unit groups
-// and 8 or 16 columns, twice for 32 columns (255 registers a thread)
-constexpr int GRU_MAX_THREADS = 32 * (CLUSTER_MAX_U / GRU_UG) * 2;
+// threads of a block at most (255 registers a thread)
+constexpr int GRU_MAX_THREADS = 256;
+// k-chunks of its W rows a warp keeps in registers for the whole walk
+// (3 x 4 registers a chunk): all of an int8 slice row up to Hp = 256, the
+// first 128 columns of a bf16 one; the rest is read from shared memory
+// on every step
+constexpr int GRU_KREG = 8;
 
-// forward: W slice, h[2], staging of the block's bf16 h [BT][U]
-__host__ __device__ inline size_t gru_cluster_fwd_smem(const GruGeo& g) {
-  return g.w_bytes() + g.h_bytes() + g.st_bytes();
+// units of a block at most in mode num (int8 rows are half as wide)
+__host__ __device__ inline int gru_max_units(int num) {
+  return num == NUM_INT8 ? 2 * CLUSTER_MAX_U : CLUSTER_MAX_U;
+}
+
+// warps that share a (unit group, column tile) of the forward: each runs
+// the tile's whole product and the gates of 1 / S of its cells (S = 2:
+// units u or u + 8; S = 4: and every other column), so that a step's
+// serial gate arithmetic is shorter; the most of 4, 2, 1 whose block
+// stays within GRU_MAX_THREADS
+__host__ __device__ inline int gru_gate_split(const GruGeo& g) {
+  for (int s = 4; s > 1; s /= 2)
+    if (g.threads() * s <= GRU_MAX_THREADS) return s;
+  return 1;
+}
+
+__host__ __device__ inline int gru_fwd_threads(const GruGeo& g) {
+  return g.threads() * gru_gate_split(g);
+}
+
+__host__ __device__ inline bool gru_cluster_bad(int num, int H, int C,
+                                                int BT) {
+  return (num != NUM_F32 && num != NUM_INT8) ||
+         GruGeo::bad(H, C, BT, gru_max_units(num), GRU_MAX_THREADS);
+}
+
+// bytes between two rows of the W slice and of the h buffers: bf16 Hp + 8
+// values, int8 Hp + 16 bytes (odd multiples of 16 bytes)
+__host__ __device__ inline int gru_row_bytes(int num, const GruGeo& g) {
+  return num == NUM_INT8 ? g.Hp + 16 : 2 * g.ldw;
+}
+
+// forward: W slice [3U][row], h [2][BT][row], (int8) the block's staged
+// round(127 h) [BT][U], its staged bf16 h [BT][U], two mbarriers
+__host__ __device__ inline size_t gru_cluster_fwd_smem(int num,
+                                                       const GruGeo& g) {
+  const size_t row = gru_row_bytes(num, g);
+  return align16(g.rows() * row) + align16(2 * g.BT * row) +
+         (num == NUM_INT8 ? align16(static_cast<size_t>(g.BT) * g.U) : 0) +
+         g.st_bytes() + 16;
 }
 
 // per direction d < dirs: projections xp[d] (T, B, 3H) bf16, W_hh slices
-// w_sl[d] (C, 3U, Hp) bf16 (ops/rnn_cluster.py w_slices), b_hh[d] (3H)
-// f32, h of row (t, b) written at out[d] + (t * B + b) * ld_out
+// w_sl[d] (C, 3U, Hp) (ops/rnn_cluster.py w_slices: bf16, or int8 in mode
+// NUM_INT8), the int8 rows' scales hh_scale[d] (C, 3U) f32
+// (rnn_cluster.row_slices; NUM_INT8 only), b_hh[d] (3H) f32, h of row
+// (t, b) written at out[d] + (t * B + b) * ld_out
 struct ClusterArgs {
   const bf16* xp[2];
-  const bf16* w_sl[2];
+  const void* w_sl[2];
+  const float* hh_scale[2];
   const float* b_hh[2];
   bf16* out[2];
   int reverse[2];
@@ -383,15 +384,45 @@ struct ClusterArgs {
 
 // gate gt of cell (hh, c) of a thread: unit gid + 8 hh, column c of its
 // 2 NT (n8 tile c / 2, element c % 2)
-template <int NT>
-__device__ __forceinline__ float gru_gate_acc(const float (&acc)[3][NT][4],
-                                              int gt, int hh, int c) {
+template <int NT, typename Acc>
+__device__ __forceinline__ Acc gru_gate_acc(const Acc (&acc)[3][NT][4],
+                                            int gt, int hh, int c) {
   return acc[gt][c / 2][hh * 2 + c % 2];
 }
 
-template <int NT>
+template <bool Q>
+struct GruAcc {
+  typedef float type;
+};
+template <>
+struct GruAcc<true> {
+  typedef int type;
+};
+
+template <int V>
+struct IntC {
+  static constexpr int value = V;
+};
+
+// f(IntC<s>()) for the warp's share s < S of its tile's cells
+template <int S, typename F>
+__device__ __forceinline__ void with_share(int s, F f) {
+  if (s == 0) f(IntC<0>());
+  if constexpr (S > 1) {
+    if (s == 1) f(IntC<1>());
+  }
+  if constexpr (S > 2) {
+    if (s == 2) f(IntC<2>());
+    if (s == 3) f(IntC<3>());
+  }
+}
+
+template <int NUM, int NT, int S>
 __global__ void __launch_bounds__(GRU_MAX_THREADS)
     gru_cluster_fwd_kernel(ClusterArgs a) {
+  static_assert(NUM == NUM_F32 || NUM == NUM_INT8,
+                "bf16 gates run the per-block recurrence");
+  constexpr bool Q = NUM == NUM_INT8;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, B = a.B, H = a.H, C = a.C, BT = a.BT;
@@ -408,34 +439,54 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int q = warp % g.NG;
-  const int p = warp / g.NG;
+  const int p = (warp / g.NG) % g.NP;
+  const int share = warp / (g.NG * g.NP);
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int U = g.U;
+  const int R = g.rows();
   const int H3 = 3 * H;
-  constexpr int NC = 2 * NT;  // batch columns of a thread
+  constexpr int NC = 2 * NT;   // batch columns of a tile's thread
+  constexpr int ESZ = Q ? 1 : 2;  // bytes of a weight and of an h value
+  const int ldb = gru_row_bytes(NUM, g);
 
-  bf16* w_s = reinterpret_cast<bf16*>(smem);  // [3U][ldw]
-  bf16* h_s = reinterpret_cast<bf16*>(smem + g.w_bytes());  // [2][BT][ldw]
-  // the block's h slice of a step, staged [BT][U]
-  bf16* st_h = reinterpret_cast<bf16*>(smem + g.w_bytes() + g.h_bytes());
+  unsigned char* sp = smem;
+  unsigned char* w_s = sp;  // [3U][ldb]
+  sp += align16(static_cast<size_t>(R) * ldb);
+  unsigned char* h_s = sp;  // [2][BT][ldb]
+  sp += align16(static_cast<size_t>(2) * BT * ldb);
+  int8_t* st8 = reinterpret_cast<int8_t*>(sp);  // [BT][U] (int8)
+  if (Q) sp += align16(static_cast<size_t>(BT) * U);
+  bf16* st_h = reinterpret_cast<bf16*>(sp);  // [BT][U]
+  sp += g.st_bytes();
+  const StepExchange xc{reinterpret_cast<uint64_t*>(sp),
+                        static_cast<uint32_t>(BT * g.Hp * ESZ), T};
 
-  load_slice(w_s, pick(a.w_sl, d), g, r);
-  for (int e = threadIdx.x; e < 2 * BT * g.ldw; e += blockDim.x)
-    h_s[e] = __float2bfloat16_rn(0.0f);
+  load_rows(w_s, ldb,
+            static_cast<const unsigned char*>(pick(a.w_sl, d)) +
+                static_cast<size_t>(r) * R * g.Hp * ESZ,
+            g.Hp * ESZ, R);
+  for (int e = threadIdx.x; e < 2 * BT * ldb / 16; e += blockDim.x)
+    reinterpret_cast<uint4*>(h_s)[e] = make_uint4(0, 0, 0, 0);
+  xc.init();
 
-  // this thread's cells: units ul[hh] (block-local) for columns ncol[c]
+  // the tile's cells: units ul[hh] (block-local) for columns ncol[c]; a
+  // warp computes those of its share (cell_of)
   int ul[2], j[2];
   bool unit_in[2];
-  float bh[2][3];
+  float bh[2][3], sc[2][3];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     ul[hh] = q * GRU_UG + gid + 8 * hh;
     j[hh] = r * U + ul[hh];
     unit_in[hh] = j[hh] < H;
 #pragma unroll
-    for (int gt = 0; gt < 3; ++gt)
+    for (int gt = 0; gt < 3; ++gt) {
       bh[hh][gt] = unit_in[hh] ? b_hh[gt * H + j[hh]] : 0.0f;
+      sc[hh][gt] = Q ? pick(a.hh_scale, d)[r * R + q * 3 * GRU_UG +
+                                           gt * GRU_UG + gid + 8 * hh]
+                     : 1.0f;
+    }
   }
   int ncol[NC], len[NC];
   float h[2][NC];
@@ -447,126 +498,234 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
     h[0][c] = 0.0f;
     h[1][c] = 0.0f;
   }
-  bf16 xr[2][NC][3];
-  auto load_x = [&](int tt) {
+  // share s of S: units hh in [H0, H0 + NH), columns c = C0, C0 + DC, ..
+  auto cells = [&](auto sh, auto f) {
+    constexpr int s = decltype(sh)::value;
+    constexpr int NH = S == 1 ? 2 : 1;
+    constexpr int H0 = S == 1 ? 0 : (S == 2 ? s : s >> 1);
+    constexpr int C0 = S == 4 ? (s & 1) : 0;
+    constexpr int DC = S == 4 ? 2 : 1;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
+    for (int hh = H0; hh < H0 + NH; ++hh)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int b = b0 + ncol[c];
-        const bool in = unit_in[hh] && b < B;
-        const size_t row = (static_cast<size_t>(tt) * B + b) * H3 + j[hh];
-#pragma unroll
-        for (int gt = 0; gt < 3; ++gt)
-          xr[hh][c][gt] = in ? xp[row + gt * H] : __float2bfloat16_rn(0.0f);
-      }
+      for (int c = C0; c < NC; c += DC) f(hh, c);
   };
-  load_x(reverse ? T - 1 : 0);
-  cluster.sync();  // every block running, its h buffers zero
+  bf16 xr[2][NC][3];
+  auto load_x = [&](auto sh, int tt) {
+    cells(sh, [&](int hh, int c) {
+      const int b = b0 + ncol[c];
+      const bool in = unit_in[hh] && b < B;
+      const size_t row = (static_cast<size_t>(tt) * B + b) * H3 + j[hh];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+        xr[hh][c][gt] = in ? xp[row + gt * H] : __float2bfloat16_rn(0.0f);
+    });
+  };
+  with_share<S>(share, [&](auto sh) { load_x(sh, reverse ? T - 1 : 0); });
+  cluster.sync();  // every block running, its W slice loaded, h zero
 
-  const int u8 = U / 8;
+  // the warp's A fragments of its first k-chunks, for the whole walk
+  const int nk = Q ? g.Hp / 32 : g.Hp / 16;
+  uint32_t areg[GRU_KREG][3][4];
+  const int n0 = p * NT * 8;  // the tile's first column
+  {
+    const TileProduct<3, NT, Q> p0(w_s, ldb, q * 3 * GRU_UG, h_s, ldb, n0,
+                                   0, lane);
+#pragma unroll
+    for (int ks = 0; ks < GRU_KREG; ++ks)
+      if (ks < nk) p0.load_a(areg[ks], ks);
+  }
+  const uint32_t h_addr = smem_addr(h_s);
+
   for (int i = 0; i < T; ++i) {
     const int cur = i & 1;
     const int t = reverse ? T - 1 - i : i;
-    if (i > 0) cluster_wait();  // h[cur] complete in this block
+    if (i > 0) xc.wait(i);  // h[cur] complete in this block
 
-    float acc[3][NT][4] = {};
-    gate_product(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
+    // the step's product h . W_slice^T: int8 in two independent chains of
+    // exact int32 sums; bf16 in one f32 chain over the k-chunks in order
+    typedef typename GruAcc<Q>::type Acc;
+    Acc acc[3][NT][4] = {};
+    const TileProduct<3, NT, Q> prod(w_s, ldb, q * 3 * GRU_UG,
+                                     h_s + cur * BT * ldb, ldb, n0, 0, lane);
+    if constexpr (Q) {
+      int acc2[3][NT][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < GRU_KREG; ks += 2) {
+        if (ks < nk) prod.mma(acc, areg[ks], ks);
+        if (ks + 1 < nk) prod.mma(acc2, areg[ks + 1], ks + 1);
+      }
+      for (int ks = GRU_KREG; ks < nk; ks += 2) {
+        prod.step(acc, ks);
+        if (ks + 1 < nk) prod.step(acc2, ks + 1);
+      }
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[gt][nt][e] += acc2[gt][nt][e];
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < GRU_KREG; ++ks)
+        if (ks < nk) prod.mma(acc, areg[ks], ks);
+#pragma unroll 4
+      for (int ks = GRU_KREG; ks < nk; ++ks) prod.step(acc, ks);
+    }
 
+    with_share<S>(share, [&](auto sh) {
+      constexpr int s = decltype(sh)::value;
+      __syncwarp();  // the warp's lanes have sent the last step's staging
+      cells(sh, [&](int hh, int c) {
+        float hp[3];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float h_new = gru_cell<NUM_F32>(
+        for (int gt = 0; gt < 3; ++gt) {
+          const Acc v = gru_gate_acc<NT>(acc, gt, hh, c);
+          hp[gt] = Q ? __fadd_rn(__fmul_rn(static_cast<float>(v),
+                                           sc[hh][gt]),
+                                 bh[hh][gt])
+                     : __fadd_rn(static_cast<float>(v), bh[hh][gt]);
+        }
+        const float h_new = gru_cell<NUM>(
             h[hh][c], __bfloat162float(xr[hh][c][0]),
             __bfloat162float(xr[hh][c][1]), __bfloat162float(xr[hh][c][2]),
-            __fadd_rn(gru_gate_acc<NT>(acc, 0, hh, c), bh[hh][0]),
-            __fadd_rn(gru_gate_acc<NT>(acc, 1, hh, c), bh[hh][1]),
-            __fadd_rn(gru_gate_acc<NT>(acc, 2, hh, c), bh[hh][2]));
+            hp[0], hp[1], hp[2]);
         if (t < len[c]) h[hh][c] = h_new;
         st_h[ncol[c] * U + ul[hh]] = __float2bfloat16_rn(h[hh][c]);
-      }
-    __syncthreads();  // the block's h slice staged
+        if constexpr (Q) {
+          const int v = __float2int_rn(__fmul_rn(h[hh][c], 127.0f));
+          st8[ncol[c] * U + ul[hh]] =
+              static_cast<int8_t>(max(-128, min(127, v)));
+        }
+      });
+      __syncwarp();  // the warp's h staged
 
-    // bf16 h slice into every cluster block's next h buffer (not after
-    // the last step) and to the outputs, 16 bytes a store
-    if (i + 1 < T) {
-      bf16* nxt = h_s + (cur ^ 1) * BT * g.ldw + r * U;
-      for (int e = threadIdx.x; e < C * BT * u8; e += blockDim.x) {
-        const int dst_rank = e / (BT * u8);
-        const int rem = e - dst_rank * BT * u8;
-        const int n = rem / u8;
-        const int k8 = rem - n * u8;
-        bf16* dst =
-            cluster.map_shared_rank(nxt, dst_rank) + n * g.ldw + k8 * 8;
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
+      // the warp's units (16, or 8 where S > 1) of its columns into every
+      // cluster block's next h buffer (not after the last step) and to
+      // the outputs
+      constexpr int UW = S == 1 ? 16 : 8;       // units a column
+      constexpr int COLS = S == 4 ? NT * 4 : NT * 8;  // columns
+      constexpr int U0 = S == 1 ? 0 : (S == 2 ? s : s >> 1) * 8;
+      constexpr int CPC = UW * ESZ > 16 ? 2 : 1;  // stores a column
+      auto col = [&](int m) {
+        return n0 + (S == 4 ? 2 * m + (s & 1) : m);
+      };
+      const int u0 = q * GRU_UG + U0;
+      if (i + 1 < T) {
+        const uint32_t dst0 =
+            h_addr + (cur ^ 1) * BT * ldb + (r * U + u0) * ESZ;
+        for (int e = lane; e < C * COLS * CPC; e += 32) {
+          const int rank = e / (COLS * CPC);
+          const int rem = e - rank * COLS * CPC;
+          const int n = col(rem / CPC);
+          const int ch = rem % CPC;
+          const uint32_t dst = map_rank(dst0 + n * ldb + ch * 16, rank);
+          const uint32_t bar = xc.remote_bar(cur ^ 1, rank);
+          if constexpr (Q && UW == 8)
+            st_async8(dst, bar,
+                      *reinterpret_cast<const uint2*>(st8 + n * U + u0));
+          else if constexpr (Q)
+            st_async16(dst, bar,
+                       *reinterpret_cast<const uint4*>(st8 + n * U + u0));
+          else
+            st_async16(dst, bar,
+                       *reinterpret_cast<const uint4*>(st_h + n * U + u0 +
+                                                       ch * 8));
+        }
       }
-    }
-    for (int e = threadIdx.x; e < BT * u8; e += blockDim.x) {
-      const int n = e / u8;
-      const int k8 = e - n * u8;
-      const int b = b0 + n;
-      const int j0 = r * U + k8 * 8;
-      if (b < B && j0 < H)
-        *reinterpret_cast<uint4*>(
-            out + (static_cast<size_t>(t) * B + b) * a.ld_out + j0) =
-            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
-    }
-    cluster_arrive();
-    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1);
+      constexpr int OPC = UW / 8;  // 16-byte output stores a column
+      if (lane < COLS * OPC) {
+        const int n = col(lane / OPC);
+        const int ch = lane % OPC;
+        const int b = b0 + n;
+        const int j0 = r * U + u0 + ch * 8;
+        if (b < B && j0 < H)
+          *reinterpret_cast<uint4*>(
+              out + (static_cast<size_t>(t) * B + b) * a.ld_out + j0) =
+              *reinterpret_cast<const uint4*>(st_h + n * U + u0 + ch * 8);
+      }
+      if (i + 1 < T) load_x(sh, reverse ? T - 2 - i : i + 1);
+    });
   }
-  cluster_wait();  // no block leaves while another may still write to it
+  cluster.sync();  // no block leaves while another may still write to it
 }
 
-// the cluster recurrence over a.dirs directions
-inline cudaError_t launch_gru_cluster_fwd(const ClusterArgs& a,
-                                          cudaStream_t s) {
-  if (a.T < 1 || a.B < 1 || a.dirs < 1 || a.dirs > 2 ||
-      GruGeo::bad(a.H, a.C, a.BT))
-    return cudaErrorInvalidValue;
+// f(kernel) for the kernel of geometry g in mode NUM
+template <int NUM, typename F>
+cudaError_t with_gru_fwd_kernel(const GruGeo& g, F f) {
+  const int S = gru_gate_split(g);
+  if (g.NT == 2)
+    return S == 4   ? f(gru_cluster_fwd_kernel<NUM, 2, 4>)
+           : S == 2 ? f(gru_cluster_fwd_kernel<NUM, 2, 2>)
+                    : f(gru_cluster_fwd_kernel<NUM, 2, 1>);
+  return S == 4   ? f(gru_cluster_fwd_kernel<NUM, 1, 4>)
+         : S == 2 ? f(gru_cluster_fwd_kernel<NUM, 1, 2>)
+                  : f(gru_cluster_fwd_kernel<NUM, 1, 1>);
+}
+
+template <int NUM>
+cudaError_t launch_gru_cluster_fwd(const ClusterArgs& a, cudaStream_t s) {
   const GruGeo g(a.H, a.C, a.BT);
   const int clusters = a.dirs * ((a.B + a.BT - 1) / a.BT);
-  const size_t smem = gru_cluster_fwd_smem(g);
-  return g.NT == 2 ? launch_cluster(gru_cluster_fwd_kernel<2>, a.C, clusters,
-                                    g.threads(), smem, s, a)
-                   : launch_cluster(gru_cluster_fwd_kernel<1>, a.C, clusters,
-                                    g.threads(), smem, s, a);
+  const size_t smem = gru_cluster_fwd_smem(NUM, g);
+  return with_gru_fwd_kernel<NUM>(g, [&](auto kern) {
+    return launch_cluster(kern, a.C, clusters, gru_fwd_threads(g), smem, s,
+                          a);
+  });
 }
 
-// clusters of the cluster recurrence that can be resident at once at
-// (C, BT, H); a negative value is minus a cudaError_t
-inline int gru_cluster_fwd_max_clusters(int C, int BT, int H) {
-  if (GruGeo::bad(H, C, BT)) return -static_cast<int>(cudaErrorInvalidValue);
+template <int NUM>
+int gru_fwd_max_clusters_of(const GruGeo& g) {
+  int n = 0;
+  const cudaError_t e = with_gru_fwd_kernel<NUM>(g, [&](auto kern) {
+    n = max_clusters(kern, g.C, gru_fwd_threads(g),
+                     gru_cluster_fwd_smem(NUM, g));
+    return cudaSuccess;
+  });
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// clusters of the cluster recurrence in mode num that can be resident at
+// once at (C, BT, H); a negative value is minus a cudaError_t
+inline int gru_cluster_fwd_max_clusters(int num, int C, int BT, int H) {
+  if (gru_cluster_bad(num, H, C, BT))
+    return -static_cast<int>(cudaErrorInvalidValue);
   const GruGeo g(H, C, BT);
-  const size_t smem = gru_cluster_fwd_smem(g);
-  return g.NT == 2
-             ? max_clusters(gru_cluster_fwd_kernel<2>, C, g.threads(), smem)
-             : max_clusters(gru_cluster_fwd_kernel<1>, C, g.threads(), smem);
+  return num == NUM_INT8 ? gru_fwd_max_clusters_of<NUM_INT8>(g)
+                         : gru_fwd_max_clusters_of<NUM_F32>(g);
 }
 
-// Every f32-gates launch: `dirs` directions of the cluster recurrence on
-// clusters of C blocks and tiles of BT columns. Direction d < dirs reads
-// the projections xp[d] (T, B, 3H) bf16, the W_hh slices w_sl + d C 3U Hp
-// ((dirs, C, 3U, Hp) bf16, ops/rnn_cluster.py w_slices) and b_hh + d 3H
-// ((dirs, 3H) f32) and writes h of row (t, b) at out[d] + (t B + b)
-// ld_out. One direction walks time back to front if `reverse`; two are
-// the forward and the backward direction (reverse must be 0).
-inline cudaError_t launch_gru_f32(const bf16* xp_f, const bf16* xp_b,
-                                  const void* w_sl, const float* b_hh,
-                                  const int* lengths, void* out_f,
-                                  void* out_b, int ld_out, int T, int B,
-                                  int H, int C, int BT, int dirs, int reverse,
-                                  cudaStream_t s) {
-  if (GruGeo::bad(H, C, BT) || (dirs == 2 && reverse != 0))
+// Every cluster-recurrence launch (num NUM_F32: gru_fwd, bigru_fused,
+// bigru_fullfused's default; NUM_INT8: bigru_fullfused_int8): `dirs`
+// directions on clusters of C blocks and tiles of BT columns. Direction
+// d < dirs reads the projections xp[d] (T, B, 3H) bf16, the W_hh slices
+// w_sl + d C 3U Hp ((dirs, C, 3U, Hp), bf16 or int8, ops/rnn_cluster.py
+// w_slices), in NUM_INT8 their scales hh_scale + d C 3U ((dirs, C, 3U)
+// f32, rnn_cluster.row_slices), and b_hh + d 3H ((dirs, 3H) f32) and
+// writes h of row (t, b) at out[d] + (t B + b) ld_out. One direction walks
+// time back to front if `reverse`; two are the forward and the backward
+// direction (reverse must be 0).
+inline cudaError_t launch_gru_cluster(int num, const bf16* xp_f,
+                                      const bf16* xp_b, const void* w_sl,
+                                      const float* hh_scale,
+                                      const float* b_hh, const int* lengths,
+                                      void* out_f, void* out_b, int ld_out,
+                                      int T, int B, int H, int C, int BT,
+                                      int dirs, int reverse, cudaStream_t s) {
+  if (gru_cluster_bad(num, H, C, BT) || T < 1 || B < 1 || dirs < 1 ||
+      dirs > 2 || (dirs == 2 && reverse != 0) ||
+      (num == NUM_INT8 && hh_scale == nullptr))
     return cudaErrorInvalidValue;
   const GruGeo g(H, C, BT);
-  const bf16* w = static_cast<const bf16*>(w_sl);
+  const size_t per_dir = static_cast<size_t>(C) * g.rows();
+  const unsigned char* w = static_cast<const unsigned char*>(w_sl);
   ClusterArgs a{};
   a.xp[0] = xp_f;
   a.xp[1] = xp_b;
   a.w_sl[0] = w;
-  a.w_sl[1] = w + static_cast<size_t>(C) * g.rows() * g.Hp;
+  a.w_sl[1] = w + per_dir * g.Hp * (num == NUM_INT8 ? 1 : 2);
+  a.hh_scale[0] = hh_scale;
+  a.hh_scale[1] = hh_scale ? hh_scale + per_dir : nullptr;
   a.b_hh[0] = b_hh;
   a.b_hh[1] = b_hh + 3 * H;
   a.out[0] = static_cast<bf16*>(out_f);
@@ -581,7 +740,8 @@ inline cudaError_t launch_gru_f32(const bf16* xp_f, const bf16* xp_b,
   a.C = C;
   a.BT = BT;
   a.dirs = dirs;
-  return launch_gru_cluster_fwd(a, s);
+  return num == NUM_INT8 ? launch_gru_cluster_fwd<NUM_INT8>(a, s)
+                         : launch_gru_cluster_fwd<NUM_F32>(a, s);
 }
 
 }  // namespace

@@ -5,7 +5,7 @@
 //
 // gru_fwd  replaces medaka_tpu/ops/pallas_gru.py _gru_kernel (called by
 //          gru_pallas): gru_rec.cuh's cluster recurrence
-//          (gru_cluster_fwd_kernel through launch_gru_f32, shared with
+//          (gru_cluster_fwd_kernel through launch_gru_cluster, shared with
 //          gru_fullfused.cu), one direction a launch, f32 gates.
 // gru_bwd  replaces medaka_tpu/ops/pallas_gru.py _gru_bwd_kernel (called
 //          by gru_bwd_pallas): three kernels launched in order on one
@@ -322,13 +322,13 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
 extern "C" {
 
 size_t gru_fwd_cluster_smem(int C, int BT, int H) {
-  return gru_cluster_fwd_smem(GruGeo(H, C, BT));
+  return gru_cluster_fwd_smem(NUM_F32, GruGeo(H, C, BT));
 }
 
 // clusters of C blocks of the forward recurrence that can be resident at
 // once at (C, BT, H); a negative value is minus a cudaError_t
 int gru_fwd_max_clusters(int C, int BT, int H) {
-  return gru_cluster_fwd_max_clusters(C, BT, H);
+  return gru_cluster_fwd_max_clusters(NUM_F32, C, BT, H);
 }
 
 size_t gru_bwd_smem(int C, int BT, int H) { return GruGeo(H, C, BT).bwd_smem(); }
@@ -350,9 +350,9 @@ int gru_bwd_max_clusters(int C, int BT, int H) {
 int gru_fwd_launch(const void* xp, const void* w_sl, const float* b_hh,
                    const int* lengths, void* out, int T, int B, int H, int C,
                    int BT, int reverse, void* stream) {
-  return static_cast<int>(launch_gru_f32(
-      static_cast<const bf16*>(xp), nullptr, w_sl, b_hh, lengths, out,
-      nullptr, H, T, B, H, C, BT, 1, reverse,
+  return static_cast<int>(launch_gru_cluster(
+      NUM_F32, static_cast<const bf16*>(xp), nullptr, w_sl, nullptr, b_hh,
+      lengths, out, nullptr, H, T, B, H, C, BT, 1, reverse,
       static_cast<cudaStream_t>(stream)));
 }
 

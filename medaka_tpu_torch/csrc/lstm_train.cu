@@ -4,7 +4,9 @@
 // ctypes through a plain C interface.
 //
 // lstm_fwd  replaces medaka_tpu/ops/pallas_gru.py _lstm_kernel (called by
-//           lstm_pallas).
+//           lstm_pallas): lstm_fwd.cuh's cluster forward (lstm_fwd_kernel,
+//           shared with bilstm.cu), one direction a launch, with the f32
+//           cell states.
 // lstm_bwd  replaces medaka_tpu/ops/pallas_gru.py _lstm_bwd_kernel (called
 //           by lstm_bwd_pallas): three kernels launched in order on one
 //           stream, lstm_bwd_kernel (the recurrence), then rnn_dw_kernel
@@ -59,16 +61,9 @@
 // 16-row tiles a thread holds gates i, f, g and o of one unit for two
 // batch columns: the gate nonlinearity and c stay in registers.
 //
-// Forward step: the product bf16(h) (BT x Hp) . W_slice^T on the tensor
-// cores (mma.sync m16n8k16 bf16, f32 accumulation chained over the
-// k-chunks; W_slice is the A operand and bf16(h) the B operand, both read
-// with ldmatrix from padded shared-memory rows), then
-// the gates, c and h of the block's units; the block's bf16 h slice
-// (BT x U) goes through a staging buffer into every cluster block's next
-// h buffer (distributed shared memory, 16-byte stores) and, with c, to
-// out and c_out in 16-byte stores; one cluster barrier a step, split into
-// arrive.release / wait.acquire so that the next step's x_proj loads
-// overlap it; h is double-buffered.
+// Forward step: lstm_fwd.cuh's (the product on the tensor cores with the
+// first k-chunks of A in registers, the gates in registers, the h
+// exchange by st.async without a cluster barrier).
 //
 // Backward step: the gates recomputed from h_prev (BT x Hp, cp.async
 // from out, prefetched a step ahead) with the same slice and mma; then
@@ -89,169 +84,13 @@
 // products into FMAs the plain versions do not do. What is left is the
 // order of f32 sums (the recurrent products, dW_hh and db_hh), which can
 // move a bf16 rounding. No atomics: a run repeats bit for bit.
-#include "rnn_train.cuh"
+#include "lstm_fwd.cuh"
 
 namespace {
 
 // rows of a slice: unit group q (UG units) holds rows q*32 + g*8 + u
-constexpr int UG = 8;
-typedef ClusterGeo<4, UG> Geo;
-
-// forward: W slice, h[2], staging of bf16 h [BT][U] and f32 c [BT][U]
-__host__ __device__ size_t fwd_smem(const Geo& g) {
-  return g.w_bytes() + g.h_bytes() + g.st_bytes() +
-         align16(static_cast<size_t>(g.BT) * g.U * sizeof(float));
-}
-
-// gate g of the cell (nt, e) of a thread: rows u (i), u + 8 (f) of tile 0
-// and u (g), u + 8 (o) of tile 1
-template <int NT>
-__device__ __forceinline__ float gate_acc(const float (&acc)[2][NT][4],
-                                          int gate, int nt, int e) {
-  return acc[gate >> 1][nt][(gate & 1) * 2 + e];
-}
-
-// ---------------------------------------------------------------------------
-// forward: grid (clusters * C), cluster (C), block 32 * NG * NP threads
-// ---------------------------------------------------------------------------
-
-template <int NT>
-__global__ void __launch_bounds__(CLUSTER_MAX_THREADS)
-    lstm_fwd_kernel(const bf16* __restrict__ xp,
-                    const bf16* __restrict__ w_sl,
-                    const float* __restrict__ b_hh,
-                    const int* __restrict__ lengths, bf16* __restrict__ out,
-                    float* __restrict__ c_out, int T, int B, int H, int C,
-                    int BT, int reverse) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const Geo g(H, C, BT);
-  const int r = static_cast<int>(cluster.block_rank());
-  const int b0 = static_cast<int>(blockIdx.x) / C * BT;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int q = warp % g.NG;
-  const int p = warp / g.NG;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int U = g.U;
-  const int H4 = 4 * H;
-  constexpr int CELLS = 2 * NT;
-
-  bf16* w_s = reinterpret_cast<bf16*>(smem);  // [4U][ldw]
-  bf16* h_s = reinterpret_cast<bf16*>(smem + g.w_bytes());  // [2][BT][ldw]
-  // the block's h and c slices of a step, staged [BT][U]
-  bf16* st_h = reinterpret_cast<bf16*>(smem + g.w_bytes() + g.h_bytes());
-  float* st_c = reinterpret_cast<float*>(smem + g.w_bytes() + g.h_bytes() +
-                                         g.st_bytes());
-
-  load_slice(w_s, w_sl, g, r);
-  for (int e = threadIdx.x; e < 2 * BT * g.ldw; e += blockDim.x)
-    h_s[e] = __float2bfloat16_rn(0.0f);
-
-  // this thread's cells: unit ul (block-local) for columns n[0..CELLS)
-  const int ul = q * UG + gid;
-  const int j = r * U + ul;
-  const bool unit_in = j < H;
-  float bh[4];
-#pragma unroll
-  for (int gt = 0; gt < 4; ++gt) bh[gt] = unit_in ? b_hh[gt * H + j] : 0.0f;
-  int ncol[CELLS], len[CELLS];
-  float h[CELLS], c[CELLS];
-#pragma unroll
-  for (int ci = 0; ci < CELLS; ++ci) {
-    ncol[ci] = (p * NT + ci / 2) * 8 + tig * 2 + ci % 2;
-    const int b = b0 + ncol[ci];
-    len[ci] = b < B ? lengths[b] : 0;
-    h[ci] = 0.0f;
-    c[ci] = 0.0f;
-  }
-  bf16 xr[CELLS][4];
-  auto load_x = [&](int tt) {
-#pragma unroll
-    for (int ci = 0; ci < CELLS; ++ci) {
-      const int b = b0 + ncol[ci];
-      const bool in = unit_in && b < B;
-      const size_t row = (static_cast<size_t>(tt) * B + b) * H4 + j;
-#pragma unroll
-      for (int gt = 0; gt < 4; ++gt)
-        xr[ci][gt] = in ? xp[row + gt * H] : __float2bfloat16_rn(0.0f);
-    }
-  };
-  load_x(reverse ? T - 1 : 0);
-  cluster.sync();  // every block running, its h buffers zero
-
-  const int u8 = U / 8;
-  for (int i = 0; i < T; ++i) {
-    const int cur = i & 1;
-    const int t = reverse ? T - 1 - i : i;
-    if (i > 0) cluster_wait();  // h[cur] complete in this block
-
-    float acc[2][NT][4] = {};
-    gate_product(acc, w_s, h_s + cur * BT * g.ldw, g, q, p, lane);
-
-#pragma unroll
-    for (int ci = 0; ci < CELLS; ++ci) {
-      float gate[4];
-#pragma unroll
-      for (int gt = 0; gt < 4; ++gt)
-        gate[gt] = __fadd_rn(
-            __fadd_rn(gate_acc<NT>(acc, gt, ci / 2, ci % 2), bh[gt]),
-            __bfloat162float(xr[ci][gt]));
-      const float gi = sigmoid_f(gate[0]);
-      const float gf = sigmoid_f(gate[1]);
-      const float gg = tanhf(gate[2]);
-      const float go = sigmoid_f(gate[3]);
-      const float cn = __fadd_rn(__fmul_rn(gf, c[ci]), __fmul_rn(gi, gg));
-      const float hn = __fmul_rn(go, tanhf(cn));
-      if (t < len[ci]) {
-        h[ci] = hn;
-        c[ci] = cn;
-      }
-      st_h[ncol[ci] * U + ul] = __float2bfloat16_rn(h[ci]);
-      st_c[ncol[ci] * U + ul] = c[ci];
-    }
-    __syncthreads();  // the block's h and c slices staged
-
-    // bf16 h slice into every cluster block's next h buffer (not after
-    // the last step), h and c to the outputs, 16 bytes a store
-    if (i + 1 < T) {
-      bf16* nxt = h_s + (cur ^ 1) * BT * g.ldw + r * U;
-      for (int e = threadIdx.x; e < C * BT * u8; e += blockDim.x) {
-        const int d = e / (BT * u8);
-        const int rem = e - d * BT * u8;
-        const int n = rem / u8;
-        const int k8 = rem - n * u8;
-        bf16* dst = cluster.map_shared_rank(nxt, d) + n * g.ldw + k8 * 8;
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
-      }
-    }
-    for (int e = threadIdx.x; e < BT * u8; e += blockDim.x) {
-      const int n = e / u8;
-      const int k8 = e - n * u8;
-      const int b = b0 + n;
-      const int j0 = r * U + k8 * 8;
-      if (b < B && j0 < H)
-        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(t) * B + b) * H +
-                                  j0) =
-            *reinterpret_cast<const uint4*>(st_h + n * U + k8 * 8);
-    }
-    for (int e = threadIdx.x; e < BT * 2 * u8; e += blockDim.x) {
-      const int n = e / (2 * u8);
-      const int k4 = e - n * 2 * u8;
-      const int b = b0 + n;
-      const int j0 = r * U + k4 * 4;
-      if (b < B && j0 < H)
-        *reinterpret_cast<float4*>(c_out +
-                                   (static_cast<size_t>(t) * B + b) * H + j0) =
-            *reinterpret_cast<const float4*>(st_c + n * U + k4 * 4);
-    }
-    cluster_arrive();
-    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1);
-  }
-  cluster_wait();  // no block leaves while another may still write to it
-}
+constexpr int UG = LSTM_UG;
+typedef LstmGeo Geo;
 
 // ---------------------------------------------------------------------------
 // backward recurrence: grid (clusters * C), cluster (C), block 32 * NG * NP
@@ -460,7 +299,7 @@ __global__ void __launch_bounds__(CLUSTER_MAX_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// launchers
+// launcher of the backward
 // ---------------------------------------------------------------------------
 
 template <typename Kern, typename... Args>
@@ -474,7 +313,9 @@ cudaError_t launch(Kern kern, const Geo& g, int B, size_t smem,
 
 extern "C" {
 
-size_t lstm_fwd_smem(int C, int BT, int H) { return fwd_smem(Geo(H, C, BT)); }
+size_t lstm_fwd_smem(int C, int BT, int H) {
+  return lstm_fwd_smem_bytes(Geo(H, C, BT));
+}
 
 size_t lstm_bwd_smem(int C, int BT, int H) { return Geo(H, C, BT).bwd_smem(); }
 
@@ -482,36 +323,25 @@ size_t lstm_bwd_smem(int C, int BT, int H) { return Geo(H, C, BT).bwd_smem(); }
 // (bwd = 0) or backward (bwd = 1) kernel at (C, BT, H); a negative value
 // is minus a cudaError_t
 int lstm_max_clusters(int bwd, int C, int BT, int H) {
+  if (!bwd) return lstm_fwd_max_clusters(C, BT, H);
   if (Geo::bad(H, C, BT)) return -static_cast<int>(cudaErrorInvalidValue);
   const Geo g(H, C, BT);
-  if (bwd)
-    return g.NT == 2
-               ? max_clusters(lstm_bwd_kernel<2>, C, g.threads(), g.bwd_smem())
-               : max_clusters(lstm_bwd_kernel<1>, C, g.threads(), g.bwd_smem());
   return g.NT == 2
-             ? max_clusters(lstm_fwd_kernel<2>, C, g.threads(), fwd_smem(g))
-             : max_clusters(lstm_fwd_kernel<1>, C, g.threads(), fwd_smem(g));
+             ? max_clusters(lstm_bwd_kernel<2>, C, g.threads(), g.bwd_smem())
+             : max_clusters(lstm_bwd_kernel<1>, C, g.threads(), g.bwd_smem());
 }
 
-// out (T, B, H) bf16 and c_out (T, B, H) f32; w_sl (C, 4U, Hp) bf16 from
-// ops/lstm_train.py w_slices
+// one direction: out (T, B, H) bf16 and c_out (T, B, H) f32; w_sl (C, 4U,
+// Hp) bf16 from ops/lstm_train.py w_slices
 int lstm_fwd_launch(const void* xp, const void* w_sl, const float* b_hh,
                     const int* lengths, void* out, float* c_out, int T, int B,
                     int H, int C, int BT, int reverse, void* stream) {
-  if (Geo::bad(H, C, BT) || T < 1 || B < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Geo g(H, C, BT);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(xp);
-  const bf16* w = static_cast<const bf16*>(w_sl);
-  bf16* o = static_cast<bf16*>(out);
-  const cudaError_t e =
-      g.NT == 2
-          ? launch(lstm_fwd_kernel<2>, g, B, fwd_smem(g), s, x, w, b_hh,
-                   lengths, o, c_out, T, B, H, C, BT, reverse)
-          : launch(lstm_fwd_kernel<1>, g, B, fwd_smem(g), s, x, w, b_hh,
-                   lengths, o, c_out, T, B, H, C, BT, reverse);
-  return static_cast<int>(e);
+  const bf16* const x[2] = {static_cast<const bf16*>(xp), nullptr};
+  bf16* const o[2] = {static_cast<bf16*>(out), nullptr};
+  float* const c[2] = {c_out, nullptr};
+  return static_cast<int>(launch_lstm_fwd(x, w_sl, b_hh, lengths, o, c, T, B,
+                                          H, C, BT, 1, reverse,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // the recurrence, the dW partial tiles and the fixed-order sums, in order

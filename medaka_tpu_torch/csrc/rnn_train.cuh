@@ -1,11 +1,13 @@
-// Pieces shared by the recurrences' CUDA sources (gru_train.cu,
-// gru_fullfused.cu through gru_rec.cuh, and lstm_train.cu): the gate and
-// weight-load helpers of the recurrence kernels, the tensor-core and
-// copy primitives (ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8,
-// cp.async), the machinery of the cluster recurrences (their geometry,
-// the W_hh slice loader, the step's two products on the tensor cores, the
-// int8 product of the split kernels, the split cluster barrier and the
-// cluster launch), and the two kernels that finish a
+// Pieces shared by the recurrences' CUDA sources (gru_train.cu and
+// gru_fullfused.cu through gru_rec.cuh, lstm_train.cu and bilstm.cu
+// through lstm_fwd.cuh, gru_split.cu): the gate and weight-load helpers
+// of the recurrence kernels, the tensor-core and copy primitives
+// (ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8, cp.async), the
+// machinery of the cluster recurrences (their geometry, the W_hh slice
+// loader, the step's tile products on the tensor cores, bf16 and int8,
+// the backward's dh partials, the split cluster barrier, the forwards'
+// h exchange by st.async and mbarriers, and the cluster launch), and the
+// two kernels that finish a
 // backward after its recurrence, rnn_dw_kernel (dW_hh as tiled partial
 // sums) and rnn_bwd_reduce_kernel (the fixed-order sums of those partials
 // and of the per-block db_hh partials), with their launcher.
@@ -53,6 +55,13 @@ __host__ __device__ __forceinline__ size_t align16(size_t v) {
 __device__ __forceinline__ uint4 load_w(const uint4* w, size_t i,
                                         bool from_smem) {
   return from_smem ? w[i] : __ldg(&w[i]);
+}
+
+// v[d] with d in {0, 1} without indexing the kernel's parameter array at
+// run time (which would copy it to local memory)
+template <typename V>
+__device__ __forceinline__ V pick(const V (&v)[2], int d) {
+  return d ? v[1] : v[0];
 }
 
 // ---------------------------------------------------------------------------
@@ -337,13 +346,16 @@ struct ClusterGeo {
     return w_bytes() + h_bytes() + dg_bytes() +
            align16(static_cast<size_t>(2) * C * U * BT * sizeof(float));
   }
-  // a geometry the kernels cannot run
-  __host__ __device__ static bool bad(int H, int c, int bt) {
+  // a geometry the kernels cannot run with at most max_u units and
+  // max_threads threads a block
+  __host__ __device__ static bool bad(
+      int H, int c, int bt, int max_u = CLUSTER_MAX_U,
+      int max_threads = CLUSTER_MAX_THREADS) {
     if (H % 32 != 0 || H <= 0 || H > 512) return true;
     if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return true;
     if (bt != 8 && bt != 16 && bt != 32) return true;
     const ClusterGeo g(H, c, bt);
-    return g.U > CLUSTER_MAX_U || g.threads() > CLUSTER_MAX_THREADS;
+    return g.U > max_u || g.threads() > max_threads;
   }
 };
 
@@ -354,6 +366,100 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+
+// The h exchange of the cluster forwards, without a cluster barrier a
+// step. Every block receives, for each step i >= 1, the h slices of all C
+// blocks (`fill` bytes: BT x Hp values) into buffer i & 1 of its double
+// buffer: each 16-byte st.async into another block's (or its own) shared
+// memory completes its bytes on that block's mbarrier of the buffer, and a
+// block waits on its own barrier alone. Fill k (steps 2k + 1 and 2k + 2)
+// of buffer b completes phase k of barrier b; a barrier is re-armed (one
+// arrive with the fill's expected bytes) right after its wait, for the
+// fill two steps on. No block can send into a buffer before every block
+// has read it: a block sends its step-i h after it has received every
+// block's step-(i - 1) h, which each block sent after its step-(i - 1)
+// product had read the same buffer.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// a shared-memory address of this block as the same address in cluster
+// block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes to cluster shared memory at dst, completing 16 bytes of the
+// transaction of the barrier at bar (both in the receiving block)
+__device__ __forceinline__ void st_async16(uint32_t dst, uint32_t bar,
+                                           uint4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// 8 bytes (two 32-bit words) likewise
+__device__ __forceinline__ void st_async8(uint32_t dst, uint32_t bar,
+                                          uint2 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(bar)
+      : "memory");
+}
+
+struct StepExchange {
+  uint64_t* bar;  // [2] in shared memory
+  uint32_t fill;  // bytes a block receives for one step
+  int T;
+  // thread 0: the barriers, armed for the first fill of each buffer; then
+  // the caller's cluster.sync() publishes them
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x != 0) return;
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    if (T > 1) mbar_arm(bar + 1, fill);
+    if (T > 2) mbar_arm(bar, fill);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // step i >= 1: buffer i & 1 holds every block's h of step i - 1
+  __device__ __forceinline__ void wait(int i) const {
+    mbar_wait(bar + (i & 1), ((i - 1) >> 1) & 1);
+    if (threadIdx.x == 0 && i + 2 < T) mbar_arm(bar + (i & 1), fill);
+  }
+  // the barrier of buffer b in cluster block `rank`
+  __device__ __forceinline__ uint32_t remote_bar(int b, int rank) const {
+    return map_rank(smem_addr(bar + b), rank);
+  }
+};
 
 // block r's slice (GATES U rows of Hp bf16, rows in the kernels' order)
 // into the padded rows of w_s
@@ -371,43 +477,6 @@ __device__ __forceinline__ void load_slice(bf16* w_s, const bf16* w_sl,
   }
 }
 
-// acc[mt][nt] = W_s rows (q * MT * 16 + mt * 16 ..) . h^T columns
-// ((p * NT + nt) * 8 ..): the gates of warp (q, p), f32 accumulation
-// chained over the Hp / 16 k-chunks in order; W_slice is the A operand and
-// bf16(h) the B operand, both read with ldmatrix from padded rows
-template <int MT, int NT, typename Geo>
-__device__ __forceinline__ void gate_product(float (&acc)[MT][NT][4],
-                                             const bf16* w_s,
-                                             const bf16* h_s, const Geo& g,
-                                             int q, int p, int lane) {
-  const int mat = lane >> 3;
-  const int lrow = lane & 7;
-  const uint32_t a_addr = smem_addr(
-      w_s + (q * MT * 16 + (mat & 1) * 8 + lrow) * g.ldw + (mat >> 1) * 8);
-  const uint32_t a_tile = 16 * g.ldw * sizeof(bf16);
-  const int n = p * NT * 8 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
-  const uint32_t b_addr = smem_addr(h_s + n * g.ldw + (mat & 1) * 8);
-  for (int ks = 0; ks < g.Hp / 16; ++ks) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_addr + mt * a_tile + ks * 32);
-    if constexpr (NT == 2) {
-      uint32_t b[4];
-      ldsm_x4(b, b_addr + ks * 32);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
-        mma_bf16(acc[mt][1], a[mt], b[2], b[3]);
-      }
-    } else {
-      uint32_t b[2];
-      ldsm_x2(b, b_addr + ks * 32);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
-    }
-  }
-}
-
 // `rows` rows of `row_bytes` bytes (a multiple of 16), contiguous at src,
 // into rows `ld` bytes apart at dst, 16 bytes a copy
 __device__ __forceinline__ void load_rows(void* dst, int ld, const void* src,
@@ -422,47 +491,94 @@ __device__ __forceinline__ void load_rows(void* dst, int ld, const void* src,
   }
 }
 
-// The int8 counterpart of gate_product: step(acc, ks) adds, for 32-byte
-// k-chunk ks from byte k0, A rows (row0 + mt * 16 ..) . B^T columns (n0 +
-// nt * 8 ..) to acc[mt][nt] on the tensor cores (mma.sync m16n8k32 s8,
-// exact int32 sums); A and B are int8 rows lda and ldb bytes apart in
-// shared memory (an odd multiple of 16 bytes: ldmatrix without bank
-// conflicts), both read with ldmatrix. A chunk at a time, so that a caller
-// can put other work between the chunks.
-template <int MT, int NT>
-struct S8Product {
+// The step products of the cluster forwards, a k-chunk at a time, so that
+// a caller can put other work between the chunks or keep the A fragments
+// of its first chunks in registers for the whole walk (load_a once, then
+// mma with them on every step): step(acc, ks) adds, for k-chunk ks, A rows
+// (row0 + mt * 16 ..) . B^T columns (n0 + nt * 8 ..) to acc[mt][nt] on the
+// tensor cores. A and B are rows lda and ldb bytes apart in shared memory
+// (an odd multiple of 16 bytes: ldmatrix without bank conflicts), both
+// read with ldmatrix. S8Product: int8 rows, mma.sync m16n8k32 s8, exact
+// int32 sums, a 32-byte chunk from byte k0; BF16Product: bf16 rows,
+// m16n8k16 with f32 accumulation, a 16-element (32-byte) chunk, each
+// accumulator chained over the chunks in the order the caller steps them.
+template <int MT, int NT, bool S8>
+struct TileProduct {
   uint32_t a_addr, a_tile, b_addr;
-  __device__ __forceinline__ S8Product(const int8_t* a_s, int lda, int row0,
-                                       const int8_t* b_s, int ldb, int n0,
-                                       int k0, int lane) {
+  __device__ __forceinline__ TileProduct(const void* a_s, int lda, int row0,
+                                         const void* b_s, int ldb, int n0,
+                                         int k0, int lane) {
     const int mat = lane >> 3;
     const int lrow = lane & 7;
-    a_addr = smem_addr(a_s + (row0 + (mat & 1) * 8 + lrow) * lda + k0 +
+    const unsigned char* a = static_cast<const unsigned char*>(a_s);
+    const unsigned char* b = static_cast<const unsigned char*>(b_s);
+    a_addr = smem_addr(a + (row0 + (mat & 1) * 8 + lrow) * lda + k0 +
                        (mat >> 1) * 16);
     a_tile = 16 * lda;
     const int n = n0 + (NT == 2 ? (mat >> 1) * 8 : 0) + lrow;
-    b_addr = smem_addr(b_s + n * ldb + k0 + (mat & 1) * 16);
+    b_addr = smem_addr(b + n * ldb + k0 + (mat & 1) * 16);
   }
-  __device__ __forceinline__ void step(int (&acc)[MT][NT][4], int ks) const {
-    uint32_t a[MT][4];
+  __device__ __forceinline__ void load_a(uint32_t (&a)[MT][4], int ks) const {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_addr + mt * a_tile + ks * 32);
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void mma(Acc (&acc)[MT][NT][4],
+                                      const uint32_t (&a)[MT][4],
+                                      int ks) const {
     if constexpr (NT == 2) {
       uint32_t b[4];
       ldsm_x4(b, b_addr + ks * 32);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_s8(acc[mt][0], a[mt], b[0], b[1]);
-        mma_s8(acc[mt][1], a[mt], b[2], b[3]);
+        if constexpr (S8) {
+          mma_s8(acc[mt][0], a[mt], b[0], b[1]);
+          mma_s8(acc[mt][1], a[mt], b[2], b[3]);
+        } else {
+          mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][1], a[mt], b[2], b[3]);
+        }
       }
     } else {
       uint32_t b[2];
       ldsm_x2(b, b_addr + ks * 32);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][0], a[mt], b[0], b[1]);
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (S8)
+          mma_s8(acc[mt][0], a[mt], b[0], b[1]);
+        else
+          mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
+      }
     }
   }
+  template <typename Acc>
+  __device__ __forceinline__ void step(Acc (&acc)[MT][NT][4], int ks) const {
+    uint32_t a[MT][4];
+    load_a(a, ks);
+    mma(acc, a, ks);
+  }
 };
+
+template <int MT, int NT>
+using S8Product = TileProduct<MT, NT, true>;
+template <int MT, int NT>
+using BF16Product = TileProduct<MT, NT, false>;
+
+// acc[mt][nt] = W_s rows (q * MT * 16 + mt * 16 ..) . h^T columns
+// ((p * NT + nt) * 8 ..): the gates of warp (q, p), f32 accumulation
+// chained over the Hp / 16 k-chunks in order; W_slice is the A operand and
+// bf16(h) the B operand, both read with ldmatrix from padded rows (the
+// backward recurrences' product)
+template <int MT, int NT, typename Geo>
+__device__ __forceinline__ void gate_product(float (&acc)[MT][NT][4],
+                                             const bf16* w_s,
+                                             const bf16* h_s, const Geo& g,
+                                             int q, int p, int lane) {
+  const int ld = g.ldw * static_cast<int>(sizeof(bf16));
+  const BF16Product<MT, NT> prod(w_s, ld, q * MT * 16, h_s, ld, p * NT * 8,
+                                 0, lane);
+  for (int ks = 0; ks < g.Hp / 16; ++ks) prod.step(acc, ks);
+}
 
 // (n, j) of a flat index e = n * m + j that a thread steps by s (its
 // block's threads) in a loop: no division inside the loop

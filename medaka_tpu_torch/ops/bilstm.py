@@ -5,7 +5,11 @@ Counterpart of the fused bi-LSTM section of ``medaka_tpu/ops/pallas_gru.py``
 kernel (``csrc/bilstm.cu``) replaces TPU kernel ``bilstm_pallas``:
 
 - :func:`bilstm_fused`: both LSTM directions of one layer, gates i, f,
-  g, o, an f32 h/c carry frozen where t >= length, bf16 outputs.
+  g, o, an f32 h/c carry frozen where t >= length, bf16 outputs. It runs
+  the LSTM cluster forward of ``csrc/lstm_fwd.cuh`` (shared with
+  ``lstm_train.lstm_fwd``) with both directions' clusters in one grid:
+  W_hh cut into per-block slices (``lstm_train.w_slices``), the geometry
+  from :func:`geometry` (the LSTM layout, both directions).
 - :func:`bilstm_fused_plain`: its plain PyTorch version, a step loop
   repeating the kernel's arithmetic.
 - :func:`bilstm_stack_fused`: the stack: per layer the input
@@ -23,7 +27,7 @@ from typing import Dict, Sequence
 
 import torch
 
-from medaka_tpu_torch.ops import cuda_build
+from medaka_tpu_torch.ops import cuda_build, lstm_train, rnn_cluster
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"bilstm_fused": 0}
@@ -78,53 +82,77 @@ def build():
     """Compile (if needed) and load the kernel library; returns it."""
     lib = cuda_build.load_library("bilstm.cu")
     if not getattr(lib, "_medaka_typed", False):
-        lib.bilstm_launch.argtypes = [_VOIDP] * 7 + [_INT] * 6 + [_VOIDP]
+        lib.bilstm_launch.argtypes = [_VOIDP] * 7 + [_INT] * 5 + [_VOIDP]
         lib.bilstm_launch.restype = _INT
         lib.bilstm_smem.argtypes = [_INT] * 3
         lib.bilstm_smem.restype = ctypes.c_size_t
+        lib.bilstm_max_clusters.argtypes = [_INT] * 3
+        lib.bilstm_max_clusters.restype = _INT
         lib.bilstm_error_string.argtypes = [_INT]
         lib.bilstm_error_string.restype = ctypes.c_char_p
         lib._medaka_typed = True
     return lib
 
 
-def _launch(x_proj_f, x_proj_b, w_hh, b_hh, lengths):
+def _raise(lib, err):
+    raise RuntimeError("bilstm_fused launch failed: {} (cudaError {})".format(
+        lib.bilstm_error_string(err).decode(), err))
+
+
+def geometry(H: int, B: int, dev):
+    """(C, BT, shared memory bytes, resident clusters) with which
+    :func:`bilstm_fused` launches at hidden size H and batch B on CUDA
+    device ``dev``: both directions' clusters in one grid
+    (:func:`rnn_cluster.choose_geometry` with the LSTM layout: clusters of
+    2 at H=128, which step faster than one block holding all of W_hh on an
+    H100, PERF.md), its resident-cluster queries cached."""
+    lib = build()
+
+    def query(cluster, columns):
+        n = lib.bilstm_max_clusters(cluster, columns, H)
+        if n < 0:
+            _raise(lib, -n)
+        return n
+
+    return rnn_cluster.geometry(rnn_cluster.LSTM, "fwd", H, B, dev, query,
+                                cuda_build.SMEM_LIMIT, "bilstm_fused",
+                                directions=2)
+
+
+def w_slices(w_hh: torch.Tensor, cluster: int) -> torch.Tensor:
+    """(2, 4H, H) W_hh -> (2, C, 4U, Hp) bf16: each direction's
+    :func:`lstm_train.w_slices`."""
+    return torch.stack([lstm_train.w_slices(w, cluster) for w in w_hh])
+
+
+def _launch(x_proj_f, x_proj_b, w_hh, b_hh, lengths, cluster=None):
+    """``cluster``: a (C, BT) geometry in place of :func:`geometry`'s (for
+    timing other cluster sizes)."""
     T, B, G = x_proj_f.shape
     H = G // 4
     cuda_build.check_inputs("bilstm_fused", H, [
         (x_proj_f, (T, B, G), torch.bfloat16),
         (x_proj_b, (T, B, G), torch.bfloat16),
         (w_hh, (2, G, H), None), (b_hh, (2, G), None), (lengths, (B,), None)])
-    out_f = torch.empty((T, B, H), dtype=torch.bfloat16,
-                        device=x_proj_f.device)
+    dev = x_proj_f.device
+    out_f = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     out_b = torch.empty_like(out_f)
     if T == 0 or B == 0:
         return out_f, out_b
     lib = build()
-    cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(x_proj_f.device))
-    while nq * H > 512:
-        nq //= 2
-    # one direction's bf16 W_hh in shared memory where it fits (H <= 160),
-    # else read from L2 on every step
-    w_smem = lib.bilstm_smem(1, cpt * nq, H) <= cuda_build.SMEM_LIMIT
-    smem = lib.bilstm_smem(int(w_smem), cpt * nq, H)
-    if smem > cuda_build.SMEM_LIMIT:
-        raise ValueError("bilstm_fused: needs {} bytes of shared memory "
-                         "(limit {})".format(smem, cuda_build.SMEM_LIMIT))
+    C, BT = cluster or geometry(H, B, dev)[:2]
     x_proj_f = x_proj_f.contiguous()
     x_proj_b = x_proj_b.contiguous()
-    w_il = cuda_build.interleave_chunks(w_hh.to(torch.bfloat16).contiguous())
+    w_sl = w_slices(w_hh, C)
     b_hh = b_hh.float().contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    stream = torch.cuda.current_stream(x_proj_f.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.bilstm_launch(
-        x_proj_f.data_ptr(), x_proj_b.data_ptr(), w_il.data_ptr(),
+        x_proj_f.data_ptr(), x_proj_b.data_ptr(), w_sl.data_ptr(),
         b_hh.data_ptr(), lengths.data_ptr(), out_f.data_ptr(),
-        out_b.data_ptr(), T, B, H, cpt, nq, int(w_smem), stream)
+        out_b.data_ptr(), T, B, H, C, BT, stream)
     if err != 0:
-        raise RuntimeError("bilstm_fused launch failed: {} (cudaError "
-                           "{})".format(lib.bilstm_error_string(err).decode(),
-                                        err))
+        _raise(lib, err)
     LAUNCHES["bilstm_fused"] += 1
     return out_f, out_b
 

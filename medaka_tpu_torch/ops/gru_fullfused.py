@@ -29,14 +29,18 @@ TPU kernels:
 any depth; the unidirectional branch of :func:`bigru_stack_fused` runs
 ``ops.gru_train.gru_fwd`` (TPU kernel ``gru_pallas``).
 
-Every f32-gates launch (the fullfused default and :func:`bigru_pallas`)
-runs the cluster recurrence (``csrc/gru_rec.cuh``
-``gru_cluster_fwd_kernel``, as ``gru_fwd`` does: W_hh split over a
-thread-block cluster's shared memory, the step's product on the tensor
-cores), whose geometry :func:`cluster_geometry` chooses with
-``ops/rnn_cluster.py``; the bf16-gates and int8 modes run the per-block
-recurrence (``gru_rec_kernel``), whose sums do not depend on their
-order. Every kernel mode has a plain PyTorch version here
+Every f32-gates and int8 launch (the fullfused default,
+:func:`bigru_pallas_fullfused_int8` and :func:`bigru_pallas`) runs the
+cluster recurrence (``csrc/gru_rec.cuh`` ``gru_cluster_fwd_kernel``, as
+``gru_fwd`` does: W_hh split over a thread-block cluster's shared memory,
+the step's product on the tensor cores, int8 on ``mma.sync`` s8), whose
+geometry :func:`cluster_geometry` chooses with ``ops/rnn_cluster.py``;
+their projection stage runs on the tensor cores
+(``bigru_proj_mma_kernel``, :func:`project`). The bf16-gates mode runs
+the per-block recurrence (``gru_rec_kernel``), whose sums do not depend
+on their order, after the CUDA cores' projection (``bigru_proj_kernel``),
+which sums in the plain version's order. Every kernel mode has a plain
+PyTorch version here
 that repeats its arithmetic step by step. A wrapper runs the plain
 version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.
@@ -56,15 +60,20 @@ from medaka_tpu_torch.ops.gru_train import _sigmoid, gru_fwd
 
 #: recurrence numerics of each kernel mode (csrc/gru_rec.cuh NUM_*)
 NUMERICS = {"f32_gates": 0, "bf16_gates": 1, "int8": 2}
-#: kernel launches since the last :func:`reset_launches`
+#: kernel launches since the last :func:`reset_launches`; "bigru_project"
+#: counts the tensor-core projection stage (each f32-gates and int8
+#: fullfused launch, and :func:`project`), "bigru_int8_recurrence" the
+#: int8 recurrence launched alone (:func:`int8_recurrence`)
 LAUNCHES: Dict[str, int] = {
-    "bigru_fullfused": 0, "bigru_fullfused_int8": 0, "bigru_fused": 0}
+    "bigru_fullfused": 0, "bigru_fullfused_int8": 0, "bigru_fused": 0,
+    "bigru_project": 0, "bigru_int8_recurrence": 0}
 #: the same launches by numerics mode, keyed "<kernel>/<mode>"
 MODE_LAUNCHES: Dict[str, int] = {
     "bigru_fullfused/f32_gates": 0, "bigru_fullfused/bf16_gates": 0,
     "bigru_fullfused_int8/int8": 0, "bigru_fused/f32_gates": 0}
 #: largest hidden size the kernels take (the per-block recurrence: one
-#: thread a unit, 512 a block; the cluster recurrence: 8 blocks of 64 units)
+#: thread a unit, 512 a block; the cluster recurrence: 16 blocks of at most
+#: 64 units)
 MAX_HIDDEN = 512
 #: ``recurrent_quant`` of :func:`bigru_stack_fullfused` -> kernel mode
 #: (``pallas_gru.py:933-944``; None and "none" run the default kernel)
@@ -188,9 +197,11 @@ def project_plain(x, w_ih, b_ih):
     b_ih)`` of bf16 x and W_ih, the f32 bias added before the rounding
     (``pallas_gru.py:527-534``).
 
-    The sum runs over the inputs in order, as the kernel's does: a bf16 x
-    bf16 product is exact in f32, so each add rounds once, as the kernel's
-    fmaf does, and the two agree bit for bit.
+    The sum runs over the inputs in order, as the bf16-gates mode's CUDA
+    core stage does: a bf16 x bf16 product is exact in f32, so each add
+    rounds once, as its fmaf does, and the two agree bit for bit. The
+    tensor-core stage of the other modes sums in its own order: an element
+    can differ by one bf16 rounding.
     """
     xf = _bf16(x)
     w = _bf16(w_ih.to(x.device))[:, None, None]          # (2, 1, 1, G, IN)
@@ -222,11 +233,17 @@ def build():
         lib.bigru_fullfused_launch.restype = _INT
         lib.bigru_fused_launch.argtypes = [_VOIDP] * 7 + [_INT] * 6 + [_VOIDP]
         lib.bigru_fused_launch.restype = _INT
-        lib.bigru_rec_smem.argtypes = [_INT] * 4
+        lib.bigru_int8_rec_launch.argtypes = (
+            [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP])
+        lib.bigru_int8_rec_launch.restype = _INT
+        lib.bigru_project_launch.argtypes = (
+            [_VOIDP] * 4 + [ctypes.c_longlong] + [_INT] * 2 + [_VOIDP])
+        lib.bigru_project_launch.restype = _INT
+        lib.bigru_rec_smem.argtypes = [_INT] * 3
         lib.bigru_rec_smem.restype = ctypes.c_size_t
-        lib.bigru_cluster_smem.argtypes = [_INT] * 3
+        lib.bigru_cluster_smem.argtypes = [_INT] * 4
         lib.bigru_cluster_smem.restype = ctypes.c_size_t
-        lib.bigru_max_clusters.argtypes = [_INT] * 3
+        lib.bigru_max_clusters.argtypes = [_INT] * 4
         lib.bigru_max_clusters.restype = _INT
         lib.gru_fullfused_error_string.argtypes = [_INT]
         lib.gru_fullfused_error_string.restype = ctypes.c_char_p
@@ -236,7 +253,7 @@ def build():
 
 def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
     """(columns per thread, column groups) of a block of one direction of
-    the per-block recurrence (the bf16-gates and int8 modes).
+    the per-block recurrence (the bf16-gates mode).
 
     Both directions run in one grid. With W_hh in shared memory a block
     reads it once, so the smallest tile that fits both directions' blocks
@@ -255,44 +272,61 @@ def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
     return 4, 1
 
 
-def _choose(lib, num: int, batch: int, hidden: int, device):
-    """(cpt, nq, W_hh in shared memory) of a per-block recurrence launch."""
+def _choose(lib, batch: int, hidden: int, device):
+    """(cpt, nq, W_hh in shared memory) of a per-block recurrence launch
+    (bf16 gates)."""
     n_sm = cuda_build.sm_count(device)
     for w_smem in (True, False):
         cpt, nq = tile_shape(batch, hidden, n_sm, w_smem)
-        if lib.bigru_rec_smem(num, int(w_smem), cpt * nq,
+        if lib.bigru_rec_smem(int(w_smem), cpt * nq,
                               hidden) <= cuda_build.SMEM_LIMIT:
             return cpt, nq, w_smem
     raise ValueError("needs more than {} bytes of shared memory".format(
         cuda_build.SMEM_LIMIT))
 
 
+#: the cluster recurrence's layout of each mode (``csrc/gru_rec.cuh``)
+CLUSTER_LAYOUTS = {"f32_gates": rnn_cluster.GRU, "int8": rnn_cluster.GRU_INT8}
+
+
 def cluster_geometry(hidden: int, batch: int, device,
                      kernel: str = "bigru_fullfused"):
-    """(C, BT, shared memory bytes, resident clusters) with which an
-    f32-gates launch (``kernel``: "bigru_fullfused" or "bigru_fused") runs
-    the cluster recurrence at (padded) hidden size ``hidden`` and batch
-    ``batch`` on CUDA device ``device``: both directions' clusters in one
-    grid (:func:`rnn_cluster.choose_geometry` with the GRU's row order);
-    raises, naming the kernel and the geometry, when no cluster can be
-    resident."""
+    """(C, BT, shared memory bytes, resident clusters) with which a launch
+    of the cluster recurrence (``kernel``: "bigru_fullfused" or
+    "bigru_fused", f32 gates, or "bigru_fullfused_int8") runs at (padded)
+    hidden size ``hidden`` and batch ``batch`` on CUDA device ``device``:
+    both directions' clusters in one grid (:func:`rnn_cluster.choose_
+    geometry` with the mode's layout); raises, naming the kernel and the
+    geometry, when no cluster can be resident."""
     lib = build()
+    mode = "int8" if kernel == "bigru_fullfused_int8" else "f32_gates"
+    num = NUMERICS[mode]
 
     def query(cluster, columns):
-        n = lib.bigru_max_clusters(cluster, columns, hidden)
+        n = lib.bigru_max_clusters(num, cluster, columns, hidden)
         if n < 0:
             _raise(lib, kernel, -n)
         return n
 
-    return rnn_cluster.geometry(rnn_cluster.GRU, "fwd", hidden, batch,
+    return rnn_cluster.geometry(CLUSTER_LAYOUTS[mode], "fwd", hidden, batch,
                                 device, query, cuda_build.SMEM_LIMIT, kernel,
                                 directions=2)
 
 
-def _cluster_operand(w_hh, cluster):
-    """(2, 3H, H) W_hh -> (2, C, 3U, Hp) bf16 slices of both directions."""
-    return torch.stack([rnn_cluster.w_slices(rnn_cluster.GRU, w, cluster)
-                        for w in w_hh])
+def _cluster_operand(w_hh, cluster, mode="f32_gates"):
+    """(2, 3H, H) W_hh -> (2, C, 3U, Hp) slices of both directions: bf16,
+    or in mode "int8" the int8 values of :func:`_quantize_cols` with their
+    scales (2, C, 3U) f32 in the same rows (None in the other mode)."""
+    layout = CLUSTER_LAYOUTS[mode]
+    if mode != "int8":
+        return torch.stack([rnn_cluster.w_slices(layout, w, cluster)
+                            for w in w_hh]), None
+    w_q, sc = _quantize_cols(w_hh.float().transpose(1, 2))
+    rows = w_q.transpose(1, 2)                                 # (2, 3H, H)
+    return (torch.stack([rnn_cluster.w_slices(layout, w, cluster)
+                         for w in rows]),
+            torch.stack([rnn_cluster.row_slices(layout, v.reshape(-1), cluster)
+                         for v in sc]).contiguous())
 
 
 def _padded(hidden: int) -> int:
@@ -317,19 +351,6 @@ def _pad_recurrent(w_hh, b_hh, hidden, padded):
     return w, _pad_gates(b_hh, hidden, padded, 1)
 
 
-def _hh_operand(w_hh, mode):
-    """W_hh in the per-block recurrence's 16-byte-chunk row layout (bf16
-    gates, int8), and its scales."""
-    G = w_hh.shape[1]
-    if mode == "int8":
-        w_q, sc = _quantize_cols(w_hh.float().transpose(1, 2))
-        rows = w_q.transpose(1, 2).contiguous()                # (2, 3H, H)
-        return (cuda_build.interleave_chunks(rows),
-                sc.reshape(2, G).contiguous())
-    return (cuda_build.interleave_chunks(w_hh.to(torch.bfloat16).contiguous()),
-            torch.ones((2, G), dtype=torch.float32, device=w_hh.device))
-
-
 def _raise(lib, name, err):
     raise RuntimeError("{} launch failed: {} (cudaError {})".format(
         name, lib.gru_fullfused_error_string(err).decode(), err))
@@ -349,7 +370,10 @@ def _unpad(out, T, B, hidden, padded):
         T, B, 2 * hidden)
 
 
-def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode):
+def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode,
+                      cluster=None):
+    """``cluster``: a (C, BT) geometry in place of :func:`cluster_geometry`'s
+    (the cluster modes; for timing other cluster sizes)."""
     T, B, IN = x.shape
     H = w_hh.shape[-1]
     kernel = "bigru_fullfused_int8" if mode == "int8" else "bigru_fullfused"
@@ -369,18 +393,20 @@ def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode):
     w_ih = _pad_gates(w_ih.to(torch.bfloat16), H, Hp, 1).contiguous()
     b_ih = _pad_gates(b_ih.float(), H, Hp, 1).contiguous()
     w_hh, b_hh = _pad_recurrent(w_hh.float(), b_hh.float(), H, Hp)
-    if mode == "f32_gates":
-        cluster, columns = cluster_geometry(Hp, B, dev)[:2]
+    if mode in CLUSTER_LAYOUTS:
+        cols = cluster or cluster_geometry(Hp, B, dev, kernel)[:2]
         cpt = nq = w_smem = 0
-        w_op = _cluster_operand(w_hh, cluster)
-        scale = None       # int8 scales: not read in this mode
+        w_op, scale = _cluster_operand(w_hh, cols[0], mode)
     else:
         try:
-            cpt, nq, w_smem = _choose(lib, num, B, Hp, dev)
+            cpt, nq, w_smem = _choose(lib, B, Hp, dev)
         except ValueError as e:
             raise ValueError("{}: {}".format(kernel, e)) from None
-        cluster = columns = 0
-        w_op, scale = _hh_operand(w_hh, mode)
+        cols = (0, 0)
+        # the per-block recurrence's 16-byte-chunk row layout
+        w_op = cuda_build.interleave_chunks(
+            w_hh.to(torch.bfloat16).contiguous())
+        scale = None
     b_hh = b_hh.contiguous()
     x = x.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
@@ -390,12 +416,70 @@ def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode):
         x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(), w_op.data_ptr(),
         None if scale is None else scale.data_ptr(), b_hh.data_ptr(),
         lengths.data_ptr(), xp.data_ptr(), out.data_ptr(),
-        out[..., Hp:].data_ptr(), 2 * Hp, T, B, IN, Hp, cluster, columns,
+        out[..., Hp:].data_ptr(), 2 * Hp, T, B, IN, Hp, cols[0], cols[1],
         cpt, nq, int(w_smem), num, stream)
     if err != 0:
         _raise(lib, kernel, err)
     LAUNCHES[kernel] += 1
     MODE_LAUNCHES["{}/{}".format(kernel, mode)] += 1
+    if mode in CLUSTER_LAYOUTS:
+        LAUNCHES["bigru_project"] += 1
+    return _unpad(out, T, B, H, Hp)
+
+
+def _launch_project(x, w_ih, b_ih):
+    T, B, IN = x.shape
+    G = w_ih.shape[1]
+    if G % 2 or w_ih.shape != (2, G, IN) or b_ih.shape != (2, G):
+        raise ValueError("bigru_project: expected w_ih (2, G, {}) and b_ih "
+                         "(2, G) with G even, got {} and {}".format(
+                             IN, tuple(w_ih.shape), tuple(b_ih.shape)))
+    xp = torch.empty((2, T, B, G), dtype=torch.bfloat16, device=x.device)
+    if T == 0 or B == 0:
+        return xp
+    lib = build()
+    x = x.to(torch.bfloat16).contiguous()
+    w_ih = w_ih.to(x.device, torch.bfloat16).contiguous()
+    b_ih = b_ih.to(x.device, torch.float32).contiguous()
+    err = lib.bigru_project_launch(
+        x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(), xp.data_ptr(),
+        T * B, IN, G, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        _raise(lib, "bigru_project", err)
+    LAUNCHES["bigru_project"] += 1
+    return xp
+
+
+def _launch_int8_recurrence(xp_f, xp_b, w_hh, b_hh, lengths, cluster=None):
+    T, B, G = xp_f.shape
+    H = G // 3
+    _check_hidden("bigru_fullfused_int8", H)
+    Hp = _padded(H)
+    cuda_build.check_inputs("bigru_fullfused_int8", Hp, [
+        (xp_f, (T, B, G), torch.bfloat16),
+        (xp_b, (T, B, G), torch.bfloat16), (w_hh, (2, G, H), None),
+        (b_hh, (2, G), None), (lengths, (B,), None)])
+    dev = xp_f.device
+    out = torch.empty((T, B, 2 * Hp), dtype=torch.bfloat16, device=dev)
+    if T == 0 or B == 0:
+        return _unpad(out, T, B, H, Hp)
+    lib = build()
+    cols = cluster or cluster_geometry(Hp, B, dev,
+                                       "bigru_fullfused_int8")[:2]
+    xp_f = _pad_gates(xp_f, H, Hp, 2).contiguous()
+    xp_b = _pad_gates(xp_b, H, Hp, 2).contiguous()
+    w_hh, b_hh = _pad_recurrent(w_hh.float(), b_hh.float(), H, Hp)
+    w_op, scale = _cluster_operand(w_hh, cols[0], "int8")
+    b_hh = b_hh.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    err = lib.bigru_int8_rec_launch(
+        xp_f.data_ptr(), xp_b.data_ptr(), w_op.data_ptr(), scale.data_ptr(),
+        b_hh.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        out[..., Hp:].data_ptr(), 2 * Hp, T, B, Hp, cols[0], cols[1],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        _raise(lib, "bigru_fullfused_int8", err)
+    LAUNCHES["bigru_int8_recurrence"] += 1
     return _unpad(out, T, B, H, Hp)
 
 
@@ -417,7 +501,7 @@ def _launch_fused(x_proj_f, x_proj_b, w_hh, b_hh, lengths):
     xp_f = _pad_gates(x_proj_f, H, Hp, 2).contiguous()
     xp_b = _pad_gates(x_proj_b, H, Hp, 2).contiguous()
     w_hh, b_hh = _pad_recurrent(w_hh.float(), b_hh.float(), H, Hp)
-    w_op = _cluster_operand(w_hh, cluster)
+    w_op = _cluster_operand(w_hh, cluster)[0]
     b_hh = b_hh.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -460,6 +544,29 @@ def fullfused_layer(x, w_ih, b_ih, w_hh, b_hh, lengths, mode="f32_gates"):
     if x.is_cuda:
         return _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode)
     return bigru_fullfused_plain(x, w_ih, b_ih, w_hh, b_hh, lengths, mode)
+
+
+def project(x, w_ih, b_ih):
+    """The projection stage of the f32-gates and int8 modes: (2, T, B, 3H)
+    bf16 ``bf16(f32(x W_ih^T) + b_ih)`` of (T, B, IN) bf16 x, (2, 3H, IN)
+    W_ih (used in bf16) and (2, 3H) b_ih (f32). On a CUDA tensor the
+    tensor-core stage alone (``bigru_proj_mma_kernel``); on the CPU
+    :func:`project_plain`."""
+    if x.is_cuda:
+        return _launch_project(x, w_ih, b_ih)
+    return project_plain(x, w_ih, b_ih)
+
+
+def int8_recurrence(x_proj_f, x_proj_b, w_hh, b_hh, lengths):
+    """The int8 mode's recurrence alone over bf16 projections (T, B, 3H):
+    (T, B, 2H) bf16 [forward h | backward h]. On a CUDA tensor the cluster
+    recurrence of ``bigru_fullfused_int8`` without its projection stage
+    (for its checks and timings); on the CPU
+    :func:`recurrence_plain` in mode "int8"."""
+    if x_proj_f.is_cuda:
+        return _launch_int8_recurrence(x_proj_f, x_proj_b, w_hh, b_hh,
+                                       lengths)
+    return recurrence_plain(x_proj_f, x_proj_b, w_hh, b_hh, lengths, "int8")
 
 
 def fused_layer(x_proj_f, x_proj_b, w_hh, b_hh, lengths):

@@ -14,7 +14,8 @@ kernels' byte counts, and is tested on the CPU.
 The split kernels' int8 mode (``csrc/gru_split.cu``: ``gru_l1_split``
 kind "l1", ``gru_l2head_split`` kind "l2") runs the same cluster design
 with int8 weights, blocks of up to 256 units and larger clusters where
-they buy one wave (:data:`SPLIT`).
+they buy one wave (:data:`SPLIT`); ``bigru_fullfused_int8`` runs the GRU
+forward with int8 weights in the same row order (:data:`GRU_INT8`).
 """
 from __future__ import annotations
 
@@ -56,6 +57,8 @@ class Layout(NamedTuple):
     #: where no tile runs in one wave at the smallest cluster, try larger
     #: clusters (fewer units a block, more columns a cluster) first
     widen: bool = False
+    #: threads of a block at most
+    max_threads: int = MAX_THREADS
 
 
 #: gates i, f, g, o; 8-unit groups: rows q*32 + g*8 + u
@@ -67,6 +70,14 @@ GRU = Layout(gates=3, group=16, cell=False)
 #: at H <= 256 in layer 1) and 64 columns a cluster
 SPLIT = Layout(gates=3, group=16, cell=False, wbytes=1, max_units=256,
                tiles=(8, 16, 32, 64), widen=True)
+#: the int8 GRU forward of ``bigru_fullfused_int8`` (``csrc/gru_rec.cuh``,
+#: NUM_INT8): SPLIT's rows and int8 slices, 256 threads a block at most
+#: (each warp keeps its rows of W_hh in registers). At most 32 units a
+#: block: clusters of 8 at H=256, which step as fast as 16 and faster than
+#: 2 or 4 on an H100 at B=16 and over one column (PERF.md), and every
+#: H <= 512 fits
+GRU_INT8 = Layout(gates=3, group=16, cell=False, wbytes=1, max_units=32,
+                  max_threads=256)
 
 
 def units_per_block(layout: Layout, hidden: int, cluster: int) -> int:
@@ -87,9 +98,11 @@ def threads(layout: Layout, hidden: int, cluster: int, columns: int) -> int:
     return 32 * warps * (columns // min(columns, 16))
 
 
-def max_threads(kind: str) -> int:
-    """Threads of a block at most for a kernel of ``kind``."""
-    return KIND_MAX_THREADS.get(kind, MAX_THREADS)
+def max_threads(kind: str, layout: Layout = None) -> int:
+    """Threads of a block at most for a kernel of ``kind`` (and
+    ``layout``)."""
+    most = KIND_MAX_THREADS.get(kind, MAX_THREADS)
+    return most if layout is None else min(most, layout.max_threads)
 
 
 def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
@@ -103,13 +116,21 @@ def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
     if kind in ("l1", "l2"):
         return _split_smem_bytes(layout, kind, cluster, columns, hidden,
                                  inputs, U)
+    if layout.wbytes == 1:
+        # the int8 GRU forward: W_hh slice and h [2][BT] in int8 rows of
+        # Hp + 16 bytes, the staged int8 h, the staged bf16 h, two
+        # mbarriers
+        row = cluster * U + 16
+        return (_align16(layout.gates * U * row) + _align16(2 * columns * row)
+                + _align16(columns * U) + _align16(columns * U * 2) + 16)
     ldw = cluster * U + 8        # padded bf16 row of W and of h
     nbytes = (_align16(layout.gates * U * ldw * 2)   # W_hh slice
               + _align16(2 * columns * ldw * 2))     # h (h_prev) x 2
     if kind == "fwd":
-        # staged bf16 h (and the LSTM's f32 c) of the block's units
+        # staged bf16 h (and the LSTM's f32 c) of the block's units and
+        # the h exchange's two mbarriers
         return (nbytes + _align16(columns * U * 2)
-                + (_align16(columns * U * 4) if layout.cell else 0))
+                + (_align16(columns * U * 4) if layout.cell else 0) + 16)
     # bf16 dgates [BT][gates U + 8] and the dh partials [2][C][U][BT] f32
     return (nbytes + _align16(columns * (layout.gates * U + 8) * 2)
             + _align16(2 * cluster * U * columns * 4))
@@ -164,7 +185,7 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
     def fits(cluster, columns):
         return (units_per_block(layout, hidden, cluster) <= layout.max_units
                 and threads(layout, hidden, cluster, columns)
-                <= max_threads(kind)
+                <= max_threads(kind, layout)
                 and smem_bytes(layout, kind, cluster, columns, hidden,
                                inputs) <= smem_limit)
 

@@ -174,13 +174,17 @@ def test_wrapper_raises_on_bad_input(device):
 
 
 @pytest.mark.parametrize("H,B,T", [(128, 128, 1000), (384, 32, 500),
-                                   (128, 5, 64)])
+                                   (128, 5, 64), (128, 1, 200),
+                                   (128, 16, 300), (384, 1, 100),
+                                   (384, 16, 200), (384, 128, 200)])
 def test_bilstm_matches_plain(device, H, B, T):
-    """bilstm_fused against bilstm_fused_plain on random weights, ragged
-    lengths, both directions. They do the same operations and differ only
-    in the order of the f32 sums of the recurrent product, which can move
-    the bf16 rounding of h by one step: outputs within one bf16 step
-    (2^-8 for |h| < 1), mean difference within 1e-3."""
+    """bilstm_fused (the LSTM cluster forward, both directions in one grid:
+    clusters of 2 at H=128, 8 at H=384) against bilstm_fused_plain on
+    random weights, ragged lengths, both directions. They do the same
+    operations and differ only in the order of the f32 sums of the
+    recurrent product, which can move the bf16 rounding of h by one step:
+    outputs within one bf16 step (2^-8 for |h| < 1), mean difference
+    within 1e-3; a second launch repeats the first bit for bit."""
     rng = np.random.default_rng(H + B)
     k = 1.0 / np.sqrt(H)
     xp_f, xp_b = (torch.from_numpy(rng.uniform(-2, 2, (T, B, 4 * H)).astype(
@@ -193,8 +197,10 @@ def test_bilstm_matches_plain(device, H, B, T):
     lengths[0] = T
     lengths = lengths.to(device)
     got = bilstm.bilstm_fused(xp_f, xp_b, w_hh, b_hh, lengths)
+    again = bilstm.bilstm_fused(xp_f, xp_b, w_hh, b_hh, lengths)
     want = bilstm.bilstm_fused_plain(xp_f, xp_b, w_hh, b_hh, lengths)
     torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     for g, w in zip(got, want):
         assert g.shape == (T, B, H) and g.dtype == torch.bfloat16
         diff = (g.float() - w.float()).abs()
@@ -456,15 +462,15 @@ def _launch_at(kernel, H, B, device):
 
 
 @pytest.mark.parametrize("kernel", ["gru_bwd", "bigru_fullfused", "gru_fwd",
-                                    "bigru_fused"])
+                                    "bigru_fused", "bigru_fullfused_int8"])
 def test_gru_geometry_matches_the_kernels(device, kernel):
     """The host's byte count equals the kernel's for every H and tile the
     GRU cluster chooser can pick (the backward and ``gru_fwd`` at every H
     they take, the f32-gates bi-GRU recurrence of ``bigru_fullfused`` and
-    ``bigru_fused`` at every H up to 512, padded to a multiple of 32), and
-    every cluster size it picks is resident; ``gru_fwd`` and
-    ``bigru_fused`` launch at each geometry and agree with their plain
-    versions."""
+    ``bigru_fused`` and the int8 one of ``bigru_fullfused_int8`` at every
+    H up to 512, padded to a multiple of 32), and every cluster size it
+    picks is resident; ``gru_fwd`` and ``bigru_fused`` launch at each
+    geometry and agree with their plain versions."""
     if kernel == "gru_bwd":
         smem_fn = gru_train.build().gru_bwd_smem
         geometry = gru_train.bwd_geometry
@@ -474,11 +480,16 @@ def test_gru_geometry_matches_the_kernels(device, kernel):
         geometry = gru_train.fwd_geometry
         want = {1, 2, 4, 8}
     else:
-        smem_fn = gru_fullfused.build().bigru_cluster_smem
+        num = gru_fullfused.NUMERICS[
+            "int8" if kernel == "bigru_fullfused_int8" else "f32_gates"]
+
+        def smem_fn(C, BT, H):
+            return gru_fullfused.build().bigru_cluster_smem(num, C, BT, H)
 
         def geometry(H, B, dev):
             return gru_fullfused.cluster_geometry(H, B, dev, kernel)
-        want = {1, 2, 4, 8}
+        want = ({1, 2, 4, 8, 16} if kernel == "bigru_fullfused_int8"
+                else {1, 2, 4, 8})
     gru_train.reset_launches()
     gru_fullfused.reset_launches()
     clusters = set()
@@ -620,17 +631,23 @@ def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
     """Each fullfused mode and ``bigru_fused`` against its plain version,
     ragged lengths, layer 1 (10 features) and layer 2 (2H) inputs.
 
-    The projection stage sums in the plain version's order, so it agrees
-    bit for bit; the recurrent product's f32 sums run in another order
-    (cuBLAS), which can move one bf16 rounding of h or one round(127 h):
-    f32-gates and int8 outputs within 2^-8 (mean 1e-3), bf16 gates within
-    one bf16 step of the output's largest magnitude. A second launch
-    repeats the first bit for bit. The f32-gates mode and ``bigru_fused``
-    run the cluster recurrence, whose chooser takes clusters of 1 (H=64),
-    2 (96), 4 (160 with 32 zero units, 256) and 8 (384, 512) blocks, with
-    B=1-128 on 8-, 16- and 32-column tiles; the bf16-gates and int8 modes
-    the per-block recurrence, which streams the bf16 W_hh from L2 at H >=
-    256 and keeps it in shared memory below, the int8 one up to H=256.
+    The bf16-gates mode's projection stage sums in the plain version's
+    order, so it agrees bit for bit, and its plain version is
+    ``bigru_fullfused_plain``; the f32-gates and int8 modes project on the
+    tensor cores (within one bf16 step of ``project_plain``, checked in
+    ``test_fullfused_projection_stage_matches_plain``), so their
+    recurrence is held against ``recurrence_plain`` over the stage's own
+    projections. The recurrent product's f32 sums run in another order
+    (cuBLAS), which can move one bf16 rounding of h: f32-gates outputs
+    within 2^-8 (mean 1e-3); int8 sums are exact, so int8 outputs too;
+    bf16 gates within one bf16 step of the output's largest magnitude. A
+    second launch repeats the first bit for bit. The f32-gates, int8 and
+    ``bigru_fused`` launches run the cluster recurrence, whose chooser
+    takes clusters of 1 (H=64), 2 (96), 4 (160 with 32 zero units, 256)
+    and 8 (384, 512) blocks in f32 and of 2-16 blocks in int8, with B=1-128
+    on 8-, 16- and 32-column tiles; the bf16-gates mode the per-block
+    recurrence, which streams the bf16 W_hh from L2 at H >= 256 and keeps
+    it in shared memory below.
     """
     rng = np.random.default_rng(H + B + T)
     IN = 10 if layer_in == "features" else 2 * H
@@ -650,8 +667,13 @@ def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
         def kernel():
             return gru_fullfused.fullfused_layer(x, w_ih, b_ih, w_hh, b_hh,
                                                  lengths, mode)
-        want = gru_fullfused.bigru_fullfused_plain(x, w_ih, b_ih, w_hh, b_hh,
-                                                   lengths, mode)
+        if mode == "bf16_gates":
+            want = gru_fullfused.bigru_fullfused_plain(
+                x, w_ih, b_ih, w_hh, b_hh, lengths, mode)
+        else:
+            xp = gru_fullfused.project(x, w_ih, b_ih)
+            want = gru_fullfused.recurrence_plain(xp[0], xp[1], w_hh, b_hh,
+                                                  lengths, mode)
         key = "bigru_fullfused_int8" if mode == "int8" else "bigru_fullfused"
     got, again = kernel(), kernel()
     torch.cuda.synchronize()
@@ -669,21 +691,95 @@ def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
     assert (got[..., H:].float().abs().sum(-1)[t_pad] == 0).all()
 
 
-def test_fullfused_projection_stage_matches_plain(device):
-    """The projection stage alone (through bigru_fullfused's scratch is
-    not exposed, so through a one-step layer with zero recurrent weights:
-    h = (1 - z) n with n, z from the projections only) is bit for bit the
-    plain version's."""
-    rng = np.random.default_rng(2)
-    x, w_ih, b_ih, _, _, lengths = _fullfused_inputs(rng, 64, 8, 1, 512,
+def _within_one_bf16_step(got, want):
+    """(largest difference, share of elements that differ, the bar): the
+    bar is one bf16 step at the magnitude of ``want``'s largest element,
+    as ``_bf16_ulp`` sets it for the bf16-gates outputs."""
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item(), (diff > 0).float().mean().item(),
+            _bf16_ulp(want.float()))
+
+
+@pytest.mark.parametrize("H,B,T,IN", [(64, 8, 1, 512), (256, 16, 200, 512),
+                                      (256, 31, 100, 10), (96, 1, 50, 192)])
+def test_fullfused_projection_stage_matches_plain(device, H, B, T, IN):
+    """The tensor-core projection stage of the f32-gates and int8 modes
+    (``project``, the stage ``fullfused_layer`` runs) within one bf16 step
+    of ``project_plain``: its f32 sums run in the tensor cores' order, so
+    an element can round to the neighbouring bf16 value (a share of about
+    1e-4 of them on an H100); fewer than 1% of the elements may differ at
+    all. The bf16-gates mode's stage sums in the plain version's order: a
+    one-step layer with zero recurrent weights (h = (1 - z) n with n, z
+    from the projections only) is bit for bit the plain version's, and so
+    is the f32-gates one over ``project``'s projections."""
+    rng = np.random.default_rng(H + IN)
+    x, w_ih, b_ih, _, _, lengths = _fullfused_inputs(rng, H, B, T, IN,
                                                      device)
-    zeros = torch.zeros((2, 192, 64), device=device)
-    got = gru_fullfused.fullfused_layer(x, w_ih, b_ih, zeros, zeros[..., 0],
-                                        lengths, "f32_gates")
-    want = gru_fullfused.bigru_fullfused_plain(
-        x, w_ih, b_ih, zeros, zeros[..., 0], lengths, "f32_gates")
+    gru_fullfused.reset_launches()
+    got = gru_fullfused.project(x, w_ih, b_ih)
+    want = gru_fullfused.project_plain(x, w_ih, b_ih)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert gru_fullfused.LAUNCHES["bigru_project"] == 1
+    assert got.shape == (2, T, B, 3 * H) and got.dtype == torch.bfloat16
+    err, share, bar = _within_one_bf16_step(got, want)
+    print("projection H", H, "IN", IN, "max", err, "bar", bar,
+          "share differing", share)
+    assert err <= bar and share < 1e-2
+    zeros = torch.zeros((2, 3 * H, H), device=device)
+    one = x[:1].contiguous()
+    for mode in ("bf16_gates", "f32_gates"):
+        kernel = gru_fullfused.fullfused_layer(one, w_ih, b_ih, zeros,
+                                               zeros[..., 0], lengths, mode)
+        if mode == "bf16_gates":
+            plain = gru_fullfused.bigru_fullfused_plain(
+                one, w_ih, b_ih, zeros, zeros[..., 0], lengths, mode)
+        else:
+            xp = gru_fullfused.project(one, w_ih, b_ih)
+            plain = gru_fullfused.recurrence_plain(
+                xp[0], xp[1], zeros, zeros[..., 0], lengths, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(kernel, plain), mode
+
+
+@pytest.mark.parametrize("H", [96, 256, 384, 512])
+@pytest.mark.parametrize("B", [1, 16, 31])
+def test_int8_fullfused_matches_plain(device, H, B):
+    """``bigru_fullfused_int8`` (the int8 cluster recurrence: clusters of
+    4, 8, 16 and 16 blocks at these H) at B=1, 16 and 31 with a padded row,
+    layer 1 and layer 2 inputs: within 2^-8 of its plain version over the
+    stage's projections, bit for bit on repeat; its recurrence launched
+    alone over the same projections gives the same bits. (Its distance to
+    ``bigru_fullfused_plain``, whose projection sums in another order, is
+    printed: a projection one bf16 step away can move round(127 h).)"""
+    rng = np.random.default_rng(H * 100 + B)
+    T = 100
+    for IN in (10, 2 * H):
+        x, w_ih, b_ih, w_hh, b_hh, lengths = _fullfused_inputs(
+            rng, H, B, T, IN, device)
+        gru_fullfused.reset_launches()
+        got = gru_fullfused.fullfused_layer(x, w_ih, b_ih, w_hh, b_hh,
+                                            lengths, "int8")
+        again = gru_fullfused.fullfused_layer(x, w_ih, b_ih, w_hh, b_hh,
+                                              lengths, "int8")
+        xp = gru_fullfused.project(x, w_ih, b_ih)
+        alone = gru_fullfused.int8_recurrence(xp[0], xp[1], w_hh, b_hh,
+                                              lengths)
+        want = gru_fullfused.recurrence_plain(xp[0], xp[1], w_hh, b_hh,
+                                              lengths, "int8")
+        whole = gru_fullfused.bigru_fullfused_plain(
+            x, w_ih, b_ih, w_hh, b_hh, lengths, "int8")
+        torch.cuda.synchronize()
+        assert gru_fullfused.MODE_LAUNCHES["bigru_fullfused_int8/int8"] == 2
+        assert gru_fullfused.LAUNCHES["bigru_int8_recurrence"] == 1
+        assert torch.equal(got, again) and torch.equal(got, alone)
+        diff = (got.float() - want.float()).abs()
+        print("int8 H", H, "B", B, "IN", IN, "max", diff.max().item(),
+              "vs the whole plain layer",
+              (got.float() - whole.float()).abs().max().item())
+        assert diff.max().item() <= 2.0 ** -8
+        assert diff.mean().item() <= 1e-3
+        t_pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
+        assert (got[..., H:].float().abs().sum(-1)[t_pad] == 0).all()
 
 
 def test_fullfused_wrapper_raises_on_bad_input(device):
@@ -713,12 +809,14 @@ def test_fullfused_wrapper_raises_on_bad_input(device):
 
 def test_fullfused_odd_hidden_matches_plain(device):
     """H=100 (not a multiple of 32): the kernels run on zero-padded units
-    and agree with the unpadded plain version as at H=96."""
+    and agree with the unpadded plain version as at H=96 (the recurrence
+    over the tensor-core stage's projections)."""
     rng = np.random.default_rng(3)
     args = _fullfused_inputs(rng, 100, 5, 60, 10, device)
+    xp = gru_fullfused.project(*args[:3])
     for mode in ("f32_gates", "int8"):
         got = gru_fullfused.fullfused_layer(*args, mode)
-        want = gru_fullfused.bigru_fullfused_plain(*args, mode)
+        want = gru_fullfused.recurrence_plain(xp[0], xp[1], *args[3:], mode)
         torch.cuda.synchronize()
         assert got.shape == (60, 5, 200)
         assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -8

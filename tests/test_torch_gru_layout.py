@@ -90,16 +90,16 @@ def test_fullfused_geometry_fits_every_hidden_size(B):
 @pytest.mark.parametrize("kind,H,B,directions,resident,want", [
     ("bwd", 256, 128, 1, 32, (4, 8, 129408)),
     ("bwd", 256, 128, 1, 8, (4, 16, 157440)),
-    ("fwd", 256, 16, 2, 32, (4, 8, 110848)),
-    ("fwd", 256, 1, 2, 32, (4, 8, 110848)),
+    ("fwd", 256, 16, 2, 32, (4, 8, 110864)),
+    ("fwd", 256, 1, 2, 32, (4, 8, 110864)),
     ("bwd", 512, 128, 1, 8, (16, 16, 201984)),
-    ("fwd", 512, 16, 2, 15, (8, 8, 217344)),
+    ("fwd", 512, 16, 2, 15, (8, 8, 217360)),
     ("bwd", 96, 5, 1, 66, (2, 8, 41856)),
-    ("fwd", 256, 128, 1, 62, (4, 8, 110848)),
-    ("fwd", 256, 128, 1, 8, (4, 16, 120320)),
-    ("fwd", 256, 16, 2, 62, (4, 8, 110848)),
-    ("fwd", 96, 31, 1, 66, (2, 8, 34048)),
-    ("fwd", 512, 128, 1, 15, (8, 8, 217344))])
+    ("fwd", 256, 128, 1, 62, (4, 8, 110864)),
+    ("fwd", 256, 128, 1, 8, (4, 16, 120336)),
+    ("fwd", 256, 16, 2, 62, (4, 8, 110864)),
+    ("fwd", 96, 31, 1, 66, (2, 8, 34064)),
+    ("fwd", 512, 128, 1, 15, (8, 8, 217360))])
 def test_geometry_at_the_main_shapes(kind, H, B, directions, resident, want):
     """The counts model's width, H=256, takes clusters of 4 (64 units a
     block, a W slice of 192 x 264 x 2 = 101,376 B) for the backward and
@@ -119,7 +119,7 @@ def test_geometry_raises_without_resident_clusters():
                                     cuda_build.SMEM_LIMIT,
                                     lambda C, BT, smem: 0)
     with pytest.raises(RuntimeError, match=(
-            "gru_fwd: no cluster of 4 blocks of 8 columns with 110848 bytes "
+            "gru_fwd: no cluster of 4 blocks of 8 columns with 110864 bytes "
             "of shared memory can be resident")):
         rnn_cluster.choose_geometry(GRU, "fwd", 256, 128,
                                     cuda_build.SMEM_LIMIT,
@@ -233,7 +233,8 @@ def fake_card(monkeypatch):
         return resident["n"]
 
     lib = types.SimpleNamespace(
-        gru_fwd_max_clusters=max_clusters, bigru_max_clusters=max_clusters,
+        gru_fwd_max_clusters=max_clusters,
+        bigru_max_clusters=lambda num, C, BT, H: max_clusters(C, BT, H),
         gru_train_error_string=lambda err: b"invalid argument",
         gru_fullfused_error_string=lambda err: b"invalid argument")
     monkeypatch.setattr(gru_train, "build", lambda: lib)
@@ -250,11 +251,11 @@ def test_fwd_geometry_through_the_wrappers(fake_card):
     resident clusters: at H=256 clusters of 4 and 8 columns, 16 clusters
     at B=128 (64 of 132 SMs), 4 at B=16 for both directions."""
     dev = torch.device("cuda", 0)
-    assert gru_train.fwd_geometry(256, 128, dev) == (4, 8, 110848, 62)
-    assert gru_train.fwd_geometry(256, 1, dev) == (4, 8, 110848, 62)
+    assert gru_train.fwd_geometry(256, 128, dev) == (4, 8, 110864, 62)
+    assert gru_train.fwd_geometry(256, 1, dev) == (4, 8, 110864, 62)
     assert gru_fullfused.cluster_geometry(256, 16, dev, "bigru_fused") == (
-        4, 8, 110848, 62)
-    assert gru_train.fwd_geometry(96, 31, dev) == (2, 8, 34048, 62)
+        4, 8, 110864, 62)
+    assert gru_train.fwd_geometry(96, 31, dev) == (2, 8, 34064, 62)
 
 
 @pytest.mark.parametrize("kernel", ["gru_fwd", "bigru_fused"])
@@ -270,7 +271,7 @@ def test_fwd_geometry_raises_without_resident_clusters(fake_card, kernel):
             return gru_fullfused.cluster_geometry(256, 16, dev, kernel)
     fake_card["n"] = 0
     with pytest.raises(RuntimeError, match=(
-            kernel + ": no cluster of 4 blocks of 8 columns with 110848 "
+            kernel + ": no cluster of 4 blocks of 8 columns with 110864 "
             "bytes of shared memory can be resident")):
         geometry()
     rnn_cluster._RESIDENT.clear()

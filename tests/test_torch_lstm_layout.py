@@ -55,10 +55,10 @@ def test_geometry_fits_every_hidden_size(kind, B):
 
 
 @pytest.mark.parametrize("kind,H,resident,want", [
-    ("fwd", 384, 16, (8, 8, 165376)), ("bwd", 384, 16, (8, 8, 190848)),
-    ("fwd", 384, 8, (8, 16, 180224)), ("bwd", 384, 8, (8, 16, 231168)),
-    ("fwd", 128, 66, (2, 8, 77056)), ("bwd", 512, 8, (16, 8, 184704)),
-    ("fwd", 512, 4, (16, 32, 205824))])
+    ("fwd", 384, 16, (8, 8, 165392)), ("bwd", 384, 16, (8, 8, 190848)),
+    ("fwd", 384, 8, (8, 16, 180240)), ("bwd", 384, 8, (8, 16, 231168)),
+    ("fwd", 128, 66, (2, 8, 77072)), ("bwd", 512, 8, (16, 8, 184704)),
+    ("fwd", 512, 4, (16, 32, 205840))])
 def test_geometry_at_the_training_shapes(kind, H, resident, want):
     """B=128: H=384 takes clusters of 8 (48 units a block, W slice
     150,528 B) and the smallest tile whose 128 / BT clusters are all

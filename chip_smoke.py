@@ -26,7 +26,8 @@ Phases, each of which fails the script when it fails:
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
    at B=64, each with int8 quantisation on and off, and against
    themselves run again (bit for bit); in int8, layer 1 bit-identical to
-   its plain version; hold the bi-LSTM kernel (the LSTM cluster forward,
+   its plain version; the same at 9, 15 (the diploid head) and 16 classes
+   over T=500; hold the bi-LSTM kernel (the LSTM cluster forward,
    both directions in one grid) against its plain version at H=128
    (B=128, T=1000) and H=384 (B=32, T=500), ragged lengths, random
    weights;
@@ -47,7 +48,10 @@ Phases, each of which fails the script when it fails:
    resident clusters) and the microseconds a step; a profile of each
    int8 launch must show the cluster kernel (``gru_l1_split_s8_kernel``,
    ``gru_l2head_split_s8_kernel``) and neither bf16 per-block kernel; the
-   same for mode "rows" on 64 rows;
+   same for mode "rows" on 64 rows; ``gru_l2head_split`` with a
+   15-class head on the same layer-1 outputs against its plain version,
+   timed beside the 5-class launch (turns 5, 15, 15, 5) with its bound;
+   then the variant paths (phase 20);
 8. the read-level main path: ``inference`` with the bundled
    ``rl_lstm128_lambda_demo`` at chunk_len 1000, overlap 100 and the
    automatic batch, then ``sequence``, with the bi-LSTM kernel's launch
@@ -141,7 +145,20 @@ Phases, each of which fails the script when it fails:
     two and neither of the others, ``bigru_fused`` the cluster recurrence
     alone; the projection stage alone against ``project_plain``, timed
     beside its plain version, its bound and ``torch.addmm``; then print one
-    ``kernels`` JSON line (twelve rows).
+    ``kernels`` JSON line (twelve rows);
+20. (after phase 7) the variant and SNP calling paths, each on a 0.5 Mb
+    ``testing.create_variant_bam`` genome at depth 30 with its truth VCF
+    (reads aligned without a mapper): ``inference --model
+    gru256_variant_demo`` by name at the automatic batch, with the split
+    kernels' launch counts set to 0 just before, then ``vcf`` and ``vcf
+    --gvcf``; ``inference --model gru256_diploid_snp_demo`` (15 classes),
+    then ``snp`` and ``snp --het_rescue 0.1``. Each path must launch both
+    split kernels; the SNP/indel precision, recall and F1 (and genotype
+    concordance) must meet ``testing.VARIANT_FLOORS``, which the CPU tests
+    fix; ``--het_rescue 0.1`` must raise the diploid recall; the gVCF must
+    hold the VCF's records and a reference row for each other column. The
+    paths' launches, columns/s and scores go into the split kernels' rows
+    of the ``kernels`` line.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -229,6 +246,11 @@ FULLFUSED_MODES = {"bigru_fullfused/f32_gates": "f32_gates",
                    "bigru_fullfused_int8": "int8", "bigru_fused": "fused"}
 #: the batch of the small-batch path: below 32, so off the split path
 SMALL_BATCH = 16
+#: head widths held against their plain versions besides the haploid 5:
+#: the diploid head's 15 and the edges of the head's 16-wide tile, over
+#: this many steps
+HEAD_CHECK_CLASSES = (9, 15, 16)
+HEAD_CHECK_T = 500
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
 # bf16 flop/s, f32 flop/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -531,16 +553,16 @@ def bound(kind, B, H, IN, C, lengths_sum):
     return t_ops, "operations"
 
 
-def check_probabilities(datastore, hdf):
-    """Finite (n, 5) probabilities summing to 1 in every sample of
-    ``hdf``; returns (samples, columns)."""
+def check_probabilities(datastore, hdf, classes=5):
+    """Finite (n, ``classes``) probabilities summing to 1 in every sample
+    of ``hdf``; returns (samples, columns)."""
     import numpy as np
     index = datastore.DataIndex(hdf)
     n_columns = 0
     with datastore.DataStore(hdf) as ds:
         for name, _ in index.samples:
             probs = ds.load_sample(name).label_probs
-            if probs.ndim != 2 or probs.shape[1] != 5 or \
+            if probs.ndim != 2 or probs.shape[1] != classes or \
                     not np.all(np.isfinite(probs)):
                 raise AssertionError("bad probabilities " + name)
             if np.abs(probs.sum(-1) - 1).max() > 1e-2:
@@ -859,8 +881,9 @@ def check_cluster_forward(name, by_kernel,
         raise AssertionError("{} ran {}".format(name, sorted(by_kernel)))
 
 
-#: one fullfused launch of random inputs profiled in a fresh process:
-#: argv = checkout, mode, T, B, IN, H; prints {kernel: ms} as JSON
+#: one fullfused launch (or, in mode "fused", ``bigru_fused`` over its
+#: projections) of random inputs profiled in a fresh process: argv =
+#: checkout, mode, T, B, IN, H; prints {kernel: ms} as JSON
 PROFILE_CHILD = r"""
 import json, sys
 import torch
@@ -876,8 +899,7 @@ def u(*shape):
 x = (u(T, B, IN) * H ** 0.5).to(torch.bfloat16)
 w = (u(2, 3 * H, IN), u(2, 3 * H), u(2, 3 * H, H), u(2, 3 * H))
 lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
-def launch():
-    return gru_fullfused.fullfused_layer(x, *w, lengths, mode)
+launch = cs.fullfused_calls(gru_fullfused, mode, x, w, lengths)[0]
 launch()
 torch.cuda.synchronize()
 by_kernel = {}
@@ -890,9 +912,10 @@ print(json.dumps(by_kernel))
 
 
 def child_profile(mode, T, B, IN, H):
-    """{kernel: ms} of one fullfused launch in mode ``mode`` at (T, B, IN,
-    H) on random inputs, profiled in a fresh process (:data:`PROFILE_CHILD`;
-    the kernels are already built); {} where that trace is empty too."""
+    """{kernel: ms} of one fullfused launch in mode ``mode`` (or
+    ``bigru_fused``'s, mode "fused") at (T, B, IN, H) on random inputs,
+    profiled in a fresh process (:data:`PROFILE_CHILD`; the kernels are
+    already built); {} where that trace is empty too."""
     proc = subprocess.run(
         [sys.executable, "-c", PROFILE_CHILD, HERE, mode, str(T), str(B),
          str(IN), str(H)], capture_output=True, text=True, timeout=600)
@@ -1667,6 +1690,120 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
     return rows
 
 
+def variant_path(name, bundle, diploid, decodes, seed, work, dev, modules):
+    """One variant-calling path: a 0.5 Mb ``create_variant_bam`` genome at
+    depth 30, ``inference --model <bundle>`` by name at the automatic batch
+    with the split kernels' launch counts set to 0 just before, then each
+    of ``decodes`` ((label, CLI arguments after the files)) scored against
+    the truth VCF. Returns the path's record for the ``kernels`` line."""
+    import torch
+    cli, datastore, gru_split, models, prediction = (modules[k] for k in (
+        "cli", "datastore", "gru_split", "models", "prediction"))
+    from medaka_tpu_torch import testing
+    with phase("{}: 0.5 Mb genome with planted variants at depth 30 "
+               "(create_variant_bam)".format(name)):
+        bam, ref, truth, planted = testing.create_variant_bam(
+            os.path.join(work, name + ".bam"), ref_mb=0.5, depth=30,
+            seed=seed, diploid=diploid)
+    model = models.load_model(models.resolve_model(bundle)).model
+    batch = prediction.auto_batch_size(model, dev)
+    hdf = os.path.join(work, name + ".hdf")
+    with phase("{}: inference --model {} (by name), automatic batch {} "
+               "(mode {})".format(name, bundle, batch,
+                                  gru_split.split_mode(batch))):
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["inference", bam, hdf, "--model", bundle]) != 0:
+            raise AssertionError("{} inference failed".format(name))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(gru_split.LAUNCHES)
+        mode_launches = dict(gru_split.MODE_LAUNCHES)
+    log("   launches on the {} path: {} {}".format(name, launches,
+                                                 mode_launches))
+    if min(launches.values()) < 1:
+        raise AssertionError("a split kernel never launched on the {} "
+                             "path".format(name))
+    n_samples, n_columns = check_probabilities(datastore, hdf,
+                                               model.num_classes)
+    from medaka_tpu_torch.io.fastx import FastaReader
+    with FastaReader(ref) as fr:
+        ref_len = fr.get_reference_length(fr.references[0])
+    out = {"bundle": bundle, "classes": model.num_classes, "batch": batch,
+           "ref_len": ref_len, "planted": len(planted),
+           "samples": n_samples,
+           "columns": n_columns, "inference_s": seconds,
+           "columns_per_s": n_columns / seconds, "launches": launches,
+           "launches_by_mode": mode_launches, "decodes": {}}
+    log("   {} samples, {} columns in {:.2f} s of inference: {:.0f} "
+        "columns/s".format(n_samples, n_columns, seconds,
+                           out["columns_per_s"]))
+    for label, args in decodes:
+        vcf_path = os.path.join(work, "{}_{}.vcf".format(
+            name, label.replace(" ", "_")))
+        with phase("{}: {}".format(name, label)):
+            t0 = time.perf_counter()
+            if cli.main([args[0], hdf, ref, vcf_path] + args[1:]) != 0:
+                raise AssertionError("{} {} failed".format(name, label))
+            decode_s = time.perf_counter() - t0
+            score = testing.score_vcf(truth, vcf_path, ref)
+        log("   {} {}: {} ({:.2f} s)".format(name, label, json.dumps(score),
+                                            decode_s))
+        out["decodes"][label] = {"score": score, "seconds": decode_s,
+                                 "vcf": vcf_path}
+    return out
+
+
+def variant_phases(seed, work, dev, modules):
+    """The variant and SNP calling paths (phase 20): returns their
+    records."""
+    from medaka_tpu_torch import testing
+    floors = testing.VARIANT_FLOORS
+    paths = {}
+    hap = variant_path(
+        "variant", "gru256_variant_demo", False,
+        (("vcf", ["vcf"]), ("vcf --gvcf", ["vcf", "--gvcf"])), seed, work,
+        dev, modules)
+    low = testing.below_floors(hap["decodes"]["vcf"]["score"],
+                               floors["haploid"])
+    if low:
+        raise AssertionError("variant calling below its floors: {}".format(
+            low))
+    # the gVCF holds the same variant records and a reference row for
+    # every other covered column (all but the genome's ends)
+    with open(hap["decodes"]["vcf"]["vcf"]) as fh:
+        calls = [line for line in fh if not line.startswith("#")]
+    with open(hap["decodes"]["vcf --gvcf"]["vcf"]) as fh:
+        rows = [line for line in fh if not line.startswith("#")]
+    variants = [line for line in rows if line.split("\t")[4] != "."]
+    if variants != calls or \
+            len(rows) - len(variants) < 0.99 * hap["ref_len"]:
+        raise AssertionError(
+            "the gVCF holds {} variant records ({} in the VCF) and {} "
+            "reference rows".format(len(variants), len(calls),
+                                    len(rows) - len(variants)))
+    hap["gvcf_reference_rows"] = len(rows) - len(variants)
+    paths["variant"] = hap
+
+    dip = variant_path(
+        "diploid_snp", "gru256_diploid_snp_demo", True,
+        (("snp", ["snp"]), ("snp --het_rescue 0.1",
+                            ["snp", "--het_rescue", "0.1"])),
+        seed, work, dev, modules)
+    plain = dip["decodes"]["snp"]["score"]
+    rescued = dip["decodes"]["snp --het_rescue 0.1"]["score"]
+    low = (testing.below_floors(plain, floors["diploid"])
+           + testing.below_floors(rescued, floors["diploid_rescue"]))
+    if low:
+        raise AssertionError("SNP calling below its floors: {}".format(low))
+    if rescued["snp"]["recall"] <= plain["snp"]["recall"]:
+        raise AssertionError("--het_rescue 0.1 did not raise recall: {} -> "
+                             "{}".format(plain["snp"]["recall"],
+                                         rescued["snp"]["recall"]))
+    paths["diploid_snp"] = dip
+    return paths
+
+
 def stacked_layer(layer):
     """(w_ih, b_ih, w_hh, b_hh), each the (fwd, bwd) pair stacked."""
     import torch
@@ -2103,10 +2240,8 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                         for key, cols in (("main", B), ("one_column", 1))}
                 for key, fn, cols in (("main", kernel, B),
                                       ("one_column", floor, 1)):
-                    child = None
-                    if mode != "fused":
-                        def child(cols=cols):
-                            return child_profile(mode, T, cols, IN, H)
+                    def child(cols=cols):
+                        return child_profile(mode, T, cols, IN, H)
                     row[key + "_ms"] = cluster_launch_ms(
                         name, fn, prefixes, PROFILE_KERNELS[name], child)
                 rec_kernel = [p for p in prefixes if "proj" not in p][0]
@@ -2346,6 +2481,36 @@ def main(argv=None):
                     "agreement {:.6f}".format(
                         mode, B, quant, l1_err, l2_err, stats["max"],
                         stats["mean"], stats["argmax_agreement"]))
+
+    head_agreement = {}
+    with phase("the head at {} classes: kernels vs plain versions, "
+               "T={}, four combinations each".format(
+                   ", ".join(map(str, HEAD_CHECK_CLASSES)), HEAD_CHECK_T)):
+        T = HEAD_CHECK_T
+        for classes in HEAD_CHECK_CLASSES:
+            layers, head = random_net(rng, classes=classes)
+            for mode, B in (("t", 256), ("rows", 64)):
+                for quant in (True, False):
+                    x = torch.from_numpy(
+                        rng.random((B, T, 10)).astype("float32"))
+                    lengths = torch.from_numpy(
+                        rng.integers(T // 2, T + 1, B).astype("int32"))
+                    lengths[0] = T
+                    w = gru_split.prepare_split_weights(layers, head, mode,
+                                                        quant, dev)
+                    xt = x.transpose(0, 1).to(torch.bfloat16).contiguous() \
+                        .to(dev)
+                    l1_err, l2_err, stats, _ = compare_kernels(
+                        gru_split, w, xt, lengths.to(dev), mode, quant)
+                    head_agreement["C{}/{}/{}".format(
+                        classes, mode, "int8" if quant else "bf16")] = {
+                        "B": B, "l1_max": l1_err, "logit_max": l2_err,
+                        **stats}
+                    log("   C={} mode={} B={} quant={}: l1 max {:.3g}, l2 "
+                        "logit max {:.3g}; probs max {:.3g}, argmax "
+                        "agreement {:.6f}".format(
+                            classes, mode, B, quant, l1_err, l2_err,
+                            stats["max"], stats["argmax_agreement"]))
 
     with phase("bi-LSTM kernel vs plain version, H=128 and H=384"):
         for H, B, T in ((128, 128, 1000), (384, 32, 500)):
@@ -2592,6 +2757,54 @@ def main(argv=None):
                     rows[0]["network_library"], library_ms["network"], B,
                     rows[0]["ms"] + rows[1]["ms"]))
 
+            # the diploid head's 15 classes on the same layer-1 outputs:
+            # against its plain version, timed beside the 5-class launch
+            # in turns (5, 15, 15, 5), with its geometry and bound
+            scale = 1.0 / (2 * H) ** 0.5
+            w_head15 = torch.from_numpy(rng.uniform(
+                -scale, scale, (2, 15, H)).astype("float32")).to(
+                    dev, torch.bfloat16)
+            args15 = l2_args[:-1] + (w_head15,)
+            main_valid = (torch.arange(T, device=dev)[None, :]
+                          < lens[:, None].long())
+            with torch.inference_mode():
+                k15 = gru_split.gru_l2head_split(*args15, mode="t")
+                p15 = gru_split.gru_l2head_split_plain(*args15, mode="t",
+                                                       quant=True)
+                err15 = max((a - b).abs()[main_valid].max().item()
+                            for a, b in zip(k15, p15))
+                del k15, p15
+                five, fifteen = [], []
+                for turn in (five, fifteen, fifteen, five):
+                    turn.append(cuda_ms(
+                        (lambda: gru_split.gru_l2head_split(
+                            *l2_args, mode="t")) if turn is five else
+                        (lambda: gru_split.gru_l2head_split(
+                            *args15, mode="t"))))
+            if err15 > TOL_LOGIT:
+                raise AssertionError("gru_l2head_split at 15 classes "
+                                     "disagrees with its plain version: max "
+                                     "logit diff {}".format(err15))
+            b15, by15 = bound("gru_l2head_split", B, H, IN, 15, lengths_sum)
+            rows[1]["classes15"] = {
+                "ms": sum(fifteen) / 2, "ms_classes5": sum(five) / 2,
+                "ms_turns": {"classes5": five, "classes15": fifteen},
+                "max_abs_err": err15, "bound_ms": b15, "bound_by": by15,
+                "geometry": dict(zip(
+                    ("cluster", "columns", "smem_bytes",
+                     "resident_clusters"),
+                    gru_split.geometry("l2", H, B, dev, "t", classes=15))),
+                "shape": {"B": B, "T": T, "H": H, "classes": 15,
+                          "valid_columns": lengths_sum}}
+            log("   gru_l2head_split at 15 classes: {:.2f} ms beside {:.2f} "
+                "ms at 5 (turns 5, 15, 15, 5: {}), logit max {:.3g}, bound "
+                "{:.3f} ms by {}, geometry {}".format(
+                    rows[1]["classes15"]["ms"],
+                    rows[1]["classes15"]["ms_classes5"],
+                    [round(v, 3) for v in five[:1] + fifteen + five[1:]],
+                    err15, b15, by15,
+                    json.dumps(rows[1]["classes15"]["geometry"])))
+
             # each int8 launch's geometry (cluster size, columns a cluster,
             # shared memory, resident clusters) and microseconds a step,
             # the same batch padded to 512 rows (where layer 2's clusters
@@ -2688,6 +2901,56 @@ def main(argv=None):
                         row["rows_mode"]["ms"] / T * 1e3
                     log("   {} mode rows: {}".format(
                         row["name"], json.dumps(row["rows_mode"])))
+                # mode "rows" with the diploid head's 15 classes: against
+                # its plain version, timed beside the 5-class launch in
+                # turns (5, 15, 15, 5), with its bound
+                r_args15 = r_args[1][:-1] + (w_head15,)
+                r_valid = (torch.arange(T, device=dev)[None, :]
+                           < lr[:, None].long())
+                k15 = gru_split.gru_l2head_split(*r_args15, mode="rows")
+                p15 = gru_split.gru_l2head_split_plain(
+                    *r_args15, mode="rows", quant=True)
+                r_err15 = max((a - b).abs()[r_valid].max().item()
+                              for a, b in zip(k15, p15))
+                del k15, p15
+                if r_err15 > TOL_LOGIT:
+                    raise AssertionError(
+                        "gru_l2head_split mode rows at 15 classes disagrees "
+                        "with its plain version: max logit diff {}".format(
+                            r_err15))
+                five, fifteen = [], []
+                for turn in (five, fifteen, fifteen, five):
+                    turn.append(cuda_ms(
+                        (lambda: gru_split.gru_l2head_split(
+                            *r_args[1], mode="rows")) if turn is five else
+                        (lambda: gru_split.gru_l2head_split(
+                            *r_args15, mode="rows"))))
+                rb15, rby15 = bound("gru_l2head_split", RB, H, IN, 15, r_sum)
+                rows[1]["rows_mode"]["classes15"] = {
+                    "ms": sum(fifteen) / 2, "ms_classes5": sum(five) / 2,
+                    "ms_turns": {"classes5": five, "classes15": fifteen},
+                    "max_abs_err": r_err15, "bound_ms": rb15,
+                    "bound_by": rby15}
+                log("   gru_l2head_split mode rows at 15 classes: {}".format(
+                    json.dumps(rows[1]["rows_mode"]["classes15"])))
+
+        torch.cuda.empty_cache()
+        variant_paths = variant_phases(seed, work, dev, modules={
+            "cli": cli, "datastore": datastore, "gru_split": gru_split,
+            "models": models, "prediction": prediction})
+        for row in rows:
+            row["launches_by_path"] = {
+                "consensus": launches[row["name"]],
+                **{path: rec["launches"][row["name"]]
+                   for path, rec in variant_paths.items()}}
+        rows[1]["classes15"]["launches"] = \
+            variant_paths["diploid_snp"]["launches"]["gru_l2head_split"]
+        rows[1]["classes15"]["head_checks"] = head_agreement
+        rows[1]["variant_paths"] = {
+            path: {k: v for k, v in rec.items() if k != "decodes"}
+            | {"scores": {label: d["score"]
+                          for label, d in rec["decodes"].items()}}
+            for path, rec in variant_paths.items()}
 
         torch.cuda.empty_cache()
         rl_bundle = models.load_model(RL_MODEL)

@@ -1,10 +1,12 @@
 """Command line: ``python -m medaka_tpu_torch
-{inference,sequence,features,train}``.
+{inference,sequence,vcf,snp,features,train}``.
 
-Counterpart of the ``inference``, ``sequence``, ``features`` and
-``train`` subcommands of ``medaka_tpu/cli.py``, with the same flags and
-defaults for the parts that are ported. ``inference`` and ``train`` run
-on the GPU unless ``--cpu`` is given.
+Counterpart of the ``inference``, ``sequence``, ``vcf``, ``snp``,
+``features`` and ``train`` subcommands of ``medaka_tpu/cli.py``, with the
+same flags and defaults for the parts that are ported. ``--model`` takes
+a path or a model name (``models.resolve_model``). ``inference`` and
+``train`` run on the GPU unless ``--cpu`` is given; ``vcf`` and ``snp``
+run on the host.
 """
 from __future__ import annotations
 
@@ -103,7 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("bam", help="Input alignments (sorted, indexed BAM).")
     p.add_argument("output", help="Output probabilities file (HDF5).")
-    p.add_argument("--model", required=True, help="Model bundle (tar.gz).")
+    p.add_argument(
+        "--model", required=True,
+        help="Model bundle (tar.gz) or the name of one "
+             "(models.resolve_model).")
     p.add_argument(
         "--batch_size", type=int, default=None,
         help="Batch size (default: auto, see prediction.auto_batch_size).")
@@ -153,6 +158,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=_cmd_sequence)
 
     p = subparsers.add_parser(
+        "vcf", parents=[log_parent],
+        help="Decode variants from probabilities against a reference.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("inputs", nargs="+", help="Probability HDF5 file(s).")
+    p.add_argument("ref_fasta", help="Reference FASTA.")
+    p.add_argument("output", help="Output VCF.")
+    p.add_argument("--regions", nargs="+", default=None)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--ambig_ref", action="store_true")
+    p.add_argument("--gvcf", action="store_true")
+    p.add_argument(
+        "--min_qual", type=float, default=None, metavar="Q",
+        help="Drop variant records with QUAL below this (default: emit "
+             "all; gVCF reference rows are kept).")
+    p.set_defaults(func=_cmd_vcf)
+
+    p = subparsers.add_parser(
+        "snp", parents=[log_parent],
+        help="Decode SNPs (single-locus) from probabilities.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("ref_fasta")
+    p.add_argument("output")
+    p.add_argument("--regions", nargs="+", default=None)
+    p.add_argument("--threshold", type=float, default=0.04)
+    p.add_argument(
+        "--het_rescue", type=float, default=None, metavar="PROB",
+        help="Diploid models only: call a het genotype when the argmax "
+             "is hom-ref but the best (ref, X) class carries at least "
+             "this probability. Default off: the argmax.")
+    p.add_argument("--verbose", action="store_true")
+    p.set_defaults(func=_cmd_snp)
+
+    p = subparsers.add_parser(
         "features", parents=[log_parent],
         help="Create training/inference features from BAM(s).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -182,7 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("features", nargs="+", help="Feature HDF5 file(s).")
     p.add_argument("--train_name", default="training")
     p.add_argument("--model", default=None,
-                   help="Initial model bundle (warm start).")
+                   help="Initial model bundle or name (warm start).")
     p.add_argument("--epochs", type=int, default=5000)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--validation_split", type=float, default=0.2)
@@ -276,6 +315,26 @@ def _cmd_sequence(args):
         threads=args.threads, min_depth=args.min_depth,
         fillgaps=args.fillgaps, fill_char=args.fill_char,
         qualities=args.qualities)
+    return 0
+
+
+def _cmd_vcf(args):
+    from medaka_tpu_torch import variant
+    variant.variants_from_hdf(
+        args.inputs, args.ref_fasta, args.output,
+        regions=_regions_arg(args.regions) if args.regions else None,
+        verbose=args.verbose, ambig_ref=args.ambig_ref, gvcf=args.gvcf,
+        min_qual=args.min_qual)
+    return 0
+
+
+def _cmd_snp(args):
+    from medaka_tpu_torch import variant
+    variant.snps_from_hdf(
+        args.inputs, args.ref_fasta, args.output,
+        regions=_regions_arg(args.regions) if args.regions else None,
+        threshold=args.threshold, verbose=args.verbose,
+        het_rescue=args.het_rescue)
     return 0
 
 

@@ -1,10 +1,11 @@
 """Core data structures: genomic regions, pileup samples and their algebra.
 
 Counterpart of ``medaka_tpu/common.py``, trimmed to what the counts and
-read-level consensus paths use, plus :func:`resolve_device` for the
-port's entry points. A ``Sample`` carries 2-D (positions, features)
-counts or 3-D (positions, reads, channels) int8 read-level features;
-slicing, chunking and depth filtering act on the first axis of either.
+read-level consensus paths and variant decoding use, plus
+:func:`resolve_device` for the port's entry points. A ``Sample``
+carries 2-D (positions, features) counts or 3-D (positions, reads,
+channels) int8 read-level features; slicing, chunking and depth
+filtering act on the first axis of either.
 """
 from __future__ import annotations
 
@@ -99,6 +100,21 @@ def rle(array) -> np.ndarray:
     out["length"] = np.diff(np.concatenate((starts, [n])))
     out["value"] = array[starts]
     return out
+
+
+def _version_key(text: str):
+    """Sort key splitting a string into (str, int) tokens, version-style."""
+    parts = re.split(r"(\d+)", text)
+    return tuple(int(p) if p.isdigit() else p for p in parts)
+
+
+def loose_version_sort(items, key=None):
+    """Sort strings treating embedded integers numerically (chr2 < chr10)."""
+    keyfn = (lambda x: _version_key(key(x))) if key else _version_key
+    try:
+        return sorted(items, key=keyfn)
+    except TypeError:
+        return sorted(items, key=key)
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +358,29 @@ class Sample:
             starts.append(n - chunk_len)
         for start in starts:
             yield self.slice(slice(start, start + chunk_len))
+
+    @staticmethod
+    def from_samples(samples) -> "Sample":
+        """Concatenate strictly abutting samples into one."""
+        samples = list(samples)
+        for a, b in zip(samples[:-1], samples[1:]):
+            rel = Sample.relative_position(a, b)
+            if rel is not Relationship.forward_abutted:
+                raise ValueError(
+                    "Refusing to concatenate unordered/non-abutting samples "
+                    "{} and {} with relationship {}.".format(
+                        a.name, b.name, repr(rel)))
+
+        def cat(attr):
+            vals = [getattr(s, attr) for s in samples]
+            if attr == "ref_name":
+                assert len(set(vals)) == 1
+                return vals[0]
+            if all(v is None for v in vals):
+                return None
+            return np.concatenate(vals)
+
+        return Sample(**{f: cat(f) for f in _SAMPLE_FIELDS})
 
     # -- derived representations ----------------------------------------------
 

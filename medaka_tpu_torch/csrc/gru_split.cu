@@ -39,7 +39,8 @@
 // traffic; layer 2's (W_ih_slice . [prev_f; prev_b] on the tensor cores,
 // one int32 sum for each half) runs for the next step between the
 // barrier's arrive and its wait. Layer 2's head: W_head^T . bf16(h) over a
-// block's units on the tensor cores (mma.sync m16n8k16, f32 sums), then
+// block's units on the tensor cores (mma.sync m16n8k16, f32 sums; the
+// tile's 16 rows are up to 16 classes: 5 haploid, 15 diploid), then
 // over the cluster's blocks in rank order, each block for its share of
 // the columns: a run repeats bit for bit.
 //
@@ -77,7 +78,13 @@ namespace {
 
 constexpr int MODE_T = 0;
 constexpr int MODE_ROWS = 1;
-constexpr int CMAX = 8;  // largest head width of the l2 kernels
+// head widths of the l2 kernels: the mma.sync tile's 16 rows of W_head^T
+// are classes 0-15; the partial-logit slot and the bf16 kernel's
+// registers hold the launch's class count rounded up to 8 (8 or 16)
+constexpr int HEAD_MAX = 16;
+__host__ __device__ constexpr int head_slot(int ncls) {
+  return ncls > 8 ? 16 : 8;
+}
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 
 __device__ __forceinline__ float bf16r(float v) {
@@ -126,8 +133,8 @@ typedef ClusterGeo<3, SPLIT_UG> SplitBase;
 // [2][BT][ldi] int8), and in layer 2 the head's operands, bf16(h) of the
 // block's units [2][BT][U + 8] and the block's rows of W_head^T
 // [16][U + 8] bf16, and (C > 1) the blocks' partial logits of the block's
-// CR = ceil(BT / C) columns [2][C][CR][CMAX] f32. ops/rnn_cluster.py
-// smem_bytes mirrors it.
+// CR = ceil(BT / C) columns [2][C][CR][KS] f32, KS = head_slot(ncls).
+// ops/rnn_cluster.py smem_bytes mirrors it.
 struct SplitGeo : SplitBase {
   bool l2;
   int IN;   // layer 1's features
@@ -135,9 +142,12 @@ struct SplitGeo : SplitBase {
   int INp;  // the same padded to 8 (16 bytes of bf16)
   int ldh;  // padded row (bytes) of the W_hh slice and of h: Hp + 16
   int ldi;  // padded row (bytes) of the W_ih slice and the input: 2H + 16
-  __host__ __device__ SplitGeo(bool l2_, int H, int c, int bt, int in)
+  int KS;   // layer 2: a column's partial logits in the slot (8 or 16)
+  __host__ __device__ SplitGeo(bool l2_, int H, int c, int bt, int in,
+                               int ncls)
       : SplitBase(H, c, bt), l2(l2_), IN(in), INe((in + 1) / 2 * 2),
-        INp((in + 7) / 8 * 8), ldh(Hp + 16), ldi(2 * H + 16) {}
+        INp((in + 7) / 8 * 8), ldh(Hp + 16), ldi(2 * H + 16),
+        KS(head_slot(ncls)) {}
   __host__ __device__ size_t whh_bytes() const {
     return align16(static_cast<size_t>(rows()) * ldh);
   }
@@ -164,7 +174,7 @@ struct SplitGeo : SplitBase {
   // columns of the logits a block of a cluster sums (C > 1)
   __host__ __device__ int CR() const { return (BT + C - 1) / C; }
   __host__ __device__ size_t slot_bytes() const {
-    return l2 && C > 1 ? align16(static_cast<size_t>(2) * C * CR() * CMAX *
+    return l2 && C > 1 ? align16(static_cast<size_t>(2) * C * CR() * KS *
                                  sizeof(float))
                        : 0;
   }
@@ -176,12 +186,14 @@ struct SplitGeo : SplitBase {
     return l2 ? L2_THREADS : L1_THREADS;
   }
   // a geometry the kernels cannot run
-  __host__ __device__ static bool bad(bool l2, int H, int c, int bt, int in) {
+  __host__ __device__ static bool bad(bool l2, int H, int c, int bt, int in,
+                                      int ncls) {
     if (H % 32 != 0 || H <= 0 || H > 512) return true;
     if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return true;
     if (bt != 8 && bt != 16 && bt != 32 && bt != 64) return true;
     if (!l2 && in < 1) return true;
-    const SplitGeo g(l2, H, c, bt, in);
+    if (l2 && (ncls < 1 || ncls > HEAD_MAX)) return true;
+    const SplitGeo g(l2, H, c, bt, in, ncls);
     return g.U > SPLIT_MAX_U || g.threads() > g.max_threads() ||
            g.smem() > SMEM_LIMIT;
   }
@@ -210,7 +222,7 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, B = a.B, H = a.H, C = a.C, BT = a.BT;
-  const SplitGeo g(L2, H, C, BT, a.IN);
+  const SplitGeo g(L2, H, C, BT, a.IN, a.ncls);
   const int r = static_cast<int>(cluster.block_rank());
   const int tiles = (B + BT - 1) / BT;
   const int cid = static_cast<int>(blockIdx.x) / C;
@@ -371,6 +383,7 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
   // columns from r CR on, the blocks' partials [buf][rank] summed in rank
   // order
   const int CR = g.CR();
+  const int KS = g.KS;
   auto flush = [&](int step, int buf) {
     float* lg = d ? a.lg_b : a.lg_f;
     const int tt = d == 0 ? step : T - 1 - step;
@@ -378,7 +391,7 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
       const int n = r * CR + w.n;
       float s = 0.0f;
       for (int rr = 0; rr < C; ++rr)
-        s += slot_s[((buf * C + rr) * CR + w.n) * CMAX + w.j];
+        s += slot_s[((buf * C + rr) * CR + w.n) * KS + w.j];
       if (n < BT && b0 + n < B)
         lg[(static_cast<size_t>(b0 + n) * T + tt) * a.ncls + w.j] = s;
     }
@@ -540,17 +553,21 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
           ldsm_x2(bm, b_addr + ks * 32);
           mma_bf16(hacc, am, bm[0], bm[1]);
         }
-        // class gid of columns nt * 8 + tig * 2 (+ 1)
-        if (gid < a.ncls) {
+        // classes gid (hacc[0..1]) and gid + 8 (hacc[2..3]) of columns
+        // nt * 8 + tig * 2 (+ 1)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int k = gid + 8 * hi;
+          if (k >= a.ncls) continue;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int n = nt * 8 + tig * 2 + e;
             if (C > 1)
               cluster.map_shared_rank(slot_s, n / CR)[
-                  ((cur * C + r) * CR + n % CR) * CMAX + gid] = hacc[e];
+                  ((cur * C + r) * CR + n % CR) * KS + k] = hacc[2 * hi + e];
             else if (b0 + n < B)
-              lg[(static_cast<size_t>(b0 + n) * T + t) * a.ncls + gid] =
-                  hacc[e];
+              lg[(static_cast<size_t>(b0 + n) * T + t) * a.ncls + k] =
+                  hacc[2 * hi + e];
           }
         }
       }
@@ -590,10 +607,9 @@ auto s8_kernel() {
 
 template <bool L2, int MODE>
 cudaError_t launch_s8(const SplitArgs& a, cudaStream_t s) {
-  if (a.T < 1 || a.B < 1 || SplitGeo::bad(L2, a.H, a.C, a.BT, a.IN) ||
-      (L2 && (a.ncls < 1 || a.ncls > CMAX)))
+  if (a.T < 1 || a.B < 1 || SplitGeo::bad(L2, a.H, a.C, a.BT, a.IN, a.ncls))
     return cudaErrorInvalidValue;
-  const SplitGeo g(L2, a.H, a.C, a.BT, a.IN);
+  const SplitGeo g(L2, a.H, a.C, a.BT, a.IN, a.ncls);
   const int clusters = 2 * ((a.B + a.BT - 1) / a.BT);
   return g.NT == 2 ? launch_cluster(s8_kernel<L2, MODE, 2>(), a.C, clusters,
                                     g.threads(), g.smem(), s, a)
@@ -602,10 +618,10 @@ cudaError_t launch_s8(const SplitArgs& a, cudaStream_t s) {
 }
 
 template <bool L2, int MODE>
-int s8_max_clusters(int C, int BT, int H, int IN) {
-  if (SplitGeo::bad(L2, H, C, BT, IN))
+int s8_max_clusters(int C, int BT, int H, int IN, int ncls) {
+  if (SplitGeo::bad(L2, H, C, BT, IN, ncls))
     return -static_cast<int>(cudaErrorInvalidValue);
-  const SplitGeo g(L2, H, C, BT, IN);
+  const SplitGeo g(L2, H, C, BT, IN, ncls);
   return g.NT == 2
              ? max_clusters(s8_kernel<L2, MODE, 2>(), C, g.threads(), g.smem())
              : max_clusters(s8_kernel<L2, MODE, 1>(), C, g.threads(), g.smem());
@@ -675,10 +691,10 @@ size_t l1_smem_bytes(int BT, int IN, int H) {
          align16(static_cast<size_t>(IN) * 3 * H * sizeof(__nv_bfloat16));
 }
 
-size_t l2_smem_bytes(int BT, int H, int nthreads, int CPT) {
+size_t l2_smem_bytes(int BT, int H, int nthreads, int CPT, int KC) {
   return align16(2 * static_cast<size_t>(BT) * 2 * H * 2) +
          align16(2 * static_cast<size_t>(BT) * H * 2) +
-         align16(2 * static_cast<size_t>(nthreads / 32) * CPT * CMAX *
+         align16(2 * static_cast<size_t>(nthreads / 32) * CPT * KC *
                  sizeof(float));
 }
 
@@ -802,9 +818,10 @@ __global__ void __launch_bounds__(512)
 }
 
 // Layer 2 + head: prev_f, prev_b (T, B, H) bf16 -> lg_f, lg_b (B, T, C)
-// f32 logit partials. The layer-2 input projection runs here, per step,
-// from the chunk-interleaved (2H/chunk, 3H) W_ih read through L2.
-template <int CPT, int MODE>
+// f32 logit partials, C <= KC (head_slot(C)). The layer-2 input
+// projection runs here, per step, from the chunk-interleaved (2H/chunk,
+// 3H) W_ih read through L2.
+template <int CPT, int MODE, int KC>
 __global__ void __launch_bounds__(512)
     gru_l2head_split_kernel(const void* __restrict__ prev_f,
                             const void* __restrict__ prev_b,
@@ -834,7 +851,7 @@ __global__ void __launch_bounds__(512)
   p += align16(2 * static_cast<size_t>(BT) * 2 * H * 2);
   unsigned char* act_s = p;  // [2][BT][H]
   p += align16(2 * static_cast<size_t>(BT) * H * 2);
-  float* red_s = reinterpret_cast<float*>(p);  // [2][nwarps][CPT][CMAX]
+  float* red_s = reinterpret_cast<float*>(p);  // [2][nwarps][CPT][KC]
 
   const uint4* wmat = static_cast<const uint4*>(w_hh) +
                       static_cast<size_t>(d) * kchunks * H3;
@@ -849,9 +866,9 @@ __global__ void __launch_bounds__(512)
     bh[g] = b_hh[row];
     bi[g] = b_ih[row];
   }
-  float wh[CMAX];
+  float wh[KC];
 #pragma unroll
-  for (int k = 0; k < CMAX; ++k)
+  for (int k = 0; k < KC; ++k)
     wh[k] = k < C ? w_head[(static_cast<size_t>(d) * C + k) * H + j] : 0.0f;
   int len[CPT];
   float h[CPT];
@@ -890,7 +907,7 @@ __global__ void __launch_bounds__(512)
     const int cc = fc % CPT;
     float s = 0.0f;
     for (int lw = 0; lw < wpq; ++lw)
-      s += red_s[((buf * nwarps + q * wpq + lw) * CPT + cc) * CMAX + fk];
+      s += red_s[((buf * nwarps + q * wpq + lw) * CPT + cc) * KC + fk];
     const int ts = d == 0 ? step : T - 1 - step;
     if (fb < B) lg[(static_cast<size_t>(fb) * T + ts) * C + fk] = s;
   };
@@ -936,13 +953,13 @@ __global__ void __launch_bounds__(512)
       // head partial: bf16(h) . W_head[:, j], reduced over the warp
       const float hb = bf16r(h[cc]);
 #pragma unroll
-      for (int k = 0; k < CMAX; ++k) {
+      for (int k = 0; k < KC; ++k) {
         if (k >= C) break;
         float v = hb * wh[k];
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) red_s[((cur * nwarps + warp) * CPT + cc) * CMAX + k] = v;
+        if (lane == 0) red_s[((cur * nwarps + warp) * CPT + cc) * KC + k] = v;
       }
     }
     if (il) reinterpret_cast<uint4*>(in_s)[(nxt * BT + ic) * col_chunks + ik] =
@@ -971,15 +988,15 @@ cudaError_t launch_l1(const void* x, const int* lengths, const void* w_ih_t,
   return cudaGetLastError();
 }
 
-template <int CPT, int MODE>
+template <int CPT, int MODE, int KC>
 cudaError_t launch_l2(const void* prev_f, const void* prev_b,
                       const int* lengths, const void* w_in, const float* b_ih,
                       const void* w_hh, const float* b_hh,
                       const float* w_head, float* lg_f, float* lg_b, int T,
                       int B, int H, int C, int NQ, cudaStream_t stream) {
   const int BT = CPT * NQ;
-  const size_t smem = l2_smem_bytes(BT, H, H * NQ, CPT);
-  auto kern = gru_l2head_split_kernel<CPT, MODE>;
+  const size_t smem = l2_smem_bytes(BT, H, H * NQ, CPT, KC);
+  auto kern = gru_l2head_split_kernel<CPT, MODE, KC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1000,14 +1017,20 @@ cudaError_t dispatch_l1(int cpt, Args... args) {
   }
 }
 
-template <int MODE, typename... Args>
-cudaError_t dispatch_l2(int cpt, Args... args) {
+template <int MODE, int KC, typename... Args>
+cudaError_t dispatch_l2_cpt(int cpt, Args... args) {
   switch (cpt) {
-    case 1: return launch_l2<1, MODE>(args...);
-    case 2: return launch_l2<2, MODE>(args...);
-    case 4: return launch_l2<4, MODE>(args...);
+    case 1: return launch_l2<1, MODE, KC>(args...);
+    case 2: return launch_l2<2, MODE, KC>(args...);
+    case 4: return launch_l2<4, MODE, KC>(args...);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int MODE, typename... Args>
+cudaError_t dispatch_l2(int cpt, int ncls, Args... args) {
+  return head_slot(ncls) == 8 ? dispatch_l2_cpt<MODE, 8>(cpt, args...)
+                              : dispatch_l2_cpt<MODE, 16>(cpt, args...);
 }
 
 }  // namespace
@@ -1017,21 +1040,24 @@ extern "C" {
 // --- int8: the cluster recurrence ------------------------------------------
 
 // dynamic shared memory of one block of layer 1 (layer2 = 0, IN features)
-// or layer 2 at (C, BT, H)
-size_t gru_split_s8_smem(int layer2, int C, int BT, int H, int IN) {
-  return SplitGeo(layer2 != 0, H, C, BT, IN).smem();
+// or layer 2 (ncls classes) at (C, BT, H)
+size_t gru_split_s8_smem(int layer2, int C, int BT, int H, int IN,
+                         int ncls) {
+  return SplitGeo(layer2 != 0, H, C, BT, IN, ncls).smem();
 }
 
 // clusters of C blocks that can be resident at once; a negative value is
 // minus a cudaError_t (cudaErrorInvalidValue for a geometry the kernels
 // cannot run)
 int gru_split_s8_max_clusters(int layer2, int mode, int C, int BT, int H,
-                              int IN) {
+                              int IN, int ncls) {
   if (layer2)
-    return mode == MODE_T ? s8_max_clusters<true, MODE_T>(C, BT, H, IN)
-                          : s8_max_clusters<true, MODE_ROWS>(C, BT, H, IN);
-  return mode == MODE_T ? s8_max_clusters<false, MODE_T>(C, BT, H, IN)
-                        : s8_max_clusters<false, MODE_ROWS>(C, BT, H, IN);
+    return mode == MODE_T
+               ? s8_max_clusters<true, MODE_T>(C, BT, H, IN, ncls)
+               : s8_max_clusters<true, MODE_ROWS>(C, BT, H, IN, ncls);
+  return mode == MODE_T ? s8_max_clusters<false, MODE_T>(C, BT, H, IN, ncls)
+                        : s8_max_clusters<false, MODE_ROWS>(C, BT, H, IN,
+                                                            ncls);
 }
 
 // Layer 1: x (T, B, INp) bf16 (features zero-padded to a multiple of 8),
@@ -1101,8 +1127,8 @@ size_t gru_l1_split_smem(int bt, int in_features, int hidden) {
   return l1_smem_bytes(bt, in_features, hidden);
 }
 
-size_t gru_l2head_split_smem(int cpt, int nq, int hidden) {
-  return l2_smem_bytes(cpt * nq, hidden, hidden * nq, cpt);
+size_t gru_l2head_split_smem(int cpt, int nq, int hidden, int ncls) {
+  return l2_smem_bytes(cpt * nq, hidden, hidden * nq, cpt, head_slot(ncls));
 }
 
 int gru_l1_split_launch(const void* x, const int* lengths, const void* w_ih_t,
@@ -1126,15 +1152,15 @@ int gru_l2head_split_launch(const void* prev_f, const void* prev_b,
                             float* lg_f, float* lg_b, int T, int B, int H,
                             int C, int cpt, int nq, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C > CMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || C > HEAD_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e =
       mode == MODE_T
-          ? dispatch_l2<MODE_T>(cpt, prev_f, prev_b, lengths, w_in, b_ih,
+          ? dispatch_l2<MODE_T>(cpt, C, prev_f, prev_b, lengths, w_in, b_ih,
                                 w_hh, b_hh, w_head, lg_f, lg_b, T, B, H, C,
                                 nq, s)
-          : dispatch_l2<MODE_ROWS>(cpt, prev_f, prev_b, lengths, w_in, b_ih,
-                                   w_hh, b_hh, w_head, lg_f, lg_b, T, B, H, C,
-                                   nq, s);
+          : dispatch_l2<MODE_ROWS>(cpt, C, prev_f, prev_b, lengths, w_in,
+                                   b_ih, w_hh, b_hh, w_head, lg_f, lg_b, T, B,
+                                   H, C, nq, s);
   return static_cast<int>(e);
 }
 

@@ -1,8 +1,8 @@
 """Model registry, bundle loading and saving.
 
 Counterpart of ``medaka_tpu/models/__init__.py`` (``load_model``,
-``open_model``, ``save_model``, ``ModelBundle``, the registry,
-``DEFAULT_MODEL_DICT``). Bundles
+``open_model``, ``save_model``, ``resolve_model``, ``ModelBundle``, the
+registry, ``DEFAULT_MODEL_DICT``). Bundles
 are ``tar.gz`` archives of ``model/config.json`` (architecture, feature
 encoder and label scheme configs) and ``model/weights.npz`` (the
 parameter pytree flattened to ``a/0/b`` keys), so a bundle written by
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import tarfile
 from typing import Dict
 
@@ -147,6 +148,42 @@ def load_model(path: str) -> ModelBundle:
 def open_model(path: str) -> ModelBundle:
     """Alias of :func:`load_model` (reference API name)."""
     return load_model(path)
+
+
+#: the bundles that ship with ``medaka_tpu`` (read by path)
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "..", "medaka_tpu", "data")
+
+
+def resolve_model(model: str) -> str:
+    """Resolve a model name or path to a loadable file path.
+
+    The search order of ``medaka_tpu.models.resolve_model``: the path as
+    given, then :data:`DATA_DIR` and the user's ``~/.medaka_tpu/data``,
+    each with the suffixes ``_model_pt.tar.gz``, ``.tar.gz`` and none. A
+    deprecated name raises ``options.DeprecationError``; a name found
+    nowhere raises ``FileNotFoundError``, known model or not: the port
+    downloads nothing.
+    """
+    from medaka_tpu_torch import options
+
+    if os.path.exists(model):
+        return model
+    if model in options.deprecated_models:
+        raise options.DeprecationError(model)
+    home = os.path.join(os.path.expanduser("~"), ".medaka_tpu", "data")
+    for base in (DATA_DIR, home):
+        for suffix in ("_model_pt.tar.gz", ".tar.gz", ""):
+            candidate = os.path.join(base, model + suffix)
+            if os.path.exists(candidate):
+                return candidate
+    if model in options.known_models:
+        raise FileNotFoundError(
+            "Model {!r} is not on disk; place its file under {} (the port "
+            "downloads nothing).".format(model, home))
+    raise FileNotFoundError(
+        "Could not resolve model {!r}; provide a model file path.".format(
+            model))
 
 
 # register concrete models on import

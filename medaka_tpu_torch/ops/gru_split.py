@@ -231,9 +231,9 @@ def build():
         lib.gru_l2head_split_s8_launch.argtypes = (
             [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP])
         lib.gru_l2head_split_s8_launch.restype = _INT
-        lib.gru_split_s8_smem.argtypes = [_INT] * 5
+        lib.gru_split_s8_smem.argtypes = [_INT] * 6
         lib.gru_split_s8_smem.restype = ctypes.c_size_t
-        lib.gru_split_s8_max_clusters.argtypes = [_INT] * 6
+        lib.gru_split_s8_max_clusters.argtypes = [_INT] * 7
         lib.gru_split_s8_max_clusters.restype = _INT
         lib.gru_l1_split_launch.argtypes = [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP]
         lib.gru_l1_split_launch.restype = _INT
@@ -242,7 +242,7 @@ def build():
         lib.gru_l2head_split_launch.restype = _INT
         lib.gru_l1_split_smem.argtypes = [_INT] * 3
         lib.gru_l1_split_smem.restype = ctypes.c_size_t
-        lib.gru_l2head_split_smem.argtypes = [_INT] * 3
+        lib.gru_l2head_split_smem.argtypes = [_INT] * 4
         lib.gru_l2head_split_smem.restype = ctypes.c_size_t
         lib.gru_split_error_string.argtypes = [_INT]
         lib.gru_split_error_string.restype = ctypes.c_char_p
@@ -257,38 +257,44 @@ def _check(lib, err: int, name: str):
 
 
 def geometry(kind: str, H: int, B: int, dev, mode: str = "t",
-             inputs: int = 0) -> Tuple[int, int, int, int]:
+             inputs: int = 0, classes: int = rnn_cluster.DEFAULT_CLASSES
+             ) -> Tuple[int, int, int, int]:
     """(C, BT, shared memory bytes, resident clusters) with which the int8
     mode of ``gru_l1_split`` (kind "l1", ``inputs`` features) or
-    ``gru_l2head_split`` ("l2") launches at hidden size H and batch B on
-    CUDA device ``dev``: both directions' clusters in one grid
-    (:func:`rnn_cluster.choose_geometry` with the ``SPLIT`` layout); raises,
-    naming the kernel and the geometry, when no cluster can be resident."""
+    ``gru_l2head_split`` ("l2", ``classes`` head classes) launches at
+    hidden size H and batch B on CUDA device ``dev``: both directions'
+    clusters in one grid (:func:`rnn_cluster.choose_geometry` with the
+    ``SPLIT`` layout); raises, naming the kernel and the geometry, when no
+    cluster can be resident."""
     lib = build()
     name = _KERNELS[kind]
 
     def query(cluster, columns):
         n = lib.gru_split_s8_max_clusters(int(kind == "l2"), MODES[mode],
-                                          cluster, columns, H, inputs)
+                                          cluster, columns, H, inputs,
+                                          classes)
         if n < 0:
             _check(lib, -n, name)
         return n
 
     return rnn_cluster.geometry(
         rnn_cluster.SPLIT, kind, H, B, dev, query, cuda_build.SMEM_LIMIT,
-        "{}/{}".format(name, mode), directions=2, inputs=inputs)
+        "{}/{}".format(name, mode), directions=2, inputs=inputs,
+        classes=classes)
 
 
-def wave_batch(H: int, inputs: int, dev, limit: int, step: int = 32) -> int:
+def wave_batch(H: int, inputs: int, dev, limit: int, step: int = 32,
+               classes: int = rnn_cluster.DEFAULT_CLASSES) -> int:
     """The largest batch, a multiple of ``step`` up to ``limit``, at which
     the int8 ``gru_l1_split`` (``inputs`` features) and ``gru_l2head_split``
-    each run all their clusters at once (one wave) on CUDA device ``dev``,
-    in the numerics mode that batch takes; ``step`` where none does."""
+    (``classes`` head classes) each run all their clusters at once (one
+    wave) on CUDA device ``dev``, in the numerics mode that batch takes;
+    ``step`` where none does."""
     for batch in range(limit // step * step, step - 1, -step):
         mode = split_mode(batch)
         if all(2 * -(-batch // geo[1]) <= geo[3] for geo in (
                 geometry("l1", H, batch, dev, mode, inputs),
-                geometry("l2", H, batch, dev, mode))):
+                geometry("l2", H, batch, dev, mode, classes=classes))):
             return batch
     return step
 
@@ -423,7 +429,7 @@ def _launch_l2(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
     prev_b = prev_b.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     if quant:
-        cl, BT = geometry("l2", H, B, prev_f.device, mode)[:2]
+        cl, BT = geometry("l2", H, B, prev_f.device, mode, classes=C)[:2]
         op = l2_operands(w_in, in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
                          cl)
         err = lib.gru_l2head_split_s8_launch(
@@ -436,7 +442,7 @@ def _launch_l2(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
         cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(prev_f.device))
         while nq * H > 512:
             nq //= 2
-        smem = lib.gru_l2head_split_smem(cpt, nq, H)
+        smem = lib.gru_l2head_split_smem(cpt, nq, H, C)
         if smem > cuda_build.SMEM_LIMIT:
             raise ValueError("gru_l2head_split: needs {} bytes of shared "
                              "memory (limit {})".format(
@@ -496,7 +502,8 @@ def gru_l2head_split(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
         prev_f and [H:] on prev_b. int8 when ``quant``, else bf16.
     :param in_scale: (2, 2, 3H) f32 scales of the two column halves. Mode
         "t" reads the first half's (the merged per-row scale).
-    :param w_head: (2, C, H) head weights of each direction's half.
+    :param w_head: (2, C, H) head weights of each direction's half, C at
+        most ``rnn_cluster.HEAD_CLASSES`` (16) on the card.
     :returns: (lg_f, lg_b), each (B, T, C) f32; the caller adds both and
         the head bias.
     """

@@ -34,8 +34,11 @@ MAX_THREADS = 512
 #: threads of a block at most by kind, where the kernel asks for fewer
 #: (``gru_l2head_split`` keeps more of each step in registers)
 KIND_MAX_THREADS = {"l2": 256}
-#: head classes the layer-2 split kernel holds (``CMAX``)
-HEAD_CLASSES = 8
+#: head classes the layer-2 split kernel holds at most (``HEAD_MAX``: the
+#: 16 rows of its mma.sync tile of W_head^T)
+HEAD_CLASSES = 16
+#: layer 2's head classes where a caller names none: the haploid scheme's
+DEFAULT_CLASSES = 5
 
 
 class Layout(NamedTuple):
@@ -105,17 +108,27 @@ def max_threads(kind: str, layout: Layout = None) -> int:
     return most if layout is None else min(most, layout.max_threads)
 
 
+def head_slot(classes: int) -> int:
+    """Partial logits a column keeps in layer 2's slot: the class count
+    rounded up to 8 (``head_slot`` in ``csrc/gru_split.cu``)."""
+    if not 0 < classes <= HEAD_CLASSES:
+        raise ValueError("gru_l2head_split: 1 to {} classes, got {}".format(
+            HEAD_CLASSES, classes))
+    return 8 if classes <= 8 else 16
+
+
 def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
-               hidden: int, inputs: int = 0) -> int:
+               hidden: int, inputs: int = 0,
+               classes: int = DEFAULT_CLASSES) -> int:
     """Dynamic shared memory of one block of a forward (kind "fwd") or
     backward ("bwd") cluster recurrence, as the kernel carves it
     (``ClusterGeo`` in ``csrc/rnn_train.cuh``), or of the split kernels'
-    layer 1 (kind "l1", ``inputs`` features) or layer 2 + head ("l2")
-    (``SplitGeo`` in ``csrc/gru_split.cu``)."""
+    layer 1 (kind "l1", ``inputs`` features) or layer 2 + head ("l2",
+    ``classes`` classes) (``SplitGeo`` in ``csrc/gru_split.cu``)."""
     U = units_per_block(layout, hidden, cluster)
     if kind in ("l1", "l2"):
         return _split_smem_bytes(layout, kind, cluster, columns, hidden,
-                                 inputs, U)
+                                 inputs, classes, U)
     if layout.wbytes == 1:
         # the int8 GRU forward: W_hh slice and h [2][BT] in int8 rows of
         # Hp + 16 bytes, the staged int8 h, the staged bf16 h, two
@@ -136,7 +149,8 @@ def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
             + _align16(2 * cluster * U * columns * 4))
 
 
-def _split_smem_bytes(layout, kind, cluster, columns, hidden, inputs, U):
+def _split_smem_bytes(layout, kind, cluster, columns, hidden, inputs,
+                      classes, U):
     rows = layout.gates * U
     ldh = cluster * U + 16       # padded int8 row of W_hh and of h
     ldi = 2 * hidden + 16        # padded int8 row of W_ih and the input
@@ -151,11 +165,12 @@ def _split_smem_bytes(layout, kind, cluster, columns, hidden, inputs, U):
                 + _align16(2 * columns * padded * 2))
     # int8 W_ih slice, [prev_f; prev_b] x 2, the head's bf16 operands
     # (bf16(h) x 2 and W_head^T, 16 rows, of U + 8) and the blocks' f32
-    # partial logits of the block's ceil(BT / C) columns
+    # partial logits of the block's ceil(BT / C) columns, head_slot of
+    # them a column
     share = -(-columns // cluster)
     return (nbytes + _align16(rows * ldi) + _align16(2 * columns * ldi)
             + _align16((2 * columns + 16) * (U + 8) * 2)
-            + (_align16(2 * cluster * share * HEAD_CLASSES * 4)
+            + (_align16(2 * cluster * share * head_slot(classes) * 4)
                if cluster > 1 else 0))
 
 
@@ -163,7 +178,7 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
                     smem_limit: int,
                     max_clusters: Callable[[int, int, int], int],
                     directions: int = 1, name: str = "the launch",
-                    inputs: int = 0):
+                    inputs: int = 0, classes: int = DEFAULT_CLASSES):
     """(C, BT, shared memory bytes) of a launch.
 
     C is the smallest cluster size whose block holds at most
@@ -176,7 +191,8 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
     ``max_clusters(C, BT, smem)`` is how many clusters the card holds at
     once (``cudaOccupancyMaxActiveClusters``; about the SM count over C); a
     value below 1 raises, naming ``name`` (the kernel) and the geometry.
-    ``inputs`` is layer 1's feature count (kind "l1").
+    ``inputs`` is layer 1's feature count (kind "l1"), ``classes``
+    layer 2's head classes (kind "l2").
     """
     if hidden % 32 or not 0 < hidden <= 512:
         raise ValueError("hidden size {} must be a multiple of 32 and at "
@@ -187,7 +203,7 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
                 and threads(layout, hidden, cluster, columns)
                 <= max_threads(kind, layout)
                 and smem_bytes(layout, kind, cluster, columns, hidden,
-                               inputs) <= smem_limit)
+                               inputs, classes) <= smem_limit)
 
     clusters = [c for c in CLUSTER_SIZES if fits(c, layout.tiles[0])]
     if not clusters:
@@ -199,7 +215,8 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
         for columns in layout.tiles:
             if not fits(cluster, columns):
                 break
-            smem = smem_bytes(layout, kind, cluster, columns, hidden, inputs)
+            smem = smem_bytes(layout, kind, cluster, columns, hidden, inputs,
+                              classes)
             resident = max_clusters(cluster, columns, smem)
             if resident < 1:
                 raise RuntimeError(
@@ -253,18 +270,18 @@ _RESIDENT: Dict[Tuple, int] = {}
 
 def geometry(layout: Layout, kind: str, H: int, B: int, dev,
              query: Callable[[int, int], int], smem_limit: int,
-             key: str, directions: int = 1,
-             inputs: int = 0) -> Tuple[int, int, int, int]:
+             key: str, directions: int = 1, inputs: int = 0,
+             classes: int = DEFAULT_CLASSES) -> Tuple[int, int, int, int]:
     """(C, BT, shared memory bytes, resident clusters) of a launch on CUDA
     device ``dev``: :func:`choose_geometry` with the card's resident
     clusters ``query(C, BT)`` (the library's
     ``cudaOccupancyMaxActiveClusters``; it raises on a CUDA error), cached
     under ``key`` (the kernel's name, and its mode where the kernel has
-    modes) and ``inputs``."""
+    modes), ``inputs`` and ``classes``."""
     dev = torch.device(dev)
 
     def resident(cluster, columns, smem):
-        k = (key, cluster, columns, H, inputs, dev.index)
+        k = (key, cluster, columns, H, inputs, classes, dev.index)
         if k not in _RESIDENT:
             _RESIDENT[k] = query(cluster, columns)
         return _RESIDENT[k]
@@ -272,5 +289,5 @@ def geometry(layout: Layout, kind: str, H: int, B: int, dev,
     with torch.cuda.device(dev):
         cluster, columns, smem = choose_geometry(
             layout, kind, H, B, smem_limit, resident, directions, key,
-            inputs)
+            inputs, classes)
         return cluster, columns, smem, resident(cluster, columns, smem)

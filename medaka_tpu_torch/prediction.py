@@ -416,7 +416,7 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
     if split and not full_precision and on_card:
         from medaka_tpu_torch.ops import gru_split
         batch = gru_split.wave_batch(hidden, width, resolve_device(device),
-                                     batch)
+                                     batch, classes=classes)
     return batch
 
 
@@ -625,11 +625,12 @@ def plan_work(regions, bam, bam_chunk: int = 1_000_000,
 
 
 def _resolve_model(model_path, model, feature_encoder, label_scheme):
-    """(model, feature encoder, label scheme) of the bundle at
-    ``model_path`` (an explicit encoder or scheme wins), or as given."""
+    """(model, feature encoder, label scheme) of the bundle that
+    ``model_path`` (a path or a model name, ``models.resolve_model``)
+    names (an explicit encoder or scheme wins), or as given."""
     if model_path is not None:
         from medaka_tpu_torch import models as models_mod
-        bundle = models_mod.open_model(model_path)
+        bundle = models_mod.open_model(models_mod.resolve_model(model_path))
         model = bundle.model
         feature_encoder = feature_encoder or bundle.feature_encoder
         label_scheme = label_scheme or bundle.label_scheme

@@ -7,6 +7,11 @@ with dwell-correlated errors and their ``mv`` move tables, for the
 read-level models that take dwells. :func:`create_truth_bam` writes the
 truth-to-draft BAM of the synthetic genome that labelled ``features``
 need (the counterpart of ``tests/mock_data.create_truth_bam``).
+:func:`create_variant_bam` writes reads of a genome with planted
+variants (haploid, or two haplotypes), aligned to the reference without
+a mapper, with the truth VCF; :func:`score_vcf` scores a called VCF
+against it (``plant_variants`` and ``score_vcf`` are copies of
+``tests/perf/train_campaign.py``'s).
 """
 from __future__ import annotations
 
@@ -14,19 +19,16 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from medaka_tpu_torch import vcf as vcf_mod
 from medaka_tpu_torch.io.bam import BamRecord, write_bam
 from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
 
 _SYNTH_BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
-def simulate_synth_read(ref_arr, start, length, rng):
-    """Vectorised ~96%-identity long-read simulation.
-
-    Events per reference base: 96% match, 2% substitution, 1% insertion
-    (inserted base precedes the kept reference base), 1% deletion.
-    Returns ``(seq, cigar)`` with an exact =/X/I/D cigar.
-    """
+def _synth_read_ops(ref_arr, start, length, rng):
+    """The read of :func:`simulate_synth_read` as (uint8 bases, op stream
+    of its alignment: one op a step, 0 '=', 1 'X', 2 'D', 3 'I')."""
     piece = ref_arr[start:start + length]
     ev = rng.choice(4, size=len(piece), p=[0.96, 0.02, 0.01, 0.01])
     is_ins = ev == 2
@@ -45,21 +47,36 @@ def simulate_synth_read(ref_arr, start, length, rng):
     if ins.size:
         out[slot[ins]] = _SYNTH_BASES[rng.integers(0, 4, ins.size)]
 
-    # cigar op stream: 0 '=', 1 'X', 2 'D', 3 'I' (ins expands to I,=)
+    # op stream: 0 '=', 1 'X', 2 'D', 3 'I' (ins expands to I,=)
     n_ops = np.where(is_ins, 2, 1)
     opslot = np.concatenate(([0], np.cumsum(n_ops)[:-1]))
     opstream = np.empty(int(n_ops.sum()), np.int8)
     opstream[opslot] = np.where(
         is_ins, 3, np.where(ev == 1, 1, np.where(ev == 3, 2, 0)))
     opstream[opslot[is_ins] + 1] = 0
+    return out, opstream
+
+
+def _cigar_text(opstream) -> str:
+    """=/X/D/I cigar text of an op stream (0 '=', 1 'X', 2 'D', 3 'I')."""
     run_starts = np.concatenate(
         ([0], np.flatnonzero(np.diff(opstream)) + 1))
     run_lens = np.diff(np.concatenate((run_starts, [opstream.size])))
     sym = "=XDI"
-    cigar = "".join(
+    return "".join(
         "{}{}".format(ln, sym[opstream[s]])
         for ln, s in zip(run_lens, run_starts))
-    return out.tobytes().decode(), cigar
+
+
+def simulate_synth_read(ref_arr, start, length, rng):
+    """Vectorised ~96%-identity long-read simulation.
+
+    Events per reference base: 96% match, 2% substitution, 1% insertion
+    (inserted base precedes the kept reference base), 1% deletion.
+    Returns ``(seq, cigar)`` with an exact =/X/I/D cigar.
+    """
+    out, opstream = _synth_read_ops(ref_arr, start, length, rng)
+    return out.tobytes().decode(), _cigar_text(opstream)
 
 
 def _move_table(dwells, stride: int) -> np.ndarray:
@@ -245,3 +262,308 @@ def greedy_edit_count(a, b, look: int = 16, reach: int = 8) -> int:
         n += max(step)
         i, j = i + step[0], j + step[1]
     return n + (len(a) - i) + (len(b) - j)
+
+
+def apply_edits(ref_seq, edits):
+    """Apply non-overlapping (pos, ref, alt) edits (VCF-style anchors)."""
+    out, cur = [], 0
+    for pos, ref, alt in sorted(edits):
+        out.append(ref_seq[cur:pos])
+        out.append(alt)
+        cur = pos + len(ref)
+    out.append(ref_seq[cur:])
+    return "".join(out)
+
+
+def plant_variants(ref_seq, rng, diploid=False, spacing=250):
+    """Plant isolated variants; returns (hap_seqs, records).
+
+    Records are dicts {pos (0-based), ref, alt, gt}: SNPs and 1-3 bp
+    insertions and deletions when haploid (GT 1), het (0/1, on one
+    haplotype) and hom (1/1) SNPs when diploid. A minimum separation of 60
+    bp keeps truth records independent, so normalized exact-match scoring
+    is unambiguous.
+    """
+    L = len(ref_seq)
+    records = []
+    p = 100
+    while True:
+        p += 60 + int(rng.integers(0, max(1, 2 * spacing - 60)))
+        if p >= L - 120:
+            break
+        base = ref_seq[p]
+        r = rng.random()
+        if diploid or r < 0.6:  # SNV
+            alt = str(rng.choice([b for b in "ACGT" if b != base]))
+            ref, altseq = base, alt
+        elif r < 0.8:  # insertion, 1-3 bp
+            ins = "".join(rng.choice(list("ACGT"),
+                                     size=int(rng.integers(1, 4))))
+            ref, altseq = base, base + ins
+        else:  # deletion, 1-3 bp
+            dlen = int(rng.integers(1, 4))
+            ref, altseq = ref_seq[p:p + 1 + dlen], base
+        if diploid:
+            gt = "0/1" if rng.random() < 0.5 else "1/1"
+        else:
+            gt = "1"
+        records.append({"pos": p, "ref": ref, "alt": altseq, "gt": gt})
+    if diploid:
+        # assign each het record to one haplotype
+        het_hap = {
+            id(rec): int(rng.integers(0, 2))
+            for rec in records if rec["gt"] == "0/1"}
+        haps = []
+        for h in (0, 1):
+            edits = [
+                (rec["pos"], rec["ref"], rec["alt"]) for rec in records
+                if rec["gt"] == "1/1" or het_hap[id(rec)] == h]
+            haps.append(apply_edits(ref_seq, edits))
+    else:
+        haps = [apply_edits(
+            ref_seq, [(r["pos"], r["ref"], r["alt"]) for r in records])]
+    return haps, records
+
+
+def _hap_columns(ref_len, edits):
+    """The alignment of a haplotype to the reference as columns (ref
+    position, haplotype position), -1 where a side has no base: matched
+    runs, a planted SNP's mismatch, an insertion's haplotype-only columns
+    after its anchor and a deletion's reference-only ones. Returns (ref
+    positions, haplotype positions, the column of each haplotype
+    position)."""
+    refs, haps = [], []
+    r = h = 0
+    for pos, ref, alt in sorted(edits):
+        run = pos + 1 - r                 # up to and including the anchor
+        refs.append(np.arange(r, r + run))
+        haps.append(np.arange(h, h + run))
+        r, h = r + run, h + run
+        ins, dels = len(alt) - 1, len(ref) - 1
+        if ins:
+            refs.append(np.full(ins, -1))
+            haps.append(np.arange(h, h + ins))
+            h += ins
+        if dels:
+            refs.append(np.arange(r, r + dels))
+            haps.append(np.full(dels, -1))
+            r += dels
+    refs.append(np.arange(r, ref_len))
+    haps.append(np.arange(h, h + ref_len - r))
+    col_hap = np.concatenate(haps)
+    return np.concatenate(refs), col_hap, np.flatnonzero(col_hap >= 0)
+
+
+def lift_read(columns, ref_arr, start, bases, ops):
+    """A read simulated from a haplotype aligned to the reference instead.
+
+    ``bases`` (uint8) and ``ops`` (its alignment to the haplotype from
+    haplotype position ``start``, one op a step: 0 '=', 1 'X', 2 'D', 3
+    'I') are composed with the haplotype's alignment to the reference
+    (``columns``, :func:`_hap_columns`): a read base on a planted
+    insertion's haplotype-only column becomes ``I``, a planted deletion's
+    reference-only column ``D``. Read bases before the first and after the
+    last aligned base are dropped.
+
+    :returns: (reference start, uint8 read bases, =/X/I/D cigar text).
+    """
+    col_ref, col_hap, col_of_hap = columns
+    ops = np.asarray(ops)
+    on_read = ops != 2
+    on_hap = ops != 3
+    q = np.cumsum(on_read) - on_read          # read index of each op
+    h = np.cumsum(on_hap) - on_hap            # haplotype index (from start)
+    # along the haplotype: the read base at each position (-1: deleted in
+    # the read), and the read bases inserted just before it
+    at = np.where(ops[on_hap] == 2, -1, q[on_hap])
+    n_hap = len(at)
+    is_ins = ops == 3
+    before = np.bincount(h[is_ins], minlength=n_hap + 1)[:n_hap]
+    first_ins = np.full(n_hap + 1, -1)
+    ins_at = h[is_ins]
+    # the first inserted read base of each run (the ops are in read order)
+    runs = np.flatnonzero(np.r_[True, ins_at[1:] != ins_at[:-1]]) \
+        if ins_at.size else np.zeros(0, np.int64)
+    first_ins[ins_at[runs]] = q[is_ins][runs]
+    # the columns of the read's haplotype span
+    lo = int(col_of_hap[start])
+    hi = int(col_of_hap[start + n_hap - 1]) + 1
+    cref, chap = col_ref[lo:hi], col_hap[lo:hi]
+    has_hap = chap >= 0
+    idx = chap[has_hap] - start
+    read = np.full(len(chap), -1)
+    read[has_hap] = at[idx]
+    n_before = np.zeros(len(chap), np.int64)
+    n_before[has_hap] = before[idx]
+    ins_first = np.full(len(chap), -1)
+    ins_first[has_hap] = first_ins[idx]
+    # each column expands to its inserted read bases, then itself
+    width = n_before + 1
+    first = np.cumsum(width) - width
+    n = int(width.sum())
+    out_ref = np.full(n, -1)
+    out_read = np.full(n, -1)
+    own = first + n_before
+    out_ref[own] = cref
+    out_read[own] = read
+    grp = np.flatnonzero(n_before)
+    k = n_before[grp]
+    offs = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    out_read[np.repeat(first[grp], k) + offs] = np.repeat(
+        ins_first[grp], k) + offs
+    keep = (out_ref >= 0) | (out_read >= 0)
+    out_ref, out_read = out_ref[keep], out_read[keep]
+    both = np.flatnonzero((out_ref >= 0) & (out_read >= 0))
+    out_ref = out_ref[both[0]:both[-1] + 1]
+    out_read = out_read[both[0]:both[-1] + 1]
+    bases = np.asarray(bases)
+    new_ops = np.where(out_read < 0, 2, np.where(out_ref < 0, 3, 0))
+    aligned = new_ops == 0
+    new_ops[aligned] = np.where(
+        bases[out_read[aligned]] == ref_arr[out_ref[aligned]], 0, 1)
+    return (int(out_ref[0]), bases[out_read[0]:out_read[-1] + 1],
+            _cigar_text(new_ops))
+
+
+def write_truth_vcf(path, contig, contig_len, records):
+    """The planted records as a VCF (QUAL 70, PASS, their GT)."""
+    variants = [
+        vcf_mod.Variant(
+            contig, rec["pos"], rec["ref"], rec["alt"], qual=70.0,
+            filt="PASS", genotype_data={"GT": rec["gt"]})
+        for rec in records]
+    with vcf_mod.VCFWriter(
+            path, "w", version="4.1",
+            contigs=["{},length={}".format(contig, contig_len)]) as vw:
+        vw.write_variants(variants, sort=True)
+
+
+def create_variant_bam(path, ref_mb=0.5, depth=30, seed=0, diploid=False,
+                       read_len=3000, contig="synth"):
+    """Reads of a genome with planted variants, aligned to the reference.
+
+    A random reference of ``ref_mb`` Mb gets isolated variants
+    (:func:`plant_variants`: SNPs and 1-3 bp indels, or het and hom SNPs
+    on two haplotypes when ``diploid``); reads of ``read_len`` bases are
+    simulated from the haplotypes with :func:`simulate_synth_read`, split
+    evenly between them (and, apart from that, between the strands), and
+    written sorted with their alignments lifted onto the reference
+    (:func:`lift_read`).
+
+    :returns: (bam path, reference FASTA, truth VCF, planted records).
+    """
+    rng = np.random.default_rng(seed)
+    ref_len = int(ref_mb * 1e6)
+    ref_arr = _SYNTH_BASES[rng.integers(0, 4, ref_len)]
+    ref_seq = ref_arr.tobytes().decode()
+    haps, records = plant_variants(ref_seq, rng, diploid=diploid)
+    # the records each haplotype carries: all of them when haploid; the
+    # diploid ones are SNPs, so a haplotype carries those whose alt it
+    # holds at the record's own position
+    columns = [_hap_columns(ref_len, [
+        (r["pos"], r["ref"], r["alt"]) for r in records
+        if not diploid or hap[r["pos"]] == r["alt"]]) for hap in haps]
+    ref_fasta = path + ".ref.fasta"
+    with FastaWriter(ref_fasta) as fw:
+        fw.write(contig, ref_seq)
+    truth_vcf = path + ".truth.vcf"
+    write_truth_vcf(truth_vcf, contig, ref_len, records)
+    n_reads = int(ref_len * depth / read_len)
+    reads = []
+    for i in range(n_reads):
+        h = (i // 2) % len(haps)
+        hap_arr = np.frombuffer(haps[h].encode(), np.uint8)
+        length = min(read_len, len(hap_arr) - 1)
+        start = int(rng.integers(0, len(hap_arr) - length))
+        bases, ops = _synth_read_ops(hap_arr, start, length, rng)
+        pos, bases, cigar = lift_read(columns[h], ref_arr, start, bases, ops)
+        reads.append((pos, i, bases.tobytes().decode(), cigar))
+    records_out = [BamRecord.build(
+        query_name="r{}".format(i), ref_id=0, pos=pos, seq=seq,
+        qual=np.full(len(seq), 20, np.uint8), cigar=cigar,
+        flag=16 if i % 2 else 0, mapq=60) for pos, i, seq, cigar
+        in sorted(reads)]
+    write_bam(path, records_out, [(contig, ref_len)])
+    return path, ref_fasta, truth_vcf, records
+
+
+def _norm_vcf(path, ref_seqs):
+    """{(chrom, pos, ref, alt): zygosity} of normalized records."""
+    out = {}
+    for var in vcf_mod.VCFReader(path).fetch():
+        norm = var.normalize(ref_seqs[var.chrom])
+        gt = norm.gt
+        zyg = "hom"
+        if gt is not None and len(set(gt)) > 1:
+            zyg = "het"
+        for alt in norm.alt:
+            if alt in (".", norm.ref):
+                continue
+            out[(norm.chrom, norm.pos, norm.ref, alt)] = zyg
+    return out
+
+
+def score_vcf(truth_vcf, called_vcf, ref_fasta):
+    """SNP/indel precision/recall/F1 + genotype concordance of the
+    normalized records of ``called_vcf`` against ``truth_vcf``."""
+    with FastaReader(ref_fasta) as fa:
+        ref_seqs = {name: fa.fetch(name).upper() for name in fa.references}
+    truth = _norm_vcf(truth_vcf, ref_seqs)
+    called = _norm_vcf(called_vcf, ref_seqs)
+
+    def kind(key):
+        _, _, ref, alt = key
+        return "snp" if len(ref) == 1 and len(alt) == 1 else "indel"
+
+    res = {}
+    for k in ("snp", "indel"):
+        t = {key for key in truth if kind(key) == k}
+        c = {key for key in called if kind(key) == k}
+        if not t and not c:
+            continue
+        tp, fp, fn = len(t & c), len(c - t), len(t - c)
+        prec = tp / max(1, tp + fp)
+        rec = tp / max(1, tp + fn)
+        f1 = 2 * prec * rec / max(1e-9, prec + rec)
+        res[k] = {"tp": tp, "fp": fp, "fn": fn,
+                  "precision": round(prec, 4), "recall": round(rec, 4),
+                  "f1": round(f1, 4)}
+    matched = set(truth) & set(called)
+    gt_truth_known = [k for k in matched if truth[k] in ("het", "hom")]
+    if gt_truth_known and any(called[k] for k in gt_truth_known):
+        agree = sum(
+            1 for k in gt_truth_known if called[k] == truth[k])
+        res["gt_concordance"] = round(agree / len(gt_truth_known), 4)
+    return res
+
+
+#: the least P/R/F1 (and genotype concordance) that variant and SNP calling
+#: must reach on :func:`create_variant_bam` genomes at depth 30 with the
+#: bundled models (``gru256_variant_demo`` and ``vcf``;
+#: ``gru256_diploid_snp_demo`` and ``snp``, then ``snp --het_rescue 0.1``),
+#: fixed on the CPU path (tests/test_torch_variant.py) and held on the card
+#: by ``chip_smoke.py``
+VARIANT_FLOORS = {
+    "haploid": {"snp": {"precision": 0.90, "recall": 0.95, "f1": 0.93},
+                "indel": {"precision": 0.85, "recall": 0.95, "f1": 0.90}},
+    "diploid": {"snp": {"precision": 0.90, "recall": 0.85, "f1": 0.88},
+                "gt_concordance": 0.80},
+    "diploid_rescue": {"snp": {"precision": 0.88, "recall": 0.93,
+                               "f1": 0.90}},
+}
+
+
+def below_floors(score, floors):
+    """[(metric, value, floor)] of a :func:`score_vcf` result that fall
+    below ``floors`` (an entry of :data:`VARIANT_FLOORS`); a kind with no
+    record at all falls below every floor of its kind."""
+    out = []
+    for key, floor in floors.items():
+        if isinstance(floor, dict):
+            for metric, least in floor.items():
+                value = score.get(key, {}).get(metric, 0.0)
+                if value < least:
+                    out.append(("{}.{}".format(key, metric), value, least))
+        elif score.get(key, 0.0) < floor:
+            out.append((key, score.get(key, 0.0), floor))
+    return out

@@ -676,7 +676,8 @@ def train(args):
     model_dict = None
     initial_params = None
     if getattr(args, "model", None):
-        bundle = models_mod.open_model(args.model)
+        bundle = models_mod.open_model(
+            models_mod.resolve_model(args.model))
         model_dict = bundle.model.to_dict()
         initial_params = bundle.model.jax_params()
     return run_training(

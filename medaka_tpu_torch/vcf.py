@@ -1,0 +1,488 @@
+"""Variant Call Format data structures and IO.
+
+Counterpart of ``medaka_tpu/vcf.py``, trimmed to what ``variant`` needs:
+the INFO column's parse and format, ``MetaInfo``, ``GenotypeData``,
+``Variant`` (trim, normalize, split_haplotypes, from_text, gt, alleles,
+to_dict, deep_copy), ``VCFWriter`` and ``VCFReader`` (index, fetch). The
+header carries ``medaka_tpu_version=`` and the same version string as
+``medaka_tpu``, so both packages write the same bytes for the same
+records. The classification and the ``tools`` helpers are not ported
+yet. Pure Python.
+"""
+from __future__ import annotations
+
+import collections
+from copy import deepcopy
+from typing import Dict, Optional, Tuple
+
+from medaka_tpu_torch import __version__ as package_version
+from medaka_tpu_torch import common
+from medaka_tpu_torch.utils.intervals import IntervalSet
+
+
+def self_return(x):
+    """Identity (used as a no-op field parser)."""
+    return x
+
+
+# Reserved INFO fields from the VCF v4.3 spec, Table 1.
+reserved_info_fields = {
+    'AA': (1, str), 'AC': ('A', int), 'AD': ('R', int), 'ADF': ('R', int),
+    'ADR': ('R', int), 'AF': ('A', float), 'AN': (1, int), 'BQ': (1, float),
+    'CIGAR': ('A', str), 'DB': (0, self_return), 'DP': (1, int),
+    'END': (1, int), 'H2': (0, self_return), 'H3': (0, self_return),
+    'MQ': (1, self_return), 'MQ0': (1, int), 'NS': (1, int),
+    'SB': ('.', self_return), 'SOMATIC': (0, self_return),
+    'VALIDATED': (0, self_return), '1000G': (0, self_return)}
+own_info_fields = {'SCORES': ('R', float)}
+all_info_fields = dict(reserved_info_fields, **own_info_fields)
+
+
+def parse_tags_to_string(tags: Dict) -> str:
+    """Serialise an INFO dict to its VCF column representation."""
+    if not tags:
+        return '.'
+
+    def one(key, value):
+        if value is True:  # flag field: bare key
+            return key
+        if isinstance(value, (tuple, list)):
+            value = ','.join(map(str, value))
+        return '{}={}'.format(key, value)
+
+    return ';'.join(one(k, v) for k, v in sorted(tags.items()))
+
+
+def parse_string_to_tags(string: str, splitter: str = ',') -> Dict:
+    """Parse a VCF INFO column into a dict."""
+    tags = {}
+    for field in string.split(';'):
+        if field in ('', '.'):
+            continue
+        tag, eq, payload = field.partition('=')
+        if not eq:
+            tags[tag] = True  # flag field
+            continue
+        value = payload
+        caster = all_info_fields.get(tag, (None, None))[1]
+        if caster is not None:
+            try:
+                parts = [caster(x) for x in payload.split(splitter)]
+                value = parts[0] if len(parts) == 1 else parts
+            except ValueError:
+                value = payload
+        tags[tag] = value
+    return tags
+
+
+class MetaInfo:
+    """A VCF header meta-information line."""
+
+    __valid_groups__ = ('INFO', 'FILTER', 'FORMAT')
+    __valid_group_sort__ = {v: k for k, v in enumerate(__valid_groups__)}
+    __valid_non_int_nums__ = {'A', 'R', 'G', '.'}
+    __valid_types__ = {'Integer', 'Float', 'Flag', 'Character', 'String'}
+
+    def __init__(self, group, ident, number, typ, descr):
+        """Validate and store the header entry fields."""
+        number_ok = (
+            isinstance(number, int)
+            or (isinstance(number, str) and number.isdigit())
+            or number in self.__valid_non_int_nums__)
+        for ok, what, got, allowed in (
+                (group in self.__valid_groups__, 'header group', group,
+                 self.__valid_groups__),
+                (number_ok, 'Number', number,
+                 'an integer or ' + str(self.__valid_non_int_nums__)),
+                (typ in self.__valid_types__, 'Type', typ,
+                 self.__valid_types__)):
+            if not ok:
+                raise ValueError(
+                    'Invalid VCF meta {} {!r}; expected {}.'.format(
+                        what, got, allowed))
+        self.group = group
+        self.ident = ident
+        self.number = number
+        self.typ = typ
+        self.descr = descr
+
+    def __repr__(self):
+        return '{}=<ID={},Number={},Type={},Description="{}">'.format(
+            self.group, self.ident, self.number, self.typ, self.descr)
+
+    __str__ = __repr__
+
+
+class GenotypeData(dict):
+    """Genotype FORMAT data; keeps GT as the first key."""
+
+    def __init__(self, GT, **kwargs):
+        """Store GT first, then other FORMAT fields."""
+        super().__init__(GT=GT, **kwargs)
+
+
+class Variant:
+    """One genomic variant record (0-based position)."""
+
+    def __init__(self, chrom, pos, ref, alt='.', ident='.', qual='.',
+                 filt='.', info='.', genotype_data=None):
+        """Create a variant; see the VCF spec for field meanings."""
+        self.chrom = chrom
+        self.pos = int(pos)
+        self.ref = ref.upper()
+        if isinstance(alt, str):
+            alt = alt.split(',')
+        self.alt = alt
+        self.ident = str(ident)
+        self.qual = qual if qual == '.' else float(qual)
+        self.filt = filt if ';' not in filt else filt.split(';')
+        if not isinstance(info, dict):
+            info = parse_string_to_tags(info)
+        self.info = info
+        if genotype_data is None:
+            self.genotype_data = collections.OrderedDict()
+        elif isinstance(genotype_data, GenotypeData):
+            self.genotype_data = genotype_data
+        else:
+            self.genotype_data = self._sort_genotype_data(genotype_data)
+
+    @staticmethod
+    def _sort_genotype_data(gd):
+        rest = dict(gd)
+        gt = rest.pop('GT')
+        return GenotypeData(gt, **rest)
+
+    def _record_fields(self):
+        return (self.chrom, self.pos, self.ident, self.ref, self.alt,
+                self.qual, self.filt, self.info, self.genotype_data)
+
+    def __eq__(self, other):
+        if not isinstance(other, Variant):
+            return NotImplemented
+        return self._record_fields() == other._record_fields()
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
+
+    def __repr__(self):
+        gd = ';'.join(
+            '{}={}'.format(k, v) for k, v in self.genotype_data.items())
+        parts = [
+            repr(self.chrom), str(self.pos), repr(self.ref),
+            'alt={}'.format(self.alt), 'ident={}'.format(self.ident),
+            'qual={}'.format(self.qual), 'filt={}'.format(self.filt),
+            "info='{}'".format(self.info_string),
+            "genotype_data='{}'".format(gd)]
+        return 'Variant({})'.format(', '.join(parts))
+
+    # --- derived fields ---
+
+    @property
+    def genotype_keys(self):
+        """FORMAT column."""
+        return ':'.join(str(k) for k in self.genotype_data)
+
+    @property
+    def genotype_values(self):
+        """Sample column."""
+        return ':'.join(str(v) for v in self.genotype_data.values())
+
+    @property
+    def info_string(self):
+        """INFO column."""
+        return parse_tags_to_string(self.info)
+
+    @property
+    def gt(self):
+        """Genotype allele indices; None when absent or no-call."""
+        gt = self.genotype_data.get('GT')
+        if gt is None:
+            return None
+        alleles = gt.replace('|', '/').split('/')
+        if '.' in alleles:  # no-call (./.) from external callers
+            return None
+        return tuple(int(x) for x in alleles)
+
+    @property
+    def phased(self):
+        """Whether GT is phased (None when no GT)."""
+        gt = self.genotype_data.get('GT')
+        return None if gt is None else '|' in gt
+
+    @property
+    def alleles(self):
+        """Alleles selected by the genotype."""
+        if self.gt is None:
+            return None
+        all_alleles = [self.ref] + self.alt
+        return tuple(all_alleles[i] for i in self.gt)
+
+    @classmethod
+    def from_text(cls, line: str) -> 'Variant':
+        """Parse one VCF data line (tab separated, 1-based POS)."""
+        (chrom, pos, ident, ref, alt, qual, filt, info,
+         *rest) = line.rstrip('\n').split('\t')
+        gt = None
+        if len(rest) >= 2:
+            gt = cls._sort_genotype_data(
+                dict(zip(rest[0].split(':'), rest[1].split(':'))))
+        return cls(chrom, int(pos) - 1, ref, alt=alt, ident=ident, qual=qual,
+                   filt=filt, info=info, genotype_data=gt)
+
+    def add_tag(self, tag, value=None):
+        """Set an INFO tag, dropping any '.' placeholder entry."""
+        self.info.pop('.', None)
+        self.info[tag] = value
+
+    def get_tag(self, tag):
+        """Read an INFO tag."""
+        return self.info[tag]
+
+    def deep_copy(self):
+        """Deep copy of the variant."""
+        return deepcopy(self)
+
+    def to_dict(self):
+        """Flatten the record into a dict (used by vcf2tsv)."""
+        d = dict(alt=','.join(self.alt))
+        for attr in ('chrom', 'pos', 'qual', 'ident', 'filt', 'ref'):
+            d[attr] = getattr(self, attr)
+        d.update(self.info)
+        d.update(self.genotype_data)
+        return d
+
+    # --- normalisation (https://genome.sph.umich.edu/wiki/Variant_Normalization)
+
+    def trim(self, reference: Optional[str] = None) -> 'Variant':
+        """Return a parsimonious (and, given a reference, left-aligned) copy."""
+        alleles = [self.ref, *self.alt]
+        pos = self.pos
+
+        def matched_prefix(seqs):
+            # longest run of identical leading bases, always leaving at
+            # least one base of the shortest allele in place
+            cap = min(map(len, seqs)) - 1
+            n = 0
+            while n < cap and len({s[n] for s in seqs}) == 1:
+                n += 1
+            return n
+
+        if reference is None:
+            # parsimony only: shave the shared tail (computed as the
+            # shared head of the reversed alleles)
+            k = matched_prefix([s[::-1] for s in alleles])
+            if k:
+                alleles = [s[:-k] for s in alleles]
+        else:
+            # left-align: keep shaving shared final bases, pulling in
+            # reference context whenever an allele would run empty
+            while True:
+                if min(map(len, alleles)) == 0:
+                    if pos == 0:
+                        # deletion butting the contig start: borrow the
+                        # base to the right instead
+                        nxt = reference[len(alleles[0])]
+                        alleles = [s + nxt for s in alleles]
+                        break
+                    pos -= 1
+                    alleles = [reference[pos] + s for s in alleles]
+                elif len({s[-1] for s in alleles}) == 1:
+                    alleles = [s[:-1] for s in alleles]
+                else:
+                    break
+
+        k = matched_prefix(alleles)
+        if k:
+            pos += k
+            alleles = [s[k:] for s in alleles]
+        out = self.deep_copy()
+        out.pos = pos
+        out.ref = alleles[0]
+        out.alt = alleles[1:]
+        return out
+
+    def normalize(self, reference: str) -> 'Variant':
+        """Trim and left-align against the full chrom reference sequence."""
+        if all(x == self.ref for x in self.alt):
+            return self
+        return self.trim(reference=reference)
+
+    def split_haplotypes(self) -> Tuple:
+        """Split a multiploid record into per-haplotype records."""
+        if 'GT' not in self.genotype_data:
+            return tuple()
+        out = []
+        gd = self.genotype_data.copy()
+        gd['GT'] = '1/1'
+        for hap_n, n in enumerate(self.gt, 1):
+            if n == 0:
+                v = None
+            else:
+                v = Variant(
+                    self.chrom, self.pos, self.ref, self.alt[n - 1],
+                    qual=self.qual, info=self.info.copy(), genotype_data=gd)
+            out.append((hap_n, v))
+        return tuple(out)
+
+
+class VCFWriter:
+    """Write `Variant` records with a well-formed header."""
+
+    version_options = {'4.3', '4.1'}
+
+    def __init__(self, filename, mode='w',
+                 header=('CHROM', 'POS', 'ID', 'REF', 'ALT', 'QUAL',
+                         'FILTER', 'INFO', 'FORMAT', 'SAMPLE'),
+                 contigs=None, meta_info=None, version='4.1'):
+        """Write VCFv4.1 by default for maximal tool compatibility."""
+        self.filename = filename
+        self.mode = mode
+        self.header = header
+        if version not in self.version_options:
+            raise ValueError(
+                'version must be one of {}'.format(self.version_options))
+        self.version = version
+        self.meta = [
+            'fileformat=VCFv{}'.format(self.version),
+            'medaka_tpu_version={}'.format(package_version)]
+        if contigs is not None:
+            self.meta.extend('contig=<ID={}>'.format(c) for c in contigs)
+        if meta_info is not None:
+            try:
+                meta_info.sort(
+                    key=lambda x: MetaInfo.__valid_group_sort__[x.group])
+            except Exception:
+                pass
+            meta_info = [str(m) for m in meta_info]
+            self.meta.extend(
+                m for m in meta_info if 'fileformat=VCFv' not in m)
+        self.logger = common.get_named_logger('VCFWriter')
+
+    def __enter__(self):
+        self.handle = open(self.filename, self.mode, encoding='utf-8')
+        self.handle.write(
+            '\n'.join('##' + line for line in self.meta) + '\n')
+        self.handle.write('#' + '\t'.join(self.header) + '\n')
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.close()
+
+    def write_variants(self, variants, sort=True):
+        """Write many records, optionally sorting by (chrom, pos)."""
+        if sort:
+            variants = common.loose_version_sort(
+                variants, key=lambda v: '{}-{}'.format(v.chrom, v.pos))
+        self.handle.writelines(self._format_row(v) for v in variants)
+
+    def write_variant(self, variant: Variant):
+        """Write one record (POS converted to 1-based)."""
+        self.handle.write(self._format_row(variant))
+
+    @staticmethod
+    def _format_row(v: Variant) -> str:
+        """One tab-separated VCF line (no mutation of ``v``)."""
+        def joined(x, sep):
+            return (sep.join(map(str, x))
+                    if isinstance(x, (tuple, list)) else x)
+
+        cols = (v.chrom, v.pos + 1, v.ident, v.ref, joined(v.alt, ','),
+                v.qual, joined(v.filt, ';'), v.info_string,
+                v.genotype_keys, v.genotype_values)
+        return '\t'.join(str(c) for c in cols) + '\n'
+
+
+class VCFReader:
+    """Parse `.vcf` files with an optional in-memory interval index."""
+
+    def __init__(self, filename, cache=True):
+        """Read header eagerly; records lazily."""
+        self.filename = filename
+        self.cache = cache
+        self.chroms = []
+        self._indexed = False
+        self._tree = None
+        self.logger = common.get_named_logger('VCFReader')
+        self.meta = []
+        self.header = None
+        with open(filename, encoding='utf-8') as handle:
+            for line in handle:
+                line = line.rstrip('\n')
+                if line.startswith('##'):
+                    self.meta.append(line[2:])
+                elif line.startswith('#'):
+                    self.header = line[1:].split('\t')
+                    break
+
+    def _parse(self):
+        """Stream records, requiring position order within chrom runs.
+
+        Order tracking resets whenever the chromosome changes, so a
+        concatenation of per-region VCFs (each block internally
+        sorted) streams fine even when a chromosome recurs.
+        """
+        run = (None, None)  # (current chrom, last position in its run)
+        known = set(self.chroms)
+        with open(self.filename, encoding='utf-8') as handle:
+            for lineno, raw in enumerate(handle, 1):
+                raw = raw.rstrip('\n')
+                if not raw or raw[0] == '#':
+                    continue
+                try:
+                    variant = Variant.from_text(raw)
+                except Exception as e:
+                    raise IOError(
+                        'Malformed VCF record at line {} of {}: '
+                        '{!r}'.format(lineno, self.filename, raw)) from e
+                if variant.chrom == run[0] and run[1] is not None \
+                        and variant.pos < run[1]:
+                    raise IOError(
+                        '{} is not position-sorted at line {} '
+                        '({}:{} after position {}).'.format(
+                            self.filename, lineno, variant.chrom,
+                            variant.pos + 1, run[1] + 1))
+                run = (variant.chrom, variant.pos)
+                if variant.chrom not in known:
+                    known.add(variant.chrom)
+                    self.chroms.append(variant.chrom)
+                yield variant
+
+    def index(self):
+        """Build the interval index (idempotent)."""
+        if self._indexed:
+            return
+        self.cache = True
+        self._tree = collections.defaultdict(IntervalSet)
+        for variant in self._parse():
+            self._tree[variant.chrom].add(
+                variant.pos, variant.pos + len(variant.ref), variant)
+        self._indexed = True
+
+    def fetch(self, ref_name=None, start=None, end=None, strict=True):
+        """Yield variants in a region.
+
+        With ``strict`` any overlapping variant is returned, otherwise only
+        variants fully contained in the region.
+        """
+        lo = float('-inf') if start is None else start
+        hi = float('inf') if end is None else end
+        if not self.cache:
+            # stream without an index: contained-in-region, strict
+            # inequalities, and no `strict` distinction — matching the
+            # reference's cacheless path exactly (``vcf.py:656-659``),
+            # which differs from the indexed path at region boundaries
+            yield from (
+                v for v in self._parse()
+                if (ref_name is None or v.chrom == ref_name)
+                and lo < v.pos and v.pos + len(v.ref) < hi)
+            return
+        self.index()
+        lo_i = int(lo) if lo != float('-inf') else -(1 << 60)
+        hi_i = int(hi) if hi != float('inf') else (1 << 60)
+        for chrom in ([ref_name] if ref_name is not None else self.chroms):
+            tree = self._tree[chrom]
+            hits = (tree.overlap(lo_i, hi_i) if strict
+                    else tree.envelop(lo_i, hi_i))
+            for iv in sorted(hits, key=lambda iv: (iv[0], iv[1])):
+                yield iv[2]

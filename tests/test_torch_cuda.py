@@ -61,8 +61,8 @@ def _net(rng, H, IN=10, C=5):
     return layers, head
 
 
-def _split_inputs(rng, H, T, batch, mode, quant, device):
-    layers, head = _net(rng, H)
+def _split_inputs(rng, H, T, batch, mode, quant, device, classes=5):
+    layers, head = _net(rng, H, C=classes)
     x = torch.from_numpy(rng.random((batch, T, 10)).astype(np.float32))
     lengths = torch.from_numpy(
         rng.integers(1, T + 1, batch).astype(np.int32))
@@ -73,12 +73,13 @@ def _split_inputs(rng, H, T, batch, mode, quant, device):
     return w, xt, lengths.to(device)
 
 
-def _check_split_kernels(device, H, T, batch, mode, quant, seed):
+def _check_split_kernels(device, H, T, batch, mode, quant, seed,
+                         classes=5):
     """Layer 1 against its plain version on its own inputs, layer 2 on
     layer 1's kernel outputs, and both kernels against themselves run
     again (bit for bit)."""
     w, xt, lens = _split_inputs(np.random.default_rng(seed), H, T, batch,
-                                mode, quant, device)
+                                mode, quant, device, classes)
     args1 = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
              w["b_hh1"])
     out_f, out_b = gru_split.gru_l1_split(*args1, mode=mode, quant=quant)
@@ -103,19 +104,22 @@ def _check_split_kernels(device, H, T, batch, mode, quant, seed):
     valid = (torch.arange(T, device=device)[None, :]
              < lens[:, None].long())
     for got, ref in ((lg_f, pf), (lg_b, pb)):
-        assert got.shape == (batch, T, 5)
+        assert got.shape == (batch, T, classes)
         diff = (got - ref).abs()[valid]
         print("layer 2", H, batch, mode, quant, "max", diff.max().item(),
               "mean", diff.mean().item())
         assert diff.max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("classes", [5, 9, 15, 16])
 @pytest.mark.parametrize("quant", [True, False])
 @pytest.mark.parametrize("mode,batch", [("t", 512), ("t", 200),
                                         ("rows", 37)])
-def test_kernels_match_plain(device, mode, batch, quant):
+def test_kernels_match_plain(device, mode, batch, quant, classes):
     """Both kernels against their plain versions at H=256, ragged lengths
-    with a column of length 0, and against themselves run again.
+    with a column of length 0, and against themselves run again; with the
+    haploid head's 5 classes, the diploid head's 15 and the edges of the
+    16-wide head (9 and 16).
 
     Layer 1 is compared on its own inputs, layer 2 on layer 1's kernel
     outputs, so each kernel is held to the same inputs as its plain
@@ -126,7 +130,7 @@ def test_kernels_match_plain(device, mode, batch, quant):
     within 4e-8. The batch sizes cover the tile shapes; a second launch
     gives the same bits (no atomics, fixed-order sums).
     """
-    _check_split_kernels(device, 256, 300, batch, mode, quant, 7)
+    _check_split_kernels(device, 256, 300, batch, mode, quant, 7, classes)
 
 
 @pytest.mark.parametrize("mode", ["t", "rows"])
@@ -150,12 +154,15 @@ def test_split_geometry_matches_the_kernels(device, kind):
     for H in (128, 256, 384, 512):
         for B in (32, 64, 191, 192, 512):
             for mode in ("t", "rows"):
-                C, BT, smem, resident = gru_split.geometry(
-                    kind, H, B, device, mode, inputs)
-                assert lib.gru_split_s8_smem(int(kind == "l2"), C, BT, H,
-                                             inputs) == smem
-                assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
-                print(kind, H, B, mode, (C, BT, smem, resident))
+                for classes in ((5, 15) if kind == "l2" else (5,)):
+                    C, BT, smem, resident = gru_split.geometry(
+                        kind, H, B, device, mode, inputs, classes)
+                    assert lib.gru_split_s8_smem(
+                        int(kind == "l2"), C, BT, H, inputs,
+                        classes) == smem
+                    assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
+                    print(kind, H, B, mode, classes,
+                          (C, BT, smem, resident))
     if kind == "l1":
         assert gru_split.geometry("l1", 256, 512, device, "t", 10)[:2] == (
             1, 8)
@@ -947,3 +954,66 @@ def test_predict_direct_on_card_matches_hdf5_route(device, tmp_path):
     for suffix in ("", ".gaps_in_draft_coords.bed"):
         with open(want + suffix, "rb") as a, open(got + suffix, "rb") as b:
             assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("batch", [64, 200])
+def test_diploid_bundle_on_card_matches_plain(device, batch):
+    """The diploid bundle (15 classes) through GRUModel on the split path
+    (mode "rows" at B=64, "t" at B=200) against the split kernels' plain
+    versions on the card, on the same inputs: probabilities within 1e-3
+    and argmax agreement >= 0.9999 (chip_smoke.py's whole-network bars);
+    each split kernel launches once."""
+    bundle = models.load_model(models.resolve_model(
+        "gru256_diploid_snp_demo"))
+    model = bundle.model.to(device)
+    assert model.num_classes == 15
+    rng = np.random.default_rng(batch)
+    T = 300
+    x = torch.from_numpy(rng.random((batch, T, 10)).astype(np.float32)).to(
+        device)
+    lengths = torch.from_numpy(rng.integers(1, T + 1, batch).astype(
+        np.int32)).to(device)
+    mode = gru_split.split_mode(batch)
+    with torch.inference_mode():
+        gru_split.reset_launches()
+        got = model(x, lengths=lengths, compute_dtype=torch.bfloat16)
+        launches = dict(gru_split.LAUNCHES)
+        w = gru_split.prepare_split_weights(
+            model.layer_params(), model.head_params(), mode, True, device)
+        xt = x.transpose(0, 1).to(torch.bfloat16).contiguous()
+        out_f, out_b = gru_split.gru_l1_split_plain(
+            xt, lengths, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+            w["b_hh1"], mode=mode, quant=True)
+        lg_f, lg_b = gru_split.gru_l2head_split_plain(
+            out_f, out_b, lengths, w["w_in2"], w["in_scale2"], w["b_ih2"],
+            w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"], mode=mode,
+            quant=True)
+        want = torch.softmax(lg_f + lg_b + w["b_head"], -1)
+    model.to("cpu")
+    assert launches == {"gru_l1_split": 1, "gru_l2head_split": 1}
+    valid = (torch.arange(T, device=device)[None, :]
+             < lengths[:, None].long())
+    diff = (got - want).abs()[valid]
+    agree = (got.argmax(-1) == want.argmax(-1))[valid].float().mean().item()
+    print("diploid B={} mode {}".format(batch, mode), "max",
+          diff.max().item(), "agreement", agree)
+    assert got.shape == (batch, T, 15)
+    assert diff.max().item() <= 1e-3
+    assert agree >= 0.9999
+
+
+def test_head_past_16_classes_raises(device):
+    """More than 16 classes (the RLE scheme's 49) raise before a launch."""
+    H, T, B, C = 256, 4, 2, 49
+    i8 = dict(dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="at most 16 classes, got 49"):
+        gru_split.gru_l2head_split(
+            torch.zeros((T, B, H), **i8), torch.zeros((T, B, H), **i8),
+            torch.full((B,), T, dtype=torch.int32, device=device),
+            torch.zeros((2, 3 * H, 2 * H), **i8),
+            torch.ones((2, 2, 3 * H), device=device),
+            torch.zeros((2, 3 * H), device=device),
+            torch.zeros((2, 3 * H, H), **i8),
+            torch.ones((2, 3 * H), device=device),
+            torch.zeros((2, 3 * H), device=device),
+            torch.zeros((2, C, H), dtype=torch.bfloat16, device=device))

@@ -32,15 +32,19 @@ def _direction(rng, in_size):
                                 ("b_ih", (3 * H,)), ("b_hh", (3 * H,)))}
 
 
-@pytest.fixture(scope="module")
-def net():
+def _make_net(classes):
     rng = np.random.default_rng(0)
     layers = [{"fwd": _direction(rng, IN), "bwd": _direction(rng, IN)},
               {"fwd": _direction(rng, 2 * H), "bwd": _direction(rng, 2 * H)}]
-    head = {"w": rng.uniform(-0.2, 0.2, (C, 2 * H)).astype(np.float32),
-            "b": rng.uniform(-0.2, 0.2, (C,)).astype(np.float32)}
+    head = {"w": rng.uniform(-0.2, 0.2, (classes, 2 * H)).astype(np.float32),
+            "b": rng.uniform(-0.2, 0.2, (classes,)).astype(np.float32)}
     x = rng.random((B, T, IN)).astype(np.float32)
     return layers, head, x
+
+
+@pytest.fixture(scope="module")
+def net():
+    return _make_net(C)
 
 
 def _jax_logits(net, layout, quant):
@@ -55,23 +59,26 @@ def _valid():
     return np.arange(T)[None, :] < LENGTHS[:, None]
 
 
+@pytest.mark.parametrize("classes", [C, 15])
 @pytest.mark.parametrize("quant", [True, False])
 @pytest.mark.parametrize("layout", ["transposed", "rows"])
-def test_plain_matches_jax_interpret(net, layout, quant):
-    """Logits agree within 5e-3 on valid columns (test_layouts_agree's bar).
+def test_plain_matches_jax_interpret(layout, quant, classes):
+    """Logits agree within 5e-3 on valid columns (test_layouts_agree's bar),
+    with the haploid head's 5 classes and the diploid head's 15.
 
-    Measured max |logit diff|: 2.6e-3 for "transposed" + int8, where the
-    bf16 tanh-form gates round XLA's and PyTorch's tanh to bf16 and a
-    last-bit difference can flip a rounding; <= 6e-8 for the other three
-    (f32 accumulation order only).
+    Measured max |logit diff| at 5 classes: 2.6e-3 for "transposed" +
+    int8, where the bf16 tanh-form gates round XLA's and PyTorch's tanh to
+    bf16 and a last-bit difference can flip a rounding; <= 6e-8 for the
+    other three (f32 accumulation order only).
     """
+    net = _make_net(classes)
     layers, head, x = net
     ref = _jax_logits(net, layout, quant)
     before = dict(gru_split.LAUNCHES), dict(gru_split.MODE_LAUNCHES)
     got = gru_split.bigru_head_fullfused(
         layers, head, torch.from_numpy(x), lengths=torch.from_numpy(LENGTHS),
         quant=quant, layout=layout, device="cpu")
-    assert got.dtype == torch.float32 and got.shape == (B, T, C)
+    assert got.dtype == torch.float32 and got.shape == (B, T, classes)
     # CPU tensors never launch
     assert (gru_split.LAUNCHES, gru_split.MODE_LAUNCHES) == before
     assert np.abs(got.numpy() - ref)[_valid()].max() <= 5e-3
@@ -150,6 +157,9 @@ def test_kernel_module_imports_without_nvcc_or_jax():
         "import medaka_tpu_torch.ops.gru_split as g\n"
         "import medaka_tpu_torch.cli, medaka_tpu_torch.prediction\n"
         "import medaka_tpu_torch.models, medaka_tpu_torch.stitch\n"
+        "import medaka_tpu_torch.vcf, medaka_tpu_torch.variant\n"
+        "import medaka_tpu_torch.options, medaka_tpu_torch.labels\n"
+        "import medaka_tpu_torch.testing\n"
         "from medaka_tpu_torch.ops import cuda_build\n"
         "assert not cuda_build._LIBS\n"
         "bad = [m for m in sys.modules if m == 'medaka_tpu' or "

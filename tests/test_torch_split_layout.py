@@ -29,82 +29,100 @@ def _resident(cluster, columns, smem):
     return N_SM * per_sm // cluster
 
 
-def _choose(kind, H, B, resident=_resident):
+def _choose(kind, H, B, resident=_resident, classes=5):
     return rnn_cluster.choose_geometry(
         SPLIT, kind, H, B, LIMIT, resident, 2, "gru_split",
-        FEATURES if kind == "l1" else 0)
+        FEATURES if kind == "l1" else 0, classes)
 
 
-def _fits(kind, H, C, BT):
+def _fits(kind, H, C, BT, classes=5):
     inputs = FEATURES if kind == "l1" else 0
     return (rnn_cluster.units_per_block(SPLIT, H, C) <= SPLIT.max_units
             and rnn_cluster.threads(SPLIT, H, C, BT)
             <= rnn_cluster.max_threads(kind)
-            and rnn_cluster.smem_bytes(SPLIT, kind, C, BT, H, inputs)
-            <= LIMIT)
+            and rnn_cluster.smem_bytes(SPLIT, kind, C, BT, H, inputs,
+                                       classes) <= LIMIT)
 
 
-@pytest.mark.parametrize("kind", ["l1", "l2"])
+@pytest.mark.parametrize("kind,classes", [("l1", 5), ("l2", 5), ("l2", 9),
+                                          ("l2", 16)])
 @pytest.mark.parametrize("H", HIDDEN)
 @pytest.mark.parametrize("B", BATCHES)
-def test_split_geometry(kind, H, B):
-    """(C, BT, bytes) at each width and batch: the geometry fits (units,
-    threads, bytes), C is the smallest cluster that fits unless a larger
-    one buys one wave, and BT the smallest tile that runs in one wave or,
-    failing that at every cluster size, the largest that fits at the
-    smallest one."""
-    C, BT, smem = _choose(kind, H, B)
+def test_split_geometry(kind, H, B, classes):
+    """(C, BT, bytes) at each width and batch, and for layer 2 with 5
+    classes (the haploid head) and 9 and 16 (the edges of the 16-wide
+    slot): the geometry fits (units, threads, bytes), C is the smallest
+    cluster that fits unless a larger one buys one wave, and BT the
+    smallest tile that runs in one wave or, failing that at every cluster
+    size, the largest that fits at the smallest one."""
+    C, BT, smem = _choose(kind, H, B, classes=classes)
     inputs = FEATURES if kind == "l1" else 0
     assert C in rnn_cluster.CLUSTER_SIZES and BT in SPLIT.tiles
-    assert smem == rnn_cluster.smem_bytes(SPLIT, kind, C, BT, H, inputs)
-    assert _fits(kind, H, C, BT)
+    assert smem == rnn_cluster.smem_bytes(SPLIT, kind, C, BT, H, inputs,
+                                          classes)
+    assert _fits(kind, H, C, BT, classes)
     U = rnn_cluster.units_per_block(SPLIT, H, C)
     assert C * U >= H and U % 16 == 0
     smallest = min(c for c in rnn_cluster.CLUSTER_SIZES
-                   if _fits(kind, H, c, 8))
+                   if _fits(kind, H, c, 8, classes))
     assert C >= smallest
 
     def one_wave(c, t):
         return 2 * -(-B // t) <= _resident(
-            c, t, rnn_cluster.smem_bytes(SPLIT, kind, c, t, H, inputs))
+            c, t, rnn_cluster.smem_bytes(SPLIT, kind, c, t, H, inputs,
+                                         classes))
 
     if one_wave(C, BT):
         # no smaller tile at C, and no smaller cluster, runs in one wave
         assert not any(one_wave(C, t) for t in SPLIT.tiles
-                       if t < BT and _fits(kind, H, C, t))
+                       if t < BT and _fits(kind, H, C, t, classes))
         assert not any(one_wave(c, t) for c in rnn_cluster.CLUSTER_SIZES
                        if smallest <= c < C for t in SPLIT.tiles
-                       if _fits(kind, H, c, t))
+                       if _fits(kind, H, c, t, classes))
     else:
         assert C == smallest
-        assert not any(_fits(kind, H, C, t) for t in SPLIT.tiles if t > BT)
+        assert not any(_fits(kind, H, C, t, classes) for t in SPLIT.tiles
+                       if t > BT)
 
 
-@pytest.mark.parametrize("kind,resident,want", [
+@pytest.mark.parametrize("kind,resident,classes,want", [
     # layer 1 keeps all of W_hh (768 x 272 B) in one block: no cluster
-    ("l1", 132, (1, 8, 229120)),
+    ("l1", 132, 5, (1, 8, 229120)),
     # layer 2: clusters of 4 and 32 columns where 32 clusters are resident
-    ("l2", 33, (4, 32, 220416)),
+    ("l2", 33, 5, (4, 32, 220416)),
     # else clusters of 8 and 64 columns, where 16 are
-    ("l2", 31, (8, 64, 196864))])
-def test_split_geometry_at_the_main_shape(kind, resident, want):
+    ("l2", 31, 5, (8, 64, 196864)),
+    # up to 8 classes the slot keeps 8 a column: the same bytes
+    ("l2", 33, 8, (4, 32, 220416)),
+    # 9 to 16 classes (the diploid head's 15): 16 a column, 2 x 4 x 8 x 8
+    # and 2 x 8 x 8 x 8 f32 more
+    ("l2", 33, 9, (4, 32, 222464)),
+    ("l2", 33, 15, (4, 32, 222464)),
+    ("l2", 31, 15, (8, 64, 200960)),
+    ("l2", 33, 16, (4, 32, 222464))])
+def test_split_geometry_at_the_main_shape(kind, resident, classes, want):
     """H=256, B=512 (the counts model at the automatic batch): the bytes
     of both layers pinned, in one wave of 128 blocks."""
     def stand_in(C, BT, smem):
         return resident if C == want[0] else resident // 2
-    assert _choose(kind, 256, 512, stand_in) == want
+    assert _choose(kind, 256, 512, stand_in, classes) == want
     C, BT, _ = want
     assert 2 * -(-512 // BT) * C == 128
 
 
-def test_split_bytes_by_part():
+@pytest.mark.parametrize("classes,slot", [(1, 8), (5, 8), (8, 8), (9, 16),
+                                          (15, 16), (16, 16)])
+def test_split_bytes_by_part(classes, slot):
     """The carve-up at H=256, layer 2, C=4, BT=32: W_hh 192 x 272, h 2 x 32
     x 272, the staged h 32 x 64, W_ih 192 x 528, the input 2 x 32 x 528,
     the head's bf16 operands (2 x 32 + 16) x 72 and the blocks' partial
-    logits of the block's 32 / 4 columns 2 x 4 x 8 x 8 f32."""
+    logits of the block's 32 / 4 columns 2 x 4 x 8 x slot f32, the slot
+    the class count rounded up to 8."""
+    assert rnn_cluster.head_slot(classes) == slot
     parts = (192 * 272 + 2 * 32 * 272 + 32 * 64 + 192 * 528 + 2 * 32 * 528
-             + (2 * 32 + 16) * 72 * 2 + 2 * 4 * 8 * 8 * 4)
-    assert rnn_cluster.smem_bytes(SPLIT, "l2", 4, 32, 256) == parts
+             + (2 * 32 + 16) * 72 * 2 + 2 * 4 * 8 * slot * 4)
+    assert rnn_cluster.smem_bytes(SPLIT, "l2", 4, 32, 256,
+                                  classes=classes) == parts
     # layer 1 at C=1: no staging; bf16 W_ih 768 x 10, x 2 x 8 x 16
     assert rnn_cluster.smem_bytes(SPLIT, "l1", 1, 8, 256, 10) == (
         768 * 272 + 2 * 8 * 272 + 768 * 10 * 2 + 2 * 8 * 16 * 2)
@@ -124,6 +142,17 @@ def test_split_geometry_raises_without_resident_clusters():
         _choose("l1", 100, 16)
 
 
+@pytest.mark.parametrize("classes", [0, 17, 49])
+def test_split_head_refuses_past_16_classes(classes):
+    """The head's mma.sync tile holds 16 classes: none, or more than 16
+    (the RLE scheme's 49), raise a clear error before any launch."""
+    with pytest.raises(ValueError, match="1 to 16 classes, got {}".format(
+            classes)):
+        rnn_cluster.smem_bytes(SPLIT, "l2", 4, 32, 256, classes=classes)
+    with pytest.raises(ValueError, match="1 to 16 classes"):
+        _choose("l2", 256, 512, classes=classes)
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
     """``gru_split.geometry`` against a stand-in kernel library whose
@@ -131,8 +160,8 @@ def fake_card(monkeypatch):
     build."""
     resident = {"n": 33, "calls": []}
 
-    def max_clusters(layer2, mode, C, BT, H, IN):
-        resident["calls"].append((layer2, mode, C, BT, H, IN))
+    def max_clusters(layer2, mode, C, BT, H, IN, classes):
+        resident["calls"].append((layer2, mode, C, BT, H, IN, classes))
         return resident["n"]
 
     lib = types.SimpleNamespace(
@@ -152,11 +181,16 @@ def test_split_geometry_through_the_wrapper(fake_card):
     fake_card["n"] = 132
     assert gru_split.geometry("l1", 256, 512, dev, "t", 10) == (
         1, 8, 229120, 132)
-    assert fake_card["calls"][-1] == (0, 0, 1, 8, 256, 10)
+    assert fake_card["calls"][-1] == (0, 0, 1, 8, 256, 10, 5)
     fake_card["n"] = 33
     assert gru_split.geometry("l2", 256, 512, dev, "rows") == (
         4, 32, 220416, 33)
-    assert fake_card["calls"][-1] == (1, 1, 4, 32, 256, 0)
+    assert fake_card["calls"][-1] == (1, 1, 4, 32, 256, 0, 5)
+    # the diploid head's 15 classes: the slot of 16, asked for and cached
+    # apart from the 5-class launch's
+    assert gru_split.geometry("l2", 256, 512, dev, "rows", classes=15) == (
+        4, 32, 222464, 33)
+    assert fake_card["calls"][-1] == (1, 1, 4, 32, 256, 0, 15)
 
 
 @pytest.mark.parametrize("kind", ["l1", "l2"])
@@ -292,7 +326,7 @@ def _gates(h, xp, hp, mode):
     return (1.0 - z) * n + z * h
 
 
-def _emulate(layer, ops, C, BT, mode, H, T, lengths, inputs):
+def _emulate(layer, ops, C, BT, mode, H, T, lengths, inputs, classes=5):
     """The int8 kernels' arithmetic, block by block of each cluster, with
     every operand read the way the kernels index it: W_hh (and W_ih) rows
     q*48 + g*16 + u of slice r, the per-row constants in the same rows,
@@ -305,7 +339,7 @@ def _emulate(layer, ops, C, BT, mode, H, T, lengths, inputs):
     outs = []
     for d in range(2):
         out = (torch.zeros((T, B, H), dtype=torch.int8) if layer == 1
-               else torch.zeros((B, T, 5)))
+               else torch.zeros((B, T, classes)))
         for b0 in range(0, B, BT):
             cols = torch.arange(b0, min(B, b0 + BT))
             h = torch.zeros((C, len(cols), U))
@@ -342,7 +376,7 @@ def _emulate(layer, ops, C, BT, mode, H, T, lengths, inputs):
                         torch.round(h[r] * 127.0), -128, 127)
                     if layer == 2:
                         head = head + _bf16(h[r]) @ ops["w_head"][
-                            d, r, :5].float().t()
+                            d, r, :classes].float().t()
                 hq = new_hq
                 if layer == 1:
                     out[t, cols] = hq[:, :H].to(torch.int8)
@@ -353,14 +387,17 @@ def _emulate(layer, ops, C, BT, mode, H, T, lengths, inputs):
 
 
 @pytest.mark.parametrize("mode", ["t", "rows"])
-@pytest.mark.parametrize("H,C,BT,B", [(128, 1, 8, 11), (128, 2, 16, 20),
-                                      (256, 4, 8, 9), (384, 8, 8, 9)])
-def test_int8_operands_reproduce_the_plain_versions(H, C, BT, B, mode):
+@pytest.mark.parametrize("H,C,BT,B,classes", [
+    (128, 1, 8, 11, 5), (128, 2, 16, 20, 5), (256, 4, 8, 9, 5),
+    (384, 8, 8, 9, 5), (128, 2, 16, 20, 15), (256, 4, 8, 9, 16)])
+def test_int8_operands_reproduce_the_plain_versions(H, C, BT, B, classes,
+                                                    mode):
     """``gru_split.l1_operands`` and ``l2_operands`` (x padded, the int8
-    and bf16 slices, the per-row constants, W_head^T by block), read the
-    way the int8 kernels index them, give the plain versions' results:
-    layer 1 within one int8 step (the same bar as on the card), the
-    logits within 1e-3."""
+    and bf16 slices, the per-row constants, W_head^T by block, classes 8
+    to 15 in rows 8 to 15 of the head's tile), read the way the int8
+    kernels index them, give the plain versions' results: layer 1 within
+    one int8 step (the same bar as on the card), the logits within
+    1e-3."""
     rng = np.random.default_rng(H + C + B)
     T, IN = 6, 10
     k = 1.0 / np.sqrt(H)
@@ -372,8 +409,9 @@ def test_int8_operands_reproduce_the_plain_versions(H, C, BT, B, mode):
                 ("b_ih", (3 * H,)), ("b_hh", (3 * H,)))}
     layers = [{"fwd": direction(IN), "bwd": direction(IN)},
               {"fwd": direction(2 * H), "bwd": direction(2 * H)}]
-    head = {"w": torch.from_numpy(rng.uniform(-k, k, (5, 2 * H)).astype(
-        np.float32)), "b": torch.zeros(5)}
+    head = {"w": torch.from_numpy(rng.uniform(
+        -k, k, (classes, 2 * H)).astype(np.float32)),
+        "b": torch.zeros(classes)}
     lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
     lengths[-1] = 0
     w = gru_split.prepare_split_weights(layers, head, mode, True, "cpu")
@@ -391,7 +429,7 @@ def test_int8_operands_reproduce_the_plain_versions(H, C, BT, B, mode):
           w["b_ih2"], w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
     want2 = gru_split.gru_l2head_split_plain(*a2, mode=mode, quant=True)
     got2 = _emulate(2, gru_split.l2_operands(*a2[3:], C), C, BT, mode, H, T,
-                    lengths, want1)
+                    lengths, want1, classes)
     valid = torch.arange(T)[None, :] < lengths[:, None]
     for got, want in zip(got2, want2):
         assert (got - want).abs()[valid].max() <= 1e-3

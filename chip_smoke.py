@@ -158,7 +158,31 @@ Phases, each of which fails the script when it fails:
     fix; ``--het_rescue 0.1`` must raise the diploid recall; the gVCF must
     hold the VCF's records and a reference row for each other column. The
     paths' launches, columns/s and scores go into the split kernels' rows
-    of the ``kernels`` line.
+    of the ``kernels`` line;
+21. (last, after phase 15; no profile follows it) the paths from reads,
+    each through the CLI entry
+    point with the split kernels' launch counts set to 0 just before and
+    read just after (both kernels must launch on each), mapping and the
+    host stages at ``--threads`` ``os.cpu_count()``: (a) the reads of phase
+    4's genome as FASTQ (``testing.write_reads_fastq``), ``consensus
+    --model gru256_lambda_demo`` (mapping, inference, stitch), then
+    ``consensus --direct`` on the same mapped BAM: at least 99% of the
+    reads with a primary, each within 50 bases of its true start on its
+    strand, identity to the draft >= 0.99, the two FASTAs byte-identical;
+    (b) the reads of a haploid genome of phase 20's generator, cut to
+    0.2 Mb for the time limit, through ``variant --model
+    gru256_variant_demo`` with the annotation: P/R/F1 at
+    ``testing.FROM_READS_FLOORS``, every record annotated (DP, DPS, DPSP,
+    SR, SC, AR), at each planted SNP called the alt allele's SR support
+    above the ref's; (c) ``consensus --model gru256_variant_demo`` on (b)'s
+    mapped BAM and ``tools consensus2vcf --mode NW`` against the
+    reference, held to its floors; (d) ``consensus_joint`` on two read sets
+    (DT r9 and r10) of a 0.1 Mb genome with a 20-feature ``GRUModel`` at
+    H=256 with seeded random weights, and on one batch of the merged BAM's
+    features (all its chunks) the model through the kernels against their
+    plain versions under the network bar. The mapping, inference and annotation seconds,
+    the thread count and the columns/s are printed; the paths' launches and
+    records go into the split kernels' rows of the ``kernels`` line.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -250,6 +274,9 @@ SMALL_BATCH = 16
 #: the diploid head's 15 and the edges of the head's 16-wide tile, over
 #: this many steps
 HEAD_CHECK_CLASSES = (9, 15, 16)
+# the haploid variant genome of phase 21 (b) and (c), Mb: phase 20's 0.5
+# cut so that the whole script ends well inside its 1200 s
+FROM_READS_VARIANT_MB = 0.2
 HEAD_CHECK_T = 500
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
 # bf16 flop/s, f32 flop/s outside the tensor cores
@@ -1804,6 +1831,321 @@ def variant_phases(seed, work, dev, modules):
     return paths
 
 
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Seconds spent in each of ``targets`` ((module, function name)) while
+    the block runs: each is wrapped for the block and restored after it;
+    the module's own calls of the function go through the wrapper too."""
+    import torch
+    seconds = {}
+    originals = []
+
+    def wrap(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                seconds[key] = seconds.get(key, 0.0) + \
+                    time.perf_counter() - t0
+        return wrapper
+
+    for module, name in targets:
+        originals.append((module, name, getattr(module, name)))
+        setattr(module, name, wrap(getattr(module, name), name))
+    try:
+        yield seconds
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+
+
+def read_fastq_phase(testing, bam, fastq):
+    """The reads of a synthetic BAM as FASTQ in basecalled orientation;
+    returns their true starts."""
+    with phase("reads of {} as FASTQ".format(os.path.basename(bam))):
+        truth = testing.write_reads_fastq(bam, fastq)
+    log("   {} reads".format(len(truth)))
+    return truth
+
+
+def run_from_reads(cli, gru_split, label, argv, timings=()):
+    """One subcommand from reads through the CLI entry point, with the
+    split kernels' launch counts set to 0 just before and read just after:
+    returns (launches, launches by mode, seconds, seconds of each of
+    ``timings``). Both split kernels must have launched."""
+    import torch
+    with phase("{}: {}".format(label, " ".join(argv))):
+        with timed_calls(timings) as stage_s:
+            gru_split.reset_launches()
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("{} failed".format(label))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(gru_split.LAUNCHES)
+            mode_launches = dict(gru_split.MODE_LAUNCHES)
+    log("   launches on the {} path: {} {}; {:.2f} s ({})".format(
+        label, launches, mode_launches, seconds,
+        ", ".join("{} {:.2f} s".format(k, v) for k, v in stage_s.items())))
+    if min(launches.values()) < 1:
+        raise AssertionError("a split kernel never launched on the {} "
+                             "path".format(label))
+    return launches, mode_launches, seconds, dict(stage_s)
+
+
+def copy_mapped_bam(src, dst_dir, name):
+    """Place a mapped BAM and its index in an output directory under
+    ``name``, so that the subcommand there skips its mapping stage."""
+    import shutil
+    os.makedirs(dst_dir, exist_ok=True)
+    for suffix in ("", ".bai"):
+        shutil.copy(src + suffix, os.path.join(dst_dir, name + suffix))
+
+
+def from_reads_phases(seed, work, bam, draft, dev, modules):
+    """The paths from reads (phase 21): (a) ``consensus`` and ``consensus
+    --direct`` from the reads of phase 4's genome, (b) the ``variant``
+    pipeline from the reads of a haploid genome of phase 20's generator,
+    (c) ``consensus`` on those reads and ``tools consensus2vcf``, (d)
+    ``consensus_joint`` on two read sets of a 0.1 Mb genome with a random
+    20-feature model. Returns their records for the ``kernels`` line."""
+    import numpy as np
+    import torch
+    (cli, datastore, features, gru_split, mapping, models, prediction,
+     stitch, testing, vcf) = (modules[k] for k in (
+         "cli", "datastore", "features", "gru_split", "mapping", "models",
+         "prediction", "stitch", "testing", "vcf"))
+    threads = os.cpu_count()
+    log("   mapping and host stages with --threads {} (os.cpu_count())"
+        .format(threads))
+    paths = {}
+
+    # (a) consensus from reads, both routes
+    fastq = os.path.join(work, "reads.fastq")
+    truth = read_fastq_phase(testing, bam, fastq)
+    out_a = os.path.join(work, "from_reads")
+    launches, mode_launches, seconds, stage_s = run_from_reads(
+        cli, gru_split, "consensus from reads",
+        ["consensus", fastq, draft, "-o", out_a, "--model",
+         "gru256_lambda_demo", "-t", str(threads)],
+        ((mapping, "align_reads"), (prediction, "predict"),
+         (stitch, "stitch_to_fasta")))
+    mapped_bam = os.path.join(out_a, "calls_to_draft.bam")
+    with phase("check the consensus from reads"):
+        share, wrong = testing.placement(mapped_bam, truth)
+        _, n_columns = check_probabilities(
+            datastore, os.path.join(out_a, "consensus_probs.hdf"))
+        identity, edits, cons_len = consensus_identity(
+            testing, os.path.join(out_a, "consensus.fasta"), draft)
+    log("   mapping {:.2f} s at --threads {}: {} reads, {:.4f} with a "
+        "primary, {} placed more than 50 bases from their start or on the "
+        "other strand {}".format(stage_s["align_reads"], threads,
+                                 len(truth), share, len(wrong), wrong[:5]))
+    log("   inference {} columns in {:.2f} s: {:.0f} columns/s; stitch "
+        "{:.2f} s; consensus {} bp, identity to the draft {:.6f} ({} "
+        "edits)".format(
+            n_columns, stage_s["predict"], n_columns / stage_s["predict"],
+            stage_s["stitch_to_fasta"], cons_len, identity, edits))
+    if share < 0.99 or wrong:
+        raise AssertionError("mapping placed {:.4f} of the reads, {} "
+                             "wrongly".format(share, len(wrong)))
+    if identity < 0.99:
+        raise AssertionError("consensus identity {} < 0.99".format(identity))
+    paths["consensus"] = {
+        "launches": launches, "launches_by_mode": mode_launches,
+        "seconds": seconds, "mapping_s": stage_s["align_reads"],
+        "mapping_threads": threads, "reads": len(truth),
+        "mapped_share": share, "inference_s": stage_s["predict"],
+        "stitch_s": stage_s["stitch_to_fasta"], "columns": n_columns,
+        "columns_per_s": n_columns / stage_s["predict"],
+        "identity": identity}
+    out_direct = os.path.join(work, "from_reads_direct")
+    copy_mapped_bam(mapped_bam, out_direct, "calls_to_draft.bam")
+    launches, mode_launches, seconds, stage_s = run_from_reads(
+        cli, gru_split, "consensus --direct from reads",
+        ["consensus", fastq, draft, "-o", out_direct, "--model",
+         "gru256_lambda_demo", "-t", str(threads), "--direct"],
+        ((prediction, "predict_direct"),))
+    with open(os.path.join(out_a, "consensus.fasta"), "rb") as fa, \
+            open(os.path.join(out_direct, "consensus.fasta"), "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("consensus --direct differs from the HDF5 "
+                                 "route")
+    log("   consensus --direct: byte-identical to the HDF5 route's FASTA, "
+        "{:.0f} columns/s".format(n_columns / stage_s["predict_direct"]))
+    paths["consensus_direct"] = {
+        "launches": launches, "launches_by_mode": mode_launches,
+        "seconds": seconds, "inference_s": stage_s["predict_direct"],
+        "columns_per_s": n_columns / stage_s["predict_direct"]}
+
+    # (b) the variant pipeline from reads, with the annotation, on a
+    # genome cut to 0.2 Mb: at phase 20's 0.5 Mb, mapping, the annotator
+    # and (c)'s alignment took 140 s of a script that must end in 1200
+    with phase("variant genome from reads: {} Mb with planted variants at "
+               "depth 30 (create_variant_bam; phase 20 has 0.5 Mb, cut for "
+               "the time limit)".format(FROM_READS_VARIANT_MB)):
+        var_bam, ref, truth_vcf, _ = testing.create_variant_bam(
+            os.path.join(work, "variant_from_reads.bam"),
+            ref_mb=FROM_READS_VARIANT_MB, depth=30, seed=seed)
+    var_fastq = os.path.join(work, "variant_reads.fastq")
+    read_fastq_phase(testing, var_bam, var_fastq)
+    out_b = os.path.join(work, "variant_from_reads")
+    launches, mode_launches, seconds, stage_s = run_from_reads(
+        cli, gru_split, "variant from reads",
+        ["variant", var_fastq, ref, "-o", out_b, "--model",
+         "gru256_variant_demo", "-t", str(threads)],
+        ((mapping, "align_reads"), (prediction, "predict"),
+         (vcf, "annotate_vcf_n_reads")))
+    annotated = os.path.join(out_b, "medaka.annotated.vcf")
+    with phase("check the variant pipeline from reads"):
+        _, n_columns = check_probabilities(
+            datastore, os.path.join(out_b, "consensus_probs.hdf"))
+        score = testing.score_vcf(truth_vcf, annotated, ref)
+        raw_score = testing.score_vcf(
+            truth_vcf, os.path.join(out_b, "medaka.vcf"), ref)
+        planted = {(v.pos, v.ref, v.alt[0]) for v in
+                   vcf.VCFReader(truth_vcf).fetch()
+                   if len(v.ref) == len(v.alt[0]) == 1}
+        records, snp_support = 0, []
+        for v in vcf.VCFReader(annotated).fetch():
+            records += 1
+            missing = {"DP", "DPS", "DPSP", "SR", "SC", "AR"} - set(v.info)
+            if missing:
+                raise AssertionError("record {}:{} lacks {}".format(
+                    v.chrom, v.pos, missing))
+            if (v.pos, v.ref, v.alt[0]) in planted:
+                sr = [int(x) for x in str(v.info["SR"]).split(",")]
+                snp_support.append((v.pos, sr[0] + sr[1], sr[2] + sr[3]))
+    weak = [s for s in snp_support if s[2] <= s[1]]
+    log("   variant from reads: {} ({} records, {} columns, {:.0f} "
+        "columns/s of inference; unannotated {}); annotator {:.2f} s; "
+        "mapping {:.2f} s; {} planted SNPs called, alt SR support above "
+        "ref's at all but {}".format(
+            json.dumps(score), records, n_columns,
+            n_columns / stage_s["predict"], json.dumps(raw_score),
+            stage_s["annotate_vcf_n_reads"], stage_s["align_reads"],
+            len(snp_support), weak[:5]))
+    low = testing.below_floors(score, testing.FROM_READS_FLOORS["variant"])
+    if low:
+        raise AssertionError("the variant pipeline from reads is below its "
+                             "floors: {}".format(low))
+    if not snp_support or weak:
+        raise AssertionError("planted SNPs whose alt SR support does not "
+                             "exceed the ref's: {}".format(weak[:10]))
+    paths["variant"] = {
+        "launches": launches, "launches_by_mode": mode_launches,
+        "seconds": seconds, "mapping_s": stage_s["align_reads"],
+        "inference_s": stage_s["predict"], "columns": n_columns,
+        "columns_per_s": n_columns / stage_s["predict"],
+        "annotate_s": stage_s["annotate_vcf_n_reads"], "records": records,
+        "score": score, "score_unannotated": raw_score,
+        "planted_snps_called": len(snp_support)}
+
+    # (c) consensus on the same mapped reads, then consensus2vcf in NW
+    out_c = os.path.join(work, "consensus2vcf")
+    copy_mapped_bam(os.path.join(out_b, "calls_to_ref.bam"), out_c,
+                    "calls_to_draft.bam")
+    launches, mode_launches, seconds, stage_s = run_from_reads(
+        cli, gru_split, "consensus on the variant reads",
+        ["consensus", var_fastq, ref, "-o", out_c, "--model",
+         "gru256_variant_demo", "-t", str(threads)],
+        ((prediction, "predict"),))
+    prefix = os.path.join(work, "c2v")
+    with phase("tools consensus2vcf --mode NW"):
+        t0 = time.perf_counter()
+        if cli.main(["tools", "consensus2vcf",
+                     os.path.join(out_c, "consensus.fasta"), ref,
+                     "--out_prefix", prefix, "--mode", "NW"]) != 0:
+            raise AssertionError("consensus2vcf failed")
+        c2v_s = time.perf_counter() - t0
+        score = testing.score_vcf(truth_vcf, prefix + ".vcf", ref)
+    log("   consensus2vcf: {} in {:.2f} s".format(json.dumps(score), c2v_s))
+    low = testing.below_floors(score,
+                               testing.FROM_READS_FLOORS["consensus2vcf"])
+    if low:
+        raise AssertionError("consensus2vcf is below its floors: {}".format(
+            low))
+    paths["consensus2vcf"] = {
+        "launches": launches, "launches_by_mode": mode_launches,
+        "seconds": seconds, "inference_s": stage_s["predict"],
+        "consensus2vcf_s": c2v_s, "score": score}
+
+    # (d) consensus_joint: two read sets and a random 20-feature model
+    with phase("consensus_joint data: 0.1 Mb genome at depth 20, reads "
+               "dealt over r9 and r10"):
+        joint_bam, joint_draft = testing.create_synth_bam(
+            os.path.join(work, "joint.bam"), ref_mb=0.1, depth=20,
+            seed=seed + 1)
+        sets = [os.path.join(work, "joint_{}.fastq".format(v))
+                for v in ("r9", "r10")]
+        testing.write_reads_fastq(joint_bam, sets)
+        from medaka_tpu_torch.labels import HaploidLabelScheme
+        from medaka_tpu_torch.models.gru import GRUModel
+        torch.manual_seed(seed)
+        joint_model = GRUModel(num_features=20, gru_size=256)
+        encoder = features.CountsFeatureEncoder(dtypes=("r9", "r10"))
+        model_path = models.save_model(
+            os.path.join(work, "joint_model.tar.gz"), joint_model, encoder,
+            HaploidLabelScheme())
+    batch = prediction.auto_batch_size(joint_model, dev)
+    out_d = os.path.join(work, "joint")
+    launches, mode_launches, seconds, stage_s = run_from_reads(
+        cli, gru_split, "consensus_joint (20 features, batch {}, mode "
+        "{})".format(batch, gru_split.split_mode(batch)),
+        ["consensus_joint", "-i", sets[0], "-v", "r9", "-i", sets[1], "-v",
+         "r10", "-d", joint_draft, "-o", out_d, "-m", model_path, "-t",
+         str(threads)],
+        ((mapping, "align_reads"), (prediction, "predict")))
+    with phase("consensus_joint: one batch of the merged BAM through the "
+               "kernels vs their plain versions"):
+        from medaka_tpu_torch.io.fastx import FastaReader
+        # the weights are random: the FASTA must hold the contig, whatever
+        # its sequence
+        with FastaReader(os.path.join(out_d, "consensus.fasta")) as fr:
+            joint_len = {n: len(fr.fetch(n)) for n in fr.references}
+        if list(joint_len) != ["synth"] or not joint_len["synth"]:
+            raise AssertionError("consensus_joint wrote {}".format(
+                joint_len))
+        joint_len = joint_len["synth"]
+        merged = os.path.join(out_d, "calls_to_draft.bam")
+        samples = []
+        for region in prediction.plan_work(None, merged):
+            samples.extend(features.SampleGenerator(
+                merged, region, encoder, chunk_len=10000,
+                chunk_overlap=1000).samples)
+        # the rows the path's launches hold: the genome's chunks padded
+        # to the automatic batch
+        one = prediction.Batch.collate(samples, batch, 10000)
+        xt = torch.from_numpy(one.features).to(torch.bfloat16) \
+            .transpose(0, 1).contiguous().to(dev)
+        lens = torch.from_numpy(one.lengths).to(dev)
+        w = gru_split.prepare_split_weights(
+            joint_model.layer_params(), joint_model.head_params(), "t", True,
+            dev)
+        l1_err, l2_err, stats, _ = compare_kernels(gru_split, w, xt, lens,
+                                                   "t", True)
+        if xt.shape[2] != 20 or not np.isfinite(stats["max"]):
+            raise AssertionError("the joint batch has {} features".format(
+                xt.shape[2]))
+    log("   consensus_joint: {} bases; one batch of {} rows, the {} chunks "
+        "of the genome padded ({} features): l1 max {:.3g}, l2 logit max "
+        "{:.3g}; probs max {:.3g} mean {:.3g}, argmax agreement {:.6f}; "
+        "layer-1 geometry {}".format(
+            joint_len, xt.shape[1], len(samples), xt.shape[2],
+            l1_err, l2_err,
+            stats["max"], stats["mean"], stats["argmax_agreement"],
+            gru_split.geometry("l1", 256, batch, dev, "t", 20)))
+    paths["consensus_joint"] = {
+        "launches": launches, "launches_by_mode": mode_launches,
+        "seconds": seconds, "mapping_s": stage_s["align_reads"],
+        "inference_s": stage_s["predict"], "batch": batch,
+        "features": 20, "l1_max": l1_err, "logit_max": l2_err,
+        "network": stats}
+    return paths
+
+
 def stacked_layer(layer):
     """(w_ih, b_ih, w_hh, b_hh), each the (fwd, bwd) pair stacked."""
     import torch
@@ -2393,8 +2735,8 @@ def main(argv=None):
     import numpy as np
 
     sys.path.insert(0, HERE)
-    from medaka_tpu_torch import cli, datastore, features, models, \
-        native, parallel, prediction, testing, training
+    from medaka_tpu_torch import cli, datastore, features, mapping, models, \
+        native, parallel, prediction, stitch, testing, training, vcf
     from medaka_tpu_torch.ops import bilstm, cuda_build, gru_fullfused, \
         gru_split, gru_train, lstm_train
 
@@ -3122,6 +3464,21 @@ def main(argv=None):
                 "cli": cli, "datastore": datastore, "lstm_train": lstm_train,
                 "models": models, "parallel": parallel,
                 "training": training}))
+        # phase 21 runs last: no profile follows it (a trace of the
+        # read-level batch came back empty five times after it in one run)
+        torch.cuda.empty_cache()
+        from_reads = from_reads_phases(
+            seed, work, bam, draft, dev, modules={"cli": cli, "datastore": datastore,
+                     "features": features, "gru_split": gru_split,
+                     "mapping": mapping, "models": models,
+                     "prediction": prediction, "stitch": stitch,
+                     "testing": testing, "vcf": vcf})
+        split_rows = [row for row in rows if row["name"] in SPLIT_KERNEL_OF]
+        for row in split_rows:
+            row["launches_by_path"].update({
+                "from_reads/" + path: rec["launches"][row["name"]]
+                for path, rec in from_reads.items()})
+        split_rows[1]["from_reads_paths"] = from_reads
     finally:
         import shutil
         shutil.rmtree(work, ignore_errors=True)

@@ -1,12 +1,17 @@
-"""Command line: ``python -m medaka_tpu_torch
-{inference,sequence,vcf,snp,features,train}``.
+"""Command line: ``python -m medaka_tpu_torch {inference,sequence,vcf,snp,
+features,train,consensus,consensus_joint,align,variant,tools}``.
 
 Counterpart of the ``inference``, ``sequence``, ``vcf``, ``snp``,
-``features`` and ``train`` subcommands of ``medaka_tpu/cli.py``, with the
-same flags and defaults for the parts that are ported. ``--model`` takes
-a path or a model name (``models.resolve_model``). ``inference`` and
-``train`` run on the GPU unless ``--cpu`` is given; ``vcf`` and ``snp``
-run on the host.
+``features``, ``train``, ``consensus``, ``consensus_joint``, ``align`` and
+``variant`` subcommands of ``medaka_tpu/cli.py``, and of its ``tools``
+``annotate`` and ``consensus2vcf``, with the same flags and defaults for
+the parts that are ported. ``--model`` takes a path or a model name
+(``models.resolve_model``). ``inference``, ``train``, ``consensus``,
+``consensus_joint`` and ``variant`` run on the GPU unless ``--cpu`` is
+given; ``vcf``, ``snp``, ``align`` and the tools run on the host.
+``variant`` and ``consensus_joint`` write one probability file where
+``medaka_tpu`` shards it over ``min(4, threads // 2)`` files; the VCF and
+FASTA are the same.
 """
 from __future__ import annotations
 
@@ -261,7 +266,132 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--cpu", action="store_true", help="Train on the CPU.")
     p.set_defaults(func=_cmd_train)
+
+    _add_from_reads_parsers(subparsers, log_parent)
     return parser
+
+
+def _add_from_reads_parsers(subparsers, log_parent):
+    """The subcommands that start from reads: ``variant``, ``consensus``,
+    ``consensus_joint``, ``align`` and the ``tools`` group."""
+    def batch_size(p):
+        p.add_argument(
+            "--batch_size", "-b", type=int, default=None,
+            help="Batch size (default: auto, see "
+                 "prediction.auto_batch_size).")
+
+    def cpu(p):
+        p.add_argument(
+            "--cpu", action="store_true", help="Run the model on the CPU.")
+
+    p = subparsers.add_parser(
+        "variant", parents=[log_parent],
+        help="Full variant-calling pipeline: reads + reference -> VCF "
+             "(map, inference, vcf decode, annotate).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("reads", help="Reads fasta/q (may be gzipped).")
+    p.add_argument("ref_fasta", help="Reference FASTA.")
+    p.add_argument("--output", "-o", default="medaka_tpu_variant")
+    p.add_argument("--model", "-m", required=True,
+                   help="Variant-calling model.")
+    p.add_argument("--threads", "-t", type=int, default=1)
+    batch_size(p)
+    p.add_argument("--chunk_len", type=int, default=10000)
+    p.add_argument("--chunk_ovlp", type=int, default=1000)
+    p.add_argument("--no-annotate", dest="annotate",
+                   action="store_false",
+                   help="Skip depth/support annotation.")
+    cpu(p)
+    p.set_defaults(func=_cmd_variant_pipeline)
+
+    p = subparsers.add_parser(
+        "consensus", parents=[log_parent],
+        help="Full polishing pipeline: reads + draft -> polished fasta "
+             "(map, inference, stitch).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("reads", help="Reads fasta/q (may be gzipped).")
+    p.add_argument("draft", help="Draft assembly fasta.")
+    p.add_argument("--output", "-o", default="medaka_tpu_consensus")
+    p.add_argument("--model", "-m", required=True)
+    p.add_argument("--threads", "-t", type=int, default=1)
+    batch_size(p)
+    p.add_argument("--chunk_len", type=int, default=10000)
+    p.add_argument("--chunk_ovlp", type=int, default=1000)
+    p.add_argument("--qualities", "-q", action="store_true")
+    p.add_argument(
+        "--direct", action="store_true",
+        help="Decode argmax+quality on the device and stitch in-process: "
+             "no probability HDF5 round trip. Byte-identical output; the "
+             "inference stage is not resumable and no probability file "
+             "remains for 'vcf'.")
+    cpu(p)
+    p.set_defaults(func=_cmd_consensus)
+
+    p = subparsers.add_parser(
+        "consensus_joint", parents=[log_parent],
+        help="Joint polishing from multiple read datatypes: each read set "
+             "is mapped, DT-tagged, merged and polished with a "
+             "multi-datatype model.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument(
+        "-i", dest="reads", action="append", required=True,
+        help="Reads fasta/q; repeat per datatype.")
+    p.add_argument(
+        "-v", dest="values", action="append", required=True,
+        help="DT tag value per -i input (e.g. r9, r10).")
+    p.add_argument("-d", dest="draft", required=True)
+    p.add_argument("--output", "-o", default="medaka_tpu_joint")
+    p.add_argument("--model", "-m", required=True)
+    p.add_argument("--threads", "-t", type=int, default=1)
+    batch_size(p)
+    p.add_argument("--chunk_len", type=int, default=10000)
+    p.add_argument("--chunk_ovlp", type=int, default=1000)
+    p.add_argument("--qualities", "-q", action="store_true")
+    cpu(p)
+    p.set_defaults(func=_cmd_consensus_joint)
+
+    p = subparsers.add_parser(
+        "align", parents=[log_parent],
+        help="Map reads to a draft, writing a sorted indexed BAM.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("reads")
+    p.add_argument("draft")
+    p.add_argument("output", help="Output BAM path.")
+    p.add_argument("--threads", "-t", type=int, default=1)
+    p.add_argument("--band", type=int, default=500)
+    p.set_defaults(func=_cmd_align)
+
+    toolparser = subparsers.add_parser(
+        "tools", parents=[log_parent], help="tools sub-commands",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    toolsub = toolparser.add_subparsers(title="tools", dest="tool_command")
+    toolsub.required = True
+
+    tp = toolsub.add_parser(
+        "annotate", help="Annotate a VCF with read depth/allele support.")
+    tp.add_argument("vcf")
+    tp.add_argument("ref_fasta")
+    tp.add_argument("bam")
+    tp.add_argument("vcfout")
+    tp.add_argument("--RG", default=None, help="Read group filter.")
+    tp.add_argument("--chunk_size", type=int, default=100000)
+    tp.add_argument("--pad", type=int, default=25)
+    tp.add_argument(
+        "--no-dpsp", dest="dpsp", action="store_false",
+        help="Skip spanning-read annotations.")
+    tp.set_defaults(func=_cmd_annotate)
+
+    tp = toolsub.add_parser(
+        "consensus2vcf",
+        help="Call variants by aligning a consensus FASTA to a reference.")
+    tp.add_argument("consensus")
+    tp.add_argument("ref_fasta")
+    tp.add_argument("--out_prefix", default="consensus2vcf")
+    tp.add_argument("--regions", nargs="+", default=None)
+    tp.add_argument("--chunk_size", type=int, default=100000)
+    tp.add_argument("--pad", type=int, default=10000)
+    tp.add_argument("--mode", default="NW", choices=["NW", "HW", "HWT"])
+    tp.set_defaults(func=_cmd_consensus2vcf)
 
 
 def main(argv=None):
@@ -356,6 +486,112 @@ def _cmd_features(args):
 def _cmd_train(args):
     from medaka_tpu_torch import training
     training.train(args)
+    return 0
+
+
+def _device(args):
+    """The device of a subcommand that runs the model, resolved before
+    any host stage (without a GPU and without ``--cpu`` this raises)."""
+    return common.resolve_device("cpu" if args.cpu else "cuda")
+
+
+def _cmd_variant_pipeline(args):
+    from medaka_tpu_torch import mapping, prediction, variant
+    from medaka_tpu_torch import vcf as vcf_mod
+    device = _device(args)
+    os.makedirs(args.output, exist_ok=True)
+    bam = os.path.join(args.output, "calls_to_ref.bam")
+    if not os.path.exists(bam):
+        mapping.align_reads(
+            args.reads, args.ref_fasta, bam, threads=args.threads)
+    probs = os.path.join(args.output, "consensus_probs.hdf")
+    if not os.path.exists(probs):
+        # one probability file: medaka_tpu shards it over
+        # max(1, min(4, threads // 2)) files, which the port cannot write
+        prediction.predict(
+            bam, probs, model_path=args.model,
+            batch_size=args.batch_size, chunk_len=args.chunk_len,
+            chunk_overlap=args.chunk_ovlp,
+            bam_workers=max(1, args.threads // 2), device=device)
+    vcf_raw = os.path.join(args.output, "medaka.vcf")
+    variant.variants_from_hdf(probs, args.ref_fasta, vcf_raw)
+    if args.annotate:
+        vcf_out = os.path.join(args.output, "medaka.annotated.vcf")
+        vcf_mod.annotate_vcf_n_reads(
+            vcf_raw, args.ref_fasta, bam, vcf_out)
+        print(vcf_out)
+    else:
+        print(vcf_raw)
+    return 0
+
+
+def _cmd_consensus(args):
+    from medaka_tpu_torch import mapping
+    mapping.consensus_workflow(
+        args.reads, args.draft, args.output, model_path=args.model,
+        threads=args.threads, batch_size=args.batch_size,
+        chunk_len=args.chunk_len, chunk_ovlp=args.chunk_ovlp,
+        qualities=args.qualities, direct=args.direct,
+        device=_device(args))
+    return 0
+
+
+def _cmd_consensus_joint(args):
+    from medaka_tpu_torch import mapping, prediction, stitch
+    if len(args.reads) != len(args.values):
+        raise ValueError("Provide one -v value per -i input.")
+    device = _device(args)
+    os.makedirs(args.output, exist_ok=True)
+    tagged_bams = []
+    for i, reads in enumerate(args.reads):
+        bam = os.path.join(args.output, "calls_{}.bam".format(i))
+        if not os.path.exists(bam):
+            mapping.align_reads(
+                reads, args.draft, bam, threads=args.threads)
+        tagged_bams.append(bam)
+    merged = os.path.join(args.output, "calls_to_draft.bam")
+    if not os.path.exists(merged):
+        common.tag_merge_bams(tagged_bams, args.values, "DT", merged)
+    probs = os.path.join(args.output, "consensus_probs.hdf")
+    if not os.path.exists(probs):
+        # one probability file, as in _cmd_variant_pipeline
+        prediction.predict(
+            merged, probs, model_path=args.model,
+            batch_size=args.batch_size, chunk_len=args.chunk_len,
+            chunk_overlap=args.chunk_ovlp,
+            bam_workers=max(1, args.threads // 2), device=device)
+    ext = "fastq" if args.qualities else "fasta"
+    out = os.path.join(args.output, "consensus." + ext)
+    stitch.stitch_to_fasta(
+        probs, args.draft, out, threads=args.threads,
+        qualities=args.qualities)
+    print(out)
+    return 0
+
+
+def _cmd_align(args):
+    from medaka_tpu_torch import mapping
+    mapping.align_reads(
+        args.reads, args.draft, args.output, threads=args.threads,
+        band=args.band)
+    return 0
+
+
+def _cmd_annotate(args):
+    from medaka_tpu_torch import vcf as vcf_mod
+    vcf_mod.annotate_vcf_n_reads(
+        args.vcf, args.ref_fasta, args.bam, args.vcfout,
+        read_group=args.RG, chunk_size=args.chunk_size, pad=args.pad,
+        dpsp=args.dpsp)
+    return 0
+
+
+def _cmd_consensus2vcf(args):
+    from medaka_tpu_torch import variant
+    regions = _regions_arg(args.regions) if args.regions else None
+    variant.vcf_from_fasta(
+        args.consensus, args.ref_fasta, args.out_prefix, regions=regions,
+        chunk_size=args.chunk_size, pad=args.pad, mode=args.mode)
     return 0
 
 

@@ -1,7 +1,8 @@
 """Core data structures: genomic regions, pileup samples and their algebra.
 
 Counterpart of ``medaka_tpu/common.py``, trimmed to what the counts and
-read-level consensus paths and variant decoding use, plus
+read-level consensus paths, variant decoding and the paths from reads
+(:func:`reverse_complement`, :func:`tag_merge_bams`) use, plus
 :func:`resolve_device` for the port's entry points. A ``Sample``
 carries 2-D (positions, features) counts or 3-D (positions, reads,
 channels) int8 read-level features; slicing, chunking and depth
@@ -75,6 +76,13 @@ def get_named_logger(name: str) -> logging.Logger:
 # ---------------------------------------------------------------------------
 # Small utilities
 # ---------------------------------------------------------------------------
+
+_COMPLEMENT = str.maketrans("ACGTXNacgtxn", "TGCAXNtgcaxn")
+
+
+def reverse_complement(seq: str) -> str:
+    """Reverse-complement a nucleotide string."""
+    return seq.translate(_COMPLEMENT)[::-1]
 
 
 def rle(array) -> np.ndarray:
@@ -646,3 +654,46 @@ def get_bam_regions(bam, regions=None) -> List["Region"]:
     return out
 
 
+
+
+def tag_merge_bams(input_bams, values, tag, output):
+    """Tag reads of several BAMs and merge them (reference
+    ``common.py:1162-1210``).
+
+    :param input_bams: BAM paths.
+    :param values: one tag value per input BAM.
+    :param tag: two-letter tag name (e.g. 'HP').
+    :param output: merged, sorted, indexed BAM path.
+
+    .. note:: all records are held in memory for the merge sort
+        (``write_bam`` sorts the full list), bounding inputs to what fits
+        in RAM, as in ``medaka_tpu``.
+    """
+    import os
+
+    from medaka_tpu_torch.io.bam import BamReader, record_with_tag, \
+        write_bam
+
+    if len(input_bams) != len(values):
+        raise ValueError(
+            "Number of input files ({}) and values ({}) must "
+            "match.".format(len(input_bams), len(values)))
+    if os.path.exists(output):
+        raise ValueError("Output file exists.")
+    logger = get_named_logger("Tag")
+    records = []
+    references = None
+    for path, value in zip(input_bams, values):
+        logger.info("Adding tag '%s' to %s", value, path)
+        with BamReader(path) as reader:
+            refs = list(zip(reader.references, reader.lengths))
+            if references is None:
+                references = refs
+            elif references != refs:
+                raise ValueError(
+                    "Input BAMs have differing reference sets.")
+            for name, length in refs:
+                for rec in reader.fetch(name, 0, length):
+                    records.append(record_with_tag(rec, tag, value))
+    write_bam(output, records, references)
+    return output

@@ -4,8 +4,9 @@ Counterpart of ``medaka_tpu/features.py``, trimmed to the counts and
 read-level encoders: ``pileup_counts`` with its native helpers,
 ``CountsFeatureEncoder``, ``read_alignment_matrix``,
 ``ReadAlignmentFeatureEncoder``, ``SampleGenerator`` (with and without a
-truth BAM) and ``create_samples``, which writes the (labelled) feature
-files that ``train`` reads. The run-length encoders are not ported yet;
+truth BAM), ``create_samples``, which writes the (labelled) feature
+files that ``train`` reads, and ``get_trimmed_reads``, the region-trimmed
+reads of the VCF annotator. The run-length encoders are not ported yet;
 ``from_dict`` and ``create_samples`` refuse them by name.
 
 A single-datatype region goes from BGZF bytes to counts in the native
@@ -31,7 +32,7 @@ from medaka_tpu_torch.common import (
     FEATLEN, FWD_DEL, NT16_TO_CHANNEL, PLP_BASES, REV_DEL, Region, Sample,
     make_positions)
 from medaka_tpu_torch.io.bam import (
-    C_D, C_EQ, C_I, C_M, C_X, BamReader, BamRecord)
+    C_D, C_EQ, C_I, C_M, C_N, C_S, C_X, BamReader, BamRecord)
 
 _CONSUMES_Q = np.array([1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=np.int64)
 _CONSUMES_R = np.array([1, 0, 1, 1, 0, 0, 0, 1, 1], dtype=np.int64)
@@ -1097,3 +1098,122 @@ def create_samples(
         logger.critical("No data written; deleting output.")
         os.remove(output)
     return n_written
+
+
+# ---------------------------------------------------------------------------
+# Region-trimmed reads (reference ``src/medaka_trimbam.c``)
+# ---------------------------------------------------------------------------
+
+
+class TrimmedRead(tuple):
+    """(is_rev, name, seq, haplotype, phased_set) of a trimmed read."""
+
+    def __new__(cls, is_rev, name, seq, hap, phased_set):
+        return tuple.__new__(cls, (is_rev, name, seq, hap, phased_set))
+
+    is_rev = property(lambda self: self[0])
+    name = property(lambda self: self[1])
+    seq = property(lambda self: self[2])
+    hap = property(lambda self: self[3])
+    phased_set = property(lambda self: self[4])
+
+
+def _trim_one_read(rec: BamRecord, start: int, end: int, partial: bool):
+    """Query span [qstart, qend) of a read clipped to [start, end).
+
+    Mirrors ``trim_read`` (``medaka_trimbam.c:101-246``): soft clips
+    consume query coordinates, the first aligned base at or past the
+    boundary anchors the trim.
+    """
+    qstart = qend = -1
+    spans_start = rec.pos <= start
+    if not spans_start:
+        if not partial:
+            return None
+        qstart = 0
+    read_pos = 0
+    ref_pos = rec.pos
+    last_op = last_len = None
+    for op, ln in rec.cigar_array:
+        read_inc = ref_inc = 0
+        aligned = False
+        if op in (C_M, C_EQ, C_X):
+            aligned = True
+            read_inc = ref_inc = 1
+        elif op == C_D:
+            ref_inc = 1
+        elif op == C_N:
+            return None  # unhandled, as in the reference
+        elif op in (C_I, C_S):
+            read_inc = 1
+        last_op, last_len = op, ln
+        if aligned:
+            # first aligned base at the boundary anchors the trim; when
+            # the boundary was skipped (deletion), take the previous
+            # query position (reference ``medaka_trimbam.c:202-224``)
+            if qstart == -1:
+                if ref_pos > start:
+                    qstart = read_pos - 1
+                elif ref_pos + ln > start:
+                    qstart = read_pos + (start - ref_pos)
+            if qend == -1:
+                if ref_pos > end:
+                    qend = read_pos - 1
+                elif ref_pos + ln > end:
+                    qend = read_pos + (end - ref_pos)
+        read_pos += int(read_inc * ln)
+        ref_pos += int(ref_inc * ln)
+    if qend == -1:
+        if not partial:
+            return None
+        qend = read_pos
+        if last_op == C_S:
+            qend -= int(last_len)
+    if qstart == -1:
+        return None
+    return qstart, qend
+
+
+def get_trimmed_reads(region: Region, bam, region_split=750, partial=True,
+                      read_group=None):
+    """Fetch reads trimmed to (chunks of) a region.
+
+    Reference: ``medaka/features.py:561-644`` +
+    ``src/medaka_trimbam.c``. The region is split into pieces of
+    ``region_split`` overlapping by 150, fetched by 8 threads. Yields
+    (sub_region, seqs) where ``seqs`` is a list of :class:`TrimmedRead`;
+    element 0 is the reference placeholder entry (the reference sequence
+    calculation is disabled in the reference C too,
+    ``medaka_trimbam.c:123-127``). Reads pass :func:`filter_read` at its
+    defaults (and ``read_group``); reads trimmed to nothing are dropped.
+    """
+    def _process_region(reg):
+        reader = bam if isinstance(bam, BamReader) else BamReader(bam)
+        try:
+            seqs = [TrimmedRead(False, reg.ref_name, "N", 0, 0)]
+            for rec in reader.fetch(reg.ref_name, reg.start, reg.end):
+                if not filter_read(rec, read_group=read_group):
+                    continue
+                span = _trim_one_read(rec, reg.start, reg.end, partial)
+                if span is None:
+                    continue
+                qstart, qend = span
+                seq = rec.query_sequence[qstart:qend]
+                if not seq:
+                    continue
+                seqs.append(TrimmedRead(
+                    rec.is_reverse, rec.query_name, seq,
+                    int(rec.tags.get("HP", 0)),
+                    int(rec.tags.get("PS", 0))))
+            return reg, seqs
+        finally:
+            if reader is not bam:
+                reader.close()
+
+    regions = region.split(region_split, 150)
+    if len(regions) > 1:
+        ex = concurrent.futures.ThreadPoolExecutor(max_workers=8)
+        with ex as executor:
+            yield from executor.map(_process_region, regions)
+    else:
+        yield _process_region(region)

@@ -360,6 +360,51 @@ class BamRecord:
         return cls(head + name_b + cig_b + seq_b + qual_b + aux_b)
 
 
+def _aux_tag_spans(buf: bytes, start: int):
+    """Yield (tag_name, span_start, span_end) over a raw aux block."""
+    pos = start
+    n = len(buf)
+    fixed = {"A": 1, "c": 1, "C": 1, "s": 2, "S": 2, "i": 4, "I": 4,
+             "f": 4}
+    while pos + 3 <= n:
+        span_start = pos
+        tag = buf[pos:pos + 2].decode()
+        typ = chr(buf[pos + 2])
+        pos += 3
+        if typ in fixed:
+            pos += fixed[typ]
+        elif typ in "ZH":
+            pos = buf.index(b"\x00", pos) + 1
+        elif typ == "B":
+            sub = chr(buf[pos])
+            count = struct.unpack_from("<I", buf, pos + 1)[0]
+            pos += 5 + fixed[sub] * count
+        else:
+            raise BamError("Unknown aux type {!r}".format(typ))
+        yield tag, span_start, pos
+
+
+def record_with_tag(rec: "BamRecord", name: str, value) -> "BamRecord":
+    """Copy of a record with one aux tag set (replacing any existing).
+
+    The existing aux block is kept byte-for-byte (type codes of
+    untouched tags are preserved); only the target tag's bytes are
+    spliced out and the new encoding appended.
+    """
+    aux = rec.raw[rec._aux_off:]
+    kept = bytearray()
+    prev = 0
+    for tag, s, e in _aux_tag_spans(rec.raw, rec._aux_off):
+        s -= rec._aux_off
+        e -= rec._aux_off
+        if tag == name:
+            kept += aux[prev:s]
+            prev = e
+    kept += aux[prev:]
+    return BamRecord(
+        rec.raw[:rec._aux_off] + bytes(kept) + encode_tags({name: value}))
+
+
 def parse_cigar(cigar: str) -> List[Tuple[int, int]]:
     """Parse a text CIGAR into (op_code, length) tuples."""
     out = []

@@ -1,23 +1,29 @@
-"""Native (C++) host-side helpers of the counts and read-level paths.
+"""Native (C++) host-side helpers of the consensus and variant paths.
 
 Counterpart of ``medaka_tpu/native/__init__.py``, trimmed to the entry
-points the consensus paths use: the pileup kernel
-(:func:`pileup_counts_raw`, :func:`counts_norm_total`), the read-level
-matrix (:func:`read_matrix_raw`), the BAM record scan
+points the port uses: affine-gap pairwise alignment (:func:`align`,
+:func:`edit_distance`), the read mapper (:class:`Mapper`), the pileup
+kernel (:func:`pileup_counts_raw`, :func:`counts_norm_total`), the
+read-level matrix (:func:`read_matrix_raw`), the BAM record scan
 (:func:`bam_scan_filter`) and multi-threaded BGZF inflation
-(``bgzf_*``). The shared library is built on first use with g++ from
-``src/`` into ``_libmtt_<source hash>.so`` beside this file.
+(``bgzf_*``). The partial-order-alignment consensus (``poa.cpp``) is not
+ported. The shared library is built on first use with g++ from ``src/``
+into ``_libmtt_<source hash>.so`` beside this file; a failed build
+raises :class:`NativeBuildError`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import subprocess
 import threading
+from typing import List, Optional
 
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "src")
-_SOURCES = ("pileup.cpp", "bgzf.cpp", "bam_scan.cpp", "read_matrix.cpp")
+_SOURCES = ("align.cpp", "mapper.cpp", "pileup.cpp", "bgzf.cpp",
+            "bam_scan.cpp", "read_matrix.cpp")
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -55,6 +61,17 @@ def _build() -> str:
     return out
 
 
+class _MtAlignment(ctypes.Structure):
+    _fields_ = [
+        ("score", ctypes.c_int32),
+        ("ref_start", ctypes.c_int32),
+        ("ref_end", ctypes.c_int32),
+        ("query_start", ctypes.c_int32),
+        ("query_end", ctypes.c_int32),
+        ("cigar", ctypes.c_void_p),
+    ]
+
+
 _LOAD_ERROR = None
 
 
@@ -75,10 +92,68 @@ def _load():
             _LOAD_ERROR = e
             raise
         lib = ctypes.CDLL(so_path)
+        lib.mt_align.restype = ctypes.c_int
+        lib.mt_align.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(_MtAlignment)]
+        lib.mt_edit_distance.restype = ctypes.c_int
+        lib.mt_edit_distance.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_int]
         lib.mt_free.restype = None
         lib.mt_free.argtypes = [ctypes.c_void_p]
         _LIB = lib
         return lib
+
+
+MODES = {"nw": 0, "hw": 1, "sw": 2, "shw": 3}
+
+
+@dataclasses.dataclass
+class Alignment:
+    """Result of a pairwise alignment."""
+
+    score: int
+    cigar: str
+    ref_start: int
+    ref_end: int
+    query_start: int
+    query_end: int
+
+
+def align(query: str, ref: str, mode: str = "nw", match: int = 2,
+          mismatch: int = 4, gap_open: int = 4, gap_extend: int = 2,
+          band: int = 0) -> Alignment:
+    """Affine-gap pairwise alignment.
+
+    :param mode: 'nw' global, 'hw' query-global/ref-free ends (infix),
+        'sw' local, 'shw' ref-start anchored with free ref end (prefix).
+    :param band: net diagonal drift bound; 0 = full DP.
+    """
+    lib = _load()
+    res = _MtAlignment()
+    q = query.encode()
+    r = ref.encode()
+    rv = lib.mt_align(
+        q, len(q), r, len(r), match, mismatch, gap_open, gap_extend,
+        MODES[mode], band, ctypes.byref(res))
+    if rv != 0:
+        raise NativeBuildError("mt_align failed")
+    cigar = ctypes.cast(res.cigar, ctypes.c_char_p).value or b""
+    lib.mt_free(res.cigar)
+    return Alignment(
+        score=res.score, cigar=cigar.decode(),
+        ref_start=res.ref_start, ref_end=res.ref_end,
+        query_start=res.query_start, query_end=res.query_end)
+
+
+def edit_distance(a: str, b: str, max_k: int = -1) -> int:
+    """Unit-cost edit distance (banded, band-doubling); -1 if > max_k."""
+    lib = _load()
+    ab = a.encode()
+    bb = b.encode()
+    return lib.mt_edit_distance(ab, len(ab), bb, len(bb), max_k)
 
 
 def available() -> bool:
@@ -88,6 +163,127 @@ def available() -> bool:
         return True
     except NativeBuildError:
         return False
+
+
+# ---------------------------------------------------------------------------
+# Read mapper (minimap2-lite; replaces mini_align/minimap2)
+# ---------------------------------------------------------------------------
+
+
+class _MtMapping(ctypes.Structure):
+    _fields_ = [
+        ("ref_id", ctypes.c_int32),
+        ("ref_start", ctypes.c_int32),
+        ("flag", ctypes.c_int32),
+        ("score", ctypes.c_int32),
+        ("query_start", ctypes.c_int32),
+        ("query_end", ctypes.c_int32),
+        ("mapq", ctypes.c_int32),
+        ("cigar", ctypes.c_void_p),
+    ]
+
+
+@dataclasses.dataclass
+class Mapping:
+    """A read-to-reference mapping."""
+
+    ref_id: int
+    ref_start: int
+    flag: int            # 0 fwd, 16 rev; | 2048 for supplementary
+    score: int
+    query_start: int     # clip on the oriented query
+    query_end: int
+    cigar: str           # aligned portion, no clips
+    mapq: int = 60       # 0-60 confidence (gap over competing chains)
+
+    @property
+    def is_supplementary(self) -> bool:
+        """Whether this is a supplementary (split-read) mapping."""
+        return bool(self.flag & 2048)
+
+
+def _load_mapper_symbols(lib):
+    if getattr(lib, "_mapper_ready", False):
+        return
+    lib.mt_index_create.restype = ctypes.c_void_p
+    lib.mt_index_create.argtypes = []
+    lib.mt_index_add.restype = None
+    lib.mt_index_add.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+    lib.mt_index_destroy.restype = None
+    lib.mt_index_destroy.argtypes = [ctypes.c_void_p]
+    lib.mt_map_multi.restype = ctypes.c_int
+    lib.mt_map_multi.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_MtMapping), ctypes.c_int]
+    lib._mapper_ready = True
+
+
+class Mapper:
+    """Minimizer index + banded-extension mapper over a reference set."""
+
+    def __init__(self, references):
+        """:param references: iterable of (name, sequence)."""
+        self._lib = _load()
+        _load_mapper_symbols(self._lib)
+        self._handle = self._lib.mt_index_create()
+        self.names = []
+        self.lengths = []
+        for name, seq in references:
+            self.names.append(name)
+            self.lengths.append(len(seq))
+            s = seq.encode()
+            self._lib.mt_index_add(self._handle, name.encode(), s, len(s))
+
+    def map(self, seq: str, band: int = 500) -> Optional[Mapping]:
+        """Primary mapping of a read (None when unmapped)."""
+        hits = self.map_all(seq, band=band, max_mappings=1)
+        return hits[0] if hits else None
+
+    def map_all(self, seq: str, band: int = 500,
+                max_mappings: int = 4) -> List[Mapping]:
+        """All mappings of a read: primary first, then supplementary.
+
+        Supplementary mappings (flag 2048) cover query intervals the
+        primary does not (split/chimeric reads). Every mapping carries a
+        minimap2-style ``mapq`` in [0, 60]; repetitive placements score
+        0 so downstream ``min_mapq`` filters drop them.
+        """
+        res = (_MtMapping * max_mappings)()
+        q = seq.encode()
+        n = self._lib.mt_map_multi(
+            self._handle, q, len(q), band, res, max_mappings)
+        if n < 0:
+            raise NativeBuildError("mt_map_multi failed")
+        hits = []
+        for i in range(n):
+            cigar = ctypes.cast(res[i].cigar, ctypes.c_char_p).value or b""
+            self._lib.mt_free(res[i].cigar)
+            hits.append(Mapping(
+                ref_id=res[i].ref_id, ref_start=res[i].ref_start,
+                flag=res[i].flag, score=res[i].score,
+                query_start=res[i].query_start,
+                query_end=res[i].query_end, cigar=cigar.decode(),
+                mapq=res[i].mapq))
+        return hits
+
+    def close(self):
+        """Free the native index."""
+        if self._handle:
+            self._lib.mt_index_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):  # noqa: D105
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 # ---------------------------------------------------------------------------

@@ -53,9 +53,6 @@ inline bool is_aligned(int op) { return op == 0 || op == 7 || op == 8; }
 
 extern "C" {
 
-// Release arrays this library returned (malloc'd).
-void mt_free(void* p) { free(p); }
-
 // Same as mt_pileup_counts but consuming raw BAM record bytes (layout
 // as stored in the BAM body, without the leading block_size field):
 // fixed 32-byte header, then read_name, packed cigar, 4-bit packed

@@ -11,7 +11,11 @@ need (the counterpart of ``tests/mock_data.create_truth_bam``).
 variants (haploid, or two haplotypes), aligned to the reference without
 a mapper, with the truth VCF; :func:`score_vcf` scores a called VCF
 against it (``plant_variants`` and ``score_vcf`` are copies of
-``tests/perf/train_campaign.py``'s).
+``tests/perf/train_campaign.py``'s). :func:`write_reads_fastq` writes the
+reads of either BAM as FASTQ in basecalled orientation, for the paths
+that start from reads and map them (``align``, ``consensus``,
+``variant``), and :func:`placement` holds a mapped BAM to the reads' true
+starts.
 """
 from __future__ import annotations
 
@@ -19,8 +23,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from medaka_tpu_torch import common
 from medaka_tpu_torch import vcf as vcf_mod
-from medaka_tpu_torch.io.bam import BamRecord, write_bam
+from medaka_tpu_torch.io.bam import BamReader, BamRecord, write_bam
 from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
 
 _SYNTH_BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -487,6 +492,55 @@ def create_variant_bam(path, ref_mb=0.5, depth=30, seed=0, diploid=False,
     return path, ref_fasta, truth_vcf, records
 
 
+def write_reads_fastq(bam, fastq):
+    """Write the reads of a BAM of :func:`create_synth_bam` or
+    :func:`create_variant_bam` as FASTQ, in the order of the BAM, each in
+    its basecalled orientation (reverse-strand reads reverse-complemented
+    back, their qualities reversed).
+
+    :param fastq: a path, or a list of paths to deal the reads over in
+        turn (read sets of one genome, as ``consensus_joint`` takes).
+    :returns: {read name: (true reference start, is reverse)}.
+    """
+    paths = [fastq] if isinstance(fastq, str) else list(fastq)
+    truth = {}
+    handles = [open(path, "w") for path in paths]
+    try:
+        with BamReader(bam) as reader:
+            for i, rec in enumerate(reader):
+                seq = rec.query_sequence
+                qual = rec.query_qualities
+                if rec.is_reverse:
+                    seq = common.reverse_complement(seq)
+                    qual = qual[::-1]
+                handles[i % len(handles)].write("@{}\n{}\n+\n{}\n".format(
+                    rec.query_name, seq, (qual + 33).tobytes().decode()))
+                truth[rec.query_name] = (rec.pos, rec.is_reverse)
+    finally:
+        for fh in handles:
+            fh.close()
+    return truth
+
+
+def placement(bam, truth, slack=50):
+    """How a mapped BAM places the reads of :func:`write_reads_fastq`.
+
+    :returns: (share of the reads of ``truth`` with a primary record,
+        [(name, true start and strand, mapped start and strand)] of the
+        primaries more than ``slack`` bases from the true start or on the
+        other strand).
+    """
+    primaries = {}
+    with BamReader(bam) as reader:
+        for rec in reader:
+            if rec.query_name in truth and not rec.flag & (4 | 256 | 2048):
+                primaries[rec.query_name] = (rec.pos, rec.is_reverse)
+    wrong = [(name, truth[name], got) for name, got in primaries.items()
+             if got[1] != truth[name][1]
+             or abs(got[0] - truth[name][0]) > slack]
+    return len(primaries) / len(truth), wrong
+
+
 def _norm_vcf(path, ref_seqs):
     """{(chrom, pos, ref, alt): zygosity} of normalized records."""
     out = {}
@@ -550,6 +604,22 @@ VARIANT_FLOORS = {
                 "gt_concordance": 0.80},
     "diploid_rescue": {"snp": {"precision": 0.88, "recall": 0.93,
                                "f1": 0.90}},
+}
+
+
+#: the least P/R/F1 of the paths from reads, on :func:`create_variant_bam`
+#: haploid genomes at depth 30 whose reads (:func:`write_reads_fastq`) are
+#: mapped by the port: ``variant --model gru256_variant_demo`` (the
+#: annotated VCF), and ``consensus --model gru256_variant_demo`` on the same
+#: mapped reads followed by ``tools consensus2vcf --mode NW``; fixed on the
+#: CPU path (tests/test_torch_consensus.py) and held on the card by
+#: ``chip_smoke.py`` phase 21
+FROM_READS_FLOORS = {
+    "variant": {"snp": {"precision": 0.90, "recall": 0.95, "f1": 0.93},
+                "indel": {"precision": 0.85, "recall": 0.95, "f1": 0.90}},
+    "consensus2vcf": {"snp": {"precision": 0.90, "recall": 0.95, "f1": 0.93},
+                      "indel": {"precision": 0.85, "recall": 0.95,
+                                "f1": 0.90}},
 }
 
 

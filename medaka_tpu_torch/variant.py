@@ -2,8 +2,8 @@
 
 Counterpart of ``medaka_tpu/variant.py`` (``apply_variants``,
 ``join_samples``, ``variants_from_hdf``, ``snps_from_hdf``,
-``samples_to_bed``); the calls from a consensus-to-reference alignment
-(``consensus2vcf``) wait for the aligner. The stream of overlap-trimmed
+``samples_to_bed``, and the calls from a consensus-to-reference
+alignment: ``yield_variants_from_aln``, ``vcf_from_fasta``). The stream of overlap-trimmed
 samples is re-partitioned at non-variant anchor positions so that
 multi-column variants (indel runs) never straddle a chunk boundary, then
 handed to the label scheme's ``decode_variants``. Everything here runs
@@ -239,3 +239,148 @@ def samples_to_bed(inputs, output: str):
             for s, e in merged:
                 fh.write("{}\t{}\t{}\n".format(contig, s, e))
     logger.info("Bed file written to %s.", output)
+
+
+# ---------------------------------------------------------------------------
+# Variants by consensus-to-reference alignment (`consensus2vcf`)
+# ---------------------------------------------------------------------------
+
+
+class AlignPos:
+    """One aligned column: (rpos, rbase, qbase)."""
+
+    __slots__ = ("rpos", "rbase", "qbase")
+
+    def __init__(self, rpos, rbase, qbase):
+        self.rpos = rpos
+        self.rbase = rbase
+        self.qbase = qbase
+
+
+def yield_variants_from_aln(rec, ref_seq, ref_name=None):
+    """Decode variants from one alignment record.
+
+    Walks match-anchored runs of aligned pairs; each run of differences,
+    padded by a match on both sides where available, becomes one
+    (trimmed) variant (reference ``variant.py:280-353``).
+
+    :param rec: `BamRecord`-like with cigar/aligned pairs.
+    :param ref_seq: reference contig sequence.
+    :param ref_name: contig name for emitted records.
+    """
+    tags = dict(rec.tags)
+    if tags.get("NM") == 0:
+        return
+    if rec.flag & (4 | 256):
+        return
+    seq = rec.query_sequence
+    chrm = ref_name or getattr(rec, "reference_name", None) or "ref"
+    gt = {"GT": "1"}
+    queue = []
+    last_match = None
+
+    def decode(queue):
+        pos = next(p.rpos for p in queue if p.rpos is not None)
+        ref = "".join(p.rbase for p in queue).replace("-", "").upper()
+        alt = "".join(p.qbase for p in queue).replace("-", "").upper()
+        return vcf_mod.Variant(
+            chrm, pos, ref, alt, genotype_data=gt).trim()
+
+    for qp, rp in rec.get_aligned_pairs():
+        qb = seq[qp] if qp is not None else "-"
+        rb = ref_seq[rp] if rp is not None else "-"
+        p = AlignPos(rp, rb, qb)
+        if qb == rb:
+            if queue:
+                queue.append(p)
+                yield decode(queue)
+                queue = []
+            last_match = p
+        else:
+            if not queue and last_match is not None:
+                queue.append(last_match)
+            queue.append(p)
+    if queue:
+        yield decode(queue)
+
+
+def vcf_from_fasta(
+        consensus: str, ref_fasta: str, out_prefix: str,
+        regions: Optional[List[common.Region]] = None,
+        chunk_size: int = 100000, pad: int = 10000, mode: str = "NW"):
+    """Call variants by aligning a consensus FASTA to a reference.
+
+    Reference: ``medaka/variant.py:380-474`` (the ``consensus2vcf``
+    tool). Writes ``<prefix>.vcf``, coverage/gap beds and the chunked
+    alignments as ``<prefix>.bam``.
+
+    :returns: path of the VCF written.
+    """
+    from medaka_tpu_torch import align as align_mod
+    from medaka_tpu_torch.io import bam as bam_mod
+
+    logger = common.get_named_logger("CONS2VCF")
+    ref = FastaReader(ref_fasta)
+    query = FastaReader(consensus)
+    contigs = [c for c in ref.references if c in query.references]
+    if regions is not None:
+        wanted = {r.ref_name for r in regions}
+        contigs = [c for c in contigs if c in wanted]
+    if not contigs:
+        raise KeyError("Reference and query contig names should match.")
+    lengths = {c: ref.get_reference_length(c) for c in ref.references}
+
+    vcf_path = out_prefix + ".vcf"
+    meta_info = [vcf_mod.MetaInfo(
+        "FORMAT", "GT", 1, "String", "Genotype.")]
+    header_contigs = [
+        "{},length={}".format(c, lengths[c]) for c in ref.references]
+    coverage: Dict[str, List] = {}
+    bam_records = []
+    ref_ids = {c: i for i, c in enumerate(ref.references)}
+    with vcf_mod.VCFWriter(
+            vcf_path, contigs=header_contigs,
+            meta_info=meta_info) as writer:
+        for contig in contigs:
+            rseq = ref.fetch(contig)
+            qseq = query.fetch(contig)
+            for rec in align_mod.chunked_align(
+                    qseq, rseq, contig, chunk_size=chunk_size, pad=pad,
+                    mode=mode, ref_id=ref_ids[contig]):
+                coverage.setdefault(contig, []).append(
+                    (rec.pos, rec.reference_end))
+                for v in yield_variants_from_aln(rec, rseq, contig):
+                    if "N" in v.ref:
+                        continue
+                    writer.write_variant(v)
+                bam_records.append(rec)
+
+    bam_mod.write_bam(
+        out_prefix + ".bam", bam_records,
+        [(c, lengths[c]) for c in ref.references])
+
+    # coverage + gap beds (merging abutting chunk alignments)
+    def merged(intervals):
+        out = []
+        for s, e in sorted(intervals):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return out
+
+    with open(out_prefix + "_coverage.bed", "w") as cov_fh, \
+            open(out_prefix + "_coverage_gaps.bed", "w") as gap_fh:
+        for contig in contigs:
+            cursor = 0
+            for s, e in merged(coverage.get(contig, [])):
+                cov_fh.write("{}\t{}\t{}\n".format(contig, s, e))
+                if s > cursor:
+                    gap_fh.write(
+                        "{}\t{}\t{}\n".format(contig, cursor, s))
+                cursor = e
+            if cursor < lengths[contig]:
+                gap_fh.write("{}\t{}\t{}\n".format(
+                    contig, cursor, lengths[contig]))
+    logger.info("VCF written to %s.", vcf_path)
+    return vcf_path

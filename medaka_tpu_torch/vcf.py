@@ -1,19 +1,24 @@
 """Variant Call Format data structures and IO.
 
-Counterpart of ``medaka_tpu/vcf.py``, trimmed to what ``variant`` needs:
-the INFO column's parse and format, ``MetaInfo``, ``GenotypeData``,
-``Variant`` (trim, normalize, split_haplotypes, from_text, gt, alleles,
-to_dict, deep_copy), ``VCFWriter`` and ``VCFReader`` (index, fetch). The
-header carries ``medaka_tpu_version=`` and the same version string as
-``medaka_tpu``, so both packages write the same bytes for the same
-records. The classification and the ``tools`` helpers are not ported
-yet. Pure Python.
+Counterpart of ``medaka_tpu/vcf.py``, trimmed to what ``variant`` and
+``tools annotate`` need: the INFO column's parse and format,
+``MetaInfo``, ``GenotypeData``, ``Variant`` (trim, normalize,
+split_haplotypes, from_text, gt, alleles, to_dict, deep_copy),
+``VCFWriter``, ``VCFReader`` (index, fetch) and the read-support
+annotator (``annotate_vcf_n_reads``, aligning spanning reads to the
+padded haplotypes with the native aligner). The header carries
+``medaka_tpu_version=`` and the same version string as ``medaka_tpu``,
+so both packages write the same bytes for the same records. The
+classification and the other ``tools`` helpers are not ported yet.
 """
 from __future__ import annotations
 
 import collections
+import itertools
 from copy import deepcopy
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 from medaka_tpu_torch import __version__ as package_version
 from medaka_tpu_torch import common
@@ -486,3 +491,202 @@ class VCFReader:
                     else tree.envelop(lo_i, hi_i))
             for iv in sorted(hits, key=lambda iv: (iv[0], iv[1])):
                 yield iv[2]
+
+
+# ---------------------------------------------------------------------------
+# VCF annotation with read depth / supporting reads
+# (reference ``vcf.py:1158-1403``)
+# ---------------------------------------------------------------------------
+
+# parasail.dnafull equivalents: match 5, mismatch -4; parasail gap cost
+# open=5/extend=3 means cost(L) = 5 + 3(L-1) = 2 + 3L, i.e. our
+# (gap_open=2, gap_extend=3)
+_ANN_MATCH = 5
+_ANN_MISMATCH = 4
+_ANN_GAP_OPEN = 2
+_ANN_GAP_EXTEND = 3
+
+
+def get_padded_haplotypes(var, ref_seq, pad):
+    """Padded (ref, alt...) haplotype sequences around a variant."""
+    ref_seq_var = ref_seq[var.pos:var.pos + len(var.ref)].upper()
+    if var.ref != ref_seq_var:
+        raise ValueError(
+            'Ref sequences {} and {} differ at {}:{}, check your '
+            'files.'.format(var.ref, ref_seq_var, var.chrom, var.pos))
+    left_start = max(0, var.pos - pad)
+    right_start = var.pos + len(var.ref)
+    right_end = min(len(ref_seq), right_start + pad)
+    pad_left = ref_seq[left_start:var.pos]
+    pad_right = ref_seq[right_start:right_end]
+    padded = tuple(
+        pad_left + hap + pad_right for hap in [var.ref] + var.alt)
+    region = common.Region(var.chrom, left_start, right_end)
+    return padded, region
+
+
+def _spanning_reads(bam, region, read_group):
+    from medaka_tpu_torch.features import get_trimmed_reads
+    try:
+        _reg, reads = next(get_trimmed_reads(
+            region, bam, partial=False, read_group=read_group,
+            region_split=2 * region.size))
+    except StopIteration:
+        return []
+    return reads[1:]  # drop the reference placeholder
+
+
+def align_read_to_haps(read, haps):
+    """SW score of a read against each padded haplotype."""
+    from medaka_tpu_torch import native
+    return [
+        native.align(
+            read, hap, mode='sw', match=_ANN_MATCH,
+            mismatch=_ANN_MISMATCH, gap_open=_ANN_GAP_OPEN,
+            gap_extend=_ANN_GAP_EXTEND).score
+        for hap in haps]
+
+
+def align_reads_to_haps(reads, haps):
+    """Count best-haplotype support and summed scores by strand."""
+    hap_counts = collections.Counter()
+    total_scores = collections.Counter()
+    for read in reads:
+        is_rev, _name, read_seq = read[0], read[1], read[2]
+        scores = align_read_to_haps(read_seq, haps)
+        best_hap = None if len(set(scores)) == 1 else int(
+            np.argmax(scores))
+        hap_counts[(is_rev, best_hap)] += 1
+        for hap, score in enumerate(scores):
+            total_scores[(is_rev, hap)] += score
+    return hap_counts, total_scores
+
+
+def annotate_vcf_n_reads(
+        vcf_path, ref_fasta, bam, vcfout, read_group=None,
+        chunk_size=100000, pad=25, dpsp=True):
+    """Annotate a VCF with read depth and allele support.
+
+    Adds DP/DPS from pileup counts and (when ``dpsp``) DPSP/SR/SC/AR
+    from SW alignment of region-spanning reads against padded ref/alt
+    haplotypes (reference ``vcf.py:1158-1301``).
+    """
+    from medaka_tpu_torch.features import CountsFeatureEncoder, FEATLEN
+    from medaka_tpu_torch.io.fastx import FastaReader
+
+    logger = common.get_named_logger('Annotate')
+    vcf = VCFReader(vcf_path)
+    vcf.index()
+    fasta = FastaReader(ref_fasta)
+
+    ann_meta = [
+        MetaInfo('INFO', 'DP', 1, 'Integer',
+                 'Depth of reads at position, calculated from read '
+                 'pileup, capped to ~8000.'),
+        MetaInfo('INFO', 'DPS', 2, 'Integer',
+                 'Depth of reads at position by strand (fwd, rev), '
+                 'calculated from read pileup, capped to ~8000 total.'),
+        MetaInfo('INFO', 'DPSP', 1, 'Integer',
+                 'Depth of reads spanning pos +-{}. '.format(pad) +
+                 'This is not capped as in the case of DP and DPS.'),
+        MetaInfo('INFO', 'SR', '.', 'Integer',
+                 'Depth of spanning reads by strand which best align to '
+                 'each allele (ref fwd, ref rev, alt1 fwd, alt1 rev, '
+                 'etc.). This is not capped as in the case of DP and '
+                 'DPS.'),
+        MetaInfo('INFO', 'AR', 2, 'Integer',
+                 'Depth of ambiguous spanning reads by strand which '
+                 'align equally well to all alleles (fwd, rev). '
+                 'This is not capped as in the case of DP and DPS.'),
+        MetaInfo('INFO', 'SC', '.', 'Integer',
+                 'Total alignment score to each allele of spanning reads '
+                 'by strand (ref fwd, ref rev, alt1 fwd, alt1 rev, etc.) '
+                 'aligned with match {}, mismatch -{}, open {}, '
+                 'extend {}'.format(
+                     _ANN_MATCH, _ANN_MISMATCH,
+                     _ANN_GAP_OPEN + _ANN_GAP_EXTEND, _ANN_GAP_EXTEND)),
+    ]
+    encoder = CountsFeatureEncoder(
+        read_group=read_group, normalise='fwd_rev')
+    feature_indices = encoder.feature_indices.items()
+
+    chrom_regions = []
+    for chrom in vcf.chroms:
+        chr_var = list(vcf.fetch(ref_name=chrom))
+        chrom_regions.append(common.Region(
+            chrom, chr_var[0].pos, chr_var[-1].pos + 1))
+
+    meta_info = vcf.meta + [str(m) for m in ann_meta]
+    with VCFWriter(
+            vcfout, 'w', version='4.1', contigs=vcf.chroms,
+            meta_info=meta_info) as writer:
+        chunks = itertools.chain.from_iterable(
+            # fixed_size would re-anchor the final chunk to overlap its
+            # neighbour, double-writing every variant in the overlap
+            r.split(size=chunk_size, overlap=0, fixed_size=False)
+            for r in chrom_regions)
+        ref_seq = None
+        ref_chrom = None
+        for chunk in chunks:
+            variants = [
+                v for v in vcf.fetch(chunk.ref_name, chunk.start, chunk.end)
+                # overlap-semantics fetch returns a boundary-spanning
+                # record in both chunks; its START assigns it uniquely
+                if chunk.start <= v.pos < chunk.end]
+            if not variants:
+                continue
+            logger.info('Processing %s.', chunk)
+            chrom = variants[0].chrom
+            if chrom != ref_chrom:  # fetch each chromosome once
+                ref_seq = fasta.fetch(chunk.ref_name).upper()
+                ref_chrom = chrom
+            trimmed = common.Region(
+                chrom, variants[0].pos, variants[-1].pos + 1)
+            pileup = encoder._pileup_function(trimmed, bam)
+
+            # merge discontiguous pileup blocks, padding gaps with zeros
+            merged = []
+            prev_pos = variants[0].pos - 1
+            for counts, positions in pileup:
+                if len(positions) == 0:
+                    continue
+                next_pos = positions['major'][0]
+                if next_pos != prev_pos + 1:
+                    merged.append(np.zeros(
+                        (next_pos - prev_pos - 1, FEATLEN), dtype=int))
+                merged.append(counts[positions['minor'] == 0])
+                prev_pos = positions['major'][-1]
+            tail = variants[-1].pos - prev_pos
+            if tail > 0:
+                merged.append(np.zeros((tail, FEATLEN), dtype=int))
+            merged = np.concatenate(merged) if merged else np.zeros(
+                (trimmed.size, FEATLEN), dtype=int)
+
+            first_pos = variants[0].pos
+            for v in variants:
+                count = merged[v.pos - first_pos]
+                dt_depth = {False: 0, True: 0}
+                for (_dt, is_rev), inds in feature_indices:
+                    # accumulate over datatypes (one per (dt, strand))
+                    dt_depth[is_rev] += int(np.sum(count[inds]))
+                v.info['DP'] = int(np.sum(count))
+                v.info['DPS'] = '{},{}'.format(
+                    dt_depth[False], dt_depth[True])
+                if dpsp:
+                    padded_haps, pad_reg = get_padded_haplotypes(
+                        v, ref_seq, pad)
+                    reads = _spanning_reads(bam, pad_reg, read_group)
+                    counts, scores = align_reads_to_haps(
+                        reads, padded_haps)
+                    v.info['DPSP'] = sum(counts.values())
+                    sr, sc = [], []
+                    for hap in range(1 + len(v.alt)):
+                        for is_rev in (False, True):
+                            sr.append(counts[(is_rev, hap)])
+                            sc.append(scores[(is_rev, hap)])
+                    v.info['SR'] = ','.join(map(str, sr))
+                    v.info['SC'] = ','.join(map(str, sc))
+                    v.info['AR'] = '{},{}'.format(
+                        counts[(False, None)], counts[(True, None)])
+                writer.write_variant(v)
+    return vcfout

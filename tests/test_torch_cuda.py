@@ -1017,3 +1017,47 @@ def test_head_past_16_classes_raises(device):
             torch.ones((2, 3 * H), device=device),
             torch.zeros((2, 3 * H), device=device),
             torch.zeros((2, C, H), dtype=torch.bfloat16, device=device))
+
+
+def test_consensus_from_reads_on_card_matches_cpu(device, tmp_path):
+    """``consensus`` from the FASTQ of a 20 kb ``create_synth_bam`` genome
+    (depth 20, 2 kb reads) on the card, at the automatic batch (the int8
+    split kernels), against ``consensus --cpu`` (the bf16 scan): the same
+    mapped BAM; consensus sequences within 1 edit per 10,000 bases
+    (``testing.greedy_edit_count``), the near-tie columns where the int8
+    and bf16 routes round apart (ROADMAP.md queue 3 items 2-3); both split
+    kernels launched."""
+    from medaka_tpu_torch import cli
+    from medaka_tpu_torch.io.fastx import FastaReader
+    bam, draft = testing.create_synth_bam(str(tmp_path / "synth.bam"),
+                                          ref_mb=0.02, depth=20, seed=3,
+                                          read_len=2000)
+    fastq = str(tmp_path / "reads.fastq")
+    truth = testing.write_reads_fastq(bam, fastq)
+    outputs = {}
+    for name, extra in (("cuda", []), ("cpu", ["--cpu"])):
+        outputs[name] = str(tmp_path / name)
+        gru_split.reset_launches()
+        assert cli.main(["consensus", fastq, draft, "-o", outputs[name],
+                         "--model", "gru256_lambda_demo", "-t", "2"]
+                        + extra) == 0
+        launches = dict(gru_split.LAUNCHES)
+        if name == "cuda":
+            assert min(launches.values()) >= 1, launches
+    with open(os.path.join(outputs["cuda"], "calls_to_draft.bam"),
+              "rb") as a, open(os.path.join(outputs["cpu"],
+                                            "calls_to_draft.bam"), "rb") as b:
+        assert a.read() == b.read()
+    mapped, wrong = testing.placement(
+        os.path.join(outputs["cuda"], "calls_to_draft.bam"), truth)
+    assert mapped == 1.0 and not wrong
+    seqs = {}
+    for name, out in outputs.items():
+        with FastaReader(os.path.join(out, "consensus.fasta")) as fr:
+            seqs[name] = fr.fetch("synth")
+    edits = testing.greedy_edit_count(seqs["cuda"].encode(),
+                                      seqs["cpu"].encode())
+    print("card vs CPU consensus: {} edits over {} bases".format(
+        edits, len(seqs["cpu"])))
+    assert len(seqs["cuda"]) > 19000
+    assert edits <= len(seqs["cpu"]) // 10000

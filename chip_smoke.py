@@ -171,7 +171,9 @@ Phases, each of which fails the script when it fails:
     strand, identity to the draft >= 0.99, the two FASTAs byte-identical;
     (b) the reads of a haploid genome of phase 20's generator, cut to
     0.2 Mb for the time limit, through ``variant --model
-    gru256_variant_demo`` with the annotation: P/R/F1 at
+    gru256_variant_demo`` with the annotation, its probabilities sharded
+    over ``max(1, min(4, threads // 2))`` files (4 at 8 threads: the
+    manifest is checked): P/R/F1 at
     ``testing.FROM_READS_FLOORS``, every record annotated (DP, DPS, DPSP,
     SR, SC, AR), at each planted SNP called the alt allele's SR support
     above the ref's; (c) ``consensus --model gru256_variant_demo`` on (b)'s
@@ -182,7 +184,38 @@ Phases, each of which fails the script when it fails:
     features (all its chunks) the model through the kernels against their
     plain versions under the network bar. The mapping, inference and annotation seconds,
     the thread count and the columns/s are printed; the paths' launches and
-    records go into the split kernels' rows of the ``kernels`` line.
+    records go into the split kernels' rows of the ``kernels`` line;
+22. (after phase 23, before phase 21) the split kernels at the run-length
+    bundle's shapes (``gru256_rle_demo``: 120 inputs, 49 classes) on the
+    RLE path's first batch, at its automatic batch and in mode "rows" on
+    64 rows: ``gru_l1_split`` and ``gru_l2head_split`` against their plain
+    versions, int8 (T=10000; layer 1 bit for bit) and bf16 (T=1000), each
+    run again bit for bit; timed beside the plain version, the serial
+    floor, the bound and cuDNN's layer 1, with the launch geometry (the
+    build phase prints ptxas's registers, shared memory and spills); the
+    fullfused route of batches below 32 (f32 gates: the tensor-core
+    projection at K=120 and the cluster recurrence) on 16 of the rows
+    against its plain version. Two ``kernels`` rows,
+    ``gru_l1_split/in120`` and ``gru_l2head_split/classes49``;
+23. (before phase 22) the RLE path: ``compress_bam`` of phase 4's BAM over
+    its first 60 kb (cut for the time limit) at ``--threads``
+    ``os.cpu_count()``, then ``inference --model gru256_rle_demo`` at the
+    automatic batch with the split kernels' launch counts set to 0 just
+    before (both must launch) and ``sequence --no-fillgaps`` against the
+    compact draft: finite 49-class probabilities that sum to 1, the
+    expanded consensus's identity to the draft at least
+    ``MIN_RLE_IDENTITY``; the same BAM over its first 20 kb (compact) on
+    the card and with ``--cpu`` gives the same FASTA, or one that differs
+    only where the two routes' argmax differs, each such column a near
+    tie within the bars of phase 6 (the int8 kernels against a scan);
+24. (before phase 21) the host pipeline options: ``inference
+    --output_shards 4 --feature_processes 4`` on phase 4's BAM, whose
+    manifest names 4 shards holding phase 5's samples bit for bit and
+    whose ``sequence`` FASTA is phase 5's, with both runs' columns/s;
+    ``consensus_from_features`` on the training phase's features; and
+    ``inference --profile_dir`` in a fresh process, whose trace must name
+    both int8 split kernels, with the share of the trace's wall time the
+    device spends in kernels.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -487,26 +520,34 @@ def run_layers(gru_split, w, xt, lengths, mode, quant, plain):
     return (out_f, out_b), (lg_f, lg_b)
 
 
-def compare_kernels(gru_split, w, xt, lengths, mode, quant):
+def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
     """Each kernel against its plain version on the same inputs.
 
     Both kernels run twice and must repeat bit for bit; in int8, layer 1
     must equal its plain version bit for bit. Returns (l1 max err, l2 max
-    logit err, network stats, kernel outputs).
+    logit err, network stats, kernel outputs); a ``plain_ms`` dict gets
+    each plain version's time (CUDA events, that one run).
     """
     import torch
     T, B, _ = xt.shape
     (kf, kb), (kl_f, kl_b) = run_layers(gru_split, w, xt, lengths, mode,
                                         quant, plain=False)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
     pf, pb = gru_split.gru_l1_split_plain(
         xt, lengths, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
         w["b_hh1"], mode=mode, quant=quant)
+    events[1].record()
     # layer 2's plain version on the kernel's own layer-1 outputs
     ql_f, ql_b = gru_split.gru_l2head_split_plain(
         kf, kb, lengths, w["w_in2"], w["in_scale2"], w["b_ih2"],
         w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"], mode=mode,
         quant=quant)
+    events[2].record()
     torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms["gru_l1_split"] = events[0].elapsed_time(events[1])
+        plain_ms["gru_l2head_split"] = events[1].elapsed_time(events[2])
     valid = (torch.arange(T, device=xt.device)[None, :]
              < lengths[:, None].long())
     l1_err = max((a.float() - b.float()).abs().max().item()
@@ -582,19 +623,19 @@ def bound(kind, B, H, IN, C, lengths_sum):
 
 def check_probabilities(datastore, hdf, classes=5):
     """Finite (n, ``classes``) probabilities summing to 1 in every sample
-    of ``hdf``; returns (samples, columns)."""
+    of ``hdf`` and of its shards; returns (samples, columns)."""
     import numpy as np
     index = datastore.DataIndex(hdf)
     n_columns = 0
-    with datastore.DataStore(hdf) as ds:
-        for name, _ in index.samples:
-            probs = ds.load_sample(name).label_probs
-            if probs.ndim != 2 or probs.shape[1] != classes or \
-                    not np.all(np.isfinite(probs)):
-                raise AssertionError("bad probabilities " + name)
-            if np.abs(probs.sum(-1) - 1).max() > 1e-2:
-                raise AssertionError("probabilities do not sum to 1")
-            n_columns += probs.shape[0]
+    # each sample from its own file: the base's or a shard's
+    for sample in index.yield_from_feature_files(samples=index.samples):
+        probs = sample.label_probs
+        if probs.ndim != 2 or probs.shape[1] != classes or \
+                not np.all(np.isfinite(probs)):
+            raise AssertionError("bad probabilities " + sample.name)
+        if np.abs(probs.sum(-1) - 1).max() > 1e-2:
+            raise AssertionError("probabilities do not sum to 1")
+        n_columns += probs.shape[0]
     return len(index.samples), n_columns
 
 
@@ -2000,8 +2041,18 @@ def from_reads_phases(seed, work, bam, draft, dev, modules):
          (vcf, "annotate_vcf_n_reads")))
     annotated = os.path.join(out_b, "medaka.annotated.vcf")
     with phase("check the variant pipeline from reads"):
-        _, n_columns = check_probabilities(
-            datastore, os.path.join(out_b, "consensus_probs.hdf"))
+        probs = os.path.join(out_b, "consensus_probs.hdf")
+        _, n_columns = check_probabilities(datastore, probs)
+        # --threads t shards the probabilities over max(1, min(4, t // 2))
+        # files, as medaka_tpu does: a manifest and 4 shards at 8 threads
+        shards = datastore.expand_shards(probs)[1:]
+        want_shards = max(1, min(4, threads // 2))
+        if len(shards) != (want_shards if want_shards > 1 else 0):
+            raise AssertionError("variant at --threads {} wrote {} shards, "
+                                 "not {}".format(threads, len(shards),
+                                                 want_shards))
+        log("   probabilities over {} shards: {}".format(
+            len(shards), [os.path.basename(f) for f in shards]))
         score = testing.score_vcf(truth_vcf, annotated, ref)
         raw_score = testing.score_vcf(
             truth_vcf, os.path.join(out_b, "medaka.vcf"), ref)
@@ -2035,6 +2086,7 @@ def from_reads_phases(seed, work, bam, draft, dev, modules):
         raise AssertionError("planted SNPs whose alt SR support does not "
                              "exceed the ref's: {}".format(weak[:10]))
     paths["variant"] = {
+        "probability_shards": len(shards),
         "launches": launches, "launches_by_mode": mode_launches,
         "seconds": seconds, "mapping_s": stage_s["align_reads"],
         "inference_s": stage_s["predict"], "columns": n_columns,
@@ -2144,6 +2196,457 @@ def from_reads_phases(seed, work, bam, draft, dev, modules):
         "features": 20, "l1_max": l1_err, "logit_max": l2_err,
         "network": stats}
     return paths
+
+
+#: the run-length bundle (120 inputs, 49 classes) of phases 22 and 23
+RLE_MODEL = "gru256_rle_demo"
+RLE_INPUTS, RLE_CLASSES = 120, 49
+#: phase 4's genome is cut to its first RLE_REGION_KB kb for compress_bam,
+#: whose SW re-alignment of 20 kb reads in compressed space took 45.7 s for
+#: 0.06 Mb at depth 20 on 4 CPU threads (about 190 s at 0.5 Mb on 8)
+RLE_REGION_KB = 60
+#: the compact region run again with --cpu, kb
+RLE_CPU_REGION_KB = 20
+#: the expanded RLE consensus's identity to the draft at least: the CPU
+#: route's bf16 scan gave 0.9933 on the first 20 kb (compact) of a 0.06 Mb
+#: create_synth_bam genome
+MIN_RLE_IDENTITY = 0.985
+#: mode "rows" rows of phase 22, as in phase 7
+RLE_ROWS_BATCH = 64
+#: steps of phase 22's bf16 (quant=False) comparisons, cut from T=10000
+#: for the time limit (the plain versions step once a column a launch)
+RLE_BF16_T = 1000
+
+
+def rle_identity(testing, fasta, draft_seq, rle):
+    """(identity to the draft, edits, draft bases) of a run-length
+    consensus written with ``--no-fillgaps``: each record ("synth_k
+    start-stop", compact coordinates) expanded, against the draft's bases
+    of those compact columns."""
+    from medaka_tpu_torch.io.fastx import read_fastx
+    conv = rle.RLEConverter(draft_seq)
+    edits = bases = 0
+    for rec in read_fastx(fasta):
+        start, stop = (int(v) for v in rec.comment.split("-"))
+        a = int(conv.coord_compact_to_full(start))
+        b = (int(conv.coord_compact_to_full(stop))
+             if stop < len(conv.compact_basecall) else len(draft_seq))
+        edits += testing.greedy_edit_count(rec.sequence.encode(),
+                                           draft_seq[a:b].encode())
+        bases += b - a
+    if not bases:
+        raise AssertionError("no consensus record in {}".format(fasta))
+    return 1.0 - edits / bases, edits, bases
+
+
+def compare_routes(datastore, card_hdf, cpu_hdf):
+    """The card's probabilities against the CPU route's on the same
+    samples: max and mean difference, argmax agreement, and each column
+    whose argmax differs, which must be a near tie (the CPU route's
+    probability of the card's class within ``TOL_SCAN_PROB_MAX`` of its
+    best). Fails past the bars of the int8 path against the scan."""
+    import numpy as np
+    probs = []
+    for path in (card_hdf, cpu_hdf):
+        index = datastore.DataIndex(path)
+        probs.append({s.name: s for s in index.yield_from_feature_files(
+            samples=index.samples)})
+    card, cpu = probs
+    if sorted(card) != sorted(cpu):
+        raise AssertionError("the card and the CPU wrote other samples")
+    worst, total, count, differ = 0.0, 0.0, 0, []
+    for name in sorted(card):
+        a, b = card[name].label_probs, cpu[name].label_probs
+        diff = np.abs(a - b)
+        worst, total, count = (max(worst, float(diff.max())),
+                               total + float(diff.sum()),
+                               count + diff.size)
+        ka, kb = a.argmax(-1), b.argmax(-1)
+        for i in np.flatnonzero(ka != kb):
+            differ.append({"sample": name, "column": int(i),
+                           "card_class": int(ka[i]),
+                           "cpu_class": int(kb[i]),
+                           "cpu_gap": float(b[i, kb[i]] - b[i, ka[i]])})
+    columns = sum(s.label_probs.shape[0] for s in card.values())
+    out = {"max": worst, "mean": total / count,
+           "argmax_agreement": 1.0 - len(differ) / columns,
+           "differing_columns": differ}
+    if worst > TOL_SCAN_PROB_MAX or out["mean"] > TOL_SCAN_PROB_MEAN or \
+            out["argmax_agreement"] < MIN_SCAN_ARGMAX_AGREEMENT or \
+            any(d["cpu_gap"] > TOL_SCAN_PROB_MAX for d in differ):
+        raise AssertionError("the card's probabilities disagree with the "
+                             "CPU's: {}".format(out))
+    return out
+
+
+def rle_phases(work, bam, draft, dev, rows, modules):
+    """The run-length path (phase 23) and its kernels (phase 22): returns
+    the ``kernels`` rows of ``gru_l1_split`` at 120 inputs and
+    ``gru_l2head_split`` at 49 classes; adds the fullfused layer at 120
+    inputs to ``rows``' bigru_fullfused/f32_gates and bigru_project."""
+    import torch
+    cli, datastore, features, gru_fullfused, gru_split, models, \
+        prediction = (modules[k] for k in (
+            "cli", "datastore", "features", "gru_fullfused", "gru_split",
+            "models", "prediction"))
+    from medaka_tpu_torch import rle, testing
+    from medaka_tpu_torch.common import Region
+    from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
+    threads = os.cpu_count()
+    rle_bam = os.path.join(work, "rle_reads.bam")
+    compact = os.path.join(work, "compact_draft.fasta")
+    with FastaReader(draft) as fr:
+        draft_seq = fr.fetch("synth")
+    with phase("RLE path data: compress_bam of phase 4's BAM over its first "
+               "{} kb (cut for the time limit), --threads {}".format(
+                   RLE_REGION_KB, threads)):
+        t0 = time.perf_counter()
+        rle.compress_bam(bam, rle_bam, draft, threads=threads,
+                         regions=[Region("synth", 0, RLE_REGION_KB * 1000)])
+        compress_s = time.perf_counter() - t0
+        conv = rle.RLEConverter(draft_seq)
+        with FastaWriter(compact) as fw:
+            fw.write("synth", conv.compact_basecall)
+    log("   compress_bam {:.2f} s; compact draft {} bases of {}".format(
+        compress_s, len(conv.compact_basecall), len(draft_seq)))
+    covered = conv.transform_coords(0, RLE_REGION_KB * 1000)[1]
+    region = "synth:0-{}".format(covered)
+    bundle = models.load_model(models.resolve_model(RLE_MODEL))
+    batch = prediction.auto_batch_size(bundle.model, dev)
+    mode = gru_split.split_mode(batch)
+    H = bundle.model.gru_size
+    geometry = {
+        "{}_{}".format(kind, key): dict(zip(
+            ("cluster", "columns", "smem_bytes", "resident_clusters"),
+            gru_split.geometry(kind, H, cols, dev, m,
+                               RLE_INPUTS if kind == "l1" else 0,
+                               RLE_CLASSES)))
+        for kind in ("l1", "l2")
+        for key, cols, m in (("main", batch, mode),
+                             ("rows_B64", RLE_ROWS_BATCH, "rows"),
+                             ("one_column", 1, mode))}
+    log("   RLE bundle: automatic batch {} (mode {}); launch geometry "
+        "{}".format(batch, mode, json.dumps(geometry)))
+
+    hdf = os.path.join(work, "rle_probs.hdf")
+    fasta = os.path.join(work, "rle_consensus.fasta")
+    with phase("RLE path: inference --model {} + sequence --no-fillgaps"
+               .format(RLE_MODEL)):
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["inference", rle_bam, hdf, "--model", RLE_MODEL]) != 0:
+            raise AssertionError("RLE inference failed")
+        torch.cuda.synchronize()
+        t_inference = time.perf_counter() - t0
+        launches = dict(gru_split.LAUNCHES)
+        mode_launches = dict(gru_split.MODE_LAUNCHES)
+        if cli.main(["sequence", hdf, compact, fasta, "--regions", region,
+                     "--no-fillgaps"]) != 0:
+            raise AssertionError("RLE sequence failed")
+    log("   launches on the RLE path:", launches, mode_launches)
+    if min(launches.values()) < 1:
+        raise AssertionError("a split kernel never launched on the RLE path")
+    with phase("check the RLE output"):
+        n_samples, n_columns = check_probabilities(datastore, hdf,
+                                                   RLE_CLASSES)
+        identity, edits, bases = rle_identity(testing, fasta, draft_seq, rle)
+        log("   {} samples, {} compact columns in {:.2f} s: {:.0f} "
+            "columns/s; expanded consensus over {} draft bases, identity "
+            "{:.6f} ({} edits)".format(
+                n_samples, n_columns, t_inference, n_columns / t_inference,
+                bases, identity, edits))
+        if identity < MIN_RLE_IDENTITY:
+            raise AssertionError("RLE consensus identity {} < {}".format(
+                identity, MIN_RLE_IDENTITY))
+    cpu_region = "synth:0-{}".format(RLE_CPU_REGION_KB * 1000)
+    with phase("the RLE path over {} on the card and with --cpu".format(
+            cpu_region)):
+        outs = {}
+        # the CPU runs its 3 chunks in a batch of 4 (its automatic batch,
+        # 128, would step 125 padding rows too)
+        for tag, extra in (("card", []),
+                           ("cpu", ["--cpu", "--batch_size", "4"])):
+            h = os.path.join(work, "rle_{}.hdf".format(tag))
+            f = os.path.join(work, "rle_{}.fasta".format(tag))
+            t0 = time.perf_counter()
+            if cli.main(["inference", rle_bam, h, "--model", RLE_MODEL,
+                         "--regions", cpu_region] + extra) != 0 or \
+                    cli.main(["sequence", h, compact, f, "--regions",
+                              cpu_region, "--no-fillgaps"]) != 0:
+                raise AssertionError("RLE path over {} failed ({})".format(
+                    cpu_region, tag))
+            with open(f, "rb") as fh:
+                outs[tag] = fh.read()
+            log("   {}: {:.2f} s, {} bytes".format(
+                tag, time.perf_counter() - t0, len(outs[tag])))
+        cpu_check = {"identical": outs["card"] == outs["cpu"]}
+        if not cpu_check["identical"]:
+            # the int8 kernels and the CPU's bf16 scan round differently:
+            # the FASTAs may differ only where the two routes' argmax
+            # differs, at near ties, within the bars of the int8 path
+            # against the scan (phase 6), each such column changing at
+            # most one run of up to max_run bases
+            cpu_check.update(compare_routes(
+                datastore, *(os.path.join(work, "rle_{}.hdf".format(t))
+                             for t in ("card", "cpu"))))
+            seqs = [b"".join(line for line in o.split(b"\n")
+                             if not line.startswith(b">"))
+                    for o in (outs["card"], outs["cpu"])]
+            cpu_check["fasta_edits"] = testing.greedy_edit_count(*seqs)
+            max_run = bundle.label_scheme.max_run
+            if cpu_check["fasta_edits"] > max_run * len(
+                    cpu_check["differing_columns"]):
+                raise AssertionError("the RLE consensus on the card differs "
+                                     "from the CPU's over {} beyond its "
+                                     "argmax differences: {}".format(
+                                         cpu_region, cpu_check))
+        log("   card against --cpu: {}".format(json.dumps(cpu_check)))
+
+    # phase 22: the kernels at the path's shapes
+    rows_out = []
+    with phase("RLE kernels: gru_l1_split at 120 inputs, gru_l2head_split "
+               "at 49 classes, automatic batch {} and mode rows on {} rows; "
+               "the fullfused layer at B=16".format(batch, RLE_ROWS_BATCH)):
+        samples = []
+        for work_region in prediction.plan_work(None, rle_bam):
+            samples.extend(features.SampleGenerator(
+                rle_bam, work_region, bundle.feature_encoder,
+                chunk_len=10000, chunk_overlap=1000).samples)
+        main_batch = prediction.Batch.collate(samples[:batch], batch, 10000)
+        T, B, IN, C = 10000, batch, RLE_INPUTS, RLE_CLASSES
+        model = bundle.model.to(dev)
+        xt = torch.from_numpy(main_batch.features).to(torch.bfloat16) \
+            .transpose(0, 1).contiguous().to(dev)
+        lens = torch.from_numpy(main_batch.lengths).to(dev)
+        lengths_sum = int(main_batch.lengths.sum())
+        names = ("gru_l1_split", "gru_l2head_split")
+        results = {name: {} for name in names}
+        for key, rows_, m in (("main", B, mode), ("rows", RLE_ROWS_BATCH,
+                                                   "rows")):
+            for quant in (True, False):
+                steps = T if quant else RLE_BF16_T
+                x = xt[:steps, :rows_].contiguous()
+                ln = torch.clamp(lens[:rows_], max=steps).contiguous()
+                w = gru_split.prepare_split_weights(
+                    model.layer_params(), model.head_params(), m, quant,
+                    dev)
+                plain_ms = {}
+                l1_err, l2_err, stats, (kf, kb) = compare_kernels(
+                    gru_split, w, x, ln, m, quant, plain_ms)
+                tag = "{}/{}".format(key, "int8" if quant else "bf16")
+                args1 = (x, ln, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+                         w["b_hh1"])
+                args2 = (kf, kb, ln, w["w_in2"], w["in_scale2"], w["b_ih2"],
+                         w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
+                log("   {} B={} T={}: l1 max {:.3g}, l2 logit max {:.3g}; "
+                    "probs max {:.3g}, argmax agreement {:.6f}".format(
+                        tag, rows_, steps, l1_err, l2_err, stats["max"],
+                        stats["argmax_agreement"]))
+                vsum = int(ln.sum())
+                for name, fn, args, err in (
+                        ("gru_l1_split", gru_split.gru_l1_split, args1,
+                         l1_err),
+                        ("gru_l2head_split", gru_split.gru_l2head_split,
+                         args2, l2_err)):
+                    rec = {"B": rows_, "T": steps, "valid_columns": vsum,
+                           "max_abs_err": err, "model_vs_plain": stats,
+                           "ms": cuda_ms(lambda: fn(*args, mode=m,
+                                                    quant=quant)),
+                           "plain_ms": plain_ms[name]}
+                    if quant:
+                        one = ((args[0][:, :1].contiguous(), args[1][:1])
+                               + args[2:]) if name == "gru_l1_split" else \
+                            ((args[0][:, :1].contiguous(),
+                              args[1][:, :1].contiguous(), args[2][:1])
+                             + args[3:])
+                        rec["serial_floor_ms"] = cuda_ms(
+                            lambda: fn(*one, mode=m))
+                        rec["bound_ms"], rec["bound_by"] = bound(
+                            name, rows_, H, IN, C, vsum)
+                        rec["step_us"] = rec["ms"] / steps * 1e3
+                    results[name][tag] = rec
+                    log("   {} {}: {}".format(name, tag, json.dumps(rec)))
+                del kf, kb, args1, args2, w
+        # cuDNN's layer 1 over the same rows (the port never calls it)
+        library = {}
+        with torch.inference_mode():
+            for key, rows_ in (("main", B), ("rows", RLE_ROWS_BATCH)):
+                library[key] = yardstick_ms(main_batch.features[:rows_], IN,
+                                            1, H, dev)
+        log("   torch.nn.GRU({}, {}, 1, bidirectional=True) bf16 (cuDNN): "
+            "{}".format(IN, H, json.dumps(library)))
+        # the fullfused route at B=16 (batches below 32): layer 1 at 120
+        # inputs through the tensor-core projection and the cluster
+        # recurrence, against its plain version
+        B16 = SMALL_BATCH
+        x16 = xt[:, :B16].contiguous()
+        len16 = lens[:B16].contiguous()
+        w1 = tuple(t.detach() for t in stacked_layer(
+            model.layer_params()[0]))
+        _, ff_stats, ff_plain_ms = compare_fullfused(
+            gru_fullfused, "f32_gates", x16, w1, len16)
+        ff_sum = int(len16.sum())
+        ff = {"B": B16, "T": T, "IN": IN, "valid_columns": ff_sum,
+              "agreement": ff_stats, "plain_ms": ff_plain_ms,
+              "ms": cuda_ms(lambda: gru_fullfused.fullfused_layer(
+                  x16, *w1, len16, "f32_gates"))}
+        ff["bound_ms"], ff["bound_by"], _ = fullfused_bound(
+            "bigru_fullfused/f32_gates", B16, H, IN, ff_sum)
+        proj = {"ms": cuda_ms(lambda: gru_fullfused.project(
+                    x16, w1[0], w1[1])),
+                "plain_ms": cuda_ms(lambda: gru_fullfused.project_plain(
+                    x16, w1[0], w1[1]), reps=1, warmup=0),
+                "agreement": ff_stats["projection"]}
+        proj["bound_ms"], proj["bound_by"], _ = fullfused_bound(
+            "bigru_project", B16, H, IN, ff_sum)
+        log("   fullfused f32_gates layer 1 at IN={}, B={}: {}; projection "
+            "stage alone: {}".format(IN, B16, json.dumps(ff),
+                                      json.dumps(proj)))
+        for row in rows:
+            if row["name"] == "bigru_fullfused/f32_gates":
+                row["rle_in120"] = ff
+            elif row["name"] == "bigru_project":
+                row["rle_in120"] = proj
+        del xt, model
+        torch.cuda.empty_cache()
+    path = {"launches": launches, "launches_by_mode": mode_launches,
+            "card_against_cpu": cpu_check,
+            "columns_per_s": n_columns / t_inference,
+            "compress_bam_s": compress_s, "identity": identity,
+            "automatic_batch": batch, "mode": mode, "geometry": geometry}
+    for name in names:
+        suffix = "in120" if name == "gru_l1_split" else "classes49"
+        main = results[name]["main/int8"]
+        rows_out.append({
+            "name": "{}/{}".format(name, suffix), "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES[name],
+            "launches": launches[name],
+            "launches_on": "inference --model {} on the RLE-compressed BAM "
+                           "(phase 23)".format(RLE_MODEL),
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            # cuDNN's layer 1 computes layer 1's function on these rows;
+            # no single PyTorch call computes layer 2 + the head
+            "library_ms": library["main"] if name == "gru_l1_split"
+            else None,
+            "library": "torch.nn.GRU({}, {}, 1, bidirectional=True) bf16 "
+                       "(cuDNN): {}".format(IN, H, json.dumps(library)),
+            "serial_floor_ms": main["serial_floor_ms"],
+            "step_us": main["step_us"],
+            "shape": {"B": B, "T": T, "H": H, "IN": IN, "classes": C,
+                      "valid_columns": main["valid_columns"]},
+            "by_mode": results[name],
+            "geometry": {k: v for k, v in geometry.items()
+                         if k.startswith("l1" if name == "gru_l1_split"
+                                         else "l2")},
+            "rle_path": path})
+    return rows_out, path
+
+
+def host_option_phases(work, bam, draft, hdf, fasta, main_rate, dev,
+                       modules):
+    """The host pipeline options (phase 24): ``inference --output_shards
+    4 --feature_processes 4`` against phase 5's one file,
+    ``consensus_from_features`` on the training features, and
+    ``inference --profile_dir`` in a fresh process. Returns the record
+    that goes into the split kernels' rows."""
+    import numpy as np
+    import torch
+    cli, datastore, gru_split = (modules[k] for k in (
+        "cli", "datastore", "gru_split"))
+    sharded = os.path.join(work, "sharded.hdf")
+    sharded_fasta = os.path.join(work, "sharded.fasta")
+    with phase("host options: inference --output_shards 4 "
+               "--feature_processes 4, then sequence"):
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["inference", bam, sharded, "--model", MODEL,
+                     "--output_shards", "4", "--feature_processes",
+                     "4"]) != 0:
+            raise AssertionError("sharded inference failed")
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t0
+        launches = dict(gru_split.LAUNCHES)
+        if cli.main(["sequence", sharded, draft, sharded_fasta]) != 0:
+            raise AssertionError("sequence of the shards failed")
+    with phase("check the sharded output against phase 5's one file"):
+        files = datastore.expand_shards(sharded)
+        if len(files) != 5:
+            raise AssertionError("the manifest names {} files".format(
+                len(files) - 1))
+        one, many = datastore.DataIndex(hdf), datastore.DataIndex(sharded)
+        want = {s.name: s for s in one.yield_from_feature_files()}
+        got = {s.name: s for s in many.yield_from_feature_files()}
+        if sorted(want) != sorted(got) or not all(
+                np.array_equal(want[k].label_probs, got[k].label_probs)
+                for k in want):
+            raise AssertionError("the shards do not hold phase 5's samples")
+        with open(fasta, "rb") as a, open(sharded_fasta, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("the shards' FASTA differs from phase "
+                                     "5's")
+        n_columns = sum(s.size for s in got.values())
+    rec = {"files": [os.path.basename(f) for f in files],
+           "launches": launches, "columns_per_s": n_columns / t_sharded,
+           "one_file_columns_per_s": main_rate}
+    log("   {} samples over {} shards, the same bits and FASTA as phase 5; "
+        "{:.0f} columns/s (phase 5, one file and 2 threads: {:.0f})".format(
+            len(got), len(files) - 1, rec["columns_per_s"], main_rate))
+    train_hdf = os.path.join(work, "train.hdf")
+    cff = os.path.join(work, "from_features.hdf")
+    with phase("consensus_from_features on the training features"):
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["consensus_from_features", train_hdf, cff, "--model",
+                     MODEL]) != 0:
+            raise AssertionError("consensus_from_features failed")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_samples, n_columns = check_probabilities(datastore, cff)
+        rec["consensus_from_features"] = {
+            "launches": dict(gru_split.LAUNCHES), "samples": n_samples,
+            "columns_per_s": n_columns / seconds}
+    log("   consensus_from_features: {}".format(json.dumps(
+        rec["consensus_from_features"])))
+    if min(rec["consensus_from_features"]["launches"].values()) < 1:
+        raise AssertionError("consensus_from_features never launched a "
+                             "split kernel")
+    prof = os.path.join(work, "profile")
+    with phase("inference --profile_dir in a fresh process"):
+        proc = subprocess.run(
+            [sys.executable, "-m", "medaka_tpu_torch", "inference", bam,
+             os.path.join(work, "profiled.hdf"), "--model", MODEL,
+             "--profile_dir", prof, "--quiet"], cwd=HERE,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError("profiled inference failed: {}".format(
+                proc.stderr[-2000:]))
+        with open(os.path.join(prof, "trace.json")) as fh:
+            events = [e for e in json.load(fh)["traceEvents"]
+                      if e.get("ph") == "X"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        names = {bare(e["name"]).replace("(anonymous namespace)::", "")
+                 for e in kernels}
+        missing = [k for k in SPLIT_KERNELS
+                   if not any(n.startswith(k) for n in names)]
+        if missing:
+            raise AssertionError("the trace names no {}".format(missing))
+        wall = (max(e["ts"] + e["dur"] for e in events)
+                - min(e["ts"] for e in events))
+        busy = sum(e["dur"] for e in kernels)
+        by_kernel = {}
+        for e in kernels:
+            key = bare(e["name"]).replace("(anonymous namespace)::", "")
+            key = key.split("(")[0][:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + e["dur"] / 1e3
+        rec["profile"] = {
+            "wall_ms": wall / 1e3, "kernel_ms": busy / 1e3,
+            "device_kernel_share": busy / wall, "events": len(events),
+            "top_kernels_ms": dict(sorted(by_kernel.items(),
+                                          key=lambda kv: -kv[1])[:8])}
+    log("   profile of inference: {}".format(json.dumps(rec["profile"])))
+    return rec
 
 
 def stacked_layer(layer):
@@ -2976,6 +3479,7 @@ def main(argv=None):
             if identity < 0.99:
                 raise AssertionError("consensus identity {} < 0.99".format(
                     identity))
+            main_rate = n_columns / t_inference
 
         with phase("main-path shapes: kernels vs plain, timings"):
             samples = []
@@ -3464,6 +3968,18 @@ def main(argv=None):
                 "cli": cli, "datastore": datastore, "lstm_train": lstm_train,
                 "models": models, "parallel": parallel,
                 "training": training}))
+        # phases 23 and 22 (the run-length path and its kernels) and 24
+        # (the host pipeline options), before phase 21
+        torch.cuda.empty_cache()
+        rle_rows, rle_path = rle_phases(work, bam, draft, dev, rows, modules={
+            "cli": cli, "datastore": datastore, "features": features,
+            "gru_fullfused": gru_fullfused, "gru_split": gru_split,
+            "models": models, "prediction": prediction})
+        rows.extend(rle_rows)
+        torch.cuda.empty_cache()
+        host_options = host_option_phases(
+            work, bam, draft, hdf, fasta, main_rate, dev, modules={
+                "cli": cli, "datastore": datastore, "gru_split": gru_split})
         # phase 21 runs last: no profile follows it (a trace of the
         # read-level batch came back empty five times after it in one run)
         torch.cuda.empty_cache()
@@ -3478,7 +3994,13 @@ def main(argv=None):
             row["launches_by_path"].update({
                 "from_reads/" + path: rec["launches"][row["name"]]
                 for path, rec in from_reads.items()})
+            row["launches_by_path"].update({
+                "sharded": host_options["launches"][row["name"]],
+                "consensus_from_features": host_options[
+                    "consensus_from_features"]["launches"][row["name"]],
+                "rle": rle_path["launches"][row["name"]]})
         split_rows[1]["from_reads_paths"] = from_reads
+        split_rows[1]["host_options"] = host_options
     finally:
         import shutil
         shutil.rmtree(work, ignore_errors=True)
@@ -3500,7 +4022,12 @@ def main(argv=None):
         "bilstm_fused": ("bilstm.cu", ("lstm_fwd_kernel",)),
         "gru_l1_split": ("gru_split.cu", (SPLIT_KERNEL_OF["gru_l1_split"],)),
         "gru_l2head_split": ("gru_split.cu", (
-            SPLIT_KERNEL_OF["gru_l2head_split"],))}
+            SPLIT_KERNEL_OF["gru_l2head_split"],)),
+        "gru_l1_split/in120": ("gru_split.cu", (
+            SPLIT_KERNEL_OF["gru_l1_split"], "gru_l1_split_kernel")),
+        "gru_l2head_split/classes49": ("gru_split.cu", (
+            SPLIT_KERNEL_OF["gru_l2head_split"],
+            "gru_l2head_split_kernel"))}
     for row in rows:
         if row["name"] in row_ptxas:
             source, kernels = row_ptxas[row["name"]]

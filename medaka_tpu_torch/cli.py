@@ -1,21 +1,25 @@
-"""Command line: ``python -m medaka_tpu_torch {inference,sequence,vcf,snp,
-features,train,consensus,consensus_joint,align,variant,tools}``.
+"""Command line: ``python -m medaka_tpu_torch {inference,
+consensus_from_features,sequence,vcf,snp,features,train,consensus,
+consensus_joint,align,variant,fastrle,compress_bam,tools}``.
 
-Counterpart of the ``inference``, ``sequence``, ``vcf``, ``snp``,
-``features``, ``train``, ``consensus``, ``consensus_joint``, ``align`` and
-``variant`` subcommands of ``medaka_tpu/cli.py``, and of its ``tools``
-``annotate`` and ``consensus2vcf``, with the same flags and defaults for
-the parts that are ported. ``--model`` takes a path or a model name
-(``models.resolve_model``). ``inference``, ``train``, ``consensus``,
+Counterpart of the ``inference``, ``consensus_from_features``,
+``sequence``, ``vcf``, ``snp``, ``features``, ``train``, ``consensus``,
+``consensus_joint``, ``align``, ``variant``, ``fastrle`` and
+``compress_bam`` subcommands of ``medaka_tpu/cli.py``, and of its
+``tools`` ``annotate``, ``consensus2vcf`` and ``is_rle_model``, with the
+same flags and defaults for the parts that are ported. ``--model`` takes
+a path or a model name (``models.resolve_model``). ``inference``,
+``consensus_from_features``, ``train``, ``consensus``,
 ``consensus_joint`` and ``variant`` run on the GPU unless ``--cpu`` is
-given; ``vcf``, ``snp``, ``align`` and the tools run on the host.
-``variant`` and ``consensus_joint`` write one probability file where
-``medaka_tpu`` shards it over ``min(4, threads // 2)`` files; the VCF and
-FASTA are the same.
+given; ``vcf``, ``snp``, ``align``, ``fastrle``, ``compress_bam`` and the
+tools run on the host. ``variant`` and ``consensus_joint`` shard their
+probability file over ``max(1, min(4, threads // 2))`` files, as
+``medaka_tpu`` does.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -118,6 +122,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--batch_size", type=int, default=None,
         help="Batch size (default: auto, see prediction.auto_batch_size).")
     p.add_argument("--bam_workers", type=int, default=2)
+    p.add_argument(
+        "--output_shards", type=int, default=1,
+        help="Write probability samples round-robin across this many "
+             "shard files from writer processes; the named output keeps "
+             "the metadata and the shard manifest, which every downstream "
+             "command reads unchanged.")
+    p.add_argument(
+        "--feature_processes", type=int, default=0,
+        help="Featurize regions in this many worker processes instead "
+             "of threads.")
     p.add_argument("--bam_chunk", type=int, default=1_000_000)
     p.add_argument(
         "--full_precision", action="store_true",
@@ -130,6 +144,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--check_output", action="store_true",
         help="Verify integrity of the output file after inference.")
+    p.add_argument(
+        "--profile_dir", default=None,
+        help="Capture a torch.profiler trace of the run (CPU and, on the "
+             "GPU, CUDA activities) into this directory as "
+             "trace.json (Chrome trace format); an empty trace is an "
+             "error.")
     tg = p.add_argument_group(
         "read filters",
         "Override the model's feature-encoder alignment filters.")
@@ -143,6 +163,21 @@ def build_parser() -> argparse.ArgumentParser:
     tg.add_argument("--tag_keep_missing", action="store_true",
                     help="Keep alignments missing the tag.")
     p.set_defaults(func=_cmd_inference)
+
+    p = subparsers.add_parser(
+        "consensus_from_features", parents=[log_parent],
+        help="Run inference over precomputed feature HDF5s.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("inputs", nargs="+", help="Feature HDF5 file(s).")
+    p.add_argument("output", help="Output probabilities file.")
+    p.add_argument("--model", required=True)
+    p.add_argument(
+        "--batch_size", type=int, default=None,
+        help="Batch size (default: auto, see prediction.auto_batch_size).")
+    p.add_argument("--full_precision", action="store_true")
+    p.add_argument(
+        "--cpu", action="store_true", help="Run the model on the CPU.")
+    p.set_defaults(func=_cmd_consensus_from_features)
 
     p = subparsers.add_parser(
         "sequence", parents=[log_parent],
@@ -351,6 +386,32 @@ def _add_from_reads_parsers(subparsers, log_parent):
     p.set_defaults(func=_cmd_consensus_joint)
 
     p = subparsers.add_parser(
+        "fastrle", parents=[log_parent],
+        help="Create run-length-encoded fastq (lengths in quals).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("input", help="Input fasta/q (may be gzipped).")
+    p.add_argument("--output", default=None,
+                   help="Output fastq (default stdout).")
+    p.add_argument("--block_size", type=int, default=94)
+    p.set_defaults(func=_cmd_fastrle)
+
+    p = subparsers.add_parser(
+        "compress_bam", parents=[log_parent],
+        help="Re-express a BAM in run-length-encoded coordinates.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("bam_input")
+    p.add_argument("bam_output")
+    p.add_argument("ref_fname")
+    p.add_argument("--regions", nargs="+", default=None)
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument(
+        "--use_fast5_info", nargs=2, default=None,
+        metavar=("FAST5_DIR", "SUMMARY"),
+        help="Add WL/WK Weibull tags from fast5 files (not supported: "
+             "the port has no fast5 reader).")
+    p.set_defaults(func=_cmd_compress_bam)
+
+    p = subparsers.add_parser(
         "align", parents=[log_parent],
         help="Map reads to a draft, writing a sorted indexed BAM.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -393,6 +454,11 @@ def _add_from_reads_parsers(subparsers, log_parent):
     tp.add_argument("--mode", default="NW", choices=["NW", "HW", "HWT"])
     tp.set_defaults(func=_cmd_consensus2vcf)
 
+    tp = toolsub.add_parser(
+        "is_rle_model", help="Report whether a model is an RLE model.")
+    tp.add_argument("model")
+    tp.set_defaults(func=_cmd_is_rle_model)
+
 
 def main(argv=None):
     """CLI entry."""
@@ -422,18 +488,64 @@ def _cmd_inference(args):
             ("tag_value", args.tag_value),
             ("tag_keep_missing", args.tag_keep_missing or None))
         if v is not None}
-    prediction.predict(
-        args.bam, args.output, model_path=args.model,
-        regions=_regions_arg(args.regions) if args.regions else None,
-        batch_size=args.batch_size, chunk_len=args.chunk_len,
-        chunk_overlap=args.chunk_ovlp, bam_workers=args.bam_workers,
-        bam_chunk=args.bam_chunk, full_precision=args.full_precision,
-        encoder_overrides=overrides or None,
-        save_features=args.save_features,
-        device="cpu" if args.cpu else "cuda")
+    device = _device(args)
+    ctx = profiled(args.profile_dir, device) if args.profile_dir else \
+        contextlib.nullcontext()
+    with ctx:
+        prediction.predict(
+            args.bam, args.output, model_path=args.model,
+            regions=_regions_arg(args.regions) if args.regions else None,
+            batch_size=args.batch_size, chunk_len=args.chunk_len,
+            chunk_overlap=args.chunk_ovlp, bam_workers=args.bam_workers,
+            bam_chunk=args.bam_chunk, full_precision=args.full_precision,
+            encoder_overrides=overrides or None,
+            save_features=args.save_features, device=device,
+            feature_processes=args.feature_processes,
+            output_shards=args.output_shards)
     if args.check_output and not datastore.DataIndex(args.output).samples:
         common.get_named_logger("CheckOutput").warning(
             "Output %s contains no samples.", args.output)
+    return 0
+
+
+#: the trace file ``--profile_dir`` writes
+PROFILE_TRACE = "trace.json"
+
+
+@contextlib.contextmanager
+def profiled(directory: str, device):
+    """A ``torch.profiler`` trace of the block (the counterpart of
+    ``jax.profiler.trace``): CPU activities and, on a CUDA ``device``,
+    CUDA ones, written as ``directory/trace.json`` (Chrome trace format).
+    Raises if the profiler recorded no event, or on the GPU no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if on_card:
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    if not len(events):
+        raise RuntimeError("torch.profiler recorded no event")
+    if on_card and not any(
+            getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+            > 0 for e in events):
+        raise RuntimeError("torch.profiler recorded no device time")
+    prof.export_chrome_trace(os.path.join(directory, PROFILE_TRACE))
+
+
+def _cmd_consensus_from_features(args):
+    from medaka_tpu_torch import prediction
+    prediction.predict_from_features(
+        args.inputs, args.output, model_path=args.model,
+        batch_size=args.batch_size, full_precision=args.full_precision,
+        device=_device(args))
     return 0
 
 
@@ -506,13 +618,12 @@ def _cmd_variant_pipeline(args):
             args.reads, args.ref_fasta, bam, threads=args.threads)
     probs = os.path.join(args.output, "consensus_probs.hdf")
     if not os.path.exists(probs):
-        # one probability file: medaka_tpu shards it over
-        # max(1, min(4, threads // 2)) files, which the port cannot write
         prediction.predict(
             bam, probs, model_path=args.model,
             batch_size=args.batch_size, chunk_len=args.chunk_len,
             chunk_overlap=args.chunk_ovlp,
-            bam_workers=max(1, args.threads // 2), device=device)
+            bam_workers=max(1, args.threads // 2), device=device,
+            output_shards=max(1, min(4, args.threads // 2)))
     vcf_raw = os.path.join(args.output, "medaka.vcf")
     variant.variants_from_hdf(probs, args.ref_fasta, vcf_raw)
     if args.annotate:
@@ -554,12 +665,12 @@ def _cmd_consensus_joint(args):
         common.tag_merge_bams(tagged_bams, args.values, "DT", merged)
     probs = os.path.join(args.output, "consensus_probs.hdf")
     if not os.path.exists(probs):
-        # one probability file, as in _cmd_variant_pipeline
         prediction.predict(
             merged, probs, model_path=args.model,
             batch_size=args.batch_size, chunk_len=args.chunk_len,
             chunk_overlap=args.chunk_ovlp,
-            bam_workers=max(1, args.threads // 2), device=device)
+            bam_workers=max(1, args.threads // 2), device=device,
+            output_shards=max(1, min(4, args.threads // 2)))
     ext = "fastq" if args.qualities else "fasta"
     out = os.path.join(args.output, "consensus." + ext)
     stitch.stitch_to_fasta(
@@ -574,6 +685,30 @@ def _cmd_align(args):
     mapping.align_reads(
         args.reads, args.draft, args.output, threads=args.threads,
         band=args.band)
+    return 0
+
+
+def _cmd_fastrle(args):
+    from medaka_tpu_torch import rle
+    rle.fastrle(args.input, args.output or sys.stdout,
+                block_size=args.block_size)
+    return 0
+
+
+def _cmd_compress_bam(args):
+    from medaka_tpu_torch import rle
+    rle.compress_bam(
+        args.bam_input, args.bam_output, args.ref_fname,
+        regions=_regions_arg(args.regions) if args.regions else None,
+        threads=args.threads, use_fast5_info=args.use_fast5_info)
+    return 0
+
+
+def _cmd_is_rle_model(args):
+    from medaka_tpu_torch import models
+    from medaka_tpu_torch.features import HardRLEFeatureEncoder
+    bundle = models.open_model(models.resolve_model(args.model))
+    print(isinstance(bundle.feature_encoder, HardRLEFeatureEncoder))
     return 0
 
 

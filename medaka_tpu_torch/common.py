@@ -18,15 +18,17 @@ import re
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: CUDA unless the CPU is asked for.
 
     Raises when CUDA is asked for (the default) and no GPU is present;
-    nothing falls back to the CPU quietly.
+    nothing falls back to the CPU quietly. (``torch`` is imported here,
+    not with the module: the spawned feature and shard-writer processes
+    import this module and never need torch, whose import takes seconds.)
     """
+    import torch
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -26,7 +26,9 @@
 // and n of units u and u + 8 for two batch columns of each n8 tile
 // (rnn_train.cuh S8Product; ops/rnn_cluster.py SPLIT chooses C and BT on
 // the host: C is the smallest cluster whose slices fit, 1 at H <= 256 in
-// layer 1, so one __syncthreads a step and no cluster barrier there). A
+// layer 1 at 10 inputs, so one __syncthreads a step and no cluster
+// barrier there; 2 at 20 and 120 inputs, whose bf16 W_ih no longer fits
+// beside W_hh in one block). A
 // step: round(127 h) (BT x Hp int8) . W_hh_slice^T on the tensor cores,
 // the gates of the block's units in registers, round(127 h') into every
 // cluster block's next h buffer (distributed shared memory, 16-byte
@@ -40,7 +42,8 @@
 // one int32 sum for each half) runs for the next step between the
 // barrier's arrive and its wait. Layer 2's head: W_head^T . bf16(h) over a
 // block's units on the tensor cores (mma.sync m16n8k16, f32 sums; the
-// tile's 16 rows are up to 16 classes: 5 haploid, 15 diploid), then
+// m16 tiles of W_head^T are up to 64 classes: 5 haploid, 15 diploid, 49
+// run-length), then
 // over the cluster's blocks in rank order, each block for its share of
 // the columns: a run repeats bit for bit.
 //
@@ -78,12 +81,21 @@ namespace {
 
 constexpr int MODE_T = 0;
 constexpr int MODE_ROWS = 1;
-// head widths of the l2 kernels: the mma.sync tile's 16 rows of W_head^T
-// are classes 0-15; the partial-logit slot and the bf16 kernel's
-// registers hold the launch's class count rounded up to 8 (8 or 16)
-constexpr int HEAD_MAX = 16;
+// head widths of the l2 kernels: W_head^T is cut into m16 tiles of the
+// mma.sync product, tile m holding classes 16 m .. 16 m + 15 (one tile for
+// the haploid 5 and the diploid 15 classes, four for the run-length
+// scheme's 49); the partial-logit slot holds the launch's class count
+// rounded up to 8. The bf16 kernel keeps W_head in registers up to 16
+// classes and reads it through L1 above that (head_regs)
+constexpr int HEAD_MAX = 64;
 __host__ __device__ constexpr int head_slot(int ncls) {
-  return ncls > 8 ? 16 : 8;
+  return (ncls + 7) / 8 * 8;
+}
+__host__ __device__ constexpr int head_tiles(int ncls) {
+  return (ncls + 15) / 16;
+}
+constexpr int head_regs(int ncls) {
+  return ncls <= 8 ? 8 : ncls <= 16 ? 16 : HEAD_MAX;
 }
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 
@@ -132,8 +144,9 @@ typedef ClusterGeo<3, SPLIT_UG> SplitBase;
 // input operand (layer 1: x [2][BT][INp] bf16; layer 2: [prev_f; prev_b]
 // [2][BT][ldi] int8), and in layer 2 the head's operands, bf16(h) of the
 // block's units [2][BT][U + 8] and the block's rows of W_head^T
-// [16][U + 8] bf16, and (C > 1) the blocks' partial logits of the block's
-// CR = ceil(BT / C) columns [2][C][CR][KS] f32, KS = head_slot(ncls).
+// [16 HT][U + 8] bf16 (HT = head_tiles(ncls)), and (C > 1) the blocks'
+// partial logits of the block's CR = ceil(BT / C) columns [2][C][CR][KS]
+// f32, KS = head_slot(ncls).
 // ops/rnn_cluster.py smem_bytes mirrors it.
 struct SplitGeo : SplitBase {
   bool l2;
@@ -142,12 +155,13 @@ struct SplitGeo : SplitBase {
   int INp;  // the same padded to 8 (16 bytes of bf16)
   int ldh;  // padded row (bytes) of the W_hh slice and of h: Hp + 16
   int ldi;  // padded row (bytes) of the W_ih slice and the input: 2H + 16
-  int KS;   // layer 2: a column's partial logits in the slot (8 or 16)
+  int KS;   // layer 2: a column's partial logits in the slot
+  int HT;   // layer 2: m16 tiles of W_head^T
   __host__ __device__ SplitGeo(bool l2_, int H, int c, int bt, int in,
                                int ncls)
       : SplitBase(H, c, bt), l2(l2_), IN(in), INe((in + 1) / 2 * 2),
         INp((in + 7) / 8 * 8), ldh(Hp + 16), ldi(2 * H + 16),
-        KS(head_slot(ncls)) {}
+        KS(head_slot(ncls)), HT(head_tiles(ncls)) {}
   __host__ __device__ size_t whh_bytes() const {
     return align16(static_cast<size_t>(rows()) * ldh);
   }
@@ -165,9 +179,9 @@ struct SplitGeo : SplitBase {
     return l2 ? align16(static_cast<size_t>(2) * BT * ldi)
               : align16(static_cast<size_t>(2) * BT * INp * sizeof(bf16));
   }
-  // layer 2: bf16(h) [2][BT][U + 8] and W_head^T [16][U + 8]
+  // layer 2: bf16(h) [2][BT][U + 8] and W_head^T [16 HT][U + 8]
   __host__ __device__ size_t head_bytes() const {
-    return l2 ? align16(static_cast<size_t>(2 * BT + 16) * (U + 8) *
+    return l2 ? align16(static_cast<size_t>(2 * BT + 16 * HT) * (U + 8) *
                         sizeof(bf16))
               : 0;
   }
@@ -211,7 +225,7 @@ struct SplitArgs {
   const int8_t* prev_f;  // layer 2: (T, B, H) int8, layer 1's outputs
   const int8_t* prev_b;
   const int8_t* w_in;    // layer 2: (2, C, 3U, 2H) int8 slices
-  const bf16* w_head;    // layer 2: (2, C, 16, U) bf16 W_head^T rows
+  const bf16* w_head;    // layer 2: (2, C, 16 HT, U) bf16 W_head^T rows
   float* lg_f;           // layer 2: (B, T, ncls) f32 logit partials
   float* lg_b;
   int T, B, H, IN, C, BT, ncls;
@@ -251,7 +265,7 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
   unsigned char* in_s = sp;
   sp += g.in_bytes();
   bf16* hb_s = reinterpret_cast<bf16*>(sp);  // [2][BT][U + 8]
-  bf16* whd_s = hb_s + 2 * BT * (U + 8);      // [16][U + 8]
+  bf16* whd_s = hb_s + 2 * BT * (U + 8);      // [16 HT][U + 8]
   sp += g.head_bytes();
   float* slot_s = reinterpret_cast<float*>(sp);
 
@@ -260,8 +274,8 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
   if constexpr (L2) {
     load_rows(wih_s, ldi, a.w_in + blk * R * 2 * H, 2 * H, R);
     load_rows(whd_s, (U + 8) * static_cast<int>(sizeof(bf16)),
-              a.w_head + blk * 16 * U, U * static_cast<int>(sizeof(bf16)),
-              16);
+              a.w_head + blk * 16 * g.HT * U,
+              U * static_cast<int>(sizeof(bf16)), 16 * g.HT);
   }
   else
     load_rows(wih_s, 0, a.w_ih + blk * R * g.INe,
@@ -534,17 +548,22 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
       }
     }
     if constexpr (L2) {
-      // the block's head partial W_head^T (16 x U) . bf16(h)^T (U x BT) on
-      // the tensor cores, f32 sums over the block's units in a fixed
-      // order, a warp for each n8 tile of columns: to the logits (C = 1)
-      // or to this block's slot at the rank that sums the column
+      // the block's head partial W_head^T (16 HT x U) . bf16(h)^T (U x BT)
+      // on the tensor cores, f32 sums over the block's units in a fixed
+      // order, a warp for each (m16 tile of classes, n8 tile of columns):
+      // to the logits (C = 1) or to this block's slot at the rank that
+      // sums the column
       float* lg = d ? a.lg_b : a.lg_f;
-      for (int nt = warp; nt < BT / 8; nt += nwarps) {
+      const int ntiles = BT / 8;
+      for (int job = warp; job < ntiles * g.HT; job += nwarps) {
+        const int nt = job % ntiles;
+        const int mt = job / ntiles;
         float hacc[4] = {};
         const int mat = lane >> 3;
         const int lrow = lane & 7;
         const uint32_t a_addr = smem_addr(
-            whd_s + ((mat & 1) * 8 + lrow) * (U + 8) + (mat >> 1) * 8);
+            whd_s + (mt * 16 + (mat & 1) * 8 + lrow) * (U + 8) +
+            (mat >> 1) * 8);
         const uint32_t b_addr = smem_addr(
             hb_s + (cur * BT + nt * 8 + lrow) * (U + 8) + (mat & 1) * 8);
         for (int ks = 0; ks < U / 16; ++ks) {
@@ -553,11 +572,11 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
           ldsm_x2(bm, b_addr + ks * 32);
           mma_bf16(hacc, am, bm[0], bm[1]);
         }
-        // classes gid (hacc[0..1]) and gid + 8 (hacc[2..3]) of columns
-        // nt * 8 + tig * 2 (+ 1)
+        // classes 16 mt + gid (hacc[0..1]) and 16 mt + gid + 8
+        // (hacc[2..3]) of columns nt * 8 + tig * 2 (+ 1)
 #pragma unroll
         for (int hi = 0; hi < 2; ++hi) {
-          const int k = gid + 8 * hi;
+          const int k = mt * 16 + gid + 8 * hi;
           if (k >= a.ncls) continue;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -698,6 +717,10 @@ size_t l2_smem_bytes(int BT, int H, int nthreads, int CPT, int KC) {
                  sizeof(float));
 }
 
+// input values of the next step a thread of the bf16 layer 1 stages at
+// most: BT IN <= L1_XPT H NQ, i.e. CPT IN <= 4 H
+constexpr int L1_XPT = 4;
+
 // Layer 1: x (T, B, IN) bf16 -> out_f, out_b (T, B, H) bf16.
 // grid (ceil(B / BT), 2 directions), block H * NQ threads, BT = CPT * NQ.
 template <int CPT, int MODE>
@@ -749,27 +772,29 @@ __global__ void __launch_bounds__(512)
   }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(d == 0 ? out_f : out_b);
 
-  // thread tid < BT * IN stages one input value of the next step
-  const bool xl = tid < BT * IN;
-  const int xc = xl ? tid / IN : 0;
-  const int xk = xl ? tid % IN : 0;
-  const int xb = b0 + xc;
-  if (xl) {
-    const int t0 = d == 0 ? 0 : T - 1;
-    x_s[xc * IN + xk] =
-        xb < B ? __bfloat162float(x[(static_cast<size_t>(t0) * B + xb) * IN + xk])
-               : 0.0f;
-  }
+  // thread tid stages input values tid + v * blockDim.x (v < L1_XPT) of
+  // the next step: value e is feature e % IN of column e / IN
+  const int nx = BT * IN;
+  auto load_x = [&](int tt, int e) -> float {
+    const int xb = b0 + e / IN;
+    return xb < B ? __bfloat162float(
+                        x[(static_cast<size_t>(tt) * B + xb) * IN + e % IN])
+                  : 0.0f;
+  };
+  for (int e = tid; e < nx; e += blockDim.x)
+    x_s[e] = load_x(d == 0 ? 0 : T - 1, e);
   __syncthreads();
 
   for (int i = 0; i < T; ++i) {
     const int cur = i & 1;
     const int nxt = cur ^ 1;
     const int t = d == 0 ? i : T - 1 - i;
-    float x_next = 0.0f;
-    if (xl && i + 1 < T && xb < B) {
-      const int tn = d == 0 ? i + 1 : T - 2 - i;
-      x_next = __bfloat162float(x[(static_cast<size_t>(tn) * B + xb) * IN + xk]);
+    float x_next[L1_XPT];
+#pragma unroll
+    for (int v = 0; v < L1_XPT; ++v) {
+      const int e = tid + v * blockDim.x;
+      x_next[v] =
+          e < nx && i + 1 < T ? load_x(d == 0 ? i + 1 : T - 2 - i, e) : 0.0f;
     }
 
     // input projection W_ih x + b_ih (f32 accumulation of bf16 products)
@@ -812,13 +837,19 @@ __global__ void __launch_bounds__(512)
       act_n[c * H + j] = hb;
       if (b < B) out[(static_cast<size_t>(t) * B + b) * H + j] = hb;
     }
-    if (xl) x_s[nxt * BT * IN + xc * IN + xk] = x_next;
+#pragma unroll
+    for (int v = 0; v < L1_XPT; ++v) {
+      const int e = tid + v * blockDim.x;
+      if (e < nx) x_s[nxt * BT * IN + e] = x_next[v];
+    }
     __syncthreads();
   }
 }
 
 // Layer 2 + head: prev_f, prev_b (T, B, H) bf16 -> lg_f, lg_b (B, T, C)
-// f32 logit partials, C <= KC (head_slot(C)). The layer-2 input
+// f32 logit partials, C <= KC (head_regs(C)); up to 16 classes a thread
+// keeps its unit's W_head column in registers, above that it reads it
+// through L1 (56 registers of a 49-class head would spill). The layer-2 input
 // projection runs here, per step, from the chunk-interleaved (2H/chunk,
 // 3H) W_ih read through L2.
 template <int CPT, int MODE, int KC>
@@ -866,10 +897,13 @@ __global__ void __launch_bounds__(512)
     bh[g] = b_hh[row];
     bi[g] = b_ih[row];
   }
-  float wh[KC];
+  constexpr bool WH_REGS = KC <= 16;
+  float wh[WH_REGS ? KC : 1];
+  if constexpr (WH_REGS) {
 #pragma unroll
-  for (int k = 0; k < KC; ++k)
-    wh[k] = k < C ? w_head[(static_cast<size_t>(d) * C + k) * H + j] : 0.0f;
+    for (int k = 0; k < KC; ++k)
+      wh[k] = k < C ? w_head[(static_cast<size_t>(d) * C + k) * H + j] : 0.0f;
+  }
   int len[CPT];
   float h[CPT];
 #pragma unroll
@@ -896,20 +930,21 @@ __global__ void __launch_bounds__(512)
     reinterpret_cast<uint4*>(in_s)[ic * col_chunks + ik] =
         load_in(d == 0 ? 0 : T - 1);
   }
-  // thread tid < BT * C sums the per-warp head partials of one (column, class)
-  const bool fl = tid < BT * C;
-  const int fc = fl ? tid / C : 0;
-  const int fk = fl ? tid % C : 0;
-  const int fb = b0 + fc;
+  // thread tid sums the per-warp head partials of (column, class) pairs
+  // e = tid, tid + blockDim.x, ..., column e / C, class e % C
   auto flush = [&](int step) {
     const int buf = step & 1;
-    const int q = fc / CPT;
-    const int cc = fc % CPT;
-    float s = 0.0f;
-    for (int lw = 0; lw < wpq; ++lw)
-      s += red_s[((buf * nwarps + q * wpq + lw) * CPT + cc) * KC + fk];
     const int ts = d == 0 ? step : T - 1 - step;
-    if (fb < B) lg[(static_cast<size_t>(fb) * T + ts) * C + fk] = s;
+    for (int e = tid; e < BT * C; e += blockDim.x) {
+      const int fc = e / C;
+      const int fk = e % C;
+      const int q = fc / CPT;
+      const int cc = fc % CPT;
+      float s = 0.0f;
+      for (int lw = 0; lw < wpq; ++lw)
+        s += red_s[((buf * nwarps + q * wpq + lw) * CPT + cc) * KC + fk];
+      if (b0 + fc < B) lg[(static_cast<size_t>(b0 + fc) * T + ts) * C + fk] = s;
+    }
   };
   __syncthreads();
 
@@ -917,7 +952,7 @@ __global__ void __launch_bounds__(512)
     const int cur = i & 1;
     const int nxt = cur ^ 1;
     const int t = d == 0 ? i : T - 1 - i;
-    if (fl && i > 0) flush(i - 1);
+    if (i > 0) flush(i - 1);
     uint4 in_next = make_uint4(0, 0, 0, 0);
     if (il && i + 1 < T) in_next = load_in(d == 0 ? i + 1 : T - 2 - i);
 
@@ -952,21 +987,30 @@ __global__ void __launch_bounds__(512)
       act_n[(c0 + cc) * H + j] = __float2bfloat16_rn(h[cc]);
       // head partial: bf16(h) . W_head[:, j], reduced over the warp
       const float hb = bf16r(h[cc]);
-#pragma unroll
-      for (int k = 0; k < KC; ++k) {
-        if (k >= C) break;
-        float v = hb * wh[k];
+      auto head = [&](int k, float wk) {
+        float v = hb * wk;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, off);
         if (lane == 0) red_s[((cur * nwarps + warp) * CPT + cc) * KC + k] = v;
+      };
+      if constexpr (WH_REGS) {
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          if (k >= C) break;
+          head(k, wh[k]);
+        }
+      } else {
+        // a loop, not unrolled: 64 unrolled classes spill at CPT = 4
+        for (int k = 0; k < C; ++k)
+          head(k, __ldg(&w_head[(static_cast<size_t>(d) * C + k) * H + j]));
       }
     }
     if (il) reinterpret_cast<uint4*>(in_s)[(nxt * BT + ic) * col_chunks + ik] =
         in_next;
     __syncthreads();
   }
-  if (fl) flush(T - 1);
+  flush(T - 1);
 }
 
 template <int CPT, int MODE>
@@ -975,6 +1019,7 @@ cudaError_t launch_l1(const void* x, const int* lengths, const void* w_ih_t,
                       void* out_f, void* out_b, int T, int B, int IN, int H,
                       int NQ, cudaStream_t stream) {
   const int BT = CPT * NQ;
+  if (BT * IN > L1_XPT * H * NQ) return cudaErrorInvalidValue;
   const size_t smem = l1_smem_bytes(BT, IN, H);
   auto kern = gru_l1_split_kernel<CPT, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1029,8 +1074,11 @@ cudaError_t dispatch_l2_cpt(int cpt, Args... args) {
 
 template <int MODE, typename... Args>
 cudaError_t dispatch_l2(int cpt, int ncls, Args... args) {
-  return head_slot(ncls) == 8 ? dispatch_l2_cpt<MODE, 8>(cpt, args...)
-                              : dispatch_l2_cpt<MODE, 16>(cpt, args...);
+  switch (head_regs(ncls)) {
+    case 8: return dispatch_l2_cpt<MODE, 8>(cpt, args...);
+    case 16: return dispatch_l2_cpt<MODE, 16>(cpt, args...);
+    default: return dispatch_l2_cpt<MODE, HEAD_MAX>(cpt, args...);
+  }
 }
 
 }  // namespace
@@ -1128,7 +1176,7 @@ size_t gru_l1_split_smem(int bt, int in_features, int hidden) {
 }
 
 size_t gru_l2head_split_smem(int cpt, int nq, int hidden, int ncls) {
-  return l2_smem_bytes(cpt * nq, hidden, hidden * nq, cpt, head_slot(ncls));
+  return l2_smem_bytes(cpt * nq, hidden, hidden * nq, cpt, head_regs(ncls));
 }
 
 int gru_l1_split_launch(const void* x, const int* lengths, const void* w_ih_t,

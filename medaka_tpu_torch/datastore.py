@@ -8,6 +8,9 @@ a probability file written by either package stitches with the other:
   and written with :mod:`medaka_tpu_torch.io.hdf5` (no h5py).
   Files carrying only the reference's pickled metadata (``meta/``) are
   refused: their conversion is not ported yet.
+- :class:`ShardedDataStore` — round-robin writer over N shard files in
+  spawned writer processes, with a ``shard_files`` manifest in the base
+  file that either package's :class:`DataIndex` expands.
 - :class:`DataIndex` — multi-file sample registry with per-contig sorted
   iteration.
 
@@ -46,9 +49,9 @@ class DataStore:
         """Open an HDF5 sample store.
 
         :param filename: file path.
-        :param mode: 'r', 'w', or 'a' (a new file; appending to an
-            existing one is not ported). Positions are narrowed to
-            int32/int16 on disk, uncompressed.
+        :param mode: 'r', 'w', or 'a' (appends to an existing file: its
+            samples, registry and metadata are loaded and extended).
+            Positions are narrowed to int32/int16 on disk, uncompressed.
         """
         self.filename = filename
         self.mode = mode
@@ -108,6 +111,10 @@ class DataStore:
     def set_meta(self, obj, name: str):
         """Store a metadata item under ``name``."""
         self.meta[name] = obj
+
+    def copy_meta(self, other: "DataStore"):
+        """Copy all metadata from another (open) store."""
+        self._meta = dict(other.meta)
 
     def _load_metadata(self) -> Dict:
         meta: Dict = {}
@@ -243,6 +250,139 @@ class DataStore:
             json.dumps(sorted(self.sample_registry)).encode())
 
 
+def _shard_writer_main(path, queue, err_queue):
+    """Shard writer process (``medaka_tpu.datastore._shard_writer_main``):
+    drain samples into ``path`` until the None sentinel, then report None
+    or the error on ``err_queue``."""
+    try:
+        with DataStore(path, "a") as ds:
+            while True:
+                item = queue.get()
+                if item is None:
+                    ds.write_registry()
+                    break
+                ds.write_sample(item)
+        err_queue.put(None)
+    except Exception as e:
+        err_queue.put("{}: {}".format(type(e).__name__, e))
+
+
+class ShardedDataStore:
+    """Round-robin writer over N shard files in writer processes
+    (``medaka_tpu.datastore.ShardedDataStore``, the same file names,
+    manifest attribute and layout).
+
+    Sample ``k`` goes to ``{filename}.shard{k % N:02d}``, each shard
+    written by its own spawned process fed over a bounded queue; the base
+    file holds the metadata and a ``shard_files`` root attribute (a JSON
+    list of the shards' base names) that :func:`expand_shards` expands,
+    so every consumer keeps its single-path signature. The metadata is
+    copied into each shard at :meth:`close`. Spawn, not fork: the caller
+    holds a CUDA context. A writer that fails, or dies without reporting,
+    raises at :meth:`close`.
+    """
+
+    def __init__(self, filename: str, shards: int = 2):
+        import multiprocessing as mp
+        self.filename = filename
+        self.base = DataStore(filename, "a")
+        self.shard_names = [
+            "{}.shard{:02d}".format(filename, k) for k in range(shards)]
+        self.base.fh.attrs["shard_files"] = json.dumps(
+            [os.path.basename(n) for n in self.shard_names])
+        ctx = mp.get_context("spawn")
+        self._queues = [ctx.Queue(maxsize=64) for _ in self.shard_names]
+        self._err_queue = ctx.Queue()
+        self._procs = [
+            ctx.Process(target=_shard_writer_main,
+                        args=(name, q, self._err_queue), daemon=True)
+            for name, q in zip(self.shard_names, self._queues)]
+        for p in self._procs:
+            p.start()
+        self._next = 0
+        self._closed = False
+
+    def set_meta(self, obj, name: str):
+        """Store metadata in the base file (copied into the shards at
+        close)."""
+        self.base.set_meta(obj, name)
+
+    def write_sample(self, sample: Sample):
+        """Queue the sample on the next shard (round-robin); raises if
+        that shard's writer has died."""
+        import queue as queue_mod
+        q, proc = self._queues[self._next], self._procs[self._next]
+        while True:
+            try:
+                q.put(sample, timeout=1.0)
+                break
+            except queue_mod.Full:
+                if not proc.is_alive():
+                    raise IOError("Shard writer for {} died (exit code "
+                                  "{})".format(self.shard_names[self._next],
+                                               proc.exitcode))
+        self._next = (self._next + 1) % len(self._queues)
+
+    def write_registry(self):
+        """No-op: each shard persists its registry at close."""
+
+    def close(self):
+        """Drain the writers, copy the metadata into each shard and close
+        the base file; raise if a writer failed."""
+        if self._closed:
+            return
+        self._closed = True
+        import queue as queue_mod
+        errors = []
+        for q, p in zip(self._queues, self._procs):
+            while p.is_alive():
+                try:
+                    q.put(None, timeout=1.0)
+                    break
+                except queue_mod.Full:
+                    continue
+        reports = 0
+        while reports < len(self._procs):
+            try:
+                err = self._err_queue.get(timeout=1.0)
+            except queue_mod.Empty:
+                if any(p.is_alive() for p in self._procs):
+                    continue
+                try:   # a report may still be in the pipe
+                    err = self._err_queue.get(timeout=1.0)
+                except queue_mod.Empty:
+                    errors.append("a shard writer exited without "
+                                  "reporting")
+                    break
+            reports += 1
+            if err is not None:
+                errors.append(err)
+        for p in self._procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                errors.append("shard writer hung and was terminated")
+            elif p.exitcode != 0:
+                errors.append("shard writer exited with code {}".format(
+                    p.exitcode))
+        try:
+            if not errors:
+                for name in self.shard_names:
+                    with DataStore(name, "a") as ds:
+                        ds.copy_meta(self.base)
+        finally:
+            self.base.close()
+        if errors:
+            raise IOError("Shard writer failed: {}".format(
+                "; ".join(errors)))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 class _IndexEntry(tuple):
     """(sample_name, filename) with parsed coordinates."""
 
@@ -351,6 +491,21 @@ class DataIndex:
                 ends.append(int(float(d["end"])) + 1)
             out.append(Region(ref_name, min(starts), max(ends)))
         return sorted(out)
+
+    def max_sample_size(self) -> int:
+        """Longest sample (columns) across all files, from the shapes of
+        their ``positions`` datasets (no data read)."""
+        longest = 0
+        for fname in self.filenames:
+            with hdf5.File(fname, "r") as fh:
+                if DataStore._data_path_ not in fh:
+                    continue
+                data = fh[DataStore._data_path_]
+                for name in data:
+                    group = data[name]
+                    if "positions" in group:
+                        longest = max(longest, group["positions"].shape[0])
+        return longest
 
     def yield_from_feature_files(
             self, regions: Optional[Iterable[Region]] = None,

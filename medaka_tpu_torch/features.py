@@ -1,13 +1,14 @@
 """Pileup featurisation: BAM alignments -> network input arrays.
 
-Counterpart of ``medaka_tpu/features.py``, trimmed to the counts and
-read-level encoders: ``pileup_counts`` with its native helpers,
-``CountsFeatureEncoder``, ``read_alignment_matrix``,
+Counterpart of ``medaka_tpu/features.py``: ``pileup_counts`` with its
+native helpers and the Weibull partial counts of run-length reads,
+``CountsFeatureEncoder``, the run-length encoders
+(``HardRLEFeatureEncoder``, ``SymHardRLEFeatureEncoder``,
+``SoftRLEFeatureEncoder``), ``read_alignment_matrix``,
 ``ReadAlignmentFeatureEncoder``, ``SampleGenerator`` (with and without a
 truth BAM), ``create_samples``, which writes the (labelled) feature
 files that ``train`` reads, and ``get_trimmed_reads``, the region-trimmed
-reads of the VCF annotator. The run-length encoders are not ported yet;
-``from_dict`` and ``create_samples`` refuse them by name.
+reads of the VCF annotator.
 
 A single-datatype region goes from BGZF bytes to counts in the native
 library (``native/src/pileup.cpp``). Regions it cannot take (several
@@ -33,6 +34,10 @@ from medaka_tpu_torch.common import (
     make_positions)
 from medaka_tpu_torch.io.bam import (
     C_D, C_EQ, C_I, C_M, C_N, C_S, C_X, BamReader, BamRecord)
+
+#: Weibull partial counts are stored as integers of this scale
+#: (``medaka_tpu/features.py`` WEIBULL_SCALE)
+WEIBULL_SCALE = 10000
 
 _CONSUMES_Q = np.array([1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=np.int64)
 _CONSUMES_R = np.array([1, 0, 1, 1, 0, 0, 0, 1, 1], dtype=np.int64)
@@ -276,10 +281,35 @@ def _pileup_counts_payload(reader, region, num_qstrat, min_mapq,
     return _split_blocks(counts, majors, minors)
 
 
+def _weibull_fractions(rec: BamRecord, qpos: np.ndarray, num_qstrat: int,
+                       logger) -> np.ndarray:
+    """Per-base homopolymer partial counts from WL/WK Weibull tags
+    (``medaka_tpu.features._weibull_fractions``, ``medaka_counts.c:133-171``:
+    zero counts when the tags are missing or out of range)."""
+    out = np.zeros((len(qpos), num_qstrat), dtype=np.float64)
+    wl = rec.tags.get("WL")
+    wk = rec.tags.get("WK")
+    if wl is None or wk is None:
+        logger.debug(
+            "Failed to retrieve Weibull parameter tags for read %s.",
+            rec.query_name)
+        return out
+    ok = qpos < min(len(wl), len(wk))
+    scale = np.asarray(wl, dtype=np.float64)[qpos[ok]]
+    shape = np.asarray(wk, dtype=np.float64)[qpos[ok]]
+    x = np.arange(1, num_qstrat + 1, dtype=np.float64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        a = np.power((x - 1)[None, :] / scale[:, None], shape[:, None])
+        b = np.power(x[None, :] / scale[:, None], shape[:, None])
+        # fmax (not maximum): C fmax(0, NaN) == 0 for overflowed shapes
+        out[ok] = np.fmax(0.0, -np.exp(-a) * np.expm1(a - b))
+    return out
+
+
 def pileup_counts(
         region: Region, bam, dtype_prefixes=None, tag_name=None,
         tag_value=None, keep_missing=False, num_qstrat=1, read_group=None,
-        min_mapq=1):
+        min_mapq=1, weibull_summation=False):
     """Create pileup count matrices for a region.
 
     :param region: `Region` to process.
@@ -287,6 +317,9 @@ def pileup_counts(
     :param dtype_prefixes: names of datatypes split by the ``DT`` tag;
         `None` or a singleton means no splitting.
     :param num_qstrat: number of qscore stratification layers.
+    :param weibull_summation: base counts are the reads' WL/WK Weibull
+        partial counts over the ``num_qstrat`` run lengths, times
+        :data:`WEIBULL_SCALE` (the numpy path, read by read).
 
     :returns: list of (counts, positions) tuples, one per contiguous block
         of covered reference positions. ``counts`` has shape
@@ -309,7 +342,7 @@ def pileup_counts(
 
     reader = bam if isinstance(bam, BamReader) else BamReader(bam)
     try:
-        if num_dtypes == 1:
+        if num_dtypes == 1 and not weibull_summation:
             # hot path: record scan + filter + pileup fully in C++
             # over the inflated payload, no BamRecord objects at all
             payload_result = _pileup_counts_payload(
@@ -398,13 +431,35 @@ def pileup_counts(
         cols, chan, read_of = cols[valid], chan[valid], read_of[valid]
         quals = quals[valid]
         dtype_off = dtype_off_of_read[read_of]
-        if num_qstrat > 1:
-            qstrat = np.maximum(
-                0, np.minimum(quals.astype(np.int64), num_qstrat) - 1)
+        if weibull_summation:
+            # Weibull partial counts need each read's WL/WK tags
+            logger = common.get_named_logger("Pileup")
+            for rec_i, rec in enumerate(reads):
+                rev = ReadEvents(rec, start, end)
+                qpos = np.concatenate([rev.aln_qpos, rev.ins_qpos])
+                if not len(qpos):
+                    continue
+                rcols = np.concatenate([
+                    col_of_pos[rev.aln_rpos - start],
+                    col_of_pos[rev.ins_anchor - start] + rev.ins_minor])
+                rchan = NT16_TO_CHANNEL[
+                    rec.seq_nt16[qpos] + (16 if rev.is_rev else 0)]
+                ok = rchan >= 0
+                rcols, rchan, qpos = rcols[ok], rchan[ok], qpos[ok]
+                frac = _weibull_fractions(rec, qpos, num_qstrat, logger)
+                contrib = (WEIBULL_SCALE * frac).astype(np.int64)
+                idx = (rcols[:, None] * col_feat + dtype_off_of_read[rec_i]
+                       + FEATLEN * np.arange(num_qstrat)[None, :]
+                       + rchan[:, None])
+                np.add.at(flat, idx.ravel(), contrib.ravel())
         else:
-            qstrat = 0
-        idx = cols * col_feat + dtype_off + FEATLEN * qstrat + chan
-        flat += np.bincount(idx, minlength=flat.size)
+            if num_qstrat > 1:
+                qstrat = np.maximum(
+                    0, np.minimum(quals.astype(np.int64), num_qstrat) - 1)
+            else:
+                qstrat = 0
+            idx = cols * col_feat + dtype_off + FEATLEN * qstrat + chan
+            flat += np.bincount(idx, minlength=flat.size)
 
     counts = flat.reshape(n_cols, col_feat)
 
@@ -469,6 +524,17 @@ class BaseFeatureEncoder(metaclass=_EncoderMeta):
             else:
                 raise ValueError("Missing value for {}".format(opt))
         return {"type": self.__class__.__name__, "kwargs": kwargs}
+
+    def __getstate__(self):
+        # the logger does not pickle: encoders travel to feature worker
+        # processes (prediction.DataLoader(feature_processes=...))
+        state = self.__dict__.copy()
+        state.pop("logger", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.logger = common.get_named_logger("Feature")
 
     def bam_to_sample(self, reads_bam, region: Region) -> List[Sample]:
         """Featurise a region of a BAM into (one or more) `Sample` s."""
@@ -622,6 +688,76 @@ class CountsFeatureEncoder(BaseFeatureEncoder):
         return Sample(
             ref_name=region.ref_name, features=feature_array, labels=None,
             ref_seq=None, positions=positions, label_probs=None, depth=depth)
+
+
+class HardRLEFeatureEncoder(CountsFeatureEncoder):
+    """Counts stratified by run length encoded in base qualities
+    (``medaka_tpu.features.HardRLEFeatureEncoder``)."""
+
+    def __init__(
+            self, normalise="total", dtypes=("",), tag_name=None,
+            tag_value=None, tag_keep_missing=False, num_qstrat=15,
+            read_group=None, min_mapq=1):
+        """Initialise with ``num_qstrat`` stratification layers."""
+        self.num_qstrat = num_qstrat
+        super().__init__(
+            normalise, dtypes=dtypes, tag_name=tag_name, tag_value=tag_value,
+            tag_keep_missing=tag_keep_missing, read_group=read_group,
+            min_mapq=min_mapq)
+        self.feature_indices = pileup_counts_norm_indices(
+            self.dtypes, num_qstrat=self.num_qstrat)
+
+    @property
+    def feature_vector_length(self):
+        """Width of one feature vector."""
+        return len(self.dtypes) * FEATLEN * self.num_qstrat
+
+    def _qstrat(self):
+        return self.num_qstrat
+
+    def _pileup_function(self, region, bam):
+        return pileup_counts(
+            region, bam, dtype_prefixes=self.dtypes,
+            tag_name=self.tag_name, tag_value=self.tag_value,
+            keep_missing=self.tag_keep_missing, num_qstrat=self.num_qstrat,
+            read_group=self.read_group, min_mapq=self.min_mapq)
+
+
+class SymHardRLEFeatureEncoder(HardRLEFeatureEncoder):
+    """HardRLE where a spanned-but-absent insertion counts as deletion
+    (``medaka_tpu.features.SymHardRLEFeatureEncoder``)."""
+
+    def _pileup_function(self, region, bam):
+        # per coverage block (a gapped region yields several)
+        out = []
+        for counts, positions in super()._pileup_function(region, bam):
+            minor_inds = np.where(positions["minor"] > 0)
+            major_at_minor = positions["major"][minor_inds]
+            major_ind = np.searchsorted(
+                positions["major"], major_at_minor, side="left")
+            for (dt, is_rev), inds in self.feature_indices.items():
+                dt_depth = np.sum(counts[:, inds], axis=1)
+                featlen_index = REV_DEL if is_rev else FWD_DEL
+                dtype_size = FEATLEN * self.num_qstrat
+                del_ind = [
+                    x for x in inds if x % dtype_size == featlen_index][0]
+                counts[minor_inds, del_ind] = \
+                    dt_depth[major_ind] - dt_depth[minor_inds]
+            out.append((counts, positions))
+        return out
+
+
+class SoftRLEFeatureEncoder(HardRLEFeatureEncoder):
+    """RLE pileups from Weibull partial counts (WL/WK tags)
+    (``medaka_tpu.features.SoftRLEFeatureEncoder``)."""
+
+    def _pileup_function(self, region, bam):
+        return pileup_counts(
+            region, bam, dtype_prefixes=self.dtypes,
+            tag_name=self.tag_name, tag_value=self.tag_value,
+            keep_missing=self.tag_keep_missing, num_qstrat=self.num_qstrat,
+            weibull_summation=True, read_group=self.read_group,
+            min_mapq=self.min_mapq)
 
 
 # ---------------------------------------------------------------------------
@@ -1000,6 +1136,24 @@ class SampleGenerator:
 # ---------------------------------------------------------------------------
 # Feature-file creation (`medaka_tpu_torch features`)
 # ---------------------------------------------------------------------------
+
+
+def featurize_region(bam, region, encoder, chunk_len, chunk_overlap):
+    """Featurise one region in a worker process of
+    ``prediction.DataLoader(feature_processes=...)``
+    (``medaka_tpu.prediction._featurize_region_task``): its samples and
+    the quarantined short sub-regions with their unchunked samples. It
+    lives here, and not in ``prediction``, so that the spawned worker
+    imports no torch: it builds features only (numpy and the native
+    library, which the parent has built) and never touches the GPU."""
+    gen = SampleGenerator(bam, region, encoder, chunk_len=chunk_len,
+                          chunk_overlap=chunk_overlap)
+    samples = list(gen.samples)
+    quarantined = []
+    for qregion, _size in gen._quarantined:
+        sub = SampleGenerator(bam, qregion, encoder, enable_chunking=False)
+        quarantined.append((qregion, list(sub.samples)))
+    return samples, quarantined
 
 
 def _samples_worker(bam, region, feature_encoder, label_scheme, truth_bam,

@@ -21,6 +21,8 @@ CIGAR_OPS = "MIDNSHP=X"
 C_M, C_I, C_D, C_N, C_S, C_H, C_P, C_EQ, C_X = range(9)
 _CONSUMES_REF = np.array(
     [1, 0, 1, 1, 0, 0, 0, 1, 1], dtype=np.int64)  # M D N = X
+_CONSUMES_QUERY = np.array(
+    [1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=np.int64)  # M I S = X
 _ALN_OPS = (C_M, C_EQ, C_X)
 
 SEQ_NT16_STR = "=ACMGRSVTWYHKDBN"
@@ -239,6 +241,20 @@ class BamRecord:
             self.raw, dtype="<u4", count=self._n_cigar,
             offset=self._cigar_off)
         return int(np.sum((enc >> 4) * _CONSUMES_REF[enc & 0xF]))
+
+    @property
+    def cigarstring(self) -> str:
+        """Text CIGAR ("*" for none)."""
+        if self._n_cigar == 0:
+            return "*"
+        return "".join("{}{}".format(n, CIGAR_OPS[op])
+                       for op, n in self.cigar_array)
+
+    @functools.cached_property
+    def query_length(self) -> int:
+        """Number of query bases implied by the CIGAR."""
+        ca = self.cigar_array
+        return int(np.sum(_CONSUMES_QUERY[ca[:, 0]] * ca[:, 1]))
 
     @property
     def reference_start(self) -> int:

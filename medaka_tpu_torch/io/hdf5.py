@@ -5,14 +5,22 @@ version 1 object headers, symbol-table groups), covering what the
 probability and feature files of the datastore hold: groups, and
 contiguous or compact datasets of integers, floats, fixed-length and
 variable-length strings and compound types, and the attributes of the
-root group (read only: ``File.attrs``). Files it writes open in h5py; it
-reads files h5py writes with its default settings. Chunked or compressed
-datasets are refused.
+root group (``File.attrs``; written as fixed-length strings or arrays).
+Files it writes open in h5py; it reads files h5py writes with its
+default settings. Chunked or compressed datasets are refused.
 
 The writer appends each dataset's raw bytes as it is created and writes
 the groups' metadata (object headers, local heaps, symbol-table nodes and
 B-trees) when the file is closed, so samples stream to disk. Writes from
 several threads are serialised by a lock.
+
+Mode "a" on an existing file appends: the file's groups, datasets and
+attributes are read at open, their raw data stays where it is, new
+datasets go after the end of the file, and on close the whole tree's
+metadata is written anew after them (every existing object header's
+messages copied as they are, so datasets of any layout and type survive)
+and the superblock points at it; the old metadata is left unreferenced.
+Overwriting an existing dataset raises, as in a new file.
 """
 from __future__ import annotations
 
@@ -195,6 +203,30 @@ def _decode_attribute(f: "File", buf: bytes):
     return name, value
 
 
+def _encode_dataspace(shape) -> bytes:
+    """Dataspace message (version 1); rank 0 is a scalar."""
+    return struct.pack("<BBBB4x", 1, len(shape), 0, 0) + struct.pack(
+        "<{}Q".format(len(shape)), *shape)
+
+
+def _encode_attribute(name: str, value) -> bytes:
+    """Attribute message (version 1) of a str (a fixed-length string),
+    bytes or array value."""
+    if isinstance(value, str):
+        value = value.encode()
+    if isinstance(value, bytes):
+        value = np.array(value, dtype="S{}".format(max(1, len(value))))
+    arr = np.array(value, order="C")
+    raw_name = name.encode() + b"\0"
+    dtype, space = _encode_datatype(arr.dtype), _encode_dataspace(arr.shape)
+
+    def padded(b):
+        return b + b"\0" * (_pad8(len(b)) - len(b))
+    return (struct.pack("<BBHHH", 1, 0, len(raw_name), len(dtype),
+                        len(space)) + padded(raw_name) + padded(dtype)
+            + padded(space) + arr.tobytes())
+
+
 def _decode_dataspace(buf: bytes):
     version, rank, flags = buf[0], buf[1], buf[2]
     if version == 1:
@@ -263,32 +295,82 @@ class Group:
 class _Written:
     """A dataset created by this writer: its messages and raw bytes."""
 
-    def __init__(self, dtype, shape, address, nbytes, compact=None):
+    def __init__(self, f: "File", dtype, shape, address, nbytes,
+                 compact=None):
+        self._file = f
         self.dtype, self.shape = dtype, shape
         self.address, self.nbytes, self.compact = address, nbytes, compact
 
+    def __getitem__(self, key):
+        if key != () and key != Ellipsis:
+            raise HDF5Error("only whole-dataset reads are supported")
+        raw = self.compact if self.compact is not None else \
+            self._file._read(self.address, self.nbytes)
+        return _decode_values(self._file, raw, self.dtype, self.shape)
+
+
+class _Existing:
+    """A dataset of a file opened for appending: the (type, flags, body)
+    messages of its object header, written again as they are on close."""
+
+    def __init__(self, f: "File", messages):
+        self._file = f
+        self.messages = messages
+
+    def __getitem__(self, key):
+        first = {}
+        for mtype, _, data in self.messages:
+            first.setdefault(mtype, data)
+        return Dataset(self._file, first)[key]
+
+
+class _Group(dict):
+    """A group of a file being written: its members by name and the
+    messages of its object header besides the symbol table (attributes,
+    times), kept from the file it was read from."""
+
+    def __init__(self, messages=()):
+        super().__init__()
+        self.messages = list(messages)
+
 
 class File(Group):
-    """An HDF5 file opened for reading ("r") or writing ("w", or "a" for a
-    file that does not exist yet)."""
+    """An HDF5 file opened for reading ("r"), writing ("w") or appending
+    ("a": a new file, or an existing one whose objects are kept; see the
+    module docstring)."""
 
     def __init__(self, path: str, mode: str = "r"):
         self.filename = path
         self.mode = mode
         self._lock = threading.RLock()
+        self._heaps: Dict[int, bytes] = {}
+        #: root attributes of a file being written, and those read from it
+        #: with their messages (written again unless replaced)
+        self._attrs: Dict[str, object] = {}
+        self._attrs_kept: Dict[str, tuple] = {}
         if mode == "a" and os.path.exists(path) and os.path.getsize(path):
-            raise HDF5Error(
-                "appending to the existing file {} is not supported".format(
-                    path))
-        if mode in ("w", "a"):
+            self._fh = open(path, "r+b")
+            self._tree = None
+            try:
+                self._read_superblock()
+                self._tree = self._load_tree(self._root)
+            except Exception:
+                self._fh.close()
+                raise
+            for mtype, flags, data in self._tree.messages:
+                if mtype == _ATTRIBUTE:
+                    name, value = _decode_attribute(self, data)
+                    self._attrs[name] = value
+                    self._attrs_kept[name] = (value, (mtype, flags, data))
+            super().__init__(self, {})
+        elif mode in ("w", "a"):
             self._fh = open(path, "w+b")
             self._fh.write(b"\0" * _SUPERBLOCK_SIZE)
-            self._tree: Dict = {}
+            self._tree = _Group()
             super().__init__(self, {})
         elif mode == "r":
             self._fh = open(path, "rb")
             self._tree = None
-            self._heaps: Dict[int, bytes] = {}
             super().__init__(self, self._read_superblock())
         else:
             raise ValueError("mode must be 'r', 'w' or 'a'")
@@ -321,8 +403,9 @@ class File(Group):
     # -- reading ------------------------------------------------------------
 
     def _read(self, address: int, size: int) -> bytes:
-        self._fh.seek(address)
-        data = self._fh.read(size)
+        with self._lock:
+            self._fh.seek(address)
+            data = self._fh.read(size)
         if len(data) != size:
             raise HDF5Error("truncated file {}".format(self.filename))
         return data
@@ -343,23 +426,25 @@ class File(Group):
 
     @property
     def attrs(self) -> Dict[str, object]:
-        """The root group's attributes (files opened for reading only);
-        a scalar variable-length string reads as ``str``, as in h5py."""
+        """The root group's attributes; a scalar variable-length string
+        reads as ``str``, as in h5py. In a file being written this is the
+        mapping written on close: set a ``str``, ``bytes`` or array value
+        (a string is stored as a fixed-length one)."""
         if self._tree is not None:
-            raise HDF5Error("attributes are read only")
-        return dict(_decode_attribute(self, data) for mtype, data in
+            return self._attrs
+        return dict(_decode_attribute(self, data) for mtype, _, data in
                     self._message_list(self._root) if mtype == _ATTRIBUTE)
 
     def _messages(self, address: int) -> Dict[int, bytes]:
         """The first message of each type in an object header."""
         out: Dict[int, bytes] = {}
-        for mtype, data in self._message_list(address):
+        for mtype, _, data in self._message_list(address):
             out.setdefault(mtype, data)
         return out
 
     def _message_list(self, address: int):
-        """(type, body) of every message of an object header, in order,
-        continuations followed and NIL messages left out."""
+        """(type, flags, body) of every message of an object header, in
+        order, continuations followed and NIL messages left out."""
         head = self._read(address, 16)
         if head[:4] == b"OHDR":
             raise HDF5Error("version 2 object headers are not supported")
@@ -374,13 +459,13 @@ class File(Group):
             buf = self._read(start, length)
             p = 0
             while p + 8 <= length and seen < n_messages:
-                mtype, msize = struct.unpack_from("<HH", buf, p)
+                mtype, msize, flags = struct.unpack_from("<HHB", buf, p)
                 data = buf[p + 8:p + 8 + msize]
                 seen += 1
                 if mtype == _CONTINUATION:
                     blocks.append(struct.unpack_from("<QQ", data))
                 elif mtype != _NIL:
-                    out.append((mtype, data))
+                    out.append((mtype, flags, data))
                 p += 8 + msize
         return out
 
@@ -392,6 +477,22 @@ class File(Group):
             return Dataset(self, messages)
         raise HDF5Error("object at {} is neither a symbol-table group nor a "
                         "dataset".format(address))
+
+    def _load_tree(self, address: int) -> _Group:
+        """The group at ``address`` and everything below it, as the
+        writer's tree: groups, and datasets as their messages."""
+        messages = self._message_list(address)
+        node = _Group(m for m in messages if m[0] != _SYMBOL_TABLE)
+        for name, child in self._group_links(address).items():
+            sub = self._message_list(child)
+            if any(m[0] == _SYMBOL_TABLE for m in sub):
+                node[name] = self._load_tree(child)
+            elif any(m[0] == _LAYOUT for m in sub):
+                node[name] = _Existing(self, sub)
+            else:
+                raise HDF5Error("object {} is neither a symbol-table group "
+                                "nor a dataset".format(name))
+        return node
 
     def _group_links(self, address, messages=None) -> Dict[str, int]:
         messages = messages or self._messages(address)
@@ -467,7 +568,7 @@ class File(Group):
             if child is None:
                 if not create:
                     raise KeyError(path)
-                child = node[part] = {}
+                child = node[part] = _Group()
             if not isinstance(child, dict):
                 raise HDF5Error("{} is a dataset, not a group".format(part))
             node = child
@@ -490,10 +591,10 @@ class File(Group):
             if name in parent:
                 raise HDF5Error("{} already exists".format(path))
             if len(raw) <= 64:
-                parent[name] = _Written(arr.dtype, arr.shape, UNDEF,
+                parent[name] = _Written(self, arr.dtype, arr.shape, UNDEF,
                                         len(raw), compact=raw)
             else:
-                parent[name] = _Written(arr.dtype, arr.shape,
+                parent[name] = _Written(self, arr.dtype, arr.shape,
                                         self._append(raw), len(raw))
 
     def __setitem__(self, path: str, value):
@@ -533,17 +634,21 @@ class File(Group):
 
     @staticmethod
     def _header(messages) -> bytes:
+        """A version 1 object header of (type, body) or (type, flags,
+        body) messages."""
         body = bytearray()
-        for mtype, data in messages:
+        for message in messages:
+            mtype, data = message[0], message[-1]
+            flags = message[1] if len(message) == 3 else 0
             data = data + b"\0" * (_pad8(len(data)) - len(data))
-            body += struct.pack("<HHB3x", mtype, len(data), 0) + data
+            body += struct.pack("<HHB3x", mtype, len(data), flags) + data
         return struct.pack("<BBHII4x", 1, 0, len(messages), 1,
                            len(body)) + bytes(body)
 
-    def _write_dataset(self, ds: _Written) -> int:
-        rank = len(ds.shape)
-        space = struct.pack("<BBBB4x", 1, rank, 0, 0) + struct.pack(
-            "<{}Q".format(rank), *ds.shape)
+    def _write_dataset(self, ds) -> int:
+        if isinstance(ds, _Existing):
+            return self._append(self._header(ds.messages))
+        space = _encode_dataspace(ds.shape)
         fill = bytes([2, 1, 2, 0])
         if ds.compact is not None:
             layout = struct.pack("<BBH", 3, 0, len(ds.compact)) + ds.compact
@@ -553,9 +658,10 @@ class File(Group):
             (_DATASPACE, space), (_DATATYPE, _encode_datatype(ds.dtype)),
             (_FILL, fill), (_LAYOUT, layout)]))
 
-    def _write_group(self, node: Dict):
-        """Write a group's members, then the group; returns
-        (object header, B-tree, local heap) addresses."""
+    def _write_group(self, node: _Group, extra=None):
+        """Write a group's members, then the group (with ``extra``
+        messages in place of the group's own besides its symbol table);
+        returns (object header, B-tree, local heap) addresses."""
         names = sorted(node, key=lambda n: n.encode())
         entries = []
         heap = bytearray(b"\0" * 8)       # offset 0: the empty name
@@ -606,11 +712,25 @@ class File(Group):
                 break
             children, level = nodes, level + 1
         ohdr = self._append(self._header(
-            [(_SYMBOL_TABLE, struct.pack("<QQ", btree, lheap))]))
+            [(_SYMBOL_TABLE, struct.pack("<QQ", btree, lheap))]
+            + (node.messages if extra is None else extra)))
         return ohdr, btree, lheap
 
+    def _root_messages(self):
+        """The root group's messages besides its symbol table: those it
+        had, with its attributes as ``attrs`` holds them now."""
+        out = [m for m in self._tree.messages if m[0] != _ATTRIBUTE]
+        for name, value in self._attrs.items():
+            kept = self._attrs_kept.get(name)
+            if kept is not None and kept[0] is value:
+                out.append(kept[1])
+            else:
+                out.append((_ATTRIBUTE, _encode_attribute(name, value)))
+        return out
+
     def _finish(self):
-        ohdr, btree, lheap = self._write_group(self._tree)
+        ohdr, btree, lheap = self._write_group(self._tree,
+                                              self._root_messages())
         self._fh.seek(0, os.SEEK_END)
         eof = self._fh.tell()
         root = struct.pack("<QQI4x", 0, ohdr, 1) + struct.pack(

@@ -5,9 +5,10 @@ filter and group truth-to-draft alignments), ``BaseLabelScheme`` (truth
 encoding, SNP decoding), ``find_variant_columns``,
 ``HaploidLabelScheme`` (truth encoding, ``decode_consensus``,
 ``decode_variants``, threshold SNP calling), ``DiploidLabelScheme``
-(the 15-class direct diploid scheme, with ``het_rescue``) and
-``from_dict``. ``RLELabelScheme`` is not ported yet; ``from_dict``
-refuses it by name.
+(the 15-class direct diploid scheme, with ``het_rescue``),
+``RLELabelScheme`` (haploid labels over (base, run length): truth
+encoding and a consensus decode that expands runs; its variant and SNP
+decoders raise) and ``from_dict``.
 """
 from __future__ import annotations
 
@@ -747,3 +748,83 @@ class DiploidLabelScheme(BaseLabelScheme):
                    "Medaka probability of variant"),
                 MI("INFO", "call", 1, "String", "Medaka variant call")])
         return m
+
+
+class RLELabelScheme(HaploidLabelScheme):
+    """Haploid labels over a (base, run length) alphabet for run-length
+    models (``medaka_tpu.labels.RLELabelScheme``): class 0 is a gap, then
+    (A, 1) .. (A, max_run), (C, 1), ...: 1 + 4 max_run classes."""
+
+    def __init__(self, max_run=12):
+        """Runs longer than ``max_run`` are clipped."""
+        self.max_run = max_run
+
+    def to_dict(self):
+        """Serialise including max_run."""
+        return dict(type=type(self).__name__,
+                    kwargs=dict(max_run=self.max_run))
+
+    @property
+    def padding_vector(self):
+        """Gap encoding."""
+        return self._labels_to_encoded_labels([(("*", 1),)])[0]
+
+    @property
+    @functools.lru_cache(1)
+    def _encoding(self):
+        encoding = {(("*", 1),): 0}
+        bases = [s for s in self.symbols if s != "*"]
+        for i, (b, n) in enumerate(
+                itertools.product(bases, range(1, self.max_run + 1)), 1):
+            encoding[((b, n),)] = i
+        return encoding
+
+    def _alignment_to_pairs(self, aln):
+        """(reference position, (base, run)) of each aligned pair; the
+        truth read's qualities hold its run lengths."""
+        bases = aln.query_sequence
+        runs = aln.query_qualities
+        for qpos, rpos in aln.get_aligned_pairs():
+            if qpos is None:
+                yield rpos, ("*", 1)
+            else:
+                yield rpos, (bases[qpos], min(runs[qpos], self.max_run))
+
+    def _labels_to_encoded_labels(self, labels):
+        return np.fromiter(map(self._encoding.__getitem__, labels),
+                           dtype=int)
+
+    def decode_consensus(self, sample, with_qualities=False):
+        """Argmax decode expanding run lengths; with ``with_qualities``
+        the expanded bases of a run all carry the phred of the run's
+        class probability."""
+        decode = self._decoding
+        mp = np.argmax(sample.label_probs, -1)
+        parts = []
+        quals = []
+        probs = None
+        if with_qualities:
+            probs = np.take_along_axis(
+                sample.label_probs, mp[:, None], -1).squeeze(-1)
+        for i, x in enumerate(mp):
+            ((base, run),) = decode[x]
+            if base == "*":
+                continue
+            parts.append(base * run)
+            if with_qualities:
+                q = int(self._phred(1.0 - probs[i])) + 33
+                quals.append(chr(min(q, 126)) * run)
+        seq = "".join(parts)
+        if with_qualities:
+            return seq, "".join(quals)
+        return seq
+
+    def _prob_to_snp(self, *args, **kwargs):
+        """SNP decoding is undefined for RLE outputs."""
+        raise NotImplementedError
+
+    def decode_variants(self, *args, **kwargs):
+        """Variant decoding is undefined for RLE outputs."""
+        raise NotImplementedError(
+            "Variant decoding is undefined for RLE models; polish and "
+            "call variants with a non-RLE model instead.")

@@ -50,6 +50,9 @@ MODE_LAUNCHES: Dict[str, int] = {
 #: batch size from which the "t" numerics are used (the TPU layout
 #: crossover of ``pallas_gru.bigru_head_fullfused``)
 T_MODE_MIN_BATCH = 192
+#: input values of a step each thread of the bf16 layer 1 stages at most
+#: (``L1_XPT``): CPT x IN <= 4 H
+BF16_L1_XPT = 4
 
 
 def reset_launches():
@@ -334,11 +337,13 @@ def l2_operands(w_in, in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
     """Layer 2's operands as the int8 kernel reads them on clusters of
     ``cluster`` blocks: w_in (2, C, 3U, 2H) int8, w_hh (2, C, 3U, Hp)
     int8, rowc (2, C, 5, 3U) f32 (hh_scale, b_hh, b_ih, the halves' input
-    scales), w_head (2, C, 16, U) bf16 (W_head^T: row k is class k of
-    unit j = r U + u of block r; classes past C and padded units zero)."""
+    scales), w_head (2, C, 16 HT, U) bf16 (W_head^T in HT =
+    ``rnn_cluster.head_tiles`` m16 tiles: row k is class k of unit j = r U
+    + u of block r; classes past C and padded units zero)."""
     H = w_hh.shape[-1]
     U = rnn_cluster.units_per_block(rnn_cluster.SPLIT, H, cluster)
-    wh = torch.zeros((2, 16, cluster * U), dtype=torch.bfloat16,
+    rows = 16 * rnn_cluster.head_tiles(w_head.shape[1])
+    wh = torch.zeros((2, rows, cluster * U), dtype=torch.bfloat16,
                      device=w_head.device)
     wh[:, :w_head.shape[1], :H] = w_head.to(torch.bfloat16)
     return {
@@ -346,7 +351,8 @@ def l2_operands(w_in, in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
         "w_hh": _slices(w_hh, cluster, rnn_cluster.w_slices),
         "rowc": _row_constants(cluster, hh_scale, b_hh, b_ih,
                                in_scale[:, 0], in_scale[:, 1]),
-        "w_head": wh.reshape(2, 16, cluster, U).transpose(1, 2).contiguous()}
+        "w_head": wh.reshape(2, rows, cluster, U).transpose(1, 2)
+        .contiguous()}
 
 
 def _stream(t):
@@ -383,7 +389,7 @@ def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant,
         cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(x.device))
         while nq * H > 512:
             nq //= 2
-        if cpt * IN > H:
+        if cpt * IN > BF16_L1_XPT * H:
             raise ValueError("gru_l1_split: {} input features exceed the "
                              "tile's loader threads".format(IN))
         smem = lib.gru_l1_split_smem(cpt * nq, IN, H)
@@ -503,7 +509,7 @@ def gru_l2head_split(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
     :param in_scale: (2, 2, 3H) f32 scales of the two column halves. Mode
         "t" reads the first half's (the merged per-row scale).
     :param w_head: (2, C, H) head weights of each direction's half, C at
-        most ``rnn_cluster.HEAD_CLASSES`` (16) on the card.
+        most ``rnn_cluster.HEAD_CLASSES`` (64) on the card.
     :returns: (lg_f, lg_b), each (B, T, C) f32; the caller adds both and
         the head bias.
     """

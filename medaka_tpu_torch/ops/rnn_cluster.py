@@ -34,9 +34,9 @@ MAX_THREADS = 512
 #: threads of a block at most by kind, where the kernel asks for fewer
 #: (``gru_l2head_split`` keeps more of each step in registers)
 KIND_MAX_THREADS = {"l2": 256}
-#: head classes the layer-2 split kernel holds at most (``HEAD_MAX``: the
-#: 16 rows of its mma.sync tile of W_head^T)
-HEAD_CLASSES = 16
+#: head classes the layer-2 split kernel holds at most (``HEAD_MAX``: four
+#: m16 tiles of W_head^T in its mma.sync head product)
+HEAD_CLASSES = 64
 #: layer 2's head classes where a caller names none: the haploid scheme's
 DEFAULT_CLASSES = 5
 
@@ -114,7 +114,13 @@ def head_slot(classes: int) -> int:
     if not 0 < classes <= HEAD_CLASSES:
         raise ValueError("gru_l2head_split: 1 to {} classes, got {}".format(
             HEAD_CLASSES, classes))
-    return 8 if classes <= 8 else 16
+    return -(-classes // 8) * 8
+
+
+def head_tiles(classes: int) -> int:
+    """m16 tiles of W_head^T in layer 2's head product: the class count
+    over 16, rounded up (``head_tiles`` in ``csrc/gru_split.cu``)."""
+    return -(-head_slot(classes) // 16)
 
 
 def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
@@ -164,12 +170,13 @@ def _split_smem_bytes(layout, kind, cluster, columns, hidden, inputs,
         return (nbytes + _align16(rows * even * 2)
                 + _align16(2 * columns * padded * 2))
     # int8 W_ih slice, [prev_f; prev_b] x 2, the head's bf16 operands
-    # (bf16(h) x 2 and W_head^T, 16 rows, of U + 8) and the blocks' f32
-    # partial logits of the block's ceil(BT / C) columns, head_slot of
-    # them a column
+    # (bf16(h) x 2 and W_head^T, 16 rows a tile, of U + 8) and the blocks'
+    # f32 partial logits of the block's ceil(BT / C) columns, head_slot
+    # of them a column
     share = -(-columns // cluster)
     return (nbytes + _align16(rows * ldi) + _align16(2 * columns * ldi)
-            + _align16((2 * columns + 16) * (U + 8) * 2)
+            + _align16((2 * columns + 16 * head_tiles(classes)) * (U + 8)
+                       * 2)
             + (_align16(2 * cluster * share * head_slot(classes) * 4)
                if cluster > 1 else 0))
 

@@ -4,17 +4,21 @@ or straight to a consensus FASTA/FASTQ (the direct route).
 Counterpart of ``medaka_tpu/prediction.py`` (``Batch.collate``,
 ``DataLoader``, ``Predictor``, ``auto_batch_size``, ``run_prediction``,
 ``run_prediction_direct``, ``plan_work``, ``predict``,
-``predict_direct``) for the counts and read-level models:
+``predict_direct``, ``predict_from_features``) for the counts and
+read-level models:
 
 - One static batch shape: every chunk rides in a (B, chunk_len, F)
   batch, or (B, chunk_len, R, C) for read-level features with R the
   batch's read bucket, with a per-row ``lengths`` vector; the
   recurrences freeze their state at padded steps, so padding never
   changes a valid column.
-- Threaded host pipeline: ``bam_workers`` featurisation threads feed a
-  bounded sample queue; a batcher thread packs fixed arrays; the main
-  thread keeps two batches in flight on the device while HDF5 writes run
-  on the datastore's writer thread.
+- Threaded host pipeline: ``bam_workers`` featurisation threads (or
+  ``feature_processes`` spawned worker processes, which build features
+  only and never touch the GPU) feed a bounded sample queue; a batcher
+  thread packs fixed arrays; the main thread keeps two batches in flight
+  on the device while HDF5 writes run on the datastore's writer thread,
+  or on ``output_shards`` spawned writer processes
+  (``datastore.ShardedDataStore``).
 - On the GPU, float batches travel as bf16 and int8 read-level batches
   as int8 (widened on the device); outputs come back as f16
   log-probabilities (``exp`` on the host). On the CPU, float32.
@@ -22,13 +26,13 @@ Counterpart of ``medaka_tpu/prediction.py`` (``Batch.collate``,
   after the f16 rounding, so the decode equals the HDF5 route's) and
   streams the decoded samples into ``stitch.DirectStitcher``.
 
-Feature worker processes, sharded output files and multi-device sharding
-are not ported yet.
+Multi-device sharding is not ported yet.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import queue
 import threading
 from timeit import default_timer as now
@@ -112,13 +116,18 @@ class DataLoader:
     ``bam_workers`` producer threads featurise regions into a bounded
     sample queue; one batcher thread packs fixed-shape batches. Short
     regions quarantined by the sample generator are featurised unchunked
-    and ride in normal batches.
+    and ride in normal batches. ``feature_processes`` > 0 featurises in
+    that many spawned worker processes instead, at most twice as many
+    regions in flight, handed on in region order (the same samples and
+    region events as the threads); a failed worker raises at the end of
+    iteration, as a failed thread does.
     """
 
     def __init__(self, bam, regions: Iterable[Region], feature_encoder,
                  batch_size: int = 128, chunk_len: int = 10000,
                  chunk_overlap: int = 1000, bam_workers: int = 2,
                  sample_cache_size: int = 8, batch_cache_size: int = 8,
+                 feature_processes: int = 0,
                  emit_region_events: bool = False):
         """Start the worker and batcher threads.
 
@@ -138,22 +147,69 @@ class DataLoader:
         self._sample_q: "queue.Queue" = queue.Queue(
             maxsize=sample_cache_size * batch_size)
         self._batch_q: "queue.Queue" = queue.Queue(maxsize=batch_cache_size)
+        self.regions = list(regions)
         self._region_q: "queue.Queue" = queue.Queue()
-        for rid, region in enumerate(regions):
+        for rid, region in enumerate(self.regions):
             self._region_q.put((rid, region))
         self._errors: List[BaseException] = []
         self.n_samples = 0
         self.remainder_regions: List[Region] = []
-        self._workers = [
-            threading.Thread(
-                target=self._region_worker, daemon=True,
-                name="bam_worker_{}".format(i))
-            for i in range(max(1, bam_workers))]
+        self.feature_processes = feature_processes
+        if feature_processes > 0:
+            self._workers = [threading.Thread(
+                target=self._process_pool_feeder, daemon=True,
+                name="feature_proc_feeder")]
+        else:
+            self._workers = [
+                threading.Thread(
+                    target=self._region_worker, daemon=True,
+                    name="bam_worker_{}".format(i))
+                for i in range(max(1, bam_workers))]
         self._batcher = threading.Thread(
             target=self._batch_worker, daemon=True, name="batcher")
         for t in self._workers:
             t.start()
         self._batcher.start()
+
+    def _process_pool_feeder(self):
+        import concurrent.futures
+        import multiprocessing
+
+        try:
+            ctx = multiprocessing.get_context("spawn")
+            with concurrent.futures.ProcessPoolExecutor(
+                    self.feature_processes, mp_context=ctx) as ex:
+                in_flight = collections.deque()
+                regions = iter(enumerate(self.regions))
+                exhausted = False
+                while in_flight or not exhausted:
+                    while not exhausted and \
+                            len(in_flight) < 2 * self.feature_processes:
+                        item = next(regions, None)
+                        if item is None:
+                            exhausted = True
+                            break
+                        rid, region = item
+                        in_flight.append((rid, ex.submit(
+                            features_mod.featurize_region, self.bam, region,
+                            self.fencoder, self.chunk_len,
+                            self.chunk_overlap)))
+                    if not in_flight:
+                        break
+                    rid, fut = in_flight.popleft()
+                    samples, quarantined = fut.result()
+                    for sample in samples:
+                        self._sample_q.put((rid, sample))
+                    for qregion, qsamples in quarantined:
+                        self.remainder_regions.append(qregion)
+                        for sample in qsamples:
+                            self._sample_q.put((rid, sample))
+                    self._sample_q.put(("rdone", rid))
+        except BaseException as e:
+            self.logger.exception("Featurization process pool failed.")
+            self._errors.append(e)
+        finally:
+            self._sample_q.put(None)
 
     def _region_worker(self):
         try:
@@ -424,7 +480,8 @@ def _stream_batches(
         bam, regions: Sequence[Region], model, feature_encoder, write_batch,
         region_done=None, batch_size: Optional[int] = None,
         chunk_len: int = 10000, chunk_overlap: int = 1000,
-        bam_workers: int = 2, full_precision: bool = False, device=None):
+        bam_workers: int = 2, full_precision: bool = False, device=None,
+        feature_processes: int = 0):
     """Run every batch of ``regions`` through ``model``, two in flight.
 
     Each batch goes, in order, to ``write_batch(predictor, batch,
@@ -448,7 +505,8 @@ def _stream_batches(
     loader = DataLoader(
         bam, regions, feature_encoder, batch_size=batch_size,
         chunk_len=chunk_len, chunk_overlap=chunk_overlap,
-        bam_workers=bam_workers, emit_region_events=decode)
+        bam_workers=bam_workers, feature_processes=feature_processes,
+        emit_region_events=decode)
 
     total_region_mbases = sum(r.size for r in regions) / 1e6
     t0 = now()
@@ -504,13 +562,23 @@ def run_prediction(
         batch_size: Optional[int] = None, chunk_len: int = 10000,
         chunk_overlap: int = 1000, bam_workers: int = 2,
         full_precision: bool = False, save_features: bool = False,
-        device=None):
+        device=None, feature_processes: int = 0, output_shards: int = 1):
     """Run inference and write probability samples to ``output``.
 
     :param batch_size: rows per device batch (None: :func:`auto_batch_size`).
+    :param feature_processes: featurise in this many worker processes
+        instead of ``bam_workers`` threads (:class:`DataLoader`).
+    :param output_shards: > 1 writes the samples round-robin over that
+        many shard files in writer processes
+        (``datastore.ShardedDataStore``); ``output`` then holds the
+        metadata and the shard manifest, which ``DataIndex`` expands.
     :returns: (n_samples, n_columns) processed.
     """
-    with datastore_mod.DataStore(output, "a") as ds:
+    if output_shards > 1:
+        store = datastore_mod.ShardedDataStore(output, shards=output_shards)
+    else:
+        store = datastore_mod.DataStore(output, "a")
+    with store as ds:
         if feature_encoder is not None:
             ds.set_meta(feature_encoder, "feature_encoder")
         if label_scheme is not None:
@@ -528,7 +596,8 @@ def run_prediction(
             bam, regions, model, feature_encoder, write_batch,
             batch_size=batch_size, chunk_len=chunk_len,
             chunk_overlap=chunk_overlap, bam_workers=bam_workers,
-            full_precision=full_precision, device=device)
+            full_precision=full_precision, device=device,
+            feature_processes=feature_processes)
         ds.write_registry()
     return counts
 
@@ -649,7 +718,8 @@ def predict(
         chunk_overlap: int = 1000, bam_workers: int = 2,
         bam_chunk: int = 1_000_000, full_precision: bool = False,
         encoder_overrides: Optional[Dict] = None,
-        save_features: bool = False, device=None):
+        save_features: bool = False, device=None,
+        feature_processes: int = 0, output_shards: int = 1):
     """Top-level inference entry: BAM -> probability HDF5.
 
     Either ``model_path`` (a native bundle) or an explicit model (holding
@@ -685,7 +755,76 @@ def predict(
         label_scheme=label_scheme, batch_size=batch_size,
         chunk_len=chunk_len, chunk_overlap=chunk_overlap,
         bam_workers=bam_workers, full_precision=full_precision,
-        save_features=save_features, device=device)
+        save_features=save_features, device=device,
+        feature_processes=feature_processes, output_shards=output_shards)
+
+
+def predict_from_features(
+        inputs, output: str, model_path: Optional[str] = None,
+        model=None, batch_size: Optional[int] = None,
+        full_precision: bool = False, device=None):
+    """Run inference over precomputed feature files (no BAM)
+    (``medaka_tpu.prediction.predict_from_features``).
+
+    Samples are read back from the feature HDF5s (``features``; shard
+    manifests expand) in genomic order, batched at one static chunk
+    length, the longest sample's (``DataIndex.max_sample_size``), and
+    written to ``output`` with their ``label_probs``.
+
+    :returns: (n_samples, n_columns).
+    """
+    logger = common.get_named_logger("PWorker")
+    device = resolve_device(device)
+    index = datastore_mod.DataIndex(
+        list(inputs) if isinstance(inputs, (list, tuple)) else [inputs])
+    feature_encoder = index.metadata.get("feature_encoder")
+    label_scheme = index.metadata.get("label_scheme")
+    if model_path is not None:
+        from medaka_tpu_torch import models as models_mod
+        bundle = models_mod.open_model(models_mod.resolve_model(model_path))
+        model = bundle.model
+        feature_encoder = bundle.feature_encoder or feature_encoder
+        label_scheme = bundle.label_scheme or label_scheme
+    if model is None:
+        raise ValueError("Provide model_path or model.")
+    compute_dtype = None if full_precision else torch.bfloat16
+    predictor = Predictor(model, compute_dtype=compute_dtype, device=device)
+    samples = index.yield_from_feature_files()
+    first = next(samples, None)
+    if first is None:
+        raise ValueError("No samples found in inputs.")
+    chunk_len = max(first.size, index.max_sample_size())
+    max_reads = getattr(feature_encoder, "max_reads", None)
+    if batch_size is None:
+        batch_size = auto_batch_size(
+            model, device, chunk_len=chunk_len,
+            full_precision=full_precision, max_reads=max_reads or 100)
+        logger.info("Auto batch size: %d.", batch_size)
+    n_samples = n_columns = 0
+    t0 = now()
+    with datastore_mod.DataStore(output, "a") as out_ds:
+        if feature_encoder is not None:
+            out_ds.set_meta(feature_encoder, "feature_encoder")
+        if label_scheme is not None:
+            out_ds.set_meta(label_scheme, "label_scheme")
+        out_ds.set_meta(model.to_dict(), "model_function")
+        stream = itertools.chain([first], samples)
+        while True:
+            group = list(itertools.islice(stream, batch_size))
+            if not group:
+                break
+            batch = Batch.collate(group, batch_size, chunk_len, max_reads)
+            probs = predictor.fetch(predictor.dispatch(batch), len(group))
+            for i, sample in enumerate(group):
+                n_samples += 1
+                n_columns += sample.size
+                out_ds.write_sample(sample.amend(
+                    features=None, labels=None,
+                    label_probs=probs[i, :sample.size]))
+        out_ds.write_registry()
+    logger.info("Processed %d samples (%d columns) in %.2fs.",
+                n_samples, n_columns, now() - t0)
+    return n_samples, n_columns
 
 
 def predict_direct(

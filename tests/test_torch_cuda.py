@@ -61,9 +61,10 @@ def _net(rng, H, IN=10, C=5):
     return layers, head
 
 
-def _split_inputs(rng, H, T, batch, mode, quant, device, classes=5):
-    layers, head = _net(rng, H, C=classes)
-    x = torch.from_numpy(rng.random((batch, T, 10)).astype(np.float32))
+def _split_inputs(rng, H, T, batch, mode, quant, device, classes=5,
+                  inputs=10):
+    layers, head = _net(rng, H, IN=inputs, C=classes)
+    x = torch.from_numpy(rng.random((batch, T, inputs)).astype(np.float32))
     lengths = torch.from_numpy(
         rng.integers(1, T + 1, batch).astype(np.int32))
     lengths[0] = T
@@ -74,12 +75,12 @@ def _split_inputs(rng, H, T, batch, mode, quant, device, classes=5):
 
 
 def _check_split_kernels(device, H, T, batch, mode, quant, seed,
-                         classes=5):
+                         classes=5, inputs=10):
     """Layer 1 against its plain version on its own inputs, layer 2 on
     layer 1's kernel outputs, and both kernels against themselves run
     again (bit for bit)."""
     w, xt, lens = _split_inputs(np.random.default_rng(seed), H, T, batch,
-                                mode, quant, device, classes)
+                                mode, quant, device, classes, inputs)
     args1 = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
              w["b_hh1"])
     out_f, out_b = gru_split.gru_l1_split(*args1, mode=mode, quant=quant)
@@ -133,6 +134,19 @@ def test_kernels_match_plain(device, mode, batch, quant, classes):
     _check_split_kernels(device, 256, 300, batch, mode, quant, 7, classes)
 
 
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("mode,batch", [("t", 480), ("t", 200),
+                                        ("rows", 64), ("rows", 37)])
+def test_rle_split_kernels_match_plain(device, mode, batch, quant):
+    """Both kernels at the run-length bundle's shapes (``gru256_rle_demo``:
+    120 input features, 49 classes) against their plain versions, the
+    same bars: layer 1's W_ih no longer fits one block beside W_hh, so
+    the int8 layer 1 runs on clusters of 2 or more; the head is four m16
+    tiles of W_head^T in the int8 layer 2 and W_head read through L1 in
+    the bf16 one."""
+    _check_split_kernels(device, 256, 200, batch, mode, quant, 11, 49, 120)
+
+
 @pytest.mark.parametrize("mode", ["t", "rows"])
 @pytest.mark.parametrize("batch", [32, 200])
 @pytest.mark.parametrize("H", [384, 512])
@@ -150,18 +164,19 @@ def test_split_geometry_matches_the_kernels(device, kind):
     the split path, every geometry it picks is resident and runs, and the
     int8 layer 1 at H=256 keeps all of W_hh in one block (C=1)."""
     lib = gru_split.build()
-    inputs = 10 if kind == "l1" else 0
     for H in (128, 256, 384, 512):
         for B in (32, 64, 191, 192, 512):
             for mode in ("t", "rows"):
-                for classes in ((5, 15) if kind == "l2" else (5,)):
+                for inputs, classes in (((0, 5), (0, 15), (0, 49))
+                                        if kind == "l2"
+                                        else ((10, 5), (120, 5))):
                     C, BT, smem, resident = gru_split.geometry(
                         kind, H, B, device, mode, inputs, classes)
                     assert lib.gru_split_s8_smem(
                         int(kind == "l2"), C, BT, H, inputs,
                         classes) == smem
                     assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
-                    print(kind, H, B, mode, classes,
+                    print(kind, H, B, mode, inputs, classes,
                           (C, BT, smem, resident))
     if kind == "l1":
         assert gru_split.geometry("l1", 256, 512, device, "t", 10)[:2] == (
@@ -708,7 +723,8 @@ def _within_one_bf16_step(got, want):
 
 
 @pytest.mark.parametrize("H,B,T,IN", [(64, 8, 1, 512), (256, 16, 200, 512),
-                                      (256, 31, 100, 10), (96, 1, 50, 192)])
+                                      (256, 31, 100, 10), (96, 1, 50, 192),
+                                      (256, 16, 200, 120)])
 def test_fullfused_projection_stage_matches_plain(device, H, B, T, IN):
     """The tensor-core projection stage of the f32-gates and int8 modes
     (``project``, the stage ``fullfused_layer`` runs) within one bf16 step
@@ -1003,10 +1019,11 @@ def test_diploid_bundle_on_card_matches_plain(device, batch):
 
 
 def test_head_past_16_classes_raises(device):
-    """More than 16 classes (the RLE scheme's 49) raise before a launch."""
-    H, T, B, C = 256, 4, 2, 49
+    """More than 64 classes (four m16 tiles of W_head^T) raise before a
+    launch."""
+    H, T, B, C = 256, 4, 2, 65
     i8 = dict(dtype=torch.int8, device=device)
-    with pytest.raises(ValueError, match="at most 16 classes, got 49"):
+    with pytest.raises(ValueError, match="at most 64 classes, got 65"):
         gru_split.gru_l2head_split(
             torch.zeros((T, B, H), **i8), torch.zeros((T, B, H), **i8),
             torch.full((B,), T, dtype=torch.int32, device=device),

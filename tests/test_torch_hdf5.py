@@ -72,8 +72,101 @@ def test_unsupported_inputs_are_refused(tmp_path):
     with hdf5.File(path) as f:
         with pytest.raises(hdf5.HDF5Error, match="compressed|chunked"):
             f["x"][()]
-    with pytest.raises(hdf5.HDF5Error, match="appending"):
-        hdf5.File(path, "a")
     with pytest.raises(hdf5.HDF5Error, match="not an HDF5 file"):
         open(str(tmp_path / "plain"), "wb").write(b"x" * 200)
         hdf5.File(str(tmp_path / "plain"))
+
+
+def _h5py_layout(path):
+    """A file as medaka_tpu's DataStore writes it with h5py: samples
+    (compact and contiguous datasets, a vlen-string ref_name), the JSON
+    metadata and registry; plus root and group attributes."""
+    from medaka_tpu import datastore as jax_datastore
+    from medaka_tpu.common import Sample as JaxSample
+    from medaka_tpu.labels import HaploidLabelScheme
+    with jax_datastore.DataStore(path, "w") as ds:
+        ds.set_meta(HaploidLabelScheme(), "label_scheme")
+        for i in range(2):
+            ds.write_sample(JaxSample(
+                ref_name="c", features=None, labels=None, ref_seq=None,
+                positions=_positions(10 * i), label_probs=PROBS + i,
+                depth=np.arange(7, dtype=np.int64)))
+        ds.write_registry()
+    with h5py.File(path, "a") as h:
+        h.attrs["note"] = "kept"
+        h["samples"].attrs["count"] = 2
+
+
+def _port_layout(path):
+    from medaka_tpu_torch import datastore
+    from medaka_tpu_torch.labels import HaploidLabelScheme
+    with datastore.DataStore(path, "w") as ds:
+        ds.set_meta(HaploidLabelScheme(), "label_scheme")
+        for i in range(2):
+            ds.write_sample(_port_sample(i))
+        ds.write_registry()
+    with hdf5.File(path, "a") as f:
+        f.attrs["note"] = "kept"
+
+
+def _positions(offset):
+    from medaka_tpu.common import POSITIONS_DTYPE
+    pos = np.zeros(7, dtype=POSITIONS_DTYPE)
+    pos["major"] = np.arange(7) + offset
+    return pos
+
+
+def _port_sample(i):
+    from medaka_tpu_torch.common import Sample
+    return Sample(ref_name="c", features=None, labels=None, ref_seq=None,
+                  positions=_positions(10 * i), label_probs=PROBS + i,
+                  depth=np.arange(7, dtype=np.int64))
+
+
+@pytest.mark.parametrize("writer", ["h5py", "port"])
+def test_append_keeps_every_object(tmp_path, writer):
+    """``File(path, "a")`` and ``DataStore(path, "a")`` on a file of
+    medaka_tpu's layout written by h5py or by the port: the old samples,
+    metadata and attributes stay, two samples and an attribute are
+    added, and h5py, medaka_tpu's DataStore and the port read every old
+    and new object back; overwriting a dataset raises."""
+    from medaka_tpu import datastore as jax_datastore
+    from medaka_tpu_torch import datastore
+    path = str(tmp_path / "probs.hdf")
+    (_h5py_layout if writer == "h5py" else _port_layout)(path)
+    with datastore.DataStore(path, "a") as ds:
+        assert ds.n_samples == 2
+        assert type(ds.meta["label_scheme"]).__name__ == "HaploidLabelScheme"
+        for i in (2, 3):
+            ds.write_sample(_port_sample(i))
+        ds.set_meta({"type": "GRUModel"}, "model_function")
+        ds.write_registry()
+    with hdf5.File(path, "a") as f:
+        with pytest.raises(hdf5.HDF5Error, match="already exists"):
+            f["samples/registry"] = np.bytes_(b"[]")
+        f.attrs["added"] = "new"
+    names = ["c:{}.0-{}.0".format(10 * i, 10 * i + 6) for i in range(4)]
+    with h5py.File(path, "r") as h:
+        assert sorted(h["samples/data"]) == names
+        assert json.loads(h["samples/registry"][()]) == names
+        assert h.attrs["note"] in ("kept", b"kept")
+        assert h.attrs["added"] == b"new"
+        if writer == "h5py":
+            assert h["samples"].attrs["count"] == 2
+        for i, name in enumerate(names):
+            np.testing.assert_array_equal(
+                h["samples/data/{}/label_probs".format(name)][()], PROBS + i)
+    for store in (jax_datastore.DataStore, datastore.DataStore):
+        with store(path) as ds:
+            assert sorted(ds.sample_registry) == names
+            assert ds.meta["model_function"] == {"type": "GRUModel"}
+            assert type(ds.meta["label_scheme"]).__name__ == \
+                "HaploidLabelScheme"
+            for i, name in enumerate(names):
+                sample = ds.load_sample(name)
+                np.testing.assert_array_equal(sample.label_probs, PROBS + i)
+                assert sample.ref_name == "c"
+                assert list(sample.positions["major"]) == list(
+                    range(10 * i, 10 * i + 7))
+    with hdf5.File(path) as f:
+        assert f.attrs["added"] == b"new"

@@ -74,7 +74,7 @@ def test_bigru_stack_matches_jax():
 @pytest.mark.parametrize("name", [
     "gru256_lambda_demo_model_pt", "gru256_gcrep_demo_model_pt",
     "gru256_variant_demo", "gru256_diploid_snp_demo",
-    "gru256_diploid_snp_w10_demo"])
+    "gru256_diploid_snp_w10_demo", "gru256_rle_demo"])
 def test_counts_bundles_load(name):
     bundle = models.load_model(os.path.join(DATA, name + ".tar.gz"))
     ref = jax_models.load_model(os.path.join(DATA, name + ".tar.gz"))
@@ -86,13 +86,6 @@ def test_counts_bundles_load(name):
     state = params_from_jax(ref.params)
     for key, value in bundle.model.state_dict().items():
         np.testing.assert_array_equal(value.numpy(), state[key].numpy())
-
-
-@pytest.mark.parametrize("name,missing", [
-    ("gru256_rle_demo", "HardRLEFeatureEncoder")])
-def test_unported_bundles_name_the_missing_class(name, missing):
-    with pytest.raises(NotImplementedError, match=missing):
-        models.load_model(os.path.join(DATA, name + ".tar.gz"))
 
 
 @pytest.mark.parametrize("name", [

@@ -131,6 +131,14 @@ def test_root_attributes_from_h5py(tmp_path, name, value):
 
 
 def test_attributes_are_read_only(tmp_path):
-    with hdf5.File(str(tmp_path / "w.h5"), "w") as f:
-        with pytest.raises(hdf5.HDF5Error):
-            f.attrs
+    """A file opened for reading gives its attributes as a copy: changing
+    it writes nothing. (A file being written takes the attributes set on
+    ``attrs``, written when it closes.)"""
+    path = str(tmp_path / "w.h5")
+    with hdf5.File(path, "w") as f:
+        f.attrs["shard_files"] = json.dumps(["w.h5.shard00"])
+    with hdf5.File(path) as f:
+        f.attrs["shard_files"] = "changed"
+        assert json.loads(f.attrs["shard_files"]) == ["w.h5.shard00"]
+    with h5py.File(path, "r") as h:
+        assert json.loads(h.attrs["shard_files"]) == ["w.h5.shard00"]

@@ -24,6 +24,10 @@ B, T, IN, H, C = 4, 32, 10, 16, 5
 LENGTHS = np.array([32, 20, 7, 1], np.int32)
 
 
+#: the run-length bundle's layer-1 inputs (10 x num_qstrat 12) and classes
+RLE_IN, RLE_CLASSES = 120, 49
+
+
 def _direction(rng, in_size):
     k = 1.0 / np.sqrt(H)
     return {name: rng.uniform(-k, k, shape).astype(np.float32)
@@ -32,13 +36,14 @@ def _direction(rng, in_size):
                                 ("b_ih", (3 * H,)), ("b_hh", (3 * H,)))}
 
 
-def _make_net(classes):
+def _make_net(classes, inputs=IN):
     rng = np.random.default_rng(0)
-    layers = [{"fwd": _direction(rng, IN), "bwd": _direction(rng, IN)},
+    layers = [{"fwd": _direction(rng, inputs),
+               "bwd": _direction(rng, inputs)},
               {"fwd": _direction(rng, 2 * H), "bwd": _direction(rng, 2 * H)}]
     head = {"w": rng.uniform(-0.2, 0.2, (classes, 2 * H)).astype(np.float32),
             "b": rng.uniform(-0.2, 0.2, (classes,)).astype(np.float32)}
-    x = rng.random((B, T, IN)).astype(np.float32)
+    x = rng.random((B, T, inputs)).astype(np.float32)
     return layers, head, x
 
 
@@ -71,7 +76,20 @@ def test_plain_matches_jax_interpret(layout, quant, classes):
     bf16 and a last-bit difference can flip a rounding; <= 6e-8 for the
     other three (f32 accumulation order only).
     """
-    net = _make_net(classes)
+    _check_against_jax(_make_net(classes), layout, quant, classes)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("layout", ["transposed", "rows"])
+def test_plain_matches_jax_interpret_at_rle_shapes(layout, quant):
+    """The same bar at the run-length bundle's shapes: layer 1 over 120
+    input features and a 49-class head (four m16 tiles of W_head^T in
+    the int8 layer-2 kernel, W_head read through L1 in the bf16 one)."""
+    _check_against_jax(_make_net(RLE_CLASSES, RLE_IN), layout, quant,
+                       RLE_CLASSES)
+
+
+def _check_against_jax(net, layout, quant, classes):
     layers, head, x = net
     ref = _jax_logits(net, layout, quant)
     before = dict(gru_split.LAUNCHES), dict(gru_split.MODE_LAUNCHES)
@@ -86,6 +104,15 @@ def test_plain_matches_jax_interpret(layout, quant, classes):
 
 def test_layer1_rows_int8_outputs_match_exactly(net):
     """Row-major layer 1 emits the same int8 round(127 h) as JAX."""
+    _check_layer1_rows(net)
+
+
+def test_layer1_rows_int8_outputs_match_exactly_at_120_inputs():
+    """The same over the run-length bundle's 120 input features."""
+    _check_layer1_rows(_make_net(RLE_CLASSES, RLE_IN))
+
+
+def _check_layer1_rows(net):
     layers, head, x = net
     xt = jnp.swapaxes(jnp.asarray(x), 0, 1).astype(jnp.bfloat16)
     st = lambda k: jnp.stack(  # noqa: E731
@@ -159,7 +186,7 @@ def test_kernel_module_imports_without_nvcc_or_jax():
         "import medaka_tpu_torch.models, medaka_tpu_torch.stitch\n"
         "import medaka_tpu_torch.vcf, medaka_tpu_torch.variant\n"
         "import medaka_tpu_torch.options, medaka_tpu_torch.labels\n"
-        "import medaka_tpu_torch.testing\n"
+        "import medaka_tpu_torch.testing, medaka_tpu_torch.rle\n"
         "from medaka_tpu_torch.ops import cuda_build\n"
         "assert not cuda_build._LIBS\n"
         "bad = [m for m in sys.modules if m == 'medaka_tpu' or "

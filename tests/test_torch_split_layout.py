@@ -45,7 +45,7 @@ def _fits(kind, H, C, BT, classes=5):
 
 
 @pytest.mark.parametrize("kind,classes", [("l1", 5), ("l2", 5), ("l2", 9),
-                                          ("l2", 16)])
+                                          ("l2", 16), ("l2", 49)])
 @pytest.mark.parametrize("H", HIDDEN)
 @pytest.mark.parametrize("B", BATCHES)
 def test_split_geometry(kind, H, B, classes):
@@ -99,28 +99,38 @@ def test_split_geometry(kind, H, B, classes):
     ("l2", 33, 9, (4, 32, 222464)),
     ("l2", 33, 15, (4, 32, 222464)),
     ("l2", 31, 15, (8, 64, 200960)),
-    ("l2", 33, 16, (4, 32, 222464))])
+    ("l2", 33, 16, (4, 32, 222464)),
+    # the run-length head's 49 classes: four tiles of W_head^T and a slot
+    # of 56 put clusters of 4 at 32 columns over the limit (239,616 B), so
+    # 4 at 16 columns where 64 clusters are resident, else 8 at 64
+    ("l2", 64, 49, (4, 16, 201216)),
+    ("l2", 31, 49, (8, 64, 225280))])
 def test_split_geometry_at_the_main_shape(kind, resident, classes, want):
     """H=256, B=512 (the counts model at the automatic batch): the bytes
-    of both layers pinned, in one wave of 128 blocks."""
+    of both layers pinned, in one wave of 128 blocks (256 where 16 columns
+    a cluster of 4 is the widest that fits)."""
     def stand_in(C, BT, smem):
         return resident if C == want[0] else resident // 2
     assert _choose(kind, 256, 512, stand_in, classes) == want
     C, BT, _ = want
-    assert 2 * -(-512 // BT) * C == 128
+    assert 2 * -(-512 // BT) * C == (256 if BT * C == 64 else 128)
 
 
 @pytest.mark.parametrize("classes,slot", [(1, 8), (5, 8), (8, 8), (9, 16),
-                                          (15, 16), (16, 16)])
+                                          (15, 16), (16, 16), (17, 24),
+                                          (49, 56), (64, 64)])
 def test_split_bytes_by_part(classes, slot):
     """The carve-up at H=256, layer 2, C=4, BT=32: W_hh 192 x 272, h 2 x 32
     x 272, the staged h 32 x 64, W_ih 192 x 528, the input 2 x 32 x 528,
-    the head's bf16 operands (2 x 32 + 16) x 72 and the blocks' partial
-    logits of the block's 32 / 4 columns 2 x 4 x 8 x slot f32, the slot
-    the class count rounded up to 8."""
+    the head's bf16 operands (2 x 32 + 16 x tiles) x 72, a tile of
+    W_head^T for each 16 classes, and the blocks' partial logits of the
+    block's 32 / 4 columns 2 x 4 x 8 x slot f32, the slot the class count
+    rounded up to 8."""
     assert rnn_cluster.head_slot(classes) == slot
+    tiles = rnn_cluster.head_tiles(classes)
+    assert tiles == -(-classes // 16)
     parts = (192 * 272 + 2 * 32 * 272 + 32 * 64 + 192 * 528 + 2 * 32 * 528
-             + (2 * 32 + 16) * 72 * 2 + 2 * 4 * 8 * slot * 4)
+             + (2 * 32 + 16 * tiles) * 72 * 2 + 2 * 4 * 8 * slot * 4)
     assert rnn_cluster.smem_bytes(SPLIT, "l2", 4, 32, 256,
                                   classes=classes) == parts
     # layer 1 at C=1: no staging; bf16 W_ih 768 x 10, x 2 x 8 x 16
@@ -142,14 +152,15 @@ def test_split_geometry_raises_without_resident_clusters():
         _choose("l1", 100, 16)
 
 
-@pytest.mark.parametrize("classes", [0, 17, 49])
+@pytest.mark.parametrize("classes", [0, 65, 100])
 def test_split_head_refuses_past_16_classes(classes):
-    """The head's mma.sync tile holds 16 classes: none, or more than 16
-    (the RLE scheme's 49), raise a clear error before any launch."""
-    with pytest.raises(ValueError, match="1 to 16 classes, got {}".format(
+    """The head's four m16 tiles of W_head^T hold 64 classes (the RLE
+    scheme's 49 among them): none, or more than 64, raise a clear error
+    before any launch."""
+    with pytest.raises(ValueError, match="1 to 64 classes, got {}".format(
             classes)):
         rnn_cluster.smem_bytes(SPLIT, "l2", 4, 32, 256, classes=classes)
-    with pytest.raises(ValueError, match="1 to 16 classes"):
+    with pytest.raises(ValueError, match="1 to 64 classes"):
         _choose("l2", 256, 512, classes=classes)
 
 
@@ -398,8 +409,21 @@ def test_int8_operands_reproduce_the_plain_versions(H, C, BT, B, classes,
     kernels index them, give the plain versions' results: layer 1 within
     one int8 step (the same bar as on the card), the logits within
     1e-3."""
+    _check_operands(H, C, BT, B, classes, mode, 10)
+
+
+@pytest.mark.parametrize("mode", ["t", "rows"])
+@pytest.mark.parametrize("H,C,BT,B", [(128, 2, 16, 20), (256, 4, 8, 9)])
+def test_int8_operands_at_the_run_length_shapes(H, C, BT, B, mode):
+    """The same at the run-length bundle's shapes: 120 input features (W_ih
+    rows of 120 bf16, x padded to 120) and 49 classes (four tiles of
+    W_head^T, classes 16 to 48 in tiles 1 to 3)."""
+    _check_operands(H, C, BT, B, 49, mode, 120)
+
+
+def _check_operands(H, C, BT, B, classes, mode, IN):
     rng = np.random.default_rng(H + C + B)
-    T, IN = 6, 10
+    T = 6
     k = 1.0 / np.sqrt(H)
 
     def direction(width):

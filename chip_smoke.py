@@ -72,8 +72,12 @@ Phases, each of which fails the script when it fails:
     batch 128, 2 epochs, bf16) through the CLI entry point, with the
     training kernels' launch counts set to 0 just before ``train``; check
     the losses (finite, falling), 4 launches of each kernel a step, a
-    second run from the same seed (the same losses), and that the last
-    checkpoint serves ``inference`` + ``sequence``;
+    second run from the same seed, started in a child process and
+    SIGKILLed once its resume snapshot names epoch 0, then ``train
+    --resume`` in this process (epoch 0's losses the first run's, the
+    resumed losses and the last checkpoint's weights the uninterrupted
+    run's, bit for bit), and that the last checkpoint serves ``inference``
+    + ``sequence``;
 12. on one full batch of that data: one train step through the kernels
     against the same step through their plain versions, a stage
     breakdown of a step (CUDA events) with ``gru_fwd``'s share, the
@@ -99,8 +103,9 @@ Phases, each of which fails the script when it fails:
     entry point, with the LSTM kernels' launch counts set to 0 just
     before ``train``; check the losses (finite, falling), 4 launches of
     each kernel a step, the batch-norm running statistics moved off
-    (0, 1), a second run from the same seed (the same losses), and that
-    the last checkpoint serves ``inference`` + ``sequence``;
+    (0, 1), a second run from the same seed killed after epoch 0 and
+    resumed as in phase 11, and that the last checkpoint serves
+    ``inference`` + ``sequence``;
 15. on one full batch of that data (B=128, T=1000, 100 reads, H=384):
     one train step through the kernels against the same step through
     their plain versions, a stage breakdown (CUDA events), the step's
@@ -215,7 +220,45 @@ Phases, each of which fails the script when it fails:
     ``consensus_from_features`` on the training phase's features; and
     ``inference --profile_dir`` in a fresh process, whose trace must name
     both int8 split kernels, with the share of the trace's wall time the
-    device spends in kernels.
+    device spends in kernels;
+25. (after phase 15) ``train --validate_only`` of phases 11's and 14's
+    last checkpoints through the CLI: loss and accuracy within
+    ``TOL_VALIDATION`` of the last validation row of their training.csv,
+    with the route taken (the split kernels, or ``bilstm_fused``) and its
+    launches; the counts checkpoint again at ``--batch_size 16``, below
+    32 rows: the fullfused kernels alone, a finite loss;
+26. the reference's 2x128 ``GRUModel``: ``tools export`` of a random one
+    gives the architecture TOML that ``train --model config.toml`` trains
+    on phase 11's features (batch 128, 2 epochs, bf16; losses finite and
+    falling, 4 launches of ``gru_fwd`` and ``gru_bwd`` a step); both
+    kernels at H=128 (B=128, T=1000, both directions) against their plain
+    versions as in phase 10 and timed as in phase 12; the last checkpoint
+    written as a legacy reference checkpoint (the ``build_model_torch``
+    partial, ``testing.write_reference_checkpoint``) serves ``inference``
+    + ``sequence`` on phase 4's BAM with the native checkpoint's
+    probabilities and FASTA, bit for bit (its identity to the draft
+    printed: 8 steps of training, as phase 11's); ``gru_l1_split`` and
+    ``gru_l2head_split`` at
+    H=128 against their plain versions at the automatic batch in mode "t"
+    (int8, T=10000; bf16 over ``REF_CHECK_T`` steps) and on 64 rows in
+    mode "rows" (int8 and bf16), int8 layer 1 bit for bit, timed beside
+    their bounds, serial floors and cuDNN, with their geometry and
+    ptxas's report. Four ``kernels`` rows: ``gru_l1_split/h128``,
+    ``gru_l2head_split/h128``, ``gru_fwd/h128`` and ``gru_bwd/h128``;
+27. phase 14's last checkpoint written as a reference checkpoint serves
+    ``inference`` + ``sequence`` over phase 14's BAM cut to
+    ``REF_RL_REGION_KB`` kb with the native checkpoint's probabilities,
+    bit for bit (``bilstm_fused`` launches);
+28. the reference's data files: phase 5's probabilities rewritten as
+    reference medaka stores them (gzip-1 samples, pickled ``meta/``,
+    ``testing.write_reference_probabilities``) give phase 5's FASTA
+    through ``sequence``, byte for byte, at a read rate printed beside the
+    uncompressed file's; a fast5 of planted Weibull tables for the reads
+    over phase 4's first ``FAST5_REGION_KB`` kb
+    (``testing.plant_fast5_tables``): ``compress_bam --use_fast5_info``
+    and ``tools rlebam`` (spawned workers) tag every read with its
+    planted table, with their seconds; ``tools export`` of the bundled
+    counts model, whose ``weights.pt`` loads back equal.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -1065,6 +1108,195 @@ def profile_step(step, step_s):
     return out
 
 
+def csv_table(path):
+    """(header, data rows) of a training.csv, each row a list of fields;
+    a torn last line (a kill mid-write) fails."""
+    with open(path) as fh:
+        text = fh.read()
+    if text and not text.endswith("\n"):
+        raise AssertionError("{} ends in a torn line".format(path))
+    rows = [line.split(",") for line in text.splitlines()]
+    return rows[0], rows[1:]
+
+
+def checkpoint_arrays(path):
+    """The weights of a bundle, by key."""
+    import tarfile
+
+    import numpy as np
+    with tarfile.open(path) as tar, np.load(
+            tar.extractfile("model/weights.npz")) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def killed_and_resumed(cli, train_cmd, run, again, label):
+    """The second same-seed run of a training path, killed and resumed:
+    ``train`` with the same arguments in a child process, SIGKILLed once
+    its resume snapshot names epoch 0, then ``train --resume`` through the
+    CLI entry point in this process. The child's epoch-0 rows must equal
+    the first run's (the determinism check, across processes); the
+    resumed rows and the last checkpoint's weights must equal the
+    uninterrupted run's bit for bit. Returns what it measured."""
+    import signal
+
+    import torch
+    keep = ("split", "epoch", "batch", "loss", "acc")
+    snap = os.path.join(again, "resume.json")
+    os.makedirs(again, exist_ok=True)
+    child_log = os.path.join(again, "child.log")
+    # the child needs the card's memory that this process's allocator
+    # keeps cached from the first run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(child_log, "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "medaka_tpu_torch"] + train_cmd
+            + ["--train_name", again], cwd=HERE, stdout=err, stderr=err)
+        try:
+            while not os.path.exists(snap):
+                if child.poll() is not None:
+                    with open(child_log) as fh:
+                        tail = fh.read()[-3000:]
+                    raise AssertionError(
+                        "{}: the child train exited with {} before its "
+                        "first snapshot: {}".format(label, child.returncode,
+                                                    tail))
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("{}: no snapshot in 600 s".format(
+                        label))
+                time.sleep(0.002)
+            child.send_signal(signal.SIGKILL)
+            child.wait()
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    t_kill = time.perf_counter() - t0
+    with open(snap) as fh:
+        snap_epoch = json.load(fh)["epoch"]
+    if snap_epoch != 0:
+        raise AssertionError("{}: the child passed epoch 0 before the kill "
+                             "(snapshot of epoch {})".format(label,
+                                                             snap_epoch))
+    header, first = csv_table(os.path.join(run, "training.csv"))
+    col = {name: i for i, name in enumerate(header)}
+
+    def fields(rows):
+        return [[r[col[k]] for k in keep] for r in rows]
+    _, child_rows = csv_table(os.path.join(again, "training.csv"))
+    t1 = time.perf_counter()
+    if cli.main(train_cmd + ["--train_name", again, "--resume"]) != 0:
+        raise AssertionError("{}: train --resume failed".format(label))
+    t_resume = time.perf_counter() - t1
+    _, rows = csv_table(os.path.join(again, "training.csv"))
+    resumed = rows[len(child_rows):]
+    epoch0 = [r for r in first if r[col["epoch"]] == "0"]
+    later = [r for r in first if r[col["epoch"]] != "0"]
+    if fields(child_rows[:len(epoch0)]) != fields(epoch0):
+        raise AssertionError("{}: the child's epoch 0 logged other losses "
+                             "than the first run's".format(label))
+    # rows of epoch 1 the child logged before the kill, if any
+    partial = child_rows[len(epoch0):]
+    if fields(partial) != fields(later[:len(partial)]) or \
+            fields(resumed) != fields(later):
+        raise AssertionError(
+            "{}: the resumed run logged other losses than the uninterrupted "
+            "one: {} vs {}".format(label, fields(resumed), fields(later)))
+    last = "model-{}.tar.gz".format(first[-1][col["epoch"]])
+    a = checkpoint_arrays(os.path.join(run, last))
+    b = checkpoint_arrays(os.path.join(again, last))
+    if a.keys() != b.keys() or any(a[k].tobytes() != b[k].tobytes()
+                                   for k in a):
+        raise AssertionError("{}: the resumed run's {} differs from the "
+                             "uninterrupted run's".format(label, last))
+    out = {"child_s_to_kill": t_kill, "resume_s": t_resume,
+           "child_rows": len(child_rows), "resumed_rows": len(resumed),
+           "weights_bit_identical": True}
+    log("   child killed after its epoch-0 snapshot ({:.1f} s, {} rows "
+        "logged); train --resume {:.1f} s: epoch 0 and the {} resumed rows "
+        "equal the first run's, {} bit-identical".format(
+            t_kill, len(child_rows), t_resume, len(resumed), last))
+    return out
+
+
+def gru_train_timings(gru_train, model, batch, rng, dev):
+    """gru_fwd and gru_bwd on layer 2's forward direction of a trained
+    ``GRUModel`` over a training ``batch`` (layer 1 through the kernels):
+    against their plain versions (the main shape's agreement), timed
+    beside the plain versions and one column, with each launch's
+    geometry, and cuDNN's bf16 ``nn.GRU(2H, H)`` over the same rows as the
+    yardstick. Returns (timed {name: (ms, plain ms, one-column ms)},
+    geometry, main-shape agreement, {"fwd", "bwd", "fwd_bwd"} cuDNN
+    ms)."""
+    import torch
+    B, T = batch["features"].shape[:2]
+    H = model.gru_size
+    layer1, layer2 = model.layer_params()
+    with torch.no_grad():
+        x1 = batch["features"].transpose(0, 1).to(torch.bfloat16)
+        lens = batch["lengths"]
+        h1 = torch.cat([gru_train.gru_fwd(
+            gru_train.project(x1, layer1[d]["w_ih"], layer1[d]["b_ih"]),
+            layer1[d]["w_hh"], layer1[d]["b_hh"], lens, rev)
+            for d, rev in (("fwd", False), ("bwd", True))], dim=-1)
+        p2 = layer2["fwd"]
+        xp = gru_train.project(h1, p2["w_ih"], p2["b_ih"])
+        w_hh, b_hh = p2["w_hh"].detach(), p2["b_hh"].detach()
+        out = gru_train.gru_fwd(xp, w_hh, b_hh, lens)
+        dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+            "float32")).to(dev, torch.bfloat16).float()
+        main_stats = compare_gru_train(gru_train, xp, w_hh, b_hh, lens,
+                                       dh_out, False)
+        one = (xp[:, :1].contiguous(), lens[:1])
+        out1 = gru_train.gru_fwd(one[0], w_hh, b_hh, one[1])
+        calls = {
+            "gru_fwd": (
+                lambda: gru_train.gru_fwd(xp, w_hh, b_hh, lens),
+                lambda: gru_train.gru_fwd_plain(xp, w_hh, b_hh, lens),
+                lambda: gru_train.gru_fwd(one[0], w_hh, b_hh, one[1])),
+            "gru_bwd": (
+                lambda: gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh,
+                                          lens),
+                lambda: gru_train.gru_bwd_plain(xp, out, dh_out, w_hh,
+                                                b_hh, lens),
+                lambda: gru_train.gru_bwd(one[0], out1, dh_out[:, :1]
+                                          .contiguous(), w_hh, b_hh,
+                                          one[1])),
+        }
+        timed = {name: (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
+                        cuda_ms(o)) for name, (k, pl, o) in calls.items()}
+        geometry = {name: {
+            key: dict(zip(("cluster", "columns", "smem_bytes",
+                           "resident_clusters"), fn(H, cols, dev)))
+            for key, cols in (("main", B), ("one_column", 1))}
+            for name, fn in (("gru_fwd", gru_train.fwd_geometry),
+                             ("gru_bwd", gru_train.bwd_geometry))}
+        for name in ("gru_fwd", "gru_bwd"):
+            log("   {}: geometry {}; {:.3f} us a step, one column {:.3f} "
+                "us a step".format(name, json.dumps(geometry[name]),
+                                   timed[name][0] / T * 1e3,
+                                   timed[name][2] / T * 1e3))
+    # yardstick (the port never calls it): cuDNN's bf16 GRU, one
+    # direction over layer 2's inputs, its input projection included
+    gru = torch.nn.GRU(2 * H, H, 1).to(dev, torch.bfloat16)
+    gru.flatten_parameters()
+    x2 = h1.detach().clone().requires_grad_(True)
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: gru(x2))
+    g_out = torch.ones((T, B, H), dtype=torch.bfloat16, device=dev)
+    lib_params = [x2] + list(gru.parameters())
+    lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        gru(x2)[0], lib_params, g_out))
+    lib_bwd = backward_alone_ms(gru, x2, g_out)
+    del gru, x2
+    log("   torch.nn.GRU({}, {}, 1) bf16 (cuDNN) over the same {} rows, "
+        "its input projection included: forward {:.2f} ms, backward "
+        "alone {:.2f} ms, forward + backward {:.2f} ms".format(
+            2 * H, H, B, lib_fwd, lib_bwd, lib_fwd_bwd))
+    return timed, geometry, main_stats, {
+        "fwd": lib_fwd, "bwd": lib_bwd, "fwd_bwd": lib_fwd_bwd}
+
+
 def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
     """The training path and its measurements (phases 11 and 12); returns
     the ``kernels`` rows of gru_fwd and gru_bwd."""
@@ -1115,18 +1347,11 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
         raise AssertionError("expected 4 launches of each training kernel "
                              "a step, got {}".format(launches))
 
-    with phase("training path: the same run again"):
-        again = os.path.join(work, "again")
-        if cli.main(train_cmd + ["--train_name", again]) != 0:
-            raise AssertionError("second train failed")
-        with open(os.path.join(again, "training.csv")) as fh:
-            rows2 = [line.split(",") for line in fh.read().splitlines()[1:]]
-        keep = [col[k] for k in ("split", "epoch", "batch", "loss", "acc")]
-        if [[r[i] for i in keep] for r in rows2] != \
-                [[r[i] for i in keep] for r in csv_rows]:
-            raise AssertionError("a second run from the same seed logged "
-                                 "other losses")
-        log("   the same {} losses and accuracies".format(len(rows2)))
+    with phase("training path: the same run again, killed after epoch 0 "
+               "and resumed"):
+        resumed = killed_and_resumed(cli, train_cmd, run,
+                                     os.path.join(work, "again"),
+                                     "counts training")
 
     with phase("training path: the last checkpoint serves"):
         ckpt = os.path.join(run, "model-1.tar.gz")
@@ -1218,68 +1443,10 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
                                  json.dumps(bwd_split)))
 
     with phase("training kernels at B=128 T=1000: timings"):
-        layer1, layer2 = model.layer_params()
-        with torch.no_grad():
-            x1 = batch["features"].transpose(0, 1).to(torch.bfloat16)
-            lens = batch["lengths"]
-            h1 = torch.cat([gru_train.gru_fwd(
-                gru_train.project(x1, layer1[d]["w_ih"], layer1[d]["b_ih"]),
-                layer1[d]["w_hh"], layer1[d]["b_hh"], lens, rev)
-                for d, rev in (("fwd", False), ("bwd", True))], dim=-1)
-            p2 = layer2["fwd"]
-            xp = gru_train.project(h1, p2["w_ih"], p2["b_ih"])
-            w_hh, b_hh = p2["w_hh"].detach(), p2["b_hh"].detach()
-            out = gru_train.gru_fwd(xp, w_hh, b_hh, lens)
-            dh_out = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
-                "float32")).to(dev, torch.bfloat16).float()
-            main_stats = compare_gru_train(gru_train, xp, w_hh, b_hh, lens,
-                                           dh_out, False)
-            one = (xp[:, :1].contiguous(), lens[:1])
-            out1 = gru_train.gru_fwd(one[0], w_hh, b_hh, one[1])
-            calls = {
-                "gru_fwd": (
-                    lambda: gru_train.gru_fwd(xp, w_hh, b_hh, lens),
-                    lambda: gru_train.gru_fwd_plain(xp, w_hh, b_hh, lens),
-                    lambda: gru_train.gru_fwd(one[0], w_hh, b_hh, one[1])),
-                "gru_bwd": (
-                    lambda: gru_train.gru_bwd(xp, out, dh_out, w_hh, b_hh,
-                                              lens),
-                    lambda: gru_train.gru_bwd_plain(xp, out, dh_out, w_hh,
-                                                    b_hh, lens),
-                    lambda: gru_train.gru_bwd(one[0], out1, dh_out[:, :1]
-                                              .contiguous(), w_hh, b_hh,
-                                              one[1])),
-            }
-            timed = {name: (cuda_ms(k), cuda_ms(pl, reps=1, warmup=0),
-                            cuda_ms(o)) for name, (k, pl, o) in calls.items()}
-            geometry = {name: {
-                key: dict(zip(("cluster", "columns", "smem_bytes",
-                               "resident_clusters"), fn(H, cols, dev)))
-                for key, cols in (("main", B), ("one_column", 1))}
-                for name, fn in (("gru_fwd", gru_train.fwd_geometry),
-                                 ("gru_bwd", gru_train.bwd_geometry))}
-            for name in ("gru_fwd", "gru_bwd"):
-                log("   {}: geometry {}; {:.3f} us a step, one column {:.3f} "
-                    "us a step".format(name, json.dumps(geometry[name]),
-                                       timed[name][0] / T * 1e3,
-                                       timed[name][2] / T * 1e3))
-        # yardstick (the port never calls it): cuDNN's bf16 GRU, one
-        # direction over layer 2's inputs, its input projection included
-        gru = torch.nn.GRU(2 * H, H, 1).to(dev, torch.bfloat16)
-        gru.flatten_parameters()
-        x2 = h1.detach().clone().requires_grad_(True)
-        with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: gru(x2))
-        g_out = torch.ones((T, B, H), dtype=torch.bfloat16, device=dev)
-        lib_params = [x2] + list(gru.parameters())
-        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-            gru(x2)[0], lib_params, g_out))
-        lib_bwd = backward_alone_ms(gru, x2, g_out)
-        del gru, x2
-        log("   torch.nn.GRU({}, {}, 1) bf16 (cuDNN) over the same {} rows, "
-            "its input projection included: forward {:.2f} ms, backward "
-            "alone {:.2f} ms, forward + backward {:.2f} ms".format(
-                2 * H, H, B, lib_fwd, lib_bwd, lib_fwd_bwd))
+        timed, geometry, main_stats, lib = gru_train_timings(
+            gru_train, model, batch, rng, dev)
+        lib_fwd, lib_bwd, lib_fwd_bwd = lib["fwd"], lib["bwd"], \
+            lib["fwd_bwd"]
 
     rows = []
     for name in ("gru_fwd", "gru_bwd"):
@@ -1337,6 +1504,7 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
         "wall_ms": step_s * 1e3, "gru_fwd_share_of_staged_step": fwd_share,
         "trained_columns_per_s": lengths_sum / step_s,
         "steps_in_run": steps}
+    rows[0]["killed_and_resumed"] = resumed
     return rows
 
 
@@ -1500,20 +1668,11 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
     log("   batch-norm running statistics: {}".format(json.dumps(running)))
     del trained
 
-    with phase("read-level training path: the same run again"):
-        again = os.path.join(work, "rl_again")
-        if cli.main(train_cmd + ["--train_name", again]) != 0:
-            raise AssertionError("second read-level train failed")
-        with open(os.path.join(again, "training.csv")) as fh:
-            rows2 = [line.split(",") for line in fh.read().splitlines()[1:]]
-        keep = [col[k] for k in ("split", "epoch", "batch", "loss", "acc")]
-        if [[r[i] for i in keep] for r in rows2] != \
-                [[r[i] for i in keep] for r in csv_rows]:
-            raise AssertionError(
-                "a second read-level run from the same seed logged other "
-                "losses: {} vs {}".format([r[col["loss"]] for r in rows2],
-                                          [r[col["loss"]] for r in csv_rows]))
-        log("   the same {} losses and accuracies".format(len(rows2)))
+    with phase("read-level training path: the same run again, killed "
+               "after epoch 0 and resumed"):
+        resumed = killed_and_resumed(cli, train_cmd, run,
+                                     os.path.join(work, "rl_again"),
+                                     "read-level training")
 
     with phase("read-level training path: the last checkpoint serves"):
         hdf = os.path.join(work, "rl_trained_probs.hdf")
@@ -1755,7 +1914,9 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
         "trained_columns_per_s": lengths_sum / step_s,
         "steps_in_run": steps, "run_s": t_train,
         "batchnorm_running": running}
-    return rows
+    rows[0]["killed_and_resumed"] = resumed
+    return rows, {"bam": bam, "draft": draft, "features": train_hdf,
+                  "checkpoint": ckpt}
 
 
 def variant_path(name, bundle, diploid, decodes, seed, work, dev, modules):
@@ -3224,6 +3385,639 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
     return rows
 
 
+#: the reference GRUModel's width (medaka's GRUModel default: 2x128)
+REF_HIDDEN = 128
+#: phase 26's split-kernel comparisons besides the main shape (int8, mode
+#: "t", the automatic batch, T=10000): bf16 and mode "rows" over this many
+#: steps (the plain versions step once a column a launch)
+REF_CHECK_T = 2000
+#: phase 27: phase 14's BAM cut to its first REF_RL_REGION_KB kb
+REF_RL_REGION_KB = 100
+#: phase 28: the fast5 tables of the reads over the first FAST5_REGION_KB
+#: kb of phase 4's genome (phase 23's region, cut)
+FAST5_REGION_KB = 20
+#: phase 25: validate_only against the last validation row, at most
+TOL_VALIDATION = 1e-6
+
+
+def read_validation(cli, argv):
+    """(loss, accuracy) that ``train --validate_only`` prints."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(argv) != 0:
+            raise AssertionError("train --validate_only failed")
+    m = re.search(r"validation loss (\S+) accuracy (\S+)", buf.getvalue())
+    if m is None:
+        raise AssertionError("train --validate_only printed no result")
+    return float(m.group(1)), float(m.group(2))
+
+
+def same_probabilities(datastore, a, b):
+    """Whether two probability files hold the same samples with the same
+    label_probs bits."""
+    with datastore.DataStore(a) as x, datastore.DataStore(b) as y:
+        names = x.sample_registry
+        return names == y.sample_registry and len(names) > 0 and all(
+            x.load_sample(n).label_probs.tobytes()
+            == y.load_sample(n).label_probs.tobytes() for n in names)
+
+
+def extract_member(tar_path, member, dst_dir):
+    """Extract one member of a tar archive under ``dst_dir``; its path."""
+    import tarfile
+    with tarfile.open(tar_path) as tar:
+        tar.extract(member, dst_dir, filter="data")
+    return os.path.join(dst_dir, member)
+
+
+def validate_only_phase(seed, work, rl_paths, modules):
+    """Phase 25: ``train --validate_only`` of phases 11's and 14's last
+    checkpoints against the last validation rows of their training.csv."""
+    bilstm, cli, gru_fullfused, gru_split = (modules[k] for k in (
+        "bilstm", "cli", "gru_fullfused", "gru_split"))
+    out = {}
+    for label, feats, ckpt in (
+            ("counts", os.path.join(work, "train.hdf"),
+             os.path.join(work, "run", "model-1.tar.gz")),
+            ("read-level", rl_paths["features"], rl_paths["checkpoint"])):
+        with phase("(25) train --validate_only of the {} path's last "
+                   "checkpoint".format(label)):
+            gru_split.reset_launches()
+            bilstm.reset_launches()
+            t0 = time.perf_counter()
+            loss, acc = read_validation(cli, [
+                "train", feats, "--validate_only", "--model", ckpt,
+                "--seed", str(seed), "--batch_size", "128", "--quiet"])
+            seconds = time.perf_counter() - t0
+            header, rows = csv_table(os.path.join(os.path.dirname(ckpt),
+                                                  "training.csv"))
+            col = {name: i for i, name in enumerate(header)}
+            last = [r for r in rows if r[col["split"]] == "validation"
+                    and r[col["epoch"]] == "1"]
+            if len(last) != 1:
+                raise AssertionError("{}: {} validation batches; the check "
+                                     "needs one".format(label, len(last)))
+            want_loss, want_acc = (float(last[0][col["loss"]]),
+                                   float(last[0][col["acc"]]))
+            if label == "counts":
+                route = {k: v for k, v in gru_split.MODE_LAUNCHES.items()
+                         if v}
+                name = "split" if route else "fullfused"
+            else:
+                route = dict(bilstm.LAUNCHES)
+                name = "bilstm_fused"
+            out[label] = {"loss": loss, "accuracy": acc,
+                          "csv_loss": want_loss, "csv_accuracy": want_acc,
+                          "route": name, "launches": route,
+                          "seconds": seconds}
+            log("   loss {!r} accuracy {!r}; training.csv's last validation "
+                "row {!r} {!r}; route {} {}; {:.1f} s".format(
+                    loss, acc, want_loss, want_acc, name, route, seconds))
+            if abs(loss - want_loss) > TOL_VALIDATION or \
+                    abs(acc - want_acc) > TOL_VALIDATION:
+                raise AssertionError("{}: --validate_only differs from the "
+                                     "last validation row".format(label))
+            if not route or min(route.values()) < 1:
+                raise AssertionError("{}: no kernel launched".format(label))
+    with phase("(25) train --validate_only --batch_size 16 of the counts "
+               "checkpoint: below 32 rows, the fullfused route"):
+        gru_fullfused.reset_launches()
+        gru_split.reset_launches()
+        loss, acc = read_validation(cli, [
+            "train", os.path.join(work, "train.hdf"), "--validate_only",
+            "--model", os.path.join(work, "run", "model-1.tar.gz"),
+            "--seed", str(seed), "--batch_size", "16", "--quiet"])
+        launches = {k: v for k, v in gru_fullfused.LAUNCHES.items() if v}
+        out["counts_batch16"] = {"loss": loss, "accuracy": acc,
+                                 "route": "fullfused", "launches": launches}
+        log("   loss {!r} accuracy {!r} over batches of 16; launches {}; "
+            "split kernels {}".format(loss, acc, launches,
+                                      sum(gru_split.LAUNCHES.values())))
+        if not (math.isfinite(loss) and 0 <= acc <= 1) or not launches \
+                or sum(gru_split.LAUNCHES.values()):
+            raise AssertionError("--validate_only below 32 rows did not run "
+                                 "the fullfused kernels alone")
+    return out
+
+
+def reference_width_training(seed, work, dev, rng, ptxas, modules):
+    """Phase 26 (1): the reference's 2x128 GRUModel from an exported
+    architecture TOML through ``train``, and gru_fwd and gru_bwd at H=128
+    against their plain versions and timed. Returns (checkpoint path,
+    kernels rows)."""
+    import torch
+    cli, features, gru_train, models, training = (modules[k] for k in (
+        "cli", "features", "gru_train", "models", "training"))
+    from medaka_tpu_torch import labels
+    from medaka_tpu_torch.models.gru import GRUModel
+    H = REF_HIDDEN
+    train_hdf = os.path.join(work, "train.hdf")
+    run = os.path.join(work, "run128")
+    with phase("(26) tools export of a random 2x{} GRUModel, then train "
+               "--model config.toml (batch 128, 2 epochs, bf16)".format(H)):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = GRUModel(num_features=10, num_classes=5, gru_size=H)
+        src = models.save_model(os.path.join(work, "random128.tar.gz"),
+                                model, features.CountsFeatureEncoder(),
+                                labels.HaploidLabelScheme())
+        if cli.main(["tools", "export", src, "--output",
+                     os.path.join(work, "random128_export")]) != 0:
+            raise AssertionError("tools export failed")
+        toml = extract_member(os.path.join(work, "random128_export.tar.gz"),
+                              "model/config.toml",
+                              os.path.join(work, "arch128"))
+        gru_train.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["train", train_hdf, "--model", toml, "--batch_size",
+                     "128", "--epochs", "2", "--optimizer", "adam",
+                     "--optim_args", "learning_rate=1e-3", "--seed",
+                     str(seed), "--train_name", run, "--quiet"]) != 0:
+            raise AssertionError("train --model config.toml failed")
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = dict(gru_train.LAUNCHES)
+    header, rows = csv_table(os.path.join(run, "training.csv"))
+    col = {name: i for i, name in enumerate(header)}
+    losses = [float(r[col["loss"]]) for r in rows]
+    train_losses = [float(r[col["loss"]]) for r in rows
+                    if r[col["split"]] == "train"]
+    steps = len(train_losses)
+    ckpt = os.path.join(run, "model-1.tar.gz")
+    trained = models.load_model(ckpt).model
+    log("   {} train steps in {:.1f} s; launches {}; train losses {}; "
+        "model {}".format(steps, t_train, launches, train_losses,
+                          json.dumps(trained.to_dict())))
+    if trained.to_dict() != model.to_dict():
+        raise AssertionError("train built another architecture")
+    if not all(math.isfinite(v) for v in losses) or \
+            not train_losses[-1] < train_losses[0]:
+        raise AssertionError("the 2x128 losses are not finite and falling")
+    if launches != {"gru_fwd": 4 * steps, "gru_bwd": 4 * steps}:
+        raise AssertionError("expected 4 launches of each training kernel "
+                             "a step, got {}".format(launches))
+
+    agreement = {}
+    with phase("(26) gru_fwd and gru_bwd at H={} B=128 T=1000 against their "
+               "plain versions, both directions".format(H)):
+        for reverse in (False, True):
+            stats = compare_gru_train(
+                gru_train, *random_direction(rng, H, 128, 1000, dev),
+                reverse)
+            agreement["reverse" if reverse else "forward"] = stats
+            log("   reverse={}: {}".format(reverse, json.dumps(stats)))
+
+    with phase("(26) gru_fwd and gru_bwd at H={}: timings on the training "
+               "batch".format(H)):
+        batcher = training.TrainBatcher([train_hdf], batch_size=128,
+                                        seed=seed)
+        host = next(batcher.batches("train", seed=0))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        B, T = batch["features"].shape[:2]
+        lengths_sum = int(batch["lengths"].sum())
+        timed, geometry, main_stats, lib = gru_train_timings(
+            gru_train, trained.to(dev), batch, rng, dev)
+        lib_fwd, lib_bwd = lib["fwd"], lib["bwd"]
+        trained.to("cpu")
+        del batch
+        torch.cuda.empty_cache()
+    kernel_rows = []
+    for name in ("gru_fwd", "gru_bwd"):
+        ms, plain_ms, floor_ms = timed[name]
+        bound_ms, bound_by, nbytes = train_bound(name, B, H, lengths_sum)
+        if name == "gru_fwd":
+            err = max([a["fwd_max"] for a in agreement.values()]
+                      + [main_stats["fwd_max"]])
+        else:
+            err = max(a[k] for a in list(agreement.values()) + [main_stats]
+                      for k in ("dxp", "dW_hh", "db_hh"))
+        src_name = "gru_cluster_fwd_kernel" if name == "gru_fwd" else \
+            "gru_cluster_bwd_kernel"
+        kernel_rows.append({
+            "name": name + "/h128", "route": "cuda", "source": TRAIN_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "launches_per_step": launches[name] // steps,
+            "max_abs_err": err,
+            "err_measure": ("max abs difference of bf16 outputs"
+                            if name == "gru_fwd" else
+                            "max abs difference over the tensor's max "
+                            "magnitude, worst of dxp, dW_hh, db_hh"),
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes,
+            "library_ms": lib_fwd if name == "gru_fwd" else lib_bwd,
+            "library": "torch.nn.GRU({}, {}, 1) bf16 (cuDNN) {} over the "
+                       "same {} rows".format(
+                           2 * H, H, "forward, its input projection "
+                           "included," if name == "gru_fwd" else
+                           "backward alone", B),
+            "serial_floor_ms": floor_ms, "step_us": ms / T * 1e3,
+            "serial_floor_step_us": floor_ms / T * 1e3,
+            "geometry": geometry[name],
+            "shape": {"B": B, "T": T, "H": H, "valid_columns": lengths_sum,
+                      "layer": 2, "direction": "forward"},
+            "agreement": {"random_weights": agreement,
+                          "main_shape": main_stats},
+            "path": "train --model config.toml (2x128), {} steps in {:.1f} "
+                    "s".format(steps, t_train),
+            "ptxas": {k: ptxas["gru_train.cu"][k]
+                      for k in (src_name,) + (("rnn_dw_kernel",)
+                                              if name == "gru_bwd" else ())}})
+        log("   {}/h128: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, "
+            "one column {:.3f} ms; cuDNN {:.3f} ms); geometry {}".format(
+                name, ms, plain_ms, bound_ms, bound_by, floor_ms,
+                kernel_rows[-1]["library_ms"], json.dumps(geometry[name])))
+    return ckpt, kernel_rows
+
+
+def reference_width_inference(work, bam, draft, ckpt, dev, ptxas, modules):
+    """Phase 26 (2-4): phase 26's checkpoint written as a legacy reference
+    checkpoint (the ``build_model_torch`` partial) serves ``inference`` +
+    ``sequence`` with the probabilities of the native checkpoint, bit for
+    bit; the split kernels at H=128 against their plain versions and
+    timed. Returns the kernels rows."""
+    import torch
+    cli, datastore, features, gru_split, models, prediction, testing = (
+        modules[k] for k in ("cli", "datastore", "features", "gru_split",
+                             "models", "prediction", "testing"))
+    H, IN, C = REF_HIDDEN, 10, 5
+    ref = os.path.join(work, "reference128.tar.gz")
+    native_hdf = os.path.join(work, "native128.hdf")
+    ref_hdf = os.path.join(work, "reference128.hdf")
+    native_fasta = os.path.join(work, "native128.fasta")
+    ref_fasta = os.path.join(work, "reference128.fasta")
+    with phase("(26) the 2x128 checkpoint as a legacy reference checkpoint: "
+               "inference + sequence, against the native checkpoint"):
+        testing.write_reference_checkpoint(models.load_model(ckpt), ref,
+                                           legacy=True)
+        bundle = models.load_model(ref)
+        if bundle.model.to_dict() != models.load_model(ckpt).model.to_dict():
+            raise AssertionError("the reference checkpoint converts to "
+                                 "another model")
+        if cli.main(["inference", bam, native_hdf, "--model", ckpt]) != 0:
+            raise AssertionError("inference of the native checkpoint failed")
+        gru_split.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["inference", bam, ref_hdf, "--model", ref]) != 0:
+            raise AssertionError("inference of the reference checkpoint "
+                                 "failed")
+        torch.cuda.synchronize()
+        t_inf = time.perf_counter() - t0
+        launches = dict(gru_split.LAUNCHES)
+        mode_launches = dict(gru_split.MODE_LAUNCHES)
+        if cli.main(["sequence", ref_hdf, draft, ref_fasta]) != 0 or \
+                cli.main(["sequence", native_hdf, draft, native_fasta]) != 0:
+            raise AssertionError("sequence failed")
+        n_samples, n_columns = check_probabilities(datastore, ref_hdf)
+        with open(ref_fasta, "rb") as a, open(native_fasta, "rb") as b:
+            identical = a.read() == b.read() and same_probabilities(
+                datastore, native_hdf, ref_hdf)
+        identity, edits, cons_len = consensus_identity(testing, ref_fasta,
+                                                       draft)
+        log("   {} samples, {} columns in {:.2f} s ({:.0f} columns/s); "
+            "launches {} {}; probabilities and FASTA identical to the "
+            "native checkpoint's: {}; consensus {} bp, identity to the draft "
+            "{:.6f} ({} edits; 8 steps of training, as phase 11's)".format(
+                                n_samples, n_columns, t_inf,
+                                n_columns / t_inf, launches, mode_launches,
+                                identical, cons_len, identity, edits))
+        if not identical:
+            raise AssertionError("the reference checkpoint's probabilities "
+                                 "or FASTA differ from the native "
+                                 "checkpoint's")
+        if min(mode_launches[k + "/t"] for k in launches) < 1:
+            raise AssertionError("a split kernel never launched in mode t")
+        if not cons_len or not 0 < identity <= 1:
+            raise AssertionError("no consensus")
+
+    rows = []
+    with phase("(26) gru_l1_split and gru_l2head_split at H={} against their "
+               "plain versions and timed".format(H)):
+        model = bundle.model.to(dev)
+        batch = prediction.auto_batch_size(model, dev)
+        mode = gru_split.split_mode(batch)
+        log("   automatic batch at H={}: {} (mode {}; cap {})".format(
+            H, batch, mode, prediction.AUTO_BATCH_CAP))
+        if mode != "t" or batch > prediction.AUTO_BATCH_CAP:
+            raise AssertionError("the 2x128 batch must run mode t within "
+                                 "the cap")
+        samples = []
+        for region in prediction.plan_work(None, bam):
+            samples.extend(features.SampleGenerator(
+                bam, region, bundle.feature_encoder, chunk_len=10000,
+                chunk_overlap=1000).samples)
+        main = prediction.Batch.collate(samples[:batch], batch, 10000)
+        T = 10000
+        xt = torch.from_numpy(main.features).to(torch.bfloat16) \
+            .transpose(0, 1).contiguous().to(dev)
+        lens = torch.from_numpy(main.lengths).to(dev)
+        lengths_sum = int(main.lengths.sum())
+        checks = {}
+        plain_ms = {}
+        with torch.inference_mode():
+            w = gru_split.prepare_split_weights(
+                model.layer_params(), model.head_params(), "t", True, dev)
+            l1_err, l2_err, stats, (kf, kb) = compare_kernels(
+                gru_split, w, xt, lens, "t", True, plain_ms=plain_ms)
+            checks["t/int8/T10000"] = {"B": batch, "l1_max": l1_err,
+                                       "logit_max": l2_err, **stats}
+            for m, rows_, quant in (("t", batch, False), ("rows", 64, True),
+                                    ("rows", 64, False)):
+                x_ = xt[:REF_CHECK_T, :rows_].contiguous()
+                l_ = lens[:rows_].clamp(max=REF_CHECK_T).contiguous()
+                w_ = gru_split.prepare_split_weights(
+                    model.layer_params(), model.head_params(), m, quant, dev)
+                e1, e2, st, _ = compare_kernels(gru_split, w_, x_, l_, m,
+                                                quant)
+                checks["{}/{}/T{}".format(m, "int8" if quant else "bf16",
+                                          REF_CHECK_T)] = {
+                    "B": rows_, "l1_max": e1, "logit_max": e2, **st}
+            for key, rec in checks.items():
+                log("   {}: {}".format(key, json.dumps(rec)))
+            l1_args = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"],
+                       w["sc1"], w["b_hh1"])
+            l2_args = (kf, kb, lens, w["w_in2"], w["in_scale2"], w["b_ih2"],
+                       w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
+            one_x, one_len = xt[:, :1].contiguous(), lens[:1]
+            f1, b1 = gru_split.gru_l1_split(one_x, one_len, *l1_args[2:],
+                                            mode="t")
+            wr = gru_split.prepare_split_weights(
+                model.layer_params(), model.head_params(), "rows", True, dev)
+            xr, lr = xt[:, :64].contiguous(), lens[:64].contiguous()
+            rf, rb = gru_split.gru_l1_split(xr, lr, wr["w_ih1"], wr["b_ih1"],
+                                            wr["w_hh1"], wr["sc1"],
+                                            wr["b_hh1"], mode="rows")
+            calls = {
+                "gru_l1_split": (
+                    lambda: gru_split.gru_l1_split(*l1_args, mode="t"),
+                    lambda: gru_split.gru_l1_split(
+                        one_x, one_len, *l1_args[2:], mode="t"),
+                    lambda: gru_split.gru_l1_split(
+                        xr, lr, wr["w_ih1"], wr["b_ih1"], wr["w_hh1"],
+                        wr["sc1"], wr["b_hh1"], mode="rows"), l1_err, IN),
+                "gru_l2head_split": (
+                    lambda: gru_split.gru_l2head_split(*l2_args, mode="t"),
+                    lambda: gru_split.gru_l2head_split(
+                        f1, b1, one_len, *l2_args[3:], mode="t"),
+                    lambda: gru_split.gru_l2head_split(
+                        rf, rb, lr, wr["w_in2"], wr["in_scale2"],
+                        wr["b_ih2"], wr["w_hh2"], wr["sc2"], wr["b_hh2"],
+                        wr["w_head"], mode="rows"), l2_err, 2 * H),
+            }
+            timed = {name: (cuda_ms(k), cuda_ms(o), cuda_ms(r))
+                     for name, (k, o, r, _, _) in calls.items()}
+        lib_ms = yardstick_ms(main.features, IN, 1, H, dev)
+        lib2_ms = yardstick_ms(main.features, 2 * H, 1, H, dev)
+        r_sum = int(main.lengths[:64].sum())
+        for name, (_, _, _, err, width) in calls.items():
+            kind = "l1" if name == "gru_l1_split" else "l2"
+            ms, floor_ms, rows_ms = timed[name]
+            bound_ms, bound_by = bound(name, batch, H, IN, C, lengths_sum)
+            rb_ms, rb_by = bound(name, 64, H, IN, C, r_sum)
+            geo = {key: dict(zip(
+                ("cluster", "columns", "smem_bytes", "resident_clusters"),
+                gru_split.geometry(kind, H, cols, dev, m,
+                                   IN if kind == "l1" else 0)))
+                for key, cols, m in (("main", batch, "t"),
+                                     ("rows_B64", 64, "rows"),
+                                     ("one_column", 1, "t"))}
+            rows.append({
+                "name": name + "/h128", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": REPLACES[name],
+                "launches": launches[name],
+                "launches_by_mode": {m: mode_launches[name + "/" + m]
+                                     for m in gru_split.MODES},
+                "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+                "plain_ms": plain_ms[name], "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": lib_ms if name == "gru_l1_split" else None,
+                "library": "torch.nn.GRU({}, {}, 1, bidirectional=True) bf16 "
+                           "(cuDNN) over the same {} rows: {:.2f} ms".format(
+                               width, H, batch,
+                               lib_ms if kind == "l1" else lib2_ms),
+                "serial_floor_ms": floor_ms, "step_us": ms / T * 1e3,
+                "serial_floor_step_us": floor_ms / T * 1e3,
+                "rows_mode": {"B": 64, "ms": rows_ms, "bound_ms": rb_ms,
+                              "bound_by": rb_by},
+                "geometry": geo, "checks": checks,
+                "shape": {"B": batch, "T": T, "H": H, "inputs": IN,
+                          "classes": C, "valid_columns": lengths_sum},
+                "path": "inference --model <legacy reference checkpoint, "
+                        "2x128> on phase 4's BAM, {:.0f} columns/s".format(
+                            n_columns / t_inf),
+                "ptxas": {SPLIT_KERNEL_OF[name]: ptxas["gru_split.cu"][
+                    SPLIT_KERNEL_OF[name]]}})
+            log("   {}/h128: {:.2f} ms (plain {:.1f} ms, bound {:.4f} ms by "
+                "{}, one column {:.2f} ms; mode rows B=64 {:.2f} ms; cuDNN "
+                "{:.2f} ms); geometry {}".format(
+                    name, ms, plain_ms[name], bound_ms, bound_by, floor_ms,
+                    rows_ms, lib_ms if kind == "l1" else lib2_ms,
+                    json.dumps(geo)))
+        del xt, kf, kb, f1, b1, rf, rb, w, wr
+        model.to("cpu")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def reference_read_level_phase(work, rl_paths, modules):
+    """Phase 27: phase 14's last checkpoint written as a reference
+    checkpoint serves ``inference`` + ``sequence`` over phase 14's BAM cut
+    to REF_RL_REGION_KB kb with the native checkpoint's probabilities, bit
+    for bit."""
+    bilstm, cli, datastore, models, testing = (modules[k] for k in (
+        "bilstm", "cli", "datastore", "models", "testing"))
+    region = "synth:0-{}".format(REF_RL_REGION_KB * 1000)
+    native = os.path.join(work, "rl_native.hdf")
+    ref_hdf = os.path.join(work, "rl_reference.hdf")
+    ref = os.path.join(work, "rl_reference.tar.gz")
+    chunks = ["--chunk_len", "1000", "--chunk_ovlp", "100", "--regions",
+              region]
+    with phase("(27) the read-level checkpoint as a reference checkpoint: "
+               "inference + sequence over {}".format(region)):
+        testing.write_reference_checkpoint(
+            models.load_model(rl_paths["checkpoint"]), ref)
+        if cli.main(["inference", rl_paths["bam"], native, "--model",
+                     rl_paths["checkpoint"]] + chunks) != 0:
+            raise AssertionError("read-level native inference failed")
+        bilstm.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["inference", rl_paths["bam"], ref_hdf, "--model", ref]
+                    + chunks) != 0:
+            raise AssertionError("read-level reference inference failed")
+        seconds = time.perf_counter() - t0
+        launches = dict(bilstm.LAUNCHES)
+        fasta = os.path.join(work, "rl_reference.fasta")
+        if cli.main(["sequence", ref_hdf, rl_paths["draft"], fasta,
+                     "--regions", region]) != 0:
+            raise AssertionError("read-level reference sequence failed")
+        n_samples, n_columns = check_probabilities(datastore, ref_hdf)
+        identical = same_probabilities(datastore, native, ref_hdf)
+        with open(fasta) as fh:
+            consensus = "".join(fh.read().splitlines()[1:])
+        log("   {} samples, {} columns in {:.2f} s; bilstm_fused launches "
+            "{}; probabilities bit-identical to the native checkpoint's: {};"
+            " consensus {} bp".format(n_samples, n_columns, seconds,
+                                      launches, identical, len(consensus)))
+        if not identical or not launches.get("bilstm_fused"):
+            raise AssertionError("the read-level reference checkpoint did "
+                                 "not serve the native probabilities")
+        if not consensus or set(consensus) - set("ACGTN"):
+            raise AssertionError("bad read-level consensus")
+    return {"samples": n_samples, "columns": n_columns, "seconds": seconds,
+            "launches": launches}
+
+
+def reference_files_phases(seed, work, bam, draft, hdf, fasta, modules):
+    """Phase 28: phase 5's probabilities as reference medaka writes them
+    (gzip-1, pickled ``meta/``) through ``sequence``; fast5 tables through
+    ``compress_bam --use_fast5_info`` and ``tools rlebam``; ``tools
+    export`` of the bundled counts model."""
+    import numpy as np
+    import torch
+    cli, datastore, models, testing = (modules[k] for k in (
+        "cli", "datastore", "models", "testing"))
+    from medaka_tpu_torch.common import Region
+    from medaka_tpu_torch.io.bam import BamReader
+    out = {}
+    ref_probs = os.path.join(work, "reference_probs.hdf")
+    with phase("(28) phase 5's probabilities in the reference's layout "
+               "(gzip-1, pickled meta/): sequence"):
+        t0 = time.perf_counter()
+        testing.write_reference_probabilities(hdf, ref_probs)
+        t_write = time.perf_counter() - t0
+        _, n_columns = check_probabilities(datastore, ref_probs)
+        rates = {}
+        for label, path in (("uncompressed", hdf), ("gzip", ref_probs)):
+            dst = os.path.join(work, "sequence_{}.fasta".format(label))
+            t0 = time.perf_counter()
+            if cli.main(["sequence", path, draft, dst]) != 0:
+                raise AssertionError("sequence of {} failed".format(path))
+            rates[label] = n_columns / (time.perf_counter() - t0)
+            with open(dst, "rb") as a, open(fasta, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError("sequence of the {} file differs "
+                                         "from phase 5's FASTA".format(label))
+        sizes = {k: os.path.getsize(p) for k, p in (("uncompressed", hdf),
+                                                    ("gzip", ref_probs))}
+        out["probabilities"] = {"columns": n_columns, "rewrite_s": t_write,
+                                "sequence_columns_per_s": rates,
+                                "bytes": sizes}
+        log("   rewritten in {:.2f} s ({} -> {} bytes); sequence of {} "
+            "columns: {:.0f} columns/s uncompressed, {:.0f} gzip-1; both "
+            "FASTAs phase 5's".format(t_write, sizes["uncompressed"],
+                                      sizes["gzip"], n_columns,
+                                      rates["uncompressed"], rates["gzip"]))
+
+    region = Region("synth", 0, FAST5_REGION_KB * 1000)
+    fast5_dir = os.path.join(work, "fast5")
+    os.makedirs(fast5_dir)
+    fast5 = os.path.join(fast5_dir, "reads.fast5")
+    summary = os.path.join(work, "sequencing_summary.txt")
+    with phase("(28) fast5 tables of the reads over the first {} kb: "
+               "compress_bam --use_fast5_info, tools rlebam".format(
+                   FAST5_REGION_KB)):
+        planted = testing.plant_fast5_tables(bam, fast5, summary, seed=seed,
+                                             region=region)
+        rle_bam = os.path.join(work, "fast5_rle.bam")
+        threads = os.cpu_count()
+        t0 = time.perf_counter()
+        if cli.main(["compress_bam", bam, rle_bam, draft, "--regions",
+                     "synth:0-{}".format(FAST5_REGION_KB * 1000),
+                     "--threads", str(threads), "--use_fast5_info",
+                     fast5_dir, summary]) != 0:
+            raise AssertionError("compress_bam --use_fast5_info failed")
+        t_compress = time.perf_counter() - t0
+        with BamReader(rle_bam) as reader:
+            recs = list(reader)
+        if len(recs) != len(planted) or any(
+                not np.array_equal(r.tags["WL"], planted[r.query_name][0])
+                or not np.array_equal(r.tags["WK"], planted[r.query_name][1])
+                for r in recs):
+            raise AssertionError("compress_bam's WL/WK tags are not the "
+                                 "planted tables")
+        sam = testing.write_sam(bam, os.path.join(work, "fast5_reads.sam"),
+                                region)
+        index = os.path.join(work, "fast5_index.tsv")
+        with open(index, "w") as fh:
+            for read_id in planted:
+                fh.write("{}\t{}\n".format(read_id, fast5))
+        decorated = os.path.join(work, "fast5_decorated.sam")
+        t0 = time.perf_counter()
+        with open(sam) as fin, open(decorated, "w") as fout:
+            subprocess.run([sys.executable, "-m", "medaka_tpu_torch",
+                            "tools", "rlebam", index, "--workers", "4"],
+                           stdin=fin, stdout=fout, cwd=HERE, check=True)
+        t_rlebam = time.perf_counter() - t0
+        tagged = 0
+        with open(decorated) as fh:
+            for line in fh:
+                if line.startswith("@"):
+                    continue
+                fields = line.rstrip("\n").split("\t")
+                tags = {f[:2]: np.array(f[7:].split(","), np.float32)
+                        for f in fields[11:] if f[2:7] == ":B:f,"}
+                if int(fields[1]) & (256 | 2048) or not tags:
+                    continue
+                shape, scale = planted[fields[0]]
+                # rlebam writes the scale as WL and the shape as WK
+                if not (np.array_equal(tags["WL"], scale)
+                        and np.array_equal(tags["WK"], shape)):
+                    raise AssertionError("rlebam's tags for {} are not the "
+                                         "planted table".format(fields[0]))
+                tagged += 1
+        if tagged != len(planted):
+            raise AssertionError("rlebam tagged {} of {} reads".format(
+                tagged, len(planted)))
+        out["fast5"] = {"reads": len(planted), "compress_bam_s": t_compress,
+                        "threads": threads, "rlebam_s": t_rlebam,
+                        "rlebam_workers": 4}
+        log("   {} reads: compress_bam --use_fast5_info {:.2f} s at {} "
+            "threads, tags the planted tables; tools rlebam {:.2f} s (4 "
+            "spawned workers), tags the planted tables".format(
+                len(planted), t_compress, threads, t_rlebam))
+
+    with phase("(28) tools export of the bundled counts model"):
+        exported = os.path.join(work, "counts_export")
+        if cli.main(["tools", "export", MODEL, "--output", exported]) != 0:
+            raise AssertionError("tools export failed")
+        weights = extract_member(exported + ".tar.gz", "model/weights.pt",
+                                 os.path.join(work, "counts_export_dir"))
+        state = torch.load(weights, map_location="cpu", weights_only=True)
+        bundle = models.load_model(MODEL)
+        again = models.model_from_dict(bundle.model.to_dict())
+        again.load_torch_state(state)
+        want = bundle.model.state_dict()
+        if any(not torch.equal(v, want[k])
+               for k, v in again.state_dict().items()):
+            raise AssertionError("the exported weights do not load back "
+                                 "equal")
+        out["export"] = {"tensors": len(state)}
+        log("   {} tensors in weights.pt load back equal".format(len(state)))
+    return out
+
+
+def options_and_formats_phases(seed, work, bam, draft, hdf, fasta, rl_paths,
+                               dev, rng, ptxas, modules):
+    """Phases 25-28; returns the ``kernels`` rows of the H=128 launches
+    (the split kernels, gru_fwd and gru_bwd), with the phases' records on
+    the first."""
+    from medaka_tpu_torch import training
+    validation = validate_only_phase(seed, work, rl_paths, modules)
+    ckpt, train_rows = reference_width_training(
+        seed, work, dev, rng, ptxas, dict(modules, training=training))
+    split_rows = reference_width_inference(work, bam, draft, ckpt, dev,
+                                           ptxas, modules)
+    read_level = reference_read_level_phase(work, rl_paths, modules)
+    files = reference_files_phases(seed, work, bam, draft, hdf, fasta,
+                                   modules)
+    rows = split_rows + train_rows
+    rows[0]["training_options_and_formats"] = {
+        "validate_only": validation, "reference_read_level": read_level,
+        **files}
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3963,11 +4757,21 @@ def main(argv=None):
                 "cli": cli, "datastore": datastore, "gru_train": gru_train,
                 "parallel": parallel, "training": training}))
         torch.cuda.empty_cache()
-        rows.extend(read_level_training_phases(
+        rl_rows, rl_paths = read_level_training_phases(
             seed, work, dev, rng, lstm_agreement, modules={
                 "cli": cli, "datastore": datastore, "lstm_train": lstm_train,
                 "models": models, "parallel": parallel,
-                "training": training}))
+                "training": training})
+        rows.extend(rl_rows)
+        # phases 25-28: the training options and the reference's formats
+        torch.cuda.empty_cache()
+        rows.extend(options_and_formats_phases(
+            seed, work, bam, draft, hdf, fasta, rl_paths, dev, rng, ptxas,
+            modules={"bilstm": bilstm, "cli": cli, "datastore": datastore,
+                     "features": features, "gru_fullfused": gru_fullfused,
+                     "gru_split": gru_split,
+                     "gru_train": gru_train, "models": models,
+                     "prediction": prediction, "testing": testing}))
         # phases 23 and 22 (the run-length path and its kernels) and 24
         # (the host pipeline options), before phase 21
         torch.cuda.empty_cache()

@@ -261,7 +261,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("features", nargs="+", help="Feature HDF5 file(s).")
     p.add_argument("--train_name", default="training")
     p.add_argument("--model", default=None,
-                   help="Initial model bundle or name (warm start).")
+                   help="Initial model bundle, reference checkpoint or name "
+                        "(warm start), or an architecture .toml (random "
+                        "init).")
     p.add_argument("--epochs", type=int, default=5000)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--validation_split", type=float, default=0.2)
@@ -294,10 +296,12 @@ def build_parser() -> argparse.ArgumentParser:
              "yet.")
     p.add_argument(
         "--validate_only", action="store_true",
-        help="Evaluate --model on the validation split (not ported yet).")
+        help="Evaluate --model on the validation split (all samples "
+             "when there is none) and print its loss and accuracy.")
     p.add_argument(
         "--resume", action="store_true",
-        help="Continue a killed run (not ported yet).")
+        help="Continue a killed run from the resume snapshot in "
+             "--train_name.")
     p.add_argument(
         "--cpu", action="store_true", help="Train on the CPU.")
     p.set_defaults(func=_cmd_train)
@@ -407,8 +411,8 @@ def _add_from_reads_parsers(subparsers, log_parent):
     p.add_argument(
         "--use_fast5_info", nargs=2, default=None,
         metavar=("FAST5_DIR", "SUMMARY"),
-        help="Add WL/WK Weibull tags from fast5 files (not supported: "
-             "the port has no fast5 reader).")
+        help="Add WL/WK Weibull tags from fast5 files (their directory "
+             "and a sequencing summary naming each read's file).")
     p.set_defaults(func=_cmd_compress_bam)
 
     p = subparsers.add_parser(
@@ -458,6 +462,27 @@ def _add_from_reads_parsers(subparsers, log_parent):
         "is_rle_model", help="Report whether a model is an RLE model.")
     tp.add_argument("model")
     tp.set_defaults(func=_cmd_is_rle_model)
+
+    tp = toolsub.add_parser(
+        "rlebam",
+        help="Add run-length (WL/WK) tags to a SAM stream (stdin to "
+             "stdout) from fast5s.")
+    tp.add_argument(
+        "read_index",
+        help="Two-column TSV mapping read_ids to fast5 filepaths.")
+    tp.add_argument("--workers", type=int, default=4)
+    tp.set_defaults(func=_cmd_rlebam)
+
+    tp = toolsub.add_parser(
+        "export",
+        help="Export a model as config.toml + torch weights.pt.")
+    tp.add_argument("model")
+    tp.add_argument("--output", default=None)
+    tp.add_argument("--supported_basecallers", nargs="+", default=[])
+    tp.add_argument(
+        "--force", action="store_true",
+        help="Overwrite an existing export archive.")
+    tp.set_defaults(func=_cmd_export)
 
 
 def main(argv=None):
@@ -597,7 +622,9 @@ def _cmd_features(args):
 
 def _cmd_train(args):
     from medaka_tpu_torch import training
-    training.train(args)
+    out = training.train(args)
+    if args.validate_only:
+        print("validation loss {!r} accuracy {!r}".format(*out))
     return 0
 
 
@@ -701,6 +728,20 @@ def _cmd_compress_bam(args):
         args.bam_input, args.bam_output, args.ref_fname,
         regions=_regions_arg(args.regions) if args.regions else None,
         threads=args.threads, use_fast5_info=args.use_fast5_info)
+    return 0
+
+
+def _cmd_rlebam(args):
+    from medaka_tpu_torch import rle
+    rle.rlebam(args.read_index, workers=args.workers)
+    return 0
+
+
+def _cmd_export(args):
+    from medaka_tpu_torch import models
+    print(models.export_model(
+        models.resolve_model(args.model), args.output,
+        supported_basecallers=args.supported_basecallers, force=args.force))
     return 0
 
 

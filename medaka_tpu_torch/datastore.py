@@ -5,9 +5,12 @@ a probability file written by either package stitches with the other:
 
 - :class:`DataStore` — one HDF5 file holding ``samples/data/<name>/{...}``
   datasets plus metadata stored as JSON in the ``meta_json/`` group, read
-  and written with :mod:`medaka_tpu_torch.io.hdf5` (no h5py).
-  Files carrying only the reference's pickled metadata (``meta/``) are
-  refused: their conversion is not ported yet.
+  and written with :mod:`medaka_tpu_torch.io.hdf5` (no h5py), its samples
+  optionally gzip-1 compressed as reference medaka writes them. The
+  reference's pickled metadata (``meta/``) and sample registry are read
+  through :mod:`medaka_tpu_torch.compat`; where ``meta_json/`` holds a key
+  too, it wins. A pickle that does not convert raises (``medaka_tpu``
+  logs a warning and goes on).
 - :class:`ShardedDataStore` — round-robin writer over N shard files in
   spawned writer processes, with a ``shard_files`` manifest in the base
   file that either package's :class:`DataIndex` expands.
@@ -45,16 +48,25 @@ class DataStore:
     _meta_json_path_ = "meta_json"
     _registry_path_ = "samples/registry"
 
-    def __init__(self, filename: str, mode: str = "r"):
+    def __init__(self, filename: str, mode: str = "r",
+                 compression: Optional[str] = None):
         """Open an HDF5 sample store.
 
         :param filename: file path.
         :param mode: 'r', 'w', or 'a' (appends to an existing file: its
             samples, registry and metadata are loaded and extended).
-            Positions are narrowed to int32/int16 on disk, uncompressed.
+        :param compression: None (positions are narrowed to int32/int16 on
+            disk, uncompressed) or 'gzip' (level 1, the reference's
+            codec) for the samples' arrays; 'lzf' raises.
         """
+        if compression not in (None, "gzip"):
+            raise NotImplementedError(
+                "DataStore compression {!r} is not ported to "
+                "medaka_tpu_torch (gzip is; lzf stays in queue 1 item 7 "
+                "of ROADMAP.md).".format(compression))
         self.filename = filename
         self.mode = mode
+        self.compression = compression
         self.logger = common.get_named_logger("DataStore")
         self.fh = hdf5.File(filename, mode)
         self._meta: Optional[Dict] = None
@@ -118,12 +130,18 @@ class DataStore:
 
     def _load_metadata(self) -> Dict:
         meta: Dict = {}
-        if self._meta_path_ in self.fh and \
-                self._meta_json_path_ not in self.fh:
-            raise NotImplementedError(
-                "{} holds only pickled reference metadata ('meta/'); "
-                "converting it is not ported to medaka_tpu_torch "
-                "yet.".format(self.filename))
+        if self._meta_path_ in self.fh:
+            from medaka_tpu_torch import compat
+            grp = self.fh[self._meta_path_]
+            for key in grp:
+                try:
+                    meta[key] = compat.convert_meta(
+                        key, compat.medaka_loads(grp[key][()]))
+                except Exception as e:
+                    raise ValueError("{}: cannot convert the pickled "
+                                     "meta/{}: {}".format(self.filename, key,
+                                                          e)) from e
+        # the port's JSON metadata wins over pickles where both exist
         if self._meta_json_path_ in self.fh:
             from medaka_tpu_torch import features as feat_mod
             from medaka_tpu_torch import labels as label_mod
@@ -201,7 +219,10 @@ class DataStore:
                 continue
             if field == "positions":
                 value = self._narrow_positions(value)
-            self.fh["{}/{}".format(grp, field)] = value
+            self.fh.create_dataset(
+                "{}/{}".format(grp, field), value,
+                compression=self.compression
+                if isinstance(value, np.ndarray) else None)
         self.fh["{}/ref_name".format(grp)] = sample.ref_name
         self.fh.flush()
 
@@ -231,8 +252,13 @@ class DataStore:
 
     def _load_registry(self) -> set:
         if self._registry_path_ in self.fh:
-            blob = self.fh[self._registry_path_][()]
-            return set(json.loads(blob.decode()))
+            blob = bytes(self.fh[self._registry_path_][()])
+            try:
+                return set(json.loads(blob.decode()))
+            except (UnicodeDecodeError, json.JSONDecodeError):
+                # the reference's pickled registry
+                from medaka_tpu_torch import compat
+                return set(compat.medaka_loads(blob))
         if self._data_path_ in self.fh:
             return set(self.fh[self._data_path_].keys())
         return set()
@@ -250,12 +276,12 @@ class DataStore:
             json.dumps(sorted(self.sample_registry)).encode())
 
 
-def _shard_writer_main(path, queue, err_queue):
+def _shard_writer_main(path, compression, queue, err_queue):
     """Shard writer process (``medaka_tpu.datastore._shard_writer_main``):
     drain samples into ``path`` until the None sentinel, then report None
     or the error on ``err_queue``."""
     try:
-        with DataStore(path, "a") as ds:
+        with DataStore(path, "a", compression=compression) as ds:
             while True:
                 item = queue.get()
                 if item is None:
@@ -282,10 +308,11 @@ class ShardedDataStore:
     raises at :meth:`close`.
     """
 
-    def __init__(self, filename: str, shards: int = 2):
+    def __init__(self, filename: str, shards: int = 2,
+                 compression: Optional[str] = None):
         import multiprocessing as mp
         self.filename = filename
-        self.base = DataStore(filename, "a")
+        self.base = DataStore(filename, "a", compression=compression)
         self.shard_names = [
             "{}.shard{:02d}".format(filename, k) for k in range(shards)]
         self.base.fh.attrs["shard_files"] = json.dumps(
@@ -295,7 +322,8 @@ class ShardedDataStore:
         self._err_queue = ctx.Queue()
         self._procs = [
             ctx.Process(target=_shard_writer_main,
-                        args=(name, q, self._err_queue), daemon=True)
+                        args=(name, compression, q, self._err_queue),
+                        daemon=True)
             for name, q in zip(self.shard_names, self._queues)]
         for p in self._procs:
             p.start()

@@ -2,12 +2,23 @@
 
 Written from the HDF5 file format specification (version 0 superblock,
 version 1 object headers, symbol-table groups), covering what the
-probability and feature files of the datastore hold: groups, and
-contiguous or compact datasets of integers, floats, fixed-length and
-variable-length strings and compound types, and the attributes of the
-root group (``File.attrs``; written as fixed-length strings or arrays).
-Files it writes open in h5py; it reads files h5py writes with its
-default settings. Chunked or compressed datasets are refused.
+probability and feature files of the datastore and fast5 files hold:
+groups, and contiguous, compact or chunked datasets of integers, floats
+(either byte order), fixed-length and variable-length strings, opaque
+bytes and compound types, and the attributes of the root group
+(``File.attrs``; written as fixed-length strings or arrays). Files it
+writes open in h5py; it reads files h5py writes with its default
+settings.
+
+Chunked datasets are read through their version-1 B-tree chunk index,
+every level of it, with edge chunks cut to the dataset's bounds, and
+through their filter pipeline: deflate (gzip, ``zlib``) and shuffle (a
+byte transpose). Any other filter (lzf, vbz, szip, fletcher32, ...)
+raises :class:`HDF5Error` naming it. ``create_dataset(...,
+compression="gzip")`` writes a dataset deflated at level 1, as reference
+medaka does, as one chunk covering the whole dataset (one B-tree leaf
+entry): a chunk's size is a 32-bit field, so such a dataset must stay
+under 4 GiB once compressed.
 
 The writer appends each dataset's raw bytes as it is created and writes
 the groups' metadata (object headers, local heaps, symbol-table nodes and
@@ -27,6 +38,7 @@ from __future__ import annotations
 import os
 import struct
 import threading
+import zlib
 from typing import Dict
 
 import numpy as np
@@ -42,6 +54,16 @@ _LOCAL_HEAP_FREE_NULL = 1   # free-list terminator of a local heap
 _NIL, _DATASPACE, _DATATYPE, _FILL = 0x0, 0x1, 0x3, 0x5
 _LAYOUT, _FILTERS, _ATTRIBUTE = 0x8, 0xB, 0xC
 _CONTINUATION, _SYMBOL_TABLE = 0x10, 0x11
+
+# filters of a dataset's pipeline
+_DEFLATE, _SHUFFLE = 1, 2
+#: filters this module cannot decode, named in its errors
+FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
+                5: "nbit", 6: "scaleoffset", 307: "bzip2", 32000: "lzf",
+                32001: "blosc", 32004: "lz4", 32015: "zstd", 32020: "vbz"}
+#: the "K" of chunk B-trees in a version 0 superblock: nodes hold up to
+#: 2K children
+CHUNK_BTREE_K = 32
 
 
 class HDF5Error(ValueError):
@@ -62,11 +84,10 @@ _VLEN_STR = "vlen-str"
 def _encode_datatype(dtype: np.dtype) -> bytes:
     """Datatype message (version 1) for a numpy dtype."""
     dtype = np.dtype(dtype)
-    if dtype.byteorder == ">":
-        raise HDF5Error("big-endian data is not supported")
+    big = int(dtype.byteorder == ">")
     kind, size = dtype.kind, dtype.itemsize
     if kind in "iu":
-        bits = 0x08 if kind == "i" else 0
+        bits = (0x08 if kind == "i" else 0) | big
         return struct.pack("<B3sI", 0x10, bytes([bits, 0, 0]), size) + \
             struct.pack("<HH", 0, 8 * size)
     if kind == "f":
@@ -75,7 +96,8 @@ def _encode_datatype(dtype: np.dtype) -> bytes:
         if size not in exp:
             raise HDF5Error("unsupported float size {}".format(size))
         eloc, esize, msize, bias = exp[size]
-        return struct.pack("<B3sI", 0x11, bytes([0x20, 8 * size - 1, 0]),
+        return struct.pack("<B3sI", 0x11,
+                           bytes([0x20 | big, 8 * size - 1, 0]),
                            size) + struct.pack(
             "<HHBBBBI", 0, 8 * size, eloc, esize, 0, msize, bias)
     if kind == "S":
@@ -130,6 +152,8 @@ def _decode_datatype(buf: bytes, pos: int = 0):
             p += used
         return np.dtype({"names": names, "formats": formats,
                          "offsets": offsets, "itemsize": size}), p - pos
+    if cls == 5:                                   # opaque
+        return np.dtype("V{}".format(size)), 8 + _pad8(b0)
     if cls == 9 and (b0 & 0x0F) == 1:              # variable-length string
         _, used = _decode_datatype(buf, p)
         return _VLEN_STR, 8 + used
@@ -148,10 +172,12 @@ class Dataset:
         self._file = f
         self.shape = _decode_dataspace(messages[_DATASPACE])
         self.dtype, _ = _decode_datatype(messages[_DATATYPE])
-        if _FILTERS in messages:
-            raise HDF5Error("filtered (compressed) datasets are not "
-                            "supported")
         self._layout = _decode_layout(messages[_LAYOUT])
+        self._filters = _decode_filters(messages[_FILTERS]) \
+            if _FILTERS in messages else []
+        if self._filters and self._layout[0] != "chunked":
+            raise HDF5Error("filters on a {} dataset".format(
+                self._layout[0]))
 
     def __getitem__(self, key):
         if key != () and key != Ellipsis:
@@ -161,11 +187,98 @@ class Dataset:
         kind, where = self._layout
         if kind == "compact":
             raw = where
+        elif kind == "chunked":
+            raw = self._read_chunked(where, itemsize)
         elif where == UNDEF:
             raw = b"\0" * (count * itemsize)
         else:
             raw = self._file._read(where, count * itemsize)
         return _decode_values(self._file, raw, self.dtype, self.shape)
+
+    def _read_chunked(self, where, itemsize: int) -> bytes:
+        """The dataset's bytes, assembled from its chunks (unallocated
+        chunks read as zeros, the default fill)."""
+        btree, dims = where
+        rank = len(self.shape)
+        chunk = tuple(dims[:rank])
+        if dims[rank] != itemsize:
+            raise HDF5Error("chunk element size {} for a {}-byte "
+                            "type".format(dims[rank], itemsize))
+        item = np.dtype((np.void, itemsize))
+        out = np.zeros(self.shape, dtype=item)
+        if btree == UNDEF or out.size == 0:
+            return out.tobytes()
+        chunk_bytes = int(np.prod(chunk, dtype=np.int64)) * itemsize
+        for size, mask, offset, address in self._file._chunk_entries(
+                btree, rank + 1):
+            raw = _unfilter(self._file._read(address, size), self._filters,
+                            mask, itemsize)
+            if len(raw) != chunk_bytes:
+                raise HDF5Error("chunk at {} holds {} bytes, not {}".format(
+                    address, len(raw), chunk_bytes))
+            data = np.frombuffer(raw, dtype=item).reshape(chunk)
+            # an edge chunk reaches past the dataset's bounds: keep the
+            # part inside them
+            inside = tuple(slice(0, min(c, n - o)) for c, n, o in
+                           zip(chunk, self.shape, offset))
+            out[tuple(slice(o, o + s.stop) for o, s in
+                      zip(offset, inside))] = data[inside]
+        return out.tobytes()
+
+
+def _decode_filters(buf: bytes):
+    """[(filter id, client data)] of a filter pipeline message (versions
+    1 and 2), in the order the writer applied them; raises naming any
+    filter other than deflate and shuffle."""
+    version, n = buf[0], buf[1]
+    if version not in (1, 2):
+        raise HDF5Error("filter pipeline message version {}".format(version))
+    p = 8 if version == 1 else 2
+    out = []
+    for _ in range(n):
+        fid = struct.unpack_from("<H", buf, p)[0]
+        p += 2
+        name_len = 0
+        if version == 1 or fid >= 256:
+            name_len = struct.unpack_from("<H", buf, p)[0]
+            p += 2
+        _flags, n_values = struct.unpack_from("<HH", buf, p)
+        p += 4
+        p += _pad8(name_len) if version == 1 else name_len
+        values = struct.unpack_from("<{}I".format(n_values), buf, p)
+        p += 4 * n_values
+        if version == 1 and n_values % 2:
+            p += 4
+        if fid not in (_DEFLATE, _SHUFFLE):
+            raise HDF5Error("the HDF5 filter {} ({}) is not supported (only "
+                            "deflate and shuffle are)".format(
+                                FILTER_NAMES.get(fid, "unknown"), fid))
+        out.append((fid, values))
+    return out
+
+
+def _unfilter(raw: bytes, filters, mask: int, itemsize: int) -> bytes:
+    """Undo a chunk's filters, last applied first; bit i of ``mask``
+    marks filter i as skipped for this chunk."""
+    for i in reversed(range(len(filters))):
+        if mask & (1 << i):
+            continue
+        fid, values = filters[i]
+        if fid == _DEFLATE:
+            raw = zlib.decompress(raw)
+        else:
+            size = values[0] if values else itemsize
+            n = len(raw) // size
+            if size > 1 and n > 1:
+                body = np.frombuffer(raw, np.uint8, n * size)
+                raw = body.reshape(size, n).T.tobytes() + raw[n * size:]
+    return raw
+
+
+def _encode_filters_deflate(level: int = 1) -> bytes:
+    """A version 1 filter pipeline message of deflate at ``level``."""
+    return struct.pack("<BB6x", 1, 1) + struct.pack(
+        "<HHHHI4x", _DEFLATE, 0, 0, 1, level)
 
 
 def _decode_values(f: "File", raw: bytes, dtype, shape):
@@ -241,6 +354,8 @@ def _decode_dataspace(buf: bytes):
 
 
 def _decode_layout(buf: bytes):
+    """("compact", bytes), ("contiguous", address) or ("chunked",
+    (B-tree address, chunk dimensions with the element size last))."""
     version, cls = buf[0], buf[1]
     if version != 3:
         raise HDF5Error("layout message version {}".format(version))
@@ -249,7 +364,12 @@ def _decode_layout(buf: bytes):
         return "compact", bytes(buf[4:4 + size])
     if cls == 1:
         return "contiguous", struct.unpack_from("<Q", buf, 2)[0]
-    raise HDF5Error("chunked datasets are not supported")
+    if cls == 2:
+        ndims = buf[2]
+        btree = struct.unpack_from("<Q", buf, 3)[0]
+        return "chunked", (btree, struct.unpack_from(
+            "<{}I".format(ndims), buf, 11))
+    raise HDF5Error("layout class {} is not supported".format(cls))
 
 
 class Group:
@@ -293,19 +413,23 @@ class Group:
 
 
 class _Written:
-    """A dataset created by this writer: its messages and raw bytes."""
+    """A dataset created by this writer: its messages and raw bytes
+    (``deflated``: one gzip chunk of ``nbytes`` at ``address``)."""
 
     def __init__(self, f: "File", dtype, shape, address, nbytes,
-                 compact=None):
+                 compact=None, deflated=False):
         self._file = f
         self.dtype, self.shape = dtype, shape
         self.address, self.nbytes, self.compact = address, nbytes, compact
+        self.deflated = deflated
 
     def __getitem__(self, key):
         if key != () and key != Ellipsis:
             raise HDF5Error("only whole-dataset reads are supported")
         raw = self.compact if self.compact is not None else \
             self._file._read(self.address, self.nbytes)
+        if self.deflated:
+            raw = zlib.decompress(raw)
         return _decode_values(self._file, raw, self.dtype, self.shape)
 
 
@@ -532,6 +656,28 @@ class File(Group):
                 end = names.index(b"\0", name_off)
                 links[names[name_off:end].decode()] = obj
 
+    def _chunk_entries(self, address: int, ndims: int):
+        """(size, filter mask, offset, address) of every chunk under the
+        chunk B-tree node at ``address``, all levels walked; the offset
+        holds the chunk's first element in each dimension."""
+        head = self._read(address, 24)
+        if head[:4] != b"TREE" or head[4] != 1:
+            raise HDF5Error("bad chunk B-tree node at {}".format(address))
+        level, used = head[5], struct.unpack_from("<H", head, 6)[0]
+        key = 8 + 8 * ndims
+        body = self._read(address + 24, used * (key + 8) + key)
+        out = []
+        for i in range(used):
+            p = i * (key + 8)
+            size, mask = struct.unpack_from("<II", body, p)
+            offset = struct.unpack_from("<{}Q".format(ndims - 1), body, p + 8)
+            child = struct.unpack_from("<Q", body, p + key)[0]
+            if level:
+                out.extend(self._chunk_entries(child, ndims))
+            else:
+                out.append((size, mask, offset, child))
+        return out
+
     def _vlen_string(self, ref: bytes) -> bytes:
         length, collection, index = struct.unpack("<IQI", ref)
         if length == 0 or collection in (0, UNDEF):
@@ -574,9 +720,17 @@ class File(Group):
             node = child
         return node, parts[-1]
 
-    def create_dataset(self, path: str, data) -> None:
-        """Write ``data`` (array, bytes or str) as the dataset ``path``."""
+    def create_dataset(self, path: str, data, compression=None) -> None:
+        """Write ``data`` (array, bytes or str) as the dataset ``path``.
+
+        :param compression: None, or "gzip" for one deflated chunk (level
+            1) when ``data`` is an array with at least one dimension and
+            one element; any other value raises.
+        """
         self._writable()
+        if compression not in (None, "gzip"):
+            raise HDF5Error("compression {!r} is not supported (only "
+                            "gzip is)".format(compression))
         if isinstance(data, str):
             data = data.encode()
         if isinstance(data, bytes):
@@ -586,16 +740,24 @@ class File(Group):
             arr = arr.copy()
         _encode_datatype(arr.dtype)          # refuse unsupported types now
         raw = arr.tobytes()
+        deflate = compression == "gzip" and arr.ndim > 0 and arr.size > 0
+        if deflate:
+            raw = zlib.compress(raw, 1)
+            if len(raw) >= 2 ** 32:
+                raise HDF5Error("{}: a gzip chunk of {} bytes does not fit "
+                                "the chunk index's 32-bit size".format(
+                                    path, len(raw)))
         with self._lock:
             parent, name = self._parent(path, create=True)
             if name in parent:
                 raise HDF5Error("{} already exists".format(path))
-            if len(raw) <= 64:
+            if len(raw) <= 64 and not deflate:
                 parent[name] = _Written(self, arr.dtype, arr.shape, UNDEF,
                                         len(raw), compact=raw)
             else:
                 parent[name] = _Written(self, arr.dtype, arr.shape,
-                                        self._append(raw), len(raw))
+                                        self._append(raw), len(raw),
+                                        deflated=deflate)
 
     def __setitem__(self, path: str, value):
         self.create_dataset(path, value)
@@ -645,18 +807,44 @@ class File(Group):
         return struct.pack("<BBHII4x", 1, 0, len(messages), 1,
                            len(body)) + bytes(body)
 
+    def _chunk_btree(self, ds: _Written) -> int:
+        """The one-leaf chunk B-tree of a deflated dataset: its chunk
+        starts at the origin and its right key at the chunk's far corner
+        (in elements; the element size in the last dimension), the node
+        padded to the 2K entries readers expect."""
+        ndims = len(ds.shape) + 1
+        left = struct.pack("<II{}Q".format(ndims), ds.nbytes, 0,
+                           *([0] * ndims))
+        right = struct.pack("<II{}Q".format(ndims), 0, 0, *ds.shape,
+                            ds.dtype.itemsize)
+        body = left + struct.pack("<Q", ds.address) + right
+        size = 2 * CHUNK_BTREE_K * 8 + (2 * CHUNK_BTREE_K + 1) * len(left)
+        return self._append(b"TREE" + struct.pack(
+            "<BBHQQ", 1, 0, 1, UNDEF, UNDEF) + body
+            + b"\0" * (size - len(body)))
+
     def _write_dataset(self, ds) -> int:
         if isinstance(ds, _Existing):
             return self._append(self._header(ds.messages))
         space = _encode_dataspace(ds.shape)
-        fill = bytes([2, 1, 2, 0])
+        extra = []
         if ds.compact is not None:
+            fill = bytes([2, 1, 2, 0])
             layout = struct.pack("<BBH", 3, 0, len(ds.compact)) + ds.compact
+        elif ds.deflated:
+            # incremental allocation, as h5py writes chunked datasets
+            fill = bytes([2, 2, 2, 0])
+            layout = struct.pack("<BBBQ", 3, 2, len(ds.shape) + 1,
+                                 self._chunk_btree(ds)) + struct.pack(
+                "<{}I".format(len(ds.shape) + 1), *ds.shape,
+                ds.dtype.itemsize)
+            extra = [(_FILTERS, _encode_filters_deflate())]
         else:
+            fill = bytes([2, 1, 2, 0])
             layout = struct.pack("<BBQQ", 3, 1, ds.address, ds.nbytes)
         return self._append(self._header([
             (_DATASPACE, space), (_DATATYPE, _encode_datatype(ds.dtype)),
-            (_FILL, fill), (_LAYOUT, layout)]))
+            (_FILL, fill)] + extra + [(_LAYOUT, layout)]))
 
     def _write_group(self, node: _Group, extra=None):
         """Write a group's members, then the group (with ``extra``

@@ -9,7 +9,10 @@ parameter pytree flattened to ``a/0/b`` keys), so a bundle written by
 either package loads in the other. A bundle whose model, feature encoder
 or label scheme class is not ported yet is refused with an error naming
 that class. Reference medaka ``.tar.gz`` checkpoints (``weights.pt`` and
-pickled metadata) are not ported yet.
+a pickled ``meta.pkl``) load through :mod:`medaka_tpu_torch.compat`;
+:func:`export_model` writes the other way, ``config.toml`` and a torch
+``weights.pt`` (the dorado polish layout), whose ``config.toml`` ``train
+--model`` reads as an architecture.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import io
 import json
 import os
 import tarfile
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -35,6 +38,31 @@ def register_model(cls):
     """Class decorator adding a model to the registry."""
     model_classes[cls.__name__] = cls
     return cls
+
+
+def state_array(state: Dict, key: str) -> np.ndarray:
+    """``state[key]`` (a tensor or array) as float32 numpy; a missing key
+    raises naming it."""
+    if key not in state:
+        raise ValueError("The torch state dict lacks {} (keys: {})".format(
+            key, ", ".join(sorted(state))))
+    v = state[key]
+    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                      else v, dtype=np.float32)
+
+
+class TorchState:
+    """A model's weights as the reference's torch state dict, through the
+    JAX parameter pytree (the model's ``params_from_torch_state`` and
+    ``torch_state_from_params``, counterparts of ``medaka_tpu``'s)."""
+
+    def load_torch_state(self, state: Dict):
+        """Load a reference checkpoint's state dict."""
+        return self.load_jax_params(self.params_from_torch_state(state))
+
+    def torch_state(self) -> Dict[str, np.ndarray]:
+        """The weights as a reference state dict of numpy arrays."""
+        return self.torch_state_from_params(self.jax_params())
 
 
 def model_from_dict(d: Dict):
@@ -116,10 +144,16 @@ def save_model(path: str, model, feature_encoder=None,
 
 
 def load_model(path: str) -> ModelBundle:
-    """Load a native model bundle (see the module docstring)."""
+    """Load a native bundle or a reference medaka checkpoint (see the
+    module docstring)."""
+    from medaka_tpu_torch import compat
     from medaka_tpu_torch import features as features_mod
     from medaka_tpu_torch import labels as labels_mod
 
+    with open(path, "rb") as fh:
+        if fh.read(40).startswith(b"version https://git-lfs"):
+            raise ValueError("{} is a git-lfs pointer, not the model "
+                             "itself.".format(path))
     with tarfile.open(path, "r:*") as tar:
         names = tar.getnames()
         for name in names:
@@ -128,10 +162,7 @@ def load_model(path: str) -> ModelBundle:
         config_name = next(
             (n for n in names if n.endswith("config.json")), None)
         if config_name is None:
-            raise NotImplementedError(
-                "{} is not a native bundle (no config.json); reference "
-                "medaka checkpoints are not ported to medaka_tpu_torch "
-                "yet.".format(path))
+            return compat.load_medaka_tgz(path)
         npz_name = next(n for n in names if n.endswith("weights.npz"))
         config = json.loads(tar.extractfile(config_name).read().decode())
         with np.load(io.BytesIO(tar.extractfile(npz_name).read())) as npz:
@@ -184,6 +215,93 @@ def resolve_model(model: str) -> str:
     raise FileNotFoundError(
         "Could not resolve model {!r}; provide a model file path.".format(
             model))
+
+
+#: the ``config_version`` of :func:`export_model`'s ``config.toml``
+#: (reference ``medaka/torch_ext.py:474-533``)
+EXPORT_CONFIG_VERSION = 3
+
+
+def _toml_value(v):
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return str(v)
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    return '"{}"'.format(str(v).replace('"', '\\"'))
+
+
+def toml_dump(doc: Dict, fh, prefix=""):
+    """Write ``doc`` as TOML (``medaka_tpu.models._toml_dump``): scalars
+    and arrays as keys, nested dicts as tables, None values left out."""
+    scalars = {k: v for k, v in doc.items()
+               if not isinstance(v, dict) and v is not None}
+    tables = {k: v for k, v in doc.items() if isinstance(v, dict)}
+    for key, value in scalars.items():
+        fh.write("{} = {}\n".format(key, _toml_value(value)))
+    for key, value in tables.items():
+        name = "{}.{}".format(prefix, key) if prefix else key
+        fh.write("\n[{}]\n".format(name))
+        toml_dump(value, fh, name)
+
+
+def export_model(model_path: str, output: Optional[str] = None,
+                 supported_basecallers: Optional[list] = None,
+                 force: bool = False) -> str:
+    """Export a model as ``output.tar.gz`` holding ``model/config.toml``
+    and ``model/weights.pt`` (the reference's torch state dict, from
+    ``torch_state``), as ``medaka_tpu.models.export_model`` does.
+
+    :param output: archive path without ``.tar.gz`` (default: the model
+        file's name with ``_export``).
+    :returns: the archive's path.
+    """
+    import torch
+
+    if output is None:
+        output = os.path.basename(model_path).replace(".tar.gz", "_export")
+    out_tar = output + ".tar.gz"
+    if os.path.exists(out_tar) and not force:
+        raise FileExistsError(
+            "{} exists; pass force=True to overwrite.".format(out_tar))
+    bundle = load_model(model_path)
+    config = {
+        "config_version": EXPORT_CONFIG_VERSION,
+        "model": bundle.model.to_dict(),
+        "feature_encoder": bundle.feature_encoder.to_dict()
+        if bundle.feature_encoder else {},
+        "supported_basecallers": supported_basecallers or [],
+        "label_scheme": bundle.label_scheme.to_dict()
+        if bundle.label_scheme else {},
+    }
+    text = io.StringIO()
+    toml_dump(config, text)
+    weights = io.BytesIO()
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in bundle.model.torch_state().items()}, weights)
+    with tarfile.open(out_tar, "w:gz") as tar:
+        for name, data in (("model/config.toml", text.getvalue().encode()),
+                           ("model/weights.pt", weights.getvalue())):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    return out_tar
+
+
+def read_toml_architecture(path: str) -> Dict:
+    """The {type, kwargs} model dict of an architecture TOML: its
+    ``[model]`` table, or the whole document when it has none (as
+    ``medaka_tpu``'s ``train`` reads ``--model *.toml``)."""
+    import tomllib
+
+    with open(path, "rb") as fh:
+        doc = tomllib.load(fh)
+    model = doc.get("model", doc)
+    if not isinstance(model, dict) or "type" not in model:
+        raise ValueError("{} holds no model architecture (a [model] table "
+                         "with a type)".format(path))
+    return model
 
 
 # register concrete models on import

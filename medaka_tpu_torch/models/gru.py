@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from medaka_tpu_torch.models import register_model
+from medaka_tpu_torch.models import TorchState, register_model, state_array
 from medaka_tpu_torch.ops.gru_fullfused import QUANT_MODES, \
     bigru_stack_fullfused, bigru_stack_fused
 from medaka_tpu_torch.ops.gru_split import bigru_head_fullfused
@@ -37,6 +37,9 @@ from medaka_tpu_torch.ops.gru_train import bigru_stack_trainable
 from medaka_tpu_torch.ops.rnn import bigru_stack
 
 _GATE_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+#: torch.nn.GRU's and nn.LSTM's names of the same tensors
+_TORCH_NAMES = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih",
+                "b_hh": "bias_hh"}
 
 
 class GRUDirection(nn.Module):
@@ -140,7 +143,7 @@ def fused_route(batch: int, hidden: int, n_layers: int, bidirectional: bool,
 
 
 @register_model
-class GRUModel(nn.Module):
+class GRUModel(TorchState, nn.Module):
     """biGRU consensus network; weights as an ``nn.Module``."""
 
     input_kind = "counts"
@@ -188,6 +191,38 @@ class GRUModel(nn.Module):
     def jax_params(self) -> Dict:
         """The weights as a JAX-layout numpy pytree (for bundles)."""
         return params_to_jax(self.state_dict())
+
+    def params_from_torch_state(self, state: Dict) -> Dict:
+        """Map a ``torch.nn.GRU`` + ``Linear`` state dict (the reference
+        checkpoint's ``gru.weight_ih_l{k}[_reverse]``, ...,
+        ``linear.weight``/``linear.bias``) onto the JAX pytree
+        (``medaka_tpu``'s ``GRUModel.params_from_torch_state``)."""
+        layers = []
+        for k in range(self.n_layers):
+            layer = {}
+            for key, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                if key == "bwd" and not self.bidirectional:
+                    continue
+                layer[key] = {
+                    g: state_array(state, "gru.{}_l{}{}".format(
+                        _TORCH_NAMES[g], k, suffix)) for g in _GATE_KEYS}
+            layers.append(layer)
+        return {"gru": layers, "linear": {
+            "w": state_array(state, "linear.weight"),
+            "b": state_array(state, "linear.bias")}}
+
+    @staticmethod
+    def torch_state_from_params(params: Dict) -> Dict[str, np.ndarray]:
+        """Inverse of :meth:`params_from_torch_state` (numpy arrays)."""
+        state = {}
+        for k, layer in enumerate(params["gru"]):
+            for key, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                for g in _GATE_KEYS if key in layer else ():
+                    state["gru.{}_l{}{}".format(_TORCH_NAMES[g], k, suffix)] \
+                        = np.asarray(layer[key][g])
+        state["linear.weight"] = np.asarray(params["linear"]["w"])
+        state["linear.bias"] = np.asarray(params["linear"]["b"])
+        return state
 
     def layer_params(self) -> List[Dict[str, Dict[str, torch.Tensor]]]:
         """Per-layer {"fwd"/"bwd": {w_ih, ...}} views of the weights."""

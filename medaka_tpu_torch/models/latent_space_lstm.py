@@ -36,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from medaka_tpu_torch.models import _flatten, _unflatten, register_model
+from medaka_tpu_torch.models import TorchState, _flatten, _unflatten, \
+    register_model, state_array
+from medaka_tpu_torch.models.gru import _GATE_KEYS, _TORCH_NAMES
 from medaka_tpu_torch.ops.bilstm import bilstm_stack_fused
 from medaka_tpu_torch.ops.lstm_train import bilstm_stack_trainable
 from medaka_tpu_torch.ops.rnn import bilstm_stack, lstm_scan
@@ -198,7 +200,7 @@ class MaskedBatchStats(torch.autograd.Function):
 
 
 @register_model
-class LatentSpaceLSTM(nn.Module):
+class LatentSpaceLSTM(TorchState, nn.Module):
     """Read-level consensus network; weights as an ``nn.Module``."""
 
     input_kind = "reads"
@@ -285,6 +287,73 @@ class LatentSpaceLSTM(nn.Module):
     def jax_params(self) -> Dict:
         """The weights as a JAX-layout numpy pytree (for bundles)."""
         return params_to_jax(self.state_dict())
+
+    def _torch_lstm_keys(self):
+        """(layer, direction, key prefix, suffix) of each LSTM direction
+        in the reference's state dict: ``lstm.weight_ih_l{k}[_reverse]``
+        for the bidirectional stack, ``lstm.{k}.lstm.weight_ih_l0`` for
+        the 4 ``ReversibleLSTM`` wrappers."""
+        if self.bidirectional:
+            return [(k, d, "lstm.", "_l{}{}".format(k, s)) for k in range(2)
+                    for d, s in (("fwd", ""), ("bwd", "_reverse"))]
+        return [(k, "fwd", "lstm.{}.lstm.".format(k), "_l0")
+                for k in range(4)]
+
+    def params_from_torch_state(self, state: Dict) -> Dict:
+        """Map a reference checkpoint's state dict onto the JAX pytree
+        (``medaka_tpu``'s ``LatentSpaceLSTM.params_from_torch_state``):
+        ``read_level_conv.convs`` holds (Conv1d, ReLU, BatchNorm1d)
+        triples, the batch norm's running statistics included."""
+        convs = []
+        for i in range(len(self.kernel_sizes)):
+            conv = "read_level_conv.convs.{}.".format(3 * i)
+            bn = "read_level_conv.convs.{}.".format(3 * i + 2)
+            convs.append({
+                "conv": {"w": state_array(state, conv + "weight"),
+                         "b": state_array(state, conv + "bias")},
+                "bn": {"scale": state_array(state, bn + "weight"),
+                       "bias": state_array(state, bn + "bias"),
+                       "mean": state_array(state, bn + "running_mean"),
+                       "var": state_array(state, bn + "running_var")}})
+        lstm = [{} for _ in range(2 if self.bidirectional else 4)]
+        for k, d, prefix, suffix in self._torch_lstm_keys():
+            lstm[k][d] = {g: state_array(state, prefix + _TORCH_NAMES[g]
+                                         + suffix) for g in _GATE_KEYS}
+        return {
+            "base_embed": state_array(state, "base_embedder.weight"),
+            "strand_embed": state_array(state, "strand_embedder.weight"),
+            "convs": convs,
+            "pre_pool": {
+                "w": state_array(state, "pre_pool_expansion_layer.weight"),
+                "b": state_array(state, "pre_pool_expansion_layer.bias")},
+            "lstm": lstm,
+            "linear": {"w": state_array(state, "linear.weight"),
+                       "b": state_array(state, "linear.bias")}}
+
+    def torch_state_from_params(self, params: Dict) -> Dict[str, np.ndarray]:
+        """Inverse of :meth:`params_from_torch_state` (numpy arrays)."""
+        state = {
+            "base_embedder.weight": params["base_embed"],
+            "strand_embedder.weight": params["strand_embed"],
+            "pre_pool_expansion_layer.weight": params["pre_pool"]["w"],
+            "pre_pool_expansion_layer.bias": params["pre_pool"]["b"],
+            "linear.weight": params["linear"]["w"],
+            "linear.bias": params["linear"]["b"]}
+        for i, layer in enumerate(params["convs"]):
+            conv = "read_level_conv.convs.{}.".format(3 * i)
+            bn = "read_level_conv.convs.{}.".format(3 * i + 2)
+            state.update({
+                conv + "weight": layer["conv"]["w"],
+                conv + "bias": layer["conv"]["b"],
+                bn + "weight": layer["bn"]["scale"],
+                bn + "bias": layer["bn"]["bias"],
+                bn + "running_mean": layer["bn"]["mean"],
+                bn + "running_var": layer["bn"]["var"]})
+        for k, d, prefix, suffix in self._torch_lstm_keys():
+            for g in _GATE_KEYS:
+                state[prefix + _TORCH_NAMES[g] + suffix] = \
+                    params["lstm"][k][d][g]
+        return {k: np.asarray(v) for k, v in state.items()}
 
     def layer_params(self) -> List[Dict[str, Dict[str, torch.Tensor]]]:
         """Per-layer {"fwd"(/"bwd"): {w_ih, w_hh, b_ih, b_hh}} views."""

@@ -8,13 +8,13 @@ from __future__ import annotations
 import torch
 
 from medaka_tpu_torch.common import PLP_BASES
-from medaka_tpu_torch.models import register_model
+from medaka_tpu_torch.models import TorchState, register_model
 
 _B2I = {b: i for i, b in enumerate(PLP_BASES)}
 
 
 @register_model
-class MajorityVoteModel:
+class MajorityVoteModel(TorchState):
     """Argmax over strand-summed normalised base counts."""
 
     input_kind = "counts"
@@ -34,6 +34,14 @@ class MajorityVoteModel:
     def load_jax_params(self, params):
         """No parameters to load."""
         return self
+
+    def params_from_torch_state(self, state):
+        """No parameters to import."""
+        return {}
+
+    def torch_state_from_params(self, params):
+        """No parameters to export."""
+        return {}
 
     def __call__(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """Class probabilities (del, A, C, G, T) by direct vote counting."""

@@ -9,13 +9,16 @@ models' pipeline starts here: ``compress_bam`` of a BAM against its
 draft, then ``inference`` with an RLE bundle on the compressed BAM
 against the compact draft.
 
-The fast5 Weibull-parameter paths (``compress_bam(use_fast5_info=...)``,
-``rlebam``) need a reader of fast5 files (HDF5 with compound datatypes),
-which the port does not have: they raise ``NotImplementedError``.
+The Weibull parameters of a read come from its fast5 file
+(:mod:`medaka_tpu_torch.io.fast5`): ``compress_bam(use_fast5_info=...)``
+attaches them as WL/WK tags, and :func:`rlebam` (``tools rlebam``)
+appends them to the lines of a SAM stream in spawned worker processes.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import multiprocessing
+import sys
 from typing import List, Optional
 
 import numpy as np
@@ -27,8 +30,6 @@ from medaka_tpu_torch.io.fastx import FastaReader, FastxRecord, read_fastx
 
 # printable phred alphabet; max encodable run length 93
 _SCORES = "".join(chr(x) for x in range(33, 127))
-_FAST5 = ("{} reads fast5 files (HDF5 with compound datatypes), which "
-          "medaka_tpu_torch cannot read yet.")
 
 
 class RLEConverter:
@@ -127,12 +128,43 @@ def add_extra_clipping(cigar: str, start_clip: int, end_clip: int) -> str:
     return merge(merge(cigar, start_clip, True), end_clip, False)
 
 
-def _compress_alignment(rec, ref_rle: RLEConverter):
-    """Re-align one read in RLE space (``medaka_tpu.rle._compress_alignment``
-    without fast5 parameters): the aligned part of the compressed read
-    against the compressed reference span, SW, the read's clipped ends
-    as soft clips, run lengths as qualities. Unmapped, secondary and
-    supplementary records give None."""
+def _rl_tags(rec, query_rle: RLEConverter, fast5_index):
+    """The WL (the table's shape) and WK (scale) tags of a read from its
+    fast5 file, in alignment orientation, as ``medaka_tpu``'s
+    ``_compress_alignment`` attaches them; None (the read is skipped, as
+    there) when the summary does not name the read, its table is missing
+    or its basecall differs from the read's."""
+    logger = common.get_named_logger("Compress_bam")
+    if rec.query_name not in fast5_index:
+        logger.warning("Not found in summary file: %s", rec.query_name)
+        return None
+    try:
+        fast5_call, wl, wk = fast5_index.get_rl_params(rec.query_name)
+    except (KeyError, FileNotFoundError) as exc:
+        logger.info("RLE table not found for read %s: %s",
+                    rec.query_name, exc)
+        return None
+    # fast5 tables are in read orientation; flip for reverse hits
+    if rec.flag & 16:
+        wl, wk = wl[::-1], wk[::-1]
+        fast5_call = common.reverse_complement(fast5_call)
+    if fast5_call != query_rle.compact_basecall:
+        logger.warning(
+            "RLE table within fast5 file is inconsistent with compressed "
+            "basecall for read %s. %s != %s", rec.query_name, fast5_call,
+            query_rle.compact_basecall)
+        return None
+    return {"WL": np.asarray(wl, np.float32),
+            "WK": np.asarray(wk, np.float32)}
+
+
+def _compress_alignment(rec, ref_rle: RLEConverter, fast5_index=None):
+    """Re-align one read in RLE space (``medaka_tpu.rle._compress_alignment``):
+    the aligned part of the compressed read against the compressed
+    reference span, SW, the read's clipped ends as soft clips, run lengths
+    as qualities, and with ``fast5_index`` (an ``io.fast5.Fast5Index``) the
+    WL/WK tags of :func:`_rl_tags`. Unmapped, secondary and supplementary
+    records, and reads without tags when tags are asked for, give None."""
     logger = common.get_named_logger("Compress_bam")
     if rec.flag & (4 | 256 | 2048):
         logger.info(
@@ -156,10 +188,15 @@ def _compress_alignment(rec, ref_rle: RLEConverter):
     cigar = add_extra_clipping(
         cigar, qc_start, len(query_rle.compact_basecall) - qc_end)
     rstart += rc_start
+    tags = {}
+    if fast5_index is not None:
+        tags = _rl_tags(rec, query_rle, fast5_index)
+        if tags is None:
+            return None
     quals = np.minimum(query_rle.homop_length, 255).astype(int).tolist()
     return align_mod.initialise_alignment(
         rec.query_name, rec.ref_id, rstart, query_rle.compact_basecall,
-        cigar, rec.flag, query_qualities=quals)
+        cigar, rec.flag, query_qualities=quals, tags=tags)
 
 
 def compress_bam(
@@ -173,12 +210,14 @@ def compress_bam(
     reference, run lengths are stored as qualities, and the header holds
     the compressed reference lengths. Writes a sorted, indexed BAM.
 
-    :param use_fast5_info: (fast5 directory, summary file) to attach
-        Weibull WL/WK tags: not supported (it raises).
+    :param use_fast5_info: (fast5 directory, summary file): attach each
+        read's Weibull WL/WK tags from its fast5 file, and skip reads the
+        summary does not name or whose table does not match.
     """
+    fast5_index = None
     if use_fast5_info:
-        raise NotImplementedError(_FAST5.format(
-            "compress_bam --use_fast5_info"))
+        from medaka_tpu_torch.io.fast5 import Fast5Index
+        fast5_index = Fast5Index(*use_fast5_info)
     regions = common.get_bam_regions(bam_input, regions)
     ref_fasta = FastaReader(ref_fname)
     records = []
@@ -195,9 +234,11 @@ def compress_bam(
             if threads > 1:
                 with concurrent.futures.ThreadPoolExecutor(threads) as ex:
                     outs = list(ex.map(
-                        lambda r: _compress_alignment(r, ref_rle), recs))
+                        lambda r: _compress_alignment(r, ref_rle,
+                                                      fast5_index), recs))
             else:
-                outs = [_compress_alignment(r, ref_rle) for r in recs]
+                outs = [_compress_alignment(r, ref_rle, fast5_index)
+                        for r in recs]
             records.extend(o for o in outs if o is not None)
     compressed_refs = [
         (name, len(ref_rles[name].compact_basecall) if name in ref_rles
@@ -207,7 +248,85 @@ def compress_bam(
     return bam_output
 
 
+def _decorate_sam_line(line: str, read_id, is_rev, fname):
+    """Append WL/WK tags from a fast5 file to one SAM line (the worker of
+    ``medaka_tpu.rle.rlebam``, reference ``rle.py:296-337``).
+
+    Header lines (``read_id`` None) and reads whose run-length table is
+    not a valid RLE sequence (adjacent equal bases) pass through
+    unchanged. The reference's rlebam writes the table's scale as WL and
+    its shape as WK, the transpose of its ``compress_bam``; each path
+    keeps its own.
+    """
+    if read_id is None:
+        return line
+    from medaka_tpu_torch.io import fast5
+    call, shape, scale = fast5.get_runlength_basecall(fname, read_id)
+    if any(a == b for a, b in zip(call[1:], call[:-1])):
+        common.get_named_logger("BAMDecor").info(
+            "Invalid RLE/basecall dataset for %s in file %s.", read_id,
+            fname)
+        return line
+    if is_rev:
+        scale, shape = scale[::-1], shape[::-1]
+    return "{}\t{}\t{}".format(
+        line, "WL:B:f," + ",".join(str(float(x)) for x in scale),
+        "WK:B:f," + ",".join(str(float(x)) for x in shape))
+
+
+def _decorate_sam_line_star(args):
+    return _decorate_sam_line(*args)
+
+
+def read_key_value_tsv(fname: str) -> dict:
+    """A two-column TSV as a key -> value dict (``medaka_tpu.common.
+    read_key_value_tsv``)."""
+    result = {}
+    with open(fname) as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if line:
+                key, value = line.split("\t", 1)
+                result[key] = value
+    return result
+
+
 def rlebam(read_index: str, workers: int = 4, input_sam=None, output=None):
     """Decorate a SAM stream with WL/WK run-length tags from fast5 files
-    (``medaka_tpu.rle.rlebam``): not supported (it raises)."""
-    raise NotImplementedError(_FAST5.format("rlebam"))
+    (``medaka_tpu.rle.rlebam``, the ``tools rlebam`` entry).
+
+    :param read_index: two-column TSV, read_id -> fast5 path.
+    :param input_sam: SAM lines (default stdin); a read the index lacks
+        passes through untagged, with a warning, as in ``medaka_tpu``.
+    :param output: where the lines go (default stdout).
+
+    The lines are decorated in ``workers`` spawned processes (never
+    forked: the caller may hold a CUDA context); a worker's error raises
+    here.
+    """
+    logger = common.get_named_logger("BAMDecor")
+    index = read_key_value_tsv(read_index)
+    logger.info("Found %d reads in index", len(index))
+    input_sam = sys.stdin if input_sam is None else input_sam
+    output = sys.stdout if output is None else output
+
+    def ingress():
+        for line in input_sam:
+            if line.startswith("@"):
+                yield line.rstrip(), None, None, None
+                continue
+            read_id, flag, _ = line.split("\t", 2)
+            fast5 = index.get(read_id)
+            if fast5 is None:
+                logger.warning("Read %s not in the fast5 index; passing "
+                               "through untagged.", read_id)
+                yield line.rstrip(), None, None, None
+                continue
+            yield line.rstrip(), read_id, bool(int(flag) & 16), fast5
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as executor:
+        for decorated in executor.map(_decorate_sam_line_star, ingress(),
+                                      chunksize=10):
+            output.write(decorated + "\n")

@@ -16,9 +16,28 @@ reads of either BAM as FASTQ in basecalled orientation, for the paths
 that start from reads and map them (``align``, ``consensus``,
 ``variant``), and :func:`placement` holds a mapped BAM to the reads' true
 starts.
+
+The reference's file formats, written without h5py or medaka (the stub
+``medaka.*`` classes they pickle are those of
+``tests/test_models.py``'s reference checkpoint):
+:func:`write_reference_checkpoint` (``weights.pt`` and a pickled
+``meta.pkl``, modern or with the legacy ``build_model_torch`` partial),
+:func:`write_reference_probabilities` (gzip-1 samples and pickled
+``meta/``, the layout ``tests/crossstack/run_reference.py`` prepares),
+and :func:`create_mock_fast5` with :func:`plant_fast5_tables` (fast5
+run-length tables, gzip-chunked compound datasets as ONT writes them)
+and :func:`write_sam`.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import io
+import os
+import pickle
+import sys
+import tarfile
+import types
 from typing import Dict, Optional
 
 import numpy as np
@@ -637,3 +656,216 @@ def below_floors(score, floors):
         elif score.get(key, 0.0) < floor:
             out.append((key, score.get(key, 0.0), floor))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The reference's file formats
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _fake_medaka():
+    """``medaka``, ``medaka.features``, ``medaka.labels`` and
+    ``medaka.models`` as empty modules in ``sys.modules`` (restored
+    after), so that pickling stand-ins names them as medaka does."""
+    names = ("medaka", "medaka.features", "medaka.labels", "medaka.models")
+    saved = {n: sys.modules.get(n) for n in names}
+    for n in names:
+        sys.modules[n] = types.ModuleType(n)
+    try:
+        yield {n: sys.modules[n] for n in names}
+    finally:
+        for n, mod in saved.items():
+            if mod is None:
+                del sys.modules[n]
+            else:
+                sys.modules[n] = mod
+
+
+def _medaka_object(module, obj):
+    """A stand-in for reference medaka's ``obj`` (a feature encoder or
+    label scheme of the port): an instance of a class of ``module`` with
+    the same name whose ``__dict__`` holds ``obj``'s constructor
+    arguments, as a pickled medaka object carries them."""
+    name = type(obj).__name__
+    cls = getattr(module, name, None)
+    if cls is None:
+        cls = type(name, (), {"__module__": module.__name__})
+        cls.__qualname__ = name
+        setattr(module, name, cls)
+    inst = cls.__new__(cls)
+    inst.__dict__.update(obj.to_dict().get("kwargs", {}))
+    return inst
+
+
+def _medaka_function(module, name):
+    def fn(*args, **kwargs):
+        raise AssertionError("a stand-in of medaka." + name)
+    fn.__module__, fn.__qualname__, fn.__name__ = module.__name__, name, name
+    setattr(module, name, fn)
+    return fn
+
+
+def reference_meta_pickle(model=None, feature_encoder=None,
+                          label_scheme=None, legacy=False) -> bytes:
+    """The pickled meta {model_function, feature_encoder, label_scheme}
+    of a reference checkpoint, or of one ``meta/`` item when only
+    ``label_scheme`` or ``feature_encoder`` is given with no model:
+    the modern ``partial(model_from_dict, model.to_dict())`` or, with
+    ``legacy``, ``partial(build_model_torch, num_features, num_classes,
+    gru_size)`` (a 2-layer bidirectional ``GRUModel`` only)."""
+    with _fake_medaka() as mods:
+        meta = {}
+        if model is not None:
+            d = model.to_dict()
+            if legacy:
+                kw = d["kwargs"]
+                if d["type"] != "GRUModel" or kw.get("n_layers", 2) != 2 \
+                        or not kw.get("bidirectional", True):
+                    raise ValueError("the legacy build_model_torch partial "
+                                     "builds a 2-layer bidirectional "
+                                     "GRUModel, not {}".format(d))
+                meta["model_function"] = functools.partial(
+                    _medaka_function(mods["medaka.models"],
+                                     "build_model_torch"),
+                    kw["num_features"], kw["num_classes"], kw["gru_size"])
+            else:
+                meta["model_function"] = functools.partial(
+                    _medaka_function(mods["medaka.models"],
+                                     "model_from_dict"), d)
+        if feature_encoder is not None:
+            meta["feature_encoder"] = _medaka_object(
+                mods["medaka.features"], feature_encoder)
+        if label_scheme is not None:
+            meta["label_scheme"] = _medaka_object(
+                mods["medaka.labels"], label_scheme)
+        if model is None and len(meta) == 1:
+            meta = next(iter(meta.values()))
+        return pickle.dumps(meta)
+
+
+def write_reference_checkpoint(bundle, path: str, legacy: bool = False):
+    """Write ``bundle`` (a ``models.ModelBundle``) as a reference medaka
+    checkpoint: ``model/weights.pt`` (the torch state dict,
+    ``model.torch_state()``) and ``model/meta.pkl``
+    (:func:`reference_meta_pickle`). Returns ``path``."""
+    import torch
+
+    meta = reference_meta_pickle(bundle.model, bundle.feature_encoder,
+                                 bundle.label_scheme, legacy=legacy)
+    weights = io.BytesIO()
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in bundle.model.torch_state().items()}, weights)
+    with tarfile.open(path, "w:gz") as tar:
+        for name, data in (("model/weights.pt", weights.getvalue()),
+                           ("model/meta.pkl", meta)):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    return path
+
+
+def write_reference_probabilities(src: str, dst: str) -> str:
+    """Rewrite the probability (or feature) file ``src`` as reference
+    medaka stores one: every sample's arrays gzip-1, the metadata only
+    as pickles under ``meta/`` (its label scheme and feature encoder), no
+    JSON metadata and no registry. Returns ``dst``."""
+    from medaka_tpu_torch import datastore
+    from medaka_tpu_torch.io import hdf5
+
+    with datastore.DataStore(src) as ds:
+        names = sorted(ds.sample_registry)
+        meta = dict(ds.meta)
+        with datastore.DataStore(dst, "w", compression="gzip") as out:
+            for name in names:
+                out.write_sample(ds.load_sample(name))
+    with hdf5.File(dst, "a") as fh:
+        for key in ("label_scheme", "feature_encoder"):
+            if meta.get(key) is not None:
+                fh["meta/" + key] = np.bytes_(
+                    reference_meta_pickle(**{key: meta[key]}))
+    return dst
+
+
+#: the fast5 dataset of a read's run-length basecall
+FAST5_TABLE = ("read_{}/Analyses/{}/BaseCalled_template/"
+               "RunlengthBasecall")
+
+
+def create_mock_fast5(path: str, reads, analysis: str = "Basecall_1D_000"):
+    """Write a multi-read fast5 of run-length tables.
+
+    :param reads: (read_id, compact basecall, shape, scale) each, in read
+        (basecalled) orientation.
+    :returns: ``path``.
+
+    Each table is a compound ``(base S1, shape f4, scale f4)`` dataset,
+    gzip-1 chunked, under ``read_<id>/Analyses/<analysis>/
+    BaseCalled_template/RunlengthBasecall``.
+    """
+    from medaka_tpu_torch.io import hdf5
+
+    with hdf5.File(path, "w") as fh:
+        for read_id, call, shape, scale in reads:
+            table = np.zeros(len(call), dtype=[("base", "S1"), ("shape",
+                                                "<f4"), ("scale", "<f4")])
+            table["base"] = np.frombuffer(call.encode(), "S1")
+            table["shape"] = shape
+            table["scale"] = scale
+            fh.create_dataset(FAST5_TABLE.format(read_id, analysis), table,
+                              compression="gzip")
+    return path
+
+
+def plant_fast5_tables(bam: str, fast5: str, summary: str, seed: int = 0,
+                       region=None) -> Dict[str, tuple]:
+    """Plant random Weibull (shape, scale) tables for the primary reads
+    of ``bam`` (in ``region``, a ``common.Region``, or all) in the fast5
+    ``fast5`` and a sequencing summary naming it.
+
+    :returns: read id -> (shape, scale) as ``compress_bam
+        --use_fast5_info`` should tag the read: WL the shape, WK the
+        scale, in alignment orientation.
+    """
+    from medaka_tpu_torch.rle import RLEConverter
+
+    rng = np.random.default_rng(seed)
+    reads, planted = [], {}
+    with BamReader(bam) as reader:
+        records = reader.fetch(region.ref_name, region.start, region.end) \
+            if region is not None else iter(reader)
+        for rec in records:
+            if rec.flag & (4 | 256 | 2048) or rec.query_name in planted:
+                continue
+            call = RLEConverter(rec.query_sequence).compact_basecall
+            shape = rng.uniform(0.5, 8.0, len(call)).astype(np.float32)
+            scale = rng.uniform(0.5, 3.0, len(call)).astype(np.float32)
+            planted[rec.query_name] = (shape, scale)
+            if rec.flag & 16:
+                call = common.reverse_complement(call)
+                shape, scale = shape[::-1], scale[::-1]
+            reads.append((rec.query_name, call, shape, scale))
+    create_mock_fast5(fast5, reads)
+    with open(summary, "w") as fh:
+        fh.write("read_id\tfilename\n")
+        for read_id, *_ in reads:
+            fh.write("{}\t{}\n".format(read_id, os.path.basename(fast5)))
+    return planted
+
+
+def write_sam(bam: str, sam: str, region=None) -> str:
+    """The records of ``bam`` (in ``region`` or all) as SAM text with its
+    @SQ header lines; returns ``sam``."""
+    with BamReader(bam) as reader, open(sam, "w") as out:
+        for name, length in zip(reader.references, reader.lengths):
+            out.write("@SQ\tSN:{}\tLN:{}\n".format(name, length))
+        records = reader.fetch(region.ref_name, region.start, region.end) \
+            if region is not None else iter(reader)
+        for rec in records:
+            quals = rec.query_qualities
+            out.write("\t".join(map(str, (
+                rec.query_name, rec.flag, reader.references[rec.ref_id],
+                rec.pos + 1, rec.mapq, rec.cigarstring, "*", 0, 0,
+                rec.query_sequence, "*" if quals is None else
+                "".join(chr(q + 33) for q in quals)))) + "\n")
+    return sam

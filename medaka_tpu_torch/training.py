@@ -20,16 +20,21 @@ counts and read-level feature files, on one device:
   geometry), writes ``model-{epoch}.tar.gz``,
   ``model-best_val_loss.tar.gz`` and ``model-best_val_acc.tar.gz``
   bundles (loadable by both packages) and ``training.csv``, and stops
-  early after 20 epochs without a better validation loss.
+  early after 20 epochs without a better validation loss. After every
+  epoch it writes a resume snapshot, ``resume.npz`` + ``resume.json``, in
+  ``medaka_tpu``'s layout, from which ``resume=True`` continues a killed
+  run bit for bit; a snapshot of either package resumes in the other;
+- :func:`run_validation` evaluates a checkpoint (``--validate_only``);
+- :func:`train`, the CLI entry, also takes an architecture TOML as
+  ``--model`` (a random init from ``--seed``).
 
-Not ported yet, and refused by name: ``--resume``, ``--validate_only``
-and ``.toml`` architecture files (the training-options slice, queue 1 of
-ROADMAP.md, after the remaining GRU kernels), and ``--model_parallel``
-above 1 (the scale-out slice).
+Not ported yet, and refused by name: ``--model_parallel`` above 1 (the
+scale-out slice).
 """
 from __future__ import annotations
 
 import csv
+import json
 import math
 import os
 import queue as queue_mod
@@ -45,7 +50,6 @@ from medaka_tpu_torch import models as models_mod
 
 _LATER = ("{} is not ported to medaka_tpu_torch's train yet; it comes "
           "with a later slice of the port ({}).")
-_OPTIONS_SLICE = "the training-options slice, after the remaining GRU kernels"
 
 
 def qscore(acc: float) -> float:
@@ -124,6 +128,19 @@ class _RunningMedianClip:
         self.count += 1
         return out
 
+    def state_dict(self) -> Dict:
+        """{"count", "norms"}: optax's clip state."""
+        return {"count": self.count, "norms": self.norms.clone()}
+
+    def load_state_dict(self, state: Dict):
+        """Set the state :meth:`state_dict` returns."""
+        norms = torch.as_tensor(state["norms"], dtype=_F32).cpu()
+        if norms.shape != self.norms.shape:
+            raise ValueError("clip state holds {} norms, not {}".format(
+                tuple(norms.shape), tuple(self.norms.shape)))
+        self.norms = norms.clone()
+        self.count = int(state["count"])
+
 
 def clip_by_running_median(buffer_size: int = 100, factor: float = 2.0,
                            warmup: int = 5) -> _RunningMedianClip:
@@ -164,6 +181,48 @@ class Optimizer:
         self.clip = clip_by_running_median() if clip else None
         self.count = 0      # optimizer and schedule steps taken
         self.state: Optional[Dict[str, List[torch.Tensor]]] = None
+
+    def slots(self) -> List[str]:
+        """The names of this optimizer's per-parameter state lists, in
+        the order optax's chain holds them ("mu", "nu", "trace")."""
+        return {"adam": ["mu", "nu"], "nadam": ["mu", "nu"],
+                "rmsprop": ["nu"], "sgd": []}[self.name] + (
+            ["trace"] if self.args.get("momentum") is not None else [])
+
+    def init(self, params: Sequence[torch.Tensor]):
+        """Zero state for ``params`` (as ``optax``'s ``init``)."""
+        self._init([p.detach() for p in params])
+
+    def state_dict(self) -> Dict:
+        """{"count", "clip": clip state or None, and each of
+        :meth:`slots`: one f32 tensor a parameter}."""
+        if self.state is None:
+            raise ValueError("the optimizer has no state yet; call init")
+        return {"count": self.count,
+                "clip": self.clip.state_dict() if self.clip else None,
+                **{k: [t.clone() for t in self.state[k]]
+                   for k in self.slots()}}
+
+    def load_state_dict(self, state: Dict):
+        """Set the state :meth:`state_dict` returns (tensors keep the
+        device and shape of the current state; call :meth:`init`
+        first)."""
+        if self.state is None:
+            raise ValueError("the optimizer has no state yet; call init")
+        for k in self.slots():
+            new = []
+            for old, value in zip(self.state[k], state[k], strict=True):
+                value = torch.as_tensor(value, dtype=_F32)
+                if value.shape != old.shape:
+                    raise ValueError("optimizer {} state of shape {} for a "
+                                     "parameter of shape {}".format(
+                                         k, tuple(value.shape),
+                                         tuple(old.shape)))
+                new.append(value.to(old.device))
+            self.state[k] = new
+        if self.clip is not None:
+            self.clip.load_state_dict(state["clip"])
+        self.count = int(state["count"])
 
     def _init(self, grads):
         zeros = [torch.zeros_like(g, dtype=_F32) for g in grads]
@@ -454,6 +513,191 @@ class CSVLogger:
 
 
 # ---------------------------------------------------------------------------
+# Resume snapshots, in medaka_tpu's layout
+# ---------------------------------------------------------------------------
+
+
+def _tree_paths(tree, prefix=()):
+    """Leaf paths of a nested dict/list pytree in ``jax.tree_util``'s
+    flatten order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _tree_paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def param_leaves(model) -> List[torch.Tensor]:
+    """The model's tensors (parameters, and batch norm's running
+    statistics, which are buffers here) in the flatten order of the JAX
+    parameter pytree ``model.jax_params()``."""
+    state = model.state_dict(keep_vars=True)
+    # GRUModel's head is an nn.Linear; the pytree names it w and b
+    alias = {"linear.w": "linear.weight", "linear.b": "linear.bias"} \
+        if "linear.weight" in state else {}
+    leaves = []
+    for path in _tree_paths(model.jax_params()):
+        key = ".".join(map(str, path))
+        leaves.append(state[alias.get(key, key)])
+    return leaves
+
+
+def _chain_layout(opt: Optimizer) -> List[str]:
+    """The parts of the optax chain state of ``opt``, in ``jax.tree_util``
+    flatten order: the clip's "clip.count" and "clip.norms"; adam's and
+    nadam's "count", "mu" and "nu" (rmsprop's "nu"; sgd's momentum
+    "trace"); the schedule's "schedule.count" when the rate is a
+    schedule; rmsprop's momentum "trace". "mu", "nu" and "trace" stand
+    for one leaf a parameter leaf."""
+    slots = opt.slots()
+    out = ["clip.count", "clip.norms"] if opt.clip is not None else []
+    if opt.name in ("adam", "nadam"):
+        out += ["count", "mu", "nu"]
+    elif opt.name == "rmsprop":
+        out += ["nu"]
+    elif "trace" in slots:
+        out += ["trace"]
+    if callable(opt.learning_rate):
+        out.append("schedule.count")
+    if opt.name == "rmsprop" and "trace" in slots:
+        out.append("trace")
+    return out
+
+
+def optimizer_leaves(opt: Optimizer, leaves: Sequence[torch.Tensor],
+                     params: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """``opt``'s state as the leaves of the optax chain state, in the
+    order of :func:`_chain_layout`. ``leaves`` are the pytree's tensors
+    (:func:`param_leaves`), ``params`` the list the optimizer's state
+    follows; a leaf outside it (a running statistic) has zero state, as
+    its gradient is zero in JAX."""
+    state = opt.state_dict()
+    index = {id(p): i for i, p in enumerate(params)}
+    scalars = {"count": state["count"], "schedule.count": state["count"]}
+    if state["clip"] is not None:
+        scalars["clip.count"] = state["clip"]["count"]
+    out = []
+    for part in _chain_layout(opt):
+        if part == "clip.norms":
+            out.append(state["clip"]["norms"].cpu().numpy())
+        elif part in scalars:
+            out.append(np.asarray(scalars[part], np.int32))
+        else:
+            out += [state[part][index[id(t)]].cpu().numpy()
+                    if id(t) in index else np.zeros(tuple(t.shape), np.float32)
+                    for t in leaves]
+    return out
+
+
+def load_optimizer_leaves(opt: Optimizer, arrays: Sequence[np.ndarray],
+                          leaves: Sequence[torch.Tensor],
+                          params: Sequence[torch.Tensor]):
+    """Inverse of :func:`optimizer_leaves`: set ``opt``'s state (after
+    its ``init``) from the optax leaves; raises when their number does
+    not match this optimizer and model."""
+    layout = _chain_layout(opt)
+    expected = sum(len(leaves) if part in ("mu", "nu", "trace") else 1
+                   for part in layout)
+    if len(arrays) != expected:
+        raise ValueError(
+            "Resume state has {} optimizer leaves but the current model/"
+            "optimizer expects {}; cannot resume.".format(len(arrays),
+                                                          expected))
+    state = opt.state_dict()
+    index = {id(p): i for i, p in enumerate(params)}
+    arrays = iter(arrays)
+    counts = {}
+    for part in layout:
+        if part in ("mu", "nu", "trace"):
+            for t in leaves:
+                value = next(arrays)
+                if id(t) in index:
+                    state[part][index[id(t)]] = value
+        elif part == "clip.norms":
+            state["clip"]["norms"] = next(arrays)
+        else:
+            counts[part] = int(next(arrays))
+    if "clip.count" in counts:
+        state["clip"]["count"] = counts["clip.count"]
+    # the optimizer's steps: its own count, the schedule's, or (when the
+    # chain holds neither) the clip's
+    state["count"] = counts.get("count", counts.get(
+        "schedule.count", counts.get("clip.count", state["count"])))
+    opt.load_state_dict(state)
+
+
+def _atomic_write(path: str, write):
+    tmp = os.path.join(os.path.dirname(path),
+                       "." + os.path.basename(path) + ".tmp")
+    with open(tmp, "wb") as fh:
+        write(fh)
+    os.replace(tmp, path)
+
+
+def save_resume_state(train_name: str, epoch: int, model, opt: Optimizer,
+                      params, best: Dict, best_epoch: int):
+    """Write ``resume.npz`` (``p{i}``: the JAX parameter pytree's leaves,
+    ``o{i}``: the optax state's leaves, both in flatten order) and
+    ``resume.json`` (epoch, best validation loss and accuracy, best
+    epoch, leaf counts), each atomically, as ``medaka_tpu.training.
+    _save_resume_state`` does."""
+    leaves = param_leaves(model)
+    arrays = {"p{}".format(i): t.detach().cpu().numpy()
+              for i, t in enumerate(leaves)}
+    o_leaves = optimizer_leaves(opt, leaves, params)
+    arrays.update({"o{}".format(i): a for i, a in enumerate(o_leaves)})
+    _atomic_write(os.path.join(train_name, "resume.npz"),
+                  lambda fh: np.savez(fh, **arrays))
+    meta = {"epoch": epoch, "best_val_loss": float(best["val_loss"]),
+            "best_val_acc": float(best["val_acc"]), "best_epoch": best_epoch,
+            "n_param_leaves": len(leaves), "n_opt_leaves": len(o_leaves)}
+    _atomic_write(os.path.join(train_name, "resume.json"),
+                  lambda fh: fh.write(json.dumps(meta).encode()))
+
+
+def load_resume_state(train_name: str, model, opt: Optimizer, params):
+    """Load a snapshot of :func:`save_resume_state` (or of
+    ``medaka_tpu``) into ``model`` and ``opt`` (after its ``init``).
+
+    :returns: (next epoch, best dict, best epoch), or None when there is
+        no snapshot.
+    :raises ValueError: when the snapshot's leaf counts or shapes do not
+        match the model and optimizer.
+    """
+    meta_path = os.path.join(train_name, "resume.json")
+    npz_path = os.path.join(train_name, "resume.npz")
+    if not (os.path.exists(meta_path) and os.path.exists(npz_path)):
+        return None
+    with open(meta_path) as fh:
+        meta = json.load(fh)
+    leaves = param_leaves(model)
+    if meta["n_param_leaves"] != len(leaves):
+        raise ValueError(
+            "Resume state has {} p leaves but the current model/optimizer "
+            "expects {}; cannot resume.".format(meta["n_param_leaves"],
+                                                len(leaves)))
+    with np.load(npz_path) as data:
+        p_arrays = [data["p{}".format(i)] for i in range(len(leaves))]
+        o_arrays = [data["o{}".format(i)]
+                    for i in range(meta["n_opt_leaves"])]
+    for t, value in zip(leaves, p_arrays):
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError("Resume state leaf of shape {} for a "
+                             "parameter of shape {}; cannot resume.".format(
+                                 value.shape, tuple(t.shape)))
+    load_optimizer_leaves(opt, o_arrays, leaves, params)
+    with torch.no_grad():
+        for t, value in zip(leaves, p_arrays):
+            t.copy_(torch.from_numpy(np.asarray(value)).to(t.device,
+                                                           t.dtype))
+    best = {"val_loss": meta["best_val_loss"],
+            "val_acc": meta["best_val_acc"]}
+    return meta["epoch"] + 1, best, meta["best_epoch"]
+
+
+# ---------------------------------------------------------------------------
 # Training loop
 # ---------------------------------------------------------------------------
 
@@ -524,7 +768,7 @@ def run_training(
         optimizer: str = "nadam", optim_args: Optional[Dict] = None,
         compute_dtype=torch.bfloat16, seed: int = 0,
         early_stop_epochs: int = 20, initial_params=None,
-        samples_per_epoch: Optional[int] = None,
+        resume: bool = False, samples_per_epoch: Optional[int] = None,
         use_lr_schedule: bool = True, class_weights=None, device=None):
     """Train a consensus model.
 
@@ -539,6 +783,9 @@ def run_training(
         (float32 throughout).
     :param initial_params: warm-start weights as a JAX-layout pytree
         (e.g. a bundle's); a random init from ``seed`` when None.
+    :param resume: continue from ``train_name``'s resume snapshot (the
+        epoch after it, its best validation numbers, the weights and
+        optimizer state), when there is one.
     :param samples_per_epoch: truncate each training epoch at this many
         samples.
     :param use_lr_schedule: warmup + cosine when True, constant learning
@@ -570,13 +817,7 @@ def run_training(
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = models_mod.model_from_dict(model_dict)
-    kind = getattr(model, "input_kind", "counts")
-    if batcher.is_read_level != (kind == "reads"):
-        raise ValueError(
-            "Model {} expects {} features but the feature files hold {} "
-            "ones.".format(type(model).__name__, kind,
-                           "read-level" if batcher.is_read_level
-                           else "counts"))
+    _check_features(model, batcher)
     if initial_params is not None:
         model.load_jax_params(initial_params)
         logger.info("Warm-starting from provided checkpoint params.")
@@ -595,31 +836,42 @@ def run_training(
         peak_lr, total_steps=epochs * steps_per_epoch) \
         if use_lr_schedule else peak_lr
     opt = build_optimizer(optimizer, schedule, optim_args)
+    params = list(model.parameters())
+    opt.init(params)
     step_fn = parallel.make_train_step(
         model, opt, compute_dtype=compute_dtype, class_weights=class_weights)
-
-    def eval_fn(batch):
-        with torch.inference_mode(), parallel.deterministic_convolutions():
-            loss, (n_c, n_t) = parallel.cross_entropy_loss(
-                model, batch, compute_dtype=compute_dtype, training=False)
-        return loss, n_c, n_t
+    eval_fn = make_eval_fn(model, compute_dtype)
 
     csv_logger = CSVLogger(os.path.join(train_name, "training.csv"))
     best = {"val_loss": np.inf, "val_acc": -np.inf}
     best_epoch = 0
+    first_epoch = 0
+    if resume:
+        state = load_resume_state(train_name, model, opt, params)
+        if state is None:
+            logger.info("No resume state in %s; training from scratch.",
+                        train_name)
+        else:
+            first_epoch, best, best_epoch = state
+            logger.info("Resuming from epoch %d.", first_epoch)
 
     def save(name):
         return models_mod.save_model(
             os.path.join(train_name, name + ".tar.gz"), model,
             feature_encoder=feature_encoder, label_scheme=label_scheme)
 
+    def snapshot(epoch):
+        save_resume_state(train_name, epoch, model, opt, params, best,
+                          best_epoch)
+
     try:
-        for epoch in range(epochs):
+        for epoch in range(first_epoch, epochs):
             run_epoch(step_fn, batcher, "train", epoch, logger, csv_logger,
                       is_training=True, max_batches=max_batches,
                       device=device)
             save("model-{}".format(epoch))
             if not batcher.valid_samples:
+                snapshot(epoch)
                 continue
             val_loss, val_acc = run_epoch(
                 step_fn, batcher, "validation", epoch, logger, csv_logger,
@@ -631,6 +883,7 @@ def run_training(
             if val_acc > best["val_acc"]:
                 best["val_acc"] = val_acc
                 save("model-best_val_acc")
+            snapshot(epoch)
             if epoch - best_epoch >= early_stop_epochs:
                 logger.info(
                     "Early stop: no val-loss improvement in %d epochs.",
@@ -641,22 +894,65 @@ def run_training(
     return model
 
 
+def _check_features(model, batcher: TrainBatcher):
+    kind = getattr(model, "input_kind", "counts")
+    if batcher.is_read_level != (kind == "reads"):
+        raise ValueError(
+            "Model {} expects {} features but the feature files hold {} "
+            "ones.".format(type(model).__name__, kind,
+                           "read-level" if batcher.is_read_level
+                           else "counts"))
+
+
+def make_eval_fn(model, compute_dtype):
+    """The evaluation step of training and validation: ``batch -> (loss,
+    n_correct, n_total)`` without gradients, in inference mode."""
+    def eval_fn(batch):
+        with torch.inference_mode(), parallel.deterministic_convolutions():
+            loss, (n_c, n_t) = parallel.cross_entropy_loss(
+                model, batch, compute_dtype=compute_dtype, training=False)
+        return loss, n_c, n_t
+    return eval_fn
+
+
+def run_validation(batcher: TrainBatcher, model_path: str,
+                   compute_dtype=torch.bfloat16, device=None):
+    """Evaluate a checkpoint on the batcher's validation split, or on all
+    its samples when it has none (``medaka_tpu.training.run_validation``,
+    reference ``medaka train --validate_only``), through the evaluation
+    step training uses.
+
+    :param model_path: a bundle, reference checkpoint or model name.
+    :returns: (mean loss, accuracy).
+    """
+    logger = common.get_named_logger("Training")
+    device = common.resolve_device(device)
+    model = models_mod.open_model(models_mod.resolve_model(model_path)).model
+    _check_features(model, batcher)
+    model.to(device)
+    if not batcher.valid_samples:
+        logger.info(
+            "No validation split; evaluating on all provided samples.")
+        batcher.valid_samples = batcher.train_samples
+    return run_epoch(None, batcher, "validation", 0, logger,
+                     is_training=False, eval_fn=make_eval_fn(
+                         model, compute_dtype), device=device)
+
+
 def train(args):
-    """CLI entry point for ``medaka_tpu_torch train``."""
-    if getattr(args, "resume", False):
-        raise NotImplementedError(_LATER.format(
-            "--resume", "resume snapshots of parameters and optimizer "
-            "state: " + _OPTIONS_SLICE))
-    if getattr(args, "validate_only", False):
-        raise NotImplementedError(_LATER.format(
-            "--validate_only", "checkpoint validation: " + _OPTIONS_SLICE))
+    """CLI entry point for ``medaka_tpu_torch train``.
+
+    ``--validate_only`` evaluates ``--model`` and returns (loss,
+    accuracy); ``--model`` names a bundle to warm-start from or an
+    architecture TOML (its ``[model]`` table, as ``tools export`` writes
+    it) to build with a random init from ``--seed``; ``--resume``
+    continues the run in ``--train_name`` from its snapshot.
+    """
     if getattr(args, "model_parallel", 1) > 1:
         raise NotImplementedError(_LATER.format(
             "--model_parallel > 1", "scale-out: the model mesh axis"))
-    if getattr(args, "model", None) and args.model.endswith(".toml"):
-        raise NotImplementedError(_LATER.format(
-            ".toml architecture files", "architecture files: "
-            + _OPTIONS_SLICE))
+    if getattr(args, "validate_only", False) and not args.model:
+        raise ValueError("--validate_only requires --model.")
     # bf16 mixed precision is the default; --full_precision / --no-amp
     # force float32
     amp = getattr(args, "amp", None)
@@ -673,18 +969,25 @@ def train(args):
         or args.validation_split, seed=args.seed,
         batch_size=args.batch_size, max_samples=args.max_samples,
         max_valid_samples=args.max_valid_samples)
+    if getattr(args, "validate_only", False):
+        return run_validation(batcher, args.model,
+                              compute_dtype=compute_dtype, device=device)
     model_dict = None
     initial_params = None
     if getattr(args, "model", None):
-        bundle = models_mod.open_model(
-            models_mod.resolve_model(args.model))
-        model_dict = bundle.model.to_dict()
-        initial_params = bundle.model.jax_params()
+        if args.model.endswith(".toml"):
+            model_dict = models_mod.read_toml_architecture(args.model)
+        else:
+            bundle = models_mod.open_model(
+                models_mod.resolve_model(args.model))
+            model_dict = bundle.model.to_dict()
+            initial_params = bundle.model.jax_params()
     return run_training(
         args.train_name, batcher, model_dict=model_dict,
         epochs=args.epochs, optimizer=args.optimizer,
         optim_args=args.optim_args, seed=args.seed,
         initial_params=initial_params,
+        resume=getattr(args, "resume", False),
         samples_per_epoch=getattr(args, "samples_per_training_epoch", None),
         use_lr_schedule=getattr(args, "use_lr_schedule", True),
         compute_dtype=compute_dtype, device=device)

@@ -75,10 +75,10 @@ def _split_inputs(rng, H, T, batch, mode, quant, device, classes=5,
 
 
 def _check_split_kernels(device, H, T, batch, mode, quant, seed,
-                         classes=5, inputs=10):
+                         classes=5, inputs=10, exact_l1=False):
     """Layer 1 against its plain version on its own inputs, layer 2 on
     layer 1's kernel outputs, and both kernels against themselves run
-    again (bit for bit)."""
+    again (bit for bit); ``exact_l1``: the int8 layer 1 bit for bit."""
     w, xt, lens = _split_inputs(np.random.default_rng(seed), H, T, batch,
                                 mode, quant, device, classes, inputs)
     args1 = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
@@ -95,6 +95,8 @@ def _check_split_kernels(device, H, T, batch, mode, quant, seed,
               "mean", diff.mean().item())
         assert diff.max().item() <= (1 if quant else 2.0 ** -7)
         assert diff.mean().item() <= 1e-3
+        if exact_l1 and quant:
+            assert torch.equal(got, ref)
     args2 = (out_f, out_b, lens, w["w_in2"], w["in_scale2"], w["b_ih2"],
              w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
     lg_f, lg_b = gru_split.gru_l2head_split(*args2, mode=mode, quant=quant)
@@ -145,6 +147,29 @@ def test_rle_split_kernels_match_plain(device, mode, batch, quant):
     tiles of W_head^T in the int8 layer 2 and W_head read through L1 in
     the bf16 one."""
     _check_split_kernels(device, 256, 200, batch, mode, quant, 11, 49, 120)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("mode,batch", [("t", 512), ("t", 200),
+                                        ("rows", 64), ("rows", 37)])
+def test_reference_width_split_kernels_match_plain(device, mode, batch,
+                                                   quant):
+    """Both kernels at the reference's ``GRUModel`` width (H=128, 10
+    inputs, 5 classes) against their plain versions, the bars of H=256,
+    the int8 layer 1 bit for bit: fewer units a block (m16 tiles of 128/C
+    units) and more resident clusters than at H=256."""
+    _check_split_kernels(device, 128, 300, batch, mode, quant, 128 + batch,
+                         exact_l1=True)
+
+
+def test_reference_width_wave_batch(device):
+    """The automatic batch of a 2x128 GRUModel on the card: both int8
+    split kernels in one wave, at most the cap of 512 rows."""
+    batch = prediction.auto_batch_size(GRUModel(gru_size=128), device)
+    wave = gru_split.wave_batch(128, 10, device, prediction.AUTO_BATCH_CAP)
+    print("H=128 automatic batch", batch, "wave batch", wave)
+    assert batch <= prediction.AUTO_BATCH_CAP and batch <= wave
+    assert gru_split.split_mode(batch) == "t"
 
 
 @pytest.mark.parametrize("mode", ["t", "rows"])
@@ -287,7 +312,7 @@ def _train_inputs(rng, H, B, T, device):
 @pytest.mark.parametrize("H,B,T", [
     (256, 128, 200), (128, 37, 100), (64, 5, 64), (64, 1, 50),
     (96, 16, 60), (256, 16, 80), (256, 37, 60), (384, 37, 40),
-    (384, 128, 30), (512, 128, 40), (512, 1, 30)])
+    (384, 128, 30), (512, 128, 40), (512, 1, 30), (128, 128, 1000)])
 def test_gru_train_kernels_match_plain(device, H, B, T, reverse):
     """gru_fwd and gru_bwd against their plain versions, ragged lengths
     with a length-0 column.
@@ -896,6 +921,44 @@ def test_gru_model_off_split_on_card_matches_cpu_plain(
     agree = (got.argmax(-1) == want.argmax(-1))[valid].float().mean().item()
     print(n_layers, hidden, quant, "max", diff.max().item(), "agreement",
           agree)
+    assert diff.max().item() <= 1e-2
+    assert agree >= 0.99
+
+
+@pytest.mark.parametrize("mode", ["rows", "t"])
+def test_reference_gru_model_split_on_card_matches_cpu_plain(device, mode):
+    """The reference's 2x128 GRUModel on the split path (B=64; mode
+    "rows" as the batch picks it, "t" through ``bigru_head_fullfused``)
+    on the card against the same kernels' plain route on the CPU, the
+    bars of the H=384 case below, and no fullfused launch."""
+    rng = np.random.default_rng(128)
+    torch.manual_seed(128)
+    model = GRUModel(gru_size=128)
+    B, T = 64, 300
+    x = torch.from_numpy(rng.random((B, T, 10)).astype(np.float32))
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    layout = None if mode == "rows" else "t"
+    with torch.inference_mode():
+        want = torch.softmax(gru_split.bigru_head_fullfused(
+            model.layer_params(), model.head_params(), x, lengths,
+            layout=layout, device="cpu"), -1)
+        gru_fullfused.reset_launches()
+        gru_split.reset_launches()
+        model.to(device)
+        if layout is None:
+            got = model(x.to(device), lengths=lengths.to(device),
+                        compute_dtype=torch.bfloat16).cpu()
+        else:
+            got = torch.softmax(gru_split.bigru_head_fullfused(
+                model.layer_params(), model.head_params(), x.to(device),
+                lengths.to(device), layout=layout, device=device), -1).cpu()
+        model.to("cpu")
+    assert sum(gru_split.LAUNCHES.values()) == 2
+    assert sum(gru_fullfused.LAUNCHES.values()) == 0
+    valid = torch.arange(T)[None, :] < lengths[:, None]
+    diff = (got - want).abs()[valid]
+    agree = (got.argmax(-1) == want.argmax(-1))[valid].float().mean().item()
+    print("H=128", mode, "max", diff.max().item(), "agreement", agree)
     assert diff.max().item() <= 1e-2
     assert agree >= 0.99
 

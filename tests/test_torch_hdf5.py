@@ -65,16 +65,102 @@ def test_h5py_writes_port_reads(tmp_path):
         assert "missing" not in f
 
 
-def test_unsupported_inputs_are_refused(tmp_path):
-    path = str(tmp_path / "gz.h5")
+def _lzf_file(path):
     with h5py.File(path, "w") as h:
-        h.create_dataset("x", data=np.arange(1000), compression="gzip")
+        h.create_dataset("x", data=np.arange(1000), compression="lzf")
+
+
+def _vbz_file(path):
+    """A gzip dataset of the port's writer whose filter pipeline names
+    vbz (32020), ONT's codec, instead of deflate."""
+    with hdf5.File(path, "w") as f:
+        f.create_dataset("x", np.arange(1000), compression="gzip")
+    deflate = hdf5._encode_filters_deflate()
+    data = open(path, "rb").read()
+    assert data.count(deflate) == 1
+    vbz = deflate[:8] + (32020).to_bytes(2, "little") + deflate[10:]
+    open(path, "wb").write(data.replace(deflate, vbz))
+
+
+@pytest.mark.parametrize("name,write", [("lzf", _lzf_file),
+                                        ("vbz", _vbz_file)])
+def test_unsupported_inputs_are_refused(tmp_path, name, write):
+    """A filter the reader lacks raises naming it; so does a file that is
+    not HDF5."""
+    path = str(tmp_path / "f.h5")
+    write(path)
     with hdf5.File(path) as f:
-        with pytest.raises(hdf5.HDF5Error, match="compressed|chunked"):
+        with pytest.raises(hdf5.HDF5Error, match=name):
             f["x"][()]
     with pytest.raises(hdf5.HDF5Error, match="not an HDF5 file"):
         open(str(tmp_path / "plain"), "wb").write(b"x" * 200)
         hdf5.File(str(tmp_path / "plain"))
+
+
+_RNG = np.random.default_rng(14)
+_TABLE = np.zeros(1000, dtype=[("base", "S1"), ("shape", ">f4"),
+                               ("scale", ">f4")])
+_TABLE["base"] = _RNG.choice([b"A", b"C", b"G", b"T"], 1000)
+_TABLE["shape"] = _RNG.random(1000)
+_TABLE["scale"] = _RNG.random(1000)
+#: h5py-written chunked datasets: (data, create_dataset options)
+_CHUNKED = {
+    # 101 x 3 chunks, the last row and column of chunks past the bounds
+    "edge_chunks": (_RNG.random((1003, 7)).astype(np.float32),
+                    dict(chunks=(10, 3), compression="gzip",
+                         compression_opts=1)),
+    # 201 chunks: more than one B-tree node holds (2K = 64), two levels
+    "multi_level_btree": (_RNG.integers(0, 100, 10007).astype(np.int64),
+                          dict(chunks=(50,), compression="gzip")),
+    # a fast5 RunlengthBasecall table: compound, big-endian floats
+    "compound_big_endian": (_TABLE, dict(chunks=(64,), compression="gzip")),
+    "shuffle_deflate": (_RNG.random((300, 5)).astype(np.float32),
+                        dict(chunks=(32, 5), compression="gzip",
+                             shuffle=True)),
+    "chunked_uncompressed": (_RNG.random((37, 5, 3)).astype(">f8"),
+                             dict(chunks=(8, 2, 2))),
+    "positions": (np.tile(POS, 50), dict(chunks=(16,), compression="gzip")),
+}
+
+
+@pytest.mark.parametrize("case", list(_CHUNKED))
+def test_h5py_chunked_datasets_read_bit_for_bit(tmp_path, case):
+    """Chunked datasets as h5py writes them read as written: many chunks,
+    edge chunks, a two-level chunk B-tree, a compound table with
+    big-endian members, shuffle before deflate."""
+    data, options = _CHUNKED[case]
+    path = str(tmp_path / "c.h5")
+    with h5py.File(path, "w") as h:
+        h.create_dataset("d", data=data, **options)
+        h.create_dataset("s", data=np.array(
+            [b"x" * i for i in range(1, 40)], dtype=h5py.string_dtype()),
+            chunks=(8,), compression="gzip")
+    with hdf5.File(path) as f:
+        got = f["d"][()]
+        assert got.dtype == data.dtype and got.shape == data.shape
+        assert got.tobytes() == data.tobytes()
+        assert list(f["s"][()]) == [b"x" * i for i in range(1, 40)]
+
+
+@pytest.mark.parametrize("case", list(_CHUNKED))
+def test_port_gzip_writes_h5py_reads(tmp_path, case):
+    """The port's gzip-1 datasets (one chunk each) open in h5py as
+    deflated chunked datasets holding the same bytes, and read back in
+    the port."""
+    data = _CHUNKED[case][0]
+    path = str(tmp_path / "g.h5")
+    with hdf5.File(path, "w") as f:
+        f.create_dataset("a/d", data, compression="gzip")
+        f.create_dataset("a/tiny", np.arange(2, dtype=np.int16),
+                         compression="gzip")
+    with h5py.File(path, "r") as h:
+        d = h["a/d"]
+        assert (d.compression, d.compression_opts, d.chunks) == (
+            "gzip", 1, data.shape)
+        assert d[()].tobytes() == data.tobytes() and d.dtype == data.dtype
+        np.testing.assert_array_equal(h["a/tiny"][()], [0, 1])
+    with hdf5.File(path) as f:
+        assert f["a/d"][()].tobytes() == data.tobytes()
 
 
 def _h5py_layout(path):

@@ -133,12 +133,42 @@ def test_compress_bam_matches(synth, tmp_path):
 
 
 def test_fast5_paths_are_refused(synth, tmp_path):
+    """compress_bam --use_fast5_info over the synthetic genome's first
+    3 kb tags every read with the tables planted in its fast5, in a BAM
+    byte-identical to medaka_tpu's; only a fast5 whose tables use a codec
+    the port lacks (ONT's vbz) is refused, naming it."""
+    from medaka_tpu_torch.io import hdf5
     bam, draft, _, _ = synth
-    with pytest.raises(NotImplementedError, match="fast5"):
-        rle.compress_bam(bam, str(tmp_path / "x.bam"), draft,
-                         use_fast5_info=("dir", "summary.txt"))
-    with pytest.raises(NotImplementedError, match="fast5"):
-        rle.rlebam("index.tsv")
+    region = Region(CONTIG, 0, 3000)
+    fast5 = str(tmp_path / "reads.fast5")
+    summary = str(tmp_path / "summary.txt")
+    planted = testing.plant_fast5_tables(bam, fast5, summary, seed=1,
+                                         region=region)
+    out, want = str(tmp_path / "x.bam"), str(tmp_path / "want.bam")
+    assert cli.main(["compress_bam", bam, out, draft, "--regions",
+                     "{}:0-3000".format(CONTIG), "--threads", "2",
+                     "--use_fast5_info", str(tmp_path), summary]) == 0
+    jax_rle.compress_bam(bam, want, draft,
+                         regions=[JaxRegion(CONTIG, 0, 3000)],
+                         use_fast5_info=(str(tmp_path), summary))
+    with open(out, "rb") as a, open(want, "rb") as b:
+        assert a.read() == b.read()
+    with BamReader(out) as reader:
+        recs = list(reader)
+    assert len(recs) == len(planted) > 5
+    for rec in recs:
+        np.testing.assert_array_equal(rec.tags["WL"],
+                                      planted[rec.query_name][0])
+        np.testing.assert_array_equal(rec.tags["WK"],
+                                      planted[rec.query_name][1])
+    deflate = hdf5._encode_filters_deflate()
+    data = open(fast5, "rb").read()
+    open(fast5, "wb").write(data.replace(
+        deflate, deflate[:8] + (32020).to_bytes(2, "little") + deflate[10:]))
+    with pytest.raises(hdf5.HDF5Error, match="vbz"):
+        rle.compress_bam(bam, str(tmp_path / "y.bam"), draft,
+                         regions=[region], use_fast5_info=(str(tmp_path),
+                                                           summary))
 
 
 def _weibull_bam(rle_bam, path):

@@ -28,20 +28,23 @@ LENGTHS = np.array([32, 20, 7, 1], np.int32)
 RLE_IN, RLE_CLASSES = 120, 49
 
 
-def _direction(rng, in_size):
-    k = 1.0 / np.sqrt(H)
+def _direction(rng, in_size, hidden=H):
+    k = 1.0 / np.sqrt(hidden)
     return {name: rng.uniform(-k, k, shape).astype(np.float32)
-            for name, shape in (("w_ih", (3 * H, in_size)),
-                                ("w_hh", (3 * H, H)),
-                                ("b_ih", (3 * H,)), ("b_hh", (3 * H,)))}
+            for name, shape in (("w_ih", (3 * hidden, in_size)),
+                                ("w_hh", (3 * hidden, hidden)),
+                                ("b_ih", (3 * hidden,)),
+                                ("b_hh", (3 * hidden,)))}
 
 
-def _make_net(classes, inputs=IN):
+def _make_net(classes, inputs=IN, hidden=H):
     rng = np.random.default_rng(0)
-    layers = [{"fwd": _direction(rng, inputs),
-               "bwd": _direction(rng, inputs)},
-              {"fwd": _direction(rng, 2 * H), "bwd": _direction(rng, 2 * H)}]
-    head = {"w": rng.uniform(-0.2, 0.2, (classes, 2 * H)).astype(np.float32),
+    layers = [{"fwd": _direction(rng, inputs, hidden),
+               "bwd": _direction(rng, inputs, hidden)},
+              {"fwd": _direction(rng, 2 * hidden, hidden),
+               "bwd": _direction(rng, 2 * hidden, hidden)}]
+    head = {"w": rng.uniform(-0.2, 0.2, (classes, 2 * hidden)).astype(
+                np.float32),
             "b": rng.uniform(-0.2, 0.2, (classes,)).astype(np.float32)}
     x = rng.random((B, T, inputs)).astype(np.float32)
     return layers, head, x
@@ -64,19 +67,22 @@ def _valid():
     return np.arange(T)[None, :] < LENGTHS[:, None]
 
 
-@pytest.mark.parametrize("classes", [C, 15])
+@pytest.mark.parametrize("classes,hidden", [(C, H), (15, H), (C, 128)],
+                         ids=["5", "15", "5-H128"])
 @pytest.mark.parametrize("quant", [True, False])
 @pytest.mark.parametrize("layout", ["transposed", "rows"])
-def test_plain_matches_jax_interpret(layout, quant, classes):
+def test_plain_matches_jax_interpret(layout, quant, classes, hidden):
     """Logits agree within 5e-3 on valid columns (test_layouts_agree's bar),
-    with the haploid head's 5 classes and the diploid head's 15.
+    with the haploid head's 5 classes and the diploid head's 15, and at
+    the reference GRUModel's width (H=128, 5 classes).
 
     Measured max |logit diff| at 5 classes: 2.6e-3 for "transposed" +
     int8, where the bf16 tanh-form gates round XLA's and PyTorch's tanh to
     bf16 and a last-bit difference can flip a rounding; <= 6e-8 for the
     other three (f32 accumulation order only).
     """
-    _check_against_jax(_make_net(classes), layout, quant, classes)
+    _check_against_jax(_make_net(classes, hidden=hidden), layout, quant,
+                       classes)
 
 
 @pytest.mark.parametrize("quant", [True, False])

@@ -652,10 +652,7 @@ def test_cli_features_and_train_on_cpu(labelled, tmp_path):
 
 
 _REFUSED = [
-    (["--resume"], "--resume"),
-    (["--validate_only"], "--validate_only"),
     (["--model_parallel", "2"], "--model_parallel"),
-    (["--model", "arch.toml"], ".toml"),
 ]
 
 

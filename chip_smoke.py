@@ -175,10 +175,10 @@ Phases, each of which fails the script when it fails:
     reads with a primary, each within 50 bases of its true start on its
     strand, identity to the draft >= 0.99, the two FASTAs byte-identical;
     (b) the reads of a haploid genome of phase 20's generator, cut to
-    0.2 Mb for the time limit, through ``variant --model
-    gru256_variant_demo`` with the annotation, its probabilities sharded
-    over ``max(1, min(4, threads // 2))`` files (4 at 8 threads: the
-    manifest is checked): P/R/F1 at
+    ``FROM_READS_VARIANT_MB`` (0.1 Mb) for the time limit, through
+    ``variant --model gru256_variant_demo`` with the annotation, its
+    probabilities sharded over ``max(1, min(4, threads // 2))`` files (4
+    at 8 threads: the manifest is checked): P/R/F1 at
     ``testing.FROM_READS_FLOORS``, every record annotated (DP, DPS, DPSP,
     SR, SC, AR), at each planted SNP called the alt allele's SR support
     above the ref's; (c) ``consensus --model gru256_variant_demo`` on (b)'s
@@ -243,7 +243,9 @@ Phases, each of which fails the script when it fails:
     (int8, T=10000; bf16 over ``REF_CHECK_T`` steps) and on 64 rows in
     mode "rows" (int8 and bf16), int8 layer 1 bit for bit, timed beside
     their bounds, serial floors and cuDNN, with their geometry and
-    ptxas's report. Four ``kernels`` rows: ``gru_l1_split/h128``,
+    ptxas's report (mode "rows" on 64 rows at T=10000 also beside its
+    plain versions and cuDNN's layer 1 over those rows). Four ``kernels``
+    rows: ``gru_l1_split/h128``,
     ``gru_l2head_split/h128``, ``gru_fwd/h128`` and ``gru_bwd/h128``;
 27. phase 14's last checkpoint written as a reference checkpoint serves
     ``inference`` + ``sequence`` over phase 14's BAM cut to
@@ -258,7 +260,36 @@ Phases, each of which fails the script when it fails:
     (``testing.plant_fast5_tables``): ``compress_bam --use_fast5_info``
     and ``tools rlebam`` (spawned workers) tag every read with its
     planted table, with their seconds; ``tools export`` of the bundled
-    counts model, whose ``weights.pt`` loads back equal.
+    counts model, whose ``weights.pt`` loads back equal;
+29. (after phase 24, before phase 21) data-parallel inference on one
+    card: phase 4's BAM through ``prediction.predict(devices=["cuda:0",
+    "cuda:0"], batch_size=480)`` (240 rows a replica, mode "t", each
+    replica on its own stream): probabilities within phase 6's
+    whole-network bars of phase 5's (each differing argmax a near tie),
+    the FASTA phase 5's but for those columns, each replica's launches,
+    columns/s beside phase 5's; one 480-row batch bit for bit against one
+    replica fed each half, and a 200-row one (mode "rows" on each
+    replica) too; ``--batch_size 16`` over two replicas
+    (``bigru_fullfused`` on 8 rows each) against the plain versions; one
+    read-level batch over two replicas (``bilstm_fused``);
+30. multi-process inference: two concurrent ``inference --num_processes
+    2 --process_id i`` processes on the card (``--bam_chunk`` 250 kb, so
+    each takes a share of the contig), ``sequence`` of both host files;
+    the samples those of one process over the same work list, the FASTA
+    within ``MAX_MULTI_PROCESS_EDITS`` of phase 5's; each process's
+    launches and seconds;
+31. data-parallel training on one card: ``run_training`` over two gloo
+    ranks on cuda:0 against one nccl rank on phase 11's features (f32,
+    ``SCALE_F32_SAMPLES`` rows an epoch and no validation pass: rows and
+    last weights within ``TOL_RANKS_F32_*``), in bf16 at batch 128 for 2
+    epochs (losses finite and falling, 4 ``gru_fwd`` and 4 ``gru_bwd`` a
+    step in each rank), one read-level step on two ranks against one
+    (loss and running batch-norm statistics within ``TOL_RANKS_RL_*``, 4
+    ``lstm_fwd`` and 4 ``lstm_bwd`` in each rank), and ``train
+    --model_parallel 2`` raising medaka_tpu's mesh error on one card.
+    Two replicas or ranks share one card: no figure of these phases is a
+    scale-out figure. Phases 11 and 14 train in a process group of one
+    rank (nccl), printed.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -351,8 +382,9 @@ SMALL_BATCH = 16
 #: this many steps
 HEAD_CHECK_CLASSES = (9, 15, 16)
 # the haploid variant genome of phase 21 (b) and (c), Mb: phase 20's 0.5
-# cut so that the whole script ends well inside its 1200 s
-FROM_READS_VARIANT_MB = 0.2
+# cut so that the whole script ends well inside its 1200 s (0.2 until
+# phases 29-31 came)
+FROM_READS_VARIANT_MB = 0.1
 HEAD_CHECK_T = 500
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
 # bf16 flop/s, f32 flop/s outside the tensor cores
@@ -1000,17 +1032,22 @@ import json, sys
 import torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
-from medaka_tpu_torch.ops import gru_fullfused
+from medaka_tpu_torch.ops import bilstm, gru_fullfused
 mode = sys.argv[2]
 T, B, IN, H = (int(v) for v in sys.argv[3:7])
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(0)
 def u(*shape):
     return (torch.rand(*shape, device=dev, generator=g) * 2 - 1) / H ** 0.5
-x = (u(T, B, IN) * H ** 0.5).to(torch.bfloat16)
-w = (u(2, 3 * H, IN), u(2, 3 * H), u(2, 3 * H, H), u(2, 3 * H))
-lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
-launch = cs.fullfused_calls(gru_fullfused, mode, x, w, lengths)[0]
+if mode == "bilstm":
+    import numpy as np
+    args = cs.random_lstm_inputs(np.random.default_rng(0), H, B, T, dev)
+    launch = lambda: bilstm.bilstm_fused(*args)
+else:
+    x = (u(T, B, IN) * H ** 0.5).to(torch.bfloat16)
+    w = (u(2, 3 * H, IN), u(2, 3 * H), u(2, 3 * H, H), u(2, 3 * H))
+    lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+    launch = cs.fullfused_calls(gru_fullfused, mode, x, w, lengths)[0]
 launch()
 torch.cuda.synchronize()
 by_kernel = {}
@@ -1024,7 +1061,8 @@ print(json.dumps(by_kernel))
 
 def child_profile(mode, T, B, IN, H):
     """{kernel: ms} of one fullfused launch in mode ``mode`` (or
-    ``bigru_fused``'s, mode "fused") at (T, B, IN, H) on random inputs,
+    ``bigru_fused``'s, mode "fused"; ``bilstm_fused``'s, mode "bilstm",
+    IN unused) at (T, B, IN, H) on random inputs,
     profiled in a fresh process (:data:`PROFILE_CHILD`; the kernels are
     already built); {} where that trace is empty too."""
     proc = subprocess.run(
@@ -1127,6 +1165,16 @@ def checkpoint_arrays(path):
     with tarfile.open(path) as tar, np.load(
             tar.extractfile("model/weights.npz")) as npz:
         return {k: npz[k] for k in npz.files}
+
+
+def check_one_rank_group(parallel):
+    """``train`` on one card runs in a process group of one nccl rank."""
+    group = dict(parallel.LAST_GROUP)
+    log("   process group: {} of {} rank(s)".format(group.get("backend"),
+                                                   group.get("size")))
+    if group != {"backend": "nccl", "size": 1}:
+        raise AssertionError("train did not run in a one-rank nccl group: "
+                             "{}".format(group))
 
 
 def killed_and_resumed(cli, train_cmd, run, again, label):
@@ -1326,6 +1374,7 @@ def training_phases(seed, work, bam, draft, dev, rng, agreement, modules):
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         launches = dict(gru_train.LAUNCHES)
+        check_one_rank_group(parallel)
     with open(os.path.join(run, "training.csv")) as fh:
         csv_rows = [line.split(",") for line in fh.read().splitlines()]
     header, csv_rows = csv_rows[0], csv_rows[1:]
@@ -1627,6 +1676,7 @@ def read_level_training_phases(seed, work, dev, rng, agreement, modules):
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         launches = dict(lstm_train.LAUNCHES)
+        check_one_rank_group(parallel)
     with open(os.path.join(run, "training.csv")) as fh:
         csv_rows = [line.split(",") for line in fh.read().splitlines()]
     header, csv_rows = csv_rows[0], csv_rows[1:]
@@ -2183,8 +2233,9 @@ def from_reads_phases(seed, work, bam, draft, dev, modules):
         "columns_per_s": n_columns / stage_s["predict_direct"]}
 
     # (b) the variant pipeline from reads, with the annotation, on a
-    # genome cut to 0.2 Mb: at phase 20's 0.5 Mb, mapping, the annotator
-    # and (c)'s alignment took 140 s of a script that must end in 1200
+    # genome cut to FROM_READS_VARIANT_MB: at phase 20's 0.5 Mb, mapping,
+    # the annotator and (c)'s alignment took 140 s of a script that must
+    # end in 1200
     with phase("variant genome from reads: {} Mb with planted variants at "
                "depth 30 (create_variant_bam; phase 20 has 0.5 Mb, cut for "
                "the time limit)".format(FROM_READS_VARIANT_MB)):
@@ -2703,6 +2754,525 @@ def rle_phases(work, bam, draft, dev, rows, modules):
                                          else "l2")},
             "rle_path": path})
     return rows_out, path
+
+
+#: phase 31: the rows an epoch of the f32 runs takes (cut from phase 11's
+#: 512: the f32 scan under autograd launches kernels gate op by gate op,
+#: 5 s a step on an H100)
+SCALE_F32_SAMPLES = 128
+#: phase 31's bars between two gloo ranks on one card and one nccl rank:
+#: f32 counts training, each training.csv loss (relative) and the last
+#: checkpoint's weights (absolute); the read-level bf16 step, its loss
+#: (relative) and each running statistic (relative to the largest of its
+#: vector). Measured on an H100 (PERF.md): 7.4e-8 and 4.1e-8 (f32), 0 and
+#: 1.9e-7 (read-level); the only difference is the order of the sums over
+#: the ranks
+TOL_RANKS_F32_LOSS = 1e-6
+TOL_RANKS_F32_WEIGHTS = 1e-6
+TOL_RANKS_RL_LOSS = 1e-5
+TOL_RANKS_RL_STATS = 1e-5
+#: phase 30: the work unit (``--bam_chunk``) that gives both processes a
+#: share of the 0.5 Mb contig, and the most FASTA edits against phase 5's
+#: one-region run (other chunk boundaries at the region join)
+MULTI_PROCESS_BAM_CHUNK = 250000
+MAX_MULTI_PROCESS_EDITS = 10
+
+MULTI_PROCESS_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from medaka_tpu_torch import cli
+from medaka_tpu_torch.ops import gru_split
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[3:])
+torch.cuda.synchronize()
+with open(sys.argv[2], "w") as fh:
+    json.dump({"rc": rc, "seconds": time.perf_counter() - t0,
+               "launches": gru_split.LAUNCHES,
+               "mode_launches": gru_split.MODE_LAUNCHES}, fh)
+"""
+
+
+def probabilities_agree(datastore, got_hdf, want_hdf):
+    """Two probability files of the same samples within the whole-network
+    bars (``TOL_PROB``, ``MIN_ARGMAX_AGREEMENT``), each column whose
+    argmax differs a near tie of ``want_hdf`` (its gap within
+    ``TOL_PROB``); returns the statistics and whether the bits are
+    equal."""
+    import numpy as np
+    probs = []
+    for path in (got_hdf, want_hdf):
+        index = datastore.DataIndex(path)
+        probs.append({s.name: s.label_probs for s in
+                      index.yield_from_feature_files(samples=index.samples)})
+    got, want = probs
+    if sorted(got) != sorted(want) or not got:
+        raise AssertionError("{} and {} hold other samples".format(
+            got_hdf, want_hdf))
+    worst, differ, columns, same = 0.0, [], 0, True
+    for name in sorted(got):
+        a, b = got[name], want[name]
+        same = same and a.tobytes() == b.tobytes()
+        worst = max(worst, float(np.abs(a - b).max()))
+        columns += a.shape[0]
+        ka, kb = a.argmax(-1), b.argmax(-1)
+        differ += [float(b[i, kb[i]] - b[i, ka[i]])
+                   for i in np.flatnonzero(ka != kb)]
+    out = {"max": worst, "argmax_agreement": 1.0 - len(differ) / columns,
+           "differing_columns": len(differ),
+           "largest_gap": max(differ, default=0.0), "bit_identical": same}
+    if worst > TOL_PROB or out["argmax_agreement"] < MIN_ARGMAX_AGREEMENT \
+            or out["largest_gap"] > TOL_PROB:
+        raise AssertionError("{} disagrees with {}: {}".format(
+            got_hdf, want_hdf, out))
+    return out
+
+
+def halves_and_whole(prediction, model, batch, n):
+    """``batch`` through two replicas on cuda:0, through one replica fed
+    each half (the same launches), and through one replica whole; returns
+    the three outputs and the two replicas' launches."""
+    import numpy as np
+    half = batch.features.shape[0] // 2
+    one = prediction.Predictor(model, device="cuda:0")
+    halves = np.concatenate([one.fetch(one.dispatch(prediction.Batch(
+        batch.features[rows], batch.lengths[rows], [None] * half)), half)
+        for rows in (slice(0, half), slice(half, 2 * half))])[:n]
+    whole = one.fetch(one.dispatch(batch), n)
+    two = prediction.Predictor(model, devices=["cuda:0", "cuda:0"])
+    got = two.fetch(two.dispatch(batch), n)
+    return got, halves, whole, [dict(c) for c in two.launches]
+
+
+def ranks_run(training, path, features, devices, validation=True,
+              **kwargs):
+    """run_training over ``devices`` from phase 11's or 14's features with
+    phase 11's arguments (without the validation passes unless
+    ``validation``); returns (training.csv table, wall seconds)."""
+    import torch
+    torch.cuda.empty_cache()
+    batcher = training.TrainBatcher(
+        [features], batch_size=128, seed=kwargs["seed"],
+        max_valid_samples=None if validation else 0)
+    t0 = time.perf_counter()
+    training.run_training(path, batcher, epochs=kwargs.pop("epochs", 2),
+                          optimizer="adam",
+                          optim_args={"learning_rate": 1e-3},
+                          devices=devices, **kwargs)
+    return csv_table(os.path.join(path, "training.csv")), \
+        time.perf_counter() - t0
+
+
+def train_rows(table, split="train"):
+    """The rows of a training.csv table (``csv_table``) of ``split`` (every
+    row for None), each a dict."""
+    header, rows = table
+    return [dict(zip(header, r)) for r in rows
+            if split is None or r[header.index("split")] == split]
+
+
+def max_relative(got, want):
+    """The largest relative difference of two equally long lists."""
+    if len(got) != len(want):
+        raise AssertionError("{} values against {}".format(len(got),
+                                                           len(want)))
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def step_ms(table):
+    """Mean milliseconds of a train step: each epoch's last train row's
+    time over its batches."""
+    rows = train_rows(table)
+    last = {}
+    for r in rows:
+        last[r["epoch"]] = r
+    return 1e3 * sum(float(r["time"]) for r in last.values()) / len(rows)
+
+
+def rank_reports(path, n):
+    out = []
+    for rank in range(n):
+        with open(os.path.join(path, "rank{}.json".format(rank))) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def scale_out_phases(seed, work, bam, draft, hdf, fasta, main_rate,
+                     rl_features, dev, modules):
+    """Scale-out on one card (phases 29-31): data-parallel inference over
+    two replicas on cuda:0, two concurrent ``inference --num_processes 2``
+    processes, and data-parallel training over two gloo ranks on cuda:0
+    against one nccl rank. Two replicas or ranks share one card: no figure
+    here is a scale-out figure. Returns the launches by kernels row and
+    path, and what the phases measured."""
+    import numpy as np
+    import torch
+    cli, datastore, features, gru_fullfused, gru_split, models, \
+        prediction, testing, training, bilstm = (modules[k] for k in (
+            "cli", "datastore", "features", "gru_fullfused", "gru_split",
+            "models", "prediction", "testing", "training", "bilstm"))
+    launches = {}
+    out = {}
+    bundle = models.load_model(MODEL)
+    card = card_line()
+
+    rep_hdf = os.path.join(work, "replicas.hdf")
+    rep_fasta = os.path.join(work, "replicas.fasta")
+    with phase("(29) data-parallel inference: phase 4's BAM over two "
+               "replicas on cuda:0, batch 480 (240 rows a replica, mode t)"):
+        gru_split.reset_launches()
+        gru_fullfused.reset_launches()
+        t0 = time.perf_counter()
+        n_samples, n_columns = prediction.predict(
+            bam, rep_hdf, model_path=MODEL, batch_size=480,
+            devices=["cuda:0", "cuda:0"])
+        torch.cuda.synchronize()
+        t_rep = time.perf_counter() - t0
+        per_replica = [dict(c) for c in prediction.REPLICA_LAUNCHES]
+        total = dict(gru_split.LAUNCHES)
+        modes = dict(gru_split.MODE_LAUNCHES)
+        if cli.main(["sequence", rep_hdf, draft, rep_fasta]) != 0:
+            raise AssertionError("sequence failed")
+        stats = probabilities_agree(datastore, rep_hdf, hdf)
+        edits = consensus_identity(testing, rep_fasta, fasta)[1]
+        log("   per replica launches {}; in all {} {}; {:.0f} columns/s "
+            "({} columns in {:.2f} s) beside one replica's {:.0f} (phase "
+            "5); two replicas share one card ({}): no scale-out figure"
+            .format(per_replica, total, modes, n_columns / t_rep,
+                    n_columns, t_rep, main_rate, card))
+        log("   probabilities against phase 5's: {}; FASTA {} edits from "
+            "phase 5's".format(json.dumps(stats), edits))
+        for name in ("gru_l1_split", "gru_l2head_split"):
+            if any(r.get(name, 0) < 1 for r in per_replica) or \
+                    modes[name + "/t"] != total[name] or \
+                    sum(r.get(name, 0) for r in per_replica) != total[name]:
+                raise AssertionError("{} did not run mode t on each replica "
+                                     "({})".format(name, per_replica))
+        if edits > stats["differing_columns"]:
+            raise AssertionError("the replicas' FASTA differs from phase "
+                                 "5's past its near-tie columns")
+        out["replicas"] = {"columns_per_s": n_columns / t_rep,
+                           "one_replica_columns_per_s": main_rate,
+                           "per_replica_launches": per_replica,
+                           "vs_phase5": stats, "fasta_edits": edits}
+        for name in ("gru_l1_split", "gru_l2head_split"):
+            launches.setdefault(name, {})["replicas"] = [
+                r.get(name, 0) for r in per_replica]
+
+    with phase("(29) one 480-row batch: two replicas against one replica "
+               "fed each half (bit for bit) and whole; a 200-row batch (mode "
+               "rows on each replica) against the halves"):
+        samples = []
+        for region in prediction.plan_work(None, bam):
+            samples.extend(features.SampleGenerator(
+                bam, region, bundle.feature_encoder, chunk_len=10000,
+                chunk_overlap=1000).samples)
+        batch = prediction.Batch.collate(samples[:480], 480, 10000)
+        n = min(480, len(samples))
+        got, halves, whole, _ = halves_and_whole(prediction, bundle.model,
+                                                 batch, n)
+        valid = np.arange(10000)[None, :] < batch.lengths[:n, None]
+        diff = np.abs(got - whole)[valid]
+        agree = float((got.argmax(-1) == whole.argmax(-1))[valid].mean())
+        log("   bit-identical to the halves: {}; against the whole batch: "
+            "max {:.3g}, argmax agreement {:.6f}".format(
+                bool(np.array_equal(got, halves)), diff.max(), agree))
+        if not np.array_equal(got, halves):
+            raise AssertionError("two replicas differ from one replica on "
+                                 "the same halves")
+        if diff.max() > TOL_PROB or agree < MIN_ARGMAX_AGREEMENT:
+            raise AssertionError("two replicas disagree with one")
+        # a 200-row batch: 100 rows a replica take mode "rows" (#3, #4)
+        gru_split.reset_launches()
+        batch = prediction.Batch.collate(samples[:200], 200, 10000)
+        got, halves, _, rows_launches = halves_and_whole(
+            prediction, bundle.model, batch, min(200, len(samples)))
+        log("   200 rows: per replica launches {}, modes {}; bit-identical "
+            "to the halves: {}".format(rows_launches,
+                                       dict(gru_split.MODE_LAUNCHES),
+                                       bool(np.array_equal(got, halves))))
+        if not np.array_equal(got, halves) or any(
+                r.get(k, 0) != 1 for r in rows_launches
+                for k in ("gru_l1_split", "gru_l2head_split")):
+            raise AssertionError("two replicas at 100 rows each differ from "
+                                 "one replica on the same halves")
+        for name in ("gru_l1_split", "gru_l2head_split"):
+            launches[name]["replicas_rows_mode"] = [
+                r[name] for r in rows_launches]
+
+    with phase("(29) --batch_size 16 over two replicas (bigru_fullfused at "
+               "8 rows each) against the plain versions"):
+        batch = prediction.Batch.collate(samples[:SMALL_BATCH], SMALL_BATCH,
+                                         10000)
+        model = bundle.model
+        two = prediction.Predictor(model, devices=["cuda:0", "cuda:0"])
+        gru_fullfused.reset_launches()
+        got = two.fetch(two.dispatch(batch), SMALL_BATCH)
+        torch.cuda.synchronize()
+        ff = [dict(c) for c in two.launches]
+        x = torch.from_numpy(batch.features).to(dev)
+        lens = torch.from_numpy(batch.lengths).to(dev)
+        layers = [stacked_layer(layer) for layer in model.layer_params()]
+        with torch.inference_mode():
+            h = x.transpose(0, 1).to(torch.bfloat16).contiguous()
+            for w in layers:
+                h = gru_fullfused.bigru_fullfused_plain(h, *w, lens)
+            want = torch.softmax(
+                h.transpose(0, 1).float() @ model.linear.weight.float().t()
+                + model.linear.bias.float(), -1).cpu().numpy()
+        valid = np.arange(10000)[None, :] < batch.lengths[:, None]
+        diff = np.abs(got - want)[valid]
+        agree = float((got.argmax(-1) == want.argmax(-1))[valid].mean())
+        log("   per replica launches {}; probs max {:.3g} mean {:.3g}, "
+            "argmax agreement {:.6f}".format(ff, diff.max(), diff.mean(),
+                                             agree))
+        if any(r.get("bigru_fullfused", 0) != 2 for r in ff):
+            raise AssertionError("each replica must launch bigru_fullfused "
+                                 "twice: {}".format(ff))
+        if diff.max() > TOL_FULLFUSED_PROB_MAX or \
+                diff.mean() > TOL_SCAN_PROB_MEAN or \
+                agree < MIN_ARGMAX_AGREEMENT:
+            raise AssertionError("the replicas' fullfused route disagrees "
+                                 "with its plain version")
+        launches["bigru_fullfused/f32_gates"] = {
+            "replicas_batch16": [r["bigru_fullfused"] for r in ff]}
+        del two, x, lens, h
+
+    with phase("(29) one read-level batch over two replicas (bilstm_fused "
+               "on 64 rows each)"):
+        rl = models.load_model(RL_MODEL)
+        region = prediction.plan_work(None, bam)[0]
+        rl_samples = features.SampleGenerator(
+            bam, region, rl.feature_encoder, chunk_len=1000,
+            chunk_overlap=100).samples[:128]
+        batch = prediction.Batch.collate(
+            rl_samples, 128, 1000, rl.feature_encoder.max_reads)
+        bilstm.reset_launches()
+        got, halves, whole, rl_launches = halves_and_whole(
+            prediction, rl.model, batch, len(rl_samples))
+        valid = np.arange(1000)[None, :] < \
+            batch.lengths[:len(rl_samples), None]
+        diff = np.abs(got - whole)[valid]
+        agree = float((got.argmax(-1) == whole.argmax(-1))[valid].mean())
+        log("   per replica launches {}; bit-identical to the halves: {}; "
+            "against the whole batch: max {:.3g}, argmax agreement "
+            "{:.6f}".format(rl_launches, bool(np.array_equal(got, halves)),
+                            diff.max(), agree))
+        if any(r.get("bilstm_fused", 0) != 2 for r in rl_launches):
+            raise AssertionError("each replica must launch bilstm_fused "
+                                 "twice: {}".format(rl_launches))
+        if not np.array_equal(got, halves) or diff.max() > TOL_PROB or \
+                agree < MIN_ARGMAX_AGREEMENT:
+            raise AssertionError("the read-level replicas disagree")
+        launches["bilstm_fused"] = {
+            "replicas": [r["bilstm_fused"] for r in rl_launches]}
+        del rl, batch, got, halves, whole
+        torch.cuda.empty_cache()
+
+    mp_hdf = os.path.join(work, "mp.hdf")
+    with phase("(30) multi-process inference: two concurrent inference "
+               "--num_processes 2 processes on the card, then sequence"):
+        results = [os.path.join(work, "mp{}.json".format(i))
+                   for i in range(2)]
+        args = ["inference", bam, mp_hdf, "--model", MODEL, "--bam_chunk",
+                str(MULTI_PROCESS_BAM_CHUNK), "--num_processes", "2",
+                "--quiet"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MULTI_PROCESS_CHILD, HERE, results[i]]
+            + args + ["--process_id", str(i)], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_mp = time.perf_counter() - t0
+        reports = []
+        for p, text, res in zip(procs, logs, results):
+            if p.returncode != 0 or not os.path.exists(res):
+                raise AssertionError("a process failed: {}".format(
+                    text[-3000:]))
+            with open(res) as fh:
+                reports.append(json.load(fh))
+        hosts = [os.path.join(work, "mp_host{}.hdf".format(i))
+                 for i in range(2)]
+        mp_fasta = os.path.join(work, "mp.fasta")
+        if cli.main(["sequence"] + hosts + [draft, mp_fasta]) != 0:
+            raise AssertionError("sequence of the host files failed")
+        # the same work list in one process, for the samples' bits
+        one_hdf = os.path.join(work, "mp_one.hdf")
+        if cli.main(["inference", bam, one_hdf, "--model", MODEL,
+                     "--bam_chunk", str(MULTI_PROCESS_BAM_CHUNK),
+                     "--quiet"]) != 0:
+            raise AssertionError("the one-process run failed")
+        merged = os.path.join(work, "mp_merged.hdf")
+        with datastore.DataStore(merged, "w") as ds:
+            ds.set_meta(bundle.feature_encoder, "feature_encoder")
+            ds.set_meta(bundle.label_scheme, "label_scheme")
+            for h in hosts:
+                index = datastore.DataIndex(h)
+                for s in index.yield_from_feature_files(
+                        samples=index.samples):
+                    ds.write_sample(s)
+            ds.write_registry()
+        stats = probabilities_agree(datastore, merged, one_hdf)
+        edits = consensus_identity(testing, mp_fasta, fasta)[1]
+        identity = consensus_identity(testing, mp_fasta, draft)[0]
+        log("   {:.2f} s for both; per process {}".format(t_mp, json.dumps(
+            [{"seconds": r["seconds"], "launches": r["launches"],
+              "mode_launches": {k: v for k, v in r["mode_launches"].items()
+                                if v}} for r in reports])))
+        log("   merged samples against one process over the same work "
+            "list: {}; FASTA {} edits from phase 5's, identity to the "
+            "draft {:.6f}".format(json.dumps(stats), edits, identity))
+        for r in reports:
+            if min(r["launches"].values()) < 1:
+                raise AssertionError("a process launched no split kernel: "
+                                     "{}".format(r))
+        if edits > MAX_MULTI_PROCESS_EDITS or identity < 0.99:
+            raise AssertionError("the multi-process FASTA is not phase 5's")
+        out["multi_process"] = {"seconds": t_mp, "processes": reports,
+                                "vs_one_process": stats,
+                                "fasta_edits_vs_phase5": edits}
+        for name in ("gru_l1_split", "gru_l2head_split"):
+            launches[name]["multi_process"] = [
+                r["launches"][name] for r in reports]
+
+    train_hdf = os.path.join(work, "train.hdf")
+    with phase("(31) data-parallel training, f32: two gloo ranks on "
+               "cuda:0 against one nccl rank, {} rows an epoch, 2 "
+               "epochs".format(SCALE_F32_SAMPLES)):
+        f32 = {}
+        for label, devices in (("one", ["cuda:0"]),
+                               ("two", ["cuda:0", "cuda:0"])):
+            path = os.path.join(work, "ranks_f32_" + label)
+            f32[label] = ranks_run(training, path, train_hdf, devices,
+                                   validation=False, seed=seed,
+                                   compute_dtype=None,
+                                   samples_per_epoch=SCALE_F32_SAMPLES)
+            f32[label + "_path"] = path
+        rows_one = train_rows(f32["one"][0], None)
+        loss_rel = max_relative(
+            [float(r["loss"]) for r in train_rows(f32["two"][0], None)],
+            [float(r["loss"]) for r in rows_one])
+        last = "model-1.tar.gz"
+        wa = checkpoint_arrays(os.path.join(f32["two_path"], last))
+        wb = checkpoint_arrays(os.path.join(f32["one_path"], last))
+        w_abs = max(float(np.abs(wa[k] - wb[k]).max()) for k in wb)
+        log("   {} rows; loss max relative difference {:.3g} (bar {}); "
+            "last weights max abs {:.3g} (bar {}); wall {:.1f} s (one "
+            "rank) and {:.1f} s (two, spawn included); step {:.1f} ms and "
+            "{:.1f} ms".format(len(rows_one), loss_rel, TOL_RANKS_F32_LOSS,
+                               w_abs, TOL_RANKS_F32_WEIGHTS, f32["one"][1],
+                               f32["two"][1], step_ms(f32["one"][0]),
+                               step_ms(f32["two"][0])))
+        if loss_rel > TOL_RANKS_F32_LOSS or w_abs > TOL_RANKS_F32_WEIGHTS:
+            raise AssertionError("two ranks disagree with one in f32")
+        out["ranks_f32"] = {"loss_max_rel": loss_rel, "weights_max_abs": w_abs,
+                            "step_ms": [step_ms(f32["one"][0]),
+                                        step_ms(f32["two"][0])]}
+
+    with phase("(31) data-parallel training, bf16: two gloo ranks on cuda:0, "
+               "batch 128 (64 a rank), 2 epochs (gru_fwd, gru_bwd)"):
+        path = os.path.join(work, "ranks_bf16")
+        table, t_bf16 = ranks_run(training, path, train_hdf,
+                                  ["cuda:0", "cuda:0"], seed=seed,
+                                  compute_dtype=torch.bfloat16)
+        losses = [float(r["loss"]) for r in train_rows(table)]
+        steps = len(losses)
+        reports = rank_reports(path, 2)
+        one = csv_table(os.path.join(work, "run", "training.csv"))
+        one_losses = [float(r["loss"]) for r in train_rows(one)]
+        rel = max_relative(
+            [float(r["loss"]) for r in train_rows(table, None)],
+            [float(r["loss"]) for r in train_rows(one, None)])
+        log("   {} steps, losses {}; phase 11's one rank {} (max relative "
+            "difference over every row, validation too, {:.3g}); wall "
+            "{:.1f} s, spawn included; step {:.1f} ms beside phase 11's "
+            "{:.1f} ms (two ranks share one card, {}: no scale-out "
+            "figure); rank launches {}".format(
+                steps, losses, one_losses, rel, t_bf16, step_ms(table),
+                step_ms(one), card, [r["launches"] for r in reports]))
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError("the bf16 losses are not finite and "
+                                 "falling")
+        for r in reports:
+            if r["backend"] != "gloo" or r["launches"]["gru_fwd"] != \
+                    4 * steps or r["launches"]["gru_bwd"] != 4 * steps:
+                raise AssertionError("a rank did not run 4 gru_fwd and 4 "
+                                     "gru_bwd a step: {}".format(r))
+        out["ranks_bf16"] = {"step_ms": step_ms(table),
+                             "one_rank_step_ms": step_ms(one),
+                             "loss_max_rel_vs_one": rel}
+        for name in ("gru_fwd", "gru_bwd"):
+            launches[name] = {"ranks": [r["launches"][name]
+                                        for r in reports]}
+
+    with phase("(31) one read-level train step on two gloo ranks on cuda:0 "
+               "(64 rows each, lstm_fwd, lstm_bwd, global batch norm) "
+               "against one rank"):
+        rl_runs = {}
+        for label, devices in (("one", ["cuda:0"]),
+                               ("two", ["cuda:0", "cuda:0"])):
+            path = os.path.join(work, "ranks_rl_" + label)
+            rl_runs[label] = ranks_run(
+                training, path, rl_features, devices, validation=False,
+                seed=seed, epochs=1, compute_dtype=torch.bfloat16,
+                samples_per_epoch=128)
+            rl_runs[label + "_path"] = path
+        la = float(train_rows(rl_runs["two"][0])[0]["loss"])
+        lb = float(train_rows(rl_runs["one"][0])[0]["loss"])
+        wa = checkpoint_arrays(os.path.join(rl_runs["two_path"],
+                                            "model-0.tar.gz"))
+        wb = checkpoint_arrays(os.path.join(rl_runs["one_path"],
+                                            "model-0.tar.gz"))
+        stat_keys = [k for k in wb if k.endswith(("bn/mean", "bn/var"))]
+        stats_rel = max(float(np.abs(wa[k] - wb[k]).max()
+                              / np.abs(wb[k]).max()) for k in stat_keys)
+        reports = rank_reports(rl_runs["two_path"], 2)
+        log("   loss {:.6f} beside one rank's {:.6f} (relative {:.3g}, bar "
+            "{}); running statistics {} relative {:.3g} (bar {}); step "
+            "{:.1f} ms beside {:.1f} ms (one card shared); rank launches "
+            "{}".format(la, lb, abs(la - lb) / abs(lb), TOL_RANKS_RL_LOSS,
+                        stat_keys, stats_rel, TOL_RANKS_RL_STATS,
+                        step_ms(rl_runs["two"][0]),
+                        step_ms(rl_runs["one"][0]),
+                        [r["launches"] for r in reports]))
+        if abs(la - lb) > TOL_RANKS_RL_LOSS * abs(lb) or \
+                stats_rel > TOL_RANKS_RL_STATS or not stat_keys:
+            raise AssertionError("the read-level step on two ranks "
+                                 "disagrees with one rank's")
+        for r in reports:
+            if r["launches"]["lstm_fwd"] != 4 or \
+                    r["launches"]["lstm_bwd"] != 4:
+                raise AssertionError("a rank did not run 4 lstm_fwd and 4 "
+                                     "lstm_bwd: {}".format(r))
+        out["ranks_read_level"] = {
+            "loss": [lb, la], "stats_max_rel": stats_rel,
+            "step_ms": [step_ms(rl_runs["one"][0]),
+                        step_ms(rl_runs["two"][0])]}
+        for name in ("lstm_fwd", "lstm_bwd"):
+            launches[name] = {"ranks_read_level": [r["launches"][name]
+                                                   for r in reports]}
+
+    with phase("(31) train --model_parallel 2 on one card raises "
+               "medaka_tpu's mesh error"):
+        try:
+            cli.main(["train", train_hdf, "--train_name",
+                      os.path.join(work, "tp"), "--model_parallel", "2",
+                      "--quiet"])
+        except ValueError as e:
+            if "mesh 128x2 != 1 devices" not in str(e):
+                raise
+            log("   raised: {}".format(e))
+        else:
+            raise AssertionError("--model_parallel 2 ran on one card")
+    return launches, out
 
 
 def host_option_phases(work, bam, draft, hdf, fasta, main_rate, dev,
@@ -3767,8 +4337,26 @@ def reference_width_inference(work, bam, draft, ckpt, dev, ptxas, modules):
             }
             timed = {name: (cuda_ms(k), cuda_ms(o), cuda_ms(r))
                      for name, (k, o, r, _, _) in calls.items()}
+            # mode "rows" at the path's length: its plain versions' times
+            # (CUDA events, one run each)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            gru_split.gru_l1_split_plain(
+                xr, lr, wr["w_ih1"], wr["b_ih1"], wr["w_hh1"], wr["sc1"],
+                wr["b_hh1"], mode="rows", quant=True)
+            ev[1].record()
+            gru_split.gru_l2head_split_plain(
+                rf, rb, lr, wr["w_in2"], wr["in_scale2"], wr["b_ih2"],
+                wr["w_hh2"], wr["sc2"], wr["b_hh2"], wr["w_head"],
+                mode="rows", quant=True)
+            ev[2].record()
+            torch.cuda.synchronize()
+            rows_plain_ms = {
+                "gru_l1_split": ev[0].elapsed_time(ev[1]),
+                "gru_l2head_split": ev[1].elapsed_time(ev[2])}
         lib_ms = yardstick_ms(main.features, IN, 1, H, dev)
         lib2_ms = yardstick_ms(main.features, 2 * H, 1, H, dev)
+        lib_rows_ms = yardstick_ms(main.features[:64], IN, 1, H, dev)
         r_sum = int(main.lengths[:64].sum())
         for name, (_, _, _, err, width) in calls.items():
             kind = "l1" if name == "gru_l1_split" else "l2"
@@ -3799,7 +4387,10 @@ def reference_width_inference(work, bam, draft, ckpt, dev, ptxas, modules):
                 "serial_floor_ms": floor_ms, "step_us": ms / T * 1e3,
                 "serial_floor_step_us": floor_ms / T * 1e3,
                 "rows_mode": {"B": 64, "ms": rows_ms, "bound_ms": rb_ms,
-                              "bound_by": rb_by},
+                              "bound_by": rb_by,
+                              "plain_ms": rows_plain_ms[name],
+                              "library_ms": lib_rows_ms
+                              if kind == "l1" else None},
                 "geometry": geo, "checks": checks,
                 "shape": {"B": batch, "T": T, "H": H, "inputs": IN,
                           "classes": C, "valid_columns": lengths_sum},
@@ -3809,11 +4400,12 @@ def reference_width_inference(work, bam, draft, ckpt, dev, ptxas, modules):
                 "ptxas": {SPLIT_KERNEL_OF[name]: ptxas["gru_split.cu"][
                     SPLIT_KERNEL_OF[name]]}})
             log("   {}/h128: {:.2f} ms (plain {:.1f} ms, bound {:.4f} ms by "
-                "{}, one column {:.2f} ms; mode rows B=64 {:.2f} ms; cuDNN "
+                "{}, one column {:.2f} ms; mode rows B=64 {:.2f} ms, plain "
+                "{:.1f} ms, cuDNN layer 1 over 64 rows {:.2f} ms; cuDNN "
                 "{:.2f} ms); geometry {}".format(
                     name, ms, plain_ms[name], bound_ms, bound_by, floor_ms,
-                    rows_ms, lib_ms if kind == "l1" else lib2_ms,
-                    json.dumps(geo)))
+                    rows_ms, rows_plain_ms[name], lib_rows_ms,
+                    lib_ms if kind == "l1" else lib2_ms, json.dumps(geo)))
         del xt, kf, kb, f1, b1, rf, rb, w, wr
         model.to("cpu")
         torch.cuda.empty_cache()
@@ -4717,7 +5309,8 @@ def main(argv=None):
                 lstm_profile = cluster_launch_ms(
                     "bilstm_fused", lambda: bilstm.bilstm_fused(*largs),
                     PROFILE_KERNELS["bilstm_fused"][0],
-                    PROFILE_KERNELS["bilstm_fused"])
+                    PROFILE_KERNELS["bilstm_fused"],
+                    child=lambda: child_profile("bilstm", T, B, 0, H))
             lstm_sum = int(rl_main.lengths.sum())
             bound_ms, bound_by = bilstm_bound(B, H, lstm_sum)
             rows.append({
@@ -4784,6 +5377,16 @@ def main(argv=None):
         host_options = host_option_phases(
             work, bam, draft, hdf, fasta, main_rate, dev, modules={
                 "cli": cli, "datastore": datastore, "gru_split": gru_split})
+        # phases 29-31: scale-out on one card
+        torch.cuda.empty_cache()
+        scale_launches, scale_out = scale_out_phases(
+            seed, work, bam, draft, hdf, fasta, main_rate,
+            rl_paths["features"], dev, modules={
+                "bilstm": bilstm, "cli": cli, "datastore": datastore,
+                "features": features, "gru_fullfused": gru_fullfused,
+                "gru_split": gru_split, "models": models,
+                "prediction": prediction, "testing": testing,
+                "training": training})
         # phase 21 runs last: no profile follows it (a trace of the
         # read-level batch came back empty five times after it in one run)
         torch.cuda.empty_cache()
@@ -4805,6 +5408,11 @@ def main(argv=None):
                 "rle": rle_path["launches"][row["name"]]})
         split_rows[1]["from_reads_paths"] = from_reads
         split_rows[1]["host_options"] = host_options
+        split_rows[0]["scale_out"] = scale_out
+        for row in rows:
+            if row["name"] in scale_launches:
+                row.setdefault("launches_by_path", {}).update(
+                    scale_launches[row["name"]])
     finally:
         import shutil
         shutil.rmtree(work, ignore_errors=True)

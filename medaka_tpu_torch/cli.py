@@ -11,10 +11,12 @@ same flags and defaults for the parts that are ported. ``--model`` takes
 a path or a model name (``models.resolve_model``). ``inference``,
 ``consensus_from_features``, ``train``, ``consensus``,
 ``consensus_joint`` and ``variant`` run on the GPU unless ``--cpu`` is
-given; ``vcf``, ``snp``, ``align``, ``fastrle``, ``compress_bam`` and the
-tools run on the host. ``variant`` and ``consensus_joint`` shard their
-probability file over ``max(1, min(4, threads // 2))`` files, as
-``medaka_tpu`` does.
+given, over every visible GPU (``inference --num_processes N
+--process_id i [--coordinator host:port]`` splits the work over
+processes instead); ``vcf``, ``snp``, ``align``, ``fastrle``,
+``compress_bam`` and the tools run on the host. ``variant`` and
+``consensus_joint`` shard their probability file over ``max(1, min(4,
+threads // 2))`` files, as ``medaka_tpu`` does.
 """
 from __future__ import annotations
 
@@ -162,6 +164,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Value of tag.")
     tg.add_argument("--tag_keep_missing", action="store_true",
                     help="Keep alignments missing the tag.")
+    mh = p.add_argument_group(
+        "multi-process",
+        "Split the work over processes, each writing <output>_host<id>; "
+        "sequence merges the files.")
+    mh.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 (torch.distributed).")
+    mh.add_argument("--num_processes", type=int, default=None)
+    mh.add_argument("--process_id", type=int, default=None)
     p.set_defaults(func=_cmd_inference)
 
     p = subparsers.add_parser(
@@ -292,8 +302,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="Train in float32 throughout (disables bf16 compute).")
     p.add_argument(
         "--model_parallel", type=int, default=1,
-        help="Tensor-parallel mesh axis; values above 1 are not ported "
-             "yet.")
+        help="Tensor-parallel mesh axis over the recurrent gate rows. "
+             "Values > 1 run the plain scan instead of the kernels (the "
+             "kernels are validated unsharded only) and need as many "
+             "devices; data parallelism over every GPU is the default.")
     p.add_argument(
         "--validate_only", action="store_true",
         help="Evaluate --model on the validation split (all samples "
@@ -500,11 +512,30 @@ def main(argv=None):
 
 
 def _cmd_inference(args):
-    from medaka_tpu_torch import datastore, prediction
+    from medaka_tpu_torch import datastore, parallel, prediction
     if (args.tag_name is None) != (args.tag_value is None):
         raise ValueError(
             "--tag_name and --tag_value must be given together "
             "(one alone would filter out every read).")
+    device = _device(args)
+    regions = _regions_arg(args.regions) if args.regions else None
+    if args.num_processes and args.num_processes > 1:
+        if args.process_id is None or not (
+                0 <= args.process_id < args.num_processes):
+            raise ValueError(
+                "--num_processes requires --process_id in [0, {})".format(
+                    args.num_processes))
+        # this process's share of the work list, divided at bam_chunk
+        # granularity (a single-contig genome divides too)
+        parallel.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+        regions = parallel.shard_regions(
+            prediction.plan_work(
+                regions, args.bam, bam_chunk=args.bam_chunk,
+                chunk_overlap=args.chunk_ovlp),
+            args.num_processes, args.process_id)
+        base, ext = os.path.splitext(args.output)
+        args.output = "{}_host{}{}".format(base, args.process_id, ext)
     overrides = {
         k: v for k, v in (
             ("read_group", args.RG),
@@ -513,13 +544,11 @@ def _cmd_inference(args):
             ("tag_value", args.tag_value),
             ("tag_keep_missing", args.tag_keep_missing or None))
         if v is not None}
-    device = _device(args)
     ctx = profiled(args.profile_dir, device) if args.profile_dir else \
         contextlib.nullcontext()
     with ctx:
         prediction.predict(
-            args.bam, args.output, model_path=args.model,
-            regions=_regions_arg(args.regions) if args.regions else None,
+            args.bam, args.output, model_path=args.model, regions=regions,
             batch_size=args.batch_size, chunk_len=args.chunk_len,
             chunk_overlap=args.chunk_ovlp, bam_workers=args.bam_workers,
             bam_chunk=args.bam_chunk, full_precision=args.full_precision,

@@ -453,6 +453,15 @@ class DataIndex:
     Reference: ``medaka/datastore.py:363-520``.
     """
 
+    def __getstate__(self):
+        # a named logger does not pickle (spawned training ranks get the
+        # batcher); it is made again on the other side
+        return {k: v for k, v in self.__dict__.items() if k != "logger"}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.logger = common.get_named_logger("DataIndex")
+
     def __init__(self, filenames, threads: int = 4):
         """Build an index over ``filenames`` (list or single path).
 

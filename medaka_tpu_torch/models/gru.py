@@ -236,7 +236,7 @@ class GRUModel(TorchState, nn.Module):
     def forward(self, x: torch.Tensor, lengths=None, normalise: bool = True,
                 compute_dtype=None, fused: Optional[bool] = None,
                 recurrent_quant: Optional[str] = None,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False, gate_gather=None) -> torch.Tensor:
         """Forward pass.
 
         :param x: (batch, positions, num_features) counts features.
@@ -254,9 +254,14 @@ class GRUModel(TorchState, nn.Module):
         :param training: differentiable route: with ``fused`` the
             trainable kernel pair (bf16 even when ``compute_dtype`` is
             None, as in JAX), else the scan under autograd.
+        :param gate_gather: a ``parallel.ModelAxis`` when the recurrent
+            weights hold this rank's gate rows (``parallel.shard_model``):
+            the scan runs on them, whatever ``fused`` says.
         :returns: (batch, positions, num_classes) float32.
         """
-        if fused is None:
+        if gate_gather is not None:
+            fused = False
+        elif fused is None:
             fused = compute_dtype == torch.bfloat16 and x.is_cuda
         route = None
         if fused and not training:
@@ -286,7 +291,8 @@ class GRUModel(TorchState, nn.Module):
             else:
                 feats = bigru_stack(
                     self.layer_params(), x, bidirectional=self.bidirectional,
-                    compute_dtype=compute_dtype, lengths=lengths)
+                    compute_dtype=compute_dtype, lengths=lengths,
+                    gather=gate_gather)
             logits = (feats.float() @ self.linear.weight.float().t()
                       + self.linear.bias.float())
         if normalise:

@@ -42,6 +42,7 @@ from medaka_tpu_torch.models.gru import _GATE_KEYS, _TORCH_NAMES
 from medaka_tpu_torch.ops.bilstm import bilstm_stack_fused
 from medaka_tpu_torch.ops.lstm_train import bilstm_stack_trainable
 from medaka_tpu_torch.ops.rnn import bilstm_stack, lstm_scan
+from medaka_tpu_torch.parallel import all_reduce
 
 
 def _uniform(bound: float, *shape) -> torch.Tensor:
@@ -165,38 +166,55 @@ class MaskedBatchStats(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, row_w):
-        """:returns: (mean, var), each (C,) f32."""
+    def forward(ctx, x, row_w, group=None):
+        """:param group: the data group whose ranks hold the other rows of
+        the batch: the sums are taken over all of them (two passes, each
+        one reduction), so every rank gets the global statistics.
+        :returns: (mean, var), each (C,) f32."""
         C, P = x.shape[1], x.shape[2]
         w = row_w.float()
-        n = torch.clamp(w.sum() * P, min=1.0)
         total = torch.zeros(C, dtype=torch.float32, device=x.device)
         for sl in _row_slices(x):
             total += (x[sl].float() * w[sl, None, None]).sum(dim=(0, 2))
+        if group is None:
+            n = torch.clamp(w.sum() * P, min=1.0)
+        else:
+            sums = all_reduce(torch.cat([total, (w.sum() * P)[None]]), group)
+            total, n = sums[:C], torch.clamp(sums[C], min=1.0)
         mean = total / n
         sq = torch.zeros_like(total)
         for sl in _row_slices(x):
             dev = x[sl].float() - mean[:, None]
             sq += (dev * dev * w[sl, None, None]).sum(dim=(0, 2))
+        all_reduce(sq, group)
         ctx.save_for_backward(x, w, mean, n)
+        ctx.group = group
         return mean, sq / n
 
     @staticmethod
     def backward(ctx, d_mean, d_var):
         """d/dx of mean = w / n; of var = 2 w (x - mean) / n, plus its
-        path through the mean, -2 sum(w (x - mean)) / n times w / n."""
+        path through the mean, -2 sum(w (x - mean)) / n times w / n. With
+        a group, ``d_mean``, ``d_var`` and the residual sum are summed
+        over it first (as ``SyncBatchNorm`` does): every rank's rows move
+        the global statistics."""
         x, w, mean, n = ctx.saved_tensors
         resid = torch.zeros_like(mean)
         for sl in _row_slices(x):
             resid += ((x[sl].float() - mean[:, None])
                       * w[sl, None, None]).sum(dim=(0, 2))
+        if ctx.group is not None:
+            C = mean.shape[0]
+            sums = all_reduce(torch.cat([d_mean.float(), d_var.float(),
+                                         resid]), ctx.group)
+            d_mean, d_var, resid = sums[:C], sums[C:2 * C], sums[2 * C:]
         d_mean = d_mean + d_var * (-2.0 * resid / n)
         dx = torch.empty_like(x)
         for sl in _row_slices(x):
             dev = x[sl].float() - mean[:, None]
             dx[sl] = ((d_mean[:, None] + 2.0 * d_var[:, None] * dev)
                       * (w[sl, None, None] / n)).to(x.dtype)
-        return dx, None
+        return dx, None, None
 
 
 @register_model
@@ -364,7 +382,7 @@ class LatentSpaceLSTM(TorchState, nn.Module):
 
     def read_features(self, x: torch.Tensor, compute_dtype=None,
                       training: bool = False,
-                      bn_stats: Optional[list] = None):
+                      bn_stats: Optional[list] = None, bn_group=None):
         """Embeddings, per-read convolutions, ReLU and batch norm.
 
         :param x: (B, P, R, C) read-level features (int8 or float).
@@ -373,6 +391,8 @@ class LatentSpaceLSTM(TorchState, nn.Module):
             running statistics.
         :param bn_stats: with ``training``, a list to which each conv
             layer's batch (mean, var) is appended.
+        :param bn_group: with ``training``, the data group over whose
+            ranks' rows the batch statistics are taken.
         :returns: ((B*R, cnn_size, P) features in the compute dtype,
             (B, R) bool mask of the non-empty read rows).
         """
@@ -409,7 +429,7 @@ class LatentSpaceLSTM(TorchState, nn.Module):
                 # convolution's input
                 feats.add_(conv.b.to(cd)[:, None]).relu_()
             if training:
-                mean, var = MaskedBatchStats.apply(feats, row_w)
+                mean, var = MaskedBatchStats.apply(feats, row_w, bn_group)
                 if bn_stats is not None:
                     bn_stats.append((mean, var))
                 mean, var = mean.to(cd), var.to(cd)
@@ -450,9 +470,12 @@ class LatentSpaceLSTM(TorchState, nn.Module):
 
     def recurrent(self, pooled: torch.Tensor, lengths=None,
                   compute_dtype=None, fused: Optional[bool] = None,
-                  training: bool = False):
-        """The LSTM stack; (B, P, lstm_size * n_dirs)."""
-        if fused is None:
+                  training: bool = False, gate_gather=None):
+        """The LSTM stack; (B, P, lstm_size * n_dirs). Under a model axis
+        (``gate_gather``) the scan runs on this rank's gate rows."""
+        if gate_gather is not None:
+            fused = False
+        elif fused is None:
             fused = compute_dtype == torch.bfloat16 and pooled.is_cuda
         if fused and training:
             # the trainable kernel pair for both stack shapes (bf16 even
@@ -467,14 +490,16 @@ class LatentSpaceLSTM(TorchState, nn.Module):
                 # reverse-forward-reverse-forward interleave
                 out = lstm_scan(layer["fwd"].as_dict(), out,
                                 reverse=(i % 2 == 0),
-                                compute_dtype=compute_dtype, lengths=lengths)
+                                compute_dtype=compute_dtype, lengths=lengths,
+                                gather=gate_gather)
             return out
         if fused:
             return bilstm_stack_fused(self.layer_params(), pooled,
                                       lengths=lengths,
                                       compute_dtype=compute_dtype)
         return bilstm_stack(self.layer_params(), pooled,
-                            compute_dtype=compute_dtype, lengths=lengths)
+                            compute_dtype=compute_dtype, lengths=lengths,
+                            gather=gate_gather)
 
     def head(self, out: torch.Tensor) -> torch.Tensor:
         """The float32 linear head: (B, P, num_classes) logits."""
@@ -485,7 +510,8 @@ class LatentSpaceLSTM(TorchState, nn.Module):
     def forward(self, x: torch.Tensor, lengths=None, normalise: bool = True,
                 compute_dtype=None, fused: Optional[bool] = None,
                 training: bool = False,
-                bn_stats: Optional[list] = None) -> torch.Tensor:
+                bn_stats: Optional[list] = None, bn_group=None,
+                gate_gather=None) -> torch.Tensor:
         """Forward pass.
 
         :param x: (batch, positions, reads, channels) read-level features;
@@ -505,14 +531,18 @@ class LatentSpaceLSTM(TorchState, nn.Module):
         :param bn_stats: with ``training``, a list to which each conv
             layer's batch (mean, var) is appended, for the running
             statistics (``parallel.make_train_step``).
+        :param bn_group: with ``training``, the data group whose ranks
+            hold the rest of the batch (global batch statistics).
+        :param gate_gather: a ``parallel.ModelAxis`` when the LSTM weights
+            hold this rank's gate rows (``parallel.shard_model``).
         :returns: (batch, positions, num_classes) float32.
         """
         feats, non_empty = self.read_features(x, compute_dtype, training,
-                                              bn_stats)
+                                              bn_stats, bn_group)
         pooled = self.pool(feats, non_empty, compute_dtype)
         del feats
         logits = self.head(self.recurrent(pooled, lengths, compute_dtype,
-                                          fused, training))
+                                          fused, training, gate_gather))
         if normalise:
             return torch.softmax(logits, dim=-1)
         return logits

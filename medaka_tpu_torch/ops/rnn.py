@@ -11,6 +11,10 @@ the JAX scans do. These are the CPU routes of ``GRUModel`` and
 scans also run under autograd, the f32 training routes of ``GRUModel``
 and ``LatentSpaceLSTM`` (the counterpart of JAX autodiff through
 ``bigru_stack`` and ``bilstm_stack``).
+
+Under a model axis (``parallel.ModelAxis`` as ``gather``) the weights
+hold this rank's gate rows: each product with them is gathered to the
+whole gates, so every rank runs the same recurrence on them.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 
 def gru_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
              reverse: bool = False, compute_dtype=None,
-             lengths=None) -> torch.Tensor:
+             lengths=None, gather=None) -> torch.Tensor:
     """Run one GRU direction over a batch.
 
     :param params: w_ih (3H, in), w_hh (3H, H), b_ih, b_hh.
@@ -29,6 +33,8 @@ def gru_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     :param reverse: walk time backwards (outputs stay time-aligned).
     :param compute_dtype: None (float32) or e.g. torch.bfloat16.
     :param lengths: optional (batch,) valid lengths.
+    :param gather: a ``parallel.ModelAxis`` when the weights hold this
+        rank's gate rows.
     :returns: (batch, time, hidden).
     """
     dtype = torch.float32 if compute_dtype is None else compute_dtype
@@ -38,7 +44,7 @@ def gru_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
         for k in ("w_ih", "w_hh", "b_ih", "b_hh"))
     batch, steps, _ = x.shape
     hidden = w_hh.shape[1]
-    x_proj = torch.einsum("bti,hi->bth", x, w_ih) + b_ih
+    x_proj = _project(x, w_ih, b_ih, gather)
     w_hh_t = w_hh.t()
     h = torch.zeros((batch, hidden), dtype=dtype, device=x.device)
     if lengths is not None:
@@ -49,7 +55,7 @@ def gru_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     # f32 training route differentiates through this scan
     outs = []
     for t in order:
-        hp = h @ w_hh_t + b_hh
+        hp = _recur(h, w_hh_t, b_hh, gather)
         xr, xz, xn = x_proj[:, t].chunk(3, dim=-1)
         hr, hz, hn = hp.chunk(3, dim=-1)
         r = torch.sigmoid(xr + hr)
@@ -65,9 +71,25 @@ def gru_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     return torch.stack(outs, dim=1)
 
 
+def _project(x, w_ih, b_ih, gather):
+    """The input projection (B, T, G) of the gate rows the weights hold,
+    gathered to all gates under a model axis."""
+    if gather is None:
+        return torch.einsum("bti,hi->bth", x, w_ih) + b_ih
+    return gather.gates(torch.einsum("bti,hi->bth", gather.enter(x), w_ih)
+                        + b_ih)
+
+
+def _recur(h, w_hh_t, b_hh, gather):
+    """The recurrent product of a step, as :func:`_project`."""
+    if gather is None:
+        return h @ w_hh_t + b_hh
+    return gather.gates(gather.enter(h) @ w_hh_t + b_hh)
+
+
 def bigru_stack(layers: Sequence[Dict], x: torch.Tensor,
                 bidirectional: bool = True, compute_dtype=None,
-                lengths=None) -> torch.Tensor:
+                lengths=None, gather=None) -> torch.Tensor:
     """Apply a stack of (bi)GRU layers; see :func:`gru_scan`.
 
     :param layers: per-layer {"fwd": params, "bwd": params} dicts.
@@ -76,10 +98,12 @@ def bigru_stack(layers: Sequence[Dict], x: torch.Tensor,
     out = x
     for layer in layers:
         fwd = gru_scan(layer["fwd"], out, reverse=False,
-                       compute_dtype=compute_dtype, lengths=lengths)
+                       compute_dtype=compute_dtype, lengths=lengths,
+                       gather=gather)
         if bidirectional:
             bwd = gru_scan(layer["bwd"], out, reverse=True,
-                           compute_dtype=compute_dtype, lengths=lengths)
+                           compute_dtype=compute_dtype, lengths=lengths,
+                           gather=gather)
             out = torch.cat([fwd, bwd], dim=-1)
         else:
             out = fwd
@@ -88,7 +112,7 @@ def bigru_stack(layers: Sequence[Dict], x: torch.Tensor,
 
 def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
               reverse: bool = False, compute_dtype=None,
-              lengths=None) -> torch.Tensor:
+              lengths=None, gather=None) -> torch.Tensor:
     """Run one LSTM direction over a batch (gate order i, f, g, o).
 
     :param params: w_ih (4H, in), w_hh (4H, H), b_ih, b_hh.
@@ -97,6 +121,7 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     :param compute_dtype: None (float32) or e.g. torch.bfloat16.
     :param lengths: optional (batch,) valid lengths; h and c freeze at
         padded steps.
+    :param gather: as :func:`gru_scan`.
     :returns: (batch, time, hidden).
     """
     dtype = torch.float32 if compute_dtype is None else compute_dtype
@@ -106,7 +131,7 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
         for k in ("w_ih", "w_hh", "b_ih", "b_hh"))
     batch, steps, _ = x.shape
     hidden = w_hh.shape[1]
-    x_proj = torch.einsum("bti,hi->bth", x, w_ih) + b_ih
+    x_proj = _project(x, w_ih, b_ih, gather)
     w_hh_t = w_hh.t()
     h = torch.zeros((batch, hidden), dtype=dtype, device=x.device)
     c = torch.zeros_like(h)
@@ -117,7 +142,7 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     # LatentSpaceLSTM differentiates through this scan
     outs = []
     for t in order:
-        gates = x_proj[:, t] + h @ w_hh_t + b_hh
+        gates = x_proj[:, t] + _recur(h, w_hh_t, b_hh, gather)
         i, f, g, o = gates.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -137,7 +162,7 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
 def bilstm_stack(layers: Sequence[Dict], x: torch.Tensor,
                  bidirectional: bool = True, compute_dtype=None,
-                 lengths=None) -> torch.Tensor:
+                 lengths=None, gather=None) -> torch.Tensor:
     """Apply a stack of (bi)LSTM layers; see :func:`lstm_scan`.
 
     :param layers: per-layer {"fwd": params, "bwd": params} dicts.
@@ -146,10 +171,12 @@ def bilstm_stack(layers: Sequence[Dict], x: torch.Tensor,
     out = x
     for layer in layers:
         fwd = lstm_scan(layer["fwd"], out, reverse=False,
-                        compute_dtype=compute_dtype, lengths=lengths)
+                        compute_dtype=compute_dtype, lengths=lengths,
+                        gather=gather)
         if bidirectional:
             bwd = lstm_scan(layer["bwd"], out, reverse=True,
-                            compute_dtype=compute_dtype, lengths=lengths)
+                            compute_dtype=compute_dtype, lengths=lengths,
+                            gather=gather)
             out = torch.cat([fwd, bwd], dim=-1)
         else:
             out = fwd

@@ -25,12 +25,18 @@ read-level models:
 - The direct route decodes on the device (argmax class and best value,
   after the f16 rounding, so the decode equals the HDF5 route's) and
   streams the decoded samples into ``stitch.DirectStitcher``.
-
-Multi-device sharding is not ported yet.
+- Data parallelism: :class:`Predictor` keeps a replica of the model on
+  each device (every visible GPU by default) and cuts each batch into
+  equal row slices, one a replica; the automatic batch is the one-card
+  batch times the number of cards. Several processes split the work
+  list (``parallel.shard_regions`` of :func:`plan_work`) and write an
+  output each, which ``sequence`` merges.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import copy
 import dataclasses
 import itertools
 import queue
@@ -44,6 +50,7 @@ import torch
 from medaka_tpu_torch import common
 from medaka_tpu_torch import datastore as datastore_mod
 from medaka_tpu_torch import features as features_mod
+from medaka_tpu_torch import parallel
 from medaka_tpu_torch.common import Region, Sample, resolve_device
 from medaka_tpu_torch.models.gru import SPLIT_HIDDEN_MULTIPLE
 
@@ -310,8 +317,23 @@ class DataLoader:
             raise self._errors[0]
 
 
+def kernel_launches() -> Dict[str, int]:
+    """The inference kernels' launch counts so far, by kernel."""
+    from medaka_tpu_torch.ops import bilstm, gru_fullfused, gru_split
+    return {**gru_split.LAUNCHES, **gru_fullfused.LAUNCHES,
+            **bilstm.LAUNCHES}
+
+
 class Predictor:
-    """Forward pass over fixed-shape batches on one device.
+    """Forward pass over fixed-shape batches, data-parallel over devices.
+
+    One replica of the model an entry of ``devices``, each on a CUDA
+    stream of its own when there are several (a list may repeat a device:
+    replicas then share it). A batch is padded to a multiple of the
+    replica count and cut into equal row slices, slice i to replica i
+    (``medaka_tpu/prediction.py:441-447``); every replica is launched
+    before any is fetched, and the outputs come back in row order. Rows
+    are independent, so the outputs do not depend on the replica count.
 
     :param model: a model module holding its weights (e.g. ``GRUModel``).
     :param compute_dtype: torch.bfloat16 (default) or None (float32).
@@ -320,21 +342,43 @@ class Predictor:
         log-probabilities (log space keeps the quality-score precision
         near p=1 that an f16 probability would lose). Default: on for
         bf16 on the GPU, off on the CPU and for full precision.
-    :param device: "cuda" (default) or "cpu".
+    :param device: "cuda" (every visible GPU, the default), "cuda:i" or
+        "cpu", when ``devices`` is None.
+    :param devices: the replicas' devices.
     """
 
     def __init__(self, model, compute_dtype=torch.bfloat16,
-                 compact_transfer: Optional[bool] = None, device=None):
-        self.device = resolve_device(device)
+                 compact_transfer: Optional[bool] = None, device=None,
+                 devices: Optional[Sequence] = None):
+        self.devices = parallel.resolve_devices(devices, device)
+        self.device = self.devices[0]
         self.model = model.to(self.device).eval()
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.devices[1:]]
+        several = len(self.replicas) > 1
+        self.streams = [torch.cuda.Stream(device=d)
+                        if several and d.type == "cuda" else None
+                        for d in self.devices]
+        for d in set(self.devices):
+            if several and d.type == "cuda":
+                # the replicas' weights are in place before their streams
+                # read them
+                torch.cuda.synchronize(d)
+        #: each replica's kernel launches (:func:`kernel_launches`)
+        self.launches = [collections.Counter() for _ in self.replicas]
         self.compute_dtype = compute_dtype
         if compact_transfer is None:
             compact_transfer = (compute_dtype == torch.bfloat16
                                 and self.device.type == "cuda")
         self.compact_transfer = compact_transfer
 
+    @staticmethod
+    def _on(stream):
+        return torch.cuda.stream(stream) if stream is not None \
+            else contextlib.nullcontext()
+
     def dispatch(self, batch: Batch, decode: bool = False):
-        """Launch a batch; returns the device tensor of its outputs.
+        """Launch a batch on every replica; returns an opaque handle.
 
         Launches are asynchronous on the GPU, so the caller can featurise
         and write the previous batch while this one runs. ``decode=True``
@@ -344,33 +388,65 @@ class Predictor:
         probabilities (``medaka_tpu/prediction.py:395-404``); fetch that
         handle with :meth:`fetch_decoded`.
         """
-        out = self._forward(batch)
-        if decode:
-            with torch.inference_mode():
-                return out.argmax(-1).to(torch.uint8), out.amax(-1)
-        return out
+        feats, lengths = batch.features, batch.lengths
+        n = len(self.replicas)
+        pad = (-feats.shape[0]) % n
+        if pad:
+            feats = np.pad(feats, [(0, pad)] + [(0, 0)] * (feats.ndim - 1))
+            lengths = np.pad(lengths, (0, pad))
+        per = feats.shape[0] // n
+        handle = []
+        for i, (replica, stream, device) in enumerate(zip(
+                self.replicas, self.streams, self.devices)):
+            rows = slice(i * per, (i + 1) * per)
+            before = kernel_launches()
+            with self._on(stream):
+                out = self._forward(replica, device, feats[rows],
+                                    lengths[rows])
+                if decode:
+                    with torch.inference_mode():
+                        out = out.argmax(-1).to(torch.uint8), out.amax(-1)
+            after = kernel_launches()
+            self.launches[i].update({k: after[k] - before[k] for k in after
+                                     if after[k] != before[k]})
+            handle.append((stream, per, out))
+        return handle
 
-    def _forward(self, batch: Batch) -> torch.Tensor:
-        feats = torch.from_numpy(batch.features)
+    def _forward(self, replica, device, features: np.ndarray,
+                 lengths: np.ndarray) -> torch.Tensor:
+        feats = torch.from_numpy(features)
         floating = feats.is_floating_point()
         if self.compact_transfer and floating:
             feats = feats.to(torch.bfloat16)
-        lengths = torch.from_numpy(batch.lengths).to(self.device)
+        lengths = torch.from_numpy(lengths).to(device)
         with torch.inference_mode():
-            x = feats.to(self.device)
+            x = feats.to(device)
             if self.compact_transfer:
                 # integer features are widened by the model on the device
-                logits = self.model(
+                logits = replica(
                     x.float() if floating else x, lengths=lengths,
                     normalise=False, compute_dtype=self.compute_dtype)
                 return torch.log_softmax(logits, dim=-1).to(torch.float16)
-            return self.model(
+            return replica(
                 x, lengths=lengths, normalise=True,
                 compute_dtype=self.compute_dtype)
 
-    def fetch(self, handle: torch.Tensor, n_valid: int) -> np.ndarray:
+    def _gather(self, handle, n_valid: int, take):
+        """``take(out, rows)`` of each replica's first valid rows, on its
+        stream, in row order."""
+        parts = []
+        for i, (stream, per, out) in enumerate(handle):
+            rows = min(per, n_valid - i * per)
+            if rows > 0:
+                with self._on(stream):
+                    parts.append(take(out, rows))
+        return parts
+
+    def fetch(self, handle, n_valid: int) -> np.ndarray:
         """Block on a :meth:`dispatch` handle; (n_valid, T, C) probs."""
-        out = handle[:n_valid].cpu().numpy().astype(np.float32)
+        out = np.concatenate(self._gather(
+            handle, n_valid, lambda o, r: o[:r].cpu().numpy())
+        ).astype(np.float32)
         if self.compact_transfer:
             out = np.exp(out)
         return out
@@ -384,9 +460,10 @@ class Predictor:
             are the same bytes.
         :returns: (classes uint8 (n_valid, T), quality chars uint8).
         """
-        classes, best = handle
-        classes = classes[:n_valid].cpu().numpy()
-        best = best[:n_valid].cpu().numpy().astype(np.float32)
+        parts = self._gather(handle, n_valid, lambda o, r: (
+            o[0][:r].cpu().numpy(), o[1][:r].cpu().numpy()))
+        classes = np.concatenate([c for c, _ in parts])
+        best = np.concatenate([b for _, b in parts]).astype(np.float32)
         if self.compact_transfer:
             best = np.exp(best)
         return classes, phred_fn(1.0 - best).astype("u1") + 33
@@ -476,11 +553,25 @@ def auto_batch_size(model, device=None, chunk_len: int = 10000,
     return batch
 
 
+#: each replica's kernel launches in the last run of the pipeline
+#: (``Predictor.launches``)
+REPLICA_LAUNCHES: List[Dict[str, int]] = []
+
+
+def replicated_batch_size(model, devices, **kwargs) -> int:
+    """The automatic batch over ``devices``: :func:`auto_batch_size` of
+    the first device times the number of distinct cards, so each card
+    keeps its one-card batch (one wave of the split kernels) however many
+    replicas share it; the CPU's batch on the CPU."""
+    cards = max(1, parallel.distinct_cards(devices))
+    return auto_batch_size(model, devices[0], **kwargs) * cards
+
+
 def _stream_batches(
         bam, regions: Sequence[Region], model, feature_encoder, write_batch,
         region_done=None, batch_size: Optional[int] = None,
         chunk_len: int = 10000, chunk_overlap: int = 1000,
-        bam_workers: int = 2, full_precision: bool = False, device=None,
+        bam_workers: int = 2, full_precision: bool = False, devices=None,
         feature_processes: int = 0):
     """Run every batch of ``regions`` through ``model``, two in flight.
 
@@ -489,18 +580,19 @@ def _stream_batches(
     ``decode=True`` and each work region's index goes to
     ``region_done(rid)`` once every batch holding its samples is written.
 
+    :param devices: the replicas' devices (:class:`Predictor`).
     :returns: (n_samples, n_columns) processed.
     """
     logger = common.get_named_logger("PWorker")
-    device = resolve_device(device)
     compute_dtype = None if full_precision else torch.bfloat16
     if batch_size is None:
-        batch_size = auto_batch_size(
-            model, device, chunk_len=chunk_len,
+        batch_size = replicated_batch_size(
+            model, devices, chunk_len=chunk_len,
             full_precision=full_precision,
             max_reads=getattr(feature_encoder, "max_reads", 100))
         logger.info("Auto batch size: %d.", batch_size)
-    predictor = Predictor(model, compute_dtype=compute_dtype, device=device)
+    predictor = Predictor(model, compute_dtype=compute_dtype,
+                          devices=devices)
     decode = region_done is not None
     loader = DataLoader(
         bam, regions, feature_encoder, batch_size=batch_size,
@@ -547,6 +639,7 @@ def _stream_batches(
             drain(head)
     while pending:
         drain(pending.popleft())
+    REPLICA_LAUNCHES[:] = [dict(c) for c in predictor.launches]
 
     t1 = now()
     logger.info(
@@ -562,10 +655,15 @@ def run_prediction(
         batch_size: Optional[int] = None, chunk_len: int = 10000,
         chunk_overlap: int = 1000, bam_workers: int = 2,
         full_precision: bool = False, save_features: bool = False,
-        device=None, feature_processes: int = 0, output_shards: int = 1):
+        device=None, feature_processes: int = 0, output_shards: int = 1,
+        devices=None):
     """Run inference and write probability samples to ``output``.
 
-    :param batch_size: rows per device batch (None: :func:`auto_batch_size`).
+    :param batch_size: rows of a batch over all devices (None:
+        :func:`replicated_batch_size`).
+    :param device: as :func:`predict`.
+    :param devices: the replicas' devices (:class:`Predictor`; None:
+        every visible GPU, or ``device``).
     :param feature_processes: featurise in this many worker processes
         instead of ``bam_workers`` threads (:class:`DataLoader`).
     :param output_shards: > 1 writes the samples round-robin over that
@@ -596,7 +694,8 @@ def run_prediction(
             bam, regions, model, feature_encoder, write_batch,
             batch_size=batch_size, chunk_len=chunk_len,
             chunk_overlap=chunk_overlap, bam_workers=bam_workers,
-            full_precision=full_precision, device=device,
+            full_precision=full_precision,
+            devices=parallel.resolve_devices(devices, device),
             feature_processes=feature_processes)
         ds.write_registry()
     return counts
@@ -629,7 +728,7 @@ def run_prediction_direct(
         chunk_overlap: int = 1000, bam_workers: int = 2,
         full_precision: bool = False, min_depth: int = 0,
         fillgaps: bool = True, fill_char: Optional[str] = None,
-        qualities: bool = False, device=None):
+        qualities: bool = False, device=None, devices=None):
     """Consensus without a probability file: argmax + quality on the device.
 
     Counterpart of ``medaka_tpu/prediction.py:run_prediction_direct``. The
@@ -665,7 +764,7 @@ def run_prediction_direct(
         region_done=stitcher.region_done, batch_size=batch_size,
         chunk_len=chunk_len, chunk_overlap=chunk_overlap,
         bam_workers=bam_workers, full_precision=full_precision,
-        device=device)
+        devices=parallel.resolve_devices(devices, device))
     stitcher.finish()
     return counts
 
@@ -719,7 +818,7 @@ def predict(
         bam_chunk: int = 1_000_000, full_precision: bool = False,
         encoder_overrides: Optional[Dict] = None,
         save_features: bool = False, device=None,
-        feature_processes: int = 0, output_shards: int = 1):
+        feature_processes: int = 0, output_shards: int = 1, devices=None):
     """Top-level inference entry: BAM -> probability HDF5.
 
     Either ``model_path`` (a native bundle) or an explicit model (holding
@@ -728,11 +827,13 @@ def predict(
     :param encoder_overrides: attribute overrides applied to the
         feature encoder's read filters (``read_group``, ``min_mapq``,
         ``tag_name``, ``tag_value``, ``tag_keep_missing``).
-    :param device: "cuda" (default) or "cpu".
+    :param device: "cuda" (every visible GPU, the default), "cuda:i" or
+        "cpu", when ``devices`` is None.
+    :param devices: one model replica an entry (:class:`Predictor`).
     :returns: (n_samples, n_columns).
     """
     logger = common.get_named_logger("Predict")
-    device = resolve_device(device)
+    devices = parallel.resolve_devices(devices, device)
     model, feature_encoder, label_scheme = _resolve_model(
         model_path, model, feature_encoder, label_scheme)
     for key, value in (encoder_overrides or {}).items():
@@ -749,20 +850,21 @@ def predict(
             "(batch, %d, reads, features) device tensors; consider "
             "--chunk_len 1000.", chunk_len, chunk_len)
     work = plan_work(regions, bam, bam_chunk, chunk_overlap)
-    logger.info("Processing %d region chunk(s) on %s.", len(work), device)
+    logger.info("Processing %d region chunk(s) over %d device(s).",
+                len(work), len(devices))
     return run_prediction(
         output, bam, work, model, feature_encoder,
         label_scheme=label_scheme, batch_size=batch_size,
         chunk_len=chunk_len, chunk_overlap=chunk_overlap,
         bam_workers=bam_workers, full_precision=full_precision,
-        save_features=save_features, device=device,
+        save_features=save_features, devices=devices,
         feature_processes=feature_processes, output_shards=output_shards)
 
 
 def predict_from_features(
         inputs, output: str, model_path: Optional[str] = None,
         model=None, batch_size: Optional[int] = None,
-        full_precision: bool = False, device=None):
+        full_precision: bool = False, device=None, devices=None):
     """Run inference over precomputed feature files (no BAM)
     (``medaka_tpu.prediction.predict_from_features``).
 
@@ -771,10 +873,12 @@ def predict_from_features(
     length, the longest sample's (``DataIndex.max_sample_size``), and
     written to ``output`` with their ``label_probs``.
 
+    :param device: as :func:`predict`.
+    :param devices: as :func:`predict`.
     :returns: (n_samples, n_columns).
     """
     logger = common.get_named_logger("PWorker")
-    device = resolve_device(device)
+    devices = parallel.resolve_devices(devices, device)
     index = datastore_mod.DataIndex(
         list(inputs) if isinstance(inputs, (list, tuple)) else [inputs])
     feature_encoder = index.metadata.get("feature_encoder")
@@ -788,7 +892,8 @@ def predict_from_features(
     if model is None:
         raise ValueError("Provide model_path or model.")
     compute_dtype = None if full_precision else torch.bfloat16
-    predictor = Predictor(model, compute_dtype=compute_dtype, device=device)
+    predictor = Predictor(model, compute_dtype=compute_dtype,
+                          devices=devices)
     samples = index.yield_from_feature_files()
     first = next(samples, None)
     if first is None:
@@ -796,10 +901,11 @@ def predict_from_features(
     chunk_len = max(first.size, index.max_sample_size())
     max_reads = getattr(feature_encoder, "max_reads", None)
     if batch_size is None:
-        batch_size = auto_batch_size(
-            model, device, chunk_len=chunk_len,
+        batch_size = replicated_batch_size(
+            model, devices, chunk_len=chunk_len,
             full_precision=full_precision, max_reads=max_reads or 100)
-        logger.info("Auto batch size: %d.", batch_size)
+        logger.info("Auto batch size: %d over %d device(s).", batch_size,
+                    len(devices))
     n_samples = n_columns = 0
     t0 = now()
     with datastore_mod.DataStore(output, "a") as out_ds:
@@ -836,7 +942,7 @@ def predict_direct(
         bam_chunk: int = 1_000_000, full_precision: bool = False,
         min_depth: int = 0, fillgaps: bool = True,
         fill_char: Optional[str] = None, qualities: bool = False,
-        device=None):
+        device=None, devices=None):
     """BAM -> polished FASTA/FASTQ with the decode on the device, no HDF5
     (counterpart of ``medaka_tpu.prediction.predict_direct``).
 
@@ -845,16 +951,16 @@ def predict_direct(
     :returns: (n_samples, n_columns).
     """
     logger = common.get_named_logger("Predict")
-    device = resolve_device(device)
+    devices = parallel.resolve_devices(devices, device)
     model, feature_encoder, label_scheme = _resolve_model(
         model_path, model, feature_encoder, label_scheme)
     work = plan_work(regions, bam, bam_chunk, chunk_overlap)
-    logger.info("Processing %d region chunk(s) on %s (direct decode).",
-                len(work), device)
+    logger.info("Processing %d region chunk(s) over %d device(s) (direct "
+                "decode).", len(work), len(devices))
     return run_prediction_direct(
         output_fastx, bam, work, model, feature_encoder, label_scheme,
         draft_path, batch_size=batch_size, chunk_len=chunk_len,
         chunk_overlap=chunk_overlap, bam_workers=bam_workers,
         full_precision=full_precision, min_depth=min_depth,
         fillgaps=fillgaps, fill_char=fill_char, qualities=qualities,
-        device=device)
+        devices=devices)

@@ -1,7 +1,7 @@
 """Model training from labelled feature HDF5 files.
 
 Counterpart of ``medaka_tpu/training.py`` (``medaka_tpu train``) for
-counts and read-level feature files, on one device:
+counts and read-level feature files:
 
 - :class:`TrainBatcher` indexes feature files, splits train/validation
   and serves fixed-shape ``{features, labels, mask, lengths}`` batches,
@@ -28,17 +28,20 @@ counts and read-level feature files, on one device:
 - :func:`train`, the CLI entry, also takes an architecture TOML as
   ``--model`` (a random init from ``--seed``).
 
-Not ported yet, and refused by name: ``--model_parallel`` above 1 (the
-scale-out slice).
+Every run goes through the mesh of :func:`training_mesh`: one rank in
+this process, or spawned ranks over several GPUs (or several ranks on one
+GPU, or on the CPU), with ``--model_parallel`` ranks on the model axis.
 """
 from __future__ import annotations
 
 import csv
 import json
+import logging
 import math
 import os
 import queue as queue_mod
 import threading
+import time
 from timeit import default_timer as now
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -47,9 +50,6 @@ import torch
 
 from medaka_tpu_torch import common, datastore, parallel
 from medaka_tpu_torch import models as models_mod
-
-_LATER = ("{} is not ported to medaka_tpu_torch's train yet; it comes "
-          "with a later slice of the port ({}).")
 
 
 def qscore(acc: float) -> float:
@@ -108,10 +108,16 @@ class _RunningMedianClip:
             buffer_size, factor, warmup
         self.norms = torch.zeros((buffer_size,), dtype=_F32)
         self.count = 0
+        #: under a model axis, sums each cut leaf's squares over the model
+        #: group (``parallel.make_train_step``), so the norm is the whole
+        #: gradient's
+        self.reduce_squares: Optional[Callable] = None
 
     def __call__(self, updates: List[torch.Tensor]) -> List[torch.Tensor]:
-        norm = torch.sqrt(sum(torch.sum(u.float() ** 2).cpu()
-                              for u in updates)).to(_F32)
+        squares = [torch.sum(u.float() ** 2).cpu() for u in updates]
+        if self.reduce_squares is not None:
+            squares = self.reduce_squares(squares)
+        norm = torch.sqrt(sum(squares)).to(_F32)
         n_valid = min(self.count, self.buffer_size)
         masked = torch.where(torch.arange(self.buffer_size) < n_valid,
                              self.norms, _f32(math.inf))
@@ -324,6 +330,15 @@ def build_optimizer(name: str = "nadam", lr_schedule=None,
 
 class TrainBatcher:
     """Index feature files, split train/valid, serve fixed-shape batches."""
+
+    def __getstate__(self):
+        # a named logger does not pickle (spawned training ranks get the
+        # batcher); it is made again on the other side
+        return {k: v for k, v in self.__dict__.items() if k != "logger"}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.logger = common.get_named_logger("TrainBatcher")
 
     def __init__(self, features: Sequence[str],
                  validation: Union[float, Sequence[str]] = 0.2,
@@ -704,24 +719,30 @@ def load_resume_state(train_name: str, model, opt: Optimizer, params):
 
 def run_epoch(step_fn, batcher, split, epoch, logger, csv_logger=None,
               is_training=True, eval_fn=None, max_batches=None,
-              device="cuda"):
+              device="cuda", mesh: Optional[parallel.Mesh] = None):
     """One pass over a split; returns (mean loss, accuracy).
 
     :param max_batches: truncate the epoch after this many batches
         (``--samples_per_training_epoch``).
+    :param mesh: the ranks: every rank draws the same global batches and
+        takes its data rank's rows (``Mesh.rows``); the step gives the
+        global loss and counts.
     """
     total_loss, total_correct, total_count, n_batches = 0.0, 0.0, 0.0, 0
     base_correct = 0.0
     is_counts = batcher.feat_dim == 10 and not batcher.is_read_level
     has_baseline = is_counts or batcher.is_read_level
+    rows = mesh.rows(batcher.batch_size) if mesh is not None and \
+        mesh.data > 1 else slice(None)
     t0 = now()
     for batch in batcher.batches(split, shuffle=is_training, seed=epoch):
         if max_batches is not None and n_batches >= max_batches:
             break
-        # the read-level majority argmax, computed by the loader thread,
-        # stays on the host
+        # the read-level majority argmax, computed by the loader thread
+        # over the global batch, stays on the host
         host_baseline = batch.pop("baseline_pred", None)
-        tbatch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        tbatch = {k: torch.from_numpy(v[rows]).to(device)
+                  for k, v in batch.items()}
         if is_training:
             loss, n_c, n_t = step_fn(tbatch)
         else:
@@ -733,7 +754,7 @@ def run_epoch(step_fn, batcher, split, epoch, logger, csv_logger=None,
             "time": now() - t0}
         if is_counts:
             # argmax-of-counts reference point
-            b_c, _b_t = parallel.majority_baseline_accuracy(tbatch)
+            b_c, _b_t = parallel.majority_baseline_accuracy(tbatch, mesh)
             base_correct += float(b_c)
             row["baseline_acc"] = float(b_c) / max(1.0, float(n_t))
         elif host_baseline is not None:
@@ -762,6 +783,18 @@ def run_epoch(step_fn, batcher, split, epoch, logger, csv_logger=None,
     return mean_loss, acc
 
 
+def training_mesh(batch_size: int, devices, model_parallel: int = 1
+                  ) -> parallel.Mesh:
+    """The mesh of a training run (``medaka_tpu``'s rule): ``data =
+    gcd(batch_size, devices // model_parallel)`` ranks on the data axis,
+    each with ``model_parallel`` ranks on the model axis, over the first
+    ``data * model_parallel`` devices. Raises as ``make_mesh`` does
+    where the devices are too few for the model axis."""
+    data = math.gcd(batch_size, len(devices) // model_parallel)
+    return parallel.Mesh(devices[:data * model_parallel], data=data,
+                         model=model_parallel)
+
+
 def run_training(
         train_name: str, batcher: TrainBatcher,
         model_dict: Optional[Dict] = None, epochs: int = 10,
@@ -769,8 +802,23 @@ def run_training(
         compute_dtype=torch.bfloat16, seed: int = 0,
         early_stop_epochs: int = 20, initial_params=None,
         resume: bool = False, samples_per_epoch: Optional[int] = None,
-        use_lr_schedule: bool = True, class_weights=None, device=None):
-    """Train a consensus model.
+        use_lr_schedule: bool = True, class_weights=None, device=None,
+        devices: Optional[Sequence] = None, model_parallel: int = 1,
+        timeout_s: float = parallel.DEFAULT_TIMEOUT_S):
+    """Train a consensus model, data-parallel over ``devices``.
+
+    One rank a device of :func:`training_mesh`. One rank runs in this
+    process, in a process group of one (nccl on a GPU, gloo on the CPU);
+    more are spawned processes (``torch.multiprocessing``, spawn) that
+    meet over a ``FileStore`` in ``train_name``. Every rank draws the
+    same global batches and takes its rows; loss, gradients, counts and
+    batch-norm statistics are global (:mod:`medaka_tpu_torch.parallel`),
+    so the run's numbers do not depend on the mesh. Rank 0 alone writes
+    ``training.csv``, the checkpoints and the resume snapshot (whole
+    weights, whatever the mesh); each spawned rank also writes
+    ``rank{r}.json`` (its device, backend and kernel launches). A rank
+    that raises or dies makes this raise; every collective waits at most
+    ``timeout_s``.
 
     :param train_name: output directory.
     :param batcher: a :class:`TrainBatcher`.
@@ -790,29 +838,109 @@ def run_training(
         samples.
     :param use_lr_schedule: warmup + cosine when True, constant learning
         rate otherwise.
-    :param device: "cuda" (default) or "cpu".
-    :returns: the trained model.
+    :param device: "cuda" (every visible GPU, the default), "cuda:i" or
+        "cpu", when ``devices`` is None.
+    :param devices: the devices, one a rank (a list may repeat a device:
+        two ranks on one GPU).
+    :param model_parallel: ranks on the model axis (the recurrent weights
+        cut by gate rows; the scan instead of the kernels).
+    :returns: the trained model (with more than one rank, its last
+        checkpoint).
     """
-    logger = common.get_named_logger("Training")
-    device = common.resolve_device(device)
+    devices = parallel.resolve_devices(devices, device)
+    mesh = training_mesh(batcher.batch_size, devices, model_parallel)
     os.makedirs(train_name, exist_ok=True)
+    if model_dict is None:
+        model_dict = default_model_dict(batcher)
+    config = dict(
+        train_name=train_name, model_dict=model_dict, epochs=epochs,
+        optimizer=optimizer, optim_args=optim_args,
+        compute_dtype=compute_dtype, seed=seed,
+        early_stop_epochs=early_stop_epochs, initial_params=initial_params,
+        resume=resume, samples_per_epoch=samples_per_epoch,
+        use_lr_schedule=use_lr_schedule, class_weights=class_weights)
+    common.get_named_logger("Training").info(
+        "Training over a %dx%d (data x model) mesh on %s.", mesh.data,
+        mesh.model, ", ".join(map(str, mesh.devices)))
+    if mesh.size == 1:
+        import torch.distributed as dist
+        with parallel.process_group(mesh, 0, dist.HashStore(), timeout_s):
+            return _train_rank(mesh, batcher, **config)
+    store = os.path.join(train_name, ".rendezvous-{}-{}".format(
+        os.getpid(), time.time_ns()))
+    context = torch.multiprocessing.start_processes(
+        _rank_main, args=(mesh, batcher, config, store, timeout_s,
+                          logging.getLogger().getEffectiveLevel()),
+        nprocs=mesh.size, join=False, start_method="spawn")
+    try:
+        while not context.join(timeout=1.0):
+            pass
+    except Exception as e:
+        raise RuntimeError("a training rank failed: {}".format(e)) from e
+    finally:
+        for process in context.processes:
+            if process.is_alive():
+                process.terminate()
+        if os.path.exists(store):
+            os.remove(store)
+    with open(os.path.join(train_name, "resume.json")) as fh:
+        last = json.load(fh)["epoch"]
+    return models_mod.load_model(
+        os.path.join(train_name, "model-{}.tar.gz".format(last))).model
 
+
+def default_model_dict(batcher: TrainBatcher) -> Dict:
+    """The architecture ``train`` builds without ``--model``: for
+    read-level files the reference's ``rl_lstm384`` geometry (its
+    options.py:175-182, latent_space_lstm.py:47-59), the dwell channel
+    following the encoder; else ``DEFAULT_MODEL_DICT`` at the batcher's
+    feature width."""
+    if batcher.is_read_level:
+        feature_encoder = batcher.meta.get("feature_encoder")
+        use_dwells = bool(getattr(
+            feature_encoder, "include_dwells", batcher.feat_dim >= 5))
+        return {"type": "LatentSpaceLSTM",
+                "kwargs": {"lstm_size": 384, "use_dwells": use_dwells}}
+    model_dict = dict(models_mod.DEFAULT_MODEL_DICT)
+    model_dict["kwargs"] = dict(model_dict["kwargs"])
+    model_dict["kwargs"]["num_features"] = batcher.feat_dim
+    return model_dict
+
+
+def _rank_main(rank, mesh, batcher, config, store, timeout_s, log_level):
+    """A spawned rank: join the group, train, write ``rank{r}.json``."""
+    import torch.distributed as dist
+
+    from medaka_tpu_torch.ops import gru_train, lstm_train
+    logging.basicConfig(
+        level=log_level if rank == 0 else max(log_level, logging.WARNING),
+        format="[%(asctime)s - %(name)s] rank {}: %(message)s".format(rank),
+        datefmt="%H:%M:%S")
+    if mesh.devices[rank].type == "cpu":
+        # the CPU ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+    with parallel.process_group(mesh, rank, dist.FileStore(store, mesh.size),
+                                timeout_s):
+        _train_rank(mesh, batcher, **config)
+        report = {"rank": rank, "data_rank": mesh.data_rank,
+                  "model_rank": mesh.model_rank, "device": str(mesh.device),
+                  "backend": dist.get_backend(), "world": mesh.size,
+                  "launches": {**gru_train.LAUNCHES, **lstm_train.LAUNCHES}}
+    _atomic_write(os.path.join(config["train_name"],
+                               "rank{}.json".format(rank)),
+                  lambda fh: fh.write(json.dumps(report).encode()))
+
+
+def _train_rank(mesh, batcher, train_name, model_dict, epochs, optimizer,
+                optim_args, compute_dtype, seed, early_stop_epochs,
+                initial_params, resume, samples_per_epoch, use_lr_schedule,
+                class_weights):
+    """This rank's part of :func:`run_training`; returns its model."""
+    logger = common.get_named_logger("Training")
+    device = mesh.device
+    lead = mesh.rank == 0
     feature_encoder = batcher.meta.get("feature_encoder")
     label_scheme = batcher.meta.get("label_scheme")
-    if model_dict is None:
-        if batcher.is_read_level:
-            # the reference's rl_lstm384 geometry (its options.py:175-182,
-            # latent_space_lstm.py:47-59), the dwell channel following the
-            # encoder
-            use_dwells = bool(getattr(
-                feature_encoder, "include_dwells", batcher.feat_dim >= 5))
-            model_dict = {
-                "type": "LatentSpaceLSTM",
-                "kwargs": {"lstm_size": 384, "use_dwells": use_dwells}}
-        else:
-            model_dict = dict(models_mod.DEFAULT_MODEL_DICT)
-            model_dict["kwargs"] = dict(model_dict["kwargs"])
-            model_dict["kwargs"]["num_features"] = batcher.feat_dim
     # the random init draws from a generator of its own, seeded
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -838,15 +966,13 @@ def run_training(
     opt = build_optimizer(optimizer, schedule, optim_args)
     params = list(model.parameters())
     opt.init(params)
-    step_fn = parallel.make_train_step(
-        model, opt, compute_dtype=compute_dtype, class_weights=class_weights)
-    eval_fn = make_eval_fn(model, compute_dtype)
 
-    csv_logger = CSVLogger(os.path.join(train_name, "training.csv"))
     best = {"val_loss": np.inf, "val_acc": -np.inf}
     best_epoch = 0
     first_epoch = 0
     if resume:
+        # a snapshot holds whole weights: it loads before the model axis
+        # cuts them
         state = load_resume_state(train_name, model, opt, params)
         if state is None:
             logger.info("No resume state in %s; training from scratch.",
@@ -854,28 +980,41 @@ def run_training(
         else:
             first_epoch, best, best_epoch = state
             logger.info("Resuming from epoch %d.", first_epoch)
+    parallel.shard_model(model, mesh, opt)
+    step_fn = parallel.make_train_step(
+        model, opt, compute_dtype=compute_dtype, class_weights=class_weights,
+        mesh=mesh)
+    eval_fn = make_eval_fn(model, compute_dtype, mesh)
+    csv_logger = CSVLogger(os.path.join(train_name, "training.csv")) \
+        if lead else None
 
     def save(name):
-        return models_mod.save_model(
-            os.path.join(train_name, name + ".tar.gz"), model,
-            feature_encoder=feature_encoder, label_scheme=label_scheme)
+        with parallel.unsharded(model, mesh):
+            if lead:
+                models_mod.save_model(
+                    os.path.join(train_name, name + ".tar.gz"), model,
+                    feature_encoder=feature_encoder,
+                    label_scheme=label_scheme)
 
     def snapshot(epoch):
-        save_resume_state(train_name, epoch, model, opt, params, best,
-                          best_epoch)
+        with parallel.unsharded(model, mesh, opt):
+            if lead:
+                save_resume_state(train_name, epoch, model, opt, params,
+                                  best, best_epoch)
 
+    epoch_args = dict(logger=logger, csv_logger=csv_logger, device=device,
+                      mesh=mesh)
     try:
         for epoch in range(first_epoch, epochs):
-            run_epoch(step_fn, batcher, "train", epoch, logger, csv_logger,
-                      is_training=True, max_batches=max_batches,
-                      device=device)
+            run_epoch(step_fn, batcher, "train", epoch, is_training=True,
+                      max_batches=max_batches, **epoch_args)
             save("model-{}".format(epoch))
             if not batcher.valid_samples:
                 snapshot(epoch)
                 continue
             val_loss, val_acc = run_epoch(
-                step_fn, batcher, "validation", epoch, logger, csv_logger,
-                is_training=False, eval_fn=eval_fn, device=device)
+                step_fn, batcher, "validation", epoch, is_training=False,
+                eval_fn=eval_fn, **epoch_args)
             if val_loss < best["val_loss"]:
                 best["val_loss"] = val_loss
                 best_epoch = epoch
@@ -890,7 +1029,8 @@ def run_training(
                     early_stop_epochs)
                 break
     finally:
-        csv_logger.close()
+        if csv_logger is not None:
+            csv_logger.close()
     return model
 
 
@@ -904,14 +1044,18 @@ def _check_features(model, batcher: TrainBatcher):
                            else "counts"))
 
 
-def make_eval_fn(model, compute_dtype):
+def make_eval_fn(model, compute_dtype, mesh: Optional[parallel.Mesh] = None):
     """The evaluation step of training and validation: ``batch -> (loss,
-    n_correct, n_total)`` without gradients, in inference mode."""
+    n_correct, n_total)`` of the global batch (this rank's rows of it
+    given, as to the train step) without gradients, in inference mode."""
+    kwargs = parallel._tp_kernel_fence(model, mesh)
+
     def eval_fn(batch):
         with torch.inference_mode(), parallel.deterministic_convolutions():
             loss, (n_c, n_t) = parallel.cross_entropy_loss(
-                model, batch, compute_dtype=compute_dtype, training=False)
-        return loss, n_c, n_t
+                model, batch, compute_dtype=compute_dtype, training=False,
+                mesh=mesh, apply_kwargs=kwargs)
+            return parallel.global_metrics(mesh, loss, n_c, n_t)
     return eval_fn
 
 
@@ -948,9 +1092,6 @@ def train(args):
     it) to build with a random init from ``--seed``; ``--resume``
     continues the run in ``--train_name`` from its snapshot.
     """
-    if getattr(args, "model_parallel", 1) > 1:
-        raise NotImplementedError(_LATER.format(
-            "--model_parallel > 1", "scale-out: the model mesh axis"))
     if getattr(args, "validate_only", False) and not args.model:
         raise ValueError("--validate_only requires --model.")
     # bf16 mixed precision is the default; --full_precision / --no-amp
@@ -963,7 +1104,7 @@ def train(args):
     compute_dtype = (None if (full_precision or amp is False)
                      else torch.bfloat16)
     device = "cpu" if getattr(args, "cpu", False) else "cuda"
-    common.resolve_device(device)
+    devices = parallel.visible_devices(device)
     batcher = TrainBatcher(
         args.features, validation=args.validation_features
         or args.validation_split, seed=args.seed,
@@ -990,4 +1131,5 @@ def train(args):
         resume=getattr(args, "resume", False),
         samples_per_epoch=getattr(args, "samples_per_training_epoch", None),
         use_lr_schedule=getattr(args, "use_lr_schedule", True),
-        compute_dtype=compute_dtype, device=device)
+        compute_dtype=compute_dtype, devices=devices,
+        model_parallel=getattr(args, "model_parallel", 1))

@@ -6,11 +6,12 @@ setup of ``conftest.py``:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
-
-import os
 
 from medaka_tpu_torch import features, models, prediction, testing
 from medaka_tpu_torch.common import Region
@@ -1141,3 +1142,97 @@ def test_consensus_from_reads_on_card_matches_cpu(device, tmp_path):
         edits, len(seqs["cpu"])))
     assert len(seqs["cuda"]) > 19000
     assert edits <= len(seqs["cpu"]) // 10000
+
+
+# ---------------------------------------------------------------------------
+# scale-out on one card: replicas and ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [480, 200, 40])
+def test_two_replicas_match_one(device, batch):
+    """Predictor over two replicas on cuda:0 (each on its own stream,
+    half the rows each: mode "t", mode "rows" and the fullfused route at
+    480, 200 and 40 rows) against one replica on the same card: bit for
+    bit against the one replica fed each half (the same launches); at 480
+    (mode "t" either way) within 1e-3 of the one replica over all 480
+    rows with argmax agreement >= 0.9999 (the whole-network bars of
+    chip_smoke.py); every replica launches its kernels (the split kernels
+    once each, the fullfused kernel once a layer)."""
+    rng = np.random.default_rng(batch)
+    torch.manual_seed(batch)
+    model = GRUModel(gru_size=256)
+    T = 300
+    feats = rng.random((batch, T, 10)).astype(np.float32)
+    lengths = rng.integers(T // 2, T + 1, batch).astype(np.int32)
+    half = batch // 2
+    one = prediction.Predictor(model, device="cuda:0")
+    halves = np.concatenate([one.fetch(one.dispatch(prediction.Batch(
+        feats[rows], lengths[rows], [None] * half)), half)
+        for rows in (slice(0, half), slice(half, batch))])
+    two = prediction.Predictor(model, devices=["cuda:0", "cuda:0"])
+    got = two.fetch(two.dispatch(prediction.Batch(
+        feats, lengths, [None] * batch)), batch)
+    np.testing.assert_array_equal(got, halves)
+    # one launch of each split kernel, or one fullfused launch a layer
+    kernels = {"gru_l1_split": 1, "gru_l2head_split": 1} if half >= 32 \
+        else {"bigru_fullfused": 2}
+    for launches in two.launches:
+        assert all(launches[k] == n for k, n in kernels.items()), launches
+    if batch == 480:
+        want = one.fetch(one.dispatch(prediction.Batch(
+            feats, lengths, [None] * batch)), batch)
+        valid = np.arange(T)[None, :] < lengths[:, None]
+        assert np.abs(got - want)[valid].max() <= 1e-3
+        assert (got.argmax(-1) == want.argmax(-1))[valid].mean() >= 0.9999
+
+
+def test_two_ranks_on_one_card_match_one_rank(device, tmp_path):
+    """run_training over two gloo ranks on cuda:0 against one rank (nccl)
+    on the same features: in f32 (the scan under autograd) every
+    training.csv row within 1e-5 relative; in bf16 (gru_fwd/gru_bwd)
+    each rank launches 4 of each kernel a step and the losses are finite
+    and within 1e-2 relative of the one rank's."""
+    from medaka_tpu_torch import training
+    bam, ref = testing.create_synth_bam(
+        str(tmp_path / "reads.bam"), ref_mb=0.006, depth=8, read_len=1500,
+        seed=4)
+    truth = testing.create_truth_bam(
+        str(tmp_path / "truth.bam"), ref, substitutions={"synth": {}},
+        draft_fasta=str(tmp_path / "draft.fasta"))
+    hdf = str(tmp_path / "feats.hdf")
+    features.create_samples(bam, hdf, truth_bam=truth, chunk_len=100,
+                            chunk_ovlp=0)
+    run = dict(model_dict={"type": "GRUModel", "kwargs": {
+        "num_features": 10, "num_classes": 5, "gru_size": 128}},
+        optimizer="nadam", optim_args={"learning_rate": 5e-3}, seed=3,
+        epochs=1, use_lr_schedule=False)
+
+    def batcher():
+        return training.TrainBatcher([hdf], validation=0.25, seed=3,
+                                     batch_size=8, max_samples=24)
+
+    def losses(path):
+        with open(os.path.join(path, "training.csv")) as fh:
+            return [float(line.split(",")[3]) for line in fh.readlines()[1:]]
+
+    for dtype, bar in ((None, 1e-5), (torch.bfloat16, 1e-2)):
+        one, two = str(tmp_path / "one{}".format(dtype)), \
+            str(tmp_path / "two{}".format(dtype))
+        training.run_training(one, batcher(), compute_dtype=dtype,
+                              devices=["cuda:0"], **run)
+        training.run_training(two, batcher(), compute_dtype=dtype,
+                              devices=["cuda:0", "cuda:0"], **run)
+        a, b = losses(two), losses(one)
+        assert len(a) == len(b) and all(np.isfinite(a))
+        for x, y in zip(a, b):
+            assert abs(x - y) <= bar * abs(y), (x, y)
+        if dtype is not None:
+            steps = batcher().n_batches("train")
+            for rank in range(2):
+                with open(os.path.join(two, "rank{}.json".format(
+                        rank))) as fh:
+                    report = json.load(fh)
+                assert report["backend"] == "gloo"
+                assert report["launches"]["gru_fwd"] == 4 * steps
+                assert report["launches"]["gru_bwd"] == 4 * steps

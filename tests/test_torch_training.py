@@ -651,20 +651,21 @@ def test_cli_features_and_train_on_cpu(labelled, tmp_path):
     assert probs.shape == (1, 20, 5)
 
 
-_REFUSED = [
-    (["--model_parallel", "2"], "--model_parallel"),
-]
-
-
-@pytest.mark.parametrize("extra,match", _REFUSED,
-                         ids=[m for _, m in _REFUSED])
-def test_cli_train_refuses_later_options(labelled, tmp_path, extra, match):
-    """Options of later slices raise NotImplementedError naming them."""
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_train_model_parallel_on_one_device_raises_mesh_error(
+        labelled, tmp_path, monkeypatch):
+    """--model_parallel 2 with one device raises medaka_tpu's mesh error
+    (data = gcd(batch, 1 // 2) = batch: a 128x2 mesh over 1 device), as
+    medaka_tpu's run_training does on one device."""
+    with pytest.raises(ValueError, match=r"mesh 128x2 != 1 devices"):
         cli.main(["train", labelled["ours"], "--train_name",
-                  str(tmp_path / "x"), "--cpu", "--quiet"] + extra)
-
-
+                  str(tmp_path / "x"), "--cpu", "--quiet",
+                  "--model_parallel", "2"])
+    one = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *args: one)
+    with pytest.raises(ValueError, match=r"mesh 128x2 != 1 devices"):
+        jax_training.run_training(
+            str(tmp_path / "y"), jax_training.TrainBatcher(
+                [labelled["theirs"]], batch_size=128), model_parallel=2)
 def test_cpu_flag_is_required_without_a_gpu(labelled, tmp_path):
     """train without --cpu asks for the GPU and raises where there is
     none (nothing falls back to the CPU)."""

@@ -289,7 +289,28 @@ Phases, each of which fails the script when it fails:
     --model_parallel 2`` raising medaka_tpu's mesh error on one card.
     Two replicas or ranks share one card: no figure of these phases is a
     scale-out figure. Phases 11 and 14 train in a process group of one
-    rank (nccl), printed.
+    rank (nccl), printed;
+32. (after phase 31, before phase 21) the smolecule workflow: a seeded
+    grouped-subread FASTA (``testing.write_subreads_fasta``,
+    ``SMOLECULE_MOLECULES`` molecules of ~``SMOLECULE_LENGTH`` bases) through
+    ``smolecule --model gru256_lambda_demo --threads 8`` with the split
+    kernels' counts set to 0 just before: both launched in mode "rows"
+    (batches of 32 rows) and never in mode "t"; the median identity of the
+    polished molecules to the true ones at least the POA drafts' and
+    ``MIN_SMOLECULE_IDENTITY``; one 32-row batch of the run through both
+    kernels against their plain versions (int8 layer 1 bit for bit, the
+    bars of phase 3) and timed beside the plain versions, cuDNN and the
+    bound; ``smolecule --cpu`` of the first ``SMOLECULE_CPU_MOLECULES``
+    molecules within ``MAX_SMOLECULE_CPU_EDITS`` of the card's; the POA
+    and neural seconds;
+33. the tandem workflow: a seeded diploid STR genome
+    (``testing.create_str_bam``: ``TANDEM_LOCI`` loci, depth
+    ``TANDEM_DEPTH`` a haplotype) through ``tandem --phasing hybrid
+    --workers 4`` and ``--phasing abpoa``, each also with ``--cpu``: the
+    polish in full precision (the float32 scan, as ``medaka_tpu`` runs it;
+    no split kernel launches), at least ``MIN_TANDEM_RECOVERED`` planted
+    genotypes recovered, the card's VCF within ``MAX_TANDEM_CPU_RECORDS``
+    records of ``--cpu``'s.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -582,16 +603,15 @@ def random_net(rng, hidden=256, features=10, classes=5):
     return layers, head
 
 
-def run_layers(gru_split, w, xt, lengths, mode, quant, plain):
-    """Layer 1 then layer 2 + head, by kernel or by plain version."""
-    l1 = gru_split.gru_l1_split_plain if plain else gru_split.gru_l1_split
-    l2 = (gru_split.gru_l2head_split_plain if plain
-          else gru_split.gru_l2head_split)
-    out_f, out_b = l1(xt, lengths, w["w_ih1"], w["b_ih1"], w["w_hh1"],
-                      w["sc1"], w["b_hh1"], mode=mode, quant=quant)
-    lg_f, lg_b = l2(out_f, out_b, lengths, w["w_in2"], w["in_scale2"],
-                    w["b_ih2"], w["w_hh2"], w["sc2"], w["b_hh2"],
-                    w["w_head"], mode=mode, quant=quant)
+def run_layers(gru_split, w, xt, lengths, mode, quant):
+    """Layer 1 then layer 2 + head, by kernel."""
+    out_f, out_b = gru_split.gru_l1_split(
+        xt, lengths, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+        w["b_hh1"], mode=mode, quant=quant)
+    lg_f, lg_b = gru_split.gru_l2head_split(
+        out_f, out_b, lengths, w["w_in2"], w["in_scale2"], w["b_ih2"],
+        w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"], mode=mode,
+        quant=quant)
     return (out_f, out_b), (lg_f, lg_b)
 
 
@@ -601,12 +621,13 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
     Both kernels run twice and must repeat bit for bit; in int8, layer 1
     must equal its plain version bit for bit. Returns (l1 max err, l2 max
     logit err, network stats, kernel outputs); a ``plain_ms`` dict gets
-    each plain version's time (CUDA events, that one run).
+    each plain version's time (CUDA events, that one run: layer 1's on
+    the batch, layer 2's on the kernel's layer-1 outputs).
     """
     import torch
     T, B, _ = xt.shape
     (kf, kb), (kl_f, kl_b) = run_layers(gru_split, w, xt, lengths, mode,
-                                        quant, plain=False)
+                                        quant)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     events[0].record()
     pf, pb = gru_split.gru_l1_split_plain(
@@ -633,7 +654,7 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
                  for a, b in ((kl_f, ql_f), (kl_b, ql_b)))
     # a second launch gives the same bits (no atomics, fixed-order sums)
     (rf, rb), (rl_f, rl_b) = run_layers(gru_split, w, xt, lengths, mode,
-                                        quant, plain=False)
+                                        quant)
     if not all(torch.equal(a, b) for a, b in (
             (kf, rf), (kb, rb), (kl_f, rl_f), (kl_b, rl_b))):
         raise AssertionError("the split kernels do not repeat bit for bit "
@@ -649,9 +670,16 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
     if l2_err > TOL_LOGIT:
         raise AssertionError("gru_l2head_split disagrees with its plain "
                              "version: max logit diff {}".format(l2_err))
-    # the whole network, kernel path against plain path
-    _, (pl_f, pl_b) = run_layers(gru_split, w, xt, lengths, mode, quant,
-                                 plain=True)
+    # the whole network, kernel path against plain path: layer 2's plain
+    # version on layer 1's plain outputs, which is the run above where
+    # those equal the kernel's (int8 layer 1, checked exact)
+    if torch.equal(pf, kf) and torch.equal(pb, kb):
+        pl_f, pl_b = ql_f, ql_b
+    else:
+        pl_f, pl_b = gru_split.gru_l2head_split_plain(
+            pf, pb, lengths, w["w_in2"], w["in_scale2"], w["b_ih2"],
+            w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"], mode=mode,
+            quant=quant)
     b_head = w["b_head"]
     pk = torch.softmax(kl_f + kl_b + b_head, -1)[valid]
     pp = torch.softmax(pl_f + pl_b + b_head, -1)[valid]
@@ -1005,6 +1033,24 @@ def split_ms(by_kernel, prefixes, launches=1):
             for p in prefixes}
 
 
+def trace_verdict(by_kernel, kernels):
+    """What a profile (``kernels_ms``) shows against ``kernels`` (a
+    :data:`PROFILE_KERNELS` pair of prefixes to want and to refuse):
+    "empty" (no kernel recorded), "refused" (a kernel starting with a
+    refused prefix), "incomplete" (a wanted prefix matches no kernel: the
+    trace lost a launch, as CUPTI now and then drops the first kernel of
+    a trace) or "ok"."""
+    if not by_kernel:
+        return "empty"
+    want, refuse = kernels
+    names = [bare(k) for k in by_kernel]
+    if any(k.startswith(tuple(bare(r) for r in refuse)) for k in names):
+        return "refused"
+    if not all(any(k.startswith(bare(w)) for k in names) for w in want):
+        return "incomplete"
+    return "ok"
+
+
 def check_cluster_forward(name, by_kernel,
                           kernels=PROFILE_KERNELS["bigru_fused"]):
     """Fail unless a profile (``kernels_ms``) of ``name``'s launches shows
@@ -1013,14 +1059,11 @@ def check_cluster_forward(name, by_kernel,
     f32-gates GRU forward: ``gru_fwd``, ``bigru_fused``, ``bigru_fullfused``'s
     default mode, which must run ``gru_cluster_fwd_kernel`` and no
     ``gru_rec_kernel``), or if there is no profile to check."""
-    if not by_kernel:
+    verdict = trace_verdict(by_kernel, kernels)
+    if verdict == "empty":
         raise AssertionError("no profile of {}: its kernels cannot be "
                              "checked".format(name))
-    want, refuse = kernels
-    names = [bare(k) for k in by_kernel]
-    if any(k.startswith(tuple(bare(r) for r in refuse)) for k in names) or \
-            not all(any(k.startswith(bare(w)) for k in names)
-                    for w in want):
+    if verdict != "ok":
         raise AssertionError("{} ran {}".format(name, sorted(by_kernel)))
 
 
@@ -1050,10 +1093,13 @@ else:
     launch = cs.fullfused_calls(gru_fullfused, mode, x, w, lengths)[0]
 launch()
 torch.cuda.synchronize()
+name = {v: k for k, v in cs.FULLFUSED_MODES.items()}.get(mode,
+                                                         "bilstm_fused")
 by_kernel = {}
 for _ in range(3):
     by_kernel = cs.kernels_ms(launch) or {}
-    if by_kernel:
+    if cs.trace_verdict(by_kernel, cs.PROFILE_KERNELS[name]) not in (
+            "empty", "incomplete"):
         break
 print(json.dumps(by_kernel))
 """
@@ -1074,6 +1120,17 @@ def child_profile(mode, T, B, IN, H):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def log_lost_trace(name, by_kernel, attempt):
+    """Say that trace ``attempt`` (from 0) of ``name`` recorded no kernel,
+    or which kernels it recorded where it lacks a wanted one."""
+    if not by_kernel:
+        log("   the profiler recorded no kernel of {} (trace {})".format(
+            name, attempt + 1))
+    else:
+        log("   the profiler's trace {} of {} lacks a kernel it must show; "
+            "it recorded {}".format(attempt + 1, name, sorted(by_kernel)))
+
+
 def cluster_launch_ms(name, fn, prefixes,
                       kernels=PROFILE_KERNELS["bigru_fused"], child=None):
     """{prefix: ms} of the kernels of one call of ``fn`` (the profiler),
@@ -1081,21 +1138,24 @@ def cluster_launch_ms(name, fn, prefixes,
     ``kernels``; a trace that records no kernel at all (the measurement
     tool now and then returns one, and in one process it returned only
     such traces of the bf16-gates launch after the other modes' profiles)
-    is taken again, up to five times, and then, where ``child`` is given,
-    ``child()`` profiles the same launch on random inputs of the same
-    shape in a fresh process (the result then says "profiled": "child")."""
+    is taken again, up to five times, and so is one that lacks a wanted
+    kernel but shows no refused one (:func:`trace_verdict`); then, where
+    ``child`` is given, ``child()`` profiles the same launch on random
+    inputs of the same shape in a fresh process (the result then says
+    "profiled": "child"). A refused kernel fails at once."""
     import torch
     by_kernel, how = None, "this process"
     for attempt in range(5):
         torch.cuda.synchronize()
         by_kernel = kernels_ms(fn)
-        if by_kernel:
+        verdict = trace_verdict(by_kernel, kernels)
+        if verdict in ("ok", "refused"):
             break
-        log("   the profiler recorded no kernel of {} (trace {})".format(
-            name, attempt + 1))
+        log_lost_trace(name, by_kernel, attempt)
         time.sleep(0.5)
-    if not by_kernel and child is not None:
-        by_kernel, how = child(), "child"
+    else:
+        if child is not None:
+            by_kernel, how = child(), "child"
     check_cluster_forward(name, by_kernel, kernels)
     out = split_ms(by_kernel, prefixes)
     if how == "child":
@@ -1107,21 +1167,16 @@ def split_launch_ms(name, fn):
     """{kernel: ms} of one int8 launch of split kernel ``name`` (the
     profiler): it must run its cluster kernel (:data:`SPLIT_KERNEL_OF`)
     and neither bf16 per-block split kernel; an empty trace is taken
-    again, up to three times."""
+    again, up to three times, and so is one that lacks the cluster kernel
+    but shows neither per-block kernel (:func:`trace_verdict`)."""
+    kernels = ((SPLIT_KERNEL_OF[name],),
+               ("gru_l1_split_kernel", "gru_l2head_split_kernel"))
     for attempt in range(3):
         by_kernel = kernels_ms(fn)
-        if by_kernel:
+        if trace_verdict(by_kernel, kernels) in ("ok", "refused"):
             break
-        log("   the profiler recorded no kernel of {} (trace {})".format(
-            name, attempt + 1))
-    if not by_kernel:
-        raise AssertionError("no profile of {}: its kernels cannot be "
-                             "checked".format(name))
-    old = ("gru_l1_split_kernel", "gru_l2head_split_kernel")
-    names = [bare(k) for k in by_kernel]
-    if any(k.startswith(old) for k in names) or not any(
-            k.startswith(SPLIT_KERNEL_OF[name]) for k in names):
-        raise AssertionError("{} ran {}".format(name, sorted(by_kernel)))
+        log_lost_trace(name, by_kernel, attempt)
+    check_cluster_forward(name, by_kernel, kernels)
     return {k: v for k, v in by_kernel.items() if "split" in k}
 
 
@@ -4610,6 +4665,276 @@ def options_and_formats_phases(seed, work, bam, draft, hdf, fasta, rl_paths,
     return rows
 
 
+#: phase 32: the grouped-subread FASTA (``testing.write_subreads_fasta``):
+#: molecules, their length, subreads a molecule and their error share
+SMOLECULE_MOLECULES = 64
+SMOLECULE_LENGTH = 1500
+SMOLECULE_SUBREADS = 10
+SMOLECULE_ERROR = 0.08
+#: the median identity of the polished molecules to the true ones (and at
+#: least the POA drafts'); on the CPU in bf16, 8 such molecules gave
+#: 0.99875 against the drafts' 0.99845
+MIN_SMOLECULE_IDENTITY = 0.99
+#: the molecules also polished with ``--cpu``, and the most edits over
+#: them between the card's FASTA (int8 split kernels) and the CPU's (the
+#: bf16 scan): near-tie columns of the int8 scheme (ROADMAP.md queue 3
+#: item 3)
+SMOLECULE_CPU_MOLECULES = 8
+MAX_SMOLECULE_CPU_EDITS = 4
+#: the rows and steps a smolecule batch holds (``--batch_size`` 32,
+#: ``--chunk_len`` 1000: the split kernels' mode "rows")
+SMOLECULE_BATCH, SMOLECULE_T = 32, 1000
+#: phase 33: the diploid STR genome (``testing.create_str_bam``): loci and
+#: depth a haplotype; the fewest loci of each run whose planted genotype
+#: and allele lengths (within a base) the VCF recovers
+TANDEM_LOCI, TANDEM_DEPTH = 24, 20
+MIN_TANDEM_RECOVERED = {"hybrid": 22, "abpoa": 22}
+#: the most VCF records that may differ between the card and ``--cpu``
+#: (the float32 scan on both: only the order of f32 sums differs)
+MAX_TANDEM_CPU_RECORDS = 0
+
+
+def vcf_records(path):
+    """The data lines of a VCF."""
+    with open(path) as fh:
+        return [line for line in fh if not line.startswith("#")]
+
+
+def workflow_phases(seed, work, dev, modules):
+    """The smolecule and tandem workflows on the card (phases 32-33):
+    ``smolecule`` of a grouped-subread FASTA through the CLI on the split
+    kernels in mode "rows" (one batch of the run held against their plain
+    versions and timed), and ``tandem --phasing hybrid`` and ``abpoa``
+    (the float32 scan, as ``medaka_tpu`` runs it) on a diploid STR genome,
+    each against the same command with ``--cpu``. Returns the split
+    kernels' launches and times on the smolecule path, and what the
+    phases measured."""
+    import numpy as np
+    import torch
+    cli, features, gru_split, models, native, prediction, smolecule, \
+        testing = (modules[k] for k in (
+            "cli", "features", "gru_split", "models", "native", "prediction",
+            "smolecule", "testing"))
+    from medaka_tpu_torch.io.fastx import read_fastx
+    card = card_line()
+    out = {"card": card}
+
+    subreads = os.path.join(work, "subreads.fasta")
+    with phase("(32) smolecule data: {} molecules of ~{} bases, {} subreads "
+               "each at {:.0%} errors".format(
+                   SMOLECULE_MOLECULES, SMOLECULE_LENGTH, SMOLECULE_SUBREADS,
+                   SMOLECULE_ERROR)):
+        truth = testing.write_subreads_fasta(
+            subreads, n_molecules=SMOLECULE_MOLECULES,
+            length=SMOLECULE_LENGTH, n_subreads=SMOLECULE_SUBREADS,
+            error=SMOLECULE_ERROR, seed=seed)
+    smol = os.path.join(work, "smolecule")
+    with phase("(32) smolecule --model gru256_lambda_demo --threads 8 "
+               "through the CLI"):
+        with timed_calls([(smolecule, "poa_workflow"),
+                          (prediction, "predict")]) as stage_s:
+            gru_split.reset_launches()
+            t0 = time.perf_counter()
+            if cli.main(["smolecule", smol, subreads, "--model", MODEL,
+                         "--threads", "8", "--quiet"]) != 0:
+                raise AssertionError("smolecule failed")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(gru_split.LAUNCHES)
+            modes = dict(gru_split.MODE_LAUNCHES)
+    stage_s = {"poa": stage_s["poa_workflow"], "neural": stage_s["predict"]}
+    log("   launches {} {}; {:.2f} s: POA {:.2f} s, neural {:.2f} s ({})"
+        .format(launches, modes, seconds, stage_s["poa"],
+                stage_s["neural"], card))
+    for name in ("gru_l1_split", "gru_l2head_split"):
+        if modes[name + "/rows"] < 1 or modes[name + "/t"] != 0:
+            raise AssertionError("smolecule must run {} in mode rows only: "
+                                 "{}".format(name, modes))
+
+    with phase("(32) check the consensus against the true molecules"):
+        poa = {r.name: r.sequence
+               for r in read_fastx(os.path.join(smol, "poa.fasta"))}
+        polished = {r.name.split("_")[0]: r.sequence for r in read_fastx(
+            os.path.join(smol, "consensus.fasta"))}
+        if sorted(polished) != sorted(truth) or sorted(poa) != sorted(truth):
+            raise AssertionError("smolecule wrote {} of {} molecules".format(
+                len(polished), len(truth)))
+
+        def identity(seqs):
+            return float(np.median([
+                1.0 - native.edit_distance(seqs[k], truth[k]) / len(truth[k])
+                for k in truth]))
+        ident, poa_ident = identity(polished), identity(poa)
+    log("   median identity to the true molecules: polished {:.6f}, POA "
+        "drafts {:.6f}".format(ident, poa_ident))
+    if ident < poa_ident or ident < MIN_SMOLECULE_IDENTITY:
+        raise AssertionError("the polished molecules are worse than the "
+                             "floor or their drafts")
+
+    with phase("(32) one batch of the run: the split kernels (mode rows, "
+               "B={}, T={}) vs their plain versions, timed".format(
+                   SMOLECULE_BATCH, SMOLECULE_T)):
+        bundle = models.load_model(MODEL)
+        model = bundle.model
+        bam = os.path.join(smol, "subreads_to_poa.bam")
+        samples = []
+        for region in prediction.plan_work(None, bam, chunk_overlap=500):
+            samples.extend(features.SampleGenerator(
+                bam, region, bundle.feature_encoder,
+                chunk_len=SMOLECULE_T, chunk_overlap=500).samples)
+            if len(samples) >= SMOLECULE_BATCH:
+                break
+        batch = prediction.Batch.collate(samples[:SMOLECULE_BATCH],
+                                         SMOLECULE_BATCH, SMOLECULE_T)
+        if gru_split.split_mode(SMOLECULE_BATCH) != "rows":
+            raise AssertionError("a 32-row batch must take mode rows")
+        xt = torch.from_numpy(batch.features).to(torch.bfloat16) \
+            .transpose(0, 1).contiguous().to(dev)
+        lens = torch.from_numpy(batch.lengths).to(dev)
+        lengths_sum = int(batch.lengths.sum())
+        plain_ms = {}
+        with torch.inference_mode():
+            w = gru_split.prepare_split_weights(
+                model.layer_params(), model.head_params(), "rows", True, dev)
+            l1_err, l2_err, stats, (kf, kb) = compare_kernels(
+                gru_split, w, xt, lens, "rows", True, plain_ms=plain_ms)
+            ms = {
+                "gru_l1_split": cuda_ms(lambda: gru_split.gru_l1_split(
+                    xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+                    w["b_hh1"], mode="rows")),
+                "gru_l2head_split": cuda_ms(
+                    lambda: gru_split.gru_l2head_split(
+                        kf, kb, lens, w["w_in2"], w["in_scale2"],
+                        w["b_ih2"], w["w_hh2"], w["sc2"], w["b_hh2"],
+                        w["w_head"], mode="rows"))}
+        library = {"gru_l1_split": yardstick_ms(batch.features, 10, 1, 256,
+                                                dev),
+                   "gru_l2head_split": None}
+        timing = {}
+        for name in ("gru_l1_split", "gru_l2head_split"):
+            bound_ms, bound_by = bound(name, SMOLECULE_BATCH, 256, 10, 5,
+                                       lengths_sum)
+            timing[name] = {
+                "launches": modes[name + "/rows"], "ms": ms[name],
+                "plain_ms": plain_ms[name], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library[name],
+                "B": SMOLECULE_BATCH, "T": SMOLECULE_T,
+                "valid_columns": lengths_sum,
+                "geometry": gru_split.geometry(
+                    "l1", 256, SMOLECULE_BATCH, dev, "rows", 10)
+                if name == "gru_l1_split" else gru_split.geometry(
+                    "l2", 256, SMOLECULE_BATCH, dev, "rows")}
+        del kf, kb, xt, w
+        torch.cuda.empty_cache()
+    log("   l1 max {:.3g}, l2 logit max {:.3g}; probs max {:.3g} mean "
+        "{:.3g}, argmax agreement {:.6f}".format(
+            l1_err, l2_err, stats["max"], stats["mean"],
+            stats["argmax_agreement"]))
+    for name, rec in timing.items():
+        log("   {} mode rows at B={} T={}: {:.3f} ms (plain {:.1f} ms, "
+            "bound {:.4f} ms by {}, cuDNN {}; {} launches on the path; "
+            "geometry {}; {})".format(
+                name, SMOLECULE_BATCH, SMOLECULE_T, rec["ms"],
+                rec["plain_ms"], rec["bound_ms"], rec["bound_by"],
+                "{:.2f} ms".format(rec["library_ms"])
+                if rec["library_ms"] is not None else "none",
+                rec["launches"], rec["geometry"], card))
+
+    first = sorted(truth, key=lambda k: int(k[3:]))[:SMOLECULE_CPU_MOLECULES]
+    subset = os.path.join(work, "subreads_first.fasta")
+    with open(subset, "w") as fh:
+        for rec in read_fastx(subreads):
+            if rec.name.split("_")[0] in first:
+                fh.write(">{}\n{}\n".format(rec.name, rec.sequence))
+    smol_cpu = os.path.join(work, "smolecule_cpu")
+    with phase("(32) smolecule --cpu over the first {} molecules against "
+               "the card's".format(SMOLECULE_CPU_MOLECULES)):
+        t0 = time.perf_counter()
+        if cli.main(["smolecule", smol_cpu, subset, "--model", MODEL,
+                     "--threads", "8", "--cpu", "--quiet"]) != 0:
+            raise AssertionError("smolecule --cpu failed")
+        cpu_s = time.perf_counter() - t0
+        on_cpu = {r.name.split("_")[0]: r.sequence for r in read_fastx(
+            os.path.join(smol_cpu, "consensus.fasta"))}
+        edits = {k: native.edit_distance(polished[k], on_cpu[k])
+                 for k in first}
+    log("   edits between the card's and the CPU's molecules: {} (in all "
+        "{}); the CPU run {:.2f} s".format(edits, sum(edits.values()),
+                                          cpu_s))
+    if sum(edits.values()) > MAX_SMOLECULE_CPU_EDITS:
+        raise AssertionError("the card's consensus is more than {} edits "
+                             "from the CPU's".format(MAX_SMOLECULE_CPU_EDITS))
+    out["smolecule"] = {
+        "molecules": SMOLECULE_MOLECULES, "seconds": seconds,
+        "poa_s": stage_s["poa"], "neural_s": stage_s["neural"],
+        "launches": launches, "launches_by_mode": modes,
+        "median_identity": ident, "poa_median_identity": poa_ident,
+        "l1_max": l1_err, "logit_max": l2_err, "network": stats,
+        "kernels": timing, "cpu_edits": sum(edits.values()),
+        "cpu_seconds": cpu_s}
+
+    with phase("(33) tandem data: a diploid STR genome, {} loci, depth {} "
+               "a haplotype".format(TANDEM_LOCI, TANDEM_DEPTH)):
+        bam, ref, loci = testing.create_str_bam(
+            os.path.join(work, "str.bam"), n_loci=TANDEM_LOCI,
+            depth=TANDEM_DEPTH, seed=seed)
+    regions = [str(locus["region"]) for locus in loci]
+    out["tandem"] = {}
+    for phasing in ("hybrid", "abpoa"):
+        runs = {}
+        for where in ("card", "cpu"):
+            target = os.path.join(work, "tandem_{}_{}".format(phasing,
+                                                              where))
+            argv = ["tandem", bam, ref, target, "--regions", *regions,
+                    "--model", MODEL, "--phasing", phasing, "--workers",
+                    "4", "--quiet"] + (["--cpu"] if where == "cpu" else [])
+            with phase("(33) tandem --phasing {} --workers 4{}".format(
+                    phasing, " --cpu" if where == "cpu" else "")):
+                with timed_calls([(prediction, "predict")]) as stage:
+                    gru_split.reset_launches()
+                    t0 = time.perf_counter()
+                    if cli.main(argv) != 0:
+                        raise AssertionError("tandem failed")
+                    torch.cuda.synchronize()
+                    runs[where] = {
+                        "seconds": time.perf_counter() - t0,
+                        "neural_s": stage.get("predict", 0.0),
+                        "launches": dict(gru_split.LAUNCHES)}
+            vcf = os.path.join(target, "medaka_to_ref.TR.vcf")
+            runs[where]["vcf"] = vcf_records(vcf)
+            called = testing.str_genotypes(vcf, loci)
+            runs[where]["recovered"] = sum(
+                gt == got and all(abs(a - b) <= 1 for a, b in zip(la, lb))
+                for gt, got, la, lb in called.values())
+            log("   {:.2f} s (predict {:.2f} s) on the {}; split kernel "
+                "launches {} (full precision: the f32 scan); {} records, "
+                "{} of {} loci recovered".format(
+                    runs[where]["seconds"], runs[where]["neural_s"], where,
+                    runs[where]["launches"], len(runs[where]["vcf"]),
+                    runs[where]["recovered"], len(loci)))
+        if any(runs["card"]["launches"].values()):
+            raise AssertionError("tandem's full-precision polish launched a "
+                                 "split kernel")
+        if runs["card"]["recovered"] < MIN_TANDEM_RECOVERED[phasing]:
+            raise AssertionError("tandem --phasing {} recovered {} loci, "
+                                 "under {}".format(
+                                     phasing, runs["card"]["recovered"],
+                                     MIN_TANDEM_RECOVERED[phasing]))
+        differ = len(set(runs["card"]["vcf"]) ^ set(runs["cpu"]["vcf"]))
+        log("   VCF records differing between the card and --cpu: {}"
+            .format(differ))
+        if differ > MAX_TANDEM_CPU_RECORDS or \
+                len(runs["card"]["vcf"]) != len(runs["cpu"]["vcf"]):
+            raise AssertionError("tandem's VCF on the card differs from "
+                                 "--cpu's in {} records".format(differ))
+        out["tandem"][phasing] = {
+            where: {k: v for k, v in rec.items() if k != "vcf"}
+            for where, rec in runs.items()}
+        out["tandem"][phasing]["records"] = len(runs["card"]["vcf"])
+        out["tandem"][phasing]["differing_records"] = differ
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4625,7 +4950,8 @@ def main(argv=None):
 
     sys.path.insert(0, HERE)
     from medaka_tpu_torch import cli, datastore, features, mapping, models, \
-        native, parallel, prediction, stitch, testing, training, vcf
+        native, parallel, prediction, smolecule, stitch, testing, training, \
+        vcf
     from medaka_tpu_torch.ops import bilstm, cuda_build, gru_fullfused, \
         gru_split, gru_train, lstm_train
 
@@ -4911,8 +5237,9 @@ def main(argv=None):
             lens = torch.from_numpy(main_batch.lengths).to(dev)
             w = gru_split.prepare_split_weights(
                 model.layer_params(), model.head_params(), "t", True, dev)
+            main_plain_ms = {}
             l1_err, l2_err, stats, (kf, kb) = compare_kernels(
-                gru_split, w, xt, lens, "t", True)
+                gru_split, w, xt, lens, "t", True, main_plain_ms)
             log("   B={} T={}: l1 max {:.3g}, l2 logit max {:.3g}; probs "
                 "max {:.3g} mean {:.3g}, argmax agreement {:.6f}".format(
                     B, T, l1_err, l2_err, stats["max"], stats["mean"],
@@ -4928,23 +5255,20 @@ def main(argv=None):
             calls = {
                 "gru_l1_split": (
                     lambda: gru_split.gru_l1_split(*l1_args, mode="t"),
-                    lambda: gru_split.gru_l1_split_plain(
-                        *l1_args, mode="t", quant=True),
                     lambda: gru_split.gru_l1_split(
                         one_x, one_len, *l1_args[2:], mode="t"), l1_err),
                 "gru_l2head_split": (
                     lambda: gru_split.gru_l2head_split(*l2_args, mode="t"),
-                    lambda: gru_split.gru_l2head_split_plain(
-                        *l2_args, mode="t", quant=True),
                     lambda: gru_split.gru_l2head_split(
                         f1, b1, one_len, *l2_args[3:], mode="t"), l2_err),
             }
             lengths_sum = int(main_batch.lengths.sum())
             rows = []
             with torch.inference_mode():
-                for name, (kernel, plain, one, err) in calls.items():
+                for name, (kernel, one, err) in calls.items():
                     ms = cuda_ms(kernel)
-                    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+                    # the plain version's one run in compare_kernels
+                    plain_ms = main_plain_ms[name]
                     bound_ms, bound_by = bound(name, B, H, IN, C,
                                                lengths_sum)
                     lib_desc = "torch.nn.GRU({}, {}, 1, bidirectional=True) " \
@@ -5087,8 +5411,9 @@ def main(argv=None):
             xr, lr = xt[:, :RB].contiguous(), lens[:RB].contiguous()
             wr = gru_split.prepare_split_weights(
                 model.layer_params(), model.head_params(), "rows", True, dev)
+            rows_plain_ms = {}
             r1_err, r2_err, rstats, (rf, rb) = compare_kernels(
-                gru_split, wr, xr, lr, "rows", True)
+                gru_split, wr, xr, lr, "rows", True, rows_plain_ms)
             log("   mode rows, B={} T={}: l1 max {:.3g}, l2 logit max "
                 "{:.3g}; probs max {:.3g}, argmax agreement {:.6f}".format(
                     RB, T, r1_err, r2_err, rstats["max"],
@@ -5099,17 +5424,15 @@ def main(argv=None):
                  wr["b_hh1"]),
                 (rf, rb, lr, wr["w_in2"], wr["in_scale2"], wr["b_ih2"],
                  wr["w_hh2"], wr["sc2"], wr["b_hh2"], wr["w_head"]))
-            kernels = ((gru_split.gru_l1_split, gru_split.gru_l1_split_plain,
-                        r1_err, IN),
-                       (gru_split.gru_l2head_split,
-                        gru_split.gru_l2head_split_plain, r2_err, 2 * H))
+            kernels = ((gru_split.gru_l1_split, r1_err, IN),
+                       (gru_split.gru_l2head_split, r2_err, 2 * H))
             # the serial floor of mode "rows": one batch column
             rf1, rb1 = gru_split.gru_l1_split(one_x, one_len, *r_args[0][2:],
                                               mode="rows")
             r_one = ((one_x, one_len) + r_args[0][2:],
                      (rf1, rb1, one_len) + r_args[1][3:])
             with torch.inference_mode():
-                for row, call_args, one_args, (fn, plain_fn, err, width) in \
+                for row, call_args, one_args, (fn, err, width) in \
                         zip(rows, r_args, r_one, kernels):
                     lib_ms = yardstick_ms(main_batch.features[:RB], width,
                                           1, H, dev)
@@ -5120,9 +5443,7 @@ def main(argv=None):
                         "launches": mode_launches[row["name"] + "/rows"],
                         "max_abs_err": err,
                         "ms": cuda_ms(lambda: fn(*call_args, mode="rows")),
-                        "plain_ms": cuda_ms(lambda: plain_fn(
-                            *call_args, mode="rows", quant=True),
-                            reps=1, warmup=0),
+                        "plain_ms": rows_plain_ms[row["name"]],
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "serial_floor_ms": cuda_ms(
                             lambda: fn(*one_args, mode="rows")),
@@ -5387,6 +5708,12 @@ def main(argv=None):
                 "gru_split": gru_split, "models": models,
                 "prediction": prediction, "testing": testing,
                 "training": training})
+        # phases 32-33: the smolecule and tandem workflows
+        torch.cuda.empty_cache()
+        workflows = workflow_phases(seed, work, dev, modules={
+            "cli": cli, "features": features, "gru_split": gru_split,
+            "models": models, "native": native, "prediction": prediction,
+            "smolecule": smolecule, "testing": testing})
         # phase 21 runs last: no profile follows it (a trace of the
         # read-level batch came back empty five times after it in one run)
         torch.cuda.empty_cache()
@@ -5405,8 +5732,13 @@ def main(argv=None):
                 "sharded": host_options["launches"][row["name"]],
                 "consensus_from_features": host_options[
                     "consensus_from_features"]["launches"][row["name"]],
-                "rle": rle_path["launches"][row["name"]]})
+                "rle": rle_path["launches"][row["name"]],
+                "smolecule": workflows["smolecule"]["launches_by_mode"][
+                    row["name"] + "/rows"]})
+            row["smolecule_rows_B32"] = workflows["smolecule"]["kernels"][
+                row["name"]]
         split_rows[1]["from_reads_paths"] = from_reads
+        split_rows[1]["workflows"] = workflows
         split_rows[1]["host_options"] = host_options
         split_rows[0]["scale_out"] = scale_out
         for row in rows:

@@ -1,16 +1,20 @@
 """Command line: ``python -m medaka_tpu_torch {inference,
 consensus_from_features,sequence,vcf,snp,features,train,consensus,
-consensus_joint,align,variant,fastrle,compress_bam,tools}``.
+consensus_joint,align,variant,fastrle,compress_bam,smolecule,tandem,
+tools}``.
 
 Counterpart of the ``inference``, ``consensus_from_features``,
 ``sequence``, ``vcf``, ``snp``, ``features``, ``train``, ``consensus``,
-``consensus_joint``, ``align``, ``variant``, ``fastrle`` and
-``compress_bam`` subcommands of ``medaka_tpu/cli.py``, and of its
-``tools`` ``annotate``, ``consensus2vcf`` and ``is_rle_model``, with the
-same flags and defaults for the parts that are ported. ``--model`` takes
-a path or a model name (``models.resolve_model``). ``inference``,
-``consensus_from_features``, ``train``, ``consensus``,
-``consensus_joint`` and ``variant`` run on the GPU unless ``--cpu`` is
+``consensus_joint``, ``align``, ``variant``, ``fastrle``,
+``compress_bam``, ``smolecule`` and ``tandem`` subcommands of
+``medaka_tpu/cli.py``, and of its ``tools`` ``annotate``,
+``consensus2vcf``, ``is_rle_model``, ``rlebam`` and ``export``, with the
+same flags and defaults for the parts that are ported; the port adds
+``--cpu`` to the subcommands that run a model. ``--model`` takes a path
+or a model name (``models.resolve_model``; ``smolecule`` takes a path,
+as ``medaka_tpu``'s does). ``inference``, ``consensus_from_features``,
+``train``, ``consensus``, ``consensus_joint``, ``variant``,
+``smolecule`` and ``tandem`` run on the GPU unless ``--cpu`` is
 given, over every visible GPU (``inference --num_processes N
 --process_id i [--coordinator host:port]`` splits the work over
 processes instead); ``vcf``, ``snp``, ``align``, ``fastrle``,
@@ -438,6 +442,8 @@ def _add_from_reads_parsers(subparsers, log_parent):
     p.add_argument("--band", type=int, default=500)
     p.set_defaults(func=_cmd_align)
 
+    _add_workflow_parsers(subparsers, log_parent)
+
     toolparser = subparsers.add_parser(
         "tools", parents=[log_parent], help="tools sub-commands",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -495,6 +501,75 @@ def _add_from_reads_parsers(subparsers, log_parent):
         "--force", action="store_true",
         help="Overwrite an existing export archive.")
     tp.set_defaults(func=_cmd_export)
+
+
+def _add_workflow_parsers(subparsers, log_parent):
+    """``smolecule`` and ``tandem`` (``medaka_tpu/cli.py:437-499``)."""
+    p = subparsers.add_parser(
+        "smolecule", parents=[log_parent],
+        help="Consensus from single-molecule repetitive subreads.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("output", help="Output directory.")
+    p.add_argument(
+        "fasta", nargs="+",
+        help="Grouped-subread fasta (or one file per molecule).")
+    p.add_argument("--model", required=True, help="Model bundle path.")
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument("--depth", type=int, default=3,
+                   help="Minimum subread count.")
+    p.add_argument("--length", type=int, default=400,
+                   help="Minimum median subread length.")
+    p.add_argument("--chunk_len", type=int, default=1000)
+    p.add_argument("--chunk_ovlp", type=int, default=500)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--qualities", action="store_true")
+    p.add_argument(
+        "--method", choices=["spoa"], default="spoa",
+        help="Pre-polish consensus method (built-in POA).")
+    p.add_argument(
+        "--save_features", action="store_true",
+        help="Save features with consensus probabilities.")
+    p.add_argument(
+        "--check_output", action="store_true",
+        help="Verify integrity of the probabilities file.")
+    p.add_argument(
+        "--cpu", action="store_true", help="Run the model on the CPU.")
+    p.set_defaults(func=_cmd_smolecule)
+
+    p = subparsers.add_parser(
+        "tandem", parents=[log_parent],
+        help="Targeted tandem-repeat genotyping.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("bam")
+    p.add_argument("ref_fasta")
+    p.add_argument("output", help="Output directory.")
+    p.add_argument(
+        "--regions", nargs="+", required=True,
+        help="Repeat regions or .bed files.")
+    p.add_argument("--model", required=True)
+    p.add_argument(
+        "--phasing", default="hybrid",
+        choices=["prephased", "hybrid", "abpoa", "unphased"])
+    p.add_argument("--sex", default="female",
+                   choices=["male", "female"])
+    p.add_argument("--sex_chrs", nargs=2, default=["chrX", "chrY"])
+    p.add_argument(
+        "--par_regions", nargs="+",
+        default=["chrX:10000-2781479", "chrX:155701382-156030895"])
+    p.add_argument("--padding", type=int, default=10)
+    p.add_argument("--min_depth", type=int, default=3)
+    p.add_argument("--min_mapq", type=int, default=5)
+    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--process_large_regions", action="store_true")
+    p.add_argument("--decompose", action="store_true",
+                   help="Emit decomposed variants instead of "
+                        "replacement-style records.")
+    p.add_argument("--add_read_names", action="store_true")
+    p.add_argument("--sample_name", default="SAMPLE")
+    p.add_argument("--disable_outlier_filter", action="store_true")
+    p.add_argument(
+        "--cpu", action="store_true", help="Run the model on the CPU.")
+    p.set_defaults(func=_cmd_tandem)
 
 
 def main(argv=None):
@@ -741,6 +816,36 @@ def _cmd_align(args):
     mapping.align_reads(
         args.reads, args.draft, args.output, threads=args.threads,
         band=args.band)
+    return 0
+
+
+def _cmd_smolecule(args):
+    from medaka_tpu_torch import smolecule
+    smolecule.smolecule(
+        args.fasta, args.output, model_path=args.model,
+        threads=args.threads, depth=args.depth, length=args.length,
+        chunk_len=args.chunk_len, chunk_ovlp=args.chunk_ovlp,
+        batch_size=args.batch_size, qualities=args.qualities,
+        save_features=args.save_features,
+        check_output=args.check_output, device=_device(args))
+    return 0
+
+
+def _cmd_tandem(args):
+    from medaka_tpu_torch import models, tandem
+    device = _device(args)
+    tandem.main(
+        args.bam, args.ref_fasta, _regions_arg(args.regions),
+        args.output, model=models.resolve_model(args.model),
+        phasing=args.phasing, sex=args.sex,
+        sex_chrs=tuple(args.sex_chrs), par_regions=args.par_regions,
+        padding=args.padding, min_depth=args.min_depth,
+        min_mapq=args.min_mapq, workers=args.workers,
+        process_large_regions=args.process_large_regions,
+        decompose=args.decompose, add_read_names=args.add_read_names,
+        sample_name=args.sample_name,
+        disable_outlier_filter=args.disable_outlier_filter,
+        device=device)
     return 0
 
 

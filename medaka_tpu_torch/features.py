@@ -1328,32 +1328,41 @@ def _trim_one_read(rec: BamRecord, start: int, end: int, partial: bool):
     return qstart, qend
 
 
-def get_trimmed_reads(region: Region, bam, region_split=750, partial=True,
-                      read_group=None):
+def get_trimmed_reads(
+        region: Region, bam, dtype_prefixes=None, region_split=750,
+        chunk_overlap=150, workers=8, tag_name=None, tag_value=None,
+        keep_missing=False, partial=True, num_qstrat=1, read_group=None,
+        min_mapq=1, include_empty_reads=False):
     """Fetch reads trimmed to (chunks of) a region.
 
     Reference: ``medaka/features.py:561-644`` +
     ``src/medaka_trimbam.c``. The region is split into pieces of
-    ``region_split`` overlapping by 150, fetched by 8 threads. Yields
-    (sub_region, seqs) where ``seqs`` is a list of :class:`TrimmedRead`;
-    element 0 is the reference placeholder entry (the reference sequence
-    calculation is disabled in the reference C too,
-    ``medaka_trimbam.c:123-127``). Reads pass :func:`filter_read` at its
-    defaults (and ``read_group``); reads trimmed to nothing are dropped.
+    ``region_split`` overlapping by ``chunk_overlap``, fetched by
+    ``workers`` threads. Yields (sub_region, seqs) where ``seqs`` is a
+    list of :class:`TrimmedRead`; element 0 is the reference placeholder
+    entry (the reference sequence calculation is disabled in the
+    reference C too, ``medaka_trimbam.c:123-127``). Reads pass
+    :func:`filter_read` (``min_mapq``, the tag filter, ``read_group``);
+    reads trimmed to nothing are dropped unless ``include_empty_reads``
+    (a read that spans a deleted region arrives empty).
     """
+    del dtype_prefixes, num_qstrat  # accepted for interface parity
+
     def _process_region(reg):
         reader = bam if isinstance(bam, BamReader) else BamReader(bam)
         try:
             seqs = [TrimmedRead(False, reg.ref_name, "N", 0, 0)]
             for rec in reader.fetch(reg.ref_name, reg.start, reg.end):
-                if not filter_read(rec, read_group=read_group):
+                if not filter_read(
+                        rec, min_mapq, tag_name, tag_value, keep_missing,
+                        read_group):
                     continue
                 span = _trim_one_read(rec, reg.start, reg.end, partial)
                 if span is None:
                     continue
                 qstart, qend = span
                 seq = rec.query_sequence[qstart:qend]
-                if not seq:
+                if not seq and not include_empty_reads:
                     continue
                 seqs.append(TrimmedRead(
                     rec.is_reverse, rec.query_name, seq,
@@ -1364,9 +1373,9 @@ def get_trimmed_reads(region: Region, bam, region_split=750, partial=True,
             if reader is not bam:
                 reader.close()
 
-    regions = region.split(region_split, 150)
+    regions = region.split(region_split, chunk_overlap)
     if len(regions) > 1:
-        ex = concurrent.futures.ThreadPoolExecutor(max_workers=8)
+        ex = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
         with ex as executor:
             yield from executor.map(_process_region, regions)
     else:

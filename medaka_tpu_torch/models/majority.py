@@ -1,7 +1,8 @@
 """Majority-vote baseline model (no learned parameters).
 
 Counterpart of ``medaka_tpu/models/majority.py``. ``train`` logs its
-accuracy beside the model's on counts batches.
+accuracy beside the model's on counts batches; ``prediction.predict``
+runs it as a model (the smolecule and tandem workflows' tests do).
 """
 from __future__ import annotations
 
@@ -42,6 +43,14 @@ class MajorityVoteModel(TorchState):
     def torch_state_from_params(self, params):
         """No parameters to export."""
         return {}
+
+    def to(self, device):
+        """No weights to move (``prediction.Predictor`` places a model)."""
+        return self
+
+    def eval(self):
+        """No training mode (``prediction.Predictor`` sets eval)."""
+        return self
 
     def __call__(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """Class probabilities (del, A, C, G, T) by direct vote counting."""

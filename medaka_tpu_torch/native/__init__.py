@@ -2,14 +2,15 @@
 
 Counterpart of ``medaka_tpu/native/__init__.py``, trimmed to the entry
 points the port uses: affine-gap pairwise alignment (:func:`align`,
-:func:`edit_distance`), the read mapper (:class:`Mapper`), the pileup
-kernel (:func:`pileup_counts_raw`, :func:`counts_norm_total`), the
-read-level matrix (:func:`read_matrix_raw`), the BAM record scan
+:func:`edit_distance`), the partial-order-alignment consensus
+(:func:`poa_consensus`, ``poa.cpp``, of the smolecule and tandem
+workflows), the read mapper (:class:`Mapper`), the pileup kernel
+(:func:`pileup_counts_raw`, :func:`counts_norm_total`), the read-level
+matrix (:func:`read_matrix_raw`), the BAM record scan
 (:func:`bam_scan_filter`) and multi-threaded BGZF inflation
-(``bgzf_*``). The partial-order-alignment consensus (``poa.cpp``) is not
-ported. The shared library is built on first use with g++ from ``src/``
-into ``_libmtt_<source hash>.so`` beside this file; a failed build
-raises :class:`NativeBuildError`.
+(``bgzf_*``). The shared library is built on first use with g++ from
+``src/`` into ``_libmtt_<source hash>.so`` beside this file; a failed
+build raises :class:`NativeBuildError`.
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "src")
-_SOURCES = ("align.cpp", "mapper.cpp", "pileup.cpp", "bgzf.cpp",
+_SOURCES = ("align.cpp", "poa.cpp", "mapper.cpp", "pileup.cpp", "bgzf.cpp",
             "bam_scan.cpp", "read_matrix.cpp")
 _LOCK = threading.Lock()
 _LIB = None
@@ -101,6 +102,11 @@ def _load():
         lib.mt_edit_distance.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
             ctypes.c_int]
+        lib.mt_poa_consensus.restype = ctypes.c_int
+        lib.mt_poa_consensus.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int]
         lib.mt_free.restype = None
         lib.mt_free.argtypes = [ctypes.c_void_p]
         _LIB = lib
@@ -154,6 +160,26 @@ def edit_distance(a: str, b: str, max_k: int = -1) -> int:
     ab = a.encode()
     bb = b.encode()
     return lib.mt_edit_distance(ab, len(ab), bb, len(bb), max_k)
+
+
+def poa_consensus(seqs: Sequence[str], match: int = 2, mismatch: int = 4,
+                  gap: int = 4) -> str:
+    """Partial-order-alignment consensus of sequences (the heaviest path
+    by edge support; ``""`` for none). Holds no state between calls, so
+    threads may run it at once (ctypes releases the GIL)."""
+    if not seqs:
+        return ""
+    lib = _load()
+    enc = [s.encode() for s in seqs]
+    arr = (ctypes.c_char_p * len(enc))(*enc)
+    lens = (ctypes.c_int * len(enc))(*[len(s) for s in enc])
+    cap = 2 * max(len(s) for s in enc) + 16
+    out = ctypes.create_string_buffer(cap)
+    n = lib.mt_poa_consensus(
+        arr, lens, len(enc), match, mismatch, gap, out, cap)
+    if n < 0:
+        raise NativeBuildError("mt_poa_consensus failed")
+    return out.value.decode()
 
 
 def available() -> bool:

@@ -15,7 +15,11 @@ against it (``plant_variants`` and ``score_vcf`` are copies of
 reads of either BAM as FASTQ in basecalled orientation, for the paths
 that start from reads and map them (``align``, ``consensus``,
 ``variant``), and :func:`placement` holds a mapped BAM to the reads' true
-starts.
+starts. For the workflows: :func:`write_subreads_fasta` writes the grouped
+subreads of random molecules that ``smolecule`` reads, and
+:func:`create_str_bam` the reads of a diploid genome with planted tandem
+repeats (HP/PS-tagged or not, some below ``tandem``'s MAPQ floor), whose
+``tandem`` VCF :func:`str_genotypes` scores.
 
 The reference's file formats, written without h5py or medaka (the stub
 ``medaka.*`` classes they pickle are those of
@@ -50,11 +54,16 @@ from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
 _SYNTH_BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
-def _synth_read_ops(ref_arr, start, length, rng):
+def _synth_read_ops(ref_arr, start, length, rng, error=None):
     """The read of :func:`simulate_synth_read` as (uint8 bases, op stream
-    of its alignment: one op a step, 0 '=', 1 'X', 2 'D', 3 'I')."""
+    of its alignment: one op a step, 0 '=', 1 'X', 2 'D', 3 'I').
+    ``error``: the share of reference bases with an event (half of them
+    substitutions, a quarter each insertions and deletions); 4% when
+    None."""
     piece = ref_arr[start:start + length]
-    ev = rng.choice(4, size=len(piece), p=[0.96, 0.02, 0.01, 0.01])
+    p = ([0.96, 0.02, 0.01, 0.01] if error is None
+         else [1 - error, error / 2, error / 4, error / 4])
+    ev = rng.choice(4, size=len(piece), p=p)
     is_ins = ev == 2
     # bases emitted per event: ins -> 2 (insert + ref), del -> 0, else 1
     n_out = np.where(is_ins, 2, np.where(ev == 3, 0, 1))
@@ -509,6 +518,175 @@ def create_variant_bam(path, ref_mb=0.5, depth=30, seed=0, diploid=False,
         in sorted(reads)]
     write_bam(path, records_out, [(contig, ref_len)])
     return path, ref_fasta, truth_vcf, records
+
+
+def write_subreads_fasta(path, n_molecules=64, length=1500, n_subreads=10,
+                         error=0.08, seed=0):
+    """Grouped subreads of random molecules, as the ``smolecule`` workflow
+    reads them: records ``mol<m>_<i>``, the subreads of one molecule
+    together, every other one reverse-complemented, each with errors at
+    a share ``error`` of the molecule's bases (half substitutions, a
+    quarter each insertions and deletions). Molecule lengths vary by up
+    to 10% around ``length``.
+
+    :returns: {molecule name: true sequence}.
+    """
+    rng = np.random.default_rng(seed)
+    truth = {}
+    with open(path, "w") as fh:
+        for m in range(n_molecules):
+            size = int(length * rng.uniform(0.9, 1.1))
+            mol = _SYNTH_BASES[rng.integers(0, 4, size)]
+            name = "mol{}".format(m)
+            truth[name] = mol.tobytes().decode()
+            for i in range(n_subreads):
+                bases, _ops = _synth_read_ops(mol, 0, size, rng, error)
+                seq = bases.tobytes().decode()
+                if i % 2:
+                    seq = common.reverse_complement(seq)
+                fh.write(">{}_{}\n{}\n".format(name, i, seq))
+    return truth
+
+
+#: the kinds of locus :func:`create_str_bam` plants, in turn: the alleles
+#: of haplotypes 1 and 2 in repeat units added to (+) or taken from (-)
+#: the reference's array; "del" takes the whole array from both
+STR_KINDS = (("hom_ref", (0, 0)), ("hom_exp", (6, 6)),
+             ("het_exp", (0, 8)), ("het_con", (-5, 0)), ("del", None))
+
+
+def create_str_bam(path, n_loci=24, depth=20, seed=0, read_len=3000,
+                   spacing=1500, error=0.02, low_mapq=0.1, contig="chr1"):
+    """Reads of a diploid genome with short tandem repeats, aligned to the
+    reference, for the ``tandem`` workflow.
+
+    Every ``spacing`` bases a locus holds an array of 10-16 copies of a
+    random 2-4 base motif. Each locus gets the next kind of
+    :data:`STR_KINDS`: homozygous reference, homozygous expansion, a
+    heterozygous expansion, a heterozygous contraction, or the array
+    deleted on both haplotypes. Reads of ``read_len`` bases come from
+    both haplotypes (``depth`` a haplotype) with errors at a share
+    ``error`` (:func:`_synth_read_ops`), on both strands, their alignments
+    lifted onto the reference (:func:`lift_read`). Reads that start in
+    the first half of the genome carry ``HP`` (their haplotype) and ``PS``
+    tags; the others carry none, so ``--phasing hybrid`` takes its
+    prephased branch on the first half's loci and falls back to de-novo
+    clustering on the last loci. A share ``low_mapq`` of the reads has
+    MAPQ 2, below ``tandem``'s default ``--min_mapq`` 5.
+
+    :returns: (bam path, reference FASTA, loci): each locus a dict of its
+        ``region`` (``common.Region`` of the reference's array), ``kind``,
+        ``ref`` (the array), ``alleles`` (the two haplotypes' arrays),
+        ``gt`` (``"0/0"``, ``"1/1"`` or ``"0/1"``) and ``phased``: True
+        when every read over the locus is tagged, False when none is,
+        None when some are.
+    """
+    rng = np.random.default_rng(seed)
+    ref_len = (n_loci + 1) * spacing
+    ref_arr = _SYNTH_BASES[rng.integers(0, 4, ref_len)].copy()
+    loci, edits = [], ([], [])
+    for k in range(n_loci):
+        kind, units = STR_KINDS[k % len(STR_KINDS)]
+        motif = _SYNTH_BASES[rng.integers(0, 4, int(rng.integers(2, 5)))]
+        while len(set(motif.tolist())) == 1:
+            motif = _SYNTH_BASES[rng.integers(0, 4, len(motif))]
+        copies = int(rng.integers(10, 17))
+        start = (k + 1) * spacing
+        array = np.tile(motif, copies)
+        ref_arr[start:start + len(array)] = array
+        # the bases either side of the array must not extend it
+        while ref_arr[start + len(array)] == motif[0]:
+            ref_arr[start + len(array)] = _SYNTH_BASES[rng.integers(0, 4)]
+        while ref_arr[start - 1] == motif[-1]:
+            ref_arr[start - 1] = _SYNTH_BASES[rng.integers(0, 4)]
+        ref = array.tobytes().decode()
+        mseq = motif.tobytes().decode()
+        alleles = []
+        for h in (0, 1):
+            n = 0 if units is None else copies + units[h]
+            alleles.append(mseq * n)
+        loci.append({"region": common.Region(contig, start,
+                                             start + len(array)),
+                     "kind": kind, "ref": ref, "alleles": tuple(alleles),
+                     "gt": ("0/0" if alleles == [ref, ref]
+                            else "1/1" if alleles[0] == alleles[1]
+                            else "0/1"),
+                     "phased": (True if start < ref_len // 2 else
+                                False if start >= ref_len // 2
+                                + 1.2 * read_len else None)})
+    ref_seq = ref_arr.tobytes().decode()
+    for locus in loci:
+        start = locus["region"].start
+        anchor = ref_seq[start - 1]
+        for h in (0, 1):
+            allele = locus["alleles"][h]
+            if allele == locus["ref"]:
+                continue
+            # VCF-style: the base before the array anchors the edit
+            if len(allele) > len(locus["ref"]):
+                grow = allele[:len(allele) - len(locus["ref"])]
+                edits[h].append((start - 1, anchor, anchor + grow))
+            else:
+                cut = len(locus["ref"]) - len(allele)
+                edits[h].append((start - 1, anchor + ref_seq[
+                    start:start + cut], anchor))
+    haps = [apply_edits(ref_seq, e) for e in edits]
+    columns = [_hap_columns(ref_len, e) for e in edits]
+    ref_fasta = path + ".ref.fasta"
+    with FastaWriter(ref_fasta) as fw:
+        fw.write(contig, ref_seq)
+    n_reads = int(ref_len * depth / read_len)
+    reads = []
+    for i in range(2 * n_reads):
+        h = i % 2
+        hap_arr = np.frombuffer(haps[h].encode(), np.uint8)
+        length = min(read_len, len(hap_arr) - 1)
+        hstart = int(rng.integers(0, len(hap_arr) - length))
+        bases, ops = _synth_read_ops(hap_arr, hstart, length, rng, error)
+        pos, bases, cigar = lift_read(columns[h], ref_arr, hstart, bases,
+                                      ops)
+        tags = {"HP": h + 1, "PS": 1000} if pos < ref_len // 2 else {}
+        mapq = 2 if rng.random() < low_mapq else 60
+        flag = 16 if (i // 2) % 2 else 0
+        reads.append((pos, i, bases.tobytes().decode(), cigar, tags, mapq,
+                      flag))
+    records = [BamRecord.build(
+        query_name="r{}".format(i), ref_id=0, pos=pos, seq=seq,
+        qual=np.full(len(seq), 20, np.uint8), cigar=cigar, flag=flag,
+        mapq=mapq, tags=tags)
+        for pos, i, seq, cigar, tags, mapq, flag in sorted(
+            reads, key=lambda r: (r[0], r[1]))]
+    write_bam(path, records, [(contig, ref_len)])
+    return path, ref_fasta, loci
+
+
+def str_genotypes(vcf_path, loci):
+    """How the records of a ``tandem`` VCF (replacement style) recover
+    :func:`create_str_bam`'s loci: {locus index: (planted gt, called gt,
+    planted alleles' lengths, called alleles' lengths)} over the loci
+    with a record; a called gt is unphased ("1|0" reads "0/1")."""
+    from medaka_tpu_torch.vcf import VCFReader
+    by_pos = {locus["region"].start: (i, locus)
+              for i, locus in enumerate(loci)}
+    out = {}
+    for var in VCFReader(vcf_path, cache=False).fetch():
+        if var.pos not in by_pos:
+            continue
+        i, locus = by_pos[var.pos]
+        gt = var.genotype_data["GT"].replace("|", "/").split("/")
+        alts = var.alt if isinstance(var.alt, list) else [var.alt]
+        seqs = [var.ref] + alts
+        # "." (no alt) and a missing haplotype read as the reference;
+        # "<DEL>" as the array deleted
+        called = sorted(
+            len(var.ref) if g == "." or seqs[int(g)] == "."
+            else 0 if seqs[int(g)] == "<DEL>" else len(seqs[int(g)])
+            for g in gt)
+        norm = "/".join(sorted("0" if g in ("0", ".") else "1"
+                               for g in gt))
+        out[i] = (locus["gt"], norm,
+                  sorted(len(a) for a in locus["alleles"]), called)
+    return out
 
 
 def write_reads_fastq(bam, fastq):

@@ -4,8 +4,9 @@ Features, the bi-LSTM kernel's plain version and the whole ``inference``
 + ``sequence`` pipeline, each held against the matching ``medaka_tpu``
 call on the same inputs and weights (made from numpy seeds or the bundled
 ``rl_lstm128_*`` models). The model's own tests are in
-``test_torch_read_level_model.py``, so that a worker of their own can run
-them beside the pipeline runs here.
+``test_torch_read_level_model.py``, and the pipeline's bf16 half and
+command line in ``test_torch_bf16_read_level.py``, so that workers of
+their own can run them beside the full-precision pipeline run here.
 """
 import os
 
@@ -17,18 +18,15 @@ import torch
 
 from medaka_tpu import features as jax_features
 from medaka_tpu import models as jax_models
-from medaka_tpu import prediction as jax_prediction
-from medaka_tpu import stitch as jax_stitch
 from medaka_tpu.common import Region as JaxRegion
 from medaka_tpu.ops import pallas_gru
 from medaka_tpu.ops import rnn as jax_rnn
-from medaka_tpu_torch import datastore, features, models, prediction, \
-    stitch, testing
+from medaka_tpu_torch import features, models, testing
 from medaka_tpu_torch.common import Region
 from medaka_tpu_torch.io.bam import BamRecord
-from medaka_tpu_torch.io.fastx import FastaReader
 from medaka_tpu_torch.ops import bilstm, rnn
 from tests import mock_data
+from tests.torch_precision_runs import check_pipeline, predict_both
 from tests.torch_read_level_data import make_bams
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
@@ -36,6 +34,17 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(
 LAMBDA = os.path.join(DATA, "rl_lstm128_lambda_demo.tar.gz")
 DWELLS = os.path.join(DATA, "rl_lstm128_dwells_demo.tar.gz")
 RUN = dict(chunk_len=1000, chunk_overlap=100, batch_size=8)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tier-1 run shares the machine between
+    pytest workers, and PyTorch's threads spinning over the scan's small
+    steps on a shared machine slow a run by two orders of magnitude."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -192,80 +201,20 @@ def test_bilstm_plain_matches_jax_interpret(level):
 
 @pytest.fixture(scope="module")
 def runs(bams, tmp_path_factory):
-    """Both packages' probability files of a 20 kb BAM at depth 15, in
-    f32 and bf16; medaka_tpu on one device, as the port runs."""
+    """Both packages' probability files of a 20 kb BAM at depth 15 in
+    full precision (the bf16 half is ``test_torch_bf16_read_level.py``'s);
+    medaka_tpu on one device, as the port runs."""
     d = tmp_path_factory.mktemp("rl_runs")
     bam, draft = testing.create_synth_bam(str(d / "reads.bam"), ref_mb=0.02,
                                           depth=15, read_len=2000)
-    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
-    out = {"bam": bam, "draft": draft}
-    for full in (True, False):
-        tag = "f32" if full else "bf16"
-        jax_hdf = str(d / "jax_{}.hdf".format(tag))
-        port_hdf = str(d / "port_{}.hdf".format(tag))
-        jax_prediction.predict(bam, jax_hdf, model_path=LAMBDA,
-                               full_precision=full, mesh=mesh, **RUN)
-        prediction.predict(bam, port_hdf, model_path=LAMBDA,
-                           full_precision=full, device="cpu", **RUN)
-        out[tag] = (jax_hdf, port_hdf)
-    return out
+    return {"bam": bam, "draft": draft,
+            "f32": predict_both(bam, d, LAMBDA, True, RUN)}
 
 
-def _probs(path):
-    index = datastore.DataIndex(path)
-    with datastore.DataStore(path) as ds:
-        return {name: ds.load_sample(name).label_probs
-                for name, _ in index.samples}
-
-
-@pytest.mark.parametrize("tag", ["f32", "bf16"])
+@pytest.mark.parametrize("tag", ["f32"])
 def test_pipeline_matches_jax(runs, tag, tmp_path):
-    """Probabilities within 1e-4 (f32) and 2e-2 (bf16); each package
-    stitches the other's file to the same bytes; the consensus FASTAs
-    are byte-identical in f32, and in bf16 on this BAM (measured: the
-    same 20,005 bp in both precisions, 34 edits from the draft by greedy
-    walk, identity 0.9983)."""
-    jax_hdf, port_hdf = runs[tag]
-    want, got = _probs(jax_hdf), _probs(port_hdf)
-    assert sorted(want) == sorted(got) and len(got) > 10
-    worst = max(np.abs(got[k] - want[k]).max() for k in want)
-    assert worst <= (1e-4 if tag == "f32" else 2e-2)
-    fastas = {}
-    for name, fn, hdf in (
-            ("jax", jax_stitch.stitch_to_fasta, jax_hdf),
-            ("port", stitch.stitch_to_fasta, port_hdf),
-            ("jax_stitches_port", jax_stitch.stitch_to_fasta, port_hdf),
-            ("port_stitches_jax", stitch.stitch_to_fasta, jax_hdf)):
-        path = str(tmp_path / (name + ".fasta"))
-        fn(hdf, runs["draft"], path)
-        with open(path, "rb") as fh:
-            fastas[name] = fh.read()
-    assert fastas["jax_stitches_port"] == fastas["port"]
-    assert fastas["port_stitches_jax"] == fastas["jax"]
-    assert fastas["port"] == fastas["jax"]
-    with FastaReader(runs["draft"]) as fr:
-        draft = fr.fetch("synth")
-    with FastaReader(str(tmp_path / "port.fasta")) as fr:
-        consensus = fr.fetch("synth")
-    edits = testing.greedy_edit_count(consensus.encode(), draft.encode())
-    assert 1.0 - edits / len(draft) >= 0.99
-
-
-def test_cli_read_level_inference_and_sequence(runs, tmp_path):
-    """The command line of the read-level path: ``--cpu`` runs on the
-    CPU and gives the bf16 pipeline's bytes; without ``--cpu`` and
-    without a GPU it raises."""
-    from medaka_tpu_torch import cli
-    hdf, fasta = str(tmp_path / "cli.hdf"), str(tmp_path / "cli.fasta")
-    args = ["inference", runs["bam"], hdf, "--model", LAMBDA,
-            "--chunk_len", "1000", "--chunk_ovlp", "100", "--batch_size",
-            "8", "--quiet"]
-    assert cli.main(args + ["--cpu"]) == 0
-    assert cli.main(["sequence", hdf, runs["draft"], fasta, "--quiet"]) == 0
-    want = str(tmp_path / "want.fasta")
-    stitch.stitch_to_fasta(runs["bf16"][1], runs["draft"], want)
-    with open(fasta, "rb") as a, open(want, "rb") as b:
-        assert a.read() == b.read()
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no GPU"):
-            cli.main(args[:2] + [str(tmp_path / "gpu.hdf")] + args[3:])
+    """Probabilities within 1e-4; each package stitches the other's file
+    to the same bytes; the consensus FASTAs are byte-identical (measured:
+    20,005 bp, 34 edits from the draft by greedy walk, identity
+    0.9983)."""
+    check_pipeline(runs, tag, tmp_path)

@@ -310,7 +310,34 @@ Phases, each of which fails the script when it fails:
     polish in full precision (the float32 scan, as ``medaka_tpu`` runs it;
     no split kernel launches), at least ``MIN_TANDEM_RECOVERED`` planted
     genotypes recovered, the card's VCF within ``MAX_TANDEM_CPU_RECORDS``
-    records of ``--cpu``'s.
+    records of ``--cpu``'s;
+34. (after phase 20, before phase 21) the tools on the card's outputs:
+    ``tools diploid2haploid`` of phase 20's diploid ``snp`` VCF and
+    ``tools haploid2diploid`` of its halves (each record's position,
+    alleles and unphased genotype back), ``tools classify_variants`` (the
+    class files partition the records) and ``tools vcf2tsv`` (a row a
+    record) of its haploid ``vcf`` output, ``tools homozygous_regions`` of
+    the diploid VCF over the contig from inside the work directory,
+    ``tools vcf2fasta`` of the truth VCF (the genome the reads were drawn
+    from), ``tools hdf_to_bed`` of phase 20's probabilities (the contig
+    covered); ``tools get_model_dtypes``, ``get_alignment_params``,
+    ``is_rle_model`` and ``is_compatible`` on the bundled counts, RLE and
+    read-level models; ``tools resolve_model --auto_model consensus`` of a
+    FASTQ and a BAM naming a catalogue basecaller
+    (``testing.write_basecaller_fastq``/``write_basecaller_bam``), then
+    ``models.download_model`` of that model from a ``file://`` template
+    (a copy of ``gru256_lambda_demo``) into a store under the work
+    directory, and ``inference --model <the cached file>`` over
+    ``TOOLS_REGION_KB`` kb of phase 4's BAM at the automatic batch with
+    the split kernels' counts set to 0 just before (mode "t" launched),
+    its probabilities bit for bit those of ``--model
+    gru256_lambda_demo``; phase 5's probabilities written again through
+    ``DataStore(compression="lzf")`` and read back (sample for sample),
+    their ``sequence`` FASTA phase 5's byte for byte, the seconds and
+    sizes printed; ``cli.version_report()`` naming the card and a loaded
+    native library, and ``cli.counts_entry`` over ``TOOLS_REGION_KB`` kb
+    of phase 4's BAM giving ``features.pileup_counts``'s rows. No call
+    leaves the machine.
 
 The last line of standard output is the device JSON object. The script
 imports nothing of JAX and nothing of the ``medaka_tpu`` package.
@@ -1138,14 +1165,16 @@ def cluster_launch_ms(name, fn, prefixes,
     ``kernels``; a trace that records no kernel at all (the measurement
     tool now and then returns one, and in one process it returned only
     such traces of the bf16-gates launch after the other modes' profiles)
-    is taken again, up to five times, and so is one that lacks a wanted
-    kernel but shows no refused one (:func:`trace_verdict`); then, where
-    ``child`` is given, ``child()`` profiles the same launch on random
-    inputs of the same shape in a fresh process (the result then says
-    "profiled": "child"). A refused kernel fails at once."""
+    is taken once more, and so is one that lacks a wanted kernel but shows
+    no refused one (:func:`trace_verdict`); then, where ``child`` is
+    given, ``child()`` profiles the same launch on random inputs of the
+    same shape in a fresh process (the result then says "profiled":
+    "child"). A refused kernel fails at once. (A bf16-gates or
+    ``bigru_fused`` trace that came back empty once has come back empty on
+    every retry in this process, up to five, and the child profiled it.)"""
     import torch
     by_kernel, how = None, "this process"
-    for attempt in range(5):
+    for attempt in range(2):
         torch.cuda.synchronize()
         by_kernel = kernels_ms(fn)
         verdict = trace_verdict(by_kernel, kernels)
@@ -2136,6 +2165,313 @@ def variant_phases(seed, work, dev, modules):
                                          rescued["snp"]["recall"]))
     paths["diploid_snp"] = dip
     return paths
+
+
+#: phase 34: the kb of phase 4's BAM that the downloaded model's
+#: inference and ``counts_entry`` cover
+TOOLS_REGION_KB = 100
+#: phase 34: the catalogue basecaller the FASTQ and the BAM name
+TOOLS_BASECALLER = "dna_r10.4.1_e8.2_400bps_sup@v5.0.0"
+
+
+def captured(fn, *args):
+    """(return value, standard output) of ``fn(*args)``."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def tool(cli, *argv, rc=0):
+    """The standard output of ``tools <argv>``; raises unless it returns
+    ``rc``."""
+    got, out = captured(cli.main, ["tools", *argv])
+    if got != rc:
+        raise AssertionError("tools {} returned {} (expected {}): {}".format(
+            " ".join(argv), got, rc, out))
+    return out
+
+
+def called_alleles(vcf_mod, path):
+    """{(chrom, pos, ref): sorted called allele sequences} of a VCF's
+    records that call an allele other than the reference."""
+    out = {}
+    for v in vcf_mod.VCFReader(path, cache=False).fetch():
+        alleles = [v.ref] + list(v.alt)
+        gt = v.gt or ()
+        if any(g for g in gt):
+            key = (v.chrom, v.pos, v.ref)
+            if key in out:
+                raise AssertionError("two records at {}".format(key))
+            out[key] = sorted(alleles[g] for g in gt)
+    return out
+
+
+def tools_phases(seed, work, bam, draft, hdf, fasta, variant_paths, dev,
+                 modules):
+    """The tools on the card's outputs (phase 34): returns its record."""
+    import numpy as np
+    import torch
+    cli, datastore, features, gru_split, models, testing, vcf_mod = (
+        modules[k] for k in ("cli", "datastore", "features", "gru_split",
+                             "models", "testing", "vcf"))
+    from medaka_tpu_torch.common import Region
+    from medaka_tpu_torch.io.fastx import FastaReader
+    t_phase = time.perf_counter()
+    out = {"seconds": {}}
+    hap_vcf = variant_paths["variant"]["decodes"]["vcf"]["vcf"]
+    dip_vcf = variant_paths["diploid_snp"]["decodes"]["snp"]["vcf"]
+    hap_bam = os.path.join(work, "variant.bam")
+    hap_ref, hap_truth = hap_bam + ".ref.fasta", hap_bam + ".truth.vcf"
+    dip_ref = os.path.join(work, "diploid_snp.bam.ref.fasta")
+    with FastaReader(hap_ref) as fr:
+        contig = fr.references[0]
+        ref_len = fr.get_reference_length(contig)
+
+    with phase("(34) tools on the variant calls: diploid2haploid, "
+               "haploid2diploid, classify_variants, vcf2tsv, "
+               "homozygous_regions, vcf2fasta, hdf_to_bed"):
+        t0 = time.perf_counter()
+        halves = tool(cli, "diploid2haploid", dip_vcf).split()
+        if len(halves) != 2:
+            raise AssertionError("diploid2haploid wrote {}".format(halves))
+        merged = os.path.join(work, "rediploid.vcf")
+        tool(cli, "haploid2diploid", *sorted(halves), dip_ref, merged)
+        want, got = (called_alleles(vcf_mod, p) for p in (dip_vcf, merged))
+        if got != want:
+            raise AssertionError(
+                "haploid2diploid of diploid2haploid's halves: {} records "
+                "({} in the input), {} differ".format(
+                    len(got), len(want),
+                    len(set(got.items()) ^ set(want.items()))))
+        n_hap = sum(1 for _ in vcf_mod.VCFReader(
+            hap_vcf, cache=False).fetch())
+        tool(cli, "classify_variants", hap_vcf)
+        base = hap_vcf[:-len(".vcf")]
+        classes = {k: [(v.pos, v.ref, tuple(v.alt)) for v in
+                       vcf_mod.VCFReader("{}.{}.vcf".format(base, k),
+                                         cache=False).fetch()]
+                   for k in ("snp", "indel", "all")}
+        others = [r for r in classes["all"] if r not in classes["snp"]
+                  and r not in classes["indel"]]
+        if len(classes["all"]) != n_hap or set(classes["snp"]) & set(
+                classes["indel"]) or len(classes["snp"]) + len(
+                classes["indel"]) + len(others) != n_hap:
+            raise AssertionError("the class files do not partition the {} "
+                                 "records: {}".format(n_hap, {
+                                     k: len(v) for k, v in classes.items()}))
+        table = tool(cli, "vcf2tsv", hap_vcf).strip()
+        with open(table) as fh:
+            rows = fh.read().splitlines()
+        if len(rows) != n_hap + 1:
+            raise AssertionError("vcf2tsv: {} rows for {} records".format(
+                len(rows) - 1, n_hap))
+        here = os.getcwd()
+        os.chdir(work)
+        try:
+            tool(cli, "homozygous_regions", dip_vcf,
+                 "{}:0-{}".format(contig, ref_len))
+        finally:
+            os.chdir(here)
+        with open(os.path.join(work, "homozygous_regions.txt")) as fh:
+            homo = [Region.from_string(r) for r in fh.read().split()]
+        if not homo or any(r.start < 0 or r.end > ref_len for r in homo):
+            raise AssertionError("homozygous_regions: {}".format(homo[:4]))
+        genome = os.path.join(work, "vcf2fasta.fasta")
+        tool(cli, "vcf2fasta", hap_truth, hap_ref, genome)
+        # the haploid genome create_variant_bam drew the reads from,
+        # rebuilt from its seed
+        rng = np.random.default_rng(seed)
+        ref_seq = np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, ref_len)].tobytes().decode()
+        haps, _ = testing.plant_variants(ref_seq, rng)
+        with FastaReader(hap_ref) as fr:
+            if fr.fetch(contig) != ref_seq:
+                raise AssertionError("the genome's seed does not replay")
+        with FastaReader(genome) as fr:
+            if fr.fetch(contig) != haps[0]:
+                raise AssertionError("vcf2fasta is not the reads' genome")
+        bed = os.path.join(work, "variant.bed")
+        tool(cli, "hdf_to_bed", os.path.join(work, "variant.hdf"), bed)
+        with open(bed) as fh:
+            spans = [line.split("\t") for line in fh.read().splitlines()]
+        covered = sum(int(e) - int(s) for _, s, e in spans)
+        if any(c != contig for c, _, _ in spans) or \
+                covered < 0.99 * ref_len:
+            raise AssertionError("hdf_to_bed covers {} of {} bases".format(
+                covered, ref_len))
+        out["variant_tools"] = {
+            "diploid_records": len(want), "haploid_records": n_hap,
+            "classes": {k: len(v) for k, v in classes.items()},
+            "homozygous_regions": len(homo), "bed_covered": covered,
+            "ref_len": ref_len}
+        out["seconds"]["variant_tools"] = time.perf_counter() - t0
+    log("   {}".format(json.dumps(out["variant_tools"])))
+
+    with phase("(34) model tools on the bundled counts, RLE and read-level "
+               "models"):
+        t0 = time.perf_counter()
+        report = {}
+        for name in ("gru256_lambda_demo", "gru256_rle_demo",
+                     "rl_lstm128_lambda_demo", "rl_lstm128_dwells_demo"):
+            dwells = name == "rl_lstm128_dwells_demo"
+            report[name] = {
+                "dtypes": tool(cli, "get_model_dtypes", name).strip(),
+                "alignment": tool(cli, "get_alignment_params",
+                                  name).strip(),
+                "rle": tool(cli, "is_rle_model", name).strip(),
+                "compatible": tool(cli, "is_compatible", "--model", name,
+                                   bam, rc=1 if dwells else 0).strip()}
+        want = {"gru256_rle_demo": ("True", "-M 5 -S 4 -O 2 -E 3")}
+        for name, rec in report.items():
+            rle, params = want.get(name, ("False", "-M 2 -S 4 -O 4,24 "
+                                                   "-E 2,1"))
+            ok = "" if name == "rl_lstm128_dwells_demo" else "Compatible."
+            if (rec["rle"], rec["alignment"], rec["compatible"]) != (
+                    rle, params, ok):
+                raise AssertionError("model tools on {}: {}".format(
+                    name, rec))
+        out["model_tools"] = report
+        out["seconds"]["model_tools"] = time.perf_counter() - t0
+    log("   {}".format(json.dumps(report)))
+
+    with phase("(34) model selection from a FASTQ and a BAM naming {}, "
+               "download from a file:// template, inference with the "
+               "cached model".format(TOOLS_BASECALLER)):
+        t0 = time.perf_counter()
+        fastq = testing.write_basecaller_fastq(
+            os.path.join(work, "basecalled.fastq"), [TOOLS_BASECALLER],
+            seed=seed)
+        rg_bam = testing.write_basecaller_bam(
+            bam, os.path.join(work, "basecalled.bam"), [TOOLS_BASECALLER])
+        chosen = {tool(cli, "resolve_model", "--model", path,
+                       "--auto_model", "consensus").strip()
+                  for path in (fastq, rg_bam)}
+        catalogue = models.options.basecaller_models[TOOLS_BASECALLER][0]
+        if chosen != {catalogue}:
+            raise AssertionError("resolve_model --auto_model chose {}, not "
+                                 "{}".format(chosen, catalogue))
+        published = os.path.join(work, "published")
+        os.makedirs(published)
+        import shutil
+        shutil.copy(MODEL, os.path.join(
+            published, catalogue + "_model_pt.tar.gz"))
+        store = os.path.join(work, "store")
+        cached = models.download_model(
+            catalogue, cache_dir=store,
+            url_template="file://" + published + "/{fname}")
+        if os.path.dirname(cached) != store or \
+                [f for f in os.listdir(store) if f.endswith(".part")]:
+            raise AssertionError("download_model cached {}".format(cached))
+        out["seconds"]["select_download"] = time.perf_counter() - t0
+        region = "synth:0-{}".format(TOOLS_REGION_KB * 1000)
+        batch = modules["prediction"].auto_batch_size(
+            models.load_model(cached).model, dev)
+        mode = gru_split.split_mode(batch)
+        results = {}
+        for label, model in (("downloaded", cached),
+                             ("gru256_lambda_demo", "gru256_lambda_demo")):
+            probs = os.path.join(work, "tools_{}.hdf".format(label))
+            gru_split.reset_launches()
+            t1 = time.perf_counter()
+            if cli.main(["inference", bam, probs, "--model", model,
+                         "--regions", region]) != 0:
+                raise AssertionError("inference --model {} failed".format(
+                    model))
+            torch.cuda.synchronize()
+            results[label] = {
+                "hdf": probs, "seconds": time.perf_counter() - t1,
+                "launches": dict(gru_split.LAUNCHES),
+                "launches_by_mode": dict(gru_split.MODE_LAUNCHES)}
+        launches = results["downloaded"]["launches"]
+        if mode != "t" or min(launches.values()) < 1 or min(
+                results["downloaded"]["launches_by_mode"][k + "/t"]
+                for k in launches) < 1:
+            raise AssertionError(
+                "the downloaded model's inference (batch {}, mode {}) did "
+                "not run both split kernels in mode t: {}".format(
+                    batch, mode, results["downloaded"]["launches_by_mode"]))
+        got, want = ({name: ds.load_sample(name).label_probs.tobytes()
+                      for name in sorted(ds.sample_registry)}
+                     for ds in (datastore.DataStore(results[k]["hdf"])
+                                for k in ("downloaded",
+                                          "gru256_lambda_demo")))
+        if not got or got != want:
+            raise AssertionError("the downloaded model's probabilities "
+                                 "differ from gru256_lambda_demo's")
+        out["model_selection"] = {
+            "basecaller": TOOLS_BASECALLER, "model": catalogue,
+            "batch": batch, "mode": mode, "samples": len(got),
+            "launches": launches,
+            "launches_by_mode": results["downloaded"]["launches_by_mode"],
+            "inference_s": {k: v["seconds"] for k, v in results.items()}}
+    log("   {}".format(json.dumps(out["model_selection"])))
+
+    with phase("(34) phase 5's probabilities through DataStore(compression="
+               "\"lzf\"): write, read back, sequence"):
+        lzf = os.path.join(work, "probs_lzf.hdf")
+        with datastore.DataStore(hdf) as src:
+            names = sorted(src.sample_registry)
+            samples = [src.load_sample(n) for n in names]
+            t0 = time.perf_counter()
+            with datastore.DataStore(lzf, "w", compression="lzf") as dst:
+                dst.copy_meta(src)
+                for sample in samples:
+                    dst.write_sample(sample)
+                dst.write_registry()
+            t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with datastore.DataStore(lzf) as ds:
+            back = [ds.load_sample(n) for n in names]
+        t_read = time.perf_counter() - t0
+        for a, b in zip(samples, back):
+            for field in ("label_probs", "positions"):
+                x, y = getattr(a, field), getattr(b, field)
+                if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                    raise AssertionError("lzf changed {} of {}".format(
+                        field, a.name))
+        lzf_fasta = os.path.join(work, "lzf.fasta")
+        t0 = time.perf_counter()
+        if cli.main(["sequence", lzf, draft, lzf_fasta]) != 0:
+            raise AssertionError("sequence of the lzf file failed")
+        t_sequence = time.perf_counter() - t0
+        with open(lzf_fasta, "rb") as a, open(fasta, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("the lzf file's FASTA is not phase 5's")
+        out["lzf"] = {"samples": len(names), "write_s": t_write,
+                      "read_s": t_read, "sequence_s": t_sequence,
+                      "bytes": os.path.getsize(lzf),
+                      "bytes_uncompressed": os.path.getsize(hdf)}
+    log("   {}".format(json.dumps(out["lzf"])))
+
+    with phase("(34) console scripts: version_report, counts_entry over {} "
+               "kb".format(TOOLS_REGION_KB)):
+        _, report = captured(cli.version_report)
+        name = torch.cuda.get_device_name(0)
+        if name not in report or "native library: ok" not in report:
+            raise AssertionError("version_report: {}".format(report))
+        log("   " + report.strip().replace("\n", "\n   "))
+        region = "synth:0-{}".format(TOOLS_REGION_KB * 1000)
+        t0 = time.perf_counter()
+        rc, text = captured(cli.counts_entry, [bam, region, "--print"])
+        t_counts = time.perf_counter() - t0
+        rows = [line for line in text.splitlines()
+                if line.startswith("(")]
+        want = ["({}, {})\t".format(p["major"], p["minor"])
+                + "\t".join(str(x) for x in row)
+                for counts, pos in features.pileup_counts(
+                    Region.from_string(region), bam)
+                for p, row in zip(pos, counts)]
+        if rc != 0 or not rows or rows != want:
+            raise AssertionError("counts_entry gave {} rows, pileup_counts "
+                                 "{}".format(len(rows), len(want)))
+        out["console_scripts"] = {"counts_rows": len(rows),
+                                  "counts_entry_s": t_counts}
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log("   counts_entry: {} rows in {:.2f} s; phase 34 took {:.1f} s".format(
+        len(rows), t_counts, out["seconds"]["phase"]))
+    return out
 
 
 @contextlib.contextmanager
@@ -5498,6 +5834,18 @@ def main(argv=None):
                    for path, rec in variant_paths.items()}}
         rows[1]["classes15"]["launches"] = \
             variant_paths["diploid_snp"]["launches"]["gru_l2head_split"]
+        # phase 34: the tools on the card's outputs
+        tools = tools_phases(seed, work, bam, draft, hdf, fasta,
+                             variant_paths, dev, modules={
+                                 "cli": cli, "datastore": datastore,
+                                 "features": features,
+                                 "gru_split": gru_split, "models": models,
+                                 "prediction": prediction,
+                                 "testing": testing, "vcf": vcf})
+        for row in rows:
+            if row["name"] in SPLIT_KERNEL_OF:
+                row["launches_by_path"]["tools"] = tools["model_selection"][
+                    "launches"][row["name"]]
         rows[1]["classes15"]["head_checks"] = head_agreement
         rows[1]["variant_paths"] = {
             path: {k: v for k, v in rec.items() if k != "decodes"}
@@ -5739,6 +6087,7 @@ def main(argv=None):
                 row["name"]]
         split_rows[1]["from_reads_paths"] = from_reads
         split_rows[1]["workflows"] = workflows
+        split_rows[1]["tools"] = tools
         split_rows[1]["host_options"] = host_options
         split_rows[0]["scale_out"] = scale_out
         for row in rows:

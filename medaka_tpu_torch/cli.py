@@ -7,10 +7,16 @@ Counterpart of the ``inference``, ``consensus_from_features``,
 ``sequence``, ``vcf``, ``snp``, ``features``, ``train``, ``consensus``,
 ``consensus_joint``, ``align``, ``variant``, ``fastrle``,
 ``compress_bam``, ``smolecule`` and ``tandem`` subcommands of
-``medaka_tpu/cli.py``, and of its ``tools`` ``annotate``,
-``consensus2vcf``, ``is_rle_model``, ``rlebam`` and ``export``, with the
-same flags and defaults for the parts that are ported; the port adds
-``--cpu`` to the subcommands that run a model. ``--model`` takes a path
+``medaka_tpu/cli.py`` and of all its ``tools`` (``list_models``,
+``rlebam``, ``resolve_model``, ``export``, ``hdf_to_bed``, ``vcf2fasta``,
+``prepare_tagged_bam``, ``is_rle_model``, ``get_alignment_params``,
+``get_model_dtypes``, ``download_models``, ``pileup_counts``,
+``annotate``, ``haploid2diploid``, ``diploid2haploid``,
+``classify_variants``, ``vcf2tsv``, ``homozygous_regions``,
+``consensus2vcf``, ``is_compatible``), with the same flags and defaults;
+the port adds ``--cpu`` to the subcommands that run a model. The console
+scripts ``counts_entry``, ``version_report`` and ``data_path`` are
+``medaka_tpu``'s, under ``medaka_tpu_torch_*`` names. ``--model`` takes a path
 or a model name (``models.resolve_model``; ``smolecule`` takes a path,
 as ``medaka_tpu``'s does). ``inference``, ``consensus_from_features``,
 ``train``, ``consensus``, ``consensus_joint``, ``variant``,
@@ -451,6 +457,100 @@ def _add_from_reads_parsers(subparsers, log_parent):
     toolsub.required = True
 
     tp = toolsub.add_parser(
+        "list_models", help="List models bundled or cached locally.")
+    tp.set_defaults(func=_cmd_list_models)
+
+    tp = toolsub.add_parser(
+        "rlebam",
+        help="Add run-length (WL/WK) tags to a SAM stream (stdin to "
+             "stdout) from fast5s.")
+    tp.add_argument(
+        "read_index",
+        help="Two-column TSV mapping read_ids to fast5 filepaths.")
+    tp.add_argument("--workers", type=int, default=4)
+    tp.set_defaults(func=_cmd_rlebam)
+
+    tp = toolsub.add_parser(
+        "resolve_model", help="Resolve a model name to a file path.")
+    tp.add_argument("--model", required=True)
+    tp.add_argument(
+        "--auto_model", choices=["consensus", "variant"], default=None,
+        help="Treat --model as a basecaller output file and choose the "
+             "model from its metadata.")
+    tp.add_argument("--bacteria", action="store_true")
+    tp.set_defaults(func=_cmd_resolve_model)
+
+    tp = toolsub.add_parser(
+        "export",
+        help="Export a model as config.toml + torch weights.pt.")
+    tp.add_argument("model")
+    tp.add_argument("--output", default=None)
+    tp.add_argument(
+        "--supported_basecallers", nargs="+", default=[])
+    tp.add_argument(
+        "--force", action="store_true",
+        help="Overwrite an existing export archive.")
+    tp.set_defaults(func=_cmd_export)
+
+    tp = toolsub.add_parser(
+        "hdf_to_bed", help="Write covered intervals of sample files.")
+    tp.add_argument("inputs", nargs="+")
+    tp.add_argument("output")
+    tp.set_defaults(func=_cmd_hdf_to_bed)
+
+    tp = toolsub.add_parser(
+        "vcf2fasta",
+        help="Apply VCF variants to a reference FASTA (one haplotype).")
+    tp.add_argument("vcf")
+    tp.add_argument("ref_fasta")
+    tp.add_argument("output")
+    tp.set_defaults(func=_cmd_vcf2fasta)
+
+    tp = toolsub.add_parser(
+        "prepare_tagged_bam",
+        help="Tag reads of several BAMs and merge them.")
+    tp.add_argument("input_bams", nargs="+")
+    tp.add_argument("--values", nargs="+", type=int, required=True)
+    tp.add_argument("--tag", default="HP")
+    tp.add_argument("--output", required=True)
+    tp.add_argument("--threads", type=int, default=1)
+    tp.set_defaults(func=_cmd_prepare_tagged_bam)
+
+    tp = toolsub.add_parser(
+        "is_rle_model", help="Report whether a model is an RLE model.")
+    tp.add_argument("model")
+    tp.set_defaults(func=_cmd_is_rle_model)
+
+    tp = toolsub.add_parser(
+        "get_alignment_params",
+        help="Print alignment parameters appropriate for a model.")
+    tp.add_argument("model")
+    tp.set_defaults(func=_cmd_get_alignment_params)
+
+    tp = toolsub.add_parser(
+        "get_model_dtypes",
+        help="Print the datatypes a model's encoder splits counts by.")
+    tp.add_argument("model")
+    tp.set_defaults(func=_cmd_get_model_dtypes)
+
+    tp = toolsub.add_parser(
+        "download_models",
+        help="Download reference model files (requires network egress).")
+    tp.add_argument("--models", nargs="+", default=None)
+    tp.set_defaults(func=_cmd_download_models)
+
+    tp = toolsub.add_parser(
+        "pileup_counts",
+        help="Print/benchmark pileup counts for a region "
+             "(medaka_counts equivalent).")
+    tp.add_argument("bam")
+    tp.add_argument("region")
+    tp.add_argument("--dtypes", nargs="+", default=None)
+    tp.add_argument("--num_qstrat", type=int, default=1)
+    tp.add_argument("--print", dest="print_rows", action="store_true")
+    tp.set_defaults(func=_cmd_pileup_counts)
+
+    tp = toolsub.add_parser(
         "annotate", help="Annotate a VCF with read depth/allele support.")
     tp.add_argument("vcf")
     tp.add_argument("ref_fasta")
@@ -465,6 +565,47 @@ def _add_from_reads_parsers(subparsers, log_parent):
     tp.set_defaults(func=_cmd_annotate)
 
     tp = toolsub.add_parser(
+        "haploid2diploid",
+        help="Merge two haploid VCFs into a diploid VCF.")
+    tp.add_argument("vcf1")
+    tp.add_argument("vcf2")
+    tp.add_argument("ref_fasta")
+    tp.add_argument("vcfout")
+    tp.add_argument("--adjacent", action="store_true",
+                    help="Merge adjacent (not just overlapping) variants.")
+    tp.add_argument("--discard_phase", action="store_true")
+    tp.add_argument("--split_mnp", action="store_true")
+    tp.set_defaults(func=_cmd_haploid2diploid)
+
+    tp = toolsub.add_parser(
+        "diploid2haploid",
+        help="Split a diploid VCF into two haploid VCFs.")
+    tp.add_argument("vcf")
+    tp.add_argument("--notrim", action="store_true")
+    tp.set_defaults(func=_cmd_diploid2haploid)
+
+    tp = toolsub.add_parser(
+        "classify_variants",
+        help="Classify variants by type, writing one VCF per class.")
+    tp.add_argument("vcf")
+    tp.add_argument("--replace_info", action="store_true")
+    tp.set_defaults(func=_cmd_classify_variants)
+
+    tp = toolsub.add_parser(
+        "vcf2tsv", help="Flatten a VCF into a tab-separated table.")
+    tp.add_argument("vcf")
+    tp.set_defaults(func=_cmd_vcf2tsv)
+
+    tp = toolsub.add_parser(
+        "homozygous_regions",
+        help="Find homozygous regions of a diploid VCF.")
+    tp.add_argument("vcf")
+    tp.add_argument("region")
+    tp.add_argument("--min_len", type=int, default=1000)
+    tp.add_argument("--suffix", default="regions.txt")
+    tp.set_defaults(func=_cmd_homozygous_regions)
+
+    tp = toolsub.add_parser(
         "consensus2vcf",
         help="Call variants by aligning a consensus FASTA to a reference.")
     tp.add_argument("consensus")
@@ -477,30 +618,11 @@ def _add_from_reads_parsers(subparsers, log_parent):
     tp.set_defaults(func=_cmd_consensus2vcf)
 
     tp = toolsub.add_parser(
-        "is_rle_model", help="Report whether a model is an RLE model.")
-    tp.add_argument("model")
-    tp.set_defaults(func=_cmd_is_rle_model)
-
-    tp = toolsub.add_parser(
-        "rlebam",
-        help="Add run-length (WL/WK) tags to a SAM stream (stdin to "
-             "stdout) from fast5s.")
-    tp.add_argument(
-        "read_index",
-        help="Two-column TSV mapping read_ids to fast5 filepaths.")
-    tp.add_argument("--workers", type=int, default=4)
-    tp.set_defaults(func=_cmd_rlebam)
-
-    tp = toolsub.add_parser(
-        "export",
-        help="Export a model as config.toml + torch weights.pt.")
-    tp.add_argument("model")
-    tp.add_argument("--output", default=None)
-    tp.add_argument("--supported_basecallers", nargs="+", default=[])
-    tp.add_argument(
-        "--force", action="store_true",
-        help="Overwrite an existing export archive.")
-    tp.set_defaults(func=_cmd_export)
+        "is_compatible",
+        help="Check a model/feature-encoder pair against a BAM.")
+    tp.add_argument("--model", required=True)
+    tp.add_argument("bam")
+    tp.set_defaults(func=_cmd_is_compatible)
 
 
 def _add_workflow_parsers(subparsers, log_parent):
@@ -680,12 +802,8 @@ def _cmd_consensus_from_features(args):
 
 def _cmd_sequence(args):
     from medaka_tpu_torch import stitch
-    stitch.stitch_to_fasta(
-        args.inputs, args.draft, args.output,
-        regions=_regions_arg(args.regions) if args.regions else None,
-        threads=args.threads, min_depth=args.min_depth,
-        fillgaps=args.fillgaps, fill_char=args.fill_char,
-        qualities=args.qualities)
+    args.regions = _regions_arg(args.regions) if args.regions else None
+    stitch.stitch(args)
     return 0
 
 
@@ -881,9 +999,7 @@ def _cmd_export(args):
 
 def _cmd_is_rle_model(args):
     from medaka_tpu_torch import models
-    from medaka_tpu_torch.features import HardRLEFeatureEncoder
-    bundle = models.open_model(models.resolve_model(args.model))
-    print(isinstance(bundle.feature_encoder, HardRLEFeatureEncoder))
+    print(_is_rle(models.open_model(models.resolve_model(args.model))))
     return 0
 
 
@@ -902,6 +1018,212 @@ def _cmd_consensus2vcf(args):
     variant.vcf_from_fasta(
         args.consensus, args.ref_fasta, args.out_prefix, regions=regions,
         chunk_size=args.chunk_size, pad=args.pad, mode=args.mode)
+    return 0
+
+
+def _cmd_list_models(args):
+    from medaka_tpu_torch import models
+    data_dirs = [
+        models.DATA_DIR,
+        os.path.join(os.path.expanduser("~"), ".medaka_tpu", "data")]
+    found = []
+    for d in data_dirs:
+        if os.path.isdir(d):
+            found.extend(sorted(os.listdir(d)))
+    print("Locally cached models:")
+    for name in found:
+        print("  " + name)
+    if not found:
+        print("  (none)")
+    return 0
+
+
+def _cmd_resolve_model(args):
+    from medaka_tpu_torch import models
+    if args.auto_model:
+        print(models.model_from_basecaller(
+            args.model, variant=args.auto_model == "variant",
+            bacteria=args.bacteria))
+        return 0
+    print(models.resolve_model(args.model))
+    return 0
+
+
+def _cmd_hdf_to_bed(args):
+    from medaka_tpu_torch import variant
+    variant.samples_to_bed(args.inputs, args.output)
+    return 0
+
+
+def _cmd_vcf2fasta(args):
+    from medaka_tpu_torch import variant
+    from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
+    from medaka_tpu_torch.vcf import VCFReader
+    reader = VCFReader(args.vcf)
+    reader.index()
+    with FastaReader(args.ref_fasta) as fa, \
+            FastaWriter(args.output) as out:
+        for name in fa.references:
+            variants = sorted(
+                reader.fetch(ref_name=name), key=lambda v: v.pos)
+            out.write(name, variant.apply_variants(variants, fa.fetch(name)))
+    return 0
+
+
+def _cmd_prepare_tagged_bam(args):
+    common.tag_merge_bams(
+        args.input_bams, args.values, args.tag, args.output,
+        threads=args.threads)
+    return 0
+
+
+def _is_rle(bundle) -> bool:
+    from medaka_tpu_torch.features import HardRLEFeatureEncoder
+    return isinstance(bundle.feature_encoder, HardRLEFeatureEncoder)
+
+
+def _cmd_get_alignment_params(args):
+    from medaka_tpu_torch import models, options
+    bundle = models.open_model(models.resolve_model(args.model))
+    print(options.alignment_params["rle" if _is_rle(bundle) else "non-rle"])
+    return 0
+
+
+def _cmd_get_model_dtypes(args):
+    from medaka_tpu_torch import models
+    bundle = models.open_model(models.resolve_model(args.model))
+    print(list(getattr(bundle.feature_encoder, "dtypes", ("",))))
+    return 0
+
+
+def _cmd_download_models(args):
+    from medaka_tpu_torch import models, options
+    rc = 0
+    for name in (args.models or options.current_models):
+        try:
+            print(models.download_model(name))
+        except models.DownloadError as e:
+            print("FAILED {}: {}".format(name, e))
+            rc = 1
+    return rc
+
+
+def _cmd_pileup_counts(args):
+    from timeit import default_timer as now
+
+    from medaka_tpu_torch.features import pileup_counts
+    region = common.Region.from_string(args.region)
+    t0 = now()
+    results = pileup_counts(
+        region, args.bam, dtype_prefixes=args.dtypes,
+        num_qstrat=args.num_qstrat)
+    t1 = now()
+    n_cols = sum(len(p) for _c, p in results)
+    print("pileup time: {:.3f}s ({} columns, {} blocks)".format(
+        t1 - t0, n_cols, len(results)))
+    if args.print_rows:
+        for counts, positions in results:
+            for pos, row in zip(positions, counts):
+                print("(%d, %d)\t" % (pos["major"], pos["minor"])
+                      + "\t".join(str(x) for x in row))
+    return 0
+
+
+def _cmd_haploid2diploid(args):
+    from medaka_tpu_torch import vcf as vcf_mod
+    vcf_mod.haploid2diploid(
+        args.vcf1, args.vcf2, args.ref_fasta, args.vcfout,
+        adjacent=args.adjacent, discard_phase=args.discard_phase,
+        split_mnp_records=args.split_mnp)
+    return 0
+
+
+def _cmd_diploid2haploid(args):
+    from medaka_tpu_torch import vcf as vcf_mod
+    print("\n".join(vcf_mod.split_variants(args.vcf, trim=not args.notrim)))
+    return 0
+
+
+def _cmd_classify_variants(args):
+    from medaka_tpu_torch import vcf as vcf_mod
+    vcf_mod.classify_variants(args)
+    return 0
+
+
+def _cmd_vcf2tsv(args):
+    from medaka_tpu_torch import vcf as vcf_mod
+    print(vcf_mod.vcf2tsv(args))
+    return 0
+
+
+def _cmd_homozygous_regions(args):
+    from medaka_tpu_torch import vcf as vcf_mod
+    vcf_mod.get_homozygous_regions(
+        args.vcf, args.region, min_len=args.min_len, suffix=args.suffix)
+    return 0
+
+
+def _cmd_is_compatible(args):
+    from medaka_tpu_torch import models
+    from medaka_tpu_torch.io.bam import BamReader
+    bundle = models.open_model(models.resolve_model(args.model))
+    fenc = bundle.feature_encoder
+    bundle.model.check_feature_encoder_compatibility(fenc)
+    # a model reading dwells needs the BAM's reads to carry move tables
+    if getattr(fenc, "include_dwells", False):
+        with BamReader(args.bam) as br:
+            for rec in br.fetch(br.references[0]):
+                if "mv" not in rec.tags:
+                    print("Model requires dwells but BAM reads lack mv "
+                          "tags.", file=sys.stderr)
+                    return 1
+                break
+    print("Compatible.")
+    return 0
+
+
+def counts_entry(argv=None):
+    """``medaka_tpu_torch_counts`` console script: ``tools pileup_counts
+    BAM REGION [--print ...]``."""
+    return main(["tools", "pileup_counts"] + list(
+        sys.argv[1:] if argv is None else argv))
+
+
+def version_report(argv=None):
+    """``medaka_tpu_torch_version_report`` console script: the port's,
+    torch's and CUDA's versions, each visible GPU (or that CUDA is
+    unavailable), whether the native library loads and whether ``nvcc``
+    is on the path. A report: it launches nothing."""
+    del argv
+    import torch
+
+    from medaka_tpu_torch import native
+    from medaka_tpu_torch.ops import cuda_build
+    print("medaka_tpu_torch {}".format(__version__))
+    print("torch {} cuda {}".format(torch.__version__, torch.version.cuda))
+    if torch.cuda.is_available():
+        names = [torch.cuda.get_device_name(i)
+                 for i in range(torch.cuda.device_count())]
+        for name in sorted(set(names)):
+            print("device: {} x{}".format(name, names.count(name)))
+    else:
+        print("device: CUDA unavailable")
+    print("native library: {}".format(
+        "ok" if native.available() else "UNAVAILABLE (g++ missing?)"))
+    try:
+        nvcc = cuda_build.find_nvcc()
+    except RuntimeError:
+        nvcc = "not found"
+    print("nvcc: {}".format(nvcc))
+    return 0
+
+
+def data_path(argv=None):
+    """``medaka_tpu_torch_data_path`` console script: the bundled model
+    store (``options.model_stores[0]``)."""
+    del argv
+    from medaka_tpu_torch import options
+    print(options.model_stores[0])
     return 0
 
 

@@ -15,7 +15,7 @@ import enum
 import itertools
 import logging
 import re
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -110,6 +110,65 @@ def rle(array) -> np.ndarray:
     out["length"] = np.diff(np.concatenate((starts, [n])))
     out["value"] = array[starts]
     return out
+
+
+def read_key_value_tsv(fname: str) -> dict:
+    """Read a two-column TSV into a key -> value dict.
+
+    Equivalent of the reference's C-backed ``read_key_value``
+    (``common.py:991-1011`` / ``src/medaka_common.c``); used by the
+    ``rlebam`` read index.
+    """
+    result = {}
+    with open(fname) as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            key, value = line.split("\t", 1)
+            result[key] = value
+    return result
+
+
+def sliding_window(a: np.ndarray, window: int = 3, step: int = 1,
+                   axis: int = 0):
+    """Yield overlapping windows of an array along ``axis``.
+
+    The trailing remainder (if any) is emitted as a final full-size window
+    anchored at the array end, matching reference ``common.py:800-820``.
+    """
+    index = [slice(None)] * a.ndim
+    end = 0
+    for start in range(0, a.shape[axis] - window + 1, step):
+        end = start + window
+        index[axis] = slice(start, end)
+        yield a[tuple(index)]
+    if a.shape[axis] > end:
+        index[axis] = slice(a.shape[axis] - window, a.shape[axis])
+        yield a[tuple(index)]
+
+
+def grouper(iterable, batch_size: int = 4):
+    """Yield lists of up to ``batch_size`` items (no padding)."""
+    it = iter(iterable)
+    while True:
+        batch = list(itertools.islice(it, batch_size))
+        if not batch:
+            return
+        yield batch
+
+
+def roundrobin(*iterables):
+    """Interleave items from several iterables."""
+    pending = len(iterables)
+    nexts = itertools.cycle(iter(it).__next__ for it in iterables)
+    while pending:
+        try:
+            for nxt in nexts:
+                yield nxt()
+        except StopIteration:
+            pending -= 1
+            nexts = itertools.cycle(itertools.islice(nexts, pending))
 
 
 def _version_key(text: str):
@@ -234,6 +293,11 @@ class Region(tuple):
         a0, a1 = limits(self)
         b0, b1 = limits(other)
         return a0 < b1 and a1 > b0
+
+
+def ref_name_from_region_str(region_strs) -> Tuple[str, ...]:
+    """Return unique reference names from region strings."""
+    return tuple({Region.from_string(r).ref_name for r in region_strs})
 
 
 # ---------------------------------------------------------------------------
@@ -658,7 +722,7 @@ def get_bam_regions(bam, regions=None) -> List["Region"]:
 
 
 
-def tag_merge_bams(input_bams, values, tag, output):
+def tag_merge_bams(input_bams, values, tag, output, threads: int = 1):
     """Tag reads of several BAMs and merge them (reference
     ``common.py:1162-1210``).
 
@@ -666,11 +730,14 @@ def tag_merge_bams(input_bams, values, tag, output):
     :param values: one tag value per input BAM.
     :param tag: two-letter tag name (e.g. 'HP').
     :param output: merged, sorted, indexed BAM path.
+    :param threads: accepted for ``medaka_tpu``'s signature; unused, as
+        there (the merge is one in-memory sort).
 
     .. note:: all records are held in memory for the merge sort
         (``write_bam`` sorts the full list), bounding inputs to what fits
         in RAM, as in ``medaka_tpu``.
     """
+    del threads
     import os
 
     from medaka_tpu_torch.io.bam import BamReader, record_with_tag, \

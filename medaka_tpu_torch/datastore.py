@@ -6,7 +6,7 @@ a probability file written by either package stitches with the other:
 - :class:`DataStore` — one HDF5 file holding ``samples/data/<name>/{...}``
   datasets plus metadata stored as JSON in the ``meta_json/`` group, read
   and written with :mod:`medaka_tpu_torch.io.hdf5` (no h5py), its samples
-  optionally gzip-1 compressed as reference medaka writes them. The
+  optionally gzip-1 compressed as reference medaka writes them, or lzf. The
   reference's pickled metadata (``meta/``) and sample registry are read
   through :mod:`medaka_tpu_torch.compat`; where ``meta_json/`` holds a key
   too, it wins. A pickle that does not convert raises (``medaka_tpu``
@@ -56,14 +56,14 @@ class DataStore:
         :param mode: 'r', 'w', or 'a' (appends to an existing file: its
             samples, registry and metadata are loaded and extended).
         :param compression: None (positions are narrowed to int32/int16 on
-            disk, uncompressed) or 'gzip' (level 1, the reference's
-            codec) for the samples' arrays; 'lzf' raises.
+            disk, uncompressed), 'gzip' (level 1, the reference's codec)
+            or 'lzf' (h5py's filter 32000) for the samples' arrays; any
+            other value raises.
         """
-        if compression not in (None, "gzip"):
+        if compression not in (None, "gzip", "lzf"):
             raise NotImplementedError(
-                "DataStore compression {!r} is not ported to "
-                "medaka_tpu_torch (gzip is; lzf stays in queue 1 item 7 "
-                "of ROADMAP.md).".format(compression))
+                "DataStore compression {!r} is not supported (None, gzip "
+                "and lzf are).".format(compression))
         self.filename = filename
         self.mode = mode
         self.compression = compression

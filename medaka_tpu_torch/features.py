@@ -307,9 +307,9 @@ def _weibull_fractions(rec: BamRecord, qpos: np.ndarray, num_qstrat: int,
 
 
 def pileup_counts(
-        region: Region, bam, dtype_prefixes=None, tag_name=None,
-        tag_value=None, keep_missing=False, num_qstrat=1, read_group=None,
-        min_mapq=1, weibull_summation=False):
+        region: Region, bam, dtype_prefixes=None, region_split=100000,
+        workers=8, tag_name=None, tag_value=None, keep_missing=False,
+        num_qstrat=1, weibull_summation=False, read_group=None, min_mapq=1):
     """Create pileup count matrices for a region.
 
     :param region: `Region` to process.
@@ -320,6 +320,10 @@ def pileup_counts(
     :param weibull_summation: base counts are the reads' WL/WK Weibull
         partial counts over the ``num_qstrat`` run lengths, times
         :data:`WEIBULL_SCALE` (the numpy path, read by read).
+    :param region_split: accepted for ``medaka_tpu``'s signature; unused,
+        as there: the native kernel streams the whole region in one pass.
+    :param workers: accepted for ``medaka_tpu``'s signature; unused (see
+        ``region_split``).
 
     :returns: list of (counts, positions) tuples, one per contiguous block
         of covered reference positions. ``counts`` has shape
@@ -330,6 +334,7 @@ def pileup_counts(
     Matches ``calculate_pileup`` (``src/medaka_counts.c:199-372``) composed
     with the chunk-contiguity fixup of ``medaka/features.py:111-164``.
     """
+    del region_split, workers  # medaka_tpu's signature only
     if dtype_prefixes is None or isinstance(dtype_prefixes, str):
         dtypes = [""]
     else:

@@ -62,6 +62,15 @@ def decompress_block(data: bytes, offset: int):
     return payload, offset + bsize
 
 
+def is_bgzf(path: str) -> bool:
+    """Cheap test whether a file looks like BGZF."""
+    with open(path, "rb") as fh:
+        head = fh.read(18)
+    if len(head) < 18 or head[:2] != b"\x1f\x8b" or not head[3] & 4:
+        return False
+    return head[12] == 66 and head[13] == 67
+
+
 class BgzfReader:
     """Random-access reader over a BGZF file.
 

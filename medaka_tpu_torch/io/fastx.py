@@ -1,6 +1,7 @@
 """FASTA/FASTQ reading and writing (plain, gzip or BGZF compressed).
 
-Counterpart of ``medaka_tpu/io/fastx.py``.
+Counterpart of ``medaka_tpu/io/fastx.py``: ``read_fastx``,
+``FastaReader``, ``FastaWriter``, ``FastqWriter`` and ``write_fai``.
 """
 from __future__ import annotations
 
@@ -168,3 +169,60 @@ class FastaWriter:
     def __exit__(self, *exc):
         self.close()
 
+
+class FastqWriter:
+    """Write FASTQ records."""
+
+    def __init__(self, path: str):
+        self._fh = open(path, "w")
+
+    def write(self, name: str, sequence: str, quality: str,
+              comment: str = None):
+        """Append one record."""
+        header = "@" + name + ((" " + comment) if comment else "")
+        self._fh.write(
+            "{}\n{}\n+\n{}\n".format(header, sequence, quality))
+
+    def close(self):  # noqa: D102
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def write_fai(path: str, out_path: Optional[str] = None) -> str:
+    """Write a .fai index for an (uncompressed) FASTA file."""
+    out_path = out_path or path + ".fai"
+    entries = []
+    with open(path, "rb") as fh:
+        name = None
+        seq_start = 0
+        seq_len = 0
+        line_blen = 0
+        line_len = 0
+        offset = 0
+        for line in fh:
+            if line.startswith(b">"):
+                if name is not None:
+                    entries.append(
+                        (name, seq_len, seq_start, line_blen, line_len))
+                name = line[1:].split()[0].decode()
+                seq_start = offset + len(line)
+                seq_len = 0
+                line_blen = 0
+                line_len = 0
+            else:
+                blen = len(line.rstrip(b"\r\n"))
+                seq_len += blen
+                if line_blen == 0:
+                    line_blen, line_len = blen, len(line)
+            offset += len(line)
+        if name is not None:
+            entries.append((name, seq_len, seq_start, line_blen, line_len))
+    with open(out_path, "w") as fh:
+        for e in entries:
+            fh.write("\t".join(map(str, e)) + "\n")
+    return out_path

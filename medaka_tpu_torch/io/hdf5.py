@@ -12,13 +12,19 @@ settings.
 
 Chunked datasets are read through their version-1 B-tree chunk index,
 every level of it, with edge chunks cut to the dataset's bounds, and
-through their filter pipeline: deflate (gzip, ``zlib``) and shuffle (a
-byte transpose). Any other filter (lzf, vbz, szip, fletcher32, ...)
+through their filter pipeline: deflate (gzip, ``zlib``), shuffle (a
+byte transpose) and lzf (filter 32000, h5py's; decoded by the native
+library's ``lzf.cpp`` to the size of the chunk, and skipped where the
+chunk's filter mask marks it as not applied, as h5py stores a chunk that
+lzf does not shrink). Any other filter (vbz, szip, fletcher32, ...)
 raises :class:`HDF5Error` naming it. ``create_dataset(...,
 compression="gzip")`` writes a dataset deflated at level 1, as reference
-medaka does, as one chunk covering the whole dataset (one B-tree leaf
-entry): a chunk's size is a 32-bit field, so such a dataset must stay
-under 4 GiB once compressed.
+medaka does, and ``compression="lzf"`` one compressed with lzf under
+h5py's pipeline entry (optional, client data 4, 261 and the chunk's
+bytes; a chunk lzf does not shrink is stored raw with its mask bit set),
+each as one chunk covering the whole dataset (one B-tree leaf entry): a
+chunk's size is a 32-bit field, so such a dataset must stay under 4 GiB
+once compressed.
 
 The writer appends each dataset's raw bytes as it is created and writes
 the groups' metadata (object headers, local heaps, symbol-table nodes and
@@ -56,7 +62,10 @@ _LAYOUT, _FILTERS, _ATTRIBUTE = 0x8, 0xB, 0xC
 _CONTINUATION, _SYMBOL_TABLE = 0x10, 0x11
 
 # filters of a dataset's pipeline
-_DEFLATE, _SHUFFLE = 1, 2
+_DEFLATE, _SHUFFLE, _LZF = 1, 2, 32000
+#: h5py's lzf filter entry: its version, liblzf's version (then the
+#: chunk's size in bytes)
+_LZF_CLIENT_DATA = (4, 261)
 #: filters this module cannot decode, named in its errors
 FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
                 5: "nbit", 6: "scaleoffset", 307: "bzip2", 32000: "lzf",
@@ -212,7 +221,7 @@ class Dataset:
         for size, mask, offset, address in self._file._chunk_entries(
                 btree, rank + 1):
             raw = _unfilter(self._file._read(address, size), self._filters,
-                            mask, itemsize)
+                            mask, itemsize, chunk_bytes)
             if len(raw) != chunk_bytes:
                 raise HDF5Error("chunk at {} holds {} bytes, not {}".format(
                     address, len(raw), chunk_bytes))
@@ -229,7 +238,7 @@ class Dataset:
 def _decode_filters(buf: bytes):
     """[(filter id, client data)] of a filter pipeline message (versions
     1 and 2), in the order the writer applied them; raises naming any
-    filter other than deflate and shuffle."""
+    filter other than deflate, shuffle and lzf."""
     version, n = buf[0], buf[1]
     if version not in (1, 2):
         raise HDF5Error("filter pipeline message version {}".format(version))
@@ -249,23 +258,27 @@ def _decode_filters(buf: bytes):
         p += 4 * n_values
         if version == 1 and n_values % 2:
             p += 4
-        if fid not in (_DEFLATE, _SHUFFLE):
+        if fid not in (_DEFLATE, _SHUFFLE, _LZF):
             raise HDF5Error("the HDF5 filter {} ({}) is not supported (only "
-                            "deflate and shuffle are)".format(
+                            "deflate, shuffle and lzf are)".format(
                                 FILTER_NAMES.get(fid, "unknown"), fid))
         out.append((fid, values))
     return out
 
 
-def _unfilter(raw: bytes, filters, mask: int, itemsize: int) -> bytes:
+def _unfilter(raw: bytes, filters, mask: int, itemsize: int,
+              chunk_bytes: int) -> bytes:
     """Undo a chunk's filters, last applied first; bit i of ``mask``
-    marks filter i as skipped for this chunk."""
+    marks filter i as skipped for this chunk. The other filters keep a
+    chunk's size, so lzf decodes to the chunk's ``chunk_bytes``."""
     for i in reversed(range(len(filters))):
         if mask & (1 << i):
             continue
         fid, values = filters[i]
         if fid == _DEFLATE:
             raw = zlib.decompress(raw)
+        elif fid == _LZF:
+            raw = _lzf_decode(raw, chunk_bytes)
         else:
             size = values[0] if values else itemsize
             n = len(raw) // size
@@ -275,10 +288,27 @@ def _unfilter(raw: bytes, filters, mask: int, itemsize: int) -> bytes:
     return raw
 
 
+def _lzf_decode(raw: bytes, size: int) -> bytes:
+    from medaka_tpu_torch import native
+    try:
+        return native.lzf_decompress(raw, size)
+    except ValueError as e:
+        raise HDF5Error("lzf chunk: {}".format(e)) from e
+
+
 def _encode_filters_deflate(level: int = 1) -> bytes:
     """A version 1 filter pipeline message of deflate at ``level``."""
     return struct.pack("<BB6x", 1, 1) + struct.pack(
         "<HHHHI4x", _DEFLATE, 0, 0, 1, level)
+
+
+def _encode_filters_lzf(chunk_bytes: int) -> bytes:
+    """A version 1 filter pipeline message of lzf as h5py writes it: named
+    "lzf", optional (flags 1), client data (4, 261, chunk bytes)."""
+    values = _LZF_CLIENT_DATA + (chunk_bytes,)
+    return struct.pack("<BB6x", 1, 1) + struct.pack(
+        "<HHHH", _LZF, 8, 1, len(values)) + b"lzf".ljust(8, b"\0") + \
+        struct.pack("<3I4x", *values)
 
 
 def _decode_values(f: "File", raw: bytes, dtype, shape):
@@ -414,22 +444,26 @@ class Group:
 
 class _Written:
     """A dataset created by this writer: its messages and raw bytes
-    (``deflated``: one gzip chunk of ``nbytes`` at ``address``)."""
+    (``codec`` "gzip" or "lzf": one chunk of ``nbytes`` at ``address``,
+    its filter skipped where ``mask`` is 1)."""
 
     def __init__(self, f: "File", dtype, shape, address, nbytes,
-                 compact=None, deflated=False):
+                 compact=None, codec=None, mask=0):
         self._file = f
         self.dtype, self.shape = dtype, shape
         self.address, self.nbytes, self.compact = address, nbytes, compact
-        self.deflated = deflated
+        self.codec, self.mask = codec, mask
 
     def __getitem__(self, key):
         if key != () and key != Ellipsis:
             raise HDF5Error("only whole-dataset reads are supported")
         raw = self.compact if self.compact is not None else \
             self._file._read(self.address, self.nbytes)
-        if self.deflated:
+        if self.codec == "gzip":
             raw = zlib.decompress(raw)
+        elif self.codec == "lzf" and not self.mask:
+            raw = _lzf_decode(raw, self.dtype.itemsize * int(np.prod(
+                self.shape, dtype=np.int64)))
         return _decode_values(self._file, raw, self.dtype, self.shape)
 
 
@@ -723,14 +757,16 @@ class File(Group):
     def create_dataset(self, path: str, data, compression=None) -> None:
         """Write ``data`` (array, bytes or str) as the dataset ``path``.
 
-        :param compression: None, or "gzip" for one deflated chunk (level
-            1) when ``data`` is an array with at least one dimension and
-            one element; any other value raises.
+        :param compression: None, "gzip" for one deflated chunk (level 1)
+            or "lzf" for one lzf chunk (stored raw, its filter marked as
+            skipped, where lzf does not shrink it), when ``data`` is an
+            array with at least one dimension and one element; any other
+            value raises.
         """
         self._writable()
-        if compression not in (None, "gzip"):
+        if compression not in (None, "gzip", "lzf"):
             raise HDF5Error("compression {!r} is not supported (only "
-                            "gzip is)".format(compression))
+                            "gzip and lzf are)".format(compression))
         if isinstance(data, str):
             data = data.encode()
         if isinstance(data, bytes):
@@ -740,24 +776,32 @@ class File(Group):
             arr = arr.copy()
         _encode_datatype(arr.dtype)          # refuse unsupported types now
         raw = arr.tobytes()
-        deflate = compression == "gzip" and arr.ndim > 0 and arr.size > 0
-        if deflate:
+        codec = compression if arr.ndim > 0 and arr.size > 0 else None
+        mask = 0
+        if codec == "gzip":
             raw = zlib.compress(raw, 1)
-            if len(raw) >= 2 ** 32:
-                raise HDF5Error("{}: a gzip chunk of {} bytes does not fit "
-                                "the chunk index's 32-bit size".format(
-                                    path, len(raw)))
+        elif codec == "lzf":
+            from medaka_tpu_torch import native
+            packed = native.lzf_compress(raw)
+            if len(packed) < len(raw):
+                raw = packed
+            else:
+                mask = 1
+        if codec is not None and len(raw) >= 2 ** 32:
+            raise HDF5Error("{}: a {} chunk of {} bytes does not fit the "
+                            "chunk index's 32-bit size".format(
+                                path, codec, len(raw)))
         with self._lock:
             parent, name = self._parent(path, create=True)
             if name in parent:
                 raise HDF5Error("{} already exists".format(path))
-            if len(raw) <= 64 and not deflate:
+            if len(raw) <= 64 and codec is None:
                 parent[name] = _Written(self, arr.dtype, arr.shape, UNDEF,
                                         len(raw), compact=raw)
             else:
                 parent[name] = _Written(self, arr.dtype, arr.shape,
                                         self._append(raw), len(raw),
-                                        deflated=deflate)
+                                        codec=codec, mask=mask)
 
     def __setitem__(self, path: str, value):
         self.create_dataset(path, value)
@@ -808,12 +852,12 @@ class File(Group):
                            len(body)) + bytes(body)
 
     def _chunk_btree(self, ds: _Written) -> int:
-        """The one-leaf chunk B-tree of a deflated dataset: its chunk
+        """The one-leaf chunk B-tree of a compressed dataset: its chunk
         starts at the origin and its right key at the chunk's far corner
         (in elements; the element size in the last dimension), the node
         padded to the 2K entries readers expect."""
         ndims = len(ds.shape) + 1
-        left = struct.pack("<II{}Q".format(ndims), ds.nbytes, 0,
+        left = struct.pack("<II{}Q".format(ndims), ds.nbytes, ds.mask,
                            *([0] * ndims))
         right = struct.pack("<II{}Q".format(ndims), 0, 0, *ds.shape,
                             ds.dtype.itemsize)
@@ -831,14 +875,17 @@ class File(Group):
         if ds.compact is not None:
             fill = bytes([2, 1, 2, 0])
             layout = struct.pack("<BBH", 3, 0, len(ds.compact)) + ds.compact
-        elif ds.deflated:
+        elif ds.codec is not None:
             # incremental allocation, as h5py writes chunked datasets
             fill = bytes([2, 2, 2, 0])
             layout = struct.pack("<BBBQ", 3, 2, len(ds.shape) + 1,
                                  self._chunk_btree(ds)) + struct.pack(
                 "<{}I".format(len(ds.shape) + 1), *ds.shape,
                 ds.dtype.itemsize)
-            extra = [(_FILTERS, _encode_filters_deflate())]
+            extra = [(_FILTERS, _encode_filters_deflate()
+                      if ds.codec == "gzip" else _encode_filters_lzf(
+                          ds.dtype.itemsize * int(np.prod(
+                              ds.shape, dtype=np.int64))))]
         else:
             fill = bytes([2, 1, 2, 0])
             layout = struct.pack("<BBQQ", 3, 1, ds.address, ds.nbytes)

@@ -1,7 +1,8 @@
 """Model registry, bundle loading and saving.
 
 Counterpart of ``medaka_tpu/models/__init__.py`` (``load_model``,
-``open_model``, ``save_model``, ``resolve_model``, ``ModelBundle``, the
+``open_model``, ``save_model``, ``resolve_model`` with its download,
+``download_model``, ``model_from_basecaller``, ``ModelBundle``, the
 registry, ``DEFAULT_MODEL_DICT``). Bundles
 are ``tar.gz`` archives of ``model/config.json`` (architecture, feature
 encoder and label scheme configs) and ``model/weights.npz`` (the
@@ -23,6 +24,8 @@ import tarfile
 from typing import Dict, Optional
 
 import numpy as np
+
+from medaka_tpu_torch import common, options
 
 model_classes = {}
 
@@ -181,23 +184,86 @@ def open_model(path: str) -> ModelBundle:
     return load_model(path)
 
 
-#: the bundles that ship with ``medaka_tpu`` (read by path)
-DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                        "..", "medaka_tpu", "data")
+#: the bundles that ship with ``medaka_tpu`` (read by path), the first
+#: of ``options.model_stores``
+DATA_DIR = options.model_stores[0]
 
 
-def resolve_model(model: str) -> str:
+def _default_fetcher(url: str) -> bytes:
+    """Fetch a URL's bytes (http(s):// and file://)."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        return resp.read()
+
+
+class DownloadError(RuntimeError):
+    """Raised when a model cannot be fetched or validated."""
+
+
+def download_model(name: str, fetcher=None, cache_dir: Optional[str] = None,
+                   url_template: Optional[str] = None) -> str:
+    """Download and cache a named model (``medaka_tpu.models.download_model``,
+    reference ``models.py:39-139``).
+
+    The file ``<name>_model_pt.tar.gz`` is fetched from ``url_template``
+    (default :data:`options.model_url_template`; ``file://`` URLs work
+    too), written to a ``.part`` file in ``cache_dir``, validated by
+    :func:`load_model`, then moved into place; a blob that does not load
+    is deleted and its error re-raised.
+
+    :param name: model name, e.g. ``r1041_e82_400bps_sup_v5.0.0``.
+    :param fetcher: callable url -> bytes (default urllib).
+    :param cache_dir: target directory (default the user model store,
+        ``options.model_stores[-1]``).
+    :returns: path of the cached model file.
+    """
+    import tempfile
+
+    logger = common.get_named_logger("ModelFetch")
+    if fetcher is None:
+        fetcher = _default_fetcher
+    if cache_dir is None:
+        cache_dir = options.model_stores[-1]
+    template = url_template or options.model_url_template
+    fname = name + "_model_pt.tar.gz"
+    url = template.format(fname=fname)
+    logger.info("Fetching %s", url)
+    try:
+        blob = fetcher(url)
+    except Exception as e:
+        raise DownloadError(
+            "Could not fetch model {!r} from {} ({}). This environment "
+            "may lack network egress; place the file under {} "
+            "manually.".format(name, url, e, cache_dir)) from e
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = tempfile.NamedTemporaryFile(
+        dir=cache_dir, suffix=".part", delete=False)
+    try:
+        tmp.write(blob)
+        tmp.close()
+        load_model(tmp.name)  # validation: must be a loadable bundle
+        target = os.path.join(cache_dir, fname)
+        os.replace(tmp.name, target)
+    except Exception:
+        os.unlink(tmp.name)
+        raise
+    logger.info("Cached %s", target)
+    return target
+
+
+def resolve_model(model: str, fetcher=None) -> str:
     """Resolve a model name or path to a loadable file path.
 
     The search order of ``medaka_tpu.models.resolve_model``: the path as
     given, then :data:`DATA_DIR` and the user's ``~/.medaka_tpu/data``,
-    each with the suffixes ``_model_pt.tar.gz``, ``.tar.gz`` and none. A
-    deprecated name raises ``options.DeprecationError``; a name found
-    nowhere raises ``FileNotFoundError``, known model or not: the port
-    downloads nothing.
+    each with the suffixes ``_model_pt.tar.gz``, ``.tar.gz`` and none,
+    then a download into the user store for a known model name
+    (:func:`download_model` with ``fetcher``; a failed download raises
+    ``FileNotFoundError``). A deprecated name raises
+    ``options.DeprecationError``; any other name found nowhere raises
+    ``FileNotFoundError``.
     """
-    from medaka_tpu_torch import options
-
     if os.path.exists(model):
         return model
     if model in options.deprecated_models:
@@ -209,12 +275,103 @@ def resolve_model(model: str) -> str:
             if os.path.exists(candidate):
                 return candidate
     if model in options.known_models:
-        raise FileNotFoundError(
-            "Model {!r} is not on disk; place its file under {} (the port "
-            "downloads nothing).".format(model, home))
+        try:
+            return download_model(model, fetcher=fetcher)
+        except DownloadError as e:
+            raise FileNotFoundError(str(e)) from e
     raise FileNotFoundError(
         "Could not resolve model {!r}; provide a model file path.".format(
             model))
+
+
+def _models_from_bam(fname):
+    """The ``basecall_model=`` values of the ``DS`` fields of a BAM's
+    ``@RG`` header lines."""
+    from medaka_tpu_torch.io.bam import BamReader
+    found = set()
+    with BamReader(fname) as reader:
+        for line in reader.header_text.splitlines():
+            if not line.startswith("@RG"):
+                continue
+            for field in line.split("\t"):
+                if field.startswith("DS:"):
+                    ds = field[3:]
+                    if "basecall_model=" in ds:
+                        found.add(ds.split("basecall_model=")[1].split()[0])
+    return found
+
+
+def _models_from_fastq(fname):
+    """The basecaller models named in the comments of a FASTQ's first 100
+    records: ``basecall_model_version_id=<model>``, or a catalogue name
+    inside an ``RG:Z:<runid>_<model>_<barcode>`` tag."""
+    import itertools
+
+    from medaka_tpu_torch.io.fastx import read_fastx
+    # longest names first: versioned entries must beat their
+    # unversioned prefixes (e.g. ..._hac@v4.2.0 over ..._hac)
+    known = sorted(options.basecaller_models, key=len, reverse=True)
+    found = set()
+    for rec in itertools.islice(read_fastx(fname), 100):
+        comment = rec.comment or ""
+        if "basecall_model_version_id=" in comment:
+            found.add(
+                comment.split("basecall_model_version_id=")[1].split()[0])
+            continue
+        for name in known:
+            if name in comment:
+                found.add(name)
+                break
+    return found
+
+
+def model_from_basecaller(fname, variant=False, bacteria=False):
+    """The model for a basecaller output file
+    (``medaka_tpu.models.model_from_basecaller``, reference
+    ``models.py:142-256``).
+
+    A BAM's ``@RG`` ``DS`` fields are scanned for ``basecall_model=``,
+    else a FASTQ's first 100 comments; the basecaller is looked up in
+    ``options.basecaller_models``. Raises ``IOError`` when the file is
+    neither, ``ValueError`` for zero or several basecallers or a missing
+    variant model and ``KeyError`` for an unknown basecaller.
+    ``bacteria`` picks the bacterial methylation model where the
+    consensus model is compatible with it, else warns and keeps it.
+    """
+    logger = common.get_named_logger("MdlInspect")
+    try:
+        found = _models_from_bam(fname)
+    except Exception:
+        found = set()
+    if not found:
+        try:
+            found = _models_from_fastq(fname)
+        except Exception:
+            raise IOError(
+                "Failed to parse basecaller models from input file.")
+    if len(found) != 1:
+        raise ValueError(
+            "Input file did not contain precisely 1 basecaller model "
+            "reference.")
+    basecaller = found.pop()
+    if basecaller not in options.basecaller_models:
+        raise KeyError(
+            "Unknown basecaller model. Please provide a model "
+            "explicitly using --model.")
+    consensus, var = options.basecaller_models[basecaller]
+    model = var if variant else consensus
+    if model is None:
+        raise ValueError(
+            "No {} model available for basecaller {}.".format(
+                "variant" if variant else "consensus", basecaller))
+    if bacteria and not variant:
+        if model in options.bact_methyl_compatible_models:
+            model = options.bact_methyl_model
+        else:
+            logger.warning(
+                "--bacteria specified but input data was not compatible; "
+                "using default model %s.", model)
+    return model
 
 
 #: the ``config_version`` of :func:`export_model`'s ``config.toml``

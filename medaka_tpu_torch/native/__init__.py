@@ -7,8 +7,9 @@ points the port uses: affine-gap pairwise alignment (:func:`align`,
 workflows), the read mapper (:class:`Mapper`), the pileup kernel
 (:func:`pileup_counts_raw`, :func:`counts_norm_total`), the read-level
 matrix (:func:`read_matrix_raw`), the BAM record scan
-(:func:`bam_scan_filter`) and multi-threaded BGZF inflation
-(``bgzf_*``). The shared library is built on first use with g++ from
+(:func:`bam_scan_filter`), multi-threaded BGZF inflation (``bgzf_*``)
+and the LZF codec of HDF5 filter 32000 (:func:`lzf_compress`,
+:func:`lzf_decompress`, ``lzf.cpp``). The shared library is built on first use with g++ from
 ``src/`` into ``_libmtt_<source hash>.so`` beside this file; a failed
 build raises :class:`NativeBuildError`.
 """
@@ -24,7 +25,7 @@ from typing import List, Optional, Sequence
 
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "src")
 _SOURCES = ("align.cpp", "poa.cpp", "mapper.cpp", "pileup.cpp", "bgzf.cpp",
-            "bam_scan.cpp", "read_matrix.cpp")
+            "bam_scan.cpp", "read_matrix.cpp", "lzf.cpp")
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -657,3 +658,47 @@ def read_matrix_raw(records: bytes, rec_off, read_dtype, read_hap,
     return (_adopt(lib, matrix_p, (nc, nr, featlen)),
             _adopt(lib, majors_p, (nc,)), _adopt(lib, minors_p, (nc,)),
             _adopt(lib, left_p, (nr,)), _adopt(lib, right_p, (nr,)))
+
+
+def _load_lzf_symbols(lib):
+    if getattr(lib, "_lzf_ready", False):
+        return
+    for fn in (lib.mt_lzf_compress, lib.mt_lzf_decompress):
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_int64]
+    lib._lzf_ready = True
+
+
+def lzf_compress(data: bytes) -> bytes:
+    """``data`` as an LZF stream (empty for empty ``data``); it may be
+    longer than ``data``, by at most a byte every 32."""
+    lib = _load()
+    _load_lzf_symbols(lib)
+    data = bytes(data)
+    if not data:
+        return b""
+    # the worst case: every byte a literal, a control byte every 32
+    cap = len(data) + len(data) // 32 + 1
+    out = ctypes.create_string_buffer(cap)
+    n = lib.mt_lzf_compress(data, len(data), out, cap)
+    if n <= 0:
+        raise RuntimeError("LZF stream of {} bytes overran {} bytes".format(
+            len(data), cap))
+    return out.raw[:n]
+
+
+def lzf_decompress(data: bytes, size: int) -> bytes:
+    """The ``size`` bytes an LZF stream holds; raises ``ValueError`` when
+    the stream is corrupt or does not hold exactly ``size`` bytes."""
+    lib = _load()
+    _load_lzf_symbols(lib)
+    data = bytes(data)
+    out = ctypes.create_string_buffer(max(1, size))
+    n = lib.mt_lzf_decompress(data, len(data), out, size)
+    if n == -1:
+        raise ValueError("corrupt LZF stream")
+    if n != size:
+        raise ValueError("LZF stream holds {} bytes, not {}".format(
+            "more than {}".format(size) if n == -2 else n, size))
+    return out.raw[:size]

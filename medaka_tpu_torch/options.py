@@ -1,11 +1,25 @@
-"""Model catalogue: the names ``resolve_model`` knows and refuses.
+"""Model catalogue and related options.
 
-Counterpart of ``medaka_tpu/options.py``, trimmed to ``known_models``,
-``deprecated_models`` and ``DeprecationError`` (and the current, archived
-and basecaller lists ``known_models`` is built from). The port does not
-download: a known model that is not on disk is an error.
+Counterpart of ``medaka_tpu/options.py``: the basecaller -> model
+mappings and model lists (``known_models``, ``allowed_models``,
+``deprecated_models``, the bacterial methylation model), the model
+stores (``model_stores[0]`` the bundles that ship with ``medaka_tpu``,
+read by path; ``model_stores[1]`` the user store ``~/.medaka_tpu/data``,
+shared with ``medaka_tpu`` so either package finds a model the other
+cached), the download URL template and the mapper settings per model
+kind. ``models.download_model`` fetches a known model that is not on
+disk from :data:`model_url_template` (or a template the caller gives,
+``file://`` URLs included) into the user store.
 """
 from __future__ import annotations
+
+import os
+import pathlib
+
+default_models = {
+    "consensus": "r1041_e82_400bps_sup_v5.2.0",
+    "variant": "r1041_e82_400bps_sup_variant_v5.0.0",
+}
 
 current_models = [
     "r1041_e82_400bps_hac_v5.2.0",
@@ -158,6 +172,14 @@ archived_models = [
 ]
 
 
+bact_methyl_model = "r1041_e82_400bps_bacterial_methylation"
+bact_methyl_compatible_models = [
+    "r1041_e82_400bps_hac_v4.2.0", "r1041_e82_400bps_sup_v4.2.0",
+    "r1041_e82_400bps_hac_v4.3.0", "r1041_e82_400bps_sup_v4.3.0",
+    "r1041_e82_400bps_hac_v5.0.0", "r1041_e82_400bps_sup_v5.0.0",
+    "r1041_e82_400bps_hac_v5.2.0", "r1041_e82_400bps_sup_v5.2.0",
+]
+
 deprecated_models = [
     "r941_min_fast_g303", "r941_min_high_g303", "r941_min_high_g330",
     "r941_prom_fast_g303", "r941_prom_high_g303", "r941_prom_high_g330",
@@ -175,6 +197,23 @@ deprecated_models = [
 for _models in basecaller_models.values():
     archived_models.extend(m for m in _models if m is not None)
 known_models = sorted(set(current_models + archived_models))
+allowed_models = sorted(set(known_models) - set(deprecated_models))
+
+model_subdir = "data"
+model_stores = (
+    os.path.normpath(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", "medaka_tpu",
+        model_subdir)),
+    os.path.join(str(pathlib.Path.home()), ".medaka_tpu", model_subdir),
+)
+#: where the reference's model tarballs are published; ``{fname}`` is
+#: ``<model>_model_pt.tar.gz``
+model_url_template = (
+    "https://github.com/nanoporetech/medaka/raw/master/medaka/data/{fname}")
+
+alignment_params = {
+    "rle": "-M 5 -S 4 -O 2 -E 3",
+    "non-rle": "-M 2 -S 4 -O 4,24 -E 2,1"}
 
 
 class DeprecationError(ValueError):

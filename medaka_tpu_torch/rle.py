@@ -278,19 +278,6 @@ def _decorate_sam_line_star(args):
     return _decorate_sam_line(*args)
 
 
-def read_key_value_tsv(fname: str) -> dict:
-    """A two-column TSV as a key -> value dict (``medaka_tpu.common.
-    read_key_value_tsv``)."""
-    result = {}
-    with open(fname) as fh:
-        for line in fh:
-            line = line.rstrip("\n")
-            if line:
-                key, value = line.split("\t", 1)
-                result[key] = value
-    return result
-
-
 def rlebam(read_index: str, workers: int = 4, input_sam=None, output=None):
     """Decorate a SAM stream with WL/WK run-length tags from fast5 files
     (``medaka_tpu.rle.rlebam``, the ``tools rlebam`` entry).
@@ -305,7 +292,7 @@ def rlebam(read_index: str, workers: int = 4, input_sam=None, output=None):
     here.
     """
     logger = common.get_named_logger("BAMDecor")
-    index = read_key_value_tsv(read_index)
+    index = common.read_key_value_tsv(read_index)
     logger.info("Found %d reads in index", len(index))
     input_sam = sys.stdin if input_sam is None else input_sam
     output = sys.stdout if output is None else output

@@ -455,3 +455,14 @@ class DirectStitcher:
             fillgaps=self.fillgaps, fill_char=self.fill_char,
             qualities=self.qualities)
         self.draft.close()
+
+
+def stitch(args):
+    """The ``sequence`` subcommand's entry point over parsed arguments
+    whose ``regions`` are ``common.Region``s or None, as the CLI's
+    ``sequence`` passes them (``medaka_tpu.stitch.stitch``)."""
+    stitch_to_fasta(
+        args.inputs, args.draft, args.output, regions=args.regions,
+        threads=args.threads, min_depth=args.min_depth,
+        fillgaps=args.fillgaps, fill_char=args.fill_char,
+        qualities=args.qualities)

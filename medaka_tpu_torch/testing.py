@@ -15,11 +15,14 @@ against it (``plant_variants`` and ``score_vcf`` are copies of
 reads of either BAM as FASTQ in basecalled orientation, for the paths
 that start from reads and map them (``align``, ``consensus``,
 ``variant``), and :func:`placement` holds a mapped BAM to the reads' true
-starts. For the workflows: :func:`write_subreads_fasta` writes the grouped
-subreads of random molecules that ``smolecule`` reads, and
-:func:`create_str_bam` the reads of a diploid genome with planted tandem
-repeats (HP/PS-tagged or not, some below ``tandem``'s MAPQ floor), whose
-``tandem`` VCF :func:`str_genotypes` scores.
+starts. :func:`write_basecaller_fastq` and :func:`write_basecaller_bam`
+write the basecaller metadata ``models.model_from_basecaller`` reads
+(FASTQ comments in both of dorado's forms, ``@RG`` ``DS`` fields). For
+the workflows: :func:`write_subreads_fasta` writes the grouped subreads
+of random molecules that ``smolecule`` reads, and :func:`create_str_bam`
+the reads of a diploid genome with planted tandem repeats (HP/PS-tagged
+or not, some below ``tandem``'s MAPQ floor), whose ``tandem`` VCF
+:func:`str_genotypes` scores.
 
 The reference's file formats, written without h5py or medaka (the stub
 ``medaka.*`` classes they pickle are those of
@@ -717,6 +720,59 @@ def write_reads_fastq(bam, fastq):
         for fh in handles:
             fh.close()
     return truth
+
+
+def write_basecaller_fastq(path, basecallers, n_reads=8, read_len=200,
+                           seed=0, fmt="version_id"):
+    """Write a FASTQ of random reads whose comments name basecaller
+    models, for ``models.model_from_basecaller``: read i names
+    ``basecallers[i % len(basecallers)]`` as dorado writes it, either
+    ``basecall_model_version_id=<model>`` (``fmt="version_id"``) or in a
+    read-group tag ``RG:Z:<runid>_<model>_<barcode>`` (``fmt="rg"``).
+    An empty ``basecallers`` writes comments that name none."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as fh:
+        for i in range(n_reads):
+            seq = _SYNTH_BASES[rng.integers(0, 4, read_len)].tobytes()
+            comment = "runid=4f2e{:04d}".format(seed)
+            if basecallers:
+                name = basecallers[i % len(basecallers)]
+                comment += (
+                    " basecall_model_version_id={}".format(name)
+                    if fmt == "version_id" else
+                    " RG:Z:4f2e{:04d}_{}_barcode{:02d}".format(
+                        seed, name, i % 4))
+            fh.write("@read{} {}\n{}\n+\n{}\n".format(
+                i, comment, seq.decode(), "5" * read_len))
+    return path
+
+
+def write_basecaller_bam(src, dst, basecallers, max_records=200):
+    """Write a BAM of the first ``max_records`` records of ``src`` whose
+    header has one ``@RG`` line a basecaller model, its ``DS`` field
+    ``runid=... basecall_model=<model>`` as dorado writes it (an empty
+    ``basecallers`` writes one ``@RG`` without a model), each record
+    tagged with the first read group."""
+    with BamReader(src) as reader:
+        references = list(zip(reader.references, reader.lengths))
+        records = []
+        for rec in reader:
+            if len(records) >= max_records:
+                break
+            records.append(rec)
+    lines = ["@HD\tVN:1.6\tSO:coordinate"] + [
+        "@SQ\tSN:{}\tLN:{}".format(n, l) for n, l in references]
+    groups = []
+    for i, name in enumerate(basecallers or [None]):
+        rg = "4f2e_rg{}".format(i)
+        groups.append(rg)
+        ds = "runid=4f2e" + (
+            " basecall_model={}".format(name) if name else "")
+        lines.append("@RG\tID:{}\tDS:{}\tSM:sample".format(rg, ds))
+    from medaka_tpu_torch.io.bam import record_with_tag
+    write_bam(dst, [record_with_tag(r, "RG", groups[0]) for r in records],
+              references, header_text="\n".join(lines) + "\n")
+    return dst
 
 
 def placement(bam, truth, slack=50):

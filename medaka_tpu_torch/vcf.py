@@ -1,20 +1,23 @@
 """Variant Call Format data structures and IO.
 
-Counterpart of ``medaka_tpu/vcf.py``, trimmed to what ``variant`` and
-``tools annotate`` need: the INFO column's parse and format,
+Counterpart of ``medaka_tpu/vcf.py``: the INFO column's parse and format,
 ``MetaInfo``, ``GenotypeData``, ``Variant`` (trim, normalize,
 split_haplotypes, from_text, gt, alleles, to_dict, deep_copy),
 ``VCFWriter``, ``VCFReader`` (index, fetch) and the read-support
 annotator (``annotate_vcf_n_reads``, aligning spanning reads to the
-padded haplotypes with the native aligner). The header carries
-``medaka_tpu_version=`` and the same version string as ``medaka_tpu``,
-so both packages write the same bytes for the same records. The
-classification and the other ``tools`` helpers are not ported yet.
+padded haplotypes with the native aligner), and the helpers of the
+``tools`` subcommands: ``classify_variant``/``classify_variants`` and
+``vcf2tsv``, the haploid/diploid conversions (``Haploid2DiploidConverter``,
+``haploid2diploid``, ``split_mnp``, ``split_variants``) and
+``get_homozygous_regions``. The header carries ``medaka_tpu_version=``
+and the same version string as ``medaka_tpu``, so both packages write the
+same bytes for the same records.
 """
 from __future__ import annotations
 
 import collections
 import itertools
+import os
 from copy import deepcopy
 from typing import Dict, Optional, Tuple
 
@@ -491,6 +494,386 @@ class VCFReader:
                     else tree.envelop(lo_i, hi_i))
             for iv in sorted(hits, key=lambda iv: (iv[0], iv[1])):
                 yield iv[2]
+
+
+# ---------------------------------------------------------------------------
+# Variant classification (reference vcf.py:985-1072)
+# ---------------------------------------------------------------------------
+
+
+def classify_variant(var: Variant) -> str:
+    """Classify a variant record.
+
+    :returns: one of snp, mnp, sni, mni, snd, mnd, indel, other.
+    """
+    def is_start_same(v):
+        return all(a[0] == v.ref[0] for a in v.alt)
+
+    def is_end_same(v):
+        return all(a[-1] == v.ref[-1] for a in v.alt)
+
+    len_ref = len(var.ref)
+    alt_lens = {len(a) for a in var.alt}
+
+    if alt_lens == {len_ref}:
+        return 'snp' if len_ref == 1 else 'mnp'
+    if all(len_ref < la for la in alt_lens) and (
+            is_start_same(var) or is_end_same(var)):
+        return 'sni' if alt_lens == {len_ref + 1} else 'mni'
+    if all(len_ref > la for la in alt_lens) and (
+            is_start_same(var) or is_end_same(var)):
+        return 'snd' if alt_lens == {len_ref - 1} else 'mnd'
+    if len(alt_lens) > 1 or (
+            len_ref != next(iter(alt_lens))):
+        return 'indel'
+    return 'other'
+
+
+def classify_variants(args):
+    """``tools classify_variants``: write the records of ``args.vcf`` into
+    one VCF a class group (snp, indel, all) beside it; returns the paths
+    by group."""
+    path = args.vcf
+    base, dot, ext = path.rpartition('.')
+    if not dot:
+        base, ext = path, 'vcf'
+    reader = VCFReader(path, cache=False)
+    groups = {
+        'snp': ['snp'], 'indel': ['sni', 'mni', 'snd', 'mnd', 'indel'],
+        'all': ['snp', 'mnp', 'sni', 'mni', 'snd', 'mnd', 'indel', 'other']}
+    writers = {}
+    classified = {k: [] for k in groups}
+    for variant in reader.fetch():
+        klass = classify_variant(variant)
+        for group, members in groups.items():
+            if klass in members:
+                classified[group].append(variant)
+    for group, variants in classified.items():
+        out = '{}.{}.{}'.format(base, group, ext)
+        with VCFWriter(out, meta_info=reader.meta) as writer:
+            writer.write_variants(variants, sort=False)
+        writers[group] = out
+    return writers
+
+
+def vcf2tsv(args):
+    """``tools vcf2tsv``: flatten ``args.vcf`` into ``<vcf>.tsv``, a column
+    a field; returns its path."""
+    reader = VCFReader(args.vcf, cache=False)
+    rows = [v.to_dict() for v in reader.fetch()]
+    cols = []
+    for row in rows:
+        for key in row:
+            if key not in cols:
+                cols.append(key)
+    out = args.vcf + '.tsv'
+    with open(out, 'w') as fh:
+        fh.write('\t'.join(cols) + '\n')
+        for row in rows:
+            fh.write(
+                '\t'.join(str(row.get(c, '.')) for c in cols) + '\n')
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Haploid <-> diploid conversion (reference ``vcf.py:680-982``)
+# ---------------------------------------------------------------------------
+
+
+def _splice_edits(ref, origin, edits):
+    """Apply (pos, ref, alt) edits to ``ref`` (coordinates of ``origin``).
+
+    Edits are applied right-to-left so earlier coordinates stay valid.
+    """
+    out = ref
+    for pos, vref, valt in sorted(edits, reverse=True):
+        lo = pos - origin
+        found = ref[lo:lo + len(vref)]
+        if found != vref:
+            raise ValueError(
+                'Edit ref allele {!r} disagrees with reference {!r} '
+                'near offset {}'.format(vref, found, pos))
+        out = out[:lo] + valt + out[lo + len(vref):]
+    return out
+
+
+def _merge_variants(interval, hap_of, ref_seq, detailed_info=False,
+                    discard_phase=False):
+    """Fuse the haploid variants covering one merged interval.
+
+    Builds each haplotype's full alternative sequence over the interval,
+    then emits a single diploid record with per-haplotype quality info.
+    Behavioural parity target: reference ``vcf.py:688-790``.
+
+    :param interval: (begin, end, [variants]) tuple.
+    :param hap_of: mapping id(variant) -> haplotype number (1 or 2).
+    :param ref_seq: reference sequence of the chromosome.
+    """
+    begin, end, group = interval
+    if end > len(ref_seq):
+        raise ValueError(
+            'Merge interval extends beyond the reference sequence end.')
+    ref = ref_seq[begin:end]
+
+    by_hap = collections.defaultdict(list)
+    for v in group:
+        if len(v.alt) != 1:
+            raise ValueError(
+                'Haploid merge inputs must be single-allele records; got '
+                '{} alts at {}:{}'.format(len(v.alt), v.chrom, v.pos))
+        by_hap[str(hap_of[id(v)])].append(v)
+
+    # Per-haplotype spliced sequence; haplotypes whose edits cancel back
+    # to the reference are treated as absent from here on.
+    hap_seqs = {}
+    for hap in sorted(by_hap):
+        spliced = _splice_edits(
+            ref, begin, [(v.pos, v.ref, v.alt[0]) for v in by_hap[hap]])
+        if spliced == ref:
+            del by_hap[hap]
+        else:
+            hap_seqs[hap] = spliced
+
+    info = {}
+    hap_quals = []
+    for hap in sorted(by_hap):
+        hap_vars = by_hap[hap]
+        quals = [0.0 if v.qual == '.' else float(v.qual) for v in hap_vars]
+        mean_q = sum(quals) / len(quals)
+        hap_quals.append(mean_q)
+        info['q' + hap] = mean_q
+        info['pos' + hap] = ','.join(str(v.pos + 1) for v in hap_vars)
+        if detailed_info:
+            info['ref' + hap] = ','.join(v.ref for v in hap_vars)
+            info['alt' + hap] = ','.join(v.alt[0] for v in hap_vars)
+    qual = sum(hap_quals) / len(hap_quals) if hap_quals else 0.0
+
+    surviving = sorted(hap_seqs)
+    if not surviving:
+        # every haplotype's edits spliced back to the reference (e.g.
+        # ref==alt input records): nothing to report for this interval
+        return None
+    alts = [hap_seqs[h] for h in surviving]
+    sep = '/' if discard_phase else '|'
+    if len(alts) == 2 and alts[0] == alts[1]:
+        # both haplotypes carry the same sequence: homozygous alt
+        alts = alts[:1]
+        gt = sep.join(['1'] * len(surviving))
+    elif len(alts) == 2:
+        gt = sep.join(surviving)
+    else:
+        # one haplotype is reference; phased output keeps hap 1 first
+        alleles = ['0', '1']
+        if not discard_phase and surviving[0] == '1':
+            alleles.reverse()
+        gt = sep.join(alleles)
+
+    merged = Variant(
+        group[0].chrom, begin, ref, alt=alts, filt='PASS', info=info,
+        qual=qual, genotype_data={'GT': gt, 'GQ': round(qual)})
+    return merged.trim()
+
+
+def split_mnp(v):
+    """Split an MNP variant into per-base SNPs (others unchanged).
+
+    At each column the alt bases may collapse (duplicates, or bases equal
+    to the reference), in which case the GT indices are remapped to the
+    deduplicated allele list.
+    """
+    if classify_variant(v) != 'mnp':
+        return [v]
+    phase = '|' if v.phased else '/'
+    out = []
+    for offset, column in enumerate(zip(v.ref, *v.alt)):
+        ref_base = column[0]
+        alt_bases = list(column[1:])
+        gd = dict(v.genotype_data)
+        kept = []
+        for base in alt_bases:
+            if base != ref_base and base not in kept:
+                kept.append(base)
+        if kept != alt_bases:
+            # remap genotype indices onto the collapsed allele list
+            alleles_in = [ref_base] + alt_bases
+            alleles_out = [ref_base] + kept
+            called = (alleles_in[g] for g in v.gt)
+            gd['GT'] = phase.join(
+                str(alleles_out.index(b)) for b in called)
+            alt_bases = kept
+        out.append(Variant(
+            v.chrom, v.pos + offset, ref_base, alt_bases, ident=v.ident,
+            qual=v.qual, filt=v.filt, info=v.info, genotype_data=gd))
+    return out
+
+
+class Haploid2DiploidConverter:
+    """Merge two haploid VCFs into one diploid VCF.
+
+    Reference: ``medaka/vcf.py:826-947``. Overlapping variants between
+    the files have their alts padded against the reference; genotype is
+    1|2 (or 1|1 when alts agree), with per-haplotype mean GQ.
+    """
+
+    def __init__(self, vcf1, vcf2, ref_fasta, only_overlapping=True,
+                 discard_phase=False, detailed_info=False):
+        """:param only_overlapping: merge only overlapping (not
+        adjacent) variants."""
+        from medaka_tpu_torch.io.fastx import FastaReader
+        self.only_overlapping = only_overlapping
+        self.discard_phase = discard_phase
+        self.detailed_info = detailed_info
+        self.logger = common.get_named_logger('VCFMERGE')
+        self.vcfs = [VCFReader(v) for v in (vcf1, vcf2)]
+        for vcf in self.vcfs:
+            vcf.index()  # build trees (and populate .chroms)
+        self.fasta = FastaReader(ref_fasta)
+        self.chroms = sorted(
+            set(itertools.chain(*[v.chroms for v in self.vcfs])))
+
+    def variants(self):
+        """Yield merged diploid variants, sorted by position."""
+        for chrom in common.loose_version_sort(self.chroms):
+            self.logger.info('Merging variants in chrom %s', chrom)
+            hap_of = {}
+            intervals = []
+            for hap, vcf in enumerate(self.vcfs, 1):
+                for v in vcf.fetch(ref_name=chrom):
+                    hap_of[id(v)] = hap
+                    intervals.append((v.pos, v.pos + len(v.ref), v))
+            intervals.sort(key=lambda iv: (iv[0], iv[1]))
+            # merge overlapping (or adjacent) intervals
+            merged = []
+            for s, e, v in intervals:
+                joins = bool(merged) and (
+                    s < merged[-1][1] if self.only_overlapping
+                    else s <= merged[-1][1])
+                if joins:
+                    merged[-1][1] = max(merged[-1][1], e)
+                    merged[-1][2].append(v)
+                else:
+                    merged.append([s, e, [v]])
+            ref_seq = self.fasta.fetch(chrom).upper()
+            out = [
+                _merge_variants(
+                    tuple(iv), hap_of, ref_seq,
+                    detailed_info=self.detailed_info,
+                    discard_phase=self.discard_phase)
+                for iv in merged]
+            out = [v for v in out if v is not None]
+            yield from sorted(out, key=lambda x: x.pos)
+
+    @property
+    def meta_info(self):
+        """Meta info lines for the merged VCF."""
+        m = []
+        for h in (1, 2):
+            m.append(MetaInfo(
+                'INFO', 'pos{}'.format(h), '.', 'Integer',
+                'POS of incorporated variants from haplotype '
+                '{}'.format(h)))
+            m.append(MetaInfo(
+                'INFO', 'q{}'.format(h), 1, 'Float',
+                'Combined qual score for haplotype {}'.format(h)))
+        if self.detailed_info:
+            for h in (1, 2):
+                m.append(MetaInfo(
+                    'INFO', 'ref{}'.format(h), '2', 'String',
+                    'ref alleles of incorporated variants from '
+                    'haplotype {}'.format(h)))
+                m.append(MetaInfo(
+                    'INFO', 'alt{}'.format(h), '2', 'String',
+                    'alt alleles of incorporated variants from '
+                    'haplotype {}'.format(h)))
+        m.append(MetaInfo('FORMAT', 'GT', 'G', 'String', 'Genotype'))
+        m.append(MetaInfo(
+            'FORMAT', 'GQ', 'G', 'Integer', 'Genotype quality score'))
+        return m
+
+
+def haploid2diploid(vcf1, vcf2, ref_fasta, vcfout, adjacent=False,
+                    discard_phase=False, split_mnp_records=False):
+    """Merge two haploid VCFs into a diploid VCF file."""
+    from medaka_tpu_torch.io.fastx import FastaReader
+    converter = Haploid2DiploidConverter(
+        vcf1, vcf2, ref_fasta, only_overlapping=not adjacent,
+        discard_phase=discard_phase)
+    with FastaReader(ref_fasta) as fa:
+        lengths = {r: fa.get_reference_length(r) for r in fa.references}
+    contigs = [
+        '{},length={}'.format(c, lengths[c]) for c in converter.chroms]
+    with VCFWriter(
+            vcfout, 'w', version='4.1', contigs=contigs,
+            meta_info=converter.meta_info) as writer:
+        variants = converter.variants()
+        if split_mnp_records:
+            variants = (s for v in variants for s in split_mnp(v))
+        for v in variants:
+            writer.write_variant(v)
+    return vcfout
+
+
+def split_variants(vcf_fp, trim=True):
+    """Split a diploid VCF into two haploid VCFs; returns paths."""
+    vcf = VCFReader(vcf_fp, cache=False)
+    q = collections.defaultdict(list)
+    for v in vcf.fetch():
+        for k, hv in v.split_haplotypes():
+            if hv is not None:
+                q[k].append(hv.trim() if trim else hv)
+    basename, ext = os.path.splitext(vcf_fp)
+    outputs = []
+    for k, variants in q.items():
+        path = '{}_hap{}{}'.format(basename, k, ext)
+        outputs.append(path)
+        with VCFWriter(path, meta_info=vcf.meta) as writer:
+            writer.write_variants(variants, sort=False)
+    return tuple(outputs)
+
+
+def get_homozygous_regions(vcf_path, region, min_len=1000,
+                           suffix='regions.txt'):
+    """Find long runs without heterozygous calls in a diploid VCF.
+
+    Reference: ``medaka/vcf.py:1088-1155``. Writes
+    ``homozygous_<suffix>`` and ``heterozygous_<suffix>`` region lists.
+
+    :returns: (homozygous regions, heterozygous regions).
+    """
+    vcf = VCFReader(vcf_path, cache=False)
+    reg = region if isinstance(region, common.Region) \
+        else common.Region.from_string(region)
+    if reg.start is None or reg.end is None:
+        raise ValueError('Region start and end must be specified')
+
+    # every reference base covered by a heterozygous call breaks a run
+    het_cover = [reg.start]
+    for v in vcf.fetch(ref_name=reg.ref_name, start=reg.start, end=reg.end):
+        gt = v.gt
+        if gt is not None and len(set(gt)) > 1:
+            het_cover.extend(range(v.pos, v.pos + len(v.ref)))
+    het_cover.append(reg.end)
+    het_cover.sort()
+
+    homo_regions = [
+        common.Region(reg.ref_name, a, b)
+        for a, b in zip(het_cover[:-1], het_cover[1:])
+        if b - a >= min_len]
+
+    # the complement of the homozygous runs, keeping only long pieces
+    hetero_regions = []
+    cursor = reg.start
+    for lo, hi in [(r.start, r.end) for r in homo_regions] + [
+            (reg.end, reg.end)]:
+        if lo - cursor > min_len:
+            hetero_regions.append(common.Region(reg.ref_name, cursor, lo))
+        cursor = hi
+
+    for prefix, regions in (('homozygous_', homo_regions),
+                            ('heterozygous_', hetero_regions)):
+        with open(prefix + suffix, 'w') as fh:
+            fh.write('\n'.join(r.name for r in regions))
+    return homo_regions, hetero_regions
 
 
 # ---------------------------------------------------------------------------

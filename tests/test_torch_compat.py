@@ -369,22 +369,6 @@ def test_port_gzip_datastore_reads_in_medaka_tpu(tmp_path):
         np.testing.assert_array_equal(got.positions, fields["positions"])
 
 
-def test_lzf_is_refused(tmp_path):
-    """The port writes no lzf and reads none: both raise naming lzf."""
-    with pytest.raises(NotImplementedError, match="lzf"):
-        datastore.DataStore(str(tmp_path / "w.hdf"), "w", compression="lzf")
-    _, samples = _draft_and_samples(tmp_path)
-    path = str(tmp_path / "lzf.hdf")
-    with jax_datastore.DataStore(path, "w", compression="lzf") as ds:
-        ds.set_meta(jax_labels.HaploidLabelScheme(), "label_scheme")
-        ds.write_sample(JaxSample(**samples[0]))
-        ds.write_registry()
-    with datastore.DataStore(path) as ds:
-        name = next(iter(ds.sample_registry))
-        with pytest.raises(hdf5.HDF5Error, match="lzf"):
-            ds.load_sample(name)
-
-
 def test_unconvertible_meta_pickle_raises(tmp_path):
     """A pickled meta/ item the port cannot convert raises naming it
     (medaka_tpu logs a warning and goes on)."""

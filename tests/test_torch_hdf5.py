@@ -65,11 +65,6 @@ def test_h5py_writes_port_reads(tmp_path):
         assert "missing" not in f
 
 
-def _lzf_file(path):
-    with h5py.File(path, "w") as h:
-        h.create_dataset("x", data=np.arange(1000), compression="lzf")
-
-
 def _vbz_file(path):
     """A gzip dataset of the port's writer whose filter pipeline names
     vbz (32020), ONT's codec, instead of deflate."""
@@ -82,8 +77,7 @@ def _vbz_file(path):
     open(path, "wb").write(data.replace(deflate, vbz))
 
 
-@pytest.mark.parametrize("name,write", [("lzf", _lzf_file),
-                                        ("vbz", _vbz_file)])
+@pytest.mark.parametrize("name,write", [("vbz", _vbz_file)])
 def test_unsupported_inputs_are_refused(tmp_path, name, write):
     """A filter the reader lacks raises naming it; so does a file that is
     not HDF5."""

@@ -2,8 +2,10 @@
 
 ``--model`` takes a path or a model name in both packages: the path as
 given, then the bundles in ``medaka_tpu/data``, then ``~/.medaka_tpu/data``,
-each with the suffixes ``_model_pt.tar.gz``, ``.tar.gz`` and none. The port
-downloads nothing: a known model that is not on disk raises.
+each with the suffixes ``_model_pt.tar.gz``, ``.tar.gz`` and none. A known
+model that is not on disk is downloaded (its fetcher is injected here, so
+nothing is fetched; ``tests/test_torch_model_select.py`` tests the
+download).
 """
 import os
 
@@ -80,14 +82,18 @@ def test_unknown_name_raises(empty_home):
 
 
 def test_known_name_not_on_disk_raises_without_download(empty_home):
+    """A known model that is not on disk is downloaded; where the fetch
+    fails (its fetcher is injected here, so nothing is fetched) both
+    packages raise FileNotFoundError naming the model, and leave nothing
+    in the user store."""
     name = "r1041_e82_400bps_sup_v5.2.0"
     assert name in options.known_models
-    with pytest.raises(FileNotFoundError, match="downloads nothing"):
-        models.resolve_model(name)
-    # medaka_tpu would fetch it; with no network it raises the same error
-    # type (its fetcher is injected here so that nothing is fetched)
-    with pytest.raises(FileNotFoundError):
+    with pytest.raises(FileNotFoundError, match=name):
+        models.resolve_model(name, fetcher=_refuse)
+    with pytest.raises(FileNotFoundError, match=name):
         jax_models.resolve_model(name, fetcher=_refuse)
+    store = empty_home / ".medaka_tpu" / "data"
+    assert not store.exists() or not os.listdir(store)
 
 
 def _refuse(url):

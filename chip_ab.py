@@ -23,9 +23,9 @@ B=480 (the automatic batch where both run in one wave), mode "rows" at
 B=64, and over one column in both modes; where the tree has the cluster
 geometry of the int8 split kernels, also layer 1 on clusters of 4 blocks
 (64 units a block) at the same shapes, and each launch's geometry; the
-int8 and f32-gates fullfused launches at B=16, T=10000, H=256, IN=512
-and over one column, with the profiler's split into projection stage and
-recurrence, and where the tree has the int8 cluster recurrence, that
+int8, f32-gates and bf16-gates fullfused launches at B=16, T=10000,
+H=256, IN=512 and over one column, with the profiler's split into
+projection stage and recurrence, and where the tree has the int8 cluster recurrence, that
 recurrence alone on clusters of 2, 4, 8 and 16 blocks; ``bilstm_fused`` at
 B=128, T=1000, H=128 and over one column (on clusters of 1, 2 and 4
 blocks where the tree has the LSTM cluster forward). The fullfused
@@ -88,7 +88,7 @@ def run(tree, out_path, seed):
         for quant in (True, False):
             w = gru_split.prepare_split_weights(layers, head, mode, quant, dev)
             (kf, kb), logits = cs.run_layers(gru_split, w, xt, lens, mode,
-                                             quant, plain=False)
+                                             quant)
             keep("gru_split/{}/{}/l1".format(mode, quant), (kf, kb))
             keep("gru_split/{}/{}/l2head".format(mode, quant), logits)
     # the bi-LSTM inference kernel
@@ -201,7 +201,9 @@ def run(tree, out_path, seed):
     # T=10000, H=256, IN=512) and over one column: the whole launch (CUDA
     # events) and the profiler's split into the projection stage and the
     # recurrence; on a tree with the int8 cluster recurrence, that
-    # recurrence alone on clusters of 2-16 blocks
+    # recurrence alone on clusters of 2-16 blocks; on a tree with the
+    # bf16-gates cluster recurrence, the bf16-gates launch on clusters of 8
+    # and 16 blocks and tiles of 8 and 16 columns
     T, H, IN = 10000, 256, 512
     k = 1.0 / H ** 0.5
     w = tuple(torch.from_numpy(rng.uniform(-k, k, shape).astype(
@@ -212,7 +214,7 @@ def run(tree, out_path, seed):
         x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
             "float32")).to(dev, torch.bfloat16)
         ln = torch.full((B,), T, dtype=torch.int32, device=dev)
-        for mode in ("int8", "f32_gates"):
+        for mode in ("int8", "f32_gates", "bf16_gates"):
             key = "bigru_fullfused/{}/B{}_T{}".format(mode, B, T)
             kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
             timed(key, kernel)
@@ -234,6 +236,11 @@ def run(tree, out_path, seed):
                       lambda: gru_fullfused._launch_int8_recurrence(
                           xp[0], xp[1], w[2], w[3], ln, cluster=(C, 8)))
             del xp
+        if "bf16_gates" in getattr(gru_fullfused, "CLUSTER_LAYOUTS", {}):
+            for C, BT in ((16, 8), (8, 8), (16, 16), (8, 16)):
+                timed("bf16_gates_C{}_BT{}/B{}_T{}".format(C, BT, B, T),
+                      lambda: gru_fullfused._launch_fullfused(
+                          x, *w, ln, "bf16_gates", cluster=(C, BT)))
         del x
     # bilstm_fused at the read-level path's shape (B=128, T=1000, H=128)
     # and over one column; on a tree with the LSTM cluster forward, on

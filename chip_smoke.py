@@ -15,12 +15,13 @@ Phases, each of which fails the script when it fails:
    memory and spills of every kernel, by name for the cluster
    recurrences (``lstm_fwd_kernel``, ``lstm_bwd_kernel``,
    ``gru_cluster_bwd_kernel``, ``gru_cluster_fwd_kernel`` in both
-   ``gru_train.cu`` and ``gru_fullfused.cu``, and ``lstm_fwd_kernel`` in
+   ``gru_train.cu`` and ``gru_fullfused.cu``, where its bf16-gates
+   instantiations are also named apart, and ``lstm_fwd_kernel`` in
    ``bilstm.cu`` too), ``rnn_dw_kernel``, the projection stages
-   ``bigru_proj_mma_kernel`` and ``bigru_proj_kernel``, the bf16-gates
-   ``gru_rec_kernel`` and the split kernels (``gru_l1_split_s8_kernel``
-   and ``gru_l2head_split_s8_kernel``, the int8 cluster kernels, and the
-   bf16 ``gru_l1_split_kernel`` and ``gru_l2head_split_kernel``);
+   ``bigru_proj_mma_kernel`` and ``bigru_proj_kernel``, and the split
+   kernels (``gru_l1_split_s8_kernel`` and ``gru_l2head_split_s8_kernel``,
+   the int8 cluster kernels, and the bf16 ``gru_l1_split_kernel`` and
+   ``gru_l2head_split_kernel``);
 3. hold the split-path GRU kernels against their plain PyTorch versions
    at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
@@ -48,7 +49,10 @@ Phases, each of which fails the script when it fails:
    resident clusters) and the microseconds a step; a profile of each
    int8 launch must show the cluster kernel (``gru_l1_split_s8_kernel``,
    ``gru_l2head_split_s8_kernel``) and neither bf16 per-block kernel; the
-   same for mode "rows" on 64 rows; ``gru_l2head_split`` with a
+   same for mode "rows" on 64 rows; the bf16 split kernels
+   (``quant=False``, the ``recurrent_quant="none"`` path) at the
+   automatic batch in mode "t": their time, serial floor, bound, cuDNN's
+   layer 1 and their launches on one batch of that path; ``gru_l2head_split`` with a
    15-class head on the same layer-1 outputs against its plain version,
    timed beside the 5-class launch (turns 5, 15, 15, 5) with its bound;
    then the variant paths (phase 20);
@@ -134,7 +138,8 @@ Phases, each of which fails the script when it fails:
     against the kernels' plain versions, in the f32-gates and the int8
     mode (each launch with its projection stage), and the entry points of
     the other modes (``recurrent_quant`` "bf16_gates" and "int8",
-    ``bigru_stack_fused``) over it;
+    ``bigru_stack_fused``) over it, the bf16-gates route against its plain
+    version under the same bars;
 18. the direct route: ``prediction.predict_direct`` at batch 16 (the same
     launches) and at the automatic batch (the split kernels), each
     byte-identical to the FASTQ of phase 17 or the FASTA of phase 5, gaps
@@ -142,14 +147,18 @@ Phases, each of which fails the script when it fails:
 19. each fullfused kernel on layer 2 of the bundle at B=16, T=10000,
     H=256: against its plain version, its time beside the plain
     version's, its serial floor, the cuDNN ``nn.GRU`` yardstick and its
-    bound, the microseconds a step and the profiler's split into the
-    projection stage and the recurrence, and for the cluster modes the
-    launch geometry: a profiled f32-gates or int8 launch must run
-    ``bigru_proj_mma_kernel`` and ``gru_cluster_fwd_kernel`` and neither
-    ``bigru_proj_kernel`` nor ``gru_rec_kernel``, a bf16-gates launch those
-    two and neither of the others, ``bigru_fused`` the cluster recurrence
-    alone; the projection stage alone against ``project_plain``, timed
-    beside its plain version, its bound and ``torch.addmm``; then print one
+    bound, the microseconds a step, the profiler's split into the
+    projection stage and the recurrence and the launch geometry: a
+    profiled f32-gates or int8 launch must run ``bigru_proj_mma_kernel``
+    and ``gru_cluster_fwd_kernel`` (its instantiation of the mode) and
+    neither ``bigru_proj_kernel`` nor the retired ``gru_rec_kernel``, a
+    bf16-gates launch ``bigru_proj_kernel`` and the bf16-gates
+    ``gru_cluster_fwd_kernel`` and neither ``bigru_proj_mma_kernel`` nor
+    ``gru_rec_kernel``, ``bigru_fused`` the cluster recurrence alone; the
+    bf16-gates row also gives its CUDA-core projection's bound and the
+    share of its outputs that differ from the plain version's; the
+    projection stage alone against ``project_plain``, timed beside its
+    plain version, its bound and ``torch.addmm``; then print one
     ``kernels`` JSON line (twelve rows);
 20. (after phase 7) the variant and SNP calling paths, each on a 0.5 Mb
     ``testing.create_variant_bam`` genome at depth 30 with its truth VCF
@@ -403,9 +412,10 @@ SPLIT_KERNELS = ("gru_l1_split_s8_kernel", "gru_l2head_split_s8_kernel")
 SPLIT_KERNEL_OF = dict(zip(("gru_l1_split", "gru_l2head_split"),
                            SPLIT_KERNELS))
 #: the kernels a profile of one launch must show, and must not show, by
-#: row: the cluster recurrence (f32 gates, int8) after the tensor-core
-#: projection stage; the per-block recurrence (bf16 gates) after the CUDA
-#: cores' stage; the LSTM cluster forward for bilstm_fused
+#: row: the cluster recurrence in the mode's numerics after the
+#: tensor-core projection stage (f32 gates, int8) or the CUDA cores' stage
+#: (bf16 gates), never the retired per-block recurrence
+#: (``gru_rec_kernel``); the LSTM cluster forward for bilstm_fused
 PROFILE_KERNELS = {
     "bigru_fullfused/f32_gates": (
         ("gru_cluster_fwd_kernel<0,", "bigru_proj_mma_kernel"),
@@ -414,17 +424,25 @@ PROFILE_KERNELS = {
         ("gru_cluster_fwd_kernel<2,", "bigru_proj_mma_kernel"),
         ("gru_rec_kernel", "bigru_proj_kernel")),
     "bigru_fullfused/bf16_gates": (
-        ("gru_rec_kernel", "bigru_proj_kernel"),
-        ("gru_cluster_fwd_kernel", "bigru_proj_mma_kernel")),
+        ("gru_cluster_fwd_kernel<1,", "bigru_proj_kernel"),
+        ("gru_rec_kernel", "bigru_proj_mma_kernel")),
     "bigru_fused": (("gru_cluster_fwd_kernel<0,",), ("gru_rec_kernel",)),
     "bilstm_fused": (("lstm_fwd_kernel",), ("bilstm_kernel",)),
 }
+#: the GRU cluster forward's instantiations of each numerics mode, as
+#: ptxas names them (mangled: gru_cluster_fwd_kernel<NUM, ...>)
+FWD_PTXAS = {mode: "gru_cluster_fwd_kernelILi{}E".format(num)
+             for mode, num in (("f32_gates", 0), ("bf16_gates", 1),
+                               ("int8", 2))}
 #: kernel mode of each fullfused row; "fused" is bigru_pallas (#6)
 FULLFUSED_MODES = {"bigru_fullfused/f32_gates": "f32_gates",
                    "bigru_fullfused/bf16_gates": "bf16_gates",
                    "bigru_fullfused_int8": "int8", "bigru_fused": "fused"}
 #: the batch of the small-batch path: below 32, so off the split path
 SMALL_BATCH = 16
+#: columns of phase 17's bf16-gates route against its plain versions (cut
+#: from the batch's 10000 for the time limit)
+BF16_ROUTE_T = 2000
 #: head widths held against their plain versions besides the haploid 5:
 #: the diploid head's 15 and the edges of the head's 16-wide tile, over
 #: this many steps
@@ -721,29 +739,37 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
     return l1_err, l2_err, stats, (kf, kb)
 
 
-def bound(kind, B, H, IN, C, lengths_sum):
-    """Least time (ms) for one call (int8), and what bounds it.
+def bound(kind, B, H, IN, C, lengths_sum, quant=True):
+    """Least time (ms) for one call (int8, or bf16 where not ``quant``),
+    and what bounds it.
 
     Bytes and operations are both counted over the valid columns of this
     run's data (``lengths_sum`` of them): a padded column is neither read
     nor computed, and its output holds no result that any consumer reads.
     Bytes: every valid input column and the weights read once, every
     valid output column written once, over the memory rate. Operations:
-    int8 multiply-adds at the int8 peak, bf16 ones at the bf16 peak.
+    int8 multiply-adds at the int8 peak, bf16 ones at the bf16 peak (with
+    ``quant`` False the recurrent and layer-2 input products are bf16, and
+    their weights and layer 1's h two bytes a value).
     """
     dirs = 2
+    q = 1 if quant else 2                       # bytes of a quantised value
     weights_f32 = dirs * 3 * 3 * H * 4          # two biases + scales
     if kind == "gru_l1_split":
         nbytes = (lengths_sum * IN * 2 + B * 4 + dirs * 3 * H * IN * 2
-                  + dirs * 3 * H * H + weights_f32 + dirs * lengths_sum * H)
+                  + dirs * 3 * H * H * q + weights_f32
+                  + dirs * lengths_sum * H * q)
         int8_macs = dirs * lengths_sum * 3 * H * H
         bf16_macs = dirs * lengths_sum * 3 * H * IN
     else:
-        nbytes = (dirs * lengths_sum * H + B * 4 + dirs * 3 * H * 2 * H
-                  + dirs * 3 * H * H + weights_f32 + dirs * 2 * 3 * H * 4
+        nbytes = (dirs * lengths_sum * H * q + B * 4
+                  + dirs * 3 * H * 2 * H * q + dirs * 3 * H * H * q
+                  + weights_f32 + dirs * 2 * 3 * H * 4
                   + dirs * C * H * 4 + dirs * lengths_sum * C * 4)
         int8_macs = dirs * lengths_sum * (3 * H * 2 * H + 3 * H * H)
         bf16_macs = dirs * lengths_sum * C * H
+    if not quant:
+        bf16_macs, int8_macs = bf16_macs + int8_macs, 0
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (2 * int8_macs / PEAK_INT8 + 2 * bf16_macs / PEAK_BF16) * 1e3
     if t_bytes >= t_ops:
@@ -3835,10 +3861,12 @@ def compare_fullfused(gru_fullfused, mode, x, w, lengths):
     versions whole; the f32-gates and int8 modes' recurrence against
     ``recurrence_plain`` over the tensor-core stage's projections, and the
     stage against ``project_plain`` (:func:`compare_projection`). Returns
-    (kernel output, {"max", "mean", "bar"[, "projection",
-    "vs_whole_plain_max"]}, the whole plain version's ms); fails past the
-    bar (TOL_GRU_FWD, one bf16 step of the largest output in mode
-    "bf16_gates"; mean TOL_L1_MEAN) or if the second launch differs.
+    (kernel output, {"max", "mean", "bar", "share_differing" (of the
+    elements; the bf16-gates mode's f64 sums do not depend on their order,
+    so about 0 there)[, "projection", "vs_whole_plain_max"]}, the whole
+    plain version's ms); fails past the bar (TOL_GRU_FWD, one bf16 step of
+    the largest output in mode "bf16_gates"; mean TOL_L1_MEAN) or if the
+    second launch differs.
     """
     import torch
     kernel, plain = fullfused_calls(gru_fullfused, mode, x, w, lengths)
@@ -3862,7 +3890,8 @@ def compare_fullfused(gru_fullfused, mode, x, w, lengths):
     diff = (got.float() - want.float()).abs()
     bar = bf16_step(want) if mode == "bf16_gates" else TOL_GRU_FWD
     stats = {"max": diff.max().item(), "mean": diff.mean().item(),
-             "bar": bar, **extra}
+             "bar": bar, "share_differing": (diff > 0).float().mean().item(),
+             **extra}
     if stats["max"] > bar or stats["mean"] > TOL_L1_MEAN:
         raise AssertionError("{} disagrees with its plain version: {}".format(
             mode, stats))
@@ -4107,6 +4136,44 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                                      "with its plain version: {}".format(
                                          int8_stats))
             del got8, want8, h
+            # the bf16-gates route (the bf16-gates cluster recurrence after
+            # the CUDA cores' projection) through GRUModel.forward against
+            # its plain version under the same bars, and bit for bit on a
+            # second call, over the batch's first BF16_ROUTE_T columns (its
+            # plain versions' step-by-step loops, cut for the time limit)
+            xc = x[:, :BF16_ROUTE_T].contiguous()
+            lc = torch.clamp(lens, max=BF16_ROUTE_T)
+            gotb = model(xc, lengths=lc, compute_dtype=torch.bfloat16,
+                         recurrent_quant="bf16_gates")
+            againb = model(xc, lengths=lc, compute_dtype=torch.bfloat16,
+                           recurrent_quant="bf16_gates")
+            h = xc.transpose(0, 1).to(torch.bfloat16).contiguous()
+            for w in layers:
+                h = gru_fullfused.bigru_fullfused_plain(h, *w, lc,
+                                                        "bf16_gates")
+            wantb = torch.softmax(
+                h.transpose(0, 1).float() @ model.linear.weight.float().t()
+                + model.linear.bias.float(), -1)
+            valid_b = (torch.arange(xc.shape[1], device=dev)[None, :]
+                       < lc[:, None].long())
+            diffb = (gotb - wantb).abs()[valid_b]
+            bf16_stats = {
+                "T": xc.shape[1], "max": diffb.max().item(),
+                "mean": diffb.mean().item(),
+                "share_differing": (diffb > 0).float().mean().item(),
+                "argmax_agreement": (gotb.argmax(-1) == wantb.argmax(-1))[
+                    valid_b].float().mean().item(),
+                "repeats_bit_for_bit": bool(torch.equal(gotb, againb))}
+            log("   bf16-gates route, B={} T={}: {}".format(
+                B, xc.shape[1], json.dumps(bf16_stats)))
+            if bf16_stats["max"] > TOL_FULLFUSED_PROB_MAX or \
+                    bf16_stats["mean"] > TOL_SCAN_PROB_MEAN or \
+                    bf16_stats["argmax_agreement"] < MIN_ARGMAX_AGREEMENT \
+                    or not bf16_stats["repeats_bit_for_bit"]:
+                raise AssertionError("the bf16-gates fullfused route "
+                                     "disagrees with its plain version: "
+                                     "{}".format(bf16_stats))
+            del gotb, againb, wantb, h, xc
             # the entry points of the other modes over the same batch:
             # GRUModel.forward(recurrent_quant=...) and bigru_stack_fused
             entry_launches = {}
@@ -4198,13 +4265,13 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 kernel_name = name.split("/")[0]
                 prefixes = PROFILE_KERNELS[name][0]
                 row = {"kernels": list(prefixes)}
-                if mode != "bf16_gates":
-                    row["geometry"] = {
-                        key: dict(zip(("cluster", "columns", "smem_bytes",
-                                       "resident_clusters"),
-                                      gru_fullfused.cluster_geometry(
-                                          H, cols, dev, kernel_name)))
-                        for key, cols in (("main", B), ("one_column", 1))}
+                row["geometry"] = {
+                    key: dict(zip(("cluster", "columns", "smem_bytes",
+                                   "resident_clusters"),
+                                  gru_fullfused.cluster_geometry(
+                                      H, cols, dev, kernel_name,
+                                      None if mode == "fused" else mode)))
+                    for key, cols in (("main", B), ("one_column", 1))}
                 for key, fn, cols in (("main", kernel, B),
                                       ("one_column", floor, 1)):
                     def child(cols=cols):
@@ -4304,8 +4371,13 @@ def small_batch_phases(work, bam, draft, main_fasta, dev, agreement,
                 "main_shape": main_stats[name]},
         })
         if name in cluster_rows:
-            rows[-1]["cluster_recurrence" if mode != "bf16_gates" else
-                     "per_block_recurrence"] = cluster_rows[name]
+            rows[-1]["cluster_recurrence"] = cluster_rows[name]
+        if mode == "bf16_gates":
+            # the CUDA cores' projection stage in order, bit for bit:
+            # 2 x 3H x IN fmaf a valid column at their f32 rate
+            rows[-1]["projection_cuda_core_bound_ms"] = (
+                2 * 2 * lengths_sum * 3 * H * IN / PEAK_F32 * 1e3)
+            rows[-1]["model_route_vs_plain"] = bf16_stats
         log("   {}: {:.3f} ms (plain {:.1f} ms, bound {:.4f} ms by {}, one "
             "column {:.3f} ms; {} launches on {})".format(
                 name, ms, plain_ms, bound_ms, bound_by, floor_ms, launches,
@@ -5335,8 +5407,10 @@ def main(argv=None):
                                        "gru_cluster_bwd_kernel",
                                        "rnn_dw_kernel")),
                      ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",
+                                           FWD_PTXAS["f32_gates"],
+                                           FWD_PTXAS["bf16_gates"],
+                                           FWD_PTXAS["int8"],
                                            "bigru_proj_mma_kernel",
-                                           "gru_rec_kernel",
                                            "bigru_proj_kernel")),
                      ("bilstm.cu", ("lstm_fwd_kernel",)),
                      ("gru_split.cu", SPLIT_KERNELS + ("gru_l1_split_kernel",
@@ -5740,6 +5814,60 @@ def main(argv=None):
                                 json.dumps(row["launch_profile_ms"])))
             del xt512, lens512, f512, b512, at512, big
 
+            # the bf16 split kernels (quant=False: recurrent_quant="none"
+            # on the split path) at the same shape in mode "t": their time,
+            # serial floor (one column), bound and cuDNN's layer 1, and
+            # their launches on one batch of that path through the model
+            wq = gru_split.prepare_split_weights(
+                model.layer_params(), model.head_params(), "t", False, dev)
+            q1 = (xt, lens, wq["w_ih1"], wq["b_ih1"], wq["w_hh1"],
+                  wq["sc1"], wq["b_hh1"])
+            with torch.inference_mode():
+                qf, qb = gru_split.gru_l1_split(*q1, mode="t", quant=False)
+                qf1, qb1 = gru_split.gru_l1_split(one_x, one_len, *q1[2:],
+                                                  mode="t", quant=False)
+                q2 = (qf, qb, lens, wq["w_in2"], wq["in_scale2"],
+                      wq["b_ih2"], wq["w_hh2"], wq["sc2"], wq["b_hh2"],
+                      wq["w_head"])
+                q_calls = {
+                    "gru_l1_split": (
+                        lambda: gru_split.gru_l1_split(*q1, mode="t",
+                                                       quant=False),
+                        lambda: gru_split.gru_l1_split(
+                            one_x, one_len, *q1[2:], mode="t",
+                            quant=False)),
+                    "gru_l2head_split": (
+                        lambda: gru_split.gru_l2head_split(*q2, mode="t",
+                                                           quant=False),
+                        lambda: gru_split.gru_l2head_split(
+                            qf1, qb1, one_len, *q2[3:], mode="t",
+                            quant=False))}
+                gru_split.reset_launches()
+                model(torch.from_numpy(main_batch.features).to(dev),
+                      lengths=lens, compute_dtype=torch.bfloat16,
+                      recurrent_quant="none")
+                torch.cuda.synchronize()
+                none_launches = dict(gru_split.MODE_LAUNCHES)
+                for row in rows:
+                    name = row["name"]
+                    kernel, one = q_calls[name]
+                    bound_ms, bound_by = bound(name, B, H, IN, C,
+                                               lengths_sum, quant=False)
+                    row["quant_false"] = {
+                        "kernel": name.replace("_split", "_split_kernel"),
+                        "ms": cuda_ms(kernel), "serial_floor_ms": cuda_ms(one),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": row["library_ms"]
+                        if name == "gru_l1_split" else None,
+                        "launches": none_launches[name + "/t"],
+                        "launches_on": "GRUModel.forward(recurrent_quant="
+                                       "'none') on the batch of {} rows"
+                                       .format(B),
+                        "plain_ms": "not measured"}
+                    log("   {} quant=False: {}".format(
+                        name, json.dumps(row["quant_false"])))
+            del wq, q1, q2, qf, qb, qf1, qb1, q_calls
+
             # mode "rows" (TPU kernels #3 and #4) is what batches below 192
             # run; the main path does not reach it, so it is held against
             # its plain version and timed on the batch's first 64 rows
@@ -6105,13 +6233,13 @@ def main(argv=None):
         "gru_bwd": ("gru_train.cu", ("gru_cluster_bwd_kernel",
                                      "rnn_dw_kernel")),
         "bigru_fullfused/f32_gates": ("gru_fullfused.cu", (
-            "gru_cluster_fwd_kernel", "bigru_proj_mma_kernel")),
+            FWD_PTXAS["f32_gates"], "bigru_proj_mma_kernel")),
         "bigru_fullfused_int8": ("gru_fullfused.cu", (
-            "gru_cluster_fwd_kernel", "bigru_proj_mma_kernel")),
+            FWD_PTXAS["int8"], "bigru_proj_mma_kernel")),
         "bigru_fullfused/bf16_gates": ("gru_fullfused.cu", (
-            "gru_rec_kernel", "bigru_proj_kernel")),
+            FWD_PTXAS["bf16_gates"], "bigru_proj_kernel")),
         "bigru_project": ("gru_fullfused.cu", ("bigru_proj_mma_kernel",)),
-        "bigru_fused": ("gru_fullfused.cu", ("gru_cluster_fwd_kernel",)),
+        "bigru_fused": ("gru_fullfused.cu", (FWD_PTXAS["f32_gates"],)),
         "bilstm_fused": ("bilstm.cu", ("lstm_fwd_kernel",)),
         "gru_l1_split": ("gru_split.cu", (SPLIT_KERNEL_OF["gru_l1_split"],)),
         "gru_l2head_split": ("gru_split.cu", (

@@ -1,54 +1,40 @@
-// The GRU forward recurrences over pre-projected inputs, shared by
+// The GRU forward recurrence over pre-projected inputs, shared by
 // gru_train.cu (gru_fwd: one direction a launch) and gru_fullfused.cu
-// (bigru_fullfused, bigru_fused: both directions in one launch). Two
-// designs:
-//
-// gru_cluster_fwd_kernel, the cluster recurrence: every f32-gates and
-// int8 launch (gru_fwd, bigru_fused, bigru_fullfused's default and int8
-// modes), one or two directions (ClusterArgs.dirs) over the caller's
-// projections, started by launch_gru_cluster below. A thread-block
-// cluster of C blocks owns one direction and one tile of BT batch
-// columns; every direction's clusters run in one grid (the cluster index
-// gives the direction and the tile). Block r owns U = Hp / C hidden units
-// and keeps their 3U gate rows of W_hh in its shared memory for the whole
-// walk (ClusterGeo of rnn_train.cuh): bf16 rows of Hp + 8 values, or int8
-// rows of Hp + 16 bytes with per-row scales. Rows of a slice: unit group
-// q (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n, unit u),
-// three m16 tiles, so in the mma accumulator fragments a thread holds r,
-// z and n of units u and u + 8 for two batch columns of each n8 tile: the
-// gates and the f32 carry stay in registers. A step:
+// (bigru_fullfused in each of its modes and bigru_fused: both directions
+// in one launch): gru_cluster_fwd_kernel, started by launch_gru_cluster
+// below over the caller's projections. A thread-block cluster of C blocks
+// owns one direction and one tile of BT batch columns; every direction's
+// clusters run in one grid (the cluster index gives the direction and the
+// tile). Block r owns U = Hp / C hidden units and keeps their 3U gate rows
+// of W_hh in its shared memory for the whole walk (ClusterGeo of
+// rnn_train.cuh): bf16 rows of Hp + 8 values, int8 rows of Hp + 16 bytes
+// with per-row scales, or, in the bf16-gates mode, bf16 rows of Hp + 16
+// values, widened to f64 as they load. Rows of a slice: unit group q (16
+// units) holds rows q*48 + g*16 + u (gate g of r, z, n, unit u), three
+// m16 tiles, so in the mma accumulator fragments a thread holds r, z and n
+// of units u and u + 8 for two batch columns of each n8 tile: the gates
+// and the carry stay in registers. A step:
 // - h (BT x Hp: bf16(h), or round(127 h) in int8) . W_slice^T on the
-//   tensor cores (mma.sync m16n8k16 bf16 with f32 accumulation chained
+//   tensor cores: mma.sync m16n8k16 bf16 with f32 accumulation chained
 //   over the Hp / 16 k-chunks in order, or m16n8k32 s8 with exact int32
-//   sums in two chains); each warp keeps the A fragments of its first
-//   GRU_KREG k-chunks in registers for the whole walk, so a step loads
-//   only h (and, in bf16 past Hp = 128, the rest of its W rows);
-// - the gates: S warps (gru_gate_split: 4, 2 or 1) share a (unit group,
-//   column tile), each running the tile's product and the gates of 1 / S
-//   of its cells, so that a thread's serial gate arithmetic is short;
+//   sums in two chains, each warp keeping the A fragments of its first
+//   GRU_KREG k-chunks in registers for the whole walk (a step then loads
+//   only h and, in bf16 past Hp = 128, the rest of its W rows); in the
+//   bf16-gates mode m16n8k16 f64 on the FP64 tensor cores, the k-chunks
+//   split over the S warps of a (unit group, column tile) and their
+//   partial sums added through shared memory in warp order;
+// - the gates: the S warps (gru_gate_split: 4, 2 or 1) of a tile each run
+//   the gates of 1 / S of its cells, so that a thread's serial gate
+//   arithmetic is short;
 // - each warp's h (bf16, or int8 round(127 h)) through a staging buffer
 //   into every cluster block's next h buffer by st.async, completing its
 //   bytes on that block's mbarrier (rnn_train.cuh StepExchange), and its
 //   bf16 h to the outputs; a block waits on its own mbarrier for the next
 //   step: no cluster barrier in the step loop.
-// ops/rnn_cluster.py chooses C and BT on the host (GRU, GRU_INT8).
-//
-// gru_rec_kernel, the per-block recurrence (bigru_fullfused's bf16-gates
-// mode only): one block owns one direction (blockIdx.y) and a tile of BT =
-// CPT * NQ batch columns and loops over all T steps itself; blocks never
-// exchange state. Thread (j, q) owns hidden unit j (gate rows j, H+j,
-// 2H+j) for columns q*CPT .. q*CPT+CPT-1, so a unit's three gates meet in
-// one thread, h stays in registers, and a step needs one __syncthreads
-// (the next step's bf16(h) is double-buffered in shared memory). W_hh is
-// read in 16-byte chunks laid out so that a warp of 32 consecutive units
-// reads 512 contiguous bytes: chunk kc of row r at kc * 3H + r. It sits in
-// dynamic shared memory where it fits (up to H = 192) and is read through
-// the read-only cache from L2 on every step otherwise. Its f64 sums are
-// exact but in the rarest cases, which the tensor cores do not give.
-//
-// Both designs: the forward direction freezes h at t >= length; the
-// reverse one walks time back to front and keeps h = 0 until t < length,
-// so padded columns stay 0. Outputs stay in natural time order.
+// ops/rnn_cluster.py chooses C and BT on the host (GRU, GRU_BF16G,
+// GRU_INT8). The forward direction freezes h at t >= length; the reverse
+// one walks time back to front and keeps h = 0 until t < length, so padded
+// columns stay 0. Outputs stay in natural time order.
 //
 // Numerics (NUM), per step with gate order r, z, n:
 // - NUM_F32: hp = f32(bf16(h) . W_hh_bf16^T) + b_hh; r = sigmoid(x_r +
@@ -61,6 +47,11 @@
 //   rounded once to f32: with h carried in bf16, a one-step difference of
 //   bf16(hp) from another f32 summation order feeds back and grows over
 //   the steps, so this mode's product is made independent of the order.
+//   bf16 values widen to f64 exactly and a product of two is exact in f64;
+//   a sum of Hp <= 512 of them is exact but in the rarest cases (products
+//   whose exponents lie some 28 binades apart), so the FP64 tensor cores'
+//   sums, in whatever order the k-chunks and warps add them, round to the
+//   f32 the plain version gives.
 // - NUM_INT8: an int8 W_hh with per-column scales, h quantised as
 //   round(127 h) (half to even); int32 dot products (exact in any order),
 //   hp = f32(dot) * scale + b_hh, then the f32 gates.
@@ -70,8 +61,16 @@
 // __fadd_rn/__fmul_rn/__fsub_rn/__fdiv_rn keep nvcc from contracting into
 // FMAs the plain versions do not do. What is left is the order of the f32
 // sums of NUM_F32's recurrent product, which can move a bf16 rounding of
-// an output (the carry stays f32). Neither design uses atomics: a run
-// repeats bit for bit.
+// an output (the carry stays f32). No atomics: a run repeats bit for bit.
+//
+// What bounds the bf16-gates step on an H100: a block's share of the f64
+// product, 3U x Hp x BT multiply-adds (at H = 256 on clusters of 16 and
+// 8-column tiles 98,304, some 770 clocks of an SM's FP64 tensor cores),
+// and the widening of its bf16 W slice to f64 as the fragments load (an
+// f64 copy of the slice in shared memory, read as it is, was no faster on
+// an H100: PERF.md), beside the exchange that every mode pays; hence the
+// smallest share of the product a block can take (rnn_cluster.GRU_BF16G)
+// and the k-chunks split over the tile's warps.
 #pragma once
 
 #include "rnn_train.cuh"
@@ -102,24 +101,6 @@ __device__ __forceinline__ float tanh_bf16(float v) {
   return v >= 0.0f ? mag : -mag;
 }
 
-// the 8 bf16 products of a pair of 16-byte chunks, summed in f64: the
-// products are exact in f64 and a sum of H <= 512 of them is exact but in
-// the rarest cases, so its one rounding to f32 does not depend on the
-// order of the sum
-__device__ __forceinline__ double dot8_bf16_f64(uint4 w, uint4 a,
-                                                double acc) {
-  const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&w);
-  const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const float2 wf = __bfloat1622float2(wp[p]);
-    const float2 af = __bfloat1622float2(ap[p]);
-    acc = fma(static_cast<double>(wf.x), static_cast<double>(af.x), acc);
-    acc = fma(static_cast<double>(wf.y), static_cast<double>(af.y), acc);
-  }
-  return acc;
-}
-
 // One GRU update of one unit of one column; x* are the bf16 projections
 // widened, h* the recurrent pre-activations with b_hh (bf16-rounded in
 // NUM_BF16G).
@@ -141,178 +122,6 @@ __device__ __forceinline__ float gru_cell(float h, float xr, float xz,
   return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h));
 }
 
-// bytes of one direction's bf16 W_hh (3H x H)
-__host__ __device__ __forceinline__ size_t rec_w_bytes(int H) {
-  return static_cast<size_t>(3) * H * H * 2;
-}
-
-inline size_t rec_smem_bytes(bool w_smem, int BT, int H) {
-  return (w_smem ? align16(rec_w_bytes(H)) : 0) +
-         align16(2 * static_cast<size_t>(BT) * H * 2);
-}
-
-// per direction d (blockIdx.y < dirs): projections xp[d] (T, B, 3H) bf16,
-// W_hh chunks w_hh[d], b_hh[d] (3H) f32, h of row (t, b) written at
-// out[d] + (t * B + b) * ld_out
-struct RecArgs {
-  const bf16* xp[2];
-  const uint4* w_hh[2];
-  const float* b_hh[2];
-  bf16* out[2];
-  int reverse[2];
-  const int* lengths;  // (B,)
-  int ld_out, T, B, H, NQ, dirs;
-};
-
-// grid (ceil(B / BT), dirs), block H * NQ threads; NUM_BF16G only
-template <int CPT, bool W_SMEM, int NUM>
-__global__ void __launch_bounds__(512) gru_rec_kernel(RecArgs a) {
-  static_assert(NUM == NUM_BF16G,
-                "f32 gates and int8 run the cluster recurrence");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int d = blockIdx.y;
-  const bool reverse = pick(a.reverse, d) != 0;
-  const int T = a.T, B = a.B, H = a.H;
-  const int BT = CPT * a.NQ;
-  const int b0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int j = tid % H;
-  const int c0 = (tid / H) * CPT;
-  const int H3 = 3 * H;
-  const int kchunks = H / 8;  // 16-byte chunks of 8 bf16 a row
-  const size_t wchunks = static_cast<size_t>(kchunks) * H3;
-
-  unsigned char* p = smem;
-  uint4* w_s = reinterpret_cast<uint4*>(p);
-  if (W_SMEM) p += align16(wchunks * 16);
-  bf16* act_s = reinterpret_cast<bf16*>(p);  // [2][BT][H] bf16(h)
-
-  const uint4* w_dir = pick(a.w_hh, d);
-  if (W_SMEM) {
-    for (size_t i = tid; i < wchunks; i += blockDim.x) w_s[i] = w_dir[i];
-  }
-  const uint4* wmat = W_SMEM ? w_s : w_dir;
-  for (int i = tid; i < 2 * BT * H; i += blockDim.x)
-    act_s[i] = __float2bfloat16_rn(0.0f);
-
-  float bh[3];
-#pragma unroll
-  for (int g = 0; g < 3; ++g) bh[g] = pick(a.b_hh, d)[g * H + j];
-  int len[CPT];
-  float h[CPT];
-#pragma unroll
-  for (int cc = 0; cc < CPT; ++cc) {
-    const int b = b0 + c0 + cc;
-    len[cc] = b < B ? a.lengths[b] : 0;
-    h[cc] = 0.0f;
-  }
-  const bf16* xp = pick(a.xp, d);
-  bf16* out = pick(a.out, d);
-
-  // this thread's projections of step tt: xp[tt, b, g*H + j]
-  auto load_x = [&](int tt, bf16 (&dst)[3][CPT]) {
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int b = b0 + c0 + cc;
-      const size_t row = (static_cast<size_t>(tt) * B + b) * H3 + j;
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-        dst[g][cc] = b < B ? xp[row + g * H] : __float2bfloat16_rn(0.0f);
-    }
-  };
-  bf16 x_cur[3][CPT], x_next[3][CPT];
-  load_x(reverse ? T - 1 : 0, x_cur);
-  __syncthreads();
-
-  for (int i = 0; i < T; ++i) {
-    const int cur = i & 1;
-    const int t = reverse ? T - 1 - i : i;
-    if (i + 1 < T) load_x(reverse ? T - 2 - i : i + 1, x_next);
-
-    // recurrent pre-activations hp = bf16(f32(W_hh bf16(h)) + b_hh)
-    float hp[3][CPT];
-    const uint4* av = reinterpret_cast<const uint4*>(act_s + cur * BT * H);
-    double acc[3][CPT] = {};
-    for (int kc = 0; kc < kchunks; ++kc) {
-      uint4 w[3];
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-        w[g] = load_w(wmat, static_cast<size_t>(kc) * H3 + g * H + j, W_SMEM);
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const uint4 hv = av[(c0 + cc) * kchunks + kc];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) acc[g][cc] = dot8_bf16_f64(w[g], hv, acc[g][cc]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc)
-        hp[g][cc] = bf16r(__fadd_rn(__double2float_rn(acc[g][cc]), bh[g]));
-
-    bf16* act_n = act_s + (cur ^ 1) * BT * H;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const float h_new = gru_cell<NUM>(
-          h[cc], __bfloat162float(x_cur[0][cc]),
-          __bfloat162float(x_cur[1][cc]), __bfloat162float(x_cur[2][cc]),
-          hp[0][cc], hp[1][cc], hp[2][cc]);
-      if (t < len[cc]) h[cc] = h_new;
-      const bf16 hb = __float2bfloat16_rn(h[cc]);
-      const int c = c0 + cc;
-      act_n[c * H + j] = hb;
-      const int b = b0 + c;
-      if (b < B) out[(static_cast<size_t>(t) * B + b) * a.ld_out + j] = hb;
-    }
-    if (i + 1 < T) {
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) x_cur[g][cc] = x_next[g][cc];
-    }
-    __syncthreads();
-  }
-}
-
-template <int CPT, bool W_SMEM>
-cudaError_t launch_rec(const RecArgs& a, cudaStream_t stream) {
-  const int BT = CPT * a.NQ;
-  const size_t smem = rec_smem_bytes(W_SMEM, BT, a.H);
-  auto kern = gru_rec_kernel<CPT, W_SMEM, NUM_BF16G>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.B + BT - 1) / BT, a.dirs);
-  kern<<<grid, a.H * a.NQ, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <bool W_SMEM>
-cudaError_t dispatch_rec_cpt(int cpt, const RecArgs& a, cudaStream_t s) {
-  switch (cpt) {
-    case 1: return launch_rec<1, W_SMEM>(a, s);
-    case 2: return launch_rec<2, W_SMEM>(a, s);
-    case 4: return launch_rec<4, W_SMEM>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// the per-block recurrence (bf16 gates) over a tile of cpt * a.NQ
-// columns, W_hh in shared memory (w_smem) or read from L2
-inline cudaError_t dispatch_rec(int cpt, int w_smem, const RecArgs& a,
-                                cudaStream_t s) {
-  if (a.T < 1 || a.B < 1 || a.dirs < 1 || a.dirs > 2 || bad_shape(a.H, a.NQ))
-    return cudaErrorInvalidValue;
-  return w_smem ? dispatch_rec_cpt<true>(cpt, a, s)
-                : dispatch_rec_cpt<false>(cpt, a, s);
-}
-
-// ---------------------------------------------------------------------------
-// the cluster recurrence (f32 gates and int8): grid (dirs * ceil(B / BT) *
-// C), cluster (C), block 32 * NG * NP threads
-// ---------------------------------------------------------------------------
-
 // rows of a slice: unit group q (GRU_UG units) holds rows q*48 + g*16 + u
 constexpr int GRU_UG = 16;
 typedef ClusterGeo<3, GRU_UG> GruGeo;
@@ -321,19 +130,25 @@ constexpr int GRU_MAX_THREADS = 256;
 // k-chunks of its W rows a warp keeps in registers for the whole walk
 // (3 x 4 registers a chunk): all of an int8 slice row up to Hp = 256, the
 // first 128 columns of a bf16 one; the rest is read from shared memory
-// on every step
+// on every step (f32 gates, int8)
 constexpr int GRU_KREG = 8;
+// units of a block at most in the bf16-gates mode: its step waits on the
+// block's share of the f64 product
+constexpr int GRU_BF16G_MAX_U = 32;
 
 // units of a block at most in mode num (int8 rows are half as wide)
 __host__ __device__ inline int gru_max_units(int num) {
-  return num == NUM_INT8 ? 2 * CLUSTER_MAX_U : CLUSTER_MAX_U;
+  return num == NUM_INT8    ? 2 * CLUSTER_MAX_U
+         : num == NUM_BF16G ? GRU_BF16G_MAX_U
+                            : CLUSTER_MAX_U;
 }
 
 // warps that share a (unit group, column tile) of the forward: each runs
-// the tile's whole product and the gates of 1 / S of its cells (S = 2:
-// units u or u + 8; S = 4: and every other column), so that a step's
-// serial gate arithmetic is shorter; the most of 4, 2, 1 whose block
-// stays within GRU_MAX_THREADS
+// the tile's whole product (f32 gates, int8) or 1 / S of its k-chunks
+// (bf16 gates), and the gates of 1 / S of its cells (S = 2: units u or
+// u + 8; S = 4: and every other column), so that a step's serial gate
+// arithmetic is shorter; the most of 4, 2, 1 whose block stays within
+// GRU_MAX_THREADS
 __host__ __device__ inline int gru_gate_split(const GruGeo& g) {
   for (int s = 4; s > 1; s /= 2)
     if (g.threads() * s <= GRU_MAX_THREADS) return s;
@@ -346,24 +161,38 @@ __host__ __device__ inline int gru_fwd_threads(const GruGeo& g) {
 
 __host__ __device__ inline bool gru_cluster_bad(int num, int H, int C,
                                                 int BT) {
-  return (num != NUM_F32 && num != NUM_INT8) ||
+  return (num != NUM_F32 && num != NUM_BF16G && num != NUM_INT8) ||
          GruGeo::bad(H, C, BT, gru_max_units(num), GRU_MAX_THREADS);
 }
 
-// bytes between two rows of the W slice and of the h buffers: bf16 Hp + 8
-// values, int8 Hp + 16 bytes (odd multiples of 16 bytes)
+// bytes between two rows of the h buffers: bf16 Hp + 8 values, int8 Hp +
+// 16 bytes (odd multiples of 16 bytes: ldmatrix without bank conflicts);
+// bf16 Hp + 16 values in the bf16-gates mode, whose lanes read 8 bytes of
+// each of 4 rows at once (32 bytes apart in the banks)
 __host__ __device__ inline int gru_row_bytes(int num, const GruGeo& g) {
-  return num == NUM_INT8 ? g.Hp + 16 : 2 * g.ldw;
+  return num == NUM_INT8    ? g.Hp + 16
+         : num == NUM_BF16G ? 2 * g.Hp + 32
+                            : 2 * g.ldw;
+}
+
+// the bf16-gates mode's partial sums: the f64 accumulators of each of the
+// S warps of each (unit group, column tile), [S][NG NP][12 NT][32 lanes]
+__host__ __device__ inline size_t gru_part_bytes(const GruGeo& g) {
+  const int S = gru_gate_split(g);
+  return S > 1 ? align16(static_cast<size_t>(S) * g.NG * g.NP * 12 * g.NT *
+                         32 * sizeof(double))
+               : 0;
 }
 
 // forward: W slice [3U][row], h [2][BT][row], (int8) the block's staged
-// round(127 h) [BT][U], its staged bf16 h [BT][U], two mbarriers
+// round(127 h) [BT][U], (bf16 gates) the partial sums, its staged bf16 h
+// [BT][U], two mbarriers
 __host__ __device__ inline size_t gru_cluster_fwd_smem(int num,
                                                        const GruGeo& g) {
   const size_t row = gru_row_bytes(num, g);
   return align16(g.rows() * row) + align16(2 * g.BT * row) +
          (num == NUM_INT8 ? align16(static_cast<size_t>(g.BT) * g.U) : 0) +
-         g.st_bytes() + 16;
+         (num == NUM_BF16G ? gru_part_bytes(g) : 0) + g.st_bytes() + 16;
 }
 
 // per direction d < dirs: projections xp[d] (T, B, 3H) bf16, W_hh slices
@@ -390,13 +219,18 @@ __device__ __forceinline__ Acc gru_gate_acc(const Acc (&acc)[3][NT][4],
   return acc[gt][c / 2][hh * 2 + c % 2];
 }
 
-template <bool Q>
+// the accumulator of mode NUM
+template <int NUM>
 struct GruAcc {
   typedef float type;
 };
 template <>
-struct GruAcc<true> {
+struct GruAcc<NUM_INT8> {
   typedef int type;
+};
+template <>
+struct GruAcc<NUM_BF16G> {
+  typedef double type;
 };
 
 template <int V>
@@ -417,12 +251,63 @@ __device__ __forceinline__ void with_share(int s, F f) {
   }
 }
 
+// 4 bf16 values (8 bytes) widened exactly to f64
+__device__ __forceinline__ void widen4(uint2 v, double (&out)[4]) {
+  out[0] = __uint_as_float(v.x << 16);
+  out[1] = __uint_as_float(v.x & 0xffff0000u);
+  out[2] = __uint_as_float(v.y << 16);
+  out[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// The bf16-gates step's product, share s of S: acc[mt][nt] = W_s rows
+// (row0 + mt * 16 ..) . h^T columns (n0 + nt * 8 ..) over the k-groups
+// [s G / S, (s + 1) G / S) of the G = Hp / 16, on the FP64 tensor cores
+// (mma.sync m16n8k16 f64, one chain a tile). A is the bf16 W slice, B is
+// bf16(h), both widened exactly. Within group j lane (gid, tig) supplies
+// k = 16 j + 4 tig + i as the mma's k index tig + 4 i, in A and B alike,
+// so that it reads 4 consecutive values of each row at once: the sum
+// covers every k once, and its order does not matter (f64 sums of exact
+// products).
+template <int NT, int S>
+__device__ __forceinline__ void f64_product(double (&acc)[3][NT][4],
+                                            const unsigned char* w_s,
+                                            int ldw, int row0,
+                                            const unsigned char* h_s,
+                                            int ldh, int n0, int Hp, int s,
+                                            int lane) {
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const unsigned char* wa = w_s + (row0 + gid) * ldw + 8 * tig;
+  const unsigned char* hb = h_s + (n0 + gid) * ldh + 8 * tig;
+  const int groups = Hp / 16;
+  const int j1 = (s + 1) * groups / S;
+#pragma unroll 2
+  for (int j = s * groups / S; j < j1; ++j) {
+    double b[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      widen4(*reinterpret_cast<const uint2*>(hb + nt * 8 * ldh + j * 32),
+             b[nt]);
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt) {
+      double a[2][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        widen4(*reinterpret_cast<const uint2*>(wa + (mt * 16 + hh * 8) * ldw +
+                                               j * 32),
+               a[hh]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_f64(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
 template <int NUM, int NT, int S>
 __global__ void __launch_bounds__(GRU_MAX_THREADS)
     gru_cluster_fwd_kernel(ClusterArgs a) {
-  static_assert(NUM == NUM_F32 || NUM == NUM_INT8,
-                "bf16 gates run the per-block recurrence");
   constexpr bool Q = NUM == NUM_INT8;
+  // bf16 gates: the f64 product on the FP64 tensor cores
+  constexpr bool F64 = NUM == NUM_BF16G;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, B = a.B, H = a.H, C = a.C, BT = a.BT;
@@ -447,7 +332,7 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
   const int R = g.rows();
   const int H3 = 3 * H;
   constexpr int NC = 2 * NT;   // batch columns of a tile's thread
-  constexpr int ESZ = Q ? 1 : 2;  // bytes of a weight and of an h value
+  constexpr int ESZ = Q ? 1 : 2;  // bytes of an h value
   const int ldb = gru_row_bytes(NUM, g);
 
   unsigned char* sp = smem;
@@ -457,6 +342,8 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
   sp += align16(static_cast<size_t>(2) * BT * ldb);
   int8_t* st8 = reinterpret_cast<int8_t*>(sp);  // [BT][U] (int8)
   if (Q) sp += align16(static_cast<size_t>(BT) * U);
+  double* part = reinterpret_cast<double*>(sp);  // (bf16 gates)
+  if (F64) sp += gru_part_bytes(g);
   bf16* st_h = reinterpret_cast<bf16*>(sp);  // [BT][U]
   sp += g.st_bytes();
   const StepExchange xc{reinterpret_cast<uint64_t*>(sp),
@@ -524,11 +411,12 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
   with_share<S>(share, [&](auto sh) { load_x(sh, reverse ? T - 1 : 0); });
   cluster.sync();  // every block running, its W slice loaded, h zero
 
-  // the warp's A fragments of its first k-chunks, for the whole walk
+  // the warp's A fragments of its first k-chunks, for the whole walk (f32
+  // gates, int8)
   const int nk = Q ? g.Hp / 32 : g.Hp / 16;
   uint32_t areg[GRU_KREG][3][4];
   const int n0 = p * NT * 8;  // the tile's first column
-  {
+  if constexpr (!F64) {
     const TileProduct<3, NT, Q> p0(w_s, ldb, q * 3 * GRU_UG, h_s, ldb, n0,
                                    0, lane);
 #pragma unroll
@@ -536,6 +424,10 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
       if (ks < nk) p0.load_a(areg[ks], ks);
   }
   const uint32_t h_addr = smem_addr(h_s);
+  // (bf16 gates) this warp's partial sums and the tile's
+  const int tile = q * g.NP + p;
+  double* part_tile = part + static_cast<size_t>(tile) * 12 * NT * 32 + lane;
+  const int part_share = g.NG * g.NP * 12 * NT * 32;
 
   for (int i = 0; i < T; ++i) {
     const int cur = i & 1;
@@ -543,12 +435,43 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
     if (i > 0) xc.wait(i);  // h[cur] complete in this block
 
     // the step's product h . W_slice^T: int8 in two independent chains of
-    // exact int32 sums; bf16 in one f32 chain over the k-chunks in order
-    typedef typename GruAcc<Q>::type Acc;
+    // exact int32 sums; bf16 in one f32 chain over the k-chunks in order;
+    // f64 (bf16 gates) over this warp's share of the k-chunks, then the
+    // tile's S partial sums added in warp order, so that every warp of
+    // the tile holds the same sums
+    typedef typename GruAcc<NUM>::type Acc;
     Acc acc[3][NT][4] = {};
-    const TileProduct<3, NT, Q> prod(w_s, ldb, q * 3 * GRU_UG,
-                                     h_s + cur * BT * ldb, ldb, n0, 0, lane);
-    if constexpr (Q) {
+    if constexpr (F64) {
+      f64_product<NT, S>(acc, w_s, ldb, q * 3 * GRU_UG,
+                         h_s + cur * BT * ldb, ldb, n0, g.Hp, share, lane);
+      if constexpr (S > 1) {
+        double* mine = part_tile + share * part_share;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              mine[((gt * NT + nt) * 4 + e) * 32] = acc[gt][nt][e];
+        named_barrier(1 + tile, 32 * S);
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              double v = 0.0;
+#pragma unroll
+              for (int s2 = 0; s2 < S; ++s2)
+                v += part_tile[s2 * part_share +
+                               ((gt * NT + nt) * 4 + e) * 32];
+              acc[gt][nt][e] = v;
+            }
+      }
+    } else if constexpr (Q) {
+      const TileProduct<3, NT, Q> prod(w_s, ldb, q * 3 * GRU_UG,
+                                       h_s + cur * BT * ldb, ldb, n0, 0,
+                                       lane);
       int acc2[3][NT][4] = {};
 #pragma unroll
       for (int ks = 0; ks < GRU_KREG; ks += 2) {
@@ -566,6 +489,9 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[gt][nt][e] += acc2[gt][nt][e];
     } else {
+      const TileProduct<3, NT, Q> prod(w_s, ldb, q * 3 * GRU_UG,
+                                       h_s + cur * BT * ldb, ldb, n0, 0,
+                                       lane);
 #pragma unroll
       for (int ks = 0; ks < GRU_KREG; ++ks)
         if (ks < nk) prod.mma(acc, areg[ks], ks);
@@ -581,10 +507,14 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
 #pragma unroll
         for (int gt = 0; gt < 3; ++gt) {
           const Acc v = gru_gate_acc<NT>(acc, gt, hh, c);
-          hp[gt] = Q ? __fadd_rn(__fmul_rn(static_cast<float>(v),
-                                           sc[hh][gt]),
-                                 bh[hh][gt])
-                     : __fadd_rn(static_cast<float>(v), bh[hh][gt]);
+          if constexpr (F64)
+            hp[gt] = bf16r(__fadd_rn(__double2float_rn(v), bh[hh][gt]));
+          else if constexpr (Q)
+            hp[gt] = __fadd_rn(__fmul_rn(static_cast<float>(v),
+                                         sc[hh][gt]),
+                               bh[hh][gt]);
+          else
+            hp[gt] = __fadd_rn(v, bh[hh][gt]);
         }
         const float h_new = gru_cell<NUM>(
             h[hh][c], __bfloat162float(xr[hh][c][0]),
@@ -599,7 +529,6 @@ __global__ void __launch_bounds__(GRU_MAX_THREADS)
         }
       });
       __syncwarp();  // the warp's h staged
-
       // the warp's units (16, or 8 where S > 1) of its columns into every
       // cluster block's next h buffer (not after the last step) and to
       // the outputs
@@ -663,19 +592,13 @@ cudaError_t with_gru_fwd_kernel(const GruGeo& g, F f) {
                   : f(gru_cluster_fwd_kernel<NUM, 1, 1>);
 }
 
+// clusters of the cluster recurrence in mode NUM that can be resident at
+// once at (C, BT, H); a negative value is minus a cudaError_t
 template <int NUM>
-cudaError_t launch_gru_cluster_fwd(const ClusterArgs& a, cudaStream_t s) {
-  const GruGeo g(a.H, a.C, a.BT);
-  const int clusters = a.dirs * ((a.B + a.BT - 1) / a.BT);
-  const size_t smem = gru_cluster_fwd_smem(NUM, g);
-  return with_gru_fwd_kernel<NUM>(g, [&](auto kern) {
-    return launch_cluster(kern, a.C, clusters, gru_fwd_threads(g), smem, s,
-                          a);
-  });
-}
-
-template <int NUM>
-int gru_fwd_max_clusters_of(const GruGeo& g) {
+int gru_cluster_fwd_max_clusters(int C, int BT, int H) {
+  if (gru_cluster_bad(NUM, H, C, BT))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const GruGeo g(H, C, BT);
   int n = 0;
   const cudaError_t e = with_gru_fwd_kernel<NUM>(g, [&](auto kern) {
     n = max_clusters(kern, g.C, gru_fwd_threads(g),
@@ -685,36 +608,26 @@ int gru_fwd_max_clusters_of(const GruGeo& g) {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// clusters of the cluster recurrence in mode num that can be resident at
-// once at (C, BT, H); a negative value is minus a cudaError_t
-inline int gru_cluster_fwd_max_clusters(int num, int C, int BT, int H) {
-  if (gru_cluster_bad(num, H, C, BT))
-    return -static_cast<int>(cudaErrorInvalidValue);
-  const GruGeo g(H, C, BT);
-  return num == NUM_INT8 ? gru_fwd_max_clusters_of<NUM_INT8>(g)
-                         : gru_fwd_max_clusters_of<NUM_F32>(g);
-}
-
-// Every cluster-recurrence launch (num NUM_F32: gru_fwd, bigru_fused,
-// bigru_fullfused's default; NUM_INT8: bigru_fullfused_int8): `dirs`
-// directions on clusters of C blocks and tiles of BT columns. Direction
-// d < dirs reads the projections xp[d] (T, B, 3H) bf16, the W_hh slices
-// w_sl + d C 3U Hp ((dirs, C, 3U, Hp), bf16 or int8, ops/rnn_cluster.py
-// w_slices), in NUM_INT8 their scales hh_scale + d C 3U ((dirs, C, 3U)
-// f32, rnn_cluster.row_slices), and b_hh + d 3H ((dirs, 3H) f32) and
-// writes h of row (t, b) at out[d] + (t B + b) ld_out. One direction walks
-// time back to front if `reverse`; two are the forward and the backward
-// direction (reverse must be 0).
-inline cudaError_t launch_gru_cluster(int num, const bf16* xp_f,
-                                      const bf16* xp_b, const void* w_sl,
-                                      const float* hh_scale,
-                                      const float* b_hh, const int* lengths,
-                                      void* out_f, void* out_b, int ld_out,
-                                      int T, int B, int H, int C, int BT,
-                                      int dirs, int reverse, cudaStream_t s) {
-  if (gru_cluster_bad(num, H, C, BT) || T < 1 || B < 1 || dirs < 1 ||
+// Every cluster-recurrence launch (NUM_F32: gru_fwd, bigru_fused,
+// bigru_fullfused's default; NUM_BF16G and NUM_INT8: bigru_fullfused's
+// other modes): `dirs` directions on clusters of C blocks and tiles of BT
+// columns. Direction d < dirs reads the projections xp[d] (T, B, 3H) bf16,
+// the W_hh slices w_sl + d C 3U Hp ((dirs, C, 3U, Hp), bf16 or, in
+// NUM_INT8, int8: ops/rnn_cluster.py w_slices), in NUM_INT8 their scales
+// hh_scale + d C 3U ((dirs, C, 3U) f32, rnn_cluster.row_slices), and
+// b_hh + d 3H ((dirs, 3H) f32) and writes h of row (t, b) at out[d] +
+// (t B + b) ld_out. One direction walks time back to front if `reverse`;
+// two are the forward and the backward direction (reverse must be 0).
+template <int NUM>
+cudaError_t launch_gru_cluster(const bf16* xp_f, const bf16* xp_b,
+                               const void* w_sl, const float* hh_scale,
+                               const float* b_hh, const int* lengths,
+                               void* out_f, void* out_b, int ld_out, int T,
+                               int B, int H, int C, int BT, int dirs,
+                               int reverse, cudaStream_t s) {
+  if (gru_cluster_bad(NUM, H, C, BT) || T < 1 || B < 1 || dirs < 1 ||
       dirs > 2 || (dirs == 2 && reverse != 0) ||
-      (num == NUM_INT8 && hh_scale == nullptr))
+      (NUM == NUM_INT8 && hh_scale == nullptr))
     return cudaErrorInvalidValue;
   const GruGeo g(H, C, BT);
   const size_t per_dir = static_cast<size_t>(C) * g.rows();
@@ -723,7 +636,7 @@ inline cudaError_t launch_gru_cluster(int num, const bf16* xp_f,
   a.xp[0] = xp_f;
   a.xp[1] = xp_b;
   a.w_sl[0] = w;
-  a.w_sl[1] = w + per_dir * g.Hp * (num == NUM_INT8 ? 1 : 2);
+  a.w_sl[1] = w + per_dir * g.Hp * (NUM == NUM_INT8 ? 1 : 2);
   a.hh_scale[0] = hh_scale;
   a.hh_scale[1] = hh_scale ? hh_scale + per_dir : nullptr;
   a.b_hh[0] = b_hh;
@@ -740,8 +653,11 @@ inline cudaError_t launch_gru_cluster(int num, const bf16* xp_f,
   a.C = C;
   a.BT = BT;
   a.dirs = dirs;
-  return num == NUM_INT8 ? launch_gru_cluster_fwd<NUM_INT8>(a, s)
-                         : launch_gru_cluster_fwd<NUM_F32>(a, s);
+  const int clusters = dirs * ((B + BT - 1) / BT);
+  return with_gru_fwd_kernel<NUM>(g, [&](auto kern) {
+    return launch_cluster(kern, C, clusters, gru_fwd_threads(g),
+                          gru_cluster_fwd_smem(NUM, g), s, a);
+  });
 }
 
 }  // namespace

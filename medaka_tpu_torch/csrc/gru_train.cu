@@ -328,7 +328,7 @@ size_t gru_fwd_cluster_smem(int C, int BT, int H) {
 // clusters of C blocks of the forward recurrence that can be resident at
 // once at (C, BT, H); a negative value is minus a cudaError_t
 int gru_fwd_max_clusters(int C, int BT, int H) {
-  return gru_cluster_fwd_max_clusters(NUM_F32, C, BT, H);
+  return gru_cluster_fwd_max_clusters<NUM_F32>(C, BT, H);
 }
 
 size_t gru_bwd_smem(int C, int BT, int H) { return GruGeo(H, C, BT).bwd_smem(); }
@@ -350,8 +350,8 @@ int gru_bwd_max_clusters(int C, int BT, int H) {
 int gru_fwd_launch(const void* xp, const void* w_sl, const float* b_hh,
                    const int* lengths, void* out, int T, int B, int H, int C,
                    int BT, int reverse, void* stream) {
-  return static_cast<int>(launch_gru_cluster(
-      NUM_F32, static_cast<const bf16*>(xp), nullptr, w_sl, nullptr, b_hh,
+  return static_cast<int>(launch_gru_cluster<NUM_F32>(
+      static_cast<const bf16*>(xp), nullptr, w_sl, nullptr, b_hh,
       lengths, out, nullptr, H, T, B, H, C, BT, 1, reverse,
       static_cast<cudaStream_t>(stream)));
 }

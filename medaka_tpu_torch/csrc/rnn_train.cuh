@@ -2,7 +2,8 @@
 // gru_fullfused.cu through gru_rec.cuh, lstm_train.cu and bilstm.cu
 // through lstm_fwd.cuh, gru_split.cu): the gate and weight-load helpers
 // of the recurrence kernels, the tensor-core and copy primitives
-// (ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8, cp.async), the
+// (ldmatrix, mma.sync m16n8k16 bf16, m16n8k32 s8 and m16n8k16 f64,
+// cp.async, named barriers), the
 // machinery of the cluster recurrences (their geometry, the W_hh slice
 // loader, the step's tile products on the tensor cores, bf16 and int8,
 // the backward's dh partials, the split cluster barrier, the forwards'
@@ -50,11 +51,6 @@ __device__ __forceinline__ float sigmoid_f(float v) {
 
 __host__ __device__ __forceinline__ size_t align16(size_t v) {
   return (v + 15) & ~static_cast<size_t>(15);
-}
-
-__device__ __forceinline__ uint4 load_w(const uint4* w, size_t i,
-                                        bool from_smem) {
-  return from_smem ? w[i] : __ldg(&w[i]);
 }
 
 // v[d] with d in {0, 1} without indexing the kernel's parameter array at
@@ -115,6 +111,30 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8 f64) += a (16 x 16 f64, row) . b (16 x 8 f64, col) on the FP64
+// tensor cores (sm_90): IEEE products and sums. a[hh][i] is A[gid + 8
+// hh][tig + 4 i], b[i] B[tig + 4 i][gid]; the accumulator fragments are
+// those of m16n8k16 bf16 (rows gid and gid + 8, columns 2 tig and 2 tig +
+// 1), so an f64 product lands where a bf16 one does
+__device__ __forceinline__ void mma_f64(double (&c)[4],
+                                        const double (&a)[2][4],
+                                        const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0][0]), "d"(a[1][0]), "d"(a[0][1]), "d"(a[1][1]),
+        "d"(a[0][2]), "d"(a[1][2]), "d"(a[0][3]), "d"(a[1][3]), "d"(b[0]),
+        "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// the `threads` threads (whole warps) of a block that name barrier `id`
+// (1-15; 0 is __syncthreads') wait for each other
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // 16 bytes global -> shared, zero-filled when `valid` is false (src is
@@ -289,12 +309,6 @@ cudaError_t launch_dw_reduce(const void* dgates, const void* h_out,
   rnn_bwd_reduce_kernel<<<blocks, 256, 0, s>>>(dw_part, splits, db_part,
                                                parts, dw, db, G, H);
   return cudaGetLastError();
-}
-
-// the recurrence kernels' block: H * nq threads (at most 512), H a multiple
-// of 32
-bool bad_shape(int H, int nq) {
-  return H % 32 != 0 || H > 512 || H * nq > 512;
 }
 
 // ---------------------------------------------------------------------------

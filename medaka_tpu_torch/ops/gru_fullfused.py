@@ -29,21 +29,17 @@ TPU kernels:
 any depth; the unidirectional branch of :func:`bigru_stack_fused` runs
 ``ops.gru_train.gru_fwd`` (TPU kernel ``gru_pallas``).
 
-Every f32-gates and int8 launch (the fullfused default,
-:func:`bigru_pallas_fullfused_int8` and :func:`bigru_pallas`) runs the
-cluster recurrence (``csrc/gru_rec.cuh`` ``gru_cluster_fwd_kernel``, as
-``gru_fwd`` does: W_hh split over a thread-block cluster's shared memory,
-the step's product on the tensor cores, int8 on ``mma.sync`` s8), whose
-geometry :func:`cluster_geometry` chooses with ``ops/rnn_cluster.py``;
-their projection stage runs on the tensor cores
-(``bigru_proj_mma_kernel``, :func:`project`). The bf16-gates mode runs
-the per-block recurrence (``gru_rec_kernel``), whose sums do not depend
-on their order, after the CUDA cores' projection (``bigru_proj_kernel``),
-which sums in the plain version's order. Every kernel mode has a plain
-PyTorch version here
-that repeats its arithmetic step by step. A wrapper runs the plain
-version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises.
+Every launch runs the cluster recurrence (``csrc/gru_rec.cuh``
+``gru_cluster_fwd_kernel``, as ``gru_fwd`` does: W_hh split over a
+thread-block cluster's shared memory, the step's product on the tensor
+cores, int8 on ``mma.sync`` s8, the bf16-gates mode's f64 sums on the FP64
+tensor cores), whose geometry :func:`cluster_geometry` chooses with
+``ops/rnn_cluster.py``. The f32-gates and int8 modes project on the tensor
+cores (``bigru_proj_mma_kernel``, :func:`project`); the bf16-gates mode on
+the CUDA cores (``bigru_proj_kernel``), summing in the plain version's
+order. Every kernel mode has a plain PyTorch version here that repeats its
+arithmetic step by step. A wrapper runs the plain version only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
 The kernels take any hidden size up to 512: one that is not a multiple of
 32 is padded with zero units, which stay exactly 0 and add exact zeros.
 """
@@ -71,9 +67,8 @@ LAUNCHES: Dict[str, int] = {
 MODE_LAUNCHES: Dict[str, int] = {
     "bigru_fullfused/f32_gates": 0, "bigru_fullfused/bf16_gates": 0,
     "bigru_fullfused_int8/int8": 0, "bigru_fused/f32_gates": 0}
-#: largest hidden size the kernels take (the per-block recurrence: one
-#: thread a unit, 512 a block; the cluster recurrence: 16 blocks of at most
-#: 64 units)
+#: largest hidden size the kernels take (the cluster recurrence: 16 blocks
+#: of at most 32 units in the bf16-gates and int8 modes)
 MAX_HIDDEN = 512
 #: ``recurrent_quant`` of :func:`bigru_stack_fullfused` -> kernel mode
 #: (``pallas_gru.py:933-944``; None and "none" run the default kernel)
@@ -129,6 +124,18 @@ def _tanh_bf16(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 0, mag, -mag)
 
 
+def _gates_bf16(hp, xp, h):
+    """The bf16-gates mode's update from the recurrent pre-activations hp
+    (f32, b_hh added), the bf16 projections xp and the carry h: every
+    operation rounded to bf16 (``pallas_gru.py:539-558``)."""
+    H = h.shape[-1]
+    hp = hp.to(torch.bfloat16)
+    r = _sigmoid_bf16(xp[..., :H] + hp[..., :H])
+    z = _sigmoid_bf16(xp[..., H:2 * H] + hp[..., H:2 * H])
+    n = _tanh_bf16(xp[..., 2 * H:] + r * hp[..., 2 * H:])
+    return ((1.0 - z) * n + z * h.to(torch.bfloat16)).float()
+
+
 def _cell(h, xp, w_t, sc, b, mode):
     """One step of both directions: h (2, B, H) f32, xp (2, B, 3H) bf16."""
     H = h.shape[-1]
@@ -140,14 +147,9 @@ def _cell(h, xp, w_t, sc, b, mode):
         # summed in f64 and rounded once to f32, as the kernel does: the
         # bf16 carry would amplify an order-dependent f32 rounding
         hp = torch.bmm(_bf16(h).double(), w_t.double()).float() + b
+        return _gates_bf16(hp, xp, h)
     else:
         hp = torch.bmm(_bf16(h), w_t) + b
-    if mode == "bf16_gates":
-        hp = hp.to(torch.bfloat16)
-        r = _sigmoid_bf16(xp[..., :H] + hp[..., :H])
-        z = _sigmoid_bf16(xp[..., H:2 * H] + hp[..., H:2 * H])
-        n = _tanh_bf16(xp[..., 2 * H:] + r * hp[..., 2 * H:])
-        return ((1.0 - z) * n + z * h.to(torch.bfloat16)).float()
     xf = xp.float()
     r = _sigmoid(xf[..., :H] + hp[..., :H])
     z = _sigmoid(xf[..., H:2 * H] + hp[..., H:2 * H])
@@ -229,7 +231,7 @@ def build():
     lib = cuda_build.load_library("gru_fullfused.cu")
     if not getattr(lib, "_medaka_typed", False):
         lib.bigru_fullfused_launch.argtypes = (
-            [_VOIDP] * 10 + [_INT] * 11 + [_VOIDP])
+            [_VOIDP] * 10 + [_INT] * 8 + [_VOIDP])
         lib.bigru_fullfused_launch.restype = _INT
         lib.bigru_fused_launch.argtypes = [_VOIDP] * 7 + [_INT] * 6 + [_VOIDP]
         lib.bigru_fused_launch.restype = _INT
@@ -239,8 +241,6 @@ def build():
         lib.bigru_project_launch.argtypes = (
             [_VOIDP] * 4 + [ctypes.c_longlong] + [_INT] * 2 + [_VOIDP])
         lib.bigru_project_launch.restype = _INT
-        lib.bigru_rec_smem.argtypes = [_INT] * 3
-        lib.bigru_rec_smem.restype = ctypes.c_size_t
         lib.bigru_cluster_smem.argtypes = [_INT] * 4
         lib.bigru_cluster_smem.restype = ctypes.c_size_t
         lib.bigru_max_clusters.argtypes = [_INT] * 4
@@ -251,72 +251,44 @@ def build():
     return lib
 
 
-def tile_shape(batch: int, hidden: int, n_sm: int, w_smem: bool):
-    """(columns per thread, column groups) of a block of one direction of
-    the per-block recurrence (the bf16-gates mode).
-
-    Both directions run in one grid. With W_hh in shared memory a block
-    reads it once, so the smallest tile that fits both directions' blocks
-    in one wave keeps the most SMs busy. Where W_hh streams from L2 on
-    every step, a block of up to 4 columns (nq = 1) reads it once per step
-    for all of them, at up to half the SMs.
-    """
-    if w_smem:
-        for cpt, nq in ((1, 1), (2, 1), (2, 2), (4, 2)):
-            if nq * hidden <= 512 and 2 * -(-batch // (cpt * nq)) <= n_sm:
-                return cpt, nq
-        return (4, 2) if 2 * hidden <= 512 else (4, 1)
-    for cpt in (1, 2):
-        if 2 * -(-batch // cpt) <= max(2, n_sm // 2):
-            return cpt, 1
-    return 4, 1
-
-
-def _choose(lib, batch: int, hidden: int, device):
-    """(cpt, nq, W_hh in shared memory) of a per-block recurrence launch
-    (bf16 gates)."""
-    n_sm = cuda_build.sm_count(device)
-    for w_smem in (True, False):
-        cpt, nq = tile_shape(batch, hidden, n_sm, w_smem)
-        if lib.bigru_rec_smem(int(w_smem), cpt * nq,
-                              hidden) <= cuda_build.SMEM_LIMIT:
-            return cpt, nq, w_smem
-    raise ValueError("needs more than {} bytes of shared memory".format(
-        cuda_build.SMEM_LIMIT))
-
-
 #: the cluster recurrence's layout of each mode (``csrc/gru_rec.cuh``)
-CLUSTER_LAYOUTS = {"f32_gates": rnn_cluster.GRU, "int8": rnn_cluster.GRU_INT8}
+CLUSTER_LAYOUTS = {"f32_gates": rnn_cluster.GRU,
+                   "bf16_gates": rnn_cluster.GRU_BF16G,
+                   "int8": rnn_cluster.GRU_INT8}
 
 
 def cluster_geometry(hidden: int, batch: int, device,
-                     kernel: str = "bigru_fullfused"):
+                     kernel: str = "bigru_fullfused", mode: str = None):
     """(C, BT, shared memory bytes, resident clusters) with which a launch
-    of the cluster recurrence (``kernel``: "bigru_fullfused" or
-    "bigru_fused", f32 gates, or "bigru_fullfused_int8") runs at (padded)
-    hidden size ``hidden`` and batch ``batch`` on CUDA device ``device``:
-    both directions' clusters in one grid (:func:`rnn_cluster.choose_
-    geometry` with the mode's layout); raises, naming the kernel and the
-    geometry, when no cluster can be resident."""
+    of the cluster recurrence (``kernel``: "bigru_fullfused" in ``mode``
+    "f32_gates" (the default) or "bf16_gates", "bigru_fused", or
+    "bigru_fullfused_int8") runs at (padded) hidden size ``hidden`` and
+    batch ``batch`` on CUDA device ``device``: both directions' clusters
+    in one grid (:func:`rnn_cluster.choose_geometry` with the mode's
+    layout); raises, naming the kernel and the geometry, when no cluster
+    can be resident."""
     lib = build()
-    mode = "int8" if kernel == "bigru_fullfused_int8" else "f32_gates"
+    if kernel == "bigru_fullfused_int8":
+        mode = "int8"
+    mode = mode or "f32_gates"
     num = NUMERICS[mode]
+    name = kernel if mode != "bf16_gates" else kernel + "/" + mode
 
     def query(cluster, columns):
         n = lib.bigru_max_clusters(num, cluster, columns, hidden)
         if n < 0:
-            _raise(lib, kernel, -n)
+            _raise(lib, name, -n)
         return n
 
     return rnn_cluster.geometry(CLUSTER_LAYOUTS[mode], "fwd", hidden, batch,
-                                device, query, cuda_build.SMEM_LIMIT, kernel,
+                                device, query, cuda_build.SMEM_LIMIT, name,
                                 directions=2)
 
 
 def _cluster_operand(w_hh, cluster, mode="f32_gates"):
     """(2, 3H, H) W_hh -> (2, C, 3U, Hp) slices of both directions: bf16,
     or in mode "int8" the int8 values of :func:`_quantize_cols` with their
-    scales (2, C, 3U) f32 in the same rows (None in the other mode)."""
+    scales (2, C, 3U) f32 in the same rows (None in the other modes)."""
     layout = CLUSTER_LAYOUTS[mode]
     if mode != "int8":
         return torch.stack([rnn_cluster.w_slices(layout, w, cluster)
@@ -373,7 +345,7 @@ def _unpad(out, T, B, hidden, padded):
 def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode,
                       cluster=None):
     """``cluster``: a (C, BT) geometry in place of :func:`cluster_geometry`'s
-    (the cluster modes; for timing other cluster sizes)."""
+    (for timing other cluster sizes)."""
     T, B, IN = x.shape
     H = w_hh.shape[-1]
     kernel = "bigru_fullfused_int8" if mode == "int8" else "bigru_fullfused"
@@ -389,24 +361,11 @@ def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode,
     if T == 0 or B == 0:
         return _unpad(out, T, B, H, Hp)
     lib = build()
-    num = NUMERICS[mode]
     w_ih = _pad_gates(w_ih.to(torch.bfloat16), H, Hp, 1).contiguous()
     b_ih = _pad_gates(b_ih.float(), H, Hp, 1).contiguous()
     w_hh, b_hh = _pad_recurrent(w_hh.float(), b_hh.float(), H, Hp)
-    if mode in CLUSTER_LAYOUTS:
-        cols = cluster or cluster_geometry(Hp, B, dev, kernel)[:2]
-        cpt = nq = w_smem = 0
-        w_op, scale = _cluster_operand(w_hh, cols[0], mode)
-    else:
-        try:
-            cpt, nq, w_smem = _choose(lib, B, Hp, dev)
-        except ValueError as e:
-            raise ValueError("{}: {}".format(kernel, e)) from None
-        cols = (0, 0)
-        # the per-block recurrence's 16-byte-chunk row layout
-        w_op = cuda_build.interleave_chunks(
-            w_hh.to(torch.bfloat16).contiguous())
-        scale = None
+    cols = cluster or cluster_geometry(Hp, B, dev, kernel, mode)[:2]
+    w_op, scale = _cluster_operand(w_hh, cols[0], mode)
     b_hh = b_hh.contiguous()
     x = x.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
@@ -417,12 +376,12 @@ def _launch_fullfused(x, w_ih, b_ih, w_hh, b_hh, lengths, mode,
         None if scale is None else scale.data_ptr(), b_hh.data_ptr(),
         lengths.data_ptr(), xp.data_ptr(), out.data_ptr(),
         out[..., Hp:].data_ptr(), 2 * Hp, T, B, IN, Hp, cols[0], cols[1],
-        cpt, nq, int(w_smem), num, stream)
+        NUMERICS[mode], stream)
     if err != 0:
         _raise(lib, kernel, err)
     LAUNCHES[kernel] += 1
     MODE_LAUNCHES["{}/{}".format(kernel, mode)] += 1
-    if mode in CLUSTER_LAYOUTS:
+    if mode != "bf16_gates":
         LAUNCHES["bigru_project"] += 1
     return _unpad(out, T, B, H, Hp)
 

@@ -2,10 +2,9 @@
 
 The cluster recurrences (``csrc/rnn_train.cuh`` ``ClusterGeo``:
 ``lstm_fwd``/``lstm_bwd`` in ``csrc/lstm_train.cu``, the GRU backward in
-``csrc/gru_train.cu``, the GRU forward of every f32-gates launch,
-``gru_fwd``, ``bigru_fused`` and ``bigru_fullfused``, in
-``csrc/gru_rec.cuh``) run one tile of BT batch columns of one direction on
-a thread-block cluster of C blocks. Block r keeps the gate rows of its U
+``csrc/gru_train.cu``, the GRU forward of ``gru_fwd``, ``bigru_fused`` and
+every ``bigru_fullfused`` mode in ``csrc/gru_rec.cuh``) run one tile of BT
+batch columns of one direction on a thread-block cluster of C blocks. Block r keeps the gate rows of its U
 hidden units of W_hh in shared memory for the whole walk. A
 :class:`Layout` says how many gate rows a unit has and how many units a
 warp's unit group holds; everything here is pure Python, mirrors the
@@ -15,7 +14,9 @@ The split kernels' int8 mode (``csrc/gru_split.cu``: ``gru_l1_split``
 kind "l1", ``gru_l2head_split`` kind "l2") runs the same cluster design
 with int8 weights, blocks of up to 256 units and larger clusters where
 they buy one wave (:data:`SPLIT`); ``bigru_fullfused_int8`` runs the GRU
-forward with int8 weights in the same row order (:data:`GRU_INT8`).
+forward with int8 weights in the same row order (:data:`GRU_INT8`), the
+bf16-gates mode of ``bigru_fullfused`` with bf16 weights widened to f64 on
+the FP64 tensor cores (:data:`GRU_BF16G`).
 """
 from __future__ import annotations
 
@@ -62,6 +63,10 @@ class Layout(NamedTuple):
     widen: bool = False
     #: threads of a block at most
     max_threads: int = MAX_THREADS
+    #: try cluster sizes in order of a block's share of the step's product
+    #: (its units times the padded H), least first, each as ``widen``
+    #: tries them; else the smallest first
+    least_work: bool = False
 
 
 #: gates i, f, g, o; 8-unit groups: rows q*32 + g*8 + u
@@ -81,6 +86,14 @@ SPLIT = Layout(gates=3, group=16, cell=False, wbytes=1, max_units=256,
 #: H <= 512 fits
 GRU_INT8 = Layout(gates=3, group=16, cell=False, wbytes=1, max_units=32,
                   max_threads=256)
+#: the bf16-gates GRU forward of ``bigru_fullfused`` (``csrc/gru_rec.cuh``,
+#: NUM_BF16G): the GRU's rows and bf16 slices, widened to f64 as they load;
+#: the step's f64 product on the FP64 tensor cores is what it waits on, so
+#: the cluster that gives a block the least of it comes first (16 units,
+#: clusters of 16 at H=256; 32 units, the most, at H=512), in one wave
+#: where that fits
+GRU_BF16G = Layout(gates=3, group=16, cell=False, max_units=32,
+                   max_threads=256, widen=True, least_work=True)
 
 
 def units_per_block(layout: Layout, hidden: int, cluster: int) -> int:
@@ -99,6 +112,34 @@ def threads(layout: Layout, hidden: int, cluster: int, columns: int) -> int:
     columns."""
     warps = units_per_block(layout, hidden, cluster) // layout.group
     return 32 * warps * (columns // min(columns, 16))
+
+
+def gate_split(layout: Layout, hidden: int, cluster: int,
+               columns: int) -> int:
+    """Warps of a (unit group, column tile) of the GRU forward: the most of
+    4, 2 and 1 whose block stays within 256 threads (``gru_gate_split`` in
+    ``csrc/gru_rec.cuh``)."""
+    base = threads(layout, hidden, cluster, columns)
+    for share in (4, 2):
+        if base * share <= 256:
+            return share
+    return 1
+
+
+def _bf16g_smem_bytes(cluster: int, columns: int, hidden: int) -> int:
+    """The bf16-gates forward's shared memory (``gru_cluster_fwd_smem`` in
+    ``csrc/gru_rec.cuh``): the W slice and h [2][BT] in bf16 rows of Hp +
+    16, the f64 partial sums of the S warps of each tile, the staged bf16
+    h, two mbarriers."""
+    U = units_per_block(GRU_BF16G, hidden, cluster)
+    Hp = cluster * U
+    nt = 2 if columns >= 16 else 1
+    tiles = (U // 16) * (columns // (8 * nt))
+    share = gate_split(GRU_BF16G, hidden, cluster, columns)
+    row = 2 * Hp + 32
+    part = share * tiles * 12 * nt * 32 * 8 if share > 1 else 0
+    return (_align16(3 * U * row) + _align16(2 * columns * row)
+            + _align16(part) + _align16(columns * U * 2) + 16)
 
 
 def max_threads(kind: str, layout: Layout = None) -> int:
@@ -135,6 +176,8 @@ def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
     if kind in ("l1", "l2"):
         return _split_smem_bytes(layout, kind, cluster, columns, hidden,
                                  inputs, classes, U)
+    if layout is GRU_BF16G:
+        return _bf16g_smem_bytes(cluster, columns, hidden)
     if layout.wbytes == 1:
         # the int8 GRU forward: W_hh slice and h [2][BT] in int8 rows of
         # Hp + 16 bytes, the staged int8 h, the staged bf16 h, two
@@ -194,7 +237,10 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
     ``layout.tiles`` whose ``directions`` x ceil(B / BT) clusters are all
     resident at once (one wave), else the largest that fits. Where the
     layout ``widen``s and no tile runs in one wave, the next larger
-    cluster sizes are tried the same way, in order, before that fallback.
+    cluster sizes are tried the same way, in order, before that fallback;
+    where it asks for ``least_work``, the cluster sizes are taken in order
+    of a block's share of the step's product (its units times the padded
+    H), least first.
     ``max_clusters(C, BT, smem)`` is how many clusters the card holds at
     once (``cudaOccupancyMaxActiveClusters``; about the SM count over C); a
     value below 1 raises, naming ``name`` (the kernel) and the geometry.
@@ -213,6 +259,9 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
                                inputs, classes) <= smem_limit)
 
     clusters = [c for c in CLUSTER_SIZES if fits(c, layout.tiles[0])]
+    if layout.least_work:
+        clusters.sort(key=lambda c: (
+            c * units_per_block(layout, hidden, c) ** 2, c))
     if not clusters:
         raise ValueError("no cluster size fits H={} in {} bytes of shared "
                          "memory".format(hidden, smem_limit))

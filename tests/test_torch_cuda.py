@@ -17,7 +17,7 @@ from medaka_tpu_torch import features, models, prediction, testing
 from medaka_tpu_torch.common import Region
 from medaka_tpu_torch.models.gru import GRUModel
 from medaka_tpu_torch.ops import bilstm, cuda_build, gru_fullfused, \
-    gru_split, gru_train, lstm_train
+    gru_split, gru_train, lstm_train, rnn_cluster
 
 pytestmark = pytest.mark.cuda
 
@@ -510,15 +510,17 @@ def _launch_at(kernel, H, B, device):
 
 
 @pytest.mark.parametrize("kernel", ["gru_bwd", "bigru_fullfused", "gru_fwd",
-                                    "bigru_fused", "bigru_fullfused_int8"])
+                                    "bigru_fused", "bigru_fullfused_int8",
+                                    "bigru_fullfused/bf16_gates"])
 def test_gru_geometry_matches_the_kernels(device, kernel):
     """The host's byte count equals the kernel's for every H and tile the
     GRU cluster chooser can pick (the backward and ``gru_fwd`` at every H
     they take, the f32-gates bi-GRU recurrence of ``bigru_fullfused`` and
-    ``bigru_fused`` and the int8 one of ``bigru_fullfused_int8`` at every
-    H up to 512, padded to a multiple of 32), and every cluster size it
-    picks is resident; ``gru_fwd`` and ``bigru_fused`` launch at each
-    geometry and agree with their plain versions."""
+    ``bigru_fused``, the int8 one of ``bigru_fullfused_int8`` and the
+    bf16-gates one at every H up to 512, padded to a multiple of 32), and
+    every cluster size it picks is resident; ``gru_fwd`` and
+    ``bigru_fused`` launch at each geometry and agree with their plain
+    versions."""
     if kernel == "gru_bwd":
         smem_fn = gru_train.build().gru_bwd_smem
         geometry = gru_train.bwd_geometry
@@ -528,16 +530,18 @@ def test_gru_geometry_matches_the_kernels(device, kernel):
         geometry = gru_train.fwd_geometry
         want = {1, 2, 4, 8}
     else:
-        num = gru_fullfused.NUMERICS[
-            "int8" if kernel == "bigru_fullfused_int8" else "f32_gates"]
+        name, _, mode = kernel.partition("/")
+        mode = mode or ("int8" if kernel == "bigru_fullfused_int8"
+                        else "f32_gates")
+        num = gru_fullfused.NUMERICS[mode]
 
         def smem_fn(C, BT, H):
             return gru_fullfused.build().bigru_cluster_smem(num, C, BT, H)
 
         def geometry(H, B, dev):
-            return gru_fullfused.cluster_geometry(H, B, dev, kernel)
-        want = ({1, 2, 4, 8, 16} if kernel == "bigru_fullfused_int8"
-                else {1, 2, 4, 8})
+            return gru_fullfused.cluster_geometry(H, B, dev, name, mode)
+        want = {"int8": {1, 2, 4, 8, 16}, "bf16_gates": {2, 4, 8, 16},
+                "f32_gates": {1, 2, 4, 8}}[mode]
     gru_train.reset_launches()
     gru_fullfused.reset_launches()
     clusters = set()
@@ -689,13 +693,12 @@ def test_fullfused_kernels_match_plain(device, H, B, T, mode, layer_in):
     (cuBLAS), which can move one bf16 rounding of h: f32-gates outputs
     within 2^-8 (mean 1e-3); int8 sums are exact, so int8 outputs too;
     bf16 gates within one bf16 step of the output's largest magnitude. A
-    second launch repeats the first bit for bit. The f32-gates, int8 and
-    ``bigru_fused`` launches run the cluster recurrence, whose chooser
-    takes clusters of 1 (H=64), 2 (96), 4 (160 with 32 zero units, 256)
-    and 8 (384, 512) blocks in f32 and of 2-16 blocks in int8, with B=1-128
-    on 8-, 16- and 32-column tiles; the bf16-gates mode the per-block
-    recurrence, which streams the bf16 W_hh from L2 at H >= 256 and keeps
-    it in shared memory below.
+    second launch repeats the first bit for bit. Every launch runs the
+    cluster recurrence, whose chooser takes clusters of 1 (H=64), 2 (96),
+    4 (160 with 32 zero units, 256) and 8 (384, 512) blocks in f32, of
+    2-16 blocks in int8 and of 4-16 blocks in bf16 gates (the f64 product
+    on the FP64 tensor cores, its W slice in f64 up to H=256 and in bf16
+    above), with B=1-128 on 8-, 16- and 32-column tiles.
     """
     rng = np.random.default_rng(H + B + T)
     IN = 10 if layer_in == "features" else 2 * H
@@ -829,6 +832,65 @@ def test_int8_fullfused_matches_plain(device, H, B):
         assert diff.mean().item() <= 1e-3
         t_pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
         assert (got[..., H:].float().abs().sum(-1)[t_pad] == 0).all()
+
+
+@pytest.mark.parametrize("H", [64, 96, 160, 256, 384, 512])
+@pytest.mark.parametrize("B", [1, 16, 31, 128])
+def test_bf16_gates_cluster_recurrence_matches_plain(device, H, B):
+    """The bf16-gates mode on the cluster recurrence (f64 sums on the FP64
+    tensor cores) at layer 1 (10 inputs) and layer 2 (2H) inputs, ragged
+    lengths with a padded row: bit for bit on a second launch, within one
+    bf16 step of ``bigru_fullfused_plain`` (mean 1e-3; its f64 sums do not
+    depend on their order, so the share of elements that differ is
+    printed, expected 0), padded steps and rows 0, one launch counted
+    under its mode; the shared memory that ``rnn_cluster`` reckons for the
+    chosen geometry is the kernel's."""
+    rng = np.random.default_rng(H * 1000 + B)
+    T = 30
+    C, BT, smem, resident = gru_fullfused.cluster_geometry(
+        H, B, device, "bigru_fullfused", "bf16_gates")
+    lib = gru_fullfused.build()
+    assert lib.bigru_cluster_smem(gru_fullfused.NUMERICS["bf16_gates"], C,
+                                  BT, H) == smem
+    assert smem == rnn_cluster.smem_bytes(rnn_cluster.GRU_BF16G, "fwd", C,
+                                          BT, H) <= cuda_build.SMEM_LIMIT
+    assert 1 <= resident
+    for IN in (10, 2 * H):
+        x, w_ih, b_ih, w_hh, b_hh, lengths = _fullfused_inputs(
+            rng, H, B, T, IN, device)
+        gru_fullfused.reset_launches()
+        got = gru_fullfused.fullfused_layer(x, w_ih, b_ih, w_hh, b_hh,
+                                            lengths, "bf16_gates")
+        assert gru_fullfused.MODE_LAUNCHES["bigru_fullfused/bf16_gates"] == 1
+        assert gru_fullfused.LAUNCHES["bigru_project"] == 0
+        again = gru_fullfused.fullfused_layer(x, w_ih, b_ih, w_hh, b_hh,
+                                              lengths, "bf16_gates")
+        want = gru_fullfused.bigru_fullfused_plain(
+            x, w_ih, b_ih, w_hh, b_hh, lengths, "bf16_gates")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        err, share, bar = _within_one_bf16_step(got, want)
+        print("bf16 gates H", H, "B", B, "IN", IN, "C", C, "BT", BT, "max",
+              err, "share differing", share)
+        assert err <= bar
+        assert (got.float() - want.float()).abs().mean().item() <= 1e-3
+        t_pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
+        assert (got[..., H:].float().abs().sum(-1)[t_pad] == 0).all()
+
+
+def test_bf16_gates_geometry_that_cannot_fit_raises(device):
+    """A bf16-gates launch on a geometry the cluster recurrence cannot run
+    (64 units a block, above its 32) raises, naming the kernel; so does a
+    chooser that finds no cluster the card can hold."""
+    rng = np.random.default_rng(5)
+    args = _fullfused_inputs(rng, 512, 4, 8, 10, device)
+    with pytest.raises(RuntimeError, match="bigru_fullfused launch failed"):
+        gru_fullfused._launch_fullfused(*args, "bf16_gates", cluster=(8, 8))
+    with pytest.raises(RuntimeError, match="bigru_fullfused/bf16_gates"):
+        rnn_cluster.choose_geometry(
+            rnn_cluster.GRU_BF16G, "fwd", 256, 16, cuda_build.SMEM_LIMIT,
+            lambda cluster, columns, smem: 0, directions=2,
+            name="bigru_fullfused/bf16_gates")
 
 
 def test_fullfused_wrapper_raises_on_bad_input(device):

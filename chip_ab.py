@@ -20,7 +20,11 @@ T=10000, H=256 (the batch-16 path's layer 2), over one column and at
 H=96, B=31, T=500, and of the split kernels ``gru_l1_split`` and
 ``gru_l2head_split`` (int8, H=256, T=10000): mode "t" at B=512 and at
 B=480 (the automatic batch where both run in one wave), mode "rows" at
-B=64, and over one column in both modes; where the tree has the cluster
+B=64 and 32, and over one column in both modes, and bf16
+(``quant=False``) in mode "t" at B=480 and over one column and in mode
+"rows" at B=64 and 32 (where the tree runs bf16 on clusters, also on the
+cluster geometries of ``BF16_SWEEPS`` beside the chooser's, each held to
+the chooser's outputs); where the tree has the cluster
 geometry of the int8 split kernels, also layer 1 on clusters of 4 blocks
 (64 units a block) at the same shapes, and each launch's geometry; the
 int8, f32-gates and bf16-gates fullfused launches at B=16, T=10000,
@@ -33,8 +37,12 @@ layers are also run over inputs whose projections are exact in f32, so
 that the trees' recurrences see the same projections.
 ``compare`` prints, for each output, whether every file holds the same
 bits as the first, the largest difference where not, and the train
-steps' agreement and the times side by side. Give the trees their turns
+steps' agreement and the times side by side; the bf16 split kernels'
+outputs (layer 1, and layer 2 on the plain layer 1's outputs, which are
+the same in every tree) must stay within the card's bars of the first
+file's, or it exits 1. Give the trees their turns
 in one call, on one card (A, B, B, A), since cards and calls differ.
+``run --split-only`` runs and times the split kernels alone.
 
 Needs a CUDA GPU and ``nvcc``; imports nothing of JAX or ``medaka_tpu``.
 """
@@ -45,9 +53,15 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+#: the shapes (B, mode) at which the bf16 split kernels are timed, and the
+#: cluster geometries (C, BT) of layer 1 and of layer 2 timed there beside
+#: the chooser's (H=256, T=10000)
+_SMALL = (((2, 8), (4, 8), (8, 8), (16, 8)), ((8, 8), (16, 8)))
+BF16_SWEEPS = {(480, "t"): (((4, 32),), ((8, 16),)),
+               (64, "rows"): _SMALL, (32, "rows"): _SMALL, (1, "t"): _SMALL}
 
 
-def run(tree, out_path, seed):
+def run(tree, out_path, seed, split_only=False):
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -91,178 +105,195 @@ def run(tree, out_path, seed):
                                              quant)
             keep("gru_split/{}/{}/l1".format(mode, quant), (kf, kb))
             keep("gru_split/{}/{}/l2head".format(mode, quant), logits)
-    # the bi-LSTM inference kernel
-    keep("bilstm_fused", bilstm.bilstm_fused(
-        *cs.random_lstm_inputs(rng, 128, 64, 300, dev)))
-    # the LSTM training pair, both directions
-    for H in (384, 128):
-        for reverse in (False, True):
-            xp, w_hh, b_hh, ln, dh = cs.random_direction(rng, H, 64, 200, dev,
-                                                         gates=4)
-            h, c = lstm_train.lstm_fwd(xp, w_hh, b_hh, ln, reverse)
-            keep("lstm_fwd/H{}/{}".format(H, reverse), (h, c))
-            keep("lstm_bwd/H{}/{}".format(H, reverse), lstm_train.lstm_bwd(
-                xp, h, c, dh, w_hh, b_hh, ln, reverse))
-    # the GRU training pair; gru_bwd on the plain forward's outputs, so
-    # that it sees the same inputs whatever gru_fwd gives
-    for H, B, T in ((256, 128, 200), (96, 31, 100)):
-        for reverse in (False, True):
-            xp, w_hh, b_hh, ln, dh = cs.random_direction(rng, H, B, T, dev)
-            keep("gru_fwd/H{}/{}".format(H, reverse),
-                 gru_train.gru_fwd(xp, w_hh, b_hh, ln, reverse))
-            h = gru_train.gru_fwd_plain(xp, w_hh, b_hh, ln, reverse)
-            keep("gru_bwd/H{}/{}".format(H, reverse), gru_train.gru_bwd(
-                xp, h, dh, w_hh, b_hh, ln, reverse))
-    # the fullfused modes over inputs whose projections are exact in f32
-    # (x in quarters, W_ih in 64ths, b_ih in 256ths: every partial sum is
-    # a multiple of 1/256 below 2^14 in magnitude), so that every tree's
-    # projection stage gives the same bf16 projections whatever the order
-    # of its sums: the recurrences are compared over the same inputs
-    for H, B, T in ((256, 16, 300), (96, 31, 200)):
-        ln = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
-        ln[0], ln[1] = T, 0
-        ln = ln.to(dev)
-        k = 1.0 / H ** 0.5
-        for IN in (10, 2 * H):
-            x = torch.from_numpy(rng.integers(-4, 5, (T, B, IN)).astype(
-                "float32") / 4).to(dev, torch.bfloat16)
-            w = (torch.from_numpy(rng.integers(-8, 9, (2, 3 * H, IN)).astype(
-                    "float32") / 64).to(dev),
-                 torch.from_numpy(rng.integers(-16, 17, (2, 3 * H)).astype(
-                     "float32") / 256).to(dev),
-                 torch.from_numpy(rng.uniform(-k, k, (2, 3 * H, H)).astype(
-                     "float32")).to(dev),
-                 torch.from_numpy(rng.uniform(-k, k, (2, 3 * H)).astype(
-                     "float32")).to(dev))
-            for mode in ("f32_gates", "bf16_gates", "int8"):
-                kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
-                keep("exact_projections/{}/H{}/IN{}".format(mode, H, IN),
-                     kernel())
-    # the fullfused modes and bigru_fused, layer 1 and layer 2 inputs
-    for H, B, T in ((256, 16, 500), (96, 31, 200)):
-        ln = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
-        ln[0], ln[1] = T, 0
-        ln = ln.to(dev)
-        for IN in (10, 2 * H):
-            x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
-                "float32")).to(dev, torch.bfloat16)
-            w = cs.random_bigru_layer(rng, H, IN, dev)
-            for mode in ("f32_gates", "bf16_gates", "int8", "fused"):
-                kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
-                keep("{}/H{}/IN{}".format(
-                    "bigru_fused" if mode == "fused"
-                    else "bigru_fullfused/" + mode, H, IN), kernel())
-
-    # one train step through the kernels vs through their plain versions
-    from medaka_tpu_torch import parallel
-    from medaka_tpu_torch.models.gru import GRUModel
-    B, T = 128, 1000
-    ln = rng.integers(T // 2, T + 1, B).astype("int32")
-    ln[0] = T
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in (
-        ("features", rng.random((B, T, 10)).astype("float32")),
-        ("labels", rng.integers(0, 5, (B, T)).astype("int32")),
-        ("mask", (np.arange(T)[None, :] < ln[:, None]).astype("float32")),
-        ("lengths", ln))}
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = GRUModel(gru_size=256).to(dev)
-    losses, grads = {}, {}
-    for plain in (False, True):
-        losses[plain] = cs.staged_train_step(
-            model, None, batch, gru_train, parallel, plain=plain,
-            update=False).item()
-        grads[plain] = {n: p.grad.clone() for n, p in model.named_parameters()}
-    step["loss_rel"] = abs(losses[False] - losses[True]) / abs(losses[True])
-    step["grad_rel_max"] = max(
-        ((grads[False][n] - g).abs().max() / g.abs().max()).item()
-        for n, g in grads[True].items())
-    print("   train step, kernels vs plain: {}".format(json.dumps(step)),
-          flush=True)
-    del model, grads, batch
-
-    # times of the two recurrences this comparison is about
+            if not quant:
+                # bf16 layer 2 on the plain layer 1's outputs, the same
+                # bits in every tree (the plain versions are the same)
+                pf, pb = gru_split.gru_l1_split_plain(
+                    xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+                    w["b_hh1"], mode=mode, quant=False)
+                keep("gru_split_bf16/{}/l2head_on_plain_l1".format(mode),
+                     gru_split.gru_l2head_split(
+                         pf, pb, lens, w["w_in2"], w["in_scale2"],
+                         w["b_ih2"], w["w_hh2"], w["sc2"], w["b_hh2"],
+                         w["w_head"], mode=mode, quant=False))
     def timed(name, fn):
         times[name] = cs.cuda_ms(fn, reps=5)
         print("   {}: {:.3f} ms".format(name, times[name]), flush=True)
 
-    for H, B, T in ((256, 128, 1000), (256, 1, 1000), (96, 31, 500)):
-        xp, w_hh, b_hh, ln, _ = cs.random_direction(rng, H, B, T, dev)
-        timed("gru_fwd/H{}_B{}_T{}".format(H, B, T),
-              lambda: gru_train.gru_fwd(xp, w_hh, b_hh, ln))
-    for H, B, T in ((256, 16, 10000), (256, 1, 10000), (96, 31, 500)):
-        xp, w_hh, b_hh, ln, _ = cs.random_direction(rng, H, B, T, dev)
-        w2, b2 = torch.stack([w_hh, w_hh.flip(0)]), torch.stack([b_hh] * 2)
-        xp_b = xp.flip(-1).contiguous()
-        timed("bigru_fused/H{}_B{}_T{}".format(H, B, T),
-              lambda: gru_fullfused.fused_layer(xp, xp_b, w2, b2, ln))
-        del xp, xp_b
-    # the fullfused launches at the batch-16 path's layer 2 (B=16,
-    # T=10000, H=256, IN=512) and over one column: the whole launch (CUDA
-    # events) and the profiler's split into the projection stage and the
-    # recurrence; on a tree with the int8 cluster recurrence, that
-    # recurrence alone on clusters of 2-16 blocks; on a tree with the
-    # bf16-gates cluster recurrence, the bf16-gates launch on clusters of 8
-    # and 16 blocks and tiles of 8 and 16 columns
-    T, H, IN = 10000, 256, 512
-    k = 1.0 / H ** 0.5
-    w = tuple(torch.from_numpy(rng.uniform(-k, k, shape).astype(
-        "float32")).to(dev) for shape in ((2, 3 * H, IN), (2, 3 * H),
-                                          (2, 3 * H, H), (2, 3 * H)))
     profiles = {}
-    for B in (16, 1):
-        x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
-            "float32")).to(dev, torch.bfloat16)
-        ln = torch.full((B,), T, dtype=torch.int32, device=dev)
-        for mode in ("int8", "f32_gates", "bf16_gates"):
-            key = "bigru_fullfused/{}/B{}_T{}".format(mode, B, T)
-            kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
-            timed(key, kernel)
-            by_kernel = cs.kernels_ms(kernel) or cs.kernels_ms(kernel) or {}
-            split = {"projection": sum(v for n, v in by_kernel.items()
-                                       if "proj" in n),
-                     "recurrence": sum(v for n, v in by_kernel.items()
-                                       if "gru_rec_kernel" in n or
-                                       "gru_cluster_fwd_kernel" in n),
-                     "kernels": sorted(n for n in by_kernel
-                                       if "proj" in n or "gru_" in n)}
-            profiles[key] = split
-            print("   {} profile: {}".format(key, json.dumps(split)),
-                  flush=True)
-        if hasattr(gru_fullfused, "_launch_int8_recurrence"):
-            xp = gru_fullfused.project(x, w[0], w[1])
-            for C in (2, 4, 8, 16):
-                timed("int8_recurrence_C{}/B{}_T{}".format(C, B, T),
-                      lambda: gru_fullfused._launch_int8_recurrence(
-                          xp[0], xp[1], w[2], w[3], ln, cluster=(C, 8)))
-            del xp
-        if "bf16_gates" in getattr(gru_fullfused, "CLUSTER_LAYOUTS", {}):
-            for C, BT in ((16, 8), (8, 8), (16, 16), (8, 16)):
-                timed("bf16_gates_C{}_BT{}/B{}_T{}".format(C, BT, B, T),
-                      lambda: gru_fullfused._launch_fullfused(
-                          x, *w, ln, "bf16_gates", cluster=(C, BT)))
-        del x
-    # bilstm_fused at the read-level path's shape (B=128, T=1000, H=128)
-    # and over one column; on a tree with the LSTM cluster forward, on
-    # clusters of 1, 2 and 4 blocks too
-    T = 1000
-    for B in (128, 1):
-        args = cs.random_lstm_inputs(rng, 128, B, T, dev)
-        args = args[:4] + (torch.full((B,), T, dtype=torch.int32,
-                                      device=dev),)
-        timed("bilstm_fused/B{}_T{}".format(B, T),
-              lambda: bilstm.bilstm_fused(*args))
-        if hasattr(bilstm, "geometry"):
-            for C in (1, 2, 4):
-                timed("bilstm_fused_C{}/B{}_T{}".format(C, B, T),
-                      lambda: bilstm._launch(*args, cluster=(C, 8)))
+    if not split_only:
+        # the bi-LSTM inference kernel
+        keep("bilstm_fused", bilstm.bilstm_fused(
+            *cs.random_lstm_inputs(rng, 128, 64, 300, dev)))
+        # the LSTM training pair, both directions
+        for H in (384, 128):
+            for reverse in (False, True):
+                xp, w_hh, b_hh, ln, dh = cs.random_direction(
+                    rng, H, 64, 200, dev, gates=4)
+                h, c = lstm_train.lstm_fwd(xp, w_hh, b_hh, ln, reverse)
+                keep("lstm_fwd/H{}/{}".format(H, reverse), (h, c))
+                keep("lstm_bwd/H{}/{}".format(H, reverse), lstm_train.lstm_bwd(
+                    xp, h, c, dh, w_hh, b_hh, ln, reverse))
+        # the GRU training pair; gru_bwd on the plain forward's outputs, so
+        # that it sees the same inputs whatever gru_fwd gives
+        for H, B, T in ((256, 128, 200), (96, 31, 100)):
+            for reverse in (False, True):
+                xp, w_hh, b_hh, ln, dh = cs.random_direction(rng, H, B, T, dev)
+                keep("gru_fwd/H{}/{}".format(H, reverse),
+                     gru_train.gru_fwd(xp, w_hh, b_hh, ln, reverse))
+                h = gru_train.gru_fwd_plain(xp, w_hh, b_hh, ln, reverse)
+                keep("gru_bwd/H{}/{}".format(H, reverse), gru_train.gru_bwd(
+                    xp, h, dh, w_hh, b_hh, ln, reverse))
+        # the fullfused modes over inputs whose projections are exact in f32
+        # (x in quarters, W_ih in 64ths, b_ih in 256ths: every partial sum is
+        # a multiple of 1/256 below 2^14 in magnitude), so that every tree's
+        # projection stage gives the same bf16 projections whatever the order
+        # of its sums: the recurrences are compared over the same inputs
+        for H, B, T in ((256, 16, 300), (96, 31, 200)):
+            ln = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
+            ln[0], ln[1] = T, 0
+            ln = ln.to(dev)
+            k = 1.0 / H ** 0.5
+            for IN in (10, 2 * H):
+                x = torch.from_numpy(rng.integers(-4, 5, (T, B, IN)).astype(
+                    "float32") / 4).to(dev, torch.bfloat16)
+                w = (torch.from_numpy(rng.integers(
+                        -8, 9, (2, 3 * H, IN)).astype("float32") / 64).to(
+                            dev),
+                     torch.from_numpy(rng.integers(-16, 17, (2, 3 * H)).astype(
+                         "float32") / 256).to(dev),
+                     torch.from_numpy(rng.uniform(-k, k, (2, 3 * H, H)).astype(
+                         "float32")).to(dev),
+                     torch.from_numpy(rng.uniform(-k, k, (2, 3 * H)).astype(
+                         "float32")).to(dev))
+                for mode in ("f32_gates", "bf16_gates", "int8"):
+                    kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x,
+                                                   w, ln)
+                    keep("exact_projections/{}/H{}/IN{}".format(mode, H, IN),
+                         kernel())
+        # the fullfused modes and bigru_fused, layer 1 and layer 2 inputs
+        for H, B, T in ((256, 16, 500), (96, 31, 200)):
+            ln = torch.from_numpy(rng.integers(1, T + 1, B).astype("int32"))
+            ln[0], ln[1] = T, 0
+            ln = ln.to(dev)
+            for IN in (10, 2 * H):
+                x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
+                    "float32")).to(dev, torch.bfloat16)
+                w = cs.random_bigru_layer(rng, H, IN, dev)
+                for mode in ("f32_gates", "bf16_gates", "int8", "fused"):
+                    kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x,
+                                                   w, ln)
+                    keep("{}/H{}/IN{}".format(
+                        "bigru_fused" if mode == "fused"
+                        else "bigru_fullfused/" + mode, H, IN), kernel())
+
+        # one train step through the kernels vs through their plain versions
+        from medaka_tpu_torch import parallel
+        from medaka_tpu_torch.models.gru import GRUModel
+        B, T = 128, 1000
+        ln = rng.integers(T // 2, T + 1, B).astype("int32")
+        ln[0] = T
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in (
+            ("features", rng.random((B, T, 10)).astype("float32")),
+            ("labels", rng.integers(0, 5, (B, T)).astype("int32")),
+            ("mask", (np.arange(T)[None, :] < ln[:, None]).astype("float32")),
+            ("lengths", ln))}
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = GRUModel(gru_size=256).to(dev)
+        losses, grads = {}, {}
+        for plain in (False, True):
+            losses[plain] = cs.staged_train_step(
+                model, None, batch, gru_train, parallel, plain=plain,
+                update=False).item()
+            grads[plain] = {n: p.grad.clone()
+                            for n, p in model.named_parameters()}
+        step["loss_rel"] = (abs(losses[False] - losses[True])
+                            / abs(losses[True]))
+        step["grad_rel_max"] = max(
+            ((grads[False][n] - g).abs().max() / g.abs().max()).item()
+            for n, g in grads[True].items())
+        print("   train step, kernels vs plain: {}".format(json.dumps(step)),
+              flush=True)
+        del model, grads, batch
+
+        for H, B, T in ((256, 128, 1000), (256, 1, 1000), (96, 31, 500)):
+            xp, w_hh, b_hh, ln, _ = cs.random_direction(rng, H, B, T, dev)
+            timed("gru_fwd/H{}_B{}_T{}".format(H, B, T),
+                  lambda: gru_train.gru_fwd(xp, w_hh, b_hh, ln))
+        for H, B, T in ((256, 16, 10000), (256, 1, 10000), (96, 31, 500)):
+            xp, w_hh, b_hh, ln, _ = cs.random_direction(rng, H, B, T, dev)
+            w2, b2 = torch.stack([w_hh, w_hh.flip(0)]), torch.stack([b_hh] * 2)
+            xp_b = xp.flip(-1).contiguous()
+            timed("bigru_fused/H{}_B{}_T{}".format(H, B, T),
+                  lambda: gru_fullfused.fused_layer(xp, xp_b, w2, b2, ln))
+            del xp, xp_b
+        # the fullfused launches at the batch-16 path's layer 2 (B=16,
+        # T=10000, H=256, IN=512) and over one column: the whole launch (CUDA
+        # events) and the profiler's split into the projection stage and the
+        # recurrence; on a tree with the int8 cluster recurrence, that
+        # recurrence alone on clusters of 2-16 blocks; on a tree with the
+        # bf16-gates cluster recurrence, the bf16-gates launch on clusters of 8
+        # and 16 blocks and tiles of 8 and 16 columns
+        T, H, IN = 10000, 256, 512
+        k = 1.0 / H ** 0.5
+        w = tuple(torch.from_numpy(rng.uniform(-k, k, shape).astype(
+            "float32")).to(dev) for shape in ((2, 3 * H, IN), (2, 3 * H),
+                                              (2, 3 * H, H), (2, 3 * H)))
+        for B in (16, 1):
+            x = torch.from_numpy(rng.uniform(-1, 1, (T, B, IN)).astype(
+                "float32")).to(dev, torch.bfloat16)
+            ln = torch.full((B,), T, dtype=torch.int32, device=dev)
+            for mode in ("int8", "f32_gates", "bf16_gates"):
+                key = "bigru_fullfused/{}/B{}_T{}".format(mode, B, T)
+                kernel, _ = cs.fullfused_calls(gru_fullfused, mode, x, w, ln)
+                timed(key, kernel)
+                by_kernel = (cs.kernels_ms(kernel) or cs.kernels_ms(kernel)
+                             or {})
+                split = {"projection": sum(v for n, v in by_kernel.items()
+                                           if "proj" in n),
+                         "recurrence": sum(v for n, v in by_kernel.items()
+                                           if "gru_rec_kernel" in n or
+                                           "gru_cluster_fwd_kernel" in n),
+                         "kernels": sorted(n for n in by_kernel
+                                           if "proj" in n or "gru_" in n)}
+                profiles[key] = split
+                print("   {} profile: {}".format(key, json.dumps(split)),
+                      flush=True)
+            if hasattr(gru_fullfused, "_launch_int8_recurrence"):
+                xp = gru_fullfused.project(x, w[0], w[1])
+                for C in (2, 4, 8, 16):
+                    timed("int8_recurrence_C{}/B{}_T{}".format(C, B, T),
+                          lambda: gru_fullfused._launch_int8_recurrence(
+                              xp[0], xp[1], w[2], w[3], ln, cluster=(C, 8)))
+                del xp
+            if "bf16_gates" in getattr(gru_fullfused, "CLUSTER_LAYOUTS", {}):
+                for C, BT in ((16, 8), (8, 8), (16, 16), (8, 16)):
+                    timed("bf16_gates_C{}_BT{}/B{}_T{}".format(C, BT, B, T),
+                          lambda: gru_fullfused._launch_fullfused(
+                              x, *w, ln, "bf16_gates", cluster=(C, BT)))
+            del x
+        # bilstm_fused at the read-level path's shape (B=128, T=1000, H=128)
+        # and over one column; on a tree with the LSTM cluster forward, on
+        # clusters of 1, 2 and 4 blocks too
+        T = 1000
+        for B in (128, 1):
+            args = cs.random_lstm_inputs(rng, 128, B, T, dev)
+            args = args[:4] + (torch.full((B,), T, dtype=torch.int32,
+                                          device=dev),)
+            timed("bilstm_fused/B{}_T{}".format(B, T),
+                  lambda: bilstm.bilstm_fused(*args))
+            if hasattr(bilstm, "geometry"):
+                for C in (1, 2, 4):
+                    timed("bilstm_fused_C{}/B{}_T{}".format(C, B, T),
+                          lambda: bilstm._launch(*args, cluster=(C, 8)))
     # the split kernels at the inference path's shapes (random net, full
     # lengths); layer 2 on layer 1's outputs
     layers, head = cs.random_net(rng)
-    geometries = {}
+    geometries, sweeps = {}, {}
     T = 10000
-    for B, mode in ((512, "t"), (480, "t"), (64, "rows"), (1, "t"),
-                    (1, "rows")):
+    for B, mode in ((512, "t"), (480, "t"), (64, "rows"), (32, "rows"),
+                    (1, "t"), (1, "rows")):
         xt = torch.from_numpy(rng.random((T, B, 10)).astype(
             "float32")).to(dev, torch.bfloat16)
         ln = torch.full((B,), T, dtype=torch.int32, device=dev)
@@ -286,14 +317,65 @@ def run(tree, out_path, seed):
             timed("gru_l1_split_C4/" + shape,
                   lambda: gru_split._launch_l1(*a1, mode=mode, quant=True,
                                                cluster=(4, 8)))
+        if (B, mode) in BF16_SWEEPS:
+            # the bf16 kernels (quant=False) at the same shape
+            wb = gru_split.prepare_split_weights(layers, head, mode, False,
+                                                 dev)
+            b1 = (xt, ln, wb["w_ih1"], wb["b_ih1"], wb["w_hh1"], wb["sc1"],
+                  wb["b_hh1"])
+            fq, bq = gru_split.gru_l1_split(*b1, mode=mode, quant=False)
+            b2 = (fq, bq, ln, wb["w_in2"], wb["in_scale2"], wb["b_ih2"],
+                  wb["w_hh2"], wb["sc2"], wb["b_hh2"], wb["w_head"])
+            timed("gru_l1_split_bf16/" + shape,
+                  lambda: gru_split.gru_l1_split(*b1, mode=mode,
+                                                 quant=False))
+            timed("gru_l2head_split_bf16/" + shape,
+                  lambda: gru_split.gru_l2head_split(*b2, mode=mode,
+                                                     quant=False))
+            if hasattr(gru_split, "l2_route"):
+                # where the tree runs bf16 on clusters: geometries (C, BT)
+                # beside the chooser's, each held to the chooser's outputs
+                # (layer 1 bit for bit: every geometry sums in k order;
+                # the logits differ by the head's sum over a cluster's
+                # blocks)
+                l1_cl, l2_cl = BF16_SWEEPS[B, mode]
+                for kind, name in (("l1", "gru_l1_split_bf16"),
+                                   ("l2", "gru_l2head_split_bf16")):
+                    geometries[name + "/" + shape] = gru_split.geometry(
+                        kind, 256, B, dev, mode, 10 if kind == "l1" else 0,
+                        quant=False)
+                lg = gru_split.gru_l2head_split(*b2, mode=mode, quant=False)
+                for cl in l1_cl:
+                    key = "gru_l1_split_bf16_C{}_BT{}/{}".format(*cl, shape)
+                    timed(key, lambda: gru_split._launch_l1(
+                        *b1, mode=mode, quant=False, cluster=cl))
+                    got = gru_split._launch_l1(*b1, mode=mode, quant=False,
+                                               cluster=cl)
+                    sweeps[key] = all(torch.equal(g, r) for g, r in
+                                      zip(got, (fq, bq)))
+                for cl in l2_cl:
+                    key = "gru_l2head_split_bf16_C{}_BT{}/{}".format(
+                        *cl, shape)
+                    timed(key, lambda: gru_split._launch_l2(
+                        *b2, mode=mode, quant=False, cluster=cl))
+                    got = gru_split._launch_l2(*b2, mode=mode, quant=False,
+                                               cluster=cl)
+                    sweeps[key] = max((g - r).abs().max().item()
+                                      for g, r in zip(got, lg))
+            del wb, b1, b2, fq, bq
         del xt, f, b, a1, a2
     if geometries:
         print("   split geometries (C, BT, shared memory, resident "
               "clusters): {}".format(json.dumps(geometries)), flush=True)
+    if sweeps:
+        print("   bf16 geometries against the chooser's: layer 1 the same "
+              "bits, layer 2 the logits' largest difference: {}".format(
+                  json.dumps(sweeps)), flush=True)
     torch.cuda.synchronize()
     torch.save({"tree": os.path.abspath(tree), "card": cs.card_line(),
                 "outputs": outputs, "times": times, "train_step": step,
-                "split_geometry": geometries, "profiles": profiles},
+                "split_geometry": geometries, "bf16_sweeps": sweeps,
+                "profiles": profiles},
                out_path)
     print("chip_ab: {} outputs, {} times of {} -> {}".format(
         len(outputs), len(times), tree, out_path))
@@ -322,12 +404,14 @@ def compare(paths):
         report["times_ms"][key] = [r["times"].get(key) for r in runs]
     report["split_geometry"] = [r.get("split_geometry", {}) for r in runs]
     report["profiles_ms"] = [r.get("profiles", {}) for r in runs]
+    report["bf16_sweeps"] = [r.get("bf16_sweeps", {}) for r in runs]
     differ = sorted(k for k, row in report["outputs"].items()
                     if any(v != "identical" for v in row))
     print(json.dumps(report, indent=1))
     print("outputs that differ from the first file's: {}".format(
         json.dumps(differ)))
     # the int8 layer 2's logits may differ by the order of the head's sum,
+    # the bf16 split kernels' outputs by their sums' order (checked below),
     # the f32-gates and int8 fullfused layers over random inputs by the
     # order of the projection stage's sums (one bf16 step of a
     # projection), and bilstm_fused (the LSTM cluster forward since PR 10)
@@ -336,13 +420,41 @@ def compare(paths):
     # repeat the first file's bits
     others = [k for k in differ
               if not (k.startswith("gru_split/") and "/True/l2head" in k)
+              and "/False/" not in k
               and not k.startswith(("bigru_fullfused/f32_gates/",
                                     "bigru_fullfused/int8/",
-                                    "bilstm_fused"))]
-    print("outputs other than the int8 logits, the fullfused layers over "
-          "random projections and bilstm_fused that differ: {}".format(
-              json.dumps(others)))
-    return 0
+                                    "bilstm_fused", "gru_split_bf16/"))]
+    print("outputs other than the int8 logits, the bf16 split kernels', "
+          "the fullfused layers over random projections and bilstm_fused "
+          "that differ: {}".format(json.dumps(others)))
+    # the bf16 split kernels' outputs may move by their sums' order within
+    # the card's bars: layer 1 one bf16 step (2^-7, mean 1e-3), layer 2's
+    # logits on the same (plain) layer-1 outputs 1e-3; the logits chained
+    # on each tree's own layer 1 are reported above
+    outside = []
+    for key, ref in first.items():
+        if "/False/l1" in key:
+            most, mean = 2.0 ** -7, 1e-3
+        elif key.startswith("gru_split_bf16/"):
+            most, mean = 1e-3, None
+        else:
+            continue
+        for r in runs[1:]:
+            diff = (r["outputs"][key].float() - ref.float()).abs()
+            if diff.max().item() > most or (
+                    mean is not None and diff.mean().item() > mean):
+                outside.append([key, r["tree"], diff.max().item(),
+                                diff.mean().item()])
+    # a swept geometry's layer 1 repeats the chooser's bits, its logits
+    # stay within 1e-3 of the chooser's
+    for r in runs:
+        for key, v in r.get("bf16_sweeps", {}).items():
+            if v is False or (v is not True and v > 1e-3):
+                outside.append([key, r["tree"], v])
+    print("bf16 split outputs outside the bars of the first file's, or "
+          "geometries away from the chooser's: {}".format(
+              json.dumps(outside)))
+    return 1 if outside else 0
 
 
 def main(argv=None):
@@ -353,11 +465,13 @@ def main(argv=None):
                    "port from (default: this one)")
     r.add_argument("--out", required=True, help="file of the outputs")
     r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--split-only", action="store_true", help="run and time "
+                   "the split kernels alone")
     c = sub.add_parser("compare", help="compare saved runs")
     c.add_argument("files", nargs="+")
     args = parser.parse_args(argv)
     if args.cmd == "run":
-        return run(args.tree, args.out, args.seed)
+        return run(args.tree, args.out, args.seed, args.split_only)
     return compare(args.files)
 
 

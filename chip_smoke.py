@@ -19,9 +19,10 @@ Phases, each of which fails the script when it fails:
    instantiations are also named apart, and ``lstm_fwd_kernel`` in
    ``bilstm.cu`` too), ``rnn_dw_kernel``, the projection stages
    ``bigru_proj_mma_kernel`` and ``bigru_proj_kernel``, and the split
-   kernels (``gru_l1_split_s8_kernel`` and ``gru_l2head_split_s8_kernel``,
-   the int8 cluster kernels, and the bf16 ``gru_l1_split_kernel`` and
-   ``gru_l2head_split_kernel``);
+   kernels (the cluster kernels, int8 ``gru_l1_split_s8_kernel`` and
+   ``gru_l2head_split_s8_kernel`` and bf16 ``gru_l1_split_bf16_kernel``
+   and ``gru_l2head_split_bf16_kernel``, and the per-block
+   ``gru_l2head_split_kernel`` that bf16 layer 2 runs at H=384 and 512);
 3. hold the split-path GRU kernels against their plain PyTorch versions
    at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
@@ -50,9 +51,15 @@ Phases, each of which fails the script when it fails:
    int8 launch must show the cluster kernel (``gru_l1_split_s8_kernel``,
    ``gru_l2head_split_s8_kernel``) and neither bf16 per-block kernel; the
    same for mode "rows" on 64 rows; the bf16 split kernels
-   (``quant=False``, the ``recurrent_quant="none"`` path) at the
-   automatic batch in mode "t": their time, serial floor, bound, cuDNN's
-   layer 1 and their launches on one batch of that path; ``gru_l2head_split`` with a
+   (``quant=False``, the ``recurrent_quant="none"`` path: the bf16
+   cluster kernels ``gru_l1_split_bf16_kernel`` and
+   ``gru_l2head_split_bf16_kernel``) at the automatic batch in mode "t":
+   each against its plain version (the bars of phase 3; the plain
+   version timed once), their time, serial floor, bound, cuDNN's layer
+   1, each launch's
+   geometry and microseconds a step, a profile of each launch, which must
+   show the bf16 cluster kernel and no per-block split kernel, and their
+   launches on one batch of that path; ``gru_l2head_split`` with a
    15-class head on the same layer-1 outputs against its plain version,
    timed beside the 5-class launch (turns 5, 15, 15, 5) with its bound;
    then the variant paths (phase 20);
@@ -411,6 +418,15 @@ FULLFUSED_SOURCE = "medaka_tpu_torch/csrc/gru_fullfused.cu"
 SPLIT_KERNELS = ("gru_l1_split_s8_kernel", "gru_l2head_split_s8_kernel")
 SPLIT_KERNEL_OF = dict(zip(("gru_l1_split", "gru_l2head_split"),
                            SPLIT_KERNELS))
+#: the bf16 (quant=False) split cluster kernels, by the row they serve
+SPLIT_BF16_KERNELS = ("gru_l1_split_bf16_kernel",
+                      "gru_l2head_split_bf16_kernel")
+SPLIT_BF16_KERNEL_OF = dict(zip(("gru_l1_split", "gru_l2head_split"),
+                                SPLIT_BF16_KERNELS))
+#: the per-block split kernels: layer 1's is retired, layer 2's runs bf16
+#: layer 2 only where no cluster holds its slices (H=384 and 512), never
+#: at the shapes profiled here
+PER_BLOCK_SPLIT_KERNELS = ("gru_l1_split_kernel", "gru_l2head_split_kernel")
 #: the kernels a profile of one launch must show, and must not show, by
 #: row: the cluster recurrence in the mode's numerics after the
 #: tensor-core projection stage (f32 gates, int8) or the CUDA cores' stage
@@ -625,6 +641,25 @@ def yardstick_ms(features, width, depth, hidden, dev):
     finally:
         del gru, x
         torch.cuda.empty_cache()
+
+
+def plain_agreement(kernel, plain, valid=None):
+    """{"plain_ms", "max_abs_err", "mean_abs_err"} of a split kernel's
+    outputs (``kernel()``) against its plain version's (``plain()``, timed
+    once with CUDA events): over every element (layer 1) or over the
+    ``valid`` (batch, step) columns (logits, no mean). Nothing of either
+    outlives the call."""
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(ref=plain()), reps=1, warmup=0)
+    err = mean = 0.0
+    for got, ref in zip(kernel(), out.pop("ref")):
+        diff = (got.float() - ref.float()).abs()
+        if valid is not None:
+            diff = diff[valid]
+        err = max(err, diff.max().item())
+        mean = max(mean, diff.mean().item())
+    return {"plain_ms": plain_ms, "max_abs_err": err,
+            "mean_abs_err": None if valid is not None else mean}
 
 
 def random_net(rng, hidden=256, features=10, classes=5):
@@ -1218,14 +1253,17 @@ def cluster_launch_ms(name, fn, prefixes,
     return out
 
 
-def split_launch_ms(name, fn):
-    """{kernel: ms} of one int8 launch of split kernel ``name`` (the
-    profiler): it must run its cluster kernel (:data:`SPLIT_KERNEL_OF`)
-    and neither bf16 per-block split kernel; an empty trace is taken
-    again, up to three times, and so is one that lacks the cluster kernel
-    but shows neither per-block kernel (:func:`trace_verdict`)."""
-    kernels = ((SPLIT_KERNEL_OF[name],),
-               ("gru_l1_split_kernel", "gru_l2head_split_kernel"))
+def split_launch_ms(name, fn, quant=True):
+    """{kernel: ms} of one int8 (``quant``) or bf16 launch of split kernel
+    ``name`` (the profiler): it must run its cluster kernel in those
+    numerics (:data:`SPLIT_KERNEL_OF`, :data:`SPLIT_BF16_KERNEL_OF`), not
+    the other numerics' and no per-block split kernel
+    (:data:`PER_BLOCK_SPLIT_KERNELS`); an empty trace is taken again, up
+    to three times, and so is one that lacks the cluster kernel but shows
+    no refused one (:func:`trace_verdict`)."""
+    want, other = ((SPLIT_KERNEL_OF, SPLIT_BF16_KERNEL_OF) if quant
+                   else (SPLIT_BF16_KERNEL_OF, SPLIT_KERNEL_OF))
+    kernels = ((want[name],), (other[name],) + PER_BLOCK_SPLIT_KERNELS)
     for attempt in range(3):
         by_kernel = kernels_ms(fn)
         if trace_verdict(by_kernel, kernels) in ("ok", "refused"):
@@ -3092,7 +3130,15 @@ def rle_phases(work, bam, draft, dev, rows, modules):
                             lambda: fn(*one, mode=m))
                         rec["bound_ms"], rec["bound_by"] = bound(
                             name, rows_, H, IN, C, vsum)
-                        rec["step_us"] = rec["ms"] / steps * 1e3
+                    else:
+                        kind = "l1" if name == "gru_l1_split" else "l2"
+                        rec["geometry"] = dict(zip(
+                            ("cluster", "columns", "smem_bytes",
+                             "resident_clusters"),
+                            gru_split.geometry(kind, H, rows_, dev, m,
+                                               IN if kind == "l1" else 0, C,
+                                               quant=False)))
+                    rec["step_us"] = rec["ms"] / steps * 1e3
                     results[name][tag] = rec
                     log("   {} {}: {}".format(name, tag, json.dumps(rec)))
                 del kf, kb, args1, args2, w
@@ -5413,8 +5459,8 @@ def main(argv=None):
                                            "bigru_proj_mma_kernel",
                                            "bigru_proj_kernel")),
                      ("bilstm.cu", ("lstm_fwd_kernel",)),
-                     ("gru_split.cu", SPLIT_KERNELS + ("gru_l1_split_kernel",
-                                                       "gru_l2head_split_kernel")))}
+                     ("gru_split.cu", SPLIT_KERNELS + SPLIT_BF16_KERNELS
+                      + ("gru_l2head_split_kernel",)))}
         for source, report in ptxas.items():
             for kernel, recs in report.items():
                 for rec in recs:
@@ -5816,8 +5862,11 @@ def main(argv=None):
 
             # the bf16 split kernels (quant=False: recurrent_quant="none"
             # on the split path) at the same shape in mode "t": their time,
-            # serial floor (one column), bound and cuDNN's layer 1, and
-            # their launches on one batch of that path through the model
+            # serial floor (one column), bound and cuDNN's layer 1, each
+            # launch's geometry and microseconds a step, a profile of one
+            # launch (the bf16 cluster kernel, no per-block split kernel),
+            # and their launches on one batch of that path through the
+            # model
             wq = gru_split.prepare_split_weights(
                 model.layer_params(), model.head_params(), "t", False, dev)
             q1 = (xt, lens, wq["w_ih1"], wq["b_ih1"], wq["w_hh1"],
@@ -5848,24 +5897,65 @@ def main(argv=None):
                       recurrent_quant="none")
                 torch.cuda.synchronize()
                 none_launches = dict(gru_split.MODE_LAUNCHES)
+                # each kernel against its plain version at this shape (layer
+                # 2 on layer 1's kernel outputs), the plain version timed
+                # once (CUDA events)
+                q_check = {
+                    "gru_l1_split": plain_agreement(
+                        q_calls["gru_l1_split"][0],
+                        lambda: gru_split.gru_l1_split_plain(
+                            *q1, mode="t", quant=False)),
+                    "gru_l2head_split": plain_agreement(
+                        q_calls["gru_l2head_split"][0],
+                        lambda: gru_split.gru_l2head_split_plain(
+                            *q2, mode="t", quant=False), main_valid)}
+                for name, rec in q_check.items():
+                    most, mean = ((TOL_L1[False], TOL_L1_MEAN)
+                                  if name == "gru_l1_split"
+                                  else (TOL_LOGIT, None))
+                    if rec["max_abs_err"] > most or (
+                            mean is not None and rec["mean_abs_err"] > mean):
+                        raise AssertionError(
+                            "{} quant=False disagrees with its plain version "
+                            "at B={}, T={}: {}".format(name, B, T, rec))
                 for row in rows:
                     name = row["name"]
                     kernel, one = q_calls[name]
                     bound_ms, bound_by = bound(name, B, H, IN, C,
                                                lengths_sum, quant=False)
+                    kind = "l1" if name == "gru_l1_split" else "l2"
+                    ms_q, floor_q = cuda_ms(kernel), cuda_ms(one)
                     row["quant_false"] = {
-                        "kernel": name.replace("_split", "_split_kernel"),
-                        "ms": cuda_ms(kernel), "serial_floor_ms": cuda_ms(one),
+                        "kernel": SPLIT_BF16_KERNEL_OF[name],
+                        "ms": ms_q, "serial_floor_ms": floor_q,
+                        "step_us": ms_q / T * 1e3,
+                        "serial_floor_step_us": floor_q / T * 1e3,
+                        "geometry": {
+                            key: dict(zip(
+                                ("cluster", "columns", "smem_bytes",
+                                 "resident_clusters"),
+                                gru_split.geometry(
+                                    kind, H, cols, dev, "t",
+                                    IN if kind == "l1" else 0,
+                                    quant=False)))
+                            for key, cols in (("main", B),
+                                              ("one_column", 1))},
+                        "launch_profile_ms": split_launch_ms(
+                            name, kernel, quant=False),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": row["library_ms"]
                         if name == "gru_l1_split" else None,
                         "launches": none_launches[name + "/t"],
                         "launches_on": "GRUModel.forward(recurrent_quant="
                                        "'none') on the batch of {} rows"
-                                       .format(B),
-                        "plain_ms": "not measured"}
+                                       .format(B)}
+                    row["quant_false"].update(q_check[name])
                     log("   {} quant=False: {}".format(
                         name, json.dumps(row["quant_false"])))
+            if any(row["quant_false"]["launches"] < 1 for row in rows):
+                raise AssertionError("recurrent_quant='none' did not launch "
+                                     "both split kernels: {}".format(
+                                         none_launches))
             del wq, q1, q2, qf, qb, qf1, qb1, q_calls
 
             # mode "rows" (TPU kernels #3 and #4) is what batches below 192
@@ -6241,14 +6331,18 @@ def main(argv=None):
         "bigru_project": ("gru_fullfused.cu", ("bigru_proj_mma_kernel",)),
         "bigru_fused": ("gru_fullfused.cu", (FWD_PTXAS["f32_gates"],)),
         "bilstm_fused": ("bilstm.cu", ("lstm_fwd_kernel",)),
-        "gru_l1_split": ("gru_split.cu", (SPLIT_KERNEL_OF["gru_l1_split"],)),
+        "gru_l1_split": ("gru_split.cu", (
+            SPLIT_KERNEL_OF["gru_l1_split"],
+            SPLIT_BF16_KERNEL_OF["gru_l1_split"])),
         "gru_l2head_split": ("gru_split.cu", (
-            SPLIT_KERNEL_OF["gru_l2head_split"],)),
+            SPLIT_KERNEL_OF["gru_l2head_split"],
+            SPLIT_BF16_KERNEL_OF["gru_l2head_split"])),
         "gru_l1_split/in120": ("gru_split.cu", (
-            SPLIT_KERNEL_OF["gru_l1_split"], "gru_l1_split_kernel")),
+            SPLIT_KERNEL_OF["gru_l1_split"],
+            SPLIT_BF16_KERNEL_OF["gru_l1_split"])),
         "gru_l2head_split/classes49": ("gru_split.cu", (
             SPLIT_KERNEL_OF["gru_l2head_split"],
-            "gru_l2head_split_kernel"))}
+            SPLIT_BF16_KERNEL_OF["gru_l2head_split"]))}
     for row in rows:
         if row["name"] in row_ptxas:
             source, kernels = row_ptxas[row["name"]]

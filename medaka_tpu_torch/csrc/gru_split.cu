@@ -10,52 +10,58 @@
 //                   _bigru_l2head_t_kernel (mode "t") and
 //                   _bigru_l2head_kernel (mode "rows").
 //
-// Two designs, one for each kind of numerics.
-//
-// int8 (quant, the default): gru_l1_split_s8_kernel and
-// gru_l2head_split_s8_kernel, the cluster recurrence. A thread-block
-// cluster of C blocks owns one direction and one tile of BT batch columns
-// and walks all T steps; both directions' clusters run in one grid. Block
-// r owns U = Hp / C hidden units (H padded to Hp with zero units) and keeps
-// their 3U gate rows of every weight in its shared memory for the whole
-// walk, int8 in rows padded to an odd multiple of 16 bytes: W_hh (3U x Hp)
-// and, in layer 2, W_ih (3U x 2H); layer 1's W_ih (3U x IN) is bf16. No
-// weight is read from L2 inside the step loop. Rows of a slice: unit group
-// q (16 units) holds rows q*48 + g*16 + u (gate g of r, z, n; unit u), so
-// in the mma.sync m16n8k32 s8 accumulator fragments a thread holds r, z
-// and n of units u and u + 8 for two batch columns of each n8 tile
-// (rnn_train.cuh S8Product; ops/rnn_cluster.py SPLIT chooses C and BT on
-// the host: C is the smallest cluster whose slices fit, 1 at H <= 256 in
-// layer 1 at 10 inputs, so one __syncthreads a step and no cluster
-// barrier there; 2 at 20 and 120 inputs, whose bf16 W_ih no longer fits
-// beside W_hh in one block). A
-// step: round(127 h) (BT x Hp int8) . W_hh_slice^T on the tensor cores,
-// the gates of the block's units in registers, round(127 h') into every
-// cluster block's next h buffer (distributed shared memory, 16-byte
-// stores; at C = 1 straight into the block's own), one split cluster
-// barrier a step; a warp sends its units' h as soon as its gates are done.
-// The input operand (layer 1: x; layer 2: [prev_f; prev_b]
-// int8) comes by cp.async two steps ahead. Layer 1's input projection (the
-// f32 fmaf chain on the CUDA cores) runs between the k-chunks of the
-// step's recurrent product, so that it overlaps the product's ldmatrix
-// traffic; layer 2's (W_ih_slice . [prev_f; prev_b] on the tensor cores,
-// one int32 sum for each half) runs for the next step between the
-// barrier's arrive and its wait. Layer 2's head: W_head^T . bf16(h) over a
-// block's units on the tensor cores (mma.sync m16n8k16, f32 sums; the
+// One design, the cluster recurrence, in both kinds of numerics: int8
+// (quant, the default: gru_l1_split_s8_kernel, gru_l2head_split_s8_kernel)
+// and bf16 (quant=False: gru_l1_split_bf16_kernel,
+// gru_l2head_split_bf16_kernel), one template (split_cluster) whose S8
+// flag sets the bytes of a weight and of an h value (WB = 1 or 2) and the
+// step's product. A thread-block cluster of C blocks owns one direction
+// and one tile of BT batch columns and walks all T steps; both
+// directions' clusters run in one grid. Block r owns U = Hp / C hidden
+// units (H padded to Hp with zero units) and keeps their 3U gate rows of
+// every weight in its shared memory for the whole walk, in rows padded to
+// an odd multiple of 16 bytes: W_hh (3U x Hp) and, in layer 2, W_ih (3U x
+// 2H), int8 or bf16; layer 1's W_ih (3U x IN) is bf16 in both. No weight
+// is read from L2 inside the step loop. Rows of a slice: unit group q (16
+// units) holds rows q*48 + g*16 + u (gate g of r, z, n; unit u), so in
+// the mma.sync m16n8k32 s8 accumulator fragments a thread holds r, z and
+// n of units u and u + 8 for two batch columns of each n8 tile (two tiles
+// a warp from 16 columns, one in bf16 layer 2); the bf16 product gives a
+// thread the same cells (rnn_train.cuh TileProduct,
+// ChainProduct below; ops/rnn_cluster.py SPLIT and SPLIT_BF16 choose C
+// and BT on the host: C is the smallest cluster whose slices fit, 1 at H
+// <= 256 in int8 layer 1 at 10 inputs, so one __syncthreads a step and no
+// cluster barrier there; 2 at 20 and 120 inputs, whose bf16 W_ih no
+// longer fits beside W_hh in one block, and in bf16 layer 1 at H=256, 4
+// there up to 128 rows, whose blocks would leave SMs idle; 8 in bf16
+// layer 2 at H=256). The C entry points take the numerics as a flag (s8:
+// int8, else bf16). A step: h (round(127 h) int8, or bf16; BT x
+// Hp) . W_hh_slice^T (int8: on the tensor cores, exact int32 sums; bf16:
+// an f32 fmaf chain over k in order on the CUDA cores), the gates of the
+// block's units in registers, h' into every cluster block's next h buffer
+// (distributed shared memory, 16-byte stores; at C = 1 straight into the
+// block's own), one split cluster barrier a step; a warp sends its units'
+// h as soon as its gates are done. The input operand (layer 1: x; layer
+// 2: [prev_f; prev_b]) comes by cp.async two steps ahead (bf16 layer 2:
+// into its one buffer, a step ahead, which leaves room for twice the
+// columns a block). Layer 1's input projection (the f32 fmaf chain on the
+// CUDA cores) runs between the k-chunks of the step's recurrent product;
+// layer 2's (W_ih_slice . [prev_f; prev_b], one sum for each half, as the
+// recurrent product is summed) runs for the next step between the
+// barrier's arrive and its wait. Layer 2's head: W_head^T . bf16(h) over
+// a block's units on the tensor cores (mma.sync m16n8k16, f32 sums; the
 // m16 tiles of W_head^T are up to 64 classes: 5 haploid, 15 diploid, 49
-// run-length), then
-// over the cluster's blocks in rank order, each block for its share of
-// the columns: a run repeats bit for bit.
+// run-length), then over the cluster's blocks in rank order, each block
+// for its share of the columns: a run repeats bit for bit.
 //
-// bf16 (quant=False): gru_l1_split_kernel and gru_l2head_split_kernel, the
-// per-block recurrence on the CUDA cores. One block owns one direction and
-// a tile of BT = CPT * NQ columns and loops over all T steps itself;
-// blocks never exchange state. Thread (j, q) owns hidden unit j (gate rows
-// j, H+j, 2H+j) for columns q*CPT .. q*CPT+CPT-1, so a unit's three gate
-// pre-activations meet in one thread and a step needs a single
-// __syncthreads (h is double-buffered in shared memory); the bf16 W_hh and
-// the layer-2 W_ih stream from L2, chunk-interleaved (chunk kc of row r at
-// kc * 3H + r, 512 contiguous bytes for a warp).
+// bf16 layer 2 at H=384 and 512 does not fit a cluster: its W_hh and W_ih
+// slices alone are 248,832 and 294,912 bytes a block at C=16. There
+// gru_l2head_split_kernel, the per-block recurrence on the CUDA cores,
+// runs it: one block owns one direction and a tile of BT = CPT * NQ
+// columns and loops over all T steps itself; thread (j, q) owns hidden
+// unit j for CPT columns; the bf16 W_hh and W_ih stream from L2,
+// chunk-interleaved (chunk kc of row r at kc * 3H + r, 512 contiguous
+// bytes for a warp). ops/gru_split.py routes by shape.
 //
 // Numerics follow the TPU kernels operation by operation: int8 x int8 ->
 // int32 products with per-row scales (exact in any order, so the tensor
@@ -66,7 +72,13 @@
 // medaka_tpu_torch/ops/gru_split.py. Layer 1's f32 input projection keeps
 // one fmaf chain over the features in order, so layer 1's outputs and
 // layer 2's h do not depend on the design; only the order of the head's
-// f32 sum over units does.
+// f32 sum over units does. In bf16 every f32 sum of the recurrence is a
+// fmaf chain over k in order, the order of the plain version's torch.bmm
+// on the card: layer 1 repeats its bits. The tensor cores' bf16 sums
+// (mma.sync m16n8k16, f32 accumulators: the TPU kernels' arithmetic)
+// differ by a rounding now and then, and through the recurrence that
+// moved the random network's argmax in 0.1% of columns, past
+// chip_smoke.py's bar of 0.01% (PERF.md).
 //
 // What bounds it on an H100: a step is a (3H x K) x (K x BT) product with K
 // = H (layer 1) or 3H (layer 2) and the serial chain of T dependent steps,
@@ -74,7 +86,14 @@
 // int8 the step's product reads the block's weight slices from shared
 // memory through ldmatrix once (196,608 B at H = 256 in layer 1), which
 // bounds layer 1's step at about 1 us; layer 2 adds the cluster barrier
-// and the exchange.
+// and the exchange. In bf16 the product is the CUDA cores' f32 fmaf
+// chains, 3H K multiply-adds a column a step: layer 1 at H = 256 on
+// clusters of 2 (196,608 B of W_hh a block), layer 2 on clusters of 8
+// (147,456 B of W_hh and W_ih a block), in two waves at 480 rows: each
+// block of a cluster holds the input of all its columns, so no geometry
+// runs layer 2's 960 column-directions in one.
+#include <type_traits>
+
 #include "rnn_train.cuh"
 
 namespace {
@@ -85,8 +104,8 @@ constexpr int MODE_ROWS = 1;
 // mma.sync product, tile m holding classes 16 m .. 16 m + 15 (one tile for
 // the haploid 5 and the diploid 15 classes, four for the run-length
 // scheme's 49); the partial-logit slot holds the launch's class count
-// rounded up to 8. The bf16 kernel keeps W_head in registers up to 16
-// classes and reads it through L1 above that (head_regs)
+// rounded up to 8. The per-block bf16 layer 2 keeps W_head in registers
+// up to 16 classes and reads it through L1 above that (head_regs)
 constexpr int HEAD_MAX = 64;
 __host__ __device__ constexpr int head_slot(int ncls) {
   return (ncls + 7) / 8 * 8;
@@ -125,58 +144,71 @@ __device__ __forceinline__ float gru_update(float h, float xr, float xz,
 }
 
 // ---------------------------------------------------------------------------
-// int8: the cluster recurrence (grid dirs * ceil(B / BT) * C, cluster C)
+// the cluster recurrence, int8 (S8) or bf16 weights and h (grid dirs *
+// ceil(B / BT) * C, cluster C)
 // ---------------------------------------------------------------------------
 
 constexpr int SPLIT_UG = 16;      // units of a group: rows q*48 + g*16 + u
 constexpr int SPLIT_MAX_U = 256;  // units of a block at most
 constexpr int L1_THREADS = 512;   // threads of a block at most, layer 1
-constexpr int L2_THREADS = 256;   // and layer 2 (its registers)
+constexpr int L2_THREADS = 256;   // and layer 2 (its registers), and bf16
+                                  // (a thread's f32 chains)
 constexpr int L1_ROWC = 3;  // per-row constants: hh_scale, b_hh, b_ih
 constexpr int L2_ROWC = 5;  // and the input scales of the two halves
 
 typedef ClusterGeo<3, SPLIT_UG> SplitBase;
 
-// The launch geometry of layer 1 (l2 false, IN features) or layer 2 and
-// the carve-up of a block's shared memory, in this order: W_hh slice
-// [3U][ldh] int8, h [2][BT][ldh] int8, the block's staged h [BT][U] int8
-// (C > 1), W_ih (layer 1: [3U][INe] bf16; layer 2: [3U][ldi] int8), the
-// input operand (layer 1: x [2][BT][INp] bf16; layer 2: [prev_f; prev_b]
-// [2][BT][ldi] int8), and in layer 2 the head's operands, bf16(h) of the
-// block's units [2][BT][U + 8] and the block's rows of W_head^T
-// [16 HT][U + 8] bf16 (HT = head_tiles(ncls)), and (C > 1) the blocks'
-// partial logits of the block's CR = ceil(BT / C) columns [2][C][CR][KS]
-// f32, KS = head_slot(ncls).
+// The launch geometry of layer 1 (l2 false, IN features) or layer 2, with
+// int8 (s8) or bf16 weights and h (WB = 1 or 2 bytes a value), and the
+// carve-up of a block's shared memory, in this order: W_hh slice [3U][ldh],
+// h [2][BT][ldh], the block's staged h [BT][U] (C > 1), W_ih (layer 1:
+// [3U][INe] bf16; layer 2: [3U][ldi]), the input operand (layer 1: x
+// [2][BT][INp] bf16; layer 2: [prev_f; prev_b] [NIN][BT][ldi]), and in layer
+// 2 the head's operands, bf16(h) of the block's units [2][BT][U + 8] and
+// the block's rows of W_head^T [16 HT][U + 8] bf16 (HT =
+// head_tiles(ncls)), and (C > 1) the blocks' partial logits of the block's
+// CR = ceil(BT / C) columns [2][C][CR][KS] f32, KS = head_slot(ncls).
 // ops/rnn_cluster.py smem_bytes mirrors it.
 struct SplitGeo : SplitBase {
   bool l2;
+  int WB;   // bytes of a weight and of an h value: 1 (int8) or 2 (bf16)
+  int NIN;  // layer 2's input buffers: 2 (int8), 1 (bf16: the bytes for
+            // twice the columns; the copy then starts a step ahead)
   int IN;   // layer 1's features
   int INe;  // the same rounded up to even (W_ih rows of 32-bit pairs)
   int INp;  // the same padded to 8 (16 bytes of bf16)
-  int ldh;  // padded row (bytes) of the W_hh slice and of h: Hp + 16
-  int ldi;  // padded row (bytes) of the W_ih slice and the input: 2H + 16
+  int ldh;  // padded row (bytes) of the W_hh slice and of h: WB Hp + 16
+  int ldi;  // padded row (bytes) of the W_ih slice and the input: 2 WB H + 16
   int KS;   // layer 2: a column's partial logits in the slot
   int HT;   // layer 2: m16 tiles of W_head^T
-  __host__ __device__ SplitGeo(bool l2_, int H, int c, int bt, int in,
-                               int ncls)
-      : SplitBase(H, c, bt), l2(l2_), IN(in), INe((in + 1) / 2 * 2),
-        INp((in + 7) / 8 * 8), ldh(Hp + 16), ldi(2 * H + 16),
-        KS(head_slot(ncls)), HT(head_tiles(ncls)) {}
+  __host__ __device__ SplitGeo(bool l2_, bool s8, int H, int c, int bt,
+                               int in, int ncls)
+      : SplitBase(H, c, bt), l2(l2_), WB(s8 ? 1 : 2), NIN(s8 ? 2 : 1),
+        IN(in),
+        INe((in + 1) / 2 * 2), INp((in + 7) / 8 * 8), ldh(WB * Hp + 16),
+        ldi(2 * WB * H + 16), KS(head_slot(ncls)), HT(head_tiles(ncls)) {
+    if (!s8 && l2_) {
+      // bf16 layer 2: one n8 tile of columns a warp, twice the warps of
+      // two tiles (their f32 chains wait on shared memory less)
+      NT = 1;
+      NP = bt / 8;
+    }
+  }
   __host__ __device__ size_t whh_bytes() const {
     return align16(static_cast<size_t>(rows()) * ldh);
   }
   __host__ __device__ size_t hq_bytes() const {
     return align16(static_cast<size_t>(2) * BT * ldh);
   }
-  __host__ __device__ size_t st8_bytes() const {
-    return C > 1 ? align16(static_cast<size_t>(BT) * U) : 0;
+  __host__ __device__ size_t st_bytes() const {
+    return C > 1 ? align16(static_cast<size_t>(BT) * U * WB) : 0;
   }
   __host__ __device__ size_t wih_bytes() const {
     return l2 ? align16(static_cast<size_t>(rows()) * ldi)
               : align16(static_cast<size_t>(rows()) * INe * sizeof(bf16));
   }
   __host__ __device__ size_t in_bytes() const {
-    return l2 ? align16(static_cast<size_t>(2) * BT * ldi)
+    return l2 ? align16(static_cast<size_t>(NIN) * BT * ldi)
               : align16(static_cast<size_t>(2) * BT * INp * sizeof(bf16));
   }
   // layer 2: bf16(h) [2][BT][U + 8] and W_head^T [16 HT][U + 8]
@@ -193,50 +225,124 @@ struct SplitGeo : SplitBase {
                        : 0;
   }
   __host__ __device__ size_t smem() const {
-    return whh_bytes() + hq_bytes() + st8_bytes() + wih_bytes() +
+    return whh_bytes() + hq_bytes() + st_bytes() + wih_bytes() +
            in_bytes() + head_bytes() + slot_bytes();
   }
   __host__ __device__ int max_threads() const {
-    return l2 ? L2_THREADS : L1_THREADS;
+    return l2 || WB == 2 ? L2_THREADS : L1_THREADS;
   }
   // a geometry the kernels cannot run
-  __host__ __device__ static bool bad(bool l2, int H, int c, int bt, int in,
-                                      int ncls) {
+  __host__ __device__ static bool bad(bool l2, bool s8, int H, int c, int bt,
+                                      int in, int ncls) {
     if (H % 32 != 0 || H <= 0 || H > 512) return true;
     if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return true;
     if (bt != 8 && bt != 16 && bt != 32 && bt != 64) return true;
     if (!l2 && in < 1) return true;
     if (l2 && (ncls < 1 || ncls > HEAD_MAX)) return true;
-    const SplitGeo g(l2, H, c, bt, in, ncls);
+    const SplitGeo g(l2, s8, H, c, bt, in, ncls);
     return g.U > SPLIT_MAX_U || g.threads() > g.max_threads() ||
            g.smem() > SMEM_LIMIT;
   }
 };
 
 // Both directions stacked along the first axis of every weight (fwd, bwd).
+// Weights and h are int8 or bf16 as the kernel's S8 says.
 struct SplitArgs {
-  const int8_t* w_hh;  // (2, C, 3U, Hp) int8 slices (rnn_cluster w_slices)
+  const void* w_hh;    // (2, C, 3U, Hp) slices (rnn_cluster w_slices)
   const float* rowc;   // (2, C, L*_ROWC, 3U) f32 per-row constants, same rows
   const int* lengths;  // (B,)
   const bf16* x;       // layer 1: (T, B, INp) bf16, features zero-padded
   const bf16* w_ih;    // layer 1: (2, C, 3U, INe) bf16, same rows
-  int8_t* out_f;       // layer 1: (T, B, H) int8 round(127 h)
-  int8_t* out_b;
-  const int8_t* prev_f;  // layer 2: (T, B, H) int8, layer 1's outputs
-  const int8_t* prev_b;
-  const int8_t* w_in;    // layer 2: (2, C, 3U, 2H) int8 slices
-  const bf16* w_head;    // layer 2: (2, C, 16 HT, U) bf16 W_head^T rows
-  float* lg_f;           // layer 2: (B, T, ncls) f32 logit partials
+  void* out_f;         // layer 1: (T, B, H) round(127 h) int8 or bf16 h
+  void* out_b;
+  const void* prev_f;  // layer 2: (T, B, H), layer 1's outputs
+  const void* prev_b;
+  const void* w_in;    // layer 2: (2, C, 3U, 2H) slices
+  const bf16* w_head;  // layer 2: (2, C, 16 HT, U) bf16 W_head^T rows
+  float* lg_f;         // layer 2: (B, T, ncls) f32 logit partials
   float* lg_b;
   int T, B, H, IN, C, BT, ncls;
 };
 
-template <int NT, int MODE, bool L2>
-__device__ __forceinline__ void split_s8(const SplitArgs& a) {
+// element k (0-7) of 8 bf16 values in 16 bytes, in f32
+__device__ __forceinline__ float bf16_at(const uint4& v, int k) {
+  const uint32_t pair = k < 2 ? v.x : k < 4 ? v.y : k < 6 ? v.z : v.w;
+  return __uint_as_float(k % 2 ? pair & 0xffff0000u : pair << 16);
+}
+
+// The bf16 kernels' step products on the CUDA cores, with TileProduct's
+// interface and its accumulator layout: for each cell of a thread (rows
+// row0 + g * 16 + gid + 8 hh of gate g, columns n0 + nt * 8 + 2 tig + e)
+// one f32 fmaf chain over k in order, 16 k (32 bytes) a step. That is the
+// order of the plain version's f32 torch.bmm on the card, so a step gives
+// its bits; the tensor cores' sums (mma.sync m16n8k16) round otherwise,
+// and their differences grow through the recurrence past the network's
+// bars (PERF.md).
+template <int NT>
+struct ChainProduct {
+  const unsigned char* a;  // row gid of the first tile, from byte k0
+  const unsigned char* b;  // column 2 tig of the first n8 tile, byte k0
+  int lda, ldb;
+  __device__ __forceinline__ ChainProduct(const void* a_s, int lda_, int row0,
+                                          const void* b_s, int ldb_, int n0,
+                                          int k0, int lane)
+      : lda(lda_), ldb(ldb_) {
+    a = static_cast<const unsigned char*>(a_s) + (row0 + (lane >> 2)) * lda +
+        k0;
+    b = static_cast<const unsigned char*>(b_s) +
+        (n0 + 2 * (lane & 3)) * ldb + k0;
+  }
+  __device__ __forceinline__ void step(float (&acc)[3][NT][4],
+                                       int ks) const {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int off = ks * 32 + half * 16;  // 8 values of k
+      uint4 w[3][2], x[NT][2];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          w[g][hh] = *reinterpret_cast<const uint4*>(
+              a + (g * 16 + 8 * hh) * lda + off);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          x[nt][e] = *reinterpret_cast<const uint4*>(
+              b + (nt * 8 + e) * ldb + off);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                acc[g][nt][hh * 2 + e] =
+                    fmaf(bf16_at(w[g][hh], kk), bf16_at(x[nt][e], kk),
+                         acc[g][nt][hh * 2 + e]);
+    }
+  }
+};
+
+template <int NT, int MODE, bool L2, bool S8>
+__device__ __forceinline__ void split_cluster(const SplitArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // the step's sums: exact int32 on the tensor cores (int8) or f32 fmaf
+  // chains in the plain version's order on the CUDA cores (bf16)
+  typedef std::conditional_t<S8, int, float> Acc;
+  typedef std::conditional_t<S8, S8Product<3, NT>, ChainProduct<NT>> Product;
+  constexpr int WB = S8 ? 1 : 2;
+  // the weight slices and h by the byte (int8: by the value)
+  typedef std::conditional_t<S8, int8_t, unsigned char> B8;
+  // layer 2's input buffers: two, filled two steps ahead, or (bf16) one,
+  // filled a step ahead once every warp has read it
+  constexpr int NIN = L2 && !S8 ? 1 : 2;
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, B = a.B, H = a.H, C = a.C, BT = a.BT;
-  const SplitGeo g(L2, H, C, BT, a.IN, a.ncls);
+  const SplitGeo g(L2, S8, H, C, BT, a.IN, a.ncls);
   const int r = static_cast<int>(cluster.block_rank());
   const int tiles = (B + BT - 1) / BT;
   const int cid = static_cast<int>(blockIdx.x) / C;
@@ -254,12 +360,12 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
   constexpr int NROWC = L2 ? L2_ROWC : L1_ROWC;
 
   unsigned char* sp = smem;
-  int8_t* whh_s = reinterpret_cast<int8_t*>(sp);
+  B8* whh_s = reinterpret_cast<B8*>(sp);
   sp += g.whh_bytes();
-  int8_t* h_s = reinterpret_cast<int8_t*>(sp);
+  B8* h_s = reinterpret_cast<B8*>(sp);
   sp += g.hq_bytes();
-  int8_t* st_s = reinterpret_cast<int8_t*>(sp);
-  sp += g.st8_bytes();
+  B8* st_s = reinterpret_cast<B8*>(sp);
+  sp += g.st_bytes();
   unsigned char* wih_s = sp;
   sp += g.wih_bytes();
   unsigned char* in_s = sp;
@@ -270,9 +376,13 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
   float* slot_s = reinterpret_cast<float*>(sp);
 
   const size_t blk = static_cast<size_t>(d) * C + r;  // this block's slices
-  load_rows(whh_s, ldh, a.w_hh + blk * R * g.Hp, g.Hp, R);
+  load_rows(whh_s, ldh, static_cast<const B8*>(a.w_hh) + blk * R * g.Hp * WB,
+            g.Hp * WB, R);
   if constexpr (L2) {
-    load_rows(wih_s, ldi, a.w_in + blk * R * 2 * H, 2 * H, R);
+    load_rows(wih_s, ldi,
+              static_cast<const unsigned char*>(a.w_in) +
+                  blk * R * 2 * H * WB,
+              2 * H * WB, R);
     load_rows(whd_s, (U + 8) * static_cast<int>(sizeof(bf16)),
               a.w_head + blk * 16 * g.HT * U,
               U * static_cast<int>(sizeof(bf16)), 16 * g.HT);
@@ -316,8 +426,8 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
 
   // this thread's share of each per-step loop: (column, 16-byte chunk) of
   // the input copy and of the outputs, (column, class) of the logits
-  const int in_cpc = L2 ? H / 8 : INp / 8;  // 16-byte chunks of a column
-  const int u16 = U / 16;  // 16-byte chunks of a column of the block's h
+  const int in_cpc = L2 ? 2 * H * WB / 16 : INp / 8;  // chunks of a column
+  const int u16 = U * WB / 16;  // 16-byte chunks of a column of the block's h
   const FlatWalk in_walk(threadIdx.x, nthr, in_cpc);
   const FlatWalk h_walk(threadIdx.x, nthr, u16);
   const FlatWalk head_walk(threadIdx.x, nthr, L2 ? a.ncls : 1);
@@ -329,16 +439,18 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
     const int tt = d == 0 ? step : T - 1 - step;
     FlatWalk w = in_walk;
     if constexpr (L2) {
-      const int half = H / 16;
-      int8_t* dst = reinterpret_cast<int8_t*>(in_s) + buf * BT * ldi;
+      const int half = H * WB / 16;
+      const unsigned char* pf = static_cast<const unsigned char*>(a.prev_f);
+      const unsigned char* pb = static_cast<const unsigned char*>(a.prev_b);
+      unsigned char* dst = in_s + buf * BT * ldi;
       const size_t t_off = static_cast<size_t>(tt) * B;
       for (; w.n < BT; w.next()) {
         const int b = b0 + w.n;
-        const int8_t* src = w.j < half ? a.prev_f : a.prev_b;
+        const unsigned char* src = w.j < half ? pf : pb;
         cp_async16(dst + w.n * ldi + w.j * 16,
-                   b < B ? src + (t_off + b) * H +
+                   b < B ? src + (t_off + b) * H * WB +
                                (w.j < half ? w.j : w.j - half) * 16
-                         : a.prev_f,
+                         : pf,
                    b < B);
       }
     } else {
@@ -356,19 +468,18 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
   // the input pre-activations xp of a step
   float xp[2][NC][3];
   // layer 2: xp of the step whose operand is in buffer `buf`, W_ih
-  // [prev_f; prev_b] on the tensor cores, one exact int32 sum for each
-  // half (k from 0 and from H)
+  // [prev_f; prev_b], one sum for each half (k from 0 and from H): exact
+  // int32 on the tensor cores, or an f32 chain over the half in order
   auto project = [&](int buf) {
-    int acc_a[3][NT][4] = {};
-    int acc_b[3][NT][4] = {};
-    const int8_t* w = reinterpret_cast<const int8_t*>(wih_s);
-    const int8_t* ib = reinterpret_cast<const int8_t*>(in_s) + buf * BT * ldi;
-    const S8Product<3, NT> prod_a(w, ldi, q * 3 * SPLIT_UG, ib, ldi,
-                                  p * NT * 8, 0, lane);
-    const S8Product<3, NT> prod_b(w, ldi, q * 3 * SPLIT_UG, ib, ldi,
-                                  p * NT * 8, H, lane);
+    Acc acc_a[3][NT][4] = {};
+    Acc acc_b[3][NT][4] = {};
+    const unsigned char* ib = in_s + buf * BT * ldi;
+    const Product prod_a(wih_s, ldi, q * 3 * SPLIT_UG, ib, ldi, p * NT * 8,
+                         0, lane);
+    const Product prod_b(wih_s, ldi, q * 3 * SPLIT_UG, ib, ldi, p * NT * 8,
+                         H * WB, lane);
 #pragma unroll 2
-    for (int ks = 0; ks < H / 32; ++ks) {
+    for (int ks = 0; ks < H * WB / 32; ++ks) {
       prod_a.step(acc_a, ks);
       prod_b.step(acc_b, ks);
     }
@@ -378,9 +489,13 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
       for (int c = 0; c < NC; ++c)
 #pragma unroll
         for (int gt = 0; gt < 3; ++gt) {
-          const int va = acc_a[gt][c / 2][hh * 2 + c % 2];
-          const int vb = acc_b[gt][c / 2][hh * 2 + c % 2];
-          if (MODE == MODE_T) {
+          const Acc va = acc_a[gt][c / 2][hh * 2 + c % 2];
+          const Acc vb = acc_b[gt][c / 2][hh * 2 + c % 2];
+          if (!S8) {
+            // bf16: (acc_a + acc_b) + b_ih, as the plain version sums
+            const float v = __fadd_rn(__fadd_rn(va, vb), bi[hh][gt]);
+            xp[hh][c][gt] = MODE == MODE_ROWS ? bf16r(v) : v;
+          } else if (MODE == MODE_T) {
             // merged (3H, 2H) projection with one per-row scale
             xp[hh][c][gt] = __fadd_rn(
                 __fmul_rn(static_cast<float>(va + vb), sa[hh][gt]),
@@ -413,7 +528,7 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
 
   __syncthreads();  // h zeroed; no cp.async lands on a zeroing store
   issue(0, 0);
-  if (T > 1) issue(1, 1);
+  if (NIN == 2 && T > 1) issue(1, 1);
   cp_async_wait_all();
   if (C > 1)
     cluster.sync();  // every block running, its h buffers zero
@@ -426,23 +541,28 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
     const int nxt = cur ^ 1;
     const int t = d == 0 ? i : T - 1 - i;
     if (C > 1 && i > 0) cluster_wait();  // h[cur] complete in this block
+    if constexpr (NIN == 1) {
+      // one input buffer: every warp has run its product of this step's
+      // operand (the last step's project); the next step's comes now
+      __syncthreads();
+      if (i + 1 < T) issue(i + 1, 0);
+    }
 
-    int acc[3][NT][4] = {};
-    const S8Product<3, NT> rec(whh_s, ldh, q * 3 * SPLIT_UG,
-                               h_s + cur * BT * ldh, ldh, p * NT * 8, 0,
-                               lane);
+    Acc acc[3][NT][4] = {};
+    const Product rec(whh_s, ldh, q * 3 * SPLIT_UG, h_s + cur * BT * ldh, ldh,
+                      p * NT * 8, 0, lane);
     if constexpr (L2) {
 #pragma unroll 2
-      for (int ks = 0; ks < g.Hp / 32; ++ks) rec.step(acc, ks);
+      for (int ks = 0; ks < g.Hp * WB / 32; ++ks) rec.step(acc, ks);
     } else {
       // layer 1: the input projection W_ih x + b_ih of this step, one f32
       // fmaf chain over the features in order, a pair of features between
-      // each two k-chunks of the recurrent product (the CUDA cores' work
-      // beside the tensor cores' shared-memory loads)
+      // each two k-chunks of the recurrent product (in int8, the CUDA
+      // cores' work beside the tensor cores' shared-memory loads)
       const bf16* xb = reinterpret_cast<const bf16*>(in_s) + cur * BT * INp;
       const bf16* w = reinterpret_cast<const bf16*>(wih_s);
       float pacc[2][NC][3] = {};
-      const int nk = g.Hp / 32;
+      const int nk = g.Hp * WB / 32;  // 32-byte k-chunks of the product
       const int npair = (a.IN + 1) / 2;
       for (int ks = 0; ks < nk || ks < npair; ++ks) {
         if (ks < nk) rec.step(acc, ks);
@@ -492,26 +612,32 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
           }
     }
 
-    // round(127 h') of the block's units: staged (C > 1) or, at C = 1,
-    // straight into the next h buffer; layer 2 also stages bf16(h') for
-    // the head
-    int8_t* hq = C > 1 ? st_s : h_s + nxt * BT * ldh;
-    const int ldq = C > 1 ? U : ldh;
+    // h' of the block's units (round(127 h') or bf16(h')): staged (C > 1)
+    // or, at C = 1, straight into the next h buffer; layer 2 also stages
+    // bf16(h') for the head
+    B8* hq = C > 1 ? st_s : h_s + nxt * BT * ldh;
+    const int ldq = C > 1 ? U * WB : ldh;  // bytes
     auto gate = [&](int hh, int c) {
       float hp[3];
 #pragma unroll
-      for (int gt = 0; gt < 3; ++gt)
-        hp[gt] = __fadd_rn(
-            __fmul_rn(static_cast<float>(acc[gt][c / 2][hh * 2 + c % 2]),
-                      sc[hh][gt]),
-            bh[hh][gt]);
-      const float h_new = gru_update<true, MODE>(
+      for (int gt = 0; gt < 3; ++gt) {
+        const Acc v = acc[gt][c / 2][hh * 2 + c % 2];
+        hp[gt] = S8 ? __fadd_rn(__fmul_rn(static_cast<float>(v), sc[hh][gt]),
+                                bh[hh][gt])
+                    : __fadd_rn(static_cast<float>(v), bh[hh][gt]);
+      }
+      const float h_new = gru_update<S8, MODE>(
           h[hh][c], xp[hh][c][0], xp[hh][c][1], xp[hh][c][2], hp[0], hp[1],
           hp[2]);
       if (unit_in[hh] && t < len[c]) h[hh][c] = h_new;
-      int v = __float2int_rn(__fmul_rn(h[hh][c], 127.0f));
-      v = max(-128, min(127, v));
-      hq[ncol[c] * ldq + ul[hh]] = static_cast<int8_t>(v);
+      if constexpr (S8) {
+        int v = __float2int_rn(__fmul_rn(h[hh][c], 127.0f));
+        v = max(-128, min(127, v));
+        hq[ncol[c] * ldq + ul[hh]] = static_cast<int8_t>(v);
+      } else {
+        *reinterpret_cast<bf16*>(hq + ncol[c] * ldq + ul[hh] * WB) =
+            __float2bfloat16_rn(h[hh][c]);
+      }
       if (L2)
         hb_s[(cur * BT + ncol[c]) * (U + 8) + ul[hh]] =
             __float2bfloat16_rn(h[hh][c]);
@@ -521,29 +647,46 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) gate(hh, c);
     if (C > 1 && i + 1 < T) {
-      // the warp's 16 units of its NT * 8 columns (a 16-byte chunk of
+      // the warp's 16 units of its NT * 8 columns (WB 16-byte chunks of
       // each staged column) into every cluster block's next h buffer
       __syncwarp();
-      int8_t* nb = h_s + nxt * BT * ldh + r * U + q * SPLIT_UG;
-      for (int e = lane; e < C * NT * 8; e += 32) {
-        const int dst_rank = e / (NT * 8);
-        const int n = p * NT * 8 + e - dst_rank * NT * 8;
-        *reinterpret_cast<uint4*>(cluster.map_shared_rank(nb, dst_rank) +
-                                  n * ldh) =
-            *reinterpret_cast<const uint4*>(st_s + n * U + q * SPLIT_UG);
+      if constexpr (S8) {
+        // one chunk a column; this form of the loop keeps the int8
+        // kernels' code (with the bf16 loop's chunk index, int8 layer 1
+        // ran 10% slower on an H100, layer 2 7% faster: PERF.md)
+        B8* nb = h_s + nxt * BT * ldh + r * U + q * SPLIT_UG;
+        for (int e = lane; e < C * NT * 8; e += 32) {
+          const int dst_rank = e / (NT * 8);
+          const int n = p * NT * 8 + e - dst_rank * NT * 8;
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(nb, dst_rank) +
+                                    n * ldh) =
+              *reinterpret_cast<const uint4*>(st_s + n * U + q * SPLIT_UG);
+        }
+      } else {
+        B8* nb = h_s + nxt * BT * ldh + (r * U + q * SPLIT_UG) * WB;
+        for (int e = lane; e < C * NT * 8 * WB; e += 32) {
+          const int dst_rank = e / (NT * 8 * WB);
+          const int f = e - dst_rank * NT * 8 * WB;
+          const int n = p * NT * 8 + f / WB;
+          const int k = (f % WB) * 16;
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(nb, dst_rank) +
+                                    n * ldh + k) =
+              *reinterpret_cast<const uint4*>(st_s + n * U * WB +
+                                              q * SPLIT_UG * WB + k);
+        }
       }
     }
     cp_async_wait_all();  // the operand of step i + 1 has landed
     __syncthreads();      // the block's h staged, the operand visible
 
     if constexpr (!L2) {
-      // round(127 h) of the block's units to the outputs, 16 bytes a store
-      int8_t* out = d ? a.out_b : a.out_f;
+      // the block's units of h' to the outputs, 16 bytes a store
+      B8* out = static_cast<B8*>(d ? a.out_b : a.out_f);
       for (FlatWalk w = h_walk; w.n < BT; w.next()) {
-        const int j0 = r * U + w.j * 16;
+        const int j0 = r * U + w.j * 16 / WB;
         if (b0 + w.n < B && j0 < H)
           *reinterpret_cast<uint4*>(
-              out + (static_cast<size_t>(t) * B + b0 + w.n) * H + j0) =
+              out + ((static_cast<size_t>(t) * B + b0 + w.n) * H + j0) * WB) =
               *reinterpret_cast<const uint4*>(hq + w.n * ldq + w.j * 16);
       }
     }
@@ -593,10 +736,11 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
       if (C > 1 && i > 0) flush(i - 1, nxt);
     }
     if (C > 1) cluster_arrive();
-    // the next steps' operands: cp.async two steps ahead, and (layer 2)
-    // the next step's input product while the cluster barrier completes
-    if (i + 2 < T) issue(i + 2, cur);
-    if (L2 && i + 1 < T) project(nxt);
+    // the next steps' operands: cp.async two steps ahead (two buffers),
+    // and (layer 2) the next step's input product while the cluster
+    // barrier completes
+    if (NIN == 2 && i + 2 < T) issue(i + 2, cur);
+    if (L2 && i + 1 < T) project(NIN == 2 ? nxt : 0);
   }
   if (C > 1) {
     cluster_wait();  // no block leaves while another may still write to it
@@ -607,47 +751,130 @@ __device__ __forceinline__ void split_s8(const SplitArgs& a) {
 template <int NT, int MODE>
 __global__ void __launch_bounds__(L1_THREADS)
     gru_l1_split_s8_kernel(SplitArgs a) {
-  split_s8<NT, MODE, false>(a);
+  split_cluster<NT, MODE, false, true>(a);
 }
 
 template <int NT, int MODE>
 __global__ void __launch_bounds__(L2_THREADS)
     gru_l2head_split_s8_kernel(SplitArgs a) {
-  split_s8<NT, MODE, true>(a);
+  split_cluster<NT, MODE, true, true>(a);
 }
 
-template <bool L2, int MODE, int NT>
-auto s8_kernel() {
-  if constexpr (L2)
+template <int NT, int MODE>
+__global__ void __launch_bounds__(L2_THREADS)
+    gru_l1_split_bf16_kernel(SplitArgs a) {
+  split_cluster<NT, MODE, false, false>(a);
+}
+
+template <int NT, int MODE>
+__global__ void __launch_bounds__(L2_THREADS)
+    gru_l2head_split_bf16_kernel(SplitArgs a) {
+  split_cluster<NT, MODE, true, false>(a);
+}
+
+template <bool L2, bool S8, int MODE, int NT>
+auto split_kernel() {
+  if constexpr (L2 && S8)
     return gru_l2head_split_s8_kernel<NT, MODE>;
-  else
+  else if constexpr (L2)
+    return gru_l2head_split_bf16_kernel<NT, MODE>;
+  else if constexpr (S8)
     return gru_l1_split_s8_kernel<NT, MODE>;
+  else
+    return gru_l1_split_bf16_kernel<NT, MODE>;
 }
 
-template <bool L2, int MODE>
-cudaError_t launch_s8(const SplitArgs& a, cudaStream_t s) {
-  if (a.T < 1 || a.B < 1 || SplitGeo::bad(L2, a.H, a.C, a.BT, a.IN, a.ncls))
+template <bool L2, bool S8, int MODE>
+cudaError_t launch_split(const SplitArgs& a, cudaStream_t s) {
+  if (a.T < 1 || a.B < 1 ||
+      SplitGeo::bad(L2, S8, a.H, a.C, a.BT, a.IN, a.ncls))
     return cudaErrorInvalidValue;
-  const SplitGeo g(L2, a.H, a.C, a.BT, a.IN, a.ncls);
+  const SplitGeo g(L2, S8, a.H, a.C, a.BT, a.IN, a.ncls);
   const int clusters = 2 * ((a.B + a.BT - 1) / a.BT);
-  return g.NT == 2 ? launch_cluster(s8_kernel<L2, MODE, 2>(), a.C, clusters,
-                                    g.threads(), g.smem(), s, a)
-                   : launch_cluster(s8_kernel<L2, MODE, 1>(), a.C, clusters,
-                                    g.threads(), g.smem(), s, a);
+  constexpr int NT2 = S8 || !L2 ? 2 : 1;  // bf16 layer 2: one tile a warp
+  return g.NT == 2
+             ? launch_cluster(split_kernel<L2, S8, MODE, NT2>(), a.C, clusters,
+                              g.threads(), g.smem(), s, a)
+             : launch_cluster(split_kernel<L2, S8, MODE, 1>(), a.C, clusters,
+                              g.threads(), g.smem(), s, a);
 }
 
-template <bool L2, int MODE>
-int s8_max_clusters(int C, int BT, int H, int IN, int ncls) {
-  if (SplitGeo::bad(L2, H, C, BT, IN, ncls))
+template <bool L2, bool S8, int MODE>
+int split_max_clusters(int C, int BT, int H, int IN, int ncls) {
+  if (SplitGeo::bad(L2, S8, H, C, BT, IN, ncls))
     return -static_cast<int>(cudaErrorInvalidValue);
-  const SplitGeo g(L2, H, C, BT, IN, ncls);
-  return g.NT == 2
-             ? max_clusters(s8_kernel<L2, MODE, 2>(), C, g.threads(), g.smem())
-             : max_clusters(s8_kernel<L2, MODE, 1>(), C, g.threads(), g.smem());
+  const SplitGeo g(L2, S8, H, C, BT, IN, ncls);
+  constexpr int NT2 = S8 || !L2 ? 2 : 1;
+  return g.NT == 2 ? max_clusters(split_kernel<L2, S8, MODE, NT2>(), C,
+                                  g.threads(), g.smem())
+                   : max_clusters(split_kernel<L2, S8, MODE, 1>(), C,
+                                  g.threads(), g.smem());
+}
+
+template <bool S8>
+int split_max(int layer2, int mode, int C, int BT, int H, int IN, int ncls) {
+  if (layer2)
+    return mode == MODE_T
+               ? split_max_clusters<true, S8, MODE_T>(C, BT, H, IN, ncls)
+               : split_max_clusters<true, S8, MODE_ROWS>(C, BT, H, IN, ncls);
+  return mode == MODE_T
+             ? split_max_clusters<false, S8, MODE_T>(C, BT, H, IN, ncls)
+             : split_max_clusters<false, S8, MODE_ROWS>(C, BT, H, IN, ncls);
+}
+
+template <bool L2, bool S8>
+int split_launch(const SplitArgs& a, int mode, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(mode == MODE_T ? launch_split<L2, S8, MODE_T>(a, s)
+                                         : launch_split<L2, S8, MODE_ROWS>(a, s));
+}
+
+SplitArgs l1_args(const void* x, const int* lengths, const void* w_ih,
+                  const float* rowc, const void* w_hh, void* out_f,
+                  void* out_b, int T, int B, int IN, int H, int C, int BT) {
+  SplitArgs a{};
+  a.w_hh = w_hh;
+  a.rowc = rowc;
+  a.lengths = lengths;
+  a.x = static_cast<const bf16*>(x);
+  a.w_ih = static_cast<const bf16*>(w_ih);
+  a.out_f = out_f;
+  a.out_b = out_b;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.IN = IN;
+  a.C = C;
+  a.BT = BT;
+  return a;
+}
+
+SplitArgs l2_args(const void* prev_f, const void* prev_b, const int* lengths,
+                  const void* w_in, const float* rowc, const void* w_hh,
+                  const void* w_head, float* lg_f, float* lg_b, int T, int B,
+                  int H, int ncls, int C, int BT) {
+  SplitArgs a{};
+  a.w_hh = w_hh;
+  a.rowc = rowc;
+  a.lengths = lengths;
+  a.prev_f = prev_f;
+  a.prev_b = prev_b;
+  a.w_in = w_in;
+  a.w_head = static_cast<const bf16*>(w_head);
+  a.lg_f = lg_f;
+  a.lg_b = lg_b;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.C = C;
+  a.BT = BT;
+  a.ncls = ncls;
+  return a;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 (quant=False): the per-block recurrence on the CUDA cores
+// bf16 layer 2 where no cluster holds its slices: the per-block recurrence
+// on the CUDA cores
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float dot8_bf16(uint4 w, uint4 a, float acc) {
@@ -704,146 +931,11 @@ __device__ __forceinline__ void recurrent(const uint4* wmat, int H, int j,
     for (int cc = 0; cc < CPT; ++cc) hp[g][cc] = __fadd_rn(acc[g][cc], bh[g]);
 }
 
-size_t l1_smem_bytes(int BT, int IN, int H) {
-  return align16(2 * static_cast<size_t>(BT) * H * 2) +
-         align16(2 * static_cast<size_t>(BT) * IN * sizeof(float)) +
-         align16(static_cast<size_t>(IN) * 3 * H * sizeof(__nv_bfloat16));
-}
-
 size_t l2_smem_bytes(int BT, int H, int nthreads, int CPT, int KC) {
   return align16(2 * static_cast<size_t>(BT) * 2 * H * 2) +
          align16(2 * static_cast<size_t>(BT) * H * 2) +
          align16(2 * static_cast<size_t>(nthreads / 32) * CPT * KC *
                  sizeof(float));
-}
-
-// input values of the next step a thread of the bf16 layer 1 stages at
-// most: BT IN <= L1_XPT H NQ, i.e. CPT IN <= 4 H
-constexpr int L1_XPT = 4;
-
-// Layer 1: x (T, B, IN) bf16 -> out_f, out_b (T, B, H) bf16.
-// grid (ceil(B / BT), 2 directions), block H * NQ threads, BT = CPT * NQ.
-template <int CPT, int MODE>
-__global__ void __launch_bounds__(512)
-    gru_l1_split_kernel(const __nv_bfloat16* __restrict__ x,
-                        const int* __restrict__ lengths,
-                        const __nv_bfloat16* __restrict__ w_ih_t,
-                        const float* __restrict__ b_ih,
-                        const void* __restrict__ w_hh,
-                        const float* __restrict__ b_hh, void* out_f,
-                        void* out_b, int T, int B, int IN, int H, int NQ) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int d = blockIdx.y;
-  const int BT = CPT * NQ;
-  const int b0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int j = tid % H;
-  const int c0 = (tid / H) * CPT;
-  const int H3 = 3 * H;
-  const int kchunks = H / 8;
-
-  unsigned char* p = smem;
-  unsigned char* act_s = p;
-  p += align16(2 * static_cast<size_t>(BT) * H * 2);
-  float* x_s = reinterpret_cast<float*>(p);
-  p += align16(2 * static_cast<size_t>(BT) * IN * sizeof(float));
-  __nv_bfloat16* wih_s = reinterpret_cast<__nv_bfloat16*>(p);
-
-  const uint4* wmat = static_cast<const uint4*>(w_hh) +
-                      static_cast<size_t>(d) * kchunks * H3;
-  for (int i = tid; i < IN * H3; i += blockDim.x)
-    wih_s[i] = w_ih_t[static_cast<size_t>(d) * IN * H3 + i];
-  for (int i = tid; i < 2 * BT * H * 2; i += blockDim.x) act_s[i] = 0;
-
-  float bh[3], bi[3];
-#pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    const int row = d * H3 + g * H + j;
-    bh[g] = b_hh[row];
-    bi[g] = b_ih[row];
-  }
-  int len[CPT];
-  float h[CPT];
-#pragma unroll
-  for (int cc = 0; cc < CPT; ++cc) {
-    const int b = b0 + c0 + cc;
-    len[cc] = b < B ? lengths[b] : 0;
-    h[cc] = 0.0f;
-  }
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(d == 0 ? out_f : out_b);
-
-  // thread tid stages input values tid + v * blockDim.x (v < L1_XPT) of
-  // the next step: value e is feature e % IN of column e / IN
-  const int nx = BT * IN;
-  auto load_x = [&](int tt, int e) -> float {
-    const int xb = b0 + e / IN;
-    return xb < B ? __bfloat162float(
-                        x[(static_cast<size_t>(tt) * B + xb) * IN + e % IN])
-                  : 0.0f;
-  };
-  for (int e = tid; e < nx; e += blockDim.x)
-    x_s[e] = load_x(d == 0 ? 0 : T - 1, e);
-  __syncthreads();
-
-  for (int i = 0; i < T; ++i) {
-    const int cur = i & 1;
-    const int nxt = cur ^ 1;
-    const int t = d == 0 ? i : T - 1 - i;
-    float x_next[L1_XPT];
-#pragma unroll
-    for (int v = 0; v < L1_XPT; ++v) {
-      const int e = tid + v * blockDim.x;
-      x_next[v] =
-          e < nx && i + 1 < T ? load_x(d == 0 ? i + 1 : T - 2 - i, e) : 0.0f;
-    }
-
-    // input projection W_ih x + b_ih (f32 accumulation of bf16 products)
-    float xp[3][CPT] = {};
-    const float* xs = x_s + cur * BT * IN;
-    for (int k = 0; k < IN; ++k) {
-      const float w0 = __bfloat162float(wih_s[k * H3 + j]);
-      const float w1 = __bfloat162float(wih_s[k * H3 + H + j]);
-      const float w2 = __bfloat162float(wih_s[k * H3 + 2 * H + j]);
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const float xv = xs[(c0 + cc) * IN + k];
-        xp[0][cc] = fmaf(w0, xv, xp[0][cc]);
-        xp[1][cc] = fmaf(w1, xv, xp[1][cc]);
-        xp[2][cc] = fmaf(w2, xv, xp[2][cc]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        xp[g][cc] = __fadd_rn(xp[g][cc], bi[g]);
-        if (MODE == MODE_ROWS) xp[g][cc] = bf16r(xp[g][cc]);
-      }
-
-    float hp[3][CPT];
-    recurrent<CPT>(wmat, H, j, act_s + cur * BT * H * 2, c0, bh, hp);
-
-    __nv_bfloat16* act_n =
-        reinterpret_cast<__nv_bfloat16*>(act_s + nxt * BT * H * 2);
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const float hn = gru_update<false, MODE>(h[cc], xp[0][cc], xp[1][cc],
-                                               xp[2][cc], hp[0][cc], hp[1][cc],
-                                               hp[2][cc]);
-      if (t < len[cc]) h[cc] = hn;
-      const int c = c0 + cc;
-      const int b = b0 + c;
-      const __nv_bfloat16 hb = __float2bfloat16_rn(h[cc]);
-      act_n[c * H + j] = hb;
-      if (b < B) out[(static_cast<size_t>(t) * B + b) * H + j] = hb;
-    }
-#pragma unroll
-    for (int v = 0; v < L1_XPT; ++v) {
-      const int e = tid + v * blockDim.x;
-      if (e < nx) x_s[nxt * BT * IN + e] = x_next[v];
-    }
-    __syncthreads();
-  }
 }
 
 // Layer 2 + head: prev_f, prev_b (T, B, H) bf16 -> lg_f, lg_b (B, T, C)
@@ -1013,26 +1105,6 @@ __global__ void __launch_bounds__(512)
   flush(T - 1);
 }
 
-template <int CPT, int MODE>
-cudaError_t launch_l1(const void* x, const int* lengths, const void* w_ih_t,
-                      const float* b_ih, const void* w_hh, const float* b_hh,
-                      void* out_f, void* out_b, int T, int B, int IN, int H,
-                      int NQ, cudaStream_t stream) {
-  const int BT = CPT * NQ;
-  if (BT * IN > L1_XPT * H * NQ) return cudaErrorInvalidValue;
-  const size_t smem = l1_smem_bytes(BT, IN, H);
-  auto kern = gru_l1_split_kernel<CPT, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + BT - 1) / BT, 2);
-  kern<<<grid, H * NQ, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), lengths,
-      static_cast<const __nv_bfloat16*>(w_ih_t), b_ih, w_hh, b_hh, out_f,
-      out_b, T, B, IN, H, NQ);
-  return cudaGetLastError();
-}
-
 template <int CPT, int MODE, int KC>
 cudaError_t launch_l2(const void* prev_f, const void* prev_b,
                       const int* lengths, const void* w_in, const float* b_ih,
@@ -1050,16 +1122,6 @@ cudaError_t launch_l2(const void* prev_f, const void* prev_b,
                                        w_hh, b_hh, w_head, lg_f, lg_b, T, B,
                                        H, C, NQ);
   return cudaGetLastError();
-}
-
-template <int MODE, typename... Args>
-cudaError_t dispatch_l1(int cpt, Args... args) {
-  switch (cpt) {
-    case 1: return launch_l1<1, MODE>(args...);
-    case 2: return launch_l1<2, MODE>(args...);
-    case 4: return launch_l1<4, MODE>(args...);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <int MODE, int KC, typename... Args>
@@ -1085,112 +1147,62 @@ cudaError_t dispatch_l2(int cpt, int ncls, Args... args) {
 
 extern "C" {
 
-// --- int8: the cluster recurrence ------------------------------------------
+// --- the cluster recurrence: int8 (s8 != 0) or bf16 (quant=False) ---------
 
 // dynamic shared memory of one block of layer 1 (layer2 = 0, IN features)
 // or layer 2 (ncls classes) at (C, BT, H)
-size_t gru_split_s8_smem(int layer2, int C, int BT, int H, int IN,
-                         int ncls) {
-  return SplitGeo(layer2 != 0, H, C, BT, IN, ncls).smem();
+size_t gru_split_smem(int s8, int layer2, int C, int BT, int H, int IN,
+                      int ncls) {
+  return SplitGeo(layer2 != 0, s8 != 0, H, C, BT, IN, ncls).smem();
 }
 
 // clusters of C blocks that can be resident at once; a negative value is
 // minus a cudaError_t (cudaErrorInvalidValue for a geometry the kernels
 // cannot run)
-int gru_split_s8_max_clusters(int layer2, int mode, int C, int BT, int H,
-                              int IN, int ncls) {
-  if (layer2)
-    return mode == MODE_T
-               ? s8_max_clusters<true, MODE_T>(C, BT, H, IN, ncls)
-               : s8_max_clusters<true, MODE_ROWS>(C, BT, H, IN, ncls);
-  return mode == MODE_T ? s8_max_clusters<false, MODE_T>(C, BT, H, IN, ncls)
-                        : s8_max_clusters<false, MODE_ROWS>(C, BT, H, IN,
-                                                            ncls);
+int gru_split_max_clusters(int s8, int layer2, int mode, int C, int BT,
+                           int H, int IN, int ncls) {
+  return s8 ? split_max<true>(layer2, mode, C, BT, H, IN, ncls)
+            : split_max<false>(layer2, mode, C, BT, H, IN, ncls);
 }
 
 // Layer 1: x (T, B, INp) bf16 (features zero-padded to a multiple of 8),
 // w_ih (2, C, 3U, INe) bf16 (IN rounded up to even, zero-padded), rowc
-// (2, C, 3, 3U) f32 (hh_scale, b_hh, b_ih),
-// w_hh (2, C, 3U, Hp) int8, in the slices' row order; out_f, out_b (T, B,
-// H) int8.
-int gru_l1_split_s8_launch(const void* x, const int* lengths,
-                           const void* w_ih, const float* rowc,
-                           const void* w_hh, void* out_f, void* out_b, int T,
-                           int B, int IN, int H, int C, int BT, int mode,
-                           void* stream) {
-  SplitArgs a{};
-  a.w_hh = static_cast<const int8_t*>(w_hh);
-  a.rowc = rowc;
-  a.lengths = lengths;
-  a.x = static_cast<const bf16*>(x);
-  a.w_ih = static_cast<const bf16*>(w_ih);
-  a.out_f = static_cast<int8_t*>(out_f);
-  a.out_b = static_cast<int8_t*>(out_b);
-  a.T = T;
-  a.B = B;
-  a.H = H;
-  a.IN = IN;
-  a.C = C;
-  a.BT = BT;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(mode == MODE_T ? launch_s8<false, MODE_T>(a, s)
-                                         : launch_s8<false, MODE_ROWS>(a, s));
+// (2, C, 3, 3U) f32 (hh_scale, b_hh, b_ih), w_hh (2, C, 3U, Hp), in the
+// slices' row order; out_f, out_b (T, B, H). w_hh and the outputs are
+// int8 (s8: round(127 h)) or bf16 (h; hh_scale is not read).
+int gru_l1_split_cluster_launch(int s8, const void* x, const int* lengths,
+                                const void* w_ih, const float* rowc,
+                                const void* w_hh, void* out_f, void* out_b,
+                                int T, int B, int IN, int H, int C, int BT,
+                                int mode, void* stream) {
+  const SplitArgs a =
+      l1_args(x, lengths, w_ih, rowc, w_hh, out_f, out_b, T, B, IN, H, C, BT);
+  return s8 ? split_launch<false, true>(a, mode, stream)
+            : split_launch<false, false>(a, mode, stream);
 }
 
-// Layer 2 + head: prev_f, prev_b (T, B, H) int8, w_in (2, C, 3U, 2H) int8,
-// rowc (2, C, 5, 3U) f32 (hh_scale, b_hh, b_ih, the two halves' input
-// scales), w_hh (2, C, 3U, Hp) int8, w_head (2, C, 16, U) bf16 (W_head^T
-// of the block's units, classes past ncls zero); lg_f, lg_b
-// (B, T, ncls) f32.
-int gru_l2head_split_s8_launch(const void* prev_f, const void* prev_b,
-                               const int* lengths, const void* w_in,
-                               const float* rowc, const void* w_hh,
-                               const void* w_head, float* lg_f, float* lg_b,
-                               int T, int B, int H, int ncls, int C, int BT,
-                               int mode, void* stream) {
-  SplitArgs a{};
-  a.w_hh = static_cast<const int8_t*>(w_hh);
-  a.rowc = rowc;
-  a.lengths = lengths;
-  a.prev_f = static_cast<const int8_t*>(prev_f);
-  a.prev_b = static_cast<const int8_t*>(prev_b);
-  a.w_in = static_cast<const int8_t*>(w_in);
-  a.w_head = static_cast<const bf16*>(w_head);
-  a.lg_f = lg_f;
-  a.lg_b = lg_b;
-  a.T = T;
-  a.B = B;
-  a.H = H;
-  a.C = C;
-  a.BT = BT;
-  a.ncls = ncls;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(mode == MODE_T ? launch_s8<true, MODE_T>(a, s)
-                                         : launch_s8<true, MODE_ROWS>(a, s));
+// Layer 2 + head: prev_f, prev_b (T, B, H), w_in (2, C, 3U, 2H), rowc (2,
+// C, 5, 3U) f32 (hh_scale, b_hh, b_ih, the two halves' input scales), w_hh
+// (2, C, 3U, Hp), w_head (2, C, 16 HT, U) bf16 (W_head^T of the block's
+// units, classes past ncls zero); lg_f, lg_b (B, T, ncls) f32. The layer's
+// input and weights are int8 (s8) or bf16 (the scales are not read).
+int gru_l2head_split_cluster_launch(int s8, const void* prev_f,
+                                    const void* prev_b, const int* lengths,
+                                    const void* w_in, const float* rowc,
+                                    const void* w_hh, const void* w_head,
+                                    float* lg_f, float* lg_b, int T, int B,
+                                    int H, int ncls, int C, int BT, int mode,
+                                    void* stream) {
+  const SplitArgs a = l2_args(prev_f, prev_b, lengths, w_in, rowc, w_hh,
+                              w_head, lg_f, lg_b, T, B, H, ncls, C, BT);
+  return s8 ? split_launch<true, true>(a, mode, stream)
+            : split_launch<true, false>(a, mode, stream);
 }
 
-// --- bf16: the per-block recurrence ----------------------------------------
-
-size_t gru_l1_split_smem(int bt, int in_features, int hidden) {
-  return l1_smem_bytes(bt, in_features, hidden);
-}
+// --- bf16 layer 2 where no cluster holds its slices: the per-block kernel --
 
 size_t gru_l2head_split_smem(int cpt, int nq, int hidden, int ncls) {
   return l2_smem_bytes(cpt * nq, hidden, hidden * nq, cpt, head_regs(ncls));
-}
-
-int gru_l1_split_launch(const void* x, const int* lengths, const void* w_ih_t,
-                        const float* b_ih, const void* w_hh, const float* b_hh,
-                        void* out_f, void* out_b, int T, int B, int IN, int H,
-                        int cpt, int nq, int mode, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      mode == MODE_T
-          ? dispatch_l1<MODE_T>(cpt, x, lengths, w_ih_t, b_ih, w_hh, b_hh,
-                                out_f, out_b, T, B, IN, H, nq, s)
-          : dispatch_l1<MODE_ROWS>(cpt, x, lengths, w_ih_t, b_ih, w_hh, b_hh,
-                                   out_f, out_b, T, B, IN, H, nq, s);
-  return static_cast<int>(e);
 }
 
 int gru_l2head_split_launch(const void* prev_f, const void* prev_b,

@@ -11,13 +11,18 @@ numerics mode:
   reproduces ``bigru_l2head_t`` and ``"rows"`` reproduces
   ``bigru_l2head``.
 
-With int8 quantisation (the default) both kernels run thread-block
-clusters whose blocks keep their units' rows of every weight in shared
-memory and run the step's products on the tensor cores (``mma.sync``
-int8); :func:`geometry` chooses the cluster size and the columns a
-cluster (``rnn_cluster.SPLIT``), and :func:`l1_operands` /
-:func:`l2_operands` cut the weights into the kernels' slices.
-``quant=False`` runs the bf16 per-block kernels on the CUDA cores.
+Both kernels run thread-block clusters whose blocks keep their units'
+rows of every weight in shared memory. With int8 quantisation (the
+default) the step's products run on the tensor cores (``mma.sync`` int8,
+exact); where ``quant=False`` they run on the CUDA cores as f32 fmaf
+chains in the plain version's order, bf16 slices in shared memory.
+:func:`geometry` chooses the cluster
+size and the columns a cluster (``rnn_cluster.SPLIT`` and
+``SPLIT_BF16``), and :func:`l1_operands` / :func:`l2_operands` cut the
+weights into the kernels' slices. One shape has no cluster: bf16 layer 2
+where its W_hh and W_ih slices outgrow a block at every cluster size (H=384
+and 512), which runs the per-block kernel on the CUDA cores
+(:func:`l2_route`).
 
 The modes differ in arithmetic, not layout. ``"t"`` keeps the layer
 input projections in f32, runs the quantised gates in bf16 tanh form and
@@ -50,9 +55,6 @@ MODE_LAUNCHES: Dict[str, int] = {
 #: batch size from which the "t" numerics are used (the TPU layout
 #: crossover of ``pallas_gru.bigru_head_fullfused``)
 T_MODE_MIN_BATCH = 192
-#: input values of a step each thread of the bf16 layer 1 stages at most
-#: (``L1_XPT``): CPT x IN <= 4 H
-BF16_L1_XPT = 4
 
 
 def reset_launches():
@@ -220,31 +222,31 @@ def gru_l2head_split_plain(prev_f, prev_b, lengths, w_in, in_scale, b_ih,
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
-#: kernel of each kind of the int8 cluster geometry
+#: kernel of each kind of the cluster geometry
 _KERNELS = {"l1": "gru_l1_split", "l2": "gru_l2head_split"}
+#: the cluster layout of each numerics: int8 (``quant``) or bf16
+_LAYOUTS = {True: rnn_cluster.SPLIT, False: rnn_cluster.SPLIT_BF16}
 
 
 def build():
     """Compile (if needed) and load the kernel library; returns it."""
     lib = cuda_build.load_library("gru_split.cu")
     if not getattr(lib, "_medaka_typed", False):
-        lib.gru_l1_split_s8_launch.argtypes = (
-            [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP])
-        lib.gru_l1_split_s8_launch.restype = _INT
-        lib.gru_l2head_split_s8_launch.argtypes = (
-            [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP])
-        lib.gru_l2head_split_s8_launch.restype = _INT
-        lib.gru_split_s8_smem.argtypes = [_INT] * 6
-        lib.gru_split_s8_smem.restype = ctypes.c_size_t
-        lib.gru_split_s8_max_clusters.argtypes = [_INT] * 7
-        lib.gru_split_s8_max_clusters.restype = _INT
-        lib.gru_l1_split_launch.argtypes = [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP]
-        lib.gru_l1_split_launch.restype = _INT
+        # the cluster kernels' functions take the numerics first: int8
+        # (s8 = 1) or bf16 (0)
+        lib.gru_l1_split_cluster_launch.argtypes = (
+            [_INT] + [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP])
+        lib.gru_l1_split_cluster_launch.restype = _INT
+        lib.gru_l2head_split_cluster_launch.argtypes = (
+            [_INT] + [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP])
+        lib.gru_l2head_split_cluster_launch.restype = _INT
+        lib.gru_split_smem.argtypes = [_INT] * 7
+        lib.gru_split_smem.restype = ctypes.c_size_t
+        lib.gru_split_max_clusters.argtypes = [_INT] * 8
+        lib.gru_split_max_clusters.restype = _INT
         lib.gru_l2head_split_launch.argtypes = (
             [_VOIDP] * 10 + [_INT] * 7 + [_VOIDP])
         lib.gru_l2head_split_launch.restype = _INT
-        lib.gru_l1_split_smem.argtypes = [_INT] * 3
-        lib.gru_l1_split_smem.restype = ctypes.c_size_t
         lib.gru_l2head_split_smem.argtypes = [_INT] * 4
         lib.gru_l2head_split_smem.restype = ctypes.c_size_t
         lib.gru_split_error_string.argtypes = [_INT]
@@ -260,30 +262,43 @@ def _check(lib, err: int, name: str):
 
 
 def geometry(kind: str, H: int, B: int, dev, mode: str = "t",
-             inputs: int = 0, classes: int = rnn_cluster.DEFAULT_CLASSES
-             ) -> Tuple[int, int, int, int]:
-    """(C, BT, shared memory bytes, resident clusters) with which the int8
-    mode of ``gru_l1_split`` (kind "l1", ``inputs`` features) or
-    ``gru_l2head_split`` ("l2", ``classes`` head classes) launches at
-    hidden size H and batch B on CUDA device ``dev``: both directions'
-    clusters in one grid (:func:`rnn_cluster.choose_geometry` with the
-    ``SPLIT`` layout); raises, naming the kernel and the geometry, when no
-    cluster can be resident."""
+             inputs: int = 0, classes: int = rnn_cluster.DEFAULT_CLASSES,
+             quant: bool = True) -> Tuple[int, int, int, int]:
+    """(C, BT, shared memory bytes, resident clusters) with which the
+    int8 (``quant``) or bf16 cluster kernel of ``gru_l1_split`` (kind "l1",
+    ``inputs`` features) or ``gru_l2head_split`` ("l2", ``classes`` head
+    classes) launches at hidden size H and batch B on CUDA device ``dev``:
+    both directions' clusters in one grid
+    (:func:`rnn_cluster.choose_geometry` with the ``SPLIT`` or
+    ``SPLIT_BF16`` layout); raises, naming the kernel, its mode and the
+    geometry, when no cluster size fits or no cluster can be resident."""
     lib = build()
     name = _KERNELS[kind]
 
     def query(cluster, columns):
-        n = lib.gru_split_s8_max_clusters(int(kind == "l2"), MODES[mode],
-                                          cluster, columns, H, inputs,
-                                          classes)
+        n = lib.gru_split_max_clusters(int(quant), int(kind == "l2"),
+                                       MODES[mode], cluster, columns, H,
+                                       inputs, classes)
         if n < 0:
             _check(lib, -n, name)
         return n
 
     return rnn_cluster.geometry(
-        rnn_cluster.SPLIT, kind, H, B, dev, query, cuda_build.SMEM_LIMIT,
-        "{}/{}".format(name, mode), directions=2, inputs=inputs,
-        classes=classes)
+        _LAYOUTS[quant], kind, H, B, dev, query, cuda_build.SMEM_LIMIT,
+        "{}/{}".format(name, mode) + ("" if quant else "/bf16"),
+        directions=2, inputs=inputs, classes=classes)
+
+
+def l2_route(H: int, classes: int, quant: bool) -> str:
+    """The kernel that runs layer 2 at hidden size H with ``classes`` head
+    classes: "cluster", or "per-block" for bf16 where no cluster size holds
+    a block's W_hh and W_ih slices (H=384 and 512), decided from the shape
+    alone."""
+    if quant or rnn_cluster.fitting_clusters(
+            rnn_cluster.SPLIT_BF16, "l2", H, cuda_build.SMEM_LIMIT,
+            classes=classes):
+        return "cluster"
+    return "per-block"
 
 
 def wave_batch(H: int, inputs: int, dev, limit: int, step: int = 32,
@@ -310,16 +325,17 @@ def _row_constants(cluster, *rows):
         for v in rows], dim=1) for d in range(2)]).contiguous()
 
 
-def _slices(w, cluster, fn):
-    return torch.stack([fn(rnn_cluster.SPLIT, v, cluster) for v in w])
+def _slices(w, cluster, fn, quant=True):
+    return torch.stack([fn(_LAYOUTS[quant], v, cluster) for v in w])
 
 
-def l1_operands(x, w_ih, b_ih, w_hh, hh_scale, b_hh, cluster):
-    """Layer 1's operands as the int8 kernel reads them on clusters of
-    ``cluster`` blocks (every weight in the slices' row order):
-    x (T, B, IN padded to 8) bf16, w_ih (2, C, 3U, IN rounded up to even)
-    bf16, w_hh (2, C, 3U, Hp) int8, rowc (2, C, 3, 3U) f32 (hh_scale, b_hh,
-    b_ih); the padding is zeros."""
+def l1_operands(x, w_ih, b_ih, w_hh, hh_scale, b_hh, cluster,
+                quant: bool = True):
+    """Layer 1's operands as the int8 (``quant``) or bf16 cluster kernel
+    reads them on clusters of ``cluster`` blocks (every weight in the
+    slices' row order): x (T, B, IN padded to 8) bf16, w_ih (2, C, 3U, IN
+    rounded up to even) bf16, w_hh (2, C, 3U, Hp) int8 or bf16, rowc (2,
+    C, 3, 3U) f32 (hh_scale, b_hh, b_ih); the padding is zeros."""
     IN = x.shape[-1]
     pad = torch.nn.functional.pad
     return {
@@ -328,27 +344,29 @@ def l1_operands(x, w_ih, b_ih, w_hh, hh_scale, b_hh, cluster):
         # rows of 32-bit feature pairs
         "w_ih": pad(_slices(w_ih.to(torch.bfloat16), cluster,
                             rnn_cluster.row_slices), (0, IN % 2)).contiguous(),
-        "w_hh": _slices(w_hh, cluster, rnn_cluster.w_slices),
+        "w_hh": _slices(w_hh, cluster, rnn_cluster.w_slices, quant),
         "rowc": _row_constants(cluster, hh_scale, b_hh, b_ih)}
 
 
 def l2_operands(w_in, in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
-                cluster):
-    """Layer 2's operands as the int8 kernel reads them on clusters of
-    ``cluster`` blocks: w_in (2, C, 3U, 2H) int8, w_hh (2, C, 3U, Hp)
-    int8, rowc (2, C, 5, 3U) f32 (hh_scale, b_hh, b_ih, the halves' input
-    scales), w_head (2, C, 16 HT, U) bf16 (W_head^T in HT =
-    ``rnn_cluster.head_tiles`` m16 tiles: row k is class k of unit j = r U
-    + u of block r; classes past C and padded units zero)."""
+                cluster, quant: bool = True):
+    """Layer 2's operands as the int8 (``quant``) or bf16 cluster kernel
+    reads them on clusters of ``cluster`` blocks: w_in (2, C, 3U, 2H) and
+    w_hh (2, C, 3U, Hp), int8 or bf16, rowc (2, C, 5, 3U) f32 (hh_scale,
+    b_hh, b_ih, the halves' input scales), w_head (2, C, 16 HT, U) bf16
+    (W_head^T in HT = ``rnn_cluster.head_tiles`` m16 tiles: row k is class
+    k of unit j = r U + u of block r; classes past C and padded units
+    zero)."""
     H = w_hh.shape[-1]
-    U = rnn_cluster.units_per_block(rnn_cluster.SPLIT, H, cluster)
+    U = rnn_cluster.units_per_block(_LAYOUTS[quant], H, cluster)
     rows = 16 * rnn_cluster.head_tiles(w_head.shape[1])
     wh = torch.zeros((2, rows, cluster * U), dtype=torch.bfloat16,
                      device=w_head.device)
     wh[:, :w_head.shape[1], :H] = w_head.to(torch.bfloat16)
+    wdt = torch.int8 if quant else torch.bfloat16
     return {
-        "w_in": _slices(w_in, cluster, rnn_cluster.row_slices),
-        "w_hh": _slices(w_hh, cluster, rnn_cluster.w_slices),
+        "w_in": _slices(w_in.to(wdt), cluster, rnn_cluster.row_slices),
+        "w_hh": _slices(w_hh, cluster, rnn_cluster.w_slices, quant),
         "rowc": _row_constants(cluster, hh_scale, b_hh, b_ih,
                                in_scale[:, 0], in_scale[:, 1]),
         "w_head": wh.reshape(2, rows, cluster, U).transpose(1, 2)
@@ -361,8 +379,9 @@ def _stream(t):
 
 def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant,
                cluster=None):
-    """Launch layer 1; ``cluster`` = (C, BT) replaces the int8 geometry
-    :func:`geometry` chooses (``chip_ab.py`` times another one)."""
+    """Launch layer 1's int8 (``quant``) or bf16 cluster kernel;
+    ``cluster`` = (C, BT) replaces the geometry :func:`geometry` chooses
+    (``chip_ab.py`` times others)."""
     T, B, IN = x.shape
     H = w_hh.shape[-1]
     G3 = 3 * H
@@ -378,33 +397,14 @@ def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant,
         return out_f, out_b
     lib = build()
     lengths = lengths.to(torch.int32).contiguous()
-    if quant:
-        C, BT = cluster or geometry("l1", H, B, x.device, mode, IN)[:2]
-        op = l1_operands(x, w_ih, b_ih, w_hh, hh_scale, b_hh, C)
-        err = lib.gru_l1_split_s8_launch(
-            op["x"].data_ptr(), lengths.data_ptr(), op["w_ih"].data_ptr(),
-            op["rowc"].data_ptr(), op["w_hh"].data_ptr(), out_f.data_ptr(),
-            out_b.data_ptr(), T, B, IN, H, C, BT, MODES[mode], _stream(x))
-    else:
-        cpt, nq = cuda_build.tile_shape(B, cuda_build.sm_count(x.device))
-        while nq * H > 512:
-            nq //= 2
-        if cpt * IN > BF16_L1_XPT * H:
-            raise ValueError("gru_l1_split: {} input features exceed the "
-                             "tile's loader threads".format(IN))
-        smem = lib.gru_l1_split_smem(cpt * nq, IN, H)
-        if smem > cuda_build.SMEM_LIMIT:
-            raise ValueError("gru_l1_split: needs {} bytes of shared memory "
-                             "(limit {})".format(smem, cuda_build.SMEM_LIMIT))
-        x = x.to(torch.bfloat16).contiguous()
-        w_ih_t = w_ih.to(torch.bfloat16).transpose(1, 2).contiguous()
-        w_hh_il = cuda_build.interleave_chunks(w_hh.contiguous())
-        b_ih, b_hh = [t.float().contiguous() for t in (b_ih, b_hh)]
-        err = lib.gru_l1_split_launch(
-            x.data_ptr(), lengths.data_ptr(), w_ih_t.data_ptr(),
-            b_ih.data_ptr(), w_hh_il.data_ptr(), b_hh.data_ptr(),
-            out_f.data_ptr(), out_b.data_ptr(), T, B, IN, H, cpt, nq,
-            MODES[mode], _stream(x))
+    C, BT = cluster or geometry("l1", H, B, x.device, mode, IN,
+                                quant=quant)[:2]
+    op = l1_operands(x, w_ih, b_ih, w_hh, hh_scale, b_hh, C, quant)
+    err = lib.gru_l1_split_cluster_launch(
+        int(quant), op["x"].data_ptr(), lengths.data_ptr(),
+        op["w_ih"].data_ptr(), op["rowc"].data_ptr(), op["w_hh"].data_ptr(),
+        out_f.data_ptr(), out_b.data_ptr(), T, B, IN, H, C, BT, MODES[mode],
+        _stream(x))
     _check(lib, err, "gru_l1_split")
     LAUNCHES["gru_l1_split"] += 1
     MODE_LAUNCHES["gru_l1_split/" + mode] += 1
@@ -412,7 +412,10 @@ def _launch_l1(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh, mode, quant,
 
 
 def _launch_l2(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
-               hh_scale, b_hh, w_head, mode, quant):
+               hh_scale, b_hh, w_head, mode, quant, cluster=None):
+    """Launch layer 2 + head: the int8 (``quant``) or bf16 cluster kernel,
+    or the per-block kernel where :func:`l2_route` says so; ``cluster`` =
+    (C, BT) replaces the cluster geometry :func:`geometry` chooses."""
     T, B, H = prev_f.shape
     C = w_head.shape[1]
     G3 = 3 * H
@@ -434,13 +437,14 @@ def _launch_l2(prev_f, prev_b, lengths, w_in, in_scale, b_ih, w_hh,
     prev_f = prev_f.contiguous()
     prev_b = prev_b.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    if quant:
-        cl, BT = geometry("l2", H, B, prev_f.device, mode, classes=C)[:2]
+    if l2_route(H, C, quant) == "cluster":
+        cl, BT = cluster or geometry("l2", H, B, prev_f.device, mode,
+                                     classes=C, quant=quant)[:2]
         op = l2_operands(w_in, in_scale, b_ih, w_hh, hh_scale, b_hh, w_head,
-                         cl)
-        err = lib.gru_l2head_split_s8_launch(
-            prev_f.data_ptr(), prev_b.data_ptr(), lengths.data_ptr(),
-            op["w_in"].data_ptr(), op["rowc"].data_ptr(),
+                         cl, quant)
+        err = lib.gru_l2head_split_cluster_launch(
+            int(quant), prev_f.data_ptr(), prev_b.data_ptr(),
+            lengths.data_ptr(), op["w_in"].data_ptr(), op["rowc"].data_ptr(),
             op["w_hh"].data_ptr(), op["w_head"].data_ptr(), lg_f.data_ptr(),
             lg_b.data_ptr(), T, B, H, C, cl, BT, MODES[mode],
             _stream(prev_f))

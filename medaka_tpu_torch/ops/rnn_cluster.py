@@ -10,10 +10,11 @@ hidden units of W_hh in shared memory for the whole walk. A
 warp's unit group holds; everything here is pure Python, mirrors the
 kernels' byte counts, and is tested on the CPU.
 
-The split kernels' int8 mode (``csrc/gru_split.cu``: ``gru_l1_split``
-kind "l1", ``gru_l2head_split`` kind "l2") runs the same cluster design
-with int8 weights, blocks of up to 256 units and larger clusters where
-they buy one wave (:data:`SPLIT`); ``bigru_fullfused_int8`` runs the GRU
+The split kernels (``csrc/gru_split.cu``: ``gru_l1_split`` kind "l1",
+``gru_l2head_split`` kind "l2") run the same cluster design with blocks of
+up to 256 units and larger clusters where they buy one wave, with int8
+weights (:data:`SPLIT`) or, where ``quant=False``, bf16 ones
+(:data:`SPLIT_BF16`); ``bigru_fullfused_int8`` runs the GRU
 forward with int8 weights in the same row order (:data:`GRU_INT8`), the
 bf16-gates mode of ``bigru_fullfused`` with bf16 weights widened to f64 on
 the FP64 tensor cores (:data:`GRU_BF16G`).
@@ -67,6 +68,12 @@ class Layout(NamedTuple):
     #: (its units times the padded H), least first, each as ``widen``
     #: tries them; else the smallest first
     least_work: bool = False
+    #: where a cluster of 2 or more blocks runs the batch in one wave at
+    #: the smallest tile, double it while a block keeps this many units at
+    #: least, the wider blocks fit what the card holds at the narrower
+    #: geometry (SMs that would idle) and the wider clusters still run in
+    #: one wave; 0: never
+    spread_units: int = 0
 
 
 #: gates i, f, g, o; 8-unit groups: rows q*32 + g*8 + u
@@ -78,6 +85,16 @@ GRU = Layout(gates=3, group=16, cell=False)
 #: at H <= 256 in layer 1) and 64 columns a cluster
 SPLIT = Layout(gates=3, group=16, cell=False, wbytes=1, max_units=256,
                tiles=(8, 16, 32, 64), widen=True)
+#: the split kernels' bf16 mode (``quant=False``): SPLIT's rows and tiles
+#: with bf16 slices and h, twice the bytes a row (clusters of 2 in layer 1
+#: and 8 in layer 2 at H=256), 256 threads a block at most in both layers
+#: (a thread's f32 chains keep their sums in registers), and one n8 tile a
+#: warp in layer 2 (twice the warps: 494.7 ms against 650.4 with two
+#: tiles at B=480 on an H100, PERF.md). Small batches spread to 64 units
+#: a block: layer 1 at H=256 and B <= 128 on clusters of 4, 8 columns
+#: (66 ms against 95.5 on clusters of 2 at B=1-64, T=10000; 8 and 16
+#: blocks gain nothing more; PERF.md)
+SPLIT_BF16 = SPLIT._replace(wbytes=2, max_threads=256, spread_units=64)
 #: the int8 GRU forward of ``bigru_fullfused_int8`` (``csrc/gru_rec.cuh``,
 #: NUM_INT8): SPLIT's rows and int8 slices, 256 threads a block at most
 #: (each warp keeps its rows of W_hh in registers). At most 32 units a
@@ -107,11 +124,15 @@ def _align16(v: int) -> int:
     return (v + 15) & ~15
 
 
-def threads(layout: Layout, hidden: int, cluster: int, columns: int) -> int:
-    """Threads of a block: a warp for each unit group and 8 (BT=8) or 16
-    columns."""
+def threads(layout: Layout, hidden: int, cluster: int, columns: int,
+            kind: str = "") -> int:
+    """Threads of a block: a warp for each unit group and 16 columns, or 8
+    (BT=8, and bf16 layer 2: kind "l2" with 2-byte weights, as
+    ``SplitGeo`` in ``csrc/gru_split.cu`` sets it)."""
     warps = units_per_block(layout, hidden, cluster) // layout.group
-    return 32 * warps * (columns // min(columns, 16))
+    one_tile = kind == "l2" and layout.wbytes == 2
+    tile = 8 if one_tile else min(columns, 16)
+    return 32 * warps * (columns // tile)
 
 
 def gate_split(layout: Layout, hidden: int, cluster: int,
@@ -201,10 +222,11 @@ def smem_bytes(layout: Layout, kind: str, cluster: int, columns: int,
 def _split_smem_bytes(layout, kind, cluster, columns, hidden, inputs,
                       classes, U):
     rows = layout.gates * U
-    ldh = cluster * U + 16       # padded int8 row of W_hh and of h
-    ldi = 2 * hidden + 16        # padded int8 row of W_ih and the input
+    wb = layout.wbytes
+    ldh = wb * cluster * U + 16  # padded row (bytes) of W_hh and of h
+    ldi = 2 * wb * hidden + 16   # padded row of W_ih and the input
     nbytes = (_align16(rows * ldh) + _align16(2 * columns * ldh)
-              + (_align16(columns * U) if cluster > 1 else 0))
+              + (_align16(columns * U * wb) if cluster > 1 else 0))
     if kind == "l1":
         # bf16 W_ih [3U][IN rounded up to even] and x [2][BT][IN padded
         # to 8]
@@ -212,16 +234,41 @@ def _split_smem_bytes(layout, kind, cluster, columns, hidden, inputs,
         padded = -(-inputs // 8) * 8
         return (nbytes + _align16(rows * even * 2)
                 + _align16(2 * columns * padded * 2))
-    # int8 W_ih slice, [prev_f; prev_b] x 2, the head's bf16 operands
-    # (bf16(h) x 2 and W_head^T, 16 rows a tile, of U + 8) and the blocks'
-    # f32 partial logits of the block's ceil(BT / C) columns, head_slot
-    # of them a column
+    # W_ih slice, [prev_f; prev_b] x 2 (int8) or x 1 (bf16), the head's
+    # bf16 operands (bf16(h) x 2 and W_head^T, 16 rows a tile, of U + 8)
+    # and the blocks' f32 partial logits of the block's ceil(BT / C)
+    # columns, head_slot of them a column
     share = -(-columns // cluster)
-    return (nbytes + _align16(rows * ldi) + _align16(2 * columns * ldi)
+    buffers = 2 if wb == 1 else 1
+    return (nbytes + _align16(rows * ldi)
+            + _align16(buffers * columns * ldi)
             + _align16((2 * columns + 16 * head_tiles(classes)) * (U + 8)
                        * 2)
             + (_align16(2 * cluster * share * head_slot(classes) * 4)
                if cluster > 1 else 0))
+
+
+def _fits(layout, kind, hidden, cluster, columns, smem_limit, inputs,
+          classes):
+    """A block of C=``cluster`` and BT=``columns`` holds at most
+    ``layout.max_units`` units, the kind's threads and ``smem_limit``
+    bytes."""
+    return (units_per_block(layout, hidden, cluster) <= layout.max_units
+            and threads(layout, hidden, cluster, columns, kind)
+            <= max_threads(kind, layout)
+            and smem_bytes(layout, kind, cluster, columns, hidden, inputs,
+                           classes) <= smem_limit)
+
+
+def fitting_clusters(layout: Layout, kind: str, hidden: int,
+                     smem_limit: int, inputs: int = 0,
+                     classes: int = DEFAULT_CLASSES):
+    """The cluster sizes whose blocks fit at the layout's smallest tile,
+    in the order tried; empty where none does (a shape the kernel cannot
+    run)."""
+    return [c for c in CLUSTER_SIZES
+            if _fits(layout, kind, hidden, c, layout.tiles[0], smem_limit,
+                     inputs, classes)]
 
 
 def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
@@ -240,7 +287,8 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
     cluster sizes are tried the same way, in order, before that fallback;
     where it asks for ``least_work``, the cluster sizes are taken in order
     of a block's share of the step's product (its units times the padded
-    H), least first.
+    H), least first; where it sets ``spread_units``, a small batch's
+    one-wave geometry takes larger clusters as that field says.
     ``max_clusters(C, BT, smem)`` is how many clusters the card holds at
     once (``cudaOccupancyMaxActiveClusters``; about the SM count over C); a
     value below 1 raises, naming ``name`` (the kernel) and the geometry.
@@ -252,19 +300,35 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
                          "most 512".format(hidden))
 
     def fits(cluster, columns):
-        return (units_per_block(layout, hidden, cluster) <= layout.max_units
-                and threads(layout, hidden, cluster, columns)
-                <= max_threads(kind, layout)
-                and smem_bytes(layout, kind, cluster, columns, hidden,
-                               inputs, classes) <= smem_limit)
+        return _fits(layout, kind, hidden, cluster, columns, smem_limit,
+                     inputs, classes)
 
-    clusters = [c for c in CLUSTER_SIZES if fits(c, layout.tiles[0])]
+    def spread(choice, resident):
+        cluster, columns, smem = choice
+        tiles = directions * -(-batch // columns)
+        while (layout.spread_units and cluster > 1
+               and columns == layout.tiles[0]
+               and 2 * cluster in CLUSTER_SIZES
+               and units_per_block(layout, hidden, 2 * cluster)
+               >= layout.spread_units
+               and tiles * 2 * cluster <= resident * cluster
+               and fits(2 * cluster, columns)):
+            wider = smem_bytes(layout, kind, 2 * cluster, columns, hidden,
+                               inputs, classes)
+            wide_resident = max_clusters(2 * cluster, columns, wider)
+            if tiles > wide_resident:
+                break
+            cluster, smem, resident = 2 * cluster, wider, wide_resident
+        return cluster, columns, smem
+
+    clusters = fitting_clusters(layout, kind, hidden, smem_limit, inputs,
+                                classes)
     if layout.least_work:
         clusters.sort(key=lambda c: (
             c * units_per_block(layout, hidden, c) ** 2, c))
     if not clusters:
-        raise ValueError("no cluster size fits H={} in {} bytes of shared "
-                         "memory".format(hidden, smem_limit))
+        raise ValueError("{}: no cluster size fits H={} in {} bytes of "
+                         "shared memory".format(name, hidden, smem_limit))
     fallback = None
     for cluster in clusters if layout.widen else clusters[:1]:
         best = None
@@ -282,7 +346,7 @@ def choose_geometry(layout: Layout, kind: str, hidden: int, batch: int,
                         name, cluster, columns, smem, resident))
             best = (cluster, columns, smem)
             if directions * -(-batch // columns) <= resident:
-                return best
+                return spread(best, resident)
         fallback = fallback or best
     return fallback
 

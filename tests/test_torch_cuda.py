@@ -144,9 +144,8 @@ def test_rle_split_kernels_match_plain(device, mode, batch, quant):
     """Both kernels at the run-length bundle's shapes (``gru256_rle_demo``:
     120 input features, 49 classes) against their plain versions, the
     same bars: layer 1's W_ih no longer fits one block beside W_hh, so
-    the int8 layer 1 runs on clusters of 2 or more; the head is four m16
-    tiles of W_head^T in the int8 layer 2 and W_head read through L1 in
-    the bf16 one."""
+    the int8 layer 1 runs on clusters of 2 or more (bf16: 4); the head is
+    four m16 tiles of W_head^T in both layer-2 kernels."""
     _check_split_kernels(device, 256, 200, batch, mode, quant, 11, 49, 120)
 
 
@@ -184,29 +183,92 @@ def test_wide_split_kernels_match_plain(device, H, batch, mode):
     _check_split_kernels(device, H, 64, batch, mode, True, H + batch)
 
 
+@pytest.mark.parametrize("mode", ["t", "rows"])
+@pytest.mark.parametrize("batch", [32, 200])
+@pytest.mark.parametrize("H", [384, 512])
+def test_wide_bf16_split_kernels_match_plain(device, H, batch, mode):
+    """The bf16 (``quant=False``) split kernels at H=384 and 512: layer 1
+    on clusters (of 8 or 16), layer 2 on the per-block kernel, whose bf16
+    W_hh and W_ih slices fit no cluster. The bars of H=256, bit for bit
+    on repeat."""
+    _check_split_kernels(device, H, 64, batch, mode, False, H + batch + 1)
+
+
+def _split_kernels_run(fn):
+    """The split kernels' names in a profile of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key.replace("(anonymous namespace)::", "")
+                   for e in prof.key_averages() if "split" in e.key})
+
+
+@pytest.mark.parametrize("H,per_block", [(256, False), (512, True)])
+def test_bf16_split_launches_run_the_cluster_kernels(device, H, per_block):
+    """A ``quant=False`` launch runs the bf16 cluster kernels
+    (``gru_l1_split_bf16_kernel``, ``gru_l2head_split_bf16_kernel``) and
+    no retired per-block kernel: the per-block layer 1 is gone, and the
+    per-block layer 2 (``gru_l2head_split_kernel``) runs only where no
+    cluster holds the slices (H=512)."""
+    w, xt, lens = _split_inputs(np.random.default_rng(H), H, 40, 64, "rows",
+                                False, device)
+    args1 = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+             w["b_hh1"])
+    out = {}
+    l1 = _split_kernels_run(lambda: out.update(
+        l1=gru_split.gru_l1_split(*args1, mode="rows", quant=False)))
+    args2 = out["l1"] + (lens, w["w_in2"], w["in_scale2"], w["b_ih2"],
+                         w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
+    l2 = _split_kernels_run(lambda: gru_split.gru_l2head_split(
+        *args2, mode="rows", quant=False))
+    print(H, l1, l2)
+    assert any(k.startswith(("gru_l1_split_bf16_kernel",
+                             "void gru_l1_split_bf16_kernel")) for k in l1)
+    assert not any("gru_l1_split_kernel" in k for k in l1 + l2)
+    assert not any("_s8_kernel" in k for k in l1 + l2)
+    assert any("gru_l2head_split_bf16_kernel" in k for k in l2) != per_block
+    assert any("gru_l2head_split_kernel" in k for k in l2) == per_block
+
+
+@pytest.mark.parametrize("quant", [True, False])
 @pytest.mark.parametrize("kind", ["l1", "l2"])
-def test_split_geometry_matches_the_kernels(device, kind):
+def test_split_geometry_matches_the_kernels(device, kind, quant):
     """The host's byte count equals the kernel's for every H and batch of
-    the split path, every geometry it picks is resident and runs, and the
-    int8 layer 1 at H=256 keeps all of W_hh in one block (C=1)."""
+    the split path, int8 and bf16, every geometry it picks is resident
+    and runs, the int8 layer 1 at H=256 keeps all of W_hh in one block
+    (C=1) at 512 and 480 rows, the bf16 layer 1 at H=256 runs 480 rows on
+    clusters of 2 and the bf16 layer 2 on clusters of 8, 32 columns; bf16
+    layer 2 at H=384 and 512 routes to the per-block kernel."""
     lib = gru_split.build()
     for H in (128, 256, 384, 512):
-        for B in (32, 64, 191, 192, 512):
+        for B in (32, 64, 191, 192, 480, 512):
             for mode in ("t", "rows"):
                 for inputs, classes in (((0, 5), (0, 15), (0, 49))
                                         if kind == "l2"
                                         else ((10, 5), (120, 5))):
+                    if kind == "l2" and gru_split.l2_route(
+                            H, classes, quant) == "per-block":
+                        assert not quant and H >= 384
+                        continue
                     C, BT, smem, resident = gru_split.geometry(
-                        kind, H, B, device, mode, inputs, classes)
-                    assert lib.gru_split_s8_smem(
-                        int(kind == "l2"), C, BT, H, inputs,
+                        kind, H, B, device, mode, inputs, classes,
+                        quant=quant)
+                    assert lib.gru_split_smem(
+                        int(quant), int(kind == "l2"), C, BT, H, inputs,
                         classes) == smem
                     assert smem <= cuda_build.SMEM_LIMIT and resident >= 1
-                    print(kind, H, B, mode, inputs, classes,
+                    print(kind, quant, H, B, mode, inputs, classes,
                           (C, BT, smem, resident))
-    if kind == "l1":
+    if kind == "l1" and quant:
         assert gru_split.geometry("l1", 256, 512, device, "t", 10)[:2] == (
             1, 8)
+    want = {("l1", True): (1, 8), ("l1", False): (2, 16),
+            ("l2", False): (8, 32)}.get((kind, quant))
+    if want:
+        assert gru_split.geometry(kind, 256, 480, device, "t",
+                                  10 * (kind == "l1"),
+                                  quant=quant)[:2] == want
 
 
 def test_wrapper_raises_on_bad_input(device):

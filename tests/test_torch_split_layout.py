@@ -167,16 +167,17 @@ def test_split_head_refuses_past_16_classes(classes):
 @pytest.fixture
 def fake_card(monkeypatch):
     """``gru_split.geometry`` against a stand-in kernel library whose
-    ``gru_split_s8_max_clusters`` gives ``resident["n"]``: no card, no
-    build."""
+    ``gru_split_max_clusters`` gives ``resident["n"]`` for the int8
+    kernels: no card, no build."""
     resident = {"n": 33, "calls": []}
 
-    def max_clusters(layer2, mode, C, BT, H, IN, classes):
+    def max_clusters(s8, layer2, mode, C, BT, H, IN, classes):
+        assert s8 == 1
         resident["calls"].append((layer2, mode, C, BT, H, IN, classes))
         return resident["n"]
 
     lib = types.SimpleNamespace(
-        gru_split_s8_max_clusters=max_clusters,
+        gru_split_max_clusters=max_clusters,
         gru_split_error_string=lambda err: b"invalid argument")
     monkeypatch.setattr(gru_split, "build", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device",

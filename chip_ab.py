@@ -35,8 +35,12 @@ B=128, T=1000, H=128 and over one column (on clusters of 1, 2 and 4
 blocks where the tree has the LSTM cluster forward). The fullfused
 layers are also run over inputs whose projections are exact in f32, so
 that the trees' recurrences see the same projections.
+bf16 ``gru_l2head_split`` at H=384 and 512 (the per-block kernel) is
+timed in mode "t" at B=192 and 480, T=1000.
 ``compare`` prints, for each output, whether every file holds the same
-bits as the first, the largest difference where not, and the train
+bits as the first that has it (a split-only run beside whole ones lacks
+the other kernels' outputs: null there), the largest difference where
+not, and the train
 steps' agreement and the times side by side; the bf16 split kernels'
 outputs (layer 1, and layer 2 on the plain layer 1's outputs, which are
 the same in every tree) must stay within the card's bars of the first
@@ -57,7 +61,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: cluster geometries (C, BT) of layer 1 and of layer 2 timed there beside
 #: the chooser's (H=256, T=10000)
 _SMALL = (((2, 8), (4, 8), (8, 8), (16, 8)), ((8, 8), (16, 8)))
-BF16_SWEEPS = {(480, "t"): (((4, 32),), ((8, 16),)),
+BF16_SWEEPS = {(480, "t"): (((4, 32),), ((8, 16), (16, 64))),
                (64, "rows"): _SMALL, (32, "rows"): _SMALL, (1, "t"): _SMALL}
 
 
@@ -335,7 +339,7 @@ def run(tree, out_path, seed, split_only=False):
             if hasattr(gru_split, "l2_route"):
                 # where the tree runs bf16 on clusters: geometries (C, BT)
                 # beside the chooser's, each held to the chooser's outputs
-                # (layer 1 bit for bit: every geometry sums in k order;
+                # (layer 1 bit for bit: every geometry's sums are exact;
                 # the logits differ by the head's sum over a cluster's
                 # blocks)
                 l1_cl, l2_cl = BF16_SWEEPS[B, mode]
@@ -364,6 +368,27 @@ def run(tree, out_path, seed, split_only=False):
                                       for g, r in zip(got, lg))
             del wb, b1, b2, fq, bq
         del xt, f, b, a1, a2
+    # bf16 layer 2 at H=384 and 512 (the per-block kernel where the tree
+    # routes these widths to it) in mode "t": at B=192 two columns a
+    # thread, at B=480 four
+    T = 1000
+    for H in (384, 512):
+        layers, head = cs.random_net(rng, hidden=H)
+        wb = gru_split.prepare_split_weights(layers, head, "t", False, dev)
+        for B in (192, 480):
+            xt = torch.from_numpy(rng.random((T, B, 10)).astype(
+                "float32")).to(dev, torch.bfloat16)
+            ln = torch.full((B,), T, dtype=torch.int32, device=dev)
+            fq, bq = gru_split.gru_l1_split(
+                xt, ln, wb["w_ih1"], wb["b_ih1"], wb["w_hh1"], wb["sc1"],
+                wb["b_hh1"], mode="t", quant=False)
+            b2 = (fq, bq, ln, wb["w_in2"], wb["in_scale2"], wb["b_ih2"],
+                  wb["w_hh2"], wb["sc2"], wb["b_hh2"], wb["w_head"])
+            timed("gru_l2head_split_bf16/H{}_B{}_T{}_t".format(H, B, T),
+                  lambda: gru_split.gru_l2head_split(*b2, mode="t",
+                                                     quant=False))
+            del xt, fq, bq, b2
+        del wb
     if geometries:
         print("   split geometries (C, BT, shared memory, resident "
               "clusters): {}".format(json.dumps(geometries)), flush=True)
@@ -385,16 +410,24 @@ def run(tree, out_path, seed, split_only=False):
 def compare(paths):
     import torch
     runs = [torch.load(p) for p in paths]
-    first = runs[0]["outputs"]
     report = {"runs": [{"file": p, "tree": r["tree"], "card": r["card"]}
                        for p, r in zip(paths, runs)],
               "outputs": {}, "times_ms": {},
               "train_step_vs_plain": [r["train_step"] for r in runs]}
-    for key, ref in first.items():
+    # a key missing from the first file (a whole run after a split-only
+    # one) is held to the first file that has it; null where a file lacks
+    # the key
+    refs = {}
+    for r in runs:
+        for key, value in r["outputs"].items():
+            refs.setdefault(key, (r, value))
+    for key, (holder, ref) in refs.items():
         row = []
         for r in runs[1:]:
-            got = r["outputs"][key]
-            if torch.equal(got, ref):
+            got = r["outputs"].get(key)
+            if got is None or r is holder:
+                row.append(None)
+            elif torch.equal(got, ref):
                 row.append("identical")
             else:
                 row.append((got.float() - ref.float()).abs().max().item())
@@ -406,7 +439,7 @@ def compare(paths):
     report["profiles_ms"] = [r.get("profiles", {}) for r in runs]
     report["bf16_sweeps"] = [r.get("bf16_sweeps", {}) for r in runs]
     differ = sorted(k for k, row in report["outputs"].items()
-                    if any(v != "identical" for v in row))
+                    if any(v not in ("identical", None) for v in row))
     print(json.dumps(report, indent=1))
     print("outputs that differ from the first file's: {}".format(
         json.dumps(differ)))
@@ -432,7 +465,7 @@ def compare(paths):
     # logits on the same (plain) layer-1 outputs 1e-3; the logits chained
     # on each tree's own layer 1 are reported above
     outside = []
-    for key, ref in first.items():
+    for key, (holder, ref) in refs.items():
         if "/False/l1" in key:
             most, mean = 2.0 ** -7, 1e-3
         elif key.startswith("gru_split_bf16/"):
@@ -440,6 +473,8 @@ def compare(paths):
         else:
             continue
         for r in runs[1:]:
+            if r is holder or key not in r["outputs"]:
+                continue
             diff = (r["outputs"][key].float() - ref.float()).abs()
             if diff.max().item() > most or (
                     mean is not None and diff.mean().item() > mean):

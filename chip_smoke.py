@@ -27,8 +27,9 @@ Phases, each of which fails the script when it fails:
    at full width (H=256, 10 features, 5 classes, T=2000, ragged lengths)
    in all four numerics combinations: mode "t" at B=256 and mode "rows"
    at B=64, each with int8 quantisation on and off, and against
-   themselves run again (bit for bit); in int8, layer 1 bit-identical to
-   its plain version; the same at 9, 15 (the diploid head) and 16 classes
+   themselves run again (bit for bit); layer 1 bit-identical to its plain
+   version (int8: exact int32 sums; bf16: exact f64 sums, rounded once);
+   the same at 9, 15 (the diploid head) and 16 classes
    over T=500; hold the bi-LSTM kernel (the LSTM cluster forward,
    both directions in one grid) against its plain version at H=128
    (B=128, T=1000) and H=384 (B=32, T=500), ragged lengths, random
@@ -43,7 +44,7 @@ Phases, each of which fails the script when it fails:
    on eight real chunks;
 7. at its shape (the automatic batch, the most rows at which both
    split kernels run in one wave), hold each split kernel against its
-   plain version (int8 layer 1 bit for bit) and itself run again, and
+   plain version (layer 1 bit for bit) and itself run again, and
    time it beside its plain version, its serial floor (one column), the
    cuDNN ``nn.GRU`` yardstick and its bound, at B=512 too, with each
    launch's geometry (cluster size, columns a cluster, shared memory,
@@ -53,13 +54,21 @@ Phases, each of which fails the script when it fails:
    same for mode "rows" on 64 rows; the bf16 split kernels
    (``quant=False``, the ``recurrent_quant="none"`` path: the bf16
    cluster kernels ``gru_l1_split_bf16_kernel`` and
-   ``gru_l2head_split_bf16_kernel``) at the automatic batch in mode "t":
-   each against its plain version (the bars of phase 3; the plain
-   version timed once), their time, serial floor, bound, cuDNN's layer
-   1, each launch's
-   geometry and microseconds a step, a profile of each launch, which must
-   show the bf16 cluster kernel and no per-block split kernel, and their
-   launches on one batch of that path; ``gru_l2head_split`` with a
+   ``gru_l2head_split_bf16_kernel``: f64 sums on the FP64 tensor cores)
+   at the automatic batch in mode "t" and on 32 and 64 rows in mode
+   "rows": each against its plain version (layer 1 bit for bit, the
+   logits within 1e-3; the plain version timed once), their time,
+   serial floor, bound (at the FP64 tensor cores' peak, beside the count
+   at the bf16 peak),
+   cuDNN's layer 1, each launch's geometry and microseconds a step, a
+   profile of each launch, which must show the bf16 cluster kernel and
+   no per-block split kernel, and their launches on one batch of that
+   path; bf16 layer 2 at H=384 and 512, where
+   ``GRUModel.forward(recurrent_quant="none")`` reaches the per-block
+   ``gru_l2head_split_kernel``: a random model's forward on
+   ``WIDE_BF16_B`` rows of ``WIDE_BF16_T`` steps (the per-block kernel
+   launched, its profile), layer 2 against its plain version, its time,
+   bound and the plain version's; ``gru_l2head_split`` with a
    15-class head on the same layer-1 outputs against its plain version,
    timed beside the 5-class launch (turns 5, 15, 15, 5) with its bound;
    then the variant paths (phase 20);
@@ -257,7 +266,7 @@ Phases, each of which fails the script when it fails:
     ``gru_l2head_split`` at
     H=128 against their plain versions at the automatic batch in mode "t"
     (int8, T=10000; bf16 over ``REF_CHECK_T`` steps) and on 64 rows in
-    mode "rows" (int8 and bf16), int8 layer 1 bit for bit, timed beside
+    mode "rows" (int8 and bf16), layer 1 bit for bit, timed beside
     their bounds, serial floors and cuDNN, with their geometry and
     ptxas's report (mode "rows" on 64 rows at T=10000 also beside its
     plain versions and cuDNN's layer 1 over those rows). Four ``kernels``
@@ -469,11 +478,18 @@ HEAD_CHECK_CLASSES = (9, 15, 16)
 FROM_READS_VARIANT_MB = 0.1
 HEAD_CHECK_T = 500
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 op/s,
-# bf16 flop/s, f32 flop/s outside the tensor cores
+# bf16 flop/s, f32 flop/s outside the tensor cores, f64 flop/s on the
+# FP64 tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_F64_TC = 67e12
+#: phase 7: rows and steps of bf16 layer 2 at H=384 and 512 (the
+#: per-block kernel: a time on the path that reaches it, cut from the
+#: main path's 480 x 10000 for the time limit)
+WIDE_BF16_B = 64
+WIDE_BF16_T = 1000
 # bi-LSTM kernel vs its plain version: the same operations, f32 sums of
 # the recurrent product in another order, which can move one bf16
 # rounding of h: one bf16 step for |h| < 1
@@ -740,10 +756,12 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
         raise AssertionError("the split kernels do not repeat bit for bit "
                              "(mode {}, quant {})".format(mode, quant))
     del rf, rb, rl_f, rl_b
-    # int8 layer 1: every sum is exact or in the plain version's order
-    if quant and l1_err != 0:
-        raise AssertionError("int8 gru_l1_split differs from its plain "
-                             "version: max {}".format(l1_err))
+    # layer 1: every sum is exact (int8, and bf16's f64 sums) or in the
+    # plain version's order
+    if l1_err != 0:
+        raise AssertionError("{} gru_l1_split differs from its plain "
+                             "version: max {}".format(
+                                 "int8" if quant else "bf16", l1_err))
     if l1_err > TOL_L1[quant] or l1_mean > TOL_L1_MEAN:
         raise AssertionError("gru_l1_split disagrees with its plain version:"
                              " max {} mean {}".format(l1_err, l1_mean))
@@ -752,7 +770,7 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
                              "version: max logit diff {}".format(l2_err))
     # the whole network, kernel path against plain path: layer 2's plain
     # version on layer 1's plain outputs, which is the run above where
-    # those equal the kernel's (int8 layer 1, checked exact)
+    # those equal the kernel's (layer 1, checked exact)
     if torch.equal(pf, kf) and torch.equal(pb, kb):
         pl_f, pl_b = ql_f, ql_b
     else:
@@ -774,7 +792,101 @@ def compare_kernels(gru_split, w, xt, lengths, mode, quant, plain_ms=None):
     return l1_err, l2_err, stats, (kf, kb)
 
 
-def bound(kind, B, H, IN, C, lengths_sum, quant=True):
+def wide_bf16_layer2(gru_split, dev, seed):
+    """bf16 layer 2 at H=384 and 512 on the path that reaches the
+    per-block ``gru_l2head_split_kernel``: a seeded random ``GRUModel``'s
+    forward with ``recurrent_quant="none"`` on ``WIDE_BF16_B`` ragged rows
+    of ``WIDE_BF16_T`` steps (the profile must show that kernel after the
+    bf16 layer-1 cluster kernel, and no layer-2 cluster kernel), then layer
+    2 on layer 1's outputs against its plain version: the logits within
+    ``TOL_LOGIT``, and layer 2's h bit for bit through a one-hot head
+    (class k picks unit k H // C of each direction, so its logits are
+    bf16(h) exactly); its time, launches, bound and the plain version's
+    time. Returns {"H<H>": record}."""
+    import numpy as np
+    import torch
+    from medaka_tpu_torch.models.gru import GRUModel
+    rng = np.random.default_rng(seed)
+    B, T, C = WIDE_BF16_B, WIDE_BF16_T, 5
+    mode = gru_split.split_mode(B)
+    want = (SPLIT_BF16_KERNEL_OF["gru_l1_split"], PER_BLOCK_SPLIT_KERNELS[1])
+    refuse = (SPLIT_BF16_KERNEL_OF["gru_l2head_split"],) + SPLIT_KERNELS
+    out = {}
+    for H in (384, 512):
+        torch.manual_seed(seed + H)
+        model = GRUModel(num_features=10, num_classes=C, gru_size=H).to(dev)
+        model.eval()
+        x = torch.from_numpy(rng.random((B, T, 10)).astype("float32")).to(
+            dev)
+        lens = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype(
+            "int32"))
+        lens[0] = T
+        lens = lens.to(dev)
+        rec = {"B": B, "T": T, "mode": mode,
+               "route": gru_split.l2_route(H, C, False)}
+        with torch.inference_mode():
+            def forward():
+                model(x, lengths=lens, compute_dtype=torch.bfloat16,
+                      recurrent_quant="none")
+            gru_split.reset_launches()
+            forward()
+            torch.cuda.synchronize()
+            rec["launches"] = gru_split.LAUNCHES["gru_l2head_split"]
+            for attempt in range(3):
+                by_kernel = kernels_ms(forward)
+                if trace_verdict(by_kernel, (want, refuse)) in ("ok",
+                                                                "refused"):
+                    break
+                log_lost_trace("bf16 layer 2 H={}".format(H), by_kernel,
+                               attempt)
+            check_cluster_forward("bf16 layer 2 at H={}".format(H),
+                                  by_kernel, (want, refuse))
+            rec["profile_ms"] = {k: v for k, v in by_kernel.items()
+                                 if "split" in k}
+            w = gru_split.prepare_split_weights(
+                model.layer_params(), model.head_params(), mode, False, dev)
+            xt = x.transpose(0, 1).to(torch.bfloat16).contiguous()
+            kf, kb = gru_split.gru_l1_split(
+                xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+                w["b_hh1"], mode=mode, quant=False)
+            args = [kf, kb, lens, w["w_in2"], w["in_scale2"], w["b_ih2"],
+                    w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"]]
+            valid = (torch.arange(T, device=dev)[None, :]
+                     < lens[:, None].long())
+            rec.update(plain_agreement(
+                lambda: gru_split.gru_l2head_split(*args, mode=mode,
+                                                   quant=False),
+                lambda: gru_split.gru_l2head_split_plain(
+                    *args, mode=mode, quant=False), valid))
+            one_hot = torch.zeros_like(w["w_head"])
+            one_hot[:, torch.arange(C), torch.arange(C) * H // C] = 1.0
+            args[-1] = one_hot
+            got = gru_split.gru_l2head_split(*args, mode=mode, quant=False)
+            ref = gru_split.gru_l2head_split_plain(*args, mode=mode,
+                                                   quant=False)
+            rec["h_bit_for_bit"] = all(torch.equal(a, b)
+                                       for a, b in zip(got, ref))
+            del got, ref
+            args[-1] = w["w_head"]
+            rec["ms"] = cuda_ms(lambda: gru_split.gru_l2head_split(
+                *args, mode=mode, quant=False))
+            rec["bound_ms"], rec["bound_by"] = bound(
+                "gru_l2head_split", B, H, 0, C, int(lens.sum()),
+                quant=False)
+            rec["step_us"] = rec["ms"] / T * 1e3
+        log("   bf16 layer 2 at H={} ({} route): {}".format(
+            H, rec["route"], json.dumps(rec)))
+        if (rec["route"] != "per-block" or rec["launches"] < 1
+                or rec["max_abs_err"] > TOL_LOGIT
+                or not rec["h_bit_for_bit"]):
+            raise AssertionError("bf16 layer 2 at H={}: {}".format(H, rec))
+        out["H{}".format(H)] = rec
+        del model, x, w, xt, kf, kb, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def bound(kind, B, H, IN, C, lengths_sum, quant=True, f64=True):
     """Least time (ms) for one call (int8, or bf16 where not ``quant``),
     and what bounds it.
 
@@ -783,9 +895,12 @@ def bound(kind, B, H, IN, C, lengths_sum, quant=True):
     nor computed, and its output holds no result that any consumer reads.
     Bytes: every valid input column and the weights read once, every
     valid output column written once, over the memory rate. Operations:
-    int8 multiply-adds at the int8 peak, bf16 ones at the bf16 peak (with
-    ``quant`` False the recurrent and layer-2 input products are bf16, and
-    their weights and layer 1's h two bytes a value).
+    int8 multiply-adds at the int8 peak, bf16 ones at the bf16 peak. With
+    ``quant`` False the products of the recurrence (W_hh h and the input
+    projections) are exact sums of bf16 products, f64 multiply-adds at the
+    FP64 tensor cores' peak (``f64`` False: at the bf16 peak, as if
+    rounded sums would do), their weights and layer 1's h two bytes a
+    value; the head stays bf16.
     """
     dirs = 2
     q = 1 if quant else 2                       # bytes of a quantised value
@@ -803,10 +918,15 @@ def bound(kind, B, H, IN, C, lengths_sum, quant=True):
                   + dirs * C * H * 4 + dirs * lengths_sum * C * 4)
         int8_macs = dirs * lengths_sum * (3 * H * 2 * H + 3 * H * H)
         bf16_macs = dirs * lengths_sum * C * H
+    f64_macs = 0
     if not quant:
-        bf16_macs, int8_macs = bf16_macs + int8_macs, 0
+        exact = int8_macs + (bf16_macs if kind == "gru_l1_split" else 0)
+        head = 0 if kind == "gru_l1_split" else bf16_macs
+        f64_macs, bf16_macs, int8_macs = ((exact, head, 0) if f64
+                                          else (0, head + exact, 0))
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (2 * int8_macs / PEAK_INT8 + 2 * bf16_macs / PEAK_BF16) * 1e3
+    t_ops = (2 * int8_macs / PEAK_INT8 + 2 * bf16_macs / PEAK_BF16
+             + 2 * f64_macs / PEAK_F64_TC) * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes"
     return t_ops, "operations"
@@ -5909,12 +6029,10 @@ def main(argv=None):
                         q_calls["gru_l2head_split"][0],
                         lambda: gru_split.gru_l2head_split_plain(
                             *q2, mode="t", quant=False), main_valid)}
+                # layer 1: f64 sums, its plain version's bits
                 for name, rec in q_check.items():
-                    most, mean = ((TOL_L1[False], TOL_L1_MEAN)
-                                  if name == "gru_l1_split"
-                                  else (TOL_LOGIT, None))
-                    if rec["max_abs_err"] > most or (
-                            mean is not None and rec["mean_abs_err"] > mean):
+                    most = 0.0 if name == "gru_l1_split" else TOL_LOGIT
+                    if rec["max_abs_err"] > most:
                         raise AssertionError(
                             "{} quant=False disagrees with its plain version "
                             "at B={}, T={}: {}".format(name, B, T, rec))
@@ -5923,11 +6041,14 @@ def main(argv=None):
                     kernel, one = q_calls[name]
                     bound_ms, bound_by = bound(name, B, H, IN, C,
                                                lengths_sum, quant=False)
+                    bf16_bound_ms, _ = bound(name, B, H, IN, C, lengths_sum,
+                                             quant=False, f64=False)
                     kind = "l1" if name == "gru_l1_split" else "l2"
                     ms_q, floor_q = cuda_ms(kernel), cuda_ms(one)
                     row["quant_false"] = {
                         "kernel": SPLIT_BF16_KERNEL_OF[name],
-                        "ms": ms_q, "serial_floor_ms": floor_q,
+                        "ms": ms_q,
+                        "serial_floor_ms": floor_q,
                         "step_us": ms_q / T * 1e3,
                         "serial_floor_step_us": floor_q / T * 1e3,
                         "geometry": {
@@ -5943,6 +6064,7 @@ def main(argv=None):
                         "launch_profile_ms": split_launch_ms(
                             name, kernel, quant=False),
                         "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bf16_bound_ms": bf16_bound_ms,
                         "library_ms": row["library_ms"]
                         if name == "gru_l1_split" else None,
                         "launches": none_launches[name + "/t"],
@@ -5957,6 +6079,52 @@ def main(argv=None):
                                      "both split kernels: {}".format(
                                          none_launches))
             del wq, q1, q2, qf, qb, qf1, qb1, q_calls
+            # the bf16 kernels in mode "rows" (batches below 192) on the
+            # batch's first 32 and 64 rows: against their plain versions
+            # (compare_kernels: layer 1 bit for bit) and timed
+            with torch.inference_mode():
+                for RB in (32, 64):
+                    xr = xt[:, :RB].contiguous()
+                    lr = lens[:RB].contiguous()
+                    wr = gru_split.prepare_split_weights(
+                        model.layer_params(), model.head_params(), "rows",
+                        False, dev)
+                    plain_r = {}
+                    l1_r, l2_r, stats_r, (rf, rb) = compare_kernels(
+                        gru_split, wr, xr, lr, "rows", False, plain_r)
+                    r1 = (xr, lr, wr["w_ih1"], wr["b_ih1"], wr["w_hh1"],
+                          wr["sc1"], wr["b_hh1"])
+                    r2 = (rf, rb, lr, wr["w_in2"], wr["in_scale2"],
+                          wr["b_ih2"], wr["w_hh2"], wr["sc2"], wr["b_hh2"],
+                          wr["w_head"])
+                    r_sum = int(lr.sum())
+                    for row, fn, args, err in (
+                            (rows[0], gru_split.gru_l1_split, r1, l1_r),
+                            (rows[1], gru_split.gru_l2head_split, r2, l2_r)):
+                        name = row["name"]
+                        kind = "l1" if name == "gru_l1_split" else "l2"
+                        rec = {
+                            "B": RB, "ms": cuda_ms(lambda: fn(
+                                *args, mode="rows", quant=False)),
+                            "plain_ms": plain_r[name], "max_abs_err": err,
+                            "model_vs_plain": stats_r,
+                            "bound_ms": bound(name, RB, H, IN, C, r_sum,
+                                              quant=False)[0],
+                            "geometry": dict(zip(
+                                ("cluster", "columns", "smem_bytes",
+                                 "resident_clusters"),
+                                gru_split.geometry(
+                                    kind, H, RB, dev, "rows",
+                                    IN if kind == "l1" else 0,
+                                    quant=False)))}
+                        rec["step_us"] = rec["ms"] / T * 1e3
+                        row["quant_false"].setdefault(
+                            "rows_mode", {})["B{}".format(RB)] = rec
+                        log("   {} quant=False mode rows: {}".format(
+                            name, json.dumps(rec)))
+                    del xr, lr, wr, rf, rb, r1, r2
+            rows[1]["quant_false"]["per_block"] = wide_bf16_layer2(
+                gru_split, dev, seed)
 
             # mode "rows" (TPU kernels #3 and #4) is what batches below 192
             # run; the main path does not reach it, so it is held against

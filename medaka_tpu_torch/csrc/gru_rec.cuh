@@ -251,23 +251,11 @@ __device__ __forceinline__ void with_share(int s, F f) {
   }
 }
 
-// 4 bf16 values (8 bytes) widened exactly to f64
-__device__ __forceinline__ void widen4(uint2 v, double (&out)[4]) {
-  out[0] = __uint_as_float(v.x << 16);
-  out[1] = __uint_as_float(v.x & 0xffff0000u);
-  out[2] = __uint_as_float(v.y << 16);
-  out[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
 // The bf16-gates step's product, share s of S: acc[mt][nt] = W_s rows
 // (row0 + mt * 16 ..) . h^T columns (n0 + nt * 8 ..) over the k-groups
-// [s G / S, (s + 1) G / S) of the G = Hp / 16, on the FP64 tensor cores
-// (mma.sync m16n8k16 f64, one chain a tile). A is the bf16 W slice, B is
-// bf16(h), both widened exactly. Within group j lane (gid, tig) supplies
-// k = 16 j + 4 tig + i as the mma's k index tig + 4 i, in A and B alike,
-// so that it reads 4 consecutive values of each row at once: the sum
-// covers every k once, and its order does not matter (f64 sums of exact
-// products).
+// [s G / S, (s + 1) G / S) of the G = Hp / 16 (rnn_train.cuh F64Product:
+// the bf16 W slice and bf16(h) widened exactly, f64 sums whose order does
+// not matter).
 template <int NT, int S>
 __device__ __forceinline__ void f64_product(double (&acc)[3][NT][4],
                                             const unsigned char* w_s,
@@ -275,31 +263,11 @@ __device__ __forceinline__ void f64_product(double (&acc)[3][NT][4],
                                             const unsigned char* h_s,
                                             int ldh, int n0, int Hp, int s,
                                             int lane) {
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const unsigned char* wa = w_s + (row0 + gid) * ldw + 8 * tig;
-  const unsigned char* hb = h_s + (n0 + gid) * ldh + 8 * tig;
+  const F64Product<3, NT> prod(w_s, ldw, row0, h_s, ldh, n0, 0, lane);
   const int groups = Hp / 16;
   const int j1 = (s + 1) * groups / S;
 #pragma unroll 2
-  for (int j = s * groups / S; j < j1; ++j) {
-    double b[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      widen4(*reinterpret_cast<const uint2*>(hb + nt * 8 * ldh + j * 32),
-             b[nt]);
-#pragma unroll
-    for (int mt = 0; mt < 3; ++mt) {
-      double a[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        widen4(*reinterpret_cast<const uint2*>(wa + (mt * 16 + hh * 8) * ldw +
-                                               j * 32),
-               a[hh]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_f64(acc[mt][nt], a, b[nt]);
-    }
-  }
+  for (int j = s * groups / S; j < j1; ++j) prod.step(acc, j);
 }
 
 template <int NUM, int NT, int S>

@@ -26,32 +26,33 @@
 // units) holds rows q*48 + g*16 + u (gate g of r, z, n; unit u), so in
 // the mma.sync m16n8k32 s8 accumulator fragments a thread holds r, z and
 // n of units u and u + 8 for two batch columns of each n8 tile (two tiles
-// a warp from 16 columns, one in bf16 layer 2); the bf16 product gives a
-// thread the same cells (rnn_train.cuh TileProduct,
-// ChainProduct below; ops/rnn_cluster.py SPLIT and SPLIT_BF16 choose C
-// and BT on the host: C is the smallest cluster whose slices fit, 1 at H
-// <= 256 in int8 layer 1 at 10 inputs, so one __syncthreads a step and no
-// cluster barrier there; 2 at 20 and 120 inputs, whose bf16 W_ih no
-// longer fits beside W_hh in one block, and in bf16 layer 1 at H=256, 4
-// there up to 128 rows, whose blocks would leave SMs idle; 8 in bf16
-// layer 2 at H=256). The C entry points take the numerics as a flag (s8:
-// int8, else bf16). A step: h (round(127 h) int8, or bf16; BT x
-// Hp) . W_hh_slice^T (int8: on the tensor cores, exact int32 sums; bf16:
-// an f32 fmaf chain over k in order on the CUDA cores), the gates of the
-// block's units in registers, h' into every cluster block's next h buffer
-// (distributed shared memory, 16-byte stores; at C = 1 straight into the
-// block's own), one split cluster barrier a step; a warp sends its units'
-// h as soon as its gates are done. The input operand (layer 1: x; layer
-// 2: [prev_f; prev_b]) comes by cp.async two steps ahead (bf16 layer 2:
-// into its one buffer, a step ahead, which leaves room for twice the
-// columns a block). Layer 1's input projection (the f32 fmaf chain on the
-// CUDA cores) runs between the k-chunks of the step's recurrent product;
-// layer 2's (W_ih_slice . [prev_f; prev_b], one sum for each half, as the
-// recurrent product is summed) runs for the next step between the
-// barrier's arrive and its wait. Layer 2's head: W_head^T . bf16(h) over
-// a block's units on the tensor cores (mma.sync m16n8k16, f32 sums; the
-// m16 tiles of W_head^T are up to 64 classes: 5 haploid, 15 diploid, 49
-// run-length), then over the cluster's blocks in rank order, each block
+// a warp from 16 columns, one in bf16 layer 2); the f64 product gives a
+// thread the same cells (rnn_train.cuh TileProduct, F64Product;
+// ops/rnn_cluster.py SPLIT and SPLIT_BF16 choose C and BT on the host: C
+// is the smallest cluster whose slices fit, 1 at H <= 256 in int8 layer 1
+// at 10 inputs, so one __syncthreads a step and no cluster barrier there;
+// 2 at 20 and 120 inputs, whose bf16 W_ih no longer fits beside W_hh in
+// one block, and in bf16 layer 1 at H=256, 4 there up to 128 rows, whose
+// blocks would leave SMs idle; 8 in bf16 layer 2 at H=256). The C entry
+// points take the numerics as a flag (s8: int8, else bf16). A step: h
+// (round(127 h) int8, or bf16; BT x Hp) . W_hh_slice^T on the tensor
+// cores (int8: mma.sync m16n8k32 s8, exact int32 sums; bf16: m16n8k16 f64
+// on the FP64 tensor cores over the bf16 slices and h widened as they
+// load), the gates of the block's units in registers, h' into every
+// cluster block's next h buffer (distributed shared memory, 16-byte
+// stores; at C = 1 straight into the block's own), one split cluster
+// barrier a step; a warp sends its units' h as soon as its gates are done.
+// The input operand (layer 1: x; layer 2: [prev_f; prev_b]) comes by
+// cp.async two steps ahead (bf16 layer 2: into its one buffer, a step
+// ahead, which leaves room for twice the columns a block). Layer 1's input
+// projection runs on the CUDA cores (int8: an f32 fmaf chain between the
+// k-chunks of the step's recurrent product; bf16: a double fma chain
+// before it); layer 2's (W_ih_slice . [prev_f; prev_b]: int8 one sum for
+// each half, bf16 one f64 sum over both) runs for the next step between
+// the barrier's arrive and its wait. Layer 2's head: W_head^T . bf16(h)
+// over a block's units on the tensor cores (mma.sync m16n8k16, f32 sums;
+// the m16 tiles of W_head^T are up to 64 classes: 5 haploid, 15 diploid,
+// 49 run-length), then over the cluster's blocks in rank order, each block
 // for its share of the columns: a run repeats bit for bit.
 //
 // bf16 layer 2 at H=384 and 512 does not fit a cluster: its W_hh and W_ih
@@ -61,7 +62,8 @@
 // columns and loops over all T steps itself; thread (j, q) owns hidden
 // unit j for CPT columns; the bf16 W_hh and W_ih stream from L2,
 // chunk-interleaved (chunk kc of row r at kc * 3H + r, 512 contiguous
-// bytes for a warp). ops/gru_split.py routes by shape.
+// bytes for a warp), and its sums are double fma chains. ops/gru_split.py
+// routes by shape.
 //
 // Numerics follow the TPU kernels operation by operation: int8 x int8 ->
 // int32 products with per-row scales (exact in any order, so the tensor
@@ -69,16 +71,19 @@
 // (__float2int_rn) for round(127 h), bf16 roundings (__float2bfloat16_rn)
 // where the TPU kernels cast, and __fmul_rn/__fadd_rn where a fused
 // multiply-add would round differently from the plain PyTorch version in
-// medaka_tpu_torch/ops/gru_split.py. Layer 1's f32 input projection keeps
-// one fmaf chain over the features in order, so layer 1's outputs and
-// layer 2's h do not depend on the design; only the order of the head's
-// f32 sum over units does. In bf16 every f32 sum of the recurrence is a
-// fmaf chain over k in order, the order of the plain version's torch.bmm
-// on the card: layer 1 repeats its bits. The tensor cores' bf16 sums
-// (mma.sync m16n8k16, f32 accumulators: the TPU kernels' arithmetic)
-// differ by a rounding now and then, and through the recurrence that
+// medaka_tpu_torch/ops/gru_split.py. Layer 1's f32 input projection in
+// int8 keeps one fmaf chain over the features in order, so layer 1's
+// outputs and layer 2's h do not depend on the design; only the order of
+// the head's f32 sum over units does. In bf16 every product of the
+// recurrence (W_hh h, layer 1's W_ih x, layer 2's W_ih [prev_f; prev_b]) is
+// the TPU kernels' bf16 x bf16 dot (pallas_gru.py:1363-1364) summed
+// exactly, in f64, and rounded once to f32, as the plain version sums it:
+// the sum does not depend on the order, so the FP64 tensor cores, any
+// split of k and the per-block kernel's chains all give the plain
+// version's bits. (f32 sums in another order than the plain version's
+// flip a bf16 rounding of h now and then, and through the recurrence that
 // moved the random network's argmax in 0.1% of columns, past
-// chip_smoke.py's bar of 0.01% (PERF.md).
+// chip_smoke.py's bar of 0.01%: PERF.md.)
 //
 // What bounds it on an H100: a step is a (3H x K) x (K x BT) product with K
 // = H (layer 1) or 3H (layer 2) and the serial chain of T dependent steps,
@@ -86,9 +91,11 @@
 // int8 the step's product reads the block's weight slices from shared
 // memory through ldmatrix once (196,608 B at H = 256 in layer 1), which
 // bounds layer 1's step at about 1 us; layer 2 adds the cluster barrier
-// and the exchange. In bf16 the product is the CUDA cores' f32 fmaf
-// chains, 3H K multiply-adds a column a step: layer 1 at H = 256 on
-// clusters of 2 (196,608 B of W_hh a block), layer 2 on clusters of 8
+// and the exchange. In bf16 the product runs at the FP64 tensor cores'
+// rate (67 TFLOP/s, the CUDA cores' f32 rate), 3H K multiply-adds a column
+// a step, and each bf16 value of the slices and of h is widened to f64 as
+// it loads (a conversion the SM issues at 16 a clock): layer 1 at H = 256
+// on clusters of 2 (196,608 B of W_hh a block), layer 2 on clusters of 8
 // (147,456 B of W_hh and W_ih a block), in two waves at 480 rows: each
 // block of a cluster holds the input of all its columns, so no geometry
 // runs layer 2's 960 column-directions in one.
@@ -152,7 +159,7 @@ constexpr int SPLIT_UG = 16;      // units of a group: rows q*48 + g*16 + u
 constexpr int SPLIT_MAX_U = 256;  // units of a block at most
 constexpr int L1_THREADS = 512;   // threads of a block at most, layer 1
 constexpr int L2_THREADS = 256;   // and layer 2 (its registers), and bf16
-                                  // (a thread's f32 chains)
+                                  // (a thread's f64 accumulators)
 constexpr int L1_ROWC = 3;  // per-row constants: hh_scale, b_hh, b_ih
 constexpr int L2_ROWC = 5;  // and the input scales of the two halves
 
@@ -189,7 +196,7 @@ struct SplitGeo : SplitBase {
         ldi(2 * WB * H + 16), KS(head_slot(ncls)), HT(head_tiles(ncls)) {
     if (!s8 && l2_) {
       // bf16 layer 2: one n8 tile of columns a warp, twice the warps of
-      // two tiles (their f32 chains wait on shared memory less)
+      // two tiles (faster on an H100: PERF.md)
       NT = 1;
       NP = bt / 8;
     }
@@ -264,76 +271,12 @@ struct SplitArgs {
   int T, B, H, IN, C, BT, ncls;
 };
 
-// element k (0-7) of 8 bf16 values in 16 bytes, in f32
-__device__ __forceinline__ float bf16_at(const uint4& v, int k) {
-  const uint32_t pair = k < 2 ? v.x : k < 4 ? v.y : k < 6 ? v.z : v.w;
-  return __uint_as_float(k % 2 ? pair & 0xffff0000u : pair << 16);
-}
-
-// The bf16 kernels' step products on the CUDA cores, with TileProduct's
-// interface and its accumulator layout: for each cell of a thread (rows
-// row0 + g * 16 + gid + 8 hh of gate g, columns n0 + nt * 8 + 2 tig + e)
-// one f32 fmaf chain over k in order, 16 k (32 bytes) a step. That is the
-// order of the plain version's f32 torch.bmm on the card, so a step gives
-// its bits; the tensor cores' sums (mma.sync m16n8k16) round otherwise,
-// and their differences grow through the recurrence past the network's
-// bars (PERF.md).
-template <int NT>
-struct ChainProduct {
-  const unsigned char* a;  // row gid of the first tile, from byte k0
-  const unsigned char* b;  // column 2 tig of the first n8 tile, byte k0
-  int lda, ldb;
-  __device__ __forceinline__ ChainProduct(const void* a_s, int lda_, int row0,
-                                          const void* b_s, int ldb_, int n0,
-                                          int k0, int lane)
-      : lda(lda_), ldb(ldb_) {
-    a = static_cast<const unsigned char*>(a_s) + (row0 + (lane >> 2)) * lda +
-        k0;
-    b = static_cast<const unsigned char*>(b_s) +
-        (n0 + 2 * (lane & 3)) * ldb + k0;
-  }
-  __device__ __forceinline__ void step(float (&acc)[3][NT][4],
-                                       int ks) const {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int off = ks * 32 + half * 16;  // 8 values of k
-      uint4 w[3][2], x[NT][2];
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          w[g][hh] = *reinterpret_cast<const uint4*>(
-              a + (g * 16 + 8 * hh) * lda + off);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          x[nt][e] = *reinterpret_cast<const uint4*>(
-              b + (nt * 8 + e) * ldb + off);
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                acc[g][nt][hh * 2 + e] =
-                    fmaf(bf16_at(w[g][hh], kk), bf16_at(x[nt][e], kk),
-                         acc[g][nt][hh * 2 + e]);
-    }
-  }
-};
-
 template <int NT, int MODE, bool L2, bool S8>
 __device__ __forceinline__ void split_cluster(const SplitArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // the step's sums: exact int32 on the tensor cores (int8) or f32 fmaf
-  // chains in the plain version's order on the CUDA cores (bf16)
-  typedef std::conditional_t<S8, int, float> Acc;
-  typedef std::conditional_t<S8, S8Product<3, NT>, ChainProduct<NT>> Product;
+  // the step's sums: exact int32 (int8) or f64 (bf16) on the tensor cores
+  typedef std::conditional_t<S8, int, double> Acc;
+  typedef std::conditional_t<S8, S8Product<3, NT>, F64Product<3, NT>> Product;
   constexpr int WB = S8 ? 1 : 2;
   // the weight slices and h by the byte (int8: by the value)
   typedef std::conditional_t<S8, int8_t, unsigned char> B8;
@@ -468,44 +411,62 @@ __device__ __forceinline__ void split_cluster(const SplitArgs& a) {
   // the input pre-activations xp of a step
   float xp[2][NC][3];
   // layer 2: xp of the step whose operand is in buffer `buf`, W_ih
-  // [prev_f; prev_b], one sum for each half (k from 0 and from H): exact
-  // int32 on the tensor cores, or an f32 chain over the half in order
+  // [prev_f; prev_b]: in int8 one exact int32 sum for each half (k from 0
+  // and from H), in bf16 one f64 sum over all 2H, rounded once
   auto project = [&](int buf) {
-    Acc acc_a[3][NT][4] = {};
-    Acc acc_b[3][NT][4] = {};
     const unsigned char* ib = in_s + buf * BT * ldi;
-    const Product prod_a(wih_s, ldi, q * 3 * SPLIT_UG, ib, ldi, p * NT * 8,
+    if constexpr (!S8) {
+      double acc_x[3][NT][4] = {};
+      const Product prod(wih_s, ldi, q * 3 * SPLIT_UG, ib, ldi, p * NT * 8,
                          0, lane);
-    const Product prod_b(wih_s, ldi, q * 3 * SPLIT_UG, ib, ldi, p * NT * 8,
-                         H * WB, lane);
 #pragma unroll 2
-    for (int ks = 0; ks < H * WB / 32; ++ks) {
-      prod_a.step(acc_a, ks);
-      prod_b.step(acc_b, ks);
-    }
+      for (int ks = 0; ks < 2 * H * WB / 32; ++ks) prod.step(acc_x, ks);
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
+      for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int gt = 0; gt < 3; ++gt) {
-          const Acc va = acc_a[gt][c / 2][hh * 2 + c % 2];
-          const Acc vb = acc_b[gt][c / 2][hh * 2 + c % 2];
-          if (!S8) {
-            // bf16: (acc_a + acc_b) + b_ih, as the plain version sums
-            const float v = __fadd_rn(__fadd_rn(va, vb), bi[hh][gt]);
-            xp[hh][c][gt] = MODE == MODE_ROWS ? bf16r(v) : v;
-          } else if (MODE == MODE_T) {
-            // merged (3H, 2H) projection with one per-row scale
-            xp[hh][c][gt] = __fadd_rn(
-                __fmul_rn(static_cast<float>(va + vb), sa[hh][gt]),
+          for (int gt = 0; gt < 3; ++gt) {
+            const float v = __fadd_rn(
+                __double2float_rn(acc_x[gt][c / 2][hh * 2 + c % 2]),
                 bi[hh][gt]);
-          } else {
-            const float pa = __fmul_rn(static_cast<float>(va), sa[hh][gt]);
-            const float pb = __fmul_rn(static_cast<float>(vb), sb[hh][gt]);
-            xp[hh][c][gt] = bf16r(__fadd_rn(__fadd_rn(pa, pb), bi[hh][gt]));
+            xp[hh][c][gt] = MODE == MODE_ROWS ? bf16r(v) : v;
           }
-        }
+    } else {
+      Acc acc_a[3][NT][4] = {};
+      Acc acc_b[3][NT][4] = {};
+      const Product prod_a(wih_s, ldi, q * 3 * SPLIT_UG, ib, ldi, p * NT * 8,
+                           0, lane);
+      const Product prod_b(wih_s, ldi, q * 3 * SPLIT_UG, ib, ldi, p * NT * 8,
+                           H * WB, lane);
+#pragma unroll 2
+      for (int ks = 0; ks < H * WB / 32; ++ks) {
+        prod_a.step(acc_a, ks);
+        prod_b.step(acc_b, ks);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+            const Acc va = acc_a[gt][c / 2][hh * 2 + c % 2];
+            const Acc vb = acc_b[gt][c / 2][hh * 2 + c % 2];
+            if (MODE == MODE_T) {
+              // merged (3H, 2H) projection with one per-row scale
+              xp[hh][c][gt] = __fadd_rn(
+                  __fmul_rn(static_cast<float>(va + vb), sa[hh][gt]),
+                  bi[hh][gt]);
+            } else {
+              const float pa =
+                  __fmul_rn(static_cast<float>(va), sa[hh][gt]);
+              const float pb =
+                  __fmul_rn(static_cast<float>(vb), sb[hh][gt]);
+              xp[hh][c][gt] =
+                  bf16r(__fadd_rn(__fadd_rn(pa, pb), bi[hh][gt]));
+            }
+          }
+    }
   };
 
   // layer 2 (C > 1): the logits of step `step` of this block's CR
@@ -554,10 +515,67 @@ __device__ __forceinline__ void split_cluster(const SplitArgs& a) {
     if constexpr (L2) {
 #pragma unroll 2
       for (int ks = 0; ks < g.Hp * WB / 32; ++ks) rec.step(acc, ks);
+    } else if constexpr (!S8) {
+      // bf16 layer 1: the input projection W_ih x of this step, one f64
+      // sum over the features (a double fma chain on the CUDA cores: W_ih
+      // rows of 10-120 values in m16n8k16 tiles of 16 would outgrow the
+      // block's shared memory beside W_hh), rounded once, plus b_ih; then
+      // the recurrent product (the chain between its k-chunks, as int8
+      // runs it, was 9% slower at B=480 and 19-21% at 32-64 rows on an
+      // H100: PERF.md)
+      const bf16* xb = reinterpret_cast<const bf16*>(in_s) + cur * BT * INp;
+      const bf16* w = reinterpret_cast<const bf16*>(wih_s);
+      double pacc[2][NC][3] = {};
+      for (int k = 0; k < a.IN; k += 2) {
+        uint32_t wp[2][3], xq[NC];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt)
+            wp[hh][gt] = *reinterpret_cast<const uint32_t*>(
+                w + row[hh][gt] * g.INe + k);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          xq[c] = *reinterpret_cast<const uint32_t*>(xb + ncol[c] * INp + k);
+        // the pair's first feature, then its second where IN has it
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (e == 1 && k + 1 >= a.IN) break;
+          double wv[2][3], xv[NC];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int gt = 0; gt < 3; ++gt)
+              wv[hh][gt] = __uint_as_float(e ? wp[hh][gt] & 0xffff0000u
+                                             : wp[hh][gt] << 16);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            xv[c] = __uint_as_float(e ? xq[c] & 0xffff0000u : xq[c] << 16);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+#pragma unroll
+              for (int gt = 0; gt < 3; ++gt)
+                pacc[hh][c][gt] = fma(wv[hh][gt], xv[c], pacc[hh][c][gt]);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+            const float v =
+                __fadd_rn(__double2float_rn(pacc[hh][c][gt]), bi[hh][gt]);
+            xp[hh][c][gt] = MODE == MODE_ROWS ? bf16r(v) : v;
+          }
+#pragma unroll 2
+      for (int ks = 0; ks < g.Hp * WB / 32; ++ks) rec.step(acc, ks);
     } else {
-      // layer 1: the input projection W_ih x + b_ih of this step, one f32
-      // fmaf chain over the features in order, a pair of features between
-      // each two k-chunks of the recurrent product (in int8, the CUDA
+      // int8 layer 1: the input projection W_ih x + b_ih of this step, one
+      // f32 fmaf chain over the features in order, a pair of features
+      // between each two k-chunks of the recurrent product (the CUDA
       // cores' work beside the tensor cores' shared-memory loads)
       const bf16* xb = reinterpret_cast<const bf16*>(in_s) + cur * BT * INp;
       const bf16* w = reinterpret_cast<const bf16*>(wih_s);
@@ -622,9 +640,11 @@ __device__ __forceinline__ void split_cluster(const SplitArgs& a) {
 #pragma unroll
       for (int gt = 0; gt < 3; ++gt) {
         const Acc v = acc[gt][c / 2][hh * 2 + c % 2];
-        hp[gt] = S8 ? __fadd_rn(__fmul_rn(static_cast<float>(v), sc[hh][gt]),
-                                bh[hh][gt])
-                    : __fadd_rn(static_cast<float>(v), bh[hh][gt]);
+        if constexpr (S8)
+          hp[gt] = __fadd_rn(__fmul_rn(static_cast<float>(v), sc[hh][gt]),
+                             bh[hh][gt]);
+        else
+          hp[gt] = __fadd_rn(__double2float_rn(v), bh[hh][gt]);
       }
       const float h_new = gru_update<S8, MODE>(
           h[hh][c], xp[hh][c][0], xp[hh][c][1], xp[hh][c][2], hp[0], hp[1],
@@ -877,22 +897,23 @@ SplitArgs l2_args(const void* prev_f, const void* prev_b, const int* lengths,
 // on the CUDA cores
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float dot8_bf16(uint4 w, uint4 a, float acc) {
+__device__ __forceinline__ double dot8_bf16(uint4 w, uint4 a, double acc) {
   const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&w);
   const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     const float2 wf = __bfloat1622float2(wp[p]);
     const float2 af = __bfloat1622float2(ap[p]);
-    // bf16 x bf16 is exact in f32, so the fma rounds only the sum
-    acc = fmaf(wf.x, af.x, acc);
-    acc = fmaf(wf.y, af.y, acc);
+    // bf16 x bf16 is exact in f64, and so is the sum but in the rarest
+    // cases (F64Product), so its order does not matter
+    acc = fma(static_cast<double>(wf.x), static_cast<double>(af.x), acc);
+    acc = fma(static_cast<double>(wf.y), static_cast<double>(af.y), acc);
   }
   return acc;
 }
 
 // acc[g][cc] += W[g*H + j, k-range] . act[c0 + cc, k-range] for 16-byte
-// chunks (8 values). W is chunk-interleaved: chunk kc of row r at
+// chunks (8 values), in f64. W is chunk-interleaved: chunk kc of row r at
 // w[kc * H3 + r], so a warp (32 consecutive j) reads 512 contiguous bytes.
 // act rows are act_stride chunks apart; every lane of a warp reads the
 // same act chunk.
@@ -901,7 +922,7 @@ __device__ __forceinline__ void dot_bf16(const uint4* __restrict__ w, int H3,
                                          int H, int j,
                                          const uint4* __restrict__ act,
                                          int act_stride, int c0, int nchunks,
-                                         float (&acc)[3][CPT]) {
+                                         double (&acc)[3][CPT]) {
   for (int kc = 0; kc < nchunks; ++kc) {
     const uint4 w0 = w[kc * H3 + j];
     const uint4 w1 = w[kc * H3 + H + j];
@@ -922,13 +943,14 @@ __device__ __forceinline__ void recurrent(const uint4* wmat, int H, int j,
                                           const unsigned char* act, int c0,
                                           const float (&bh)[3],
                                           float (&hp)[3][CPT]) {
-  float acc[3][CPT] = {};
+  double acc[3][CPT] = {};
   dot_bf16<CPT>(wmat, 3 * H, H, j, reinterpret_cast<const uint4*>(act), H / 8,
                 c0, H / 8, acc);
 #pragma unroll
   for (int g = 0; g < 3; ++g)
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) hp[g][cc] = __fadd_rn(acc[g][cc], bh[g]);
+    for (int cc = 0; cc < CPT; ++cc)
+      hp[g][cc] = __fadd_rn(__double2float_rn(acc[g][cc]), bh[g]);
 }
 
 size_t l2_smem_bytes(int BT, int H, int nthreads, int CPT, int KC) {
@@ -1048,20 +1070,17 @@ __global__ void __launch_bounds__(512)
     uint4 in_next = make_uint4(0, 0, 0, 0);
     if (il && i + 1 < T) in_next = load_in(d == 0 ? i + 1 : T - 2 - i);
 
-    // input projection over [prev_f; prev_b], one accumulator per half
+    // input projection over [prev_f; prev_b], one f64 sum over all 2H
     float xp[3][CPT];
     const unsigned char* ins = in_s + cur * BT * 2 * H * 2;
-    float acc_a[3][CPT] = {};
-    float acc_b[3][CPT] = {};
-    const uint4* av = reinterpret_cast<const uint4*>(ins);
-    dot_bf16<CPT>(win_dir, H3, H, j, av, col_chunks, c0, kchunks, acc_a);
-    dot_bf16<CPT>(win_dir + kchunks * H3, H3, H, j, av + kchunks, col_chunks,
-                  c0, kchunks, acc_b);
+    double acc_x[3][CPT] = {};
+    dot_bf16<CPT>(win_dir, H3, H, j, reinterpret_cast<const uint4*>(ins),
+                  col_chunks, c0, 2 * kchunks, acc_x);
 #pragma unroll
     for (int g = 0; g < 3; ++g)
 #pragma unroll
       for (int cc = 0; cc < CPT; ++cc) {
-        xp[g][cc] = __fadd_rn(__fadd_rn(acc_a[g][cc], acc_b[g][cc]), bi[g]);
+        xp[g][cc] = __fadd_rn(__double2float_rn(acc_x[g][cc]), bi[g]);
         if (MODE == MODE_ROWS) xp[g][cc] = bf16r(xp[g][cc]);
       }
 

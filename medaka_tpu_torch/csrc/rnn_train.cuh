@@ -578,6 +578,63 @@ using S8Product = TileProduct<MT, NT, true>;
 template <int MT, int NT>
 using BF16Product = TileProduct<MT, NT, false>;
 
+// 4 bf16 values (8 bytes) widened exactly to f64
+__device__ __forceinline__ void widen4(uint2 v, double (&out)[4]) {
+  out[0] = __uint_as_float(v.x << 16);
+  out[1] = __uint_as_float(v.x & 0xffff0000u);
+  out[2] = __uint_as_float(v.y << 16);
+  out[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// TileProduct's interface and accumulator layout over bf16 rows, summed in
+// f64 on the FP64 tensor cores (mma.sync m16n8k16 f64, one chain a tile):
+// step(acc, ks) adds k-group ks (16 values, 32 bytes from byte k0) of A
+// rows (row0 + mt * 16 ..) . B^T columns (n0 + nt * 8 ..) to acc[mt][nt],
+// both operands widened exactly as they load. Within a group lane (gid,
+// tig) supplies k = 4 tig + i as the mma's k index tig + 4 i, in A and B
+// alike, so that it reads 4 consecutive values of each row at once. bf16
+// values widen to f64 exactly and a product of two is exact in f64; a sum
+// of up to 1,024 of them is exact but in the rarest cases (products whose
+// exponents lie some 28 binades apart), so any order of the groups, and
+// any split of them over warps, gives the same sum, and its one rounding
+// to f32 the same f32.
+template <int MT, int NT>
+struct F64Product {
+  const unsigned char* a;  // row gid of the first tile, byte k0 + 8 tig
+  const unsigned char* b;  // column gid of the first n8 tile, the same
+  int lda, ldb;
+  __device__ __forceinline__ F64Product(const void* a_s, int lda_, int row0,
+                                        const void* b_s, int ldb_, int n0,
+                                        int k0, int lane)
+      : lda(lda_), ldb(ldb_) {
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    a = static_cast<const unsigned char*>(a_s) + (row0 + gid) * lda + k0 +
+        8 * tig;
+    b = static_cast<const unsigned char*>(b_s) + (n0 + gid) * ldb + k0 +
+        8 * tig;
+  }
+  __device__ __forceinline__ void step(double (&acc)[MT][NT][4],
+                                       int ks) const {
+    double bv[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      widen4(*reinterpret_cast<const uint2*>(b + nt * 8 * ldb + ks * 32),
+             bv[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      double av[2][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        widen4(*reinterpret_cast<const uint2*>(a + (mt * 16 + hh * 8) * lda +
+                                               ks * 32),
+               av[hh]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_f64(acc[mt][nt], av, bv[nt]);
+    }
+  }
+};
+
 // acc[mt][nt] = W_s rows (q * MT * 16 + mt * 16 ..) . h^T columns
 // ((p * NT + nt) * 8 ..): the gates of warp (q, p), f32 accumulation
 // chained over the Hp / 16 k-chunks in order; W_slice is the A operand and

@@ -14,9 +14,9 @@ numerics mode:
 Both kernels run thread-block clusters whose blocks keep their units'
 rows of every weight in shared memory. With int8 quantisation (the
 default) the step's products run on the tensor cores (``mma.sync`` int8,
-exact); where ``quant=False`` they run on the CUDA cores as f32 fmaf
-chains in the plain version's order, bf16 slices in shared memory.
-:func:`geometry` chooses the cluster
+exact); where ``quant=False`` they run on the FP64 tensor cores
+(``mma.sync`` f64) over bf16 slices in shared memory, widened as they
+load. :func:`geometry` chooses the cluster
 size and the columns a cluster (``rnn_cluster.SPLIT`` and
 ``SPLIT_BF16``), and :func:`l1_operands` / :func:`l2_operands` cut the
 weights into the kernels' slices. One shape has no cluster: bf16 layer 2
@@ -29,7 +29,15 @@ input projections in f32, runs the quantised gates in bf16 tanh form and
 uses one merged per-row scale for the layer-2 projection. ``"rows"``
 rounds the projections to bf16, runs f32 sigmoid/tanh gates and scales
 the two halves of the layer-2 projection separately. ``quant=False`` runs
-bf16 weights and activations in both.
+bf16 weights and activations in both, and sums every product of the
+recurrence (W_hh h, layer 1's W_ih x, layer 2's W_ih [prev_f; prev_b]
+over all 2H at once) exactly: in f64, rounded once to f32, before its
+bias is added in f32. That is the sum which the TPU kernels' bf16 x bf16
+dot with f32 accumulation (``pallas_gru.py:1363-1364``) approximates in
+an order it does not specify; bf16 values and their products are exact
+in f64, and so is a sum of up to 1,024 of them but in the rarest cases
+(products some 28 binades apart), so the sum, and its f32, do not depend
+on the order in which a kernel adds the products.
 
 Every kernel has a plain PyTorch version here that repeats its arithmetic
 step by step, int8 casts and bf16 roundings included. A wrapper runs the
@@ -101,6 +109,12 @@ def _bf16(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.bfloat16).float()
 
 
+def _sum64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` of bf16 values summed in f64 and rounded once to
+    f32: the exact sum, whatever the order (the module docstring)."""
+    return torch.bmm(a.double(), b.double()).float()
+
+
 def _cell(h, xp, w_t, sc, b, hidden, mode, quant):
     """One step of both directions: h (2, B, H), xp (2, B, 3H) f32."""
     if quant:
@@ -109,7 +123,7 @@ def _cell(h, xp, w_t, sc, b, hidden, mode, quant):
         hq = torch.round(h * 127.0)
         hp = torch.bmm(hq, w_t) * sc + b
     else:
-        hp = torch.bmm(_bf16(h), w_t) + b
+        hp = _sum64(_bf16(h), w_t) + b
     H = hidden
     if quant and mode == "t":
         rz_in = (xp[..., :2 * H] + hp[..., :2 * H]).to(torch.bfloat16)
@@ -153,7 +167,7 @@ def gru_l1_split_plain(x, lengths, w_ih, b_ih, w_hh, hh_scale, b_hh,
     for i in range(T):
         tb = T - 1 - i
         xs = torch.stack([xf[i], xf[tb]])
-        xp = torch.bmm(xs, w_ih_t) + bi
+        xp = (torch.bmm(xs, w_ih_t) if quant else _sum64(xs, w_ih_t)) + bi
         if mode == "rows":
             xp = _bf16(xp)
         nh = _cell(h, xp, w_hh_t, sc, bh, H, mode, quant)
@@ -180,6 +194,7 @@ def gru_l2head_split_plain(prev_f, prev_b, lengths, w_in, in_scale, b_ih,
     C = w_head.shape[1]
     dev = prev_f.device
     w_in_f = w_in.float()
+    w_in_t = w_in_f.transpose(1, 2)
     wa_t = w_in_f[:, :, :H].transpose(1, 2)
     wb_t = w_in_f[:, :, H:].transpose(1, 2)
     sa = in_scale[:, 0].float().reshape(2, 1, 3 * H)
@@ -196,16 +211,20 @@ def gru_l2head_split_plain(prev_f, prev_b, lengths, w_in, in_scale, b_ih,
     times = _step_times(T, dev)
     for i in range(T):
         tb = T - 1 - i
-        acc_a = torch.bmm(torch.stack([pf[i], pf[tb]]), wa_t)
-        acc_b = torch.bmm(torch.stack([pb[i], pb[tb]]), wb_t)
-        if quant and mode == "t":
-            xp = (acc_a + acc_b) * sa + bi
-        elif quant:
-            xp = _bf16((acc_a * sa + acc_b * sb) + bi)
-        else:
-            xp = (acc_a + acc_b) + bi
+        in_a = torch.stack([pf[i], pf[tb]])
+        in_b = torch.stack([pb[i], pb[tb]])
+        if not quant:
+            # one f64 sum over all 2H inputs
+            xp = _sum64(torch.cat([in_a, in_b], dim=-1), w_in_t) + bi
             if mode == "rows":
                 xp = _bf16(xp)
+        else:
+            acc_a = torch.bmm(in_a, wa_t)
+            acc_b = torch.bmm(in_b, wb_t)
+            if mode == "t":
+                xp = (acc_a + acc_b) * sa + bi
+            else:
+                xp = _bf16((acc_a * sa + acc_b * sb) + bi)
         nh = _cell(h, xp, w_hh_t, sc, bh, H, mode, quant)
         mask = lens > times[i]
         h = torch.where(mask, nh, h)

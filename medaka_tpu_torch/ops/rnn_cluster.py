@@ -88,12 +88,12 @@ SPLIT = Layout(gates=3, group=16, cell=False, wbytes=1, max_units=256,
 #: the split kernels' bf16 mode (``quant=False``): SPLIT's rows and tiles
 #: with bf16 slices and h, twice the bytes a row (clusters of 2 in layer 1
 #: and 8 in layer 2 at H=256), 256 threads a block at most in both layers
-#: (a thread's f32 chains keep their sums in registers), and one n8 tile a
-#: warp in layer 2 (twice the warps: 494.7 ms against 650.4 with two
-#: tiles at B=480 on an H100, PERF.md). Small batches spread to 64 units
-#: a block: layer 1 at H=256 and B <= 128 on clusters of 4, 8 columns
-#: (66 ms against 95.5 on clusters of 2 at B=1-64, T=10000; 8 and 16
-#: blocks gain nothing more; PERF.md)
+#: (a thread's f64 accumulators), and one n8 tile a warp in layer 2
+#: (twice the warps: 332 ms against 411 with two tiles at B=480 on an
+#: H100, PERF.md). Small batches spread to 64 units a block: layer 1 at
+#: H=256 and B <= 128 on clusters of 4, 8 columns (52.6 ms against 71.0
+#: on clusters of 2 at B=32, T=10000; 8 and 16 blocks gain nothing more;
+#: PERF.md)
 SPLIT_BF16 = SPLIT._replace(wbytes=2, max_threads=256, spread_units=64)
 #: the int8 GRU forward of ``bigru_fullfused_int8`` (``csrc/gru_rec.cuh``,
 #: NUM_INT8): SPLIT's rows and int8 slices, 256 threads a block at most

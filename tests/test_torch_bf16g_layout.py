@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from medaka_tpu_torch.ops import cuda_build, gru_fullfused, rnn_cluster
+from tests.torch_threads import one_thread  # noqa: F401
 
 BF16G = rnn_cluster.GRU_BF16G
 HIDDEN = (32, 64, 96, 128, 160, 192, 256, 288, 384, 448, 512)

@@ -15,6 +15,7 @@ import torch
 from medaka_tpu_torch.ops import (bilstm, cuda_build, gru_fullfused,
                                   lstm_train, rnn_cluster)
 from medaka_tpu_torch.ops.gru_train import _sigmoid
+from tests.torch_threads import one_thread  # noqa: F401
 
 INT8 = rnn_cluster.GRU_INT8
 LSTM = rnn_cluster.LSTM

@@ -33,6 +33,7 @@ from medaka_tpu_torch.common import POSITIONS_DTYPE, Sample
 from medaka_tpu_torch.io import hdf5
 from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM
 from tests.test_models import _fake_medaka_modules, _torch_gru_model
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _tarball(path, state, meta):

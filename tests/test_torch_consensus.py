@@ -39,18 +39,9 @@ from medaka_tpu import models as jmodels
 from medaka_tpu import prediction as jprediction
 from medaka_tpu_torch import cli, testing
 from medaka_tpu_torch.io.fastx import FastaReader
+from tests.torch_threads import one_thread  # noqa: F401
 
 CHUNKS = ["--chunk_len", "2000", "--chunk_ovlp", "200", "-b", "8"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tier-1 run shares the machine between
-    pytest workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture

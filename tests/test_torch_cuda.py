@@ -75,11 +75,23 @@ def _split_inputs(rng, H, T, batch, mode, quant, device, classes=5,
     return w, xt, lengths.to(device)
 
 
+def _one_hot_head(w, H, classes):
+    """``w`` with a head whose class k picks unit k H // classes of each
+    direction's h: its logits are bf16(h) of those units exactly, in any
+    order of the head's sum."""
+    units = torch.arange(classes, device=w["w_head"].device) * H // classes
+    head = torch.zeros_like(w["w_head"])
+    head[:, torch.arange(classes), units] = 1.0
+    return dict(w, w_head=head)
+
+
 def _check_split_kernels(device, H, T, batch, mode, quant, seed,
                          classes=5, inputs=10, exact_l1=False):
     """Layer 1 against its plain version on its own inputs, layer 2 on
     layer 1's kernel outputs, and both kernels against themselves run
-    again (bit for bit); ``exact_l1``: the int8 layer 1 bit for bit."""
+    again (bit for bit); ``exact_l1``: the int8 layer 1 bit for bit. In
+    bf16 (every sum exact in f64) layer 1 is the plain version's bits, and
+    so is layer 2's h, read through a one-hot head."""
     w, xt, lens = _split_inputs(np.random.default_rng(seed), H, T, batch,
                                 mode, quant, device, classes, inputs)
     args1 = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
@@ -96,7 +108,7 @@ def _check_split_kernels(device, H, T, batch, mode, quant, seed,
               "mean", diff.mean().item())
         assert diff.max().item() <= (1 if quant else 2.0 ** -7)
         assert diff.mean().item() <= 1e-3
-        if exact_l1 and quant:
+        if exact_l1 or not quant:
             assert torch.equal(got, ref)
     args2 = (out_f, out_b, lens, w["w_in2"], w["in_scale2"], w["b_ih2"],
              w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
@@ -113,6 +125,13 @@ def _check_split_kernels(device, H, T, batch, mode, quant, seed,
         print("layer 2", H, batch, mode, quant, "max", diff.max().item(),
               "mean", diff.mean().item())
         assert diff.max().item() <= 1e-3
+    if not quant:
+        wh = _one_hot_head(w, H, classes)
+        args2 = args2[:-1] + (wh["w_head"],)
+        got = gru_split.gru_l2head_split(*args2, mode=mode, quant=False)
+        ref = gru_split.gru_l2head_split_plain(*args2, mode=mode,
+                                               quant=False)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("classes", [5, 9, 15, 16])
@@ -189,9 +208,18 @@ def test_wide_split_kernels_match_plain(device, H, batch, mode):
 def test_wide_bf16_split_kernels_match_plain(device, H, batch, mode):
     """The bf16 (``quant=False``) split kernels at H=384 and 512: layer 1
     on clusters (of 8 or 16), layer 2 on the per-block kernel, whose bf16
-    W_hh and W_ih slices fit no cluster. The bars of H=256, bit for bit
-    on repeat."""
+    W_hh and W_ih slices fit no cluster and whose sums are double fma
+    chains. Layer 1 and layer 2's h the plain versions' bits, the logits
+    within 1e-3, bit for bit on repeat."""
     _check_split_kernels(device, H, 64, batch, mode, False, H + batch + 1)
+
+
+def test_bf16_split_kernels_at_the_automatic_batch(device):
+    """The bf16 cluster kernels at the automatic batch (480 rows, mode
+    "t", H=256, ragged lengths): layer 1 and layer 2's h the plain
+    versions' bits, the logits within 1e-3, and a second launch of each
+    repeats the first bit for bit."""
+    _check_split_kernels(device, 256, 200, 480, "t", False, 480)
 
 
 def _split_kernels_run(fn):
@@ -210,7 +238,8 @@ def test_bf16_split_launches_run_the_cluster_kernels(device, H, per_block):
     (``gru_l1_split_bf16_kernel``, ``gru_l2head_split_bf16_kernel``) and
     no retired per-block kernel: the per-block layer 1 is gone, and the
     per-block layer 2 (``gru_l2head_split_kernel``) runs only where no
-    cluster holds the slices (H=512)."""
+    cluster holds the slices (H=512). Their outputs are the plain
+    versions' bits in layer 1, and in layer 2's h (a one-hot head)."""
     w, xt, lens = _split_inputs(np.random.default_rng(H), H, 40, 64, "rows",
                                 False, device)
     args1 = (xt, lens, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
@@ -223,6 +252,14 @@ def test_bf16_split_launches_run_the_cluster_kernels(device, H, per_block):
     l2 = _split_kernels_run(lambda: gru_split.gru_l2head_split(
         *args2, mode="rows", quant=False))
     print(H, l1, l2)
+    plain = gru_split.gru_l1_split_plain(*args1, mode="rows", quant=False)
+    assert all(torch.equal(a, b) for a, b in zip(out["l1"], plain))
+    wh = _one_hot_head(w, H, 5)["w_head"]
+    got = gru_split.gru_l2head_split(*args2[:-1], wh, mode="rows",
+                                     quant=False)
+    want = gru_split.gru_l2head_split_plain(*args2[:-1], wh, mode="rows",
+                                            quant=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert any(k.startswith(("gru_l1_split_bf16_kernel",
                              "void gru_l1_split_bf16_kernel")) for k in l1)
     assert not any("gru_l1_split_kernel" in k for k in l1 + l2)

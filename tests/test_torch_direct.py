@@ -16,10 +16,10 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
 
 from medaka_tpu import prediction as jax_prediction
 from medaka_tpu_torch import labels, prediction, stitch, testing
+from tests.torch_threads import one_thread  # noqa: F401
 
 MODEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data",
@@ -27,17 +27,6 @@ MODEL = os.path.join(os.path.dirname(os.path.dirname(
 RUN = dict(model_path=MODEL, chunk_len=1000, chunk_overlap=100,
            batch_size=8, full_precision=True)
 BED = ".gaps_in_draft_coords.bed"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module: the tier-1 run shares the
-    machine between pytest workers, and OpenMP threads that spin-wait on a
-    busy machine slow these step-by-step loops many times over."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from medaka_tpu_torch import cli, common, rle, testing
 from medaka_tpu_torch.io import fast5
 from medaka_tpu_torch.io.bam import BamReader
 from tests import mock_data
+from tests.torch_threads import one_thread  # noqa: F401
 
 _DECOY = np.array([(b"A", 9.0, 9.0), (b"C", 9.0, 9.0)],
                   dtype=[("base", "S1"), ("shape", ">f4"), ("scale", ">f4")])

@@ -23,22 +23,12 @@ from medaka_tpu import models as jax_models
 from medaka_tpu.ops import pallas_gru
 from medaka_tpu_torch import models
 from medaka_tpu_torch.ops import gru_fullfused
+from tests.torch_threads import one_thread  # noqa: F401
 
 LAMBDA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data",
     "gru256_lambda_demo_model_pt.tar.gz")
 T = 40
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module: the tier-1 run shares the
-    machine between pytest workers, and OpenMP threads that spin-wait on a
-    busy machine slow these step-by-step loops many times over."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _direction(rng, in_size, hidden):

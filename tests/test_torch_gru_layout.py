@@ -17,6 +17,7 @@ import torch
 from medaka_tpu_torch.ops import cuda_build, gru_fullfused, gru_train, \
     rnn_cluster
 from medaka_tpu_torch.ops.rnn_cluster import GRU
+from tests.torch_threads import one_thread  # noqa: F401
 
 N_SM = 132
 BATCHES = [1, 5, 16, 31, 128, 512]

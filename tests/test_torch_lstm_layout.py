@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from medaka_tpu_torch.ops import cuda_build, lstm_train
+from tests.torch_threads import one_thread  # noqa: F401
 
 H_ALL = list(range(32, 513, 32))
 N_SM = 132

@@ -16,6 +16,7 @@ from medaka_tpu_torch.models.gru import GRUModel, fused_route, \
     params_from_jax, params_to_jax, takes_split_path
 from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM
 from medaka_tpu_torch.ops import rnn
+from tests.torch_threads import one_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data")

@@ -32,6 +32,7 @@ from medaka_tpu_torch import cli, datastore, parallel, prediction
 from medaka_tpu_torch.common import Region
 from medaka_tpu_torch.io.bam import BamRecord, write_bam
 from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
+from tests.torch_threads import one_thread  # noqa: F401
 
 HERE = pathlib.Path(__file__).parent
 #: the longest a process of these tests may run

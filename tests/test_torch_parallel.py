@@ -36,6 +36,7 @@ from medaka_tpu_torch import features, models, parallel, prediction, \
 from medaka_tpu_torch.io.fastx import FastaReader
 from medaka_tpu_torch.labels import HaploidLabelScheme
 from tests import torch_parallel_worker as worker
+from tests.torch_threads import one_thread  # noqa: F401
 
 TIMEOUT_S = worker.TIMEOUT_S
 WORLD = 4

@@ -15,22 +15,12 @@ import torch
 from medaka_tpu_torch import prediction, testing
 from tests.mock_data import create_synth_bam
 from tests.torch_precision_runs import cross_stitch, predict_both, probs
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(REPO, "medaka_tpu", "data",
                      "gru256_lambda_demo_model_pt.tar.gz")
 RUN = dict(chunk_len=1000, chunk_overlap=100, batch_size=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tier-1 run shares the machine between
-    pytest workers, and PyTorch's threads spinning over the scan's small
-    steps on a shared machine slow a run by two orders of magnitude."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

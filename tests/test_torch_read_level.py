@@ -28,23 +28,13 @@ from medaka_tpu_torch.ops import bilstm, rnn
 from tests import mock_data
 from tests.torch_precision_runs import check_pipeline, predict_both
 from tests.torch_read_level_data import make_bams
+from tests.torch_threads import one_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data")
 LAMBDA = os.path.join(DATA, "rl_lstm128_lambda_demo.tar.gz")
 DWELLS = os.path.join(DATA, "rl_lstm128_dwells_demo.tar.gz")
 RUN = dict(chunk_len=1000, chunk_overlap=100, batch_size=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tier-1 run shares the machine between
-    pytest workers, and PyTorch's threads spinning over the scan's small
-    steps on a shared machine slow a run by two orders of magnitude."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

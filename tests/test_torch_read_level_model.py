@@ -24,6 +24,7 @@ from medaka_tpu_torch.common import Region
 from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM, \
     params_from_jax, params_to_jax
 from tests.torch_read_level_data import make_bams
+from tests.torch_threads import one_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data")

@@ -31,6 +31,7 @@ from medaka_tpu_torch.io.fastx import FastaReader
 from medaka_tpu_torch.models.latent_space_lstm import LatentSpaceLSTM, \
     MaskedBatchStats, params_from_jax
 from medaka_tpu_torch.ops import lstm_train
+from tests.torch_threads import one_thread  # noqa: F401
 
 BF16_STEP = 2.0 ** -8    # one bf16 step for |h| < 1
 ENCODER = "ReadAlignmentFeatureEncoder"

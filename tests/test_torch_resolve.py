@@ -15,6 +15,7 @@ import pytest
 from medaka_tpu import models as jax_models
 from medaka_tpu import options as jax_options
 from medaka_tpu_torch import cli, datastore, models, options, testing
+from tests.torch_threads import one_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data")

@@ -44,22 +44,13 @@ from medaka_tpu_torch.io.fastx import read_fastx
 from medaka_tpu_torch.labels import HaploidLabelScheme
 from medaka_tpu_torch.models.majority import MajorityVoteModel
 from tests.torch_precision_runs import probs
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(REPO, "medaka_tpu", "data",
                      "gru256_lambda_demo_model_pt.tar.gz")
 #: the majority-vote runs' chunks, as tests/test_smolecule.py's
 MAJORITY_RUN = dict(chunk_len=500, chunk_ovlp=100, batch_size=4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tier-1 run shares the machine between
-    pytest workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _read(path):

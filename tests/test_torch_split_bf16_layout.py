@@ -5,10 +5,14 @@ the bf16 slices of ``medaka_tpu_torch.ops.rnn_cluster`` with the
 ``quant=False``, and the route of bf16 layer 2 by shape.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py);
-what they are given is decided here, in pure Python. Their arithmetic is
-emulated from the slices in the kernels' order (an f32 fmaf chain over k
-in order for every sum, ``ChainProduct`` in ``csrc/gru_split.cu``) and
-held to the plain versions within the card's bars.
+what they are given is decided here, in pure Python. Every product of
+their recurrence is an f64 sum of bf16 products rounded once to f32
+(``F64Product`` in ``csrc/rnn_train.cuh``: k-groups of 16 on the FP64
+tensor cores; layer 1's features in a double fma chain), as the plain
+versions sum it: their arithmetic is emulated from the slices in the
+kernels' order and held to the plain versions bit for bit in layer 1, the
+plain versions to a numpy f64 reference, and the sums to themselves in
+other orders of k.
 """
 import contextlib
 import types
@@ -19,6 +23,7 @@ import torch
 
 from medaka_tpu_torch.ops import cuda_build, gru_split, rnn_cluster
 from medaka_tpu_torch.ops.rnn_cluster import SPLIT, SPLIT_BF16
+from tests.torch_threads import one_thread  # noqa: F401
 
 N_SM = 132
 LIMIT = cuda_build.SMEM_LIMIT
@@ -354,16 +359,25 @@ def test_bf16_slices_reassemble(H, C):
         w["w_in2"][1, g * H + j, 2 * H - 1]
 
 
-def _chained(a, w):
-    """a (n, K) . w (m, K)^T as the bf16 kernels sum it: one f32 fmaf
-    chain over k in order from 0 (a bf16 x bf16 product is exact in f32,
-    so each fmaf rounds only the sum)."""
-    a = np.asarray(a, dtype=np.float32)
-    w = np.asarray(w, dtype=np.float32)
-    acc = np.zeros((a.shape[0], w.shape[0]), dtype=np.float32)
-    for k in range(a.shape[1]):
-        acc = acc + np.outer(a[:, k], w[:, k])
+def _groups(a, w, groups, dtype=torch.float64):
+    """a (n, K) . w (m, K)^T as the bf16 kernels sum it: the products of
+    16-value k-groups (one m16n8k16 f64 mma a group) added in ``dtype`` in
+    the order of ``groups``."""
+    a = torch.as_tensor(a).to(dtype)
+    w = torch.as_tensor(w).to(dtype)
+    acc = torch.zeros(a.shape[:-1] + (w.shape[0],), dtype=dtype)
+    for j in groups:
+        k = slice(16 * j, 16 * j + 16)
+        acc = acc + a[..., k] @ w[:, k].t()
     return acc
+
+
+def _f64(a, w):
+    """a (n, K) . w (m, K)^T summed in f64, rounded once to f32: the f32
+    that the kernels' sums give in any order of k
+    (:func:`test_bf16_sums_do_not_depend_on_the_order_of_k`)."""
+    return (torch.as_tensor(a).double()
+            @ torch.as_tensor(w).double().t()).float()
 
 
 def _gates(h, xp, hp):
@@ -382,10 +396,10 @@ def _emulate(layer, ops, C, BT, mode, H, T, lengths, inputs, classes=5):
     """The bf16 cluster kernels' arithmetic, block by block of each
     cluster, every operand read the way the kernels index it: the bf16 h
     buffer (C U units, padded units zero) times the block's W_hh rows
-    q*48 + g*16 + u in one f32 chain over k, the per-row constants in the
-    same rows, layer 1's features in one f32 fma chain, layer 2's halves
-    of W_ih in one chain each, the head from W_head^T of the block's
-    units, summed over the blocks in rank order."""
+    q*48 + g*16 + u summed in f64, the per-row constants in the same
+    rows, layer 1's features in one f64 fma chain, layer 2's W_ih over
+    both halves in one f64 sum, each rounded once to f32; the head from
+    W_head^T of the block's units, summed over the blocks in rank order."""
     B = lengths.shape[0]
     U = rnn_cluster.units_per_block(SPLIT_BF16, H, C)
     rows = torch.arange(3 * U)
@@ -405,21 +419,18 @@ def _emulate(layer, ops, C, BT, mode, H, T, lengths, inputs, classes=5):
                 for r in range(C):
                     rc = ops["rowc"][d, r]
                     whh = ops["w_hh"][d, r].float().numpy()
-                    hp = torch.from_numpy(_chained(hbuf, whh)) + rc[1]
+                    hp = _f64(hbuf, whh) + rc[1]
                     if layer == 1:
-                        x = ops["x"][t, cols].float()
-                        w = ops["w_ih"][d, r].float()
-                        xp = torch.zeros((n, 3 * U))
-                        for k in range(inputs):      # one fmaf chain
+                        x = ops["x"][t, cols].double()
+                        w = ops["w_ih"][d, r].double()
+                        xp = torch.zeros((n, 3 * U), dtype=torch.float64)
+                        for k in range(inputs):      # one f64 fma chain
                             xp = xp + w[:, k] * x[:, k:k + 1]
-                        xp = xp + rc[2]
+                        xp = xp.float() + rc[2]
                     else:
-                        w = ops["w_in"][d, r].float().numpy()
-                        a = _chained(inputs[0][t, cols].float().numpy(),
-                                     w[:, :H])
-                        b = _chained(inputs[1][t, cols].float().numpy(),
-                                     w[:, H:])
-                        xp = torch.from_numpy(a + b) + rc[2]
+                        prev = torch.cat([inputs[0][t, cols],
+                                          inputs[1][t, cols]], dim=-1)
+                        xp = _f64(prev, ops["w_in"][d, r]) + rc[2]
                     if mode == "rows":
                         xp = _bf16(xp)
                     xg = torch.zeros((n, U, 3))
@@ -452,10 +463,10 @@ def test_bf16_steps_from_the_slices_match_the_plain_versions(
     """The bf16 kernels' arithmetic emulated from ``l1_operands`` and
     ``l2_operands(quant=False)`` over ragged lengths (a column of length
     0) against ``gru_l1_split_plain`` and ``gru_l2head_split_plain``
-    (quant=False, unchanged): layer 1 within one bf16 step (2^-7, mean
-    1e-3) and the logits within 1e-3, the card's bars; the emulation's
-    order of f32 sums is the kernels' (on the card also the plain
-    versions'), the plain versions' here the CPU's ``torch.bmm``'s."""
+    (quant=False): layer 1 bit for bit (f64 sums of the slices in the
+    kernels' order against the plain versions' f64 ``torch.bmm``) and the
+    logits within 1e-3, the card's bar (the head's f32 sum over the
+    blocks)."""
     rng = np.random.default_rng(H + C + B + IN)
     T = 6
     layers, head = _net(rng, H, IN, classes)
@@ -471,8 +482,7 @@ def test_bf16_steps_from_the_slices_match_the_plain_versions(
                     C, BT, mode, H, T, lengths, IN)
     for got, want in zip(got1, want1):
         assert got.shape == want.shape and got.dtype == torch.bfloat16
-        diff = (got.float() - want.float()).abs()
-        assert diff.max() <= TOL_L1 and diff.mean() <= TOL_L1_MEAN
+        assert torch.equal(got, want)
     a2 = (want1[0], want1[1], lengths, w["w_in2"], w["in_scale2"],
           w["b_ih2"], w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"])
     want2 = gru_split.gru_l2head_split_plain(*a2, mode=mode, quant=False)
@@ -482,3 +492,141 @@ def test_bf16_steps_from_the_slices_match_the_plain_versions(
     for got, want in zip(got2, want2):
         assert got.shape == want.shape
         assert (got - want).abs()[valid].max() <= TOL_LOGIT
+
+
+def _reference(w, xt, lengths, mode):
+    """The quant=False split path written out with numpy's f64 products:
+    every product of the recurrence is ``a @ w.T`` of the bf16 values in
+    f64, rounded once to f32, then the f32 biases, the f32 gates and the
+    masks; returns layer 1's bf16 outputs and layer 2's bf16 h of both
+    directions, each (2, T, B, H)."""
+    T, B, _ = xt.shape
+    H = w["w_hh1"].shape[-1]
+    lens = lengths.numpy()
+
+    def f64(a, m):
+        return torch.from_numpy((np.asarray(a, np.float64)
+                                 @ np.asarray(m, np.float64).T)
+                                .astype(np.float32))
+
+    def walk(inputs, w_in, b_in, w_hh, b_hh):
+        outs = torch.zeros((2, T, B, H), dtype=torch.bfloat16)
+        for d in range(2):
+            wi = w_in[d].float().numpy()
+            wh = w_hh[d].float().numpy()
+            h = torch.zeros((B, H))
+            for i in range(T):
+                t = i if d == 0 else T - 1 - i
+                xp = f64(inputs[t].float().numpy(), wi) + b_in[d]
+                if mode == "rows":
+                    xp = _bf16(xp)
+                hp = f64(_bf16(h).numpy(), wh) + b_hh[d]
+                r = torch.sigmoid(xp[:, :H] + hp[:, :H])
+                z = torch.sigmoid(xp[:, H:2 * H] + hp[:, H:2 * H])
+                n = torch.tanh(xp[:, 2 * H:] + r * hp[:, 2 * H:])
+                nh = (1.0 - z) * n + z * h
+                h = torch.where(torch.from_numpy(t < lens)[:, None], nh, h)
+                outs[d, t] = h.to(torch.bfloat16)
+        return outs
+
+    l1 = walk(xt, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["b_hh1"])
+    l2 = walk(torch.cat([l1[0], l1[1]], dim=-1), w["w_in2"], w["b_ih2"],
+              w["w_hh2"], w["b_hh2"])
+    return l1, l2
+
+
+@pytest.mark.parametrize("mode", ["t", "rows"])
+@pytest.mark.parametrize("H,IN,B,T", [(16, 10, 7, 9), (256, 10, 5, 4),
+                                      (256, 120, 3, 3)])
+def test_bf16_plain_versions_equal_a_numpy_f64_reference(H, IN, B, T, mode):
+    """``gru_l1_split_plain`` and ``gru_l2head_split_plain`` with
+    quant=False over ragged lengths (a column of length 0) are bit for bit
+    :func:`_reference`, whose products numpy sums in f64 and rounds once
+    to f32. Layer 2's h is read through a one-hot head (class k picks unit
+    u_k of each direction's half), whose logit of a column is bf16(h) of
+    that unit exactly."""
+    rng = np.random.default_rng(H + IN + B)
+    layers, _ = _net(rng, H, IN, 5)
+    units = rng.permutation(H)[:min(H, rnn_cluster.HEAD_CLASSES)]
+    w_head = np.zeros((len(units), 2 * H), dtype=np.float32)
+    w_head[np.arange(len(units)), units] = 1.0
+    w_head[np.arange(len(units)), H + units] = 1.0
+    head = {"w": torch.from_numpy(w_head), "b": torch.zeros(len(units))}
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    lengths[0], lengths[-1] = T, 0
+    w = gru_split.prepare_split_weights(layers, head, mode, False, "cpu")
+    xt = torch.from_numpy(rng.random((T, B, IN)).astype(np.float32)).to(
+        torch.bfloat16)
+    l1, l2 = _reference(w, xt, lengths, mode)
+    out = gru_split.gru_l1_split_plain(
+        xt, lengths, w["w_ih1"], w["b_ih1"], w["w_hh1"], w["sc1"],
+        w["b_hh1"], mode=mode, quant=False)
+    assert torch.equal(out[0], l1[0]) and torch.equal(out[1], l1[1])
+    lg = gru_split.gru_l2head_split_plain(
+        out[0], out[1], lengths, w["w_in2"], w["in_scale2"], w["b_ih2"],
+        w["w_hh2"], w["sc2"], w["b_hh2"], w["w_head"], mode=mode,
+        quant=False)
+    for d in range(2):
+        want = l2[d][:, :, units].float().transpose(0, 1)   # (B, T, C)
+        assert torch.equal(lg[d], want)
+
+
+def _h_wide(rng, n, K):
+    """bf16 values over some 40 binades (and some zeros), both signs: the
+    products then span more binades than an f64 significand holds."""
+    mag = 2.0 ** rng.uniform(-40, 0, (n, K))
+    v = np.where(rng.random((n, K)) < 0.05, 0.0,
+                 mag * rng.choice([-1.0, 1.0], (n, K)))
+    return torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("H,C", [(16, 1), (256, 2), (256, 8), (512, 16)])
+def test_bf16_sums_do_not_depend_on_the_order_of_k(H, C):
+    """The claim the f64 kernels rest on: over the bf16 slices of W_hh
+    (K = Hp) and of layer 2's W_ih (K = 2H), the f64 sums of each block's
+    rows taken by k-groups in ascending order, in descending order, and
+    split over S = 2 and 4 warps (each warp's groups in order, the partial
+    sums added in warp order) all round to the same f32, the plain
+    version's ``_sum64`` of the unsliced weights; the same orders summed
+    in f32 (by k-group) do not agree."""
+    rng = np.random.default_rng(H + C)
+    layers, head = _net(rng, H, 10, 5)
+    w = gru_split.prepare_split_weights(layers, head, "t", False, "cpu")
+    op = gru_split.l2_operands(w["w_in2"], w["in_scale2"], w["b_ih2"],
+                               w["w_hh2"], w["sc2"], w["b_hh2"],
+                               w["w_head"], C, quant=False)
+    U = rnn_cluster.units_per_block(SPLIT_BF16, H, C)
+    f32_orders_agree = True
+    for sl, full in ((op["w_hh"][0], w["w_hh2"][0]),
+                     (op["w_in"][0], w["w_in2"][0])):
+        K = sl.shape[-1]
+        a = _h_wide(rng, 9, K)
+        a[:, full.shape[-1]:] = 0     # the padded units' zero h
+        want = gru_split._sum64(a[:, :full.shape[-1]].float()[None],
+                                full.float().t()[None])[0]
+        flat = torch.cat(list(sl), 0)
+        G = K // 16
+
+        def unslice(rows):
+            back = _unslice(rows.t().reshape(C, 3 * U, -1), C)
+            return back[:, :H].reshape(3 * H, -1).t()
+
+        sums = []
+        for order in (range(G), range(G - 1, -1, -1)):
+            assert torch.equal(unslice(_groups(a, flat, order).float()),
+                               want)
+            sums.append(_groups(a, flat, order, torch.float32))
+        for S in (2, 4):
+            # each warp's share in order, the shares added in warp order
+            for dtype in (torch.float64, torch.float32):
+                total = 0
+                for s in range(S):
+                    total = total + _groups(
+                        a, flat, range(s * G // S, (s + 1) * G // S), dtype)
+                if dtype == torch.float64:
+                    assert torch.equal(unslice(total.float()), want)
+                else:
+                    sums.append(total)
+        f32_orders_agree &= all(torch.equal(v, sums[0]) for v in sums[1:])
+    # (at H=16, one and two k-groups, every order adds the same f32s)
+    assert H == 16 or not f32_orders_agree

@@ -18,6 +18,7 @@ import torch
 
 from medaka_tpu.ops import pallas_gru
 from medaka_tpu_torch.ops import cuda_build, gru_split
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, IN, H, C = 4, 32, 10, 16, 5

@@ -15,6 +15,7 @@ import torch
 
 from medaka_tpu_torch.ops import cuda_build, gru_split, rnn_cluster
 from medaka_tpu_torch.ops.rnn_cluster import SPLIT
+from tests.torch_threads import one_thread  # noqa: F401
 
 N_SM = 132
 LIMIT = cuda_build.SMEM_LIMIT

@@ -52,6 +52,7 @@ from medaka_tpu_torch.smolecule import Subread
 from medaka_tpu_torch.tandem import clustering, io_utils
 from medaka_tpu_torch.tandem.record_name import RecordName
 from tests.torch_precision_runs import probs
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(REPO, "medaka_tpu", "data",
@@ -61,16 +62,6 @@ PHASINGS = ("prephased", "hybrid", "abpoa", "unphased")
 OUTPUTS = ("medaka_to_ref.TR.vcf", "poa.fasta", "consensus.fasta",
            "skipped.bed", "prephased_region_metrics.txt",
            "abpoa_region_metrics.txt", "unphased_region_metrics.txt")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tier-1 run shares the machine between
-    pytest workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _read(path):

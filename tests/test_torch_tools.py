@@ -33,6 +33,7 @@ from medaka_tpu_torch import cli, datastore, labels, stitch, testing, vcf
 from medaka_tpu_torch.common import Sample, make_positions
 from medaka_tpu_torch.io.bam import BamReader
 from medaka_tpu_torch.io.fastx import FastaReader, FastaWriter
+from tests.torch_threads import one_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data")

@@ -34,6 +34,7 @@ from medaka_tpu_torch.io.fastx import FastaReader
 from medaka_tpu_torch.models.gru import GRUModel, params_from_jax
 from medaka_tpu_torch.ops import gru_train
 from tests import mock_data
+from tests.torch_threads import one_thread  # noqa: F401
 
 BF16_STEP = 2.0 ** -8    # one bf16 step for |h| < 1
 

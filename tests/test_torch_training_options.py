@@ -23,6 +23,7 @@ from medaka_tpu import models as jax_models
 from medaka_tpu import training as jax_training
 from medaka_tpu_torch import cli, features, labels, models, testing, training
 from medaka_tpu_torch.io.fastx import FastaReader
+from tests.torch_threads import one_thread  # noqa: F401
 
 #: a small counts GRUModel and read-level LatentSpaceLSTM
 GRU = {"type": "GRUModel", "kwargs": {"num_features": 10, "num_classes": 5,

@@ -24,7 +24,6 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
 
 from medaka_tpu import common as jcommon
 from medaka_tpu import labels as jlabels
@@ -35,21 +34,12 @@ from medaka_tpu_torch import cli, common, features, labels, testing, \
     variant
 from medaka_tpu_torch.io.bam import BamRecord, write_bam
 from medaka_tpu_torch.io.fastx import FastaReader
+from tests.torch_threads import one_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "medaka_tpu", "data")
 BUNDLE = {False: "gru256_variant_demo", True: "gru256_diploid_snp_demo"}
 RUN = dict(chunk_len=1000, chunk_overlap=200, batch_size=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tier-1 run shares the machine between
-    pytest workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 # ---------------------------------------------------------------------------
